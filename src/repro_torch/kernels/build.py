@@ -1,0 +1,181 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a``
+(one ``nvcc -c`` per source, all started together) and linked into one
+shared library with a plain C interface, which ``ctypes`` loads.  The
+library is built at first use into ``build/repro_torch_kernels/`` at the
+root of the checkout, under a name that hashes the sources and flags, so
+an edited source rebuilds and an unchanged one is reused.
+
+Every C entry returns ``cudaGetLastError()``; :func:`check` raises on a
+non-zero code.  Each kernel wrapper counts its launches in
+:data:`launch_counts`.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+SOURCES = ("sparse_row_gather.cu", "sparse_row_scatter.cu", "knn_topk.cu",
+           "serving_topn.cu")
+HEADERS = ("topk_common.cuh",)
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+# C signature of every entry point (all return cudaError_t as int)
+SIGNATURES: Dict[str, List] = {
+    "srg_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "srs_launch": [_P, _P, _P, _L, _L, _P],
+    "knn_topk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _I,
+                        _I, _P, _P, _P, _P, _P],
+    "blend_topn_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _I,
+                          _P, _P, _P, _P, _P],
+}
+
+# launches per kernel wrapper since the last reset_launch_counts()
+launch_counts: Dict[str, int] = {"sparse_row_gather": 0,
+                                 "sparse_row_scatter": 0,
+                                 "knn_topk": 0, "blend_topn_onehot": 0}
+
+_lib: Optional[ctypes.CDLL] = None
+last_build_log = ""
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """Record one launch of kernel ``name`` (called by its wrapper)."""
+    launch_counts[name] += 1
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit (PATH or CUDA_HOME)")
+
+
+def _digest(flags: List[str]) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the sources (if needed) and return the library's path.
+
+    ``verbose`` adds ``-Xptxas -v`` (registers, shared memory and spills
+    per kernel) and keeps the compiler output in :data:`last_build_log`.
+    """
+    global last_build_log
+    flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
+    lib_path = BUILD_DIR / f"librepro_torch_kernels-{_digest(NVCC_FLAGS)}.so"
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, Path(s).stem + ".o") for s in SOURCES]
+        procs = [subprocess.Popen([nvcc, *flags, "-c", str(CSRC / s),
+                                   "-o", o], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed on " + ", ".join(failed) + ":\n"
+                               + "\n".join(logs))
+        tmp_lib = os.path.join(tmp, "lib.so")
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", *objs,
+                               "-o", tmp_lib], capture_output=True,
+                              text=True)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout
+                               + link.stderr)
+        os.replace(tmp_lib, lib_path)
+    last_build_log = "".join(logs)
+    return lib_path
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """Load a built library and declare every entry's C signature."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def library(verbose: bool = False) -> ctypes.CDLL:
+    """The loaded kernel library, built at first use (see :func:`build`
+    for ``verbose``)."""
+    global _lib
+    if _lib is None:
+        _lib = load(build(verbose))
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry reported a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code} at launch")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """Handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def cuda_input(t: torch.Tensor, what: str, dtypes: Sequence[torch.dtype],
+               device: Optional[torch.device] = None,
+               ndim: Optional[int] = None) -> torch.Tensor:
+    """Check one kernel input: a contiguous CUDA tensor of an accepted
+    dtype (and rank), on ``device`` when given.  Raises otherwise."""
+    if not isinstance(t, torch.Tensor) or not t.is_cuda:
+        raise ValueError(f"{what}: the CUDA kernel takes CUDA tensors, "
+                         f"got {getattr(t, 'device', type(t))}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{what}: on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{what}: dtype {t.dtype} not in {list(dtypes)}")
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f"{what}: expected {ndim} dims, got {t.dim()}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: must be contiguous")
+    return t
+
+
+INDEX_DTYPES = (torch.int32, torch.int64)
+
+
+def index_input(t: torch.Tensor, what: str, device: torch.device,
+                ndim: int) -> torch.Tensor:
+    """Check an index input (int32 or int64) and return it as a
+    contiguous int32 tensor."""
+    if isinstance(t, torch.Tensor) and t.is_cuda:
+        t = t.contiguous()
+    return cuda_input(t, what, INDEX_DTYPES, device, ndim).to(torch.int32)

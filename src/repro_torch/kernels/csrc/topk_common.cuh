@@ -1,0 +1,122 @@
+// Shared pieces of the port's top-k kernels (stage A and stage B).
+//
+// Candidates are (value, index) pairs under one total order: the higher
+// value first and, for equal values, the LOWER index first -- the
+// tie-break of lax.top_k that the JAX package's kernels keep.  Padding
+// entries are (-inf, PAD_IDX), which every real candidate beats.
+//
+// Lists live in shared memory as two arrays (values, indices) and are
+// sorted with bitonic networks by a group of threads: a warp (syncs
+// with __syncwarp) or a whole block (syncs with __syncthreads).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#define PAD_IDX 0x7fffffff
+
+__device__ __forceinline__ bool better(float va, int ia, float vb, int ib) {
+  return va > vb || (va == vb && ia < ib);
+}
+
+template <bool kBlock>
+__device__ __forceinline__ void group_sync() {
+  if (kBlock) {
+    __syncthreads();
+  } else {
+    __syncwarp();
+  }
+}
+
+__device__ __forceinline__ void swap_entries(float* v, int* ix, int a,
+                                             int b) {
+  float tv = v[a];
+  v[a] = v[b];
+  v[b] = tv;
+  int ti = ix[a];
+  ix[a] = ix[b];
+  ix[b] = ti;
+}
+
+// Sort n = 2^p entries into descending order (best first).
+// tid in [0, nthreads); every thread of the group must call this.
+template <bool kBlock>
+__device__ void bitonic_sort_desc(float* v, int* ix, int n, int tid,
+                                  int nthreads) {
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = tid; t < (n >> 1); t += nthreads) {
+        int lo = 2 * stride * (t / stride) + (t % stride);
+        int hi = lo + stride;
+        bool first_block = (lo & size) == 0;
+        bool swap = first_block ? better(v[hi], ix[hi], v[lo], ix[lo])
+                                : better(v[lo], ix[lo], v[hi], ix[hi]);
+        if (swap) swap_entries(v, ix, lo, hi);
+      }
+      group_sync<kBlock>();
+    }
+  }
+}
+
+// Sort a bitonic sequence of n = 2^p entries into descending order.
+template <bool kBlock>
+__device__ void bitonic_merge_desc(float* v, int* ix, int n, int tid,
+                                   int nthreads) {
+  for (int stride = n >> 1; stride > 0; stride >>= 1) {
+    for (int t = tid; t < (n >> 1); t += nthreads) {
+      int lo = 2 * stride * (t / stride) + (t % stride);
+      int hi = lo + stride;
+      if (better(v[hi], ix[hi], v[lo], ix[lo])) swap_entries(v, ix, lo, hi);
+    }
+    group_sync<kBlock>();
+  }
+}
+
+// Fold a descending list b[0..nb) (nb <= n) into the descending list
+// a[0..n) so that a keeps the best n of both: pair a[i] with
+// b[n-1-i], keep the better of each pair (the result is bitonic), then
+// bitonic-merge.  Every thread of the group must call this.
+template <bool kBlock>
+__device__ void fold_into_list(float* av, int* ai, const float* bv,
+                               const int* bi, int nb, int n, int tid,
+                               int nthreads) {
+  for (int j = tid; j < nb; j += nthreads) {
+    int i = n - 1 - j;
+    if (better(bv[j], bi[j], av[i], ai[i])) {
+      av[i] = bv[j];
+      ai[i] = bi[j];
+    }
+  }
+  group_sync<kBlock>();
+  bitonic_merge_desc<kBlock>(av, ai, n, tid, nthreads);
+}
+
+// Second pass of both top-k stages: merge, per query (one block each),
+// S descending lists of length L into the best kout entries.
+// in_*: [Q, S, L]; out_*: [Q, kout]; n2 = power of two >= max(L, kout).
+// Dynamic shared memory: n2 * 8 bytes.
+static __global__ void merge_lists_kernel(const float* __restrict__ in_v,
+                                          const int* __restrict__ in_i,
+                                          int S, int L, int n2, int kout,
+                                          float* __restrict__ out_v,
+                                          int* __restrict__ out_i) {
+  extern __shared__ float4 merge_smem[];
+  float* av = reinterpret_cast<float*>(merge_smem);
+  int* ai = reinterpret_cast<int*>(av + n2);
+  const int q = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  for (int t = tid; t < n2; t += nt) {
+    av[t] = -INFINITY;
+    ai[t] = PAD_IDX;
+  }
+  __syncthreads();
+  for (int s = 0; s < S; ++s) {
+    const size_t base = ((size_t)q * S + s) * L;
+    fold_into_list<true>(av, ai, in_v + base, in_i + base, L, n2, tid, nt);
+  }
+  for (int t = tid; t < kout; t += nt) {
+    out_v[(size_t)q * kout + t] = av[t];
+    out_i[(size_t)q * kout + t] = ai[t];
+  }
+}
