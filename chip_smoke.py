@@ -13,14 +13,30 @@ Phases, each fatal on failure (nothing is caught):
    card at the main path's shapes (TaFeng at its published size), with
    the kernel's, the plain version's and one PyTorch yardstick's median
    times, and the kernel's bound from this run's bytes and operations;
-4. main path -- the port's serving trickle (``launch/serve.py``) at full
-   width: 13,949 users x 11,997 items, m=7, k=300, alpha=0.7, a bulk
-   load of one mixed stream in micro-batches of 512, then 4 request
-   batches of 256 users with 64 new baskets between them; once with the
-   kernels (launch counts reset just before, read just after) and once
-   with every kernel replaced by its plain version, the two runs held
-   against each other;
-5. summary -- every kernel's launches, then one JSON line of kernel
+4. main path -- the port's serving trickle (``launch/serve.py``,
+   ``run_trickle(quantized=True)``) at full width: 13,949 users x 11,997
+   items, m=7, k=300, alpha=0.7, a bulk load of one mixed stream in
+   micro-batches of 512, then 4 request batches of 256 users with 64 new
+   baskets between them, each batch served from the fp32 corpus and
+   again from the int8 cache (bd=512); once with the kernels (launch
+   counts reset just before, read just after) and once with every kernel
+   replaced by its plain version, the two runs held against each other,
+   the int8 cache held bitwise against a fresh quantization after every
+   request and the int8 answers against the plain int8 pipeline;
+5. fp32 D-tiled serving -- ``ops.fused_recommend(bd=512)`` on the main
+   path's last corpus (counts reset before, read after), held against
+   the ``bd=None`` answer;
+6. cross-shard serving -- that corpus split round-robin into 2 shards
+   on the one card, ``knn.sharded_recommend_for_users`` and
+   ``sharded_recommend_for_users_quant`` for the last request's users
+   (counts reset before, read after), held against the single-corpus
+   answers and the plain versions, each shard's int8 candidates bitwise;
+7. million-item point -- M=256 random rows, Q=32, I=1,048,576, k=16,
+   bd=1024 (the top point of benchmarks/bench_serving.py::ScaleConfig):
+   the D-tiled stage A in both modes against its plain version, then
+   ``knn.recommend_for_users_quant`` (counts reset before, read after)
+   held against its plain pipeline on the dequantized corpus;
+8. summary -- every kernel's launches, then one JSON line of kernel
    records, and last the ``{"ok": true, ...}`` line.
 
 It needs a CUDA card and the rest of the repository; anywhere else it
@@ -33,6 +49,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -47,12 +64,20 @@ from repro_torch.kernels import (build, knn_topk, ops, ref,  # noqa: E402
                                  serving_topn, sparse_row_gather,
                                  sparse_row_scatter)
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.optim.compression import (  # noqa: E402
+    dequantize_int8_rows, quantize_int8_rows, quantize_int8_rows_pitched)
+from repro_torch.parallel.sharding import UserShardSpec  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, int8
+# in the tensor cores, HBM3
 PEAK_FP32 = 67e12
+PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 Q, TOPN, ALPHA = 256, 10, 0.7
+BD = 512                         # the int8 serving path's D tile
 REPS = 5
+# the million-item point of benchmarks/bench_serving.py::ScaleConfig
+BIG_M, BIG_Q, BIG_I, BIG_K, BIG_BD = 256, 32, 1 << 20, 16, 1024
 
 KERNELS = {
     "sparse_row_gather": dict(
@@ -67,6 +92,15 @@ KERNELS = {
     "blend_topn_onehot": dict(
         source="src/repro_torch/kernels/csrc/serving_topn.cu",
         replaces="src/repro/kernels/serving_topn.py:116"),
+    "knn_topk_dtiled": dict(
+        source="src/repro_torch/kernels/csrc/knn_topk_dtiled.cu",
+        replaces="src/repro/kernels/knn_topk.py:265"),
+    "blend_topn_rows_quant": dict(
+        source="src/repro_torch/kernels/csrc/serving_rows.cu",
+        replaces="src/repro/kernels/serving_topn.py:264"),
+    "blend_topn_rows": dict(
+        source="src/repro_torch/kernels/csrc/serving_rows.cu",
+        replaces="src/repro/kernels/serving_topn.py:192"),
 }
 
 
@@ -91,8 +125,8 @@ def time_ms(fn, reps: int = REPS) -> float:
     return float(np.median(times))
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple:
-    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_FP32
+def bound(n_bytes: float, n_ops: float, peak: float = PEAK_FP32) -> tuple:
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -250,9 +284,30 @@ def check_stage_a(corpus, c_int, uid, records):
         if k == 300:
             records["knn_topk"] = dict(max_abs_err=err, nbr=ip,
                                        nbr_int=ipi)
+    # sub_qnorm, as the per-shard candidates run it (shard 1 of 2's ids)
+    gids = uid * 2 + 1
+    kw = dict(query_gids=gids, col_offset=1, col_stride=2, sub_qnorm=True)
+    vk, ik = knn_topk.launch(q, corpus, 300, **kw)
+    vp, _ = ref.knn_topk_ref(q, corpus, 300, **kw)
+    # column uid is the one whose gid uid*2+1 the query carries
+    s = plain_scores(q, corpus, uid) - ref.corpus_sqnorm(q)[:, None]
+    torch.cuda.synchronize()
+    err = float((vk - vp).abs().max())
+    assert torch.allclose(vk, vp, rtol=1e-5, atol=1e-3), err
+    assert torch.allclose(s.gather(1, ik.long()), vp, rtol=1e-5,
+                          atol=1e-3), "stage A sub_qnorm ids"
+    vki, iki = knn_topk.launch(q_int, c_int, 300, **kw)
+    vpi, ipi = ref.knn_topk_ref(q_int, c_int, 300, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(iki, ipi) and torch.equal(vki, vpi), \
+        "stage A sub_qnorm integer case"
+    log(f"  stage A k=300 sub_qnorm (shard 1 of 2): max |err| {err}, "
+        f"integer ties exact")
     m, d = corpus.shape
     cn = ref.corpus_sqnorm(corpus)
     rec = records["knn_topk"]
+    rec["sub_qnorm_ms"] = time_ms(lambda: knn_topk.launch(q, corpus, 300,
+                                                          **kw))
     rec.update(
         ms=time_ms(lambda: knn_topk.launch(q, corpus, 300, query_gids=uid)),
         plain_ms=time_ms(lambda: ref.knn_topk_ref(q, corpus, 300,
@@ -263,7 +318,8 @@ def check_stage_a(corpus, c_int, uid, records):
         bound=bound((Q * d + m * d + m + Q) * 4 + Q * 300 * 8,
                     2.0 * Q * m * d))
     log(f"  stage A timed: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, "
-        f"matmul + topk {rec['library_ms']:.4f})")
+        f"matmul + topk {rec['library_ms']:.4f}); with sub_qnorm "
+        f"{rec['sub_qnorm_ms']:.4f} ms")
 
 
 def check_stage_b(corpus, c_int, uid, records):
@@ -307,13 +363,315 @@ def check_stage_b(corpus, c_int, uid, records):
         f"gather + mean + topk {rec['library_ms']:.4f})")
 
 
+def same(a, b) -> bool:
+    """Bitwise equality of two tensors (values and ids of stage A)."""
+    return a.dtype == b.dtype and torch.equal(a.contiguous().view(
+        torch.int32), b.contiguous().view(torch.int32))
+
+
+def dtiled_pair(q, c, k, bd, **kw):
+    """Kernel and plain version of the D-tiled stage A on one input."""
+    got = knn_topk.launch_dtiled(q, c, k, bd=bd, **kw)
+    exp = ref.dtiled_topk_ref(q, c, k, bd=bd, **kw)
+    torch.cuda.synchronize()
+    return got, exp
+
+
+def int_mm_topk(q8, c8_t, qs, cs, cn, k):
+    """The int8 yardstick: cuBLAS int8 product (torch._int_mm, operands
+    padded to its multiples of 8 beforehand) and torch.topk."""
+    acc = torch._int_mm(q8, c8_t)[:, :cs.shape[0]].to(torch.float32)
+    return torch.topk(2.0 * (qs[:, None] * cs[None, :]) * acc
+                      - (cs * cs * cn)[None, :], k)
+
+
+def pad8(x):
+    """Zero-pad both dims of a 2-D tensor to multiples of 8."""
+    return torch.nn.functional.pad(x, (0, -x.shape[1] % 8,
+                                       0, -x.shape[0] % 8))
+
+
+def check_dtiled_edges(gen, dev):
+    """D-tiled stage A on a small integer corpus with duplicate rows, in
+    both modes, over D tiles that do and do not divide D, up to k = M
+    (the self column's -inf in the last slot): values and ids exact."""
+    m, d, q_n = 1000, 211, 13
+    c = int_corpus(gen, m, d, dev)
+    cq, cs = quantize_int8_rows(c)
+    uid = torch.randperm(m, generator=gen, device=dev)[:q_n].to(torch.int32)
+    u = uid.long()
+    for bd in (16, 67, 512, 1024):
+        for k in (1, 7, 300, m - 1, m):
+            (vk, ik), (vp, ip) = dtiled_pair(cq[u], cq, k, bd, query_gids=uid,
+                                             q_scale=cs[u], c_scale=cs)
+            assert same(vk, vp) and same(ik, ip), f"int8 bd={bd} k={k}"
+            (vk, ik), (vp, ip) = dtiled_pair(c[u], c, k, bd, query_gids=uid)
+            assert same(vk, vp) and same(ik, ip), f"fp32 bd={bd} k={k}"
+        # the shard candidates' mode: gid mapping and sub_qnorm
+        kw = dict(query_gids=uid * 3 + 2, col_offset=2, col_stride=3,
+                  sub_qnorm=True)
+        (vk, ik), (vp, ip) = dtiled_pair(cq[u], cq, 300, bd, q_scale=cs[u],
+                                         c_scale=cs, **kw)
+        assert same(vk, vp) and same(ik, ip), f"int8 shard mode bd={bd}"
+    log(f"  D-tiled stage A M={m} D={d} Q={q_n}, bd in (16, 67, 512, "
+        f"1024), k in (1, 7, 300, M-1, M), int8 and fp32, and the shard "
+        f"mode: identical")
+
+
+def check_dtiled(corpus, c_int, uid, records):
+    """D-tiled stage A at TaFeng's size (Q=256, k=300, bd=512): int8
+    identical to the plain version (and on the integer-tie corpus at
+    k=300 and 900), fp32 allclose with exact ids on the integer corpus.
+    The int8 corpus has the store's 16-byte row pitch; the integer-tie
+    corpus is contiguous (padded into a copy per call).  Returns the
+    int8 corpus, its scales and the int8 neighbours."""
+    u = uid.long()
+    cq, cs = quantize_int8_rows_pitched(corpus)
+    cqi, csi = quantize_int8_rows(c_int)
+    kq = dict(query_gids=uid, q_scale=cs[u], c_scale=cs)
+    (vk, ik), (vp, ip) = dtiled_pair(cq[u], cq, 300, BD, **kq)
+    assert same(vk, vp) and same(ik, ip), "int8 stage A at TaFeng differs"
+    nbr = ip
+    for k in (300, 900):
+        (vk, ik), (vp, ip) = dtiled_pair(cqi[u], cqi, k, BD, query_gids=uid,
+                                         q_scale=csi[u], c_scale=csi)
+        assert same(vk, vp) and same(ik, ip), f"int8 ties k={k} differ"
+    log("  D-tiled stage A int8 Q=256 k=300 bd=512: identical; integer-tie "
+        "corpus k=300 and k=900: identical")
+    (vk, ik), (vp, ip) = dtiled_pair(corpus[u], corpus, 300, BD,
+                                     query_gids=uid)
+    s = plain_scores(corpus[u], corpus, uid)
+    err = float((vk - vp).abs().max())
+    assert torch.allclose(vk, vp, rtol=1e-5, atol=1e-5), err
+    assert torch.allclose(s.gather(1, ik.long()), vp, rtol=1e-5,
+                          atol=1e-5), "fp32 D-tiled ids not equivalent"
+    (vk, ik), (vp, ip) = dtiled_pair(c_int[u], c_int, 300, BD,
+                                     query_gids=uid)
+    assert same(vk, vp) and same(ik, ip), "fp32 D-tiled integer case"
+    log(f"  D-tiled stage A fp32 k=300: max |err| {err}, integer ties exact")
+
+    m, d = corpus.shape
+    cn_q = ref.tiled_sqnorm_ref(cq, BD)
+    q8, c8_t = pad8(cq[u]), pad8(cq).t()
+    cq_flat = cq.contiguous()
+    fp_cn = ref.corpus_sqnorm(corpus)
+    qf = corpus[u]
+    timings = dict(
+        ms=time_ms(lambda: knn_topk.launch_dtiled(cq[u], cq, 300, bd=BD,
+                                                  **kq)),
+        contiguous_ms=time_ms(lambda: knn_topk.launch_dtiled(
+            cq[u], cq_flat, 300, bd=BD, **kq)),
+        plain_ms=time_ms(lambda: ref.dtiled_topk_ref(cq[u], cq, 300, bd=BD,
+                                                     **kq)),
+        library_ms=time_ms(lambda: int_mm_topk(q8, c8_t, cs[u], cs, cn_q,
+                                               300)),
+        fp32_ms=time_ms(lambda: knn_topk.launch_dtiled(qf, corpus, 300,
+                                                       bd=BD,
+                                                       query_gids=uid)),
+        fp32_plain_ms=time_ms(lambda: ref.dtiled_topk_ref(
+            qf, corpus, 300, bd=BD, query_gids=uid)),
+        fp32_library_ms=time_ms(lambda: torch.topk(
+            2.0 * (qf @ corpus.T) - fp_cn[None, :], 300)))
+    fp32_bound = bound((Q * d + m * d + m + Q) * 4 + Q * 300 * 8,
+                       2.0 * Q * m * d)
+    records["knn_topk_dtiled"] = dict(
+        max_abs_err=0.0, shape=f"int8 Q={Q} M={m} D={d} k=300 bd={BD}",
+        # int8 rows and queries read once, scales, norms, ids in, top-k
+        # out; 2*Q*M*D int8 operations
+        bound=bound(Q * d + m * d + (m + Q) * 12 + Q * 300 * 8,
+                    2.0 * Q * m * d, PEAK_INT8), **timings)
+    log(f"  D-tiled stage A timed: int8 {timings['ms']:.4f} ms on the "
+        f"16-byte row pitch ({timings['contiguous_ms']:.4f} ms on a "
+        f"contiguous corpus, padded per call; plain "
+        f"{timings['plain_ms']:.4f}, _int_mm + topk "
+        f"{timings['library_ms']:.4f}); fp32 {timings['fp32_ms']:.4f} ms "
+        f"(plain {timings['fp32_plain_ms']:.4f}, matmul + topk "
+        f"{timings['fp32_library_ms']:.4f}, bound {fp32_bound[0]:.4f} ms "
+        f"{fp32_bound[1]})")
+    return cq, cs, nbr
+
+
+def million_path(dev):
+    """Phase 7, the million-item point: M=256 random rows, Q=32,
+    I=1,048,576, k=16, bd=1024 (1.07 GB fp32, 268 MB int8).  The D-tiled
+    stage A in both modes against its plain version (int8 identical,
+    fp32 allclose with equivalent ids), then the int8 serving entry
+    point against its plain pipeline.  Returns the timings and the
+    entry point's launch counts."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    c = torch.rand((BIG_M, BIG_I), generator=gen, device=dev)
+    cq, cs = quantize_int8_rows(c)
+    uid = torch.randperm(BIG_M, generator=gen, device=dev)[:BIG_Q]
+    uid = uid.to(torch.int32)
+    u = uid.long()
+    kq = dict(query_gids=uid, q_scale=cs[u], c_scale=cs)
+    (vk, ik), (vp, ip) = dtiled_pair(cq[u], cq, BIG_K, BIG_BD, **kq)
+    assert same(vk, vp) and same(ik, ip), "int8 million-item point differs"
+    (vk, ik), (vp, ip) = dtiled_pair(c[u], c, BIG_K, BIG_BD, query_gids=uid)
+    s = plain_scores(c[u], c, uid)
+    err = float((vk - vp).abs().max())
+    assert torch.allclose(vk, vp, rtol=1e-5, atol=1e-5), err
+    assert torch.allclose(s.gather(1, ik.long()), vp, rtol=1e-5,
+                          atol=1e-5), "fp32 million-item ids"
+    log(f"million-item point M={BIG_M} Q={BIG_Q} I={BIG_I} k={BIG_K} "
+        f"bd={BIG_BD}: D-tiled stage A int8 identical, fp32 max |err| {err}")
+
+    def serve():
+        return knn.recommend_for_users_quant(cq, cs, uid, k=BIG_K,
+                                             alpha=ALPHA, topn=TOPN,
+                                             bd=BIG_BD)
+    build.reset_launch_counts()
+    got = serve()
+    torch.cuda.synchronize()
+    launches = dict(build.launch_counts)
+    log(f"  int8 serving at the million-item point: launches {launches}")
+    for name in ("knn_topk_dtiled", "blend_topn_rows_quant"):
+        assert launches[name] > 0, f"{name} was not launched on path 7"
+    build.reset_launch_counts()
+    with ops.default_impl("ref"):
+        want = serve()
+    torch.cuda.synchronize()
+    assert not any(build.launch_counts.values()), build.launch_counts
+    want, got = want.cpu().numpy(), got.cpu().numpy()
+    hold(dequantize_int8_rows(cq, cs), uid.cpu().numpy(), want, got,
+         SimpleNamespace(k_neighbors=BIG_K, alpha=ALPHA),
+         "million-item int8 serving vs its plain pipeline")
+    # On these rows many queries fall outside the exact class (neighbour
+    # distances of 1M-wide random rows agree to 1e-5 relative, and the
+    # dequantized predictions tie on a 1/64 grid), so the 90% gate of the
+    # other paths cannot be met.  The stricter gate holds instead: both
+    # pipelines read the same (q, scale), stage A is bitwise, and every
+    # dequantized sum of k=16 rows is exact, so the ids are identical.
+    same_ids = int(np.all(want == got, axis=1).sum())
+    log(f"  identical ids for {same_ids} of {BIG_Q} queries")
+    assert same_ids == BIG_Q, ("million-item int8 ids", same_ids, BIG_Q)
+
+    out = {}
+    q8, c8_t = pad8(cq[u]), pad8(cq).t()
+    cn_q, cn = ref.tiled_sqnorm_ref(cq, BIG_BD), ref.corpus_sqnorm(c)
+    for mode, args, kw, lib, peak, size in (
+            ("int8", (cq[u], cq), kq,
+             lambda: int_mm_topk(q8, c8_t, cs[u], cs, cn_q, BIG_K),
+             PEAK_INT8, 1),
+            ("fp32", (c[u], c), dict(query_gids=uid),
+             lambda: torch.topk(2.0 * (c[u] @ c.T) - cn[None, :], BIG_K),
+             PEAK_FP32, 4)):
+        t = dict(
+            ms=time_ms(lambda: knn_topk.launch_dtiled(
+                *args, BIG_K, bd=BIG_BD, **kw), 3),
+            plain_ms=time_ms(lambda: ref.dtiled_topk_ref(
+                *args, BIG_K, bd=BIG_BD, **kw), 3),
+            library_ms=time_ms(lib, 3))
+        b_ms, b_by = bound((BIG_Q + BIG_M) * BIG_I * size
+                           + (BIG_M + BIG_Q) * 12 + BIG_Q * BIG_K * 8,
+                           2.0 * BIG_Q * BIG_M * BIG_I, peak)
+        out[mode] = t
+        log(f"  D-tiled stage A {mode}: {t['ms']:.4f} ms (plain "
+            f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}), bound "
+            f"{b_ms:.4f} ms ({b_by})")
+    path_ms = time_ms(serve, 3)
+    with ops.default_impl("ref"):
+        path_plain_ms = time_ms(serve, 3)
+    out["serving"] = dict(ms=path_ms, plain_ms=path_plain_ms)
+    log(f"  recommend_for_users_quant: {path_ms:.4f} ms (plain pipeline "
+        f"{path_plain_ms:.4f} ms)")
+    return out, launches
+
+
+def check_rows(corpus, c_int, cq, cs, uid, nbr, records):
+    """Stage B over fetched rows at Q=256, k=300, n=10, I=11,997: fp32
+    (pre-fetched) and int8 (pre-fetched and read from the corpus)
+    against their plain versions; ids exact on the integer corpus."""
+    u, nb = uid.long(), nbr.long()
+    k = nb.shape[1]
+    rows = corpus[nb]                                # 3.7 GB
+    vk, ik = serving_topn.launch_rows(corpus[u], rows, ALPHA, TOPN)
+    vp, ip = ref.blend_topn_rows_ref(corpus[u], rows, ALPHA, TOPN)
+    pred = ALPHA * corpus[u] + (1.0 - ALPHA) * rows.mean(1)
+    torch.cuda.synchronize()
+    err_f = float((vk - vp).abs().max())
+    # fp32 sums of k rows in another order
+    assert torch.allclose(vk, vp, rtol=1e-5, atol=1e-6), err_f
+    assert torch.allclose(pred.gather(1, ik.long()), vp, rtol=1e-5,
+                          atol=1e-6), "blend_topn_rows ids not equivalent"
+    rows_q, n_scale = cq[nb], cs[nb]
+    vk, ik = serving_topn.launch_rows(cq[u], rows_q, ALPHA, TOPN,
+                                      q_scale=cs[u], n_scale=n_scale)
+    vx, ix = serving_topn.launch_rows_indexed(cq[u], cs[u], cq, cs, nbr,
+                                              ALPHA, TOPN)
+    vp, ip = ref.blend_topn_rows_quant_ref(cq[u], cs[u], rows_q, n_scale,
+                                           ALPHA, TOPN)
+    deq = dequantize_int8_rows(cq, cs)
+    pred = ALPHA * deq[u] + (1.0 - ALPHA) * deq[nb].mean(1)
+    torch.cuda.synchronize()
+    assert same(vk, vx) and same(ik, ix), "indexed and pre-fetched differ"
+    err_q = float((vk - vp).abs().max())
+    assert torch.allclose(vk, vp, rtol=1e-5, atol=1e-6), err_q
+    assert torch.allclose(pred.gather(1, ik.long()), vp, rtol=1e-5,
+                          atol=1e-6), "blend_topn_rows_quant ids"
+    del deq, pred
+    # integer corpus: every sum exact, ties true ties
+    ci8, ci_s = quantize_int8_rows(c_int)
+    for got, exp in (
+            (serving_topn.launch_rows(c_int[u], c_int[nb], ALPHA, TOPN),
+             ref.blend_topn_rows_ref(c_int[u], c_int[nb], ALPHA, TOPN)),
+            (serving_topn.launch_rows_indexed(ci8[u], ci_s[u], ci8, ci_s,
+                                              nbr, ALPHA, TOPN),
+             ref.blend_topn_rows_quant_ref(ci8[u], ci_s[u], ci8[nb],
+                                           ci_s[nb], ALPHA, TOPN))):
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], exp[1]), "row blend tie-break differs"
+        assert torch.allclose(got[0], exp[0], rtol=1e-6), "integer values"
+    log(f"  stage B over rows k={k} n={TOPN}: fp32 max |err| {err_f}, int8 "
+        f"max |err| {err_q} (indexed = pre-fetched), integer ties exact")
+    del ci8, ci_s
+    n_items = corpus.shape[1]
+    used = torch.unique(torch.cat([nb.reshape(-1), u]))
+    qf, qq, qs = corpus[u], cq[u], cs[u]
+    # Q*(k+1)*I adds (int8: multiply-adds) in FMA slots, two operations
+    ops_b = 2.0 * Q * (k + 1) * n_items
+    records["blend_topn_rows"] = dict(
+        max_abs_err=err_f, shape=f"Q={Q} k={k} I={n_items} n={TOPN} "
+                                 "pre-fetched f32",
+        ms=time_ms(lambda: serving_topn.launch_rows(qf, rows, ALPHA, TOPN)),
+        plain_ms=time_ms(lambda: ref.blend_topn_rows_ref(qf, rows, ALPHA,
+                                                         TOPN)),
+        library_ms=time_ms(lambda: torch.topk(
+            ALPHA * qf + (1.0 - ALPHA) * rows.mean(1), TOPN)),
+        bound=bound(Q * (k + 1) * n_items * 4 + Q * TOPN * 8, ops_b))
+    del rows
+    records["blend_topn_rows_quant"] = dict(
+        max_abs_err=err_q, shape=f"Q={Q} k={k} I={n_items} n={TOPN} int8 "
+                                 "rows read from the corpus",
+        ms=time_ms(lambda: serving_topn.launch_rows_indexed(
+            qq, qs, cq, cs, nbr, ALPHA, TOPN)),
+        prefetched_ms=time_ms(lambda: serving_topn.launch_rows(
+            qq, rows_q, ALPHA, TOPN, q_scale=qs, n_scale=n_scale)),
+        plain_ms=time_ms(lambda: ref.blend_topn_rows_quant_ref(
+            qq, qs, cq[nb], cs[nb], ALPHA, TOPN)),
+        library_ms=time_ms(lambda: torch.topk(
+            ALPHA * (qq.float() * qs[:, None]) + (1.0 - ALPHA)
+            * (cq[nb].float() * cs[nb][..., None]).mean(1), TOPN)),
+        # the distinct rows read once, int8, with ids and scales
+        bound=bound(used.numel() * n_items + Q * k * 8 + Q * TOPN * 8,
+                    ops_b))
+    for name in ("blend_topn_rows", "blend_topn_rows_quant"):
+        r = records[name]
+        log(f"  {name} timed: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+            f"library {r['library_ms']:.4f})"
+            + (f"; pre-fetched int8 rows {r['prefetched_ms']:.4f} ms"
+               if "prefetched_ms" in r else ""))
+
+
 # ---------------------------------------------------------------------------
 # the main path, with the kernels and with the plain versions
 # ---------------------------------------------------------------------------
 
 def request_breakdown(run, p):
-    """Device time of each request's two serving stages on the corpus it
-    was served from (CUDA events), beside the plain pipeline's."""
+    """Device time of each request's serving stages on the corpus it was
+    served from (CUDA events), beside the plain pipeline's: fp32 stages A
+    and B, then the int8 request's stages A and B."""
     for i, (users, corpus) in enumerate(zip(run.requests, run.corpora)):
         uid = torch.as_tensor(users, dtype=torch.int32, device=corpus.device)
         q = corpus[uid.long()]
@@ -325,26 +683,55 @@ def request_breakdown(run, p):
                                                   TOPN), 3)
         t_p = time_ms(lambda: ref.fused_recommend_ref(corpus, uid, k,
                                                       p.alpha, TOPN), 3)
+        cq, cs = run.quant_corpora[i]
+        qq, qs = cq[uid.long()], cs[uid.long()]
+        kq = dict(query_gids=uid, q_scale=qs, c_scale=cs)
+        _, nbr = knn_topk.launch_dtiled(qq, cq, k, bd=BD, **kq)
+        q_a = time_ms(lambda: knn_topk.launch_dtiled(qq, cq, k, bd=BD, **kq),
+                      3)
+        q_b = time_ms(lambda: serving_topn.launch_rows_indexed(
+            qq, qs, cq, cs, nbr, p.alpha, TOPN), 3)
+        q_p = time_ms(lambda: ref.fused_recommend_quant_ref(
+            cq, cs, uid, k, p.alpha, TOPN, BD), 3)
         log(f"  request {i} on its corpus: stage A {t_a:.4f} ms, stage B "
-            f"{t_b:.4f} ms; plain pipeline {t_p:.4f} ms")
+            f"{t_b:.4f} ms; plain pipeline {t_p:.4f} ms | int8: stage A "
+            f"{q_a:.4f} ms, stage B {q_b:.4f} ms; plain int8 pipeline "
+            f"{q_p:.4f} ms")
 
 
-def main_path(ds, records, dev):
+def hold(corpus, users, exp, got, p, what):
+    """compare_recommendations of two answers on one corpus: 0
+    mismatches; returns (exact, total)."""
+    res = knn.compare_recommendations(corpus, users, exp, got,
+                                      k=p.k_neighbors, alpha=p.alpha,
+                                      rtol=1e-5)
+    log(f"  {what} ({len(users)} users): {res}")
+    assert res["mismatch"] == 0, (what, res)
+    return res["exact"], len(users)
+
+
+def main_path(ds, dev):
+    """Phase 4; returns the kernel run and the launch counts it made."""
     build.reset_launch_counts()
-    kern = serve.run_trickle(ds, device=dev, keep_corpora=True)
+    kern = serve.run_trickle(ds, device=dev, keep_corpora=True,
+                             quantized=True)
     torch.cuda.synchronize()
     launches = dict(build.launch_counts)
     log("main path with the kernels:\n" + serve.summary(kern))
     build.reset_launch_counts()
     with ops.default_impl("ref"):
-        plain = serve.run_trickle(ds, device=dev)
+        plain = serve.run_trickle(ds, device=dev, keep_corpora=True,
+                                  quantized=True)
     torch.cuda.synchronize()
     log("main path with the plain versions:\n" + serve.summary(plain))
     assert not any(build.launch_counts.values()), \
         ("the plain run launched kernels", build.launch_counts)
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} was not launched on the main path"
-        records[name]["launches"] = n
+    log(f"  launches on the main path: {launches}")
+    for name in ("sparse_row_gather", "sparse_row_scatter", "knn_topk",
+                 "blend_topn_onehot", "knn_topk_dtiled",
+                 "blend_topn_rows_quant"):
+        assert launches[name] > 0, \
+            f"kernel {name} was not launched on the main path"
     request_breakdown(kern, ds.params)
 
     a = convert.state_to_numpy(kern.engine.store.state)
@@ -360,29 +747,138 @@ def main_path(ds, records, dev):
                  "dropped_adds", "refreshes", "renormalizations"):
         assert getattr(kern.engine.metrics, name) == \
             getattr(plain.engine.metrics, name), name
+    for name in ("quant_full_builds", "quant_rows_refreshed",
+                 "quant_threshold_rebuilds"):
+        assert getattr(kern.engine.store, name) == \
+            getattr(plain.engine.store, name), name
 
     p = ds.params
-    total = exact = 0
-    for users, corpus, kr, pr in zip(kern.requests, kern.corpora,
-                                     kern.recs, plain.recs):
-        res = knn.compare_recommendations(corpus, users, pr, kr,
-                                          k=p.k_neighbors, alpha=p.alpha,
-                                          rtol=1e-5)
-        log(f"  request of {len(users)} users: {res}")
-        assert res["mismatch"] == 0, res
-        total += len(users)
-        exact += res["exact"]
+    total = exact = q_total = q_exact = 0
+    for run in (kern, plain):
+        # the row-refresh contract: after every request the int8 cache is
+        # a from-scratch quantization of the corpus, bit for bit
+        for i, (corpus, (cq, cs)) in enumerate(zip(run.corpora,
+                                                   run.quant_corpora)):
+            wq, ws = quantize_int8_rows(corpus)
+            assert torch.equal(cq, wq) and same(cs, ws), \
+                f"int8 cache after request {i} is not quantize(corpus())"
+    for i, (users, corpus, kr, pr) in enumerate(zip(
+            kern.requests, kern.corpora, kern.recs, plain.recs)):
+        e, t = hold(corpus, users, pr, kr, p, f"request {i}, fp32")
+        exact, total = exact + e, total + t
+        # the int8 answer against the plain int8 pipeline on the SAME
+        # (q, scale); the exact class is computed on the dequantized rows
+        cq, cs = kern.quant_corpora[i]
+        uid = torch.as_tensor(users, dtype=torch.int32, device=dev)
+        want = ops.fused_recommend_quant(cq, cs, uid, p.k_neighbors,
+                                         p.alpha, TOPN, bd=BD, impl="ref")
+        e, t = hold(dequantize_int8_rows(cq, cs), users,
+                    want.cpu().numpy(), kern.quant_recs[i], p,
+                    f"request {i}, int8")
+        q_exact, q_total = q_exact + e, q_total + t
     assert exact >= 0.9 * total, ("exact class", exact, total)
+    assert q_exact >= 0.9 * q_total, ("int8 exact class", q_exact, q_total)
+    # the two runs' fp32 states agree to rtol 1e-4 only, so a row may sit
+    # one rounding step apart in int8: counted, not asserted
+    differ = sum(int((kq != pq).any(dim=1).sum()) for (kq, _), (pq, _) in
+                 zip(kern.quant_corpora, plain.quant_corpora))
     m = kern.engine.metrics
     log(f"main path: {kern.n_events / kern.load_seconds:.0f} load "
         f"events/s with the kernels, {plain.n_events / plain.load_seconds:.0f}"
         f" with the plain versions; request latency (ms) kernels "
         f"{[round(t * 1e3, 3) for t in kern.request_seconds]}, plain "
-        f"{[round(t * 1e3, 3) for t in plain.request_seconds]}; "
+        f"{[round(t * 1e3, 3) for t in plain.request_seconds]}; int8 "
+        f"request latency (ms) kernels "
+        f"{[round(t * 1e3, 3) for t in kern.quant_request_seconds]}, plain "
+        f"{[round(t * 1e3, 3) for t in plain.quant_request_seconds]}; "
         f"{m.host_fetches / m.batches:.3f} host fetches per step; "
-        f"{exact}/{total} queries in the exact class (identical ids)")
+        f"{exact}/{total} fp32 and {q_exact}/{q_total} int8 queries in the "
+        f"exact class (identical ids); int8 cache rows that differ between "
+        f"the two runs over the 4 requests: {differ}")
+    return kern, launches
 
 
+def dtiled_path(kern, p, dev):
+    """Phase 5: fp32 D-tiled serving on the main path's last corpus."""
+    corpus, users = kern.corpora[-1], kern.requests[-1]
+    uid = torch.as_tensor(users, dtype=torch.int32, device=dev)
+    build.reset_launch_counts()
+    got = ops.fused_recommend(corpus, uid, p.k_neighbors, p.alpha, TOPN,
+                              bd=BD)
+    torch.cuda.synchronize()
+    launches = dict(build.launch_counts)
+    log(f"fp32 D-tiled serving: launches {launches}")
+    for name in ("knn_topk_dtiled", "blend_topn_onehot"):
+        assert launches[name] > 0, f"{name} was not launched on path 5"
+    got = got.cpu().numpy()
+    mono = ops.fused_recommend(corpus, uid, p.k_neighbors, p.alpha, TOPN)
+    plain = ops.fused_recommend(corpus, uid, p.k_neighbors, p.alpha, TOPN,
+                                bd=BD, impl="ref")
+    ex = [hold(corpus, users, mono.cpu().numpy(), got, p,
+               "D-tiled vs bd=None"),
+          hold(corpus, users, plain.cpu().numpy(), got, p,
+               "D-tiled vs its plain pipeline")]
+    for e, t in ex:
+        assert e >= 0.9 * t, ("exact class", e, t)
+    return launches
+
+
+def sharded_path(kern, p, dev):
+    """Phase 6: the last corpus split round-robin into 2 shards on the
+    one card; both sharded pipelines for the last request's users."""
+    corpus, users = kern.corpora[-1], kern.requests[-1]
+    cq, cs = kern.quant_corpora[-1]
+    n_users = corpus.shape[0]
+    spec = UserShardSpec(n_users, 2)
+    owned = [torch.as_tensor(spec.owned_users(s), device=dev)
+             for s in range(2)]
+    corpora = [corpus[o] for o in owned]
+    # row quantization is partition invariant: a shard's rows of the
+    # store's int8 cache are its own quantization
+    quant = [(cq[o], cs[o]) for o in owned]
+    for (sq, ss), c in zip(quant, corpora):
+        wq, ws = quantize_int8_rows(c)
+        assert torch.equal(sq, wq) and same(ss, ws), "partition invariance"
+    args = (users, p.k_neighbors, p.alpha, TOPN, 2)
+    build.reset_launch_counts()
+    got = knn.sharded_recommend_for_users(corpora, *args)
+    got_q = knn.sharded_recommend_for_users_quant(quant, *args, bd=BD)
+    torch.cuda.synchronize()
+    launches = dict(build.launch_counts)
+    log(f"cross-shard serving (2 shards, one card): launches {launches}")
+    for name in ("knn_topk", "blend_topn_rows", "knn_topk_dtiled",
+                 "blend_topn_rows_quant"):
+        assert launches[name] > 0, f"{name} was not launched on path 6"
+    got, got_q = got.cpu().numpy(), got_q.cpu().numpy()
+    uid = torch.as_tensor(users, dtype=torch.int32, device=dev)
+    deq = dequantize_int8_rows(cq, cs)
+    with ops.default_impl("ref"):
+        plain = knn.sharded_recommend_for_users(corpora, *args)
+        plain_q = knn.sharded_recommend_for_users_quant(quant, *args, bd=BD)
+        single_q = ops.fused_recommend_quant(cq, cs, uid, p.k_neighbors,
+                                             p.alpha, TOPN, bd=BD)
+    single = ops.fused_recommend(corpus, uid, p.k_neighbors, p.alpha, TOPN)
+    ex = [hold(corpus, users, single.cpu().numpy(), got, p,
+               "sharded fp32 vs single corpus"),
+          hold(corpus, users, plain.cpu().numpy(), got, p,
+               "sharded fp32 vs its plain pipeline"),
+          hold(deq, users, single_q.cpu().numpy(), got_q, p,
+               "sharded int8 vs single corpus"),
+          hold(deq, users, plain_q.cpu().numpy(), got_q, p,
+               "sharded int8 vs its plain pipeline")]
+    for e, t in ex:
+        assert e >= 0.9 * t, ("exact class", e, t)
+    u = torch.as_tensor(users, device=dev)
+    qq, qs = cq[u], cs[u]
+    for s, (sq, ss) in enumerate(quant):
+        kv, kg = ops.shard_topk_quant(qq, qs, sq, ss, p.k_neighbors, s, 2,
+                                      query_gids=uid, bd=BD, impl="cuda")
+        pv, pg = ops.shard_topk_quant(qq, qs, sq, ss, p.k_neighbors, s, 2,
+                                      query_gids=uid, bd=BD, impl="ref")
+        torch.cuda.synchronize()
+        assert same(kv, pv) and torch.equal(kg, pg), f"shard {s} int8"
+    log("  each shard's int8 candidates: identical to the plain version")
+    return launches
 def kernel_checks(ds, dev) -> dict:
     """Phase 3: every kernel against its plain version at the shapes the
     main path gives it (the store shapes ``serve.run_trickle`` builds
@@ -411,8 +907,9 @@ def kernel_checks(ds, dev) -> dict:
     check_stage_a_edges(gen, dev)
     check_stage_a(corpus, c_int, uid, records)
     check_stage_b(corpus, c_int, uid, records)
-    del corpus, c_int
-    torch.cuda.empty_cache()
+    check_dtiled_edges(gen, dev)
+    cq, cs, nbr = check_dtiled(corpus, c_int, uid, records)
+    check_rows(corpus, c_int, cq, cs, uid, nbr, records)
     return records
 
 
@@ -432,9 +929,12 @@ def main() -> int:
     t0 = time.perf_counter()
     build.library(verbose=True)
     log(f"build: {time.perf_counter() - t0:.1f} s")
+    entry = ""
     for line in build.last_build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas: " + line.strip())
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1][:90]     # the mangled kernel name
+        elif "registers" in line or "spill" in line:
+            log(f"  ptxas {entry}: " + line.strip())
 
     t0 = time.perf_counter()
     ds = synthetic.generate("tafeng", seed=0, scale=1.0)
@@ -448,10 +948,24 @@ def main() -> int:
     records = kernel_checks(ds, dev)
 
     t0 = time.perf_counter()
-    main_path(ds, records, dev)
+    kern, launches = main_path(ds, dev)
     log(f"main path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths = [launches, dtiled_path(kern, p, dev), sharded_path(kern, p, dev)]
+    log(f"D-tiled and cross-shard paths: {time.perf_counter() - t0:.1f} s")
+    del kern
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    records["knn_topk_dtiled"]["million"], million = million_path(dev)
+    paths.append(million)
+    log(f"million-item point: {time.perf_counter() - t0:.1f} s")
+    for name in KERNELS:
+        # launches on the paths that drive the kernel (each path's counts
+        # were set to 0 just before it and read just after)
+        records[name]["launches"] = sum(c[name] for c in paths)
+        assert records[name]["launches"] > 0, name
 
-    log("kernels launched on the main path: " + ", ".join(
+    log("kernels launched on the paths of the port: " + ", ".join(
         f"{name}={records[name]['launches']}" for name in KERNELS))
     out = []
     for name, meta in KERNELS.items():

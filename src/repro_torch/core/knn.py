@@ -3,13 +3,17 @@
 Prediction (paper §2.2): p = alpha · u_target + (1 − alpha) · mean of the
 top-k neighbours.  ``recommend_for_users`` serves through
 ``kernels.ops.fused_recommend`` (the two CUDA serving kernels on the
-card, the plain unfused pipeline on CPU).  Recall@K / NDCG@K follow
-§6.1.  ``compare_recommendations`` holds two top-n answers against each
-other where fp32 summation order can legitimately reorder near-ties.
+card, the plain unfused pipeline on CPU), ``recommend_for_users_quant``
+through ``ops.fused_recommend_quant`` (the int8 corpus), and the two
+``sharded_recommend_for_users*`` over per-shard corpora: per-shard
+candidates, a merge, the selected rows fetched and blended.  Recall@K /
+NDCG@K follow §6.1.  ``compare_recommendations`` holds two top-n
+answers against each other where fp32 summation order can legitimately
+reorder near-ties.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +33,122 @@ def recommend_for_users(corpus: torch.Tensor, user_ids: torch.Tensor,
     """
     return ops.fused_recommend(corpus, user_ids, k=k, alpha=alpha,
                                topn=topn, metric=metric)
+
+
+def recommend_for_users_quant(corpus_q: torch.Tensor, c_scale: torch.Tensor,
+                              user_ids: torch.Tensor, k: int, alpha: float,
+                              topn: int, bd: int = 512) -> torch.Tensor:
+    """int8 serving path: quantized corpus rows → top-n ids, i32[Q, topn].
+
+    ``corpus_q`` int8[M, I] with power-of-two row scales ``c_scale``
+    f32[M] (``StateStore.quantized_corpus()``).  Stage A walks D in
+    tiles of width ``bd`` with exact int32 tile partials (bitwise its
+    plain version), stage B reads the k selected int8 rows.  Euclidean
+    only.  O(Q·M·I) int8 compute, O(Q·k·I) int8 reads.
+    """
+    return ops.fused_recommend_quant(corpus_q, c_scale, user_ids, k=k,
+                                     alpha=alpha, topn=topn, bd=bd)
+
+
+def shard_topk_candidates(queries: torch.Tensor, corpus: torch.Tensor,
+                          k: int, shard: int, n_shards: int,
+                          query_ids: Optional[torch.Tensor] = None,
+                          metric: str = "euclidean"
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-shard neighbour candidates: ``([Q, k'] scores, global ids)``.
+
+    ``corpus`` is one shard's corpus (local row r is global user
+    ``r·n_shards + shard``, the round-robin ``UserShardSpec``); scores
+    are the full −|q−c|², comparable across shards; a query user is
+    excluded only on its owner shard.  O(Q·M_s·I) compute, O(Q·k) out.
+    """
+    return ops.shard_topk(queries, corpus, k=k, shard=shard,
+                          n_shards=n_shards, query_gids=query_ids,
+                          metric=metric)
+
+
+def _owner_rows(tables: Sequence[torch.Tensor], gids: torch.Tensor,
+                n_shards: int) -> torch.Tensor:
+    """Rows of a round-robin sharded table, for global ids of any shape.
+
+    ``out[...] = tables[g % n_shards][g // n_shards]`` for each id g.
+    """
+    out = torch.empty(tuple(gids.shape) + tuple(tables[0].shape[1:]),
+                      dtype=tables[0].dtype, device=tables[0].device)
+    for s, table in enumerate(tables):
+        own = gids % n_shards == s
+        out[own] = table[gids[own] // n_shards]
+    return out
+
+
+def _merge_candidates(vals: List[torch.Tensor], gids: List[torch.Tensor],
+                      k: int) -> torch.Tensor:
+    """The global top-k of per-shard candidate lists, [Q, ≤k] gids.
+
+    Ordered by (score desc, global id asc), the single corpus's
+    tie-break: a stable sort by gid, then a stable descending sort by
+    score (``np.lexsort((gids, -vals))``), keep the first k.
+    """
+    v, g = torch.cat(vals, dim=1), torch.cat(gids, dim=1).long()
+    g, order = torch.sort(g, dim=1, stable=True)
+    v = v.gather(1, order)
+    _, order = torch.sort(v, dim=1, descending=True, stable=True)
+    return g.gather(1, order)[:, :k]
+
+
+def sharded_recommend_for_users(corpora: Sequence[torch.Tensor], user_ids,
+                                k: int, alpha: float, topn: int,
+                                n_shards: int,
+                                metric: str = "euclidean") -> torch.Tensor:
+    """Serving over per-shard corpora: top-n ids, i32[Q, topn].
+
+    (1) the query rows are gathered from their owner shards; (2) each
+    shard returns its top-k candidate ``(score, global id)`` lists
+    (``shard_topk_candidates``); (3) the lists merge by (score desc, gid
+    asc), the tie-break of a single corpus; (4) the k selected rows are
+    fetched, [Q, k, I], and blended (``ops.blend_topn_rows``).  All on
+    the corpora's device.  Traffic between shards would be the [Q, k]
+    lists and the selected rows, never a corpus.
+    """
+    dev = corpora[0].device
+    uid = torch.as_tensor(np.asarray(user_ids, np.int64), device=dev)
+    queries = _owner_rows(corpora, uid, n_shards)
+    qids = uid.to(torch.int32)
+    vals, gids = zip(*(shard_topk_candidates(queries, c, k, s, n_shards,
+                                             query_ids=qids, metric=metric)
+                       for s, c in enumerate(corpora)))
+    sel = _merge_candidates(list(vals), list(gids), k)
+    return ops.blend_topn_rows(queries, _owner_rows(corpora, sel, n_shards),
+                               alpha, topn)
+
+
+def sharded_recommend_for_users_quant(
+        quant_corpora: Sequence[Tuple[torch.Tensor, torch.Tensor]], user_ids,
+        k: int, alpha: float, topn: int, n_shards: int,
+        bd: int = 512) -> torch.Tensor:
+    """int8 serving over per-shard quantized corpora: i32[Q, topn].
+
+    The pipeline of :func:`sharded_recommend_for_users` on ``(corpus_q
+    int8[M_s, I], scale f32[M_s])`` pairs: D-tiled int8 candidates
+    (``ops.shard_topk_quant``), the same merge, then the k selected int8
+    rows and their scales blended (``ops.blend_topn_rows_quant``).  Row
+    quantization is partition invariant, so every candidate score equals
+    the single-corpus int8 score bit for bit.
+    """
+    corpora = [q for q, _ in quant_corpora]
+    scales = [s for _, s in quant_corpora]
+    dev = corpora[0].device
+    uid = torch.as_tensor(np.asarray(user_ids, np.int64), device=dev)
+    queries_q = _owner_rows(corpora, uid, n_shards)
+    q_scale = _owner_rows(scales, uid, n_shards)
+    qids = uid.to(torch.int32)
+    vals, gids = zip(*(ops.shard_topk_quant(
+        queries_q, q_scale, cq, cs, k, shard=s, n_shards=n_shards,
+        query_gids=qids, bd=bd) for s, (cq, cs) in enumerate(quant_corpora)))
+    sel = _merge_candidates(list(vals), list(gids), k)
+    return ops.blend_topn_rows_quant(
+        queries_q, q_scale, _owner_rows(corpora, sel, n_shards),
+        _owner_rows(scales, sel, n_shards), alpha, topn)
 
 
 def compare_recommendations(corpus: torch.Tensor, user_ids, ref_ids,

@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("sparse_row_gather.cu", "sparse_row_scatter.cu", "knn_topk.cu",
-           "serving_topn.cu")
+           "serving_topn.cu", "knn_topk_dtiled.cu", "serving_rows.cu")
 HEADERS = ("topk_common.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
@@ -40,16 +40,24 @@ _F = ctypes.c_float
 SIGNATURES: Dict[str, List] = {
     "srg_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "srs_launch": [_P, _P, _P, _L, _L, _P],
-    "knn_topk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _I,
-                        _I, _P, _P, _P, _P, _P],
+    "knn_topk_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L,
+                        _I, _I, _P, _P, _P, _P, _P],
     "blend_topn_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _I,
                           _P, _P, _P, _P, _P],
+    "knn_topk_dtiled_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _L, _L, _I, _I, _P, _P, _P,
+                               _P, _P],
+    "blend_rows_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I,
+                          _I, _P, _P, _P, _P, _P],
 }
 
 # launches per kernel wrapper since the last reset_launch_counts()
 launch_counts: Dict[str, int] = {"sparse_row_gather": 0,
                                  "sparse_row_scatter": 0,
-                                 "knn_topk": 0, "blend_topn_onehot": 0}
+                                 "knn_topk": 0, "blend_topn_onehot": 0,
+                                 "knn_topk_dtiled": 0,
+                                 "blend_topn_rows_quant": 0,
+                                 "blend_topn_rows": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 last_build_log = ""
@@ -152,9 +160,13 @@ def stream_of(t: torch.Tensor) -> int:
 
 def cuda_input(t: torch.Tensor, what: str, dtypes: Sequence[torch.dtype],
                device: Optional[torch.device] = None,
-               ndim: Optional[int] = None) -> torch.Tensor:
+               ndim: Optional[int] = None,
+               pitched: bool = False) -> torch.Tensor:
     """Check one kernel input: a contiguous CUDA tensor of an accepted
-    dtype (and rank), on ``device`` when given.  Raises otherwise."""
+    dtype (and rank), on ``device`` when given.  ``pitched`` also takes
+    a 2-D tensor whose rows are contiguous at a row pitch of at least
+    its width (a ``[:, :n]`` view of a wider buffer).  Raises
+    otherwise."""
     if not isinstance(t, torch.Tensor) or not t.is_cuda:
         raise ValueError(f"{what}: the CUDA kernel takes CUDA tensors, "
                          f"got {getattr(t, 'device', type(t))}")
@@ -164,7 +176,11 @@ def cuda_input(t: torch.Tensor, what: str, dtypes: Sequence[torch.dtype],
         raise TypeError(f"{what}: dtype {t.dtype} not in {list(dtypes)}")
     if ndim is not None and t.dim() != ndim:
         raise ValueError(f"{what}: expected {ndim} dims, got {t.dim()}")
-    if not t.is_contiguous():
+    if pitched and t.dim() == 2:
+        if t.shape[1] > 1 and t.stride(1) != 1 or \
+                t.shape[0] > 1 and t.stride(0) < t.shape[1]:
+            raise ValueError(f"{what}: rows must be contiguous")
+    elif not t.is_contiguous():
         raise ValueError(f"{what}: must be contiguous")
     return t
 

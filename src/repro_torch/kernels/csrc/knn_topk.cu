@@ -1,6 +1,7 @@
 // knn_topk (serving stage A): per-query top-k corpus rows of the
-// euclidean surrogate 2q.c - |c|^2 (or the raw dot product), without
-// writing the [Q, M] score matrix to device memory.
+// euclidean surrogate 2q.c - |c|^2 (with sub_qnorm the full -|q-c|^2,
+// for the per-shard candidates of the sharded path; or the raw dot
+// product), without writing the [Q, M] score matrix to device memory.
 //
 // Replaces the TPU kernel repro/kernels/knn_topk.py :: knn_topk, whose
 // grid walks the corpus tiles IN ORDER per query block and merges each
@@ -24,9 +25,7 @@
 //     col_offset equals the query gid scores -inf; rows past the slice
 //     are no candidates) and merged by one warp per query, 64 candidates
 //     at a time, into a running top-n2 list in shared memory (n2 = power
-//     of two >= max(k, 64), <= 1024): a group none of whose candidates
-//     beats the current k-th entry is skipped, otherwise it is
-//     bitonic-sorted and folded in.
+//     of two >= max(k, 64), <= 1024; topk_common.cuh merge_score_tile).
 //   * A second kernel merges the S per-slice lists [Q, S, k] into [Q, k].
 // Ordering is (value desc, index asc) throughout, as lax.top_k.
 #include <cuda_runtime.h>
@@ -49,14 +48,14 @@ constexpr int CS_FLOATS = BD * CS_STRIDE;
 constexpr int QS_FLOATS = BD * QS_STRIDE;
 constexpr int STAGE_FLOATS = 2 * (CS_FLOATS + QS_FLOATS);
 constexpr int C_LOADS = BM * BD / NT;    // corpus elements per thread/chunk
-constexpr int CAND = 64;                 // candidates a warp merges at once
 static_assert(BQ * BD == NT, "one query element per thread per chunk");
 static_assert(BQ * BM <= STAGE_FLOATS, "score tile fits over the staging");
 static_assert(ROW_THREADS % 32 == 0, "a warp shares its query tile");
 
 size_t tile_smem_bytes(int n2) {
   return sizeof(float) * STAGE_FLOATS +
-         (sizeof(float) + sizeof(int)) * ((size_t)BQ * n2 + NWARP * CAND);
+         (sizeof(float) + sizeof(int)) *
+             ((size_t)BQ * n2 + NWARP * MERGE_CAND);
 }
 
 // Global loads of one D chunk (rows m0.. of the slice, queries q0..)
@@ -92,7 +91,8 @@ __device__ __forceinline__ void store_chunk(float* cs, float* qs, int buf,
 
 __global__ void __launch_bounds__(NT, 1) knn_tile_kernel(
     const float* __restrict__ q, const float* __restrict__ c,
-    const float* __restrict__ cn, const int* __restrict__ qgid, int Q,
+    const float* __restrict__ cn, const float* __restrict__ qn,
+    const int* __restrict__ qgid, int Q,
     int M, int D, int k, int n2, int euclid, long long col_offset,
     long long col_stride, int rows_per_slice, float* __restrict__ part_v,
     int* __restrict__ part_i) {
@@ -103,7 +103,7 @@ __global__ void __launch_bounds__(NT, 1) knn_tile_kernel(
   float* lv = cs + STAGE_FLOATS;                      // [BQ][n2] list vals
   int* li = reinterpret_cast<int*>(lv + BQ * n2);     // [BQ][n2] list idx
   float* wv = reinterpret_cast<float*>(li + BQ * n2);   // [NWARP][CAND]
-  int* wi = reinterpret_cast<int*>(wv + NWARP * CAND);  // [NWARP][CAND]
+  int* wi = reinterpret_cast<int*>(wv + NWARP * MERGE_CAND);
 
   const int q0 = blockIdx.x * BQ;
   const int slice = blockIdx.y;
@@ -111,7 +111,6 @@ __global__ void __launch_bounds__(NT, 1) knn_tile_kernel(
   const int m_begin = slice * rows_per_slice;
   const int m_end = min(M, m_begin + rows_per_slice);
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
   const int lane = tid % 32;
   const int tq = tid / ROW_THREADS;   // queries tq*TQ .. tq*TQ+TQ-1
   const int tm = tid % ROW_THREADS;   // rows tm*TM .. tm*TM+TM-1 of a tile
@@ -175,13 +174,19 @@ __global__ void __launch_bounds__(NT, 1) knn_tile_kernel(
       const int qi = tq * TQ + i;
       const long long my_gid =
           (q0 + qi < Q) ? (long long)qgid[q0 + qi] : -1LL;
+      const float my_qn =
+          (qn != nullptr && q0 + qi < Q) ? qn[q0 + qi] : 0.0f;
       float s[TM];
 #pragma unroll
       for (int j = 0; j < TM; ++j) {
         const int m = m0 + tm * TM + j;
         s[j] = -INFINITY;
         if (m < m_end && (long long)m * col_stride + col_offset != my_gid) {
-          s[j] = euclid ? 2.0f * acc[i][j] - cn[m] : acc[i][j];
+          s[j] = acc[i][j];
+          if (euclid) {
+            s[j] = 2.0f * s[j] - cn[m];     // 2*acc is exact: one rounding
+            if (qn != nullptr) s[j] = __fsub_rn(s[j], my_qn);
+          }
         }
       }
       *reinterpret_cast<float4*>(sv + qi * BM + tm * TM) =
@@ -189,56 +194,24 @@ __global__ void __launch_bounds__(NT, 1) knn_tile_kernel(
     }
     __syncthreads();
 
-    // one warp per query: fold this tile's candidates into its list
-    for (int h = 0; h < BQ / NWARP; ++h) {
-      const int r = warp * (BQ / NWARP) + h;
-      if (q0 + r >= Q) continue;                 // warp-uniform
-      float* lvr = lv + r * n2;
-      int* lir = li + r * n2;
-      for (int g = 0; g < BM && m0 + g < m_end; g += CAND) {
-        const float thr_v = lvr[k - 1];
-        const int thr_i = lir[k - 1];
-        const int i0 = m0 + g + lane;
-        const int i1 = i0 + 32;
-        const float v0 = sv[r * BM + g + lane];
-        const float v1 = sv[r * BM + g + lane + 32];
-        // rows past the slice are no candidates
-        const bool p0 = i0 < m_end && better(v0, i0, thr_v, thr_i);
-        const bool p1 = i1 < m_end && better(v1, i1, thr_v, thr_i);
-        if (!__any_sync(0xffffffffu, p0 || p1)) continue;
-        float* bv = wv + warp * CAND;
-        int* bi = wi + warp * CAND;
-        bv[lane] = p0 ? v0 : -INFINITY;
-        bi[lane] = p0 ? i0 : PAD_IDX;
-        bv[lane + 32] = p1 ? v1 : -INFINITY;
-        bi[lane + 32] = p1 ? i1 : PAD_IDX;
-        __syncwarp();
-        bitonic_sort_desc<false>(bv, bi, CAND, lane, 32);
-        fold_into_list<false>(lvr, lir, bv, bi, CAND, n2, lane, 32);
-      }
-    }
+    merge_score_tile<BQ, BM, NWARP>(sv, lv, li, wv, wi, q0, Q, m0, m_end,
+                                    k, n2);
   }
   __syncthreads();
-
-  for (int t = tid; t < BQ * k; t += NT) {
-    int r = t / k, j = t % k;
-    int gq = q0 + r;
-    if (gq < Q) {
-      size_t o = ((size_t)gq * S + slice) * k + j;
-      part_v[o] = lv[r * n2 + j];
-      part_i[o] = li[r * n2 + j];
-    }
-  }
+  write_slice_lists<BQ>(lv, li, q0, Q, k, n2, slice, S, part_v, part_i);
 }
 
 }  // namespace
 
 // part_*: scratch [Q, n_slices, k]; out_*: [Q, k].  n2 is a power of two
-// in [max(k, 64), 1024]; rows_per_slice * n_slices >= M.
+// in [max(k, 64), 1024]; rows_per_slice * n_slices >= M.  qn (f32[Q] or
+// null) is |q|^2, subtracted from each euclidean score (sub_qnorm: the
+// full -|q-c|^2 that the cross-shard merge compares).
 extern "C" int knn_topk_launch(const void* q, const void* c, const void* cn,
-                               const void* qgid, int Q, int M, int D, int k,
-                               int n2, int euclid, long long col_offset,
-                               long long col_stride, int rows_per_slice,
+                               const void* qn, const void* qgid, int Q,
+                               int M, int D, int k, int n2, int euclid,
+                               long long col_offset, long long col_stride,
+                               int rows_per_slice,
                                int n_slices, void* part_v, void* part_i,
                                void* out_v, void* out_i, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
@@ -249,9 +222,9 @@ extern "C" int knn_topk_launch(const void* q, const void* c, const void* cn,
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Q + BQ - 1) / BQ, n_slices);
   knn_tile_kernel<<<grid, NT, smem, st>>>(
-      (const float*)q, (const float*)c, (const float*)cn, (const int*)qgid,
-      Q, M, D, k, n2, euclid, col_offset, col_stride, rows_per_slice,
-      (float*)part_v, (int*)part_i);
+      (const float*)q, (const float*)c, (const float*)cn, (const float*)qn,
+      (const int*)qgid, Q, M, D, k, n2, euclid, col_offset, col_stride,
+      rows_per_slice, (float*)part_v, (int*)part_i);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   merge_lists_kernel<<<Q, 256, (size_t)n2 * 8, st>>>(

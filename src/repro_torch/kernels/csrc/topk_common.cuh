@@ -8,6 +8,12 @@
 // Lists live in shared memory as two arrays (values, indices) and are
 // sorted with bitonic networks by a group of threads: a warp (syncs
 // with __syncwarp) or a whole block (syncs with __syncthreads).
+//
+// Both stage-A kernels (knn_topk.cu, knn_topk_dtiled.cu) share the
+// corpus-slice plan below: a block keeps one top-n2 list per query in
+// shared memory, folds each masked score tile into it
+// (merge_score_tile), writes its slice's lists (write_slice_lists), and
+// merge_lists_kernel merges the slices.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -118,5 +124,66 @@ static __global__ void merge_lists_kernel(const float* __restrict__ in_v,
   for (int t = tid; t < kout; t += nt) {
     out_v[(size_t)q * kout + t] = av[t];
     out_i[(size_t)q * kout + t] = ai[t];
+  }
+}
+
+constexpr int MERGE_CAND = 64;   // candidates a warp merges at once
+
+// Fold one masked score tile sv[BQ][BM] (rows m0.. of the block's
+// slice) into the per-query lists lv/li[BQ][n2], one warp per query,
+// MERGE_CAND candidates at a time: a group none of whose candidates
+// beats the current k-th entry is skipped, otherwise it is
+// bitonic-sorted (in the warp's scratch wv/wi[NWARP][MERGE_CAND]) and
+// folded in.  Rows at or past m_end are no candidates.  Every thread
+// of the block calls this after sv is complete.
+template <int BQ, int BM, int NWARP>
+__device__ void merge_score_tile(const float* sv, float* lv, int* li,
+                                 float* wv, int* wi, int q0, int Q, int m0,
+                                 int m_end, int k, int n2) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int h = 0; h < BQ / NWARP; ++h) {
+    const int r = warp * (BQ / NWARP) + h;
+    if (q0 + r >= Q) continue;                 // warp-uniform
+    float* lvr = lv + r * n2;
+    int* lir = li + r * n2;
+    for (int g = 0; g < BM && m0 + g < m_end; g += MERGE_CAND) {
+      const float thr_v = lvr[k - 1];
+      const int thr_i = lir[k - 1];
+      const int i0 = m0 + g + lane;
+      const int i1 = i0 + 32;
+      const float v0 = sv[r * BM + g + lane];
+      const float v1 = sv[r * BM + g + lane + 32];
+      const bool p0 = i0 < m_end && better(v0, i0, thr_v, thr_i);
+      const bool p1 = i1 < m_end && better(v1, i1, thr_v, thr_i);
+      if (!__any_sync(0xffffffffu, p0 || p1)) continue;
+      float* bv = wv + warp * MERGE_CAND;
+      int* bi = wi + warp * MERGE_CAND;
+      bv[lane] = p0 ? v0 : -INFINITY;
+      bi[lane] = p0 ? i0 : PAD_IDX;
+      bv[lane + 32] = p1 ? v1 : -INFINITY;
+      bi[lane + 32] = p1 ? i1 : PAD_IDX;
+      __syncwarp();
+      bitonic_sort_desc<false>(bv, bi, MERGE_CAND, lane, 32);
+      fold_into_list<false>(lvr, lir, bv, bi, MERGE_CAND, n2, lane, 32);
+    }
+  }
+}
+
+// Write the block's k best of each query's list to part_*[Q, S, k] at
+// slice ``slice`` of S.  Every thread of the block calls this.
+template <int BQ>
+__device__ void write_slice_lists(const float* lv, const int* li, int q0,
+                                  int Q, int k, int n2, int slice, int S,
+                                  float* __restrict__ part_v,
+                                  int* __restrict__ part_i) {
+  for (int t = threadIdx.x; t < BQ * k; t += blockDim.x) {
+    const int r = t / k, j = t % k;
+    const int gq = q0 + r;
+    if (gq < Q) {
+      const size_t o = ((size_t)gq * S + slice) * k + j;
+      part_v[o] = lv[r * n2 + j];
+      part_i[o] = li[r * n2 + j];
+    }
   }
 }

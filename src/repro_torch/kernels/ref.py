@@ -55,27 +55,40 @@ def corpus_sqnorm(corpus: torch.Tensor) -> torch.Tensor:
     return torch.sum(corpus * corpus, dim=-1)
 
 
+def _exclude_self(scores: torch.Tensor, query_gids: Optional[torch.Tensor],
+                  col_offset: int, col_stride: int) -> torch.Tensor:
+    """−inf where column ``row·col_stride + col_offset`` is the query's
+    global id."""
+    if query_gids is None:
+        return scores
+    col_gid = (torch.arange(scores.shape[1], device=scores.device)
+               * col_stride + col_offset)
+    return torch.where(col_gid[None, :] == query_gids[:, None].long(),
+                       torch.full_like(scores, float("-inf")), scores)
+
+
 def knn_topk_ref(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                  metric: str = "euclidean",
                  query_gids: Optional[torch.Tensor] = None,
-                 col_offset: int = 0, col_stride: int = 1
+                 col_offset: int = 0, col_stride: int = 1,
+                 sub_qnorm: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stage A: per-query top-k (scores, rows) over the corpus.
 
-    euclidean scores are the monotone surrogate 2q·c − |c|²; dot scores
-    are q·c.  The column whose global id ``row·col_stride + col_offset``
-    equals ``query_gids[q]`` scores −inf (self-exclusion).
+    euclidean scores are the monotone surrogate 2q·c − |c|² (with
+    ``sub_qnorm`` then minus |q|²: the full −|q−c|² the cross-shard
+    merge compares); dot scores are q·c.  The column whose global id
+    ``row·col_stride + col_offset`` equals ``query_gids[q]`` scores −inf
+    (self-exclusion).
     """
     scores = queries @ corpus.T
     if metric == "euclidean":
         scores = 2.0 * scores - corpus_sqnorm(corpus)[None, :]
+        if sub_qnorm:
+            scores = scores - corpus_sqnorm(queries)[:, None]
     elif metric != "dot":
         raise ValueError(metric)
-    if query_gids is not None:
-        col_gid = (torch.arange(corpus.shape[0], device=corpus.device)
-                   * col_stride + col_offset)
-        scores = torch.where(col_gid[None, :] == query_gids[:, None].long(),
-                             torch.full_like(scores, float("-inf")), scores)
+    scores = _exclude_self(scores, query_gids, col_offset, col_stride)
     vals, idx = topk_lowest_index(scores, k)
     return vals, idx.to(torch.int32)
 
@@ -134,3 +147,162 @@ def fused_recommend_ref(corpus: torch.Tensor, user_ids: torch.Tensor,
     neighbors = torch.mean(corpus[idx], dim=1)
     pred = alpha * queries + (1.0 - alpha) * neighbors
     return topk_lowest_index(pred, topn)[1].to(torch.int32)
+
+
+def shard_topk_ref(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                   shard: int, n_shards: int,
+                   query_gids: Optional[torch.Tensor] = None,
+                   metric: str = "euclidean"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-shard candidates: ``([Q, k'] scores, global ids)``, k' =
+    min(k, M_s).
+
+    One shard's local corpus scored in full (``pairwise_scores``: the
+    full −|q−c|² for euclidean); local row r is global user
+    ``r·n_shards + shard``, and self-exclusion compares those global ids.
+    """
+    m_s = corpus.shape[0]
+    scores = _exclude_self(pairwise_scores(queries, corpus, metric),
+                           query_gids, shard, n_shards)
+    vals, idx = topk_lowest_index(scores, min(k, m_s))
+    return vals, (idx * n_shards + shard).to(torch.int32)
+
+
+def blend_topn_rows_ref(queries: torch.Tensor, neighbor_rows: torch.Tensor,
+                        alpha: float, topn: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stage B over fetched rows: pred = α·q + (1−α)·mean_j(rows_j), then
+    top-n.  queries f32[Q, I], neighbor_rows f32[Q, k, I] → (f32[Q, n],
+    i32[Q, n])."""
+    neighbors = torch.mean(neighbor_rows, dim=1)
+    pred = alpha * queries + (1.0 - alpha) * neighbors
+    vals, idx = topk_lowest_index(pred, topn)
+    return vals, idx.to(torch.int32)
+
+
+def blend_topn_rows_quant_ref(queries_q: torch.Tensor, q_scale: torch.Tensor,
+                              neighbor_rows_q: torch.Tensor,
+                              n_scale: torch.Tensor, alpha: float,
+                              topn: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 stage B: dequantize (exact f32 multiplies by the power-of-two
+    scales) the query rows int8[Q, I] × ``q_scale`` f32[Q] and the
+    neighbour rows int8[Q, k, I] × ``n_scale`` f32[Q, k], then
+    :func:`blend_topn_rows_ref`."""
+    queries = queries_q.to(torch.float32) * q_scale[:, None]
+    nbr = neighbor_rows_q.to(torch.float32) * n_scale[:, :, None]
+    return blend_topn_rows_ref(queries, nbr, alpha, topn)
+
+
+# rows of an int8 corpus widened to int32 at a time (64 Mi elements)
+_SQNORM_CHUNK = 1 << 26
+
+
+def tiled_sqnorm_ref(x: torch.Tensor, bd: int) -> torch.Tensor:
+    """Per-row |x|², f32[M], summed per D tile of width ``bd`` and
+    across tiles in tile order, tile 0 first.
+
+    int8 rows sum each tile exactly in int32 (bd <= 1024 keeps a tile's
+    sum below 2^24, so its f32 convert is exact); f32 rows sum each tile
+    in f32.  Rows are widened a chunk at a time, so the temporary stays
+    at most 256 MB whatever the corpus size.
+    """
+    m, d = x.shape
+    bd = max(1, min(bd, d))
+    nt = -(-d // bd)
+    per_tile = torch.empty((m, nt), dtype=torch.float32, device=x.device)
+    rows = max(1, _SQNORM_CHUNK // max(1, nt * bd))
+    for r0 in range(0, m, rows):
+        xt = torch.nn.functional.pad(x[r0:r0 + rows], (0, nt * bd - d))
+        xt = xt.reshape(-1, nt, bd)
+        if x.dtype == torch.int8:
+            xi = xt.to(torch.int32)
+            per_tile[r0:r0 + rows] = torch.sum(xi * xi, dim=-1).to(
+                torch.float32)
+        else:
+            xf = xt.to(torch.float32)
+            per_tile[r0:r0 + rows] = torch.sum(xf * xf, dim=-1)
+    acc = torch.zeros((m,), dtype=torch.float32, device=x.device)
+    for t in range(nt):
+        acc = acc + per_tile[:, t]
+    return acc
+
+
+def dtiled_topk_ref(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                    bd: int = 512,
+                    query_gids: Optional[torch.Tensor] = None,
+                    col_offset: int = 0, col_stride: int = 1,
+                    sub_qnorm: bool = False,
+                    q_scale: Optional[torch.Tensor] = None,
+                    c_scale: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """D-tiled stage A: top-k (scores, rows) with the q·c contraction
+    summed per D tile of width ``bd`` and across tiles in tile order.
+
+    int8 ``queries``/``corpus`` take their power-of-two row scales
+    ``q_scale`` f32[Q] / ``c_scale`` f32[M]; the score is
+    ``2·(s_q·s_c)·acc − (s_c·s_c)·|c|²`` (then ``− (s_q·s_q)·|q|²``
+    under ``sub_qnorm``), the expression tree of the JAX reference and
+    of the kernel: every product is exact, so each score rounds once.
+
+    The int8 per-tile partial is an fp32 product of the int8 values cast
+    to float.  Every partial sum in it is an integer of magnitude at
+    most bd·127² = 16,516,096 < 2^24 (bd <= 1024), so the product is
+    exact in any summation order: it equals the exact int32 partial on
+    any device, and PyTorch has no int32 matrix product on CUDA.  (Run
+    it with TF32 off, as every caller here does; TF32 holds |v| <= 127
+    exactly too.)  The cross-tile sum is an f32 sum in tile order, tile
+    0 first, as the JAX reference's ``lax.scan`` takes it.  Requires
+    ``k <= M``.
+    """
+    q_n, d = queries.shape
+    m = corpus.shape[0]
+    quantized = corpus.dtype == torch.int8
+    bd = max(1, min(bd, d))
+    cn = tiled_sqnorm_ref(corpus, bd)
+    acc = torch.zeros((q_n, m), dtype=torch.float32, device=corpus.device)
+    for d0 in range(0, d, bd):
+        q, c = queries[:, d0:d0 + bd], corpus[:, d0:d0 + bd]
+        if quantized:
+            q, c = q.to(torch.float32), c.to(torch.float32)
+        acc = acc + q @ c.T
+    if q_scale is None:
+        q_scale = torch.ones((q_n,), dtype=torch.float32,
+                             device=corpus.device)
+        c_scale = torch.ones((m,), dtype=torch.float32, device=corpus.device)
+    scores = (2.0 * (q_scale[:, None] * c_scale[None, :]) * acc
+              - (c_scale * c_scale)[None, :] * cn[None, :])
+    if sub_qnorm:
+        qnorm = tiled_sqnorm_ref(queries, bd)
+        scores = scores - (q_scale * q_scale * qnorm)[:, None]
+    scores = _exclude_self(scores, query_gids, col_offset, col_stride)
+    vals, idx = topk_lowest_index(scores, k)
+    return vals, idx.to(torch.int32)
+
+
+def fused_recommend_dtiled_ref(corpus: torch.Tensor, user_ids: torch.Tensor,
+                               k: int, alpha: float, topn: int,
+                               bd: int) -> torch.Tensor:
+    """The fp32 serving pipeline with a D-tiled stage A: user rows,
+    ``dtiled_topk_ref`` with self-exclusion, the [Q, k, I] neighbour
+    gather, ``blend_topn_rows_ref``.  Returns i32[Q, topn]."""
+    queries = corpus[user_ids.long()]
+    _, idx = dtiled_topk_ref(queries, corpus, k, bd=bd,
+                             query_gids=user_ids)
+    return blend_topn_rows_ref(queries, corpus[idx.long()], alpha, topn)[1]
+
+
+def fused_recommend_quant_ref(corpus_q: torch.Tensor, c_scale: torch.Tensor,
+                              user_ids: torch.Tensor, k: int, alpha: float,
+                              topn: int, bd: int = 512) -> torch.Tensor:
+    """The int8 serving pipeline: the query is the user's quantized
+    corpus row (q_scale = c_scale[user]); D-tiled int8 stage A with
+    self-exclusion; the k selected int8 rows gathered and blended
+    dequantized.  Requires k <= M − 1.  Returns i32[Q, topn]."""
+    uid = user_ids.long()
+    queries_q, q_scale = corpus_q[uid], c_scale[uid]
+    _, idx = dtiled_topk_ref(queries_q, corpus_q, k, bd=bd,
+                             query_gids=user_ids, q_scale=q_scale,
+                             c_scale=c_scale)
+    idx = idx.long()
+    return blend_topn_rows_quant_ref(queries_q, q_scale, corpus_q[idx],
+                                     c_scale[idx], alpha, topn)[1]

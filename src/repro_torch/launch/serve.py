@@ -4,10 +4,11 @@ against a live, stream-maintained state store (the PyTorch port).
 The trickle demo: generate a dataset, bulk-load it as one mixed stream
 (basket additions plus basket and item deletions), then alternate a
 trickle of new baskets with request batches served by
-``StreamingEngine.recommend`` from the cached corpus.  It prints the
-load rate, each request's latency, the engine's counters and the launch
-count of every CUDA kernel.  Runs on the CUDA device unless
-``--device cpu`` is given.
+``StreamingEngine.recommend`` from the cached corpus (``run_trickle(
+quantized=True)`` serves each batch a second time from the int8 cache).
+It prints the load rate, each request's latency, the engine's
+and the caches' counters and the launch count of every CUDA kernel.
+Runs on the CUDA device unless ``--device cpu`` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --scale 0.05
 """
@@ -16,7 +17,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +40,13 @@ class ServeRun:
     recs: List[np.ndarray]              # i32[Q, topn] answer of each
     corpora: List[torch.Tensor]         # corpus each request was served from
     request_seconds: List[float]
+    # with quantized=True: the int8 answer of each request batch, the
+    # (q, scale) it was served from (keep_corpora) and its latency
+    quant_recs: List[np.ndarray] = dataclasses.field(default_factory=list)
+    quant_corpora: List[Tuple[torch.Tensor, torch.Tensor]] = \
+        dataclasses.field(default_factory=list)
+    quant_request_seconds: List[float] = \
+        dataclasses.field(default_factory=list)
 
 
 def _sync(device: torch.device) -> None:
@@ -51,12 +59,15 @@ def run_trickle(ds: synthetic.BasketDataset, seed: int = 0,
                 trickle: int = 64, load_batch: int = 512,
                 deletion_user_rate: float = 0.01,
                 item_deletion_rate: float = 0.005,
-                device: Any = None, keep_corpora: bool = False) -> ServeRun:
+                device: Any = None, keep_corpora: bool = False,
+                quantized: bool = False) -> ServeRun:
     """Load ``ds`` as one mixed stream, then trickle and serve.
 
     The same dataset and seed give the same events and requests.
-    ``keep_corpora`` keeps a copy of the corpus each request was served
-    from (for holding the answers against it later).
+    ``quantized`` serves each request batch a second time through the
+    int8 path (``recommend(quantized=True)``).  ``keep_corpora`` keeps a
+    copy of the corpus (and of the int8 ``(q, scale)``) each request was
+    served from, for holding the answers against it later.
     """
     dev = resolve_device(device)
     p = ds.params
@@ -98,6 +109,18 @@ def run_trickle(ds: synthetic.BasketDataset, seed: int = 0,
         out.recs.append(recs)
         if keep_corpora:
             out.corpora.append(store.corpus().clone())
+        if quantized:
+            _sync(dev)
+            t0 = time.perf_counter()
+            out.quant_recs.append(eng.recommend(users, topn=topn,
+                                                quantized=True))
+            out.quant_request_seconds.append(time.perf_counter() - t0)
+            if keep_corpora:
+                # copies at the cache's row pitch, read as the cache is
+                out.quant_corpora.append(tuple(
+                    torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                        device=t.device).copy_(t)
+                    for t in store.quantized_corpus()))
     return out
 
 
@@ -137,6 +160,8 @@ def summary(res: ServeRun) -> str:
     for i, (users, dt) in enumerate(zip(res.requests, res.request_seconds)):
         lines.append(f"request batch {i}: {len(users)} users in "
                      f"{dt * 1e3:.2f} ms")
+    for i, dt in enumerate(res.quant_request_seconds):
+        lines.append(f"request batch {i} again, int8: {dt * 1e3:.2f} ms")
     lines.append(f"engine: {m.events_processed} events in {m.batches} "
                  f"micro-batches, {m.host_fetches} host fetches "
                  f"({m.host_fetches / max(m.batches, 1):.2f} per step), "
@@ -145,6 +170,11 @@ def summary(res: ServeRun) -> str:
                  f"{m.dead_letters} dead letters")
     lines.append(f"corpus cache: {store.corpus_full_builds} full build(s), "
                  f"{store.corpus_rows_refreshed} row refreshes")
+    if res.quant_recs:
+        lines.append(f"int8 cache: {store.quant_full_builds} full build(s) "
+                     f"({store.quant_threshold_rebuilds} past the "
+                     f"threshold), {store.quant_rows_refreshed} row "
+                     f"refreshes")
     lines.append("kernel launches: " + ", ".join(
         f"{k}={v}" for k, v in build.launch_counts.items()))
     lines.append(f"sample recommendation for user "

@@ -518,21 +518,33 @@ class StreamingEngine:
 
     def recommend(self, user_ids, topn: int = 10, k: Optional[int] = None,
                   alpha: Optional[float] = None,
-                  metric: str = "euclidean") -> np.ndarray:
+                  metric: str = "euclidean",
+                  quantized: bool = False) -> np.ndarray:
         """Top-n recommendations for ``user_ids`` from the cached corpus.
 
         The request is padded to a pow2 bucket (repeating the first
         user; the padding rows are computed and dropped) and served
-        through ``core.knn.recommend_for_users``.  Returns i32[Q, topn].
+        through ``core.knn.recommend_for_users``.  ``quantized=True``
+        serves the int8 path instead: the ``StateStore.quantized_corpus()``
+        cache (row-invalidated alongside the fp32 one) through
+        ``core.knn.recommend_for_users_quant``, euclidean only.  Returns
+        i32[Q, topn].
         """
         ids, q_n, _ = _pad_request(user_ids)
         if q_n == 0:
             return np.zeros((0, topn), np.int32)
         k = self.params.k_neighbors if k is None else k
         alpha = self.params.alpha if alpha is None else alpha
-        recs = knn.recommend_for_users(
-            self.store.corpus(), torch.as_tensor(ids,
-                                                 device=self.store.device),
-            k=k, alpha=alpha, topn=topn, metric=metric)
+        uid = torch.as_tensor(ids, device=self.store.device)
+        if quantized:
+            if metric != "euclidean":
+                raise ValueError("quantized serving is euclidean-only")
+            corpus_q, c_scale = self.store.quantized_corpus()
+            recs = knn.recommend_for_users_quant(corpus_q, c_scale, uid,
+                                                 k=k, alpha=alpha, topn=topn)
+        else:
+            recs = knn.recommend_for_users(self.store.corpus(), uid, k=k,
+                                           alpha=alpha, topn=topn,
+                                           metric=metric)
         self.metrics.serve_requests += 1
         return recs.cpu().numpy()[:q_n]

@@ -1,21 +1,24 @@
 """State store for per-user TIFU-kNN state and its serving corpus cache.
 
 The store owns the ``StreamState`` on one device and the materialized
-``[n_users, n_items]`` true-value corpus that kNN queries read.  A
-micro-batch touches a handful of users; the engine marks those rows
-dirty (``invalidate_users``) and ``corpus()`` refreshes only them, or
-rebuilds the whole corpus once more than ``corpus_rebuild_frac`` of the
-rows are dirty.
+``[n_users, n_items]`` true-value corpus that kNN queries read, plus
+its int8 quantization for the int8 serving path.  A micro-batch touches
+a handful of users; the engine marks those rows dirty
+(``invalidate_users``) and ``corpus()`` / ``quantized_corpus()`` each
+refresh only them (each cache has its own dirty set), or rebuild
+whole once more than ``corpus_rebuild_frac`` of the rows are dirty.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Set
+from typing import Any, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.types import StreamState, resolve_device
+from repro_torch.optim.compression import (quantize_int8_rows,
+                                           quantize_int8_rows_pitched)
 
 
 @dataclasses.dataclass
@@ -43,6 +46,21 @@ def _refresh_corpus_rows(corpus: torch.Tensor, user_vecs: torch.Tensor,
     return corpus
 
 
+def _requantize_rows(corpus_q: torch.Tensor, scales: torch.Tensor,
+                     corpus: torch.Tensor, rows: torch.Tensor) -> None:
+    """Re-quantize exactly ``rows`` of the int8 corpus, IN PLACE.
+
+    Per-row scaling makes a row's ``(q, scale)`` depend on that row
+    alone, so this equals a from-scratch quantization.  O(|rows| · I).
+    """
+    corpus_q[rows], scales[rows] = quantize_int8_rows(corpus[rows])
+
+
+def _dirty_rows(dirty: Set[int], device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(np.fromiter(dirty, np.int64, len(dirty)),
+                           device=device)
+
+
 class StateStore:
     """Owns the StreamState and the serving corpus cache on one device.
 
@@ -61,21 +79,33 @@ class StateStore:
         self.corpus_full_builds = 0
         self.corpus_rows_refreshed = 0
         self.corpus_threshold_rebuilds = 0
+        self._corpus_q: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._q_dirty: Set[int] = set()
+        self.quant_full_builds = 0
+        self.quant_rows_refreshed = 0
+        self.quant_threshold_rebuilds = 0
 
     def invalidate_users(self, users: Any) -> None:
-        """Mark user rows of the serving corpus stale.
+        """Mark user rows of the serving caches stale.
 
         The engine calls this after every micro-batch and stability
-        refresh with the touched users; O(|users|) set inserts.
+        refresh with the touched users; O(|users|) set inserts into the
+        dirty set of each cache that exists.
         """
-        if self._corpus is None:
-            return            # no cache yet: the first corpus() builds it
-        self._dirty.update(int(x) for x in np.asarray(users).ravel())
+        if self._corpus is None and self._corpus_q is None:
+            return            # no cache yet: the first call builds it
+        rows = [int(x) for x in np.asarray(users).ravel()]
+        if self._corpus is not None:
+            self._dirty.update(rows)
+        if self._corpus_q is not None:
+            self._q_dirty.update(rows)
 
     def invalidate_all(self) -> None:
-        """Drop the cache entirely (out-of-band state edits)."""
+        """Drop both caches entirely (out-of-band state edits)."""
         self._corpus = None
         self._dirty.clear()
+        self._corpus_q = None
+        self._q_dirty.clear()
 
     def corpus(self) -> torch.Tensor:
         """The materialized true-value corpus f32[n_users, n_items].
@@ -96,11 +126,37 @@ class StateStore:
             self.corpus_full_builds += 1
             self.corpus_threshold_rebuilds += 1
         elif self._dirty:
-            rows = torch.as_tensor(np.fromiter(self._dirty, np.int64,
-                                               len(self._dirty)),
-                                   device=self.device)
+            rows = _dirty_rows(self._dirty, self.device)
             self.corpus_rows_refreshed += rows.numel()
             _refresh_corpus_rows(self._corpus, self.state.user_vecs,
                                  self.state.uv_scale, rows)
             self._dirty.clear()
         return self._corpus
+
+    def quantized_corpus(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The int8 serving corpus: ``(q int8[M, I], scale f32[M])``.
+
+        ``optim.compression.quantize_int8_rows`` of :meth:`corpus`
+        (which this refreshes first), with its own dirty set: the first
+        call (or one after ``invalidate_all``, or with more than
+        ``corpus_rebuild_frac`` of the rows dirty) quantizes everything,
+        later calls re-quantize only the rows dirtied since the last
+        call, IN PLACE (same lifetime as :meth:`corpus`).  Either way
+        the result equals a from-scratch quantization of ``corpus()``
+        bit for bit.  ``q`` is a ``[:, :I]`` view of rows at a 16-byte
+        pitch (zero pad columns), which the D-tiled kernel reads as
+        16-byte vectors without a copy.
+        """
+        corpus = self.corpus()
+        if self._corpus_q is None or len(self._q_dirty) > \
+                self.cfg.corpus_rebuild_frac * self.cfg.n_users:
+            if self._corpus_q is not None:
+                self.quant_threshold_rebuilds += 1
+            self._corpus_q = quantize_int8_rows_pitched(corpus)
+            self.quant_full_builds += 1
+        elif self._q_dirty:
+            rows = _dirty_rows(self._q_dirty, self.device)
+            self.quant_rows_refreshed += rows.numel()
+            _requantize_rows(*self._corpus_q, corpus, rows)
+        self._q_dirty.clear()
+        return self._corpus_q

@@ -7,11 +7,14 @@ contracts around them that a CPU run can see.
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.types import AddBatch, StreamState, resolve_device
+from repro_torch.core.types import (KIND_ADD_BASKET, AddBatch,
+                                    StreamState, TifuParams, resolve_device)
 from repro_torch.kernels import build, knn_topk, ops, serving_topn
+from repro_torch.streaming.engine import Event, StreamingEngine
 from repro_torch.streaming.state_store import StateStore, StoreConfig
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -91,8 +94,110 @@ def test_cuda_impl_on_cpu_tensors_raises():
         with pytest.raises(ValueError):
             ops.fused_recommend(table, rows, k=2, alpha=0.5, topn=2,
                                 metric="cosine")
+    for call in _new_dispatch_calls():
+        with pytest.raises(ValueError, match="CUDA"):
+            call("cuda")
     assert torch.count_nonzero(table) == 0          # nothing was applied
     assert build.launch_counts == before
+
+
+def _int8_inputs():
+    cq = torch.arange(6 * 16, dtype=torch.int8).reshape(6, 16)
+    cs = torch.ones(6)
+    nbr = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    return cq, cs, torch.tensor([0, 5], dtype=torch.int32), nbr
+
+
+def _new_dispatch_calls():
+    """One call of each dispatcher and wrapper of the int8, D-tiled and
+    cross-shard serving paths, on CPU tensors, taking ``impl``."""
+    c = torch.rand((6, 16))
+    cq, cs, uid, nbr = _int8_inputs()
+    q, qs = cq[uid.long()], cs[uid.long()]
+    return [
+        lambda impl: ops.knn_topk_dtiled(c[:2], c, 3, bd=8, impl=impl),
+        lambda impl: ops.knn_topk_dtiled(q, cq, 3, bd=8, impl=impl,
+                                         q_scale=qs, c_scale=cs),
+        lambda impl: ops.fused_recommend(c, uid, 2, 0.5, 3, bd=8,
+                                         impl=impl),
+        lambda impl: ops.fused_recommend_quant(cq, cs, uid, 2, 0.5, 3, bd=8,
+                                               impl=impl),
+        lambda impl: ops.shard_topk(c[:2], c, 2, 1, 2, query_gids=uid,
+                                    impl=impl),
+        lambda impl: ops.shard_topk_quant(q, qs, cq, cs, 2, 1, 2,
+                                          query_gids=uid, bd=8, impl=impl),
+        lambda impl: ops.blend_topn_rows(c[:2], c[nbr.long()], 0.5, 3,
+                                         impl=impl),
+        lambda impl: ops.blend_topn_rows_quant(q, qs, cq[nbr.long()],
+                                               cs[nbr.long()], 0.5, 3,
+                                               impl=impl),
+    ]
+
+
+def test_new_kernel_wrappers_take_only_cuda_tensors():
+    c = torch.rand((6, 16))
+    cq, cs, uid, nbr = _int8_inputs()
+    q, qs = cq[uid.long()], cs[uid.long()]
+    before = dict(build.launch_counts)
+    for call in (
+            lambda: knn_topk.launch_dtiled(c[:2], c, 2),
+            lambda: knn_topk.launch_dtiled(q, cq, 2, q_scale=qs, c_scale=cs),
+            lambda: knn_topk.launch(c[:2], c, 2, sub_qnorm=True),
+            lambda: serving_topn.launch_rows(c[:2], c[nbr.long()], 0.5, 3),
+            lambda: serving_topn.launch_rows(q, cq[nbr.long()], 0.5, 3,
+                                             q_scale=qs,
+                                             n_scale=cs[nbr.long()]),
+            lambda: serving_topn.launch_rows_indexed(q, qs, cq, cs, nbr, 0.5,
+                                                     3)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert build.launch_counts == before
+
+
+def test_row_addresses_follow_the_row_pitch():
+    """The row blend reads the rows of a row-pitched int8 cache (a
+    ``[:, :I]`` view of a wider buffer) at that pitch."""
+    buf = torch.zeros((9, 32), dtype=torch.int8)
+    view = buf[:, :21]
+    idx = torch.tensor([[4, 0], [8, 3]])
+    got = serving_topn._row_addresses(view, idx)
+    want = [[view[i].data_ptr() for i in row] for row in idx.tolist()]
+    assert got.tolist() == want
+
+
+def test_int8_guards_raise():
+    """As the JAX kernel's: an int8 corpus needs both scales, its D tile
+    stays <= 1024 (exact f32 convert of a tile's int32 partial), and
+    k <= 1024 (instacart's k=900 fits)."""
+    cq, cs, uid, _ = _int8_inputs()
+    q = cq[uid.long()]
+    with pytest.raises(ValueError, match="q_scale"):
+        knn_topk.launch_dtiled(q, cq, 2)
+    with pytest.raises(ValueError, match="q_scale"):
+        knn_topk.launch_dtiled(q, cq, 2, q_scale=cs[:2])
+    with pytest.raises(ValueError, match="bd"):
+        knn_topk.launch_dtiled(q, cq, 2, bd=2048, q_scale=cs[:2],
+                               c_scale=cs)
+    with pytest.raises(ValueError, match="k="):
+        knn_topk.launch_dtiled(q, cq, 1025, q_scale=cs[:2], c_scale=cs)
+    with pytest.raises(ValueError, match="k="):
+        knn_topk.launch_dtiled(q, cq, 0, q_scale=cs[:2], c_scale=cs)
+    with pytest.raises(ValueError, match="int8 rows require"):
+        serving_topn._scale_input(None, "q_scale", torch.device("cpu"), (2,))
+
+
+def test_quantized_serving_is_euclidean_only():
+    cfg = StoreConfig(n_users=4, n_items=16, max_baskets=3,
+                      max_basket_size=2)
+    eng = StreamingEngine(StateStore(cfg, device="cpu"),
+                          TifuParams(n_items=16, k_neighbors=2), batch_size=4)
+    eng.submit([Event(KIND_ADD_BASKET, u, items=np.array(items))
+                for u, items in ((0, [1, 2]), (1, [2, 3]))])
+    eng.run_until_drained()
+    assert eng.recommend([0, 1], topn=3, quantized=True).shape == (2, 3)
+    for metric in ("dot", "cosine"):
+        with pytest.raises(ValueError, match="euclidean"):
+            eng.recommend([0, 1], topn=3, metric=metric, quantized=True)
 
 
 def test_plain_versions_on_cpu_count_no_launch():
@@ -101,9 +206,14 @@ def test_plain_versions_on_cpu_count_no_launch():
     ops.sparse_row_gather(table, rows, ids)
     ops.sparse_row_scatter(table, rows, ids, vals)
     ops.fused_recommend(torch.rand((6, 16)), rows, k=3, alpha=0.7, topn=4)
+    for call in _new_dispatch_calls():
+        call(None)
     assert set(build.launch_counts) == {"sparse_row_gather",
                                         "sparse_row_scatter", "knn_topk",
-                                        "blend_topn_onehot"}
+                                        "blend_topn_onehot",
+                                        "knn_topk_dtiled",
+                                        "blend_topn_rows_quant",
+                                        "blend_topn_rows"}
     assert all(v == 0 for v in build.launch_counts.values())
 
 
@@ -112,6 +222,15 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
         text = (build.CSRC / name).read_text()
         assert "Replaces the TPU kernel repro/kernels/" in text, name
         assert "Bound:" in text, name
+    replaced = {"knn_topk_dtiled.cu": ("knn_topk.py :: knn_topk_dtiled",),
+                "serving_rows.cu": (":: blend_topn_rows_quant",
+                                    ":: blend_topn_rows (f32)")}
+    for name, functions in replaced.items():
+        assert name in build.SOURCES
+        text = " ".join((build.CSRC / name).read_text().replace(
+            "//", " ").split())
+        for fn in functions:
+            assert fn in text, (name, fn)
     assert not build.BUILD_DIR.is_relative_to(PORT)
     assert build.BUILD_DIR.parts[-2:] == ("build", "repro_torch_kernels")
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
