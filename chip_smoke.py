@@ -13,6 +13,7 @@ Phases, each fatal on failure (nothing is caught):
    card at the main path's shapes (TaFeng at its published size), with
    the kernel's, the plain version's and one PyTorch yardstick's median
    times, and the kernel's bound from this run's bytes and operations;
+   then the edge cases of the multi-hot scatter and of attention;
 4. main path -- the port's serving trickle (``launch/serve.py``,
    ``run_trickle(quantized=True)``) at full width: 13,949 users x 11,997
    items, m=7, k=300, alpha=0.7, a bulk load of one mixed stream in
@@ -31,12 +32,22 @@ Phases, each fatal on failure (nothing is caught):
    ``sharded_recommend_for_users_quant`` for the last request's users
    (counts reset before, read after), held against the single-corpus
    answers and the plain versions, each shard's int8 candidates bitwise;
-7. million-item point -- M=256 random rows, Q=32, I=1,048,576, k=16,
+7. from-scratch rebuild -- every user's Eq. 1+2 vector rebuilt from the
+   main path's final state in one batched ``ops.multihot_scatter``
+   (counts reset before, read after), held against its plain version
+   and against the maintained state (rtol=1e-4, atol=1e-5), and timed;
+8. million-item point -- M=256 random rows, Q=32, I=1,048,576, k=16,
    bd=1024 (the top point of benchmarks/bench_serving.py::ScaleConfig):
    the D-tiled stage A in both modes against its plain version, then
    ``knn.recommend_for_users_quant`` (counts reset before, read after)
    held against its plain pipeline on the dequantized corpus;
-8. summary -- every kernel's launches, then one JSON line of kernel
+9. granite-3-2b serving -- the dense LM at its published widths and
+   depth (40 layers, bf16, weights from a seeded generator): layer 0's
+   prefill attention kernel against plain and timed, then 4 prompts of
+   4,096 tokens prefilled and 16 greedy decode steps, once with the
+   kernels (counts reset before, read after) and once with the plain
+   versions; last-position logits compared, greedy tokens reported;
+10. summary -- every kernel's launches, then one JSON line of kernel
    records, and last the ``{"ok": true, ...}`` line.
 
 It needs a CUDA card and the rest of the repository; anywhere else it
@@ -44,6 +55,7 @@ exits non-zero without printing a result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -58,11 +70,15 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import convert  # noqa: E402
+from repro_torch.configs import granite_3_2b  # noqa: E402
 from repro_torch.core import knn  # noqa: E402
+from repro_torch.core.tifu import closed_form_basket_weights  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
-from repro_torch.kernels import (build, knn_topk, ops, ref,  # noqa: E402
+from repro_torch.kernels import (build, decayed_scatter,  # noqa: E402
+                                 flash_attention, knn_topk, ops, ref,
                                  serving_topn, sparse_row_gather,
                                  sparse_row_scatter)
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.optim.compression import (  # noqa: E402
     dequantize_int8_rows, quantize_int8_rows, quantize_int8_rows_pitched)
@@ -72,12 +88,21 @@ from repro_torch.parallel.sharding import UserShardSpec  # noqa: E402
 # in the tensor cores, HBM3
 PEAK_FP32 = 67e12
 PEAK_INT8 = 1979e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 Q, TOPN, ALPHA = 256, 10, 0.7
 BD = 512                         # the int8 serving path's D tile
 REPS = 5
 # the million-item point of benchmarks/bench_serving.py::ScaleConfig
 BIG_M, BIG_Q, BIG_I, BIG_K, BIG_BD = 256, 32, 1 << 20, 16, 1024
+# granite-3-2b serving: 4 prompts of TRAIN_4K's length, 16 greedy steps
+LM_BATCH, LM_PROMPT, LM_DECODE = 4, 4096, 16
+# kernels vs plain: max |logit difference| / max |logit| may be at most
+# this many times the plain bf16 run's own error against an f32 run of
+# the same weights through the plain versions (a first fixed bound of
+# 2e-2 failed at 2.45e-2 on rounding alone: both bf16 runs err against
+# f32 by more than that)
+LM_LOGIT_BOUND = 2.0
 
 KERNELS = {
     "sparse_row_gather": dict(
@@ -101,6 +126,12 @@ KERNELS = {
     "blend_topn_rows": dict(
         source="src/repro_torch/kernels/csrc/serving_rows.cu",
         replaces="src/repro/kernels/serving_topn.py:192"),
+    "decayed_scatter": dict(
+        source="src/repro_torch/kernels/csrc/decayed_scatter.cu",
+        replaces="src/repro/kernels/decayed_scatter.py:54"),
+    "flash_attention": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:73"),
 }
 
 
@@ -492,7 +523,7 @@ def check_dtiled(corpus, c_int, uid, records):
 
 
 def million_path(dev):
-    """Phase 7, the million-item point: M=256 random rows, Q=32,
+    """Phase 8, the million-item point: M=256 random rows, Q=32,
     I=1,048,576, k=16, bd=1024 (1.07 GB fp32, 268 MB int8).  The D-tiled
     stage A in both modes against its plain version (int8 identical,
     fp32 allclose with equivalent ids), then the int8 serving entry
@@ -527,7 +558,7 @@ def million_path(dev):
     launches = dict(build.launch_counts)
     log(f"  int8 serving at the million-item point: launches {launches}")
     for name in ("knn_topk_dtiled", "blend_topn_rows_quant"):
-        assert launches[name] > 0, f"{name} was not launched on path 7"
+        assert launches[name] > 0, f"{name} was not launched on path 8"
     build.reset_launch_counts()
     with ops.default_impl("ref"):
         want = serve()
@@ -879,6 +910,352 @@ def sharded_path(kern, p, dev):
         assert same(kv, pv) and torch.equal(kg, pg), f"shard {s} int8"
     log("  each shard's int8 candidates: identical to the plain version")
     return launches
+# ---------------------------------------------------------------------------
+# the from-scratch rebuild (decayed_scatter) and granite-3-2b serving
+# (flash_attention)
+# ---------------------------------------------------------------------------
+
+def multihot_pair(ids, w, n_items, what):
+    """The scatter kernel against its plain version (allclose; the
+    kernel's sum order is (n, b), the plain one's index_put_'s) and
+    against itself (reruns bitwise).  Returns (max |err|, bitwise)."""
+    got = decayed_scatter.launch(ids, w, n_items)
+    again = decayed_scatter.launch(ids, w, n_items)
+    exp = ref.decayed_scatter_ref(ids, w, n_items)
+    torch.cuda.synchronize()
+    err = float((got - exp).abs().max())
+    assert got.shape == exp.shape, (what, got.shape, exp.shape)
+    assert torch.allclose(got, exp, rtol=1e-5, atol=1e-6), (what, err)
+    assert torch.equal(got, again), f"{what}: scatter reruns differ"
+    return err, torch.equal(got, exp)
+
+
+def check_multihot_edges(dev):
+    """The scatter kernel's edge cases: PAD-only rows, an id repeated
+    across baskets, ids >= n_items, a chunk boundary (N·B > 4,096), the
+    single-row form, and one row at the million-item width."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    items = 1000
+    ids = torch.randint(-1, items, (6, 40, 9), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ids[0] = -1                                  # PAD only
+    ids[1, :, 0] = 7                             # id 7 in every basket
+    ids[2] = torch.randint(items - 20, items + 60, (40, 9), generator=gen,
+                           device=dev, dtype=torch.int32)  # many >= I
+    ids[3, :, :] = ids[3, :1, :]                 # the same basket 40 times
+    w = torch.rand((6, 40), generator=gen, device=dev)
+    results = [multihot_pair(ids, w, items, "edge rows")]
+    results.append(multihot_pair(ids[1], w[1], items, "single row"))
+    long_ids = torch.randint(-1, 300, (2, 700, 9), generator=gen,
+                             device=dev, dtype=torch.int32)
+    results.append(multihot_pair(long_ids, torch.rand(
+        (2, 700), generator=gen, device=dev), 300, "6,300 entries per row"))
+    big = torch.randint(-1, BIG_I, (256, 64), generator=gen, device=dev,
+                        dtype=torch.int32)
+    big[:, :8] = torch.randint(0, 64, (256, 8), generator=gen, device=dev,
+                               dtype=torch.int32)   # repeated ids
+    results.append(multihot_pair(big, torch.rand((256,), generator=gen,
+                                                 device=dev), BIG_I,
+                                 "million-item row"))
+    out = decayed_scatter.launch(ids, w, items)
+    assert torch.count_nonzero(out[0]) == 0, "PAD-only row not zero"
+    log("  decayed_scatter edge cases (PAD-only row, repeated ids, ids >= "
+        "I, 6,300 entries per row, single row, N=256 B=64 I=1,048,576): "
+        f"max |err| {max(e for e, _ in results)}, bitwise its plain version "
+        f"in {sum(b for _, b in results)} of {len(results)}; reruns bitwise")
+
+
+def rebuild_path(kern, p, dev, records):
+    """Phase 7: the from-scratch rebuild of every user of the main path's
+    final state (TaFeng at its published size) in one batched
+    ``ops.multihot_scatter`` (counts reset before, read after), held
+    against its plain version and against the maintained state."""
+    state = kern.engine.store.state
+    hist, n_items = state.history, state.n_items
+    u, n, b = hist.shape
+    w = closed_form_basket_weights(state.group_sizes, state.n_groups, p.r_b,
+                                   p.r_g, n)
+    build.reset_launch_counts()
+    got = ops.multihot_scatter(hist, w, n_items)
+    torch.cuda.synchronize()
+    launches = dict(build.launch_counts)
+    assert launches["decayed_scatter"] == 1, launches
+    plain = ops.multihot_scatter(hist, w, n_items, impl="ref")
+    again = ops.multihot_scatter(hist, w, n_items)
+    torch.cuda.synchronize()
+    err = float((got - plain).abs().max())
+    assert torch.allclose(got, plain, rtol=1e-5, atol=1e-6), err
+    assert torch.equal(got, again), "rebuild reruns differ"
+    maintained = state.materialized_user_vecs()
+    dev_max = float((got - maintained).abs().max())
+    assert torch.allclose(got, maintained, rtol=1e-4, atol=1e-5), \
+        ("maintained state vs from-scratch rebuild", dev_max)
+    valid = (hist >= 0) & (hist < n_items)
+    n_valid = int(valid.sum())
+    log(f"rebuild from scratch of all {u} users (N={n}, B={b}, I={n_items},"
+        f" {n_valid} valid ids): kernel vs plain max |err| {err} "
+        f"(bitwise: {torch.equal(got, plain)}), vs the maintained state max "
+        f"|diff| {dev_max} (bar rtol=1e-4, atol=1e-5); launches {launches}")
+    rows = torch.arange(u, device=dev)[:, None, None].expand(u, n, b)
+    r_v, i_v = rows[valid], hist[valid].long()
+    w_v = w[:, :, None].expand(u, n, b)[valid]
+    del got, again, plain, maintained
+    t = dict(
+        ms=time_ms(lambda: ops.multihot_scatter(hist, w, n_items)),
+        plain_ms=time_ms(lambda: ops.multihot_scatter(hist, w, n_items,
+                                                      impl="ref")),
+        library_ms=time_ms(lambda: torch.zeros(
+            (u, n_items), device=dev).index_put_((r_v, i_v), w_v,
+                                                 accumulate=True)))
+    records["decayed_scatter"] = dict(
+        t, max_abs_err=err, shape=f"U={u} N={n} B={b} I={n_items}",
+        bound=bound(hist.numel() * 4 + w.numel() * 4 + u * n_items * 4, 0))
+    return launches
+
+
+FLASH_EDGES = (
+    # B, S, H, KV, D, window, dtype, causal
+    (2, 200, 4, 4, 64, 0, torch.float32, True),    # S % 64 != 0, KV == H
+    (1, 333, 8, 2, 128, 0, torch.bfloat16, True),  # KV < H, D = 128
+    (2, 256, 4, 1, 64, 48, torch.bfloat16, True),  # window
+    (1, 130, 2, 2, 32, 17, torch.float32, True),   # D = 32, window
+    (2, 190, 8, 2, 32, 0, torch.bfloat16, True),   # D = 32 in bf16
+    (1, 96, 4, 2, 256, 0, torch.bfloat16, True),   # D = 256
+    (1, 72, 4, 4, 96, 0, torch.bfloat16, True),    # D = 96 (CUDA cores)
+    (2, 1, 2, 1, 64, 0, torch.float32, True),      # one token
+    (2, 1, 2, 1, 64, 0, torch.bfloat16, True),
+    (1, 100, 2, 2, 64, 0, torch.float32, False),   # no causal mask
+    (1, 64, 4, 4, 128, 30, torch.bfloat16, False),  # window, no causal
+    (1, 160, 8, 8, 128, 0, torch.float32, True),   # D = 128 in f32
+)
+# the JAX package's own kernel-vs-oracle bounds (tests/test_kernels.py:206,
+# :219)
+FLASH_ATOL = {torch.float32: 2e-3, torch.bfloat16: 3e-2}
+# the same check scaled to the output's size, in bf16 ulps (2^-7 relative
+# step): the error's rms within 1 ulp of the output's rms, and no
+# (batch, query, head) row off by more than 2 ulps of its largest output
+FLASH_RMS_RATIO = 2.0 ** -7
+FLASH_ROW_RATIO = 2.0 ** -6
+
+
+def flash_check(q, k, v, what, causal=True, window=0):
+    """The attention kernel against its plain version (bf16 with D in
+    {32, 64, 128} and 16-byte aligned rows runs on the tensor cores,
+    every other input on the CUDA cores); returns (kernel, plain)."""
+    exp = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    got = flash_attention.launch(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    err = float((got.float() - exp.float()).abs().max())
+    assert got.shape == q.shape and got.dtype == q.dtype, what
+    assert err <= FLASH_ATOL[q.dtype], (what, err)
+    return got, exp
+
+
+def check_flash_edges(dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    worst: dict = {}
+
+    def note(dt, got, exp):
+        key = str(dt)[6:]
+        err = float((got.float() - exp.float()).abs().max())
+        worst[key] = max(worst.get(key, 0.0), err)
+
+    for b, s, h, kv, d, win, dt, causal in FLASH_EDGES:
+        q, k, v = (torch.randn((b, s, n, d), generator=gen, device=dev
+                               ).to(dt) for n in (h, kv, kv))
+        note(dt, *flash_check(q, k, v, (b, s, h, kv, d, win, dt), causal,
+                              win))
+    for dt in (torch.float32, torch.bfloat16):
+        # strided heads: every other head of a wider buffer
+        wide = torch.randn((2, 77, 8, 64), generator=gen, device=dev).to(dt)
+        note(dt, *flash_check(wide[:, :, ::2], wide[:, :, 1::4],
+                              wide[:, :, 3::4], ("strided heads", dt)))
+        # rows starting 2 bytes past a 16-byte boundary: bf16 D = 64 that
+        # the tensor-core design does not take
+        pad = torch.randn((2, 90, 4, 72), generator=gen, device=dev).to(dt)
+        note(dt, *flash_check(pad[:, :, :, 1:65], pad[:, :, :2, 3:67],
+                              pad[:, :, 2:, 5:69], ("unaligned rows", dt)))
+    log(f"  flash_attention edge cases ({len(FLASH_EDGES) + 4}: S not a "
+        "multiple of the tile, windows, KV == H and KV < H, D 32/64/96/"
+        "128/256, one token, no causal mask, strided heads, unaligned "
+        "rows): max |err| " + ", ".join(f"{k} {e}" for k, e in
+                                        worst.items()))
+
+
+def attention_flops(b, s, h, d):
+    """2·2·D flops (QKᵀ and P·V) per unmasked (query, key) pair of
+    causal attention: S(S+1)/2 pairs per (batch, head)."""
+    return 4.0 * d * b * h * s * (s + 1) / 2
+
+
+def granite_path(dev, records):
+    """Phase 9: granite-3-2b at full width and depth serving 4 prompts of
+    4,096 tokens and 16 greedy decode steps, once with the kernels
+    (counts reset before, read after) and once with the plain versions;
+    layer 0's prefill attention checked kernel against plain and timed."""
+    c = granite_3_2b.make_config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    t0 = time.perf_counter()
+    model = transformer.init_params(c, gen, dev)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in model.parameters())
+    log(f"granite-3-2b: {c.n_params()} parameters ({n_bytes / 1e9:.2f} GB "
+        f"bf16) made from a seeded generator in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tokens = torch.randint(0, c.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device=dev)
+    max_len = LM_PROMPT + LM_DECODE
+
+    # layer 0's attention inputs, as the prefill computes them
+    layer0 = model.layers[0]
+    x = model.embed[tokens].to(c.dtype) * (c.d_model ** 0.5)
+    pos = torch.arange(LM_PROMPT, device=dev).expand(tokens.shape)
+    q, k, v = transformer.project_qkv(
+        transformer.rms_norm(x, layer0.ln1, c.norm_eps), layer0, c, pos)
+    got, exp = flash_check(q, k, v, "granite layer 0")
+    # the error against the output's own size: most rows average
+    # thousands of keys and are far smaller than the atol
+    diff, size = (got.float() - exp.float()).abs(), exp.float().abs()
+    err = float(diff.max())
+    rms_ratio = float(diff.square().mean().sqrt() / size.square().mean()
+                      .sqrt())
+    row_ratio = float((diff.amax(-1) / size.amax(-1)).max())
+    out_rms = float(size.square().mean().sqrt())
+    assert rms_ratio <= FLASH_RMS_RATIO and row_ratio <= FLASH_ROW_RATIO, \
+        ("granite layer 0 relative error", rms_ratio, row_ratio)
+    del got, exp, diff, size
+    # the yardstick reads K/V repeated over each group of query heads
+    group = c.n_heads // c.n_kv_heads
+    qt, kt, vt = (t.transpose(1, 2) for t in (
+        q, k.repeat_interleave(group, 2), v.repeat_interleave(group, 2)))
+    lib = torch.nn.functional.scaled_dot_product_attention
+    t = dict(
+        ms=time_ms(lambda: flash_attention.launch(q, k, v)),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v)),
+        library_ms=time_ms(lambda: lib(qt, kt, vt, is_causal=True)))
+    # q, k and v read once, an output of q's size written once
+    io_bytes = sum(a.numel() * a.element_size() for a in (q, k, v, q))
+    flops = attention_flops(LM_BATCH, LM_PROMPT, c.n_heads, c.d_head)
+    records["flash_attention"] = dict(
+        t, max_abs_err=err,
+        shape=f"B={LM_BATCH} S={LM_PROMPT} H={c.n_heads} KV={c.n_kv_heads}"
+              f" D={c.d_head} bf16 causal",
+        bound=bound(io_bytes, flops, PEAK_BF16))
+    log(f"  layer 0 prefill attention {records['flash_attention']['shape']}:"
+        f" kernel vs plain max |err| {err} (bound 3e-2); output rms "
+        f"{out_rms}, error rms / output rms {rms_ratio} (bound "
+        f"{FLASH_RMS_RATIO}), worst row's max |err| / its max |out| "
+        f"{row_ratio} (bound {FLASH_ROW_RATIO}); {t['ms']:.4f} ms, "
+        f"{flops / t['ms'] / 1e9:.1f} TFLOP/s")
+    del x, q, k, v, qt, kt, vt
+
+    def serve():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(tokens, max_len)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        first = logits
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        out = [tok]
+        for i in range(LM_DECODE):
+            logits, caches = model.decode_step(caches, tok, LM_PROMPT + i)
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            out.append(tok)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        del caches
+        return first, torch.cat(out, dim=1), t1 - t0, (t2 - t1) / LM_DECODE
+
+    build.reset_launch_counts()
+    k_logits, k_toks, k_pre, k_dec = serve()
+    launches = dict(build.launch_counts)
+    assert launches["flash_attention"] == c.n_layers, launches
+    assert sum(launches.values()) == c.n_layers, launches
+    build.reset_launch_counts()
+    with ops.default_impl("ref"):
+        p_logits, p_toks, p_pre, p_dec = serve()
+    assert not any(build.launch_counts.values()), build.launch_counts
+    for lg in (k_logits, p_logits):
+        assert lg.shape == (LM_BATCH, c.vocab_size) and \
+            bool(torch.isfinite(lg).all()), "granite logits"
+    same = (k_toks == p_toks).cpu().numpy()
+    agree = [int(np.argmin(r)) if not r.all() else len(r) for r in same]
+    log(f"  granite-3-2b serving, {LM_BATCH} x {LM_PROMPT} prompt tokens + "
+        f"{LM_DECODE} greedy steps: prefill {LM_BATCH * LM_PROMPT / k_pre:.0f}"
+        f" tokens/s with the kernels ({k_pre * 1e3:.1f} ms), "
+        f"{LM_BATCH * LM_PROMPT / p_pre:.0f} with the plain versions "
+        f"({p_pre * 1e3:.1f} ms); decode {k_dec * 1e3:.3f} ms per step "
+        f"(plain {p_dec * 1e3:.3f}); launches {launches}")
+    profile_serving(model, tokens, max_len)
+
+    # the precision yardstick: the same (bf16-valued) weights in f32,
+    # prefilled with the plain versions only, against which both bf16
+    # runs err
+    c32 = dataclasses.replace(c, dtype=torch.float32)
+    model32 = transformer.Transformer(c32, dev)
+    for p32, p16 in zip(model32.parameters(), model.parameters()):
+        p32.copy_(p16)
+    del model
+    build.reset_launch_counts()
+    with ops.default_impl("ref"):
+        f_logits, _ = model32.prefill(tokens, max_len)
+    assert not any(build.launch_counts.values()), build.launch_counts
+    del model32
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+    rel_kp, rel_k32, rel_p32 = (rel(k_logits, p_logits),
+                                rel(k_logits, f_logits),
+                                rel(p_logits, f_logits))
+    log(f"  last-position logits, max |diff| / max |logit|: kernels vs plain"
+        f" {rel_kp:.3e}; bf16 vs the f32 run of the same weights: kernels "
+        f"{rel_k32:.3e}, plain {rel_p32:.3e} (bound on kernels vs plain: "
+        f"{LM_LOGIT_BOUND} x the plain run's, {LM_LOGIT_BOUND * rel_p32:.3e});"
+        f" greedy tokens equal in {int(same.sum())} of {same.size}, each "
+        f"prompt's first {agree} of {LM_DECODE + 1} the same")
+    assert rel_kp <= LM_LOGIT_BOUND * rel_p32, ("granite logits", rel_kp,
+                                                 rel_p32)
+    return launches
+
+
+def profile_serving(model, tokens, max_len):
+    """Where a prefill's and a decode step's device time goes: one more
+    run of each under ``torch.profiler``, summed by kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    caches = model.prefill(tokens[:, :64], max_len)[1]
+    for what, fn in (
+            ("prefill", lambda: model.prefill(tokens, max_len)),
+            ("decode step", lambda: model.decode_step(
+                caches, tokens[:, 64:65], 64))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = []
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:   # kernels, not ops
+                continue
+            dev_us = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0))
+            if dev_us > 0:
+                rows.append((dev_us / 1e3, e.count, e.key))
+        rows.sort(reverse=True)
+        total = sum(r[0] for r in rows)
+        log(f"  profile of one {what}: {wall:.1f} ms on the host clock, "
+            f"{total:.1f} ms of device time ({100 * total / wall:.0f}% busy)"
+            f"; by kernel: " + "; ".join(
+                f"{ms:.1f} ms x{n} {name[:60]}" for ms, n, name in rows[:6]))
+
+
 def kernel_checks(ds, dev) -> dict:
     """Phase 3: every kernel against its plain version at the shapes the
     main path gives it (the store shapes ``serve.run_trickle`` builds
@@ -910,6 +1287,8 @@ def kernel_checks(ds, dev) -> dict:
     check_dtiled_edges(gen, dev)
     cq, cs, nbr = check_dtiled(corpus, c_int, uid, records)
     check_rows(corpus, c_int, cq, cs, uid, nbr, records)
+    check_multihot_edges(dev)
+    check_flash_edges(dev)
     return records
 
 
@@ -953,12 +1332,19 @@ def main() -> int:
     t0 = time.perf_counter()
     paths = [launches, dtiled_path(kern, p, dev), sharded_path(kern, p, dev)]
     log(f"D-tiled and cross-shard paths: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths.append(rebuild_path(kern, p, dev, records))
+    log(f"from-scratch rebuild: {time.perf_counter() - t0:.1f} s")
     del kern
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     records["knn_topk_dtiled"]["million"], million = million_path(dev)
     paths.append(million)
     log(f"million-item point: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths.append(granite_path(dev, records))
+    log(f"granite-3-2b serving: {time.perf_counter() - t0:.1f} s")
     for name in KERNELS:
         # launches on the paths that drive the kernel (each path's counts
         # were set to 0 just before it and read just after)

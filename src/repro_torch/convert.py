@@ -1,9 +1,11 @@
-"""Carry a ``StreamState`` across frameworks as nine numpy arrays.
+"""Carry state and weights across frameworks as numpy arrays.
 
-The JAX package has no weights; its ``StreamState`` leaves take their
-place.  ``state_to_numpy`` of either package's state (``np.asarray`` of
-each leaf) gives a dict that ``state_from_numpy`` installs in the port,
-so both engines and appliers can start from one state.
+The TIFU-kNN system has no weights; its ``StreamState`` leaves take
+their place.  ``state_to_numpy`` of either package's state
+(``np.asarray`` of each leaf) gives a dict that ``state_from_numpy``
+installs in the port, so both engines and appliers can start from one
+state.  ``transformer_params_from_numpy`` does the same for the LM
+stack's parameter tree.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import StreamState, resolve_device
+from repro_torch.models.transformer import (Transformer, TransformerConfig,
+                                            param_shapes)
 
 LEAVES = tuple(f.name for f in dataclasses.fields(StreamState))
 
@@ -41,3 +45,30 @@ def state_to_numpy(state: Any) -> Dict[str, np.ndarray]:
         else:
             out[n] = np.array(leaf, copy=True)
     return out
+
+
+def transformer_params_from_numpy(params: Dict[str, Any],
+                                  c: TransformerConfig,
+                                  device: Any = None) -> Transformer:
+    """The port's model holding the JAX parameter tree ``params``
+    (numpy leaves: ``embed``, ``final_ln``, ``unembed`` when untied, and
+    ``dense_layers`` stacked ``[L, ...]``), cast to ``c.dtype``, on
+    ``device`` (CUDA unless the caller names another)."""
+    shapes = param_shapes(c)
+    model = Transformer(c, device)
+
+    def put(dst: torch.Tensor, src: Any, shape: tuple, name: str) -> None:
+        src = np.asarray(src)
+        if src.shape != shape:
+            raise ValueError(f"{name}: shape {src.shape}, expected {shape}")
+        dst.copy_(torch.from_numpy(np.array(src, dtype=np.float32)))
+
+    for name in ("embed", "final_ln", "unembed"):
+        if name in shapes:
+            put(getattr(model, name), params[name], shapes[name], name)
+    stacked = params["dense_layers"]
+    for name, shape in shapes["dense_layers"].items():
+        for i, layer in enumerate(model.layers):
+            put(getattr(layer, name), np.asarray(stacked[name])[i],
+                shape[1:], f"dense_layers.{name}[{i}]")
+    return model

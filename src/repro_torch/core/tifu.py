@@ -97,3 +97,10 @@ def last_group_vector_padded(history: torch.Tensor,
     w = torch.where(valid, w, torch.zeros_like(w))
     out = weighted_multihot_scatter(history, w, params.n_items)
     return torch.where((n_groups > 0)[:, None], out, torch.zeros_like(out))
+
+
+# From-scratch user vectors of many users, [M, N, B], [M, K], [M] →
+# f32[M, I]: the JAX package's name for the same plain torch scatter (it
+# leaves the scatter to XLA).  The kernel path of this rebuild is
+# ``ops.multihot_scatter`` over ``closed_form_basket_weights``.
+batch_user_vectors = user_vector_padded

@@ -27,7 +27,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("sparse_row_gather.cu", "sparse_row_scatter.cu", "knn_topk.cu",
-           "serving_topn.cu", "knn_topk_dtiled.cu", "serving_rows.cu")
+           "serving_topn.cu", "knn_topk_dtiled.cu", "serving_rows.cu",
+           "decayed_scatter.cu", "flash_attention.cu")
 HEADERS = ("topk_common.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
@@ -49,6 +50,10 @@ SIGNATURES: Dict[str, List] = {
                                _P, _P],
     "blend_rows_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I,
                           _I, _P, _P, _P, _P, _P],
+    "decayed_scatter_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I,
+                               _I, _I, _P],
 }
 
 # launches per kernel wrapper since the last reset_launch_counts()
@@ -57,7 +62,9 @@ launch_counts: Dict[str, int] = {"sparse_row_gather": 0,
                                  "knn_topk": 0, "blend_topn_onehot": 0,
                                  "knn_topk_dtiled": 0,
                                  "blend_topn_rows_quant": 0,
-                                 "blend_topn_rows": 0}
+                                 "blend_topn_rows": 0,
+                                 "decayed_scatter": 0,
+                                 "flash_attention": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 last_build_log = ""

@@ -20,6 +20,8 @@ from typing import Iterator, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import decayed_scatter as _multihot
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import knn_topk as _knn
 from repro_torch.kernels import ref
 from repro_torch.kernels import serving_topn as _blend
@@ -297,3 +299,33 @@ def blend_topn_rows_quant(queries_q: torch.Tensor, q_scale: torch.Tensor,
                                   q_scale=q_scale, n_scale=n_scale)[1]
     return ref.blend_topn_rows_quant_ref(queries_q, q_scale, neighbor_rows_q,
                                          n_scale, alpha, topn)[1]
+
+
+def multihot_scatter(ids: torch.Tensor, weights: torch.Tensor, n_items: int,
+                     impl: Optional[str] = None) -> torch.Tensor:
+    """Weighted multi-hot scatter (the Eq. 1+2 from-scratch user vector).
+
+    ``ids`` int[N, B] with ``weights`` f32[N] → f32[n_items], or all
+    users at once: int[U, N, B] with f32[U, N] → f32[U, n_items].  Ids
+    outside [0, n_items) (PAD) add nothing.  O(N·B) ids read, O(I) out
+    per row; the kernel path (``decayed_scatter``) sums repeated ids in
+    (n, b) order, the plain path is ``ref.decayed_scatter_ref``.
+    """
+    if _use_kernel(impl, ids):
+        return _multihot.launch(ids, weights, n_items)
+    return ref.decayed_scatter_ref(ids, weights, n_items)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0,
+                    impl: Optional[str] = None) -> torch.Tensor:
+    """Blocked attention: q [B, S, H, D], k/v [B, S, KV, D] → [B, S, H, D].
+
+    Causal (``window`` > 0 adds the sliding window), scale 1/√D, H % KV
+    == 0.  O(S²·D) compute with O(S·D) memory on the kernel path
+    (``flash_attention``: the [S, S] scores are never written); the
+    plain path is ``ref.flash_attention_ref``.
+    """
+    if _use_kernel(impl, q):
+        return _flash.launch(q, k, v, causal=causal, window=window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)

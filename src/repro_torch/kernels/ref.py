@@ -306,3 +306,60 @@ def fused_recommend_quant_ref(corpus_q: torch.Tensor, c_scale: torch.Tensor,
     idx = idx.long()
     return blend_topn_rows_quant_ref(queries_q, q_scale, corpus_q[idx],
                                      c_scale[idx], alpha, topn)[1]
+
+
+def decayed_scatter_ref(ids: torch.Tensor, weights: torch.Tensor,
+                        n_items: int) -> torch.Tensor:
+    """Weighted multi-hot scatter: out[i] = Σ_{n,b} w[n]·[ids[n, b] == i].
+
+    ``ids`` int[N, B] with ``weights`` f32[N] → f32[n_items], or batched
+    ``ids`` int[U, N, B] with ``weights`` f32[U, N] → f32[U, n_items].
+    Ids outside [0, n_items) (PAD = −1) add nothing.  The Eq. 1+2
+    from-scratch user vector, and the EmbeddingBag transpose.
+    """
+    single = ids.dim() == 2
+    if single:
+        ids, weights = ids[None], weights[None]
+    u, n, b = ids.shape
+    flat = ids.reshape(u, n * b).long()
+    w = weights.to(torch.float32).repeat_interleave(b, dim=1)
+    valid = (flat >= 0) & (flat < n_items)
+    rows = torch.arange(u, device=ids.device)[:, None].expand_as(flat)
+    out = torch.zeros((u, n_items), dtype=torch.float32, device=ids.device)
+    out.index_put_((rows[valid], flat[valid]), w[valid], accumulate=True)
+    return out[0] if single else out
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Plain masked softmax attention, [B, S, H, D] → [B, S, H, D].
+
+    ``k``/``v`` carry KV heads with H % KV == 0 (query head h reads KV
+    head h // (H/KV)).  Scores in f32 times ``scale`` (default 1/√D),
+    the causal mask ``kpos <= qpos`` and with ``window`` > 0 also
+    ``kpos > qpos − window``, masked scores −1e30; the softmax is cast
+    to the V dtype before P·V, as the JAX oracle does.  One batch row at
+    a time, so the [H, S, S] scores of one row are the largest
+    intermediate.
+    """
+    b, s, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((s, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    out = []
+    for i in range(b):
+        qg = q[i].float().reshape(s, kv, h // kv, d)
+        scores = torch.einsum("qkgd,skd->kgqs", qg, k[i].float()) * scale
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+        p = torch.softmax(scores, dim=-1).to(v.dtype)
+        o = torch.einsum("kgqs,skd->qkgd", p.float(), v[i].float())
+        out.append(o.reshape(s, h, d).to(v.dtype))
+    return torch.stack(out)

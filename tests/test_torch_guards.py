@@ -13,7 +13,8 @@ import torch
 
 from repro_torch.core.types import (KIND_ADD_BASKET, AddBatch,
                                     StreamState, TifuParams, resolve_device)
-from repro_torch.kernels import build, knn_topk, ops, serving_topn
+from repro_torch.kernels import (build, decayed_scatter, flash_attention,
+                                 knn_topk, ops, serving_topn)
 from repro_torch.streaming.engine import Event, StreamingEngine
 from repro_torch.streaming.state_store import StateStore, StoreConfig
 
@@ -108,13 +109,32 @@ def _int8_inputs():
     return cq, cs, torch.tensor([0, 5], dtype=torch.int32), nbr
 
 
+def _scatter_inputs():
+    ids = torch.tensor([[[1, -1], [3, 3]], [[-1, -1], [2, 40]]],
+                       dtype=torch.int32)
+    return ids, torch.rand((2, 2))
+
+
+def _attention_inputs(dtype=torch.float32):
+    q = torch.rand((1, 5, 4, 8), dtype=dtype)
+    return q, torch.rand((1, 5, 2, 8), dtype=dtype), \
+        torch.rand((1, 5, 2, 8), dtype=dtype)
+
+
 def _new_dispatch_calls():
     """One call of each dispatcher and wrapper of the int8, D-tiled and
-    cross-shard serving paths, on CPU tensors, taking ``impl``."""
+    cross-shard serving paths, the multi-hot scatter and attention, on
+    CPU tensors, taking ``impl``."""
     c = torch.rand((6, 16))
     cq, cs, uid, nbr = _int8_inputs()
     q, qs = cq[uid.long()], cs[uid.long()]
+    ids, w = _scatter_inputs()
+    aq, ak, av = _attention_inputs()
     return [
+        lambda impl: ops.multihot_scatter(ids, w, 16, impl=impl),
+        lambda impl: ops.multihot_scatter(ids[0], w[0], 16, impl=impl),
+        lambda impl: ops.flash_attention(aq, ak, av, impl=impl),
+        lambda impl: ops.flash_attention(aq, ak, av, window=2, impl=impl),
         lambda impl: ops.knn_topk_dtiled(c[:2], c, 3, bd=8, impl=impl),
         lambda impl: ops.knn_topk_dtiled(q, cq, 3, bd=8, impl=impl,
                                          q_scale=qs, c_scale=cs),
@@ -148,7 +168,11 @@ def test_new_kernel_wrappers_take_only_cuda_tensors():
                                              q_scale=qs,
                                              n_scale=cs[nbr.long()]),
             lambda: serving_topn.launch_rows_indexed(q, qs, cq, cs, nbr, 0.5,
-                                                     3)):
+                                                     3),
+            lambda: decayed_scatter.launch(*_scatter_inputs(), 16),
+            lambda: flash_attention.launch(*_attention_inputs()),
+            lambda: flash_attention.launch(
+                *_attention_inputs(torch.bfloat16), window=3)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert build.launch_counts == before
@@ -213,7 +237,9 @@ def test_plain_versions_on_cpu_count_no_launch():
                                         "blend_topn_onehot",
                                         "knn_topk_dtiled",
                                         "blend_topn_rows_quant",
-                                        "blend_topn_rows"}
+                                        "blend_topn_rows",
+                                        "decayed_scatter",
+                                        "flash_attention"}
     assert all(v == 0 for v in build.launch_counts.values())
 
 
@@ -224,7 +250,11 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
         assert "Bound:" in text, name
     replaced = {"knn_topk_dtiled.cu": ("knn_topk.py :: knn_topk_dtiled",),
                 "serving_rows.cu": (":: blend_topn_rows_quant",
-                                    ":: blend_topn_rows (f32)")}
+                                    ":: blend_topn_rows (f32)"),
+                "decayed_scatter.cu": ("decayed_scatter.py :: "
+                                       "decayed_scatter",),
+                "flash_attention.cu": ("flash_attention.py :: "
+                                       "flash_attention",)}
     for name, functions in replaced.items():
         assert name in build.SOURCES
         text = " ".join((build.CSRC / name).read_text().replace(
@@ -243,3 +273,37 @@ def test_kernel_build_names_a_missing_toolkit(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build._nvcc()
+
+
+def test_flash_attention_guards_raise():
+    """What the attention kernel does not take raises before any launch:
+    other dtypes, mixed dtypes, D > 256, H % KV != 0, K/V of another
+    length, a strided head dim."""
+    q, k, v = _attention_inputs()
+    checks = [
+        ((q.half(), k.half(), v.half()), TypeError, "dtype"),
+        ((q, k.bfloat16(), v), TypeError, "dtype"),
+        ((torch.rand((1, 5, 4, 300)), torch.rand((1, 5, 2, 300)),
+          torch.rand((1, 5, 2, 300))), ValueError, "D="),
+        ((torch.rand((1, 5, 3, 8)), k, v), ValueError, "multiple"),
+        ((q, k[:, :4], v[:, :4]), ValueError, "K/V"),
+        ((q, k.transpose(1, 3).contiguous().transpose(1, 3), v), ValueError,
+         "contiguous"),
+    ]
+    for (a, b, c), err, match in checks:
+        with pytest.raises(err, match=match):
+            flash_attention._check(a, b, c, 0)
+    assert flash_attention._check(q, k, v, 0) == (1, 5, 4, 2, 8)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention._check(q, k, v, -1)
+
+
+def test_multihot_scatter_guards_raise():
+    ids, w = _scatter_inputs()
+    with pytest.raises(ValueError, match="do not match"):
+        decayed_scatter._check_shapes(ids, w[:, :1], 16)
+    with pytest.raises(ValueError, match="n_items"):
+        decayed_scatter._check_shapes(ids, w, 0)
+    with pytest.raises(ValueError, match=r"\[N, B\]"):
+        decayed_scatter._check_shapes(ids[0, 0], w[0], 16)
+    assert decayed_scatter._check_shapes(ids, w, 16) == (2, 2, 2)
