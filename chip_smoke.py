@@ -400,6 +400,17 @@ def same(a, b) -> bool:
         torch.int32), b.contiguous().view(torch.int32))
 
 
+def plan_str(q, c, k, bd) -> str:
+    """The D-tiled stage A's plan for one input, for the log."""
+    pl = knn_topk.dtiled_plan(q, c, k, bd)
+    return (f"{pl.design}: {pl.blocks} blocks = {pl.q_tiles} query tiles "
+            f"of {pl.bq} x {pl.n_slices} slices of {pl.rows} rows x "
+            f"{pl.n_splits} D splits of {pl.n_tiles} tiles"
+            + (f", second pass {pl.fin_slices} slices of {pl.fin_rows} "
+               f"rows, {pl.scratch_bytes} bytes of partials"
+               if pl.n_splits > 1 else ""))
+
+
 def dtiled_pair(q, c, k, bd, **kw):
     """Kernel and plain version of the D-tiled stage A on one input."""
     got = knn_topk.launch_dtiled(q, c, k, bd=bd, **kw)
@@ -447,6 +458,38 @@ def check_dtiled_edges(gen, dev):
     log(f"  D-tiled stage A M={m} D={d} Q={q_n}, bd in (16, 67, 512, "
         f"1024), k in (1, 7, 300, M-1, M), int8 and fp32, and the shard "
         f"mode: identical")
+    # each design unsplit and split: M=17,000 fills the SMs with slices
+    # (M and every slice no multiple of a block's rows, D of bd; bd=48
+    # ends each D tile on a half-zero k-step, 17 is no multiple of 16);
+    # M=200 x D=65,536 is a small grid with a large D, split
+    plans = set()
+    for m, d, bds, ks in ((17000, 2600, (16, 17, 48, 512, 1024),
+                           (1, 7, 300, 1024)),
+                          (200, 65536, (1024, 1000), (1, 7, 199, 200))):
+        c = int_corpus(gen, m, d, dev)
+        cq, cs = quantize_int8_rows(c)
+        uid = torch.randperm(m, generator=gen,
+                             device=dev)[:q_n].to(torch.int32)
+        u = uid.long()
+        shard = dict(query_gids=uid * 3 + 2, col_offset=2, col_stride=3,
+                     sub_qnorm=True)
+        for bd in bds:
+            for k in ks:
+                for kw in (dict(query_gids=uid), shard):
+                    (vk, ik), (vp, ip) = dtiled_pair(
+                        cq[u], cq, k, bd, q_scale=cs[u], c_scale=cs, **kw)
+                    assert same(vk, vp) and same(ik, ip), \
+                        f"int8 M={m} D={d} bd={bd} k={k} {sorted(kw)}"
+                    (vk, ik), (vp, ip) = dtiled_pair(c[u], c, k, bd, **kw)
+                    assert same(vk, vp) and same(ik, ip), \
+                        f"fp32 M={m} D={d} bd={bd} k={k} {sorted(kw)}"
+            for x in (cq, c):
+                for k in (ks[0], ks[-1]):
+                    pl = knn_topk.dtiled_plan(x[u], x, k, bd)
+                    plans.add((pl.design, pl.bq, pl.n_splits > 1))
+        log(f"  D-tiled stage A M={m} D={d} Q={q_n}, bd in {bds}, k in "
+            f"{ks}, int8 and fp32, plain and shard mode: identical")
+    log(f"  (design, queries per block, split) reached: {sorted(plans)}")
 
 
 def check_dtiled(corpus, c_int, uid, records):
@@ -511,6 +554,8 @@ def check_dtiled(corpus, c_int, uid, records):
         # out; 2*Q*M*D int8 operations
         bound=bound(Q * d + m * d + (m + Q) * 12 + Q * 300 * 8,
                     2.0 * Q * m * d, PEAK_INT8), **timings)
+    log(f"  D-tiled stage A plans: int8 {plan_str(cq[u], cq, 300, BD)}; "
+        f"fp32 {plan_str(qf, corpus, 300, BD)}")
     log(f"  D-tiled stage A timed: int8 {timings['ms']:.4f} ms on the "
         f"16-byte row pitch ({timings['contiguous_ms']:.4f} ms on a "
         f"contiguous corpus, padded per call; plain "
@@ -598,6 +643,10 @@ def million_path(dev):
                            + (BIG_M + BIG_Q) * 12 + BIG_Q * BIG_K * 8,
                            2.0 * BIG_Q * BIG_M * BIG_I, peak)
         out[mode] = t
+        pl = knn_topk.dtiled_plan(*args, BIG_K, BIG_BD)
+        assert pl.blocks >= 100, (mode, pl)
+        log(f"  D-tiled stage A {mode} plan: "
+            f"{plan_str(*args, BIG_K, BIG_BD)}")
         log(f"  D-tiled stage A {mode}: {t['ms']:.4f} ms (plain "
             f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}), bound "
             f"{b_ms:.4f} ms ({b_by})")

@@ -46,8 +46,8 @@ SIGNATURES: Dict[str, List] = {
     "blend_topn_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _I,
                           _P, _P, _P, _P, _P],
     "knn_topk_dtiled_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _L, _L, _I, _I, _P, _P, _P,
-                               _P, _P],
+                               _I, _I, _I, _I, _L, _L, _I, _I, _I, _I, _P,
+                               _P, _I, _I, _P, _P, _P, _P, _P],
     "blend_rows_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I,
                           _I, _P, _P, _P, _P, _P],
     "decayed_scatter_launch": [_P, _P, _P, _I, _I, _I, _I, _P],

@@ -221,14 +221,36 @@ __device__ __forceinline__ void mac(uint32_t a, uint32_t b,
   }
 }
 
-template <bool kInt8, bool kVec>
+// The score of one (query, row) pair from its summed q.c and |c|^2.
+__device__ __forceinline__ float dtiled_score(float acc, float cn, float sq,
+                                              float sc, const float* qn,
+                                              float q_term) {
+  float s = __fsub_rn(__fmul_rn(__fmul_rn(2.0f, __fmul_rn(sq, sc)), acc),
+                      __fmul_rn(__fmul_rn(sc, sc), cn));
+  if (qn != nullptr) s = __fsub_rn(s, q_term);
+  return s;
+}
+
+// The D tiles [t0, t1) of split z of n_splits: contiguous, in order.
+__device__ __forceinline__ void split_range(int n_tiles, int z, int n_splits,
+                                            int& t0, int& t1) {
+  t0 = (int)((long long)n_tiles * z / n_splits);
+  t1 = (int)((long long)n_tiles * (z + 1) / n_splits);
+}
+
+// kSplit: the block owns D tiles split_range(blockIdx.z) of its (query
+// tile, slice) and writes each tile's partials (as exact f32 in int8
+// mode) to split_acc[tile][Q][M], and query tile 0 its |c|^2 partials to
+// split_cn[tile][M]; dtiled_finish_kernel scores and selects.
+template <bool kInt8, bool kVec, bool kSplit>
 __global__ void __launch_bounds__(NT, 1) dtiled_tile_kernel(
     const void* __restrict__ q, const void* __restrict__ c,
     const float* __restrict__ qn, const float* __restrict__ q_scale,
     const float* __restrict__ c_scale, const int* __restrict__ qgid, int Q,
     int M, int D, int ld, int k, int n2, int bd, long long col_offset,
     long long col_stride, int rows_per_slice, float* __restrict__ part_v,
-    int* __restrict__ part_i) {
+    int* __restrict__ part_i, float* __restrict__ split_acc,
+    float* __restrict__ split_cn) {
   using Part = typename std::conditional<kInt8, int, float>::type;
   constexpr int PER = kInt8 ? 4 : 1;      // elements per staged word
   extern __shared__ float4 dtiled_smem[];
@@ -253,11 +275,15 @@ __global__ void __launch_bounds__(NT, 1) dtiled_tile_kernel(
   // chunks of one D tile, and in all: chunk ch lies in tile ch / per_tile
   const int per_tile = (bd + BW * PER - 1) / (BW * PER);
   const int n_tiles = (D + bd - 1) / bd;
-  const int n_chunks = n_tiles * per_tile;
+  int t0 = 0, t1 = n_tiles;
+  if (kSplit) split_range(n_tiles, blockIdx.z, gridDim.z, t0, t1);
+  const int c_begin = t0 * per_tile, c_end = t1 * per_tile;
 
-  for (int t = tid; t < BQ * n2; t += NT) {
-    lv[t] = -INFINITY;
-    li[t] = PAD_IDX;
+  if (!kSplit) {
+    for (int t = tid; t < BQ * n2; t += NT) {
+      lv[t] = -INFINITY;
+      li[t] = PAD_IDX;
+    }
   }
 
   for (int m0 = m_begin; m0 < m_end; m0 += BM) {
@@ -281,13 +307,13 @@ __global__ void __launch_bounds__(NT, 1) dtiled_tile_kernel(
     }
 
     __syncthreads();   // the previous tile's merge is done with sv and cn
-    load_chunk<kInt8, kVec>(q, c, Q, ld, q0, m0, m_end, 0, min(bd, D), tid,
-                            creg, qreg);
+    load_chunk<kInt8, kVec>(q, c, Q, ld, q0, m0, m_end, t0 * bd,
+                            min(t0 * bd + bd, D), tid, creg, qreg);
     store_chunk<kVec>(cs, qs, 0, tid, creg, qreg);
     __syncthreads();
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      const int buf = ch & 1;
-      const bool more = ch + 1 < n_chunks;
+    for (int ch = c_begin; ch < c_end; ++ch) {
+      const int buf = (ch - c_begin) & 1;
+      const bool more = ch + 1 < c_end;
       if (more) {
         const int t = (ch + 1) / per_tile;
         const int d0 = t * bd + ((ch + 1) % per_tile) * BW * PER;
@@ -318,7 +344,29 @@ __global__ void __launch_bounds__(NT, 1) dtiled_tile_kernel(
           }
         }
       }
-      if ((ch + 1) % per_tile == 0) {
+      if (kSplit && (ch + 1) % per_tile == 0) {
+        // end of a D tile: write its partials for the second pass
+        const int t = ch / per_tile;
+#pragma unroll
+        for (int j = 0; j < TM; ++j) {
+          const int m = m0 + tm * TM + j;
+          if (m < m_end) {
+            if (tq == 0 && blockIdx.x == 0) {
+              split_cn[(size_t)t * M + m] = (float)npart[j];
+            }
+#pragma unroll
+            for (int i = 0; i < TQ; ++i) {
+              const int gq = q0 + tq * TQ + i;
+              if (gq < Q) {
+                split_acc[((size_t)t * Q + gq) * M + m] = (float)part[i][j];
+              }
+            }
+          }
+          npart[j] = 0;
+#pragma unroll
+          for (int i = 0; i < TQ; ++i) part[i][j] = 0;
+        }
+      } else if ((ch + 1) % per_tile == 0) {
         // end of a D tile: add its partials to the accumulators, in order
 #pragma unroll
         for (int j = 0; j < TM; ++j) {
@@ -334,6 +382,7 @@ __global__ void __launch_bounds__(NT, 1) dtiled_tile_kernel(
       if (more) store_chunk<kVec>(cs, qs, buf ^ 1, tid, creg, qreg);
       __syncthreads();
     }
+    if (kSplit) continue;
     if (tq == 0) {
 #pragma unroll
       for (int j = 0; j < TM; ++j) cn[tm * TM + j] = nacc[j];
@@ -356,11 +405,9 @@ __global__ void __launch_bounds__(NT, 1) dtiled_tile_kernel(
         const int m = m0 + tm * TM + j;
         s[j] = -INFINITY;
         if (m < m_end && (long long)m * col_stride + col_offset != my_gid) {
-          const float sc = c_scale != nullptr ? c_scale[m] : 1.0f;
-          s[j] = __fsub_rn(
-              __fmul_rn(__fmul_rn(2.0f, __fmul_rn(sq, sc)), acc[i][j]),
-              __fmul_rn(__fmul_rn(sc, sc), cn[tm * TM + j]));
-          if (qn != nullptr) s[j] = __fsub_rn(s[j], q_term);
+          s[j] = dtiled_score(acc[i][j], cn[tm * TM + j], sq,
+                              c_scale != nullptr ? c_scale[m] : 1.0f, qn,
+                              q_term);
         }
       }
       *reinterpret_cast<float4*>(sv + (tq * TQ + i) * BM + tm * TM) =
@@ -371,26 +418,143 @@ __global__ void __launch_bounds__(NT, 1) dtiled_tile_kernel(
     merge_score_tile<BQ, BM, NWARP>(sv, lv, li, wv, wi, q0, Q, m0, m_end,
                                     k, n2);
   }
+  if (kSplit) return;
   __syncthreads();
   write_slice_lists<BQ>(lv, li, q0, Q, k, n2, slice, S, part_v, part_i);
 }
 
-template <bool kInt8, bool kVec>
+// Second pass of a D split: block (query tile, slice) sums each (query,
+// row) partial over all D tiles in tile order, tile 0 first (as the
+// unsplit kernels and the plain version do), and |c|^2 likewise, forms
+// the masked scores and folds them into its per-query lists, as the
+// unsplit kernels' epilogue does.
+constexpr int FIN_BQ = 16;                    // queries per block
+constexpr int FIN_BM = 128;                   // rows per score tile
+constexpr int FIN_PER = FIN_BQ * FIN_BM / NT; // pairs per thread
+
+size_t finish_smem_bytes(int n2) {
+  return sizeof(float) * (FIN_BQ * FIN_BM + FIN_BM) +
+         (sizeof(float) + sizeof(int)) *
+             ((size_t)FIN_BQ * n2 + NWARP * MERGE_CAND);
+}
+
+__global__ void __launch_bounds__(NT) dtiled_finish_kernel(
+    const float* __restrict__ split_acc, const float* __restrict__ split_cn,
+    int n_tiles, const float* __restrict__ qn,
+    const float* __restrict__ q_scale, const float* __restrict__ c_scale,
+    const int* __restrict__ qgid, int Q, int M, int k, int n2,
+    long long col_offset, long long col_stride, int rows_per_slice,
+    float* __restrict__ part_v, int* __restrict__ part_i) {
+  extern __shared__ float4 finish_smem[];
+  float* sv = reinterpret_cast<float*>(finish_smem);   // [FIN_BQ][FIN_BM]
+  float* cn = sv + FIN_BQ * FIN_BM;                    // [FIN_BM]
+  float* lv = cn + FIN_BM;                             // [FIN_BQ][n2]
+  int* li = reinterpret_cast<int*>(lv + FIN_BQ * n2);
+  float* wv = reinterpret_cast<float*>(li + FIN_BQ * n2);
+  int* wi = reinterpret_cast<int*>(wv + NWARP * MERGE_CAND);
+  const int q0 = blockIdx.x * FIN_BQ;
+  const int slice = blockIdx.y;
+  const int m_begin = slice * rows_per_slice;
+  const int m_end = min(M, m_begin + rows_per_slice);
+  const int tid = threadIdx.x;
+  for (int t = tid; t < FIN_BQ * n2; t += NT) {
+    lv[t] = -INFINITY;
+    li[t] = PAD_IDX;
+  }
+  for (int m0 = m_begin; m0 < m_end; m0 += FIN_BM) {
+    // pair r of this thread: query (tid + r*NT) / FIN_BM, row tid % FIN_BM
+    const int m = m0 + tid % FIN_BM;
+    float acc[FIN_PER];
+    float nacc = 0.0f;
+#pragma unroll
+    for (int r = 0; r < FIN_PER; ++r) acc[r] = 0.0f;
+    if (m < m_end) {
+#pragma unroll 4
+      for (int t = 0; t < n_tiles; ++t) {
+#pragma unroll
+        for (int r = 0; r < FIN_PER; ++r) {
+          const int gq = q0 + (tid + r * NT) / FIN_BM;
+          if (gq < Q) {
+            acc[r] = __fadd_rn(acc[r],
+                               split_acc[((size_t)t * Q + gq) * M + m]);
+          }
+        }
+        if (tid < FIN_BM) {
+          nacc = __fadd_rn(nacc, split_cn[(size_t)t * M + m]);
+        }
+      }
+    }
+    __syncthreads();   // the previous tile's merge is done with sv and cn
+    if (tid < FIN_BM) cn[tid] = nacc;
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < FIN_PER; ++r) {
+      const int qi = (tid + r * NT) / FIN_BM;
+      const int gq = q0 + qi;
+      float s = -INFINITY;
+      if (gq < Q && m < m_end &&
+          (long long)m * col_stride + col_offset != (long long)qgid[gq]) {
+        const float sq = q_scale != nullptr ? q_scale[gq] : 1.0f;
+        const float q_term =
+            qn != nullptr ? __fmul_rn(__fmul_rn(sq, sq), qn[gq]) : 0.0f;
+        s = dtiled_score(acc[r], cn[tid % FIN_BM], sq,
+                         c_scale != nullptr ? c_scale[m] : 1.0f, qn, q_term);
+      }
+      sv[qi * FIN_BM + tid % FIN_BM] = s;
+    }
+    __syncthreads();
+    merge_score_tile<FIN_BQ, FIN_BM, NWARP>(sv, lv, li, wv, wi, q0, Q, m0,
+                                            m_end, k, n2);
+  }
+  __syncthreads();
+  write_slice_lists<FIN_BQ>(lv, li, q0, Q, k, n2, slice, gridDim.y, part_v,
+                            part_i);
+}
+
+template <bool kInt8, bool kVec, bool kSplit>
 cudaError_t launch_tiles(dim3 grid, size_t smem, cudaStream_t st,
                          const void* q, const void* c, const float* qn,
                          const float* q_scale, const float* c_scale,
                          const int* qgid, int Q, int M, int D, int ld, int k,
                          int n2, int bd, long long col_offset,
                          long long col_stride, int rows_per_slice,
-                         float* part_v, int* part_i) {
+                         float* part_v, int* part_i, float* split_acc,
+                         float* split_cn) {
   cudaError_t err = cudaFuncSetAttribute(
-      dtiled_tile_kernel<kInt8, kVec>,
+      dtiled_tile_kernel<kInt8, kVec, kSplit>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dtiled_tile_kernel<kInt8, kVec><<<grid, NT, smem, st>>>(
+  dtiled_tile_kernel<kInt8, kVec, kSplit><<<grid, NT, smem, st>>>(
       q, c, qn, q_scale, c_scale, qgid, Q, M, D, ld, k, n2, bd, col_offset,
-      col_stride, rows_per_slice, part_v, part_i);
+      col_stride, rows_per_slice, part_v, part_i, split_acc, split_cn);
   return cudaGetLastError();
+}
+
+template <bool kSplit>
+cudaError_t launch_design(int int8, int vec, dim3 grid, size_t smem,
+                          cudaStream_t st, const void* q, const void* c,
+                          const float* qn, const float* q_scale,
+                          const float* c_scale, const int* qgid, int Q, int M,
+                          int D, int ld, int k, int n2, int bd,
+                          long long col_offset, long long col_stride,
+                          int rows_per_slice, float* part_v, int* part_i,
+                          float* split_acc, float* split_cn) {
+  if (int8 && vec) {
+    return launch_tiles<true, true, kSplit>(
+        grid, smem, st, q, c, qn, q_scale, c_scale, qgid, Q, M, D, ld, k, n2,
+        bd, col_offset, col_stride, rows_per_slice, part_v, part_i,
+        split_acc, split_cn);
+  }
+  if (int8) {
+    return launch_tiles<true, false, kSplit>(
+        grid, smem, st, q, c, qn, q_scale, c_scale, qgid, Q, M, D, ld, k, n2,
+        bd, col_offset, col_stride, rows_per_slice, part_v, part_i,
+        split_acc, split_cn);
+  }
+  return launch_tiles<false, false, kSplit>(
+      grid, smem, st, q, c, qn, nullptr, nullptr, qgid, Q, M, D, ld, k, n2,
+      bd, col_offset, col_stride, rows_per_slice, part_v, part_i, split_acc,
+      split_cn);
 }
 
 }  // namespace
@@ -400,40 +564,60 @@ cudaError_t launch_tiles(dim3 grid, size_t smem, cudaStream_t st,
 // both f32 (scales null).  vec != 0 (int8 only) asks for 16-byte row
 // loads: ld and bd multiples of 16.  qn: f32[Q] |q|^2 summed in the same
 // D tiles (ref.tiled_sqnorm_ref), or null unless sub_qnorm.  1 <= bd
-// (<= 1024 in int8 mode).  part_*: scratch [Q, n_slices, k]; out_*:
-// [Q, k]; n2 a power of two in [max(k, 64), 1024]; rows_per_slice *
-// n_slices >= M.
+// (<= 1024 in int8 mode).  bq: the design's queries per block.  The grid
+// is (ceil(Q / bq), n_slices, n_splits) with rows_per_slice * n_slices
+// >= M.  n_splits > 1 splits the D tiles across blocks: split_acc f32
+// [ceil(D / bd), Q, M] and split_cn f32[ceil(D / bd), M] take the
+// partials, and the second pass runs over (ceil(Q / 16), fin_slices)
+// blocks of fin_rows rows.  part_*: scratch [Q, lists, k], lists =
+// n_slices unsplit, fin_slices split; out_*: [Q, k]; n2 a power of two
+// in [max(k, 64), 1024].
 extern "C" int knn_topk_dtiled_launch(
     const void* q, const void* c, const void* qn, const void* q_scale,
     const void* c_scale, const void* qgid, int Q, int M, int D, int ld,
     int k, int n2, int bd, int int8, int vec, long long col_offset,
-    long long col_stride, int rows_per_slice, int n_slices, void* part_v,
-    void* part_i, void* out_v, void* out_i, void* stream) {
+    long long col_stride, int bq, int rows_per_slice, int n_slices,
+    int n_splits, void* split_acc, void* split_cn, int fin_rows,
+    int fin_slices, void* part_v, void* part_i, void* out_v, void* out_i,
+    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = tile_smem_bytes(n2);
-  const dim3 grid((Q + BQ - 1) / BQ, n_slices);
+  if (bq != BQ || n_splits < 1) return (int)cudaErrorInvalidValue;
   const auto* qn_f = (const float*)qn;
+  const auto* qs_f = (const float*)q_scale;
+  const auto* cs_f = (const float*)c_scale;
   const auto* qgid_i = (const int*)qgid;
+  const dim3 grid((Q + BQ - 1) / BQ, n_slices, n_splits);
+  int lists = n_slices;
   cudaError_t err;
-  if (int8 && vec) {
-    err = launch_tiles<true, true>(
-        grid, smem, st, q, c, qn_f, (const float*)q_scale,
-        (const float*)c_scale, qgid_i, Q, M, D, ld, k, n2, bd, col_offset,
-        col_stride, rows_per_slice, (float*)part_v, (int*)part_i);
-  } else if (int8) {
-    err = launch_tiles<true, false>(
-        grid, smem, st, q, c, qn_f, (const float*)q_scale,
-        (const float*)c_scale, qgid_i, Q, M, D, ld, k, n2, bd, col_offset,
-        col_stride, rows_per_slice, (float*)part_v, (int*)part_i);
+  if (n_splits == 1) {
+    err = launch_design<false>(int8, vec, grid, tile_smem_bytes(n2), st, q,
+                               c, qn_f, qs_f, cs_f, qgid_i, Q, M, D, ld, k,
+                               n2, bd, col_offset, col_stride, rows_per_slice,
+                               (float*)part_v, (int*)part_i, nullptr,
+                               nullptr);
   } else {
-    err = launch_tiles<false, false>(
-        grid, smem, st, q, c, qn_f, nullptr, nullptr, qgid_i, Q, M, D, ld,
-        k, n2, bd, col_offset, col_stride, rows_per_slice, (float*)part_v,
-        (int*)part_i);
+    err = launch_design<true>(int8, vec, grid, tile_smem_bytes(0), st, q, c,
+                              qn_f, qs_f, cs_f, qgid_i, Q, M, D, ld, k, n2,
+                              bd, col_offset, col_stride, rows_per_slice,
+                              nullptr, nullptr, (float*)split_acc,
+                              (float*)split_cn);
+    if (err != cudaSuccess) return (int)err;
+    const size_t smem = finish_smem_bytes(n2);
+    err = cudaFuncSetAttribute(dtiled_finish_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    dtiled_finish_kernel<<<dim3((Q + FIN_BQ - 1) / FIN_BQ, fin_slices), NT,
+                           smem, st>>>(
+        (const float*)split_acc, (const float*)split_cn, (D + bd - 1) / bd,
+        qn_f, qs_f, cs_f, qgid_i, Q, M, k, n2, col_offset, col_stride,
+        fin_rows, (float*)part_v, (int*)part_i);
+    err = cudaGetLastError();
+    lists = fin_slices;
   }
   if (err != cudaSuccess) return (int)err;
   merge_lists_kernel<<<Q, 256, (size_t)n2 * 8, st>>>(
-      (const float*)part_v, (const int*)part_i, n_slices, k, n2, k,
+      (const float*)part_v, (const int*)part_i, lists, k, n2, k,
       (float*)out_v, (int*)out_i);
   return (int)cudaGetLastError();
 }

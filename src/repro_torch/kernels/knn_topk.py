@@ -19,6 +19,7 @@ by a second kernel):
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -41,10 +42,110 @@ def plan_slices(n_queries: int, m: int, n_sms: int) -> Tuple[int, int]:
     (the top-k lists fill most of its shared memory), so the grid runs
     in one wave.
     """
-    q_tiles = -(-n_queries // _BQ)
-    want = max(1, min(n_sms // q_tiles, -(-m // _ROWS)))
-    rows = -(-(-(-m // want)) // _ROWS) * _ROWS
+    return _slices(-(-n_queries // _BQ), m, n_sms, _ROWS)
+
+
+def _slices(q_tiles: int, m: int, n_sms: int, unit: int) -> Tuple[int, int]:
+    """(rows per slice, slices): about ``n_sms // q_tiles`` slices, each
+    a whole number of ``unit`` rows."""
+    want = max(1, min(n_sms // q_tiles, -(-m // unit)))
+    rows = -(-(-(-m // want)) // unit) * unit
     return rows, -(-m // rows)
+
+
+# A D split keeps every D tile's partials in device memory, written once
+# and read once: 4·n_tiles·(Q·M + M) bytes.  At this budget the round
+# trip costs at most 2 x 64 MiB / 3.35 TB/s = 0.04 ms of HBM time, a
+# small part of the work a split spreads over idle SMs (the million-item
+# point needs 35 MB), and the scratch stays a small part of the card
+# beside the corpus.  Larger grids fill the SMs without a split.
+SPLIT_SCRATCH_BYTES = 64 << 20
+# (queries per block, slice row unit, rows per score tile) of each design
+_DESIGNS = {"cuda_cores": (16, 128, 512), "mma_s8": (32, 32, 256)}
+_FIN_BQ, _FIN_ROWS = 16, 32     # the split's second pass
+
+
+@dataclasses.dataclass(frozen=True)
+class DtiledPlan:
+    """The grid of one :func:`launch_dtiled` call.
+
+    ``design`` is the mainloop (``"mma_s8"``: int8 tensor cores;
+    ``"cuda_cores"``: ``fmaf``/``dp4a``), ``bq`` its queries per block;
+    the corpus is cut into ``n_slices`` slices of ``rows`` rows and the
+    ``n_tiles`` D tiles into ``n_splits`` contiguous ranges
+    (:func:`split_ranges`), one block per (query tile, slice, range).
+    With ``n_splits > 1`` a second pass of ``fin_slices`` slices of
+    ``fin_rows`` rows (16 queries a block) sums the tiles and selects,
+    and the partials take ``scratch_bytes`` of device memory.
+    """
+    design: str
+    bq: int
+    q_tiles: int
+    rows: int
+    n_slices: int
+    n_tiles: int
+    n_splits: int
+    fin_rows: int
+    fin_slices: int
+    scratch_bytes: int
+
+    @property
+    def blocks(self) -> int:
+        return self.q_tiles * self.n_slices * self.n_splits
+
+
+def _split_bytes(n_tiles: int, q_n: int, m: int) -> int:
+    return 4 * n_tiles * (q_n + 1) * m
+
+
+def plan_dtiled(q_n: int, m: int, d: int, bd: int, k: int, n_sms: int,
+                design: str) -> DtiledPlan:
+    """Plan the D-tiled stage A grid from the shapes alone.
+
+    The corpus is sliced as for stage A (about one block per SM).  Only
+    when the (query tile, slice) blocks would leave SMs idle, and the
+    split's partials fit :data:`SPLIT_SCRATCH_BYTES`, are the D tiles
+    split: each block's rows then fit one score tile, and the splits
+    fill the SMs (at most one D tile each).
+    """
+    bq, unit, row_tile = _DESIGNS[design]
+    if design == "mma_s8" and _pow2_at_least(k) > 512:
+        bq = 16                  # the per-query lists of n2 = 1024
+    q_tiles = -(-q_n // bq)
+    rows, n_slices = _slices(q_tiles, m, n_sms, unit)
+    n_tiles = -(-d // bd)
+    n_splits = 1
+    if q_tiles * n_slices < n_sms and \
+            _split_bytes(n_tiles, q_n, m) <= SPLIT_SCRATCH_BYTES:
+        s = -(-m // row_tile)
+        n_splits = max(1, min(n_tiles, n_sms // (q_tiles * s)))
+        if n_splits > 1:
+            rows = -(-(-(-m // s)) // unit) * unit
+            n_slices = -(-m // rows)
+    fin_rows, fin_slices, scratch = rows, n_slices, 0
+    if n_splits > 1:
+        fin_rows, fin_slices = _slices(-(-q_n // _FIN_BQ), m, n_sms,
+                                       _FIN_ROWS)
+        scratch = _split_bytes(n_tiles, q_n, m)
+    return DtiledPlan(design, bq, q_tiles, rows, n_slices, n_tiles, n_splits,
+                      fin_rows, fin_slices, scratch)
+
+
+def dtiled_plan(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                bd: int = 512) -> DtiledPlan:
+    """The plan :func:`launch_dtiled` takes for these CUDA inputs."""
+    q_n, d = queries.shape
+    bd = min(bd, d)
+    return plan_dtiled(
+        q_n, corpus.shape[0], d, bd, k,
+        torch.cuda.get_device_properties(corpus.device).multi_processor_count,
+        "cuda_cores")
+
+
+def split_ranges(n_tiles: int, n_splits: int) -> list:
+    """The D tiles [t0, t1) of each split, as the kernel cuts them."""
+    return [(n_tiles * z // n_splits, n_tiles * (z + 1) // n_splits)
+            for z in range(n_splits)]
 
 
 # The JAX package's ``knn_topk.tiled_sqnorm`` counterpart: |q|² of the
@@ -191,16 +292,23 @@ def launch_dtiled(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     if queries.stride(0) != ld or (vec and queries.data_ptr() % 16):
         queries = torch.nn.functional.pad(queries, (0, ld - d))
     n2 = max(64, _pow2_at_least(k))
-    rows, n_slices = plan_slices(
-        q_n, m, torch.cuda.get_device_properties(dev).multi_processor_count)
-    part_v = torch.empty((q_n, n_slices, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((q_n, n_slices, k), dtype=torch.int32, device=dev)
-    ptr = [None if t is None else t.data_ptr() for t in (qn, *scales)]
+    plan = dtiled_plan(queries, corpus, k, bd)
+    split = [None, None]
+    if plan.n_splits > 1:
+        split = [torch.empty((plan.n_tiles, q_n, m), dtype=torch.float32,
+                             device=dev),
+                 torch.empty((plan.n_tiles, m), dtype=torch.float32,
+                             device=dev)]
+    lists = plan.fin_slices if plan.n_splits > 1 else plan.n_slices
+    part_v = torch.empty((q_n, lists, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((q_n, lists, k), dtype=torch.int32, device=dev)
+    ptr = [None if t is None else t.data_ptr() for t in (qn, *scales, *split)]
     build.check(build.library().knn_topk_dtiled_launch(
         queries.data_ptr(), corpus.data_ptr(), ptr[0], ptr[1], ptr[2],
         gids.data_ptr(), q_n, m, d, ld, k, n2, bd, int(quantized), int(vec),
-        col_offset, col_stride, rows, n_slices, part_v.data_ptr(),
-        part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-        build.stream_of(corpus)), "knn_topk_dtiled")
+        col_offset, col_stride, plan.bq, plan.rows, plan.n_slices,
+        plan.n_splits, ptr[3], ptr[4], plan.fin_rows, plan.fin_slices,
+        part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(),
+        out_i.data_ptr(), build.stream_of(corpus)), "knn_topk_dtiled")
     build.count_launch("knn_topk_dtiled")
     return out_v, out_i
