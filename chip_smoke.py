@@ -490,6 +490,9 @@ def check_dtiled_edges(gen, dev):
         log(f"  D-tiled stage A M={m} D={d} Q={q_n}, bd in {bds}, k in "
             f"{ks}, int8 and fp32, plain and shard mode: identical")
     log(f"  (design, queries per block, split) reached: {sorted(plans)}")
+    assert {(d, sp) for d, _, sp in plans} == {
+        (d, sp) for d in ("mma_s8", "cuda_cores") for sp in (False, True)}
+    assert {b for d, b, _ in plans if d == "mma_s8"} == {16, 32}, plans
 
 
 def check_dtiled(corpus, c_int, uid, records):
@@ -503,6 +506,7 @@ def check_dtiled(corpus, c_int, uid, records):
     cq, cs = quantize_int8_rows_pitched(corpus)
     cqi, csi = quantize_int8_rows(c_int)
     kq = dict(query_gids=uid, q_scale=cs[u], c_scale=cs)
+    assert knn_topk.dtiled_plan(cq[u], cq, 300, BD).design == "mma_s8"
     (vk, ik), (vp, ip) = dtiled_pair(cq[u], cq, 300, BD, **kq)
     assert same(vk, vp) and same(ik, ip), "int8 stage A at TaFeng differs"
     nbr = ip

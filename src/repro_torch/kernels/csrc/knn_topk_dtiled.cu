@@ -68,7 +68,6 @@ constexpr int CS_WORDS = BW * CS_STRIDE;
 constexpr int QS_WORDS = BW * QS_STRIDE;
 constexpr int STAGE_WORDS = 2 * (CS_WORDS + QS_WORDS);
 constexpr int C_LOADS = BM * BW / NT;    // corpus words per thread/chunk
-constexpr int QUADS = BW / 4;            // 16-byte vectors per row/chunk
 static_assert(BQ * BW == NT, "one query word per thread per chunk");
 static_assert(BQ * BM <= STAGE_WORDS, "score tile fits over the staging");
 static_assert(ROW_THREADS % 32 == 0, "a warp shares its query tile");
@@ -78,22 +77,6 @@ size_t tile_smem_bytes(int n2) {
          (sizeof(float) + sizeof(int)) *
              ((size_t)BQ * n2 + NWARP * MERGE_CAND) +
          sizeof(float) * BM;
-}
-
-// Zero the bytes of the 16-byte vector at element e0 that lie at or past
-// e_end.
-__device__ __forceinline__ uint4 mask_vec(uint4 v, int e0, int e_end) {
-  uint32_t* w = reinterpret_cast<uint32_t*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = e_end - (e0 + 4 * i);
-    if (n <= 0) {
-      w[i] = 0u;
-    } else if (n < 4) {
-      w[i] &= (1u << (8 * n)) - 1u;
-    }
-  }
-  return v;
 }
 
 // One staged word of row ``row`` (pitch ``ld``) at element ``e0`` (fp32:
@@ -119,95 +102,41 @@ __device__ __forceinline__ uint32_t load_word(const void* __restrict__ x,
 
 // Global loads of one chunk (words w of elements d0 + w*PER, for rows
 // m0.. of the slice and queries q0..) into registers: creg[j] is word
-// e % BW of row e / BW, e = tid + j*NT; qreg[0] word tid % BW of query
-// tid / BW.  With kVec (int8, 16-byte pitch, d0 a multiple of 16),
-// creg[4j..4j+3] is vector e % QUADS of row e / QUADS and qreg[0..3]
-// vector tid % QUADS of query tid / QUADS (tid < BQ*QUADS).
-template <bool kInt8, bool kVec>
+// e % BW of row e / BW, e = tid + j*NT; qreg word tid % BW of query
+// tid / BW.
+template <bool kInt8>
 __device__ __forceinline__ void load_chunk(
     const void* __restrict__ q, const void* __restrict__ c, int Q, int ld,
     int q0, int m0, int m_end, int d0, int d_end, int tid,
-    uint32_t (&creg)[C_LOADS], uint32_t (&qreg)[4]) {
-  if constexpr (kVec) {
+    uint32_t (&creg)[C_LOADS], uint32_t& qreg) {
+  constexpr int PER = kInt8 ? 4 : 1;
 #pragma unroll
-    for (int j = 0; j < C_LOADS / 4; ++j) {
-      const int e = tid + j * NT;
-      const int gm = m0 + e / QUADS;
-      const int e0 = d0 + (e % QUADS) * 16;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gm < m_end && e0 < d_end) {
-        v = mask_vec(__ldg(reinterpret_cast<const uint4*>(
-                         static_cast<const uint8_t*>(c) + (size_t)gm * ld +
-                         e0)),
-                     e0, d_end);
-      }
-      creg[4 * j] = v.x;
-      creg[4 * j + 1] = v.y;
-      creg[4 * j + 2] = v.z;
-      creg[4 * j + 3] = v.w;
-    }
-    const int gq = q0 + tid / QUADS;
-    const int e0 = d0 + (tid % QUADS) * 16;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (tid < BQ * QUADS && gq < Q && e0 < d_end) {
-      v = mask_vec(__ldg(reinterpret_cast<const uint4*>(
-                       static_cast<const uint8_t*>(q) + (size_t)gq * ld +
-                       e0)),
-                   e0, d_end);
-    }
-    qreg[0] = v.x;
-    qreg[1] = v.y;
-    qreg[2] = v.z;
-    qreg[3] = v.w;
-  } else {
-    constexpr int PER = kInt8 ? 4 : 1;
-#pragma unroll
-    for (int j = 0; j < C_LOADS; ++j) {
-      const int e = tid + j * NT;
-      const int gm = m0 + e / BW;
-      creg[j] = gm < m_end ? load_word<kInt8>(c, gm, ld,
-                                              d0 + (e % BW) * PER, d_end)
-                           : 0u;
-    }
-    const int gq = q0 + tid / BW;
-    qreg[0] = gq < Q ? load_word<kInt8>(q, gq, ld, d0 + (tid % BW) * PER,
-                                        d_end)
-                     : 0u;
+  for (int j = 0; j < C_LOADS; ++j) {
+    const int e = tid + j * NT;
+    const int gm = m0 + e / BW;
+    creg[j] = gm < m_end ? load_word<kInt8>(c, gm, ld, d0 + (e % BW) * PER,
+                                            d_end)
+                         : 0u;
   }
+  const int gq = q0 + tid / BW;
+  qreg = gq < Q ? load_word<kInt8>(q, gq, ld, d0 + (tid % BW) * PER, d_end)
+                : 0u;
 }
 
 // Transpose the loaded chunk into staging buffer ``buf``: cs[w][row],
 // qs[w][query].
-template <bool kVec>
 __device__ __forceinline__ void store_chunk(uint32_t* cs, uint32_t* qs,
                                             int buf, int tid,
                                             const uint32_t (&creg)[C_LOADS],
-                                            const uint32_t (&qreg)[4]) {
+                                            uint32_t qreg) {
   uint32_t* cb = cs + buf * CS_WORDS;
   uint32_t* qb = qs + buf * QS_WORDS;
-  if constexpr (kVec) {
 #pragma unroll
-    for (int j = 0; j < C_LOADS / 4; ++j) {
-      const int e = tid + j * NT;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        cb[((e % QUADS) * 4 + i) * CS_STRIDE + e / QUADS] = creg[4 * j + i];
-      }
-    }
-    if (tid < BQ * QUADS) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qb[((tid % QUADS) * 4 + i) * QS_STRIDE + tid / QUADS] = qreg[i];
-      }
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < C_LOADS; ++j) {
-      const int e = tid + j * NT;
-      cb[(e % BW) * CS_STRIDE + e / BW] = creg[j];
-    }
-    qb[(tid % BW) * QS_STRIDE + tid / BW] = qreg[0];
+  for (int j = 0; j < C_LOADS; ++j) {
+    const int e = tid + j * NT;
+    cb[(e % BW) * CS_STRIDE + e / BW] = creg[j];
   }
+  qb[(tid % BW) * QS_STRIDE + tid / BW] = qreg;
 }
 
 template <bool kInt8>
@@ -242,7 +171,7 @@ __device__ __forceinline__ void split_range(int n_tiles, int z, int n_splits,
 // tile, slice) and writes each tile's partials (as exact f32 in int8
 // mode) to split_acc[tile][Q][M], and query tile 0 its |c|^2 partials to
 // split_cn[tile][M]; dtiled_finish_kernel scores and selects.
-template <bool kInt8, bool kVec, bool kSplit>
+template <bool kInt8, bool kSplit>
 __global__ void __launch_bounds__(NT, 1) dtiled_tile_kernel(
     const void* __restrict__ q, const void* __restrict__ c,
     const float* __restrict__ qn, const float* __restrict__ q_scale,
@@ -290,7 +219,7 @@ __global__ void __launch_bounds__(NT, 1) dtiled_tile_kernel(
     // warps whose rows all lie past the slice skip the multiply
     const bool warp_live = m0 + (tm - lane) * TM < m_end;
     uint32_t creg[C_LOADS];
-    uint32_t qreg[4];
+    uint32_t qreg;
     Part part[TQ][TM];
     float acc[TQ][TM];
     Part npart[TM];     // |c|^2 of this thread's rows (first query group)
@@ -307,9 +236,9 @@ __global__ void __launch_bounds__(NT, 1) dtiled_tile_kernel(
     }
 
     __syncthreads();   // the previous tile's merge is done with sv and cn
-    load_chunk<kInt8, kVec>(q, c, Q, ld, q0, m0, m_end, t0 * bd,
+    load_chunk<kInt8>(q, c, Q, ld, q0, m0, m_end, t0 * bd,
                             min(t0 * bd + bd, D), tid, creg, qreg);
-    store_chunk<kVec>(cs, qs, 0, tid, creg, qreg);
+    store_chunk(cs, qs, 0, tid, creg, qreg);
     __syncthreads();
     for (int ch = c_begin; ch < c_end; ++ch) {
       const int buf = (ch - c_begin) & 1;
@@ -317,7 +246,7 @@ __global__ void __launch_bounds__(NT, 1) dtiled_tile_kernel(
       if (more) {
         const int t = (ch + 1) / per_tile;
         const int d0 = t * bd + ((ch + 1) % per_tile) * BW * PER;
-        load_chunk<kInt8, kVec>(q, c, Q, ld, q0, m0, m_end, d0,
+        load_chunk<kInt8>(q, c, Q, ld, q0, m0, m_end, d0,
                                 min(t * bd + bd, D), tid, creg, qreg);
       }
       if (warp_live) {
@@ -379,7 +308,7 @@ __global__ void __launch_bounds__(NT, 1) dtiled_tile_kernel(
           }
         }
       }
-      if (more) store_chunk<kVec>(cs, qs, buf ^ 1, tid, creg, qreg);
+      if (more) store_chunk(cs, qs, buf ^ 1, tid, creg, qreg);
       __syncthreads();
     }
     if (kSplit) continue;
@@ -438,7 +367,7 @@ size_t finish_smem_bytes(int n2) {
              ((size_t)FIN_BQ * n2 + NWARP * MERGE_CAND);
 }
 
-__global__ void __launch_bounds__(NT) dtiled_finish_kernel(
+__global__ void __launch_bounds__(NT, 1) dtiled_finish_kernel(
     const float* __restrict__ split_acc, const float* __restrict__ split_cn,
     int n_tiles, const float* __restrict__ qn,
     const float* __restrict__ q_scale, const float* __restrict__ c_scale,
@@ -511,7 +440,306 @@ __global__ void __launch_bounds__(NT) dtiled_finish_kernel(
                             part_i);
 }
 
-template <bool kInt8, bool kVec, bool kSplit>
+// ---------------------------------------------------------------------------
+// The tensor-core design: int8 rows at a 16-byte pitch with bd % 16 == 0.
+// A block holds BQ queries (A, row-major) against a row tile of BM
+// corpus rows (B, k contiguous: the row-major corpus itself); each warp
+// owns all BQ queries x 32 rows, as BQ/16 x 4 mma.sync m16n8k32 s8 tiles
+// with int32 accumulators.  D is staged in chunks of BK bytes that never
+// straddle a D tile, through a ring of STAGES buffers filled by
+// cp.async (16-byte copies; the src-size form zero-fills the bytes at
+// and past the tile's end or D, which are never read).  Rows are padded
+// to PITCH bytes, so the 8 rows of each ldmatrix fall in 8 distinct
+// bank groups.
+constexpr int TC_BM = 256;                // corpus rows per row tile
+constexpr int TC_WROWS = TC_BM / NWARP;   // 32 rows per warp
+constexpr int TC_NTILE = TC_WROWS / 8;    // n8 tiles per warp
+constexpr int TC_BK = 64;                 // bytes of D per chunk: 2 k-steps
+constexpr int TC_PIECES = TC_BK / 16;     // 16-byte copies per row
+constexpr int TC_PITCH = TC_BK + 16;      // 80 bytes: 5 bank groups apart
+constexpr int TC_STAGES = 4;
+
+size_t tc_smem_bytes(int bq, int n2) {
+  return (size_t)TC_STAGES * (TC_BM + bq) * TC_PITCH +
+         (sizeof(float) + sizeof(int)) *
+             ((size_t)bq * n2 + NWARP * MERGE_CAND) +
+         sizeof(float) * TC_BM;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* smem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+
+// d += a (16 x 32 s8, row-major) * b (32 x 8 s8, column-major), s32.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Fragment element e (0..3) of an m16n8 accumulator tile: query row
+// g + 8 * (e / 2), corpus column 2 * tig + e % 2 (g = lane / 4, tig =
+// lane % 4).
+template <int BQ, bool kSplit>
+__global__ void __launch_bounds__(NT, 1) dtiled_mma_kernel(
+    const int8_t* __restrict__ q, const int8_t* __restrict__ c,
+    const float* __restrict__ qn, const float* __restrict__ q_scale,
+    const float* __restrict__ c_scale, const int* __restrict__ qgid, int Q,
+    int M, int D, int ld, int k, int n2, int bd, long long col_offset,
+    long long col_stride, int rows_per_slice, float* __restrict__ part_v,
+    int* __restrict__ part_i, float* __restrict__ split_acc,
+    float* __restrict__ split_cn) {
+  constexpr int MT = BQ / 16;                       // m16 tiles of queries
+  constexpr int STAGE = (TC_BM + BQ) * TC_PITCH;    // bytes per stage
+  static_assert(BQ * TC_BM * 4 <= TC_STAGES * STAGE, "scores fit");
+  extern __shared__ float4 tc_smem[];
+  uint8_t* stg = reinterpret_cast<uint8_t*>(tc_smem);
+  float* sv = reinterpret_cast<float*>(stg);   // [BQ][TC_BM] over the ring
+  float* lv = reinterpret_cast<float*>(stg + TC_STAGES * STAGE);
+  int* li = reinterpret_cast<int*>(lv + BQ * n2);             // [BQ][n2]
+  float* wv = reinterpret_cast<float*>(li + BQ * n2);         // merge scratch
+  int* wi = reinterpret_cast<int*>(wv + NWARP * MERGE_CAND);
+  float* cn = reinterpret_cast<float*>(wi + NWARP * MERGE_CAND);  // [TC_BM]
+
+  const int q0 = blockIdx.x * BQ;
+  const int slice = blockIdx.y;
+  const int m_begin = slice * rows_per_slice;
+  const int m_end = min(M, m_begin + rows_per_slice);
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int g = lane / 4;
+  const int tig = lane % 4;
+  const int per_tile = (bd + TC_BK - 1) / TC_BK;   // chunks per D tile
+  const int n_tiles = (D + bd - 1) / bd;
+  int t0 = 0, t1 = n_tiles;
+  if (kSplit) split_range(n_tiles, blockIdx.z, gridDim.z, t0, t1);
+  const int c_begin = t0 * per_tile;
+  const int n_chunks = (t1 - t0) * per_tile;
+
+  if (!kSplit) {
+    for (int t = tid; t < BQ * n2; t += NT) {
+      lv[t] = -INFINITY;
+      li[t] = PAD_IDX;
+    }
+  }
+
+  for (int m0 = m_begin; m0 < m_end; m0 += TC_BM) {
+    // warps whose rows all lie past the slice skip the products
+    const bool warp_live = m0 + warp * TC_WROWS < m_end;
+    int part[MT][TC_NTILE][4];
+    float acc[MT][TC_NTILE][4];
+    int npart[TC_NTILE];     // |c|^2 of row j*8 + g, this lane's bytes
+    float nacc[TC_NTILE];
+#pragma unroll
+    for (int j = 0; j < TC_NTILE; ++j) {
+      npart[j] = 0;
+      nacc[j] = 0.0f;
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          part[mi][j][e] = 0;
+          acc[mi][j][e] = 0.0f;
+        }
+    }
+
+    // bytes of chunk i (of this block's range) inside its D tile and D
+    auto chunk_bytes = [&](int i, int& d0) {
+      const int ch = c_begin + i;
+      const int t = ch / per_tile;
+      const int off = (ch % per_tile) * TC_BK;
+      d0 = t * bd + off;
+      return min(TC_BK, min(bd - off, D - d0));
+    };
+    // copy chunk i into stage i % TC_STAGES; rows past the slice, queries
+    // past Q and bytes past the valid ones are zero-filled
+    auto issue = [&](int i) {
+      int d0;
+      const int valid = chunk_bytes(i, d0);
+      uint8_t* cs = stg + (i % TC_STAGES) * STAGE;
+      uint8_t* qs = cs + TC_BM * TC_PITCH;
+#pragma unroll
+      for (int j = 0; j < TC_BM * TC_PIECES / NT; ++j) {
+        const int e = tid + j * NT;
+        const int r = e / TC_PIECES, p = e % TC_PIECES;
+        const int gm = m0 + r;
+        const int n = gm < m_end ? min(16, max(0, valid - p * 16)) : 0;
+        cp_async16(cs + r * TC_PITCH + p * 16,
+                   n > 0 ? c + (size_t)gm * ld + d0 + p * 16 : c, n);
+      }
+      for (int e = tid; e < BQ * TC_PIECES; e += NT) {
+        const int r = e / TC_PIECES, p = e % TC_PIECES;
+        const int gq = q0 + r;
+        const int n = gq < Q ? min(16, max(0, valid - p * 16)) : 0;
+        cp_async16(qs + r * TC_PITCH + p * 16,
+                   n > 0 ? q + (size_t)gq * ld + d0 + p * 16 : q, n);
+      }
+    };
+
+    __syncthreads();   // the previous row tile's merge is done with sv, cn
+#pragma unroll
+    for (int s = 0; s < TC_STAGES - 1; ++s) {
+      if (s < n_chunks) issue(s);
+      cp_async_commit();
+    }
+    for (int i = 0; i < n_chunks; ++i) {
+      cp_async_wait<TC_STAGES - 2>();   // chunk i has landed
+      __syncthreads();                  // ... for every thread, and chunk
+                                        // i - 1's stage is free
+      if (i + TC_STAGES - 1 < n_chunks) issue(i + TC_STAGES - 1);
+      cp_async_commit();
+      int d0;
+      const int valid = chunk_bytes(i, d0);
+      if (warp_live) {
+        const uint8_t* cs = stg + (i % TC_STAGES) * STAGE;
+        const uint8_t* qs = cs + TC_BM * TC_PITCH;
+#pragma unroll
+        for (int ks = 0; ks < TC_BK / 32; ++ks) {
+          if (ks * 32 >= valid) break;   // all zeros past the tile's end
+          uint32_t a[MT][4];
+#pragma unroll
+          for (int mi = 0; mi < MT; ++mi) {
+            ldmatrix_x4(a[mi], qs + (mi * 16 + lane % 16) * TC_PITCH +
+                                   ks * 32 + (lane / 16) * 16);
+          }
+          uint32_t b[TC_NTILE][2];
+#pragma unroll
+          for (int pr = 0; pr < TC_NTILE / 2; ++pr) {
+            uint32_t r[4];
+            ldmatrix_x4(r, cs + (warp * TC_WROWS + pr * 16 +
+                                 (lane / 16) * 8 + lane % 8) * TC_PITCH +
+                               ks * 32 + ((lane / 8) % 2) * 16);
+            b[2 * pr][0] = r[0];
+            b[2 * pr][1] = r[1];
+            b[2 * pr + 1][0] = r[2];
+            b[2 * pr + 1][1] = r[3];
+          }
+#pragma unroll
+          for (int j = 0; j < TC_NTILE; ++j) {
+            npart[j] = __dp4a((int)b[j][0], (int)b[j][0], npart[j]);
+            npart[j] = __dp4a((int)b[j][1], (int)b[j][1], npart[j]);
+#pragma unroll
+            for (int mi = 0; mi < MT; ++mi) {
+              mma_s8(part[mi][j], a[mi], b[j][0], b[j][1]);
+            }
+          }
+        }
+      }
+      const int ch = c_begin + i;
+      if ((ch + 1) % per_tile == 0) {
+        // end of a D tile: its exact int32 partials go to the f32 sums
+        // in tile order (or, split, to the second pass), then reset
+        const int t = ch / per_tile;
+#pragma unroll
+        for (int j = 0; j < TC_NTILE; ++j) {
+          int s = npart[j];
+          s += __shfl_xor_sync(0xffffffffu, s, 1);
+          s += __shfl_xor_sync(0xffffffffu, s, 2);
+          npart[j] = 0;
+          const int mrow = m0 + warp * TC_WROWS + j * 8 + g;
+          if (kSplit) {
+            if (tig == 0 && blockIdx.x == 0 && mrow < m_end) {
+              split_cn[(size_t)t * M + mrow] = (float)s;
+            }
+          } else {
+            nacc[j] = __fadd_rn(nacc[j], (float)s);
+          }
+#pragma unroll
+          for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              if (kSplit) {
+                const int gq = q0 + mi * 16 + g + 8 * (e / 2);
+                const int m = m0 + warp * TC_WROWS + j * 8 + 2 * tig + e % 2;
+                if (gq < Q && m < m_end) {
+                  split_acc[((size_t)t * Q + gq) * M + m] =
+                      (float)part[mi][j][e];
+                }
+              } else {
+                acc[mi][j][e] = __fadd_rn(acc[mi][j][e],
+                                          (float)part[mi][j][e]);
+              }
+              part[mi][j][e] = 0;
+            }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();   // every warp is done with the ring (sv lies on it)
+    if (kSplit) continue;
+
+    if (tig == 0) {
+#pragma unroll
+      for (int j = 0; j < TC_NTILE; ++j) {
+        cn[warp * TC_WROWS + j * 8 + g] = nacc[j];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int qi = mi * 16 + g + 8 * h;
+        const int gq = q0 + qi;
+        const bool q_ok = gq < Q;
+        const long long my_gid = q_ok ? (long long)qgid[gq] : -1LL;
+        const float sq = q_ok ? q_scale[gq] : 1.0f;
+        const float q_term = (q_ok && qn != nullptr)
+                                 ? __fmul_rn(__fmul_rn(sq, sq), qn[gq])
+                                 : 0.0f;
+#pragma unroll
+        for (int j = 0; j < TC_NTILE; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ml = warp * TC_WROWS + j * 8 + 2 * tig + e;
+            const int m = m0 + ml;
+            float s = -INFINITY;
+            if (q_ok && m < m_end &&
+                (long long)m * col_stride + col_offset != my_gid) {
+              s = dtiled_score(acc[mi][j][2 * h + e], cn[ml], sq,
+                               c_scale[m], qn, q_term);
+            }
+            sv[qi * TC_BM + ml] = s;
+          }
+      }
+    __syncthreads();
+    merge_score_tile<BQ, TC_BM, NWARP>(sv, lv, li, wv, wi, q0, Q, m0, m_end,
+                                       k, n2);
+  }
+  if (kSplit) return;
+  __syncthreads();
+  write_slice_lists<BQ>(lv, li, q0, Q, k, n2, slice, gridDim.y, part_v,
+                        part_i);
+}
+
+template <bool kInt8, bool kSplit>
 cudaError_t launch_tiles(dim3 grid, size_t smem, cudaStream_t st,
                          const void* q, const void* c, const float* qn,
                          const float* q_scale, const float* c_scale,
@@ -521,48 +749,80 @@ cudaError_t launch_tiles(dim3 grid, size_t smem, cudaStream_t st,
                          float* part_v, int* part_i, float* split_acc,
                          float* split_cn) {
   cudaError_t err = cudaFuncSetAttribute(
-      dtiled_tile_kernel<kInt8, kVec, kSplit>,
+      dtiled_tile_kernel<kInt8, kSplit>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dtiled_tile_kernel<kInt8, kVec, kSplit><<<grid, NT, smem, st>>>(
+  dtiled_tile_kernel<kInt8, kSplit><<<grid, NT, smem, st>>>(
       q, c, qn, q_scale, c_scale, qgid, Q, M, D, ld, k, n2, bd, col_offset,
       col_stride, rows_per_slice, part_v, part_i, split_acc, split_cn);
   return cudaGetLastError();
 }
 
+template <int BQ, bool kSplit>
+cudaError_t launch_mma(dim3 grid, size_t smem, cudaStream_t st,
+                       const void* q, const void* c, const float* qn,
+                       const float* q_scale, const float* c_scale,
+                       const int* qgid, int Q, int M, int D, int ld, int k,
+                       int n2, int bd, long long col_offset,
+                       long long col_stride, int rows_per_slice,
+                       float* part_v, int* part_i, float* split_acc,
+                       float* split_cn) {
+  cudaError_t err = cudaFuncSetAttribute(
+      dtiled_mma_kernel<BQ, kSplit>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dtiled_mma_kernel<BQ, kSplit><<<grid, NT, smem, st>>>(
+      static_cast<const int8_t*>(q), static_cast<const int8_t*>(c), qn,
+      q_scale, c_scale, qgid, Q, M, D, ld, k, n2, bd, col_offset, col_stride,
+      rows_per_slice, part_v, part_i, split_acc, split_cn);
+  return cudaGetLastError();
+}
+
+// The first pass of the design the input takes: the tensor cores for
+// int8 rows at a 16-byte pitch with bd % 16 == 0 (vec), BQ = bq; the
+// CUDA cores (BQ = 16) otherwise.
 template <bool kSplit>
-cudaError_t launch_design(int int8, int vec, dim3 grid, size_t smem,
+cudaError_t launch_design(int int8, int vec, int bq, dim3 grid, int n2,
                           cudaStream_t st, const void* q, const void* c,
                           const float* qn, const float* q_scale,
                           const float* c_scale, const int* qgid, int Q, int M,
-                          int D, int ld, int k, int n2, int bd,
-                          long long col_offset, long long col_stride,
-                          int rows_per_slice, float* part_v, int* part_i,
-                          float* split_acc, float* split_cn) {
-  if (int8 && vec) {
-    return launch_tiles<true, true, kSplit>(
-        grid, smem, st, q, c, qn, q_scale, c_scale, qgid, Q, M, D, ld, k, n2,
-        bd, col_offset, col_stride, rows_per_slice, part_v, part_i,
-        split_acc, split_cn);
+                          int D, int ld, int k, int bd, long long col_offset,
+                          long long col_stride, int rows_per_slice,
+                          float* part_v, int* part_i, float* split_acc,
+                          float* split_cn) {
+  const int lists_n2 = kSplit ? 0 : n2;   // a split pass keeps no lists
+  if (int8 && vec && bq == 32) {
+    return launch_mma<32, kSplit>(
+        grid, tc_smem_bytes(32, lists_n2), st, q, c, qn, q_scale, c_scale,
+        qgid, Q, M, D, ld, k, lists_n2, bd, col_offset, col_stride,
+        rows_per_slice, part_v, part_i, split_acc, split_cn);
   }
+  if (int8 && vec && bq == 16) {
+    return launch_mma<16, kSplit>(
+        grid, tc_smem_bytes(16, lists_n2), st, q, c, qn, q_scale, c_scale,
+        qgid, Q, M, D, ld, k, lists_n2, bd, col_offset, col_stride,
+        rows_per_slice, part_v, part_i, split_acc, split_cn);
+  }
+  if (vec || bq != BQ) return cudaErrorInvalidValue;
   if (int8) {
-    return launch_tiles<true, false, kSplit>(
-        grid, smem, st, q, c, qn, q_scale, c_scale, qgid, Q, M, D, ld, k, n2,
-        bd, col_offset, col_stride, rows_per_slice, part_v, part_i,
-        split_acc, split_cn);
+    return launch_tiles<true, kSplit>(
+        grid, tile_smem_bytes(lists_n2), st, q, c, qn, q_scale, c_scale, qgid,
+        Q, M, D, ld, k, lists_n2, bd, col_offset, col_stride, rows_per_slice,
+        part_v, part_i, split_acc, split_cn);
   }
-  return launch_tiles<false, false, kSplit>(
-      grid, smem, st, q, c, qn, nullptr, nullptr, qgid, Q, M, D, ld, k, n2,
-      bd, col_offset, col_stride, rows_per_slice, part_v, part_i, split_acc,
-      split_cn);
+  return launch_tiles<false, kSplit>(
+      grid, tile_smem_bytes(lists_n2), st, q, c, qn, nullptr, nullptr, qgid,
+      Q, M, D, ld, k, lists_n2, bd, col_offset, col_stride, rows_per_slice,
+      part_v, part_i, split_acc, split_cn);
 }
 
 }  // namespace
 
 // q: [Q, *] and c: [M, *], rows of D elements at a pitch of ld elements
 // (ld >= D), both int8 (int8 != 0; q_scale f32[Q] and c_scale f32[M]) or
-// both f32 (scales null).  vec != 0 (int8 only) asks for 16-byte row
-// loads: ld and bd multiples of 16.  qn: f32[Q] |q|^2 summed in the same
+// both f32 (scales null).  vec != 0 (int8 only) takes the tensor-core
+// design: ld, bd and the row addresses multiples of 16, bq 16 or 32
+// (bq = 16 on the CUDA cores).  qn: f32[Q] |q|^2 summed in the same
 // D tiles (ref.tiled_sqnorm_ref), or null unless sub_qnorm.  1 <= bd
 // (<= 1024 in int8 mode).  bq: the design's queries per block.  The grid
 // is (ceil(Q / bq), n_slices, n_splits) with rows_per_slice * n_slices
@@ -581,26 +841,24 @@ extern "C" int knn_topk_dtiled_launch(
     int fin_slices, void* part_v, void* part_i, void* out_v, void* out_i,
     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (bq != BQ || n_splits < 1) return (int)cudaErrorInvalidValue;
+  if (n_splits < 1) return (int)cudaErrorInvalidValue;
   const auto* qn_f = (const float*)qn;
   const auto* qs_f = (const float*)q_scale;
   const auto* cs_f = (const float*)c_scale;
   const auto* qgid_i = (const int*)qgid;
-  const dim3 grid((Q + BQ - 1) / BQ, n_slices, n_splits);
+  const dim3 grid((Q + bq - 1) / bq, n_slices, n_splits);
   int lists = n_slices;
   cudaError_t err;
   if (n_splits == 1) {
-    err = launch_design<false>(int8, vec, grid, tile_smem_bytes(n2), st, q,
-                               c, qn_f, qs_f, cs_f, qgid_i, Q, M, D, ld, k,
-                               n2, bd, col_offset, col_stride, rows_per_slice,
-                               (float*)part_v, (int*)part_i, nullptr,
-                               nullptr);
+    err = launch_design<false>(int8, vec, bq, grid, n2, st, q, c, qn_f, qs_f,
+                               cs_f, qgid_i, Q, M, D, ld, k, bd, col_offset,
+                               col_stride, rows_per_slice, (float*)part_v,
+                               (int*)part_i, nullptr, nullptr);
   } else {
-    err = launch_design<true>(int8, vec, grid, tile_smem_bytes(0), st, q, c,
-                              qn_f, qs_f, cs_f, qgid_i, Q, M, D, ld, k, n2,
-                              bd, col_offset, col_stride, rows_per_slice,
-                              nullptr, nullptr, (float*)split_acc,
-                              (float*)split_cn);
+    err = launch_design<true>(int8, vec, bq, grid, n2, st, q, c, qn_f, qs_f,
+                              cs_f, qgid_i, Q, M, D, ld, k, bd, col_offset,
+                              col_stride, rows_per_slice, nullptr, nullptr,
+                              (float*)split_acc, (float*)split_cn);
     if (err != cudaSuccess) return (int)err;
     const size_t smem = finish_smem_bytes(n2);
     err = cudaFuncSetAttribute(dtiled_finish_kernel,

@@ -131,6 +131,13 @@ def plan_dtiled(q_n: int, m: int, d: int, bd: int, k: int, n_sms: int,
                       fin_rows, fin_slices, scratch)
 
 
+def dtiled_design(int8: bool, bd: int) -> str:
+    """The mainloop the input alone picks: int8 tensor cores when every D
+    tile starts 16-byte aligned (int8 rows, ``bd % 16 == 0``), else the
+    CUDA cores (fp32 keeps parity there: no TF32)."""
+    return "mma_s8" if int8 and bd % 16 == 0 else "cuda_cores"
+
+
 def dtiled_plan(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                 bd: int = 512) -> DtiledPlan:
     """The plan :func:`launch_dtiled` takes for these CUDA inputs."""
@@ -139,7 +146,7 @@ def dtiled_plan(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     return plan_dtiled(
         q_n, corpus.shape[0], d, bd, k,
         torch.cuda.get_device_properties(corpus.device).multi_processor_count,
-        "cuda_cores")
+        dtiled_design(corpus.dtype == torch.int8, bd))
 
 
 def split_ranges(n_tiles: int, n_splits: int) -> list:
@@ -280,11 +287,12 @@ def launch_dtiled(queries: torch.Tensor, corpus: torch.Tensor, k: int,
             raise ValueError("q_scale / c_scale need one entry per row")
     bd = min(bd, d)
     qn = tiled_sqnorm(queries, bd) if sub_qnorm else None
-    # int8 rows go as 16-byte vectors when D tiles start 16-byte aligned;
-    # the rows then need a 16-byte pitch.  StateStore.quantized_corpus
-    # keeps one; any other int8 corpus is padded into a copy (0.2 GB at
-    # I=11,997).  The queries (Q rows) are copied to the corpus's pitch.
-    vec = quantized and bd % 16 == 0
+    plan = dtiled_plan(queries, corpus, k, bd)
+    # the tensor-core design copies 16-byte pieces of rows, so the rows
+    # need a 16-byte pitch.  StateStore.quantized_corpus keeps one; any
+    # other int8 corpus is padded into a copy (0.2 GB at I=11,997).  The
+    # queries (Q rows) are copied to the corpus's pitch.
+    vec = plan.design == "mma_s8"
     ld = corpus.stride(0) if m > 1 else d
     if vec and (ld % 16 or corpus.data_ptr() % 16):
         ld = d + (-d % 16)
@@ -292,7 +300,6 @@ def launch_dtiled(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     if queries.stride(0) != ld or (vec and queries.data_ptr() % 16):
         queries = torch.nn.functional.pad(queries, (0, ld - d))
     n2 = max(64, _pow2_at_least(k))
-    plan = dtiled_plan(queries, corpus, k, bd)
     split = [None, None]
     if plan.n_splits > 1:
         split = [torch.empty((plan.n_tiles, q_n, m), dtype=torch.float32,
