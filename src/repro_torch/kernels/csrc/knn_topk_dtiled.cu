@@ -356,15 +356,42 @@ __global__ void __launch_bounds__(NT, 1) dtiled_tile_kernel(
 // row) partial over all D tiles in tile order, tile 0 first (as the
 // unsplit kernels and the plain version do), and |c|^2 likewise, forms
 // the masked scores and folds them into its per-query lists, as the
-// unsplit kernels' epilogue does.
-constexpr int FIN_BQ = 16;                    // queries per block
-constexpr int FIN_BM = 128;                   // rows per score tile
-constexpr int FIN_PER = FIN_BQ * FIN_BM / NT; // pairs per thread
+// unsplit kernels' epilogue does.  The sums are sequential in the tiles,
+// so a thread keeps FIN_U tiles' loads in flight per batch.
+constexpr int FIN_BQ = 16;   // queries per block
+constexpr int FIN_BM = 128;  // rows per score tile
+constexpr int FIN_U = 32;    // tiles a thread loads at once
 
 size_t finish_smem_bytes(int n2) {
   return sizeof(float) * (FIN_BQ * FIN_BM + FIN_BM) +
          (sizeof(float) + sizeof(int)) *
              ((size_t)FIN_BQ * n2 + NWARP * MERGE_CAND);
+}
+
+// acc + p[t * stride] over U tiles t0.. in order, the U loads first
+template <int U>
+__device__ __forceinline__ float sum_batch(float acc,
+                                           const float* __restrict__ p,
+                                           size_t stride, int t0) {
+  float v[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) v[u] = __ldg(p + (size_t)(t0 + u) * stride);
+#pragma unroll
+  for (int u = 0; u < U; ++u) acc = __fadd_rn(acc, v[u]);
+  return acc;
+}
+
+// sum over t of p[t * stride], t = 0 .. n_tiles-1 in order, from 0.0f
+__device__ __forceinline__ float sum_tiles(const float* __restrict__ p,
+                                           size_t stride, int n_tiles) {
+  float acc = 0.0f;
+  int t = 0;
+  for (; t + FIN_U <= n_tiles; t += FIN_U) {
+    acc = sum_batch<FIN_U>(acc, p, stride, t);
+  }
+  for (; t + 4 <= n_tiles; t += 4) acc = sum_batch<4>(acc, p, stride, t);
+  for (; t < n_tiles; ++t) acc = __fadd_rn(acc, __ldg(p + (size_t)t * stride));
+  return acc;
 }
 
 __global__ void __launch_bounds__(NT, 1) dtiled_finish_kernel(
@@ -382,8 +409,7 @@ __global__ void __launch_bounds__(NT, 1) dtiled_finish_kernel(
   float* wv = reinterpret_cast<float*>(li + FIN_BQ * n2);
   int* wi = reinterpret_cast<int*>(wv + NWARP * MERGE_CAND);
   const int q0 = blockIdx.x * FIN_BQ;
-  const int slice = blockIdx.y;
-  const int m_begin = slice * rows_per_slice;
+  const int m_begin = blockIdx.y * rows_per_slice;
   const int m_end = min(M, m_begin + rows_per_slice);
   const int tid = threadIdx.x;
   for (int t = tid; t < FIN_BQ * n2; t += NT) {
@@ -391,53 +417,42 @@ __global__ void __launch_bounds__(NT, 1) dtiled_finish_kernel(
     li[t] = PAD_IDX;
   }
   for (int m0 = m_begin; m0 < m_end; m0 += FIN_BM) {
-    // pair r of this thread: query (tid + r*NT) / FIN_BM, row tid % FIN_BM
-    const int m = m0 + tid % FIN_BM;
-    float acc[FIN_PER];
-    float nacc = 0.0f;
-#pragma unroll
-    for (int r = 0; r < FIN_PER; ++r) acc[r] = 0.0f;
-    if (m < m_end) {
-#pragma unroll 4
-      for (int t = 0; t < n_tiles; ++t) {
-#pragma unroll
-        for (int r = 0; r < FIN_PER; ++r) {
-          const int gq = q0 + (tid + r * NT) / FIN_BM;
-          if (gq < Q) {
-            acc[r] = __fadd_rn(acc[r],
-                               split_acc[((size_t)t * Q + gq) * M + m]);
-          }
-        }
-        if (tid < FIN_BM) {
-          nacc = __fadd_rn(nacc, split_cn[(size_t)t * M + m]);
-        }
+    const int R = min(FIN_BM, m_end - m0);   // rows of this score tile
+    __syncthreads();   // the previous tile's merge is done with sv and cn
+    // items p: the pairs (query p / R, row p % R), then the R rows' |c|^2
+    for (int p = tid; p < (FIN_BQ + 1) * R; p += NT) {
+      const int qi = p / R, ml = p % R;
+      if (qi == FIN_BQ) {
+        cn[ml] = sum_tiles(split_cn + m0 + ml, (size_t)M, n_tiles);
+      } else if (q0 + qi < Q) {
+        sv[qi * FIN_BM + ml] = sum_tiles(
+            split_acc + (size_t)(q0 + qi) * M + m0 + ml, (size_t)Q * M,
+            n_tiles);
       }
     }
-    __syncthreads();   // the previous tile's merge is done with sv and cn
-    if (tid < FIN_BM) cn[tid] = nacc;
     __syncthreads();
-#pragma unroll
-    for (int r = 0; r < FIN_PER; ++r) {
-      const int qi = (tid + r * NT) / FIN_BM;
-      const int gq = q0 + qi;
+    for (int p = tid; p < FIN_BQ * FIN_BM; p += NT) {
+      const int ml = p % FIN_BM;
+      const int gq = q0 + p / FIN_BM;
+      const int m = m0 + ml;
       float s = -INFINITY;
-      if (gq < Q && m < m_end &&
+      if (gq < Q && ml < R &&
           (long long)m * col_stride + col_offset != (long long)qgid[gq]) {
         const float sq = q_scale != nullptr ? q_scale[gq] : 1.0f;
         const float q_term =
             qn != nullptr ? __fmul_rn(__fmul_rn(sq, sq), qn[gq]) : 0.0f;
-        s = dtiled_score(acc[r], cn[tid % FIN_BM], sq,
+        s = dtiled_score(sv[p], cn[ml], sq,
                          c_scale != nullptr ? c_scale[m] : 1.0f, qn, q_term);
       }
-      sv[qi * FIN_BM + tid % FIN_BM] = s;
+      sv[p] = s;
     }
     __syncthreads();
     merge_score_tile<FIN_BQ, FIN_BM, NWARP>(sv, lv, li, wv, wi, q0, Q, m0,
                                             m_end, k, n2);
   }
   __syncthreads();
-  write_slice_lists<FIN_BQ>(lv, li, q0, Q, k, n2, slice, gridDim.y, part_v,
-                            part_i);
+  write_slice_lists<FIN_BQ>(lv, li, q0, Q, k, n2, blockIdx.y, gridDim.y,
+                            part_v, part_i);
 }
 
 // ---------------------------------------------------------------------------

@@ -44,6 +44,12 @@ __device__ __forceinline__ void swap_entries(float* v, int* ix, int a,
   ix[b] = ti;
 }
 
+// The lower index of compare-exchange t at a power-of-two stride:
+// 2 * stride * (t / stride) + t % stride, without a division.
+__device__ __forceinline__ int pair_lo(int t, int stride) {
+  return ((t & ~(stride - 1)) << 1) | (t & (stride - 1));
+}
+
 // Sort n = 2^p entries into descending order (best first).
 // tid in [0, nthreads); every thread of the group must call this.
 template <bool kBlock>
@@ -52,7 +58,7 @@ __device__ void bitonic_sort_desc(float* v, int* ix, int n, int tid,
   for (int size = 2; size <= n; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
       for (int t = tid; t < (n >> 1); t += nthreads) {
-        int lo = 2 * stride * (t / stride) + (t % stride);
+        int lo = pair_lo(t, stride);
         int hi = lo + stride;
         bool first_block = (lo & size) == 0;
         bool swap = first_block ? better(v[hi], ix[hi], v[lo], ix[lo])
@@ -70,7 +76,7 @@ __device__ void bitonic_merge_desc(float* v, int* ix, int n, int tid,
                                    int nthreads) {
   for (int stride = n >> 1; stride > 0; stride >>= 1) {
     for (int t = tid; t < (n >> 1); t += nthreads) {
-      int lo = 2 * stride * (t / stride) + (t % stride);
+      int lo = pair_lo(t, stride);
       int hi = lo + stride;
       if (better(v[hi], ix[hi], v[lo], ix[lo])) swap_entries(v, ix, lo, hi);
     }
@@ -129,13 +135,76 @@ static __global__ void merge_lists_kernel(const float* __restrict__ in_v,
 
 constexpr int MERGE_CAND = 64;   // candidates a warp merges at once
 
+// Keep the better (take_better) or the worse of (v, i) and its partner.
+__device__ __forceinline__ void keep_pair(float& v, int& i, float pv, int pi,
+                                          bool take_better) {
+  if (take_better == better(pv, pi, v, i)) {
+    v = pv;
+    i = pi;
+  }
+}
+
+// Bitonic sort, descending, of the warp's 64 entries held in registers:
+// entry e is (v0, i0) of lane e for e < 32 and (v1, i1) of lane e - 32
+// otherwise.  The same network as bitonic_sort_desc, on shuffles.
+__device__ __forceinline__ void warp_sort64_desc(float& v0, int& i0,
+                                                 float& v1, int& i1,
+                                                 int lane) {
+#pragma unroll
+  for (int size = 2; size <= 64; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride == 32) {   // size 64, one descending block: in-lane
+        if (better(v1, i1, v0, i0)) {
+          const float tv = v0;
+          const int ti = i0;
+          v0 = v1;
+          i0 = i1;
+          v1 = tv;
+          i1 = ti;
+        }
+        continue;
+      }
+      const bool lo = (lane & stride) == 0;
+      const float p0 = __shfl_xor_sync(0xffffffffu, v0, stride);
+      const int q0 = __shfl_xor_sync(0xffffffffu, i0, stride);
+      const float p1 = __shfl_xor_sync(0xffffffffu, v1, stride);
+      const int q1 = __shfl_xor_sync(0xffffffffu, i1, stride);
+      // entry e's block runs descending when (e & size) == 0
+      keep_pair(v0, i0, p0, q0, lo == ((lane & size) == 0));
+      keep_pair(v1, i1, p1, q1, lo == (((lane + 32) & size) == 0));
+    }
+  }
+}
+
+// The number of entries of the descending list v/ix[0..n) that are
+// better than (cv, ci): its place in the list.
+__device__ __forceinline__ int list_rank(const float* v, const int* ix,
+                                         int n, float cv, int ci) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (better(v[mid], ix[mid], cv, ci)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
 // Fold one masked score tile sv[BQ][BM] (rows m0.. of the block's
-// slice) into the per-query lists lv/li[BQ][n2], one warp per query,
-// MERGE_CAND candidates at a time: a group none of whose candidates
-// beats the current k-th entry is skipped, otherwise it is
-// bitonic-sorted (in the warp's scratch wv/wi[NWARP][MERGE_CAND]) and
-// folded in.  Rows at or past m_end are no candidates.  Every thread
-// of the block calls this after sv is complete.
+// slice) into the per-query lists lv/li[BQ][n2] (the best k in their
+// first k entries), one warp per query, MERGE_CAND candidates at a time:
+// a group none of whose candidates beats the current k-th entry is
+// skipped; otherwise the candidates that do are sorted in registers,
+// kept in the warp's scratch wv/wi[NWARP][MERGE_CAND], and merged into
+// the list's first k entries in place: each entry moves right by the
+// number of candidates better than it (from the list's end, 32 entries
+// at a time, until none moves), and each candidate lands at its index
+// plus its place in the old list; what lands at or past k drops out.
+// Rows at or past m_end are no candidates.  Every thread of the block
+// calls this after sv is complete.
 template <int BQ, int BM, int NWARP>
 __device__ void merge_score_tile(const float* sv, float* lv, int* li,
                                  float* wv, int* wi, int q0, int Q, int m0,
@@ -157,15 +226,49 @@ __device__ void merge_score_tile(const float* sv, float* lv, int* li,
       const bool p0 = i0 < m_end && better(v0, i0, thr_v, thr_i);
       const bool p1 = i1 < m_end && better(v1, i1, thr_v, thr_i);
       if (!__any_sync(0xffffffffu, p0 || p1)) continue;
+      float c0 = p0 ? v0 : -INFINITY, c1 = p1 ? v1 : -INFINITY;
+      int j0 = p0 ? i0 : PAD_IDX, j1 = p1 ? i1 : PAD_IDX;
+      warp_sort64_desc(c0, j0, c1, j1, lane);
       float* bv = wv + warp * MERGE_CAND;
       int* bi = wi + warp * MERGE_CAND;
-      bv[lane] = p0 ? v0 : -INFINITY;
-      bi[lane] = p0 ? i0 : PAD_IDX;
-      bv[lane + 32] = p1 ? v1 : -INFINITY;
-      bi[lane + 32] = p1 ? i1 : PAD_IDX;
+      bv[lane] = c0;
+      bi[lane] = j0;
+      bv[lane + 32] = c1;
+      bi[lane + 32] = j1;
+      // the candidates' places in the merged list (padding stays out)
+      const int r0 =
+          j0 != PAD_IDX ? lane + list_rank(lvr, lir, k, c0, j0) : k;
+      const int r1 =
+          j1 != PAD_IDX ? lane + 32 + list_rank(lvr, lir, k, c1, j1) : k;
       __syncwarp();
-      bitonic_sort_desc<false>(bv, bi, MERGE_CAND, lane, 32);
-      fold_into_list<false>(lvr, lir, bv, bi, MERGE_CAND, n2, lane, 32);
+      for (int base = k - 1; base >= 0; base -= 32) {
+        const int i = base - lane;
+        float av = 0.0f;
+        int ai = 0;
+        int to = i;
+        if (i >= 0) {
+          av = lvr[i];
+          ai = lir[i];
+          to = i + list_rank(bv, bi, MERGE_CAND, av, ai);
+        }
+        // entries before these are better still: none of them moves
+        if (__all_sync(0xffffffffu, to == i)) break;
+        __syncwarp();
+        if (to != i && to < k) {
+          lvr[to] = av;
+          lir[to] = ai;
+        }
+        __syncwarp();
+      }
+      if (r0 < k) {
+        lvr[r0] = c0;
+        lir[r0] = j0;
+      }
+      if (r1 < k) {
+        lvr[r1] = c1;
+        lir[r1] = j1;
+      }
+      __syncwarp();
     }
   }
 }

@@ -62,7 +62,7 @@ def _slices(q_tiles: int, m: int, n_sms: int, unit: int) -> Tuple[int, int]:
 SPLIT_SCRATCH_BYTES = 64 << 20
 # (queries per block, slice row unit, rows per score tile) of each design
 _DESIGNS = {"cuda_cores": (16, 128, 512), "mma_s8": (32, 32, 256)}
-_FIN_BQ, _FIN_ROWS = 16, 32     # the split's second pass
+_FIN_BQ, _FIN_ROWS = 16, 8      # the split's second pass
 
 
 @dataclasses.dataclass(frozen=True)
