@@ -457,27 +457,33 @@ __global__ void __launch_bounds__(NT, 1) dtiled_finish_kernel(
 
 // ---------------------------------------------------------------------------
 // The tensor-core design: int8 rows at a 16-byte pitch with bd % 16 == 0.
-// A block holds BQ queries (A, row-major) against a row tile of BM
-// corpus rows (B, k contiguous: the row-major corpus itself); each warp
-// owns all BQ queries x 32 rows, as BQ/16 x 4 mma.sync m16n8k32 s8 tiles
-// with int32 accumulators.  D is staged in chunks of BK bytes that never
-// straddle a D tile, through a ring of STAGES buffers filled by
-// cp.async (16-byte copies; the src-size form zero-fills the bytes at
-// and past the tile's end or D, which are never read).  Rows are padded
-// to PITCH bytes, so the 8 rows of each ldmatrix fall in 8 distinct
-// bank groups.
+// A block of 16 warps holds BQ queries (A, row-major) against a row
+// tile of TC_BM corpus rows (B, k contiguous: the row-major corpus
+// itself); each warp owns all BQ queries x 16 rows, as BQ/16 x 2
+// mma.sync m16n8k32 s8 tiles with int32 accumulators, and |c|^2 of its
+// rows by __dp4a on the B fragments it already holds.  D is staged in
+// chunks of TC_BK bytes that never straddle a D tile, through a ring of
+// TC_STAGES buffers filled by cp.async (16-byte copies; the src-size
+// form zero-fills the bytes at and past the tile's end or D, which are
+// never read).  Rows are padded to TC_PITCH bytes, so the 8 rows of each
+// ldmatrix fall in 8 distinct bank groups.  Measured on the H100 at
+// TaFeng's shape, 128-byte chunks in 2 stages beat 64-byte chunks in 4,
+// and 16 warps beat 8 (the top-k merge, latency-bound per warp, gains
+// most).
+constexpr int TC_NT = 512;                // threads per block
+constexpr int TC_NWARP = TC_NT / 32;
 constexpr int TC_BM = 256;                // corpus rows per row tile
-constexpr int TC_WROWS = TC_BM / NWARP;   // 32 rows per warp
-constexpr int TC_NTILE = TC_WROWS / 8;    // n8 tiles per warp
-constexpr int TC_BK = 64;                 // bytes of D per chunk: 2 k-steps
+constexpr int TC_WROWS = TC_BM / TC_NWARP;   // rows per warp
+constexpr int TC_NTILE = TC_WROWS / 8;   // n8 tiles per warp
+constexpr int TC_BK = 128;                // bytes of D per chunk: 4 k-steps
 constexpr int TC_PIECES = TC_BK / 16;     // 16-byte copies per row
-constexpr int TC_PITCH = TC_BK + 16;      // 80 bytes: 5 bank groups apart
-constexpr int TC_STAGES = 4;
+constexpr int TC_PITCH = TC_BK + 16;      // 144 bytes: 9 bank groups apart
+constexpr int TC_STAGES = 2;
 
 size_t tc_smem_bytes(int bq, int n2) {
   return (size_t)TC_STAGES * (TC_BM + bq) * TC_PITCH +
          (sizeof(float) + sizeof(int)) *
-             ((size_t)bq * n2 + NWARP * MERGE_CAND) +
+             ((size_t)bq * n2 + TC_NWARP * MERGE_CAND) +
          sizeof(float) * TC_BM;
 }
 
@@ -522,7 +528,7 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
 // g + 8 * (e / 2), corpus column 2 * tig + e % 2 (g = lane / 4, tig =
 // lane % 4).
 template <int BQ, bool kSplit>
-__global__ void __launch_bounds__(NT, 1) dtiled_mma_kernel(
+__global__ void __launch_bounds__(TC_NT, 1) dtiled_mma_kernel(
     const int8_t* __restrict__ q, const int8_t* __restrict__ c,
     const float* __restrict__ qn, const float* __restrict__ q_scale,
     const float* __restrict__ c_scale, const int* __restrict__ qgid, int Q,
@@ -539,8 +545,8 @@ __global__ void __launch_bounds__(NT, 1) dtiled_mma_kernel(
   float* lv = reinterpret_cast<float*>(stg + TC_STAGES * STAGE);
   int* li = reinterpret_cast<int*>(lv + BQ * n2);             // [BQ][n2]
   float* wv = reinterpret_cast<float*>(li + BQ * n2);         // merge scratch
-  int* wi = reinterpret_cast<int*>(wv + NWARP * MERGE_CAND);
-  float* cn = reinterpret_cast<float*>(wi + NWARP * MERGE_CAND);  // [TC_BM]
+  int* wi = reinterpret_cast<int*>(wv + TC_NWARP * MERGE_CAND);
+  float* cn = reinterpret_cast<float*>(wi + TC_NWARP * MERGE_CAND);
 
   const int q0 = blockIdx.x * BQ;
   const int slice = blockIdx.y;
@@ -559,7 +565,7 @@ __global__ void __launch_bounds__(NT, 1) dtiled_mma_kernel(
   const int n_chunks = (t1 - t0) * per_tile;
 
   if (!kSplit) {
-    for (int t = tid; t < BQ * n2; t += NT) {
+    for (int t = tid; t < BQ * n2; t += TC_NT) {
       lv[t] = -INFINITY;
       li[t] = PAD_IDX;
     }
@@ -601,15 +607,15 @@ __global__ void __launch_bounds__(NT, 1) dtiled_mma_kernel(
       uint8_t* cs = stg + (i % TC_STAGES) * STAGE;
       uint8_t* qs = cs + TC_BM * TC_PITCH;
 #pragma unroll
-      for (int j = 0; j < TC_BM * TC_PIECES / NT; ++j) {
-        const int e = tid + j * NT;
+      for (int j = 0; j < TC_BM * TC_PIECES / TC_NT; ++j) {
+        const int e = tid + j * TC_NT;
         const int r = e / TC_PIECES, p = e % TC_PIECES;
         const int gm = m0 + r;
         const int n = gm < m_end ? min(16, max(0, valid - p * 16)) : 0;
         cp_async16(cs + r * TC_PITCH + p * 16,
                    n > 0 ? c + (size_t)gm * ld + d0 + p * 16 : c, n);
       }
-      for (int e = tid; e < BQ * TC_PIECES; e += NT) {
+      for (int e = tid; e < BQ * TC_PIECES; e += TC_NT) {
         const int r = e / TC_PIECES, p = e % TC_PIECES;
         const int gq = q0 + r;
         const int n = gq < Q ? min(16, max(0, valid - p * 16)) : 0;
@@ -745,8 +751,8 @@ __global__ void __launch_bounds__(NT, 1) dtiled_mma_kernel(
           }
       }
     __syncthreads();
-    merge_score_tile<BQ, TC_BM, NWARP>(sv, lv, li, wv, wi, q0, Q, m0, m_end,
-                                       k, n2);
+    merge_score_tile<BQ, TC_BM, TC_NWARP>(sv, lv, li, wv, wi, q0, Q, m0,
+                                          m_end, k, n2);
   }
   if (kSplit) return;
   __syncthreads();
@@ -786,7 +792,7 @@ cudaError_t launch_mma(dim3 grid, size_t smem, cudaStream_t st,
       dtiled_mma_kernel<BQ, kSplit>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dtiled_mma_kernel<BQ, kSplit><<<grid, NT, smem, st>>>(
+  dtiled_mma_kernel<BQ, kSplit><<<grid, TC_NT, smem, st>>>(
       static_cast<const int8_t*>(q), static_cast<const int8_t*>(c), qn,
       q_scale, c_scale, qgid, Q, M, D, ld, k, n2, bd, col_offset, col_stride,
       rows_per_slice, part_v, part_i, split_acc, split_cn);
