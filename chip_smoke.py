@@ -779,8 +779,8 @@ def request_breakdown(run, p):
             cq, cs, uid, k, p.alpha, TOPN, BD), 3)
         log(f"  request {i} on its corpus: stage A {t_a:.4f} ms, stage B "
             f"{t_b:.4f} ms; plain pipeline {t_p:.4f} ms | int8: stage A "
-            f"{q_a:.4f} ms, stage B {q_b:.4f} ms; plain int8 pipeline "
-            f"{q_p:.4f} ms")
+            f"{q_a:.4f} ms ({plan_str(qq, cq, k, BD)}), stage B "
+            f"{q_b:.4f} ms; plain int8 pipeline {q_p:.4f} ms")
 
 
 def hold(corpus, users, exp, got, p, what):

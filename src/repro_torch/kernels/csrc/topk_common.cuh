@@ -199,10 +199,11 @@ __device__ __forceinline__ int list_rank(const float* v, const int* ix,
 // a group none of whose candidates beats the current k-th entry is
 // skipped; otherwise the candidates that do are sorted in registers,
 // kept in the warp's scratch wv/wi[NWARP][MERGE_CAND], and merged into
-// the list's first k entries in place: each entry moves right by the
-// number of candidates better than it (from the list's end, 32 entries
-// at a time, until none moves), and each candidate lands at its index
-// plus its place in the old list; what lands at or past k drops out.
+// the list's first k entries in place: each real entry moves right by
+// the number of candidates better than it (from the last real entry, 32
+// entries at a time, until none moves), and each candidate lands at its
+// index plus its place in the old list; what lands at or past k drops
+// out.
 // Rows at or past m_end are no candidates.  Every thread of the block
 // calls this after sv is complete.
 template <int BQ, int BM, int NWARP>
@@ -240,8 +241,11 @@ __device__ void merge_score_tile(const float* sv, float* lv, int* li,
           j0 != PAD_IDX ? lane + list_rank(lvr, lir, k, c0, j0) : k;
       const int r1 =
           j1 != PAD_IDX ? lane + 32 + list_rank(lvr, lir, k, c1, j1) : k;
+      // padding entries need not move: they land on padding (or under a
+      // candidate), so only the real entries, the list's head, shift
+      const int n_real = list_rank(lvr, lir, k, -INFINITY, PAD_IDX);
       __syncwarp();
-      for (int base = k - 1; base >= 0; base -= 32) {
+      for (int base = n_real - 1; base >= 0; base -= 32) {
         const int i = base - lane;
         float av = 0.0f;
         int ai = 0;

@@ -272,11 +272,12 @@ def launch_dtiled(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     m = corpus.shape[0]
     _check_common(d, m, corpus.shape[1], k, col_offset, col_stride)
     gids = _query_gids(query_gids, q_n, dev)
-    out_v = torch.full((q_n, k), float("-inf"), dtype=torch.float32,
-                       device=dev)
-    out_i = torch.zeros((q_n, k), dtype=torch.int32, device=dev)
     if q_n == 0 or m == 0:
-        return out_v, out_i
+        return (torch.full((q_n, k), float("-inf"), dtype=torch.float32,
+                           device=dev),
+                torch.zeros((q_n, k), dtype=torch.int32, device=dev))
+    out_v = torch.empty((q_n, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q_n, k), dtype=torch.int32, device=dev)
     scales = (None, None)
     if quantized:
         scales = (build.cuda_input(q_scale, "q_scale", (torch.float32,),
