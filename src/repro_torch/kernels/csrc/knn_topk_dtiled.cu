@@ -22,29 +22,40 @@
 // Bound: bytes in int8 mode (the corpus once: 167 MB at M=13,949,
 // D=11,997 against 2*Q*M*D int8 operations on 1,979 TOP/s), operations
 // in fp32 mode (2*Q*M*D on CUDA cores, no tensor cores, so fp32 keeps
-// parity).  The design is stage A's (knn_topk.cu):
-//   * corpus slices across blocks (the wrapper plans about one block per
-//     SM), BQ=16 queries x one slice per block, score tiles of BM=512
-//     rows, an 8-query x 4-row register tile per thread;
-//   * D staged through shared memory in chunks of 16 four-byte words
-//     (16 floats, or 64 int8 packed four to a word), double-buffered,
-//     and multiplied with fmaf or __dp4a.  int8 rows are read as 16-byte
-//     vectors when the rows have a 16-byte pitch and bd is a multiple of
-//     16: the store's int8 cache keeps such a pitch behind a [:, :I]
-//     view, and the wrapper pads any other int8 corpus (an I=11,997
-//     one's rows do not start 4-byte aligned) into such a copy;
-//     otherwise each word is assembled from byte loads.  Elements past
-//     the D tile's end load 0, so any bd works and pad bytes are unread;
-//   * |c|^2 is summed in the same loop from the staged words (by the
-//     threads of the first query group), per D tile as acc is;
-//   * at each D tile's end the partials are added to the f32
-//     accumulators (in tile order, round to nearest) and reset;
-//   * scores are masked (rows past the slice, the self column whose gid
-//     row*col_stride + col_offset equals the query gid) and folded into
-//     per-query top-n2 lists (topk_common.cuh); a second kernel merges
-//     the slices.  Ordering is (value desc, index asc), as lax.top_k.
-// The million-item point (M=256, Q=32) gives this plan only 4 blocks;
-// splitting D across blocks while keeping the tile order is later work.
+// parity).  The input alone picks one of two mainloops:
+//   * int8 rows at a 16-byte pitch with bd % 16 == 0 (the store's int8
+//     cache keeps such a pitch behind a [:, :I] view; the wrapper pads
+//     any other int8 corpus into such a copy): the tensor cores,
+//     mma.sync m16n8k32 s8 with exact int32 tile partials, fed by a
+//     cp.async ring (dtiled_mma_kernel below).  A block holds 32 queries
+//     (16 for k > 512, whose lists fill shared memory), so the corpus is
+//     read once per query tile, through L2;
+//   * everything else (fp32, where parity forbids TF32, and int8 with bd
+//     no multiple of 16): the CUDA cores, stage A's design (knn_topk.cu):
+//     BQ=16 queries and score tiles of BM=512 rows per block, an 8-query
+//     x 4-row register tile per thread, D staged through shared memory in
+//     chunks of 16 four-byte words (16 floats, or 64 int8 packed four to
+//     a word, each assembled from byte loads), double-buffered, and
+//     multiplied with fmaf or __dp4a; |c|^2 is summed in the same loop
+//     by the threads of the first query group.  Elements past the D
+//     tile's end load 0, so any bd works and pad bytes are unread.
+// In both, at each D tile's end the partials are added to the f32
+// accumulators (in tile order, round to nearest) and reset; the scores
+// are masked (rows past the slice, the self column whose gid
+// row*col_stride + col_offset equals the query gid) and folded into
+// per-query top lists in shared memory (topk_common.cuh); a second
+// kernel merges the slices.  Ordering is (value desc, index asc), as
+// lax.top_k.
+//
+// The grid (knn_topk.py::plan_dtiled) is (query tiles, corpus slices)
+// with about one block per SM.  Where that leaves SMs idle (at the
+// million-item point, Q=32 x M=256, it fills 1 to 4 of 132), the D tiles
+// are split into contiguous ranges over more blocks, which write each
+// tile's partial (the exact int32 as f32, or the tile's fmaf chain) to
+// scratch; dtiled_finish_kernel then sums each (query, row) over the
+// tiles in tile order -- the running sum the TPU grid carried from one
+// step to the next -- and scores and selects as above, so the split
+// changes no bit of the result.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -344,8 +355,8 @@ __global__ void __launch_bounds__(NT, 1) dtiled_tile_kernel(
     }
     __syncthreads();
 
-    merge_score_tile<BQ, BM, NWARP>(sv, lv, li, wv, wi, q0, Q, m0, m_end,
-                                    k, n2);
+    merge_score_tile_ranked<BQ, BM, NWARP>(sv, lv, li, wv, wi, q0, Q, m0,
+                                           m_end, k, n2);
   }
   if (kSplit) return;
   __syncthreads();
@@ -447,8 +458,8 @@ __global__ void __launch_bounds__(NT, 1) dtiled_finish_kernel(
       sv[p] = s;
     }
     __syncthreads();
-    merge_score_tile<FIN_BQ, FIN_BM, NWARP>(sv, lv, li, wv, wi, q0, Q, m0,
-                                            m_end, k, n2);
+    merge_score_tile_ranked<FIN_BQ, FIN_BM, NWARP>(sv, lv, li, wv, wi, q0,
+                                                   Q, m0, m_end, k, n2);
   }
   __syncthreads();
   write_slice_lists<FIN_BQ>(lv, li, q0, Q, k, n2, blockIdx.y, gridDim.y,
@@ -751,8 +762,8 @@ __global__ void __launch_bounds__(TC_NT, 1) dtiled_mma_kernel(
           }
       }
     __syncthreads();
-    merge_score_tile<BQ, TC_BM, TC_NWARP>(sv, lv, li, wv, wi, q0, Q, m0,
-                                          m_end, k, n2);
+    merge_score_tile_ranked<BQ, TC_BM, TC_NWARP>(sv, lv, li, wv, wi, q0, Q,
+                                                 m0, m_end, k, n2);
   }
   if (kSplit) return;
   __syncthreads();

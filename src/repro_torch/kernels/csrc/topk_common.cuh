@@ -11,9 +11,10 @@
 //
 // Both stage-A kernels (knn_topk.cu, knn_topk_dtiled.cu) share the
 // corpus-slice plan below: a block keeps one top-n2 list per query in
-// shared memory, folds each masked score tile into it
-// (merge_score_tile), writes its slice's lists (write_slice_lists), and
-// merge_lists_kernel merges the slices.
+// shared memory, folds each masked score tile into it (merge_score_tile
+// in knn_topk.cu; merge_score_tile_ranked, the same result in fewer
+// steps, in knn_topk_dtiled.cu), writes its slice's lists
+// (write_slice_lists), and merge_lists_kernel merges the slices.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -44,12 +45,6 @@ __device__ __forceinline__ void swap_entries(float* v, int* ix, int a,
   ix[b] = ti;
 }
 
-// The lower index of compare-exchange t at a power-of-two stride:
-// 2 * stride * (t / stride) + t % stride, without a division.
-__device__ __forceinline__ int pair_lo(int t, int stride) {
-  return ((t & ~(stride - 1)) << 1) | (t & (stride - 1));
-}
-
 // Sort n = 2^p entries into descending order (best first).
 // tid in [0, nthreads); every thread of the group must call this.
 template <bool kBlock>
@@ -58,7 +53,7 @@ __device__ void bitonic_sort_desc(float* v, int* ix, int n, int tid,
   for (int size = 2; size <= n; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
       for (int t = tid; t < (n >> 1); t += nthreads) {
-        int lo = pair_lo(t, stride);
+        int lo = 2 * stride * (t / stride) + (t % stride);
         int hi = lo + stride;
         bool first_block = (lo & size) == 0;
         bool swap = first_block ? better(v[hi], ix[hi], v[lo], ix[lo])
@@ -76,7 +71,7 @@ __device__ void bitonic_merge_desc(float* v, int* ix, int n, int tid,
                                    int nthreads) {
   for (int stride = n >> 1; stride > 0; stride >>= 1) {
     for (int t = tid; t < (n >> 1); t += nthreads) {
-      int lo = pair_lo(t, stride);
+      int lo = 2 * stride * (t / stride) + (t % stride);
       int hi = lo + stride;
       if (better(v[hi], ix[hi], v[lo], ix[lo])) swap_entries(v, ix, lo, hi);
     }
@@ -134,6 +129,47 @@ static __global__ void merge_lists_kernel(const float* __restrict__ in_v,
 }
 
 constexpr int MERGE_CAND = 64;   // candidates a warp merges at once
+
+// Fold one masked score tile sv[BQ][BM] (rows m0.. of the block's
+// slice) into the per-query lists lv/li[BQ][n2], one warp per query,
+// MERGE_CAND candidates at a time: a group none of whose candidates
+// beats the current k-th entry is skipped, otherwise it is
+// bitonic-sorted (in the warp's scratch wv/wi[NWARP][MERGE_CAND]) and
+// folded in.  Rows at or past m_end are no candidates.  Every thread
+// of the block calls this after sv is complete.
+template <int BQ, int BM, int NWARP>
+__device__ void merge_score_tile(const float* sv, float* lv, int* li,
+                                 float* wv, int* wi, int q0, int Q, int m0,
+                                 int m_end, int k, int n2) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int h = 0; h < BQ / NWARP; ++h) {
+    const int r = warp * (BQ / NWARP) + h;
+    if (q0 + r >= Q) continue;                 // warp-uniform
+    float* lvr = lv + r * n2;
+    int* lir = li + r * n2;
+    for (int g = 0; g < BM && m0 + g < m_end; g += MERGE_CAND) {
+      const float thr_v = lvr[k - 1];
+      const int thr_i = lir[k - 1];
+      const int i0 = m0 + g + lane;
+      const int i1 = i0 + 32;
+      const float v0 = sv[r * BM + g + lane];
+      const float v1 = sv[r * BM + g + lane + 32];
+      const bool p0 = i0 < m_end && better(v0, i0, thr_v, thr_i);
+      const bool p1 = i1 < m_end && better(v1, i1, thr_v, thr_i);
+      if (!__any_sync(0xffffffffu, p0 || p1)) continue;
+      float* bv = wv + warp * MERGE_CAND;
+      int* bi = wi + warp * MERGE_CAND;
+      bv[lane] = p0 ? v0 : -INFINITY;
+      bi[lane] = p0 ? i0 : PAD_IDX;
+      bv[lane + 32] = p1 ? v1 : -INFINITY;
+      bi[lane + 32] = p1 ? i1 : PAD_IDX;
+      __syncwarp();
+      bitonic_sort_desc<false>(bv, bi, MERGE_CAND, lane, 32);
+      fold_into_list<false>(lvr, lir, bv, bi, MERGE_CAND, n2, lane, 32);
+    }
+  }
+}
 
 // Keep the better (take_better) or the worse of (v, i) and its partner.
 __device__ __forceinline__ void keep_pair(float& v, int& i, float pv, int pi,
@@ -193,7 +229,8 @@ __device__ __forceinline__ int list_rank(const float* v, const int* ix,
   return lo;
 }
 
-// Fold one masked score tile sv[BQ][BM] (rows m0.. of the block's
+// merge_score_tile's result by fewer steps (the D-tiled kernels' merge):
+// fold one masked score tile sv[BQ][BM] (rows m0.. of the block's
 // slice) into the per-query lists lv/li[BQ][n2] (the best k in their
 // first k entries), one warp per query, MERGE_CAND candidates at a time:
 // a group none of whose candidates beats the current k-th entry is
@@ -207,7 +244,7 @@ __device__ __forceinline__ int list_rank(const float* v, const int* ix,
 // Rows at or past m_end are no candidates.  Every thread of the block
 // calls this after sv is complete.
 template <int BQ, int BM, int NWARP>
-__device__ void merge_score_tile(const float* sv, float* lv, int* li,
+__device__ void merge_score_tile_ranked(const float* sv, float* lv, int* li,
                                  float* wv, int* wi, int q0, int Q, int m0,
                                  int m_end, int k, int n2) {
   const int warp = threadIdx.x / 32;
