@@ -402,7 +402,7 @@ def same(a, b) -> bool:
 
 def plan_str(q, c, k, bd) -> str:
     """The D-tiled stage A's plan for one input, for the log."""
-    pl = knn_topk.dtiled_plan(q, c, k, bd)
+    pl = knn_topk.plan_for(q, c, k, bd)
     return (f"{pl.design}: {pl.blocks} blocks = {pl.q_tiles} query tiles "
             f"of {pl.bq} x {pl.n_slices} slices of {pl.rows} rows x "
             f"{pl.n_splits} D splits of {pl.n_tiles} tiles"
@@ -485,7 +485,7 @@ def check_dtiled_edges(gen, dev):
                         f"fp32 M={m} D={d} bd={bd} k={k} {sorted(kw)}"
             for x in (cq, c):
                 for k in (ks[0], ks[-1]):
-                    pl = knn_topk.dtiled_plan(x[u], x, k, bd)
+                    pl = knn_topk.plan_for(x[u], x, k, bd)
                     plans.add((pl.design, pl.bq, pl.n_splits > 1))
         log(f"  D-tiled stage A M={m} D={d} Q={q_n}, bd in {bds}, k in "
             f"{ks}, int8 and fp32, plain and shard mode: identical")
@@ -506,7 +506,7 @@ def check_dtiled(corpus, c_int, uid, records):
     cq, cs = quantize_int8_rows_pitched(corpus)
     cqi, csi = quantize_int8_rows(c_int)
     kq = dict(query_gids=uid, q_scale=cs[u], c_scale=cs)
-    assert knn_topk.dtiled_plan(cq[u], cq, 300, BD).design == "mma_s8"
+    assert knn_topk.plan_for(cq[u], cq, 300, BD).design == "mma_s8"
     (vk, ik), (vp, ip) = dtiled_pair(cq[u], cq, 300, BD, **kq)
     assert same(vk, vp) and same(ik, ip), "int8 stage A at TaFeng differs"
     nbr = ip
@@ -647,7 +647,7 @@ def million_path(dev):
                            + (BIG_M + BIG_Q) * 12 + BIG_Q * BIG_K * 8,
                            2.0 * BIG_Q * BIG_M * BIG_I, peak)
         out[mode] = t
-        pl = knn_topk.dtiled_plan(*args, BIG_K, BIG_BD)
+        pl = knn_topk.plan_for(*args, BIG_K, BIG_BD)
         assert pl.blocks >= 100, (mode, pl)
         log(f"  D-tiled stage A {mode} plan: "
             f"{plan_str(*args, BIG_K, BIG_BD)}")

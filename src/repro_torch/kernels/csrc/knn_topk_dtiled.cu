@@ -248,7 +248,7 @@ __global__ void __launch_bounds__(NT, 1) dtiled_tile_kernel(
 
     __syncthreads();   // the previous tile's merge is done with sv and cn
     load_chunk<kInt8>(q, c, Q, ld, q0, m0, m_end, t0 * bd,
-                            min(t0 * bd + bd, D), tid, creg, qreg);
+                      min(t0 * bd + bd, D), tid, creg, qreg);
     store_chunk(cs, qs, 0, tid, creg, qreg);
     __syncthreads();
     for (int ch = c_begin; ch < c_end; ++ch) {
@@ -258,7 +258,7 @@ __global__ void __launch_bounds__(NT, 1) dtiled_tile_kernel(
         const int t = (ch + 1) / per_tile;
         const int d0 = t * bd + ((ch + 1) % per_tile) * BW * PER;
         load_chunk<kInt8>(q, c, Q, ld, q0, m0, m_end, d0,
-                                min(t * bd + bd, D), tid, creg, qreg);
+                          min(t * bd + bd, D), tid, creg, qreg);
       }
       if (warp_live) {
         const uint32_t* cb = cs + buf * CS_WORDS + tm * TM;
@@ -853,12 +853,12 @@ cudaError_t launch_design(int int8, int vec, int bq, dim3 grid, int n2,
 // q: [Q, *] and c: [M, *], rows of D elements at a pitch of ld elements
 // (ld >= D), both int8 (int8 != 0; q_scale f32[Q] and c_scale f32[M]) or
 // both f32 (scales null).  vec != 0 (int8 only) takes the tensor-core
-// design: ld, bd and the row addresses multiples of 16, bq 16 or 32
-// (bq = 16 on the CUDA cores).  qn: f32[Q] |q|^2 summed in the same
-// D tiles (ref.tiled_sqnorm_ref), or null unless sub_qnorm.  1 <= bd
-// (<= 1024 in int8 mode).  bq: the design's queries per block.  The grid
-// is (ceil(Q / bq), n_slices, n_splits) with rows_per_slice * n_slices
-// >= M.  n_splits > 1 splits the D tiles across blocks: split_acc f32
+// design: ld, bd and the row addresses multiples of 16, and bq (queries
+// per block) 32 with n2 <= 512, or 16; the CUDA cores take bq = 16.
+// qn: f32[Q] |q|^2 summed in the same D tiles (ref.tiled_sqnorm_ref), or
+// null unless sub_qnorm.  1 <= bd (<= 1024 in int8 mode).  The grid is
+// (ceil(Q / bq), n_slices, n_splits) with rows_per_slice * n_slices >=
+// M.  n_splits > 1 splits the D tiles across blocks: split_acc f32
 // [ceil(D / bd), Q, M] and split_cn f32[ceil(D / bd), M] take the
 // partials, and the second pass runs over (ceil(Q / 16), fin_slices)
 // blocks of fin_rows rows.  part_*: scratch [Q, lists, k], lists =

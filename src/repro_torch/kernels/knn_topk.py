@@ -13,7 +13,10 @@ by a second kernel):
 * :func:`launch_dtiled` replaces ``::knn_topk_dtiled``
   (``csrc/knn_topk_dtiled.cu``): D summed in tiles of width ``bd``, for
   an fp32 corpus or an int8 one with power-of-two row scales, where it
-  equals its plain version ``ref.dtiled_topk_ref`` bit for bit.
+  equals its plain version ``ref.dtiled_topk_ref`` bit for bit.  The
+  input picks its mainloop (:func:`dtiled_design`: int8 tensor cores or
+  the CUDA cores) and the shapes its grid (:func:`plan_dtiled`), which
+  splits the D tiles across blocks where the slices leave SMs idle.
 
 ``ops`` picks between each kernel and its plain version.
 """
@@ -106,7 +109,7 @@ def plan_dtiled(q_n: int, m: int, d: int, bd: int, k: int, n_sms: int,
     when the (query tile, slice) blocks would leave SMs idle, and the
     split's partials fit :data:`SPLIT_SCRATCH_BYTES`, are the D tiles
     split: each block's rows then fit one score tile, and the splits
-    fill the SMs (at most one D tile each).
+    fill the SMs (no more splits than D tiles).
     """
     bq, unit, row_tile = _DESIGNS[design]
     if design == "mma_s8" and _pow2_at_least(k) > 512:
@@ -120,8 +123,7 @@ def plan_dtiled(q_n: int, m: int, d: int, bd: int, k: int, n_sms: int,
         s = -(-m // row_tile)
         n_splits = max(1, min(n_tiles, n_sms // (q_tiles * s)))
         if n_splits > 1:
-            rows = -(-(-(-m // s)) // unit) * unit
-            n_slices = -(-m // rows)
+            rows, n_slices = _slices(q_tiles, m, q_tiles * s, unit)
     fin_rows, fin_slices, scratch = rows, n_slices, 0
     if n_splits > 1:
         fin_rows, fin_slices = _slices(-(-q_n // _FIN_BQ), m, n_sms,
@@ -138,7 +140,7 @@ def dtiled_design(int8: bool, bd: int) -> str:
     return "mma_s8" if int8 and bd % 16 == 0 else "cuda_cores"
 
 
-def dtiled_plan(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+def plan_for(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                 bd: int = 512) -> DtiledPlan:
     """The plan :func:`launch_dtiled` takes for these CUDA inputs."""
     q_n, d = queries.shape
@@ -251,7 +253,8 @@ def launch_dtiled(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     Self-exclusion, ``col_offset``/``col_stride`` and ``sub_qnorm`` as
     :func:`launch` (euclidean only).  Requires ``1 <= k <= min(M,
     1024)``; an empty corpus gives −inf scores.  Launches the CUDA
-    kernels; raises on input they do not take (CPU tensors among them).
+    kernels on the plan :func:`plan_for` gives; raises on input they
+    do not take (CPU tensors among them).
     """
     quantized = corpus.dtype == torch.int8
     if quantized and (q_scale is None or c_scale is None):
@@ -288,7 +291,7 @@ def launch_dtiled(queries: torch.Tensor, corpus: torch.Tensor, k: int,
             raise ValueError("q_scale / c_scale need one entry per row")
     bd = min(bd, d)
     qn = tiled_sqnorm(queries, bd) if sub_qnorm else None
-    plan = dtiled_plan(queries, corpus, k, bd)
+    plan = plan_for(queries, corpus, k, bd)
     # the tensor-core design copies 16-byte pieces of rows, so the rows
     # need a 16-byte pitch.  StateStore.quantized_corpus keeps one; any
     # other int8 corpus is padded into a copy (0.2 GB at I=11,997).  The
