@@ -474,7 +474,7 @@ __global__ void __launch_bounds__(NT, 1) dtiled_finish_kernel(
 // mma.sync m16n8k32 s8 tiles with int32 accumulators, and |c|^2 of its
 // rows by __dp4a on the B fragments it already holds.  D is staged in
 // chunks of TC_BK bytes that never straddle a D tile, through a ring of
-// TC_STAGES buffers filled by cp.async (16-byte copies; the src-size
+// tc_stages() buffers filled by cp.async (16-byte copies; the src-size
 // form zero-fills the bytes at and past the tile's end or D, which are
 // never read).  Rows are padded to TC_PITCH bytes, so the 8 rows of each
 // ldmatrix fall in 8 distinct bank groups.  Measured on the H100 at
@@ -489,10 +489,14 @@ constexpr int TC_NTILE = TC_WROWS / 8;   // n8 tiles per warp
 constexpr int TC_BK = 128;                // bytes of D per chunk: 4 k-steps
 constexpr int TC_PIECES = TC_BK / 16;     // 16-byte copies per row
 constexpr int TC_PITCH = TC_BK + 16;      // 144 bytes: 9 bank groups apart
-constexpr int TC_STAGES = 2;
+// Stages of the ring: 2 where the per-query lists fill shared memory, 5
+// in a split's first pass, which keeps no lists.
+__host__ __device__ constexpr int tc_stages(bool split) {
+  return split ? 5 : 2;
+}
 
-size_t tc_smem_bytes(int bq, int n2) {
-  return (size_t)TC_STAGES * (TC_BM + bq) * TC_PITCH +
+size_t tc_smem_bytes(int bq, int n2, bool split) {
+  return (size_t)tc_stages(split) * (TC_BM + bq) * TC_PITCH +
          (sizeof(float) + sizeof(int)) *
              ((size_t)bq * n2 + TC_NWARP * MERGE_CAND) +
          sizeof(float) * TC_BM;
@@ -548,12 +552,13 @@ __global__ void __launch_bounds__(TC_NT, 1) dtiled_mma_kernel(
     int* __restrict__ part_i, float* __restrict__ split_acc,
     float* __restrict__ split_cn) {
   constexpr int MT = BQ / 16;                       // m16 tiles of queries
+  constexpr int STAGES = tc_stages(kSplit);
   constexpr int STAGE = (TC_BM + BQ) * TC_PITCH;    // bytes per stage
-  static_assert(BQ * TC_BM * 4 <= TC_STAGES * STAGE, "scores fit");
+  static_assert(BQ * TC_BM * 4 <= STAGES * STAGE, "scores fit");
   extern __shared__ float4 tc_smem[];
   uint8_t* stg = reinterpret_cast<uint8_t*>(tc_smem);
   float* sv = reinterpret_cast<float*>(stg);   // [BQ][TC_BM] over the ring
-  float* lv = reinterpret_cast<float*>(stg + TC_STAGES * STAGE);
+  float* lv = reinterpret_cast<float*>(stg + STAGES * STAGE);
   int* li = reinterpret_cast<int*>(lv + BQ * n2);             // [BQ][n2]
   float* wv = reinterpret_cast<float*>(li + BQ * n2);         // merge scratch
   int* wi = reinterpret_cast<int*>(wv + TC_NWARP * MERGE_CAND);
@@ -610,12 +615,12 @@ __global__ void __launch_bounds__(TC_NT, 1) dtiled_mma_kernel(
       d0 = t * bd + off;
       return min(TC_BK, min(bd - off, D - d0));
     };
-    // copy chunk i into stage i % TC_STAGES; rows past the slice, queries
+    // copy chunk i into stage i % STAGES; rows past the slice, queries
     // past Q and bytes past the valid ones are zero-filled
     auto issue = [&](int i) {
       int d0;
       const int valid = chunk_bytes(i, d0);
-      uint8_t* cs = stg + (i % TC_STAGES) * STAGE;
+      uint8_t* cs = stg + (i % STAGES) * STAGE;
       uint8_t* qs = cs + TC_BM * TC_PITCH;
 #pragma unroll
       for (int j = 0; j < TC_BM * TC_PIECES / TC_NT; ++j) {
@@ -637,20 +642,20 @@ __global__ void __launch_bounds__(TC_NT, 1) dtiled_mma_kernel(
 
     __syncthreads();   // the previous row tile's merge is done with sv, cn
 #pragma unroll
-    for (int s = 0; s < TC_STAGES - 1; ++s) {
+    for (int s = 0; s < STAGES - 1; ++s) {
       if (s < n_chunks) issue(s);
       cp_async_commit();
     }
     for (int i = 0; i < n_chunks; ++i) {
-      cp_async_wait<TC_STAGES - 2>();   // chunk i has landed
+      cp_async_wait<STAGES - 2>();   // chunk i has landed
       __syncthreads();                  // ... for every thread, and chunk
                                         // i - 1's stage is free
-      if (i + TC_STAGES - 1 < n_chunks) issue(i + TC_STAGES - 1);
+      if (i + STAGES - 1 < n_chunks) issue(i + STAGES - 1);
       cp_async_commit();
       int d0;
       const int valid = chunk_bytes(i, d0);
       if (warp_live) {
-        const uint8_t* cs = stg + (i % TC_STAGES) * STAGE;
+        const uint8_t* cs = stg + (i % STAGES) * STAGE;
         const uint8_t* qs = cs + TC_BM * TC_PITCH;
 #pragma unroll
         for (int ks = 0; ks < TC_BK / 32; ++ks) {
@@ -825,14 +830,14 @@ cudaError_t launch_design(int int8, int vec, int bq, dim3 grid, int n2,
   const int lists_n2 = kSplit ? 0 : n2;   // a split pass keeps no lists
   if (int8 && vec && bq == 32) {
     return launch_mma<32, kSplit>(
-        grid, tc_smem_bytes(32, lists_n2), st, q, c, qn, q_scale, c_scale,
-        qgid, Q, M, D, ld, k, lists_n2, bd, col_offset, col_stride,
+        grid, tc_smem_bytes(32, lists_n2, kSplit), st, q, c, qn, q_scale,
+        c_scale, qgid, Q, M, D, ld, k, lists_n2, bd, col_offset, col_stride,
         rows_per_slice, part_v, part_i, split_acc, split_cn);
   }
   if (int8 && vec && bq == 16) {
     return launch_mma<16, kSplit>(
-        grid, tc_smem_bytes(16, lists_n2), st, q, c, qn, q_scale, c_scale,
-        qgid, Q, M, D, ld, k, lists_n2, bd, col_offset, col_stride,
+        grid, tc_smem_bytes(16, lists_n2, kSplit), st, q, c, qn, q_scale,
+        c_scale, qgid, Q, M, D, ld, k, lists_n2, bd, col_offset, col_stride,
         rows_per_slice, part_v, part_i, split_acc, split_cn);
   }
   if (vec || bq != BQ) return cudaErrorInvalidValue;
