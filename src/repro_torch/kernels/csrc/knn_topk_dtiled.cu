@@ -474,13 +474,13 @@ __global__ void __launch_bounds__(NT, 1) dtiled_finish_kernel(
 // mma.sync m16n8k32 s8 tiles with int32 accumulators, and |c|^2 of its
 // rows by __dp4a on the B fragments it already holds.  D is staged in
 // chunks of TC_BK bytes that never straddle a D tile, through a ring of
-// tc_stages() buffers filled by cp.async (16-byte copies; the src-size
+// STAGES buffers filled by cp.async (16-byte copies; the src-size
 // form zero-fills the bytes at and past the tile's end or D, which are
 // never read).  Rows are padded to TC_PITCH bytes, so the 8 rows of each
 // ldmatrix fall in 8 distinct bank groups.  Measured on the H100 at
-// TaFeng's shape, 128-byte chunks in 2 stages beat 64-byte chunks in 4,
-// and 16 warps beat 8 (the top-k merge, latency-bound per warp, gains
-// most).
+// TaFeng's shape: 128-byte chunks in 2 stages beat 64-byte chunks in 4,
+// 3 stages of them beat 2, and 16 warps beat 8 (the top-k merge,
+// latency-bound per warp, gains most).
 constexpr int TC_NT = 512;                // threads per block
 constexpr int TC_NWARP = TC_NT / 32;
 constexpr int TC_BM = 256;                // corpus rows per row tile
@@ -489,16 +489,14 @@ constexpr int TC_NTILE = TC_WROWS / 8;   // n8 tiles per warp
 constexpr int TC_BK = 128;                // bytes of D per chunk: 4 k-steps
 constexpr int TC_PIECES = TC_BK / 16;     // 16-byte copies per row
 constexpr int TC_PITCH = TC_BK + 16;      // 144 bytes: 9 bank groups apart
-// Stages of the ring: 2 where the per-query lists fill shared memory, 5
-// in a split's first pass, which keeps no lists.
-__host__ __device__ constexpr int tc_stages(bool split) {
-  return split ? 5 : 2;
-}
+constexpr size_t TC_SMEM_MAX = 227 * 1024;  // a block's shared memory
 
-size_t tc_smem_bytes(int bq, int n2, bool split) {
-  return (size_t)tc_stages(split) * (TC_BM + bq) * TC_PITCH +
+// The kernel's lists keep k entries a query (the ranked merge needs no
+// power of two), at a row stride of ls = k (0 in a split's first pass).
+size_t tc_smem_bytes(int bq, int stages, int ls) {
+  return (size_t)stages * (TC_BM + bq) * TC_PITCH +
          (sizeof(float) + sizeof(int)) *
-             ((size_t)bq * n2 + TC_NWARP * MERGE_CAND) +
+             ((size_t)bq * ls + TC_NWARP * MERGE_CAND) +
          sizeof(float) * TC_BM;
 }
 
@@ -542,25 +540,24 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
 // Fragment element e (0..3) of an m16n8 accumulator tile: query row
 // g + 8 * (e / 2), corpus column 2 * tig + e % 2 (g = lane / 4, tig =
 // lane % 4).
-template <int BQ, bool kSplit>
+template <int BQ, int STAGES, bool kSplit>
 __global__ void __launch_bounds__(TC_NT, 1) dtiled_mma_kernel(
     const int8_t* __restrict__ q, const int8_t* __restrict__ c,
     const float* __restrict__ qn, const float* __restrict__ q_scale,
     const float* __restrict__ c_scale, const int* __restrict__ qgid, int Q,
-    int M, int D, int ld, int k, int n2, int bd, long long col_offset,
+    int M, int D, int ld, int k, int ls, int bd, long long col_offset,
     long long col_stride, int rows_per_slice, float* __restrict__ part_v,
     int* __restrict__ part_i, float* __restrict__ split_acc,
     float* __restrict__ split_cn) {
   constexpr int MT = BQ / 16;                       // m16 tiles of queries
-  constexpr int STAGES = tc_stages(kSplit);
   constexpr int STAGE = (TC_BM + BQ) * TC_PITCH;    // bytes per stage
   static_assert(BQ * TC_BM * 4 <= STAGES * STAGE, "scores fit");
   extern __shared__ float4 tc_smem[];
   uint8_t* stg = reinterpret_cast<uint8_t*>(tc_smem);
   float* sv = reinterpret_cast<float*>(stg);   // [BQ][TC_BM] over the ring
-  float* lv = reinterpret_cast<float*>(stg + STAGES * STAGE);
-  int* li = reinterpret_cast<int*>(lv + BQ * n2);             // [BQ][n2]
-  float* wv = reinterpret_cast<float*>(li + BQ * n2);         // merge scratch
+  float* lv = reinterpret_cast<float*>(stg + STAGES * STAGE);  // [BQ][ls]
+  int* li = reinterpret_cast<int*>(lv + BQ * ls);             // [BQ][ls]
+  float* wv = reinterpret_cast<float*>(li + BQ * ls);         // merge scratch
   int* wi = reinterpret_cast<int*>(wv + TC_NWARP * MERGE_CAND);
   float* cn = reinterpret_cast<float*>(wi + TC_NWARP * MERGE_CAND);
 
@@ -581,7 +578,7 @@ __global__ void __launch_bounds__(TC_NT, 1) dtiled_mma_kernel(
   const int n_chunks = (t1 - t0) * per_tile;
 
   if (!kSplit) {
-    for (int t = tid; t < BQ * n2; t += TC_NT) {
+    for (int t = tid; t < BQ * ls; t += TC_NT) {
       lv[t] = -INFINITY;
       li[t] = PAD_IDX;
     }
@@ -768,11 +765,11 @@ __global__ void __launch_bounds__(TC_NT, 1) dtiled_mma_kernel(
       }
     __syncthreads();
     merge_score_tile_ranked<BQ, TC_BM, TC_NWARP>(sv, lv, li, wv, wi, q0, Q,
-                                                 m0, m_end, k, n2);
+                                                 m0, m_end, k, ls);
   }
   if (kSplit) return;
   __syncthreads();
-  write_slice_lists<BQ>(lv, li, q0, Q, k, n2, slice, gridDim.y, part_v,
+  write_slice_lists<BQ>(lv, li, q0, Q, k, ls, slice, gridDim.y, part_v,
                         part_i);
 }
 
@@ -795,24 +792,54 @@ cudaError_t launch_tiles(dim3 grid, size_t smem, cudaStream_t st,
   return cudaGetLastError();
 }
 
+template <int BQ, int STAGES, bool kSplit>
+cudaError_t launch_mma_ring(dim3 grid, cudaStream_t st, const void* q,
+                            const void* c, const float* qn,
+                            const float* q_scale, const float* c_scale,
+                            const int* qgid, int Q, int M, int D, int ld,
+                            int k, int ls, int bd, long long col_offset,
+                            long long col_stride, int rows_per_slice,
+                            float* part_v, int* part_i, float* split_acc,
+                            float* split_cn) {
+  const size_t smem = tc_smem_bytes(BQ, STAGES, ls);
+  cudaError_t err = cudaFuncSetAttribute(
+      dtiled_mma_kernel<BQ, STAGES, kSplit>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dtiled_mma_kernel<BQ, STAGES, kSplit><<<grid, TC_NT, smem, st>>>(
+      static_cast<const int8_t*>(q), static_cast<const int8_t*>(c), qn,
+      q_scale, c_scale, qgid, Q, M, D, ld, k, ls, bd, col_offset, col_stride,
+      rows_per_slice, part_v, part_i, split_acc, split_cn);
+  return cudaGetLastError();
+}
+
+// The ring: 3 stages where the per-query lists leave room (k <= 386 at
+// 32 queries), else 2; 5 in a split's first pass, which keeps no lists.
 template <int BQ, bool kSplit>
-cudaError_t launch_mma(dim3 grid, size_t smem, cudaStream_t st,
-                       const void* q, const void* c, const float* qn,
-                       const float* q_scale, const float* c_scale,
-                       const int* qgid, int Q, int M, int D, int ld, int k,
-                       int n2, int bd, long long col_offset,
+cudaError_t launch_mma(dim3 grid, cudaStream_t st, const void* q,
+                       const void* c, const float* qn, const float* q_scale,
+                       const float* c_scale, const int* qgid, int Q, int M,
+                       int D, int ld, int k, int bd, long long col_offset,
                        long long col_stride, int rows_per_slice,
                        float* part_v, int* part_i, float* split_acc,
                        float* split_cn) {
-  cudaError_t err = cudaFuncSetAttribute(
-      dtiled_mma_kernel<BQ, kSplit>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dtiled_mma_kernel<BQ, kSplit><<<grid, TC_NT, smem, st>>>(
-      static_cast<const int8_t*>(q), static_cast<const int8_t*>(c), qn,
-      q_scale, c_scale, qgid, Q, M, D, ld, k, n2, bd, col_offset, col_stride,
-      rows_per_slice, part_v, part_i, split_acc, split_cn);
-  return cudaGetLastError();
+  if constexpr (kSplit) {
+    return launch_mma_ring<BQ, 5, true>(
+        grid, st, q, c, qn, q_scale, c_scale, qgid, Q, M, D, ld, k, 0, bd,
+        col_offset, col_stride, rows_per_slice, part_v, part_i, split_acc,
+        split_cn);
+  } else {
+    if (tc_smem_bytes(BQ, 3, k) <= TC_SMEM_MAX) {
+      return launch_mma_ring<BQ, 3, false>(
+          grid, st, q, c, qn, q_scale, c_scale, qgid, Q, M, D, ld, k, k, bd,
+          col_offset, col_stride, rows_per_slice, part_v, part_i, split_acc,
+          split_cn);
+    }
+    return launch_mma_ring<BQ, 2, false>(
+        grid, st, q, c, qn, q_scale, c_scale, qgid, Q, M, D, ld, k, k, bd,
+        col_offset, col_stride, rows_per_slice, part_v, part_i, split_acc,
+        split_cn);
+  }
 }
 
 // The first pass of the design the input takes: the tensor cores for
@@ -829,16 +856,16 @@ cudaError_t launch_design(int int8, int vec, int bq, dim3 grid, int n2,
                           float* split_cn) {
   const int lists_n2 = kSplit ? 0 : n2;   // a split pass keeps no lists
   if (int8 && vec && bq == 32) {
-    return launch_mma<32, kSplit>(
-        grid, tc_smem_bytes(32, lists_n2, kSplit), st, q, c, qn, q_scale,
-        c_scale, qgid, Q, M, D, ld, k, lists_n2, bd, col_offset, col_stride,
-        rows_per_slice, part_v, part_i, split_acc, split_cn);
+    return launch_mma<32, kSplit>(grid, st, q, c, qn, q_scale, c_scale, qgid,
+                                  Q, M, D, ld, k, bd, col_offset, col_stride,
+                                  rows_per_slice, part_v, part_i, split_acc,
+                                  split_cn);
   }
   if (int8 && vec && bq == 16) {
-    return launch_mma<16, kSplit>(
-        grid, tc_smem_bytes(16, lists_n2, kSplit), st, q, c, qn, q_scale,
-        c_scale, qgid, Q, M, D, ld, k, lists_n2, bd, col_offset, col_stride,
-        rows_per_slice, part_v, part_i, split_acc, split_cn);
+    return launch_mma<16, kSplit>(grid, st, q, c, qn, q_scale, c_scale, qgid,
+                                  Q, M, D, ld, k, bd, col_offset, col_stride,
+                                  rows_per_slice, part_v, part_i, split_acc,
+                                  split_cn);
   }
   if (vec || bq != BQ) return cudaErrorInvalidValue;
   if (int8) {
