@@ -103,6 +103,8 @@ LM_BATCH, LM_PROMPT, LM_DECODE = 4, 4096, 16
 # 2e-2 failed at 2.45e-2 on rounding alone: both bf16 runs err against
 # f32 by more than that)
 LM_LOGIT_BOUND = 2.0
+# the largest k of each (queries per block, stages) of knn_topk.plan_knn
+KNN_PLAN_EDGES = (406, 568, 866)
 
 KERNELS = {
     "sparse_row_gather": dict(
@@ -262,7 +264,8 @@ def int_corpus(gen, m, d, dev):
     scores, with true ties."""
     c = torch.randint(0, 3, (m, d), generator=gen, device=dev).float()
     c[1::4] = c[0]
-    c[:, 1] = c[:, 0]
+    if d > 1:
+        c[:, 1] = c[:, 0]
     return c
 
 
@@ -274,10 +277,16 @@ def plain_scores(q, c, uid):
 
 
 def check_stage_a_edges(gen, dev):
-    """Stage A on a small integer corpus cut into several slices with a
-    partial last tile and a D that is no multiple of the kernel's chunk,
-    up to k = M (the self column's −inf in the last slot): ids and
-    values exact."""
+    """Stage A on small integer corpora, ids and values exact against the
+    plain version: a corpus cut into several slices with a partial last
+    tile and a D that is no multiple of the kernel's chunk, up to k = M
+    (the self column's −inf in the last slot); then k at each change of
+    ``knn_topk.plan_knn``'s (queries per block, ring stages) and one
+    either side, up to k = 1024, with Q of 1, 31 and 33 (partial query
+    tiles) and D of 1, 31, 33 and 211 (tails of a 32-value chunk); and
+    slices of several score tiles with a partial last tile and a partial
+    last slice, euclidean, ``metric="dot"`` and ``sub_qnorm`` with a
+    shard's gid mapping.  Asserts that the cases reach every plan."""
     m, d, q_n = 1000, 211, 13
     c = int_corpus(gen, m, d, dev)
     uid = torch.randperm(m, generator=gen, device=dev)[:q_n].to(torch.int32)
@@ -288,6 +297,49 @@ def check_stage_a_edges(gen, dev):
         assert torch.equal(ik, ip) and torch.equal(vk, vp), \
             f"stage A edge case k={k} differs"
     log(f"  stage A M={m} D={d} Q={q_n} k in (1, 7, 300, M-1, M): exact")
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = set()
+
+    def exact(q, c, k, **kw):
+        vk, ik = knn_topk.launch(q, c, k, **kw)
+        vp, ip = ref.knn_topk_ref(q, c, k, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(ik, ip) and torch.equal(vk, vp), \
+            f"stage A Q={q.shape[0]} M={c.shape[0]} D={c.shape[1]} k={k} " \
+            f"{sorted(kw)}"
+        pl = knn_topk.plan_knn(q.shape[0], c.shape[0], k, n_sms)
+        shapes.add((pl.bq, pl.stages))
+
+    ks = sorted({1, 1024} | {b + e for b in KNN_PLAN_EDGES
+                             for e in (-1, 0, 1)})
+    m = 1500
+    for d in (1, 31, 33, 211):
+        c = int_corpus(gen, m, d, dev)
+        for q_n in (1, 31, 33):
+            uid = torch.randperm(m, generator=gen,
+                                 device=dev)[:q_n].to(torch.int32)
+            for k in ks:
+                exact(c[uid.long()], c, k, query_gids=uid)
+    log(f"  stage A M={m}, D in (1, 31, 33, 211), Q in (1, 31, 33), k in "
+        f"{ks}: exact")
+    m, d, q_n = 25000, 211, 33
+    c = int_corpus(gen, m, d, dev)
+    uid = torch.randperm(m, generator=gen, device=dev)[:q_n].to(torch.int32)
+    q = c[uid.long()]
+    shard = dict(query_gids=uid * 3 + 2, col_offset=2, col_stride=3,
+                 sub_qnorm=True)
+    for k in (1, 300, 567, 1024):
+        for kw in (dict(query_gids=uid), dict(metric="dot"), shard):
+            exact(q, c, k, **kw)
+    plans = [knn_topk.plan_knn(q_n, m, k, n_sms) for k in (300, 1024)]
+    tile = knn_topk.KNN_ROW_TILE
+    assert all(pl.rows > tile and pl.rows % tile and m % pl.rows
+               for pl in plans), plans
+    log(f"  stage A M={m} D={d} Q={q_n} ({plans[0].n_slices} slices of "
+        f"{plans[0].rows} rows at k=300), k in (1, 300, 567, 1024), "
+        f"euclidean, dot and shard mode: exact")
+    log(f"  (queries per block, stages) reached: {sorted(shapes)}")
+    assert shapes == set(knn_topk.KNN_SHAPES), shapes
 
 
 def check_stage_a(corpus, c_int, uid, records):
@@ -339,18 +391,30 @@ def check_stage_a(corpus, c_int, uid, records):
     rec = records["knn_topk"]
     rec["sub_qnorm_ms"] = time_ms(lambda: knn_topk.launch(q, corpus, 300,
                                                           **kw))
+
+    def call():
+        return knn_topk.launch(q, corpus, 300, query_gids=uid)
     rec.update(
-        ms=time_ms(lambda: knn_topk.launch(q, corpus, 300, query_gids=uid)),
+        ms=time_ms(call),
         plain_ms=time_ms(lambda: ref.knn_topk_ref(q, corpus, 300,
                                                   query_gids=uid)),
         library_ms=time_ms(lambda: torch.topk(2.0 * (q @ corpus.T)
                                               - cn[None, :], 300)),
         shape=f"Q={Q} M={m} D={d} k=300",
-        bound=bound((Q * d + m * d + m + Q) * 4 + Q * 300 * 8,
-                    2.0 * Q * m * d))
+        # q, c and the query gids read, [Q, k] values and ids written; the
+        # q.c products and the |c|^2 sums
+        bound=bound((Q * d + m * d + Q) * 4 + Q * 300 * 8,
+                    2.0 * Q * m * d + 2.0 * m * d))
+    own, every = device_ms(call, ("knn_tile_kernel", "merge_lists_kernel"))
+    pl = knn_topk.plan_knn(Q, m, 300, torch.cuda.get_device_properties(
+        corpus.device).multi_processor_count)
     log(f"  stage A timed: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, "
         f"matmul + topk {rec['library_ms']:.4f}); with sub_qnorm "
-        f"{rec['sub_qnorm_ms']:.4f} ms")
+        f"{rec['sub_qnorm_ms']:.4f} ms; plan {pl.bq} queries x "
+        f"{pl.stages} stages, {-(-Q // pl.bq)} query tiles x "
+        f"{pl.n_slices} slices of {pl.rows} rows; device time per call "
+        f"(torch.profiler) {own:.4f} ms in its own kernels, {every:.4f} "
+        f"ms in all kernels of the call")
 
 
 def check_stage_b(corpus, c_int, uid, records):
@@ -398,6 +462,32 @@ def same(a, b) -> bool:
     """Bitwise equality of two tensors (values and ids of stage A)."""
     return a.dtype == b.dtype and torch.equal(a.contiguous().view(
         torch.int32), b.contiguous().view(torch.int32))
+
+
+def device_ms(fn, names, reps: int = 5) -> tuple:
+    """Device time per call of ``fn`` under ``torch.profiler`` after a
+    warm-up: (the kernels whose names contain one of ``names``, every
+    kernel the call launched)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    own = every = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:   # kernels, not ops
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        every += us
+        if any(n in e.key for n in names):
+            own += us
+    assert own > 0, f"no device time for {names}"
+    return own / reps / 1e3, every / reps / 1e3
 
 
 def plan_str(q, c, k, bd) -> str:
@@ -1362,11 +1452,18 @@ def main() -> int:
     build.library(verbose=True)
     log(f"build: {time.perf_counter() - t0:.1f} s")
     entry = ""
+    b3_spills = []
     for line in build.last_build_log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1][:90]     # the mangled kernel name
         elif "registers" in line or "spill" in line:
             log(f"  ptxas {entry}: " + line.strip())
+            if "knn_tile_kernel" in entry and "spill" in line:
+                b3_spills.append(line.strip())
+    # B3's four instantiations, each without a spill
+    assert len(b3_spills) == len(knn_topk.KNN_SHAPES) and all(
+        "0 bytes spill stores, 0 bytes spill loads" in x
+        for x in b3_spills), b3_spills
 
     t0 = time.perf_counter()
     ds = synthetic.generate("tafeng", seed=0, scale=1.0)

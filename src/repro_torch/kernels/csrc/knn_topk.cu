@@ -8,24 +8,39 @@
 // score tile into a running [bq, k] top-k held in VMEM.
 //
 // Bound: operations.  2*Q*M*D fp32 FLOPs (85.7 GFLOP at Q=256,
-// M=13,949, D=11,997) on CUDA cores -- no tensor cores, so the result
-// keeps fp32 parity with the plain version.  The design:
+// M=13,949, D=11,997) on CUDA cores -- no tensor cores and no TF32, so
+// the result keeps fp32 parity with the plain version.  The design:
 //   * Hopper runs blocks in parallel, not in order, so the corpus is cut
-//     into S slices and a block takes BQ=16 queries x one slice; the
-//     wrapper picks S so that the grid is about one block per SM (the
-//     top-k lists hold most of an SM's shared memory).
-//   * A slice is walked in score tiles of BM=512 rows.  D is walked in
-//     BD=16 chunks staged through shared memory, double-buffered: the
-//     next chunk's global loads are in flight while the current one is
-//     multiplied.  Each thread holds an 8-query x 4-row register tile,
-//     so 3 shared-memory vector reads feed 32 FMAs.  Each score is one
-//     fmaf chain over d = 0..D-1 in order.
-//   * Each [BQ, BM] score tile (in shared memory, over the staging
-//     buffers) is masked (the self column whose gid row*col_stride +
-//     col_offset equals the query gid scores -inf; rows past the slice
-//     are no candidates) and merged by one warp per query, 64 candidates
-//     at a time, into a running top-n2 list in shared memory (n2 = power
-//     of two >= max(k, 64), <= 1024; topk_common.cuh merge_score_tile).
+//     into S slices and a block takes BQ queries x one slice, about one
+//     block per SM (knn_topk.py::plan_knn).  A block keeps one list of
+//     exactly k (value, row) entries per query in shared memory, so 32
+//     queries' lists take 77 KB at k=300 and BQ=32 fits up to k=568;
+//     beyond that BQ=16.  Every query tile streams the corpus through
+//     L2, so 32 queries a block halve that traffic against 16.
+//   * A slice is walked in score tiles of BM=256 rows.  D is walked in
+//     chunks of BD=32 values (128 bytes of a row) through a ring of
+//     STAGES chunks in shared memory (3 where the lists leave room, else
+//     2), filled by cp.async with one __syncthreads per chunk.  The
+//     corpus rows' pitch (D * 4 bytes) need not be a multiple of 16
+//     (D=11,997: 4 mod 16), so the copies are 4 bytes: one warp
+//     instruction moves 128 contiguous bytes of one row into the row's
+//     own place in the ring, padded to PITCH floats so that the compute
+//     reads it with conflict-free float4 loads.  D's tail is
+//     zero-filled; rows past the slice and queries past Q are not
+//     copied (their scores are never used).
+//   * Each thread holds a TQ = BQ/4 query x 4 row register tile: per 4
+//     values of D, 4 + TQ float4 shared loads feed 16*TQ fmaf.  Each
+//     score is one fmaf chain over d = 0..D-1 in order.  |c|^2 is summed
+//     in the same loop, also one fmaf chain in d order: each of the 4
+//     query groups owns one of a thread's 4 rows (its registers are
+//     rotated so the owned row sits in slot 0), so it costs every thread
+//     4 fmaf per 4 values of D and the wrapper passes no |c|^2.
+//   * Each [BQ, BM] score tile (in shared memory, over the ring) is
+//     masked (the self column whose gid row*col_stride + col_offset
+//     equals the query gid scores -inf; rows past the slice are no
+//     candidates) and merged by one warp per query, 64 candidates at a
+//     time, into the per-query lists (topk_common.cuh
+//     merge_score_tile_ranked, which needs no power-of-two list).
 //   * A second kernel merges the S per-slice lists [Q, S, k] into [Q, k].
 // Ordering is (value desc, index asc) throughout, as lax.top_k.
 #include <cuda_runtime.h>
@@ -36,199 +51,275 @@ namespace {
 
 constexpr int NT = 256;                  // threads per block
 constexpr int NWARP = NT / 32;
-constexpr int BQ = 16;                   // queries per block
-constexpr int TQ = 8;                    // queries per thread
+constexpr int QGROUPS = 4;               // query groups of a block
 constexpr int TM = 4;                    // corpus rows per thread
-constexpr int ROW_THREADS = NT / (BQ / TQ);   // threads across the rows
-constexpr int BM = ROW_THREADS * TM;     // 512 corpus rows per score tile
-constexpr int BD = 16;                   // D chunk staged in shared memory
-constexpr int CS_STRIDE = BM + 4;        // padded: 2-way bank conflicts
-constexpr int QS_STRIDE = BQ + 4;        // on the transposing stores
-constexpr int CS_FLOATS = BD * CS_STRIDE;
-constexpr int QS_FLOATS = BD * QS_STRIDE;
-constexpr int STAGE_FLOATS = 2 * (CS_FLOATS + QS_FLOATS);
-constexpr int C_LOADS = BM * BD / NT;    // corpus elements per thread/chunk
-static_assert(BQ * BD == NT, "one query element per thread per chunk");
-static_assert(BQ * BM <= STAGE_FLOATS, "score tile fits over the staging");
-static_assert(ROW_THREADS % 32 == 0, "a warp shares its query tile");
+constexpr int BM = NT / QGROUPS * TM;    // 256 corpus rows per score tile
+constexpr int HALF = BM / 2;             // rows of one warp: 128
+constexpr int BD = 32;                   // values of D per chunk
+constexpr int PITCH = BD + 4;            // 36 floats: 9 16-byte units
+constexpr size_t SMEM_MAX = 232448;      // shared memory a block may use
+static_assert(TM == QGROUPS, "each query group owns one row's |c|^2");
+static_assert((PITCH / 4) % 2 == 1, "an odd pitch in 16-byte units");
 
-size_t tile_smem_bytes(int n2) {
-  return sizeof(float) * STAGE_FLOATS +
+// The dynamic shared memory of one block: the ring of ``stages`` chunks
+// of (BM rows + bq queries) x PITCH floats, then bq lists of ls (value,
+// row) entries and each warp's MERGE_CAND merge candidates.  The same
+// formula as knn_topk.py::knn_smem_bytes, which passes its result in.
+size_t knn_smem_bytes(int bq, int stages, int ls) {
+  return sizeof(float) * stages * (size_t)(BM + bq) * PITCH +
          (sizeof(float) + sizeof(int)) *
-             ((size_t)BQ * n2 + NWARP * MERGE_CAND);
+             ((size_t)bq * ls + NWARP * MERGE_CAND);
 }
 
-// Global loads of one D chunk (rows m0.. of the slice, queries q0..)
-// into registers; out-of-range elements read 0.
-__device__ __forceinline__ void load_chunk(
-    const float* __restrict__ q, const float* __restrict__ c, int Q, int D,
-    int q0, int m0, int m_end, int d0, int tid, float (&creg)[C_LOADS],
-    float& qreg) {
-#pragma unroll
-  for (int j = 0; j < C_LOADS; ++j) {
-    const int e = tid + j * NT;
-    const int gm = m0 + e / BD, gd = d0 + e % BD;
-    creg[j] = (gm < m_end && gd < D) ? c[(size_t)gm * D + gd] : 0.0f;
-  }
-  const int gq = q0 + tid / BD, gd = d0 + tid % BD;
-  qreg = (gq < Q && gd < D) ? q[(size_t)gq * D + gd] : 0.0f;
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
+                                          int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
 }
 
-// Transpose the loaded chunk into staging buffer ``buf``: cs[d][row],
-// qs[d][query].
-__device__ __forceinline__ void store_chunk(float* cs, float* qs, int buf,
-                                            int tid,
-                                            const float (&creg)[C_LOADS],
-                                            float qreg) {
-  float* cb = cs + buf * CS_FLOATS;
-#pragma unroll
-  for (int j = 0; j < C_LOADS; ++j) {
-    const int e = tid + j * NT;
-    cb[(e % BD) * CS_STRIDE + e / BD] = creg[j];
-  }
-  qs[buf * QS_FLOATS + (tid % BD) * QS_STRIDE + tid / BD] = qreg;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Warp w is query group tq = w % 4 (queries tq*TQ ..) and row half
+// h = w / 4; lane l's row slot j holds tile row
+//     h*128 + (l/8)*32 + ((j + tq) % 4)*8 + l%8,
+// so the 8 lanes of each quarter warp read 8 consecutive rows (distinct
+// bank groups at an odd pitch), a warp's rows are one contiguous half of
+// the tile, and slot 0 is the row whose |c|^2 this thread sums.
+__device__ __forceinline__ int tile_row(int h, int lane, int tq, int j) {
+  return h * HALF + (lane / 8) * 32 + ((j + tq) % TM) * 8 + lane % 8;
+}
+
+template <int BQ, int STAGES>
 __global__ void __launch_bounds__(NT, 1) knn_tile_kernel(
     const float* __restrict__ q, const float* __restrict__ c,
-    const float* __restrict__ cn, const float* __restrict__ qn,
-    const int* __restrict__ qgid, int Q,
-    int M, int D, int k, int n2, int euclid, long long col_offset,
+    const float* __restrict__ qn, const int* __restrict__ qgid, int Q,
+    int M, int D, int k, int ls, int euclid, long long col_offset,
     long long col_stride, int rows_per_slice, float* __restrict__ part_v,
     int* __restrict__ part_i) {
+  constexpr int TQ = BQ / QGROUPS;                  // queries per thread
+  constexpr int STAGE = (BM + BQ) * PITCH;          // floats per stage
+  static_assert(BQ % NWARP == 0, "whole query rows per warp");
+  static_assert(BQ * BM + BM <= STAGES * STAGE, "scores fit the ring");
   extern __shared__ float4 knn_smem[];
-  float* cs = reinterpret_cast<float*>(knn_smem);    // [2][BD][CS_STRIDE]
-  float* qs = cs + 2 * CS_FLOATS;                     // [2][BD][QS_STRIDE]
-  float* sv = cs;              // [BQ][BM] scores, over the staging buffers
-  float* lv = cs + STAGE_FLOATS;                      // [BQ][n2] list vals
-  int* li = reinterpret_cast<int*>(lv + BQ * n2);     // [BQ][n2] list idx
-  float* wv = reinterpret_cast<float*>(li + BQ * n2);   // [NWARP][CAND]
+  float* ring = reinterpret_cast<float*>(knn_smem);  // [STAGES][BM+BQ][..]
+  float* sv = ring;                      // [BQ][BM] scores, over the ring
+  float* cn = ring + BQ * BM;            // [BM] |c|^2, over the ring
+  float* lv = ring + STAGES * STAGE;                // [BQ][ls] list vals
+  int* li = reinterpret_cast<int*>(lv + BQ * ls);   // [BQ][ls] list rows
+  float* wv = reinterpret_cast<float*>(li + BQ * ls);   // [NWARP][CAND]
   int* wi = reinterpret_cast<int*>(wv + NWARP * MERGE_CAND);
 
   const int q0 = blockIdx.x * BQ;
   const int slice = blockIdx.y;
-  const int S = gridDim.y;
   const int m_begin = slice * rows_per_slice;
   const int m_end = min(M, m_begin + rows_per_slice);
   const int tid = threadIdx.x;
   const int lane = tid % 32;
-  const int tq = tid / ROW_THREADS;   // queries tq*TQ .. tq*TQ+TQ-1
-  const int tm = tid % ROW_THREADS;   // rows tm*TM .. tm*TM+TM-1 of a tile
+  const int warp = tid / 32;
+  const int tq = warp % QGROUPS;
+  const int h = warp / QGROUPS;
   const int n_chunks = (D + BD - 1) / BD;
+  int row[TM];
+#pragma unroll
+  for (int j = 0; j < TM; ++j) row[j] = tile_row(h, lane, tq, j);
 
-  for (int t = tid; t < BQ * n2; t += NT) {
+  for (int t = tid; t < BQ * ls; t += NT) {
     lv[t] = -INFINITY;
     li[t] = PAD_IDX;
   }
 
   for (int m0 = m_begin; m0 < m_end; m0 += BM) {
-    // warps whose rows all lie past the slice skip the multiply
-    const bool warp_live = m0 + (tm - lane) * TM < m_end;
-    float creg[C_LOADS];
-    float qreg;
+    // a warp whose rows all lie past the slice skips the products
+    const bool warp_live = m0 + h * HALF < m_end;
     float acc[TQ][TM];
+    float nacc = 0.0f;   // |c|^2 of row[0]
 #pragma unroll
     for (int i = 0; i < TQ; ++i)
 #pragma unroll
       for (int j = 0; j < TM; ++j) acc[i][j] = 0.0f;
 
-    __syncthreads();   // the previous tile's merge is done with sv
-    load_chunk(q, c, Q, D, q0, m0, m_end, 0, tid, creg, qreg);
-    store_chunk(cs, qs, 0, tid, creg, qreg);
-    __syncthreads();
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      const int buf = ch & 1;
-      const bool more = ch + 1 < n_chunks;
-      if (more) {
-        load_chunk(q, c, Q, D, q0, m0, m_end, (ch + 1) * BD, tid, creg,
-                   qreg);
-      }
-      if (warp_live) {
-        const float* cb = cs + buf * CS_FLOATS + tm * TM;
-        const float* qb = qs + buf * QS_FLOATS + tq * TQ;
+    // copy chunk ch into its stage: warp w takes ring rows w, w + 8, ..
+    // (corpus rows m0 + r, then queries q0 + r - BM), lane l value l of
+    // the chunk; values past D are zero-filled from a valid address
+    auto issue = [&](int ch) {
+      float* st = ring + (ch % STAGES) * STAGE;
+      const int d = ch * BD + lane;
+      const int nb = d < D ? 4 : 0;
+      const size_t dc = (size_t)min(d, D - 1);
 #pragma unroll
-        for (int dd = 0; dd < BD; ++dd) {
-          const float4 a0 =
-              *reinterpret_cast<const float4*>(qb + dd * QS_STRIDE);
-          const float4 a1 =
-              *reinterpret_cast<const float4*>(qb + dd * QS_STRIDE + 4);
-          const float4 b =
-              *reinterpret_cast<const float4*>(cb + dd * CS_STRIDE);
-          const float a[TQ] = {a0.x, a0.y, a0.z, a0.w,
-                               a1.x, a1.y, a1.z, a1.w};
-          const float bb[TM] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-          for (int i = 0; i < TQ; ++i)
-#pragma unroll
-            for (int j = 0; j < TM; ++j)
-              acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+      for (int i = 0; i < BM / NWARP; ++i) {
+        const int r = warp + i * NWARP;
+        if (m0 + r < m_end) {
+          cp_async4(st + r * PITCH + lane, c + (size_t)(m0 + r) * D + dc,
+                    nb);
         }
       }
-      if (more) store_chunk(cs, qs, buf ^ 1, tid, creg, qreg);
-      __syncthreads();
-    }
+#pragma unroll
+      for (int i = 0; i < BQ / NWARP; ++i) {
+        const int r = warp + i * NWARP;
+        if (q0 + r < Q) {
+          cp_async4(st + (BM + r) * PITCH + lane,
+                    q + (size_t)(q0 + r) * D + dc, nb);
+        }
+      }
+    };
 
-    // scores, masked, over the staging buffers (free after the last sync)
+    __syncthreads();   // the previous tile's merge is done with the ring
 #pragma unroll
-    for (int i = 0; i < TQ; ++i) {
-      const int qi = tq * TQ + i;
-      const long long my_gid =
-          (q0 + qi < Q) ? (long long)qgid[q0 + qi] : -1LL;
-      const float my_qn =
-          (qn != nullptr && q0 + qi < Q) ? qn[q0 + qi] : 0.0f;
-      float s[TM];
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < n_chunks) issue(s);
+      cp_async_commit();
+    }
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      cp_async_wait<STAGES - 2>();   // chunk ch has landed
+      __syncthreads();               // ... for every thread, and chunk
+                                     // ch - 1's stage is free
+      if (ch + STAGES - 1 < n_chunks) issue(ch + STAGES - 1);
+      cp_async_commit();
+      if (warp_live) {
+        const float* st = ring + (ch % STAGES) * STAGE;
+        const float* qb = st + (BM + tq * TQ) * PITCH;
 #pragma unroll
-      for (int j = 0; j < TM; ++j) {
-        const int m = m0 + tm * TM + j;
-        s[j] = -INFINITY;
-        if (m < m_end && (long long)m * col_stride + col_offset != my_gid) {
-          s[j] = acc[i][j];
-          if (euclid) {
-            s[j] = 2.0f * s[j] - cn[m];     // 2*acc is exact: one rounding
-            if (qn != nullptr) s[j] = __fsub_rn(s[j], my_qn);
+        for (int dd = 0; dd < BD; dd += 4) {
+          float4 b[TM];
+#pragma unroll
+          for (int j = 0; j < TM; ++j) {
+            b[j] = *reinterpret_cast<const float4*>(st + row[j] * PITCH +
+                                                    dd);
+          }
+          nacc = fmaf(b[0].x, b[0].x, nacc);
+          nacc = fmaf(b[0].y, b[0].y, nacc);
+          nacc = fmaf(b[0].z, b[0].z, nacc);
+          nacc = fmaf(b[0].w, b[0].w, nacc);
+#pragma unroll
+          for (int i = 0; i < TQ; ++i) {
+            const float4 a =
+                *reinterpret_cast<const float4*>(qb + i * PITCH + dd);
+#pragma unroll
+            for (int j = 0; j < TM; ++j) {
+              acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
+              acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
+              acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
+              acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
+            }
           }
         }
       }
-      *reinterpret_cast<float4*>(sv + qi * BM + tm * TM) =
-          make_float4(s[0], s[1], s[2], s[3]);
+    }
+    cp_async_wait<0>();
+    __syncthreads();   // every warp is done with the ring (sv lies on it)
+
+    cn[row[0]] = nacc;
+    __syncthreads();
+    // scores, masked
+#pragma unroll
+    for (int i = 0; i < TQ; ++i) {
+      const int qi = tq * TQ + i;
+      const bool q_ok = q0 + qi < Q;
+      const long long my_gid = q_ok ? (long long)qgid[q0 + qi] : -1LL;
+      const float my_qn = (qn != nullptr && q_ok) ? qn[q0 + qi] : 0.0f;
+#pragma unroll
+      for (int j = 0; j < TM; ++j) {
+        const int m = m0 + row[j];
+        float s = -INFINITY;
+        if (m < m_end && (long long)m * col_stride + col_offset != my_gid) {
+          s = acc[i][j];
+          if (euclid) {
+            s = 2.0f * s - cn[row[j]];    // 2*acc is exact: one rounding
+            if (qn != nullptr) s = __fsub_rn(s, my_qn);
+          }
+        }
+        sv[qi * BM + row[j]] = s;
+      }
     }
     __syncthreads();
 
-    merge_score_tile<BQ, BM, NWARP>(sv, lv, li, wv, wi, q0, Q, m0, m_end,
-                                    k, n2);
+    merge_score_tile_ranked<BQ, BM, NWARP>(sv, lv, li, wv, wi, q0, Q, m0,
+                                           m_end, k, ls);
   }
   __syncthreads();
-  write_slice_lists<BQ>(lv, li, q0, Q, k, n2, slice, S, part_v, part_i);
+  write_slice_lists<BQ>(lv, li, q0, Q, k, ls, slice, gridDim.y, part_v,
+                        part_i);
+}
+
+template <int BQ, int STAGES>
+cudaError_t launch_tiles(dim3 grid, size_t smem, cudaStream_t st,
+                         const float* q, const float* c, const float* qn,
+                         const int* qgid, int Q, int M, int D, int k, int ls,
+                         int euclid, long long col_offset,
+                         long long col_stride, int rows_per_slice,
+                         float* part_v, int* part_i) {
+  cudaError_t err = cudaFuncSetAttribute(
+      knn_tile_kernel<BQ, STAGES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  knn_tile_kernel<BQ, STAGES><<<grid, NT, smem, st>>>(
+      q, c, qn, qgid, Q, M, D, k, ls, euclid, col_offset, col_stride,
+      rows_per_slice, part_v, part_i);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// part_*: scratch [Q, n_slices, k]; out_*: [Q, k].  n2 is a power of two
-// in [max(k, 64), 1024]; rows_per_slice * n_slices >= M.  qn (f32[Q] or
-// null) is |q|^2, subtracted from each euclidean score (sub_qnorm: the
-// full -|q-c|^2 that the cross-shard merge compares).
-extern "C" int knn_topk_launch(const void* q, const void* c, const void* cn,
-                               const void* qn, const void* qgid, int Q,
-                               int M, int D, int k, int n2, int euclid,
-                               long long col_offset, long long col_stride,
-                               int rows_per_slice,
-                               int n_slices, void* part_v, void* part_i,
-                               void* out_v, void* out_i, void* stream) {
+// q f32[Q, D], c f32[M, D], both contiguous; qn (f32[Q] or null) is
+// |q|^2, subtracted from each euclidean score (sub_qnorm: the full
+// -|q-c|^2 that the cross-shard merge compares).  The plan (bq, stages)
+// is one of (32, 3), (32, 2), (16, 3), (16, 2); ls >= k is the lists'
+// row stride (the wrapper passes k); smem must equal knn_smem_bytes(bq,
+// stages, ls) and fit a block.  rows_per_slice * n_slices >= M.
+// part_*: scratch [Q, n_slices, k]; out_*: [Q, k].
+extern "C" int knn_topk_launch(const void* q, const void* c, const void* qn,
+                               const void* qgid, int Q, int M, int D, int k,
+                               int ls, int euclid, long long col_offset,
+                               long long col_stride, int bq, int stages,
+                               int smem, int rows_per_slice, int n_slices,
+                               void* part_v, void* part_i, void* out_v,
+                               void* out_i, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  size_t smem = tile_smem_bytes(n2);
-  cudaError_t err = cudaFuncSetAttribute(
-      knn_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  if (ls < k || smem < 0 || (size_t)smem != knn_smem_bytes(bq, stages, ls) ||
+      (size_t)smem > SMEM_MAX) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((Q + bq - 1) / bq, n_slices);
+  const auto* qf = (const float*)q;
+  const auto* cf = (const float*)c;
+  const auto* qnf = (const float*)qn;
+  const auto* gid = (const int*)qgid;
+  auto* pv = (float*)part_v;
+  auto* pi = (int*)part_i;
+  cudaError_t err;
+  if (bq == 32 && stages == 3) {
+    err = launch_tiles<32, 3>(grid, smem, st, qf, cf, qnf, gid, Q, M, D, k,
+                              ls, euclid, col_offset, col_stride,
+                              rows_per_slice, pv, pi);
+  } else if (bq == 32 && stages == 2) {
+    err = launch_tiles<32, 2>(grid, smem, st, qf, cf, qnf, gid, Q, M, D, k,
+                              ls, euclid, col_offset, col_stride,
+                              rows_per_slice, pv, pi);
+  } else if (bq == 16 && stages == 3) {
+    err = launch_tiles<16, 3>(grid, smem, st, qf, cf, qnf, gid, Q, M, D, k,
+                              ls, euclid, col_offset, col_stride,
+                              rows_per_slice, pv, pi);
+  } else if (bq == 16 && stages == 2) {
+    err = launch_tiles<16, 2>(grid, smem, st, qf, cf, qnf, gid, Q, M, D, k,
+                              ls, euclid, col_offset, col_stride,
+                              rows_per_slice, pv, pi);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Q + BQ - 1) / BQ, n_slices);
-  knn_tile_kernel<<<grid, NT, smem, st>>>(
-      (const float*)q, (const float*)c, (const float*)cn, (const float*)qn,
-      (const int*)qgid, Q, M, D, k, n2, euclid, col_offset, col_stride,
-      rows_per_slice, (float*)part_v, (int*)part_i);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  int n2 = 64;   // merge_lists_kernel's power-of-two list
+  while (n2 < k) n2 <<= 1;
   merge_lists_kernel<<<Q, 256, (size_t)n2 * 8, st>>>(
-      (const float*)part_v, (const int*)part_i, n_slices, k, n2, k,
-      (float*)out_v, (int*)out_i);
+      pv, pi, n_slices, k, n2, k, (float*)out_v, (int*)out_i);
   return (int)cudaGetLastError();
 }

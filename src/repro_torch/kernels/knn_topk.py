@@ -8,7 +8,8 @@ blocks, register-tiled products, per-slice running top-k lists merged
 by a second kernel):
 
 * :func:`launch` replaces ``repro/kernels/knn_topk.py::knn_topk``
-  (``csrc/knn_topk.cu``, fp32 over the whole of D); its plain version is
+  (``csrc/knn_topk.cu``, fp32 over the whole of D, |c|² summed in the
+  kernel) on the grid :func:`plan_knn` gives; its plain version is
   ``ref.knn_topk_ref``;
 * :func:`launch_dtiled` replaces ``::knn_topk_dtiled``
   (``csrc/knn_topk_dtiled.cu``): D summed in tiles of width ``bd``, for
@@ -23,29 +24,60 @@ by a second kernel):
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build, ref
 
 MAX_K = 1024   # largest list the kernel keeps per query
-_BQ = 16       # queries per block of csrc/knn_topk.cu
+SMEM_MAX = 232448   # shared memory one block may use on an H100
 _ROWS = 128    # slices are whole multiples of one warp's 128 rows
+# csrc/knn_topk.cu: rows per score tile, ring row pitch (floats), warps,
+# merge candidates per warp; and its (queries per block, ring stages)
+# in order of preference
+KNN_ROW_TILE, _KNN_PITCH, _KNN_NWARP, _MERGE_CAND = 256, 36, 8, 64
+KNN_SHAPES = ((32, 3), (32, 2), (16, 3), (16, 2))
 
 
 def _pow2_at_least(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
-def plan_slices(n_queries: int, m: int, n_sms: int) -> Tuple[int, int]:
-    """Cut the corpus into slices for the stage-A grid.
+def knn_smem_bytes(bq: int, stages: int, ls: int) -> int:
+    """Dynamic shared memory of one ``csrc/knn_topk.cu`` block: a ring of
+    ``stages`` chunks of (256 rows + ``bq`` queries) x 36 floats, the
+    ``bq`` lists of ``ls`` (value, row) entries, and each warp's 64 merge
+    candidates.  The C entry refuses a launch whose bytes differ."""
+    return (4 * stages * (KNN_ROW_TILE + bq) * _KNN_PITCH
+            + 8 * (bq * ls + _KNN_NWARP * _MERGE_CAND))
 
-    Returns (rows per slice, number of slices): at most one block per SM
-    (the top-k lists fill most of its shared memory), so the grid runs
-    in one wave.
+
+class KnnPlan(NamedTuple):
+    """The grid of one :func:`launch` call: ``bq`` queries a block, a
+    ring of ``stages`` chunks, the corpus cut into ``n_slices`` slices of
+    ``rows`` rows; one block per (query tile, slice)."""
+    bq: int
+    stages: int
+    rows: int
+    n_slices: int
+
+
+def plan_knn(n_queries: int, m: int, k: int, n_sms: int) -> KnnPlan:
+    """Plan the stage-A grid from the shapes alone.
+
+    The first of (32 queries, 3 stages), (32, 2), (16, 3), (16, 2) whose
+    lists of k entries fit a block's shared memory with the ring; then
+    slices of whole 128-row units, at most one block per SM (the lists
+    and the ring fill most of its shared memory), so the grid runs in
+    one wave.
     """
-    return _slices(-(-n_queries // _BQ), m, n_sms, _ROWS)
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k={k} outside [1, {MAX_K}]")
+    bq, stages = next(s for s in KNN_SHAPES
+                      if knn_smem_bytes(*s, k) <= SMEM_MAX)
+    rows, n_slices = _slices(-(-n_queries // bq), m, n_sms, _ROWS)
+    return KnnPlan(bq, stages, rows, n_slices)
 
 
 def _slices(q_tiles: int, m: int, n_sms: int, unit: int) -> Tuple[int, int]:
@@ -215,18 +247,19 @@ def launch(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     if q_n == 0:
         return out_v, out_i
     euclid = metric == "euclidean"
-    cn = (ref.corpus_sqnorm(corpus) if euclid
-          else torch.zeros((1,), dtype=torch.float32, device=dev))
     qn = ref.corpus_sqnorm(queries) if euclid and sub_qnorm else None
-    n2 = max(64, _pow2_at_least(k))
-    rows, n_slices = plan_slices(
-        q_n, m, torch.cuda.get_device_properties(dev).multi_processor_count)
-    part_v = torch.empty((q_n, n_slices, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((q_n, n_slices, k), dtype=torch.int32, device=dev)
+    plan = plan_knn(
+        q_n, m, k,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    part_v = torch.empty((q_n, plan.n_slices, k), dtype=torch.float32,
+                         device=dev)
+    part_i = torch.empty((q_n, plan.n_slices, k), dtype=torch.int32,
+                         device=dev)
     build.check(build.library().knn_topk_launch(
-        queries.data_ptr(), corpus.data_ptr(), cn.data_ptr(),
+        queries.data_ptr(), corpus.data_ptr(),
         None if qn is None else qn.data_ptr(), gids.data_ptr(), q_n, m, d,
-        k, n2, int(euclid), col_offset, col_stride, rows, n_slices,
+        k, k, int(euclid), col_offset, col_stride, plan.bq, plan.stages,
+        knn_smem_bytes(plan.bq, plan.stages, k), plan.rows, plan.n_slices,
         part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(),
         out_i.data_ptr(), build.stream_of(corpus)),
         "knn_topk")

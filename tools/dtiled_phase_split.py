@@ -1,15 +1,23 @@
 #!/usr/bin/env python3
-"""Where the D-tiled stage A's time goes: products against the top-k merge.
+"""Where a stage-A kernel's time goes: products against the top-k merge.
 
-Builds the kernel of ``knn_topk_dtiled`` (``knn_topk_dtiled.cu`` with
-``topk_common.cuh``) twice -- as it is, and with the fold of every score
-tile into the per-query lists compiled out -- and times both on the card
-at TaFeng's request shape: Q=256 users against M=13,949 rows x
-D=11,997 items, k=300, bd=512, on a sparse corpus like the kernel checks
-of ``chip_smoke.py`` (about 1% of the items set), int8 on the store's
-16-byte row pitch and fp32.  The difference of the two is the merge.
+Builds one stage-A kernel's source twice -- as it is, and with the fold
+of every score tile into the per-query lists compiled out -- and times
+both on the card at TaFeng's request shape: Q=256 users against
+M=13,949 rows x D=11,997 items, k=300, on a sparse corpus like the
+kernel checks of ``chip_smoke.py`` (about 1% of the items set).  The
+difference of the two is the merge.
 
-    python3 tools/dtiled_phase_split.py [--root DIR]
+* ``--kernel knn_topk_dtiled`` (the default): ``knn_topk_dtiled.cu``,
+  bd=512, int8 on the store's 16-byte row pitch and fp32;
+* ``--kernel knn_topk``: ``knn_topk.cu``, fp32 over the whole of D, on
+  the plan ``knn_topk.plan_knn`` gives.  Where the source merges with
+  the ranked merge (k-entry lists), the same kernel is also timed with a
+  2-stage ring, and built a third time with the bitonic fold
+  (``merge_score_tile``) on lists of the next power of two, 2 stages,
+  whose lists must equal the ranked merge's.
+
+    python3 tools/dtiled_phase_split.py [--kernel NAME] [--root DIR]
 
 ``--root`` names another checkout of the repository (for example a
 ``git archive`` of an earlier commit, unpacked under ``build/``): its
@@ -31,6 +39,10 @@ import numpy as np
 import torch
 
 MERGE_CALL = re.compile(r"^(\s*)(merge_score_tile\w*<)", re.M)
+RANKED = "merge_score_tile_ranked<"
+ENTRIES = {"knn_topk_dtiled": "knn_topk_dtiled_launch",
+           "knn_topk": "knn_topk_launch"}
+M, D, Q, K, BD = 13949, 11997, 256, 300, 512
 
 
 def time_ms(fn, reps: int = 7) -> float:
@@ -49,32 +61,19 @@ def time_ms(fn, reps: int = 7) -> float:
     return float(np.median(times))
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--root", type=Path,
-                    default=Path(__file__).resolve().parents[1])
-    root = ap.parse_args().root.resolve()
-    if not torch.cuda.is_available():
-        raise SystemExit("dtiled_phase_split: no CUDA device")
-    sys.path.insert(0, str(root / "src"))
-    from repro_torch.kernels import build, knn_topk
-    from repro_torch.optim.compression import quantize_int8_rows_pitched
-
-    csrc = root / "src" / "repro_torch" / "kernels" / "csrc"
-    src = (csrc / "knn_topk_dtiled.cu").read_text()
-    variants = {"whole": src,
-                "products": MERGE_CALL.sub(r"\1if (0) \2", src)}
-    assert variants["products"] != src, "no merge call found"
-    out = root / "build" / "dtiled_phase_split"
+def build_variants(build, csrc: Path, out: Path, kernel: str,
+                   variants: dict) -> dict:
+    """Compile each variant source of ``kernel`` (with topk_common.cuh)
+    in parallel; returns the loaded libraries by variant name."""
     procs = {}
     for name, text in variants.items():
         d = out / name
         d.mkdir(parents=True, exist_ok=True)
-        (d / "knn_topk_dtiled.cu").write_text(text)
+        (d / f"{kernel}.cu").write_text(text)
         shutil.copy(csrc / "topk_common.cuh", d / "topk_common.cuh")
         procs[name] = subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-shared",
-             str(d / "knn_topk_dtiled.cu"), "-o", str(d / "lib.so")],
+             str(d / f"{kernel}.cu"), "-o", str(d / "lib.so")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
@@ -82,10 +81,56 @@ def main() -> int:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
         lib = ctypes.CDLL(str(out / name / "lib.so"))
-        fn = lib.knn_topk_dtiled_launch
-        fn.argtypes = build.SIGNATURES["knn_topk_dtiled_launch"]
+        fn = getattr(lib, ENTRIES[kernel])
+        fn.argtypes = build.SIGNATURES[ENTRIES[kernel]]
         fn.restype = ctypes.c_int
         libs[name] = lib
+    return libs
+
+
+def knn_raw(build, knn_topk, q, c, uid, plan, ls):
+    """One ``knn_topk_launch`` on an explicit plan and list stride ``ls``
+    (euclidean, the single-corpus gid mapping)."""
+    q_n, d = q.shape
+    m = c.shape[0]
+    out_v = torch.empty((q_n, K), dtype=torch.float32, device=c.device)
+    out_i = torch.empty((q_n, K), dtype=torch.int32, device=c.device)
+    part_v = torch.empty((q_n, plan.n_slices, K), dtype=torch.float32,
+                         device=c.device)
+    part_i = torch.empty_like(part_v, dtype=torch.int32)
+    build.check(build.library().knn_topk_launch(
+        q.data_ptr(), c.data_ptr(), None, uid.data_ptr(), q_n, m, d, K, ls,
+        1, 0, 1, plan.bq, plan.stages,
+        knn_topk.knn_smem_bytes(plan.bq, plan.stages, ls), plan.rows,
+        plan.n_slices, part_v.data_ptr(), part_i.data_ptr(),
+        out_v.data_ptr(), out_i.data_ptr(), build.stream_of(c)), "knn_raw")
+    return out_v, out_i
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernel", choices=sorted(ENTRIES),
+                    default="knn_topk_dtiled")
+    ap.add_argument("--root", type=Path,
+                    default=Path(__file__).resolve().parents[1])
+    args = ap.parse_args()
+    root, kernel = args.root.resolve(), args.kernel
+    if not torch.cuda.is_available():
+        raise SystemExit("dtiled_phase_split: no CUDA device")
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.kernels import build, knn_topk
+    from repro_torch.optim.compression import quantize_int8_rows_pitched
+
+    csrc = root / "src" / "repro_torch" / "kernels" / "csrc"
+    src = (csrc / f"{kernel}.cu").read_text()
+    variants = {"whole": src,
+                "products": MERGE_CALL.sub(r"\1if (0) \2", src)}
+    assert variants["products"] != src, "no merge call found"
+    ranked = kernel == "knn_topk" and RANKED in src
+    if ranked:
+        variants["bitonic"] = src.replace(RANKED, "merge_score_tile<")
+    libs = build_variants(build, csrc, root / "build" / "phase_split" /
+                          kernel, kernel, variants)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -95,29 +140,61 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    m, d, q_n, k, bd = 13949, 11997, 256, 300, 512
-    corpus = torch.rand((m, d), generator=gen, device=dev)
-    corpus *= torch.rand((m, d), generator=gen, device=dev) < 0.01
-    uid = torch.randperm(m, generator=gen, device=dev)[:q_n].to(torch.int32)
+    corpus = torch.rand((M, D), generator=gen, device=dev)
+    corpus *= torch.rand((M, D), generator=gen, device=dev) < 0.01
+    uid = torch.randperm(M, generator=gen, device=dev)[:Q].to(torch.int32)
     u = uid.long()
-    cq, cs = quantize_int8_rows_pitched(corpus)
-    calls = {
-        "int8": lambda: knn_topk.launch_dtiled(
-            cq[u], cq, k, bd=bd, query_gids=uid, q_scale=cs[u],
-            c_scale=cs),
-        "fp32": lambda: knn_topk.launch_dtiled(corpus[u], corpus, k, bd=bd,
-                                               query_gids=uid),
-    }
-    res = {"root": str(root)}
-    for order in (("whole", "products"), ("products", "whole")):
-        for name in order:
-            build._lib = libs[name]
-            for mode, fn in calls.items():
-                res.setdefault(f"{mode}_{name}_ms", []).append(time_ms(fn))
-    for mode in calls:
-        whole = float(np.median(res[f"{mode}_whole_ms"]))
-        products = float(np.median(res[f"{mode}_products_ms"]))
-        res[f"{mode}_merge_ms"] = whole - products
+    qf = corpus[u]
+    # (variant library, call) per timed mode
+    runs = {}
+    if kernel == "knn_topk_dtiled":
+        cq, cs = quantize_int8_rows_pitched(corpus)
+        calls = {
+            "int8": lambda: knn_topk.launch_dtiled(
+                cq[u], cq, K, bd=BD, query_gids=uid, q_scale=cs[u],
+                c_scale=cs),
+            "fp32": lambda: knn_topk.launch_dtiled(qf, corpus, K, bd=BD,
+                                                   query_gids=uid),
+        }
+        for mode, fn in calls.items():
+            runs[f"{mode}_whole"] = ("whole", fn)
+            runs[f"{mode}_products"] = ("products", fn)
+    else:
+        runs["fp32_whole"] = ("whole", lambda: knn_topk.launch(
+            qf, corpus, K, query_gids=uid))
+        runs["fp32_products"] = ("products", runs["fp32_whole"][1])
+    res = {"root": str(root), "kernel": kernel}
+    if ranked:
+        n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = knn_topk.plan_knn(Q, M, K, n_sms)
+        res["plan"] = list(plan)
+        two = plan._replace(stages=2)
+        n2 = max(64, 1 << (K - 1).bit_length())
+
+        def raw(p, ls):
+            return lambda: knn_raw(build, knn_topk, qf, corpus, uid, p, ls)
+        runs["fp32_2stage_whole"] = ("whole", raw(two, K))
+        runs["fp32_2stage_products"] = ("products", raw(two, K))
+        runs["fp32_bitonic_whole"] = ("bitonic", raw(two, n2))
+        runs["fp32_bitonic_products"] = ("products", raw(two, n2))
+        build._lib = libs["whole"]
+        got = raw(two, K)()
+        build._lib = libs["bitonic"]
+        exp = raw(two, n2)()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, exp)), \
+            "the ranked and bitonic merges disagree"
+    for rnd in range(2):   # each variant twice, in turns
+        for name, (lib, fn) in (runs.items() if rnd == 0
+                                else reversed(list(runs.items()))):
+            build._lib = libs[lib]
+            res.setdefault(f"{name}_ms", []).append(time_ms(fn))
+    for name in runs:
+        if name.endswith("_whole"):
+            mode = name[:-len("_whole")]
+            whole = float(np.median(res[f"{mode}_whole_ms"]))
+            products = float(np.median(res[f"{mode}_products_ms"]))
+            res[f"{mode}_merge_ms"] = whole - products
     print(json.dumps(res), flush=True)
     return 0
 
