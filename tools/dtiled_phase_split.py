@@ -15,7 +15,10 @@ difference of the two is the merge.
   the ranked merge (k-entry lists), the same kernel is also timed with a
   2-stage ring, and built a third time with the bitonic fold
   (``merge_score_tile``) on lists of the next power of two, 2 stages,
-  whose lists must equal the ranked merge's.
+  whose lists must equal the ranked merge's; the products are split
+  further into the chunk copies alone (``feed``: the multiply compiled
+  out) and the multiply alone (``fma``: the copies compiled out), and
+  a variant asks L2 for 128-byte lines on each copy (``l2hint``).
 
     python3 tools/dtiled_phase_split.py [--kernel NAME] [--root DIR]
 
@@ -40,6 +43,12 @@ import torch
 
 MERGE_CALL = re.compile(r"^(\s*)(merge_score_tile\w*<)", re.M)
 RANKED = "merge_score_tile_ranked<"
+# knn_topk.cu's products, split: the chunk copies alone (the multiply
+# compiled out) and the multiply alone (on whatever the ring holds)
+PRODUCTS = "if (warp_live) {"
+COPIES = "auto issue = [&](int ch) {"
+L2_HINT = ("cp.async.ca.shared.global [", "cp.async.ca.shared.global"
+           ".L2::128B [")
 ENTRIES = {"knn_topk_dtiled": "knn_topk_dtiled_launch",
            "knn_topk": "knn_topk_launch"}
 M, D, Q, K, BD = 13949, 11997, 256, 300, 512
@@ -129,6 +138,11 @@ def main() -> int:
     ranked = kernel == "knn_topk" and RANKED in src
     if ranked:
         variants["bitonic"] = src.replace(RANKED, "merge_score_tile<")
+        if PRODUCTS in src and COPIES in src:
+            prod = variants["products"]
+            variants["feed"] = prod.replace(PRODUCTS, "if (0) {")
+            variants["fma"] = prod.replace(COPIES, COPIES + " return;")
+            variants["l2hint"] = src.replace(*L2_HINT)
     libs = build_variants(build, csrc, root / "build" / "phase_split" /
                           kernel, kernel, variants)
 
@@ -177,6 +191,10 @@ def main() -> int:
         runs["fp32_2stage_products"] = ("products", raw(two, K))
         runs["fp32_bitonic_whole"] = ("bitonic", raw(two, n2))
         runs["fp32_bitonic_products"] = ("products", raw(two, n2))
+        for v in ("feed", "fma", "l2hint"):
+            if v in libs:
+                runs[f"fp32_{v}"] = (v, runs["fp32_whole"][1])
+                runs[f"fp32_2stage_{v}"] = (v, raw(two, K))
         build._lib = libs["whole"]
         got = raw(two, K)()
         build._lib = libs["bitonic"]
