@@ -18,9 +18,12 @@
 //     beyond that BQ=16.  Every query tile streams the corpus through
 //     L2, so 32 queries a block halve that traffic against 16.
 //   * A slice is walked in score tiles of BM=256 rows.  D is walked in
-//     chunks of BD=32 values (128 bytes of a row) through a ring of
-//     STAGES chunks in shared memory (3 where the lists leave room, else
-//     2), filled by cp.async with one __syncthreads per chunk.  The
+//     chunks of BD=32 values (128 bytes of a row) through a ring of 2
+//     chunks in shared memory, filled by cp.async with one __syncthreads
+//     per chunk.  Measured on the H100 at TaFeng's shape, 2 stages beat
+//     3 (4.15-4.21 against 4.35-4.41 ms): a chunk takes longer to
+//     multiply than to arrive, and the smaller ring leaves L1 room for
+//     the 128-byte line that two chunks of a row share.  The
 //     corpus rows' pitch (D * 4 bytes) need not be a multiple of 16
 //     (D=11,997: 4 mod 16), so the copies are 4 bytes: one warp
 //     instruction moves 128 contiguous bytes of one row into the row's
@@ -28,6 +31,9 @@
 //     reads it with conflict-free float4 loads.  D's tail is
 //     zero-filled; rows past the slice and queries past Q are not
 //     copied (their scores are never used).
+//     The copies and the multiply share the SM's load/store pipe, which
+//     bounds the products (the chunk copies alone take 1.8-1.9 ms, the
+//     multiply alone 2.3-2.4, both 3.4 at TaFeng).
 //   * Each thread holds a TQ = BQ/4 query x 4 row register tile: per 4
 //     values of D, 4 + TQ float4 shared loads feed 16*TQ fmaf.  Each
 //     score is one fmaf chain over d = 0..D-1 in order.  |c|^2 is summed
@@ -58,6 +64,7 @@ constexpr int HALF = BM / 2;             // rows of one warp: 128
 constexpr int BD = 32;                   // values of D per chunk
 constexpr int PITCH = BD + 4;            // 36 floats: 9 16-byte units
 constexpr size_t SMEM_MAX = 232448;      // shared memory a block may use
+constexpr int STAGES_PLANNED = 2;        // ring depth (knn_topk.py plans it)
 static_assert(TM == QGROUPS, "each query group owns one row's |c|^2");
 static_assert((PITCH / 4) % 2 == 1, "an odd pitch in 16-byte units");
 
@@ -86,6 +93,39 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// acc[i][j] += q_i . c_j over one staged chunk ``st``, d in order, for
+// query i of the thread's TQ at qb + i*PITCH (one address for the whole
+// warp) and tile row row[j]; nacc += |c|^2 of row[0], also in d order.
+template <int TQ>
+__device__ __forceinline__ void mul_chunk(const float* st, const float* qb,
+                                          const int (&row)[TM],
+                                          float (&acc)[TQ][TM],
+                                          float& nacc) {
+#pragma unroll
+  for (int dd = 0; dd < BD; dd += 4) {
+    float4 b[TM];
+#pragma unroll
+    for (int j = 0; j < TM; ++j) {
+      b[j] = *reinterpret_cast<const float4*>(st + row[j] * PITCH + dd);
+    }
+    nacc = fmaf(b[0].x, b[0].x, nacc);
+    nacc = fmaf(b[0].y, b[0].y, nacc);
+    nacc = fmaf(b[0].z, b[0].z, nacc);
+    nacc = fmaf(b[0].w, b[0].w, nacc);
+#pragma unroll
+    for (int i = 0; i < TQ; ++i) {
+      const float4 a = *reinterpret_cast<const float4*>(qb + i * PITCH + dd);
+#pragma unroll
+      for (int j = 0; j < TM; ++j) {
+        acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
+        acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
+        acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
+        acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
+      }
+    }
+  }
 }
 
 // Warp w is query group tq = w % 4 (queries tq*TQ ..) and row half
@@ -187,32 +227,7 @@ __global__ void __launch_bounds__(NT, 1) knn_tile_kernel(
       cp_async_commit();
       if (warp_live) {
         const float* st = ring + (ch % STAGES) * STAGE;
-        const float* qb = st + (BM + tq * TQ) * PITCH;
-#pragma unroll
-        for (int dd = 0; dd < BD; dd += 4) {
-          float4 b[TM];
-#pragma unroll
-          for (int j = 0; j < TM; ++j) {
-            b[j] = *reinterpret_cast<const float4*>(st + row[j] * PITCH +
-                                                    dd);
-          }
-          nacc = fmaf(b[0].x, b[0].x, nacc);
-          nacc = fmaf(b[0].y, b[0].y, nacc);
-          nacc = fmaf(b[0].z, b[0].z, nacc);
-          nacc = fmaf(b[0].w, b[0].w, nacc);
-#pragma unroll
-          for (int i = 0; i < TQ; ++i) {
-            const float4 a =
-                *reinterpret_cast<const float4*>(qb + i * PITCH + dd);
-#pragma unroll
-            for (int j = 0; j < TM; ++j) {
-              acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
-              acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
-              acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
-              acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
-            }
-          }
-        }
+        mul_chunk<TQ>(st, st + (BM + tq * TQ) * PITCH, row, acc, nacc);
       }
     }
     cp_async_wait<0>();
@@ -273,7 +288,7 @@ cudaError_t launch_tiles(dim3 grid, size_t smem, cudaStream_t st,
 // q f32[Q, D], c f32[M, D], both contiguous; qn (f32[Q] or null) is
 // |q|^2, subtracted from each euclidean score (sub_qnorm: the full
 // -|q-c|^2 that the cross-shard merge compares).  The plan (bq, stages)
-// is one of (32, 3), (32, 2), (16, 3), (16, 2); ls >= k is the lists'
+// is (32, 2) or (16, 2); ls >= k is the lists'
 // row stride (the wrapper passes k); smem must equal knn_smem_bytes(bq,
 // stages, ls) and fit a block.  rows_per_slice * n_slices >= M.
 // part_*: scratch [Q, n_slices, k]; out_*: [Q, k].
@@ -297,22 +312,15 @@ extern "C" int knn_topk_launch(const void* q, const void* c, const void* qn,
   auto* pv = (float*)part_v;
   auto* pi = (int*)part_i;
   cudaError_t err;
-  if (bq == 32 && stages == 3) {
-    err = launch_tiles<32, 3>(grid, smem, st, qf, cf, qnf, gid, Q, M, D, k,
-                              ls, euclid, col_offset, col_stride,
-                              rows_per_slice, pv, pi);
-  } else if (bq == 32 && stages == 2) {
-    err = launch_tiles<32, 2>(grid, smem, st, qf, cf, qnf, gid, Q, M, D, k,
-                              ls, euclid, col_offset, col_stride,
-                              rows_per_slice, pv, pi);
-  } else if (bq == 16 && stages == 3) {
-    err = launch_tiles<16, 3>(grid, smem, st, qf, cf, qnf, gid, Q, M, D, k,
-                              ls, euclid, col_offset, col_stride,
-                              rows_per_slice, pv, pi);
-  } else if (bq == 16 && stages == 2) {
-    err = launch_tiles<16, 2>(grid, smem, st, qf, cf, qnf, gid, Q, M, D, k,
-                              ls, euclid, col_offset, col_stride,
-                              rows_per_slice, pv, pi);
+  if (stages != STAGES_PLANNED) return (int)cudaErrorInvalidValue;
+  if (bq == 32) {
+    err = launch_tiles<32, STAGES_PLANNED>(
+        grid, smem, st, qf, cf, qnf, gid, Q, M, D, k, ls, euclid,
+        col_offset, col_stride, rows_per_slice, pv, pi);
+  } else if (bq == 16) {
+    err = launch_tiles<16, STAGES_PLANNED>(
+        grid, smem, st, qf, cf, qnf, gid, Q, M, D, k, ls, euclid,
+        col_offset, col_stride, rows_per_slice, pv, pi);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -35,9 +35,10 @@ SMEM_MAX = 232448   # shared memory one block may use on an H100
 _ROWS = 128    # slices are whole multiples of one warp's 128 rows
 # csrc/knn_topk.cu: rows per score tile, ring row pitch (floats), warps,
 # merge candidates per warp; and its (queries per block, ring stages)
-# in order of preference
+# in order of preference.  Two stages: on the H100 a third displaced the
+# L1 room that two chunks of a misaligned row share, and ran slower.
 KNN_ROW_TILE, _KNN_PITCH, _KNN_NWARP, _MERGE_CAND = 256, 36, 8, 64
-KNN_SHAPES = ((32, 3), (32, 2), (16, 3), (16, 2))
+KNN_SHAPES = ((32, 2), (16, 2))
 
 
 def _pow2_at_least(n: int) -> int:
@@ -66,8 +67,8 @@ class KnnPlan(NamedTuple):
 def plan_knn(n_queries: int, m: int, k: int, n_sms: int) -> KnnPlan:
     """Plan the stage-A grid from the shapes alone.
 
-    The first of (32 queries, 3 stages), (32, 2), (16, 3), (16, 2) whose
-    lists of k entries fit a block's shared memory with the ring; then
+    32 queries a block where their lists of k entries fit a block's
+    shared memory with the 2-stage ring (k <= 568), else 16; then
     slices of whole 128-row units, at most one block per SM (the lists
     and the ring fill most of its shared memory), so the grid runs in
     one wave.

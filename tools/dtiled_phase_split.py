@@ -12,13 +12,11 @@ difference of the two is the merge.
   bd=512, int8 on the store's 16-byte row pitch and fp32;
 * ``--kernel knn_topk``: ``knn_topk.cu``, fp32 over the whole of D, on
   the plan ``knn_topk.plan_knn`` gives.  Where the source merges with
-  the ranked merge (k-entry lists), the same kernel is also timed with a
-  2-stage ring, and built a third time with the bitonic fold
-  (``merge_score_tile``) on lists of the next power of two, 2 stages,
+  the ranked merge (k-entry lists), it is built a third time with the
+  bitonic fold (``merge_score_tile``) on lists of the next power of two,
   whose lists must equal the ranked merge's; the products are split
   further into the chunk copies alone (``feed``: the multiply compiled
-  out) and the multiply alone (``fma``: the copies compiled out), and
-  a variant asks L2 for 128-byte lines on each copy (``l2hint``).
+  out) and the multiply alone (``fma``: the copies compiled out).
 
     python3 tools/dtiled_phase_split.py [--kernel NAME] [--root DIR]
 
@@ -45,10 +43,8 @@ MERGE_CALL = re.compile(r"^(\s*)(merge_score_tile\w*<)", re.M)
 RANKED = "merge_score_tile_ranked<"
 # knn_topk.cu's products, split: the chunk copies alone (the multiply
 # compiled out) and the multiply alone (on whatever the ring holds)
-PRODUCTS = "if (warp_live) {"
+PRODUCTS = re.compile(r"mul_chunk<[^;]*;")
 COPIES = "auto issue = [&](int ch) {"
-L2_HINT = ("cp.async.ca.shared.global [", "cp.async.ca.shared.global"
-           ".L2::128B [")
 ENTRIES = {"knn_topk_dtiled": "knn_topk_dtiled_launch",
            "knn_topk": "knn_topk_launch"}
 M, D, Q, K, BD = 13949, 11997, 256, 300, 512
@@ -138,11 +134,10 @@ def main() -> int:
     ranked = kernel == "knn_topk" and RANKED in src
     if ranked:
         variants["bitonic"] = src.replace(RANKED, "merge_score_tile<")
-        if PRODUCTS in src and COPIES in src:
+        if PRODUCTS.search(src) and COPIES in src:
             prod = variants["products"]
-            variants["feed"] = prod.replace(PRODUCTS, "if (0) {")
+            variants["feed"] = PRODUCTS.sub(";", prod)
             variants["fma"] = prod.replace(COPIES, COPIES + " return;")
-            variants["l2hint"] = src.replace(*L2_HINT)
     libs = build_variants(build, csrc, root / "build" / "phase_split" /
                           kernel, kernel, variants)
 
@@ -182,23 +177,19 @@ def main() -> int:
         n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
         plan = knn_topk.plan_knn(Q, M, K, n_sms)
         res["plan"] = list(plan)
-        two = plan._replace(stages=2)
         n2 = max(64, 1 << (K - 1).bit_length())
 
-        def raw(p, ls):
-            return lambda: knn_raw(build, knn_topk, qf, corpus, uid, p, ls)
-        runs["fp32_2stage_whole"] = ("whole", raw(two, K))
-        runs["fp32_2stage_products"] = ("products", raw(two, K))
-        runs["fp32_bitonic_whole"] = ("bitonic", raw(two, n2))
-        runs["fp32_bitonic_products"] = ("products", raw(two, n2))
-        for v in ("feed", "fma", "l2hint"):
+        def raw(ls):
+            return lambda: knn_raw(build, knn_topk, qf, corpus, uid, plan, ls)
+        runs["fp32_bitonic_whole"] = ("bitonic", raw(n2))
+        runs["fp32_bitonic_products"] = ("products", raw(n2))
+        for v in ("feed", "fma"):
             if v in libs:
                 runs[f"fp32_{v}"] = (v, runs["fp32_whole"][1])
-                runs[f"fp32_2stage_{v}"] = (v, raw(two, K))
         build._lib = libs["whole"]
-        got = raw(two, K)()
+        got = raw(K)()
         build._lib = libs["bitonic"]
-        exp = raw(two, n2)()
+        exp = raw(n2)()
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, exp)), \
             "the ranked and bitonic merges disagree"
