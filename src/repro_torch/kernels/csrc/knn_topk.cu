@@ -20,8 +20,9 @@
 //   * A slice is walked in score tiles of BM=256 rows.  D is walked in
 //     chunks of BD=32 values (128 bytes of a row) through a ring of 2
 //     chunks in shared memory, filled by cp.async with one __syncthreads
-//     per chunk.  Measured on the H100 at TaFeng's shape, 2 stages beat
-//     3 (4.15-4.21 against 4.35-4.41 ms): a chunk takes longer to
+//     per chunk.  Measured on an NVIDIA H100 80GB HBM3 at 700 W at
+//     TaFeng's shape (tools/dtiled_phase_split.py), 2 stages beat 3
+//     (4.15-4.21 against 4.35-4.41 ms): a chunk takes longer to
 //     multiply than to arrive, and the smaller ring leaves L1 room for
 //     the 128-byte line that two chunks of a row share.  The
 //     corpus rows' pitch (D * 4 bytes) need not be a multiple of 16
@@ -31,9 +32,10 @@
 //     reads it with conflict-free float4 loads.  D's tail is
 //     zero-filled; rows past the slice and queries past Q are not
 //     copied (their scores are never used).
-//     The copies and the multiply share the SM's load/store pipe, which
-//     bounds the products (the chunk copies alone take 1.8-1.9 ms, the
-//     multiply alone 2.3-2.4, both 3.4 at TaFeng).
+//     The copies and the multiply's shared loads share the SM's
+//     load/store pipe and overlap poorly: on the same card the chunk
+//     copies alone take 2.0-2.2 ms, the multiply alone 2.3-2.4 and both
+//     3.4-3.7.
 //   * Each thread holds a TQ = BQ/4 query x 4 row register tile: per 4
 //     values of D, 4 + TQ float4 shared loads feed 16*TQ fmaf.  Each
 //     score is one fmaf chain over d = 0..D-1 in order.  |c|^2 is summed
@@ -64,7 +66,7 @@ constexpr int HALF = BM / 2;             // rows of one warp: 128
 constexpr int BD = 32;                   // values of D per chunk
 constexpr int PITCH = BD + 4;            // 36 floats: 9 16-byte units
 constexpr size_t SMEM_MAX = 232448;      // shared memory a block may use
-constexpr int STAGES_PLANNED = 2;        // ring depth (knn_topk.py plans it)
+constexpr int STAGES = 2;                // ring depth (knn_topk.py plans it)
 static_assert(TM == QGROUPS, "each query group owns one row's |c|^2");
 static_assert((PITCH / 4) % 2 == 1, "an odd pitch in 16-byte units");
 
@@ -138,7 +140,7 @@ __device__ __forceinline__ int tile_row(int h, int lane, int tq, int j) {
   return h * HALF + (lane / 8) * 32 + ((j + tq) % TM) * 8 + lane % 8;
 }
 
-template <int BQ, int STAGES>
+template <int BQ>
 __global__ void __launch_bounds__(NT, 1) knn_tile_kernel(
     const float* __restrict__ q, const float* __restrict__ c,
     const float* __restrict__ qn, const int* __restrict__ qgid, int Q,
@@ -266,7 +268,7 @@ __global__ void __launch_bounds__(NT, 1) knn_tile_kernel(
                         part_i);
 }
 
-template <int BQ, int STAGES>
+template <int BQ>
 cudaError_t launch_tiles(dim3 grid, size_t smem, cudaStream_t st,
                          const float* q, const float* c, const float* qn,
                          const int* qgid, int Q, int M, int D, int k, int ls,
@@ -274,10 +276,10 @@ cudaError_t launch_tiles(dim3 grid, size_t smem, cudaStream_t st,
                          long long col_stride, int rows_per_slice,
                          float* part_v, int* part_i) {
   cudaError_t err = cudaFuncSetAttribute(
-      knn_tile_kernel<BQ, STAGES>,
+      knn_tile_kernel<BQ>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  knn_tile_kernel<BQ, STAGES><<<grid, NT, smem, st>>>(
+  knn_tile_kernel<BQ><<<grid, NT, smem, st>>>(
       q, c, qn, qgid, Q, M, D, k, ls, euclid, col_offset, col_stride,
       rows_per_slice, part_v, part_i);
   return cudaGetLastError();
@@ -288,9 +290,9 @@ cudaError_t launch_tiles(dim3 grid, size_t smem, cudaStream_t st,
 // q f32[Q, D], c f32[M, D], both contiguous; qn (f32[Q] or null) is
 // |q|^2, subtracted from each euclidean score (sub_qnorm: the full
 // -|q-c|^2 that the cross-shard merge compares).  The plan (bq, stages)
-// is (32, 2) or (16, 2); ls >= k is the lists'
-// row stride (the wrapper passes k); smem must equal knn_smem_bytes(bq,
-// stages, ls) and fit a block.  rows_per_slice * n_slices >= M.
+// is (32, 2) or (16, 2); ls >= k is the lists' row stride (the wrapper
+// passes k); smem must equal knn_smem_bytes(bq, stages, ls) and fit a
+// block.  rows_per_slice * n_slices >= M.
 // part_*: scratch [Q, n_slices, k]; out_*: [Q, k].
 extern "C" int knn_topk_launch(const void* q, const void* c, const void* qn,
                                const void* qgid, int Q, int M, int D, int k,
@@ -312,13 +314,13 @@ extern "C" int knn_topk_launch(const void* q, const void* c, const void* qn,
   auto* pv = (float*)part_v;
   auto* pi = (int*)part_i;
   cudaError_t err;
-  if (stages != STAGES_PLANNED) return (int)cudaErrorInvalidValue;
+  if (stages != STAGES) return (int)cudaErrorInvalidValue;
   if (bq == 32) {
-    err = launch_tiles<32, STAGES_PLANNED>(
+    err = launch_tiles<32>(
         grid, smem, st, qf, cf, qnf, gid, Q, M, D, k, ls, euclid,
         col_offset, col_stride, rows_per_slice, pv, pi);
   } else if (bq == 16) {
-    err = launch_tiles<16, STAGES_PLANNED>(
+    err = launch_tiles<16>(
         grid, smem, st, qf, cf, qnf, gid, Q, M, D, k, ls, euclid,
         col_offset, col_stride, rows_per_slice, pv, pi);
   } else {

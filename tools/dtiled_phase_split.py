@@ -16,7 +16,9 @@ difference of the two is the merge.
   bitonic fold (``merge_score_tile``) on lists of the next power of two,
   whose lists must equal the ranked merge's; the products are split
   further into the chunk copies alone (``feed``: the multiply compiled
-  out) and the multiply alone (``fma``: the copies compiled out).
+  out) and the multiply alone (``fma``: the copies compiled out).  The
+  whole call is also profiled (``torch.profiler``): the device time of
+  the kernel's own two kernels, and of every kernel the call launched.
 
     python3 tools/dtiled_phase_split.py [--kernel NAME] [--root DIR]
 
@@ -64,6 +66,31 @@ def time_ms(fn, reps: int = 7) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, names, reps: int = 5) -> tuple:
+    """Device time per call of ``fn`` under ``torch.profiler`` after a
+    warm-up: (kernels whose names contain one of ``names``, all
+    kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    own = every = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        every += us
+        if any(n in e.key for n in names):
+            own += us
+    return own / reps / 1e3, every / reps / 1e3
 
 
 def build_variants(build, csrc: Path, out: Path, kernel: str,
@@ -204,6 +231,12 @@ def main() -> int:
             whole = float(np.median(res[f"{mode}_whole_ms"]))
             products = float(np.median(res[f"{mode}_products_ms"]))
             res[f"{mode}_merge_ms"] = whole - products
+    if kernel == "knn_topk":
+        # the whole call's device time: the kernel's own two kernels,
+        # and every kernel the wrapper launched (a |c|^2 pass included)
+        build._lib = libs["whole"]
+        res["fp32_device_own_ms"], res["fp32_device_all_ms"] = device_ms(
+            runs["fp32_whole"][1], ("knn_tile_kernel", "merge_lists_kernel"))
     print(json.dumps(res), flush=True)
     return 0
 
