@@ -16,7 +16,9 @@ difference of the two is the merge.
   bitonic fold (``merge_score_tile``) on lists of the next power of two,
   whose lists must equal the ranked merge's; the products are split
   further into the chunk copies alone (``feed``: the multiply compiled
-  out) and the multiply alone (``fma``: the copies compiled out).  The
+  out) and the multiply alone (``fma``: the copies compiled out), and
+  whole and products are timed again with one query repeated 256 times
+  (``same``: every block merges alike).  The
   whole call is also profiled (``torch.profiler``): the device time of
   the kernel's own two kernels, and of every kernel the call launched.
 
@@ -213,6 +215,14 @@ def main() -> int:
         for v in ("feed", "fma"):
             if v in libs:
                 runs[f"fp32_{v}"] = (v, runs["fp32_whole"][1])
+        # one query 256 times: every block merges alike, so the query
+        # tiles of a slice cannot drift apart in their merges
+        same = uid[:1].expand(Q).contiguous()
+        qs = corpus[same.long()]
+        runs["fp32_same_whole"] = ("whole", lambda: knn_topk.launch(
+            qs, corpus, K, query_gids=same))
+        runs["fp32_same_products"] = ("products",
+                                      runs["fp32_same_whole"][1])
         build._lib = libs["whole"]
         got = raw(K)()
         build._lib = libs["bitonic"]
