@@ -104,7 +104,7 @@ LM_BATCH, LM_PROMPT, LM_DECODE = 4, 4096, 16
 # f32 by more than that)
 LM_LOGIT_BOUND = 2.0
 # the largest k of each (queries per block, stages) of knn_topk.plan_knn
-KNN_PLAN_EDGES = (568,)
+KNN_PLAN_EDGES = (584,)
 
 KERNELS = {
     "sparse_row_gather": dict(
@@ -328,7 +328,7 @@ def check_stage_a_edges(gen, dev):
     q = c[uid.long()]
     shard = dict(query_gids=uid * 3 + 2, col_offset=2, col_stride=3,
                  sub_qnorm=True)
-    for k in (1, 300, 569, 1024):
+    for k in (1, 300, 585, 1024):
         for kw in (dict(query_gids=uid), dict(metric="dot"), shard):
             exact(q, c, k, **kw)
     plans = [knn_topk.plan_knn(q_n, m, k, n_sms) for k in (300, 1024)]
@@ -336,7 +336,7 @@ def check_stage_a_edges(gen, dev):
     assert all(pl.rows > tile and pl.rows % tile and m % pl.rows
                for pl in plans), plans
     log(f"  stage A M={m} D={d} Q={q_n} ({plans[0].n_slices} slices of "
-        f"{plans[0].rows} rows at k=300), k in (1, 300, 569, 1024), "
+        f"{plans[0].rows} rows at k=300), k in (1, 300, 585, 1024), "
         f"euclidean, dot and shard mode: exact")
     log(f"  (queries per block, stages) reached: {sorted(shapes)}")
     assert shapes == set(knn_topk.KNN_SHAPES), shapes

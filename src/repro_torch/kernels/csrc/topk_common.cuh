@@ -10,11 +10,12 @@
 // with __syncwarp) or a whole block (syncs with __syncthreads).
 //
 // Both stage-A kernels (knn_topk.cu, knn_topk_dtiled.cu) share the
-// corpus-slice plan below: a block keeps one top-n2 list per query in
-// shared memory, folds each masked score tile into it (merge_score_tile
-// in knn_topk.cu; merge_score_tile_ranked, the same result in fewer
-// steps, in knn_topk_dtiled.cu), writes its slice's lists
-// (write_slice_lists), and merge_lists_kernel merges the slices.
+// corpus-slice plan below: a block keeps one top-k list per query in
+// shared memory, folds each masked score tile into it by rank
+// (merge_score_tile_ranked in knn_topk_dtiled.cu, 64 candidates at a
+// time; knn_topk.cu folds a whole tile at once on the same ranks),
+// writes its slice's lists (write_slice_lists), and merge_lists_kernel
+// merges the slices.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -130,47 +131,6 @@ static __global__ void merge_lists_kernel(const float* __restrict__ in_v,
 
 constexpr int MERGE_CAND = 64;   // candidates a warp merges at once
 
-// Fold one masked score tile sv[BQ][BM] (rows m0.. of the block's
-// slice) into the per-query lists lv/li[BQ][n2], one warp per query,
-// MERGE_CAND candidates at a time: a group none of whose candidates
-// beats the current k-th entry is skipped, otherwise it is
-// bitonic-sorted (in the warp's scratch wv/wi[NWARP][MERGE_CAND]) and
-// folded in.  Rows at or past m_end are no candidates.  Every thread
-// of the block calls this after sv is complete.
-template <int BQ, int BM, int NWARP>
-__device__ void merge_score_tile(const float* sv, float* lv, int* li,
-                                 float* wv, int* wi, int q0, int Q, int m0,
-                                 int m_end, int k, int n2) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int h = 0; h < BQ / NWARP; ++h) {
-    const int r = warp * (BQ / NWARP) + h;
-    if (q0 + r >= Q) continue;                 // warp-uniform
-    float* lvr = lv + r * n2;
-    int* lir = li + r * n2;
-    for (int g = 0; g < BM && m0 + g < m_end; g += MERGE_CAND) {
-      const float thr_v = lvr[k - 1];
-      const int thr_i = lir[k - 1];
-      const int i0 = m0 + g + lane;
-      const int i1 = i0 + 32;
-      const float v0 = sv[r * BM + g + lane];
-      const float v1 = sv[r * BM + g + lane + 32];
-      const bool p0 = i0 < m_end && better(v0, i0, thr_v, thr_i);
-      const bool p1 = i1 < m_end && better(v1, i1, thr_v, thr_i);
-      if (!__any_sync(0xffffffffu, p0 || p1)) continue;
-      float* bv = wv + warp * MERGE_CAND;
-      int* bi = wi + warp * MERGE_CAND;
-      bv[lane] = p0 ? v0 : -INFINITY;
-      bi[lane] = p0 ? i0 : PAD_IDX;
-      bv[lane + 32] = p1 ? v1 : -INFINITY;
-      bi[lane + 32] = p1 ? i1 : PAD_IDX;
-      __syncwarp();
-      bitonic_sort_desc<false>(bv, bi, MERGE_CAND, lane, 32);
-      fold_into_list<false>(lvr, lir, bv, bi, MERGE_CAND, n2, lane, 32);
-    }
-  }
-}
-
 // Keep the better (take_better) or the worse of (v, i) and its partner.
 __device__ __forceinline__ void keep_pair(float& v, int& i, float pv, int pi,
                                           bool take_better) {
@@ -229,10 +189,10 @@ __device__ __forceinline__ int list_rank(const float* v, const int* ix,
   return lo;
 }
 
-// merge_score_tile's result by fewer steps (the D-tiled kernels' merge):
-// fold one masked score tile sv[BQ][BM] (rows m0.. of the block's
-// slice) into the per-query lists lv/li[BQ][n2] (the best k in their
-// first k entries), one warp per query, MERGE_CAND candidates at a time:
+// The D-tiled kernels' merge: fold one masked score tile sv[BQ][BM]
+// (rows m0.. of the block's slice) into the per-query lists lv/li[BQ][n2]
+// (the best k in their first k entries), one warp per query, MERGE_CAND
+// candidates at a time:
 // a group none of whose candidates beats the current k-th entry is
 // skipped; otherwise the candidates that do are sorted in registers,
 // kept in the warp's scratch wv/wi[NWARP][MERGE_CAND], and merged into

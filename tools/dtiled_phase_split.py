@@ -161,12 +161,13 @@ def main() -> int:
                 "products": MERGE_CALL.sub(r"\1if (0) \2", src)}
     assert variants["products"] != src, "no merge call found"
     ranked = kernel == "knn_topk" and RANKED in src
+    split = kernel == "knn_topk" and hasattr(knn_topk, "plan_knn")
     if ranked:
         variants["bitonic"] = src.replace(RANKED, "merge_score_tile<")
-        if PRODUCTS.search(src) and COPIES in src:
-            prod = variants["products"]
-            variants["feed"] = PRODUCTS.sub(";", prod)
-            variants["fma"] = prod.replace(COPIES, COPIES + " return;")
+    if split and PRODUCTS.search(src) and COPIES in src:
+        prod = variants["products"]
+        variants["feed"] = PRODUCTS.sub(";", prod)
+        variants["fma"] = prod.replace(COPIES, COPIES + " return;")
     libs = build_variants(build, csrc, root / "build" / "phase_split" /
                           kernel, kernel, variants)
 
@@ -202,16 +203,10 @@ def main() -> int:
             qf, corpus, K, query_gids=uid))
         runs["fp32_products"] = ("products", runs["fp32_whole"][1])
     res = {"root": str(root), "kernel": kernel}
-    if ranked:
+    if split:
         n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
         plan = knn_topk.plan_knn(Q, M, K, n_sms)
         res["plan"] = list(plan)
-        n2 = max(64, 1 << (K - 1).bit_length())
-
-        def raw(ls):
-            return lambda: knn_raw(build, knn_topk, qf, corpus, uid, plan, ls)
-        runs["fp32_bitonic_whole"] = ("bitonic", raw(n2))
-        runs["fp32_bitonic_products"] = ("products", raw(n2))
         for v in ("feed", "fma"):
             if v in libs:
                 runs[f"fp32_{v}"] = (v, runs["fp32_whole"][1])
@@ -223,6 +218,13 @@ def main() -> int:
             qs, corpus, K, query_gids=same))
         runs["fp32_same_products"] = ("products",
                                       runs["fp32_same_whole"][1])
+    if split and ranked:
+        n2 = max(64, 1 << (K - 1).bit_length())
+
+        def raw(ls):
+            return lambda: knn_raw(build, knn_topk, qf, corpus, uid, plan, ls)
+        runs["fp32_bitonic_whole"] = ("bitonic", raw(n2))
+        runs["fp32_bitonic_products"] = ("products", raw(n2))
         build._lib = libs["whole"]
         got = raw(K)()
         build._lib = libs["bitonic"]
