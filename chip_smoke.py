@@ -104,7 +104,7 @@ LM_BATCH, LM_PROMPT, LM_DECODE = 4, 4096, 16
 # f32 by more than that)
 LM_LOGIT_BOUND = 2.0
 # the largest k of each (queries per block, stages) of knn_topk.plan_knn
-KNN_PLAN_EDGES = (584,)
+KNN_PLAN_EDGES = (456,)
 
 KERNELS = {
     "sparse_row_gather": dict(
@@ -285,8 +285,10 @@ def check_stage_a_edges(gen, dev):
     either side, up to k = 1024, with Q of 1, 31 and 33 (partial query
     tiles) and D of 1, 31, 33 and 211 (tails of a 32-value chunk); and
     slices of several score tiles with a partial last tile and a partial
-    last slice, euclidean, ``metric="dot"`` and ``sub_qnorm`` with a
-    shard's gid mapping.  Asserts that the cases reach every plan."""
+    last slice, whose last fold into the lists (two tiles at a time) has
+    one tile at one k and two at another, euclidean, ``metric="dot"``
+    and ``sub_qnorm`` with a shard's gid mapping.  Asserts that the cases
+    reach every plan."""
     m, d, q_n = 1000, 211, 13
     c = int_corpus(gen, m, d, dev)
     uid = torch.randperm(m, generator=gen, device=dev)[:q_n].to(torch.int32)
@@ -322,7 +324,7 @@ def check_stage_a_edges(gen, dev):
                 exact(c[uid.long()], c, k, query_gids=uid)
     log(f"  stage A M={m}, D in (1, 31, 33, 211), Q in (1, 31, 33), k in "
         f"{ks}: exact")
-    m, d, q_n = 25000, 211, 33
+    m, d, q_n = 33800, 211, 33
     c = int_corpus(gen, m, d, dev)
     uid = torch.randperm(m, generator=gen, device=dev)[:q_n].to(torch.int32)
     q = c[uid.long()]
@@ -333,10 +335,13 @@ def check_stage_a_edges(gen, dev):
             exact(q, c, k, **kw)
     plans = [knn_topk.plan_knn(q_n, m, k, n_sms) for k in (300, 1024)]
     tile = knn_topk.KNN_ROW_TILE
-    assert all(pl.rows > tile and pl.rows % tile and m % pl.rows
+    assert all(pl.rows > 2 * tile and pl.rows % tile and m % pl.rows
                for pl in plans), plans
+    # the last fold of a slice: one tile at k=300, two at k=1024
+    assert [pl.rows % (2 * tile) > tile for pl in plans] == [False, True]
     log(f"  stage A M={m} D={d} Q={q_n} ({plans[0].n_slices} slices of "
-        f"{plans[0].rows} rows at k=300), k in (1, 300, 585, 1024), "
+        f"{plans[0].rows} rows at k=300, {plans[1].n_slices} of "
+        f"{plans[1].rows} at k=1024), k in (1, 300, 585, 1024), "
         f"euclidean, dot and shard mode: exact")
     log(f"  (queries per block, stages) reached: {sorted(shapes)}")
     assert shapes == set(knn_topk.KNN_SHAPES), shapes
@@ -1460,7 +1465,7 @@ def main() -> int:
             log(f"  ptxas {entry}: " + line.strip())
             if "knn_tile_kernel" in entry and "spill" in line:
                 b3_spills.append(line.strip())
-    # B3's four instantiations, each without a spill
+    # every instantiation of B3's tile kernel, none with a spill
     assert len(b3_spills) == len(knn_topk.KNN_SHAPES) and all(
         "0 bytes spill stores, 0 bytes spill loads" in x
         for x in b3_spills), b3_spills

@@ -14,28 +14,25 @@
 //     into S slices and a block takes BQ queries x one slice, about one
 //     block per SM (knn_topk.py::plan_knn).  A block keeps one list of
 //     exactly k (value, row) entries per query in shared memory, so 32
-//     queries' lists take 77 KB at k=300 and BQ=32 fits up to k=584;
+//     queries' lists take 77 KB at k=300 and BQ=32 fits up to k=456;
 //     beyond that BQ=16.  Every query tile streams the corpus through
 //     L2, so 32 queries a block halve that traffic against 16.
 //   * A slice is walked in score tiles of BM=256 rows.  D is walked in
-//     chunks of BD=32 values (128 bytes of a row) through a ring of 2
-//     chunks in shared memory, filled by cp.async with one __syncthreads
-//     per chunk.  Measured on an NVIDIA H100 80GB HBM3 at 700 W at
-//     TaFeng's shape (tools/dtiled_phase_split.py), 2 stages beat 3
-//     (4.15-4.21 against 4.35-4.41 ms): a chunk takes longer to
-//     multiply than to arrive, and the smaller ring leaves L1 room for
-//     the 128-byte line that two chunks of a row share.  The
-//     corpus rows' pitch (D * 4 bytes) need not be a multiple of 16
-//     (D=11,997: 4 mod 16), so the copies are 4 bytes: one warp
-//     instruction moves 128 contiguous bytes of one row into the row's
-//     own place in the ring, padded to PITCH floats so that the compute
-//     reads it with conflict-free float4 loads.  D's tail is
-//     zero-filled; rows past the slice and queries past Q are not
-//     copied (their scores are never used).
-//     The copies and the multiply's shared loads share the SM's
-//     load/store pipe and overlap poorly: on the same card the chunk
-//     copies alone take 2.0-2.2 ms, the multiply alone 2.3-2.4 and both
-//     3.4-3.7.
+//     chunks of BD=32 values (128 bytes of a row) through a ring of
+//     STAGES chunks in shared memory, filled by cp.async with one
+//     __syncthreads per chunk.  The corpus rows' pitch (D * 4 bytes)
+//     need not be a multiple of 16 (D=11,997: 4 mod 16), so the copies
+//     are 4 bytes: one warp instruction moves 128 contiguous bytes of
+//     one row into the row's own place in the ring, padded to PITCH
+//     floats so that the compute reads it with conflict-free float4
+//     loads.  D's tail is zero-filled; rows past the slice and queries
+//     past Q are not copied (their scores are never used).
+//     The ring has 2 stages: on an NVIDIA H100 80GB HBM3 at 700 W, at
+//     TaFeng's shape (tools/dtiled_phase_split.py), a third ran slower
+//     in each design tried (4.35-4.41 against 4.15-4.21 ms; 4.59-4.66
+//     against 4.33-4.40): a chunk takes longer to multiply than to
+//     arrive, and the smaller ring leaves L1 room for the 128-byte line
+//     that two chunks of a misaligned row share.
 //   * Each thread holds a TQ = BQ/4 query x 4 row register tile: per 4
 //     values of D, 4 + TQ float4 shared loads feed 16*TQ fmaf.  Each
 //     score is one fmaf chain over d = 0..D-1 in order.  |c|^2 is summed
@@ -43,15 +40,21 @@
 //     query groups owns one of a thread's 4 rows (its registers are
 //     rotated so the owned row sits in slot 0), so it costs every thread
 //     4 fmaf per 4 values of D and the wrapper passes no |c|^2.
-//   * Each [BQ, BM] score tile (in shared memory, over the ring) is
-//     masked (the self column whose gid row*col_stride + col_offset
-//     equals the query gid scores -inf; rows past the slice are no
-//     candidates) and merged by one warp per query into the per-query
-//     lists, the whole tile at once: its candidates sorted in registers,
-//     then merged by rank (merge_score_tile_sorted below; the result of
-//     topk_common.cuh's merge_score_tile_ranked, in a quarter of its
-//     folds, and no power-of-two list; on the same card its merge takes
-//     0.57-0.59 ms against 0.77-0.79 merging 64 rows at a time).
+//     On the same card, an 8 x 8 tile (a third fewer loads per fmaf,
+//     512-row tiles on a swizzled ring) multiplied no faster and
+//     overlapped the copies worse (products 4.03-4.05 against 3.41-3.52
+//     ms), so the 8 x 4 tile stays.
+//   * Each [BQ, BM] score tile is masked (the self column whose gid
+//     row*col_stride + col_offset equals the query gid scores -inf; rows
+//     past the slice are no candidates).  Every two tiles (MB=512 rows)
+//     are merged by one warp per query into the per-query lists at once:
+//     the first tile's scores wait in their own [BQ, BM] array, the
+//     second's lie over the ring; the candidates are sorted in
+//     registers, then merged by rank (merge_score_tile_sorted below; the
+//     result of topk_common.cuh's merge_score_tile_ranked, in an eighth
+//     of its folds, and no power-of-two list).  On the same card the
+//     merge takes 0.16-0.20 ms, against 0.56-0.64 folding each 256-row
+//     tile and 0.77-0.80 folding 64 rows at a time.
 //   * A second kernel merges the S per-slice lists [Q, S, k] into [Q, k].
 // Ordering is (value desc, index asc) throughout, as lax.top_k.
 #include <cuda_runtime.h>
@@ -66,19 +69,21 @@ constexpr int QGROUPS = 4;               // query groups of a block
 constexpr int TM = 4;                    // corpus rows per thread
 constexpr int BM = NT / QGROUPS * TM;    // 256 corpus rows per score tile
 constexpr int HALF = BM / 2;             // rows of one warp: 128
+constexpr int MB = 2 * BM;               // rows folded into the lists at once
 constexpr int BD = 32;                   // values of D per chunk
 constexpr int PITCH = BD + 4;            // 36 floats: 9 16-byte units
 constexpr size_t SMEM_MAX = 232448;      // shared memory a block may use
-constexpr int STAGES = 2;                // ring depth (knn_topk.py plans it)
 static_assert(TM == QGROUPS, "each query group owns one row's |c|^2");
 static_assert((PITCH / 4) % 2 == 1, "an odd pitch in 16-byte units");
 
 // The dynamic shared memory of one block: the ring of ``stages`` chunks
-// of (BM rows + bq queries) x PITCH floats, then bq lists of ls (value,
-// row) entries.  The merge's scratch lies on the ring.  The same formula
-// as knn_topk.py::knn_smem_bytes, which passes its result in.
+// of (BM rows + bq queries) x PITCH floats, the scores of a fold's first
+// tile [bq][BM], then bq lists of ls (value, row) entries.  The second
+// tile's scores and the merge's scratch lie on the ring.  The same
+// formula as knn_topk.py::knn_smem_bytes, which passes its result in.
 size_t knn_smem_bytes(int bq, int stages, int ls) {
   return sizeof(float) * stages * (size_t)(BM + bq) * PITCH +
+         sizeof(float) * (size_t)bq * BM +
          (sizeof(float) + sizeof(int)) * (size_t)bq * ls;
 }
 
@@ -168,27 +173,31 @@ __device__ __forceinline__ void warp_sort_desc(float (&v)[E], int (&ix)[E],
   }
 }
 
-// Fold one masked score tile sv[BQ][BM] (rows m0.. of the block's
-// slice) into the per-query lists lv/li[BQ][ls] (the best k in their
-// first k entries), one warp per query and the whole tile at once: the
-// rows that beat the current k-th entry are sorted in registers and
-// kept in the warp's scratch cv/ci[NWARP][BM]; each real list entry
+// Fold two masked score tiles sv0, sv1 [BQ][BM] (rows m0.. and m0 + BM..
+// of the block's slice) into the per-query lists lv/li[BQ][ls] (the best
+// k in their first k entries), one warp per query and both tiles at
+// once: the rows that beat the current k-th entry are sorted in
+// registers and kept in the warp's scratch cv/ci[NWARP][MB]; each real
+// list entry
 // moves right by the number of candidates better than it (from the last
 // one, 32 at a time, until none moves), and each candidate lands at its
 // place among the candidates plus its place in the old list; what lands
 // at or past k drops out.  The result is merge_score_tile_ranked's, in
-// one fold a tile in place of one per 64 rows.  Every thread of the
-// block calls this after sv is complete.
+// one fold per 512 rows in place of one per 64.  Every thread of the
+// block calls this after both tiles are complete.
 template <int BQ>
-__device__ void merge_score_tile_sorted(const float* sv, float* lv, int* li,
-                                        float* cv, int* ci, int q0, int Q,
-                                        int m0, int m_end, int k, int ls) {
-  constexpr int E = BM / 32;
-  static_assert(E % 4 == 0, "whole float4 per lane");
+__device__ void merge_score_tile_sorted(const float* sv0, const float* sv1,
+                                        float* lv, int* li, float* cv,
+                                        int* ci, int q0, int Q, int m0,
+                                        int m_end, int k, int ls) {
+  constexpr int E = MB / 32;
+  static_assert(E % 4 == 0 && BM % E == 0, "whole float4 in one tile");
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  float* bv = cv + warp * BM;
-  int* bi = ci + warp * BM;
+  float* bv = cv + warp * MB;
+  int* bi = ci + warp * MB;
+  // lane l's E candidates, rows l*E .., lie in one of the two tiles
+  const float* sv = (lane * E < BM ? sv0 : sv1) + lane * E % BM;
   for (int h = 0; h < BQ / NWARP; ++h) {
     const int r = warp * (BQ / NWARP) + h;
     if (q0 + r >= Q) continue;                 // warp-uniform
@@ -201,8 +210,7 @@ __device__ void merge_score_tile_sorted(const float* sv, float* lv, int* li,
     bool any = false;
 #pragma unroll
     for (int e = 0; e < E; e += 4) {
-      const float4 x =
-          *reinterpret_cast<const float4*>(sv + r * BM + lane * E + e);
+      const float4 x = *reinterpret_cast<const float4*>(sv + r * BM + e);
       v[e] = x.x;
       v[e + 1] = x.y;
       v[e + 2] = x.z;
@@ -247,7 +255,7 @@ __device__ void merge_score_tile_sorted(const float* sv, float* lv, int* li,
       if (i >= 0) {
         av = lvr[i];
         ai = lir[i];
-        to = i + list_rank(bv, bi, BM, av, ai);
+        to = i + list_rank(bv, bi, MB, av, ai);
       }
       // entries before these are better still: none of them moves
       if (__all_sync(0xffffffffu, to == i)) break;
@@ -279,7 +287,7 @@ __device__ __forceinline__ int tile_row(int h, int lane, int tq, int j) {
   return h * HALF + (lane / 8) * 32 + ((j + tq) % TM) * 8 + lane % 8;
 }
 
-template <int BQ>
+template <int BQ, int STAGES>
 __global__ void __launch_bounds__(NT, 1) knn_tile_kernel(
     const float* __restrict__ q, const float* __restrict__ c,
     const float* __restrict__ qn, const int* __restrict__ qgid, int Q,
@@ -289,16 +297,18 @@ __global__ void __launch_bounds__(NT, 1) knn_tile_kernel(
   constexpr int TQ = BQ / QGROUPS;                  // queries per thread
   constexpr int STAGE = (BM + BQ) * PITCH;          // floats per stage
   static_assert(BQ % NWARP == 0, "whole query rows per warp");
-  static_assert(BQ * BM + BM + 2 * NWARP * BM <= STAGES * STAGE,
+  static_assert(STAGES >= 2, "a chunk in flight while one is multiplied");
+  static_assert(BQ * BM + BM + 2 * NWARP * MB <= STAGES * STAGE,
                 "scores and merge scratch fit the ring");
   extern __shared__ float4 knn_smem[];
   float* ring = reinterpret_cast<float*>(knn_smem);  // [STAGES][BM+BQ][..]
-  float* sv = ring;                      // [BQ][BM] scores, over the ring
-  float* cn = ring + BQ * BM;            // [BM] |c|^2, over the ring
-  float* lv = ring + STAGES * STAGE;                // [BQ][ls] list vals
+  float* sv0 = ring + STAGES * STAGE;    // [BQ][BM] a fold's first tile
+  float* lv = sv0 + BQ * BM;                        // [BQ][ls] list vals
   int* li = reinterpret_cast<int*>(lv + BQ * ls);   // [BQ][ls] list rows
-  float* mv = cn + BM;                   // [NWARP][BM] merge scratch,
-  int* mi = reinterpret_cast<int*>(mv + NWARP * BM);   // over the ring
+  float* sv1 = ring;                     // [BQ][BM] its second, on the ring
+  float* cn = ring + BQ * BM;            // [BM] |c|^2, over the ring
+  float* mv = cn + BM;                   // [NWARP][MB] merge scratch,
+  int* mi = reinterpret_cast<int*>(mv + NWARP * MB);   // over the ring
 
   const int q0 = blockIdx.x * BQ;
   const int slice = blockIdx.y;
@@ -319,9 +329,11 @@ __global__ void __launch_bounds__(NT, 1) knn_tile_kernel(
     li[t] = PAD_IDX;
   }
 
-  for (int m0 = m_begin; m0 < m_end; m0 += BM) {
+  for (int mt = m_begin; mt < m_end; mt += BM) {
+    const int t = (mt - m_begin) / BM % 2;   // tile t of its fold
+    float* sv = t == 0 ? sv0 : sv1;
     // a warp whose rows all lie past the slice skips the products
-    const bool warp_live = m0 + h * HALF < m_end;
+    const bool warp_live = mt + h * HALF < m_end;
     float acc[TQ][TM];
     float nacc = 0.0f;   // |c|^2 of row[0]
 #pragma unroll
@@ -330,7 +342,7 @@ __global__ void __launch_bounds__(NT, 1) knn_tile_kernel(
       for (int j = 0; j < TM; ++j) acc[i][j] = 0.0f;
 
     // copy chunk ch into its stage: warp w takes ring rows w, w + 8, ..
-    // (corpus rows m0 + r, then queries q0 + r - BM), lane l value l of
+    // (corpus rows mt + r, then queries q0 + r - BM), lane l value l of
     // the chunk; values past D are zero-filled from a valid address
     auto issue = [&](int ch) {
       float* st = ring + (ch % STAGES) * STAGE;
@@ -340,8 +352,8 @@ __global__ void __launch_bounds__(NT, 1) knn_tile_kernel(
 #pragma unroll
       for (int i = 0; i < BM / NWARP; ++i) {
         const int r = warp + i * NWARP;
-        if (m0 + r < m_end) {
-          cp_async4(st + r * PITCH + lane, c + (size_t)(m0 + r) * D + dc,
+        if (mt + r < m_end) {
+          cp_async4(st + r * PITCH + lane, c + (size_t)(mt + r) * D + dc,
                     nb);
         }
       }
@@ -355,7 +367,8 @@ __global__ void __launch_bounds__(NT, 1) knn_tile_kernel(
       }
     };
 
-    __syncthreads();   // the previous tile's merge is done with the ring
+    __syncthreads();   // the previous tile's scores and merge are done
+                       // with the ring
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
       if (s < n_chunks) issue(s);
@@ -386,7 +399,7 @@ __global__ void __launch_bounds__(NT, 1) knn_tile_kernel(
       const float my_qn = (qn != nullptr && q_ok) ? qn[q0 + qi] : 0.0f;
 #pragma unroll
       for (int j = 0; j < TM; ++j) {
-        const int m = m0 + row[j];
+        const int m = mt + row[j];
         float s = -INFINITY;
         if (m < m_end && (long long)m * col_stride + col_offset != my_gid) {
           s = acc[i][j];
@@ -400,15 +413,19 @@ __global__ void __launch_bounds__(NT, 1) knn_tile_kernel(
     }
     __syncthreads();
 
-    merge_score_tile_sorted<BQ>(sv, lv, li, mv, mi, q0, Q, m0, m_end, k,
-                                ls);
+    // a fold's second tile, or the slice's last (rows past m_end are no
+    // candidates: a missing second tile's stale scores are masked)
+    if (t == 1 || mt + BM >= m_end) {
+      merge_score_tile_sorted<BQ>(sv0, sv1, lv, li, mv, mi, q0, Q,
+                                  mt - t * BM, m_end, k, ls);
+    }
   }
   __syncthreads();
   write_slice_lists<BQ>(lv, li, q0, Q, k, ls, slice, gridDim.y, part_v,
                         part_i);
 }
 
-template <int BQ>
+template <int BQ, int STAGES>
 cudaError_t launch_tiles(dim3 grid, size_t smem, cudaStream_t st,
                          const float* q, const float* c, const float* qn,
                          const int* qgid, int Q, int M, int D, int k, int ls,
@@ -416,10 +433,10 @@ cudaError_t launch_tiles(dim3 grid, size_t smem, cudaStream_t st,
                          long long col_stride, int rows_per_slice,
                          float* part_v, int* part_i) {
   cudaError_t err = cudaFuncSetAttribute(
-      knn_tile_kernel<BQ>,
+      knn_tile_kernel<BQ, STAGES>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  knn_tile_kernel<BQ><<<grid, NT, smem, st>>>(
+  knn_tile_kernel<BQ, STAGES><<<grid, NT, smem, st>>>(
       q, c, qn, qgid, Q, M, D, k, ls, euclid, col_offset, col_stride,
       rows_per_slice, part_v, part_i);
   return cudaGetLastError();
@@ -454,13 +471,12 @@ extern "C" int knn_topk_launch(const void* q, const void* c, const void* qn,
   auto* pv = (float*)part_v;
   auto* pi = (int*)part_i;
   cudaError_t err;
-  if (stages != STAGES) return (int)cudaErrorInvalidValue;
-  if (bq == 32) {
-    err = launch_tiles<32>(
+  if (bq == 32 && stages == 2) {
+    err = launch_tiles<32, 2>(
         grid, smem, st, qf, cf, qnf, gid, Q, M, D, k, ls, euclid,
         col_offset, col_stride, rows_per_slice, pv, pi);
-  } else if (bq == 16) {
-    err = launch_tiles<16>(
+  } else if (bq == 16 && stages == 2) {
+    err = launch_tiles<16, 2>(
         grid, smem, st, qf, cf, qnf, gid, Q, M, D, k, ls, euclid,
         col_offset, col_stride, rows_per_slice, pv, pi);
   } else {

@@ -34,9 +34,9 @@ MAX_K = 1024   # largest list the kernel keeps per query
 SMEM_MAX = 232448   # shared memory one block may use on an H100
 _ROWS = 128    # slices are whole multiples of one warp's 128 rows
 # csrc/knn_topk.cu: rows per score tile, ring row pitch (floats); and its
-# (queries per block, ring stages)
-# in order of preference.  Two stages: on the H100 a third displaced the
-# L1 room that two chunks of a misaligned row share, and ran slower.
+# (queries per block, ring stages) in order of preference.  Two stages: on
+# the H100 a third displaced the L1 room that two chunks of a misaligned
+# row share, and ran slower.
 KNN_ROW_TILE, _KNN_PITCH = 256, 36
 KNN_SHAPES = ((32, 2), (16, 2))
 
@@ -47,10 +47,13 @@ def _pow2_at_least(n: int) -> int:
 
 def knn_smem_bytes(bq: int, stages: int, ls: int) -> int:
     """Dynamic shared memory of one ``csrc/knn_topk.cu`` block: a ring of
-    ``stages`` chunks of (256 rows + ``bq`` queries) x 36 floats (the
-    merge's scratch lies on it), and the ``bq`` lists of ``ls`` (value,
-    row) entries.  The C entry refuses a launch whose bytes differ."""
-    return 4 * stages * (KNN_ROW_TILE + bq) * _KNN_PITCH + 8 * bq * ls
+    ``stages`` chunks of (256 rows + ``bq`` queries) x 36 floats, the
+    first of each two score tiles the lists take at once ([``bq``, 256]
+    floats; the second and the merge's scratch lie on the ring), and the
+    ``bq`` lists of ``ls`` (value, row) entries.  The C entry refuses a
+    launch whose bytes differ."""
+    return (4 * stages * (KNN_ROW_TILE + bq) * _KNN_PITCH
+            + 4 * bq * KNN_ROW_TILE + 8 * bq * ls)
 
 
 class KnnPlan(NamedTuple):
@@ -67,7 +70,8 @@ def plan_knn(n_queries: int, m: int, k: int, n_sms: int) -> KnnPlan:
     """Plan the stage-A grid from the shapes alone.
 
     32 queries a block where their lists of k entries fit a block's
-    shared memory with the 2-stage ring (k <= 584), else 16; then
+    shared memory beside the 2-stage ring and a score tile (k <= 456),
+    else 16; then
     slices of whole 128-row units, at most one block per SM (the lists
     and the ring fill most of its shared memory), so the grid runs in
     one wave.

@@ -3,7 +3,7 @@
 ``knn_topk.plan_knn`` decides from the shapes alone how the CUDA kernel
 of ``knn_topk`` (``csrc/knn_topk.cu``) cuts the work: queries per block
 (32 where their lists of k entries fit a block's shared memory beside
-the ring, else 16), ring stages, and corpus slices of whole 128-row
+the ring and a score tile, else 16), ring stages, and corpus slices of whole 128-row
 units at about one block per SM.  The kernel runs only on the card
 (``chip_smoke.py`` holds it against the plain version, exactly, at
 every plan); here the planner's contract is held on its own, and the
@@ -27,7 +27,7 @@ from repro_torch.kernels import knn_topk, ops
 
 N_SMS = 132                      # an H100's SMs
 TAFENG = (256, 13949)            # (Q, M) of a request
-PLAN_EDGE = 584                  # largest k with 32 queries a block
+PLAN_EDGE = 456                  # largest k with 32 queries a block
 KS = (1, PLAN_EDGE - 1, PLAN_EDGE, PLAN_EDGE + 1, knn_topk.MAX_K)
 INTERPRET_K = PLAN_EDGE + 1      # the Pallas grid stays short up to here
 
@@ -55,8 +55,9 @@ def test_queries_per_block_against_k(k):
 def test_shared_memory_fits_every_k():
     """The formula the C entry checks: every k in 1..1024 fits one block,
     32 queries stop exactly where their lists no longer fit, and the ring
-    holds the [bq, 256] score tile, the tile's |c|^2 and the merge's
-    scratch of 256 (value, row) pairs per warp."""
+    holds a fold's second [bq, 256] score tile, the tile's |c|^2 and the
+    merge's scratch of 512 (value, row) pairs per warp; the fold's first
+    tile has its own [bq, 256] floats."""
     for k in range(1, knn_topk.MAX_K + 1):
         plan = knn_topk.plan_knn(*TAFENG, k, N_SMS)
         assert knn_topk.knn_smem_bytes(plan.bq, plan.stages, k) \
@@ -66,8 +67,8 @@ def test_shared_memory_fits_every_k():
     tile = knn_topk.KNN_ROW_TILE
     for bq, stages in knn_topk.KNN_SHAPES:
         ring = stages * (tile + bq) * 36 * 4
-        assert ring >= (bq * tile + tile + 2 * 8 * tile) * 4
-        assert knn_topk.knn_smem_bytes(bq, stages, 0) == ring
+        assert ring >= (bq * tile + tile + 2 * 8 * 2 * tile) * 4
+        assert knn_topk.knn_smem_bytes(bq, stages, 0) == ring + bq * tile * 4
 
 
 @pytest.mark.parametrize("q_n,m", [TAFENG, (1, 1500), (31, 1500),

@@ -18,11 +18,13 @@ difference of the two is the merge.
   further into the chunk copies alone (``feed``: the multiply compiled
   out) and the multiply alone (``fma``: the copies compiled out), and
   whole and products are timed again with one query repeated 256 times
-  (``same``: every block merges alike).  The
+  (``same``: every block merges alike) and at each other ring depth
+  ``knn_topk.KNN_SHAPES`` holds for the plan's queries per block
+  (``stages<n>``).  The
   whole call is also profiled (``torch.profiler``): the device time of
   the kernel's own two kernels, and of every kernel the call launched.
 
-    python3 tools/dtiled_phase_split.py [--kernel NAME] [--root DIR]
+    python3 tools/dtiled_phase_split.py [--kernel NAME] [--root DIR] [--k K]
 
 ``--root`` names another checkout of the repository (for example a
 ``git archive`` of an earlier commit, unpacked under ``build/``): its
@@ -142,12 +144,16 @@ def knn_raw(build, knn_topk, q, c, uid, plan, ls):
 
 
 def main() -> int:
+    global K
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernel", choices=sorted(ENTRIES),
                     default="knn_topk_dtiled")
     ap.add_argument("--root", type=Path,
                     default=Path(__file__).resolve().parents[1])
+    ap.add_argument("--k", type=int, default=K,
+                    help="neighbours per query (TaFeng's 300 by default)")
     args = ap.parse_args()
+    K = args.k
     root, kernel = args.root.resolve(), args.kernel
     if not torch.cuda.is_available():
         raise SystemExit("dtiled_phase_split: no CUDA device")
@@ -202,7 +208,7 @@ def main() -> int:
         runs["fp32_whole"] = ("whole", lambda: knn_topk.launch(
             qf, corpus, K, query_gids=uid))
         runs["fp32_products"] = ("products", runs["fp32_whole"][1])
-    res = {"root": str(root), "kernel": kernel}
+    res = {"root": str(root), "kernel": kernel, "k": K}
     if split:
         n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
         plan = knn_topk.plan_knn(Q, M, K, n_sms)
@@ -218,6 +224,17 @@ def main() -> int:
             qs, corpus, K, query_gids=same))
         runs["fp32_same_products"] = ("products",
                                       runs["fp32_same_whole"][1])
+        # every other ring depth the planner may give this many queries
+        for bq, stages in getattr(knn_topk, "KNN_SHAPES", ()):
+            if bq != plan.bq or stages == plan.stages or \
+                    knn_topk.knn_smem_bytes(bq, stages, K) > \
+                    knn_topk.SMEM_MAX:
+                continue
+            fn = (lambda pl: lambda: knn_raw(build, knn_topk, qf, corpus,
+                                             uid, pl, K))(
+                plan._replace(stages=stages))
+            runs[f"fp32_stages{stages}_whole"] = ("whole", fn)
+            runs[f"fp32_stages{stages}_products"] = ("products", fn)
     if split and ranked:
         n2 = max(64, 1 << (K - 1).bit_length())
 
