@@ -329,96 +329,97 @@ __global__ void __launch_bounds__(NT, 1) knn_tile_kernel(
     li[t] = PAD_IDX;
   }
 
-  for (int mt = m_begin; mt < m_end; mt += BM) {
-    const int t = (mt - m_begin) / BM % 2;   // tile t of its fold
-    float* sv = t == 0 ? sv0 : sv1;
-    // a warp whose rows all lie past the slice skips the products
-    const bool warp_live = mt + h * HALF < m_end;
-    float acc[TQ][TM];
-    float nacc = 0.0f;   // |c|^2 of row[0]
+  for (int m0 = m_begin; m0 < m_end; m0 += MB) {
+    // the fold's tiles: the first's scores in sv0, the second's in sv1
+    for (int t = 0; t < MB / BM && m0 + t * BM < m_end; ++t) {
+      const int mt = m0 + t * BM;        // the tile's first row
+      float* sv = t == 0 ? sv0 : sv1;
+      // a warp whose rows all lie past the slice skips the products
+      const bool warp_live = mt + h * HALF < m_end;
+      float acc[TQ][TM];
+      float nacc = 0.0f;   // |c|^2 of row[0]
 #pragma unroll
-    for (int i = 0; i < TQ; ++i)
+      for (int i = 0; i < TQ; ++i)
 #pragma unroll
-      for (int j = 0; j < TM; ++j) acc[i][j] = 0.0f;
+        for (int j = 0; j < TM; ++j) acc[i][j] = 0.0f;
 
-    // copy chunk ch into its stage: warp w takes ring rows w, w + 8, ..
-    // (corpus rows mt + r, then queries q0 + r - BM), lane l value l of
-    // the chunk; values past D are zero-filled from a valid address
-    auto issue = [&](int ch) {
-      float* st = ring + (ch % STAGES) * STAGE;
-      const int d = ch * BD + lane;
-      const int nb = d < D ? 4 : 0;
-      const size_t dc = (size_t)min(d, D - 1);
+      // copy chunk ch into its stage: warp w takes ring rows w, w + 8, ..
+      // (corpus rows mt + r, then queries q0 + r - BM), lane l value l of
+      // the chunk; values past D are zero-filled from a valid address
+      auto issue = [&](int ch) {
+        float* st = ring + (ch % STAGES) * STAGE;
+        const int d = ch * BD + lane;
+        const int nb = d < D ? 4 : 0;
+        const size_t dc = (size_t)min(d, D - 1);
 #pragma unroll
-      for (int i = 0; i < BM / NWARP; ++i) {
-        const int r = warp + i * NWARP;
-        if (mt + r < m_end) {
-          cp_async4(st + r * PITCH + lane, c + (size_t)(mt + r) * D + dc,
-                    nb);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < BQ / NWARP; ++i) {
-        const int r = warp + i * NWARP;
-        if (q0 + r < Q) {
-          cp_async4(st + (BM + r) * PITCH + lane,
-                    q + (size_t)(q0 + r) * D + dc, nb);
-        }
-      }
-    };
-
-    __syncthreads();   // the previous tile's scores and merge are done
-                       // with the ring
-#pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-      if (s < n_chunks) issue(s);
-      cp_async_commit();
-    }
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      cp_async_wait<STAGES - 2>();   // chunk ch has landed
-      __syncthreads();               // ... for every thread, and chunk
-                                     // ch - 1's stage is free
-      if (ch + STAGES - 1 < n_chunks) issue(ch + STAGES - 1);
-      cp_async_commit();
-      if (warp_live) {
-        const float* st = ring + (ch % STAGES) * STAGE;
-        mul_chunk<TQ>(st, st + (BM + tq * TQ) * PITCH, row, acc, nacc);
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();   // every warp is done with the ring (sv lies on it)
-
-    cn[row[0]] = nacc;
-    __syncthreads();
-    // scores, masked
-#pragma unroll
-    for (int i = 0; i < TQ; ++i) {
-      const int qi = tq * TQ + i;
-      const bool q_ok = q0 + qi < Q;
-      const long long my_gid = q_ok ? (long long)qgid[q0 + qi] : -1LL;
-      const float my_qn = (qn != nullptr && q_ok) ? qn[q0 + qi] : 0.0f;
-#pragma unroll
-      for (int j = 0; j < TM; ++j) {
-        const int m = mt + row[j];
-        float s = -INFINITY;
-        if (m < m_end && (long long)m * col_stride + col_offset != my_gid) {
-          s = acc[i][j];
-          if (euclid) {
-            s = 2.0f * s - cn[row[j]];    // 2*acc is exact: one rounding
-            if (qn != nullptr) s = __fsub_rn(s, my_qn);
+        for (int i = 0; i < BM / NWARP; ++i) {
+          const int r = warp + i * NWARP;
+          if (mt + r < m_end) {
+            cp_async4(st + r * PITCH + lane, c + (size_t)(mt + r) * D + dc,
+                      nb);
           }
         }
-        sv[qi * BM + row[j]] = s;
+#pragma unroll
+        for (int i = 0; i < BQ / NWARP; ++i) {
+          const int r = warp + i * NWARP;
+          if (q0 + r < Q) {
+            cp_async4(st + (BM + r) * PITCH + lane,
+                      q + (size_t)(q0 + r) * D + dc, nb);
+          }
+        }
+      };
+
+      __syncthreads();   // the previous tile's scores and merge are done
+                         // with the ring
+#pragma unroll
+      for (int s = 0; s < STAGES - 1; ++s) {
+        if (s < n_chunks) issue(s);
+        cp_async_commit();
+      }
+      for (int ch = 0; ch < n_chunks; ++ch) {
+        cp_async_wait<STAGES - 2>();   // chunk ch has landed
+        __syncthreads();               // ... for every thread, and chunk
+                                       // ch - 1's stage is free
+        if (ch + STAGES - 1 < n_chunks) issue(ch + STAGES - 1);
+        cp_async_commit();
+        if (warp_live) {
+          const float* st = ring + (ch % STAGES) * STAGE;
+          mul_chunk<TQ>(st, st + (BM + tq * TQ) * PITCH, row, acc, nacc);
+        }
+      }
+      cp_async_wait<0>();
+      __syncthreads();   // every warp is done with the ring (sv lies on it)
+
+      cn[row[0]] = nacc;
+      __syncthreads();
+      // scores, masked
+#pragma unroll
+      for (int i = 0; i < TQ; ++i) {
+        const int qi = tq * TQ + i;
+        const bool q_ok = q0 + qi < Q;
+        const long long my_gid = q_ok ? (long long)qgid[q0 + qi] : -1LL;
+        const float my_qn = (qn != nullptr && q_ok) ? qn[q0 + qi] : 0.0f;
+#pragma unroll
+        for (int j = 0; j < TM; ++j) {
+          const int m = mt + row[j];
+          float s = -INFINITY;
+          if (m < m_end && (long long)m * col_stride + col_offset != my_gid) {
+            s = acc[i][j];
+            if (euclid) {
+              s = 2.0f * s - cn[row[j]];    // 2*acc is exact: one rounding
+              if (qn != nullptr) s = __fsub_rn(s, my_qn);
+            }
+          }
+          sv[qi * BM + row[j]] = s;
+        }
       }
     }
     __syncthreads();
 
-    // a fold's second tile, or the slice's last (rows past m_end are no
-    // candidates: a missing second tile's stale scores are masked)
-    if (t == 1 || mt + BM >= m_end) {
-      merge_score_tile_sorted<BQ>(sv0, sv1, lv, li, mv, mi, q0, Q,
-                                  mt - t * BM, m_end, k, ls);
-    }
+    // rows past m_end are no candidates: a missing second tile's stale
+    // scores are masked
+    merge_score_tile_sorted<BQ>(sv0, sv1, lv, li, mv, mi, q0, Q, m0, m_end,
+                                k, ls);
   }
   __syncthreads();
   write_slice_lists<BQ>(lv, li, q0, Q, k, ls, slice, gridDim.y, part_v,
