@@ -330,7 +330,7 @@ def check_stage_a_edges(gen, dev):
     q = c[uid.long()]
     shard = dict(query_gids=uid * 3 + 2, col_offset=2, col_stride=3,
                  sub_qnorm=True)
-    for k in (1, 300, 585, 1024):
+    for k in (1, 300, 457, 1024):
         for kw in (dict(query_gids=uid), dict(metric="dot"), shard):
             exact(q, c, k, **kw)
     plans = [knn_topk.plan_knn(q_n, m, k, n_sms) for k in (300, 1024)]
@@ -341,7 +341,7 @@ def check_stage_a_edges(gen, dev):
     assert [pl.rows % (2 * tile) > tile for pl in plans] == [False, True]
     log(f"  stage A M={m} D={d} Q={q_n} ({plans[0].n_slices} slices of "
         f"{plans[0].rows} rows at k=300, {plans[1].n_slices} of "
-        f"{plans[1].rows} at k=1024), k in (1, 300, 585, 1024), "
+        f"{plans[1].rows} at k=1024), k in (1, 300, 457, 1024), "
         f"euclidean, dot and shard mode: exact")
     log(f"  (queries per block, stages) reached: {sorted(shapes)}")
     assert shapes == set(knn_topk.KNN_SHAPES), shapes

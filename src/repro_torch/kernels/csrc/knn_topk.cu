@@ -78,13 +78,13 @@ static_assert((PITCH / 4) % 2 == 1, "an odd pitch in 16-byte units");
 
 // The dynamic shared memory of one block: the ring of ``stages`` chunks
 // of (BM rows + bq queries) x PITCH floats, the scores of a fold's first
-// tile [bq][BM], then bq lists of ls (value, row) entries.  The second
+// tile [bq][BM], then bq lists of k (value, row) entries.  The second
 // tile's scores and the merge's scratch lie on the ring.  The same
 // formula as knn_topk.py::knn_smem_bytes, which passes its result in.
-size_t knn_smem_bytes(int bq, int stages, int ls) {
+size_t knn_smem_bytes(int bq, int stages, int k) {
   return sizeof(float) * stages * (size_t)(BM + bq) * PITCH +
          sizeof(float) * (size_t)bq * BM +
-         (sizeof(float) + sizeof(int)) * (size_t)bq * ls;
+         (sizeof(float) + sizeof(int)) * (size_t)bq * k;
 }
 
 __device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
@@ -174,7 +174,7 @@ __device__ __forceinline__ void warp_sort_desc(float (&v)[E], int (&ix)[E],
 }
 
 // Fold two masked score tiles sv0, sv1 [BQ][BM] (rows m0.. and m0 + BM..
-// of the block's slice) into the per-query lists lv/li[BQ][ls] (the best
+// of the block's slice) into the per-query lists lv/li[BQ][k] (the best
 // k in their first k entries), one warp per query and both tiles at
 // once: the rows that beat the current k-th entry are sorted in
 // registers and kept in the warp's scratch cv/ci[NWARP][MB]; each real
@@ -189,7 +189,7 @@ template <int BQ>
 __device__ void merge_score_tile_sorted(const float* sv0, const float* sv1,
                                         float* lv, int* li, float* cv,
                                         int* ci, int q0, int Q, int m0,
-                                        int m_end, int k, int ls) {
+                                        int m_end, int k) {
   constexpr int E = MB / 32;
   static_assert(E % 4 == 0 && BM % E == 0, "whole float4 in one tile");
   const int warp = threadIdx.x / 32;
@@ -201,8 +201,8 @@ __device__ void merge_score_tile_sorted(const float* sv0, const float* sv1,
   for (int h = 0; h < BQ / NWARP; ++h) {
     const int r = warp * (BQ / NWARP) + h;
     if (q0 + r >= Q) continue;                 // warp-uniform
-    float* lvr = lv + r * ls;
-    int* lir = li + r * ls;
+    float* lvr = lv + r * k;
+    int* lir = li + r * k;
     const float thr_v = lvr[k - 1];
     const int thr_i = lir[k - 1];
     float v[E];
@@ -291,7 +291,7 @@ template <int BQ, int STAGES>
 __global__ void __launch_bounds__(NT, 1) knn_tile_kernel(
     const float* __restrict__ q, const float* __restrict__ c,
     const float* __restrict__ qn, const int* __restrict__ qgid, int Q,
-    int M, int D, int k, int ls, int euclid, long long col_offset,
+    int M, int D, int k, int euclid, long long col_offset,
     long long col_stride, int rows_per_slice, float* __restrict__ part_v,
     int* __restrict__ part_i) {
   constexpr int TQ = BQ / QGROUPS;                  // queries per thread
@@ -303,8 +303,8 @@ __global__ void __launch_bounds__(NT, 1) knn_tile_kernel(
   extern __shared__ float4 knn_smem[];
   float* ring = reinterpret_cast<float*>(knn_smem);  // [STAGES][BM+BQ][..]
   float* sv0 = ring + STAGES * STAGE;    // [BQ][BM] a fold's first tile
-  float* lv = sv0 + BQ * BM;                        // [BQ][ls] list vals
-  int* li = reinterpret_cast<int*>(lv + BQ * ls);   // [BQ][ls] list rows
+  float* lv = sv0 + BQ * BM;                        // [BQ][k] list vals
+  int* li = reinterpret_cast<int*>(lv + BQ * k);    // [BQ][k] list rows
   float* sv1 = ring;                     // [BQ][BM] its second, on the ring
   float* cn = ring + BQ * BM;            // [BM] |c|^2, over the ring
   float* mv = cn + BM;                   // [NWARP][MB] merge scratch,
@@ -324,7 +324,7 @@ __global__ void __launch_bounds__(NT, 1) knn_tile_kernel(
 #pragma unroll
   for (int j = 0; j < TM; ++j) row[j] = tile_row(h, lane, tq, j);
 
-  for (int t = tid; t < BQ * ls; t += NT) {
+  for (int t = tid; t < BQ * k; t += NT) {
     lv[t] = -INFINITY;
     li[t] = PAD_IDX;
   }
@@ -419,17 +419,17 @@ __global__ void __launch_bounds__(NT, 1) knn_tile_kernel(
     // rows past m_end are no candidates: a missing second tile's stale
     // scores are masked
     merge_score_tile_sorted<BQ>(sv0, sv1, lv, li, mv, mi, q0, Q, m0, m_end,
-                                k, ls);
+                                k);
   }
   __syncthreads();
-  write_slice_lists<BQ>(lv, li, q0, Q, k, ls, slice, gridDim.y, part_v,
+  write_slice_lists<BQ>(lv, li, q0, Q, k, k, slice, gridDim.y, part_v,
                         part_i);
 }
 
 template <int BQ, int STAGES>
 cudaError_t launch_tiles(dim3 grid, size_t smem, cudaStream_t st,
                          const float* q, const float* c, const float* qn,
-                         const int* qgid, int Q, int M, int D, int k, int ls,
+                         const int* qgid, int Q, int M, int D, int k,
                          int euclid, long long col_offset,
                          long long col_stride, int rows_per_slice,
                          float* part_v, int* part_i) {
@@ -438,7 +438,7 @@ cudaError_t launch_tiles(dim3 grid, size_t smem, cudaStream_t st,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   knn_tile_kernel<BQ, STAGES><<<grid, NT, smem, st>>>(
-      q, c, qn, qgid, Q, M, D, k, ls, euclid, col_offset, col_stride,
+      q, c, qn, qgid, Q, M, D, k, euclid, col_offset, col_stride,
       rows_per_slice, part_v, part_i);
   return cudaGetLastError();
 }
@@ -448,19 +448,18 @@ cudaError_t launch_tiles(dim3 grid, size_t smem, cudaStream_t st,
 // q f32[Q, D], c f32[M, D], both contiguous; qn (f32[Q] or null) is
 // |q|^2, subtracted from each euclidean score (sub_qnorm: the full
 // -|q-c|^2 that the cross-shard merge compares).  The plan (bq, stages)
-// is (32, 2) or (16, 2); ls >= k is the lists' row stride (the wrapper
-// passes k); smem must equal knn_smem_bytes(bq, stages, ls) and fit a
-// block.  rows_per_slice * n_slices >= M.
+// is (32, 2) or (16, 2); smem must equal knn_smem_bytes(bq, stages, k)
+// and fit a block.  rows_per_slice * n_slices >= M.
 // part_*: scratch [Q, n_slices, k]; out_*: [Q, k].
 extern "C" int knn_topk_launch(const void* q, const void* c, const void* qn,
                                const void* qgid, int Q, int M, int D, int k,
-                               int ls, int euclid, long long col_offset,
+                               int euclid, long long col_offset,
                                long long col_stride, int bq, int stages,
                                int smem, int rows_per_slice, int n_slices,
                                void* part_v, void* part_i, void* out_v,
                                void* out_i, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (ls < k || smem < 0 || (size_t)smem != knn_smem_bytes(bq, stages, ls) ||
+  if (smem < 0 || (size_t)smem != knn_smem_bytes(bq, stages, k) ||
       (size_t)smem > SMEM_MAX) {
     return (int)cudaErrorInvalidValue;
   }
@@ -474,11 +473,11 @@ extern "C" int knn_topk_launch(const void* q, const void* c, const void* qn,
   cudaError_t err;
   if (bq == 32 && stages == 2) {
     err = launch_tiles<32, 2>(
-        grid, smem, st, qf, cf, qnf, gid, Q, M, D, k, ls, euclid,
+        grid, smem, st, qf, cf, qnf, gid, Q, M, D, k, euclid,
         col_offset, col_stride, rows_per_slice, pv, pi);
   } else if (bq == 16 && stages == 2) {
     err = launch_tiles<16, 2>(
-        grid, smem, st, qf, cf, qnf, gid, Q, M, D, k, ls, euclid,
+        grid, smem, st, qf, cf, qnf, gid, Q, M, D, k, euclid,
         col_offset, col_stride, rows_per_slice, pv, pi);
   } else {
     return (int)cudaErrorInvalidValue;

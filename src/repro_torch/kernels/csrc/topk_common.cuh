@@ -13,7 +13,7 @@
 // corpus-slice plan below: a block keeps one top-k list per query in
 // shared memory, folds each masked score tile into it by rank
 // (merge_score_tile_ranked in knn_topk_dtiled.cu, 64 candidates at a
-// time; knn_topk.cu folds a whole tile at once on the same ranks),
+// time; knn_topk.cu folds two 256-row tiles at once on the same ranks),
 // writes its slice's lists (write_slice_lists), and merge_lists_kernel
 // merges the slices.
 #pragma once

@@ -45,15 +45,15 @@ def _pow2_at_least(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
-def knn_smem_bytes(bq: int, stages: int, ls: int) -> int:
+def knn_smem_bytes(bq: int, stages: int, k: int) -> int:
     """Dynamic shared memory of one ``csrc/knn_topk.cu`` block: a ring of
     ``stages`` chunks of (256 rows + ``bq`` queries) x 36 floats, the
     first of each two score tiles the lists take at once ([``bq``, 256]
     floats; the second and the merge's scratch lie on the ring), and the
-    ``bq`` lists of ``ls`` (value, row) entries.  The C entry refuses a
+    ``bq`` lists of ``k`` (value, row) entries.  The C entry refuses a
     launch whose bytes differ."""
     return (4 * stages * (KNN_ROW_TILE + bq) * _KNN_PITCH
-            + 4 * bq * KNN_ROW_TILE + 8 * bq * ls)
+            + 4 * bq * KNN_ROW_TILE + 8 * bq * k)
 
 
 class KnnPlan(NamedTuple):
@@ -71,10 +71,9 @@ def plan_knn(n_queries: int, m: int, k: int, n_sms: int) -> KnnPlan:
 
     32 queries a block where their lists of k entries fit a block's
     shared memory beside the 2-stage ring and a score tile (k <= 456),
-    else 16; then
-    slices of whole 128-row units, at most one block per SM (the lists
-    and the ring fill most of its shared memory), so the grid runs in
-    one wave.
+    else 16; then slices of whole 128-row units, at most one block per
+    SM (the lists and the ring fill most of its shared memory), so the
+    grid runs in one wave.
     """
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k} outside [1, {MAX_K}]")
@@ -262,7 +261,7 @@ def launch(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     build.check(build.library().knn_topk_launch(
         queries.data_ptr(), corpus.data_ptr(),
         None if qn is None else qn.data_ptr(), gids.data_ptr(), q_n, m, d,
-        k, k, int(euclid), col_offset, col_stride, plan.bq, plan.stages,
+        k, int(euclid), col_offset, col_stride, plan.bq, plan.stages,
         knn_smem_bytes(plan.bq, plan.stages, k), plan.rows, plan.n_slices,
         part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(),
         out_i.data_ptr(), build.stream_of(corpus)),

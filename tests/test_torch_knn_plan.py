@@ -3,8 +3,8 @@
 ``knn_topk.plan_knn`` decides from the shapes alone how the CUDA kernel
 of ``knn_topk`` (``csrc/knn_topk.cu``) cuts the work: queries per block
 (32 where their lists of k entries fit a block's shared memory beside
-the ring and a score tile, else 16), ring stages, and corpus slices of whole 128-row
-units at about one block per SM.  The kernel runs only on the card
+the ring and a score tile, else 16), ring stages, and corpus slices of
+whole 128-row units at about one block per SM.  The kernel runs only on the card
 (``chip_smoke.py`` holds it against the plain version, exactly, at
 every plan); here the planner's contract is held on its own, and the
 port's plain stage A -- ``ops.shard_topk`` and ``ops.fused_recommend``

@@ -10,21 +10,17 @@ difference of the two is the merge.
 
 * ``--kernel knn_topk_dtiled`` (the default): ``knn_topk_dtiled.cu``,
   bd=512, int8 on the store's 16-byte row pitch and fp32;
-* ``--kernel knn_topk``: ``knn_topk.cu``, fp32 over the whole of D, on
-  the plan ``knn_topk.plan_knn`` gives.  Where the source merges with
-  the ranked merge (k-entry lists), it is built a third time with the
-  bitonic fold (``merge_score_tile``) on lists of the next power of two,
-  whose lists must equal the ranked merge's; the products are split
-  further into the chunk copies alone (``feed``: the multiply compiled
-  out) and the multiply alone (``fma``: the copies compiled out), and
-  whole and products are timed again with one query repeated 256 times
-  (``same``: every block merges alike) and at each other ring depth
-  ``knn_topk.KNN_SHAPES`` holds for the plan's queries per block
-  (``stages<n>``).  The
-  whole call is also profiled (``torch.profiler``): the device time of
-  the kernel's own two kernels, and of every kernel the call launched.
+* ``--kernel knn_topk``: ``knn_topk.cu``, fp32 over the whole of D.
+  Where the source plans its grid with ``knn_topk.plan_knn``, the
+  products are split further into the chunk copies alone (``feed``: the
+  multiply compiled out) and the multiply alone (``fma``: the copies
+  compiled out), and whole and products are timed again with one query
+  repeated 256 times (``same``: every block merges alike).  The whole
+  call is also profiled (``torch.profiler``): the device time of the
+  kernel's own two kernels, and of every kernel the call launched.
 
-    python3 tools/dtiled_phase_split.py [--kernel NAME] [--root DIR] [--k K]
+    python3 tools/dtiled_phase_split.py [--kernel NAME] [--root DIR]
+        [--k K]
 
 ``--root`` names another checkout of the repository (for example a
 ``git archive`` of an earlier commit, unpacked under ``build/``): its
@@ -46,7 +42,6 @@ import numpy as np
 import torch
 
 MERGE_CALL = re.compile(r"^(\s*)(merge_score_tile\w*<)", re.M)
-RANKED = "merge_score_tile_ranked<"
 # knn_topk.cu's products, split: the chunk copies alone (the multiply
 # compiled out) and the multiply alone (on whatever the ring holds)
 PRODUCTS = re.compile(r"mul_chunk<[^;]*;")
@@ -124,25 +119,6 @@ def build_variants(build, csrc: Path, out: Path, kernel: str,
     return libs
 
 
-def knn_raw(build, knn_topk, q, c, uid, plan, ls):
-    """One ``knn_topk_launch`` on an explicit plan and list stride ``ls``
-    (euclidean, the single-corpus gid mapping)."""
-    q_n, d = q.shape
-    m = c.shape[0]
-    out_v = torch.empty((q_n, K), dtype=torch.float32, device=c.device)
-    out_i = torch.empty((q_n, K), dtype=torch.int32, device=c.device)
-    part_v = torch.empty((q_n, plan.n_slices, K), dtype=torch.float32,
-                         device=c.device)
-    part_i = torch.empty_like(part_v, dtype=torch.int32)
-    build.check(build.library().knn_topk_launch(
-        q.data_ptr(), c.data_ptr(), None, uid.data_ptr(), q_n, m, d, K, ls,
-        1, 0, 1, plan.bq, plan.stages,
-        knn_topk.knn_smem_bytes(plan.bq, plan.stages, ls), plan.rows,
-        plan.n_slices, part_v.data_ptr(), part_i.data_ptr(),
-        out_v.data_ptr(), out_i.data_ptr(), build.stream_of(c)), "knn_raw")
-    return out_v, out_i
-
-
 def main() -> int:
     global K
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -166,10 +142,7 @@ def main() -> int:
     variants = {"whole": src,
                 "products": MERGE_CALL.sub(r"\1if (0) \2", src)}
     assert variants["products"] != src, "no merge call found"
-    ranked = kernel == "knn_topk" and RANKED in src
     split = kernel == "knn_topk" and hasattr(knn_topk, "plan_knn")
-    if ranked:
-        variants["bitonic"] = src.replace(RANKED, "merge_score_tile<")
     if split and PRODUCTS.search(src) and COPIES in src:
         prod = variants["products"]
         variants["feed"] = PRODUCTS.sub(";", prod)
@@ -224,31 +197,6 @@ def main() -> int:
             qs, corpus, K, query_gids=same))
         runs["fp32_same_products"] = ("products",
                                       runs["fp32_same_whole"][1])
-        # every other ring depth the planner may give this many queries
-        for bq, stages in getattr(knn_topk, "KNN_SHAPES", ()):
-            if bq != plan.bq or stages == plan.stages or \
-                    knn_topk.knn_smem_bytes(bq, stages, K) > \
-                    knn_topk.SMEM_MAX:
-                continue
-            fn = (lambda pl: lambda: knn_raw(build, knn_topk, qf, corpus,
-                                             uid, pl, K))(
-                plan._replace(stages=stages))
-            runs[f"fp32_stages{stages}_whole"] = ("whole", fn)
-            runs[f"fp32_stages{stages}_products"] = ("products", fn)
-    if split and ranked:
-        n2 = max(64, 1 << (K - 1).bit_length())
-
-        def raw(ls):
-            return lambda: knn_raw(build, knn_topk, qf, corpus, uid, plan, ls)
-        runs["fp32_bitonic_whole"] = ("bitonic", raw(n2))
-        runs["fp32_bitonic_products"] = ("products", raw(n2))
-        build._lib = libs["whole"]
-        got = raw(K)()
-        build._lib = libs["bitonic"]
-        exp = raw(n2)()
-        torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(got, exp)), \
-            "the ranked and bitonic merges disagree"
     for rnd in range(2):   # each variant twice, in turns
         for name, (lib, fn) in (runs.items() if rnd == 0
                                 else reversed(list(runs.items()))):
