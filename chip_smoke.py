@@ -132,7 +132,7 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/decayed_scatter.cu",
         replaces="src/repro/kernels/decayed_scatter.py:54"),
     "flash_attention": dict(
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         replaces="src/repro/kernels/flash_attention.py:73"),
 }
 
@@ -1162,20 +1162,36 @@ def rebuild_path(kern, p, dev, records):
     return launches
 
 
+BF16, F32 = torch.bfloat16, torch.float32
+# flash_attention.plan_flash's designs
+WGMMA, MMA, CORES = "tma_wgmma", "mma_sync", "cuda_cores"
 FLASH_EDGES = (
-    # B, S, H, KV, D, window, dtype, causal
-    (2, 200, 4, 4, 64, 0, torch.float32, True),    # S % 64 != 0, KV == H
-    (1, 333, 8, 2, 128, 0, torch.bfloat16, True),  # KV < H, D = 128
-    (2, 256, 4, 1, 64, 48, torch.bfloat16, True),  # window
-    (1, 130, 2, 2, 32, 17, torch.float32, True),   # D = 32, window
-    (2, 190, 8, 2, 32, 0, torch.bfloat16, True),   # D = 32 in bf16
-    (1, 96, 4, 2, 256, 0, torch.bfloat16, True),   # D = 256
-    (1, 72, 4, 4, 96, 0, torch.bfloat16, True),    # D = 96 (CUDA cores)
-    (2, 1, 2, 1, 64, 0, torch.float32, True),      # one token
-    (2, 1, 2, 1, 64, 0, torch.bfloat16, True),
-    (1, 100, 2, 2, 64, 0, torch.float32, False),   # no causal mask
-    (1, 64, 4, 4, 128, 30, torch.bfloat16, False),  # window, no causal
-    (1, 160, 8, 8, 128, 0, torch.float32, True),   # D = 128 in f32
+    # B, S, H, KV, D, window, dtype, causal, the design plan_flash picks
+    (2, 200, 4, 4, 64, 0, F32, True, CORES),     # S % 64 != 0, KV == H
+    (1, 333, 8, 2, 128, 0, BF16, True, WGMMA),   # KV < H, D = 128
+    (2, 256, 4, 1, 64, 48, BF16, True, WGMMA),   # window
+    (1, 130, 2, 2, 32, 17, F32, True, CORES),    # D = 32, window
+    (2, 190, 8, 2, 32, 0, BF16, True, MMA),      # D = 32 in bf16
+    (1, 96, 4, 2, 256, 0, BF16, True, CORES),    # D = 256
+    (1, 72, 4, 4, 96, 0, BF16, True, CORES),     # D = 96
+    (2, 1, 2, 1, 64, 0, F32, True, CORES),       # one token
+    (2, 1, 2, 1, 64, 0, BF16, True, WGMMA),
+    (1, 100, 2, 2, 64, 0, F32, False, CORES),    # no causal mask
+    (1, 64, 4, 4, 128, 30, BF16, False, WGMMA),  # window, no causal
+    (1, 160, 8, 8, 128, 0, F32, True, CORES),    # D = 128 in f32
+    # the Hopper design's 128-query / 128-key tiles at their edges
+    (2, 1, 4, 2, 128, 0, BF16, True, WGMMA),     # S = 1, D = 128
+    (1, 127, 4, 4, 64, 0, BF16, True, WGMMA),    # S = 127, KV == H
+    (2, 128, 8, 2, 64, 0, BF16, True, WGMMA),    # S = 128
+    (1, 129, 4, 1, 128, 0, BF16, True, WGMMA),   # S = 129, KV < H
+    (2, 257, 4, 2, 64, 100, BF16, True, WGMMA),  # window ends in a tile
+    (1, 257, 4, 4, 128, 129, BF16, True, WGMMA),  # window across an edge
+    (1, 300, 2, 2, 128, 1000, BF16, True, WGMMA),  # window wider than S
+    (1, 257, 4, 2, 64, 0, BF16, False, WGMMA),   # no causal mask
+    (1, 200, 2, 1, 128, 70, BF16, False, WGMMA),  # no causal, window
+    (1, 191, 4, 2, 64, 0, BF16, True, WGMMA),    # one 192-row item, partial
+    (2, 193, 4, 4, 64, 150, BF16, True, WGMMA),  # an item of one row
+    (1, 385, 2, 1, 64, 0, BF16, False, WGMMA),   # 192-row items, no causal
 )
 # the JAX package's own kernel-vs-oracle bounds (tests/test_kernels.py:206,
 # :219)
@@ -1187,10 +1203,12 @@ FLASH_RMS_RATIO = 2.0 ** -7
 FLASH_ROW_RATIO = 2.0 ** -6
 
 
-def flash_check(q, k, v, what, causal=True, window=0):
-    """The attention kernel against its plain version (bf16 with D in
-    {32, 64, 128} and 16-byte aligned rows runs on the tensor cores,
-    every other input on the CUDA cores); returns (kernel, plain)."""
+def flash_check(q, k, v, what, design, causal=True, window=0):
+    """The attention kernel against its plain version, on the design
+    ``flash_attention.plan_flash`` picks, which must be ``design``;
+    returns (kernel, plain)."""
+    plan = flash_attention.plan_flash(q, k, v, window, causal)
+    assert plan.design == design, (what, plan)
     exp = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     got = flash_attention.launch(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -1205,31 +1223,39 @@ def check_flash_edges(dev):
     gen.manual_seed(4)
     worst: dict = {}
 
-    def note(dt, got, exp):
-        key = str(dt)[6:]
+    def note(design, got, exp):
         err = float((got.float() - exp.float()).abs().max())
-        worst[key] = max(worst.get(key, 0.0), err)
+        worst[design] = max(worst.get(design, 0.0), err)
 
-    for b, s, h, kv, d, win, dt, causal in FLASH_EDGES:
+    for b, s, h, kv, d, win, dt, causal, design in FLASH_EDGES:
         q, k, v = (torch.randn((b, s, n, d), generator=gen, device=dev
                                ).to(dt) for n in (h, kv, kv))
-        note(dt, *flash_check(q, k, v, (b, s, h, kv, d, win, dt), causal,
-                              win))
-    for dt in (torch.float32, torch.bfloat16):
+        note(design, *flash_check(q, k, v, (b, s, h, kv, d, win, dt),
+                                  design, causal, win))
+    for dt, design in ((F32, CORES), (BF16, WGMMA)):
         # strided heads: every other head of a wider buffer
         wide = torch.randn((2, 77, 8, 64), generator=gen, device=dev).to(dt)
-        note(dt, *flash_check(wide[:, :, ::2], wide[:, :, 1::4],
-                              wide[:, :, 3::4], ("strided heads", dt)))
+        note(design, *flash_check(wide[:, :, ::2], wide[:, :, 1::4],
+                                  wide[:, :, 3::4], ("strided heads", dt),
+                                  design))
         # rows starting 2 bytes past a 16-byte boundary: bf16 D = 64 that
-        # the tensor-core design does not take
+        # the tensor-core designs do not take
         pad = torch.randn((2, 90, 4, 72), generator=gen, device=dev).to(dt)
-        note(dt, *flash_check(pad[:, :, :, 1:65], pad[:, :, :2, 3:67],
-                              pad[:, :, 2:, 5:69], ("unaligned rows", dt)))
-    log(f"  flash_attention edge cases ({len(FLASH_EDGES) + 4}: S not a "
-        "multiple of the tile, windows, KV == H and KV < H, D 32/64/96/"
-        "128/256, one token, no causal mask, strided heads, unaligned "
-        "rows): max |err| " + ", ".join(f"{k} {e}" for k, e in
-                                        worst.items()))
+        note(CORES, *flash_check(pad[:, :, :, 1:65], pad[:, :, :2, 3:67],
+                                 pad[:, :, 2:, 5:69], ("unaligned rows", dt),
+                                 CORES))
+    # strided heads at D = 128: q, k and v slices of one buffer's heads
+    wide = torch.randn((1, 130, 6, 128), generator=gen, device=dev).to(BF16)
+    note(WGMMA, *flash_check(wide[:, :, :4], wide[:, :, 4:5], wide[:, :, 5:],
+                             ("strided heads, D = 128", BF16), WGMMA, True,
+                             40))
+    assert set(worst) == {WGMMA, MMA, CORES}, worst
+    log(f"  flash_attention edge cases ({len(FLASH_EDGES) + 5}: S 1, 127, "
+        "128, 129, 191, 193, 257, 385 and off the 64-row tile, windows "
+        "inside a tile, "
+        "across an edge and wider than S, KV == H and KV < H, D 32/64/96/"
+        "128/256, no causal mask, strided heads, unaligned rows), max |err|"
+        " by design: " + ", ".join(f"{k} {e}" for k, e in worst.items()))
 
 
 def attention_flops(b, s, h, d):
@@ -1263,7 +1289,7 @@ def granite_path(dev, records):
     pos = torch.arange(LM_PROMPT, device=dev).expand(tokens.shape)
     q, k, v = transformer.project_qkv(
         transformer.rms_norm(x, layer0.ln1, c.norm_eps), layer0, c, pos)
-    got, exp = flash_check(q, k, v, "granite layer 0")
+    got, exp = flash_check(q, k, v, "granite layer 0", WGMMA)
     # the error against the output's own size: most rows average
     # thousands of keys and are far smaller than the atol
     diff, size = (got.float() - exp.float()).abs(), exp.float().abs()
@@ -1287,6 +1313,17 @@ def granite_path(dev, records):
     # q, k and v read once, an output of q's size written once
     io_bytes = sum(a.numel() * a.element_size() for a in (q, k, v, q))
     flops = attention_flops(LM_BATCH, LM_PROMPT, c.n_heads, c.d_head)
+    # the event time holds the wrapper's host time; the profiler's the
+    # kernel's alone; and the host time of a call, enqueued behind a busy
+    # card
+    own, every = device_ms(lambda: flash_attention.launch(q, k, v),
+                           ("flash_wgmma_kernel",))
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    for _ in range(10):
+        flash_attention.launch(q, k, v)
+    host_ms = (time.perf_counter() - h0) * 1e2
+    torch.cuda.synchronize()
     records["flash_attention"] = dict(
         t, max_abs_err=err,
         shape=f"B={LM_BATCH} S={LM_PROMPT} H={c.n_heads} KV={c.n_kv_heads}"
@@ -1297,7 +1334,11 @@ def granite_path(dev, records):
         f"{out_rms}, error rms / output rms {rms_ratio} (bound "
         f"{FLASH_RMS_RATIO}), worst row's max |err| / its max |out| "
         f"{row_ratio} (bound {FLASH_ROW_RATIO}); {t['ms']:.4f} ms, "
-        f"{flops / t['ms'] / 1e9:.1f} TFLOP/s")
+        f"{flops / t['ms'] / 1e9:.1f} TFLOP/s; profiler device time "
+        f"{own:.4f} ms in the kernel ({flops / own / 1e9:.1f} TFLOP/s), "
+        f"{every:.4f} ms in all kernels of the call; host time {host_ms:.4f}"
+        f" ms a call; plan "
+        f"{flash_attention.plan_flash(q, k, v)}")
     del x, q, k, v, qt, kt, vt
 
     def serve():
@@ -1457,18 +1498,21 @@ def main() -> int:
     build.library(verbose=True)
     log(f"build: {time.perf_counter() - t0:.1f} s")
     entry = ""
-    b3_spills = []
+    spills = {"knn_tile_kernel": [], "flash_wgmma_kernel": []}
     for line in build.last_build_log.splitlines():
         if "Compiling entry function" in line:
-            entry = line.split("'")[1][:90]     # the mangled kernel name
+            entry = line.split("'")[1]          # the mangled kernel name
         elif "registers" in line or "spill" in line:
-            log(f"  ptxas {entry}: " + line.strip())
-            if "knn_tile_kernel" in entry and "spill" in line:
-                b3_spills.append(line.strip())
-    # every instantiation of B3's tile kernel, none with a spill
-    assert len(b3_spills) == len(knn_topk.KNN_SHAPES) and all(
-        "0 bytes spill stores, 0 bytes spill loads" in x
-        for x in b3_spills), b3_spills
+            log(f"  ptxas {entry[:100]}: " + line.strip())
+            for name, found in spills.items():
+                if name in entry and "spill" in line:
+                    found.append(line.strip())
+    # every instantiation of B3's tile kernel and of B9's Hopper design,
+    # none with a spill
+    assert len(spills["knn_tile_kernel"]) == len(knn_topk.KNN_SHAPES)
+    assert len(spills["flash_wgmma_kernel"]) == len(flash_attention.WGMMA_BQ)
+    assert all("0 bytes spill stores, 0 bytes spill loads" in x
+               for found in spills.values() for x in found), spills
 
     t0 = time.perf_counter()
     ds = synthetic.generate("tafeng", seed=0, scale=1.0)

@@ -28,7 +28,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("sparse_row_gather.cu", "sparse_row_scatter.cu", "knn_topk.cu",
            "serving_topn.cu", "knn_topk_dtiled.cu", "serving_rows.cu",
-           "decayed_scatter.cu", "flash_attention.cu")
+           "decayed_scatter.cu", "flash_attention.cu",
+           "flash_attention_wgmma.cu")
 HEADERS = ("topk_common.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
@@ -53,7 +54,9 @@ SIGNATURES: Dict[str, List] = {
     "decayed_scatter_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I,
-                               _I, _I, _P],
+                               _I, _I, _I, _P],
+    "flash_wgmma_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,
+                           _L, _L, _L, _L, _L, _L, _F, _I, _I, _I, _I, _P],
 }
 
 # launches per kernel wrapper since the last reset_launch_counts()
@@ -103,12 +106,17 @@ def build(verbose: bool = False) -> Path:
     """Compile the sources (if needed) and return the library's path.
 
     ``verbose`` adds ``-Xptxas -v`` (registers, shared memory and spills
-    per kernel) and keeps the compiler output in :data:`last_build_log`.
+    per kernel) and keeps the compiler output in :data:`last_build_log`,
+    and in a ``.log`` file beside the library, which a later call reads
+    back when the library is already built.
     """
     global last_build_log
     flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
     lib_path = BUILD_DIR / f"librepro_torch_kernels-{_digest(NVCC_FLAGS)}.so"
+    log_path = lib_path.with_suffix(".log")
     if lib_path.exists():
+        if verbose and log_path.exists():
+            last_build_log = log_path.read_text()
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -132,6 +140,8 @@ def build(verbose: bool = False) -> Path:
                                + link.stderr)
         os.replace(tmp_lib, lib_path)
     last_build_log = "".join(logs)
+    if verbose:
+        log_path.write_text(last_build_log)
     return lib_path
 
 

@@ -12,9 +12,11 @@
 // These follow the Pallas kernel's _kernel line for line.  Key positions
 // past S (the ragged last tile) score -inf and so add exactly nothing.
 //
-// Two designs, one entry.  bf16 inputs with D in {32, 64, 128} (and
-// 16-byte aligned rows) take the tensor-core kernel; everything else
-// the CUDA-core kernel.
+// Two of the three designs of flash_attention.plan_flash; the wrapper
+// passes the planned one and this entry refuses inputs it does not take.
+// bf16 with D in {64, 128} (aligned) runs the Hopper design of
+// flash_attention_wgmma.cu; bf16 with D = 32 and 16-byte aligned rows the
+// tensor-core design here; everything else the CUDA-core design.
 //
 // CUDA-core design (flash_kernel): one block of 256 threads per
 // (batch*head, 64-query tile), staging Q, K and V in shared memory as
@@ -22,7 +24,7 @@
 // tx + 16j (j < 4) and the outputs d = tx + 16j (j < D_pad/16); the 16
 // threads of a row reduce max and sum by warp shuffles.  Any D <= 256.
 //
-// Tensor-core design (flash_mma_kernel): one block of 4 warps per
+// Tensor-core design (flash_mma_kernel, D = 32): one block of 4 warps per
 // (batch*head, 64-query tile), each warp 16 query rows.  Q's fragments
 // stay in registers (ldmatrix once); each 64-key tile of K and V is
 // copied to shared memory in 16-byte vectors, S = Q K^T and O += P V run
@@ -38,11 +40,11 @@
 // fully masked for every row of the tile, so the result is the same).
 //
 // Bound: operations.  2 * 2 * D flops per unmasked (query, key) pair
-// (QK^T and P.V) at the bf16 tensor-core peak; at granite-3-2b's prefill
-// (4 x 4,096 tokens, 32 heads, D = 64) the bytes moved are 0.2 GB against
-// 2.7e11 flops.  The CUDA-core design runs on the f32 cores, 1/15th of
-// that peak; the tensor-core design uses mma.sync (not wgmma) and loads
-// each K/V tile without overlapping it with the products.
+// (QK^T and P.V) at the bf16 tensor-core peak.  The CUDA-core design runs
+// on the f32 cores, 1/15th of that peak; the tensor-core design uses
+// mma.sync (not wgmma) and loads each K/V tile without overlapping it
+// with the products (at D = 64 it ran granite-3-2b's prefill attention in
+// 1.95 ms against 0.28, which the Hopper design took over).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -468,12 +470,11 @@ int launch_dtype(const void* q, const void* k, const void* v, void* o,
                            window, stream);
 }
 
-template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
                int S, int H, int KV, const long long* st, float scale,
                int causal, int window, cudaStream_t stream) {
-  const int bytes = 3 * 64 * (D + MMA_PAD) * (int)sizeof(__nv_bfloat16);
-  auto kern = flash_mma_kernel<D>;
+  const int bytes = 3 * 64 * (32 + MMA_PAD) * (int)sizeof(__nv_bfloat16);
+  auto kern = flash_mma_kernel<32>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
@@ -486,41 +487,40 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
-// the tensor-core variant reads 16-byte vectors: D in {32, 64, 128},
-// 16-byte aligned bases and strides that are multiples of 8 elements
-bool mma_ok(const void* q, const void* k, const void* v, int D,
+// the tensor-core design reads 16-byte vectors: bf16 with D = 32, 16-byte
+// aligned bases and strides that are positive multiples of 8 elements
+bool mma_ok(const void* q, const void* k, const void* v, int D, int bf16,
             const long long* st) {
-  if (D != 32 && D != 64 && D != 128) return false;
+  if (!bf16 || D != 32) return false;
   for (const void* p : {q, k, v})
     if ((uintptr_t)p % 16 != 0) return false;
   for (int i = 0; i < 9; ++i)
-    if (st[i] % 8 != 0) return false;
+    if (st[i] <= 0 || st[i] % 8 != 0) return false;
   return true;
 }
 
 }  // namespace
 
 // strides: q (batch, seq, head), k (...), v (...), in elements; the last
-// dim of each is contiguous and o is a contiguous [B, S, H, D].
+// dim of each is contiguous and o is a contiguous [B, S, H, D].  design
+// 0 is the CUDA-core kernel (any input), 1 the mma.sync kernel; an input
+// the design does not take returns cudaErrorInvalidValue, nothing
+// launched.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int S,
     int H, int KV, int D, long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, float scale, int causal, int window,
-    int bf16, void* stream) {
+    int bf16, int design, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16 && mma_ok(q, k, v, D, st)) {
-    if (D == 32)
-      return launch_mma<32>(q, k, v, o, B, S, H, KV, st, scale, causal,
-                            window, s);
-    if (D == 64)
-      return launch_mma<64>(q, k, v, o, B, S, H, KV, st, scale, causal,
-                            window, s);
-    return launch_mma<128>(q, k, v, o, B, S, H, KV, st, scale, causal,
-                           window, s);
+  if (design == 1) {
+    if (!mma_ok(q, k, v, D, bf16, st)) return (int)cudaErrorInvalidValue;
+    return launch_mma(q, k, v, o, B, S, H, KV, st, scale, causal, window,
+                      s);
   }
+  if (design != 0) return (int)cudaErrorInvalidValue;
   if (bf16)
     return launch_dtype<__nv_bfloat16>(q, k, v, o, B, S, H, KV, D, st,
                                        scale, causal, window, s);
