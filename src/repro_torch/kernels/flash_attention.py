@@ -3,11 +3,11 @@
     out = softmax(mask(q·kᵀ/√D)) · v          [B, S, H, D], causal (+ window)
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention``, the
-prefill attention of the dense LM stack.  Every design keeps one query
-tile per block and walks key tiles with f32 running max, denominator and
-accumulator (the [S, S] scores are never written), rounds ``p`` to the V
-dtype before P·V as the TPU kernel does, and skips the key tiles that
-the causal mask or the window hide from the whole query tile.  The input
+prefill attention of the dense LM stack.  Every design takes one query
+tile at a time through the key tiles with f32 running max, denominator
+and accumulator (the [S, S] scores are never written), rounds ``p`` to
+the V dtype before P·V as the TPU kernel does, and skips the key tiles
+that the causal mask or the window hide from the whole query tile.  The input
 picks the design (:func:`plan_flash`), and the C entry refuses an input
 its design does not take:
 
@@ -63,10 +63,11 @@ def _cuda_core_smem_bytes(d: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class FlashPlan:
-    """One :func:`launch` call's design and grid: ``bq`` queries a block
-    (one block per (batch·head, query tile)), ``bk`` keys a tile, a ring
-    of ``stages`` K/V tiles (1: loaded between barriers), ``smem_bytes``
-    of shared memory a block."""
+    """One :func:`launch` call's design and tiles: ``bq`` query rows a
+    work item (one item per (batch·head, query tile): a block each, or,
+    for ``tma_wgmma``, a persistent grid walking them), ``bk`` keys a
+    tile, a ring of ``stages`` K/V tiles (1: loaded between barriers),
+    ``smem_bytes`` of shared memory a block."""
     design: str
     bq: int
     bk: int
