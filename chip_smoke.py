@@ -410,7 +410,8 @@ def check_stage_a(corpus, c_int, uid, records):
         # q.c products and the |c|^2 sums
         bound=bound((Q * d + m * d + Q) * 4 + Q * 300 * 8,
                     2.0 * Q * m * d + 2.0 * m * d))
-    own, every = device_ms(call, ("knn_tile_kernel", "merge_lists_kernel"))
+    own, every, _ = device_ms(call, ("knn_tile_kernel",
+                                      "merge_lists_kernel"))
     pl = knn_topk.plan_knn(Q, m, 300, torch.cuda.get_device_properties(
         corpus.device).multi_processor_count)
     log(f"  stage A timed: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, "
@@ -472,7 +473,9 @@ def same(a, b) -> bool:
 def device_ms(fn, names, reps: int = 5) -> tuple:
     """Device time per call of ``fn`` under ``torch.profiler`` after a
     warm-up: (the kernels whose names contain one of ``names``, every
-    kernel the call launched)."""
+    kernel the call launched, how many records of the named kernels the
+    trace holds -- a trace can miss one, and then these times read
+    short)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -483,6 +486,7 @@ def device_ms(fn, names, reps: int = 5) -> tuple:
             fn()
         torch.cuda.synchronize()
     own = every = 0.0
+    records = 0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:   # kernels, not ops
             continue
@@ -491,8 +495,9 @@ def device_ms(fn, names, reps: int = 5) -> tuple:
         every += us
         if any(n in e.key for n in names):
             own += us
+            records += e.count
     assert own > 0, f"no device time for {names}"
-    return own / reps / 1e3, every / reps / 1e3
+    return own / reps / 1e3, every / reps / 1e3, records
 
 
 def plan_str(q, c, k, bd) -> str:
@@ -1313,17 +1318,25 @@ def granite_path(dev, records):
     # q, k and v read once, an output of q's size written once
     io_bytes = sum(a.numel() * a.element_size() for a in (q, k, v, q))
     flops = attention_flops(LM_BATCH, LM_PROMPT, c.n_heads, c.d_head)
-    # the event time holds the wrapper's host time; the profiler's the
-    # kernel's alone; and the host time of a call, enqueued behind a busy
-    # card
-    own, every = device_ms(lambda: flash_attention.launch(q, k, v),
-                           ("flash_wgmma_kernel",))
+    # the event time of one call holds the wrapper's host time and the
+    # launch's latency; beside it: the profiler's time of the kernel
+    # alone (over the records the trace holds), the time a call of 10
+    # back to back between two events, and the host time of a call,
+    # enqueued behind a busy card
+    reps = 5
+    own, every, n_rec = device_ms(lambda: flash_attention.launch(q, k, v),
+                                  ("flash_wgmma_kernel",), reps)
+    own *= reps / n_rec                  # per launch the trace recorded
     torch.cuda.synchronize()
     h0 = time.perf_counter()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
     for _ in range(10):
         flash_attention.launch(q, k, v)
     host_ms = (time.perf_counter() - h0) * 1e2
-    torch.cuda.synchronize()
+    end.record()
+    end.synchronize()
+    burst_ms = start.elapsed_time(end) / 10
     records["flash_attention"] = dict(
         t, max_abs_err=err,
         shape=f"B={LM_BATCH} S={LM_PROMPT} H={c.n_heads} KV={c.n_kv_heads}"
@@ -1334,10 +1347,11 @@ def granite_path(dev, records):
         f"{out_rms}, error rms / output rms {rms_ratio} (bound "
         f"{FLASH_RMS_RATIO}), worst row's max |err| / its max |out| "
         f"{row_ratio} (bound {FLASH_ROW_RATIO}); {t['ms']:.4f} ms, "
-        f"{flops / t['ms'] / 1e9:.1f} TFLOP/s; profiler device time "
-        f"{own:.4f} ms in the kernel ({flops / own / 1e9:.1f} TFLOP/s), "
-        f"{every:.4f} ms in all kernels of the call; host time {host_ms:.4f}"
-        f" ms a call; plan "
+        f"{flops / t['ms'] / 1e9:.1f} TFLOP/s; {burst_ms:.4f} ms a call of "
+        f"10 back to back; profiler device time {own:.4f} ms a launch "
+        f"({flops / own / 1e9:.1f} TFLOP/s; {n_rec} of {reps} launches "
+        f"in the trace, {every:.4f} ms a call in all kernels over {reps} "
+        f"calls); host time {host_ms:.4f} ms a call; plan "
         f"{flash_attention.plan_flash(q, k, v)}")
     del x, q, k, v, qt, kt, vt
 

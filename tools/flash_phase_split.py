@@ -2,6 +2,7 @@
 """Where the Hopper attention kernel's time goes, on the card.
 
     python3 tools/flash_phase_split.py [--root DIR] [--reps N] [--phases]
+        [--layer0]
 
 Builds the port's kernels (logging ptxas's registers, spills and notes
 for ``flash_wgmma_kernel``), holds ``flash_attention.launch`` against
@@ -21,6 +22,11 @@ barriers, packing, epilogue); their outputs are not checked -- at
 granite's shape, without the causal mask, and at B=16, S=1,024 and B=1,
 S=16,384 (as many work items, a quarter and four times the key tiles
 each), which splits the time into a cost per work item and per tile.
+
+``--layer0`` also checks and times the kernel on granite-3-2b layer 0's
+own q, k and v (the seeded weights and tokens of ``chip_smoke.py``).
+Every timing is also taken over 10 calls back to back between two
+events, beside the single call.
 
 ``--root`` names another checkout (a ``git archive`` of an earlier
 commit, unpacked under ``build/``): its ``flash_attention.launch`` is
@@ -117,6 +123,37 @@ def time_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def burst_ms(fn, n: int = 10) -> float:
+    """Device time per call of ``n`` calls back to back between two CUDA
+    events (the host's and the launch's latency paid once)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def layer0_inputs(c):
+    """Granite-3-2b layer 0's q, k and v for 4 prompts of 4,096 tokens,
+    from the seeded weights and tokens ``chip_smoke.py`` uses."""
+    from repro_torch.models import transformer
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    model = transformer.init_params(c, gen, torch.device("cuda"))
+    tokens = torch.randint(0, c.vocab_size, (4, 4096), generator=gen,
+                           device="cuda")
+    layer0 = model.layers[0]
+    x = model.embed[tokens].to(c.dtype) * (c.d_model ** 0.5)
+    pos = torch.arange(4096, device="cuda").expand(tokens.shape)
+    return transformer.project_qkv(
+        transformer.rms_norm(x, layer0.ln1, c.norm_eps), layer0, c, pos)
+
+
 def device_ms(fn, reps: int = 5) -> float:
     """Device time per call of the kernels ``fn`` launched, from
     ``torch.profiler``."""
@@ -179,6 +216,8 @@ def main() -> int:
     ap.add_argument("--root", type=Path, default=None)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--phases", action="store_true")
+    ap.add_argument("--layer0", action="store_true",
+                    help="also time granite-3-2b layer 0's own q, k, v")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("flash_phase_split: no CUDA device")
@@ -218,12 +257,22 @@ def main() -> int:
         e = err(got, expect)
         assert e <= ATOL, (name, e)
         ms, dev, clk = time_ms(fn, args.reps), device_ms(fn), clocks(fn)
-        out[name] = dict(max_abs_err=e, ms=ms, device_ms=dev,
+        burst = burst_ms(fn)
+        out[name] = dict(max_abs_err=e, ms=ms, burst_ms=burst, device_ms=dev,
                          tflops=n_flops / ms / 1e9, clocks=clk)
-        print(f"  {name}: max |err| {e}, {ms:.4f} ms ({n_flops / ms / 1e9:.1f}"
-              f" TFLOP/s), profiler {dev:.4f} ms; {clk}", flush=True)
+        print(f"  {name}: max |err| {e}, {ms:.4f} ms a single call "
+              f"({n_flops / ms / 1e9:.1f} TFLOP/s), {burst:.4f} ms a call of "
+              f"10 back to back, profiler {dev:.4f} ms; {clk}", flush=True)
 
     record("launch", lambda: flash_attention.launch(q, k, v), exp, flops)
+    if args.layer0:
+        from repro_torch.configs import granite_3_2b
+        lq, lk, lv = layer0_inputs(granite_3_2b.make_config())
+        record("launch, layer 0's activations",
+               lambda: flash_attention.launch(lq, lk, lv),
+               ref.flash_attention_ref(lq, lk, lv), flops)
+        del lq, lk, lv
+        torch.cuda.empty_cache()
     if hasattr(flash_attention, "plan_flash"):
         print(f"  plan: {flash_attention.plan_flash(q, k, v)}", flush=True)
         worst = 0.0
