@@ -81,6 +81,24 @@ def _owner_rows(tables: Sequence[torch.Tensor], gids: torch.Tensor,
     return out
 
 
+def _owner_row_addresses(tables: Sequence[torch.Tensor], gids: torch.Tensor,
+                         n_shards: int) -> torch.Tensor:
+    """Device addresses of the rows :func:`_owner_rows` would fetch.
+
+    ``out[...] = data_ptr + (g // n_shards)·pitch`` of table ``g %
+    n_shards`` (its row stride in bytes), int64 of ``gids``' shape; the
+    ids are not range-checked.  Nothing is copied and nothing waits on
+    the card.
+    """
+    g = gids.long()
+    shard, local = g % n_shards, g // n_shards
+    out = torch.zeros_like(g)
+    for s, table in enumerate(tables):
+        pitch = table.stride(0) * table.element_size()
+        out = torch.where(shard == s, local * pitch + table.data_ptr(), out)
+    return out
+
+
 def _merge_candidates(vals: List[torch.Tensor], gids: List[torch.Tensor],
                       k: int) -> torch.Tensor:
     """The global top-k of per-shard candidate lists, [Q, ≤k] gids.
@@ -106,8 +124,10 @@ def sharded_recommend_for_users(corpora: Sequence[torch.Tensor], user_ids,
     shard returns its top-k candidate ``(score, global id)`` lists
     (``shard_topk_candidates``); (3) the lists merge by (score desc, gid
     asc), the tie-break of a single corpus; (4) the k selected rows are
-    fetched, [Q, k, I], and blended (``ops.blend_topn_rows``).  All on
-    the corpora's device.  Traffic between shards would be the [Q, k]
+    blended: the kernel reads them where they lie in the shard corpora
+    (``ops.blend_topn_rows_at``), the plain path fetches them, [Q, k,
+    I] (``ops.blend_topn_rows``); both sum them in the same order.  All
+    on the corpora's device.  Traffic between shards would be the [Q, k]
     lists and the selected rows, never a corpus.
     """
     dev = corpora[0].device
@@ -118,6 +138,10 @@ def sharded_recommend_for_users(corpora: Sequence[torch.Tensor], user_ids,
                                              query_ids=qids, metric=metric)
                        for s, c in enumerate(corpora)))
     sel = _merge_candidates(list(vals), list(gids), k)
+    if ops.uses_kernel(corpora[0]):
+        return ops.blend_topn_rows_at(
+            queries, _owner_row_addresses(corpora, sel, n_shards), corpora,
+            alpha, topn)
     return ops.blend_topn_rows(queries, _owner_rows(corpora, sel, n_shards),
                                alpha, topn)
 
@@ -131,7 +155,9 @@ def sharded_recommend_for_users_quant(
     The pipeline of :func:`sharded_recommend_for_users` on ``(corpus_q
     int8[M_s, I], scale f32[M_s])`` pairs: D-tiled int8 candidates
     (``ops.shard_topk_quant``), the same merge, then the k selected int8
-    rows and their scales blended (``ops.blend_topn_rows_quant``).  Row
+    rows and their scales blended, in place on the kernel path
+    (``ops.blend_topn_rows_at``), fetched on the plain one
+    (``ops.blend_topn_rows_quant``).  Row
     quantization is partition invariant, so every candidate score equals
     the single-corpus int8 score bit for bit.
     """
@@ -146,9 +172,14 @@ def sharded_recommend_for_users_quant(
         queries_q, q_scale, cq, cs, k, shard=s, n_shards=n_shards,
         query_gids=qids, bd=bd) for s, (cq, cs) in enumerate(quant_corpora)))
     sel = _merge_candidates(list(vals), list(gids), k)
+    n_scale = _owner_rows(scales, sel, n_shards)
+    if ops.uses_kernel(corpora[0]):
+        return ops.blend_topn_rows_at(
+            queries_q, _owner_row_addresses(corpora, sel, n_shards), corpora,
+            alpha, topn, q_scale=q_scale, n_scale=n_scale)
     return ops.blend_topn_rows_quant(
-        queries_q, q_scale, _owner_rows(corpora, sel, n_shards),
-        _owner_rows(scales, sel, n_shards), alpha, topn)
+        queries_q, q_scale, _owner_rows(corpora, sel, n_shards), n_scale,
+        alpha, topn)
 
 
 def compare_recommendations(corpus: torch.Tensor, user_ids, ref_ids,

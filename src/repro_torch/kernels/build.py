@@ -40,7 +40,7 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signature of every entry point (all return cudaError_t as int)
 SIGNATURES: Dict[str, List] = {
-    "srg_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "srg_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "srs_launch": [_P, _P, _P, _L, _L, _P],
     "knn_topk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I,
                         _I, _I, _I, _I, _P, _P, _P, _P, _P],
@@ -50,7 +50,9 @@ SIGNATURES: Dict[str, List] = {
                                _I, _I, _I, _I, _L, _L, _I, _I, _I, _I, _P,
                                _P, _I, _I, _P, _P, _P, _P, _P],
     "blend_rows_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I,
-                          _I, _P, _P, _P, _P, _P],
+                          _I, _P, _I, _I, _P, _P, _P, _P, _P],
+    "blend_rows_reg_launch": [_P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I,
+                              _P, _P, _P, _P, _P],
     "decayed_scatter_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I,
@@ -205,10 +207,18 @@ def cuda_input(t: torch.Tensor, what: str, dtypes: Sequence[torch.dtype],
 INDEX_DTYPES = (torch.int32, torch.int64)
 
 
+def index_as_given(t: torch.Tensor, what: str, device: torch.device,
+                   ndim: int) -> torch.Tensor:
+    """Check an index input (int32 or int64) and return it contiguous in
+    its own dtype: no cast, and no copy when it is contiguous already.
+    Checks dtype, rank and device only, so nothing waits on the card."""
+    if isinstance(t, torch.Tensor) and t.is_cuda and not t.is_contiguous():
+        t = t.contiguous()
+    return cuda_input(t, what, INDEX_DTYPES, device, ndim)
+
+
 def index_input(t: torch.Tensor, what: str, device: torch.device,
                 ndim: int) -> torch.Tensor:
     """Check an index input (int32 or int64) and return it as a
     contiguous int32 tensor."""
-    if isinstance(t, torch.Tensor) and t.is_cuda:
-        t = t.contiguous()
-    return cuda_input(t, what, INDEX_DTYPES, device, ndim).to(torch.int32)
+    return index_as_given(t, what, device, ndim).to(torch.int32)

@@ -16,7 +16,7 @@ that fails to build or launch, or input it does not take, raises.
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -46,7 +46,7 @@ def default_impl(impl: str) -> Iterator[None]:
         _DEFAULT_IMPL = prev
 
 
-def _use_kernel(impl: Optional[str], x: torch.Tensor) -> bool:
+def uses_kernel(x: torch.Tensor, impl: Optional[str] = None) -> bool:
     """True where ``impl`` (or the default) asks for the kernel on ``x``."""
     impl = _DEFAULT_IMPL if impl is None else impl
     if impl not in IMPLS:
@@ -61,7 +61,7 @@ def sparse_row_gather(table: torch.Tensor, rows: torch.Tensor,
 
     O(U·W) elements addressed (the update-path supports, W ≪ I).
     """
-    if _use_kernel(impl, table):
+    if uses_kernel(table, impl):
         return _gather.launch(table, rows, ids)
     return ref.sparse_row_gather_ref(table, rows, ids)
 
@@ -74,7 +74,7 @@ def sparse_row_scatter(table: torch.Tensor, rows: torch.Tensor,
     ``table[rows[r], ids[r, w]] += vals[r, w]`` for valid ids; O(U·W)
     elements addressed (the Eq. 7-13 deltas).
     """
-    if _use_kernel(impl, table):
+    if uses_kernel(table, impl):
         return _scatter.launch(table, rows, ids, vals)
     return ref.sparse_row_scatter_ref(table, rows, ids, vals)
 
@@ -97,7 +97,7 @@ def knn_topk_dtiled(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     kw = dict(query_gids=query_gids, col_offset=col_offset,
               col_stride=col_stride, sub_qnorm=sub_qnorm, q_scale=q_scale,
               c_scale=c_scale)
-    if _use_kernel(impl, corpus):
+    if uses_kernel(corpus, impl):
         return _knn.launch_dtiled(queries, corpus, k, bd=bd, **kw)
     return ref.dtiled_topk_ref(queries, corpus, k, bd=bd, **kw)
 
@@ -132,7 +132,7 @@ def fused_recommend(corpus: torch.Tensor, user_ids: torch.Tensor, k: int,
     raises (``impl="ref"`` serves it on any device, ignoring ``bd`` as
     the JAX package does).
     """
-    kernel = _use_kernel(impl, corpus)
+    kernel = uses_kernel(corpus, impl)
     q_n, m = user_ids.shape[0], corpus.shape[0]
     k = _serving_k(k, topn, corpus.shape[1], m)
     if q_n == 0 or m == 0:
@@ -171,7 +171,7 @@ def fused_recommend_quant(corpus_q: torch.Tensor, c_scale: torch.Tensor,
     int8 reads.  The plain path is ``ref.fused_recommend_quant_ref``.
     ``k`` is clamped to M−1.  Euclidean only.
     """
-    kernel = _use_kernel(impl, corpus_q)
+    kernel = uses_kernel(corpus_q, impl)
     q_n, m = user_ids.shape[0], corpus_q.shape[0]
     k = _serving_k(k, topn, corpus_q.shape[1], m)
     if q_n == 0 or m == 0:
@@ -231,7 +231,7 @@ def shard_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     m_s, q_n = corpus.shape[0], queries.shape[0]
     if m_s == 0 or q_n == 0:
         return _empty_candidates(q_n, k, m_s, corpus.device)
-    if not _use_kernel(impl, corpus):
+    if not uses_kernel(corpus, impl):
         return ref.shard_topk_ref(queries, corpus, k, shard, n_shards,
                                   query_gids, metric)
     if query_gids is None:
@@ -279,7 +279,7 @@ def blend_topn_rows(queries: torch.Tensor, neighbor_rows: torch.Tensor,
     [Q, I] intermediate on the kernel path (``blend_topn_rows``); the
     plain path is ``ref.blend_topn_rows_ref``.
     """
-    if _use_kernel(impl, neighbor_rows):
+    if uses_kernel(neighbor_rows, impl):
         return _blend.launch_rows(queries, neighbor_rows, alpha, topn)[1]
     return ref.blend_topn_rows_ref(queries, neighbor_rows, alpha, topn)[1]
 
@@ -294,11 +294,29 @@ def blend_topn_rows_quant(queries_q: torch.Tensor, q_scale: torch.Tensor,
     dequantized on chip (``blend_topn_rows_quant``); the plain path is
     ``ref.blend_topn_rows_quant_ref``.
     """
-    if _use_kernel(impl, neighbor_rows_q):
+    if uses_kernel(neighbor_rows_q, impl):
         return _blend.launch_rows(queries_q, neighbor_rows_q, alpha, topn,
                                   q_scale=q_scale, n_scale=n_scale)[1]
     return ref.blend_topn_rows_quant_ref(queries_q, q_scale, neighbor_rows_q,
                                          n_scale, alpha, topn)[1]
+
+
+def blend_topn_rows_at(queries: torch.Tensor, nbr_rows: torch.Tensor,
+                       tables: Sequence[torch.Tensor], alpha: float,
+                       topn: int, q_scale: Optional[torch.Tensor] = None,
+                       n_scale: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Cross-shard final stage on rows read where they lie → top-n ids.
+
+    The kernel path of :func:`blend_topn_rows` (f32) and
+    :func:`blend_topn_rows_quant` (int8, with ``q_scale`` and the rows'
+    ``n_scale``) on ``nbr_rows`` i64[Q, k], the device addresses of the
+    neighbour rows in ``tables``: the same answer without the [Q, k, I]
+    gather.  Addresses have no plain version; a caller on the plain
+    path (``uses_kernel`` False) fetches the rows instead.
+    """
+    return _blend.launch_rows_at(queries, nbr_rows, tables, alpha, topn,
+                                 q_scale=q_scale, n_scale=n_scale)[1]
 
 
 def multihot_scatter(ids: torch.Tensor, weights: torch.Tensor, n_items: int,
@@ -311,7 +329,7 @@ def multihot_scatter(ids: torch.Tensor, weights: torch.Tensor, n_items: int,
     per row; the kernel path (``decayed_scatter``) sums repeated ids in
     (n, b) order, the plain path is ``ref.decayed_scatter_ref``.
     """
-    if _use_kernel(impl, ids):
+    if uses_kernel(ids, impl):
         return _multihot.launch(ids, weights, n_items)
     return ref.decayed_scatter_ref(ids, weights, n_items)
 
@@ -326,6 +344,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``flash_attention``: the [S, S] scores are never written); the
     plain path is ``ref.flash_attention_ref``.
     """
-    if _use_kernel(impl, q):
+    if uses_kernel(q, impl):
         return _flash.launch(q, k, v, causal=causal, window=window)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window)

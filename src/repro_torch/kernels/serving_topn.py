@@ -19,14 +19,18 @@ without writing the [Q, I] predictions to device memory:
       pred[q, i] = α·x_q[i] + (1 − α)·mean_j(r_qj[i])
 
   over pre-fetched rows [Q, k, I]; :func:`launch_rows_indexed` reads
-  the int8 neighbour rows straight from the corpus instead.  Plain
-  versions: ``ref.blend_topn_rows_ref`` / ``blend_topn_rows_quant_ref``.
+  the int8 neighbour rows straight from the corpus instead, and
+  :func:`launch_rows_at` rows at any device addresses (the shard
+  corpora of cross-shard serving).  Plain versions:
+  ``ref.blend_topn_rows_ref`` / ``blend_topn_rows_quant_ref``.  Its grid
+  and shared memory come from :func:`plan_rows`.
 
 ``ops`` picks between each kernel and its plain version.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -34,6 +38,51 @@ from repro_torch.kernels import build
 
 MAX_TOPN = 1024   # largest list the merge keeps per query
 _BI = 1024        # items per block of csrc/serving_topn.cu
+# csrc/serving_rows.cu: items per block, threads (8 consumer warps and a
+# producer warp), ring depth by element size, the largest n taken by
+# selection (a bitonic sort of the tile above it), and how many tensors
+# whose end is not 16-byte aligned one launch takes
+ROWS_BI = 1024
+ROWS_THREADS = 288
+ROWS_STAGES = {4: 4, 1: 8}
+ROWS_MAX_SELECT = 32
+ROWS_MAX_ENDS = 16
+
+
+class RowsPlan(NamedTuple):
+    """How ``csrc/serving_rows.cu`` cuts one launch."""
+
+    select: bool      # the tile's top n by selection (else bitonic sort)
+    stages: int       # rows in flight per block (ring slots)
+    n_tiles: int      # 1,024-item tiles per query
+    list_len: int     # entries each tile keeps (L)
+    n2: int           # the merge's power-of-two list
+    smem_bytes: int   # the tile kernel's dynamic shared memory
+    grid: Tuple[int, int]   # (n_tiles, Q) blocks of ROWS_THREADS
+
+
+def plan_rows(q_n: int, n_items: int, topn: int, elem_size: int
+              ) -> RowsPlan:
+    """The row blend's plan for Q queries over rows of ``n_items``
+    elements of ``elem_size`` bytes (4: f32, 1: int8).
+
+    A ring slot holds a tile's 16-byte-aligned superset (1,024 elements
+    + 16 bytes); the tile's lists reuse the ring once its rows are
+    summed; each slot adds a header and two mbarriers (24 bytes).  The C
+    entry refuses a launch whose bytes differ.
+    """
+    if not 1 <= topn <= min(n_items, MAX_TOPN):
+        raise ValueError(f"topn={topn} outside [1, min(I={n_items}, "
+                         f"{MAX_TOPN})]")
+    select = topn <= ROWS_MAX_SELECT
+    stages = ROWS_STAGES[elem_size]
+    ring = stages * (ROWS_BI * elem_size + 16)
+    lists = (ROWS_THREADS // 32 - 1) * ROWS_MAX_SELECT * 8 if select \
+        else ROWS_BI * 8
+    n_tiles = -(-n_items // ROWS_BI)
+    return RowsPlan(select, stages, n_tiles, min(topn, ROWS_BI),
+                    1 << max(0, (topn - 1).bit_length()),
+                    max(ring, lists) + stages * 24, (n_tiles, q_n))
 
 
 def launch(corpus: torch.Tensor, user_ids: torch.Tensor,
@@ -98,38 +147,61 @@ def _scale_input(t: Optional[torch.Tensor], what: str, dev: torch.device,
     return t
 
 
+def _row_ends(sources: Sequence[torch.Tensor]):
+    """The ends of the storages holding neighbour rows that are not
+    16-byte aligned, as the C entry takes them (a host array and its
+    length): the kernel copies 16-byte-aligned pieces of rows and reads
+    no row past such an end.  Raises where a storage does not start
+    16-byte aligned (the head of a row's first piece would lie before
+    it)."""
+    ends = set()
+    for t in sources:
+        st = t.untyped_storage()
+        if st.data_ptr() % 16:
+            raise ValueError("rows must lie in a storage that starts "
+                             "16-byte aligned")
+        end = st.data_ptr() + st.nbytes()
+        if end % 16:
+            ends.add(end)
+    if len(ends) > ROWS_MAX_ENDS:
+        raise ValueError(f"rows in more than {ROWS_MAX_ENDS} tensors whose "
+                         "end is not 16-byte aligned")
+    return (ctypes.c_ulonglong * max(1, len(ends)))(*sorted(ends)), len(ends)
+
+
 def _blend_rows(q_rows: torch.Tensor, q_scale: Optional[torch.Tensor],
                 nbr_rows: torch.Tensor, nbr_scale: Optional[torch.Tensor],
-                n_items: int, alpha: float, topn: int, dev: torch.device,
+                n_items: int, alpha: float, topn: int,
+                sources: Sequence[torch.Tensor],
                 name: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/serving_rows.cu`` on row addresses.
 
     ``q_rows`` i64[Q] and ``nbr_rows`` i64[Q, k]; the rows are int8
-    when the scales are given, else f32.
+    when the scales are given, else f32.  ``sources``: the tensors that
+    hold the neighbour rows.
     """
     q_n, k = nbr_rows.shape
-    if not 1 <= topn <= min(n_items, MAX_TOPN):
-        raise ValueError(f"topn={topn} outside [1, min(I={n_items}, "
-                         f"{MAX_TOPN})]")
+    dev = nbr_rows.device
+    quantized = q_scale is not None
+    plan = plan_rows(q_n, n_items, topn, 1 if quantized else 4)
     if k < 1:
         raise ValueError("need at least one neighbour row per query")
     out_v = torch.empty((q_n, topn), dtype=torch.float32, device=dev)
     out_i = torch.empty((q_n, topn), dtype=torch.int32, device=dev)
     if q_n == 0:
         return out_v, out_i
-    n_tiles = -(-n_items // _BI)
-    lst = min(topn, _BI)
-    n2 = 1 << max(0, (topn - 1).bit_length())
-    part_v = torch.empty((q_n, n_tiles, lst), dtype=torch.float32,
-                         device=dev)
-    part_i = torch.empty((q_n, n_tiles, lst), dtype=torch.int32, device=dev)
-    quantized = q_scale is not None
+    ends, n_ends = _row_ends(sources)
+    part_v = torch.empty((q_n, plan.n_tiles, plan.list_len),
+                         dtype=torch.float32, device=dev)
+    part_i = torch.empty((q_n, plan.n_tiles, plan.list_len),
+                         dtype=torch.int32, device=dev)
     build.check(build.library().blend_rows_launch(
         q_rows.data_ptr(), q_scale.data_ptr() if quantized else None,
         nbr_rows.data_ptr(), nbr_scale.data_ptr() if quantized else None,
         int(quantized), q_n, n_items, k, float(alpha), float(1.0 - alpha),
-        topn, lst, n2, part_v.data_ptr(), part_i.data_ptr(),
-        out_v.data_ptr(), out_i.data_ptr(), build.stream_of(q_rows)), name)
+        topn, plan.list_len, plan.n2, ends, n_ends, plan.smem_bytes,
+        part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(),
+        out_i.data_ptr(), build.stream_of(q_rows)), name)
     build.count_launch(name)
     return out_v, out_i
 
@@ -166,7 +238,8 @@ def launch_rows(queries: torch.Tensor, neighbor_rows: torch.Tensor,
         _row_addresses(queries, torch.arange(q_n, device=dev)), q_scale,
         _row_addresses(flat, torch.arange(q_n * k, device=dev)
                        ).reshape(q_n, k), n_scale, n_items, alpha, topn,
-        dev, "blend_topn_rows_quant" if quantized else "blend_topn_rows")
+        (neighbor_rows,),
+        "blend_topn_rows_quant" if quantized else "blend_topn_rows")
 
 
 def launch_rows_indexed(queries_q: torch.Tensor, q_scale: torch.Tensor,
@@ -199,4 +272,45 @@ def launch_rows_indexed(queries_q: torch.Tensor, q_scale: torch.Tensor,
     return _blend_rows(
         _row_addresses(queries_q, torch.arange(q_n, device=dev)), q_scale,
         _row_addresses(corpus_q, nbr), c_scale[nbr.long()].contiguous(),
-        n_items, alpha, topn, dev, "blend_topn_rows_quant")
+        n_items, alpha, topn, (corpus_q,), "blend_topn_rows_quant")
+
+
+def launch_rows_at(queries: torch.Tensor, nbr_rows: torch.Tensor,
+                   tables: Sequence[torch.Tensor], alpha: float, topn: int,
+                   q_scale: Optional[torch.Tensor] = None,
+                   n_scale: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stage B over rows read where they lie, (f32[Q, n], i32[Q, n]).
+
+    ``nbr_rows`` i64[Q, k] holds the device address of each neighbour
+    row, a row of one of ``tables`` (2-D, f32 or int8 as ``queries``
+    [Q, I], rows contiguous at their pitch; the addresses are not
+    checked).  int8 takes ``q_scale`` f32[Q] and the rows' scales
+    ``n_scale`` f32[Q, k].  The same kernel and count as
+    :func:`launch_rows` on the gathered rows, without writing that
+    [Q, k, I] gather.
+    """
+    build.cuda_input(queries, "queries", (torch.float32, torch.int8),
+                     ndim=2)
+    dev = queries.device
+    build.cuda_input(nbr_rows, "nbr_rows", (torch.int64,), dev, 2)
+    q_n, n_items = queries.shape
+    k = nbr_rows.shape[1]
+    if nbr_rows.shape[0] != q_n:
+        raise ValueError("nbr_rows must be [Q, k] with Q = queries rows")
+    for t in tables:
+        build.cuda_input(t, "tables", (queries.dtype,), dev, 2,
+                         pitched=True)
+        if t.shape[1] != n_items:
+            raise ValueError(f"a table of width {t.shape[1]}, queries "
+                             f"{n_items}")
+    quantized = queries.dtype == torch.int8
+    if quantized:
+        q_scale = _scale_input(q_scale, "q_scale", dev, (q_n,))
+        n_scale = _scale_input(n_scale, "n_scale", dev, (q_n, k))
+    else:
+        q_scale = n_scale = None
+    return _blend_rows(
+        _row_addresses(queries, torch.arange(q_n, device=dev)), q_scale,
+        nbr_rows, n_scale, n_items, alpha, topn, tables,
+        "blend_topn_rows_quant" if quantized else "blend_topn_rows")

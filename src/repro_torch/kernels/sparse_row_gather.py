@@ -17,18 +17,26 @@ import torch
 from repro_torch.kernels import build
 
 
+def index_bits(rows: torch.Tensor, ids: torch.Tensor) -> int:
+    """The C entry's index flag: bit 0 for int64 ``rows``, bit 1 for
+    int64 ``ids`` (each else int32)."""
+    return int(rows.dtype == torch.int64) | int(ids.dtype == torch.int64) << 1
+
+
 def launch(table: torch.Tensor, rows: torch.Tensor,
            ids: torch.Tensor) -> torch.Tensor:
     """f32[U, W] = table[rows, ids] by the CUDA kernel.
 
     ``table`` f32[M, I]; ``rows`` int[U] (clamped to [0, M)); ``ids``
-    int[U, W], entries outside [0, I) (PAD = -1) read 0.  Raises on
-    tensors it does not take (CPU tensors among them).
+    int[U, W], entries outside [0, I) (PAD = -1) read 0.  ``rows`` and
+    ``ids`` are read as given, int32 or int64 each: nothing is cast or,
+    when they are contiguous, copied.  Raises on tensors it does not
+    take (CPU tensors among them).
     """
     build.cuda_input(table, "table", (torch.float32,), ndim=2)
     dev = table.device
-    rows = build.index_input(rows, "rows", dev, 1)
-    ids = build.index_input(ids, "ids", dev, 2)
+    rows = build.index_as_given(rows, "rows", dev, 1)
+    ids = build.index_as_given(ids, "ids", dev, 2)
     m, n_items = table.shape
     u, w = ids.shape
     if rows.shape[0] != u:
@@ -38,6 +46,7 @@ def launch(table: torch.Tensor, rows: torch.Tensor,
     out = torch.empty((u, w), dtype=torch.float32, device=dev)
     build.check(build.library().srg_launch(
         table.data_ptr(), rows.data_ptr(), ids.data_ptr(), out.data_ptr(),
-        m, n_items, u, w, build.stream_of(table)), "sparse_row_gather")
+        m, n_items, u, w, index_bits(rows, ids), build.stream_of(table)),
+        "sparse_row_gather")
     build.count_launch("sparse_row_gather")
     return out

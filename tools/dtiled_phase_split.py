@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where a stage-A kernel's time goes: products against the top-k merge.
+"""Where a serving kernel's time goes: products against the top-k merge.
 
 Builds one stage-A kernel's source twice -- as it is, and with the fold
 of every score tile into the per-query lists compiled out -- and times
@@ -10,6 +10,23 @@ difference of the two is the merge.
 
 * ``--kernel knn_topk_dtiled`` (the default): ``knn_topk_dtiled.cu``,
   bd=512, int8 on the store's 16-byte row pitch and fp32;
+* ``--kernel blend_topn_rows``: ``serving_rows.cu`` (stage B over
+  rows, n=10, k=300 random neighbours a query) on f32 pre-fetched rows
+  [Q, k, I], f32 rows read in place from the corpus and int8 rows read
+  from the store's pitched cache, each timed whole, with the sum alone
+  (``sum``: the blend and selection compiled out) and with the
+  selection and merge alone (``select``: the row feed and sum compiled
+  out), beside gather + mean + ``topk`` on the pre-fetched rows; where
+  the source has them, its register-fed f32 variants and other ring
+  depths too; the parent's design (``--root``) split the same way (its
+  sort compiled out, its rows loop run no time).  Every whole answer is
+  held bitwise against the sum in order j = 0..k-1 in torch, and every
+  call's kernels are profiled (``torch.profiler``);
+* ``--kernel sparse_row_gather``: ``sparse_row_gather.cu`` at the add
+  path's sub-batch (U=512, W=168, int64 rows and int32 ids, as the
+  applier passes them) beside indexing: one call by events, a burst of
+  100 by events, the host time of a call (a burst of 100 on the host
+  clock, no sync) and the profiler's device time;
 * ``--kernel knn_topk``: ``knn_topk.cu``, fp32 over the whole of D.
   Where the source plans its grid with ``knn_topk.plan_knn``, the
   products are split further into the chunk copies alone (``feed``: the
@@ -47,8 +64,26 @@ MERGE_CALL = re.compile(r"^(\s*)(merge_score_tile\w*<)", re.M)
 PRODUCTS = re.compile(r"mul_chunk<[^;]*;")
 COPIES = "auto issue = [&](int ch) {"
 ENTRIES = {"knn_topk_dtiled": "knn_topk_dtiled_launch",
-           "knn_topk": "knn_topk_launch"}
+           "knn_topk": "knn_topk_launch",
+           "blend_topn_rows": "blend_rows_launch",
+           "sparse_row_gather": "srg_launch"}
+SOURCES = {"blend_topn_rows": "serving_rows.cu"}
+# serving_rows.cu's phases: the blend and selection (finish_tile) in
+# place of a store of the sums, or the row feed and sum left out
+FINISH_CALL = re.compile(r"finish_tile<[^;]*;")
+SUM_SINK = ("if (threadIdx.x < NT) part_v[(size_t)blockIdx.y * gridDim.x "
+            "+ blockIdx.x] = acc[0] + acc[1] + acc[2] + acc[3];")
+FEED_CALLS = re.compile(r"(produce_rows|consume_rows)<T>\([^;]*;")
+REG_ENTRY = "blend_rows_reg_launch"
+# the parent's design: its sort, and its rows loop run no time
+PARENT_SORT = "bitonic_sort_desc<true>(tv, ti, BI, tid, NT);"
+PARENT_LOOP = "for (int j = 0; j < k; ++j) {"
+PARENT_NO_LOOP = "for (int j = 0; j < 0; ++j) {"
+STAGES_LINE = re.compile(
+    r"constexpr int kStages = sizeof\(T\) == 1 \? \d+ : \d+;")
 M, D, Q, K, BD = 13949, 11997, 256, 300, 512
+ALPHA, TOPN = 0.7, 10
+GATHER_U, GATHER_W = 512, 168     # the add path's sub-batch
 
 
 def time_ms(fn, reps: int = 7) -> float:
@@ -100,11 +135,12 @@ def build_variants(build, csrc: Path, out: Path, kernel: str,
     for name, text in variants.items():
         d = out / name
         d.mkdir(parents=True, exist_ok=True)
-        (d / f"{kernel}.cu").write_text(text)
+        (d / SOURCES.get(kernel, f"{kernel}.cu")).write_text(text)
         shutil.copy(csrc / "topk_common.cuh", d / "topk_common.cuh")
         procs[name] = subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-shared",
-             str(d / f"{kernel}.cu"), "-o", str(d / "lib.so")],
+             str(d / SOURCES.get(kernel, f"{kernel}.cu")), "-o",
+             str(d / "lib.so")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
@@ -112,11 +148,209 @@ def build_variants(build, csrc: Path, out: Path, kernel: str,
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
         lib = ctypes.CDLL(str(out / name / "lib.so"))
-        fn = getattr(lib, ENTRIES[kernel])
-        fn.argtypes = build.SIGNATURES[ENTRIES[kernel]]
-        fn.restype = ctypes.c_int
+        for entry in (ENTRIES[kernel], REG_ENTRY):
+            if entry in build.SIGNATURES and hasattr(lib, entry):
+                fn = getattr(lib, entry)
+                fn.argtypes = build.SIGNATURES[entry]
+                fn.restype = ctypes.c_int
         libs[name] = lib
     return libs
+
+
+def ordered_blend(x, rows, topn):
+    """The row blend summed in order j = 0..k-1 by separate round-to-
+    nearest torch ops (the kernel's arithmetic): (values, items) of the
+    top ``topn``, ties to the lower item."""
+    acc = torch.zeros_like(x)
+    for j in range(rows.shape[1]):
+        acc = acc + rows[:, j]
+    pred = ALPHA * x + (1.0 - ALPHA) * (acc / torch.full_like(
+        acc, rows.shape[1]))
+    v, i = torch.sort(pred, dim=1, descending=True, stable=True)
+    return v[:, :topn], i[:, :topn].to(torch.int32)
+
+
+def rows_variants(src: str) -> dict:
+    """serving_rows.cu's variants: whole, the sum alone, the selection
+    alone and, where the source plans its ring depth, other depths
+    (named ``stages_<f32>_<int8>``).  The parent's design (one rows loop
+    and a bitonic sort of the tile) gets the same two phases."""
+    variants = {"whole": src}
+    if FINISH_CALL.search(src) and FEED_CALLS.search(src):
+        variants["sum"] = FINISH_CALL.sub(SUM_SINK, src)
+        variants["select"] = FEED_CALLS.sub(";", src)
+    elif PARENT_SORT in src and PARENT_LOOP in src:
+        variants["sum"] = src.replace(PARENT_SORT, "")
+        variants["select"] = src.replace(PARENT_LOOP, PARENT_NO_LOOP)
+    if STAGES_LINE.search(src):
+        for s32, s8 in ((2, 8), (8, 8), (4, 4), (4, 16)):
+            variants[f"stages_{s32}_{s8}"] = STAGES_LINE.sub(
+                f"constexpr int kStages = sizeof(T) == 1 ? {s8} : {s32};", src)
+    return variants
+
+
+def rows_main(root: Path, csrc: Path, build) -> int:
+    """``--kernel blend_topn_rows``: see the module's docstring."""
+    from repro_torch.kernels import ref, serving_topn
+    from repro_torch.optim.compression import quantize_int8_rows_pitched
+
+    variants = rows_variants((csrc / SOURCES["blend_topn_rows"]).read_text())
+    libs = build_variants(build, csrc, root / "build" / "phase_split" /
+                          "blend_topn_rows", "blend_topn_rows", variants)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    corpus = torch.rand((M, D), generator=gen, device=dev)
+    corpus *= torch.rand((M, D), generator=gen, device=dev) < 0.01
+    u = torch.randperm(M, generator=gen, device=dev)[:Q]
+    nbr = torch.argsort(torch.rand((Q, M), generator=gen, device=dev),
+                        dim=1)[:, :K].to(torch.int32)
+    qf, rows = corpus[u], corpus[nbr.long()]
+    cq, cs = quantize_int8_rows_pitched(corpus)
+    qq, qs = cq[u], cs[u]
+    calls = {
+        "f32": lambda: serving_topn.launch_rows(qf, rows, ALPHA, TOPN),
+        "int8_indexed": lambda: serving_topn.launch_rows_indexed(
+            qq, qs, cq, cs, nbr, ALPHA, TOPN),
+    }
+    if hasattr(serving_topn, "launch_rows_at"):
+        addr = serving_topn._row_addresses(corpus, nbr)
+        calls["f32_in_place"] = lambda: serving_topn.launch_rows_at(
+            qf, addr, [corpus], ALPHA, TOPN)
+        calls["f32_n33"] = lambda: serving_topn.launch_rows(qf, rows, ALPHA,
+                                                            33)
+    # (variant library, call, ring depths by element size or None)
+    runs = {}
+    for mode, fn in calls.items():
+        for v in variants:
+            if v.startswith("stages"):
+                if mode in ("f32", "int8_indexed"):
+                    s32, s8 = (int(x) for x in v.split("_")[1:])
+                    runs[f"{mode}_{v}"] = (v, fn, {4: s32, 1: s8})
+            else:
+                runs[f"{mode}_{v}"] = (v, fn, None)
+    res = {"root": str(root), "kernel": "blend_topn_rows", "k": K}
+    lib_whole = libs["whole"]
+    if hasattr(lib_whole, REG_ENTRY):
+        # the register-fed experiment, f32 pre-fetched, on the same rows
+        q_addr = serving_topn._row_addresses(qf, torch.arange(Q, device=dev))
+        n_addr = serving_topn._row_addresses(
+            rows.reshape(Q * K, D), torch.arange(Q * K, device=dev)
+        ).reshape(Q, K)
+        n_tiles = -(-D // 1024)
+        part_v = torch.empty((Q, n_tiles, TOPN), device=dev)
+        part_i = torch.empty((Q, n_tiles, TOPN), dtype=torch.int32,
+                             device=dev)
+        out_v = torch.empty((Q, TOPN), device=dev)
+        out_i = torch.empty((Q, TOPN), dtype=torch.int32, device=dev)
+
+        def reg(unroll):
+            def fn():
+                build.check(getattr(lib_whole, REG_ENTRY)(
+                    q_addr.data_ptr(), n_addr.data_ptr(), Q, D, K, ALPHA,
+                    1.0 - ALPHA, TOPN, TOPN, 16, unroll, part_v.data_ptr(),
+                    part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream), "reg")
+                return out_v, out_i
+            return fn
+        for unroll in (1, 4, 8):
+            runs[f"f32_registers{unroll}"] = ("whole", reg(unroll), None)
+    default_stages = getattr(serving_topn, "ROWS_STAGES", None)
+
+    def use(lib, stages):
+        build._lib = libs[lib]
+        if default_stages is not None:
+            serving_topn.ROWS_STAGES = stages or default_stages
+
+    # each whole answer against the plain version and, bit for bit,
+    # against the sum in order j = 0..k-1
+    deq = (cq[nbr.long()].float() * cs[nbr.long()][..., None],
+           qq.float() * qs[:, None])
+    want = {"f32": (ref.blend_topn_rows_ref(qf, rows, ALPHA, TOPN),
+                    ordered_blend(qf, rows, TOPN)),
+            "int8": (ref.blend_topn_rows_quant_ref(
+                qq, qs, cq[nbr.long()], cs[nbr.long()], ALPHA, TOPN),
+                ordered_blend(deq[1], deq[0], TOPN))}
+    del deq
+    for name, (v, fn, stages) in runs.items():
+        if v in ("sum", "select") or "n33" in name:
+            continue
+        use(v, stages)
+        got_v, got_i = fn()
+        torch.cuda.synchronize()
+        plain, exact = want["int8" if name.startswith("int8") else "f32"]
+        res[f"{name}_max_abs_err"] = float((got_v - plain[0]).abs().max())
+        res[f"{name}_bitwise_ordered_sum"] = bool(
+            torch.equal(got_v, exact[0]) and torch.equal(got_i, exact[1]))
+    runs["f32_library"] = ("whole", lambda: torch.topk(
+        ALPHA * qf + (1.0 - ALPHA) * rows.mean(1), TOPN), None)
+    for rnd in range(2):   # each variant twice, in turns
+        for name, (lib, fn, stages) in (runs.items() if rnd == 0
+                                        else reversed(list(runs.items()))):
+            use(lib, stages)
+            res.setdefault(f"{name}_ms", []).append(time_ms(fn))
+    # device time of the kernels alone (the event times above hold the
+    # wrapper's host time on an idle card)
+    for name, (lib, fn, stages) in runs.items():
+        use(lib, stages)
+        names = ("",) if name.endswith("library") else \
+            ("rows_", "merge_lists_kernel")
+        res[f"{name}_device_ms"] = device_ms(fn, names)[0]
+    use("whole", None)
+    res["f32_bytes_bound_ms"] = Q * (K + 1) * D * 4 / 3.35e12 * 1e3
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def gather_main(root: Path, csrc: Path, build) -> int:
+    """``--kernel sparse_row_gather``: see the module's docstring."""
+    import time
+    from repro_torch.kernels import sparse_row_gather
+
+    libs = build_variants(build, csrc, root / "build" / "phase_split" /
+                          "sparse_row_gather", "sparse_row_gather",
+                          {"whole": (csrc / "sparse_row_gather.cu")
+                           .read_text()})
+    build._lib = libs["whole"]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    table = torch.rand((M, D), generator=gen, device=dev)
+    # the add applier's inputs: int64 users (batch.user.long()), int32
+    # support ids with PAD = -1
+    rows = torch.randint(0, M, (GATHER_U,), generator=gen, device=dev)
+    ids = torch.randint(0, D, (GATHER_U, GATHER_W), generator=gen,
+                        device=dev, dtype=torch.int32)
+    ids[torch.rand(ids.shape, generator=gen, device=dev) < 0.4] = -1
+    safe = torch.where(ids >= 0, ids, 0).long()
+    rows2d = rows[:, None].expand(GATHER_U, GATHER_W)
+    calls = {"gather": lambda: sparse_row_gather.launch(table, rows, ids),
+             "indexing": lambda: table[rows2d, safe]}
+    res = {"root": str(root), "kernel": "sparse_row_gather",
+           "shape": f"U={GATHER_U} W={GATHER_W} rows int64 ids int32"}
+    for rnd in range(2):
+        for name, fn in (calls.items() if rnd == 0
+                         else reversed(list(calls.items()))):
+            res.setdefault(f"{name}_ms", []).append(time_ms(fn))
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            h0 = time.perf_counter()
+            for _ in range(100):
+                fn()
+            host = (time.perf_counter() - h0) * 10
+            end.record()
+            end.synchronize()
+            res.setdefault(f"{name}_burst100_ms", []).append(
+                start.elapsed_time(end) / 100)
+            res.setdefault(f"{name}_host_ms", []).append(host)
+    for name, fn in calls.items():
+        own, _ = device_ms(fn, ("sparse_row_gather_kernel",)
+                                  if name == "gather" else ("",))
+        res[f"{name}_device_ms"] = own
+    print(json.dumps(res), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -138,6 +372,15 @@ def main() -> int:
     from repro_torch.optim.compression import quantize_int8_rows_pitched
 
     csrc = root / "src" / "repro_torch" / "kernels" / "csrc"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    if kernel == "blend_topn_rows":
+        return rows_main(root, csrc, build)
+    if kernel == "sparse_row_gather":
+        return gather_main(root, csrc, build)
     src = (csrc / f"{kernel}.cu").read_text()
     variants = {"whole": src,
                 "products": MERGE_CALL.sub(r"\1if (0) \2", src)}
@@ -150,12 +393,7 @@ def main() -> int:
     libs = build_variants(build, csrc, root / "build" / "phase_split" /
                           kernel, kernel, variants)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     corpus = torch.rand((M, D), generator=gen, device=dev)
