@@ -51,8 +51,6 @@ SIGNATURES: Dict[str, List] = {
                                _P, _I, _I, _P, _P, _P, _P, _P],
     "blend_rows_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I,
                           _I, _P, _I, _I, _P, _P, _P, _P, _P],
-    "blend_rows_reg_launch": [_P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I,
-                              _P, _P, _P, _P, _P],
     "decayed_scatter_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I,

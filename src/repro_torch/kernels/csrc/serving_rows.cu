@@ -21,11 +21,11 @@
 // Q=256, k=300, I=11,997; a quarter of that in int8), fewer distinct
 // bytes when they are corpus rows that queries share and L2 catches.
 //
-// Design.  One block per (query, 1,024-item tile): 8 consumer warps
-// (4 items a thread) and one producer warp.  The producer feeds a ring
-// of row tiles in shared memory with cp.async.bulk, each completing on
-// its slot's mbarrier, so STAGES rows are in flight per block whatever
-// the consumers do.  Rows lie at any 4-byte (f32) or 1-byte (int8)
+// Design.  One block per (query, tile of 4 KB of each row: 1,024 f32 or
+// 4,096 int8 items): 8 consumer warps (4 or 16 items a thread) and one
+// producer warp.  The producer feeds a ring of row tiles in shared
+// memory with cp.async.bulk, each completing on its slot's mbarrier, so
+// STAGES rows are in flight per block whatever the consumers do.  Rows lie at any 4-byte (f32) or 1-byte (int8)
 // alignment -- I = 11,997 gives a 47,988-byte pitch, 4 mod 16 -- so the
 // producer copies each tile's 16-byte-aligned superset and the slot's
 // header tells the consumers where the tile starts in it.  A copy never
@@ -49,29 +49,32 @@
 
 namespace {
 
-constexpr int BI = 1024;            // items per block
 constexpr int NT = 256;             // consumer threads
 constexpr int NW = NT / 32;         // consumer warps
 constexpr int THREADS = NT + 32;    // and one producer warp
-constexpr int IPT = BI / NT;        // items per consumer thread
 constexpr int MAX_SELECT = 32;      // top-n by selection up to this n
 constexpr int MAX_ENDS = 16;        // unaligned tensor ends a launch takes
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
-// ring depth by element type: 16 KB of f32 rows, 8 KB of int8 rows
+// items per block by element type (a 4 KB piece of each row) and ring
+// depth
 template <typename T>
-constexpr int kStages = sizeof(T) == 1 ? 8 : 4;
+constexpr int kTile = sizeof(T) == 1 ? 4096 : 1024;
+template <typename T>
+constexpr int kStages = sizeof(T) == 1 ? 8 : 8;
+template <typename T>
+constexpr int kIpt = kTile<T> / NT;   // items per consumer thread
 
 // a tile's bytes and the 16-byte-aligned superset a slot holds
 template <typename T>
-constexpr int kSlot = BI * (int)sizeof(T) + 16;
+constexpr int kSlot = kTile<T> * (int)sizeof(T) + 16;
 
 // shared memory: the ring (reused by the tile's lists once every row is
 // summed), one (offset, scale) header and two mbarriers per slot
 template <typename T, bool kSelect>
 __host__ __device__ constexpr int smem_bytes() {
   constexpr int ring = kStages<T> * kSlot<T>;
-  constexpr int lists = kSelect ? NW * MAX_SELECT * 8 : BI * 8;
+  constexpr int lists = kSelect ? NW * MAX_SELECT * 8 : kTile<T> * 8;
   return (ring > lists ? ring : lists) + kStages<T> * 24;
 }
 
@@ -143,11 +146,12 @@ __device__ __forceinline__ float row_value(unsigned long long row, int i,
 }
 
 // the tile item of a consumer thread's e-th value: f32 strided by NT (a
-// warp reads 128 consecutive bytes), int8 4 consecutive bytes a thread
+// warp reads 128 consecutive bytes), int8 in groups of 4 consecutive
+// bytes a thread (a warp reads 128 consecutive bytes per group)
 template <typename T>
 __device__ __forceinline__ int item_slot(int t, int e) {
   if constexpr (sizeof(T) == 1) {
-    return 4 * t + e;
+    return (e >> 2) * (4 * NT) + 4 * t + (e & 3);
   } else {
     return t + e * NT;
   }
@@ -206,7 +210,7 @@ __device__ __forceinline__ void produce_rows(
 
 // The consumer warps: every row of the tile into acc, in order j.
 template <typename T>
-__device__ __forceinline__ void consume_rows(float (&acc)[IPT],
+__device__ __forceinline__ void consume_rows(float (&acc)[kIpt<T>],
                                              const unsigned char* ring,
                                              const int2* header,
                                              uint32_t full, uint32_t empty,
@@ -219,22 +223,26 @@ __device__ __forceinline__ void consume_rows(float (&acc)[IPT],
     const unsigned char* base = ring + slot * kSlot<T>;
     if constexpr (sizeof(T) == 1) {
       const float scale = __int_as_float(h.y);
-      const int off = h.x + 4 * tid;
-      const uint32_t* w = reinterpret_cast<const uint32_t*>(base) + (off >> 2);
-      // the thread's 4 bytes, each biased to 0x4B0000xx = 2^23 + v + 128
-      const uint32_t b = __funnelshift_r(w[0], w[1], (off & 3) * 8) ^
-                         0x80808080u;
 #pragma unroll
-      for (int e = 0; e < IPT; ++e) {
-        const float v = __fsub_rn(
-            __int_as_float(__byte_perm(b, 0x4B000000u, 0x7540 + e)),
-            8388736.0f);
-        acc[e] = __fadd_rn(acc[e], __fmul_rn(v, scale));
+      for (int g = 0; g < kIpt<T> / 4; ++g) {
+        const int off = h.x + g * (4 * NT) + 4 * tid;
+        const uint32_t* w =
+            reinterpret_cast<const uint32_t*>(base) + (off >> 2);
+        // the group's 4 bytes, each biased to 0x4B0000xx = 2^23 + v + 128
+        const uint32_t b = __funnelshift_r(w[0], w[1], (off & 3) * 8) ^
+                           0x80808080u;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float v = __fsub_rn(
+              __int_as_float(__byte_perm(b, 0x4B000000u, 0x7540 + e)),
+              8388736.0f);
+          acc[4 * g + e] = __fadd_rn(acc[4 * g + e], __fmul_rn(v, scale));
+        }
       }
     } else {
       const float* r = reinterpret_cast<const float*>(base + h.x);
 #pragma unroll
-      for (int e = 0; e < IPT; ++e) {
+      for (int e = 0; e < kIpt<T>; ++e) {
         acc[e] = __fadd_rn(acc[e], r[tid + e * NT]);
       }
     }
@@ -259,6 +267,7 @@ __device__ __forceinline__ void warp_best(float& bv, int& bi) {
 // The tile's best L (<= 32) of the consumers' pv/pi, descending, into
 // out_v/out_i: each warp takes its best L by L warp argmaxes into wv/wi
 // [NW][MAX_SELECT]; warp 0 merges the NW lists the same way.
+template <int IPT>
 __device__ __forceinline__ void select_tile(float (&pv)[IPT], int (&pi)[IPT],
                                             float* wv, int* wi, int L,
                                             float* out_v, int* out_i,
@@ -312,15 +321,17 @@ __device__ __forceinline__ void select_tile(float (&pv)[IPT], int (&pi)[IPT],
 // (threads >= NT hold none); lists: shared memory free for them.
 template <typename T, bool kSelect>
 __device__ __forceinline__ void finish_tile(
-    const float (&acc)[IPT], const unsigned long long* __restrict__ q_rows,
+    const float (&acc)[kIpt<T>],
+    const unsigned long long* __restrict__ q_rows,
     const float* __restrict__ q_scale, unsigned char* lists, int I, int k,
     float alpha, float one_minus_alpha, int L, float* __restrict__ part_v,
     int* __restrict__ part_i) {
   constexpr bool kInt8 = sizeof(T) == 1;
+  constexpr int IPT = kIpt<T>;
   const int tile = blockIdx.x;
   const int qq = blockIdx.y;
   const int tid = threadIdx.x;
-  const int i0 = tile * BI;
+  const int i0 = tile * kTile<T>;
   float pv[IPT];
   int pi[IPT];
   const unsigned long long own = q_rows[qq];
@@ -346,7 +357,7 @@ __device__ __forceinline__ void finish_tile(
     select_tile(pv, pi, lv, reinterpret_cast<int*>(lv + NW * MAX_SELECT), L,
                 part_v + o, part_i + o, tid);
   } else {
-    int* li = reinterpret_cast<int*>(lv + BI);
+    int* li = reinterpret_cast<int*>(lv + kTile<T>);
     if (tid < NT) {
 #pragma unroll
       for (int e = 0; e < IPT; ++e) {
@@ -355,7 +366,7 @@ __device__ __forceinline__ void finish_tile(
       }
     }
     __syncthreads();
-    bitonic_sort_desc<true>(lv, li, BI, tid, blockDim.x);
+    bitonic_sort_desc<true>(lv, li, kTile<T>, tid, blockDim.x);
     for (int t = tid; t < L; t += blockDim.x) {
       part_v[o + t] = lv[t];
       part_i[o + t] = li[t];
@@ -381,7 +392,7 @@ __global__ void __launch_bounds__(THREADS) rows_ring_kernel(
 
   const int qq = blockIdx.y;
   const int tid = threadIdx.x;
-  const int i0 = blockIdx.x * BI;
+  const int i0 = blockIdx.x * kTile<T>;
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(full + 8 * s, 32);
@@ -391,70 +402,19 @@ __global__ void __launch_bounds__(THREADS) rows_ring_kernel(
   }
   __syncthreads();
 
-  float acc[IPT];
+  float acc[kIpt<T>];
 #pragma unroll
-  for (int e = 0; e < IPT; ++e) acc[e] = 0.0f;
+  for (int e = 0; e < kIpt<T>; ++e) acc[e] = 0.0f;
   if (tid >= NT) {
     produce_rows<T>(rows_smem, header, full, empty, nbr_rows + (size_t)qq * k,
                     nbr_scale + (kInt8 ? (size_t)qq * k : 0), ends, k, i0,
-                    min(I, i0 + BI), I, tid - NT);
+                    min(I, i0 + kTile<T>), I, tid - NT);
   } else {
     consume_rows<T>(acc, rows_smem, header, full, empty, k, tid);
   }
 
   finish_tile<T, kSelect>(acc, q_rows, q_scale, rows_smem, I, k, alpha,
                           one_minus_alpha, L, part_v, part_i);
-}
-
-// Experiment (f32 only): the rows read straight into registers, UNROLL
-// rows' loads issued before their adds, the same sums and epilogue.
-template <int UNROLL, bool kSelect>
-__global__ void __launch_bounds__(NT) rows_reg_kernel(
-    const unsigned long long* __restrict__ q_rows,
-    const unsigned long long* __restrict__ nbr_rows, int I, int k,
-    float alpha, float one_minus_alpha, int L, float* __restrict__ part_v,
-    int* __restrict__ part_i) {
-  extern __shared__ __align__(128) unsigned char rows_smem[];
-  constexpr int LISTS = kSelect ? NW * MAX_SELECT * 8 : BI * 8;
-  unsigned long long* rows =
-      reinterpret_cast<unsigned long long*>(rows_smem + LISTS);
-  const int tid = threadIdx.x;
-  const int i0 = blockIdx.x * BI;
-  for (int t = tid; t < k; t += NT) {
-    rows[t] = nbr_rows[(size_t)blockIdx.y * k + t];
-  }
-  __syncthreads();
-  float acc[IPT];
-#pragma unroll
-  for (int e = 0; e < IPT; ++e) acc[e] = 0.0f;
-  int j = 0;
-  for (; j + UNROLL <= k; j += UNROLL) {
-    float v[UNROLL][IPT];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const float* r = reinterpret_cast<const float*>(rows[j + u]);
-#pragma unroll
-      for (int e = 0; e < IPT; ++e) {
-        const int i = i0 + tid + e * NT;
-        v[u][e] = i < I ? __ldg(r + i) : 0.0f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-#pragma unroll
-      for (int e = 0; e < IPT; ++e) acc[e] = __fadd_rn(acc[e], v[u][e]);
-    }
-  }
-  for (; j < k; ++j) {
-    const float* r = reinterpret_cast<const float*>(rows[j]);
-#pragma unroll
-    for (int e = 0; e < IPT; ++e) {
-      const int i = i0 + tid + e * NT;
-      if (i < I) acc[e] = __fadd_rn(acc[e], __ldg(r + i));
-    }
-  }
-  finish_tile<float, kSelect>(acc, q_rows, nullptr, rows_smem, I, k, alpha,
-                              one_minus_alpha, L, part_v, part_i);
 }
 
 template <typename T, bool kSelect>
@@ -468,7 +428,7 @@ cudaError_t launch_tiles(const void* q_rows, const void* q_scale,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((I + BI - 1) / BI, Q);
+  const dim3 grid((I + kTile<T> - 1) / kTile<T>, Q);
   rows_ring_kernel<T, kSelect><<<grid, THREADS, smem, st>>>(
       (const unsigned long long*)q_rows, (const float*)q_scale,
       (const unsigned long long*)nbr_rows, (const float*)nbr_scale, ends, I,
@@ -483,7 +443,8 @@ cudaError_t launch_tiles(const void* q_rows, const void* q_scale,
 // f32[Q, k]; else f32 and both scales null).  The tensors holding the
 // neighbour rows start 16-byte aligned; ends: host array of the n_ends
 // (<= 16) of them whose end is not.  part_*: scratch [Q, n_tiles, L]
-// with L = min(topn, 1024), n_tiles = ceil(I / 1024); out_*: [Q, topn];
+// with L = min(topn, tile), n_tiles = ceil(I / tile), tile = kTile of
+// the element type; out_*: [Q, topn];
 // n2 = power of two >= max(L, topn), at most 1024.  smem: the tile
 // kernel's shared-memory bytes as the wrapper planned them (refused if
 // they differ from this file's).
@@ -530,50 +491,11 @@ extern "C" int blend_rows_launch(const void* q_rows, const void* q_scale,
                                               part_i, st);
   }
   if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (I + BI - 1) / BI;
+  const int tile = int8 ? kTile<int8_t> : kTile<float>;
+  const int n_tiles = (I + tile - 1) / tile;
   merge_lists_kernel<<<Q, 256, (size_t)n2 * 8, st>>>(
       (const float*)part_v, (const int*)part_i, n_tiles, L, n2, topn,
       (float*)out_v, (int*)out_i);
   return (int)cudaGetLastError();
 }
 
-// Experiment: blend_rows_launch's f32 contract (no ends, smem computed
-// here) on rows_reg_kernel with `unroll` (1, 4 or 8) rows in flight.
-extern "C" int blend_rows_reg_launch(const void* q_rows, const void* nbr_rows,
-                                     int Q, int I, int k, float alpha,
-                                     float one_minus_alpha, int topn, int L,
-                                     int n2, int unroll, void* part_v,
-                                     void* part_i, void* out_v, void* out_i,
-                                     void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (topn > MAX_SELECT || k < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)NW * MAX_SELECT * 8 + (size_t)k * 8;
-  const void* kernel = unroll == 8   ? (const void*)rows_reg_kernel<8, true>
-                       : unroll == 4 ? (const void*)rows_reg_kernel<4, true>
-                                     : (const void*)rows_reg_kernel<1, true>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((I + BI - 1) / BI, Q);
-  const auto* qr = (const unsigned long long*)q_rows;
-  const auto* nr = (const unsigned long long*)nbr_rows;
-  if (unroll == 8) {
-    rows_reg_kernel<8, true><<<grid, NT, smem, st>>>(
-        qr, nr, I, k, alpha, one_minus_alpha, L, (float*)part_v,
-        (int*)part_i);
-  } else if (unroll == 4) {
-    rows_reg_kernel<4, true><<<grid, NT, smem, st>>>(
-        qr, nr, I, k, alpha, one_minus_alpha, L, (float*)part_v,
-        (int*)part_i);
-  } else {
-    rows_reg_kernel<1, true><<<grid, NT, smem, st>>>(
-        qr, nr, I, k, alpha, one_minus_alpha, L, (float*)part_v,
-        (int*)part_i);
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  merge_lists_kernel<<<Q, 256, (size_t)n2 * 8, st>>>(
-      (const float*)part_v, (const int*)part_i, (I + BI - 1) / BI, L, n2,
-      topn, (float*)out_v, (int*)out_i);
-  return (int)cudaGetLastError();
-}

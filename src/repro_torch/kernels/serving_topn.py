@@ -38,13 +38,14 @@ from repro_torch.kernels import build
 
 MAX_TOPN = 1024   # largest list the merge keeps per query
 _BI = 1024        # items per block of csrc/serving_topn.cu
-# csrc/serving_rows.cu: items per block, threads (8 consumer warps and a
-# producer warp), ring depth by element size, the largest n taken by
-# selection (a bitonic sort of the tile above it), and how many tensors
-# whose end is not 16-byte aligned one launch takes
-ROWS_BI = 1024
+# csrc/serving_rows.cu: items per block and ring depth by element size
+# (4 KB of each row a block), threads (8 consumer warps and a producer
+# warp), the largest n taken by selection (a bitonic sort of the tile
+# above it), and how many tensors whose end is not 16-byte aligned one
+# launch takes
+ROWS_TILE = {4: 1024, 1: 4096}
+ROWS_STAGES = {4: 8, 1: 8}
 ROWS_THREADS = 288
-ROWS_STAGES = {4: 4, 1: 8}
 ROWS_MAX_SELECT = 32
 ROWS_MAX_ENDS = 16
 
@@ -53,8 +54,9 @@ class RowsPlan(NamedTuple):
     """How ``csrc/serving_rows.cu`` cuts one launch."""
 
     select: bool      # the tile's top n by selection (else bitonic sort)
+    tile: int         # items per block
     stages: int       # rows in flight per block (ring slots)
-    n_tiles: int      # 1,024-item tiles per query
+    n_tiles: int      # tiles per query
     list_len: int     # entries each tile keeps (L)
     n2: int           # the merge's power-of-two list
     smem_bytes: int   # the tile kernel's dynamic shared memory
@@ -66,7 +68,7 @@ def plan_rows(q_n: int, n_items: int, topn: int, elem_size: int
     """The row blend's plan for Q queries over rows of ``n_items``
     elements of ``elem_size`` bytes (4: f32, 1: int8).
 
-    A ring slot holds a tile's 16-byte-aligned superset (1,024 elements
+    A ring slot holds a tile's 16-byte-aligned superset (the tile's 4 KB
     + 16 bytes); the tile's lists reuse the ring once its rows are
     summed; each slot adds a header and two mbarriers (24 bytes).  The C
     entry refuses a launch whose bytes differ.
@@ -75,12 +77,12 @@ def plan_rows(q_n: int, n_items: int, topn: int, elem_size: int
         raise ValueError(f"topn={topn} outside [1, min(I={n_items}, "
                          f"{MAX_TOPN})]")
     select = topn <= ROWS_MAX_SELECT
-    stages = ROWS_STAGES[elem_size]
-    ring = stages * (ROWS_BI * elem_size + 16)
+    tile, stages = ROWS_TILE[elem_size], ROWS_STAGES[elem_size]
+    ring = stages * (tile * elem_size + 16)
     lists = (ROWS_THREADS // 32 - 1) * ROWS_MAX_SELECT * 8 if select \
-        else ROWS_BI * 8
-    n_tiles = -(-n_items // ROWS_BI)
-    return RowsPlan(select, stages, n_tiles, min(topn, ROWS_BI),
+        else tile * 8
+    n_tiles = -(-n_items // tile)
+    return RowsPlan(select, tile, stages, n_tiles, min(topn, tile),
                     1 << max(0, (topn - 1).bit_length()),
                     max(ring, lists) + stages * 24, (n_tiles, q_n))
 

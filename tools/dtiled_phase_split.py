@@ -17,7 +17,7 @@ difference of the two is the merge.
   (``sum``: the blend and selection compiled out) and with the
   selection and merge alone (``select``: the row feed and sum compiled
   out), beside gather + mean + ``topk`` on the pre-fetched rows; where
-  the source has them, its register-fed f32 variants and other ring
+  the source plans them by element type, other tile widths and ring
   depths too; the parent's design (``--root``) split the same way (its
   sort compiled out, its rows loop run no time).  Every whole answer is
   held bitwise against the sum in order j = 0..k-1 in torch, and every
@@ -74,13 +74,17 @@ FINISH_CALL = re.compile(r"finish_tile<[^;]*;")
 SUM_SINK = ("if (threadIdx.x < NT) part_v[(size_t)blockIdx.y * gridDim.x "
             "+ blockIdx.x] = acc[0] + acc[1] + acc[2] + acc[3];")
 FEED_CALLS = re.compile(r"(produce_rows|consume_rows)<T>\([^;]*;")
-REG_ENTRY = "blend_rows_reg_launch"
 # the parent's design: its sort, and its rows loop run no time
 PARENT_SORT = "bitonic_sort_desc<true>(tv, ti, BI, tid, NT);"
 PARENT_LOOP = "for (int j = 0; j < k; ++j) {"
 PARENT_NO_LOOP = "for (int j = 0; j < 0; ++j) {"
-STAGES_LINE = re.compile(
+# serving_rows.cu's tile width and ring depth by element type
+PLAN_LINES = re.compile(
+    r"constexpr int kTile = sizeof\(T\) == 1 \? \d+ : \d+;(.*\n)*?.*"
     r"constexpr int kStages = sizeof\(T\) == 1 \? \d+ : \d+;")
+# (f32 tile, int8 tile, f32 depth, int8 depth) of the other plans timed
+ROWS_PLANS = ((1024, 1024, 8, 8), (2048, 2048, 4, 4), (1024, 4096, 4, 4),
+              (1024, 4096, 8, 16))
 M, D, Q, K, BD = 13949, 11997, 256, 300, 512
 ALPHA, TOPN = 0.7, 10
 GATHER_U, GATHER_W = 512, 168     # the add path's sub-batch
@@ -148,11 +152,9 @@ def build_variants(build, csrc: Path, out: Path, kernel: str,
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
         lib = ctypes.CDLL(str(out / name / "lib.so"))
-        for entry in (ENTRIES[kernel], REG_ENTRY):
-            if entry in build.SIGNATURES and hasattr(lib, entry):
-                fn = getattr(lib, entry)
-                fn.argtypes = build.SIGNATURES[entry]
-                fn.restype = ctypes.c_int
+        fn = getattr(lib, ENTRIES[kernel])
+        fn.argtypes = build.SIGNATURES[ENTRIES[kernel]]
+        fn.restype = ctypes.c_int
         libs[name] = lib
     return libs
 
@@ -172,9 +174,10 @@ def ordered_blend(x, rows, topn):
 
 def rows_variants(src: str) -> dict:
     """serving_rows.cu's variants: whole, the sum alone, the selection
-    alone and, where the source plans its ring depth, other depths
-    (named ``stages_<f32>_<int8>``).  The parent's design (one rows loop
-    and a bitonic sort of the tile) gets the same two phases."""
+    alone and, where the source plans its tile and ring depth by element
+    type, the other plans of ``ROWS_PLANS`` (named ``plan_<f32 tile>_<int8
+    tile>_<f32 depth>_<int8 depth>``).  The parent's design (one rows
+    loop and a bitonic sort of the tile) gets the same two phases."""
     variants = {"whole": src}
     if FINISH_CALL.search(src) and FEED_CALLS.search(src):
         variants["sum"] = FINISH_CALL.sub(SUM_SINK, src)
@@ -182,10 +185,13 @@ def rows_variants(src: str) -> dict:
     elif PARENT_SORT in src and PARENT_LOOP in src:
         variants["sum"] = src.replace(PARENT_SORT, "")
         variants["select"] = src.replace(PARENT_LOOP, PARENT_NO_LOOP)
-    if STAGES_LINE.search(src):
-        for s32, s8 in ((2, 8), (8, 8), (4, 4), (4, 16)):
-            variants[f"stages_{s32}_{s8}"] = STAGES_LINE.sub(
-                f"constexpr int kStages = sizeof(T) == 1 ? {s8} : {s32};", src)
+    if PLAN_LINES.search(src):
+        for t32, t8, s32, s8 in ROWS_PLANS:
+            variants[f"plan_{t32}_{t8}_{s32}_{s8}"] = PLAN_LINES.sub(
+                f"constexpr int kTile = sizeof(T) == 1 ? {t8} : {t32};\n"
+                "template <typename T>\n"
+                f"constexpr int kStages = sizeof(T) == 1 ? {s8} : {s32};",
+                src)
     return variants
 
 
@@ -223,44 +229,22 @@ def rows_main(root: Path, csrc: Path, build) -> int:
     runs = {}
     for mode, fn in calls.items():
         for v in variants:
-            if v.startswith("stages"):
+            if v.startswith("plan"):
                 if mode in ("f32", "int8_indexed"):
-                    s32, s8 = (int(x) for x in v.split("_")[1:])
-                    runs[f"{mode}_{v}"] = (v, fn, {4: s32, 1: s8})
+                    t32, t8, s32, s8 = (int(x) for x in v.split("_")[1:])
+                    runs[f"{mode}_{v}"] = (v, fn, ({4: t32, 1: t8},
+                                                   {4: s32, 1: s8}))
             else:
                 runs[f"{mode}_{v}"] = (v, fn, None)
     res = {"root": str(root), "kernel": "blend_topn_rows", "k": K}
-    lib_whole = libs["whole"]
-    if hasattr(lib_whole, REG_ENTRY):
-        # the register-fed experiment, f32 pre-fetched, on the same rows
-        q_addr = serving_topn._row_addresses(qf, torch.arange(Q, device=dev))
-        n_addr = serving_topn._row_addresses(
-            rows.reshape(Q * K, D), torch.arange(Q * K, device=dev)
-        ).reshape(Q, K)
-        n_tiles = -(-D // 1024)
-        part_v = torch.empty((Q, n_tiles, TOPN), device=dev)
-        part_i = torch.empty((Q, n_tiles, TOPN), dtype=torch.int32,
-                             device=dev)
-        out_v = torch.empty((Q, TOPN), device=dev)
-        out_i = torch.empty((Q, TOPN), dtype=torch.int32, device=dev)
+    default_plan = (getattr(serving_topn, "ROWS_TILE", None),
+                    getattr(serving_topn, "ROWS_STAGES", None))
 
-        def reg(unroll):
-            def fn():
-                build.check(getattr(lib_whole, REG_ENTRY)(
-                    q_addr.data_ptr(), n_addr.data_ptr(), Q, D, K, ALPHA,
-                    1.0 - ALPHA, TOPN, TOPN, 16, unroll, part_v.data_ptr(),
-                    part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-                    torch.cuda.current_stream().cuda_stream), "reg")
-                return out_v, out_i
-            return fn
-        for unroll in (1, 4, 8):
-            runs[f"f32_registers{unroll}"] = ("whole", reg(unroll), None)
-    default_stages = getattr(serving_topn, "ROWS_STAGES", None)
-
-    def use(lib, stages):
+    def use(lib, plan):
         build._lib = libs[lib]
-        if default_stages is not None:
-            serving_topn.ROWS_STAGES = stages or default_stages
+        if default_plan[0] is not None:
+            serving_topn.ROWS_TILE, serving_topn.ROWS_STAGES = \
+                plan or default_plan
 
     # each whole answer against the plain version and, bit for bit,
     # against the sum in order j = 0..k-1
