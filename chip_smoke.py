@@ -12,8 +12,12 @@ Phases, each fatal on failure (nothing is caught):
 3. kernel checks -- each kernel against its plain PyTorch version on the
    card at the main path's shapes (TaFeng at its published size), with
    the kernel's, the plain version's and one PyTorch yardstick's median
-   times, and the kernel's bound from this run's bytes and operations;
-   then the edge cases of the multi-hot scatter and of attention;
+   times, and the kernel's bound from this run's bytes and operations
+   (the sparse gather at the appliers' int64 rows and int32 ids, also
+   by a burst of 100, the profiler and the host clock; the row blend
+   bitwise the sum in order j = 0..k-1, also by a burst of 10 and the
+   profiler); then the edge cases of the multi-hot scatter and of
+   attention;
 4. main path -- the port's serving trickle (``launch/serve.py``,
    ``run_trickle(quantized=True)``) at full width: 13,949 users x 11,997
    items, m=7, k=300, alpha=0.7, a bulk load of one mixed stream in
@@ -30,8 +34,11 @@ Phases, each fatal on failure (nothing is caught):
 6. cross-shard serving -- that corpus split round-robin into 2 shards
    on the one card, ``knn.sharded_recommend_for_users`` and
    ``sharded_recommend_for_users_quant`` for the last request's users
-   (counts reset before, read after), held against the single-corpus
-   answers and the plain versions, each shard's int8 candidates bitwise;
+   (counts reset before, read after; the selected rows read in place
+   from the shard corpora), held against the single-corpus answers, the
+   plain versions and, identical, the pre-fetched route (the selected
+   rows gathered first), each shard's int8 candidates bitwise; both
+   routes' request times on the host clock;
 7. from-scratch rebuild -- every user's Eq. 1+2 vector rebuilt from the
    main path's final state in one batched ``ops.multihot_scatter``
    (counts reset before, read after), held against its plain version
@@ -185,16 +192,54 @@ def sparse_inputs(gen, m, n_items, u, w, dev):
     return rows.to(torch.int32), ids.to(torch.int32), vals
 
 
+def three_readings(fn, names, reps: int = 5) -> dict:
+    """A call's time three ways, and its host time: one call between two
+    events (``ms``, holding the wrapper's host time on an idle card), a
+    burst of 100 back to back between two events, per call
+    (``burst_ms``), the profiler's device time per recorded launch of
+    ``names`` (``device_ms``), and the host clock around
+    the burst's calls, per call, with no sync (``host_ms``)."""
+    out = dict(ms=time_ms(fn))
+    own, _, n_rec = device_ms(fn, names, reps)
+    # per launch the trace recorded (a trace can miss one); every kernel
+    # of a call ("") per call
+    out["device_ms"] = own if names == ("",) else own * reps / n_rec
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    h0 = time.perf_counter()
+    for _ in range(100):
+        fn()
+    out["host_ms"] = (time.perf_counter() - h0) * 10
+    end.record()
+    end.synchronize()
+    out["burst_ms"] = start.elapsed_time(end) / 100
+    return out
+
+
+def readings_str(r) -> str:
+    return (f"{r['ms']:.4f} ms one call, {r['burst_ms']:.4f} a call in a "
+            f"burst of 100, {r['device_ms']:.4f} device, {r['host_ms']:.4f}"
+            f" host")
+
+
 def check_sparse(gen, table, u, w_add, w_del, records):
     m, n_items = table.shape
     dev = table.device
     for label, w in (("add", w_add), ("delete", w_del)):
         rows, ids, vals = sparse_inputs(gen, m, n_items, u, w, dev)
-        got = sparse_row_gather.launch(table, rows, ids)
+        # the appliers' dtypes: int64 rows (batch.user.long()), int32 ids;
+        # every other pair of index dtypes reads the same
+        got = sparse_row_gather.launch(table, rows.long(), ids)
         exp = ref.sparse_row_gather_ref(table, rows, ids)
         torch.cuda.synchronize()
         g_err = float((got - exp).abs().max())
         assert torch.equal(got, exp), f"gather ({label}) differs: {g_err}"
+        for r_dt, i_dt in ((torch.int32, torch.int32),
+                           (torch.int32, torch.int64),
+                           (torch.int64, torch.int64)):
+            assert torch.equal(sparse_row_gather.launch(
+                table, rows.to(r_dt), ids.to(i_dt)), exp), (r_dt, i_dt)
 
         t_k, t_p = table.clone(), table.clone()
         sparse_row_scatter.launch(t_k, rows, ids, vals)
@@ -220,14 +265,17 @@ def check_sparse(gen, table, u, w_add, w_del, records):
         idx_bytes = u * 4 + u * w * 4
         safe_ids = torch.where(valid, ids, torch.zeros_like(ids)).long()
         safe_vals = torch.where(valid, vals, torch.zeros_like(vals))
-        rows2d = rows.long()[:, None].expand(u, w)
+        rows64 = rows.long()
+        rows2d = rows64[:, None].expand(u, w)
         t_bench = table.clone()
+        gather = three_readings(lambda: sparse_row_gather.launch(
+            table, rows64, ids), ("sparse_row_gather_kernel",))
+        indexing = three_readings(lambda: table[rows2d, safe_ids], ("",))
         timings = dict(
-            gather=time_ms(lambda: sparse_row_gather.launch(table, rows,
-                                                            ids)),
+            gather=gather["ms"],
             gather_plain=time_ms(lambda: ref.sparse_row_gather_ref(
-                table, rows, ids)),
-            gather_lib=time_ms(lambda: table[rows2d, safe_ids]),
+                table, rows64, ids)),
+            gather_lib=indexing["ms"],
             scatter=time_ms(lambda: sparse_row_scatter.launch(
                 t_bench, rows, ids, vals)),
             scatter_plain=time_ms(lambda: ref.sparse_row_scatter_ref(
@@ -236,10 +284,10 @@ def check_sparse(gen, table, u, w_add, w_del, records):
                 (rows2d, safe_ids), safe_vals, accumulate=True)))
         del t_bench
         log(f"  sparse pair, {label} path U={u} W={w} "
-            f"({n_valid} valid ids, {n_cells} distinct cells): gather "
-            f"{timings['gather']:.4f} ms (plain "
-            f"{timings['gather_plain']:.4f}, indexing "
-            f"{timings['gather_lib']:.4f}), scatter "
+            f"({n_valid} valid ids, {n_cells} distinct cells): gather at "
+            f"int64 rows and int32 ids {readings_str(gather)} (indexing "
+            f"{readings_str(indexing)}; plain "
+            f"{timings['gather_plain']:.4f}), scatter "
             f"{timings['scatter']:.4f} ms (plain "
             f"{timings['scatter_plain']:.4f}, index_put_ "
             f"{timings['scatter_lib']:.4f}); max |err| gather {g_err} "
@@ -249,8 +297,9 @@ def check_sparse(gen, table, u, w_add, w_del, records):
                 max_abs_err=g_err, ms=timings["gather"],
                 plain_ms=timings["gather_plain"],
                 library_ms=timings["gather_lib"],
-                shape=f"U={u} W={w}",
-                bound=bound(idx_bytes + n_valid * 4 + u * w * 4, 0))
+                shape=f"U={u} W={w} int64 rows, int32 ids",
+                bound=bound(u * 8 + u * w * 4 + n_valid * 4 + u * w * 4,
+                            0))
             records["sparse_row_scatter"] = dict(
                 max_abs_err=s_err, ms=timings["scatter"],
                 plain_ms=timings["scatter_plain"],
@@ -763,17 +812,38 @@ def million_path(dev):
     return out, launches
 
 
+def ordered_blend(x, rows, topn):
+    """The row blend summed in order j = 0..k-1 by separate round-to-
+    nearest torch ops, as the kernel sums: (values, items) of the top
+    ``topn``, ties to the lower item."""
+    acc = torch.zeros_like(x)
+    for j in range(rows.shape[1]):
+        acc = acc + rows[:, j]
+    pred = ALPHA * x + (1.0 - ALPHA) * (acc / torch.full_like(
+        acc, rows.shape[1]))
+    v, i = torch.sort(pred, dim=1, descending=True, stable=True)
+    return v[:, :topn], i[:, :topn].to(torch.int32)
+
+
 def check_rows(corpus, c_int, cq, cs, uid, nbr, records):
     """Stage B over fetched rows at Q=256, k=300, n=10, I=11,997: fp32
-    (pre-fetched) and int8 (pre-fetched and read from the corpus)
-    against their plain versions; ids exact on the integer corpus."""
+    (pre-fetched and read in place) and int8 (pre-fetched and read from
+    the corpus) bitwise against the sum in order j = 0..k-1 and against
+    their plain versions; ids exact on the integer corpus."""
     u, nb = uid.long(), nbr.long()
     k = nb.shape[1]
     rows = corpus[nb]                                # 3.7 GB
     vk, ik = serving_topn.launch_rows(corpus[u], rows, ALPHA, TOPN)
+    vx, ix = serving_topn.launch_rows_at(
+        corpus[u], serving_topn._row_addresses(corpus, nb), [corpus],
+        ALPHA, TOPN)
     vp, ip = ref.blend_topn_rows_ref(corpus[u], rows, ALPHA, TOPN)
+    vo, io = ordered_blend(corpus[u], rows, TOPN)
     pred = ALPHA * corpus[u] + (1.0 - ALPHA) * rows.mean(1)
     torch.cuda.synchronize()
+    assert same(vk, vo) and torch.equal(ik, io), \
+        "blend_topn_rows is not the sum in order j = 0..k-1"
+    assert same(vk, vx) and torch.equal(ik, ix), "in place and pre-fetched"
     err_f = float((vk - vp).abs().max())
     # fp32 sums of k rows in another order
     assert torch.allclose(vk, vp, rtol=1e-5, atol=1e-6), err_f
@@ -788,8 +858,11 @@ def check_rows(corpus, c_int, cq, cs, uid, nbr, records):
                                            ALPHA, TOPN)
     deq = dequantize_int8_rows(cq, cs)
     pred = ALPHA * deq[u] + (1.0 - ALPHA) * deq[nb].mean(1)
+    vo, io = ordered_blend(deq[u], deq[nb], TOPN)
     torch.cuda.synchronize()
     assert same(vk, vx) and same(ik, ix), "indexed and pre-fetched differ"
+    assert same(vk, vo) and torch.equal(ik, io), \
+        "blend_topn_rows_quant is not the sum in order j = 0..k-1"
     err_q = float((vk - vp).abs().max())
     assert torch.allclose(vk, vp, rtol=1e-5, atol=1e-6), err_q
     assert torch.allclose(pred.gather(1, ik.long()), vp, rtol=1e-5,
@@ -808,28 +881,50 @@ def check_rows(corpus, c_int, cq, cs, uid, nbr, records):
         assert torch.equal(got[1], exp[1]), "row blend tie-break differs"
         assert torch.allclose(got[0], exp[0], rtol=1e-6), "integer values"
     log(f"  stage B over rows k={k} n={TOPN}: fp32 max |err| {err_f}, int8 "
-        f"max |err| {err_q} (indexed = pre-fetched), integer ties exact")
+        f"max |err| {err_q}; both bitwise the sum in order j = 0..k-1 "
+        f"(in place = pre-fetched, indexed = pre-fetched); integer ties "
+        f"exact")
     del ci8, ci_s
     n_items = corpus.shape[1]
     used = torch.unique(torch.cat([nb.reshape(-1), u]))
     qf, qq, qs = corpus[u], cq[u], cs[u]
     # Q*(k+1)*I adds (int8: multiply-adds) in FMA slots, two operations
     ops_b = 2.0 * Q * (k + 1) * n_items
+    # one call by events, as in the table; beside it a burst of 10 by
+    # events and the profiler's time per recorded launch of both kernels
+    def b7():
+        return serving_topn.launch_rows(qf, rows, ALPHA, TOPN)
+
+    def b6():
+        return serving_topn.launch_rows_indexed(qq, qs, cq, cs, nbr, ALPHA,
+                                                TOPN)
+    own, _, n_rec = device_ms(b7, ("rows_ring_kernel", "merge_lists_kernel"))
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(10):
+        b7()
+    end.record()
+    end.synchronize()
     records["blend_topn_rows"] = dict(
         max_abs_err=err_f, shape=f"Q={Q} k={k} I={n_items} n={TOPN} "
                                  "pre-fetched f32",
-        ms=time_ms(lambda: serving_topn.launch_rows(qf, rows, ALPHA, TOPN)),
+        ms=time_ms(b7), burst_ms=start.elapsed_time(end) / 10,
+        device_ms=own * 5 / max(1, n_rec // 2),
+        in_place_ms=time_ms(lambda: serving_topn.launch_rows_at(
+            qf, serving_topn._row_addresses(corpus, nb), [corpus], ALPHA,
+            TOPN)),
         plain_ms=time_ms(lambda: ref.blend_topn_rows_ref(qf, rows, ALPHA,
                                                          TOPN)),
         library_ms=time_ms(lambda: torch.topk(
             ALPHA * qf + (1.0 - ALPHA) * rows.mean(1), TOPN)),
         bound=bound(Q * (k + 1) * n_items * 4 + Q * TOPN * 8, ops_b))
     del rows
+    own, _, n_rec = device_ms(b6, ("rows_ring_kernel", "merge_lists_kernel"))
     records["blend_topn_rows_quant"] = dict(
         max_abs_err=err_q, shape=f"Q={Q} k={k} I={n_items} n={TOPN} int8 "
                                  "rows read from the corpus",
-        ms=time_ms(lambda: serving_topn.launch_rows_indexed(
-            qq, qs, cq, cs, nbr, ALPHA, TOPN)),
+        ms=time_ms(b6), device_ms=own * 5 / max(1, n_rec // 2),
         prefetched_ms=time_ms(lambda: serving_topn.launch_rows(
             qq, rows_q, ALPHA, TOPN, q_scale=qs, n_scale=n_scale)),
         plain_ms=time_ms(lambda: ref.blend_topn_rows_quant_ref(
@@ -842,10 +937,14 @@ def check_rows(corpus, c_int, cq, cs, uid, nbr, records):
                     ops_b))
     for name in ("blend_topn_rows", "blend_topn_rows_quant"):
         r = records[name]
-        log(f"  {name} timed: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+        log(f"  {name} timed: {r['ms']:.4f} ms one call, profiler "
+            f"{r['device_ms']:.4f} ms a launch (plain {r['plain_ms']:.4f}, "
             f"library {r['library_ms']:.4f})"
             + (f"; pre-fetched int8 rows {r['prefetched_ms']:.4f} ms"
-               if "prefetched_ms" in r else ""))
+               if "prefetched_ms" in r else "")
+            + (f"; {r['burst_ms']:.4f} ms a call in a burst of 10; rows "
+               f"read in place from the corpus {r['in_place_ms']:.4f} ms"
+               if "burst_ms" in r else ""))
 
 
 # ---------------------------------------------------------------------------
@@ -1007,6 +1106,52 @@ def dtiled_path(kern, p, dev):
     return launches
 
 
+def sharded_prefetched(corpora, users, k, alpha, n_shards):
+    """The fp32 sharded pipeline as it ran before the rows were read in
+    place: the same candidates and merge, then the selected rows
+    gathered, [Q, k, I], for the row blend (the route the plain path
+    keeps).  Returns the top-n ids."""
+    uid = torch.as_tensor(np.asarray(users, np.int64),
+                          device=corpora[0].device)
+    queries = knn._owner_rows(corpora, uid, n_shards)
+    vals, gids = zip(*(knn.shard_topk_candidates(
+        queries, c, k, s, n_shards, query_ids=uid.to(torch.int32))
+        for s, c in enumerate(corpora)))
+    sel = knn._merge_candidates(list(vals), list(gids), k)
+    return ops.blend_topn_rows(
+        queries, knn._owner_rows(corpora, sel, n_shards), alpha, TOPN)
+
+
+def sharded_prefetched_quant(quant, users, k, alpha, n_shards):
+    """The int8 twin of :func:`sharded_prefetched`."""
+    cqs, css = [q for q, _ in quant], [s for _, s in quant]
+    uid = torch.as_tensor(np.asarray(users, np.int64), device=cqs[0].device)
+    queries_q = knn._owner_rows(cqs, uid, n_shards)
+    q_scale = knn._owner_rows(css, uid, n_shards)
+    vals, gids = zip(*(ops.shard_topk_quant(
+        queries_q, q_scale, cq, cs, k, shard=s, n_shards=n_shards,
+        query_gids=uid.to(torch.int32), bd=BD)
+        for s, (cq, cs) in enumerate(quant)))
+    sel = knn._merge_candidates(list(vals), list(gids), k)
+    return ops.blend_topn_rows_quant(
+        queries_q, q_scale, knn._owner_rows(cqs, sel, n_shards),
+        knn._owner_rows(css, sel, n_shards), alpha, TOPN)
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Median host-clock time of ``fn`` ended by a sync, after a warm-up
+    (a request as its caller waits for it)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
 def sharded_path(kern, p, dev):
     """Phase 6: the last corpus split round-robin into 2 shards on the
     one card; both sharded pipelines for the last request's users."""
@@ -1033,6 +1178,24 @@ def sharded_path(kern, p, dev):
     for name in ("knn_topk", "blend_topn_rows", "knn_topk_dtiled",
                  "blend_topn_rows_quant"):
         assert launches[name] > 0, f"{name} was not launched on path 6"
+    # the rows read in place answer as the pre-fetched rows do (the sums
+    # run in the same order), and each route's request time
+    pre_args = (users, p.k_neighbors, p.alpha, 2)
+    pre = sharded_prefetched(corpora, *pre_args)
+    pre_q = sharded_prefetched_quant(quant, *pre_args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pre) and torch.equal(got_q, pre_q), \
+        "in place and pre-fetched cross-shard answers differ"
+    times = [host_ms(lambda: knn.sharded_recommend_for_users(corpora,
+                                                             *args)),
+             host_ms(lambda: sharded_prefetched(corpora, *pre_args)),
+             host_ms(lambda: knn.sharded_recommend_for_users_quant(
+                 quant, *args, bd=BD)),
+             host_ms(lambda: sharded_prefetched_quant(quant, *pre_args))]
+    log(f"  2-shard requests of {len(users)} users, host clock: fp32 "
+        f"{times[0]:.3f} ms with the rows read in place, {times[1]:.3f} "
+        f"pre-fetched; int8 {times[2]:.3f} ms in place, {times[3]:.3f} "
+        f"pre-fetched; the answers identical, fp32 and int8")
     got, got_q = got.cpu().numpy(), got_q.cpu().numpy()
     uid = torch.as_tensor(users, dtype=torch.int32, device=dev)
     deq = dequantize_int8_rows(cq, cs)
@@ -1512,7 +1675,8 @@ def main() -> int:
     build.library(verbose=True)
     log(f"build: {time.perf_counter() - t0:.1f} s")
     entry = ""
-    spills = {"knn_tile_kernel": [], "flash_wgmma_kernel": []}
+    spills = {"knn_tile_kernel": [], "flash_wgmma_kernel": [],
+              "rows_ring_kernel": [], "sparse_row_gather_kernel": []}
     for line in build.last_build_log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]          # the mangled kernel name
@@ -1521,10 +1685,13 @@ def main() -> int:
             for name, found in spills.items():
                 if name in entry and "spill" in line:
                     found.append(line.strip())
-    # every instantiation of B3's tile kernel and of B9's Hopper design,
-    # none with a spill
+    # every instantiation of B3's tile kernel, of B9's Hopper design, of
+    # B6/B7's ring (f32 and int8, selection and sort) and of B1 (int32 or
+    # int64 rows and ids), none with a spill
     assert len(spills["knn_tile_kernel"]) == len(knn_topk.KNN_SHAPES)
     assert len(spills["flash_wgmma_kernel"]) == len(flash_attention.WGMMA_BQ)
+    assert len(spills["rows_ring_kernel"]) == 4
+    assert len(spills["sparse_row_gather_kernel"]) == 4
     assert all("0 bytes spill stores, 0 bytes spill loads" in x
                for found in spills.values() for x in found), spills
 

@@ -49,8 +49,9 @@ SIGNATURES: Dict[str, List] = {
     "knn_topk_dtiled_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _L, _L, _I, _I, _I, _I, _P,
                                _P, _I, _I, _P, _P, _P, _P, _P],
-    "blend_rows_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I,
-                          _I, _P, _I, _I, _P, _P, _P, _P, _P],
+    "blend_rows_launch": [_P, _L, _P, _P, _L, _P, _I, _P, _I, _I, _I, _I,
+                          _I, _F, _F, _I, _I, _I, _P, _I, _I, _P, _P, _P,
+                          _P, _P],
     "decayed_scatter_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I,
@@ -171,7 +172,11 @@ def check(code: int, what: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """Handle of PyTorch's current stream on ``t``'s device."""
+    """Handle of PyTorch's current stream on ``t``'s device (the raw
+    getter where PyTorch has it: no Stream object a call)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
@@ -210,7 +215,7 @@ def index_as_given(t: torch.Tensor, what: str, device: torch.device,
     """Check an index input (int32 or int64) and return it contiguous in
     its own dtype: no cast, and no copy when it is contiguous already.
     Checks dtype, rank and device only, so nothing waits on the card."""
-    if isinstance(t, torch.Tensor) and t.is_cuda and not t.is_contiguous():
+    if isinstance(t, torch.Tensor) and not t.is_contiguous():
         t = t.contiguous()
     return cuda_input(t, what, INDEX_DTYPES, device, ndim)
 

@@ -10,11 +10,13 @@
 // the final stage of cross-shard serving (and of int8 serving), which
 // walk [bq, k, bi] blocks of pre-fetched rows.
 //
-// The kernel takes the address of every row: one per query and one per
-// (query, neighbour).  The wrappers point them into pre-fetched rows
-// [Q, k, I] (the JAX signature), into the corpus rows that stage A
-// selected (int8 serving on one corpus), or into the shard corpora
-// (cross-shard serving), so the last two never write a [Q, k, I] gather.
+// The kernel finds every row from a base address, a pitch and, where
+// given, an index per (query, neighbour) (struct Rows).  The wrappers
+// point it at pre-fetched rows [Q, k, I] (the JAX signature: no index),
+// at the corpus rows that stage A selected (int8 serving on one corpus:
+// stage A's indices), or at rows in the shard corpora (cross-shard
+// serving: their addresses), so the last two never write a [Q, k, I]
+// gather.
 //
 // Bound: bytes.  Each query reads its k neighbour rows and its own row:
 // Q*(k+1)*I elements when the rows are pre-fetched (3.7 GB in f32 at
@@ -56,12 +58,11 @@ constexpr int MAX_SELECT = 32;      // top-n by selection up to this n
 constexpr int MAX_ENDS = 16;        // unaligned tensor ends a launch takes
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
-// items per block by element type (a 4 KB piece of each row) and ring
-// depth
+// items per block by element type (a 4 KB piece of each row), and the
+// ring's depth
 template <typename T>
 constexpr int kTile = sizeof(T) == 1 ? 4096 : 1024;
-template <typename T>
-constexpr int kStages = sizeof(T) == 1 ? 8 : 8;
+constexpr int STAGES = 8;
 template <typename T>
 constexpr int kIpt = kTile<T> / NT;   // items per consumer thread
 
@@ -73,10 +74,27 @@ constexpr int kSlot = kTile<T> * (int)sizeof(T) + 16;
 // summed), one (offset, scale) header and two mbarriers per slot
 template <typename T, bool kSelect>
 __host__ __device__ constexpr int smem_bytes() {
-  constexpr int ring = kStages<T> * kSlot<T>;
+  constexpr int ring = STAGES * kSlot<T>;
   constexpr int lists = kSelect ? NW * MAX_SELECT * 8 : kTile<T> * 8;
-  return (ring > lists ? ring : lists) + kStages<T> * 24;
+  return (ring > lists ? ring : lists) + STAGES * 24;
 }
+
+// Where the rows lie.  Query q's row: q_base + q * q_pitch.  Neighbour
+// j of query q: nbr_base + x * nbr_pitch, x = idx[q * k + j] (int32, or
+// int64 when idx64) or, without idx, q * k + j; its int8 scale
+// nbr_scale[x] when scale_by_idx, else nbr_scale[q * k + j].  Explicit
+// addresses are int64 idx with base 0 and pitch 1.
+struct Rows {
+  unsigned long long q_base;
+  long long q_pitch;
+  const float* q_scale;
+  unsigned long long nbr_base;
+  long long nbr_pitch;
+  const void* idx;
+  const float* nbr_scale;
+  int idx64;
+  int scale_by_idx;
+};
 
 // the ends of the tensors that hold rows, where an end is not 16-byte
 // aligned: a row that ends within 16 bytes of one is not read past it
@@ -162,15 +180,25 @@ __device__ __forceinline__ int item_slot(int t, int e) {
 template <typename T>
 __device__ __forceinline__ void produce_rows(
     unsigned char* ring, int2* header, uint32_t full, uint32_t empty,
-    const unsigned long long* __restrict__ rows,
-    const float* __restrict__ scales, const RowEnds& ends, int k, int i0,
+    const Rows& rows, const RowEnds& ends, long long qk, int k, int i0,
     int i1, int I, int lane) {
-  constexpr int S = kStages<T>;
+  constexpr int S = STAGES;
   constexpr unsigned long long SZ = sizeof(T);
   for (int j0 = 0; j0 < k; j0 += 32) {
     const int j = j0 + lane;
-    const unsigned long long my_row = j < k ? rows[j] : 0ull;
-    const float my_scale = (sizeof(T) == 1 && j < k) ? scales[j] : 1.0f;
+    unsigned long long my_row = 0ull;
+    float my_scale = 1.0f;
+    if (j < k) {
+      long long x = qk + j;
+      if (rows.idx != nullptr) {
+        x = rows.idx64 ? reinterpret_cast<const long long*>(rows.idx)[x]
+                       : reinterpret_cast<const int*>(rows.idx)[x];
+      }
+      my_row = rows.nbr_base + x * rows.nbr_pitch;
+      if (sizeof(T) == 1) {
+        my_scale = rows.nbr_scale[rows.scale_by_idx ? x : qk + j];
+      }
+    }
     const int n = min(32, k - j0);
     for (int t = 0; t < n; ++t) {
       const int jj = j0 + t;
@@ -215,7 +243,7 @@ __device__ __forceinline__ void consume_rows(float (&acc)[kIpt<T>],
                                              const int2* header,
                                              uint32_t full, uint32_t empty,
                                              int k, int tid) {
-  constexpr int S = kStages<T>;
+  constexpr int S = STAGES;
   for (int j = 0; j < k; ++j) {
     const int slot = j % S;
     mbar_wait(full + 8 * slot, (j / S) & 1);
@@ -321,9 +349,8 @@ __device__ __forceinline__ void select_tile(float (&pv)[IPT], int (&pi)[IPT],
 // (threads >= NT hold none); lists: shared memory free for them.
 template <typename T, bool kSelect>
 __device__ __forceinline__ void finish_tile(
-    const float (&acc)[kIpt<T>],
-    const unsigned long long* __restrict__ q_rows,
-    const float* __restrict__ q_scale, unsigned char* lists, int I, int k,
+    const float (&acc)[kIpt<T>], const Rows& rows, unsigned char* lists,
+    int I, int k,
     float alpha, float one_minus_alpha, int L, float* __restrict__ part_v,
     int* __restrict__ part_i) {
   constexpr bool kInt8 = sizeof(T) == 1;
@@ -334,8 +361,8 @@ __device__ __forceinline__ void finish_tile(
   const int i0 = tile * kTile<T>;
   float pv[IPT];
   int pi[IPT];
-  const unsigned long long own = q_rows[qq];
-  const float own_scale = kInt8 ? q_scale[qq] : 1.0f;
+  const unsigned long long own = rows.q_base + qq * rows.q_pitch;
+  const float own_scale = kInt8 ? rows.q_scale[qq] : 1.0f;
   const float kf = (float)k;
 #pragma unroll
   for (int e = 0; e < IPT; ++e) {
@@ -376,14 +403,11 @@ __device__ __forceinline__ void finish_tile(
 
 template <typename T, bool kSelect>
 __global__ void __launch_bounds__(THREADS) rows_ring_kernel(
-    const unsigned long long* __restrict__ q_rows,
-    const float* __restrict__ q_scale,
-    const unsigned long long* __restrict__ nbr_rows,
-    const float* __restrict__ nbr_scale, const RowEnds ends, int I, int k,
+    const Rows rows, const RowEnds ends, int I, int k,
     float alpha, float one_minus_alpha, int L, float* __restrict__ part_v,
     int* __restrict__ part_i) {
   constexpr bool kInt8 = sizeof(T) == 1;
-  constexpr int S = kStages<T>;
+  constexpr int S = STAGES;
   constexpr int BODY = smem_bytes<T, kSelect>() - S * 24;
   extern __shared__ __align__(128) unsigned char rows_smem[];
   int2* header = reinterpret_cast<int2*>(rows_smem + BODY);
@@ -406,59 +430,61 @@ __global__ void __launch_bounds__(THREADS) rows_ring_kernel(
 #pragma unroll
   for (int e = 0; e < kIpt<T>; ++e) acc[e] = 0.0f;
   if (tid >= NT) {
-    produce_rows<T>(rows_smem, header, full, empty, nbr_rows + (size_t)qq * k,
-                    nbr_scale + (kInt8 ? (size_t)qq * k : 0), ends, k, i0,
-                    min(I, i0 + kTile<T>), I, tid - NT);
+    produce_rows<T>(rows_smem, header, full, empty, rows, ends,
+                    (long long)qq * k, k, i0, min(I, i0 + kTile<T>), I,
+                    tid - NT);
   } else {
     consume_rows<T>(acc, rows_smem, header, full, empty, k, tid);
   }
 
-  finish_tile<T, kSelect>(acc, q_rows, q_scale, rows_smem, I, k, alpha,
+  finish_tile<T, kSelect>(acc, rows, rows_smem, I, k, alpha,
                           one_minus_alpha, L, part_v, part_i);
 }
 
 template <typename T, bool kSelect>
-cudaError_t launch_tiles(const void* q_rows, const void* q_scale,
-                         const void* nbr_rows, const void* nbr_scale,
-                         const RowEnds& ends, int Q, int I, int k,
-                         float alpha, float one_minus_alpha, int L,
-                         void* part_v, void* part_i, cudaStream_t st) {
+cudaError_t launch_tiles(const Rows& rows, const RowEnds& ends, int Q,
+                         int I, int k, float alpha, float one_minus_alpha,
+                         int L, void* part_v, void* part_i, cudaStream_t st) {
   constexpr int smem = smem_bytes<T, kSelect>();
-  const void* kernel = (const void*)rows_ring_kernel<T, kSelect>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = cudaFuncSetAttribute(
+      (const void*)rows_ring_kernel<T, kSelect>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((I + kTile<T> - 1) / kTile<T>, Q);
   rows_ring_kernel<T, kSelect><<<grid, THREADS, smem, st>>>(
-      (const unsigned long long*)q_rows, (const float*)q_scale,
-      (const unsigned long long*)nbr_rows, (const float*)nbr_scale, ends, I,
-      k, alpha, one_minus_alpha, L, (float*)part_v, (int*)part_i);
+      rows, ends, I, k, alpha, one_minus_alpha, L, (float*)part_v,
+      (int*)part_i);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q_rows: [Q] and nbr_rows: [Q, k] device addresses of rows of I
-// elements (int8 when int8 != 0, with q_scale f32[Q] and nbr_scale
-// f32[Q, k]; else f32 and both scales null).  The tensors holding the
-// neighbour rows start 16-byte aligned; ends: host array of the n_ends
-// (<= 16) of them whose end is not.  part_*: scratch [Q, n_tiles, L]
-// with L = min(topn, tile), n_tiles = ceil(I / tile), tile = kTile of
-// the element type; out_*: [Q, topn];
-// n2 = power of two >= max(L, topn), at most 1024.  smem: the tile
-// kernel's shared-memory bytes as the wrapper planned them (refused if
-// they differ from this file's).
-extern "C" int blend_rows_launch(const void* q_rows, const void* q_scale,
-                                 const void* nbr_rows, const void* nbr_scale,
-                                 int int8, int Q, int I, int k, float alpha,
-                                 float one_minus_alpha, int topn, int L,
-                                 int n2, const void* ends, int n_ends,
-                                 int smem, void* part_v, void* part_i,
-                                 void* out_v, void* out_i, void* stream) {
+// The row blend of Q queries over rows of I elements (int8 when int8 !=
+// 0, with the scales q_scale f32[Q] and nbr_scale; else f32 and both
+// scales null), the rows where the fields of Rows (above) say: query q
+// at q_base + q * q_pitch, neighbour j at nbr_base + x * nbr_pitch.
+// The tensors holding the neighbour rows start 16-byte aligned; ends:
+// host array of the n_ends (<= 16) of them whose end is not.  part_*:
+// scratch [Q, n_tiles, L] with L = min(topn, tile), n_tiles = ceil(I /
+// tile), tile = kTile of the element type; out_*: [Q, topn]; n2 = power
+// of two >= max(L, topn), at most 1024.  smem: the tile kernel's
+// shared-memory bytes as the wrapper planned them (refused if they
+// differ from this file's).
+extern "C" int blend_rows_launch(
+    const void* q_base, long long q_pitch, const void* q_scale,
+    const void* nbr_base, long long nbr_pitch, const void* idx, int idx64,
+    const void* nbr_scale, int scale_by_idx, int int8, int Q, int I, int k,
+    float alpha, float one_minus_alpha, int topn, int L, int n2,
+    const void* ends, int n_ends, int smem, void* part_v, void* part_i,
+    void* out_v, void* out_i, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (n_ends < 0 || n_ends > MAX_ENDS || k < 1 || L < 1) {
     return (int)cudaErrorInvalidValue;
   }
+  const Rows rows{(unsigned long long)q_base, q_pitch,
+                  (const float*)q_scale, (unsigned long long)nbr_base,
+                  nbr_pitch, idx, (const float*)nbr_scale, idx64,
+                  scale_by_idx};
   RowEnds e{};
   e.n = n_ends;
   for (int i = 0; i < n_ends; ++i) {
@@ -472,21 +498,17 @@ extern "C" int blend_rows_launch(const void* q_rows, const void* q_scale,
   if (smem != want) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (int8) {
-    err = select ? launch_tiles<int8_t, true>(q_rows, q_scale, nbr_rows,
-                                              nbr_scale, e, Q, I, k, alpha,
+    err = select ? launch_tiles<int8_t, true>(rows, e, Q, I, k, alpha,
                                               one_minus_alpha, L, part_v,
                                               part_i, st)
-                 : launch_tiles<int8_t, false>(q_rows, q_scale, nbr_rows,
-                                               nbr_scale, e, Q, I, k, alpha,
+                 : launch_tiles<int8_t, false>(rows, e, Q, I, k, alpha,
                                                one_minus_alpha, L, part_v,
                                                part_i, st);
   } else {
-    err = select ? launch_tiles<float, true>(q_rows, nullptr, nbr_rows,
-                                             nullptr, e, Q, I, k, alpha,
+    err = select ? launch_tiles<float, true>(rows, e, Q, I, k, alpha,
                                              one_minus_alpha, L, part_v,
                                              part_i, st)
-                 : launch_tiles<float, false>(q_rows, nullptr, nbr_rows,
-                                              nullptr, e, Q, I, k, alpha,
+                 : launch_tiles<float, false>(rows, e, Q, I, k, alpha,
                                               one_minus_alpha, L, part_v,
                                               part_i, st);
   }
@@ -498,4 +520,3 @@ extern "C" int blend_rows_launch(const void* q_rows, const void* q_scale,
       (float*)out_v, (int*)out_i);
   return (int)cudaGetLastError();
 }
-

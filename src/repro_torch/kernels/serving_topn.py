@@ -44,7 +44,7 @@ _BI = 1024        # items per block of csrc/serving_topn.cu
 # above it), and how many tensors whose end is not 16-byte aligned one
 # launch takes
 ROWS_TILE = {4: 1024, 1: 4096}
-ROWS_STAGES = {4: 8, 1: 8}
+ROWS_STAGES = 8
 ROWS_THREADS = 288
 ROWS_MAX_SELECT = 32
 ROWS_MAX_ENDS = 16
@@ -77,7 +77,7 @@ def plan_rows(q_n: int, n_items: int, topn: int, elem_size: int
         raise ValueError(f"topn={topn} outside [1, min(I={n_items}, "
                          f"{MAX_TOPN})]")
     select = topn <= ROWS_MAX_SELECT
-    tile, stages = ROWS_TILE[elem_size], ROWS_STAGES[elem_size]
+    tile, stages = ROWS_TILE[elem_size], ROWS_STAGES
     ring = stages * (tile * elem_size + 16)
     lists = (ROWS_THREADS // 32 - 1) * ROWS_MAX_SELECT * 8 if select \
         else tile * 8
@@ -171,19 +171,28 @@ def _row_ends(sources: Sequence[torch.Tensor]):
     return (ctypes.c_ulonglong * max(1, len(ends)))(*sorted(ends)), len(ends)
 
 
-def _blend_rows(q_rows: torch.Tensor, q_scale: Optional[torch.Tensor],
-                nbr_rows: torch.Tensor, nbr_scale: Optional[torch.Tensor],
-                n_items: int, alpha: float, topn: int,
-                sources: Sequence[torch.Tensor],
-                name: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/serving_rows.cu`` on row addresses.
+class _Neighbours(NamedTuple):
+    """Where the neighbour rows lie: row j of query q at ``base + x ·
+    pitch`` (bytes), x = ``idx[q, j]`` or, without ``idx``, q·k + j;
+    the int8 scale ``scale[x]`` when ``scale_by_idx``, else ``scale[q,
+    j]``.  ``sources``: the tensors that hold the rows."""
 
-    ``q_rows`` i64[Q] and ``nbr_rows`` i64[Q, k]; the rows are int8
-    when the scales are given, else f32.  ``sources``: the tensors that
-    hold the neighbour rows.
-    """
-    q_n, k = nbr_rows.shape
-    dev = nbr_rows.device
+    base: int
+    pitch: int
+    idx: Optional[torch.Tensor]
+    scale: Optional[torch.Tensor]
+    scale_by_idx: bool
+    sources: Sequence[torch.Tensor]
+
+
+def _blend_rows(queries: torch.Tensor, q_scale: Optional[torch.Tensor],
+                nbr: _Neighbours, k: int, alpha: float, topn: int,
+                name: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/serving_rows.cu``: ``queries`` [Q, I] (rows at
+    their pitch) and their neighbour rows, int8 when ``q_scale`` is
+    given, else f32."""
+    q_n, n_items = queries.shape
+    dev = queries.device
     quantized = q_scale is not None
     plan = plan_rows(q_n, n_items, topn, 1 if quantized else 4)
     if k < 1:
@@ -192,18 +201,21 @@ def _blend_rows(q_rows: torch.Tensor, q_scale: Optional[torch.Tensor],
     out_i = torch.empty((q_n, topn), dtype=torch.int32, device=dev)
     if q_n == 0:
         return out_v, out_i
-    ends, n_ends = _row_ends(sources)
+    ends, n_ends = _row_ends(nbr.sources)
     part_v = torch.empty((q_n, plan.n_tiles, plan.list_len),
                          dtype=torch.float32, device=dev)
     part_i = torch.empty((q_n, plan.n_tiles, plan.list_len),
                          dtype=torch.int32, device=dev)
     build.check(build.library().blend_rows_launch(
-        q_rows.data_ptr(), q_scale.data_ptr() if quantized else None,
-        nbr_rows.data_ptr(), nbr_scale.data_ptr() if quantized else None,
+        queries.data_ptr(), queries.stride(0) * queries.element_size(),
+        q_scale.data_ptr() if quantized else None, nbr.base, nbr.pitch,
+        None if nbr.idx is None else nbr.idx.data_ptr(),
+        int(nbr.idx is not None and nbr.idx.dtype == torch.int64),
+        nbr.scale.data_ptr() if quantized else None, int(nbr.scale_by_idx),
         int(quantized), q_n, n_items, k, float(alpha), float(1.0 - alpha),
         topn, plan.list_len, plan.n2, ends, n_ends, plan.smem_bytes,
         part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(),
-        out_i.data_ptr(), build.stream_of(q_rows)), name)
+        out_i.data_ptr(), build.stream_of(queries)), name)
     build.count_launch(name)
     return out_v, out_i
 
@@ -235,12 +247,9 @@ def launch_rows(queries: torch.Tensor, neighbor_rows: torch.Tensor,
         n_scale = _scale_input(n_scale, "n_scale", dev, (q_n, k))
     else:
         q_scale = n_scale = None
-    flat = neighbor_rows.reshape(q_n * k, n_items)
-    return _blend_rows(
-        _row_addresses(queries, torch.arange(q_n, device=dev)), q_scale,
-        _row_addresses(flat, torch.arange(q_n * k, device=dev)
-                       ).reshape(q_n, k), n_scale, n_items, alpha, topn,
-        (neighbor_rows,),
+    return _blend_rows(queries, q_scale, _Neighbours(
+        neighbor_rows.data_ptr(), n_items * neighbor_rows.element_size(),
+        None, n_scale, False, (neighbor_rows,)), k, alpha, topn,
         "blend_topn_rows_quant" if quantized else "blend_topn_rows")
 
 
@@ -253,14 +262,14 @@ def launch_rows_indexed(queries_q: torch.Tensor, q_scale: torch.Tensor,
     Neighbour j of query q is row ``corpus_q[nbr_idx[q, j]]`` with scale
     ``c_scale[nbr_idx[q, j]]``.  The same kernel and count as
     :func:`launch_rows` on ``corpus_q[nbr_idx]``, without writing that
-    [Q, k, I] gather.  ``nbr_idx`` must lie in [0, M) (checked: one
-    host sync).
+    [Q, k, I] gather; ``nbr_idx`` (int32 or int64) is read as given and
+    must lie in [0, M) (checked: one host sync).
     """
     build.cuda_input(corpus_q, "corpus_q", (torch.int8,), ndim=2,
                      pitched=True)
     dev = corpus_q.device
     build.cuda_input(queries_q, "queries_q", (torch.int8,), dev, 2)
-    nbr = build.index_input(nbr_idx, "nbr_idx", dev, 2)
+    nbr = build.index_as_given(nbr_idx, "nbr_idx", dev, 2)
     m, n_items = corpus_q.shape
     q_n, k = nbr.shape
     if tuple(queries_q.shape) != (q_n, n_items):
@@ -271,10 +280,9 @@ def launch_rows_indexed(queries_q: torch.Tensor, q_scale: torch.Tensor,
         lo, hi = (int(v) for v in torch.aminmax(nbr))
         if lo < 0 or hi >= m:
             raise ValueError(f"nbr_idx outside [0, {m}): [{lo}, {hi}]")
-    return _blend_rows(
-        _row_addresses(queries_q, torch.arange(q_n, device=dev)), q_scale,
-        _row_addresses(corpus_q, nbr), c_scale[nbr.long()].contiguous(),
-        n_items, alpha, topn, (corpus_q,), "blend_topn_rows_quant")
+    return _blend_rows(queries_q, q_scale, _Neighbours(
+        corpus_q.data_ptr(), corpus_q.stride(0), nbr, c_scale, True,
+        (corpus_q,)), k, alpha, topn, "blend_topn_rows_quant")
 
 
 def launch_rows_at(queries: torch.Tensor, nbr_rows: torch.Tensor,
@@ -312,7 +320,6 @@ def launch_rows_at(queries: torch.Tensor, nbr_rows: torch.Tensor,
         n_scale = _scale_input(n_scale, "n_scale", dev, (q_n, k))
     else:
         q_scale = n_scale = None
-    return _blend_rows(
-        _row_addresses(queries, torch.arange(q_n, device=dev)), q_scale,
-        nbr_rows, n_scale, n_items, alpha, topn, tables,
+    return _blend_rows(queries, q_scale, _Neighbours(
+        0, 1, nbr_rows, n_scale, False, tables), k, alpha, topn,
         "blend_topn_rows_quant" if quantized else "blend_topn_rows")

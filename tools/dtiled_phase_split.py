@@ -78,13 +78,13 @@ FEED_CALLS = re.compile(r"(produce_rows|consume_rows)<T>\([^;]*;")
 PARENT_SORT = "bitonic_sort_desc<true>(tv, ti, BI, tid, NT);"
 PARENT_LOOP = "for (int j = 0; j < k; ++j) {"
 PARENT_NO_LOOP = "for (int j = 0; j < 0; ++j) {"
-# serving_rows.cu's tile width and ring depth by element type
-PLAN_LINES = re.compile(
-    r"constexpr int kTile = sizeof\(T\) == 1 \? \d+ : \d+;(.*\n)*?.*"
-    r"constexpr int kStages = sizeof\(T\) == 1 \? \d+ : \d+;")
-# (f32 tile, int8 tile, f32 depth, int8 depth) of the other plans timed
-ROWS_PLANS = ((1024, 1024, 8, 8), (2048, 2048, 4, 4), (1024, 4096, 4, 4),
-              (1024, 4096, 8, 16))
+# serving_rows.cu's tile width by element type and ring depth, and the
+# other plans timed: (f32 tile, int8 tile, depth)
+TILE_LINE = re.compile(
+    r"constexpr int kTile = sizeof\(T\) == 1 \? \d+ : \d+;")
+STAGES_LINE = re.compile(r"constexpr int STAGES = \d+;")
+ROWS_PLANS = ((1024, 1024, 8), (2048, 2048, 4), (1024, 4096, 4),
+              (1024, 4096, 16))
 M, D, Q, K, BD = 13949, 11997, 256, 300, 512
 ALPHA, TOPN = 0.7, 10
 GATHER_U, GATHER_W = 512, 168     # the add path's sub-batch
@@ -108,7 +108,8 @@ def time_ms(fn, reps: int = 7) -> float:
 
 def device_ms(fn, names, reps: int = 5) -> tuple:
     """Device time per call of ``fn`` under ``torch.profiler`` after a
-    warm-up: (kernels whose names contain one of ``names``, all
+    warm-up: (kernels whose names contain one of ``names``, per call the
+    trace holds a record of the first, which launches once a call; all
     kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -120,6 +121,7 @@ def device_ms(fn, names, reps: int = 5) -> tuple:
             fn()
         torch.cuda.synchronize()
     own = every = 0.0
+    first = 0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -128,7 +130,12 @@ def device_ms(fn, names, reps: int = 5) -> tuple:
         every += us
         if any(n in e.key for n in names):
             own += us
-    return own / reps / 1e3, every / reps / 1e3
+        if names[0] in e.key:
+            first += e.count
+    # a trace can miss a launch: per launch of the first named kernel
+    # the trace recorded, where it holds one a call
+    calls = first if 0 < first <= reps else reps
+    return own / calls / 1e3, every / reps / 1e3
 
 
 def build_variants(build, csrc: Path, out: Path, kernel: str,
@@ -174,9 +181,9 @@ def ordered_blend(x, rows, topn):
 
 def rows_variants(src: str) -> dict:
     """serving_rows.cu's variants: whole, the sum alone, the selection
-    alone and, where the source plans its tile and ring depth by element
-    type, the other plans of ``ROWS_PLANS`` (named ``plan_<f32 tile>_<int8
-    tile>_<f32 depth>_<int8 depth>``).  The parent's design (one rows
+    alone and, where the source plans its tile by element type and its
+    ring depth, the other plans of ``ROWS_PLANS`` (named ``plan_<f32
+    tile>_<int8 tile>_<depth>``).  The parent's design (one rows
     loop and a bitonic sort of the tile) gets the same two phases."""
     variants = {"whole": src}
     if FINISH_CALL.search(src) and FEED_CALLS.search(src):
@@ -185,13 +192,12 @@ def rows_variants(src: str) -> dict:
     elif PARENT_SORT in src and PARENT_LOOP in src:
         variants["sum"] = src.replace(PARENT_SORT, "")
         variants["select"] = src.replace(PARENT_LOOP, PARENT_NO_LOOP)
-    if PLAN_LINES.search(src):
-        for t32, t8, s32, s8 in ROWS_PLANS:
-            variants[f"plan_{t32}_{t8}_{s32}_{s8}"] = PLAN_LINES.sub(
-                f"constexpr int kTile = sizeof(T) == 1 ? {t8} : {t32};\n"
-                "template <typename T>\n"
-                f"constexpr int kStages = sizeof(T) == 1 ? {s8} : {s32};",
-                src)
+    if TILE_LINE.search(src) and STAGES_LINE.search(src):
+        for t32, t8, depth in ROWS_PLANS:
+            variants[f"plan_{t32}_{t8}_{depth}"] = STAGES_LINE.sub(
+                f"constexpr int STAGES = {depth};", TILE_LINE.sub(
+                    f"constexpr int kTile = sizeof(T) == 1 ? {t8} : {t32};",
+                    src))
     return variants
 
 
@@ -225,15 +231,14 @@ def rows_main(root: Path, csrc: Path, build) -> int:
             qf, addr, [corpus], ALPHA, TOPN)
         calls["f32_n33"] = lambda: serving_topn.launch_rows(qf, rows, ALPHA,
                                                             33)
-    # (variant library, call, ring depths by element size or None)
+    # (variant library, call, (tiles by element size, depth) or None)
     runs = {}
     for mode, fn in calls.items():
         for v in variants:
             if v.startswith("plan"):
                 if mode in ("f32", "int8_indexed"):
-                    t32, t8, s32, s8 = (int(x) for x in v.split("_")[1:])
-                    runs[f"{mode}_{v}"] = (v, fn, ({4: t32, 1: t8},
-                                                   {4: s32, 1: s8}))
+                    t32, t8, depth = (int(x) for x in v.split("_")[1:])
+                    runs[f"{mode}_{v}"] = (v, fn, ({4: t32, 1: t8}, depth))
             else:
                 runs[f"{mode}_{v}"] = (v, fn, None)
     res = {"root": str(root), "kernel": "blend_topn_rows", "k": K}
