@@ -13,11 +13,14 @@ Phases, each fatal on failure (nothing is caught):
    card at the main path's shapes (TaFeng at its published size), with
    the kernel's, the plain version's and one PyTorch yardstick's median
    times, and the kernel's bound from this run's bytes and operations
-   (the sparse gather at the appliers' int64 rows and int32 ids, also
-   by a burst of 100, the profiler and the host clock; the row blend
-   bitwise the sum in order j = 0..k-1, also by a burst of 10 and the
-   profiler); then the edge cases of the multi-hot scatter and of
-   attention;
+   (the sparse pair at the appliers' int64 rows and int32 ids, also by
+   a burst of 100, the profiler and the host clock, beside indexing and
+   ``index_put_`` read the same way; the sparse scatter bitwise the sum
+   in entry order at every pair of index dtypes, one kernel a call, and
+   timed at U=4,096 too; the row blend bitwise the sum in order j =
+   0..k-1, also by a burst of 10 and the profiler); then the edge cases
+   of the sparse scatter (one row's long run, U=1, W=1, I=1, M*I >
+   2^31), of the multi-hot scatter and of attention;
 4. main path -- the port's serving trickle (``launch/serve.py``,
    ``run_trickle(quantized=True)``) at full width: 13,949 users x 11,997
    items, m=7, k=300, alpha=0.7, a bulk load of one mixed stream in
@@ -112,6 +115,12 @@ LM_BATCH, LM_PROMPT, LM_DECODE = 4, 4096, 16
 LM_LOGIT_BOUND = 2.0
 # the largest k of each (queries per block, stages) of knn_topk.plan_knn
 KNN_PLAN_EDGES = (456,)
+# B2's table past 2^31 cells (9.0 GB of f32): its top 4,096 rows start
+# at cell 2,244,411,392
+SCATTER_BIG = (1_100_000, 2_048)
+# (rows, ids) dtypes the sparse pair reads as given
+INDEX_PAIRS = ((torch.int32, torch.int32), (torch.int64, torch.int32),
+               (torch.int32, torch.int64), (torch.int64, torch.int64))
 
 KERNELS = {
     "sparse_row_gather": dict(
@@ -192,6 +201,18 @@ def sparse_inputs(gen, m, n_items, u, w, dev):
     return rows.to(torch.int32), ids.to(torch.int32), vals
 
 
+def padded_inputs(gen, m, n_items, u, w, n_pad, dev):
+    """:func:`sparse_inputs` in the appliers' shape: ``u - n_pad``
+    distinct users, then ``n_pad`` padding rows of user 0 with PAD ids
+    and zero deltas."""
+    _, ids, vals = sparse_inputs(gen, m, n_items, u, w, dev)
+    rows = torch.randperm(m, generator=gen, device=dev)[:u].to(torch.int32)
+    rows[u - n_pad:] = 0
+    ids[u - n_pad:] = -1
+    vals[u - n_pad:] = 0.0
+    return rows, ids, vals
+
+
 def three_readings(fn, names, reps: int = 5) -> dict:
     """A call's time three ways, and its host time: one call between two
     events (``ms``, holding the wrapper's host time on an idle card), a
@@ -235,77 +256,161 @@ def check_sparse(gen, table, u, w_add, w_del, records):
         torch.cuda.synchronize()
         g_err = float((got - exp).abs().max())
         assert torch.equal(got, exp), f"gather ({label}) differs: {g_err}"
-        for r_dt, i_dt in ((torch.int32, torch.int32),
-                           (torch.int32, torch.int64),
-                           (torch.int64, torch.int64)):
+        for r_dt, i_dt in INDEX_PAIRS:
             assert torch.equal(sparse_row_gather.launch(
                 table, rows.to(r_dt), ids.to(i_dt)), exp), (r_dt, i_dt)
 
-        t_k, t_p = table.clone(), table.clone()
-        sparse_row_scatter.launch(t_k, rows, ids, vals)
+        # B2 at the appliers' dtypes (int64 rows, the ids' own int32),
+        # bitwise the sum in entry order at every pair of index dtypes
+        rows64 = rows.long()
+        t_k, t_p, t_o = table.clone(), table.clone(), table.clone()
+        sparse_row_scatter.launch(t_k, rows64, ids, vals)
         ref.sparse_row_scatter_ref(t_p, rows, ids, vals)
+        ref.sparse_row_scatter_ordered_ref(t_o, rows, ids, vals)
         t_again = table.clone()
-        sparse_row_scatter.launch(t_again, rows, ids, vals)
+        sparse_row_scatter.launch(t_again, rows64, ids, vals)
         torch.cuda.synchronize()
         s_err = float((t_k - t_p).abs().max())
-        # the plain version sums a cell's deltas in another order
+        # index_put_ sums a cell's deltas in another order
         assert torch.allclose(t_k, t_p, rtol=1e-6, atol=1e-6), s_err
-        assert torch.equal(t_k, t_again), "scatter reruns differ"
+        assert same(t_k, t_o), "scatter differs from the ordered sum"
+        assert same(t_k, t_again), "scatter reruns differ"
+        del t_p, t_again
+        for r_dt, i_dt in INDEX_PAIRS:
+            t_x = table.clone()
+            sparse_row_scatter.launch(t_x, rows.to(r_dt), ids.to(i_dt), vals)
+            assert same(t_x, t_o), (r_dt, i_dt)
+        del t_k, t_o, t_x
         ti, tpi = table.round(), table.round()      # integer-valued: exact
-        sparse_row_scatter.launch(ti, rows, ids, vals.round())
+        sparse_row_scatter.launch(ti, rows64, ids, vals.round())
         ref.sparse_row_scatter_ref(tpi, rows, ids, vals.round())
         torch.cuda.synchronize()
         assert torch.equal(ti, tpi), "integer scatter differs"
-        del t_k, t_p, t_again, ti, tpi
+        del ti, tpi
 
         valid = ids >= 0
         cells = rows.long()[:, None] * n_items + ids.long()
         n_valid = int(valid.sum())
         n_cells = int(torch.unique(cells[valid]).numel())
-        idx_bytes = u * 4 + u * w * 4
         safe_ids = torch.where(valid, ids, torch.zeros_like(ids)).long()
         safe_vals = torch.where(valid, vals, torch.zeros_like(vals))
-        rows64 = rows.long()
         rows2d = rows64[:, None].expand(u, w)
         t_bench = table.clone()
         gather = three_readings(lambda: sparse_row_gather.launch(
             table, rows64, ids), ("sparse_row_gather_kernel",))
         indexing = three_readings(lambda: table[rows2d, safe_ids], ("",))
+
+        def scatter_call():
+            sparse_row_scatter.launch(t_bench, rows64, ids, vals)
+
+        scatter = three_readings(scatter_call, ("sparse_row_scatter_kernel",))
+        own, every, _ = device_ms(scatter_call, ("sparse_row_scatter_kernel",))
+        assert own == every, f"a scatter call launched more ({every} ms)"
+        put = three_readings(lambda: t_bench.index_put_(
+            (rows2d, safe_ids), safe_vals, accumulate=True), ("",))
         timings = dict(
-            gather=gather["ms"],
             gather_plain=time_ms(lambda: ref.sparse_row_gather_ref(
                 table, rows64, ids)),
-            gather_lib=indexing["ms"],
-            scatter=time_ms(lambda: sparse_row_scatter.launch(
-                t_bench, rows, ids, vals)),
             scatter_plain=time_ms(lambda: ref.sparse_row_scatter_ref(
-                t_bench, rows, ids, vals)),
-            scatter_lib=time_ms(lambda: t_bench.index_put_(
-                (rows2d, safe_ids), safe_vals, accumulate=True)))
+                t_bench, rows64, ids, vals)))
         del t_bench
         log(f"  sparse pair, {label} path U={u} W={w} "
-            f"({n_valid} valid ids, {n_cells} distinct cells): gather at "
-            f"int64 rows and int32 ids {readings_str(gather)} (indexing "
+            f"({n_valid} valid ids, {n_cells} distinct cells), int64 rows "
+            f"and int32 ids: gather {readings_str(gather)} (indexing "
             f"{readings_str(indexing)}; plain "
-            f"{timings['gather_plain']:.4f}), scatter "
-            f"{timings['scatter']:.4f} ms (plain "
-            f"{timings['scatter_plain']:.4f}, index_put_ "
-            f"{timings['scatter_lib']:.4f}); max |err| gather {g_err} "
-            f"scatter {s_err}")
+            f"{timings['gather_plain']:.4f}); scatter "
+            f"{readings_str(scatter)} (index_put_ {readings_str(put)}; "
+            f"plain {timings['scatter_plain']:.4f}); max |err| gather "
+            f"{g_err} scatter {s_err}")
         if label == "add":       # the add path launches most: it is timed
             records["sparse_row_gather"] = dict(
-                max_abs_err=g_err, ms=timings["gather"],
+                max_abs_err=g_err, ms=gather["ms"],
                 plain_ms=timings["gather_plain"],
-                library_ms=timings["gather_lib"],
+                library_ms=indexing["ms"],
                 shape=f"U={u} W={w} int64 rows, int32 ids",
                 bound=bound(u * 8 + u * w * 4 + n_valid * 4 + u * w * 4,
                             0))
             records["sparse_row_scatter"] = dict(
-                max_abs_err=s_err, ms=timings["scatter"],
+                max_abs_err=s_err, ms=scatter["ms"],
                 plain_ms=timings["scatter_plain"],
-                library_ms=timings["scatter_lib"],
-                shape=f"U={u} W={w}",
-                bound=bound(idx_bytes + u * w * 4 + n_cells * 8, n_valid))
+                library_ms=put["ms"],
+                shape=f"U={u} W={w} int64 rows, int32 ids",
+                bound=bound(u * 8 + 2 * u * w * 4 + n_cells * 8, n_valid))
+    # the appliers' shape (distinct users, then the padding rows of a
+    # pow2 bucket: user 0, PAD ids, zero deltas), and a sub-batch 8x the
+    # engine's (every block scans all U rows)
+    for what, (rows, ids, vals) in (
+            ("300 users and 212 padding rows", padded_inputs(
+                gen, m, n_items, u, w_add, 212, dev)),
+            ("U=4096", sparse_inputs(gen, m, n_items, 4096, w_add, dev))):
+        rows64 = rows.long()
+        t_k, t_o = table.clone(), table.clone()
+        sparse_row_scatter.launch(t_k, rows64, ids, vals)
+        ref.sparse_row_scatter_ordered_ref(t_o, rows, ids, vals)
+        torch.cuda.synchronize()
+        assert same(t_k, t_o), f"scatter ({what}) differs"
+        r = three_readings(lambda: sparse_row_scatter.launch(
+            t_k, rows64, ids, vals), ("sparse_row_scatter_kernel",))
+        log(f"  scatter, {what}, W={w_add}: {readings_str(r)}")
+        del t_k, t_o
+
+
+def scatter_case(what, table, rows, ids, vals):
+    """B2 at every pair of index dtypes, bitwise the ordered sum."""
+    exp = ref.sparse_row_scatter_ordered_ref(table.clone(), rows, ids, vals)
+    for r_dt, i_dt in INDEX_PAIRS:
+        got = sparse_row_scatter.launch(table.clone(), rows.to(r_dt),
+                                        ids.to(i_dt), vals)
+        assert same(got, exp), (what, r_dt, i_dt)
+
+
+def check_scatter_edges(gen, n_items, w_add, dev):
+    """B2's edge cases, bitwise the sum in entry order: every entry row
+    one table row with every id valid (a run longer than a staged chunk
+    of 2,048 entries), U=1, W=1, I=1, and a table whose M*I exceeds 2^31
+    (its touched rows held against the ordered sum on a copy of them,
+    every other row left zero)."""
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def ids_in(items, u, w):
+        return torch.randint(0, items, (u, w), generator=gen, device=dev)
+
+    table = rand(16, n_items)
+    scatter_case("one run", table, torch.full((64,), 5, device=dev),
+                 ids_in(n_items, 64, w_add), rand(64, w_add))
+    ids = ids_in(n_items, 1, w_add)
+    ids[:, 1] = ids[:, 0]
+    ids[:, ::4] = -1
+    scatter_case("U=1", table, torch.tensor([3], device=dev), ids,
+                 rand(1, w_add))
+    ids = ids_in(n_items, 512, 1)
+    ids[::3] = -1
+    scatter_case("W=1", table, torch.randint(0, 16, (512,), generator=gen,
+                                             device=dev), ids, rand(512, 1))
+    scatter_case("I=1", rand(8, 1), torch.randint(
+        -2, 10, (32,), generator=gen, device=dev), ids_in(1, 32, 9),
+        rand(32, 9))
+    m, items = SCATTER_BIG
+    rows = torch.randint(m - 4096, m, (512,), generator=gen, device=dev)
+    rows[256:288] = rows[0]
+    ids = ids_in(items, 512, w_add)
+    ids[torch.rand((512, w_add), generator=gen, device=dev) < 0.4] = -1
+    vals = rand(512, w_add)
+    big = torch.zeros((m, items), device=dev)
+    touched = torch.unique(rows)
+    big[touched] = rand(touched.numel(), items)
+    exp = ref.sparse_row_scatter_ordered_ref(
+        big[touched], torch.searchsorted(touched, rows), ids, vals)
+    sparse_row_scatter.launch(big, rows, ids, vals)
+    assert same(big[touched], exp), "scatter past 2^31 cells differs"
+    assert int(torch.count_nonzero(big)) == int(
+        torch.count_nonzero(big[touched])), "scatter wrote an untouched row"
+    del big
+    torch.cuda.empty_cache()
+    log(f"  scatter edges: one row's run of 64 x {w_add} entries, U=1, "
+        f"W=1, I=1, M*I = {m * items:,} > 2^31: bitwise the ordered sum "
+        f"at every pair of index dtypes")
 
 
 def int_corpus(gen, m, d, dev):
@@ -1638,6 +1743,7 @@ def kernel_checks(ds, dev) -> dict:
     check_sparse(gen, table, 512, (p.group_size + 1) * b_max,
                  n_max * b_max + 1, records)
     del table
+    check_scatter_edges(gen, n_items, (p.group_size + 1) * b_max, dev)
     # serving corpora: sparse non-negative rows like TIFU user vectors
     # (about 120 of 11,997 items set), and a small-integer one for ties
     corpus = torch.rand((n_users, n_items), generator=gen, device=dev)
@@ -1676,7 +1782,8 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s")
     entry = ""
     spills = {"knn_tile_kernel": [], "flash_wgmma_kernel": [],
-              "rows_ring_kernel": [], "sparse_row_gather_kernel": []}
+              "rows_ring_kernel": [], "sparse_row_gather_kernel": [],
+              "sparse_row_scatter_kernel": []}
     for line in build.last_build_log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]          # the mangled kernel name
@@ -1686,12 +1793,13 @@ def main() -> int:
                 if name in entry and "spill" in line:
                     found.append(line.strip())
     # every instantiation of B3's tile kernel, of B9's Hopper design, of
-    # B6/B7's ring (f32 and int8, selection and sort) and of B1 (int32 or
-    # int64 rows and ids), none with a spill
+    # B6/B7's ring (f32 and int8, selection and sort) and of B1 and B2
+    # (int32 or int64 rows and ids), none with a spill
     assert len(spills["knn_tile_kernel"]) == len(knn_topk.KNN_SHAPES)
     assert len(spills["flash_wgmma_kernel"]) == len(flash_attention.WGMMA_BQ)
     assert len(spills["rows_ring_kernel"]) == 4
     assert len(spills["sparse_row_gather_kernel"]) == 4
+    assert len(spills["sparse_row_scatter_kernel"]) == 4
     assert all("0 bytes spill stores, 0 bytes spill loads" in x
                for found in spills.values() for x in found), spills
 

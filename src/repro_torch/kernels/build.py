@@ -41,7 +41,7 @@ _F = ctypes.c_float
 # C signature of every entry point (all return cudaError_t as int)
 SIGNATURES: Dict[str, List] = {
     "srg_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "srs_launch": [_P, _P, _P, _L, _L, _P],
+    "srs_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "knn_topk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I,
                         _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "blend_topn_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _I,

@@ -50,6 +50,35 @@ def sparse_row_scatter_ref(table: torch.Tensor, rows: torch.Tensor,
     return table
 
 
+def sparse_row_scatter_ordered_ref(table: torch.Tensor, rows: torch.Tensor,
+                                   ids: torch.Tensor,
+                                   vals: torch.Tensor) -> torch.Tensor:
+    """:func:`sparse_row_scatter_ref` as a sequential scatter-add: each
+    cell's deltas added one at a time in entry order (r, w), IN PLACE on
+    a contiguous ``table``; returns table.
+
+    The valid entries' cell keys ``row·I + id`` are sorted stably, and
+    pass q adds the q-th delta of every cell by one non-accumulating
+    indexed update (the keys of one pass are distinct).  The order of
+    additions, and so every bit, is that of the CUDA kernel.
+    """
+    m, n_items = table.shape
+    valid = ((ids >= 0) & (ids < n_items)).reshape(-1)
+    keys = (rows.long().clamp(0, m - 1)[:, None] * n_items
+            + ids.long()).reshape(-1)[valid]
+    keys, order = torch.sort(keys, stable=True)
+    v = vals.reshape(-1)[valid][order]
+    pos = torch.arange(keys.numel(), device=keys.device)
+    head = torch.ones_like(keys, dtype=torch.bool)
+    head[1:] = keys[1:] != keys[:-1]
+    rank = pos - torch.cummax(torch.where(head, pos, 0), 0).values
+    flat = table.view(-1)
+    for q in range(int(rank.max()) + 1 if keys.numel() else 0):
+        at = rank == q
+        flat[keys[at]] = flat[keys[at]] + v[at]
+    return table
+
+
 def corpus_sqnorm(corpus: torch.Tensor) -> torch.Tensor:
     """|c|² per corpus row, f32[M]."""
     return torch.sum(corpus * corpus, dim=-1)

@@ -27,6 +27,22 @@ difference of the two is the merge.
   applier passes them) beside indexing: one call by events, a burst of
   100 by events, the host time of a call (a burst of 100 on the host
   clock, no sync) and the profiler's device time;
+* ``--kernel sparse_row_scatter``: ``sparse_row_scatter.cu`` at the
+  add path's sub-batch (U=512, W=168) and the delete path's (W=526),
+  int64 rows and int32 ids as the appliers pass them, beside
+  ``index_put_``, and with ``--parent DIR`` the wrapper and sources of
+  another checkout too (each built by its own ``build`` module), every
+  reading taken in turns (parent, change, ``index_put_``, then the
+  other way round): one call by events, a burst of 100 by events, the
+  host time of a call, and the profiler's device time of a call's own
+  kernel and of every kernel it launched, at those two sub-batches, at
+  one shaped as the appliers' (distinct users, then 212 padding rows of
+  user 0 with PAD ids) and at U=4,096.  The two trees' tables are held
+  bitwise equal first.  Then this tree's kernel by the profiler with
+  phases compiled out (``scan``: the row scan alone; ``stage``: the
+  scan and the staging, no sort or add; ``nosort``: no sort), with 16
+  loads a thread a tile (``kper16``) and with a run's ids split among
+  up to 8 blocks (``split8``);
 * ``--kernel knn_topk``: ``knn_topk.cu``, fp32 over the whole of D.
   Where the source plans its grid with ``knn_topk.plan_knn``, the
   products are split further into the chunk copies alone (``feed``: the
@@ -37,7 +53,7 @@ difference of the two is the merge.
   kernel's own two kernels, and of every kernel the call launched.
 
     python3 tools/dtiled_phase_split.py [--kernel NAME] [--root DIR]
-        [--k K]
+        [--k K] [--parent DIR]
 
 ``--root`` names another checkout of the repository (for example a
 ``git archive`` of an earlier commit, unpacked under ``build/``): its
@@ -66,7 +82,8 @@ COPIES = "auto issue = [&](int ch) {"
 ENTRIES = {"knn_topk_dtiled": "knn_topk_dtiled_launch",
            "knn_topk": "knn_topk_launch",
            "blend_topn_rows": "blend_rows_launch",
-           "sparse_row_gather": "srg_launch"}
+           "sparse_row_gather": "srg_launch",
+           "sparse_row_scatter": "srs_launch"}
 SOURCES = {"blend_topn_rows": "serving_rows.cu"}
 # serving_rows.cu's phases: the blend and selection (finish_tile) in
 # place of a store of the sums, or the row feed and sum left out
@@ -88,6 +105,7 @@ ROWS_PLANS = ((1024, 1024, 8), (2048, 2048, 4), (1024, 4096, 4),
 M, D, Q, K, BD = 13949, 11997, 256, 300, 512
 ALPHA, TOPN = 0.7, 10
 GATHER_U, GATHER_W = 512, 168     # the add path's sub-batch
+SCATTER_W_DEL = 526               # the delete path's ids a row (TaFeng)
 
 
 def time_ms(fn, reps: int = 7) -> float:
@@ -342,6 +360,158 @@ def gather_main(root: Path, csrc: Path, build) -> int:
     return 0
 
 
+def load_tree_scatter(tree: Path):
+    """Another checkout's ``sparse_row_scatter.launch``, bound to that
+    checkout's own ``build`` module: its sources, its C signatures and
+    its build directory."""
+    import importlib.util
+
+    def load(name, path):
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    kdir = tree / "src" / "repro_torch" / "kernels"
+    tree_build = load("parent_build", kdir / "build.py")
+    wrapper = load("parent_sparse_row_scatter", kdir / "sparse_row_scatter.py")
+    wrapper.build = tree_build
+    return wrapper.launch
+
+
+# sparse_row_scatter.cu's phases: the row scan alone, the scan and the
+# staging (no sort or add), everything but the sort, 16 loads a thread
+# a tile in place of 8, and a run's ids split among up to 8 blocks in
+# place of 32
+SCATTER_PHASES = {
+    "scan": ("  if (k >= S || lo >= hi) return;",
+             "  if (k >= S || lo >= hi || L > 0) return;"),
+    "stage": ("  int n2 = 1;\n", "  if (n > 0) {\n    __syncthreads();\n"
+              "    return;\n  }\n  int n2 = 1;\n"),
+    "nosort": ("for (int k = 2; k <= n2; k <<= 1)",
+               "for (int k = 2; k <= 0; k <<= 1)"),
+    "kper16": ("constexpr int kPer = 8;", "constexpr int kPer = 16;"),
+    "split8": ("constexpr int kSplit = 32;", "constexpr int kSplit = 8;"),
+}
+
+
+def scatter_inputs(gen, u, w, padded, dev):
+    """A sub-batch of the sparse scatter: int64 rows, int32 ids (PAD =
+    -1 on 40% and ``ids[:, 1] == ids[:, 0]``), f32 deltas.  ``padded``
+    has the appliers' shape: distinct users, then ``padded`` padding
+    rows of user 0 with PAD ids and zero deltas (-1: none); else a run
+    of 33 rows of one user with valid ids among random users."""
+    ids = torch.randint(0, D, (u, w), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ids[torch.rand(ids.shape, generator=gen, device=dev) < 0.4] = -1
+    ids[:, 1] = ids[:, 0]
+    vals = torch.randn((u, w), generator=gen, device=dev)
+    if padded:
+        rows = torch.randperm(M, generator=gen, device=dev)[:u]
+        if padded < 0:                     # distinct users, no padding
+            return rows, ids, vals
+        rows[u - padded:] = 0
+        ids[u - padded:] = -1
+        vals[u - padded:] = 0.0
+    else:
+        rows = torch.randint(0, M, (u,), generator=gen, device=dev)
+        rows[u // 2: u // 2 + 32] = rows[0].item()
+    return rows, ids, vals
+
+
+def scatter_main(root: Path, parent, build) -> int:
+    """``--kernel sparse_row_scatter``: see the module's docstring."""
+    import time
+    from repro_torch.kernels import sparse_row_scatter
+
+    wrappers = {"change": sparse_row_scatter.launch}
+    if parent is not None:
+        wrappers = {"parent": load_tree_scatter(parent), **wrappers}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    table = torch.rand((M, D), generator=gen, device=dev)
+    res = {"root": str(root), "parent": str(parent),
+           "kernel": "sparse_row_scatter"}
+    shapes = {"add": (GATHER_U, GATHER_W, 0),
+              "delete": (GATHER_U, SCATTER_W_DEL, 0),
+              "add_padded": (GATHER_U, GATHER_W, 212),
+              "add_distinct": (GATHER_U, GATHER_W, -1),
+              "add_4096": (4096, GATHER_W, 0)}
+    for label, (u, w, padded) in shapes.items():
+        rows, ids, vals = scatter_inputs(gen, u, w, padded, dev)
+        outs = [fn(table.clone(), rows, ids, vals)
+                for fn in wrappers.values()]
+        assert all(torch.equal(o.view(torch.int32), outs[0].view(
+            torch.int32)) for o in outs), "the trees' tables differ"
+        del outs
+        valid = ids >= 0
+        safe = torch.where(valid, ids, 0).long()
+        safe_vals = torch.where(valid, vals, torch.zeros_like(vals))
+        rows2d = rows[:, None].expand(u, w)
+        t = table.clone()
+        calls = {name: (lambda fn=fn: fn(t, rows, ids, vals))
+                 for name, fn in wrappers.items()}
+        calls["index_put"] = lambda: t.index_put_((rows2d, safe), safe_vals,
+                                                  accumulate=True)
+        shape = (f"{label}: U={u} W={w} rows int64 ids int32"
+                 + {0: "", -1: ", distinct users"}.get(
+                     padded, f", {padded} padding rows"))
+        out = res.setdefault(label, {"shape": shape})
+        for rnd in range(2):
+            for name, fn in (calls.items() if rnd == 0
+                             else reversed(list(calls.items()))):
+                out.setdefault(f"{name}_ms", []).append(time_ms(fn))
+                torch.cuda.synchronize()
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
+                h0 = time.perf_counter()
+                for _ in range(100):
+                    fn()
+                host = (time.perf_counter() - h0) * 10
+                end.record()
+                end.synchronize()
+                out.setdefault(f"{name}_burst100_ms", []).append(
+                    start.elapsed_time(end) / 100)
+                out.setdefault(f"{name}_host_ms", []).append(host)
+        for name, fn in calls.items():
+            own, every = device_ms(fn, ("sparse_row_scatter",)
+                                   if name != "index_put" else ("",))
+            out[f"{name}_device_own_ms"] = own
+            out[f"{name}_device_all_ms"] = every
+        del t
+    # this tree's kernel with phases compiled out, by the profiler
+    src = (root / "src" / "repro_torch" / "kernels" / "csrc" /
+           "sparse_row_scatter.cu").read_text()
+    variants = {name: src.replace(a, b) for name, (a, b)
+                in SCATTER_PHASES.items() if a in src}
+    if variants:
+        libs = build_variants(build, root / "src" / "repro_torch" /
+                              "kernels" / "csrc", root / "build" /
+                              "phase_split" / "sparse_row_scatter",
+                              "sparse_row_scatter",
+                              {"whole": src, **variants})
+        whole = build._lib
+        gen.manual_seed(1)
+        for label, (u, w, padded) in shapes.items():
+            rows, ids, vals = scatter_inputs(gen, u, w, padded, dev)
+            t = table.clone()
+            for rnd in range(2):
+                for name, lib in (libs.items() if rnd == 0
+                                  else reversed(list(libs.items()))):
+                    build._lib = lib
+                    res[label].setdefault(f"phase_{name}_device_ms",
+                                          []).append(device_ms(
+                        lambda: sparse_row_scatter.launch(t, rows, ids,
+                                                          vals),
+                        ("sparse_row_scatter",))[0])
+            del t
+        build._lib = whole
+    print(json.dumps(res), flush=True)
+    return 0
+
+
 def main() -> int:
     global K
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -351,6 +521,9 @@ def main() -> int:
                     default=Path(__file__).resolve().parents[1])
     ap.add_argument("--k", type=int, default=K,
                     help="neighbours per query (TaFeng's 300 by default)")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="with --kernel sparse_row_scatter: a checkout "
+                         "timed in turns with --root")
     args = ap.parse_args()
     K = args.k
     root, kernel = args.root.resolve(), args.kernel
@@ -370,6 +543,9 @@ def main() -> int:
         return rows_main(root, csrc, build)
     if kernel == "sparse_row_gather":
         return gather_main(root, csrc, build)
+    if kernel == "sparse_row_scatter":
+        return scatter_main(root, args.parent and args.parent.resolve(),
+                            build)
     src = (csrc / f"{kernel}.cu").read_text()
     variants = {"whole": src,
                 "products": MERGE_CALL.sub(r"\1if (0) \2", src)}
