@@ -220,6 +220,12 @@ def index_as_given(t: torch.Tensor, what: str, device: torch.device,
     return cuda_input(t, what, INDEX_DTYPES, device, ndim)
 
 
+def index_bits(rows: torch.Tensor, ids: torch.Tensor) -> int:
+    """The sparse pair's C index flag: bit 0 for int64 ``rows``, bit 1
+    for int64 ``ids`` (each else int32)."""
+    return int(rows.dtype == torch.int64) | int(ids.dtype == torch.int64) << 1
+
+
 def index_input(t: torch.Tensor, what: str, device: torch.device,
                 ndim: int) -> torch.Tensor:
     """Check an index input (int32 or int64) and return it as a

@@ -17,12 +17,6 @@ import torch
 from repro_torch.kernels import build
 
 
-def index_bits(rows: torch.Tensor, ids: torch.Tensor) -> int:
-    """The C entry's index flag: bit 0 for int64 ``rows``, bit 1 for
-    int64 ``ids`` (each else int32)."""
-    return int(rows.dtype == torch.int64) | int(ids.dtype == torch.int64) << 1
-
-
 def launch(table: torch.Tensor, rows: torch.Tensor,
            ids: torch.Tensor) -> torch.Tensor:
     """f32[U, W] = table[rows, ids] by the CUDA kernel.
@@ -46,7 +40,7 @@ def launch(table: torch.Tensor, rows: torch.Tensor,
     out = torch.empty((u, w), dtype=torch.float32, device=dev)
     build.check(build.library().srg_launch(
         table.data_ptr(), rows.data_ptr(), ids.data_ptr(), out.data_ptr(),
-        m, n_items, u, w, index_bits(rows, ids), build.stream_of(table)),
+        m, n_items, u, w, build.index_bits(rows, ids), build.stream_of(table)),
         "sparse_row_gather")
     build.count_launch("sparse_row_gather")
     return out

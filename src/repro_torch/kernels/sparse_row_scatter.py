@@ -18,7 +18,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.sparse_row_gather import index_bits
 
 
 def launch(table: torch.Tensor, rows: torch.Tensor, ids: torch.Tensor,
@@ -47,7 +46,7 @@ def launch(table: torch.Tensor, rows: torch.Tensor, ids: torch.Tensor,
         raise ValueError("empty table")
     build.check(build.library().srs_launch(
         table.data_ptr(), rows.data_ptr(), ids.data_ptr(), vals.data_ptr(),
-        m, n_items, u, w, index_bits(rows, ids), build.stream_of(table)),
+        m, n_items, u, w, build.index_bits(rows, ids), build.stream_of(table)),
         "sparse_row_scatter")
     build.count_launch("sparse_row_scatter")
     return table

@@ -211,7 +211,7 @@ def test_gather_indices_are_taken_as_given(monkeypatch, rows_dtype,
     got_rows = build.index_as_given(rows, "rows", None, 1)
     got_ids = build.index_as_given(ids, "ids", None, 2)
     assert got_rows is rows and got_ids is ids
-    assert sparse_row_gather.index_bits(got_rows, got_ids) == \
+    assert build.index_bits(got_rows, got_ids) == \
         int(rows_dtype == torch.int64) + 2 * int(ids_dtype == torch.int64)
     strided = build.index_as_given(ids.t(), "ids", None, 2)
     assert strided.is_contiguous() and strided.dtype == ids_dtype
