@@ -351,7 +351,14 @@ def check_sparse(gen, table, u, w_add, w_del, records):
         assert same(t_k, t_o), f"scatter ({what}) differs"
         r = three_readings(lambda: sparse_row_scatter.launch(
             t_k, rows64, ids, vals), ("sparse_row_scatter_kernel",))
-        log(f"  scatter, {what}, W={w_add}: {readings_str(r)}")
+        valid = ids >= 0
+        safe_ids = torch.where(valid, ids, torch.zeros_like(ids)).long()
+        safe_vals = torch.where(valid, vals, torch.zeros_like(vals))
+        put = three_readings(lambda: t_k.index_put_(
+            (rows64[:, None].expand_as(ids), safe_ids), safe_vals,
+            accumulate=True), ("",))
+        log(f"  scatter, {what}, W={w_add}: {readings_str(r)} (index_put_ "
+            f"{readings_str(put)})")
         del t_k, t_o
 
 
@@ -366,10 +373,13 @@ def scatter_case(what, table, rows, ids, vals):
 
 def check_scatter_edges(gen, n_items, w_add, dev):
     """B2's edge cases, bitwise the sum in entry order: every entry row
-    one table row with every id valid (a run longer than a staged chunk
-    of 2,048 entries), U=1, W=1, I=1, and a table whose M*I exceeds 2^31
-    (its touched rows held against the ordered sum on a copy of them,
-    every other row left zero)."""
+    one table row (its head block stages every entry of the run), with
+    every id valid, with 40% PAD, and with I=1 (one cell); U=1, W=1,
+    I=1, and a table whose M*I exceeds 2^31 (its touched rows held
+    against the ordered sum on a copy of them, every other row left
+    zero).  The one-row runs are longer than a staged chunk: they must
+    flush it both at a tile's start and inside a tile
+    (``sparse_row_scatter.chunk_flushes``)."""
     def rand(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
@@ -377,8 +387,18 @@ def check_scatter_edges(gen, n_items, w_add, dev):
         return torch.randint(0, items, (u, w), generator=gen, device=dev)
 
     table = rand(16, n_items)
-    scatter_case("one run", table, torch.full((64,), 5, device=dev),
-                 ids_in(n_items, 64, w_add), rand(64, w_add))
+    slabs = set()
+    for what, items, pad in (("one run", n_items, 0.0),
+                             ("one run, 40% PAD", n_items, 0.4),
+                             ("one run, I=1", 1, 0.0)):
+        ids = ids_in(items, 64, w_add)
+        ids[torch.rand((64, w_add), generator=gen, device=dev) < pad] = -1
+        flushes = sparse_row_scatter.chunk_flushes(range(64), ids >= 0)
+        assert flushes, f"{what}: no chunk flushed before the run's end"
+        slabs |= {slab > 0 for _, _, slab in flushes}
+        scatter_case(what, table if items > 1 else rand(16, 1),
+                     torch.full((64,), 5, device=dev), ids, rand(64, w_add))
+    assert slabs == {False, True}, "a chunk flush place is not reached"
     ids = ids_in(n_items, 1, w_add)
     ids[:, 1] = ids[:, 0]
     ids[:, ::4] = -1
@@ -408,9 +428,10 @@ def check_scatter_edges(gen, n_items, w_add, dev):
         torch.count_nonzero(big[touched])), "scatter wrote an untouched row"
     del big
     torch.cuda.empty_cache()
-    log(f"  scatter edges: one row's run of 64 x {w_add} entries, U=1, "
-        f"W=1, I=1, M*I = {m * items:,} > 2^31: bitwise the ordered sum "
-        f"at every pair of index dtypes")
+    log(f"  scatter edges: one row's run of 64 x {w_add} entries (all "
+        f"valid, 40% PAD, I=1; chunks flushed at a tile's start and "
+        f"inside a tile), U=1, W=1, I=1, M*I = {m * items:,} > 2^31: "
+        f"bitwise the ordered sum at every pair of index dtypes")
 
 
 def int_corpus(gen, m, d, dev):
@@ -629,27 +650,31 @@ def device_ms(fn, names, reps: int = 5) -> tuple:
     warm-up: (the kernels whose names contain one of ``names``, every
     kernel the call launched, how many records of the named kernels the
     trace holds -- a trace can miss one, and then these times read
-    short)."""
+    short; one that holds none of them is taken again, up to 3 times)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    own = every = 0.0
-    records = 0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:   # kernels, not ops
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-        every += us
-        if any(n in e.key for n in names):
-            own += us
-            records += e.count
+    own = 0.0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        own = every = 0.0
+        records = 0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:   # kernels, not ops
+                continue
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            every += us
+            if any(n in e.key for n in names):
+                own += us
+                records += e.count
+        if own > 0:
+            break
     assert own > 0, f"no device time for {names}"
     return own / reps / 1e3, every / reps / 1e3, records
 

@@ -11,33 +11,36 @@
 // int32 or int64 each).
 //
 // One block per entry row r.  The block clamps rows[r] and scans
-// rows[0..U) for the run of entry rows that name the same table row:
-// its place k in the run and the run's length L.  The run's first S =
-// min(L, kSplit) blocks split the row's ids into S ranges and block k
-// owns the k-th, so every cell has one owner and a run of padding rows
-// (they alias user 0) is read by at most kSplit blocks.  The owner
-// walks the entries (r', w) of the whole run in entry order, kTile at a
-// time (kPer coalesced loads in flight a thread), stages its own valid
-// ones in shared memory as a key (id, slot) and a value, kChunk at a
-// time, sorts each chunk by key (bitonic), and the first thread of each
-// run of equal ids reads its cell once, adds the run's values in slot
-// order and writes the cell once.  Chunks go in entry order with a
-// __syncthreads() between them.
+// rows[0..U): if an earlier entry row names the same table row it exits,
+// so the first entry row of each run of equal rows (its head) owns the
+// table row.  The head walks the entries (r', w) of every r' >= r that
+// names its row, in entry order, kTile at a time (kPer coalesced loads
+// in flight a thread), stages the valid ones in shared memory as a key
+// (id, slot) and a value, kChunk at a time, sorts each chunk by key
+// (bitonic), and the first thread of each run of equal ids reads its
+// cell once, adds the run's values in slot order and writes the cell
+// once.  Chunks go in entry order with a __syncthreads() between them;
+// a slab of kThreads entries that does not fit flushes the chunk first,
+// inside a tile or at its start (sparse_row_scatter.chunk_flushes says
+// where, for the checks).
 //
 // Determinism: no float atomics.  Every cell gets its deltas added one
 // at a time in entry order, the order of a sequential scatter-add, in
 // any chunk layout, so reruns agree bitwise and the result is bitwise
 // ref.sparse_row_scatter_ordered_ref.
 //
-// Bound: launch latency.  The appliers' sub-batch (U = 512 rows, W =
-// 168 ids) moves about 1 MB, microseconds of HBM time.  What the design
+// Bound: launch latency at the appliers' sub-batch (U = 512 rows, W =
+// 168 ids: about 1 MB, microseconds of HBM time).  What the design
 // saves is the host's work: one launch a call in place of a cast, eight
-// key ops, a radix sort and a gather.  Every block reads all U rows
-// (U^2 reads in all, from L2: 0.003 ms of a call at U = 512, 0.022 at
-// U = 4,096 on an H100), and each of a run's S blocks reads all the
-// run's L x W ids, so a run of padding rows costs L x W / kTile tiles
-// of latency (0.056 ms of a call at 212 padding rows of 512, against
-// 0.017 for 512 distinct rows).
+// key ops, a radix sort and a gather.  Two costs grow past that: every
+// block reads all U rows (U^2 reads in all, from L2), and a run's head
+// walks all its L x W ids alone, one tile latency per kTile of them (a
+// sub-batch's padding rows alias user 0 and form one run).  Against the
+// sort's device time on an H100 (tools/dtiled_phase_split.py --kernel
+// sparse_row_scatter, W = 168): U distinct users reach it at U = 16,384
+// (0.59 against 0.61 ms, 0.12-0.25 of it the row scan), and the fullest
+// pow2 bucket, half of it padding, passes it at U = 4,096 (0.22 against
+// 0.18 ms; 1.12 against 0.53 at 16,384).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,7 +52,6 @@ constexpr int kPer = 8;                    // entries a thread loads a tile
 constexpr int kTile = kThreads * kPer;     // entries read at once
 constexpr int kChunk = 2048;               // entries staged at once
 constexpr int kApply = kChunk / kThreads;  // sorted entries a thread adds
-constexpr int kSplit = 32;                 // blocks that split a run's ids
 
 template <typename R>
 __device__ __forceinline__ long long clamped_row(const R* rows, int r,
@@ -58,38 +60,28 @@ __device__ __forceinline__ long long clamped_row(const R* rows, int r,
   return v < 0 ? 0 : (v >= M ? M - 1 : v);
 }
 
-// Exclusive prefix sums of ``v.x`` and ``v.y`` over the block's threads
-// in thread order, and the sums of all (``total``).  Every thread calls
-// it.
-__device__ __forceinline__ int2 block_scan(int2 v, int2* s_warp,
-                                           int2& total) {
+// Exclusive prefix sum of ``v`` over the block's threads in thread
+// order, and the sum of all (``total``).  Every thread calls it.
+__device__ __forceinline__ int block_scan(int v, int* s_warp, int& total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int2 inc = v;
+  int inc = v;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const int x = __shfl_up_sync(0xffffffffu, inc.x, d);
-    const int y = __shfl_up_sync(0xffffffffu, inc.y, d);
-    if (lane >= d) {
-      inc.x += x;
-      inc.y += y;
-    }
+    const int x = __shfl_up_sync(0xffffffffu, inc, d);
+    if (lane >= d) inc += x;
   }
   if (lane == 31) s_warp[warp] = inc;
   __syncthreads();
-  int2 before = make_int2(0, 0);
-  total = make_int2(0, 0);
+  int before = 0;
+  total = 0;
 #pragma unroll
   for (int i = 0; i < kWarps; ++i) {
-    const int2 c = s_warp[i];
-    if (i < warp) {
-      before.x += c.x;
-      before.y += c.y;
-    }
-    total.x += c.x;
-    total.y += c.y;
+    const int c = s_warp[i];
+    before += i < warp ? c : 0;
+    total += c;
   }
   __syncthreads();                 // s_warp is free for the next call
-  return make_int2(before.x + inc.x - v.x, before.y + inc.y - v.y);
+  return before + inc - v;
 }
 
 // Sorts s_key[0, n) ascending (bitonic, padded to a power of two with
@@ -146,47 +138,40 @@ __global__ void __launch_bounds__(kThreads) sparse_row_scatter_kernel(
   __shared__ unsigned long long s_key[kChunk];   // (id << 32) | slot
   __shared__ float s_val[kChunk];
   __shared__ int s_run[kThreads];
-  __shared__ int2 s_warp[kWarps];
+  __shared__ int s_warp[kWarps];
   __shared__ int s_count[kPer][kWarps];
 
-  // entry row r's place k in the run of entry rows that name its table
-  // row, and the run's length L
+  // the run's head owns the table row: a block whose row an earlier
+  // entry row names exits; a head that no later entry row shares walks
+  // its own row alone
   const int r = blockIdx.x;
   const long long row = clamped_row(rows, r, M);
-  int2 seen = make_int2(0, 0);             // (before r, after r)
+  bool before = false, after = false;
 #pragma unroll 4
   for (int t = threadIdx.x; t < U; t += kThreads) {
     const bool same = clamped_row(rows, t, M) == row;
-    seen.x += same && t < r;
-    seen.y += same && t > r;
+    before |= same && t < r;
+    after |= same && t > r;
   }
-  int2 count;
-  block_scan(seen, s_warp, count);
-  const int k = count.x, L = count.x + 1 + count.y;
-  // the run's first S blocks split the row's ids: block k owns [lo, hi)
-  const long long S = min(L, kSplit);
-  const long long lo = ((long long)k * I + S - 1) / S;
-  const long long hi = ((long long)(k + 1) * I + S - 1) / S;
-  if (k >= S || lo >= hi) return;
+  if (__syncthreads_or(before)) return;
+  const bool alone = !__syncthreads_or(after);
   float* __restrict__ cells = table + row * (long long)I;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   // a thread's entry moves kThreads on a slab: step_rows rows, step_w ids
   const int step_rows = kThreads / W, step_w = kThreads % W;
 
   int n = 0;                                  // entries staged (uniform)
-  // the run's rows, kThreads candidates at a time (row r alone if L = 1)
-  const int t_end = L == 1 ? r + 1 : U;
-  for (int t0 = L == 1 ? r : 0; t0 < t_end; t0 += kThreads) {
+  // the run's rows, kThreads candidates at a time from the head on
+  const int t_end = alone ? r + 1 : U;
+  for (int t0 = r; t0 < t_end; t0 += kThreads) {
     int nrun = 1;
-    if (L == 1) {
+    if (alone) {
       if (threadIdx.x == 0) s_run[0] = r;
     } else {
       const int t = t0 + threadIdx.x;
       const bool same = t < U && clamped_row(rows, t, M) == row;
-      int2 total;
-      const int at = block_scan(make_int2(same, 0), s_warp, total).x;
+      const int at = block_scan(same, s_warp, nrun);
       if (same) s_run[at] = t;
-      nrun = total.x;
     }
     __syncthreads();
     // entry f = f0 + j * kThreads + threadIdx.x of the rows s_run[0, nrun)
@@ -206,7 +191,7 @@ __global__ void __launch_bounds__(kThreads) sparse_row_scatter_kernel(
         const long long id = (long long)ids[e];
         v_r[j] = vals[e];
         id_r[j] = (unsigned)id;
-        own |= (unsigned)(in && id >= lo && id < hi) << j;
+        own |= (unsigned)(in && id >= 0 && id < I) << j;
         i += step_rows;
         w += step_w;
         if (w >= W) {
@@ -214,6 +199,8 @@ __global__ void __launch_bounds__(kThreads) sparse_row_scatter_kernel(
           ++i;
         }
       }
+      // a tile of no valid id stages nothing (padding rows): one barrier
+      if (!__syncthreads_or(own)) continue;
 #pragma unroll
       for (int j = 0; j < kPer; ++j) {
         const unsigned b = __ballot_sync(0xffffffffu, (own >> j) & 1u);

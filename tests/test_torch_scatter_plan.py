@@ -7,8 +7,11 @@ deltas added one at a time in entry order (r, w).  Its bitwise oracle is
 ``ref.sparse_row_scatter_ordered_ref``; the kernel runs only on the card
 (``chip_smoke.py`` holds it bitwise against that oracle).  Here the
 oracle is held against a sequential scatter-add (``numpy.add.at``) and
-against the JAX package, and the wrapper's checks and its one launch are
-held with the library replaced by a recorder.
+against the JAX package, ``sparse_row_scatter.chunk_flushes`` (where the
+owner flushes a staged chunk, which ``chip_smoke.py`` uses to show that
+its long runs flush at a tile's start and inside a tile) against the
+kernel's staging loop transcribed, and the wrapper's checks and its one
+launch with the library replaced by a recorder.
 
 Tolerances:
   * against ``numpy.add.at`` -- bitwise: both add each cell's deltas one
@@ -19,6 +22,9 @@ Tolerances:
     ``tests/test_torch_kernels.py`` (those sum a cell's deltas in another
     order).
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -140,6 +146,77 @@ def test_ordered_ref_matches_jax(rng, integer, pair, m, items, u, w):
         else:
             np.testing.assert_allclose(got, np.asarray(exp), rtol=1e-6,
                                        atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# where the head block flushes a staged chunk
+# ---------------------------------------------------------------------------
+
+def test_chunk_constants_are_the_kernels():
+    src = (Path(sparse_row_scatter.__file__).parent / "csrc" /
+           "sparse_row_scatter.cu").read_text()
+    const = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert (int(const["kThreads"]), int(const["kPer"]),
+            int(const["kChunk"])) == (sparse_row_scatter.THREADS,
+                                      sparse_row_scatter.PER,
+                                      sparse_row_scatter.CHUNK)
+
+
+def _staging_loop(at, valid):
+    """The kernel's walk of one run, transcribed: windows of THREADS
+    candidate entry rows from the head on, tiles of PER slabs, and the
+    start/stop loop that flushes the chunk before a slab that does not
+    fit."""
+    t, p, c = (sparse_row_scatter.THREADS, sparse_row_scatter.PER,
+               sparse_row_scatter.CHUNK)
+    w = valid.shape[1]
+    out, n = [], 0
+    for t0 in range(at[0], at[-1] + 1, t):
+        run = [i for i, a in enumerate(at) if t0 <= a < t0 + t]
+        entries = valid[run].reshape(-1).tolist()
+        for f0 in range(0, len(run) * w, t * p):
+            counts = [sum(entries[f0 + j * t: f0 + (j + 1) * t])
+                      for j in range(p)]
+            start = 0
+            while True:
+                stop = p
+                for j in range(start, p):
+                    if j >= stop:
+                        break
+                    if n + counts[j] > c:
+                        stop = j
+                        continue
+                    n += counts[j]
+                if stop == p:
+                    break
+                out.append(((t0 - at[0]) // t, f0 // (t * p), stop))
+                n, start = 0, stop
+    return out
+
+
+@pytest.mark.parametrize("at,w,pad", [
+    (list(range(64)), 168, 0.0), (list(range(64)), 168, 0.4),
+    (list(range(64)), 168, 0.9), (list(range(3, 67)), 1, 0.0),
+    ([0, 5, 255, 256, 300, 511, 600], 526, 0.3),
+    (list(range(0, 3000, 7)), 1, 0.2), ([0, 1], 3000, 0.5),
+    ([4], 168, 0.0), (list(range(40)), 168, 1.0)])
+def test_chunk_flushes_follow_the_staging_loop(rng, at, w, pad):
+    valid = torch.from_numpy(rng.random((len(at), w)) >= pad)
+    assert sparse_row_scatter.chunk_flushes(at, valid) == _staging_loop(
+        at, valid)
+
+
+def test_chunk_flushes_of_a_long_run():
+    """64 rows of 168 valid ids flush at tile starts only; with PAD ids
+    the chunks fill inside tiles; a run of no valid id never flushes."""
+    full = torch.ones((64, 168), dtype=torch.bool)
+    assert sparse_row_scatter.chunk_flushes(range(64), full) == [
+        (0, tile, 0) for tile in range(1, 6)]
+    some = torch.from_numpy(np.random.default_rng(0).random((64, 168))
+                            >= 0.4)
+    assert any(slab > 0 for _, _, slab in
+               sparse_row_scatter.chunk_flushes(range(64), some))
+    assert sparse_row_scatter.chunk_flushes(range(64), ~full) == []
 
 
 # ---------------------------------------------------------------------------

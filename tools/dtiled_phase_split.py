@@ -27,22 +27,30 @@ difference of the two is the merge.
   applier passes them) beside indexing: one call by events, a burst of
   100 by events, the host time of a call (a burst of 100 on the host
   clock, no sync) and the profiler's device time;
-* ``--kernel sparse_row_scatter``: ``sparse_row_scatter.cu`` at the
-  add path's sub-batch (U=512, W=168) and the delete path's (W=526),
-  int64 rows and int32 ids as the appliers pass them, beside
-  ``index_put_``, and with ``--parent DIR`` the wrapper and sources of
-  another checkout too (each built by its own ``build`` module), every
-  reading taken in turns (parent, change, ``index_put_``, then the
-  other way round): one call by events, a burst of 100 by events, the
-  host time of a call, and the profiler's device time of a call's own
-  kernel and of every kernel it launched, at those two sub-batches, at
-  one shaped as the appliers' (distinct users, then 212 padding rows of
-  user 0 with PAD ids) and at U=4,096.  The two trees' tables are held
-  bitwise equal first.  Then this tree's kernel by the profiler with
-  phases compiled out (``scan``: the row scan alone; ``stage``: the
-  scan and the staging, no sort or add; ``nosort``: no sort), with 16
-  loads a thread a tile (``kper16``) and with a run's ids split among
-  up to 8 blocks (``split8``);
+* ``--kernel sparse_row_scatter``: first the main path's load
+  (``serve.run_trickle`` on TaFeng's published size, as ``chip_smoke.py``
+  drives it) with each of its B2 calls' rows and ids read back: the
+  calls, their sub-batch sizes, the runs of entry rows that name one
+  table row, and how many of a run's rows carry a valid id.  Then
+  ``sparse_row_scatter.cu`` at the add path's sub-batch (U=512, W=168)
+  and the delete path's (W=526), int64 rows and int32 ids as the
+  appliers pass them, beside ``index_put_``, and with ``--parent DIR
+  [DIR ...]`` the wrapper and sources of other checkouts too (each
+  built by its own ``build`` module), every reading taken in turns
+  (the parents, the change, ``index_put_``, then the other way round):
+  one call by events, a burst of 100 by events, the host time of a
+  call, and the profiler's device time of a call's own kernel and of
+  every kernel it launched.  The sub-batches: those two (a run of 33
+  rows of one user with valid ids among random users), the appliers'
+  shape (distinct users, then padding rows of user 0 with PAD ids), 512
+  distinct users, and larger ones for the cost of the row scan and of
+  a long padding run (U=4,096 as the add path; 4,096, 8,192 and 16,384
+  distinct users; the fullest pow2 buckets of 4,096 and 16,384, half
+  of them padding).  The trees' tables are held bitwise equal first.
+  Then this tree's kernel by the profiler with phases compiled out
+  (``scan``: the row scan alone; ``stage``: the scan and the staging,
+  no sort or add; ``nosort``: no sort) and with 16 loads a thread a
+  tile (``kper16``);
 * ``--kernel knn_topk``: ``knn_topk.cu``, fp32 over the whole of D.
   Where the source plans its grid with ``knn_topk.plan_knn``, the
   products are split further into the chunk copies alone (``feed``: the
@@ -53,7 +61,7 @@ difference of the two is the merge.
   kernel's own two kernels, and of every kernel the call launched.
 
     python3 tools/dtiled_phase_split.py [--kernel NAME] [--root DIR]
-        [--k K] [--parent DIR]
+        [--k K] [--parent DIR [DIR ...]]
 
 ``--root`` names another checkout of the repository (for example a
 ``git archive`` of an earlier commit, unpacked under ``build/``): its
@@ -106,6 +114,7 @@ M, D, Q, K, BD = 13949, 11997, 256, 300, 512
 ALPHA, TOPN = 0.7, 10
 GATHER_U, GATHER_W = 512, 168     # the add path's sub-batch
 SCATTER_W_DEL = 526               # the delete path's ids a row (TaFeng)
+SCATTER_M = 16384                 # table rows: 16,384 distinct users fit
 
 
 def time_ms(fn, reps: int = 7) -> float:
@@ -373,73 +382,118 @@ def load_tree_scatter(tree: Path):
         return mod
 
     kdir = tree / "src" / "repro_torch" / "kernels"
-    tree_build = load("parent_build", kdir / "build.py")
-    wrapper = load("parent_sparse_row_scatter", kdir / "sparse_row_scatter.py")
+    tag = "tree_" + re.sub(r"\W", "_", str(tree))
+    tree_build = load(f"{tag}_build", kdir / "build.py")
+    wrapper = load(f"{tag}_sparse_row_scatter", kdir / "sparse_row_scatter.py")
     wrapper.build = tree_build
     return wrapper.launch
 
 
+def scatter_runs(dev) -> dict:
+    """The main path's B2 calls (``serve.run_trickle`` on TaFeng, as
+    ``chip_smoke.py`` drives it), each one's rows and ids read back:
+    calls by sub-batch size, runs of entry rows naming one table row by
+    length, and the runs in which more than one row carries a valid id
+    (the only ones whose cells take deltas from several rows)."""
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    launch, seen = ops._scatter.launch, []
+
+    def record(table, rows, ids, vals):
+        m, n_items = table.shape
+        seen.append((rows.long().clamp(0, m - 1).cpu(),
+                     ((ids >= 0) & (ids < n_items)).any(1).cpu()))
+        return launch(table, rows, ids, vals)
+
+    ops._scatter.launch = record
+    try:
+        serve.run_trickle(synthetic.generate("tafeng", seed=0, scale=1.0),
+                          device=dev)
+    finally:
+        ops._scatter.launch = launch
+    sizes, lengths, live_rows = {}, {}, {}
+    for rows, live in seen:
+        sizes[rows.numel()] = sizes.get(rows.numel(), 0) + 1
+        uniq, inv, count = torch.unique(rows, return_inverse=True,
+                                        return_counts=True)
+        n_live = torch.zeros(uniq.numel(), dtype=torch.long).index_add_(
+            0, inv, live.long())
+        for c, nl in zip(count.tolist(), n_live.tolist()):
+            if c > 1:
+                lengths[c] = lengths.get(c, 0) + 1
+                live_rows[nl] = live_rows.get(nl, 0) + 1
+    return {"calls": len(seen), "calls_by_U": sizes,
+            "runs_by_length": dict(sorted(lengths.items())),
+            "runs_by_rows_with_a_valid_id": dict(sorted(live_rows.items()))}
+
+
 # sparse_row_scatter.cu's phases: the row scan alone, the scan and the
-# staging (no sort or add), everything but the sort, 16 loads a thread
-# a tile in place of 8, and a run's ids split among up to 8 blocks in
-# place of 32
+# staging (no sort or add), everything but the sort, and 16 loads a
+# thread a tile in place of 8
 SCATTER_PHASES = {
-    "scan": ("  if (k >= S || lo >= hi) return;",
-             "  if (k >= S || lo >= hi || L > 0) return;"),
+    "scan": ("  if (__syncthreads_or(before)) return;",
+             "  if (__syncthreads_or(before) || U > 0) return;"),
     "stage": ("  int n2 = 1;\n", "  if (n > 0) {\n    __syncthreads();\n"
               "    return;\n  }\n  int n2 = 1;\n"),
     "nosort": ("for (int k = 2; k <= n2; k <<= 1)",
                "for (int k = 2; k <= 0; k <<= 1)"),
     "kper16": ("constexpr int kPer = 8;", "constexpr int kPer = 16;"),
-    "split8": ("constexpr int kSplit = 32;", "constexpr int kSplit = 8;"),
 }
 
 
-def scatter_inputs(gen, u, w, padded, dev):
-    """A sub-batch of the sparse scatter: int64 rows, int32 ids (PAD =
-    -1 on 40% and ``ids[:, 1] == ids[:, 0]``), f32 deltas.  ``padded``
-    has the appliers' shape: distinct users, then ``padded`` padding
-    rows of user 0 with PAD ids and zero deltas (-1: none); else a run
-    of 33 rows of one user with valid ids among random users."""
+def scatter_inputs(gen, m, u, w, padded, dev):
+    """A sub-batch of the sparse scatter into ``m`` table rows: int64
+    rows, int32 ids (PAD = -1 on 40% and ``ids[:, 1] == ids[:, 0]``),
+    f32 deltas.  ``padded`` has the appliers' shape: distinct users,
+    then ``padded`` padding rows of user 0 with PAD ids and zero deltas
+    (-1: none); else a run of 33 rows of one user with valid ids among
+    random users."""
     ids = torch.randint(0, D, (u, w), generator=gen, device=dev,
                         dtype=torch.int32)
     ids[torch.rand(ids.shape, generator=gen, device=dev) < 0.4] = -1
     ids[:, 1] = ids[:, 0]
     vals = torch.randn((u, w), generator=gen, device=dev)
     if padded:
-        rows = torch.randperm(M, generator=gen, device=dev)[:u]
+        rows = torch.randperm(m, generator=gen, device=dev)[:u]
         if padded < 0:                     # distinct users, no padding
             return rows, ids, vals
         rows[u - padded:] = 0
         ids[u - padded:] = -1
         vals[u - padded:] = 0.0
     else:
-        rows = torch.randint(0, M, (u,), generator=gen, device=dev)
+        rows = torch.randint(0, m, (u,), generator=gen, device=dev)
         rows[u // 2: u // 2 + 32] = rows[0].item()
     return rows, ids, vals
 
 
-def scatter_main(root: Path, parent, build) -> int:
+def scatter_main(root: Path, parents, build) -> int:
     """``--kernel sparse_row_scatter``: see the module's docstring."""
     import time
     from repro_torch.kernels import sparse_row_scatter
 
-    wrappers = {"change": sparse_row_scatter.launch}
-    if parent is not None:
-        wrappers = {"parent": load_tree_scatter(parent), **wrappers}
     dev = torch.device("cuda")
+    res = {"root": str(root), "parents": [str(p) for p in parents],
+           "kernel": "sparse_row_scatter", "runs": scatter_runs(dev)}
+    print(json.dumps(res["runs"]), flush=True)
+    wrappers = {**{f"parent_{p.name}": load_tree_scatter(p)
+                   for p in parents},
+                "change": sparse_row_scatter.launch}
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    table = torch.rand((M, D), generator=gen, device=dev)
-    res = {"root": str(root), "parent": str(parent),
-           "kernel": "sparse_row_scatter"}
+    table = torch.rand((SCATTER_M, D), generator=gen, device=dev)
     shapes = {"add": (GATHER_U, GATHER_W, 0),
               "delete": (GATHER_U, SCATTER_W_DEL, 0),
               "add_padded": (GATHER_U, GATHER_W, 212),
               "add_distinct": (GATHER_U, GATHER_W, -1),
-              "add_4096": (4096, GATHER_W, 0)}
+              "add_4096": (4096, GATHER_W, 0),
+              "add_4096_distinct": (4096, GATHER_W, -1),
+              "add_4096_padded": (4096, GATHER_W, 2047),
+              "add_8192_distinct": (8192, GATHER_W, -1),
+              "add_16384_distinct": (16384, GATHER_W, -1),
+              "add_16384_padded": (16384, GATHER_W, 8191)}
     for label, (u, w, padded) in shapes.items():
-        rows, ids, vals = scatter_inputs(gen, u, w, padded, dev)
+        rows, ids, vals = scatter_inputs(gen, SCATTER_M, u, w, padded, dev)
         outs = [fn(table.clone(), rows, ids, vals)
                 for fn in wrappers.values()]
         assert all(torch.equal(o.view(torch.int32), outs[0].view(
@@ -495,7 +549,8 @@ def scatter_main(root: Path, parent, build) -> int:
         whole = build._lib
         gen.manual_seed(1)
         for label, (u, w, padded) in shapes.items():
-            rows, ids, vals = scatter_inputs(gen, u, w, padded, dev)
+            rows, ids, vals = scatter_inputs(gen, SCATTER_M, u, w, padded,
+                                             dev)
             t = table.clone()
             for rnd in range(2):
                 for name, lib in (libs.items() if rnd == 0
@@ -521,10 +576,12 @@ def main() -> int:
                     default=Path(__file__).resolve().parents[1])
     ap.add_argument("--k", type=int, default=K,
                     help="neighbours per query (TaFeng's 300 by default)")
-    ap.add_argument("--parent", type=Path, default=None,
-                    help="with --kernel sparse_row_scatter: a checkout "
+    ap.add_argument("--parent", type=Path, nargs="+", default=[],
+                    help="with --kernel sparse_row_scatter: checkouts "
                          "timed in turns with --root")
     args = ap.parse_args()
+    if args.parent and args.kernel != "sparse_row_scatter":
+        ap.error("--parent is read by --kernel sparse_row_scatter only")
     K = args.k
     root, kernel = args.root.resolve(), args.kernel
     if not torch.cuda.is_available():
@@ -544,7 +601,7 @@ def main() -> int:
     if kernel == "sparse_row_gather":
         return gather_main(root, csrc, build)
     if kernel == "sparse_row_scatter":
-        return scatter_main(root, args.parent and args.parent.resolve(),
+        return scatter_main(root, [p.resolve() for p in args.parent],
                             build)
     src = (csrc / f"{kernel}.cu").read_text()
     variants = {"whole": src,
