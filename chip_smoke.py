@@ -17,10 +17,15 @@ Phases, each fatal on failure (nothing is caught):
    a burst of 100, the profiler and the host clock, beside indexing and
    ``index_put_`` read the same way; the sparse scatter bitwise the sum
    in entry order at every pair of index dtypes, one kernel a call, and
-   timed at U=4,096 too; the row blend bitwise the sum in order j =
-   0..k-1, also by a burst of 10 and the profiler); then the edge cases
-   of the sparse scatter (one row's long run, U=1, W=1, I=1, M*I >
-   2^31), of the multi-hot scatter and of attention;
+   timed at U=4,096 too; the neighbour blend bitwise the sum in order
+   j = 0..k-1 in its staging passes, with its plan, the distinct rows
+   it reads and four readings beside gather + mean + ``topk``'s; the
+   row blend bitwise the sum in order j = 0..k-1, also by a burst of 10
+   and the profiler); then the edge cases of the neighbour blend (a
+   group over one pass, n = 33 and 1,024, k = 1, PAD rows, users out of
+   range, M = 1, I = 31), of the sparse scatter (one row's long run,
+   U=1, W=1, I=1, M*I > 2^31), of the multi-hot scatter and of
+   attention;
 4. main path -- the port's serving trickle (``launch/serve.py``,
    ``run_trickle(quantized=True)``) at full width: 13,949 users x 11,997
    items, m=7, k=300, alpha=0.7, a bulk load of one mixed stream in
@@ -213,18 +218,20 @@ def padded_inputs(gen, m, n_items, u, w, n_pad, dev):
     return rows, ids, vals
 
 
-def three_readings(fn, names, reps: int = 5) -> dict:
+def three_readings(fn, names, reps: int = 5, per_call: int = 1) -> dict:
     """A call's time three ways, and its host time: one call between two
     events (``ms``, holding the wrapper's host time on an idle card), a
     burst of 100 back to back between two events, per call
-    (``burst_ms``), the profiler's device time per recorded launch of
-    ``names`` (``device_ms``), and the host clock around
-    the burst's calls, per call, with no sync (``host_ms``)."""
+    (``burst_ms``), the profiler's device time of ``names`` per call
+    (``device_ms``; the call launches ``per_call`` of them), and the
+    host clock around the burst's calls, per call, with no sync
+    (``host_ms``)."""
     out = dict(ms=time_ms(fn))
     own, _, n_rec = device_ms(fn, names, reps)
-    # per launch the trace recorded (a trace can miss one); every kernel
-    # of a call ("") per call
-    out["device_ms"] = own if names == ("",) else own * reps / n_rec
+    # per call by the launches the trace recorded (a trace can miss one);
+    # every kernel of a call ("") per call
+    out["device_ms"] = own if names == ("",) else \
+        own * reps * per_call / n_rec
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
@@ -598,45 +605,138 @@ def check_stage_a(corpus, c_int, uid, records):
         f"ms in all kernels of the call")
 
 
+def blend_case(corpus, uid, nbr, n, what, one_pass=False):
+    """B4 on one input: bitwise ``ref.blend_topn_ordered_ref`` in the
+    kernel's staging passes (and, where ``one_pass``, every group in one
+    pass, bitwise the sum in order j = 0..k-1 with no passes), within
+    rtol=1e-5, atol=1e-6 of ``ref.blend_topn_ref`` with score-equivalent
+    ids.  Returns (max |err|, the plan, the most passes a group took)."""
+    m, n_items = corpus.shape
+    q_n, k = nbr.shape
+    plan = serving_topn.plan_blend(q_n, m, n_items, k, n, torch.cuda.
+                                   get_device_properties(corpus.device)
+                                   .multi_processor_count)
+    passes = ref.blend_passes(nbr, m, plan.group, plan.stage_rows)
+    valid = (nbr >= 0) & (nbr < m)
+    n_pass = int(passes[valid].max()) + 1 if bool(valid.any()) else 0
+    vk, ik = serving_topn.launch(corpus, uid, nbr, ALPHA, n)
+    vo, io = ref.blend_topn_ordered_ref(corpus, uid, nbr, ALPHA, n, passes)
+    vp, _ = ref.blend_topn_ref(corpus, uid, nbr, ALPHA, n)
+    torch.cuda.synchronize()
+    assert same(vk, vo) and torch.equal(ik, io), \
+        f"B4 ({what}) is not the ordered sum in its passes"
+    if one_pass:
+        assert n_pass <= 1, (what, n_pass)
+        vj, ij = ref.blend_topn_ordered_ref(corpus, uid, nbr, ALPHA, n)
+        assert same(vk, vj) and torch.equal(ik, ij), \
+            f"B4 ({what}) is not the sum in order j = 0..k-1"
+    err = float((vk - vp).abs().max())
+    assert torch.allclose(vk, vp, rtol=1e-5, atol=1e-6), (what, err)
+    uvalid = ((uid >= 0) & (uid < m))[:, None]
+    own = torch.where(uvalid, corpus[uid.long().clamp(0, m - 1)],
+                      torch.zeros((), device=corpus.device))
+    rows = torch.where(valid[..., None], corpus[nbr.long().clamp(0, m - 1)],
+                       torch.zeros((), device=corpus.device))
+    pred = ALPHA * own + (1.0 - ALPHA) * rows.sum(1) / k
+    assert torch.allclose(pred.gather(1, ik.long()), vp, rtol=1e-5,
+                          atol=1e-6), f"B4 ({what}) ids not equivalent"
+    return err, plan, n_pass
+
+
+def check_blend_edges(gen, corpus, uid, nbr):
+    """B4's edge cases on the kernel checks' corpus: a group that
+    overflows one pass (random neighbours), every group in one pass
+    (neighbours drawn from 400 rows), n = 33 and n = 1,024 (the lists in shared memory), k = 1,
+    all-PAD rows and entries >= M, user ids outside [0, M), int64
+    indices, Q not a multiple of the group, M = 1 and I = 31."""
+    m = corpus.shape[0]
+    dev = corpus.device
+    rnd = torch.randint(0, m, (40, 300), generator=gen, device=dev,
+                        dtype=torch.int32)
+    err, plan, n_pass = blend_case(corpus, uid[:40], rnd, TOPN,
+                                   "random neighbours")
+    assert n_pass > 1, n_pass
+    log(f"  stage B overflow: Q=40 k=300 random neighbours, {n_pass} "
+        f"passes of {plan.stage_rows} rows, max |err| {err}")
+    pool = torch.randperm(m, generator=gen, device=dev)[:400]
+    few = pool[torch.randint(0, 400, (64, 300), generator=gen, device=dev)]
+    blend_case(corpus, uid[:64], few.to(torch.int32), TOPN, "400 rows",
+               one_pass=True)
+    for n in (33, 1024):
+        _, plan, n_pass = blend_case(corpus, uid, nbr, n, f"n={n}")
+        log(f"  stage B n={n}: groups of {plan.group}, {n_pass} passes of "
+            f"{plan.stage_rows} rows")
+    blend_case(corpus, uid, nbr[:, :1].contiguous(), TOPN, "k=1")
+    pad = nbr.clone()
+    pad[3] = -1
+    pad[5, ::2] = m + 7
+    bad = uid.clone()
+    bad[2], bad[7] = -4, m
+    blend_case(corpus, bad, pad, TOPN, "PAD rows, ids >= M, users out")
+    blend_case(corpus, uid[:37].long(), nbr[:37].long(), TOPN,
+               "int64, Q=37")
+    blend_case(corpus[:1].contiguous(), torch.zeros(5, dtype=torch.int32,
+               device=dev), torch.zeros((5, 3), dtype=torch.int32,
+                                        device=dev), TOPN, "M=1")
+    thin = corpus[:, :31].contiguous()
+    for n in (TOPN, 31):
+        blend_case(thin, uid[:37], nbr[:37], n, f"I=31 n={n}")
+    log("  stage B edges: random neighbours (overflow), 400 rows (one pass), "
+        "n=33, n=1,024, k=1, PAD rows and ids >= M, users out of range, "
+        "int64 Q=37, M=1, I=31: each bitwise the ordered sum in its "
+        "passes")
+
+
 def check_stage_b(corpus, c_int, uid, records):
     m, n_items = corpus.shape
     nbr, nbr_int = records["knn_topk"].pop("nbr"), \
         records["knn_topk"].pop("nbr_int")
     k = nbr.shape[1]
-    vk, ik = serving_topn.launch(corpus, uid, nbr, ALPHA, TOPN)
-    vp, ip = ref.blend_topn_ref(corpus, uid, nbr, ALPHA, TOPN)
-    pred = ALPHA * corpus[uid.long()] + (1.0 - ALPHA) \
-        * corpus[nbr.long()].sum(1) / k
-    torch.cuda.synchronize()
-    err = float((vk - vp).abs().max())
-    # fp32 sums of k rows in another order
-    assert torch.allclose(vk, vp, rtol=1e-5, atol=1e-6), err
-    assert torch.allclose(pred.gather(1, ik.long()), vp, rtol=1e-5,
-                          atol=1e-6), "stage B ids not equivalent"
+    err, plan, n_pass = blend_case(corpus, uid, nbr, TOPN, "kernel checks")
+    distinct = [int(torch.unique(nbr[g0:g0 + plan.group]).numel())
+                for g0 in range(0, Q, plan.group)]
     vki, iki = serving_topn.launch(c_int, uid, nbr_int, ALPHA, TOPN)
     vpi, ipi = ref.blend_topn_ref(c_int, uid, nbr_int, ALPHA, TOPN)
     torch.cuda.synchronize()
     assert torch.equal(iki, ipi), "stage B tie-break differs"
     assert torch.allclose(vki, vpi, rtol=1e-6), "stage B integer values"
-    log(f"  stage B k={k} n={TOPN}: max |err| {err}, integer ties exact")
-    used = torch.unique(torch.cat([nbr.reshape(-1), uid.long()]))
+    log(f"  stage B k={k} n={TOPN}: max |err| {err}, bitwise the ordered "
+        f"sum in {n_pass} passes, integer ties exact; plan: groups of "
+        f"{plan.group} queries, tiles of {serving_topn.BLEND_TILE} items, "
+        f"{plan.groups} groups x {plan.strips} strips of "
+        f"{plan.tiles_per_strip} tiles = {plan.groups * plan.strips} "
+        f"blocks, {plan.smem_bytes} bytes of shared memory ({plan.stage_rows}"
+        f" rows a pass), plan kernel {plan.plan_smem_bytes}; distinct rows "
+        f"a group {min(distinct)}-{max(distinct)}, the largest in {n_pass} "
+        f"passes")
+    check_blend_edges(torch.Generator(device=corpus.device).manual_seed(4),
+                      corpus, uid, nbr)
+    used = torch.unique(torch.cat([nbr.reshape(-1), uid]).long())
+    # the distinct rows read once and ids in, [Q, n] out; Q·(k+1)·I fp32
+    # adds (an add takes an FMA's issue slot, which the peak counts as two
+    # operations)
+    n_bytes = used.numel() * n_items * 4 + Q * (k + 1) * 4 + Q * TOPN * 8
+    n_ops = 2.0 * Q * (k + 1) * n_items
+    u, nb = uid.long(), nbr.long()
+    b4 = three_readings(lambda: serving_topn.launch(corpus, uid, nbr, ALPHA,
+                                                    TOPN),
+                        ("blend_", "merge_"), per_call=3)
+    lib = three_readings(lambda: torch.topk(
+        ALPHA * corpus[u] + (1.0 - ALPHA) * corpus[nb].mean(1), TOPN),
+        ("",))
     records["blend_topn_onehot"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: serving_topn.launch(corpus, uid, nbr, ALPHA,
-                                               TOPN)),
+        max_abs_err=err, ms=b4["ms"], readings=b4, library=lib,
         plain_ms=time_ms(lambda: ref.blend_topn_ref(corpus, uid, nbr,
                                                     ALPHA, TOPN)),
-        library_ms=time_ms(lambda: torch.topk(
-            ALPHA * corpus[uid.long()]
-            + (1.0 - ALPHA) * corpus[nbr.long()].mean(1), TOPN)),
+        library_ms=lib["ms"],
         shape=f"Q={Q} M={m} I={n_items} k={k} n={TOPN}",
-        # Q·(k+1)·I fp32 adds; an add takes an FMA's issue slot, which
-        # the peak counts as two operations
-        bound=bound(used.numel() * n_items * 4 + Q * (k + 1) * 4
-                    + Q * TOPN * 8, 2.0 * Q * (k + 1) * n_items))
+        bound=bound(n_bytes, n_ops))
     rec = records["blend_topn_onehot"]
-    log(f"  stage B timed: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, "
-        f"gather + mean + topk {rec['library_ms']:.4f})")
+    log(f"  stage B bound: {used.numel()} distinct rows used, bytes "
+        f"{n_bytes / PEAK_BYTES * 1e3:.4f} ms, operations "
+        f"{n_ops / PEAK_FP32 * 1e3:.4f} ms")
+    log(f"  stage B timed: {readings_str(b4)} (plain {rec['plain_ms']:.4f};"
+        f" gather + mean + topk {readings_str(lib)})")
 
 
 def same(a, b) -> bool:
@@ -1084,7 +1184,8 @@ def check_rows(corpus, c_int, cq, cs, uid, nbr, records):
 def request_breakdown(run, p):
     """Device time of each request's serving stages on the corpus it was
     served from (CUDA events), beside the plain pipeline's: fp32 stages A
-    and B, then the int8 request's stages A and B."""
+    and B (B also by the profiler, with stage A's distinct neighbour rows
+    and B4's staging passes), then the int8 request's stages A and B."""
     for i, (users, corpus) in enumerate(zip(run.requests, run.corpora)):
         uid = torch.as_tensor(users, dtype=torch.int32, device=corpus.device)
         q = corpus[uid.long()]
@@ -1094,6 +1195,16 @@ def request_breakdown(run, p):
                       3)
         t_b = time_ms(lambda: serving_topn.launch(corpus, uid, nbr, p.alpha,
                                                   TOPN), 3)
+        b_dev = device_ms(lambda: serving_topn.launch(corpus, uid, nbr,
+                                                      p.alpha, TOPN),
+                          ("blend_", "merge_"))[0]
+        plan = serving_topn.plan_blend(
+            uid.shape[0], corpus.shape[0], corpus.shape[1], k, TOPN,
+            torch.cuda.get_device_properties(corpus.device)
+            .multi_processor_count)
+        distinct = [int(torch.unique(nbr[g0:g0 + plan.group]).numel())
+                    for g0 in range(0, uid.shape[0], plan.group)]
+        n_used = int(torch.unique(nbr).numel())
         t_p = time_ms(lambda: ref.fused_recommend_ref(corpus, uid, k,
                                                       p.alpha, TOPN), 3)
         cq, cs = run.quant_corpora[i]
@@ -1107,7 +1218,11 @@ def request_breakdown(run, p):
         q_p = time_ms(lambda: ref.fused_recommend_quant_ref(
             cq, cs, uid, k, p.alpha, TOPN, BD), 3)
         log(f"  request {i} on its corpus: stage A {t_a:.4f} ms, stage B "
-            f"{t_b:.4f} ms; plain pipeline {t_p:.4f} ms | int8: stage A "
+            f"{t_b:.4f} ms ({b_dev:.4f} device; {n_used} distinct "
+            f"neighbour rows, {min(distinct)}-{max(distinct)} a group of "
+            f"{plan.group}, at most "
+            f"{-(-max(distinct) // plan.stage_rows)} passes of "
+            f"{plan.stage_rows}); plain pipeline {t_p:.4f} ms | int8: stage A "
             f"{q_a:.4f} ms ({plan_str(qq, cq, k, BD)}), stage B "
             f"{q_b:.4f} ms; plain int8 pipeline {q_p:.4f} ms")
 
@@ -1808,7 +1923,8 @@ def main() -> int:
     entry = ""
     spills = {"knn_tile_kernel": [], "flash_wgmma_kernel": [],
               "rows_ring_kernel": [], "sparse_row_gather_kernel": [],
-              "sparse_row_scatter_kernel": []}
+              "sparse_row_scatter_kernel": [], "blend_group_kernel": [],
+              "blend_plan_kernel": []}
     for line in build.last_build_log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]          # the mangled kernel name
@@ -1818,13 +1934,16 @@ def main() -> int:
                 if name in entry and "spill" in line:
                     found.append(line.strip())
     # every instantiation of B3's tile kernel, of B9's Hopper design, of
-    # B6/B7's ring (f32 and int8, selection and sort) and of B1 and B2
-    # (int32 or int64 rows and ids), none with a spill
+    # B6/B7's ring (f32 and int8, selection and sort), of B1 and B2
+    # (int32 or int64 rows and ids) and of B4 (lists in registers or in
+    # shared memory; int32 or int64 neighbours), none with a spill
     assert len(spills["knn_tile_kernel"]) == len(knn_topk.KNN_SHAPES)
     assert len(spills["flash_wgmma_kernel"]) == len(flash_attention.WGMMA_BQ)
     assert len(spills["rows_ring_kernel"]) == 4
     assert len(spills["sparse_row_gather_kernel"]) == 4
     assert len(spills["sparse_row_scatter_kernel"]) == 4
+    assert len(spills["blend_group_kernel"]) == 2
+    assert len(spills["blend_plan_kernel"]) == 2
     assert all("0 bytes spill stores, 0 bytes spill loads" in x
                for found in spills.values() for x in found), spills
 

@@ -44,8 +44,9 @@ SIGNATURES: Dict[str, List] = {
     "srs_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "knn_topk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I,
                         _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    "blend_topn_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _I,
-                          _P, _P, _P, _P, _P],
+    "blend_topn_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                          _P, _P, _P],
     "knn_topk_dtiled_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _L, _L, _I, _I, _I, _I, _P,
                                _P, _I, _I, _P, _P, _P, _P, _P],

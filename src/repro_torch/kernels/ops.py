@@ -124,7 +124,8 @@ def fused_recommend(corpus: torch.Tensor, user_ids: torch.Tensor, k: int,
     int[Q] corpus rows, self-excluded from their own neighbourhood.
     The kernel path is stage A (``knn_topk``: O(Q·M·I) compute, [Q, k]
     out; with ``bd`` the D-tiled ``knn_topk_dtiled``, euclidean) then
-    stage B (``blend_topn_onehot``: O(Q·k·I) reads, [Q, n] out).  The
+    stage B (``blend_topn_onehot``: each group's distinct neighbour rows
+    read once per item tile, O(Q·k·I) adds, [Q, n] out).  The
     plain path is ``ref.fused_recommend_ref``, the JAX reference's
     unfused pipeline (``ref.fused_recommend_dtiled_ref`` with ``bd``).
     ``k`` is clamped to M−1 (``_serving_k``).  The kernels score

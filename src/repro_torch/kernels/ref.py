@@ -142,6 +142,58 @@ def blend_topn_ref(corpus: torch.Tensor, user_ids: torch.Tensor,
     return vals, idx.to(torch.int32)
 
 
+def blend_passes(nbr_idx: torch.Tensor, m: int, group: int,
+                 stage_rows: int) -> torch.Tensor:
+    """The staging pass of each neighbour entry, i64[Q, k]: queries in
+    groups of ``group``, a group's distinct rows in [0, M) in ascending
+    order, ``stage_rows`` of them a pass (entries outside [0, M): 0)."""
+    nb = nbr_idx.long()
+    valid = (nb >= 0) & (nb < m)
+    passes = torch.zeros_like(nb)
+    for g0 in range(0, nb.shape[0], group):
+        blk, ok = nb[g0:g0 + group], valid[g0:g0 + group]
+        _, rank = torch.unique(blk[ok], sorted=True, return_inverse=True)
+        passes[g0:g0 + group][ok] = rank // stage_rows
+    return passes
+
+
+def blend_topn_ordered_ref(corpus: torch.Tensor, user_ids: torch.Tensor,
+                           nbr_idx: torch.Tensor, alpha: float, topn: int,
+                           passes: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`blend_topn_ref` with each query's valid neighbour rows added
+    one at a time in order j = 0..k-1 and divided by a tensor of k (not
+    a scalar, which CUDA turns into a multiply by 1/k): the CUDA
+    kernel's arithmetic, so bitwise its answer where every group fits
+    one staging pass.  ``passes`` (:func:`blend_passes`) sums each pass
+    in order j and adds the passes in order, as the kernel does where a
+    group's rows overflow its staging area."""
+    m, n_items = corpus.shape
+    q_n, k = nbr_idx.shape
+    nb = nbr_idx.long()
+    valid = (nb >= 0) & (nb < m)
+    safe = torch.where(valid, nb, torch.zeros_like(nb))
+    if passes is None:
+        passes = torch.zeros_like(nb)
+    n_pass = int(passes[valid].max()) + 1 if bool(valid.any()) else 0
+    total = torch.zeros((q_n, n_items), dtype=corpus.dtype,
+                        device=corpus.device)
+    for p in range(n_pass):
+        acc = torch.zeros_like(total)
+        for j in range(k):
+            take = (valid[:, j] & (passes[:, j] == p))[:, None]
+            acc = torch.where(take, acc + corpus[safe[:, j]], acc)
+        total = total + acc
+    uvalid = (user_ids >= 0) & (user_ids < m)
+    urows = torch.where(uvalid, user_ids, torch.zeros_like(user_ids)).long()
+    own = torch.where(uvalid[:, None], corpus[urows],
+                      torch.zeros((), dtype=corpus.dtype,
+                                  device=corpus.device))
+    pred = alpha * own + ((1.0 - alpha) * total) / torch.full_like(total, k)
+    vals, idx = topk_lowest_index(pred, topn)
+    return vals, idx.to(torch.int32)
+
+
 def pairwise_scores(queries: torch.Tensor, corpus: torch.Tensor,
                     metric: str) -> torch.Tensor:
     """Similarity scores (higher = closer), [Q, I] × [M, I] → [Q, M]."""

@@ -9,9 +9,13 @@ without writing the [Q, I] predictions to device memory:
 
       pred[q, i] = α·C[uid_q, i] + ((1 − α)·Σ_j C[idx[q, j], i]) / k
 
-  On Hopper the neighbour sum is a gather of k corpus rows per query,
-  not a one-hot matmul, so no [Q, k, I] gather is written either.  Its
-  plain version is ``ref.blend_topn_ref``.
+  On Hopper the neighbour sum is gathered, not a one-hot matmul: a plan
+  kernel lists each group of queries' distinct neighbour rows on the
+  card, and the blend reads each of them once per 32-item tile into
+  shared memory for all the group's queries.  Its grid and shared
+  memory come from :func:`plan_blend`.  Plain versions:
+  ``ref.blend_topn_ref``, and ``ref.blend_topn_ordered_ref`` in the
+  kernel's order of additions.
 * :func:`launch_rows` replaces ``::blend_topn_rows`` (f32) and
   ``::blend_topn_rows_quant`` (int8 rows with power-of-two row scales,
   dequantized on chip), ``csrc/serving_rows.cu``::
@@ -30,6 +34,7 @@ without writing the [Q, I] predictions to device memory:
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -37,7 +42,25 @@ import torch
 from repro_torch.kernels import build
 
 MAX_TOPN = 1024   # largest list the merge keeps per query
-_BI = 1024        # items per block of csrc/serving_topn.cu
+# csrc/serving_topn.cu: items per tile, blend threads, queries a warp
+# sums at once (and items a lane), the most queries a group holds, the
+# largest n kept in registers (a list in shared memory above it), the
+# plan's bitmap words (a plan round covers 32 row ids a word), the slot
+# that marks no row (so G·k stays below it)
+BLEND_TILE = 32
+BLEND_THREADS = 256
+BLEND_QUADS = 4
+BLEND_GROUP = BLEND_THREADS // 32 * BLEND_QUADS
+BLEND_MAX_SELECT = 32
+PLAN_BITMAP_WORDS = 8192
+NO_SLOT = 0xFFFF
+# blend blocks an SM holds (the staging area is what is left of their
+# share of the SM's 228 KB, less 1 KB each that the card reserves), and
+# the fewest rows a staging pass takes
+BLEND_BLOCKS_PER_SM = 2
+SM_SHARED_BYTES = 233_472
+BLOCK_RESERVED_BYTES = 1024
+MIN_STAGE_ROWS = 64
 # csrc/serving_rows.cu: items per block and ring depth by element size
 # (4 KB of each row a block), threads (8 consumer warps and a producer
 # warp), the largest n taken by selection (a bitonic sort of the tile
@@ -87,20 +110,113 @@ def plan_rows(q_n: int, n_items: int, topn: int, elem_size: int
                     max(ring, lists) + stages * 24, (n_tiles, q_n))
 
 
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _pitch(k: int) -> int:
+    """The plan's entries a query: k rounded up to 8 (16-byte rows)."""
+    return -(-k // 8) * 8
+
+
+def blend_smem_bytes(group: int, k: int, n2: int, select: bool,
+                     stage_rows: int) -> int:
+    """The blend kernel's shared memory: the group's entries (u16, rows
+    of k rounded up to 8), each warp's candidates of a tile, a row of
+    zeros, for n > 32 the lists, the staging area."""
+    candidates = BLEND_THREADS // 32 * BLEND_QUADS * BLEND_TILE * 8
+    lists = 0 if select else group * n2 * 8
+    return (_align16(group * _pitch(k) * 2) + candidates + BLEND_TILE * 4
+            + lists + stage_rows * BLEND_TILE * 4)
+
+
+def plan_smem_bytes(group: int, k: int) -> int:
+    """The plan kernel's: the bitmap, its words' prefix, scan scratch
+    and the group's entries' slots (u16)."""
+    return PLAN_BITMAP_WORDS * 8 + 256 + _align16(group * k * 2)
+
+
+class BlendPlan(NamedTuple):
+    """How ``csrc/serving_topn.cu`` cuts one launch."""
+
+    group: int             # queries a group (G)
+    groups: int
+    select: bool           # top n in registers (n <= 32), else lists
+    stage_rows: int        # rows a staging pass holds (S)
+    strips: int            # strips of tiles a group
+    tiles_per_strip: int   # 32-item tiles a strip
+    list_len: int          # entries each strip keeps per query (L)
+    n2: int                # the merge's power-of-two list
+    smem_bytes: int        # the blend kernel's dynamic shared memory
+    plan_smem_bytes: int   # the plan kernel's
+    grid: Tuple[int, int]  # (groups, strips) blocks of BLEND_THREADS
+
+
+@functools.lru_cache(maxsize=256)
+def plan_blend(q_n: int, m: int, n_items: int, k: int, topn: int,
+               n_sms: int) -> BlendPlan:
+    """The neighbour blend's plan for Q queries of k neighbours over an
+    [M, I] corpus, from shapes alone.
+
+    Groups of up to 32 queries (fewer where k or the lists of n > 32
+    leave no staging area of ``MIN_STAGE_ROWS`` rows, or G·k would reach
+    ``NO_SLOT``); the staging area takes the rest of a block's share of
+    the SM (``BLEND_BLOCKS_PER_SM``), at most G·k rows; the item tiles
+    are cut into strips so that groups × strips fills that many blocks
+    an SM.  The C entry refuses a launch whose shared-memory bytes
+    differ.  ``m`` does not change the plan (the plan kernel walks the
+    row ids in rounds).
+    """
+    if not 1 <= topn <= min(n_items, MAX_TOPN):
+        raise ValueError(f"topn={topn} outside [1, min(I={n_items}, "
+                         f"{MAX_TOPN})]")
+    if k < 1 or q_n < 1:
+        raise ValueError("plan_blend needs a query and a neighbour")
+    select = topn <= BLEND_MAX_SELECT
+    n2 = 1 << max(0, (topn - 1).bit_length())
+    budget = SM_SHARED_BYTES // BLEND_BLOCKS_PER_SM - BLOCK_RESERVED_BYTES
+    group = min(BLEND_GROUP, q_n)
+    while group > 0 and (
+            group * k >= NO_SLOT
+            or blend_smem_bytes(group, k, n2, select, MIN_STAGE_ROWS)
+            > budget):
+        group -= 1
+    if group == 0:
+        raise ValueError(f"k={k} leaves no staging area (n={topn})")
+    fixed = blend_smem_bytes(group, k, n2, select, 0)
+    stage_rows = min((budget - fixed) // (BLEND_TILE * 4), group * k)
+    groups = -(-q_n // group)
+    n_tiles = -(-n_items // BLEND_TILE)
+    strips = max(1, min(n_tiles, n_sms * BLEND_BLOCKS_PER_SM // groups))
+    per_strip = -(-n_tiles // strips)
+    strips = -(-n_tiles // per_strip)
+    return BlendPlan(group, groups, select, stage_rows, strips, per_strip,
+                     min(topn, per_strip * BLEND_TILE), n2,
+                     fixed + stage_rows * BLEND_TILE * 4,
+                     plan_smem_bytes(group, k), (groups, strips))
+
+
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def launch(corpus: torch.Tensor, user_ids: torch.Tensor,
            nbr_idx: torch.Tensor, alpha: float,
            topn: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stage B: blend and top-n items per query, (f32[Q, n], i32[Q, n]).
 
-    ``corpus`` f32[M, I] × ``user_ids`` int[Q] × ``nbr_idx`` int[Q, k].
-    Neighbour entries outside [0, M) (e.g. −1) add 0 but still count in
-    k.  Requires ``1 <= topn <= min(I, 1024)``.  Launches the CUDA
-    kernels; raises on input they do not take (CPU tensors among them).
+    ``corpus`` f32[M, I] × ``user_ids`` int[Q] × ``nbr_idx`` int[Q, k]
+    (int32 or int64, read as given).  Neighbour entries outside [0, M)
+    (e.g. −1) add 0 but still count in k; a user id outside [0, M) adds
+    0.  Requires ``1 <= topn <= min(I, 1024)``.  Checks, one allocation
+    of scratch and three launches (plan, blend, merge); nothing waits on
+    the card.  Raises on input the kernels do not take (CPU tensors
+    among them).
     """
     build.cuda_input(corpus, "corpus", (torch.float32,), ndim=2)
     dev = corpus.device
-    uid = build.index_input(user_ids, "user_ids", dev, 1)
-    nbr = build.index_input(nbr_idx, "nbr_idx", dev, 2)
+    uid = build.index_as_given(user_ids, "user_ids", dev, 1)
+    nbr = build.index_as_given(nbr_idx, "nbr_idx", dev, 2)
     m, n_items = corpus.shape
     q_n, k = nbr.shape
     if uid.shape[0] != q_n:
@@ -114,17 +230,25 @@ def launch(corpus: torch.Tensor, user_ids: torch.Tensor,
     out_i = torch.empty((q_n, topn), dtype=torch.int32, device=dev)
     if q_n == 0:
         return out_v, out_i
-    n_tiles = -(-n_items // _BI)
-    lst = min(topn, _BI)
-    n2 = 1 << max(0, (topn - 1).bit_length())
-    part_v = torch.empty((q_n, n_tiles, lst), dtype=torch.float32,
-                         device=dev)
-    part_i = torch.empty((q_n, n_tiles, lst), dtype=torch.int32, device=dev)
+    plan = plan_blend(q_n, m, n_items, k, topn, _sm_count(dev))
+    g_q = plan.groups * plan.group
+    part = q_n * plan.strips * plan.list_len * 4
+    sizes = (g_q * k * 4, plan.groups * (plan.group + 1) * 4,
+             g_q * _pitch(k) * 2, part, part)
+    offsets = [0]
+    for size in sizes:
+        offsets.append(offsets[-1] + _align16(size))
+    scratch = torch.empty(offsets[-1], dtype=torch.uint8, device=dev)
+    base = scratch.data_ptr()
+    prow, pcnt, pent, part_v, part_i = (base + o for o in offsets[:-1])
     build.check(build.library().blend_topn_launch(
-        corpus.data_ptr(), uid.data_ptr(), nbr.data_ptr(), q_n, m, n_items,
-        k, float(alpha), float(1.0 - alpha), topn, lst, n2,
-        part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(),
-        out_i.data_ptr(), build.stream_of(corpus)), "blend_topn_onehot")
+        corpus.data_ptr(), uid.data_ptr(), nbr.data_ptr(),
+        build.index_bits(uid, nbr), q_n, m, n_items, k, float(alpha),
+        float(1.0 - alpha), topn, plan.group, plan.stage_rows, plan.strips,
+        plan.tiles_per_strip, plan.list_len, plan.n2, plan.smem_bytes,
+        plan.plan_smem_bytes, prow, pcnt, pent, part_v, part_i,
+        out_v.data_ptr(), out_i.data_ptr(), build.stream_of(corpus)),
+        "blend_topn_onehot")
     build.count_launch("blend_topn_onehot")
     return out_v, out_i
 

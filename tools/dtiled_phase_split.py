@@ -51,6 +51,22 @@ difference of the two is the merge.
   (``scan``: the row scan alone; ``stage``: the scan and the staging,
   no sort or add; ``nosort``: no sort) and with 16 loads a thread a
   tile (``kper16``);
+* ``--kernel blend_topn_onehot``: ``serving_topn.cu`` (stage B from
+  stage A's indices, n=10) at the kernel checks' input (Q=256, k=300
+  neighbours chosen by ``knn_topk`` on the sparse corpus), on a corpus
+  of equal-norm rows (120 items of value 1 a row: stage A's lists share
+  few rows) and at Q=32 and Q=1,024, with ``--parent DIR [DIR ...]``
+  the wrappers of other checkouts too, every reading in turns (the
+  parents, the change, then the other way round): one call by events,
+  a burst of 100 by events, the host time of a call and the profiler's
+  device time, beside gather + mean + ``topk`` where Q <= 256; each
+  input's plan (``serving_topn.plan_blend``) and its groups' distinct
+  rows and staging passes; every answer held against
+  ``ref.blend_topn_ref`` and, bit for bit, against
+  ``ref.blend_topn_ordered_ref`` in the kernel's passes.  Then this
+  tree's kernel by the profiler with phases compiled out (``kPhases``:
+  ``stage`` the staging alone, ``stage_sum`` no selection,
+  ``sum_select`` no staging, ``select`` the selection alone);
 * ``--kernel knn_topk``: ``knn_topk.cu``, fp32 over the whole of D.
   Where the source plans its grid with ``knn_topk.plan_knn``, the
   products are split further into the chunk copies alone (``feed``: the
@@ -91,8 +107,10 @@ ENTRIES = {"knn_topk_dtiled": "knn_topk_dtiled_launch",
            "knn_topk": "knn_topk_launch",
            "blend_topn_rows": "blend_rows_launch",
            "sparse_row_gather": "srg_launch",
-           "sparse_row_scatter": "srs_launch"}
-SOURCES = {"blend_topn_rows": "serving_rows.cu"}
+           "sparse_row_scatter": "srs_launch",
+           "blend_topn_onehot": "blend_topn_launch"}
+SOURCES = {"blend_topn_rows": "serving_rows.cu",
+           "blend_topn_onehot": "serving_topn.cu"}
 # serving_rows.cu's phases: the blend and selection (finish_tile) in
 # place of a store of the sums, or the row feed and sum left out
 FINISH_CALL = re.compile(r"finish_tile<[^;]*;")
@@ -369,10 +387,10 @@ def gather_main(root: Path, csrc: Path, build) -> int:
     return 0
 
 
-def load_tree_scatter(tree: Path):
-    """Another checkout's ``sparse_row_scatter.launch``, bound to that
-    checkout's own ``build`` module: its sources, its C signatures and
-    its build directory."""
+def load_tree(tree: Path, module: str = "sparse_row_scatter"):
+    """Another checkout's ``module.launch`` (a kernel module of
+    ``repro_torch.kernels``), bound to that checkout's own ``build``
+    module: its sources, its C signatures and its build directory."""
     import importlib.util
 
     def load(name, path):
@@ -384,7 +402,7 @@ def load_tree_scatter(tree: Path):
     kdir = tree / "src" / "repro_torch" / "kernels"
     tag = "tree_" + re.sub(r"\W", "_", str(tree))
     tree_build = load(f"{tag}_build", kdir / "build.py")
-    wrapper = load(f"{tag}_sparse_row_scatter", kdir / "sparse_row_scatter.py")
+    wrapper = load(f"{tag}_{module}", kdir / f"{module}.py")
     wrapper.build = tree_build
     return wrapper.launch
 
@@ -476,7 +494,7 @@ def scatter_main(root: Path, parents, build) -> int:
     res = {"root": str(root), "parents": [str(p) for p in parents],
            "kernel": "sparse_row_scatter", "runs": scatter_runs(dev)}
     print(json.dumps(res["runs"]), flush=True)
-    wrappers = {**{f"parent_{p.name}": load_tree_scatter(p)
+    wrappers = {**{f"parent_{p.name}": load_tree(p)
                    for p in parents},
                 "change": sparse_row_scatter.launch}
     gen = torch.Generator(device=dev)
@@ -567,6 +585,132 @@ def scatter_main(root: Path, parents, build) -> int:
     return 0
 
 
+# serving_topn.cu's phases (kPhases): 1 staging, 2 sums, 4 selection
+BLEND_PHASES = {"stage": 1, "stage_sum": 3, "sum_select": 6, "select": 4}
+PHASES_LINE = "constexpr int kPhases = 7;"
+
+
+def blend_inputs(gen, dev) -> dict:
+    """Stage B's inputs: (corpus, user ids, stage A's neighbours) at the
+    kernel checks' input, on equal-norm rows, and at Q=32 and 1,024."""
+    from repro_torch.kernels import knn_topk
+    sparse = torch.rand((M, D), generator=gen, device=dev)
+    sparse *= torch.rand((M, D), generator=gen, device=dev) < 0.01
+    equal = torch.zeros((M, D), device=dev)
+    for r0 in range(0, M, 1024):   # 120 items of value 1 a row
+        r1 = min(M, r0 + 1024)
+        cols = torch.rand((r1 - r0, D), generator=gen,
+                          device=dev).argsort(1)[:, :120]
+        equal[r0:r1].scatter_(1, cols, 1.0)
+    out = {}
+    for name, corpus, q in (("check", sparse, Q), ("equal_norms", equal, Q),
+                            ("q32", sparse, 32), ("q1024", sparse, 1024)):
+        uid = torch.randperm(M, generator=gen, device=dev)[:q]
+        uid[0] = 1
+        uid = uid.to(torch.int32)
+        _, nbr = knn_topk.launch(corpus[uid.long()], corpus, K,
+                                 query_gids=uid)
+        out[name] = (corpus, uid, nbr)
+    return out
+
+
+def blend_main(root: Path, parents, build) -> int:
+    """``--kernel blend_topn_onehot``: see the module's docstring."""
+    import time
+    from repro_torch.kernels import ref, serving_topn
+
+    dev = torch.device("cuda")
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    res = {"root": str(root), "parents": [str(p) for p in parents],
+           "kernel": "blend_topn_onehot", "k": K}
+    wrappers = {**{f"parent_{p.name}": load_tree(p, "serving_topn")
+                   for p in parents},
+                "change": serving_topn.launch}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    inputs = blend_inputs(gen, dev)
+    for label, (corpus, uid, nbr) in inputs.items():
+        q = uid.shape[0]
+        plan = serving_topn.plan_blend(q, M, D, K, TOPN, n_sms)
+        passes = ref.blend_passes(nbr, M, plan.group, plan.stage_rows)
+        distinct = [int(torch.unique(nbr[g0:g0 + plan.group]).numel())
+                    for g0 in range(0, q, plan.group)]
+        out = res.setdefault(label, {
+            "shape": f"Q={q} M={M} I={D} k={K} n={TOPN}",
+            "plan": plan._asdict(), "distinct_rows_max": max(distinct),
+            "distinct_rows_min": min(distinct),
+            "passes_max": int(passes.max()) + 1,
+            "rows_used": int(torch.unique(torch.cat(
+                [nbr.reshape(-1).long(), uid.long()])).numel())})
+        exp = ref.blend_topn_ref(corpus, uid, nbr, ALPHA, TOPN)
+        ordered = ref.blend_topn_ordered_ref(corpus, uid, nbr, ALPHA, TOPN,
+                                             passes)
+        for name, fn in wrappers.items():
+            got = fn(corpus, uid, nbr, ALPHA, TOPN)
+            torch.cuda.synchronize()
+            assert torch.allclose(got[0], exp[0], rtol=1e-5, atol=1e-6), \
+                (label, name)
+            out[f"{name}_bitwise_ordered"] = bool(
+                torch.equal(got[0].view(torch.int32),
+                            ordered[0].view(torch.int32))
+                and torch.equal(got[1], ordered[1]))
+        assert out["change_bitwise_ordered"], label
+        calls = {name: (lambda fn=fn: fn(corpus, uid, nbr, ALPHA, TOPN))
+                 for name, fn in wrappers.items()}
+        if q <= Q:
+            u, nb = uid.long(), nbr.long()
+            calls["library"] = lambda: torch.topk(
+                ALPHA * corpus[u] + (1.0 - ALPHA) * corpus[nb].mean(1), TOPN)
+        for rnd in range(2):
+            for name, fn in (calls.items() if rnd == 0
+                             else reversed(list(calls.items()))):
+                out.setdefault(f"{name}_ms", []).append(time_ms(fn))
+                torch.cuda.synchronize()
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
+                h0 = time.perf_counter()
+                for _ in range(100):
+                    fn()
+                host = (time.perf_counter() - h0) * 10
+                end.record()
+                end.synchronize()
+                out.setdefault(f"{name}_burst100_ms", []).append(
+                    start.elapsed_time(end) / 100)
+                out.setdefault(f"{name}_host_ms", []).append(host)
+        for name, fn in calls.items():
+            own, every = device_ms(fn, ("blend_", "merge_")
+                                   if name != "library" else ("",))
+            out[f"{name}_device_ms"] = own
+            out[f"{name}_device_all_ms"] = every
+        print(json.dumps({label: out}), flush=True)
+    # this tree's kernel with phases compiled out, by the profiler
+    csrc = root / "src" / "repro_torch" / "kernels" / "csrc"
+    src = (csrc / SOURCES["blend_topn_onehot"]).read_text()
+    if PHASES_LINE in src:
+        variants = {"whole": src, **{
+            name: src.replace(PHASES_LINE,
+                              f"constexpr int kPhases = {mask};")
+            for name, mask in BLEND_PHASES.items()}}
+        libs = build_variants(build, csrc, root / "build" / "phase_split" /
+                              "blend_topn_onehot", "blend_topn_onehot",
+                              variants)
+        whole = build._lib
+        for label, (corpus, uid, nbr) in inputs.items():
+            for rnd in range(2):
+                for name, lib in (libs.items() if rnd == 0
+                                  else reversed(list(libs.items()))):
+                    build._lib = lib
+                    res[label].setdefault(f"phase_{name}_device_ms",
+                                          []).append(device_ms(
+                        lambda: serving_topn.launch(corpus, uid, nbr, ALPHA,
+                                                    TOPN),
+                        ("blend_group",))[0])
+        build._lib = whole
+    print(json.dumps(res), flush=True)
+    return 0
+
+
 def main() -> int:
     global K
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -577,11 +721,14 @@ def main() -> int:
     ap.add_argument("--k", type=int, default=K,
                     help="neighbours per query (TaFeng's 300 by default)")
     ap.add_argument("--parent", type=Path, nargs="+", default=[],
-                    help="with --kernel sparse_row_scatter: checkouts "
-                         "timed in turns with --root")
+                    help="with --kernel sparse_row_scatter or "
+                         "blend_topn_onehot: checkouts timed in turns "
+                         "with --root")
     args = ap.parse_args()
-    if args.parent and args.kernel != "sparse_row_scatter":
-        ap.error("--parent is read by --kernel sparse_row_scatter only")
+    if args.parent and args.kernel not in ("sparse_row_scatter",
+                                           "blend_topn_onehot"):
+        ap.error("--parent is read by --kernel sparse_row_scatter and "
+                 "blend_topn_onehot only")
     K = args.k
     root, kernel = args.root.resolve(), args.kernel
     if not torch.cuda.is_available():
@@ -603,6 +750,8 @@ def main() -> int:
     if kernel == "sparse_row_scatter":
         return scatter_main(root, [p.resolve() for p in args.parent],
                             build)
+    if kernel == "blend_topn_onehot":
+        return blend_main(root, [p.resolve() for p in args.parent], build)
     src = (csrc / f"{kernel}.cu").read_text()
     variants = {"whole": src,
                 "products": MERGE_CALL.sub(r"\1if (0) \2", src)}
