@@ -713,7 +713,7 @@ def check_stage_b(corpus, c_int, uid, records):
                       corpus, uid, nbr)
     used = torch.unique(torch.cat([nbr.reshape(-1), uid]).long())
     # the distinct rows read once and ids in, [Q, n] out; Q·(k+1)·I fp32
-    # adds (an add takes an FMA's issue slot, which the peak counts as two
+    # adds (an add takes an FMA's slot, which the peak counts as two
     # operations)
     n_bytes = used.numel() * n_items * 4 + Q * (k + 1) * 4 + Q * TOPN * 8
     n_ops = 2.0 * Q * (k + 1) * n_items

@@ -100,7 +100,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// four 16-byte shared loads, issued together
+// four 16-byte shared loads in one asm statement, so none waits on another
 __device__ __forceinline__ void lds128x4(float4& a, float4& b, float4& c,
                                          float4& d, uint32_t pa, uint32_t pb,
                                          uint32_t pc, uint32_t pd) {
