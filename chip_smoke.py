@@ -646,9 +646,10 @@ def blend_case(corpus, uid, nbr, n, what, one_pass=False):
 def check_blend_edges(gen, corpus, uid, nbr):
     """B4's edge cases on the kernel checks' corpus: a group that
     overflows one pass (random neighbours), every group in one pass
-    (neighbours drawn from 400 rows), n = 33 and n = 1,024 (the lists in shared memory), k = 1,
-    all-PAD rows and entries >= M, user ids outside [0, M), int64
-    indices, Q not a multiple of the group, M = 1 and I = 31."""
+    (neighbours drawn from 400 rows), n = 33 and n = 1,024 (the lists
+    in shared memory), k = 1, all-PAD rows and entries >= M, user ids
+    outside [0, M), int64 indices, Q not a multiple of the group, M = 1
+    and I = 31."""
     m = corpus.shape[0]
     dev = corpus.device
     rnd = torch.randint(0, m, (40, 300), generator=gen, device=dev,

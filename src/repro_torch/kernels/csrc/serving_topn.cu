@@ -33,7 +33,8 @@
 //     top n (for n <= 32 held in registers, a few new entries inserted by
 //     rank and many sorted and merged by shuffles; a list in shared
 //     memory above);
-//   * merge_lists_kernel merges the strips' lists into [Q, n].
+//   * merge_select_kernel (n <= 32, 8 warps a query, by shuffles) or
+//     merge_lists_kernel (above) merges the strips' lists into [Q, n].
 // A group whose rows fit one pass sums each query's rows in order
 // j = 0..k-1, bitwise a plain loop over j; with more passes each pass is
 // summed in order j and the passes are added in order.  The blend uses
@@ -68,8 +69,8 @@ __host__ __device__ constexpr size_t align16(size_t b) {
 
 // the blend's shared memory: the group's entries [G][kp] (u16 slots; kp
 // = k rounded up to 8), each warp's candidates of a tile [4][kTile]
-// (values, items), a row of kTile zeros, for n > 32 the lists [G][n2] (values, items), then
-// the staging area [S][kTile] f32
+// (values, items), a row of kTile zeros, for n > 32 the lists [G][n2]
+// (values, items), then the staging area [S][kTile] f32
 __host__ __device__ inline size_t blend_smem(int G, int k, int n2,
                                              bool select, int S) {
   size_t b = align16((size_t)G * ((k + 7) & ~7) * 2) +
@@ -578,13 +579,17 @@ __global__ void __launch_bounds__(256) merge_select_kernel(
     }
     const float tv = __shfl_sync(kFull, lv, n - 1);
     const int ti = __shfl_sync(kFull, li, n - 1);
-    if (__any_sync(kFull, better(v, i, tv, ti))) warp_fold32(lv, li, v, i, lane);
+    if (__any_sync(kFull, better(v, i, tv, ti))) {
+      warp_fold32(lv, li, v, i, lane);
+    }
   }
   wv[warp][lane] = lv;
   wi[warp][lane] = li;
   __syncthreads();
   if (warp != 0) return;
-  for (int w = 1; w < 8; ++w) warp_fold32(lv, li, wv[w][lane], wi[w][lane], lane);
+  for (int w = 1; w < 8; ++w) {
+    warp_fold32(lv, li, wv[w][lane], wi[w][lane], lane);
+  }
   if (lane < n) {
     out_v[(size_t)q * n + lane] = lv;
     out_i[(size_t)q * n + lane] = li;

@@ -296,7 +296,8 @@ def _plan_kernel(nbr, m, group, stage_rows):
             for p in range(n_pass):
                 lo, hi = p * stage_rows, (p + 1) * stage_rows
                 for j0 in range(0, k, 32):
-                    lanes = [slot[q * k + j] for j in range(j0, min(k, j0 + 32))]
+                    lanes = [slot[q * k + j]
+                             for j in range(j0, min(k, j0 + 32))]
                     mine += [s for s in lanes if s != NO_SLOT and lo <= s < hi]
             ent[q, :len(mine)] = mine
             cnt[q] = len(mine)
