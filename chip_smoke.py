@@ -51,18 +51,35 @@ Phases, each fatal on failure (nothing is caught):
    main path's final state in one batched ``ops.multihot_scatter``
    (counts reset before, read after), held against its plain version
    and against the maintained state (rtol=1e-4, atol=1e-5), and timed;
-8. million-item point -- M=256 random rows, Q=32, I=1,048,576, k=16,
+8. durability -- the main path's mixed stream at full width, each event
+   with its seqno (counts reset before, read after): engine E1 loads the
+   first half, takes a synchronous checkpoint (timed), loads the rest
+   and dies at ``LATEST.pre_replace`` in its second checkpoint (the one
+   exception caught, asserted raised); a fresh engine E2 restores commit
+   1 (timed) and replays the whole stream with seeded duplicates
+   (``faults.redelivered``; timed in events/s), held to E1's state
+   (integer leaves exact, vectors rtol=1e-4, atol=1e-5) with each event
+   applied once; a checkpoint of E1 restores into E3 with the nine
+   leaves bitwise and the last request's fp32 and int8 (bd=512) ids
+   identical; an ``AsyncCheckpointer`` commit (caller-thread time beside
+   the synchronous one) restores to the snapshot-time leaves after 64
+   more baskets; a frozen E1 answers identically after 64 more, a thawed
+   one as a fresh corpus; a cosine request answers as the plain pipeline
+   with no kernel launched.  Logs checkpoint and restore seconds, npz
+   bytes, replay events/s and the async caller-thread seconds beside the
+   card's name and power limit;
+9. million-item point -- M=256 random rows, Q=32, I=1,048,576, k=16,
    bd=1024 (the top point of benchmarks/bench_serving.py::ScaleConfig):
    the D-tiled stage A in both modes against its plain version, then
    ``knn.recommend_for_users_quant`` (counts reset before, read after)
    held against its plain pipeline on the dequantized corpus;
-9. granite-3-2b serving -- the dense LM at its published widths and
+10. granite-3-2b serving -- the dense LM at its published widths and
    depth (40 layers, bf16, weights from a seeded generator): layer 0's
    prefill attention kernel against plain and timed, then 4 prompts of
    4,096 tokens prefilled and 16 greedy decode steps, once with the
    kernels (counts reset before, read after) and once with the plain
    versions; last-position logits compared, greedy tokens reported;
-10. summary -- every kernel's launches, then one JSON line of kernel
+11. summary -- every kernel's launches, then one JSON line of kernel
    records, and last the ``{"ok": true, ...}`` line.
 
 It needs a CUDA card and the rest of the repository; anywhere else it
@@ -72,6 +89,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -88,7 +106,8 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.configs import granite_3_2b  # noqa: E402
 from repro_torch.core import knn  # noqa: E402
 from repro_torch.core.tifu import closed_form_basket_weights  # noqa: E402
-from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.core.types import KIND_ADD_BASKET  # noqa: E402
+from repro_torch.data import stream, synthetic  # noqa: E402
 from repro_torch.kernels import (build, decayed_scatter,  # noqa: E402
                                  flash_attention, knn_topk, ops, ref,
                                  serving_topn, sparse_row_gather,
@@ -98,6 +117,9 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.optim.compression import (  # noqa: E402
     dequantize_int8_rows, quantize_int8_rows, quantize_int8_rows_pitched)
 from repro_torch.parallel.sharding import UserShardSpec  # noqa: E402
+from repro_torch.streaming import (AsyncCheckpointer, Event,  # noqa: E402
+                                   StateStore, StoreConfig, StreamingEngine,
+                                   faults, load_checkpoint_arrays)
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, int8
 # in the tensor cores, HBM3
@@ -123,6 +145,8 @@ KNN_PLAN_EDGES = (456,)
 # B2's table past 2^31 cells (9.0 GB of f32): its top 4,096 rows start
 # at cell 2,244,411,392
 SCATTER_BIG = (1_100_000, 2_048)
+# the durability phase's commits (build/ is not in git)
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 # (rows, ids) dtypes the sparse pair reads as given
 INDEX_PAIRS = ((torch.int32, torch.int32), (torch.int64, torch.int32),
                (torch.int32, torch.int64), (torch.int64, torch.int64))
@@ -952,7 +976,7 @@ def check_dtiled(corpus, c_int, uid, records):
 
 
 def million_path(dev):
-    """Phase 8, the million-item point: M=256 random rows, Q=32,
+    """Phase 9, the million-item point: M=256 random rows, Q=32,
     I=1,048,576, k=16, bd=1024 (1.07 GB fp32, 268 MB int8).  The D-tiled
     stage A in both modes against its plain version (int8 identical,
     fp32 allclose with equivalent ids), then the int8 serving entry
@@ -987,7 +1011,7 @@ def million_path(dev):
     launches = dict(build.launch_counts)
     log(f"  int8 serving at the million-item point: launches {launches}")
     for name in ("knn_topk_dtiled", "blend_topn_rows_quant"):
-        assert launches[name] > 0, f"{name} was not launched on path 8"
+        assert launches[name] > 0, f"{name} was not launched on path 9"
     build.reset_launch_counts()
     with ops.default_impl("ref"):
         want = serve()
@@ -1576,6 +1600,230 @@ def rebuild_path(kern, p, dev, records):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# durability: checkpoint, crash, restore, replay, async commit, degraded
+# and cosine serving at TaFeng's full size
+# ---------------------------------------------------------------------------
+
+def assert_launched(before, names, what):
+    """Each kernel in ``names`` was launched since the counts ``before``."""
+    for name in names:
+        assert build.launch_counts[name] > before.get(name, 0), \
+            f"{name} was not launched {what}"
+
+
+def state_parity(got, want, what):
+    """Integer leaves exact, materialized vectors rtol=1e-4, atol=1e-5."""
+    a, b = got.store.state, want.store.state
+    for name in ("history", "group_sizes", "n_baskets", "n_groups"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), (what, name)
+    err = 0.0
+    for fn in ("materialized_user_vecs", "materialized_last_group_vecs"):
+        x, y = getattr(a, fn)(), getattr(b, fn)()
+        err = max(err, float((x - y).abs().max()))
+        assert torch.allclose(x, y, rtol=1e-4, atol=1e-5), (what, fn, err)
+    return err
+
+
+def trickle(eng, n_users, n_items, seed):
+    """64 new baskets of distinct users, as the main path's trickle."""
+    rng = np.random.default_rng(seed)
+    eng.submit([Event(KIND_ADD_BASKET, int(u), items=rng.choice(
+        n_items, size=int(rng.integers(1, 6)), replace=False))
+        for u in rng.choice(n_users, size=64, replace=False)])
+    eng.run_until_drained()
+
+
+def serve_both(eng, users):
+    """fp32 and int8 (bd=512) answers of one request batch."""
+    return (eng.recommend(users, topn=TOPN),
+            eng.recommend(users, topn=TOPN, quantized=True))
+
+
+def durability_path(ds, users, dev, card):
+    """Phase 8: the durability layer at TaFeng's full size on the card.
+
+    The main path's mixed stream, each event with its seqno: E1 loads
+    the first half and commits it, loads the rest and dies at
+    ``LATEST.pre_replace`` in its second commit; E2 restores (commit 1)
+    and takes the whole stream again with seeded duplicates; a commit of
+    E1 restores bitwise into E3, which answers E1's requests; an async
+    commit lands its snapshot-time state after 64 more baskets; a frozen
+    E1 answers as before the freeze, and a thawed one as a fresh corpus;
+    a cosine request takes the plain route.  Counts reset before, read
+    after; returns them and the phase's readings."""
+    p = ds.params
+    n_users, n_items = len(ds.histories), p.n_items
+    cfg = StoreConfig(
+        n_users=n_users, n_items=n_items,
+        max_baskets=max(len(h) for h in ds.histories.values()) + 8,
+        max_basket_size=max(len(b) for h in ds.histories.values()
+                            for b in h) + 2)
+    events = [dataclasses.replace(ev, seqno=i) for i, ev in enumerate(
+        stream.make_stream(ds.histories, deletion_user_rate=0.01,
+                           item_deletion_rate=0.005, seed=0))]
+    half = len(events) // 2
+    uid = torch.as_tensor(users, dtype=torch.int32, device=dev)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    ck = str(CKPT_DIR)
+
+    def engine():
+        return StreamingEngine(StateStore(cfg, device=dev), p,
+                               batch_size=512)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    r = {}
+    build.reset_launch_counts()
+    # 1-2: commit the first half, crash in the second commit
+    e1 = engine()
+    e1.submit(events[:half])
+    e1.run_until_drained()
+    r["checkpoint_s"] = timed(lambda: e1.checkpoint(ck, 1))
+    with open(CKPT_DIR / "LATEST") as f:
+        r["npz_bytes"] = json.load(f)["npz_bytes"]
+    e1.submit(events[half:])
+    e1.run_until_drained()
+    plan = faults.FaultPlan(crash_site="LATEST.pre_replace")
+    crashed = False
+    with faults.inject(plan):
+        try:
+            e1.checkpoint(ck, 2)
+        except faults.InjectedCrash:
+            crashed = True
+    assert crashed and plan.fired[-1] == "LATEST.pre_replace", plan.fired
+    # 3: a fresh engine restores the last commit that landed
+    e2 = engine()
+    r["restore_after_crash_s"] = timed(lambda: e2.restore(ck))
+    assert e2.store.last_restored_meta["step"] == 1
+    assert e2.watermark == half - 1, (e2.watermark, half)
+    # 4: at-least-once replay of the whole stream with duplicates
+    dups = faults.redelivered(events, seed=7)
+    before = dict(build.launch_counts)
+
+    def replay():
+        e2.submit(events)
+        e2.submit(dups)
+        e2.run_until_drained()
+
+    r["replay_s"] = timed(replay)
+    assert_launched(before, ("sparse_row_gather", "sparse_row_scatter"),
+                    "during the replay")
+    assert e2.metrics.events_processed == len(events) - half
+    assert e2.metrics.dedup_skips == half + len(dups)
+    assert e1.metrics.events_processed == len(events)
+    assert e2.watermark == e1.watermark == len(events) - 1
+    r["replay_events"] = len(events) + len(dups)
+    r["replay_applied"] = len(events) - half
+    r["replay_max_abs_err"] = state_parity(e2, e1, "replay vs E1")
+    del e2
+    # 5: round trip, bitwise, and the same answers
+    r["checkpoint3_s"] = timed(lambda: e1.checkpoint(ck, 3))
+    e3 = engine()
+    r["restore_s"] = timed(lambda: e3.restore(ck))
+    for name in convert.LEAVES:
+        a, b = getattr(e1.store.state, name), getattr(e3.store.state, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    before = dict(build.launch_counts)
+    ids1, ids3 = serve_both(e1, users), serve_both(e3, users)
+    assert_launched(before, ("knn_topk", "blend_topn_onehot",
+                             "knn_topk_dtiled", "blend_topn_rows_quant"),
+                    "serving the restored state")
+    for a, b, what in zip(ids1, ids3, ("fp32", "int8")):
+        assert np.array_equal(a, b), f"restored {what} answer differs"
+    del e3
+    # 6: async commit; 64 baskets applied before the flush
+    snap = convert.state_to_numpy(e1.store.state)
+    e1.checkpointer = AsyncCheckpointer()
+    r["async_caller_s"] = timed(lambda: e1.checkpoint(ck, 4))
+    t0 = time.perf_counter()
+    trickle(e1, n_users, n_items, seed=1)
+    e1.flush_checkpoints()
+    r["async_total_s"] = time.perf_counter() - t0 + r["async_caller_s"]
+    e1.checkpointer.close()
+    e1.checkpointer = None
+    t0 = time.perf_counter()
+    meta, leaves = load_checkpoint_arrays(ck)
+    r["read_verify_s"] = time.perf_counter() - t0
+    assert meta["step"] == 4
+    for name in convert.LEAVES:
+        assert leaves[name].dtype == snap[name].dtype and np.array_equal(
+            leaves[name], snap[name]), f"async commit leaf {name}"
+    assert not np.array_equal(snap["n_baskets"],
+                              e1.store.state.n_baskets.cpu().numpy())
+    del snap, leaves
+    # 7: degraded serving, then a thaw onto a fresh corpus
+    pre = serve_both(e1, users)
+    e1.freeze_serving()
+    trickle(e1, n_users, n_items, seed=2)
+    before = dict(build.launch_counts)
+    frozen = serve_both(e1, users)
+    assert_launched(before, ("knn_topk", "blend_topn_onehot",
+                             "knn_topk_dtiled", "blend_topn_rows_quant"),
+                    "serving the frozen snapshot")
+    for a, b, what in zip(pre, frozen, ("fp32", "int8")):
+        assert np.array_equal(a, b), f"frozen {what} answer moved"
+    e1.thaw_serving()
+    thawed = serve_both(e1, users)
+    fresh = e1.store.state.materialized_user_vecs()
+    assert torch.equal(e1.store.corpus(), fresh), "thawed corpus"
+    fq, fs = quantize_int8_rows_pitched(fresh)
+    cq, cs = e1.store.quantized_corpus()
+    assert torch.equal(cq, fq) and same(cs, fs), "thawed int8 cache"
+    want = (knn.recommend_for_users(fresh, uid, k=p.k_neighbors,
+                                    alpha=p.alpha, topn=TOPN),
+            knn.recommend_for_users_quant(fq, fs, uid, k=p.k_neighbors,
+                                          alpha=p.alpha, topn=TOPN))
+    for a, b, what in zip(thawed, want, ("fp32", "int8")):
+        assert np.array_equal(a, b.cpu().numpy()), f"thawed {what} answer"
+    r["thaw_changed_rows"] = [int((a != b).any(axis=1).sum())
+                              for a, b in zip(pre, thawed)]
+    del fresh, fq, fs
+    # 8: cosine routes to the plain pipeline, no kernel launched
+    before = dict(build.launch_counts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = e1.recommend(users, topn=TOPN, metric="cosine")
+    r["cosine_request_s"] = time.perf_counter() - t0
+    assert build.launch_counts == before, "a kernel served cosine"
+    plain = ops.fused_recommend(e1.store.corpus(), uid, p.k_neighbors,
+                                p.alpha, TOPN, metric="cosine", impl="ref")
+    assert np.array_equal(got, plain.cpu().numpy()), "cosine answer"
+    torch.cuda.synchronize()
+    launches = dict(build.launch_counts)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    log(f"durability at TaFeng's full size ({n_users} users x {n_items} "
+        f"items, {len(events)} events, commit of {r['npz_bytes']} npz "
+        f"bytes): launches {launches}")
+    log(f"  checkpoint (sync, after {half} events) {r['checkpoint_s']:.3f} "
+        f"s, after all {r['checkpoint3_s']:.3f} s; npz {r['npz_bytes']} "
+        f"bytes [{card}]")
+    log(f"  restore {r['restore_s']:.3f} s (after the crash "
+        f"{r['restore_after_crash_s']:.3f} s; reading, verifying and "
+        f"decompressing a commit alone {r['read_verify_s']:.3f} s) "
+        f"[{card}]")
+    log(f"  replay: {r['replay_events']} events delivered "
+        f"({r['replay_applied']} applied, the rest skipped as duplicates) "
+        f"in {r['replay_s']:.3f} s: {r['replay_events'] / r['replay_s']:.0f}"
+        f" delivered events/s, {r['replay_applied'] / r['replay_s']:.0f} "
+        f"applied events/s; vs E1 max |diff| {r['replay_max_abs_err']} "
+        f"[{card}]")
+    log(f"  async checkpoint: caller thread {r['async_caller_s']:.3f} s "
+        f"(sync {r['checkpoint3_s']:.3f} s), commit landed "
+        f"{r['async_total_s']:.3f} s after the call, 64 baskets applied "
+        f"meanwhile [{card}]")
+    log(f"  frozen answers identical, fp32 and int8; after the thaw "
+        f"{r['thaw_changed_rows']} of {len(users)} users' answers changed "
+        f"(fp32, int8), equal to a fresh corpus's; cosine request "
+        f"{r['cosine_request_s'] * 1e3:.3f} ms on the plain route [{card}]")
+    return launches, r
+
+
 BF16, F32 = torch.bfloat16, torch.float32
 # flash_attention.plan_flash's designs
 WGMMA, MMA, CORES = "tma_wgmma", "mma_sync", "cuda_cores"
@@ -1679,7 +1927,7 @@ def attention_flops(b, s, h, d):
 
 
 def granite_path(dev, records):
-    """Phase 9: granite-3-2b at full width and depth serving 4 prompts of
+    """Phase 10: granite-3-2b at full width and depth serving 4 prompts of
     4,096 tokens and 16 greedy decode steps, once with the kernels
     (counts reset before, read after) and once with the plain versions;
     layer 0's prefill attention checked kernel against plain and timed."""
@@ -1968,7 +2216,12 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.append(rebuild_path(kern, p, dev, records))
     log(f"from-scratch rebuild: {time.perf_counter() - t0:.1f} s")
+    users = kern.requests[-1]
     del kern
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths.append(durability_path(ds, users, dev, card)[0])
+    log(f"durability: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     records["knn_topk_dtiled"]["million"], million = million_path(dev)

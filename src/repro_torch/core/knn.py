@@ -18,7 +18,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 
 def recommend_for_users(corpus: torch.Tensor, user_ids: torch.Tensor,
@@ -184,11 +184,13 @@ def sharded_recommend_for_users_quant(
 
 def compare_recommendations(corpus: torch.Tensor, user_ids, ref_ids,
                             got_ids, k: int, alpha: float,
-                            rtol: float = 1e-5) -> Dict[str, int]:
+                            rtol: float = 1e-5,
+                            metric: str = "euclidean") -> Dict[str, int]:
     """Hold ``got_ids`` against ``ref_ids`` (both [Q, n]) in float64.
 
-    For each query the neighbour scores −|q − c|² and the blended
-    predictions are recomputed in float64 from ``corpus``.  A query is
+    For each query the neighbour scores (−|q − c|² for euclidean, the
+    serving path's ``metric`` otherwise) and the blended predictions are
+    recomputed in float64 from ``corpus``.  A query is
     in the EXACT class when its k-th and (k+1)-th neighbour scores and
     its n-th and (n+1)-th predictions differ by more than ``rtol``
     relative: there both answers must hold identical ids.  Elsewhere the
@@ -204,9 +206,7 @@ def compare_recommendations(corpus: torch.Tensor, user_ids, ref_ids,
     uid, ref_t, got_t = (torch.as_tensor(np.array(x, np.int64), device=dev)
                          for x in (user_ids, ref_ids, got_ids))
     q = c[uid]
-    cn = torch.sum(c * c, dim=1)
-    scores = 2.0 * (q @ c.T) - torch.sum(q * q, dim=1, keepdim=True) \
-        - cn[None, :]
+    scores = ref.pairwise_scores(q, c, metric)
     scores[torch.arange(uid.shape[0], device=dev), uid] = float("-inf")
     m, n = c.shape[0], ref_t.shape[1]
     k = max(1, min(k, m - 1))

@@ -129,9 +129,10 @@ def fused_recommend(corpus: torch.Tensor, user_ids: torch.Tensor, k: int,
     plain path is ``ref.fused_recommend_ref``, the JAX reference's
     unfused pipeline (``ref.fused_recommend_dtiled_ref`` with ``bd``).
     ``k`` is clamped to M−1 (``_serving_k``).  The kernels score
-    euclidean and dot only: ``metric="cosine"`` on the kernel path
-    raises (``impl="ref"`` serves it on any device, ignoring ``bd`` as
-    the JAX package does).
+    euclidean and dot only, and no TPU kernel scores cosine either:
+    ``metric="cosine"`` takes the plain path on every impl and device,
+    ignoring ``bd``, as the JAX package does.  The metric alone decides
+    that, before any launch.
     """
     kernel = uses_kernel(corpus, impl)
     q_n, m = user_ids.shape[0], corpus.shape[0]
@@ -139,7 +140,7 @@ def fused_recommend(corpus: torch.Tensor, user_ids: torch.Tensor, k: int,
     if q_n == 0 or m == 0:
         return torch.zeros((q_n, topn), dtype=torch.int32,
                            device=corpus.device)
-    if not kernel:
+    if not kernel or metric == "cosine":
         if bd is not None and metric != "cosine":
             return ref.fused_recommend_dtiled_ref(corpus, user_ids, k,
                                                   alpha, topn, bd)
@@ -149,8 +150,6 @@ def fused_recommend(corpus: torch.Tensor, user_ids: torch.Tensor, k: int,
     if bd is None:
         _, idx = _knn.launch(queries, corpus, k, metric=metric,
                              query_gids=user_ids)
-    elif metric == "cosine":
-        raise ValueError("the D-tiled kernel scores euclidean, not cosine")
     else:
         _, idx = _knn.launch_dtiled(queries, corpus, k, bd=bd,
                                     query_gids=user_ids)
@@ -226,13 +225,13 @@ def shard_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     ``knn_topk`` with ``sub_qnorm`` and the shard's gid mapping
     (O(Q·M_s·I), the [Q, M_s] scores never written), with −inf
     candidates pinned to the self gid; the plain path is
-    ``ref.shard_topk_ref``.  Cosine has no kernel: on the kernel path
-    it raises.
+    ``ref.shard_topk_ref``.  Cosine has no kernel: it takes the plain
+    path on every impl and device, as in the JAX package.
     """
     m_s, q_n = corpus.shape[0], queries.shape[0]
     if m_s == 0 or q_n == 0:
         return _empty_candidates(q_n, k, m_s, corpus.device)
-    if not uses_kernel(corpus, impl):
+    if not uses_kernel(corpus, impl) or metric == "cosine":
         return ref.shard_topk_ref(queries, corpus, k, shard, n_shards,
                                   query_gids, metric)
     if query_gids is None:

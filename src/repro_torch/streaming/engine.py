@@ -14,6 +14,12 @@
     batch's maintenance probe and dropped-add count, the delete rows'
     basket counts — comes back in ONE transfer (``metrics.host_fetches``);
     maintenance for batch N runs at the start of step N+1.
+  * ``checkpoint`` commits the state and the exactly-once log in one
+    atomic ``LATEST`` write (synchronously, or through an
+    ``AsyncCheckpointer``); ``restore`` installs a commit of either
+    package, after which an at-least-once replay with the original
+    seqnos converges to the fault-free state.  ``freeze_serving`` keeps
+    ``recommend`` answering from a pinned snapshot meanwhile.
 
 The JAX engine's tile hints are not ported: they only size Pallas grids,
 and the CUDA kernels take no static grid bound.
@@ -22,6 +28,8 @@ from __future__ import annotations
 
 import dataclasses
 import heapq
+import json
+import os
 import time
 from collections import deque
 from typing import Dict, Iterable, List, Optional
@@ -39,6 +47,7 @@ from repro_torch.core.updates import (SCALE_CEIL, SCALE_FLOOR,
                                       apply_del_basket_batch,
                                       apply_del_item_batch, refresh_users,
                                       renormalize_users)
+from repro_torch.streaming.async_checkpoint import AsyncCheckpointer
 from repro_torch.streaming.state_store import StateStore
 
 
@@ -150,28 +159,23 @@ class StreamingEngine:
                  stability_target_rel_err: Optional[float] = 1e-2,
                  bucket_hysteresis: int = 8,
                  max_pending: Optional[int] = None,
-                 dead_letter_cap: int = 1024):
+                 dead_letter_cap: int = 1024,
+                 checkpointer: Optional[AsyncCheckpointer] = None):
         self.store = store
         self.params = params
         self.batch_size = batch_size
+        # with a background writer, checkpoint() snapshots on the
+        # caller's thread and commits on the writer's; None commits
+        # inline
+        self.checkpointer = checkpointer
         self.max_pending = max_pending
         self.dead_letter: deque = deque(maxlen=max(1, dead_letter_cap))
-        # first shed explicit seqno not yet readmitted: later first
-        # deliveries keep shedding until it is (no gap below the log)
-        self._shed_from: Optional[int] = None
         self.bucket_hysteresis = max(1, bucket_hysteresis)
         self._kind_bucket: Dict[int, int] = {}
         self._below_bucket: Dict[int, int] = {}
-        self._maintenance_due = False
-        self._dropped_dev: Optional[torch.Tensor] = None
-        self._queues: Dict[int, deque] = {}
-        self._heap: List[tuple] = []
-        self._n_pending = 0
-        self.watermark = -1
-        self._processed_above: set = set()
-        self._pending_seqnos: set = set()
-        self._max_delivered = -1
-        self._next_seqno = 0
+        # the exactly-once log, the pending queues and the deferred
+        # step summary, all empty
+        self._reset_log()
         self.metrics = EngineMetrics()
         self.err_threshold = (
             stability.refresh_threshold(stability_target_rel_err)
@@ -454,6 +458,18 @@ class StreamingEngine:
             self._apply_maintenance(*(float(x) for x in host["probe"]))
             self._maintenance_due = False
 
+    def _flush_deferred(self) -> None:
+        """Settle the deferred maintenance probe and drop count now.
+
+        A drain ends on the empty step, whose fetch carries the last
+        batch's summary; a checkpoint may come before that step, so it
+        settles the summary here: one counted fetch when something is
+        due, none otherwise.
+        """
+        parts = self._summary_parts()
+        if parts:
+            self._consume_summary(self._fetch(parts))
+
     def step(self) -> int:
         """Process one micro-batch. Returns the number of events applied.
 
@@ -548,3 +564,107 @@ class StreamingEngine:
                                            metric=metric)
         self.metrics.serve_requests += 1
         return recs.cpu().numpy()[:q_n]
+
+    # -- degraded serving ---------------------------------------------------
+
+    def freeze_serving(self) -> None:
+        """Enter degraded serving: pin the current corpus snapshot.
+
+        ``recommend`` keeps answering (fp32 and int8) from the pinned
+        snapshot while the live state moves on or is restored; answers
+        are stale but well-formed.  Idempotent.
+        """
+        self.store.freeze_serving()
+
+    def thaw_serving(self) -> None:
+        """Leave degraded serving; ``recommend`` reads live state again."""
+        self.store.thaw_serving()
+
+    @property
+    def serving_degraded(self) -> bool:
+        """True while ``recommend`` answers from a pinned stale snapshot."""
+        return self.store.serving_degraded
+
+    # -- recovery -----------------------------------------------------------
+
+    def checkpoint(self, directory: str, step: int) -> None:
+        """Commit state + exactly-once log atomically.
+
+        The log rides inside the store's ``LATEST`` metadata, the
+        checkpoint's single atomic commit point, so a crash anywhere can
+        never pair a new state with an old log.  Deferred maintenance is
+        settled first (:meth:`_flush_deferred`), so the committed state
+        matches the drained trajectory.  With a ``checkpointer`` the
+        caller-thread cost is one host snapshot copy and the commit runs
+        on the writer thread; its failures surface at the next
+        ``checkpoint`` / :meth:`flush_checkpoints` / :meth:`restore`.
+        Without one: one O(state) snapshot + inline write.
+        """
+        self._flush_deferred()
+        extra = {"engine": {
+            "watermark": self.watermark,
+            "processed_above": sorted(self._processed_above),
+            "delivered": self._max_delivered,
+            "next_seqno": self._next_seqno}}
+        if self.checkpointer is not None:
+            self.store.checkpoint_async(self.checkpointer, directory,
+                                        step, extra_meta=extra)
+        else:
+            self.store.checkpoint(directory, step, extra_meta=extra)
+
+    def flush_checkpoints(self) -> None:
+        """Block until every async commit landed (no-op when sync).
+
+        Re-raises the writer thread's first error: the synchronization
+        point a caller must cross before trusting that a
+        :meth:`checkpoint` call's commit exists on disk.
+        """
+        if self.checkpointer is not None:
+            self.checkpointer.flush()
+
+    def restore(self, directory: str) -> None:
+        """Install a checkpoint: state, serving caches, exactly-once log.
+
+        Pending async commits are flushed first (restore never races
+        its own writer, and a recorded writer crash re-raises here).
+        The pending queues and the deferred step summary are dropped
+        (they were never part of the commit); an at-least-once source
+        replays the stream WITH THE ORIGINAL seqnos and :meth:`submit`
+        skips everything the restored log covers.  A commit without an
+        ``engine`` log reads the legacy ``ENGINE`` file beside it.
+        Cost: one O(state) read + host-to-device copy.
+        """
+        self.flush_checkpoints()
+        self.store.restore(directory)
+        meta = self.store.last_restored_meta.get("engine")
+        if meta is None:
+            with open(os.path.join(directory, "ENGINE")) as f:
+                meta = json.load(f)
+        self._reset_log()
+        self._load_log(meta)
+
+    def _load_log(self, meta: dict) -> None:
+        """Install a persisted exactly-once log (see :meth:`checkpoint`)."""
+        self.watermark = meta["watermark"]
+        self._processed_above = set(meta.get("processed_above", []))
+        self._next_seqno = meta["next_seqno"]
+        # legacy checkpoints lack `delivered`; they were written by dense
+        # single engines, where every seqno below next_seqno was delivered
+        self._max_delivered = meta.get("delivered", meta["next_seqno"] - 1)
+
+    def _reset_log(self) -> None:
+        """A fresh empty log, no pending events, nothing deferred."""
+        self.watermark = -1
+        self._processed_above: set = set()
+        self._pending_seqnos: set = set()
+        self._max_delivered = -1
+        self._next_seqno = 0
+        self._queues: Dict[int, deque] = {}
+        self._heap: List[tuple] = []
+        self._n_pending = 0
+        # first shed explicit seqno not yet readmitted: later first
+        # deliveries keep shedding until it is (no gap below the log);
+        # dropped queues drop the gap too, the source replays the log
+        self._shed_from: Optional[int] = None
+        self._maintenance_due = False
+        self._dropped_dev: Optional[torch.Tensor] = None

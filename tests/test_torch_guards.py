@@ -90,11 +90,22 @@ def test_cuda_impl_on_cpu_tensors_raises():
     with ops.default_impl("cuda"):
         with pytest.raises(ValueError, match="CUDA"):
             ops.fused_recommend(table, rows, k=2, alpha=0.5, topn=2)
-        # no kernel scores cosine: the kernel path raises rather than
-        # serving it through the plain version
-        with pytest.raises(ValueError):
-            ops.fused_recommend(table, rows, k=2, alpha=0.5, topn=2,
-                                metric="cosine")
+        # no kernel scores cosine: the metric alone routes it to the
+        # plain version on the kernel route too, with or without bd, as
+        # the JAX dispatchers do
+        corpus = torch.rand((6, 16), generator=torch.Generator()
+                            .manual_seed(0))
+        for bd in (None, 8):
+            got = ops.fused_recommend(corpus, rows, k=2, alpha=0.5, topn=3,
+                                      metric="cosine", bd=bd)
+            assert torch.equal(got, ops.fused_recommend(
+                corpus, rows, k=2, alpha=0.5, topn=3, metric="cosine",
+                impl="ref"))
+        got = ops.shard_topk(corpus[:2], corpus, 3, 1, 2, query_gids=rows,
+                             metric="cosine")
+        want = ops.shard_topk(corpus[:2], corpus, 3, 1, 2, query_gids=rows,
+                              metric="cosine", impl="ref")
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
     for call in _new_dispatch_calls():
         with pytest.raises(ValueError, match="CUDA"):
             call("cuda")
