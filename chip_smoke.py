@@ -68,18 +68,41 @@ Phases, each fatal on failure (nothing is caught):
    with no kernel launched.  Logs checkpoint and restore seconds, npz
    bytes, replay events/s and the async caller-thread seconds beside the
    card's name and power limit;
-9. million-item point -- M=256 random rows, Q=32, I=1,048,576, k=16,
+9. sharded engine -- the same stream, each event with its seqno,
+   through ``ShardedStreamingEngine.create(UserShardSpec(13949, 2), ...,
+   devices=make_user_shard_devices(2))`` on the one card in micro-batches
+   of 512 a shard (counts reset before, read after; B1, B2, B3, B5, B6
+   and B7 each launched): the state mapped back through the spec held
+   against a single engine fed the same stream (integer leaves exact,
+   vectors bitwise; users that differ in any bit are named with both
+   engines' maintenance counters and held to rtol=1e-4, atol=1e-5); 4
+   requests of 256 users, fp32 and int8 (bd=512), held by
+   ``compare_recommendations`` against the single engine's answers and
+   the same engine's under ``ops.default_impl("ref")`` and timed on the
+   host clock; a synchronous commit after the first half, then a crash
+   at ``LATEST.pre_replace``'s 2nd hit in the next commit (shard 0's
+   lands, shard 1's does not); a restore into 2 shards and a replay with
+   ``faults.redelivered`` duplicates (each event applied once); the
+   first-half commit resharded into 3 shards, the whole stream submitted
+   (the second half pending: legacy-log dedup) and drained; then
+   ``recover_shard(1)``, answering from its frozen snapshot during the
+   recovery and as a fresh corpus after the thaw.  Logs the load rate
+   beside phase 4's, the request ms, the commit seconds and bytes, the
+   restore and reshard seconds and the replay events/s beside the card's
+   name and power limit (commits under ``build/chip_smoke_shard_ckpt/``,
+   removed after);
+10. million-item point -- M=256 random rows, Q=32, I=1,048,576, k=16,
    bd=1024 (the top point of benchmarks/bench_serving.py::ScaleConfig):
    the D-tiled stage A in both modes against its plain version, then
    ``knn.recommend_for_users_quant`` (counts reset before, read after)
    held against its plain pipeline on the dequantized corpus;
-10. granite-3-2b serving -- the dense LM at its published widths and
+11. granite-3-2b serving -- the dense LM at its published widths and
    depth (40 layers, bf16, weights from a seeded generator): layer 0's
    prefill attention kernel against plain and timed, then 4 prompts of
    4,096 tokens prefilled and 16 greedy decode steps, once with the
    kernels (counts reset before, read after) and once with the plain
    versions; last-position logits compared, greedy tokens reported;
-11. summary -- every kernel's launches, then one JSON line of kernel
+12. summary -- every kernel's launches, then one JSON line of kernel
    records, and last the ``{"ok": true, ...}`` line.
 
 It needs a CUDA card and the rest of the repository; anywhere else it
@@ -114,12 +137,14 @@ from repro_torch.kernels import (build, decayed_scatter,  # noqa: E402
                                  sparse_row_scatter)
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.mesh import make_user_shard_devices  # noqa: E402
 from repro_torch.optim.compression import (  # noqa: E402
     dequantize_int8_rows, quantize_int8_rows, quantize_int8_rows_pitched)
 from repro_torch.parallel.sharding import UserShardSpec  # noqa: E402
 from repro_torch.streaming import (AsyncCheckpointer, Event,  # noqa: E402
-                                   StateStore, StoreConfig, StreamingEngine,
-                                   faults, load_checkpoint_arrays)
+                                   ShardedStreamingEngine, StateStore,
+                                   StoreConfig, StreamingEngine, faults,
+                                   load_checkpoint_arrays)
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, int8
 # in the tensor cores, HBM3
@@ -145,8 +170,10 @@ KNN_PLAN_EDGES = (456,)
 # B2's table past 2^31 cells (9.0 GB of f32): its top 4,096 rows start
 # at cell 2,244,411,392
 SCATTER_BIG = (1_100_000, 2_048)
-# the durability phase's commits (build/ is not in git)
+# the durability and sharded-engine phases' commits (build/ is not in
+# git)
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+SHARD_CKPT_DIR = ROOT / "build" / "chip_smoke_shard_ckpt"
 # (rows, ids) dtypes the sparse pair reads as given
 INDEX_PAIRS = ((torch.int32, torch.int32), (torch.int64, torch.int32),
                (torch.int32, torch.int64), (torch.int64, torch.int64))
@@ -976,7 +1003,7 @@ def check_dtiled(corpus, c_int, uid, records):
 
 
 def million_path(dev):
-    """Phase 9, the million-item point: M=256 random rows, Q=32,
+    """Phase 10, the million-item point: M=256 random rows, Q=32,
     I=1,048,576, k=16, bd=1024 (1.07 GB fp32, 268 MB int8).  The D-tiled
     stage A in both modes against its plain version (int8 identical,
     fp32 allclose with equivalent ids), then the int8 serving entry
@@ -1640,6 +1667,20 @@ def serve_both(eng, users):
             eng.recommend(users, topn=TOPN, quantized=True))
 
 
+def mixed_stream(ds):
+    """The main path's store shapes and mixed stream, each event with
+    its seqno (phases 8 and 9)."""
+    cfg = StoreConfig(
+        n_users=len(ds.histories), n_items=ds.params.n_items,
+        max_baskets=max(len(h) for h in ds.histories.values()) + 8,
+        max_basket_size=max(len(b) for h in ds.histories.values()
+                            for b in h) + 2)
+    events = [dataclasses.replace(ev, seqno=i) for i, ev in enumerate(
+        stream.make_stream(ds.histories, deletion_user_rate=0.01,
+                           item_deletion_rate=0.005, seed=0))]
+    return cfg, events
+
+
 def durability_path(ds, users, dev, card):
     """Phase 8: the durability layer at TaFeng's full size on the card.
 
@@ -1654,14 +1695,7 @@ def durability_path(ds, users, dev, card):
     after; returns them and the phase's readings."""
     p = ds.params
     n_users, n_items = len(ds.histories), p.n_items
-    cfg = StoreConfig(
-        n_users=n_users, n_items=n_items,
-        max_baskets=max(len(h) for h in ds.histories.values()) + 8,
-        max_basket_size=max(len(b) for h in ds.histories.values()
-                            for b in h) + 2)
-    events = [dataclasses.replace(ev, seqno=i) for i, ev in enumerate(
-        stream.make_stream(ds.histories, deletion_user_rate=0.01,
-                           item_deletion_rate=0.005, seed=0))]
+    cfg, events = mixed_stream(ds)
     half = len(events) // 2
     uid = torch.as_tensor(users, dtype=torch.int32, device=dev)
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
@@ -1824,6 +1858,288 @@ def durability_path(ds, users, dev, card):
     return launches, r
 
 
+# ---------------------------------------------------------------------------
+# the sharded engine: load, serving, torn crash, restore, reshard, recovery
+# ---------------------------------------------------------------------------
+
+SHARD_INT_LEAVES = ("history", "group_sizes", "n_baskets", "n_groups")
+SHARD_KERNELS = ("sparse_row_gather", "sparse_row_scatter", "knn_topk",
+                 "knn_topk_dtiled", "blend_topn_rows_quant",
+                 "blend_topn_rows")
+
+
+def maintenance_counters(m):
+    return {name: getattr(m, name) for name in (
+        "batches", "refreshes", "renormalizations", "dropped_adds",
+        "host_fetches")}
+
+
+def sharded_parity(eng, single, what):
+    """The sharded state mapped back through the spec against the single
+    engine's: integer leaves exact, materialized vectors bitwise.  Users
+    whose vectors differ in any bit are named, with both engines'
+    maintenance counters, and held to the main path's rtol=1e-4,
+    atol=1e-5; returns their number."""
+    want_state = single.store.state
+    dev = want_state.n_baskets.device
+    owned = [torch.as_tensor(eng.spec.owned_users(s), device=dev)
+             for s in range(eng.spec.n_shards)]
+    for name in SHARD_INT_LEAVES:
+        want = getattr(want_state, name)
+        for s, sh in enumerate(eng.shards):
+            assert torch.equal(getattr(sh.store.state, name),
+                               want[owned[s]]), (what, name, s)
+    differ = []
+    for fn in ("materialized_user_vecs", "materialized_last_group_vecs"):
+        want = getattr(want_state, fn)()
+        for s, sh in enumerate(eng.shards):
+            got, w = getattr(sh.store.state, fn)(), want[owned[s]]
+            bad = (got.view(torch.int32) != w.view(torch.int32)).any(dim=1)
+            if bool(bad.any()):
+                assert torch.allclose(got[bad], w[bad], rtol=1e-4,
+                                      atol=1e-5), (what, fn, s)
+                differ += owned[s][bad].tolist()
+        del want
+    differ = sorted(set(differ))
+    if differ:
+        log(f"  {what}: {len(differ)} users differ from the single engine "
+            f"in some bit (held to rtol=1e-4, atol=1e-5), the first "
+            f"{differ[:8]}; maintenance counters: sharded "
+            f"{[maintenance_counters(sh.metrics) for sh in eng.shards]}, "
+            f"single {maintenance_counters(single.metrics)}")
+    else:
+        log(f"  {what}: the state bitwise the single engine's")
+    return len(differ)
+
+
+def global_rows(eng, tables):
+    """Per-shard [M_s, ...] tables as one global table, through the spec."""
+    out = torch.empty((eng.spec.n_users,) + tuple(tables[0].shape[1:]),
+                      dtype=tables[0].dtype, device=tables[0].device)
+    for s, t in enumerate(tables):
+        out[torch.as_tensor(eng.spec.owned_users(s), device=t.device)] = t
+    return out
+
+
+def sharded_engine_path(ds, requests, dev, card, single_rate):
+    """Phase 9: the user-axis sharded engine at TaFeng's full size.
+
+    The mixed stream of phase 8, each event with its seqno, through a
+    2-shard ``ShardedStreamingEngine`` on the one card in micro-batches
+    of 512 a shard, with a synchronous commit after the first half; its
+    state held against a single engine fed the same stream; 4 requests
+    of 256 users, fp32 and int8, held against the single engine's and
+    the plain versions' answers; a crash inside the second commit that
+    lands shard 0's and not shard 1's; restore into 2 shards and a
+    replay with duplicates; the first-half commit resharded into 3
+    shards and the whole stream submitted; ``recover_shard(1)``
+    answering from its frozen snapshot during the recovery.  Counts
+    reset before, read after; returns them and the phase's readings."""
+    p = ds.params
+    n_users = len(ds.histories)
+    cfg, events = mixed_stream(ds)
+    half = len(events) // 2
+    spec = UserShardSpec(n_users, 2)
+    shutil.rmtree(SHARD_CKPT_DIR, ignore_errors=True)
+    ck, ck_half = str(SHARD_CKPT_DIR / "ck"), str(SHARD_CKPT_DIR / "half")
+
+    def sharded(n_shards):
+        return ShardedStreamingEngine.create(
+            UserShardSpec(n_users, n_shards), p, cfg.max_baskets,
+            cfg.max_basket_size,
+            devices=make_user_shard_devices(n_shards), batch_size=512)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def load(eng, evs):
+        eng.submit(evs)
+        eng.run_until_drained()
+
+    r = {}
+    build.reset_launch_counts()
+    # the single engine of the same stream, the state's yardstick
+    single = StreamingEngine(StateStore(cfg, device=dev), p,
+                             batch_size=512)
+    r["single_load_s"] = timed(lambda: load(single, events))
+    # 1: the 2-shard load, a synchronous commit after the first half
+    eng = sharded(2)
+    assert all(sh.store.device.type == dev.type for sh in eng.shards)
+    r["load_s"] = timed(lambda: load(eng, events[:half]))
+    r["checkpoint_s"] = timed(lambda: eng.checkpoint(ck, 1))
+    r["npz_bytes"] = []
+    for s in range(2):
+        with open(SHARD_CKPT_DIR / "ck" / f"shard_{s:03d}" / "LATEST") as f:
+            r["npz_bytes"].append(json.load(f)["npz_bytes"])
+    shutil.copytree(ck, ck_half)
+    r["load_s"] += timed(lambda: load(eng, events[half:]))
+    assert eng.events_processed == len(events) and eng.n_pending == 0
+    assert eng.dead_letters == single.metrics.dead_letters
+    r["differ"] = [sharded_parity(eng, single, "2-shard load")]
+    # 2: requests, fp32 and int8, against the single engine and the
+    # plain versions
+    corpus = global_rows(eng, eng.corpora())
+    deq = dequantize_int8_rows(*(global_rows(eng, list(t)) for t in zip(
+        *eng.quantized_corpora())))
+    exact = {"fp32": [0, 0], "int8": [0, 0]}
+    r["request_ms"], r["quant_request_ms"] = [], []
+    for i, users in enumerate(requests):
+        before = dict(build.launch_counts)
+        got, got_q = serve_both(eng, users)
+        assert_launched(before, ("knn_topk", "blend_topn_rows",
+                                 "knn_topk_dtiled", "blend_topn_rows_quant"),
+                        "serving the sharded engine")
+        want, want_q = serve_both(single, users)
+        with ops.default_impl("ref"):
+            plain, plain_q = serve_both(eng, users)
+        for c, exp, what, key, g in (
+                (corpus, want, "single engine", "fp32", got),
+                (corpus, plain, "plain versions", "fp32", got),
+                (deq, want_q, "single engine", "int8", got_q),
+                (deq, plain_q, "plain versions", "int8", got_q)):
+            e, t = hold(c, users, exp, g, p,
+                        f"request {i}, 2-shard {key} vs {what}")
+            exact[key][0] += e
+            exact[key][1] += t
+        r["request_ms"].append(host_ms(lambda: eng.recommend(users,
+                                                             topn=TOPN)))
+        r["quant_request_ms"].append(host_ms(lambda: eng.recommend(
+            users, topn=TOPN, quantized=True)))
+    for key, (e, t) in exact.items():
+        assert e >= 0.9 * t, ("exact class", key, e, t)
+    r["exact"] = exact
+    del corpus, deq
+    # 3: a crash inside the second commit: shard 0's LATEST lands (the
+    # site's 1st hit passes), shard 1's does not, the manifest stays
+    plan = faults.FaultPlan(crash_site="LATEST.pre_replace", crash_on_hit=2)
+    crashed = False
+    with faults.inject(plan):
+        try:
+            eng.checkpoint(ck, 2)
+        except faults.InjectedCrash:
+            crashed = True
+    assert crashed and plan.fired[-1] == "LATEST.pre_replace", plan.fired
+    steps = []
+    for name in ("shard_000/LATEST", "shard_001/LATEST", "SHARDS"):
+        with open(SHARD_CKPT_DIR / "ck" / name) as f:
+            steps.append(json.load(f)["step"])
+    assert steps == [2, 1, 1], steps
+    del eng
+    torch.cuda.empty_cache()
+    # 4: restore into 2 shards and replay the stream with duplicates:
+    # each event applied once (shard 1's second half only)
+    e2 = sharded(2)
+    r["restore_s"] = timed(lambda: e2.restore(ck))
+    assert e2.shards[0].watermark > e2.shards[1].watermark
+    dups = faults.redelivered(events, seed=7)
+    lost = sum(1 for ev in events[half:] if spec.shard_of(ev.user) == 1)
+
+    def replay():
+        e2.submit(events)
+        e2.submit(dups)
+        e2.run_until_drained()
+
+    r["replay_s"] = timed(replay)
+    assert e2.events_processed == lost, (e2.events_processed, lost)
+    assert e2.shards[0].metrics.events_processed == 0
+    assert sum(sh.metrics.dedup_skips for sh in e2.shards) == \
+        len(events) + len(dups) - lost
+    r["replay_events"], r["replay_applied"] = len(events) + len(dups), lost
+    r["differ"].append(sharded_parity(e2, single, "torn crash, replay"))
+    # 5: the first-half commit resharded into 3 shards, the whole stream
+    # submitted: the legacy logs dedup the first half
+    e3 = sharded(3)
+    r["reshard_s"] = timed(lambda: e3.restore(ck_half))
+    res = e3.submit(events)
+    r["reshard_pending"] = e3.n_pending
+    assert res.deduped == half and e3.n_pending == len(events) - half, \
+        (res, e3.n_pending)
+    r["reshard_drain_s"] = timed(e3.run_until_drained)
+    assert e3.events_processed == len(events) - half
+    r["differ"].append(sharded_parity(e3, single, "2→3 reshard, drain"))
+    del e3, single
+    torch.cuda.empty_cache()
+    # 6: recover_shard(1) from the torn directory (shard 1's commit 1):
+    # during the recovery recommend answers from the frozen snapshot,
+    # after the thaw as a fresh corpus
+    users = requests[-1]
+    pre = serve_both(e2, users)
+    sh1 = e2.shards[1]
+    restore_live, during = sh1.restore, []
+
+    def restore_then_serve(directory):
+        restore_live(directory)
+        assert sh1.serving_degraded
+        during.append(serve_both(e2, users))
+
+    sh1.restore = restore_then_serve
+    t0 = time.perf_counter()
+    info = e2.recover_shard(1, ck)
+    r["recover_s"] = time.perf_counter() - t0
+    del sh1.restore
+    assert info["source"] == "LATEST" and not sh1.serving_degraded, info
+    assert len(during) == 1
+    for a, b, what in zip(pre, during[0], ("fp32", "int8")):
+        assert np.array_equal(a, b), f"frozen {what} answer moved"
+    thawed = serve_both(e2, users)
+    fresh = [sh.store.state.materialized_user_vecs() for sh in e2.shards]
+    assert all(torch.equal(sh.store.corpus(), c)
+               for sh, c in zip(e2.shards, fresh)), "thawed corpora"
+    fresh_q = [quantize_int8_rows_pitched(c) for c in fresh]
+    want = (knn.sharded_recommend_for_users(fresh, users, p.k_neighbors,
+                                            p.alpha, TOPN, 2),
+            knn.sharded_recommend_for_users_quant(fresh_q, users,
+                                                  p.k_neighbors, p.alpha,
+                                                  TOPN, 2))
+    for a, b, what in zip(thawed, want, ("fp32", "int8")):
+        assert np.array_equal(a, b.cpu().numpy()), f"thawed {what} answer"
+    r["thaw_changed_rows"] = [int((a != b).any(axis=1).sum())
+                              for a, b in zip(pre, thawed)]
+    del e2, fresh, fresh_q
+    torch.cuda.synchronize()
+    launches = dict(build.launch_counts)
+    for name in SHARD_KERNELS:
+        assert launches[name] > 0, \
+            f"kernel {name} was not launched on the sharded engine's path"
+    shutil.rmtree(SHARD_CKPT_DIR, ignore_errors=True)
+    load_rate = len(events) / r["load_s"]
+    log(f"sharded engine at TaFeng's full size (2 shards on one card, "
+        f"{n_users} users x {p.n_items} items, {len(events)} events): "
+        f"launches {launches}")
+    log(f"  load {load_rate:.0f} events/s with 2 shards ({r['load_s']:.3f} "
+        f"s); a single engine in this phase {len(events) / r['single_load_s']:.0f}"
+        f", phase 4's {single_rate:.0f} [{card}]")
+    log(f"  requests of 256 users, host clock (ms): fp32 "
+        f"{[round(t, 3) for t in r['request_ms']]}, int8 "
+        f"{[round(t, 3) for t in r['quant_request_ms']]}; exact class "
+        f"fp32 {exact['fp32'][0]}/{exact['fp32'][1]}, int8 "
+        f"{exact['int8'][0]}/{exact['int8'][1]} [{card}]")
+    log(f"  checkpoint (sync, 2 shards, after {half} events) "
+        f"{r['checkpoint_s']:.3f} s, npz {r['npz_bytes']} bytes "
+        f"({sum(r['npz_bytes'])} in all) [{card}]")
+    log(f"  after the torn crash: restore {r['restore_s']:.3f} s; replay "
+        f"{r['replay_events']} events delivered ({r['replay_applied']} "
+        f"applied, shard 1's lost half) in {r['replay_s']:.3f} s: "
+        f"{r['replay_events'] / r['replay_s']:.0f} delivered events/s, "
+        f"{r['replay_applied'] / r['replay_s']:.0f} applied events/s "
+        f"[{card}]")
+    log(f"  reshard 2→3: restore {r['reshard_s']:.3f} s, "
+        f"{r['reshard_pending']} events pending after the whole stream "
+        f"(the second half), drained in {r['reshard_drain_s']:.3f} s "
+        f"[{card}]")
+    log(f"  recover_shard(1) {r['recover_s']:.3f} s: frozen answers "
+        f"identical, fp32 and int8; after the thaw "
+        f"{r['thaw_changed_rows']} of {len(users)} users' answers changed "
+        f"(fp32, int8), equal to a fresh corpus's; users differing from "
+        f"the single engine in some bit (load, replay, reshard): "
+        f"{r['differ']} [{card}]")
+    return launches, r
+
+
 BF16, F32 = torch.bfloat16, torch.float32
 # flash_attention.plan_flash's designs
 WGMMA, MMA, CORES = "tma_wgmma", "mma_sync", "cuda_cores"
@@ -1927,7 +2243,7 @@ def attention_flops(b, s, h, d):
 
 
 def granite_path(dev, records):
-    """Phase 10: granite-3-2b at full width and depth serving 4 prompts of
+    """Phase 11: granite-3-2b at full width and depth serving 4 prompts of
     4,096 tokens and 16 greedy decode steps, once with the kernels
     (counts reset before, read after) and once with the plain versions;
     layer 0's prefill attention checked kernel against plain and timed."""
@@ -2216,12 +2532,18 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.append(rebuild_path(kern, p, dev, records))
     log(f"from-scratch rebuild: {time.perf_counter() - t0:.1f} s")
-    users = kern.requests[-1]
+    requests, users = kern.requests, kern.requests[-1]
+    single_rate = kern.n_events / kern.load_seconds
     del kern
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     paths.append(durability_path(ds, users, dev, card)[0])
     log(f"durability: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths.append(sharded_engine_path(ds, requests, dev, card,
+                                     single_rate)[0])
+    log(f"sharded engine: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     records["knn_topk_dtiled"]["million"], million = million_path(dev)
