@@ -1667,6 +1667,15 @@ def serve_both(eng, users):
             eng.recommend(users, topn=TOPN, quantized=True))
 
 
+def timed(fn) -> float:
+    """Host-clock seconds of ``fn``, between two synchronizations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def mixed_stream(ds):
     """The main path's store shapes and mixed stream, each event with
     its seqno (phases 8 and 9)."""
@@ -1704,13 +1713,6 @@ def durability_path(ds, users, dev, card):
     def engine():
         return StreamingEngine(StateStore(cfg, device=dev), p,
                                batch_size=512)
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
 
     r = {}
     build.reset_launch_counts()
@@ -1863,9 +1865,6 @@ def durability_path(ds, users, dev, card):
 # ---------------------------------------------------------------------------
 
 SHARD_INT_LEAVES = ("history", "group_sizes", "n_baskets", "n_groups")
-SHARD_KERNELS = ("sparse_row_gather", "sparse_row_scatter", "knn_topk",
-                 "knn_topk_dtiled", "blend_topn_rows_quant",
-                 "blend_topn_rows")
 
 
 def maintenance_counters(m):
@@ -1948,13 +1947,6 @@ def sharded_engine_path(ds, requests, dev, card, single_rate):
             UserShardSpec(n_users, n_shards), p, cfg.max_baskets,
             cfg.max_basket_size,
             devices=make_user_shard_devices(n_shards), batch_size=512)
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
 
     def load(eng, evs):
         eng.submit(evs)
@@ -2102,7 +2094,9 @@ def sharded_engine_path(ds, requests, dev, card, single_rate):
     del e2, fresh, fresh_q
     torch.cuda.synchronize()
     launches = dict(build.launch_counts)
-    for name in SHARD_KERNELS:
+    for name in ("sparse_row_gather", "sparse_row_scatter", "knn_topk",
+                 "knn_topk_dtiled", "blend_topn_rows_quant",
+                 "blend_topn_rows"):
         assert launches[name] > 0, \
             f"kernel {name} was not launched on the sharded engine's path"
     shutil.rmtree(SHARD_CKPT_DIR, ignore_errors=True)
@@ -2111,8 +2105,9 @@ def sharded_engine_path(ds, requests, dev, card, single_rate):
         f"{n_users} users x {p.n_items} items, {len(events)} events): "
         f"launches {launches}")
     log(f"  load {load_rate:.0f} events/s with 2 shards ({r['load_s']:.3f} "
-        f"s); a single engine in this phase {len(events) / r['single_load_s']:.0f}"
-        f", phase 4's {single_rate:.0f} [{card}]")
+        f"s); a single engine in this phase "
+        f"{len(events) / r['single_load_s']:.0f}, phase 4's "
+        f"{single_rate:.0f} [{card}]")
     log(f"  requests of 256 users, host clock (ms): fp32 "
         f"{[round(t, 3) for t in r['request_ms']]}, int8 "
         f"{[round(t, 3) for t in r['quant_request_ms']]}; exact class "
