@@ -71,9 +71,12 @@ Phases, each fatal on failure (nothing is caught):
 9. sharded engine -- the same stream, each event with its seqno,
    through ``ShardedStreamingEngine.create(UserShardSpec(13949, 2), ...,
    devices=make_user_shard_devices(2))`` on the one card in micro-batches
-   of 512 a shard (counts reset before, read after; B1, B2, B3, B5, B6
-   and B7 each launched): the state mapped back through the spec held
-   against a single engine fed the same stream (integer leaves exact,
+   of 512 a shard (counts reset after the single engine that is its
+   yardstick has loaded the stream and answered the requests, read at
+   the end, the fresh corpus's answers left out; B1 and B2 launched by
+   the load, the replay and the reshard's drain, B3, B5, B6 and B7 by
+   the requests, B4 not at all): the state mapped back through the spec
+   held against that single engine (integer leaves exact,
    vectors bitwise; users that differ in any bit are named with both
    engines' maintenance counters and held to rtol=1e-4, atol=1e-5); 4
    requests of 256 users, fp32 and int8 (bd=512), held by
@@ -1661,6 +1664,15 @@ def trickle(eng, n_users, n_items, seed):
     eng.run_until_drained()
 
 
+def uncounted(fn):
+    """``fn()`` with its kernel launches left out of the counts: a
+    yardstick's work inside a path's counted window."""
+    saved = dict(build.launch_counts)
+    out = fn()
+    build.launch_counts.update(saved)
+    return out
+
+
 def serve_both(eng, users):
     """fp32 and int8 (bd=512) answers of one request batch."""
     return (eng.recommend(users, topn=TOPN),
@@ -1932,8 +1944,11 @@ def sharded_engine_path(ds, requests, dev, card, single_rate):
     lands shard 0's and not shard 1's; restore into 2 shards and a
     replay with duplicates; the first-half commit resharded into 3
     shards and the whole stream submitted; ``recover_shard(1)``
-    answering from its frozen snapshot during the recovery.  Counts
-    reset before, read after; returns them and the phase's readings."""
+    answering from its frozen snapshot during the recovery.  The single
+    engine is loaded and gives its answers before the counts are reset,
+    and the fresh corpus's answers after the thaw are ``uncounted``: the
+    counts, read after, hold the sharded engine's launches alone.
+    Returns them and the phase's readings."""
     p = ds.params
     n_users = len(ds.histories)
     cfg, events = mixed_stream(ds)
@@ -1953,14 +1968,17 @@ def sharded_engine_path(ds, requests, dev, card, single_rate):
         eng.run_until_drained()
 
     r = {}
-    build.reset_launch_counts()
-    # the single engine of the same stream, the state's yardstick
+    # the single engine of the same stream and its answers, the
+    # yardstick, before the counts are reset
     single = StreamingEngine(StateStore(cfg, device=dev), p,
                              batch_size=512)
     r["single_load_s"] = timed(lambda: load(single, events))
+    yardstick = [serve_both(single, users) for users in requests]
+    build.reset_launch_counts()
     # 1: the 2-shard load, a synchronous commit after the first half
     eng = sharded(2)
     assert all(sh.store.device.type == dev.type for sh in eng.shards)
+    before = dict(build.launch_counts)
     r["load_s"] = timed(lambda: load(eng, events[:half]))
     r["checkpoint_s"] = timed(lambda: eng.checkpoint(ck, 1))
     r["npz_bytes"] = []
@@ -1969,6 +1987,8 @@ def sharded_engine_path(ds, requests, dev, card, single_rate):
             r["npz_bytes"].append(json.load(f)["npz_bytes"])
     shutil.copytree(ck, ck_half)
     r["load_s"] += timed(lambda: load(eng, events[half:]))
+    assert_launched(before, ("sparse_row_gather", "sparse_row_scatter"),
+                    "loading the sharded engine")
     assert eng.events_processed == len(events) and eng.n_pending == 0
     assert eng.dead_letters == single.metrics.dead_letters
     r["differ"] = [sharded_parity(eng, single, "2-shard load")]
@@ -1979,15 +1999,16 @@ def sharded_engine_path(ds, requests, dev, card, single_rate):
         *eng.quantized_corpora())))
     exact = {"fp32": [0, 0], "int8": [0, 0]}
     r["request_ms"], r["quant_request_ms"] = [], []
-    for i, users in enumerate(requests):
+    for i, (users, (want, want_q)) in enumerate(zip(requests, yardstick)):
         before = dict(build.launch_counts)
         got, got_q = serve_both(eng, users)
         assert_launched(before, ("knn_topk", "blend_topn_rows",
                                  "knn_topk_dtiled", "blend_topn_rows_quant"),
                         "serving the sharded engine")
-        want, want_q = serve_both(single, users)
+        before = dict(build.launch_counts)
         with ops.default_impl("ref"):
             plain, plain_q = serve_both(eng, users)
+        assert build.launch_counts == before, "the plain versions launched"
         for c, exp, what, key, g in (
                 (corpus, want, "single engine", "fp32", got),
                 (corpus, plain, "plain versions", "fp32", got),
@@ -2035,7 +2056,10 @@ def sharded_engine_path(ds, requests, dev, card, single_rate):
         e2.submit(dups)
         e2.run_until_drained()
 
+    before = dict(build.launch_counts)
     r["replay_s"] = timed(replay)
+    assert_launched(before, ("sparse_row_gather", "sparse_row_scatter"),
+                    "replaying into the restored shards")
     assert e2.events_processed == lost, (e2.events_processed, lost)
     assert e2.shards[0].metrics.events_processed == 0
     assert sum(sh.metrics.dedup_skips for sh in e2.shards) == \
@@ -2050,7 +2074,10 @@ def sharded_engine_path(ds, requests, dev, card, single_rate):
     r["reshard_pending"] = e3.n_pending
     assert res.deduped == half and e3.n_pending == len(events) - half, \
         (res, e3.n_pending)
+    before = dict(build.launch_counts)
     r["reshard_drain_s"] = timed(e3.run_until_drained)
+    assert_launched(before, ("sparse_row_gather", "sparse_row_scatter"),
+                    "draining the resharded engine")
     assert e3.events_processed == len(events) - half
     r["differ"].append(sharded_parity(e3, single, "2→3 reshard, drain"))
     del e3, single
@@ -2082,11 +2109,12 @@ def sharded_engine_path(ds, requests, dev, card, single_rate):
     assert all(torch.equal(sh.store.corpus(), c)
                for sh, c in zip(e2.shards, fresh)), "thawed corpora"
     fresh_q = [quantize_int8_rows_pitched(c) for c in fresh]
-    want = (knn.sharded_recommend_for_users(fresh, users, p.k_neighbors,
-                                            p.alpha, TOPN, 2),
-            knn.sharded_recommend_for_users_quant(fresh_q, users,
-                                                  p.k_neighbors, p.alpha,
-                                                  TOPN, 2))
+    want = uncounted(lambda: (
+        knn.sharded_recommend_for_users(fresh, users, p.k_neighbors,
+                                        p.alpha, TOPN, 2),
+        knn.sharded_recommend_for_users_quant(fresh_q, users,
+                                              p.k_neighbors, p.alpha,
+                                              TOPN, 2)))
     for a, b, what in zip(thawed, want, ("fp32", "int8")):
         assert np.array_equal(a, b.cpu().numpy()), f"thawed {what} answer"
     r["thaw_changed_rows"] = [int((a != b).any(axis=1).sum())
@@ -2099,6 +2127,8 @@ def sharded_engine_path(ds, requests, dev, card, single_rate):
                  "blend_topn_rows"):
         assert launches[name] > 0, \
             f"kernel {name} was not launched on the sharded engine's path"
+    # B4 serves one corpus: only the single engine, outside the counts
+    assert launches["blend_topn_onehot"] == 0, launches
     shutil.rmtree(SHARD_CKPT_DIR, ignore_errors=True)
     load_rate = len(events) / r["load_s"]
     log(f"sharded engine at TaFeng's full size (2 shards on one card, "

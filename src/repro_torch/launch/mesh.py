@@ -17,9 +17,9 @@ def make_user_shard_devices(n_shards: int,
                             ) -> List[torch.device]:
     """One device per user shard, dealt round-robin.
 
-    Shard ``s`` gets the first of ``devices[s::n_shards]``; with fewer
-    devices than shards, shards share them (``devices[s % len]``), so on
-    one H100 every shard gets ``cuda:0``.  ``devices`` defaults to every
+    Shard ``s`` gets ``devices[s % len(devices)]``: with at least as many
+    devices as shards each shard has its own, with fewer they share them,
+    so on one H100 every shard gets ``cuda:0``.  ``devices`` defaults to every
     visible CUDA device and raises when there is none: pass
     ``devices=["cpu"]`` to run the shards on the CPU.
     """
@@ -34,5 +34,4 @@ def make_user_shard_devices(n_shards: int,
     devices = [torch.device(d) for d in devices]
     if not devices:
         raise ValueError("devices is empty")
-    return [(devices[s::n_shards] or [devices[s % len(devices)]])[0]
-            for s in range(n_shards)]
+    return [devices[s % len(devices)] for s in range(n_shards)]

@@ -50,7 +50,8 @@ from repro_torch.core import knn, stability
 from repro_torch.core.types import (KIND_ADD_BASKET, KIND_DEL_BASKET,
                                     KIND_DEL_ITEM, PAD_ID, AddBatch,
                                     DelBasketBatch, DelItemBatch,
-                                    StreamState, TifuParams, _pow2_pad)
+                                    StreamState, TifuParams, _dev,
+                                    _pow2_pad)
 from repro_torch.core.updates import (SCALE_CEIL, SCALE_FLOOR,
                                       apply_add_batch_counted,
                                       apply_del_basket_batch,
@@ -542,8 +543,8 @@ class StreamingEngine:
         deli = [ev for ev in events if ev.kind == KIND_DEL_ITEM]
         parts = self._summary_parts()
         if delb or deli:
-            idx = torch.as_tensor([ev.user for ev in delb + deli],
-                                  device=self.store.device)
+            idx = _dev(np.asarray([ev.user for ev in delb + deli],
+                                  np.int64), self.store.device)
             parts["del_nb"] = self.store.state.n_baskets[idx]
         pending = self._fetch(parts) if parts else None
         return events, adds, delb, deli, pending
