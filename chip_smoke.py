@@ -94,18 +94,39 @@ Phases, each fatal on failure (nothing is caught):
    restore and reshard seconds and the replay events/s beside the card's
    name and power limit (commits under ``build/chip_smoke_shard_ckpt/``,
    removed after);
-10. million-item point -- M=256 random rows, Q=32, I=1,048,576, k=16,
+10. compliance -- the same stream, each event with its seqno, through a
+   single engine (micro-batches of 512) with both serving caches warm
+   and one out-of-range deletion quarantined for a victim; then
+   ``forget_user`` on 64 users drawn with a seeded generator from those
+   with a retained history, the longest history among them (counts
+   reset before, read after: B1 and B2 launched), each receipt clean,
+   its deletions the user's ``retained_histories`` length, its seqnos
+   contiguous from the engine's next seqno, the victim's dead letter
+   purged; ``certify`` over the log and the forgets with a checkpoint
+   round trip (counts reset before, read after: B3 and B4 launched at
+   the active-user query count, B5, B6, B7 and B9 not), compliant with
+   its envelope slack <= 0, and its two serving calls (the maintained
+   and the canonical retained-only corpus) held against the plain
+   route on the same rows in query chunks by ``compare_recommendations``
+   (0 mismatches, >= 90% exact); then a 2-shard engine of the same
+   stream: the same users forgotten through the router, 64 new baskets
+   of other users admitted with no dedup, ``certify`` reading both
+   shards' commits.  Logs the receipts' median and maximum latency,
+   the slowest user's deletions, both routes' overlap means and the
+   certify seconds beside the card's name and power limit (commits
+   under ``build/chip_smoke_compliance_ckpt/``, removed after);
+11. million-item point -- M=256 random rows, Q=32, I=1,048,576, k=16,
    bd=1024 (the top point of benchmarks/bench_serving.py::ScaleConfig):
    the D-tiled stage A in both modes against its plain version, then
    ``knn.recommend_for_users_quant`` (counts reset before, read after)
    held against its plain pipeline on the dequantized corpus;
-11. granite-3-2b serving -- the dense LM at its published widths and
+12. granite-3-2b serving -- the dense LM at its published widths and
    depth (40 layers, bf16, weights from a seeded generator): layer 0's
    prefill attention kernel against plain and timed, then 4 prompts of
    4,096 tokens prefilled and 16 greedy decode steps, once with the
    kernels (counts reset before, read after) and once with the plain
    versions; last-position logits compared, greedy tokens reported;
-12. summary -- every kernel's launches, then one JSON line of kernel
+13. summary -- every kernel's launches, then one JSON line of kernel
    records, and last the ``{"ok": true, ...}`` line.
 
 It needs a CUDA card and the rest of the repository; anywhere else it
@@ -129,10 +150,12 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import convert  # noqa: E402
+from repro_torch.compliance import certify, retained_histories  # noqa: E402
 from repro_torch.configs import granite_3_2b  # noqa: E402
 from repro_torch.core import knn  # noqa: E402
 from repro_torch.core.tifu import closed_form_basket_weights  # noqa: E402
-from repro_torch.core.types import KIND_ADD_BASKET  # noqa: E402
+from repro_torch.core.types import (KIND_ADD_BASKET,  # noqa: E402
+                                    KIND_DEL_BASKET)
 from repro_torch.data import stream, synthetic  # noqa: E402
 from repro_torch.kernels import (build, decayed_scatter,  # noqa: E402
                                  flash_attention, knn_topk, ops, ref,
@@ -177,6 +200,10 @@ SCATTER_BIG = (1_100_000, 2_048)
 # git)
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 SHARD_CKPT_DIR = ROOT / "build" / "chip_smoke_shard_ckpt"
+COMPLIANCE_DIR = ROOT / "build" / "chip_smoke_compliance_ckpt"
+# the compliance phase: users forgotten, and the query chunk of the
+# plain route (its [Q, k, I] neighbour gather is 3.7 GB at 256)
+N_FORGET, PLAIN_CHUNK = 64, 256
 # (rows, ids) dtypes the sparse pair reads as given
 INDEX_PAIRS = ((torch.int32, torch.int32), (torch.int64, torch.int32),
                (torch.int32, torch.int64), (torch.int64, torch.int64))
@@ -1006,7 +1033,7 @@ def check_dtiled(corpus, c_int, uid, records):
 
 
 def million_path(dev):
-    """Phase 10, the million-item point: M=256 random rows, Q=32,
+    """Phase 11, the million-item point: M=256 random rows, Q=32,
     I=1,048,576, k=16, bd=1024 (1.07 GB fp32, 268 MB int8).  The D-tiled
     stage A in both modes against its plain version (int8 identical,
     fp32 allclose with equivalent ids), then the int8 serving entry
@@ -2165,6 +2192,249 @@ def sharded_engine_path(ds, requests, dev, card, single_rate):
     return launches, r
 
 
+# ---------------------------------------------------------------------------
+# compliance: forget_user on both engines, certify, the overlap's serving
+# ---------------------------------------------------------------------------
+
+def forget_set(hist, n_users):
+    """N_FORGET users with a non-empty retained history, drawn with a
+    seeded generator, the one with the most retained baskets first."""
+    live = [u for u in range(n_users) if hist[u]]
+    longest = max(live, key=lambda u: len(hist[u]))
+    rng = np.random.default_rng(23)
+    rest = rng.choice([u for u in live if u != longest], size=N_FORGET - 1,
+                      replace=False)
+    return [longest] + [int(u) for u in rest]
+
+
+def forget_all(eng, users, hist, victim):
+    """``forget_user`` on each of ``users`` in turn; each receipt clean,
+    its deletions the user's retained baskets, its seqnos contiguous
+    from the engine's next seqno, the victim's quarantined deletion
+    purged.  Returns the receipts and their deletion events."""
+    receipts, log_tail = [], []
+    for u in users:
+        first = eng._next_seqno
+        rec = eng.forget_user(u)
+        assert rec.clean, (u, rec.residue)
+        assert rec.n_baskets_deleted == len(hist[u]), (u, rec)
+        assert rec.seqnos == tuple(range(first, first + len(hist[u]))), \
+            (u, first, rec.seqnos)
+        if u == victim:
+            assert rec.purged_dead_letters >= 1, rec
+        receipts.append(rec)
+        log_tail += [Event(KIND_DEL_BASKET, u, pos=q)
+                     for q in range(rec.n_baskets_deleted - 1, -1, -1)]
+    return receipts, log_tail
+
+
+def latency_str(receipts) -> str:
+    lat = np.array([r.latency_s for r in receipts])
+    slow = receipts[int(np.argmax(lat))]
+    return (f"forget_user latency median {np.median(lat) * 1e3:.3f} ms, "
+            f"max {lat.max() * 1e3:.3f} ms (user {slow.user}, "
+            f"{slow.n_baskets_deleted} deletions); "
+            f"{sum(r.n_baskets_deleted for r in receipts)} deletions in all")
+
+
+def certified(eng, events, forgotten, directory):
+    """``certify`` with every ``knn.recommend_for_users`` call it makes
+    recorded; returns the report, its seconds and the calls."""
+    calls, live = [], knn.recommend_for_users
+
+    def record(corpus, user_ids, k, alpha, topn, **kw):
+        ids = live(corpus, user_ids, k=k, alpha=alpha, topn=topn, **kw)
+        calls.append(SimpleNamespace(corpus=corpus, users=user_ids, k=k,
+                                     alpha=alpha, topn=topn, ids=ids))
+        return ids
+
+    knn.recommend_for_users = record
+    t0 = time.perf_counter()
+    report = certify(eng, events, forgotten_users=forgotten,
+                     checkpoint_dir=str(directory))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    knn.recommend_for_users = live
+    lines = report.summary().replace("\n", "\n    ")
+    log(f"  certify in {seconds:.3f} s: {lines}")
+    assert report.compliant, report.summary()
+    assert report.envelope_slack <= 0.0, report.envelope_slack
+    assert [c.name for c in report.checks][-1] == "checkpoint-round-trip"
+    return report, seconds, calls
+
+
+def overlap_mean(a, b, topn) -> float:
+    return float(((a[:, :, None] == b[:, None, :]).any(axis=2).sum(axis=1)
+                  / topn).mean())
+
+
+def hold_serving(call, what):
+    """One of certify's serving calls held against the plain route on the
+    same rows (in query chunks of PLAIN_CHUNK): exact or
+    score-equivalent, 0 mismatches, >= 90% exact.  Returns the plain
+    answer."""
+    q_n = call.users.shape[0]
+    before = dict(build.launch_counts)
+    with ops.default_impl("ref"):
+        plain = torch.cat([knn.recommend_for_users(
+            call.corpus, call.users[i:i + PLAIN_CHUNK], k=call.k,
+            alpha=call.alpha, topn=call.topn)
+            for i in range(0, q_n, PLAIN_CHUNK)]).cpu().numpy()
+    assert build.launch_counts == before, "the plain route launched"
+    got = call.ids.cpu().numpy()
+    # B3 and B4 at this query count, outside the counted windows
+    q = call.corpus[call.users]
+    _, nbr = knn_topk.launch(q, call.corpus, call.k, query_gids=call.users)
+    t_a = time_ms(lambda: knn_topk.launch(q, call.corpus, call.k,
+                                          query_gids=call.users), 3)
+    t_b = time_ms(lambda: serving_topn.launch(call.corpus, call.users, nbr,
+                                              call.alpha, call.topn), 3)
+    del q, nbr
+    res: dict = {}
+    for i in range(0, q_n, 2048):
+        part = knn.compare_recommendations(
+            call.corpus, call.users[i:i + 2048].cpu().numpy(),
+            plain[i:i + 2048], got[i:i + 2048], k=call.k, alpha=call.alpha,
+            rtol=1e-5)
+        for key, v in part.items():
+            res[key] = res.get(key, 0) + v
+    log(f"  {what} ({q_n} users, k={call.k}, top {call.topn}): kernels vs "
+        f"plain {res}, {int((got != plain).any(axis=1).sum())} lists "
+        f"differ; stage A (B3) {t_a:.4f} ms, stage B (B4) {t_b:.4f} ms")
+    assert res["mismatch"] == 0, (what, res)
+    assert res["exact"] >= 0.9 * q_n, (what, res)
+    return plain
+
+
+def compliance_path(ds, dev, card):
+    """Phase 10: the compliance layer at TaFeng's full size on the card.
+
+    The mixed stream of phases 8-9, each event with its seqno, through a
+    single engine (micro-batches of 512) with both serving caches warm
+    and one quarantined out-of-range deletion for a victim; ``forget_user``
+    on N_FORGET users (counts reset before, read after: B1, B2);
+    ``certify`` over the log and the forgets with a checkpoint round trip
+    (counts reset before, read after: B3, B4 and no other serving
+    kernel), its two serving calls held against the plain route.  Then a
+    2-shard engine of the same stream: the same users forgotten through
+    the router, 64 new baskets of other users all admitted, ``certify``.
+    Returns the phase's launch counts and readings."""
+    p = ds.params
+    n_users = len(ds.histories)
+    cfg, events = mixed_stream(ds)
+    hist = retained_histories(events, n_users)
+    users = forget_set(hist, n_users)
+    victim = users[1]
+    poison = Event(KIND_DEL_BASKET, victim, pos=len(hist[victim]) + 1)
+    assert poison.pos < cfg.max_baskets
+    shutil.rmtree(COMPLIANCE_DIR, ignore_errors=True)
+    launches = {name: 0 for name in build.launch_counts}
+
+    def counted(fn):
+        build.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(build.launch_counts)
+        for name, n in got.items():
+            launches[name] += n
+        return out, got
+
+    r = {}
+    # 1: the single engine: load, warm caches, quarantine, forget
+    eng = StreamingEngine(StateStore(cfg, device=dev), p, batch_size=512)
+    eng.submit(events)
+    eng.run_until_drained()
+    eng.store.corpus()
+    eng.store.quantized_corpus()
+    eng.submit([poison])
+    eng.run_until_drained()
+    assert any(ev.user == victim for ev, _ in eng.dead_letter)
+    (receipts, tail), got = counted(
+        lambda: forget_all(eng, users, hist, victim))
+    assert got["sparse_row_gather"] > 0 and got["sparse_row_scatter"] > 0, \
+        got
+    assert all({"corpus_absmax", "quant_nonzero"} <= set(x.residue)
+               for x in receipts)
+    r["receipts"] = receipts
+    log(f"compliance at TaFeng's full size ({n_users} users x {p.n_items} "
+        f"items, {len(events)} events; {N_FORGET} users forgotten, the "
+        f"longest history {len(hist[users[0]])} baskets): forgets' "
+        f"launches {got}")
+    log(f"  single engine: {latency_str(receipts)} [{card}]")
+    # 2: certify the single engine, then its serving calls against plain
+    log_all = events + [poison] + tail
+    (report, r["certify_s"], calls), got = counted(
+        lambda: certified(eng, log_all, users, COMPLIANCE_DIR / "single"))
+    assert got["knn_topk"] > 0 and got["blend_topn_onehot"] > 0, got
+    for name in ("knn_topk_dtiled", "blend_topn_rows_quant",
+                 "blend_topn_rows", "flash_attention"):
+        assert got[name] == 0, (name, got)
+    n_active = int(np.sum([bool(h) for h in hist])) - N_FORGET
+    assert len(calls) == 2 and all(c.users.shape[0] == n_active
+                                   for c in calls), \
+        [c.users.shape for c in calls]
+    log(f"  certify's launches {got}; {n_active} active users served in "
+        f"one call a corpus [{card}]")
+    plain = [hold_serving(c, f"certify's {what} serving")
+             for c, what in zip(calls, ("maintained", "canonical"))]
+    topn = calls[0].topn
+    r["overlap"] = (overlap_mean(calls[0].ids.cpu().numpy(),
+                                 calls[1].ids.cpu().numpy(), topn),
+                    overlap_mean(plain[0], plain[1], topn))
+    assert r["overlap"][0] == report.overlap_mean
+    log(f"  top-{topn} overlap maintained vs canonical: kernels "
+        f"{r['overlap'][0]:.6f}, plain {r['overlap'][1]:.6f}; envelope "
+        f"slack {report.envelope_slack:.3e}")
+    del eng, calls, plain
+    torch.cuda.empty_cache()
+    # 3: the 2-shard engine: the same stream, the same forgets through
+    # the router, later traffic, certify
+    t0 = time.perf_counter()
+    sh = ShardedStreamingEngine.create(
+        UserShardSpec(n_users, 2), p, cfg.max_baskets, cfg.max_basket_size,
+        devices=make_user_shard_devices(2), batch_size=512)
+    sh.submit(events)
+    sh.run_until_drained()
+    for s in sh.shards:
+        s.store.corpus()
+        s.store.quantized_corpus()
+    sh.submit([poison])
+    sh.run_until_drained()
+    r["shard_load_s"] = time.perf_counter() - t0
+    (s_receipts, s_tail), got = counted(
+        lambda: forget_all(sh, users, hist, victim))
+    assert got["sparse_row_gather"] > 0 and got["sparse_row_scatter"] > 0, \
+        got
+    r["shard_receipts"] = s_receipts
+    log(f"  2 shards: {latency_str(s_receipts)}; forgets' launches {got} "
+        f"[{card}]")
+    keep = sorted(set(range(n_users)) - set(users))
+    rng = np.random.default_rng(29)
+    more = [Event(KIND_ADD_BASKET, int(u), items=rng.choice(
+        p.n_items, size=int(rng.integers(1, 6)), replace=False))
+        for u in rng.choice(keep, size=64, replace=False)]
+    res = sh.submit(more)
+    assert res.admitted == 64 and res.deduped == 0, res
+    sh.run_until_drained()
+    (s_report, r["shard_certify_s"], calls), got = counted(
+        lambda: certified(sh, events + [poison] + s_tail + more, users,
+                          COMPLIANCE_DIR / "sharded"))
+    assert got["knn_topk"] > 0 and got["blend_topn_onehot"] > 0, got
+    assert len(calls) == 2
+    for s in range(2):
+        assert (COMPLIANCE_DIR / "sharded" / f"shard_{s:03d}"
+                / "LATEST").exists()
+    log(f"  2 shards: certify's launches {got}; 64 later baskets admitted "
+        f"({res}); top-{topn} overlap {s_report.overlap_mean:.6f}")
+    del sh, calls
+    torch.cuda.empty_cache()
+    shutil.rmtree(COMPLIANCE_DIR, ignore_errors=True)
+    log(f"  certify: single engine {r['certify_s']:.3f} s, 2 shards "
+        f"{r['shard_certify_s']:.3f} s (each with a commit and its read); "
+        f"the 2-shard load {r['shard_load_s']:.3f} s [{card}]")
+    return launches, r
+
+
 BF16, F32 = torch.bfloat16, torch.float32
 # flash_attention.plan_flash's designs
 WGMMA, MMA, CORES = "tma_wgmma", "mma_sync", "cuda_cores"
@@ -2268,7 +2538,7 @@ def attention_flops(b, s, h, d):
 
 
 def granite_path(dev, records):
-    """Phase 11: granite-3-2b at full width and depth serving 4 prompts of
+    """Phase 12: granite-3-2b at full width and depth serving 4 prompts of
     4,096 tokens and 16 greedy decode steps, once with the kernels
     (counts reset before, read after) and once with the plain versions;
     layer 0's prefill attention checked kernel against plain and timed."""
@@ -2569,6 +2839,10 @@ def main() -> int:
     paths.append(sharded_engine_path(ds, requests, dev, card,
                                      single_rate)[0])
     log(f"sharded engine: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths.append(compliance_path(ds, dev, card)[0])
+    log(f"compliance: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     records["knn_topk_dtiled"]["million"], million = million_path(dev)

@@ -1,22 +1,105 @@
-"""From-scratch TIFU-kNN vectors on padded tensors (paper §2.2), batched.
+"""From-scratch TIFU-kNN user vectors (paper §2.2).
 
-The refresh path of the stability tracker: a user vector is one weighted
-multi-hot scatter of the padded history with the closed-form per-basket
-weight
+Two implementations, as in the JAX package:
 
-    w(basket at in-group position p of group j) =
-        r_b^(tau_j - p) / tau_j * r_g^(k - j) / k .
+* ragged numpy (``user_vector_ragged``), float64 on the host — mirrors
+  the paper text step by step (multi-hot → group vectors → user
+  vector); the oracle of the compliance certificate;
 
-Every function takes a leading user dimension (the JAX package vmaps a
-per-user version).
+* padded torch (``user_vector_padded`` and friends), batched — the
+  refresh path of the stability tracker: a user vector is one weighted
+  multi-hot scatter of the padded history with the closed-form
+  per-basket weight
+
+      w(basket at in-group position p of group j) =
+          r_b^(tau_j - p) / tau_j * r_g^(k - j) / k .
+
+  Every padded function takes a leading user dimension (the JAX package
+  vmaps a per-user version).
 """
 from __future__ import annotations
 
+from typing import List, Sequence
+
+import numpy as np
 import torch
 
 from repro_torch.core.decay import f32, fpow
 from repro_torch.core.types import TifuParams
 
+
+# ---------------------------------------------------------------------------
+# Ragged numpy oracles (float64, host)
+# ---------------------------------------------------------------------------
+
+def multi_hot(basket: np.ndarray, n_items: int,
+              dtype=np.float64) -> np.ndarray:
+    """Multi-hot encode one basket (set of item ids) into a |I| vector."""
+    v = np.zeros(n_items, dtype=dtype)
+    ids = np.asarray(basket, dtype=np.int64)
+    ids = ids[ids >= 0]
+    v[ids] = 1.0
+    return v
+
+
+def default_group_sizes(n_baskets: int, m: int) -> List[int]:
+    """Initial (fixed-size) grouping: ceil(n/m) groups.
+
+    Groups of length m, the last one holding the remainder; each group
+    of size tau is averaged over its own tau baskets (the
+    varying-group-size relaxation of the paper's §4.3).
+    """
+    if n_baskets == 0:
+        return []
+    k = int(np.ceil(n_baskets / m))
+    sizes = [m] * (k - 1)
+    sizes.append(n_baskets - m * (k - 1))
+    return sizes
+
+
+def group_vector_ragged(baskets: Sequence[np.ndarray], n_items: int,
+                        r_b: float, dtype=np.float64) -> np.ndarray:
+    """Eq. 1: time-decayed average of the multi-hot basket vectors."""
+    tau = len(baskets)
+    v = np.zeros(n_items, dtype=dtype)
+    for p, b in enumerate(baskets, start=1):
+        v += (r_b ** (tau - p)) * multi_hot(b, n_items, dtype)
+    return v / tau
+
+
+def user_vector_ragged(history: Sequence[np.ndarray],
+                       group_sizes: Sequence[int], params: TifuParams,
+                       dtype=np.float64) -> np.ndarray:
+    """Eq. 2: decayed average of group vectors. The from-scratch oracle."""
+    if len(history) == 0:
+        return np.zeros(params.n_items, dtype=dtype)
+    assert sum(group_sizes) == len(history), (group_sizes, len(history))
+    k = len(group_sizes)
+    v_u = np.zeros(params.n_items, dtype=dtype)
+    start = 0
+    for j, tau in enumerate(group_sizes, start=1):
+        v_g = group_vector_ragged(history[start:start + tau],
+                                  params.n_items, params.r_b, dtype)
+        v_u += (params.r_g ** (k - j)) * v_g
+        start += tau
+    return v_u / k
+
+
+def group_vectors_ragged(history: Sequence[np.ndarray],
+                         group_sizes: Sequence[int], params: TifuParams,
+                         dtype=np.float64) -> List[np.ndarray]:
+    """All group vectors (needed by decremental scenario 2)."""
+    out, start = [], 0
+    for tau in group_sizes:
+        out.append(group_vector_ragged(history[start:start + tau],
+                                       params.n_items, params.r_b, dtype))
+        start += tau
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Padded torch path
+# ---------------------------------------------------------------------------
 
 def row_group_geometry(sizes: torch.Tensor, n_rows: int):
     """Per history row t: group index g, 1-based in-group position p and

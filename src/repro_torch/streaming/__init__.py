@@ -2,7 +2,8 @@
 from repro_torch.streaming import faults
 from repro_torch.streaming.async_checkpoint import AsyncCheckpointer
 from repro_torch.streaming.engine import (AdmissionResult, Backpressure,
-                                          Event, InvalidEventError,
+                                          Event, ForgetReceipt,
+                                          InvalidEventError,
                                           ShardedStreamingEngine,
                                           StreamingEngine)
 from repro_torch.streaming.state_store import (CorruptCheckpointError,
@@ -12,7 +13,7 @@ from repro_torch.streaming.state_store import (CorruptCheckpointError,
                                                with_io_retries)
 
 __all__ = ["faults", "AsyncCheckpointer", "AdmissionResult", "Backpressure",
-           "Event", "InvalidEventError", "ShardedStreamingEngine",
-           "StreamingEngine",
+           "Event", "ForgetReceipt", "InvalidEventError",
+           "ShardedStreamingEngine", "StreamingEngine",
            "CorruptCheckpointError", "StateStore", "StoreConfig",
            "load_checkpoint_arrays", "load_json_checked", "with_io_retries"]

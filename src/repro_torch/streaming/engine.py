@@ -1,5 +1,6 @@
-"""Micro-batch streaming engine — Algorithm 1 of the paper — and its
-user-axis sharded deployment.
+"""Micro-batch streaming engine (Algorithm 1 of the paper), and its shards.
+
+The engine and its user-axis sharded deployment:
 
   * Incoming events (basket additions, basket/item deletions) are
     buffered in per-user queues and cut into micro-batches of at most
@@ -24,6 +25,10 @@ user-axis sharded deployment.
     package, after which an at-least-once replay with the original
     seqnos converges to the fault-free state.  ``freeze_serving`` keeps
     ``recommend`` answering from a pinned snapshot meanwhile.
+  * ``forget_user`` (the GDPR front door) deletes a user's baskets
+    through the exactly-once path, zeroes their rows in the state and
+    the serving caches, purges their dead letters and returns a
+    ``ForgetReceipt`` with the measured residue.
   * ``ShardedStreamingEngine`` routes events by user to independent
     engines, one per shard, runs their step phases in three passes so
     no shard's wait holds back another's dispatch, and checkpoints,
@@ -157,6 +162,33 @@ class Event:
     seqno: int = -1
 
 
+@dataclasses.dataclass(frozen=True)
+class ForgetReceipt:
+    """Receipt of one ``forget_user`` call (the GDPR front door).
+
+    ``seqnos`` are the deletion events emitted on the user's behalf (the
+    audit trail tying the forget to the exactly-once log),
+    ``purged_dead_letters`` the quarantined events of theirs that were
+    dropped, ``latency_s`` the host-clock seconds of the whole call, and
+    ``residue`` the post-scrub :meth:`StateStore.row_residue`
+    measurement -- ``clean`` is True iff every artifact reads zero.  The
+    full certificate is ``repro_torch.compliance.certify`` over the
+    event log.
+    """
+
+    user: int
+    n_baskets_deleted: int
+    seqnos: tuple
+    purged_dead_letters: int
+    latency_s: float
+    residue: dict
+
+    @property
+    def clean(self) -> bool:
+        """True iff no live artifact still holds the user's data."""
+        return all(v == 0.0 for v in self.residue.values())
+
+
 @dataclasses.dataclass
 class EngineMetrics:
     """Counters one engine accumulates (observability only)."""
@@ -213,6 +245,33 @@ class _HostFetch:
             out[name] = host[at:at + n]
             at += n
         return out
+
+
+def _delete_baskets(eng, user: int, nb: int) -> tuple:
+    """Submit ``nb`` basket deletions for ``user`` and drain.
+
+    Through ``eng``'s ``submit`` (a single engine or the router), last
+    position first so every position stays valid; returns their seqnos.
+    """
+    first = eng._next_seqno
+    if nb:
+        eng.submit([Event(KIND_DEL_BASKET, user, pos=p)
+                    for p in range(nb - 1, -1, -1)])
+        eng.run_until_drained()
+    return tuple(range(first, first + nb))
+
+
+def _purge_user(dead_letter: deque, user: int) -> int:
+    """Drop ``user``'s entries from a dead-letter queue; returns how many.
+
+    In place: the queue keeps its ``maxlen``.
+    """
+    kept = [(ev, why) for ev, why in dead_letter if ev.user != user]
+    purged = len(dead_letter) - len(kept)
+    if purged:
+        dead_letter.clear()
+        dead_letter.extend(kept)
+    return purged
 
 
 class StreamingEngine:
@@ -362,6 +421,72 @@ class StreamingEngine:
             raise Backpressure(res.admitted, res.rejected,
                                res.first_rejected_seqno, self._n_pending)
         return res
+
+    def add_basket(self, user: int, items: Sequence[int]) -> None:
+        """Enqueue one basket addition (Eq. 7–9) for ``user``."""
+        self.submit([Event(KIND_ADD_BASKET, user,
+                           items=np.asarray(items, np.int32))])
+
+    def delete_basket(self, user: int, pos: int) -> None:
+        """Enqueue the deletion of basket ``pos`` (Eq. 10–12)."""
+        self.submit([Event(KIND_DEL_BASKET, user, pos=pos)])
+
+    def delete_item(self, user: int, pos: int, item: int) -> None:
+        """Enqueue the deletion of ``item`` from basket ``pos`` (Eq. 13)."""
+        self.submit([Event(KIND_DEL_ITEM, user, pos=pos, item=item)])
+
+    # -- unlearning front door ----------------------------------------------
+
+    def forget_user(self, user: int) -> ForgetReceipt:
+        """Erase ``user``'s entire history and every live trace of it.
+
+        Drains the pending queues (so the user's in-flight events land
+        first), emits one ``KIND_DEL_BASKET`` per remaining basket --
+        last position first -- through the normal exactly-once
+        :meth:`submit`, then zeroes the row exactly, caches included
+        (:meth:`_scrub_user`), and purges the user's dead letters
+        (quarantined events carry payloads).  Synchronous: returns once
+        the state is clean, with a :class:`ForgetReceipt` tying the
+        emitted seqnos to the measured residue.  Cost: the user's
+        O(n_baskets) deletion events plus one O(n_items) row scrub.
+        Idempotent.  An out-of-range user raises
+        :class:`InvalidEventError` (before any device read).
+        """
+        n_users = self.store.cfg.n_users
+        if not 0 <= user < n_users:
+            raise InvalidEventError(
+                Event(KIND_DEL_BASKET, user),
+                f"user {user} outside [0, {n_users})")
+        t0 = time.perf_counter()
+        self.run_until_drained()
+        # one scalar read on the device, not the whole O(n_users) leaf
+        nb = int(self.store.state.n_baskets[user])
+        seqnos = _delete_baskets(self, user, nb)
+        self._scrub_user(user)
+        purged = self._purge_dead_letters(user)
+        return ForgetReceipt(
+            user=user, n_baskets_deleted=nb, seqnos=seqnos,
+            purged_dead_letters=purged,
+            latency_s=time.perf_counter() - t0,
+            residue=self.store.row_residue([user]))
+
+    def _scrub_user(self, user: int) -> None:
+        """Zero a forgotten user's row exactly, caches included.
+
+        Earlier item deletes can leave f32 dust at cells outside the
+        final support; ``refresh_users`` on the now-empty history
+        recomputes the row from the integer leaves alone (exact zeros,
+        scales 1), and ``scrub_rows`` pushes the zeros into whichever
+        serving caches exist.
+        """
+        refresh_users(self.store.state,
+                      torch.tensor([user], device=self.store.device),
+                      self.params)
+        self.store.scrub_rows([user])
+
+    def _purge_dead_letters(self, user: int) -> int:
+        """Drop the user's quarantined events (they carry payloads)."""
+        return _purge_user(self.dead_letter, user)
 
     # -- micro-batch processing ---------------------------------------------
 
@@ -949,6 +1074,40 @@ class ShardedStreamingEngine:
     def delete_item(self, user: int, pos: int, item: int) -> None:
         """Enqueue the deletion of ``item`` from basket ``pos`` (Eq. 13)."""
         self.submit([Event(KIND_DEL_ITEM, user, pos=pos, item=item)])
+
+    # -- unlearning front door ----------------------------------------------
+
+    def forget_user(self, user: int) -> ForgetReceipt:
+        """Erase global ``user``'s history and every live trace of it.
+
+        Same contract as :meth:`StreamingEngine.forget_user`, with the
+        deletion events submitted THROUGH THE ROUTER: the router owns the
+        global seqno counter, and a shard-local submit would assign
+        seqnos that collide with later router-assigned ones -- silently
+        deduping later legitimate traffic.  Scrubs at the owner shard
+        and purges both the router's dead letters (global ids) and the
+        shard's (local rows).  An out-of-range user raises
+        :class:`InvalidEventError`.
+        """
+        if not 0 <= user < self.spec.n_users:
+            raise InvalidEventError(
+                Event(KIND_DEL_BASKET, user),
+                f"user {user} outside the deployment's "
+                f"[0, {self.spec.n_users}) global range")
+        t0 = time.perf_counter()
+        self.run_until_drained()
+        sh = self.shards[self.spec.shard_of(user)]
+        local = int(self.spec.local_row(user))
+        nb = int(sh.store.state.n_baskets[local])
+        seqnos = _delete_baskets(self, user, nb)
+        sh._scrub_user(local)
+        purged = (sh._purge_dead_letters(local)
+                  + _purge_user(self.dead_letter, user))
+        return ForgetReceipt(
+            user=user, n_baskets_deleted=nb, seqnos=seqnos,
+            purged_dead_letters=purged,
+            latency_s=time.perf_counter() - t0,
+            residue=sh.store.row_residue([local]))
 
     # -- micro-batch processing ---------------------------------------------
 

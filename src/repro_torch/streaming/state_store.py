@@ -28,8 +28,8 @@ import os
 import time
 import zipfile
 import zlib
-from typing import (TYPE_CHECKING, Any, Callable, Dict, Optional, Set,
-                    Tuple)
+from typing import (TYPE_CHECKING, Any, Callable, Dict, Optional,
+                    Sequence, Set, Tuple)
 
 import numpy as np
 import torch
@@ -470,6 +470,73 @@ class StateStore:
             _requantize_rows(*self._corpus_q, corpus, rows)
         self._q_dirty.clear()
         return self._corpus_q
+
+    # -- unlearning surface -------------------------------------------------
+
+    def scrub_rows(self, users: Sequence[int]) -> None:
+        """Force the serving caches to drop residue for ``users`` now.
+
+        The unlearning path: after the engine zeroes a forgotten user's
+        state rows, the fp32/int8 cache rows still hold the
+        pre-deletion values until the next natural refresh.  This marks
+        the rows dirty and refreshes whichever caches exist, so the
+        forgotten values are gone from every live serving buffer when
+        the call returns.  A frozen snapshot is NOT touched -- it is the
+        fp32 cache tensor itself, so nothing is refreshed while frozen,
+        and the forget shows up as residue in :meth:`row_residue` until
+        :meth:`thaw_serving` (the honest answer: the pinned snapshot
+        still serves the old values).  Cost: one O(|users| · n_items)
+        row refresh per existing cache.
+        """
+        rows = np.asarray(list(users), np.int64)
+        if rows.size == 0:
+            return
+        self.invalidate_users(rows)
+        if self._frozen_corpus is not None:
+            return
+        if self._corpus_q is not None:
+            self.quantized_corpus()   # refreshes the fp32 cache first
+        elif self._corpus is not None:
+            self.corpus()
+
+    def row_residue(self, users: Sequence[int]) -> Dict[str, float]:
+        """Residue of ``users``' rows in every live artifact, by name.
+
+        Max-abs (or count) values over the given rows for the state
+        leaves, the fp32/int8 serving caches and any frozen snapshot --
+        cache/snapshot keys appear only when that artifact exists (the
+        int8 count over the ``[:, :I]`` view, not the pitch).  A fully
+        forgotten user reports 0.0 everywhere: the machine-checkable
+        no-trace predicate behind ``compliance.certify`` and
+        ``forget_user`` receipts.  The rows are indexed and reduced on
+        the store's device, then copied to the host once.  No cache
+        refresh.
+        """
+        rows = torch.as_tensor(np.asarray(list(users), np.int64),
+                               device=self.device)
+        st = self.state
+        zero = torch.zeros((), dtype=torch.float64, device=self.device)
+
+        def absmax(t: torch.Tensor) -> torch.Tensor:
+            r = t[rows]
+            return r.abs().max().double() if r.numel() else zero
+
+        parts = {
+            "user_vec_absmax": absmax(st.user_vecs),
+            "last_group_absmax": absmax(st.last_group_vecs),
+            "history_ids": (st.history[rows] >= 0).sum().double(),
+            "n_baskets": st.n_baskets[rows].sum().double(),
+            "n_groups": st.n_groups[rows].sum().double(),
+        }
+        if self._corpus is not None:
+            parts["corpus_absmax"] = absmax(self._corpus)
+        if self._corpus_q is not None:
+            parts["quant_nonzero"] = (self._corpus_q[0][rows] != 0) \
+                .sum().double()
+        if self._frozen_corpus is not None:
+            parts["frozen_absmax"] = absmax(self._frozen_corpus)
+        host = torch.stack(list(parts.values())).cpu().numpy()
+        return {name: float(v) for name, v in zip(parts, host)}
 
     # -- persistence (exactly-once recovery substrate) ----------------------
 
