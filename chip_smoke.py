@@ -126,7 +126,23 @@ Phases, each fatal on failure (nothing is caught):
    4,096 tokens prefilled and 16 greedy decode steps, once with the
    kernels (counts reset before, read after) and once with the plain
    versions; last-position logits compared, greedy tokens reported;
-13. summary -- every kernel's launches, then one JSON line of kernel
+13. recommender serving -- two-tower, BERT4Rec, DeepFM and DLRM at their
+   published widths (weights from a seeded generator): first the four
+   ``smoke_config()`` models on the card against the CPU, and B3 (dot)
+   against its plain version at D = 64, 80 and 256, Q = 1 and 64,
+   200,000 rows; then two-tower's ``serve_step`` at 512 and 262,144
+   pairs, its index build (``item_tower`` over 1,000,000 items) and
+   ``retrieval_step`` (1 query against them, top 100, B3); BERT4Rec's
+   ``serve_step`` at 512 and 262,144 users (top 20) and
+   ``retrieval_step`` against 1,000,000 candidates (B3); DeepFM's and
+   DLRM's ``serve_step`` at 512 and 262,144 (DLRM's vocabularies capped
+   at 2^24 rows: 45 GB of the 89.5 GiB of tables); the retrieval
+   example's 64 queries against 200,000 candidates (B3).  Every serving
+   call counted (only the three retrievals launch, B3 once each), timed
+   on the host clock with its peak memory; B3 held to its plain version
+   by the parity rule and timed beside it, matmul + ``topk`` and its
+   bound;
+14. summary -- every kernel's launches, then one JSON line of kernel
    records, and last the ``{"ok": true, ...}`` line.
 
 It needs a CUDA card and the rest of the repository; anywhere else it
@@ -134,7 +150,9 @@ exits non-zero without printing a result.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
+import importlib.util
 import json
 import shutil
 import subprocess
@@ -151,7 +169,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.compliance import certify, retained_histories  # noqa: E402
-from repro_torch.configs import granite_3_2b  # noqa: E402
+from repro_torch.configs import (bert4rec_cfg, deepfm_cfg,  # noqa: E402
+                                 dlrm_mlperf, granite_3_2b, recsys_shapes,
+                                 two_tower_retrieval)
 from repro_torch.core import knn  # noqa: E402
 from repro_torch.core.tifu import closed_form_basket_weights  # noqa: E402
 from repro_torch.core.types import (KIND_ADD_BASKET,  # noqa: E402
@@ -161,7 +181,8 @@ from repro_torch.kernels import (build, decayed_scatter,  # noqa: E402
                                  flash_attention, knn_topk, ops, ref,
                                  serving_topn, sparse_row_gather,
                                  sparse_row_scatter)
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import (bert4rec, deepfm, dlrm,  # noqa: E402
+                                transformer, two_tower)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.mesh import make_user_shard_devices  # noqa: E402
 from repro_torch.optim.compression import (  # noqa: E402
@@ -204,6 +225,13 @@ COMPLIANCE_DIR = ROOT / "build" / "chip_smoke_compliance_ckpt"
 # the compliance phase: users forgotten, and the query chunk of the
 # plain route (its [Q, k, I] neighbour gather is 3.7 GB at 256)
 N_FORGET, PLAIN_CHUNK = 64, 256
+# recommender serving: the Criteo-1TB tables are 89.5 GiB of fp32, so
+# each vocabulary is capped at 2^24 rows (5 of the 26 tables; 45 GB
+# left); the retrieval_cand top n and BERT4Rec's serving top n
+DLRM_VOCAB_CAP = 1 << 24
+RETRIEVAL_TOP_N, BERT_TOP_N = 100, 20
+# B3 at the recommender shapes: values within this of the plain version
+RS_RTOL, RS_ATOL = 1e-5, 1e-6
 # (rows, ids) dtypes the sparse pair reads as given
 INDEX_PAIRS = ((torch.int32, torch.int32), (torch.int64, torch.int32),
                (torch.int32, torch.int64), (torch.int64, torch.int64))
@@ -654,36 +682,59 @@ def check_stage_a(corpus, c_int, uid, records):
         "stage A sub_qnorm integer case"
     log(f"  stage A k=300 sub_qnorm (shard 1 of 2): max |err| {err}, "
         f"integer ties exact")
-    m, d = corpus.shape
-    cn = ref.corpus_sqnorm(corpus)
     rec = records["knn_topk"]
     rec["sub_qnorm_ms"] = time_ms(lambda: knn_topk.launch(q, corpus, 300,
                                                           **kw))
+    rec.update(b3_timed(q, corpus, 300, "stage A", query_gids=uid))
+    log(f"  stage A with sub_qnorm {rec['sub_qnorm_ms']:.4f} ms")
+
+
+def b3_timed(q, c, k, what, metric="euclidean", query_gids=None) -> dict:
+    """B3 at one shape: CUDA events around the launch, its plain version
+    and matmul + ``torch.topk``; the profiler's device time per call
+    (each call launches the tile and the merge kernel, so a trace that
+    dropped records is scaled by the records it holds); the bound and
+    the plan.  Logged, and returned as the summary's record."""
+    q_n, d = q.shape
+    m = c.shape[0]
+    kw = dict(metric=metric, query_gids=query_gids)
 
     def call():
-        return knn_topk.launch(q, corpus, 300, query_gids=uid)
-    rec.update(
-        ms=time_ms(call),
-        plain_ms=time_ms(lambda: ref.knn_topk_ref(q, corpus, 300,
-                                                  query_gids=uid)),
-        library_ms=time_ms(lambda: torch.topk(2.0 * (q @ corpus.T)
-                                              - cn[None, :], 300)),
-        shape=f"Q={Q} M={m} D={d} k=300",
-        # q, c and the query gids read, [Q, k] values and ids written; the
-        # q.c products and the |c|^2 sums
-        bound=bound((Q * d + m * d + Q) * 4 + Q * 300 * 8,
-                    2.0 * Q * m * d + 2.0 * m * d))
-    own, every, _ = device_ms(call, ("knn_tile_kernel",
-                                      "merge_lists_kernel"))
-    pl = knn_topk.plan_knn(Q, m, 300, torch.cuda.get_device_properties(
-        corpus.device).multi_processor_count)
-    log(f"  stage A timed: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, "
-        f"matmul + topk {rec['library_ms']:.4f}); with sub_qnorm "
-        f"{rec['sub_qnorm_ms']:.4f} ms; plan {pl.bq} queries x "
-        f"{pl.stages} stages, {-(-Q // pl.bq)} query tiles x "
-        f"{pl.n_slices} slices of {pl.rows} rows; device time per call "
-        f"(torch.profiler) {own:.4f} ms in its own kernels, {every:.4f} "
-        f"ms in all kernels of the call")
+        return knn_topk.launch(q, c, k, **kw)
+    if metric == "dot":
+        def library():
+            return torch.topk(q @ c.T, k)
+        n_ops = 2.0 * q_n * m * d                 # the q.c products
+    else:
+        cn = ref.corpus_sqnorm(c)
+
+        def library():
+            return torch.topk(2.0 * (q @ c.T) - cn[None, :], k)
+        n_ops = 2.0 * q_n * m * d + 2.0 * m * d   # and the |c|^2 sums
+    n_gids = 0 if query_gids is None else q_n
+    r = dict(ms=time_ms(call),
+             plain_ms=time_ms(lambda: ref.knn_topk_ref(q, c, k, **kw)),
+             library_ms=time_ms(library),
+             shape=f"Q={q_n} M={m} D={d} k={k} {metric}",
+             # q, c and the query gids read once, [Q, k] values and ids
+             # written
+             bound=bound((q_n * d + m * d + n_gids) * 4 + q_n * k * 8,
+                         n_ops))
+    reps = 5
+    own, every, n_rec = device_ms(call, ("knn_tile_kernel",
+                                         "merge_lists_kernel"), reps)
+    r["device_ms"] = own * 2 * reps / n_rec
+    pl = knn_topk.plan_knn(q_n, m, k, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    log(f"  B3 {what} {r['shape']}: {r['ms']:.4f} ms (profiler "
+        f"{r['device_ms']:.4f} a call in its kernels, by the {n_rec} of "
+        f"{2 * reps} records the trace holds; {every:.4f} in all kernels "
+        f"the trace holds), plain {r['plain_ms']:.4f}, matmul + topk "
+        f"{r['library_ms']:.4f}, bound {r['bound'][0]:.4f} "
+        f"({r['bound'][1]}); plan {pl.bq} queries x {pl.stages} stages, "
+        f"{-(-q_n // pl.bq)} query tiles x {pl.n_slices} slices of "
+        f"{pl.rows} rows")
+    return r
 
 
 def blend_case(corpus, uid, nbr, n, what, one_pass=False):
@@ -832,13 +883,14 @@ def device_ms(fn, names, reps: int = 5) -> tuple:
     warm-up: (the kernels whose names contain one of ``names``, every
     kernel the call launched, how many records of the named kernels the
     trace holds -- a trace can miss one, and then these times read
-    short; one that holds none of them is taken again, up to 3 times)."""
+    short; one that holds none of them is logged with the kernels it did
+    hold and taken again, up to 6 times)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     own = 0.0
-    for _ in range(3):
+    for _ in range(6):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -846,17 +898,21 @@ def device_ms(fn, names, reps: int = 5) -> tuple:
             torch.cuda.synchronize()
         own = every = 0.0
         records = 0
+        seen = []
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA:   # kernels, not ops
                 continue
             us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0))
             every += us
+            seen.append(f"{e.key[:40]} x{e.count}")
             if any(n in e.key for n in names):
                 own += us
                 records += e.count
         if own > 0:
             break
+        log(f"  profiler: no record of {names} in a trace of {len(seen)} "
+            f"kernels {seen[:4]}; taken again")
     assert own > 0, f"no device time for {names}"
     return own / reps / 1e3, every / reps / 1e3, records
 
@@ -2727,6 +2783,281 @@ def profile_serving(model, tokens, max_len):
                 f"{ms:.1f} ms x{n} {name[:60]}" for ms, n, name in rows[:6]))
 
 
+# ---------------------------------------------------------------------------
+# recommender serving: two-tower, BERT4Rec, DeepFM and DLRM at their
+# published widths, retrieval through B3 (dot)
+# ---------------------------------------------------------------------------
+
+def hold_topk(q, c, got, want, what) -> None:
+    """B3's (values, ids) against its plain version's on the same card:
+    values within ``RS_RTOL``/``RS_ATOL``, and each query's ids by the
+    parity rule -- identical, or score-equivalent (the float64 scores of
+    both lists agree rank by rank within ``RS_RTOL`` and the ids are
+    distinct); 0 mismatches and >= 90% identical.  Logs the counts and
+    the largest value difference."""
+    (vk, ik), (vp, ip) = got, want
+    err = float((vk - vp).abs().max())
+    assert torch.allclose(vk, vp, rtol=RS_RTOL, atol=RS_ATOL), (what, err)
+    s = q.double() @ c.double().T
+    sk, sp = s.gather(1, ik.long()), s.gather(1, ip.long())
+    close = (sk - sp).abs() <= RS_RTOL * torch.maximum(sk.abs(), sp.abs())
+    distinct = torch.tensor([len(set(r)) == ik.shape[1]
+                             for r in ik.tolist()], device=q.device)
+    same = torch.all(ik == ip, dim=1)
+    equiv = ~same & torch.all(close, dim=1) & distinct
+    out = dict(identical=int(same.sum()), equivalent=int(equiv.sum()),
+               mismatch=int((~(same | equiv)).sum()), max_abs_err=err)
+    assert out["mismatch"] == 0 and out["identical"] >= 0.9 * q.shape[0], \
+        (what, out)
+    assert int(ik.min()) >= 0 and int(ik.max()) < c.shape[0], what
+    log(f"  {what}: {out}")
+
+
+def counted(fn, tally):
+    """``fn()`` with the launch counts set to 0 just before and added to
+    ``tally`` just after."""
+    build.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    for name, n in build.launch_counts.items():
+        tally[name] = tally.get(name, 0) + n
+    return out
+
+
+def serve_timed(fn, tally, reps: int = 3):
+    """Latency of one serving call on the host clock (ended by
+    ``torch.cuda.synchronize``): the first call (counted in ``tally``)
+    and the median of ``reps`` more (the first alone for ``reps=0``),
+    with the peak device memory over them.  Returns (output, first s,
+    median s, peak bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = counted(fn, tally)
+    first = time.perf_counter() - t0
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, first, float(np.median(times or [first])), \
+        torch.cuda.max_memory_allocated()
+
+
+def model_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def log_serving(what, n, first, median, peak, params, reps=3):
+    how = (f"median of {reps}; first call {first * 1e3:.3f}" if reps
+           else "one call")
+    log(f"  {what} B={n}: {median * 1e3:.3f} ms ({how}), "
+        f"{n / median:.0f} rows/s, peak {peak / 1e9:.2f} GB "
+        f"({params / 1e9:.2f} GB of parameters)")
+
+
+def smoke_parity(dev):
+    """Each model at its ``smoke_config()`` on the card against the same
+    weights and batch on the CPU (the plain path the CPU tests hold to
+    the JAX package): rtol=1e-5, atol=1e-5."""
+    for name, mod, cfg, make in (
+            ("two-tower", two_tower, two_tower_retrieval,
+             recsys_shapes.two_tower_batch),
+            ("DLRM", dlrm, dlrm_mlperf, recsys_shapes.dlrm_batch),
+            ("DeepFM", deepfm, deepfm_cfg, recsys_shapes.deepfm_batch),
+            ("BERT4Rec", bert4rec, bert4rec_cfg,
+             recsys_shapes.bert4rec_batch)):
+        c = cfg.smoke_config()
+        gen = torch.Generator().manual_seed(8)
+        cpu = mod.init_params(c, gen, "cpu")
+        batch = make(c, 64, gen)
+        card = copy.deepcopy(cpu).to(dev)
+        want = mod.serve_step(cpu, batch, c)
+        got = mod.serve_step(card, {k: v.to(dev) for k, v in batch.items()},
+                             c)
+        if isinstance(want, tuple):              # BERT4Rec's top n
+            # the card's ids score (on the CPU) what the CPU's list holds
+            x = bert4rec.encoder(cpu, batch["ids"], c)[:, -1, :]
+            full = x @ cpu.item_emb.T + cpu.out_bias
+            assert torch.allclose(full.gather(1, got[1].cpu().long()),
+                                  want[0], rtol=1e-5, atol=1e-5), name
+            got, want = got[0], want[0]
+        assert torch.allclose(got.cpu(), want, rtol=1e-5, atol=1e-5), \
+            (name, float((got.cpu() - want).abs().max()))
+    log("  smoke configs on the card against the CPU: all four serve_steps "
+        "allclose (rtol=1e-5, atol=1e-5)")
+
+
+def check_b3_widths(dev, gen):
+    """B3 (dot) against its plain version at the recommender widths and
+    one that is no multiple of the kernel's 32-float chunk, 200,000 unit
+    rows, Q of 1 and 64, k=100."""
+    for d in (64, 80, 256):
+        c = recsys_shapes.unit_rows(gen, 200_000, d)
+        for q_n in (1, 64):
+            q = recsys_shapes.unit_rows(gen, q_n, d)
+            got = knn_topk.launch(q, c, RETRIEVAL_TOP_N, metric="dot")
+            want = ref.knn_topk_ref(q, c, RETRIEVAL_TOP_N, metric="dot")
+            hold_topk(q, c, got, want, f"B3 dot D={d} Q={q_n} M=200000 "
+                                       f"k=100")
+
+
+def recsys_path(dev, card):
+    """Phase 13: the recommender models at their published widths with
+    seeded weights.  Two-tower (``TwoTowerConfig()``): ``serve_step`` at
+    512 and 262,144 pairs, the index build (``item_tower`` over
+    1,000,000 items) and ``retrieval_step`` (1 query against them, top
+    100, B3).  BERT4Rec (vocab 1,000,448): ``serve_step`` at 512 and
+    262,144 users, top 20, and ``retrieval_step`` against 1,000,000
+    candidates (B3).  DeepFM: ``serve_step`` at 512 and 262,144.  DLRM
+    with each vocabulary capped at 2^24 rows: ``serve_step`` at 512 and
+    262,144.  Then the retrieval example's shape (64 queries against
+    200,000 candidates, D = 64, B3).  Every serving call is counted
+    (counts set to 0 just before, read just after; only the retrievals
+    launch, B3 each); B3's answers are held against its plain version
+    and timed afterwards.  Returns the counts."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    tally: dict = {}
+    rs = recsys_shapes
+    log(f"recommender serving: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated at the start")
+    smoke_parity(dev)
+    check_b3_widths(dev, gen)
+
+    # two-tower at its published widths
+    c = two_tower_retrieval.make_config()
+    t0 = time.perf_counter()
+    model = two_tower.init_params(c, gen, dev)
+    torch.cuda.synchronize()
+    params = model_bytes(model)
+    log(f"two-tower: {c.n_params()} parameters ({params / 1e9:.2f} GB) "
+        f"made in {time.perf_counter() - t0:.1f} s")
+    for n in (rs.SERVE_P99, rs.SERVE_BULK):
+        batch = rs.two_tower_batch(c, n, gen)
+        out, first, med, peak = serve_timed(
+            lambda: two_tower.serve_step(model, batch, c), tally)
+        assert out.shape == (n,) and bool(torch.isfinite(out).all())
+        assert float(out.abs().max()) <= 1.0 + 1e-5     # unit vectors
+        log_serving("two-tower serve_step", n, first, med, peak, params)
+        del batch, out
+    items = rs.two_tower_items(c, rs.N_CANDIDATES, gen)
+    cand, first, med, peak = serve_timed(
+        lambda: two_tower.item_tower(model, items, c), tally)
+    assert cand.shape == (rs.N_CANDIDATES, c.tower_mlp[-1])
+    assert torch.allclose(torch.linalg.norm(cand, dim=-1),
+                          torch.ones(1, device=dev), atol=1e-5)
+    log_serving("two-tower index build (item_tower)", rs.N_CANDIDATES,
+                first, med, peak, params)
+    user = rs.two_tower_batch(c, 1, gen)
+    batch = {"user_id": user["user_id"], "history": user["history"],
+             "candidates": cand}
+    got, first, med, peak = serve_timed(
+        lambda: two_tower.retrieval_step(model, batch, c,
+                                         top_n=RETRIEVAL_TOP_N), tally)
+    log_serving("two-tower retrieval_step (1 query, top 100)", 1, first, med,
+                peak, params)
+    eu = two_tower.user_tower(model, batch, c)
+    hold_topk(eu, cand, got, ref.knn_topk_ref(eu, cand, RETRIEVAL_TOP_N,
+                                              metric="dot"),
+              "two-tower retrieval")
+    b3_timed(eu, cand, RETRIEVAL_TOP_N, "two-tower retrieval_cand", "dot")
+    del model, items, cand, batch, eu, got
+    torch.cuda.empty_cache()
+
+    # BERT4Rec at its published widths
+    c = bert4rec_cfg.make_config()
+    model = bert4rec.init_params(c, gen, dev)
+    params = model_bytes(model)
+    scored = c.vocab // 65536 * 65536
+    for n, reps in ((rs.SERVE_P99, 3), (rs.SERVE_BULK, 0)):
+        batch = rs.bert4rec_batch(c, n, gen)
+        (vals, ids), first, med, peak = serve_timed(
+            lambda: bert4rec.serve_step(model, batch, c, top_n=BERT_TOP_N),
+            tally, reps)
+        assert vals.shape == ids.shape == (n, BERT_TOP_N)
+        assert bool(torch.isfinite(vals).all())
+        assert int(ids.min()) >= 0 and int(ids.max()) < scored
+        # the first 16 users against one full product over the scored rows
+        x = bert4rec.encoder(model, batch["ids"][:16], c)[:, -1, :]
+        full = x @ model.item_emb[:scored].T + model.out_bias[:scored]
+        pv, _ = ref.topk_lowest_index(full, BERT_TOP_N)
+        assert torch.allclose(vals[:16], pv, rtol=RS_RTOL, atol=1e-5)
+        assert torch.allclose(full.gather(1, ids[:16].long()), pv,
+                              rtol=RS_RTOL, atol=1e-5)
+        log_serving(f"BERT4Rec serve_step (top {BERT_TOP_N}, rows "
+                    f"{scored:,}+ never scored)", n, first, med, peak,
+                    params, reps)
+        del batch, vals, ids, x, full
+    rbatch = rs.bert4rec_retrieval_batch(c, gen)
+    got, first, med, peak = serve_timed(
+        lambda: bert4rec.retrieval_step(model, rbatch, c,
+                                        top_n=RETRIEVAL_TOP_N), tally)
+    log_serving("BERT4Rec retrieval_step (1 query, top 100)", 1, first,
+                med, peak, params)
+    q = bert4rec.encoder(model, rbatch["ids"], c)[:, -1, :].contiguous()
+    cand = rbatch["candidates"]
+    hold_topk(q, cand, got, ref.knn_topk_ref(q, cand, RETRIEVAL_TOP_N,
+                                             metric="dot"),
+              "BERT4Rec retrieval")
+    b3_timed(q, cand, RETRIEVAL_TOP_N, "BERT4Rec retrieval_cand", "dot")
+    del model, rbatch, q, cand, got
+    torch.cuda.empty_cache()
+
+    # DeepFM and DLRM (vocabularies capped at 2^24 rows)
+    for name, mod, c, make in (
+            ("DeepFM", deepfm, deepfm_cfg.make_config(),
+             rs.deepfm_batch),
+            ("DLRM", dlrm, dataclasses.replace(
+                dlrm_mlperf.make_config(),
+                vocab_sizes=tuple(min(v, DLRM_VOCAB_CAP) for v in
+                                  dlrm.CRITEO_1TB_VOCABS)),
+             rs.dlrm_batch)):
+        t0 = time.perf_counter()
+        model = mod.init_params(c, gen, dev)
+        torch.cuda.synchronize()
+        params = model_bytes(model)
+        log(f"{name}: {params / 1e9:.2f} GB of parameters "
+            f"({c.table.total_rows} table rows) made in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for n in (rs.SERVE_P99, rs.SERVE_BULK):
+            batch = make(c, n, gen)
+            out, first, med, peak = serve_timed(
+                lambda: mod.serve_step(model, batch, c), tally)
+            assert out.shape == (n,) and bool(torch.isfinite(out).all())
+            assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
+            log_serving(f"{name} serve_step", n, first, med, peak, params)
+            del batch, out
+        del model
+        torch.cuda.empty_cache()
+
+    # the retrieval example's shape: 64 queries x 200,000 candidates
+    spec = importlib.util.spec_from_file_location(
+        "serve_retrieval_torch",
+        ROOT / "examples" / "serve_retrieval_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    r = counted(lambda: example.serve(dev), tally)
+    q, cand = r["queries"], r["candidates"]
+    assert r["agreement"] >= 0.99, r["agreement"]
+    hold_topk(q, cand, r["kernel"],
+              ref.knn_topk_ref(q, cand, example.TOP_K, metric="dot"),
+              "retrieval example")
+    log(f"  retrieval example: index {r['index_s']:.3f} s, streaming_topk "
+        f"{r['stream_s'] * 1e3:.3f} ms, ops.knn_topk {r['kernel_s'] * 1e3:.3f}"
+        f" ms, agreement {r['agreement']:.4f}")
+    b3_timed(q, cand, example.TOP_K, "retrieval example", "dot")
+    del r, q, cand
+    torch.cuda.empty_cache()
+    launches = {name: tally.get(name, 0) for name in KERNELS}
+    log(f"  recommender serving launches: {launches} [{card}]")
+    # one B3 launch a retrieval (two-tower, BERT4Rec, the example), no
+    # other kernel anywhere on these models' paths
+    assert launches == dict({n: 0 for n in KERNELS}, knn_topk=3), launches
+    return launches
+
+
 def kernel_checks(ds, dev) -> dict:
     """Phase 3: every kernel against its plain version at the shapes the
     main path gives it (the store shapes ``serve.run_trickle`` builds
@@ -2852,6 +3183,10 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.append(granite_path(dev, records))
     log(f"granite-3-2b serving: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths.append(recsys_path(dev, card))
+    log(f"recommender serving: {time.perf_counter() - t0:.1f} s")
     for name in KERNELS:
         # launches on the paths that drive the kernel (each path's counts
         # were set to 0 just before it and read just after)

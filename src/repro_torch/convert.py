@@ -5,7 +5,8 @@ their place.  ``state_to_numpy`` of either package's state
 (``np.asarray`` of each leaf) gives a dict that ``state_from_numpy``
 installs in the port, so both engines and appliers can start from one
 state.  ``transformer_params_from_numpy`` does the same for the LM
-stack's parameter tree.
+stack's parameter tree, ``recsys_params_from_numpy`` for the four
+recommender models'.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import StreamState, resolve_device
+from repro_torch.models import bert4rec, deepfm, dlrm, two_tower
 from repro_torch.models.transformer import (Transformer, TransformerConfig,
                                             param_shapes)
 
@@ -71,4 +73,51 @@ def transformer_params_from_numpy(params: Dict[str, Any],
         for i, layer in enumerate(model.layers):
             put(getattr(layer, name), np.asarray(stacked[name])[i],
                 shape[1:], f"dense_layers.{name}[{i}]")
+    return model
+
+
+# the port's model class of each recommender architecture
+RECSYS_MODELS = {"two_tower": two_tower.TwoTower, "dlrm": dlrm.DLRM,
+                 "deepfm": deepfm.DeepFM, "bert4rec": bert4rec.Bert4Rec}
+
+
+def _jax_leaf(tree: Dict[str, Any], name: str) -> Any:
+    """The leaf of a JAX recommender tree that port parameter ``name``
+    holds: ``mlp.w.3`` is ``tree["mlp"][3]["w"]``, ``blocks.wq`` is
+    ``tree["blocks"]["wq"]``."""
+    parts = name.split(".")
+    if len(parts) == 3 and parts[1] in ("w", "b"):
+        return tree[parts[0]][int(parts[2])][parts[1]]
+    node = tree
+    for p in parts:
+        node = node[p]
+    return node
+
+
+def _n_leaves(tree: Any) -> int:
+    if isinstance(tree, dict):
+        return sum(_n_leaves(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_n_leaves(v) for v in tree)
+    return 1
+
+
+def recsys_params_from_numpy(arch: str, params: Dict[str, Any], c: Any,
+                             device: Any = None) -> Any:
+    """The port's ``arch`` model (``two_tower``, ``dlrm``, ``deepfm`` or
+    ``bert4rec``) holding the JAX parameter tree ``params`` (numpy
+    leaves: tables, each MLP a list of ``{"w", "b"}``, BERT4Rec's
+    ``blocks`` stacked ``[L, ...]``), cast to ``c.dtype``, on ``device``
+    (CUDA unless the caller names another)."""
+    model = RECSYS_MODELS[arch](c, device)
+    n_ours = len(list(model.parameters()))
+    if _n_leaves(params) != n_ours:
+        raise ValueError(f"{arch}: {_n_leaves(params)} leaves, the port's "
+                         f"model holds {n_ours}")
+    for name, p in model.named_parameters():
+        src = np.asarray(_jax_leaf(params, name))
+        if src.shape != tuple(p.shape):
+            raise ValueError(f"{arch}.{name}: shape {src.shape}, expected "
+                             f"{tuple(p.shape)}")
+        p.copy_(torch.from_numpy(np.array(src, dtype=np.float32)))
     return model

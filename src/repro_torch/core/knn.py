@@ -1,7 +1,10 @@
 """Personalised collaborative-filtering prediction and ranking metrics.
 
 Prediction (paper §2.2): p = alpha · u_target + (1 − alpha) · mean of the
-top-k neighbours.  ``recommend_for_users`` serves through
+top-k neighbours.  ``nearest_neighbors`` / ``predict`` are the plain
+formulation (full [Q, M] scores), ``streaming_topk`` and
+``chunked_neighbor_mean`` the same answers in corpus and neighbour
+chunks.  ``recommend_for_users`` serves through
 ``kernels.ops.fused_recommend`` (the two CUDA serving kernels on the
 card, the plain unfused pipeline on CPU), ``recommend_for_users_quant``
 through ``ops.fused_recommend_quant`` (the int8 corpus), and the two
@@ -19,6 +22,129 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops, ref
+
+
+def pairwise_scores(queries: torch.Tensor, corpus: torch.Tensor,
+                    metric: str = "euclidean") -> torch.Tensor:
+    """Similarity scores (higher = closer), [Q, I] × [M, I] → [Q, M].
+
+    euclidean −|q − c|² (as 2q·c − |q|² − |c|²), cosine or dot.
+    O(Q·M·I).
+    """
+    return ref.pairwise_scores(queries, corpus, metric)
+
+
+def nearest_neighbors(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                      metric: str = "euclidean", exclude_self: bool = False,
+                      query_ids: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k neighbours per query: (f32[Q, k] scores, i32[Q, k] rows).
+
+    The full [Q, M] scores, then a stable top-k (ties to the lowest
+    row).  ``exclude_self`` scores row ``query_ids[q]`` (default q) −inf.
+    O(Q·M·I) compute, O(Q·M) memory.
+    """
+    scores = pairwise_scores(queries, corpus, metric)
+    if exclude_self:
+        q_n = queries.shape[0]
+        ids = (torch.arange(q_n, device=scores.device) if query_ids is None
+               else query_ids.long())
+        scores[torch.arange(q_n, device=scores.device), ids] = float("-inf")
+    vals, idx = ref.topk_lowest_index(scores, k)
+    return vals, idx.to(torch.int32)
+
+
+def predict(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+            alpha: float, metric: str = "euclidean",
+            exclude_self: bool = True,
+            query_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """TIFU-kNN prediction per query, f32[Q, I].
+
+    α·q + (1−α)·mean of its k nearest corpus rows.  O(Q·M·I) compute, a
+    [Q, k, I] gather.
+    """
+    _, idx = nearest_neighbors(queries, corpus, k, metric, exclude_self,
+                               query_ids)
+    neighbors = torch.mean(corpus[idx.long()], dim=1)
+    return alpha * queries + (1.0 - alpha) * neighbors
+
+
+def streaming_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                   metric: str = "euclidean", chunk: int = 65536,
+                   exclude_self: bool = False,
+                   query_ids: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k without the [Q, M] score matrix: (f32[Q, k], i32[Q, k]).
+
+    Scans the corpus in blocks of ``chunk`` rows with a running top-k:
+    each block's scores are appended to the running list and a stable
+    descending sort keeps the first k (ties to the lowest row, the
+    running entries first).  Remainder rows form one masked tail block
+    (padding rows score −inf), never a smaller chunk.  Entries past the
+    finite scores hold −inf and row 0.  O(Q·M·I) compute, O(Q·(k +
+    chunk)) memory.
+    """
+    q_n, d = queries.shape
+    m = corpus.shape[0]
+    dev = queries.device
+    chunk = max(1, min(chunk, m))    # m == 0: no block, a −inf result
+    nc = m // chunk
+    qids = (torch.arange(q_n, device=dev) if query_ids is None
+            else query_ids.long())
+    vals = torch.full((q_n, k), float("-inf"), dtype=torch.float32,
+                      device=dev)
+    idx = torch.zeros((q_n, k), dtype=torch.int32, device=dev)
+
+    def merge(vals, idx, block, ci):
+        s = pairwise_scores(queries, block, metric)           # [Q, chunk]
+        tile = ci * chunk + torch.arange(chunk, device=dev)
+        s = torch.where(tile >= m, float("-inf"), s)          # padding rows
+        if exclude_self:
+            s = torch.where(tile == qids[:, None], float("-inf"), s)
+        return ref.merge_topk(vals, idx, s.to(torch.float32), tile, k)
+
+    for ci in range(nc):
+        vals, idx = merge(vals, idx, corpus[ci * chunk:(ci + 1) * chunk],
+                          ci)
+    rem = m - nc * chunk
+    if rem:
+        tail = torch.zeros((chunk, d), dtype=corpus.dtype, device=dev)
+        tail[:rem] = corpus[nc * chunk:]
+        vals, idx = merge(vals, idx, tail, nc)
+    return vals, idx
+
+
+def chunked_neighbor_mean(corpus: torch.Tensor, idx: torch.Tensor,
+                          chunk_k: int = 8) -> torch.Tensor:
+    """mean(corpus[idx], axis=1) summed over neighbour chunks, f32[Q, I].
+
+    Bounds the gather to [Q, chunk_k, I] (the whole [Q, k, I] would be
+    80 GB at Q=4096, k=300, I=16k).  Rows of −1 add nothing; the sum is
+    divided by k.  The neighbour list is padded with −1 to a multiple of
+    ``chunk_k``, never cut to smaller chunks.  O(Q·k·I).
+    """
+    q_n, k = idx.shape
+    chunk_k = max(1, min(chunk_k, k))
+    pad = (-k) % chunk_k
+    if pad:
+        idx = torch.cat([idx, torch.full((q_n, pad), -1, dtype=idx.dtype,
+                                         device=idx.device)], dim=1)
+    acc = torch.zeros((q_n, corpus.shape[1]), dtype=corpus.dtype,
+                      device=corpus.device)
+    for j in range(0, k + pad, chunk_k):
+        ib = idx[:, j:j + chunk_k]
+        valid = (ib >= 0)[..., None].to(corpus.dtype)
+        rows = torch.where(ib >= 0, ib, torch.zeros_like(ib)).long()
+        acc = acc + torch.sum(corpus[rows] * valid, dim=1)
+    return acc / k
+
+
+def recommend_topn(pred: torch.Tensor, n: int) -> torch.Tensor:
+    """Indices of the top-n scored items per user, i32[Q, n].
+
+    Ties go to the lowest item.
+    """
+    return ref.topk_lowest_index(pred, n)[1].to(torch.int32)
 
 
 def recommend_for_users(corpus: torch.Tensor, user_ids: torch.Tensor,

@@ -54,6 +54,28 @@ def uses_kernel(x: torch.Tensor, impl: Optional[str] = None) -> bool:
     return impl == "cuda" or (impl == "auto" and x.device.type != "cpu")
 
 
+def knn_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+             impl: Optional[str] = None, metric: str = "euclidean",
+             query_gids: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused similarity + top-k: (f32[Q, k] scores, i32[Q, k] rows).
+
+    ``queries`` f32[Q, D] against ``corpus`` f32[M, D]; euclidean scores
+    are the surrogate 2q·c − |c|², dot scores q·c; ties go to the
+    lowest row; the column ``query_gids[q]`` scores −inf.  The kernel
+    path is ``knn_topk`` (B3: O(Q·M·D) compute, [Q, k] out, the [Q, M]
+    scores never written); the plain path is ``ref.knn_topk_ref``.
+    Other metrics (cosine) have no kernel and raise on every impl.
+    """
+    if metric not in ("euclidean", "dot"):
+        raise ValueError(f"knn_topk scores euclidean or dot, not {metric}")
+    if uses_kernel(corpus, impl):
+        return _knn.launch(queries, corpus, k, metric=metric,
+                           query_gids=query_gids)
+    return ref.knn_topk_ref(queries, corpus, k, metric=metric,
+                            query_gids=query_gids)
+
+
 def sparse_row_gather(table: torch.Tensor, rows: torch.Tensor,
                       ids: torch.Tensor,
                       impl: Optional[str] = None) -> torch.Tensor:

@@ -21,6 +21,33 @@ def topk_lowest_index(x: torch.Tensor, k: int) -> Tuple[torch.Tensor,
     return vals[..., :k], idx[..., :k]
 
 
+# the most cells one sort of :func:`merge_topk` takes: the sort's values,
+# int64 positions and scratch stay a few GB
+MERGE_CELLS = 1 << 27
+
+
+def merge_topk(vals: torch.Tensor, idx: torch.Tensor, scores: torch.Tensor,
+               cols: torch.Tensor, k: int) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """One step of a running top-k: the list (``vals``, ``idx``) [Q, k]
+    and a block's ``scores`` [Q, C] at columns ``cols`` [C] → the first
+    k of [list, block] by a stable descending sort (the list's entries
+    first on ties, as ``lax.top_k`` over the concatenation).  Rows are
+    independent, so more than ``MERGE_CELLS`` cells sort in row blocks."""
+    rows = max(1, MERGE_CELLS // (vals.shape[1] + scores.shape[1]))
+    if vals.shape[0] > rows:
+        parts = [merge_topk(vals[r:r + rows], idx[r:r + rows],
+                            scores[r:r + rows], cols, k)
+                 for r in range(0, vals.shape[0], rows)]
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]))
+    mv = torch.cat([vals, scores], dim=1)
+    mi = torch.cat([idx, cols.to(idx.dtype).expand(scores.shape[0], -1)],
+                   dim=1)
+    tv, pos = topk_lowest_index(mv, k)
+    return tv, mi.gather(1, pos)
+
+
 def sparse_row_gather_ref(table: torch.Tensor, rows: torch.Tensor,
                           ids: torch.Tensor) -> torch.Tensor:
     """out[r, w] = table[rows[r], ids[r, w]]; ids outside [0, I) read 0.

@@ -3,7 +3,9 @@
 ``examples/streaming_unlearning_torch.py --device cpu`` runs to its end,
 and its stream, recovery and served top-10 match those printed by the
 JAX package's ``examples/streaming_unlearning.py`` on the same seeded
-data.
+data.  ``examples/serve_retrieval_torch.py --device cpu --candidates
+20000`` runs to its end with its two top-100s (``streaming_topk`` and
+``ops.knn_topk``) in full agreement.
 """
 import os
 import subprocess
@@ -39,3 +41,11 @@ def test_streaming_unlearning_torch_matches_the_jax_example():
         [ln.split(" in ")[0] for ln in pick(ref, "recovered")]
     top = pick(port, "user 0 top-10:")
     assert len(top) == 1 and top == pick(ref, "user 0 top-10:")
+
+
+def test_serve_retrieval_torch_top_k_agree():
+    out = run("serve_retrieval_torch.py", "--device", "cpu", "--candidates",
+              "20000")
+    assert out[0].startswith("indexed 20,000 candidates in ")
+    assert "knn_topk agreement with streaming top-k: 100.0%" in out
+    assert out[-1].startswith("query 0 top-5 candidates:")
