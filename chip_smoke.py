@@ -21,7 +21,10 @@ Phases, each fatal on failure (nothing is caught):
    j = 0..k-1 in its staging passes, with its plan, the distinct rows
    it reads and four readings beside gather + mean + ``topk``'s; the
    row blend bitwise the sum in order j = 0..k-1, also by a burst of 10
-   and the profiler); then the edge cases of the neighbour blend (a
+   and the profiler; the D-tiled stage A's fp32 design, B5's own record,
+   also by a burst of 100, the profiler and the host clock); then the
+   edge cases of the D-tiled stage A (every design and query tile, split
+   and unsplit), of the neighbour blend (a
    group over one pass, n = 33 and 1,024, k = 1, PAD rows, users out of
    range, M = 1, I = 31), of the sparse scatter (one row's long run,
    U=1, W=1, I=1, M*I > 2^31), of the multi-hot scatter and of
@@ -37,8 +40,9 @@ Phases, each fatal on failure (nothing is caught):
    the int8 cache held bitwise against a fresh quantization after every
    request and the int8 answers against the plain int8 pipeline;
 5. fp32 D-tiled serving -- ``ops.fused_recommend(bd=512)`` on the main
-   path's last corpus (counts reset before, read after), held against
-   the ``bd=None`` answer;
+   path's last corpus (counts reset before, read after; B5's D-tiled
+   launches there are all its fp32 design's), held against the
+   ``bd=None`` answer, and the request timed on the host clock;
 6. cross-shard serving -- that corpus split round-robin into 2 shards
    on the one card, ``knn.sharded_recommend_for_users`` and
    ``sharded_recommend_for_users_quant`` for the last request's users
@@ -117,7 +121,8 @@ Phases, each fatal on failure (nothing is caught):
    under ``build/chip_smoke_compliance_ckpt/``, removed after);
 11. million-item point -- M=256 random rows, Q=32, I=1,048,576, k=16,
    bd=1024 (the top point of benchmarks/bench_serving.py::ScaleConfig):
-   the D-tiled stage A in both modes against its plain version, then
+   the D-tiled stage A in both modes against its plain version (fp32
+   in one query tile, split over the SMs) and timed, then
    ``knn.recommend_for_users_quant`` (counts reset before, read after)
    held against its plain pipeline on the dequantized corpus;
 12. granite-3-2b serving -- the dense LM at its published widths and
@@ -252,6 +257,11 @@ KERNELS = {
     "knn_topk_dtiled": dict(
         source="src/repro_torch/kernels/csrc/knn_topk_dtiled.cu",
         replaces="src/repro/kernels/knn_topk.py:265"),
+    # B5's fp32 design (dtiled_ring_kernel): the same wrapper, which
+    # counts its launches under this name
+    "knn_topk_dtiled_f32": dict(
+        source="src/repro_torch/kernels/csrc/knn_topk_dtiled.cu",
+        replaces="src/repro/kernels/knn_topk.py:265"),
     "blend_topn_rows_quant": dict(
         source="src/repro_torch/kernels/csrc/serving_rows.cu",
         replaces="src/repro/kernels/serving_topn.py:264"),
@@ -332,11 +342,12 @@ def three_readings(fn, names, reps: int = 5, per_call: int = 1) -> dict:
     events (``ms``, holding the wrapper's host time on an idle card), a
     burst of 100 back to back between two events, per call
     (``burst_ms``), the profiler's device time of ``names`` per call
-    (``device_ms``; the call launches ``per_call`` of them), and the
-    host clock around the burst's calls, per call, with no sync
-    (``host_ms``)."""
+    (``device_ms``; the call launches ``per_call`` of them, and the
+    trace held ``records`` of them), and the host clock around the
+    burst's calls, per call, with no sync (``host_ms``)."""
     out = dict(ms=time_ms(fn))
     own, _, n_rec = device_ms(fn, names, reps)
+    out["records"] = n_rec
     # per call by the launches the trace recorded (a trace can miss one);
     # every kernel of a call ("") per call
     out["device_ms"] = own if names == ("",) else \
@@ -959,6 +970,7 @@ def check_dtiled_edges(gen, dev):
     cq, cs = quantize_int8_rows(c)
     uid = torch.randperm(m, generator=gen, device=dev)[:q_n].to(torch.int32)
     u = uid.long()
+    plans = set()
     for bd in (16, 67, 512, 1024):
         for k in (1, 7, 300, m - 1, m):
             (vk, ik), (vp, ip) = dtiled_pair(cq[u], cq, k, bd, query_gids=uid,
@@ -966,12 +978,17 @@ def check_dtiled_edges(gen, dev):
             assert same(vk, vp) and same(ik, ip), f"int8 bd={bd} k={k}"
             (vk, ik), (vp, ip) = dtiled_pair(c[u], c, k, bd, query_gids=uid)
             assert same(vk, vp) and same(ik, ip), f"fp32 bd={bd} k={k}"
+            for x in (cq, c):
+                pl = knn_topk.plan_for(x[u], x, k, bd)
+                plans.add((pl.design, pl.bq, pl.n_splits > 1))
         # the shard candidates' mode: gid mapping and sub_qnorm
         kw = dict(query_gids=uid * 3 + 2, col_offset=2, col_stride=3,
                   sub_qnorm=True)
         (vk, ik), (vp, ip) = dtiled_pair(cq[u], cq, 300, bd, q_scale=cs[u],
                                          c_scale=cs, **kw)
         assert same(vk, vp) and same(ik, ip), f"int8 shard mode bd={bd}"
+        (vk, ik), (vp, ip) = dtiled_pair(c[u], c, 300, bd, **kw)
+        assert same(vk, vp) and same(ik, ip), f"fp32 shard mode bd={bd}"
     log(f"  D-tiled stage A M={m} D={d} Q={q_n}, bd in (16, 67, 512, "
         f"1024), k in (1, 7, 300, M-1, M), int8 and fp32, and the shard "
         f"mode: identical")
@@ -979,7 +996,6 @@ def check_dtiled_edges(gen, dev):
     # (M and every slice no multiple of a block's rows, D of bd; bd=48
     # ends each D tile on a half-zero k-step, 17 is no multiple of 16);
     # M=200 x D=65,536 is a small grid with a large D, split
-    plans = set()
     for m, d, bds, ks in ((17000, 2600, (16, 17, 48, 512, 1024),
                            (1, 7, 300, 1024)),
                           (200, 65536, (1024, 1000), (1, 7, 199, 200))):
@@ -1007,9 +1023,14 @@ def check_dtiled_edges(gen, dev):
         log(f"  D-tiled stage A M={m} D={d} Q={q_n}, bd in {bds}, k in "
             f"{ks}, int8 and fp32, plain and shard mode: identical")
     log(f"  (design, queries per block, split) reached: {sorted(plans)}")
+    # every design unsplit and split; fp32 always on the ring, at both
+    # query tiles split and unsplit; int8 odd bd on the CUDA cores
     assert {(d, sp) for d, _, sp in plans} == {
-        (d, sp) for d in ("mma_s8", "cuda_cores") for sp in (False, True)}
+        (d, sp) for d in ("mma_s8", "cuda_cores", "ring_f32")
+        for sp in (False, True)}, plans
     assert {b for d, b, _ in plans if d == "mma_s8"} == {16, 32}, plans
+    assert {(b, sp) for d, b, sp in plans if d == "ring_f32"} == {
+        (b, sp) for b in (16, 32) for sp in (False, True)}, plans
 
 
 def check_dtiled(corpus, c_int, uid, records):
@@ -1033,6 +1054,8 @@ def check_dtiled(corpus, c_int, uid, records):
         assert same(vk, vp) and same(ik, ip), f"int8 ties k={k} differ"
     log("  D-tiled stage A int8 Q=256 k=300 bd=512: identical; integer-tie "
         "corpus k=300 and k=900: identical")
+    pl = knn_topk.plan_for(corpus[u], corpus, 300, BD)
+    assert (pl.design, pl.bq, pl.n_splits) == ("ring_f32", 32, 1), pl
     (vk, ik), (vp, ip) = dtiled_pair(corpus[u], corpus, 300, BD,
                                      query_gids=uid)
     s = plain_scores(corpus[u], corpus, uid)
@@ -1059,16 +1082,23 @@ def check_dtiled(corpus, c_int, uid, records):
         plain_ms=time_ms(lambda: ref.dtiled_topk_ref(cq[u], cq, 300, bd=BD,
                                                      **kq)),
         library_ms=time_ms(lambda: int_mm_topk(q8, c8_t, cs[u], cs, cn_q,
-                                               300)),
-        fp32_ms=time_ms(lambda: knn_topk.launch_dtiled(qf, corpus, 300,
-                                                       bd=BD,
-                                                       query_gids=uid)),
-        fp32_plain_ms=time_ms(lambda: ref.dtiled_topk_ref(
+                                               300)))
+    # fp32: one call by events, a burst, the profiler (the ring kernel
+    # and the slice merge, 2 launches a call) and the host time
+    f32 = three_readings(lambda: knn_topk.launch_dtiled(
+        qf, corpus, 300, bd=BD, query_gids=uid),
+        ("dtiled_ring_kernel", "merge_lists_kernel"), per_call=2)
+    f32.update(
+        plain_ms=time_ms(lambda: ref.dtiled_topk_ref(
             qf, corpus, 300, bd=BD, query_gids=uid)),
-        fp32_library_ms=time_ms(lambda: torch.topk(
+        library_ms=time_ms(lambda: torch.topk(
             2.0 * (qf @ corpus.T) - fp_cn[None, :], 300)))
-    fp32_bound = bound((Q * d + m * d + m + Q) * 4 + Q * 300 * 8,
-                       2.0 * Q * m * d)
+    records["knn_topk_dtiled_f32"] = dict(
+        max_abs_err=err, shape=f"fp32 Q={Q} M={m} D={d} k=300 bd={BD}",
+        # queries, rows and ids read once, top-k out; the q.c products
+        # and the |c|^2 sums, 2*Q*M*D + 2*M*D fp32 operations
+        bound=bound((Q * d + m * d + Q) * 4 + Q * 300 * 8,
+                    2.0 * Q * m * d + 2.0 * m * d), **f32)
     records["knn_topk_dtiled"] = dict(
         max_abs_err=0.0, shape=f"int8 Q={Q} M={m} D={d} k=300 bd={BD}",
         # int8 rows and queries read once, scales, norms, ids in, top-k
@@ -1081,11 +1111,19 @@ def check_dtiled(corpus, c_int, uid, records):
         f"16-byte row pitch ({timings['contiguous_ms']:.4f} ms on a "
         f"contiguous corpus, padded per call; plain "
         f"{timings['plain_ms']:.4f}, _int_mm + topk "
-        f"{timings['library_ms']:.4f}); fp32 {timings['fp32_ms']:.4f} ms "
-        f"(plain {timings['fp32_plain_ms']:.4f}, matmul + topk "
-        f"{timings['fp32_library_ms']:.4f}, bound {fp32_bound[0]:.4f} ms "
-        f"{fp32_bound[1]})")
+        f"{timings['library_ms']:.4f})")
+    log("  D-tiled stage A fp32 timed: " + f32_str(
+        records["knn_topk_dtiled_f32"], 2))
     return cq, cs, nbr
+
+
+def f32_str(r, per_call) -> str:
+    """B5's fp32 readings for the log: events, burst, profiler with its
+    record count, host time; plain, library and bound."""
+    return (f"{readings_str(r)} (profiler by the {r['records']} of "
+            f"{per_call * REPS} records the trace holds; plain "
+            f"{r['plain_ms']:.4f}, matmul + topk {r['library_ms']:.4f}, "
+            f"bound {r['bound'][0]:.4f} ms {r['bound'][1]})")
 
 
 def million_path(dev):
@@ -1105,6 +1143,10 @@ def million_path(dev):
     kq = dict(query_gids=uid, q_scale=cs[u], c_scale=cs)
     (vk, ik), (vp, ip) = dtiled_pair(cq[u], cq, BIG_K, BIG_BD, **kq)
     assert same(vk, vp) and same(ik, ip), "int8 million-item point differs"
+    pl = knn_topk.plan_for(c[u], c, BIG_K, BIG_BD)
+    # fp32 on the ring: one query tile reads the corpus once
+    assert (pl.design, pl.q_tiles) == ("ring_f32", 1) and \
+        pl.blocks >= 100, pl
     (vk, ik), (vp, ip) = dtiled_pair(c[u], c, BIG_K, BIG_BD, query_gids=uid)
     s = plain_scores(c[u], c, uid)
     err = float((vk - vp).abs().max())
@@ -1160,7 +1202,7 @@ def million_path(dev):
             plain_ms=time_ms(lambda: ref.dtiled_topk_ref(
                 *args, BIG_K, bd=BIG_BD, **kw), 3),
             library_ms=time_ms(lib, 3))
-        b_ms, b_by = bound((BIG_Q + BIG_M) * BIG_I * size
+        t["bound"] = bound((BIG_Q + BIG_M) * BIG_I * size
                            + (BIG_M + BIG_Q) * 12 + BIG_Q * BIG_K * 8,
                            2.0 * BIG_Q * BIG_M * BIG_I, peak)
         out[mode] = t
@@ -1168,9 +1210,19 @@ def million_path(dev):
         assert pl.blocks >= 100, (mode, pl)
         log(f"  D-tiled stage A {mode} plan: "
             f"{plan_str(*args, BIG_K, BIG_BD)}")
+        if mode == "fp32":
+            # the split: the ring kernel, the second pass and the slice
+            # merge, 3 launches a call
+            t.update(three_readings(lambda: knn_topk.launch_dtiled(
+                *args, BIG_K, bd=BIG_BD, **kw), ("dtiled_ring_kernel",
+                                                 "dtiled_finish_kernel",
+                                                 "merge_lists_kernel"),
+                per_call=3))
+            log(f"  D-tiled stage A fp32: {f32_str(t, 3)}")
+            continue
         log(f"  D-tiled stage A {mode}: {t['ms']:.4f} ms (plain "
             f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}), bound "
-            f"{b_ms:.4f} ms ({b_by})")
+            f"{t['bound'][0]:.4f} ms ({t['bound'][1]})")
     path_ms = time_ms(serve, 3)
     with ops.default_impl("ref"):
         path_plain_ms = time_ms(serve, 3)
@@ -1465,17 +1517,26 @@ def main_path(ds, dev):
 
 
 def dtiled_path(kern, p, dev):
-    """Phase 5: fp32 D-tiled serving on the main path's last corpus."""
+    """Phase 5: fp32 D-tiled serving on the main path's last corpus.
+    Returns its launch counts: its D-tiled launches are all fp32, on the
+    ring design (``knn_topk_dtiled_f32``)."""
     corpus, users = kern.corpora[-1], kern.requests[-1]
     uid = torch.as_tensor(users, dtype=torch.int32, device=dev)
+    pl = knn_topk.plan_for(corpus[uid.long()], corpus, p.k_neighbors, BD)
+    assert pl.design == "ring_f32", pl
     build.reset_launch_counts()
     got = ops.fused_recommend(corpus, uid, p.k_neighbors, p.alpha, TOPN,
                               bd=BD)
     torch.cuda.synchronize()
     launches = dict(build.launch_counts)
     log(f"fp32 D-tiled serving: launches {launches}")
-    for name in ("knn_topk_dtiled", "blend_topn_onehot"):
+    for name in ("knn_topk_dtiled_f32", "blend_topn_onehot"):
         assert launches[name] > 0, f"{name} was not launched on path 5"
+    assert launches["knn_topk_dtiled"] == 0, launches
+    ms = host_ms(lambda: ops.fused_recommend(corpus, uid, p.k_neighbors,
+                                             p.alpha, TOPN, bd=BD))
+    log(f"  fp32 D-tiled request of {len(users)} users: {ms:.4f} ms "
+        f"(host clock ended by a sync, median of 3)")
     got = got.cpu().numpy()
     mono = ops.fused_recommend(corpus, uid, p.k_neighbors, p.alpha, TOPN)
     plain = ops.fused_recommend(corpus, uid, p.k_neighbors, p.alpha, TOPN,
@@ -2422,8 +2483,9 @@ def compliance_path(ds, dev, card):
     (report, r["certify_s"], calls), got = counted(
         lambda: certified(eng, log_all, users, COMPLIANCE_DIR / "single"))
     assert got["knn_topk"] > 0 and got["blend_topn_onehot"] > 0, got
-    for name in ("knn_topk_dtiled", "blend_topn_rows_quant",
-                 "blend_topn_rows", "flash_attention"):
+    for name in ("knn_topk_dtiled", "knn_topk_dtiled_f32",
+                 "blend_topn_rows_quant", "blend_topn_rows",
+                 "flash_attention"):
         assert got[name] == 0, (name, got)
     n_active = int(np.sum([bool(h) for h in hist])) - N_FORGET
     assert len(calls) == 2 and all(c.users.shape[0] == n_active
@@ -3115,7 +3177,7 @@ def main() -> int:
     spills = {"knn_tile_kernel": [], "flash_wgmma_kernel": [],
               "rows_ring_kernel": [], "sparse_row_gather_kernel": [],
               "sparse_row_scatter_kernel": [], "blend_group_kernel": [],
-              "blend_plan_kernel": []}
+              "blend_plan_kernel": [], "dtiled_ring_kernel": []}
     for line in build.last_build_log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]          # the mangled kernel name
@@ -3126,9 +3188,11 @@ def main() -> int:
                     found.append(line.strip())
     # every instantiation of B3's tile kernel, of B9's Hopper design, of
     # B6/B7's ring (f32 and int8, selection and sort), of B1 and B2
-    # (int32 or int64 rows and ids) and of B4 (lists in registers or in
-    # shared memory; int32 or int64 neighbours), none with a spill
+    # (int32 or int64 rows and ids), of B4 (lists in registers or in
+    # shared memory; int32 or int64 neighbours) and of B5's fp32 design
+    # (32 or 16 queries, split or not), none with a spill
     assert len(spills["knn_tile_kernel"]) == len(knn_topk.KNN_SHAPES)
+    assert len(spills["dtiled_ring_kernel"]) == 4
     assert len(spills["flash_wgmma_kernel"]) == len(flash_attention.WGMMA_BQ)
     assert len(spills["rows_ring_kernel"]) == 4
     assert len(spills["sparse_row_gather_kernel"]) == 4

@@ -30,7 +30,7 @@ SOURCES = ("sparse_row_gather.cu", "sparse_row_scatter.cu", "knn_topk.cu",
            "serving_topn.cu", "knn_topk_dtiled.cu", "serving_rows.cu",
            "decayed_scatter.cu", "flash_attention.cu",
            "flash_attention_wgmma.cu")
-HEADERS = ("topk_common.cuh",)
+HEADERS = ("topk_common.cuh", "knn_ring.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
@@ -48,8 +48,8 @@ SIGNATURES: Dict[str, List] = {
                           _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                           _P, _P, _P],
     "knn_topk_dtiled_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _L, _L, _I, _I, _I, _I, _P,
-                               _P, _I, _I, _P, _P, _P, _P, _P],
+                               _I, _I, _I, _I, _L, _L, _I, _I, _I, _I,
+                               _P, _P, _I, _I, _P, _P, _P, _P, _P],
     "blend_rows_launch": [_P, _L, _P, _P, _L, _P, _I, _P, _I, _I, _I, _I,
                           _I, _F, _F, _I, _I, _I, _P, _I, _I, _P, _P, _P,
                           _P, _P],
@@ -66,6 +66,7 @@ launch_counts: Dict[str, int] = {"sparse_row_gather": 0,
                                  "sparse_row_scatter": 0,
                                  "knn_topk": 0, "blend_topn_onehot": 0,
                                  "knn_topk_dtiled": 0,
+                                 "knn_topk_dtiled_f32": 0,
                                  "blend_topn_rows_quant": 0,
                                  "blend_topn_rows": 0,
                                  "decayed_scatter": 0,

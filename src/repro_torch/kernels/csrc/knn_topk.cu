@@ -56,25 +56,20 @@
 //     merge takes 0.16-0.20 ms, against 0.56-0.64 folding each 256-row
 //     tile and 0.77-0.80 folding 64 rows at a time.
 //   * A second kernel merges the S per-slice lists [Q, S, k] into [Q, k].
-// Ordering is (value desc, index asc) throughout, as lax.top_k.
+// Ordering is (value desc, index asc) throughout, as lax.top_k.  The
+// ring's copies, the register tile and the |c|^2 rotation live in
+// knn_ring.cuh, shared with the fp32 design of knn_topk_dtiled.cu.
 #include <cuda_runtime.h>
 
+#include "knn_ring.cuh"
 #include "topk_common.cuh"
 
 namespace {
 
-constexpr int NT = 256;                  // threads per block
-constexpr int NWARP = NT / 32;
-constexpr int QGROUPS = 4;               // query groups of a block
-constexpr int TM = 4;                    // corpus rows per thread
-constexpr int BM = NT / QGROUPS * TM;    // 256 corpus rows per score tile
-constexpr int HALF = BM / 2;             // rows of one warp: 128
+using namespace knn_ring;   // the ring, the register tile and their constants
+
 constexpr int MB = 2 * BM;               // rows folded into the lists at once
-constexpr int BD = 32;                   // values of D per chunk
-constexpr int PITCH = BD + 4;            // 36 floats: 9 16-byte units
 constexpr size_t SMEM_MAX = 232448;      // shared memory a block may use
-static_assert(TM == QGROUPS, "each query group owns one row's |c|^2");
-static_assert((PITCH / 4) % 2 == 1, "an odd pitch in 16-byte units");
 
 // The dynamic shared memory of one block: the ring of ``stages`` chunks
 // of (BM rows + bq queries) x PITCH floats, the scores of a fold's first
@@ -85,56 +80,6 @@ size_t knn_smem_bytes(int bq, int stages, int k) {
   return sizeof(float) * stages * (size_t)(BM + bq) * PITCH +
          sizeof(float) * (size_t)bq * BM +
          (sizeof(float) + sizeof(int)) * (size_t)bq * k;
-}
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
-                                          int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// acc[i][j] += q_i . c_j over one staged chunk ``st``, d in order, for
-// query i of the thread's TQ at qb + i*PITCH (one address for the whole
-// warp) and tile row row[j]; nacc += |c|^2 of row[0], also in d order.
-template <int TQ>
-__device__ __forceinline__ void mul_chunk(const float* st, const float* qb,
-                                          const int (&row)[TM],
-                                          float (&acc)[TQ][TM],
-                                          float& nacc) {
-#pragma unroll
-  for (int dd = 0; dd < BD; dd += 4) {
-    float4 b[TM];
-#pragma unroll
-    for (int j = 0; j < TM; ++j) {
-      b[j] = *reinterpret_cast<const float4*>(st + row[j] * PITCH + dd);
-    }
-    nacc = fmaf(b[0].x, b[0].x, nacc);
-    nacc = fmaf(b[0].y, b[0].y, nacc);
-    nacc = fmaf(b[0].z, b[0].z, nacc);
-    nacc = fmaf(b[0].w, b[0].w, nacc);
-#pragma unroll
-    for (int i = 0; i < TQ; ++i) {
-      const float4 a = *reinterpret_cast<const float4*>(qb + i * PITCH + dd);
-#pragma unroll
-      for (int j = 0; j < TM; ++j) {
-        acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
-        acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
-        acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
-        acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
-      }
-    }
-  }
 }
 
 // Bitonic sort, descending, of a warp's 32*E (value, row) entries held in
@@ -277,16 +222,6 @@ __device__ void merge_score_tile_sorted(const float* sv0, const float* sv1,
   }
 }
 
-// Warp w is query group tq = w % 4 (queries tq*TQ ..) and row half
-// h = w / 4; lane l's row slot j holds tile row
-//     h*128 + (l/8)*32 + ((j + tq) % 4)*8 + l%8,
-// so the 8 lanes of each quarter warp read 8 consecutive rows (distinct
-// bank groups at an odd pitch), a warp's rows are one contiguous half of
-// the tile, and slot 0 is the row whose |c|^2 this thread sums.
-__device__ __forceinline__ int tile_row(int h, int lane, int tq, int j) {
-  return h * HALF + (lane / 8) * 32 + ((j + tq) % TM) * 8 + lane % 8;
-}
-
 template <int BQ, int STAGES>
 __global__ void __launch_bounds__(NT, 1) knn_tile_kernel(
     const float* __restrict__ q, const float* __restrict__ c,
@@ -343,30 +278,9 @@ __global__ void __launch_bounds__(NT, 1) knn_tile_kernel(
 #pragma unroll
         for (int j = 0; j < TM; ++j) acc[i][j] = 0.0f;
 
-      // copy chunk ch into its stage: warp w takes ring rows w, w + 8, ..
-      // (corpus rows mt + r, then queries q0 + r - BM), lane l value l of
-      // the chunk; values past D are zero-filled from a valid address
       auto issue = [&](int ch) {
-        float* st = ring + (ch % STAGES) * STAGE;
-        const int d = ch * BD + lane;
-        const int nb = d < D ? 4 : 0;
-        const size_t dc = (size_t)min(d, D - 1);
-#pragma unroll
-        for (int i = 0; i < BM / NWARP; ++i) {
-          const int r = warp + i * NWARP;
-          if (mt + r < m_end) {
-            cp_async4(st + r * PITCH + lane, c + (size_t)(mt + r) * D + dc,
-                      nb);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < BQ / NWARP; ++i) {
-          const int r = warp + i * NWARP;
-          if (q0 + r < Q) {
-            cp_async4(st + (BM + r) * PITCH + lane,
-                      q + (size_t)(q0 + r) * D + dc, nb);
-          }
-        }
+        issue_chunk<BQ>(ring + (ch % STAGES) * STAGE, q, c, D, Q, q0, mt,
+                        m_end, ch * BD, D, warp, lane);
       };
 
       __syncthreads();   // the previous tile's scores and merge are done

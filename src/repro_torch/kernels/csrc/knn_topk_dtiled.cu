@@ -22,7 +22,17 @@
 // Bound: bytes in int8 mode (the corpus once: 167 MB at M=13,949,
 // D=11,997 against 2*Q*M*D int8 operations on 1,979 TOP/s), operations
 // in fp32 mode (2*Q*M*D on CUDA cores, no tensor cores, so fp32 keeps
-// parity).  The input alone picks one of two mainloops:
+// parity).  The input alone picks one of three mainloops
+// (knn_topk.py::dtiled_design):
+//   * fp32: stage A's mainloop (knn_ring.cuh, as knn_topk.cu runs it;
+//     dtiled_ring_kernel below): 32 queries a block (16 where the lists of
+//     a large k leave no room), so each query tile reads the corpus once
+//     through L2; score tiles of 256 rows; D in chunks of 32 values
+//     through a 2-stage ring filled by 4-byte cp.async (no staging
+//     registers); an 8 x 4 fmaf register tile per thread and |c|^2
+//     rotated over the query groups.  Chunks are cut per D tile
+//     (ceil(bd/32) a tile, the values past its end zero-filled, none
+//     past D), so any bd works;
 //   * int8 rows at a 16-byte pitch with bd % 16 == 0 (the store's int8
 //     cache keeps such a pitch behind a [:, :I] view; the wrapper pads
 //     any other int8 corpus into such a copy): the tensor cores,
@@ -30,20 +40,19 @@
 //     cp.async ring (dtiled_mma_kernel below).  A block holds 32 queries
 //     (16 for k > 512, whose lists fill shared memory), so the corpus is
 //     read once per query tile, through L2;
-//   * everything else (fp32, where parity forbids TF32, and int8 with bd
-//     no multiple of 16): the CUDA cores, stage A's design (knn_topk.cu):
-//     BQ=16 queries and score tiles of BM=512 rows per block, an 8-query
-//     x 4-row register tile per thread, D staged through shared memory in
-//     chunks of 16 four-byte words (16 floats, or 64 int8 packed four to
-//     a word, each assembled from byte loads), double-buffered, and
-//     multiplied with fmaf or __dp4a; |c|^2 is summed in the same loop
-//     by the threads of the first query group.  Elements past the D
-//     tile's end load 0, so any bd works and pad bytes are unread.
-// In both, at each D tile's end the partials are added to the f32
-// accumulators (in tile order, round to nearest) and reset; the scores
-// are masked (rows past the slice, the self column whose gid
-// row*col_stride + col_offset equals the query gid) and folded into
-// per-query top lists in shared memory (topk_common.cuh); a second
+//   * other int8 (bd no multiple of 16): the CUDA cores
+//     (dtiled_tile_kernel below): 16 queries and score tiles of 512 rows
+//     per block, an 8-query x 4-row register tile per thread, D staged
+//     through shared memory in chunks of 16 words of 4 int8 (each
+//     assembled from byte loads), double-buffered, multiplied with
+//     __dp4a; |c|^2 is summed in the same loop by the threads of the
+//     first query group.  Elements past the D tile's end load 0, so any
+//     bd works and pad bytes are unread.
+// In all three, at each D tile's end the partials are added to the f32
+// accumulators held in registers (in tile order, round to nearest) and
+// reset; the scores are masked (rows past the slice, the self column
+// whose gid row*col_stride + col_offset equals the query gid) and folded
+// into per-query top lists in shared memory (topk_common.cuh); a second
 // kernel merges the slices.  Ordering is (value desc, index asc), as
 // lax.top_k.
 //
@@ -59,107 +68,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
+#include "knn_ring.cuh"
 #include "topk_common.cuh"
 
 namespace {
 
-constexpr int NT = 256;                  // threads per block
-constexpr int NWARP = NT / 32;
-constexpr int BQ = 16;                   // queries per block
-constexpr int TQ = 8;                    // queries per thread
-constexpr int TM = 4;                    // corpus rows per thread
-constexpr int ROW_THREADS = NT / (BQ / TQ);   // threads across the rows
-constexpr int BM = ROW_THREADS * TM;     // 512 corpus rows per score tile
-constexpr int BW = 16;                   // 4-byte words per staged chunk
-constexpr int CS_STRIDE = BM + 4;        // padded: 2-way bank conflicts
-constexpr int QS_STRIDE = BQ + 4;        // on the transposing stores
-constexpr int CS_WORDS = BW * CS_STRIDE;
-constexpr int QS_WORDS = BW * QS_STRIDE;
-constexpr int STAGE_WORDS = 2 * (CS_WORDS + QS_WORDS);
-constexpr int C_LOADS = BM * BW / NT;    // corpus words per thread/chunk
-static_assert(BQ * BW == NT, "one query word per thread per chunk");
-static_assert(BQ * BM <= STAGE_WORDS, "score tile fits over the staging");
-static_assert(ROW_THREADS % 32 == 0, "a warp shares its query tile");
+using namespace knn_ring;   // NT, NWARP, TM and the fp32 mainloop
 
-size_t tile_smem_bytes(int n2) {
-  return sizeof(uint32_t) * STAGE_WORDS +
-         (sizeof(float) + sizeof(int)) *
-             ((size_t)BQ * n2 + NWARP * MERGE_CAND) +
-         sizeof(float) * BM;
-}
-
-// One staged word of row ``row`` (pitch ``ld``) at element ``e0`` (fp32:
-// the float's bits; int8: four consecutive int8, the first in the low
-// byte); elements at or past ``e_end`` read 0.
-template <bool kInt8>
-__device__ __forceinline__ uint32_t load_word(const void* __restrict__ x,
-                                              size_t row, int ld, int e0,
-                                              int e_end) {
-  if constexpr (kInt8) {
-    const uint8_t* p = static_cast<const uint8_t*>(x) + row * ld;
-    uint32_t w = 0;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      if (e0 + b < e_end) w |= (uint32_t)__ldg(p + e0 + b) << (8 * b);
-    }
-    return w;
-  } else {
-    const float* p = static_cast<const float*>(x) + row * ld;
-    return e0 < e_end ? __float_as_uint(__ldg(p + e0)) : 0u;
-  }
-}
-
-// Global loads of one chunk (words w of elements d0 + w*PER, for rows
-// m0.. of the slice and queries q0..) into registers: creg[j] is word
-// e % BW of row e / BW, e = tid + j*NT; qreg word tid % BW of query
-// tid / BW.
-template <bool kInt8>
-__device__ __forceinline__ void load_chunk(
-    const void* __restrict__ q, const void* __restrict__ c, int Q, int ld,
-    int q0, int m0, int m_end, int d0, int d_end, int tid,
-    uint32_t (&creg)[C_LOADS], uint32_t& qreg) {
-  constexpr int PER = kInt8 ? 4 : 1;
-#pragma unroll
-  for (int j = 0; j < C_LOADS; ++j) {
-    const int e = tid + j * NT;
-    const int gm = m0 + e / BW;
-    creg[j] = gm < m_end ? load_word<kInt8>(c, gm, ld, d0 + (e % BW) * PER,
-                                            d_end)
-                         : 0u;
-  }
-  const int gq = q0 + tid / BW;
-  qreg = gq < Q ? load_word<kInt8>(q, gq, ld, d0 + (tid % BW) * PER, d_end)
-                : 0u;
-}
-
-// Transpose the loaded chunk into staging buffer ``buf``: cs[w][row],
-// qs[w][query].
-__device__ __forceinline__ void store_chunk(uint32_t* cs, uint32_t* qs,
-                                            int buf, int tid,
-                                            const uint32_t (&creg)[C_LOADS],
-                                            uint32_t qreg) {
-  uint32_t* cb = cs + buf * CS_WORDS;
-  uint32_t* qb = qs + buf * QS_WORDS;
-#pragma unroll
-  for (int j = 0; j < C_LOADS; ++j) {
-    const int e = tid + j * NT;
-    cb[(e % BW) * CS_STRIDE + e / BW] = creg[j];
-  }
-  qb[(tid % BW) * QS_STRIDE + tid / BW] = qreg;
-}
-
-template <bool kInt8>
-__device__ __forceinline__ void mac(uint32_t a, uint32_t b,
-                                    typename std::conditional<
-                                        kInt8, int, float>::type& acc) {
-  if constexpr (kInt8) {
-    acc = __dp4a((int)a, (int)b, acc);
-  } else {
-    acc = fmaf(__uint_as_float(a), __uint_as_float(b), acc);
-  }
-}
+constexpr size_t SMEM_MAX = 232448;      // shared memory a block may use
 
 // The score of one (query, row) pair from its summed q.c and |c|^2.
 __device__ __forceinline__ float dtiled_score(float acc, float cn, float sq,
@@ -178,32 +94,287 @@ __device__ __forceinline__ void split_range(int n_tiles, int z, int n_splits,
   t1 = (int)((long long)n_tiles * (z + 1) / n_splits);
 }
 
+// ---------------------------------------------------------------------------
+// The fp32 design.  A block holds BQ queries against its slice's score
+// tiles of BM rows and walks, per score tile, the chunks of its D tiles
+// through the ring: one fmaf chain per (query, row) and per row's |c|^2 a
+// D tile (part, npart), added at the tile's last chunk to running sums
+// held in registers (acc, nacc) in tile order -- or, in a split's first
+// pass, written to the second pass's scratch.  The scores, |c|^2 and the
+// merge's scratch lie over the ring; the lists of k entries follow it.
+constexpr int RING_STAGES = 2;   // a third ran slower in knn_topk.cu
+
+// The dynamic shared memory of one block: the ring of RING_STAGES chunks
+// of (BM rows + bq queries) x PITCH floats, then bq lists of ls (value,
+// row) entries (ls = k; 0 in a split's first pass, which keeps no
+// lists).  knn_topk.py::ring_smem_bytes mirrors it for the plan's bq.
+size_t ring_smem_bytes(int bq, int ls) {
+  return sizeof(float) * RING_STAGES * (size_t)(BM + bq) * PITCH +
+         (sizeof(float) + sizeof(int)) * (size_t)bq * ls;
+}
+
 // kSplit: the block owns D tiles split_range(blockIdx.z) of its (query
-// tile, slice) and writes each tile's partials (as exact f32 in int8
-// mode) to split_acc[tile][Q][M], and query tile 0 its |c|^2 partials to
+// tile, slice) and writes each tile's partials to split_acc[tile][Q][M],
+// and query tile 0 its |c|^2 partials to split_cn[tile][M];
+// dtiled_finish_kernel scores and selects.
+template <int BQ, bool kSplit>
+__global__ void __launch_bounds__(NT, 1) dtiled_ring_kernel(
+    const float* __restrict__ q, const float* __restrict__ c,
+    const float* __restrict__ qn, const int* __restrict__ qgid, int Q,
+    int M, int D, int ld, int k, int bd, long long col_offset,
+    long long col_stride, int rows_per_slice, float* __restrict__ part_v,
+    int* __restrict__ part_i, float* __restrict__ split_acc,
+    float* __restrict__ split_cn) {
+  constexpr int TQ = BQ / QGROUPS;                  // queries per thread
+  constexpr int STAGE = (BM + BQ) * PITCH;          // floats per stage
+  static_assert(BQ % NWARP == 0, "whole query rows per warp");
+  static_assert(BQ * BM + BM + 2 * NWARP * MERGE_CAND <= RING_STAGES * STAGE,
+                "scores, |c|^2 and the merge's scratch fit the ring");
+  extern __shared__ float4 ring_smem[];
+  float* ring = reinterpret_cast<float*>(ring_smem);  // [STAGES][BM+BQ][..]
+  float* lv = ring + RING_STAGES * STAGE;           // [BQ][k] list vals
+  int* li = reinterpret_cast<int*>(lv + BQ * k);    // [BQ][k] list rows
+  float* sv = ring;                      // [BQ][BM] scores, over the ring
+  float* cn = sv + BQ * BM;              // [BM] |c|^2, over the ring
+  float* wv = cn + BM;                   // [NWARP][MERGE_CAND] merge
+  int* wi = reinterpret_cast<int*>(wv + NWARP * MERGE_CAND);   // scratch
+
+  const int q0 = blockIdx.x * BQ;
+  const int slice = blockIdx.y;
+  const int m_begin = slice * rows_per_slice;
+  const int m_end = min(M, m_begin + rows_per_slice);
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int tq = warp % QGROUPS;
+  const int h = warp / QGROUPS;
+  // the block's D tiles [t0, t1) in chunks: per_tile a tile, but the last
+  // tile of D stops at D
+  const int per_tile = (bd + BD - 1) / BD;
+  const int n_tiles = (D + bd - 1) / bd;
+  int t0 = 0, t1 = n_tiles;
+  if (kSplit) split_range(n_tiles, blockIdx.z, gridDim.z, t0, t1);
+  const int n_chunks = (t1 - 1 - t0) * per_tile +
+                       (min(t1 * bd, D) - (t1 - 1) * bd + BD - 1) / BD;
+  int row[TM];
+#pragma unroll
+  for (int j = 0; j < TM; ++j) row[j] = tile_row(h, lane, tq, j);
+
+  if (!kSplit) {
+    for (int t = tid; t < BQ * k; t += NT) {
+      lv[t] = -INFINITY;
+      li[t] = PAD_IDX;
+    }
+  }
+
+  for (int mt = m_begin; mt < m_end; mt += BM) {
+    // a warp whose rows all lie past the slice skips the products
+    const bool warp_live = mt + h * HALF < m_end;
+    float part[TQ][TM];   // the current D tile's fmaf chains
+    float acc[TQ][TM];    // the tiles' sum, in tile order
+    float npart = 0.0f;   // the same two for |c|^2 of row[0]
+    float nacc = 0.0f;
+#pragma unroll
+    for (int i = 0; i < TQ; ++i)
+#pragma unroll
+      for (int j = 0; j < TM; ++j) {
+        part[i][j] = 0.0f;
+        acc[i][j] = 0.0f;
+      }
+
+    // chunks are issued in order: the next one starts at value it_off of
+    // D tile it_t
+    int it_t = t0, it_off = 0;
+    auto issue = [&](int ch) {
+      issue_chunk<BQ>(ring + (ch % RING_STAGES) * STAGE, q, c, ld, Q, q0,
+                      mt, m_end, it_t * bd + it_off,
+                      min(it_t * bd + bd, D), warp, lane);
+      it_off += BD;
+      if (it_off >= bd) {
+        it_off = 0;
+        ++it_t;
+      }
+    };
+
+    __syncthreads();   // the previous tile's scores and merge are done
+                       // with the ring
+    issue(0);
+    cp_async_commit();
+    int t = t0;           // the D tile of chunk ch
+    int left = per_tile;  // its chunks from ch on
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      cp_async_wait<0>();   // chunk ch has landed
+      __syncthreads();      // ... for every thread, and chunk ch - 1's
+                            // stage is free
+      if (ch + 1 < n_chunks) issue(ch + 1);
+      cp_async_commit();
+      if (warp_live) {
+        const float* st = ring + (ch % RING_STAGES) * STAGE;
+        mul_chunk<TQ>(st, st + (BM + tq * TQ) * PITCH, row, part, npart);
+      }
+      if (--left == 0 || ch + 1 == n_chunks) {
+        // a D tile's last chunk: its partials go to the sums in tile
+        // order (or, split, to the second pass), then reset
+        if (kSplit) {
+          if (blockIdx.x == 0 && mt + row[0] < m_end) {
+            split_cn[(size_t)t * M + mt + row[0]] = npart;
+          }
+        } else {
+          nacc = __fadd_rn(nacc, npart);
+        }
+        npart = 0.0f;
+#pragma unroll
+        for (int i = 0; i < TQ; ++i)
+#pragma unroll
+          for (int j = 0; j < TM; ++j) {
+            if (kSplit) {
+              const int gq = q0 + tq * TQ + i;
+              const int m = mt + row[j];
+              if (gq < Q && m < m_end) {
+                split_acc[((size_t)t * Q + gq) * M + m] = part[i][j];
+              }
+            } else {
+              acc[i][j] = __fadd_rn(acc[i][j], part[i][j]);
+            }
+            part[i][j] = 0.0f;
+          }
+        ++t;
+        left = per_tile;
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();   // every warp is done with the ring (sv lies on it)
+    if (kSplit) continue;
+
+    cn[row[0]] = nacc;
+    __syncthreads();
+    // scores, masked
+#pragma unroll
+    for (int i = 0; i < TQ; ++i) {
+      const int qi = tq * TQ + i;
+      const int gq = q0 + qi;
+      const bool q_ok = gq < Q;
+      const long long my_gid = q_ok ? (long long)qgid[gq] : -1LL;
+      const float q_term = (q_ok && qn != nullptr) ? qn[gq] : 0.0f;
+#pragma unroll
+      for (int j = 0; j < TM; ++j) {
+        const int m = mt + row[j];
+        float s = -INFINITY;
+        if (m < m_end && (long long)m * col_stride + col_offset != my_gid) {
+          s = dtiled_score(acc[i][j], cn[row[j]], 1.0f, 1.0f, qn, q_term);
+        }
+        sv[qi * BM + row[j]] = s;
+      }
+    }
+    __syncthreads();
+    merge_score_tile_ranked<BQ, BM, NWARP>(sv, lv, li, wv, wi, q0, Q, mt,
+                                           m_end, k, k);
+  }
+  if (kSplit) return;
+  __syncthreads();
+  write_slice_lists<BQ>(lv, li, q0, Q, k, k, slice, gridDim.y, part_v,
+                        part_i);
+}
+
+// ---------------------------------------------------------------------------
+// The CUDA-core design: int8 rows with bd no multiple of 16.
+constexpr int CC_BQ = 16;                // queries per block
+constexpr int CC_TQ = 8;                 // queries per thread
+constexpr int ROW_THREADS = NT / (CC_BQ / CC_TQ);   // threads across rows
+constexpr int CC_BM = ROW_THREADS * TM;  // 512 corpus rows per score tile
+constexpr int BW = 16;                   // 4-byte words per staged chunk
+constexpr int PER = 4;                   // int8 per word
+constexpr int CS_STRIDE = CC_BM + 4;     // padded: 2-way bank conflicts
+constexpr int QS_STRIDE = CC_BQ + 4;     // on the transposing stores
+constexpr int CS_WORDS = BW * CS_STRIDE;
+constexpr int QS_WORDS = BW * QS_STRIDE;
+constexpr int STAGE_WORDS = 2 * (CS_WORDS + QS_WORDS);
+constexpr int C_LOADS = CC_BM * BW / NT;   // corpus words per thread/chunk
+static_assert(CC_BQ * BW == NT, "one query word per thread per chunk");
+static_assert(CC_BQ * CC_BM <= STAGE_WORDS, "score tile fits the staging");
+static_assert(ROW_THREADS % 32 == 0, "a warp shares its query tile");
+
+size_t tile_smem_bytes(int n2) {
+  return sizeof(uint32_t) * STAGE_WORDS +
+         (sizeof(float) + sizeof(int)) *
+             ((size_t)CC_BQ * n2 + NWARP * MERGE_CAND) +
+         sizeof(float) * CC_BM;
+}
+
+// One staged word of row ``row`` (pitch ``ld`` bytes) at element ``e0``:
+// four consecutive int8, the first in the low byte; elements at or past
+// ``e_end`` read 0.
+__device__ __forceinline__ uint32_t load_word(const int8_t* __restrict__ x,
+                                              size_t row, int ld, int e0,
+                                              int e_end) {
+  const uint8_t* p = reinterpret_cast<const uint8_t*>(x) + row * ld;
+  uint32_t w = 0;
+#pragma unroll
+  for (int b = 0; b < PER; ++b) {
+    if (e0 + b < e_end) w |= (uint32_t)__ldg(p + e0 + b) << (8 * b);
+  }
+  return w;
+}
+
+// Global loads of one chunk (words w of elements d0 + w*PER, for rows
+// m0.. of the slice and queries q0..) into registers: creg[j] is word
+// e % BW of row e / BW, e = tid + j*NT; qreg word tid % BW of query
+// tid / BW.
+__device__ __forceinline__ void load_chunk(
+    const int8_t* __restrict__ q, const int8_t* __restrict__ c, int Q,
+    int ld, int q0, int m0, int m_end, int d0, int d_end, int tid,
+    uint32_t (&creg)[C_LOADS], uint32_t& qreg) {
+#pragma unroll
+  for (int j = 0; j < C_LOADS; ++j) {
+    const int e = tid + j * NT;
+    const int gm = m0 + e / BW;
+    creg[j] = gm < m_end ? load_word(c, gm, ld, d0 + (e % BW) * PER, d_end)
+                         : 0u;
+  }
+  const int gq = q0 + tid / BW;
+  qreg = gq < Q ? load_word(q, gq, ld, d0 + (tid % BW) * PER, d_end) : 0u;
+}
+
+// Transpose the loaded chunk into staging buffer ``buf``: cs[w][row],
+// qs[w][query].
+__device__ __forceinline__ void store_chunk(uint32_t* cs, uint32_t* qs,
+                                            int buf, int tid,
+                                            const uint32_t (&creg)[C_LOADS],
+                                            uint32_t qreg) {
+  uint32_t* cb = cs + buf * CS_WORDS;
+  uint32_t* qb = qs + buf * QS_WORDS;
+#pragma unroll
+  for (int j = 0; j < C_LOADS; ++j) {
+    const int e = tid + j * NT;
+    cb[(e % BW) * CS_STRIDE + e / BW] = creg[j];
+  }
+  qb[(tid % BW) * QS_STRIDE + tid / BW] = qreg;
+}
+
+// kSplit: the block owns D tiles split_range(blockIdx.z) of its (query
+// tile, slice) and writes each tile's partials (as exact f32) to
+// split_acc[tile][Q][M], and query tile 0 its |c|^2 partials to
 // split_cn[tile][M]; dtiled_finish_kernel scores and selects.
-template <bool kInt8, bool kSplit>
+template <bool kSplit>
 __global__ void __launch_bounds__(NT, 1) dtiled_tile_kernel(
-    const void* __restrict__ q, const void* __restrict__ c,
+    const int8_t* __restrict__ q, const int8_t* __restrict__ c,
     const float* __restrict__ qn, const float* __restrict__ q_scale,
     const float* __restrict__ c_scale, const int* __restrict__ qgid, int Q,
     int M, int D, int ld, int k, int n2, int bd, long long col_offset,
     long long col_stride, int rows_per_slice, float* __restrict__ part_v,
     int* __restrict__ part_i, float* __restrict__ split_acc,
     float* __restrict__ split_cn) {
-  using Part = typename std::conditional<kInt8, int, float>::type;
-  constexpr int PER = kInt8 ? 4 : 1;      // elements per staged word
   extern __shared__ float4 dtiled_smem[];
   uint32_t* cs = reinterpret_cast<uint32_t*>(dtiled_smem);  // [2][BW][..]
   uint32_t* qs = cs + 2 * CS_WORDS;                         // [2][BW][..]
   float* sv = reinterpret_cast<float*>(cs);   // [BQ][BM] over the staging
   float* lv = reinterpret_cast<float*>(cs + STAGE_WORDS);   // [BQ][n2]
-  int* li = reinterpret_cast<int*>(lv + BQ * n2);           // [BQ][n2]
-  float* wv = reinterpret_cast<float*>(li + BQ * n2);       // merge scratch
+  int* li = reinterpret_cast<int*>(lv + CC_BQ * n2);        // [BQ][n2]
+  float* wv = reinterpret_cast<float*>(li + CC_BQ * n2);    // merge scratch
   int* wi = reinterpret_cast<int*>(wv + NWARP * MERGE_CAND);
   float* cn = reinterpret_cast<float*>(wi + NWARP * MERGE_CAND);  // [BM]
 
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * CC_BQ;
   const int slice = blockIdx.y;
   const int S = gridDim.y;
   const int m_begin = slice * rows_per_slice;
@@ -220,35 +391,35 @@ __global__ void __launch_bounds__(NT, 1) dtiled_tile_kernel(
   const int c_begin = t0 * per_tile, c_end = t1 * per_tile;
 
   if (!kSplit) {
-    for (int t = tid; t < BQ * n2; t += NT) {
+    for (int t = tid; t < CC_BQ * n2; t += NT) {
       lv[t] = -INFINITY;
       li[t] = PAD_IDX;
     }
   }
 
-  for (int m0 = m_begin; m0 < m_end; m0 += BM) {
+  for (int m0 = m_begin; m0 < m_end; m0 += CC_BM) {
     // warps whose rows all lie past the slice skip the multiply
     const bool warp_live = m0 + (tm - lane) * TM < m_end;
     uint32_t creg[C_LOADS];
     uint32_t qreg;
-    Part part[TQ][TM];
-    float acc[TQ][TM];
-    Part npart[TM];     // |c|^2 of this thread's rows (first query group)
+    int part[CC_TQ][TM];
+    float acc[CC_TQ][TM];
+    int npart[TM];      // |c|^2 of this thread's rows (first query group)
     float nacc[TM];
 #pragma unroll
     for (int j = 0; j < TM; ++j) {
       npart[j] = 0;
       nacc[j] = 0.0f;
 #pragma unroll
-      for (int i = 0; i < TQ; ++i) {
+      for (int i = 0; i < CC_TQ; ++i) {
         part[i][j] = 0;
         acc[i][j] = 0.0f;
       }
     }
 
     __syncthreads();   // the previous tile's merge is done with sv and cn
-    load_chunk<kInt8>(q, c, Q, ld, q0, m0, m_end, t0 * bd,
-                      min(t0 * bd + bd, D), tid, creg, qreg);
+    load_chunk(q, c, Q, ld, q0, m0, m_end, t0 * bd, min(t0 * bd + bd, D),
+               tid, creg, qreg);
     store_chunk(cs, qs, 0, tid, creg, qreg);
     __syncthreads();
     for (int ch = c_begin; ch < c_end; ++ch) {
@@ -257,12 +428,12 @@ __global__ void __launch_bounds__(NT, 1) dtiled_tile_kernel(
       if (more) {
         const int t = (ch + 1) / per_tile;
         const int d0 = t * bd + ((ch + 1) % per_tile) * BW * PER;
-        load_chunk<kInt8>(q, c, Q, ld, q0, m0, m_end, d0,
-                          min(t * bd + bd, D), tid, creg, qreg);
+        load_chunk(q, c, Q, ld, q0, m0, m_end, d0, min(t * bd + bd, D), tid,
+                   creg, qreg);
       }
       if (warp_live) {
         const uint32_t* cb = cs + buf * CS_WORDS + tm * TM;
-        const uint32_t* qb = qs + buf * QS_WORDS + tq * TQ;
+        const uint32_t* qb = qs + buf * QS_WORDS + tq * CC_TQ;
 #pragma unroll
         for (int w = 0; w < BW; ++w) {
           const uint4 a0 =
@@ -271,16 +442,20 @@ __global__ void __launch_bounds__(NT, 1) dtiled_tile_kernel(
               *reinterpret_cast<const uint4*>(qb + w * QS_STRIDE + 4);
           const uint4 b =
               *reinterpret_cast<const uint4*>(cb + w * CS_STRIDE);
-          const uint32_t a[TQ] = {a0.x, a0.y, a0.z, a0.w,
-                                  a1.x, a1.y, a1.z, a1.w};
+          const uint32_t a[CC_TQ] = {a0.x, a0.y, a0.z, a0.w,
+                                     a1.x, a1.y, a1.z, a1.w};
           const uint32_t bb[TM] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-          for (int i = 0; i < TQ; ++i)
+          for (int i = 0; i < CC_TQ; ++i)
 #pragma unroll
-            for (int j = 0; j < TM; ++j) mac<kInt8>(a[i], bb[j], part[i][j]);
+            for (int j = 0; j < TM; ++j) {
+              part[i][j] = __dp4a((int)a[i], (int)bb[j], part[i][j]);
+            }
           if (tq == 0) {                    // warp-uniform
 #pragma unroll
-            for (int j = 0; j < TM; ++j) mac<kInt8>(bb[j], bb[j], npart[j]);
+            for (int j = 0; j < TM; ++j) {
+              npart[j] = __dp4a((int)bb[j], (int)bb[j], npart[j]);
+            }
           }
         }
       }
@@ -295,8 +470,8 @@ __global__ void __launch_bounds__(NT, 1) dtiled_tile_kernel(
               split_cn[(size_t)t * M + m] = (float)npart[j];
             }
 #pragma unroll
-            for (int i = 0; i < TQ; ++i) {
-              const int gq = q0 + tq * TQ + i;
+            for (int i = 0; i < CC_TQ; ++i) {
+              const int gq = q0 + tq * CC_TQ + i;
               if (gq < Q) {
                 split_acc[((size_t)t * Q + gq) * M + m] = (float)part[i][j];
               }
@@ -304,7 +479,7 @@ __global__ void __launch_bounds__(NT, 1) dtiled_tile_kernel(
           }
           npart[j] = 0;
 #pragma unroll
-          for (int i = 0; i < TQ; ++i) part[i][j] = 0;
+          for (int i = 0; i < CC_TQ; ++i) part[i][j] = 0;
         }
       } else if ((ch + 1) % per_tile == 0) {
         // end of a D tile: add its partials to the accumulators, in order
@@ -313,7 +488,7 @@ __global__ void __launch_bounds__(NT, 1) dtiled_tile_kernel(
           nacc[j] = __fadd_rn(nacc[j], (float)npart[j]);
           npart[j] = 0;
 #pragma unroll
-          for (int i = 0; i < TQ; ++i) {
+          for (int i = 0; i < CC_TQ; ++i) {
             acc[i][j] = __fadd_rn(acc[i][j], (float)part[i][j]);
             part[i][j] = 0;
           }
@@ -331,11 +506,11 @@ __global__ void __launch_bounds__(NT, 1) dtiled_tile_kernel(
 
     // scores, masked, over the staging buffers (free after the last sync)
 #pragma unroll
-    for (int i = 0; i < TQ; ++i) {
-      const int gq = q0 + tq * TQ + i;
+    for (int i = 0; i < CC_TQ; ++i) {
+      const int gq = q0 + tq * CC_TQ + i;
       const bool q_ok = gq < Q;
       const long long my_gid = q_ok ? (long long)qgid[gq] : -1LL;
-      const float sq = (q_ok && q_scale != nullptr) ? q_scale[gq] : 1.0f;
+      const float sq = q_ok ? q_scale[gq] : 1.0f;
       const float q_term = (q_ok && qn != nullptr)
                                ? __fmul_rn(__fmul_rn(sq, sq), qn[gq])
                                : 0.0f;
@@ -345,22 +520,21 @@ __global__ void __launch_bounds__(NT, 1) dtiled_tile_kernel(
         const int m = m0 + tm * TM + j;
         s[j] = -INFINITY;
         if (m < m_end && (long long)m * col_stride + col_offset != my_gid) {
-          s[j] = dtiled_score(acc[i][j], cn[tm * TM + j], sq,
-                              c_scale != nullptr ? c_scale[m] : 1.0f, qn,
+          s[j] = dtiled_score(acc[i][j], cn[tm * TM + j], sq, c_scale[m], qn,
                               q_term);
         }
       }
-      *reinterpret_cast<float4*>(sv + (tq * TQ + i) * BM + tm * TM) =
+      *reinterpret_cast<float4*>(sv + (tq * CC_TQ + i) * CC_BM + tm * TM) =
           make_float4(s[0], s[1], s[2], s[3]);
     }
     __syncthreads();
 
-    merge_score_tile_ranked<BQ, BM, NWARP>(sv, lv, li, wv, wi, q0, Q, m0,
-                                           m_end, k, n2);
+    merge_score_tile_ranked<CC_BQ, CC_BM, NWARP>(sv, lv, li, wv, wi, q0, Q,
+                                                 m0, m_end, k, n2);
   }
   if (kSplit) return;
   __syncthreads();
-  write_slice_lists<BQ>(lv, li, q0, Q, k, n2, slice, S, part_v, part_i);
+  write_slice_lists<CC_BQ>(lv, li, q0, Q, k, n2, slice, S, part_v, part_i);
 }
 
 // Second pass of a D split: block (query tile, slice) sums each (query,
@@ -489,7 +663,6 @@ constexpr int TC_NTILE = TC_WROWS / 8;   // n8 tiles per warp
 constexpr int TC_BK = 128;                // bytes of D per chunk: 4 k-steps
 constexpr int TC_PIECES = TC_BK / 16;     // 16-byte copies per row
 constexpr int TC_PITCH = TC_BK + 16;      // 144 bytes: 9 bank groups apart
-constexpr size_t TC_SMEM_MAX = 227 * 1024;  // a block's shared memory
 
 // The kernel's lists keep k entries a query (the ranked merge needs no
 // power of two), at a row stride of ls = k (0 in a split's first pass).
@@ -506,15 +679,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(gmem), "r"(src_bytes)
                : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
@@ -773,7 +937,7 @@ __global__ void __launch_bounds__(TC_NT, 1) dtiled_mma_kernel(
                         part_i);
 }
 
-template <bool kInt8, bool kSplit>
+template <bool kSplit>
 cudaError_t launch_tiles(dim3 grid, size_t smem, cudaStream_t st,
                          const void* q, const void* c, const float* qn,
                          const float* q_scale, const float* c_scale,
@@ -783,12 +947,31 @@ cudaError_t launch_tiles(dim3 grid, size_t smem, cudaStream_t st,
                          float* part_v, int* part_i, float* split_acc,
                          float* split_cn) {
   cudaError_t err = cudaFuncSetAttribute(
-      dtiled_tile_kernel<kInt8, kSplit>,
+      dtiled_tile_kernel<kSplit>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dtiled_tile_kernel<kInt8, kSplit><<<grid, NT, smem, st>>>(
-      q, c, qn, q_scale, c_scale, qgid, Q, M, D, ld, k, n2, bd, col_offset,
-      col_stride, rows_per_slice, part_v, part_i, split_acc, split_cn);
+  dtiled_tile_kernel<kSplit><<<grid, NT, smem, st>>>(
+      static_cast<const int8_t*>(q), static_cast<const int8_t*>(c), qn,
+      q_scale, c_scale, qgid, Q, M, D, ld, k, n2, bd, col_offset, col_stride,
+      rows_per_slice, part_v, part_i, split_acc, split_cn);
+  return cudaGetLastError();
+}
+
+template <int BQ, bool kSplit>
+cudaError_t launch_ring(dim3 grid, size_t smem, cudaStream_t st,
+                        const void* q, const void* c, const float* qn,
+                        const int* qgid, int Q, int M, int D, int ld, int k,
+                        int bd, long long col_offset, long long col_stride,
+                        int rows_per_slice, float* part_v, int* part_i,
+                        float* split_acc, float* split_cn) {
+  cudaError_t err = cudaFuncSetAttribute(
+      dtiled_ring_kernel<BQ, kSplit>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dtiled_ring_kernel<BQ, kSplit><<<grid, NT, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(c), qn, qgid,
+      Q, M, D, ld, k, bd, col_offset, col_stride, rows_per_slice, part_v,
+      part_i, split_acc, split_cn);
   return cudaGetLastError();
 }
 
@@ -829,7 +1012,7 @@ cudaError_t launch_mma(dim3 grid, cudaStream_t st, const void* q,
         col_offset, col_stride, rows_per_slice, part_v, part_i, split_acc,
         split_cn);
   } else {
-    if (tc_smem_bytes(BQ, 3, k) <= TC_SMEM_MAX) {
+    if (tc_smem_bytes(BQ, 3, k) <= SMEM_MAX) {
       return launch_mma_ring<BQ, 3, false>(
           grid, st, q, c, qn, q_scale, c_scale, qgid, Q, M, D, ld, k, k, bd,
           col_offset, col_stride, rows_per_slice, part_v, part_i, split_acc,
@@ -842,40 +1025,53 @@ cudaError_t launch_mma(dim3 grid, cudaStream_t st, const void* q,
   }
 }
 
-// The first pass of the design the input takes: the tensor cores for
-// int8 rows at a 16-byte pitch with bd % 16 == 0 (vec), BQ = bq; the
-// CUDA cores (BQ = 16) otherwise.
+// The first pass of the design the input takes: fp32 the ring design
+// (BQ = bq, 32 or 16); int8 the tensor cores for rows at a 16-byte pitch
+// with bd % 16 == 0 (vec), BQ = bq, else the CUDA cores (BQ = 16).  Each
+// sizes its own shared memory.
 template <bool kSplit>
-cudaError_t launch_design(int int8, int vec, int bq, dim3 grid, int n2,
-                          cudaStream_t st, const void* q, const void* c,
-                          const float* qn, const float* q_scale,
-                          const float* c_scale, const int* qgid, int Q, int M,
-                          int D, int ld, int k, int bd, long long col_offset,
-                          long long col_stride, int rows_per_slice,
-                          float* part_v, int* part_i, float* split_acc,
-                          float* split_cn) {
-  const int lists_n2 = kSplit ? 0 : n2;   // a split pass keeps no lists
-  if (int8 && vec && bq == 32) {
+cudaError_t launch_design(int int8, int vec, int bq, dim3 grid,
+                          int n2, cudaStream_t st, const void* q,
+                          const void* c, const float* qn,
+                          const float* q_scale, const float* c_scale,
+                          const int* qgid, int Q, int M, int D, int ld, int k,
+                          int bd, long long col_offset, long long col_stride,
+                          int rows_per_slice, float* part_v, int* part_i,
+                          float* split_acc, float* split_cn) {
+  if (!int8) {
+    // a split's first pass keeps no lists
+    const size_t smem = ring_smem_bytes(bq, kSplit ? 0 : k);
+    if (vec || smem > SMEM_MAX) return cudaErrorInvalidValue;
+    if (bq == 32) {
+      return launch_ring<32, kSplit>(grid, smem, st, q, c, qn, qgid, Q, M, D,
+                                     ld, k, bd, col_offset, col_stride,
+                                     rows_per_slice, part_v, part_i,
+                                     split_acc, split_cn);
+    }
+    if (bq == 16) {
+      return launch_ring<16, kSplit>(grid, smem, st, q, c, qn, qgid, Q, M, D,
+                                     ld, k, bd, col_offset, col_stride,
+                                     rows_per_slice, part_v, part_i,
+                                     split_acc, split_cn);
+    }
+    return cudaErrorInvalidValue;
+  }
+  if (vec && bq == 32) {
     return launch_mma<32, kSplit>(grid, st, q, c, qn, q_scale, c_scale, qgid,
                                   Q, M, D, ld, k, bd, col_offset, col_stride,
                                   rows_per_slice, part_v, part_i, split_acc,
                                   split_cn);
   }
-  if (int8 && vec && bq == 16) {
+  if (vec && bq == 16) {
     return launch_mma<16, kSplit>(grid, st, q, c, qn, q_scale, c_scale, qgid,
                                   Q, M, D, ld, k, bd, col_offset, col_stride,
                                   rows_per_slice, part_v, part_i, split_acc,
                                   split_cn);
   }
-  if (vec || bq != BQ) return cudaErrorInvalidValue;
-  if (int8) {
-    return launch_tiles<true, kSplit>(
-        grid, tile_smem_bytes(lists_n2), st, q, c, qn, q_scale, c_scale, qgid,
-        Q, M, D, ld, k, lists_n2, bd, col_offset, col_stride, rows_per_slice,
-        part_v, part_i, split_acc, split_cn);
-  }
-  return launch_tiles<false, kSplit>(
-      grid, tile_smem_bytes(lists_n2), st, q, c, qn, nullptr, nullptr, qgid,
+  if (vec || bq != CC_BQ) return cudaErrorInvalidValue;
+  const int lists_n2 = kSplit ? 0 : n2;   // a split pass keeps no lists
+  return launch_tiles<kSplit>(
+      grid, tile_smem_bytes(lists_n2), st, q, c, qn, q_scale, c_scale, qgid,
       Q, M, D, ld, k, lists_n2, bd, col_offset, col_stride, rows_per_slice,
       part_v, part_i, split_acc, split_cn);
 }
@@ -884,9 +1080,10 @@ cudaError_t launch_design(int int8, int vec, int bq, dim3 grid, int n2,
 
 // q: [Q, *] and c: [M, *], rows of D elements at a pitch of ld elements
 // (ld >= D), both int8 (int8 != 0; q_scale f32[Q] and c_scale f32[M]) or
-// both f32 (scales null).  vec != 0 (int8 only) takes the tensor-core
-// design: ld, bd and the row addresses multiples of 16, and bq (queries
-// per block) 32 with n2 <= 512, or 16; the CUDA cores take bq = 16.
+// both f32 (scales null).  f32 takes the ring design: bq (queries per
+// block) 32 or 16, its shared memory within SMEM_MAX.  int8: vec != 0
+// takes the tensor-core design: ld, bd and the row addresses multiples
+// of 16, and bq 32 with n2 <= 512, or 16; the CUDA cores take bq = 16.
 // qn: f32[Q] |q|^2 summed in the same D tiles (ref.tiled_sqnorm_ref), or
 // null unless sub_qnorm.  1 <= bd (<= 1024 in int8 mode).  The grid is
 // (ceil(Q / bq), n_slices, n_splits) with rows_per_slice * n_slices >=
@@ -900,10 +1097,10 @@ extern "C" int knn_topk_dtiled_launch(
     const void* q, const void* c, const void* qn, const void* q_scale,
     const void* c_scale, const void* qgid, int Q, int M, int D, int ld,
     int k, int n2, int bd, int int8, int vec, long long col_offset,
-    long long col_stride, int bq, int rows_per_slice, int n_slices,
-    int n_splits, void* split_acc, void* split_cn, int fin_rows,
-    int fin_slices, void* part_v, void* part_i, void* out_v, void* out_i,
-    void* stream) {
+    long long col_stride, int bq, int rows_per_slice,
+    int n_slices, int n_splits, void* split_acc, void* split_cn,
+    int fin_rows, int fin_slices, void* part_v, void* part_i, void* out_v,
+    void* out_i, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (n_splits < 1) return (int)cudaErrorInvalidValue;
   const auto* qn_f = (const float*)qn;
@@ -914,23 +1111,25 @@ extern "C" int knn_topk_dtiled_launch(
   int lists = n_slices;
   cudaError_t err;
   if (n_splits == 1) {
-    err = launch_design<false>(int8, vec, bq, grid, n2, st, q, c, qn_f, qs_f,
-                               cs_f, qgid_i, Q, M, D, ld, k, bd, col_offset,
-                               col_stride, rows_per_slice, (float*)part_v,
-                               (int*)part_i, nullptr, nullptr);
+    err = launch_design<false>(int8, vec, bq, grid, n2, st, q, c, qn_f,
+                               qs_f, cs_f, qgid_i, Q, M, D, ld, k, bd,
+                               col_offset, col_stride, rows_per_slice,
+                               (float*)part_v, (int*)part_i, nullptr,
+                               nullptr);
   } else {
-    err = launch_design<true>(int8, vec, bq, grid, n2, st, q, c, qn_f, qs_f,
-                              cs_f, qgid_i, Q, M, D, ld, k, bd, col_offset,
-                              col_stride, rows_per_slice, nullptr, nullptr,
-                              (float*)split_acc, (float*)split_cn);
+    err = launch_design<true>(int8, vec, bq, grid, n2, st, q, c, qn_f,
+                              qs_f, cs_f, qgid_i, Q, M, D, ld, k, bd,
+                              col_offset, col_stride, rows_per_slice,
+                              nullptr, nullptr, (float*)split_acc,
+                              (float*)split_cn);
     if (err != cudaSuccess) return (int)err;
-    const size_t smem = finish_smem_bytes(n2);
+    const size_t fsmem = finish_smem_bytes(n2);
     err = cudaFuncSetAttribute(dtiled_finish_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+                               (int)fsmem);
     if (err != cudaSuccess) return (int)err;
     dtiled_finish_kernel<<<dim3((Q + FIN_BQ - 1) / FIN_BQ, fin_slices), NT,
-                           smem, st>>>(
+                           fsmem, st>>>(
         (const float*)split_acc, (const float*)split_cn, (D + bd - 1) / bd,
         qn_f, qs_f, cs_f, qgid_i, Q, M, k, n2, col_offset, col_stride,
         fin_rows, (float*)part_v, (int*)part_i);

@@ -15,9 +15,10 @@ by a second kernel):
   (``csrc/knn_topk_dtiled.cu``): D summed in tiles of width ``bd``, for
   an fp32 corpus or an int8 one with power-of-two row scales, where it
   equals its plain version ``ref.dtiled_topk_ref`` bit for bit.  The
-  input picks its mainloop (:func:`dtiled_design`: int8 tensor cores or
-  the CUDA cores) and the shapes its grid (:func:`plan_dtiled`), which
-  splits the D tiles across blocks where the slices leave SMs idle.
+  input picks its mainloop (:func:`dtiled_design`: fp32 on stage A's
+  ring, int8 on the tensor cores or the CUDA cores) and the shapes its
+  grid (:func:`plan_dtiled`), which splits the D tiles across blocks
+  where the slices leave SMs idle.
 
 ``ops`` picks between each kernel and its plain version.
 """
@@ -39,6 +40,8 @@ _ROWS = 128    # slices are whole multiples of one warp's 128 rows
 # row share, and ran slower.
 KNN_ROW_TILE, _KNN_PITCH = 256, 36
 KNN_SHAPES = ((32, 2), (16, 2))
+# the ring of csrc/knn_topk_dtiled.cu's fp32 design (stage A's mainloop)
+_RING_STAGES = 2
 
 
 def _pow2_at_least(n: int) -> int:
@@ -54,6 +57,16 @@ def knn_smem_bytes(bq: int, stages: int, k: int) -> int:
     launch whose bytes differ."""
     return (4 * stages * (KNN_ROW_TILE + bq) * _KNN_PITCH
             + 4 * bq * KNN_ROW_TILE + 8 * bq * k)
+
+
+def ring_smem_bytes(bq: int, ls: int) -> int:
+    """Dynamic shared memory of one block of ``csrc/knn_topk_dtiled.cu``'s
+    fp32 design: stage A's 2-stage ring of (256 rows + ``bq`` queries) x
+    36 floats (the score tile, |c|² and the merge's scratch lie on it),
+    then ``bq`` lists of ``ls`` (value, row) entries: ``ls = k``, or 0 in
+    a split's first pass, which keeps no lists.  The C entry sizes the
+    block by the same formula; the plan reads this one to pick ``bq``."""
+    return 4 * _RING_STAGES * (KNN_ROW_TILE + bq) * _KNN_PITCH + 8 * bq * ls
 
 
 class KnnPlan(NamedTuple):
@@ -99,7 +112,8 @@ def _slices(q_tiles: int, m: int, n_sms: int, unit: int) -> Tuple[int, int]:
 # beside the corpus.  Larger grids fill the SMs without a split.
 SPLIT_SCRATCH_BYTES = 64 << 20
 # (queries per block, slice row unit, rows per score tile) of each design
-_DESIGNS = {"cuda_cores": (16, 128, 512), "mma_s8": (32, 32, 256)}
+_DESIGNS = {"cuda_cores": (16, 128, 512), "mma_s8": (32, 32, 256),
+            "ring_f32": (32, _ROWS, KNN_ROW_TILE)}
 _FIN_BQ, _FIN_ROWS = 16, 8      # the split's second pass
 
 
@@ -107,8 +121,9 @@ _FIN_BQ, _FIN_ROWS = 16, 8      # the split's second pass
 class DtiledPlan:
     """The grid of one :func:`launch_dtiled` call.
 
-    ``design`` is the mainloop (``"mma_s8"``: int8 tensor cores;
-    ``"cuda_cores"``: ``fmaf``/``dp4a``), ``bq`` its queries per block;
+    ``design`` is the mainloop (``"ring_f32"``: fp32 on stage A's
+    ``cp.async`` ring and ``fmaf`` tile; ``"mma_s8"``: int8 tensor cores;
+    ``"cuda_cores"``: int8 ``dp4a``), ``bq`` its queries per block;
     the corpus is cut into ``n_slices`` slices of ``rows`` rows and the
     ``n_tiles`` D tiles into ``n_splits`` contiguous ranges
     (:func:`split_ranges`), one block per (query tile, slice, range).
@@ -144,11 +159,15 @@ def plan_dtiled(q_n: int, m: int, d: int, bd: int, k: int, n_sms: int,
     when the (query tile, slice) blocks would leave SMs idle, and the
     split's partials fit :data:`SPLIT_SCRATCH_BYTES`, are the D tiles
     split: each block's rows then fit one score tile, and the splits
-    fill the SMs (no more splits than D tiles).
+    fill the SMs (no more splits than D tiles).  ``"mma_s8"`` and
+    ``"ring_f32"`` hold 16 queries a block, not 32, where the lists of k
+    entries leave 32 queries no room.
     """
     bq, unit, row_tile = _DESIGNS[design]
     if design == "mma_s8" and _pow2_at_least(k) > 512:
         bq = 16                  # the per-query lists of n2 = 1024
+    if design == "ring_f32" and ring_smem_bytes(bq, k) > SMEM_MAX:
+        bq = 16                  # k > 584
     q_tiles = -(-q_n // bq)
     rows, n_slices = _slices(q_tiles, m, n_sms, unit)
     n_tiles = -(-d // bd)
@@ -169,10 +188,12 @@ def plan_dtiled(q_n: int, m: int, d: int, bd: int, k: int, n_sms: int,
 
 
 def dtiled_design(int8: bool, bd: int) -> str:
-    """The mainloop the input alone picks: int8 tensor cores when every D
-    tile starts 16-byte aligned (int8 rows, ``bd % 16 == 0``), else the
-    CUDA cores (fp32 keeps parity there: no TF32)."""
-    return "mma_s8" if int8 and bd % 16 == 0 else "cuda_cores"
+    """The mainloop the input alone picks: fp32 stage A's ring on the
+    CUDA cores (parity: no TF32); int8 the tensor cores when every D tile
+    starts 16-byte aligned (``bd % 16 == 0``), else the CUDA cores."""
+    if not int8:
+        return "ring_f32"
+    return "mma_s8" if bd % 16 == 0 else "cuda_cores"
 
 
 def plan_for(queries: torch.Tensor, corpus: torch.Tensor, k: int,
@@ -357,5 +378,6 @@ def launch_dtiled(queries: torch.Tensor, corpus: torch.Tensor, k: int,
         plan.n_splits, ptr[3], ptr[4], plan.fin_rows, plan.fin_slices,
         part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(),
         out_i.data_ptr(), build.stream_of(corpus)), "knn_topk_dtiled")
-    build.count_launch("knn_topk_dtiled")
+    build.count_launch("knn_topk_dtiled_f32" if plan.design == "ring_f32"
+                       else "knn_topk_dtiled")
     return out_v, out_i

@@ -26,7 +26,7 @@ from repro_torch.kernels import knn_topk, ref
 N_SMS = 132                              # an H100's SMs
 TAFENG = (256, 13949, 11997, 512, 300)   # (Q, M, D, bd, k) of a request
 MILLION = (32, 256, 1 << 20, 1024, 16)   # bench_serving's top point
-DESIGNS = ("mma_s8", "cuda_cores")
+DESIGNS = ("mma_s8", "cuda_cores", "ring_f32")
 
 
 def _plan(shape, design, n_sms=N_SMS):
@@ -105,7 +105,8 @@ def test_the_input_picks_the_design():
     assert knn_topk.dtiled_design(True, 512) == "mma_s8"
     assert knn_topk.dtiled_design(True, 48) == "mma_s8"
     assert knn_topk.dtiled_design(True, 67) == "cuda_cores"
-    assert knn_topk.dtiled_design(False, 512) == "cuda_cores"
+    for bd in (16, 17, 48, 67, 512, 1000, 1024):
+        assert knn_topk.dtiled_design(False, bd) == "ring_f32"
     # the tensor-core query tile is as large as the per-query lists allow
     assert _plan(TAFENG, "mma_s8").bq == 32
     q_n, m, d, bd, _ = TAFENG
@@ -201,3 +202,44 @@ def test_split_arithmetic_is_bitwise_both_plain_versions(q_n, m, d, k, bd,
         np.testing.assert_array_equal(ev.view(np.int32),
                                       tv.numpy().view(np.int32))
         np.testing.assert_array_equal(ei, ti.numpy())
+
+
+# ---------------------------------------------------------------------------
+# the fp32 design: stage A's ring with a fold at every D tile
+# ---------------------------------------------------------------------------
+
+def test_ring_smem_bytes_fit_a_block_at_the_planned_bq():
+    q_n, m, d, bd, _ = TAFENG
+    bqs = set()
+    for k in range(1, knn_topk.MAX_K + 1):
+        plan = _plan((q_n, m, d, bd, k), "ring_f32")
+        bqs.add(plan.bq)
+        assert knn_topk.ring_smem_bytes(plan.bq, k) <= knn_topk.SMEM_MAX, k
+        # 32 queries wherever their lists fit, 16 only beyond
+        assert plan.bq == (32 if knn_topk.ring_smem_bytes(32, k)
+                           <= knn_topk.SMEM_MAX else 16), k
+    assert bqs == {16, 32}
+
+
+def test_ring_smem_bytes_are_the_ring_and_the_lists():
+    # 2 stages of (256 rows + bq queries) x 36 floats, then bq lists of
+    # ls (value, row) entries; a split's first pass keeps none
+    assert knn_topk.ring_smem_bytes(32, 0) == 2 * 288 * 36 * 4 == 82944
+    assert knn_topk.ring_smem_bytes(16, 0) == 2 * 272 * 36 * 4
+    assert knn_topk.ring_smem_bytes(32, 300) == 82944 + 32 * 300 * 8
+    # the score tile, |c|^2 and the merge's scratch lie on the ring
+    for bq in (16, 32):
+        assert 4 * (bq * 256 + 256 + 2 * 8 * 64) <= \
+            knn_topk.ring_smem_bytes(bq, 0)
+
+
+def test_ring_takes_32_queries_at_tafeng():
+    plan = _plan(TAFENG, "ring_f32")
+    assert plan.bq == 32 and plan.q_tiles == 8
+    assert plan.n_splits == 1 and plan.rows % 128 == 0
+
+
+def test_ring_reads_the_million_point_in_one_query_tile():
+    plan = _plan(MILLION, "ring_f32")
+    assert plan.bq == 32 and plan.q_tiles == 1
+    assert 100 <= plan.blocks <= N_SMS and plan.n_splits > 1

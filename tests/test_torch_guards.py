@@ -247,6 +247,7 @@ def test_plain_versions_on_cpu_count_no_launch():
                                         "sparse_row_scatter", "knn_topk",
                                         "blend_topn_onehot",
                                         "knn_topk_dtiled",
+                                        "knn_topk_dtiled_f32",
                                         "blend_topn_rows_quant",
                                         "blend_topn_rows",
                                         "decayed_scatter",

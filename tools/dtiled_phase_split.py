@@ -9,7 +9,10 @@ kernel checks of ``chip_smoke.py`` (about 1% of the items set).  The
 difference of the two is the merge.
 
 * ``--kernel knn_topk_dtiled`` (the default): ``knn_topk_dtiled.cu``,
-  bd=512, int8 on the store's 16-byte row pitch and fp32;
+  bd=512, int8 on the store's 16-byte row pitch and fp32.  Where the
+  fp32 design runs stage A's ring (``"ring_f32"``), its products are
+  split further as ``--kernel knn_topk``'s are (``feed``, ``fma``), and
+  the fp32 call's kernels are profiled;
 * ``--kernel blend_topn_rows``: ``serving_rows.cu`` (stage B over
   rows, n=10, k=300 random neighbours a query) on f32 pre-fetched rows
   [Q, k, I], f32 rows read in place from the corpus and int8 rows read
@@ -88,6 +91,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import re
 import shutil
@@ -99,8 +103,9 @@ import numpy as np
 import torch
 
 MERGE_CALL = re.compile(r"^(\s*)(merge_score_tile\w*<)", re.M)
-# knn_topk.cu's products, split: the chunk copies alone (the multiply
-# compiled out) and the multiply alone (on whatever the ring holds)
+# the ring's products (knn_topk.cu, and knn_topk_dtiled.cu's fp32
+# design), split: the chunk copies alone (the multiply compiled out) and
+# the multiply alone (on whatever the ring holds)
 PRODUCTS = re.compile(r"mul_chunk<[^;]*;")
 COPIES = "auto issue = [&](int ch) {"
 ENTRIES = {"knn_topk_dtiled": "knn_topk_dtiled_launch",
@@ -185,14 +190,16 @@ def device_ms(fn, names, reps: int = 5) -> tuple:
 
 def build_variants(build, csrc: Path, out: Path, kernel: str,
                    variants: dict) -> dict:
-    """Compile each variant source of ``kernel`` (with topk_common.cuh)
-    in parallel; returns the loaded libraries by variant name."""
+    """Compile each variant source of ``kernel`` (with the headers of
+    ``build.HEADERS``) in parallel; returns the loaded libraries by
+    variant name."""
     procs = {}
     for name, text in variants.items():
         d = out / name
         d.mkdir(parents=True, exist_ok=True)
         (d / SOURCES.get(kernel, f"{kernel}.cu")).write_text(text)
-        shutil.copy(csrc / "topk_common.cuh", d / "topk_common.cuh")
+        for header in build.HEADERS:
+            shutil.copy(csrc / header, d / header)
         procs[name] = subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-shared",
              str(d / SOURCES.get(kernel, f"{kernel}.cu")), "-o",
@@ -756,7 +763,10 @@ def main() -> int:
     variants = {"whole": src,
                 "products": MERGE_CALL.sub(r"\1if (0) \2", src)}
     assert variants["products"] != src, "no merge call found"
-    split = kernel == "knn_topk" and hasattr(knn_topk, "plan_knn")
+    # the ring's products split further: B3's, and B5's fp32 design
+    split = (kernel == "knn_topk" and hasattr(knn_topk, "plan_knn")) or \
+        (kernel == "knn_topk_dtiled" and
+         "ring_f32" in getattr(knn_topk, "_DESIGNS", {}))
     if split and PRODUCTS.search(src) and COPIES in src:
         prod = variants["products"]
         variants["feed"] = PRODUCTS.sub(";", prod)
@@ -792,12 +802,15 @@ def main() -> int:
         runs["fp32_products"] = ("products", runs["fp32_whole"][1])
     res = {"root": str(root), "kernel": kernel, "k": K}
     if split:
-        n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = knn_topk.plan_knn(Q, M, K, n_sms)
-        res["plan"] = list(plan)
         for v in ("feed", "fma"):
             if v in libs:
                 runs[f"fp32_{v}"] = (v, runs["fp32_whole"][1])
+    if split and kernel == "knn_topk_dtiled":
+        res["plan"] = dataclasses.asdict(knn_topk.plan_for(qf, corpus, K, BD))
+    elif split:
+        n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = knn_topk.plan_knn(Q, M, K, n_sms)
+        res["plan"] = list(plan)
         # one query 256 times: every block merges alike, so the query
         # tiles of a slice cannot drift apart in their merges
         same = uid[:1].expand(Q).contiguous()
@@ -817,12 +830,14 @@ def main() -> int:
             whole = float(np.median(res[f"{mode}_whole_ms"]))
             products = float(np.median(res[f"{mode}_products_ms"]))
             res[f"{mode}_merge_ms"] = whole - products
-    if kernel == "knn_topk":
-        # the whole call's device time: the kernel's own two kernels,
-        # and every kernel the wrapper launched (a |c|^2 pass included)
+    if kernel == "knn_topk" or split:
+        # the whole fp32 call's device time: the kernel's own two
+        # kernels, and every kernel the wrapper launched
         build._lib = libs["whole"]
+        own = ("knn_tile_kernel" if kernel == "knn_topk"
+               else "dtiled_ring_kernel", "merge_lists_kernel")
         res["fp32_device_own_ms"], res["fp32_device_all_ms"] = device_ms(
-            runs["fp32_whole"][1], ("knn_tile_kernel", "merge_lists_kernel"))
+            runs["fp32_whole"][1], own)
     print(json.dumps(res), flush=True)
     return 0
 
