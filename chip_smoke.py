@@ -146,8 +146,32 @@ Phases, each fatal on failure (nothing is caught):
    call counted (only the three retrievals launch, B3 once each), timed
    on the host clock with its peak memory; B3 held to its plain version
    by the parity rule and timed beside it, matmul + ``topk`` and its
-   bound;
-14. summary -- every kernel's launches, then one JSON line of kernel
+   bound (the phase runs under ``torch.no_grad()``, as serving does);
+14. recommender and GNN training -- two-tower, DLRM, DeepFM, BERT4Rec
+   and DimeNet with the port's AdamW (launch counts reset before, read
+   after: no kernel of the port is on this path, and none launches).
+   First each ``smoke_config()`` model (BERT4Rec with the full and the
+   sampled cloze loss, DimeNet on molecules and on a feature graph)
+   takes 3 steps (warmup 1, lr 3e-6) on the card and on the CPU from
+   the same seeded weights and batch, losses and parameters held to
+   rtol=1e-5, atol=1e-5 (3 lr_t at or below that atol: Adam moves a
+   parameter whose gradient is ~0 by up to lr_t a step, whichever sign
+   the card's unordered segment sums give that gradient).  Then each at its published widths, weights
+   from a seeded generator, fp32 with TF32 off, 5 steps of the cells'
+   ``adamw(total_steps=10000)``: two-tower at 32,768 pairs (the cell's
+   65,536 would need ~51 GB of [B, B] logits and their gradients),
+   DLRM at 65,536 with each vocabulary capped at 2^22 rows (table,
+   gradient, m and v 4 x 12.8 GB), DeepFM at 65,536, BERT4Rec's sampled
+   cloze at 8,192 sequences (20 masked, 8,192 negatives), DimeNet's
+   ``molecule`` and ``full_graph_sm`` cells at their own sizes; each
+   loss finite, the parameters moved, the global gradient norm of step
+   1 finite and above 0 with every parameter the loss reads given a
+   gradient that is not all 0 after the clip (``molecule`` alone may
+   fail this, and is then logged as a step with no update: ROADMAP.md
+   §C item 8), the median of steps 2-5 on the host clock, the peak memory and
+   one more step under the profiler, beside the card's name and power
+   limit;
+15. summary -- every kernel's launches, then one JSON line of kernel
    records, and last the ``{"ok": true, ...}`` line.
 
 It needs a CUDA card and the rest of the repository; anywhere else it
@@ -175,8 +199,8 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch import convert  # noqa: E402
 from repro_torch.compliance import certify, retained_histories  # noqa: E402
 from repro_torch.configs import (bert4rec_cfg, deepfm_cfg,  # noqa: E402
-                                 dlrm_mlperf, granite_3_2b, recsys_shapes,
-                                 two_tower_retrieval)
+                                 dimenet_cfg, dlrm_mlperf, granite_3_2b,
+                                 recsys_shapes, two_tower_retrieval)
 from repro_torch.core import knn  # noqa: E402
 from repro_torch.core.tifu import closed_form_basket_weights  # noqa: E402
 from repro_torch.core.types import (KIND_ADD_BASKET,  # noqa: E402
@@ -186,10 +210,11 @@ from repro_torch.kernels import (build, decayed_scatter,  # noqa: E402
                                  flash_attention, knn_topk, ops, ref,
                                  serving_topn, sparse_row_gather,
                                  sparse_row_scatter)
-from repro_torch.models import (bert4rec, deepfm, dlrm,  # noqa: E402
-                                transformer, two_tower)
+from repro_torch.models import (bert4rec, deepfm, dimenet,  # noqa: E402
+                                dlrm, transformer, two_tower)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.mesh import make_user_shard_devices  # noqa: E402
+from repro_torch.optim import optimizers  # noqa: E402
 from repro_torch.optim.compression import (  # noqa: E402
     dequantize_int8_rows, quantize_int8_rows, quantize_int8_rows_pitched)
 from repro_torch.parallel.sharding import UserShardSpec  # noqa: E402
@@ -237,6 +262,20 @@ DLRM_VOCAB_CAP = 1 << 24
 RETRIEVAL_TOP_N, BERT_TOP_N = 100, 20
 # B3 at the recommender shapes: values within this of the plain version
 RS_RTOL, RS_ATOL = 1e-5, 1e-6
+# training: DLRM's vocabularies capped at 2^22 rows (table, gradient, m
+# and v: 4 x 12.8 GB), two-tower's and BERT4Rec's batches cut from
+# 65,536 (the [B, B] logits; the saved attention probabilities); the
+# smoke models' 3 steps, card against CPU, within these
+TRAIN_DLRM_CAP = 1 << 22
+TRAIN_TWO_TOWER, TRAIN_BERT4REC = 32_768, 8_192
+TRAIN_RTOL, TRAIN_ATOL = 1e-5, 1e-5
+# ... at this lr: Adam moves a parameter whose gradient is ~0 by up to
+# lr_t a step, whichever sign that gradient takes, so 3 lr_t <= atol
+TRAIN_LR = 3e-6
+assert 3 * TRAIN_LR <= TRAIN_ATOL
+# the reference's 6-block DimeNet overflows on random molecules at init:
+# the step-1 gradient norm is inf and the clip zeroes every gradient
+NO_UPDATE_AT_INIT = {"DimeNet molecule"}
 # (rows, ids) dtypes the sparse pair reads as given
 INDEX_PAIRS = ((torch.int32, torch.int32), (torch.int64, torch.int32),
                (torch.int32, torch.int64), (torch.int64, torch.int64))
@@ -2812,33 +2851,44 @@ def granite_path(dev, records):
     return launches
 
 
+def profiled(fn) -> tuple:
+    """One call of ``fn`` under ``torch.profiler``: the host-clock ms
+    (ended by ``torch.cuda.synchronize``), the device ms, and (ms,
+    count, name) of each kernel, the largest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # ranges on the device timeline (``Optimizer.step#AdamW.step``) hold
+    # kernels counted on their own
+    notes = {e.name for e in prof.events()
+             if getattr(e, "is_user_annotation", False)}
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.key in notes:
+            continue
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    return wall, sum(r[0] for r in rows), rows
+
+
 def profile_serving(model, tokens, max_len):
     """Where a prefill's and a decode step's device time goes: one more
     run of each under ``torch.profiler``, summed by kernel name."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     caches = model.prefill(tokens[:, :64], max_len)[1]
     for what, fn in (
             ("prefill", lambda: model.prefill(tokens, max_len)),
             ("decode step", lambda: model.decode_step(
                 caches, tokens[:, 64:65], 64))):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        rows = []
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:   # kernels, not ops
-                continue
-            dev_us = getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0))
-            if dev_us > 0:
-                rows.append((dev_us / 1e3, e.count, e.key))
-        rows.sort(reverse=True)
-        total = sum(r[0] for r in rows)
+        wall, total, rows = profiled(fn)
         log(f"  profile of one {what}: {wall:.1f} ms on the host clock, "
             f"{total:.1f} ms of device time ({100 * total / wall:.0f}% busy)"
             f"; by kernel: " + "; ".join(
@@ -2965,6 +3015,7 @@ def check_b3_widths(dev, gen):
                                        f"k=100")
 
 
+@torch.no_grad()
 def recsys_path(dev, card):
     """Phase 13: the recommender models at their published widths with
     seeded weights.  Two-tower (``TwoTowerConfig()``): ``serve_step`` at
@@ -3120,6 +3171,195 @@ def recsys_path(dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# recommender and GNN training: the five models' train steps, held card
+# against CPU at the smoke configs, then 5 AdamW steps at published widths
+# ---------------------------------------------------------------------------
+
+def train_batch(name, c, n, gen, smoke):
+    """A train batch of model ``name`` drawn from ``gen``: ``n`` rows (a
+    DimeNet cell's own graph, of ``SMOKE_CELLS`` if ``smoke``).
+    BERT4Rec's full cloze takes a target at every position, its sampled
+    one 20 masked positions and 8,192 negatives (4 and 64 if
+    ``smoke``)."""
+    rs = recsys_shapes
+    if name.startswith("BERT4Rec"):
+        b = rs.bert4rec_batch(c, n, gen, train=True,
+                              n_masked=4 if smoke else rs.N_MASKED,
+                              n_negatives=64 if smoke else rs.N_NEGATIVES)
+        if name == "BERT4Rec cloze":
+            return {"ids": b["ids"],
+                    "targets": rs.cloze_targets(b, c.seq_len)}
+        return b
+    if name.startswith("DimeNet"):
+        cells = dimenet_cfg.SMOKE_CELLS if smoke else dimenet_cfg.CELLS
+        seed = int(torch.randint(0, 1 << 30, (1,), generator=gen,
+                                 device=gen.device))
+        return dimenet_cfg.cell_batch(cells[name.split()[1]], seed,
+                                      gen.device)
+    make = {"two-tower": rs.two_tower_batch, "DLRM": rs.dlrm_batch,
+            "DeepFM": rs.deepfm_batch}[name]
+    return make(c, n, gen, train=True)
+
+
+def train_models():
+    """(name, module, smoke config, published config, batch at full
+    width, the cut, make_train_step's kwargs) of phase 14."""
+    dl = dataclasses.replace(
+        dlrm_mlperf.make_config(),
+        vocab_sizes=tuple(min(v, TRAIN_DLRM_CAP) for v in
+                          dlrm.CRITEO_1TB_VOCABS))
+    return [
+        ("two-tower", two_tower, two_tower_retrieval.smoke_config(),
+         two_tower_retrieval.make_config(), TRAIN_TWO_TOWER,
+         "batch 32,768 (the cell's 65,536 needs ~51 GB of [B, B] logits, "
+         "their gradient and softmax temporaries)", {}),
+        ("DLRM", dlrm, dlrm_mlperf.smoke_config(), dl,
+         recsys_shapes.TRAIN_BATCH,
+         f"vocabularies capped at 2^22 rows ({dl.table.total_rows:,} rows;"
+         f" table, gradient, m and v 4 x "
+         f"{dl.table.padded_rows() * 128 * 4 / 1e9:.1f} GB)", {}),
+        ("DeepFM", deepfm, deepfm_cfg.smoke_config(),
+         deepfm_cfg.make_config(), recsys_shapes.TRAIN_BATCH, "none", {}),
+        ("BERT4Rec cloze", bert4rec, bert4rec_cfg.smoke_config(), None, 0,
+         "", {"sampled": False}),
+        ("BERT4Rec sampled", bert4rec, bert4rec_cfg.smoke_config(),
+         bert4rec_cfg.make_config(), TRAIN_BERT4REC,
+         "batch 8,192 (the cell's 65,536 saves 21 GB of [B, 2, 200, 200] "
+         "probabilities a block); 20 masked, 8,192 negatives",
+         {"sampled": True}),
+        ("DimeNet molecule", dimenet, dimenet_cfg.make_config(
+            "molecule", smoke=True), dimenet_cfg.make_config("molecule"),
+         0, "none (128 molecules, 8,192 edges, 32,768 triplets)", {}),
+        ("DimeNet full_graph_sm", dimenet, dimenet_cfg.make_config(
+            "full_graph_sm", smoke=True),
+         dimenet_cfg.make_config("full_graph_sm"), 0,
+         "none (2,708 nodes, 10,752 edges, 43,008 triplets, 1,433 "
+         "features)", {}),
+    ]
+
+
+def train_parity(dev) -> None:
+    """Each model at its smoke config takes 3 AdamW steps (warmup 1,
+    ``TRAIN_LR``) on the card and on the CPU from the same seeded weights and
+    batch: every loss and every parameter after the steps within
+    ``TRAIN_RTOL`` / ``TRAIN_ATOL``."""
+    worst = {}
+    for name, mod, c, _, _, _, kw in train_models():
+        gen = torch.Generator().manual_seed(11)
+        cpu = mod.init_params(c, gen, "cpu")
+        batch = train_batch(name, c, 24, gen, smoke=True)
+        card = copy.deepcopy(cpu).to(dev)
+        card_batch = {k: v.to(dev) for k, v in batch.items()}
+        runs = []
+        for model, b in ((cpu, batch), (card, card_batch)):
+            opt = optimizers.adamw(model.parameters(), lr=TRAIN_LR,
+                                   warmup_steps=1)
+            step = mod.make_train_step(c, opt, **kw)
+            runs.append([float(step(model, b)["loss"]) for _ in range(3)])
+        assert np.allclose(runs[1], runs[0], rtol=TRAIN_RTOL,
+                           atol=TRAIN_ATOL), (name, runs)
+        err = 0.0
+        for (pn, p), q in zip(cpu.named_parameters(), card.parameters()):
+            q = q.detach().cpu()
+            assert torch.allclose(q, p.detach(), rtol=TRAIN_RTOL,
+                                  atol=TRAIN_ATOL), \
+                (name, pn, float((q - p.detach()).abs().max()))
+            err = max(err, float((q - p.detach()).abs().max()))
+        worst[name] = err
+        del cpu, card, batch, card_batch
+    log("  smoke configs on the card against the CPU, 3 AdamW steps each "
+        f"(lr {TRAIN_LR}, rtol={TRAIN_RTOL}, atol={TRAIN_ATOL}): losses and "
+        "parameters "
+        "allclose; max |param difference| " + ", ".join(
+            f"{n} {e:.2e}" for n, e in worst.items()))
+
+
+def corner(p: torch.Tensor) -> torch.Tensor:
+    """A copy of the first 4,096 entries of ``p``."""
+    return p.detach().reshape(-1)[:4096].clone()
+
+
+def train_path(dev, card) -> dict:
+    """Phase 14: the four recommenders and DimeNet trained with the
+    port's AdamW (the cells' ``adamw(total_steps=10000)``).  First the
+    smoke configs, card against CPU (:func:`train_parity`); then each
+    model at its published widths, weights from a seeded generator, 5
+    steps: each loss finite, the parameters moved, the global gradient
+    norm of step 1 finite and above 0 and every parameter the loss reads
+    given a gradient not all 0 after the clip (else, for a model of
+    ``NO_UPDATE_AT_INIT`` whose norm is not finite, the steps are logged
+    as steps with no update), the median step of steps 2-5 on the host
+    clock, the peak memory (reset before each model), and one more step
+    under the profiler.  Launch counts are set to 0 before the phase and read
+    after: no kernel of the port is on this path.  Returns the
+    counts."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    build.reset_launch_counts()
+    train_parity(dev)
+    for name, mod, _, c, n, cut, kw in train_models():
+        if c is None:                       # the full cloze: smoke only
+            continue
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = mod.init_params(c, gen, dev)
+        batch = train_batch(name, c, n, gen, smoke=False)
+        opt = optimizers.adamw(model.parameters(), total_steps=10000)
+        step = mod.make_train_step(c, opt, **kw)
+        torch.cuda.synchronize()
+        made = time.perf_counter() - t0
+        before = [corner(p) for p in model.parameters()]
+        losses, times, gnorm = [], [], 0.0
+        for i in range(5):
+            t0 = time.perf_counter()
+            loss = step(model, batch)["loss"]
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            if i == 0:
+                gnorm = float(opt.last_gnorm)
+                zero = [pn for pn, p in model.named_parameters()
+                        if p.grad is not None and not bool(p.grad.any())]
+        assert all(np.isfinite(losses)), (name, losses)
+        trained = np.isfinite(gnorm) and gnorm > 0 and not zero
+        assert trained or (name in NO_UPDATE_AT_INIT
+                           and not np.isfinite(gnorm)), (name, gnorm, zero)
+        # every parameter moved but a zero one the loss never reads
+        # (BERT4Rec's output bias under the sampled loss)
+        still = [pn for b, (pn, p) in zip(before, model.named_parameters())
+                 if torch.equal(b, corner(p))
+                 and not (p.grad is None and not bool(p.any()))]
+        assert not still, (name, still)
+        peak = torch.cuda.max_memory_allocated()
+        n_params = sum(p.numel() for p in model.parameters())
+        rows = (f"B={n:,}" if n else "the cell's graph")
+        log(f"  {name} train step ({rows}; cut: {cut}): {n_params:,} "
+            f"parameters ({n_params * 4 / 1e9:.2f} GB), made in "
+            f"{made:.1f} s; losses " + ", ".join(f"{x:.6g}" for x in losses)
+            + f"; step-1 gradient norm {gnorm:.6g}"
+            + ("" if trained else ": NO UPDATE, the clip zeroes every "
+               "gradient and weight decay alone moves the parameters "
+               "(ROADMAP.md §C item 8); a step with no update")
+            + f"; step {np.median(times[1:]) * 1e3:.3f} ms (median of "
+            "steps 2-5; "
+            f"step 1 {times[0] * 1e3:.1f} ms); peak "
+            f"{peak / 1e9:.2f} GB [{card}]")
+        wall, total, prof = profiled(lambda: step(model, batch))
+        log(f"    one more step under the profiler: {wall:.1f} ms on the "
+            f"host clock, {total:.1f} ms of device time; by kernel: "
+            + "; ".join(f"{ms:.1f} ms x{k} {kn[:50]}"
+                        for ms, k, kn in prof[:6]))
+        del model, batch, opt, step, before
+    torch.cuda.synchronize()
+    launches = {name: build.launch_counts[name] for name in KERNELS}
+    log(f"  training launches: {launches} (none of the port's kernels is "
+        f"on this path) [{card}]")
+    assert not any(launches.values()), launches
+    return launches
+
+
 def kernel_checks(ds, dev) -> dict:
     """Phase 3: every kernel against its plain version at the shapes the
     main path gives it (the store shapes ``serve.run_trickle`` builds
@@ -3251,6 +3491,10 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.append(recsys_path(dev, card))
     log(f"recommender serving: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths.append(train_path(dev, card))
+    log(f"recommender and GNN training: {time.perf_counter() - t0:.1f} s")
     for name in KERNELS:
         # launches on the paths that drive the kernel (each path's counts
         # were set to 0 just before it and read just after)

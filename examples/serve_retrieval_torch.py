@@ -36,8 +36,10 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+@torch.no_grad()
 def serve(device=None, n_cand: int = 200_000, seed: int = 0) -> dict:
-    """Index ``n_cand`` candidates, embed the queries, take both top-k.
+    """Index ``n_cand`` candidates, embed the queries, take both top-k
+    (no autograd graph: the towers' weights are trainable).
 
     Returns the queries and candidates, both (values, ids) results, the
     mean fraction of each query's top k the two share, and the host

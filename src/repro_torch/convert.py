@@ -6,20 +6,26 @@ their place.  ``state_to_numpy`` of either package's state
 installs in the port, so both engines and appliers can start from one
 state.  ``transformer_params_from_numpy`` does the same for the LM
 stack's parameter tree, ``recsys_params_from_numpy`` for the four
-recommender models'.
+recommender models' and DimeNet's.  ``opt_state_from_numpy`` and
+``opt_state_to_numpy`` carry a JAX ``OptState`` (AdamW's ``m`` / ``v``,
+Adafactor's ``v`` or ``vr`` / ``vc``, SGD's momentum, and the step) to
+and from the port's optimizer over such a model, leaf by leaf by
+parameter name.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
 from repro_torch.core.types import StreamState, resolve_device
-from repro_torch.models import bert4rec, deepfm, dlrm, two_tower
+from repro_torch.models import bert4rec, deepfm, dimenet, dlrm, two_tower
 from repro_torch.models.transformer import (Transformer, TransformerConfig,
                                             param_shapes)
+from repro_torch.optim.optimizers import (SGD, Adafactor, AdamW,
+                                          ClippedOptimizer, OptState)
 
 LEAVES = tuple(f.name for f in dataclasses.fields(StreamState))
 
@@ -76,9 +82,10 @@ def transformer_params_from_numpy(params: Dict[str, Any],
     return model
 
 
-# the port's model class of each recommender architecture
+# the port's model class of each recommender architecture (and DimeNet)
 RECSYS_MODELS = {"two_tower": two_tower.TwoTower, "dlrm": dlrm.DLRM,
-                 "deepfm": deepfm.DeepFM, "bert4rec": bert4rec.Bert4Rec}
+                 "deepfm": deepfm.DeepFM, "bert4rec": bert4rec.Bert4Rec,
+                 "dimenet": dimenet.DimeNet}
 
 
 def _jax_leaf(tree: Dict[str, Any], name: str) -> Any:
@@ -104,11 +111,12 @@ def _n_leaves(tree: Any) -> int:
 
 def recsys_params_from_numpy(arch: str, params: Dict[str, Any], c: Any,
                              device: Any = None) -> Any:
-    """The port's ``arch`` model (``two_tower``, ``dlrm``, ``deepfm`` or
-    ``bert4rec``) holding the JAX parameter tree ``params`` (numpy
-    leaves: tables, each MLP a list of ``{"w", "b"}``, BERT4Rec's
-    ``blocks`` stacked ``[L, ...]``), cast to ``c.dtype``, on ``device``
-    (CUDA unless the caller names another)."""
+    """The port's ``arch`` model (``two_tower``, ``dlrm``, ``deepfm``,
+    ``bert4rec`` or ``dimenet``) holding the JAX parameter tree
+    ``params`` (numpy leaves: tables, each MLP a list of ``{"w", "b"}``,
+    BERT4Rec's and DimeNet's ``blocks`` stacked ``[L, ...]``), cast to
+    ``c.dtype``, on ``device`` (CUDA unless the caller names
+    another)."""
     model = RECSYS_MODELS[arch](c, device)
     n_ours = len(list(model.parameters()))
     if _n_leaves(params) != n_ours:
@@ -119,5 +127,77 @@ def recsys_params_from_numpy(arch: str, params: Dict[str, Any], c: Any,
         if src.shape != tuple(p.shape):
             raise ValueError(f"{arch}.{name}: shape {src.shape}, expected "
                              f"{tuple(p.shape)}")
-        p.copy_(torch.from_numpy(np.array(src, dtype=np.float32)))
+        with torch.no_grad():
+            p.copy_(torch.from_numpy(np.array(src, dtype=np.float32)))
     return model
+
+
+def _set_jax_leaf(tree: Dict[str, Any], name: str, value: Any) -> None:
+    """Put ``value`` where :func:`_jax_leaf` reads port parameter
+    ``name`` (MLP layers in a list, in order)."""
+    parts = name.split(".")
+    if len(parts) == 3 and parts[1] in ("w", "b"):
+        layers: List[Dict[str, Any]] = tree.setdefault(parts[0], [])
+        i = int(parts[2])
+        layers.extend({} for _ in range(i + 1 - len(layers)))
+        layers[i][parts[1]] = value
+        return
+    for p in parts[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[parts[-1]] = value
+
+
+def _named_state(optimizer: ClippedOptimizer, model: torch.nn.Module):
+    """(name, state dict) of each of ``model``'s parameters."""
+    for name, p in model.named_parameters():
+        if p not in optimizer.state:
+            raise KeyError(f"{name} is not one of the optimizer's "
+                           f"parameters")
+        yield name, optimizer.state[p]
+
+
+def opt_state_from_numpy(optimizer: ClippedOptimizer,
+                         model: torch.nn.Module, state: Any) -> None:
+    """Install a JAX ``OptState`` (``jax.tree.map(np.asarray, ...)`` of
+    one, or a port :class:`OptState`) in ``optimizer``, the port's
+    optimizer over ``model``: the step count and every leaf's state,
+    matched by parameter name, copied IN PLACE."""
+    step, inner = state
+    # JAX's inner tree: AdamW's {"m": tree, "v": tree}, SGD's the
+    # momentum tree, Adafactor's a tree of {"v"} or {"vr", "vc"} dicts
+    for name, st in _named_state(optimizer, model):
+        if isinstance(optimizer, AdamW):
+            src = {k: _jax_leaf(inner[k], name) for k in ("m", "v")}
+        elif isinstance(optimizer, SGD):
+            src = {"m": _jax_leaf(inner, name)}
+        else:
+            src = _jax_leaf(inner, name)
+        if set(src) != set(st):
+            raise ValueError(f"{name}: state {sorted(src)}, the port's "
+                             f"optimizer holds {sorted(st)}")
+        for k, dst in st.items():
+            arr = np.asarray(src[k])
+            if arr.shape != tuple(dst.shape):
+                raise ValueError(f"{name}.{k}: shape {arr.shape}, "
+                                 f"expected {tuple(dst.shape)}")
+            dst.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+    optimizer.n_steps = int(np.asarray(step))
+
+
+def opt_state_to_numpy(optimizer: ClippedOptimizer,
+                       model: torch.nn.Module) -> OptState:
+    """``optimizer``'s state as the JAX ``OptState`` tree: ``step`` an
+    int32 scalar, ``inner`` numpy leaves laid out as the reference's
+    optimizer over ``model``'s parameter tree lays them out."""
+    inner: Dict[str, Any] = {}
+    for name, st in _named_state(optimizer, model):
+        host = {k: v.detach().cpu().numpy().copy() for k, v in st.items()}
+        if isinstance(optimizer, AdamW):
+            for k in ("m", "v"):
+                _set_jax_leaf(inner.setdefault(k, {}), name, host[k])
+        elif isinstance(optimizer, SGD):
+            _set_jax_leaf(inner, name, host["m"])
+        elif isinstance(optimizer, Adafactor):
+            _set_jax_leaf(inner, name, host)
+    return OptState(step=np.asarray(optimizer.n_steps, np.int32),
+                    inner=inner)

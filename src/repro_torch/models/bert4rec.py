@@ -9,25 +9,34 @@ alone stays finite.  ``serve_step`` keeps a running top-n over the item
 table in vocab chunks and scores only the ``vocab // vocab_chunk``
 whole chunks, as the reference's single-device scan does: rows past
 the last whole chunk are never scored.  ``retrieval_step`` scores every
-candidate row through ``ops.knn_topk`` (B3 on the card).
+candidate row through ``ops.knn_topk`` (B3 on the card).  Both run
+under ``torch.no_grad()``.
 
-Not ported here: the cloze losses, the train step and the shard_map
-serving path.
+Training: ``cloze_loss`` scores every masked position against the whole
+vocabulary ([B, S, V] logits: smoke sizes only); ``sampled_cloze_loss``
+scores the gold item against K shared negatives (the production cell),
+so no [B, S, V] tensor is built.  With autograd on, each block is
+recomputed in backward (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint``) rather than saving its [B, h, S, S] scores.
+``make_train_step(c, optimizer, sampled=...)`` gives ``train_step(model,
+batch) -> {"loss"}`` (``common.train_step_of``).  Not ported here: the
+shard_map serving path.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.types import resolve_device
 from repro_torch.kernels import ops, ref
-from repro_torch.models.common import (frozen, layer_norm, map_batch_chunks,
-                                       normal_)
+from repro_torch.models.common import (layer_norm, map_batch_chunks,
+                                       masked_xent, normal_, train_step_of)
 from repro_torch.models.embedding import check_ids
 
 
@@ -82,7 +91,7 @@ TOP_LEVEL = ("item_emb", "pos_emb", "out_ln_w", "out_ln_b", "out_bias")
 
 class Bert4Rec(nn.Module):
     """Item and position embeddings, the stacked blocks, the output norm
-    and bias (inference only)."""
+    and bias."""
 
     def __init__(self, c: Bert4RecConfig, device: Any = None):
         super().__init__()
@@ -91,13 +100,15 @@ class Bert4Rec(nn.Module):
         shapes = param_shapes(c)
 
         def empty(shape):
-            return frozen(torch.empty(shape, dtype=c.dtype, device=device))
+            return nn.Parameter(torch.empty(shape, dtype=c.dtype,
+                                            device=device))
         for name in TOP_LEVEL:
             self.register_parameter(name, empty(shapes[name]))
         self.blocks = nn.ParameterDict(
             {k: empty(s) for k, s in shapes["blocks"].items()})
 
 
+@torch.no_grad()
 def init_params(c: Bert4RecConfig, generator: torch.Generator,
                 device: Any = None) -> Bert4Rec:
     """As the reference: leaves named ``*_b`` / ``*bias`` zero, ``*_w``
@@ -123,24 +134,36 @@ def encoder(params: Bert4Rec, ids: torch.Tensor,
     id outside ``[0, vocab)``."""
     b, s = ids.shape
     check_ids(ids, c.vocab, "bert4rec ids")
-    x = params.item_emb[ids.long()].to(c.dtype) \
+    x = F.embedding(ids.long(), params.item_emb).to(c.dtype) \
         + params.pos_emb[None, :s, :].to(c.dtype)
     bias = torch.where((ids == 0)[:, None, None, :], -1e30, 0.0)  # [B,1,1,S]
-    h, d = c.n_heads, c.embed_dim // c.n_heads
-    scale = 1.0 / math.sqrt(d)
     for i in range(c.n_blocks):
         blk = {k: v[i] for k, v in params.blocks.items()}
-        q = (x @ blk["wq"]).reshape(b, s, h, d)
-        k = (x @ blk["wk"]).reshape(b, s, h, d)
-        v = (x @ blk["wv"]).reshape(b, s, h, d)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
-        probs = torch.softmax(scores * scale + bias, dim=-1).to(x.dtype)
-        att = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, -1)
-        x = layer_norm(x + att @ blk["wo"], blk["ln1_w"], blk["ln1_b"])
-        f = F.gelu(x @ blk["w1"] + blk["b1"], approximate="tanh") \
-            @ blk["w2"] + blk["b2"]
-        x = layer_norm(x + f, blk["ln2_w"], blk["ln2_b"])
+        if torch.is_grad_enabled():
+            # remat: the [B, h, S, S] scores are recomputed in backward
+            x = checkpoint(_block, x, blk, bias, c, use_reentrant=False)
+        else:
+            x = _block(x, blk, bias, c)
     return layer_norm(x, params.out_ln_w, params.out_ln_b)
+
+
+def _block(x: torch.Tensor, blk: Dict[str, torch.Tensor],
+           bias: torch.Tensor, c: Bert4RecConfig) -> torch.Tensor:
+    """One encoder block: attention over the unmasked keys, then the
+    GELU feed-forward, each with a residual and a layer norm."""
+    b, s, _ = x.shape
+    h, d = c.n_heads, c.embed_dim // c.n_heads
+    q = (x @ blk["wq"]).reshape(b, s, h, d)
+    k = (x @ blk["wk"]).reshape(b, s, h, d)
+    v = (x @ blk["wv"]).reshape(b, s, h, d)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+    probs = torch.softmax(scores * (1.0 / math.sqrt(d)) + bias,
+                          dim=-1).to(x.dtype)
+    att = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, -1)
+    x = layer_norm(x + att @ blk["wo"], blk["ln1_w"], blk["ln1_b"])
+    f = F.gelu(x @ blk["w1"] + blk["b1"], approximate="tanh") \
+        @ blk["w2"] + blk["b2"]
+    return layer_norm(x + f, blk["ln2_w"], blk["ln2_b"])
 
 
 def forward_logits(params: Bert4Rec, ids: torch.Tensor,
@@ -151,6 +174,54 @@ def forward_logits(params: Bert4Rec, ids: torch.Tensor,
     return x @ params.item_emb.T.to(c.dtype) + params.out_bias
 
 
+def cloze_loss(params: Bert4Rec, batch: Dict[str, torch.Tensor],
+               c: Bert4RecConfig) -> torch.Tensor:
+    """batch: {"ids": [B, S] (the mask token 1 at masked positions),
+    "targets": [B, S] (the true item where masked, −1 elsewhere)}.  The
+    full-vocabulary softmax cross-entropy over the masked positions."""
+    t = batch["targets"]
+    check_ids(torch.clamp(t, min=0), c.vocab, "bert4rec targets")
+    logits = forward_logits(params, batch["ids"], c)         # [B, S, V]
+    return masked_xent(logits, t)
+
+
+def sampled_cloze_loss(params: Bert4Rec, batch: Dict[str, torch.Tensor],
+                       c: Bert4RecConfig) -> torch.Tensor:
+    """The cloze loss against sampled negatives, the big-vocabulary path:
+    no [B, S, V] logits.
+
+    batch: {"ids": [B, S], "mask_pos": [B, M], "targets": [B, M] (−1
+    pads), "negatives": [K]}: each target's hidden state is scored
+    against the gold item and the K shared negatives (a softmax over
+    K + 1).  Raises :class:`~repro_torch.models.embedding.InvalidIdError`
+    on a position outside ``[0, S)`` or an item outside ``[0, vocab)``."""
+    x = encoder(params, batch["ids"], c)                    # [B, S, D]
+    mp = torch.clamp(batch["mask_pos"], min=0).long()
+    check_ids(mp, x.shape[1], "bert4rec mask_pos")
+    t, neg = batch["targets"], batch["negatives"].long()
+    gold_ids = torch.clamp(t, min=0).long()
+    check_ids(torch.cat([gold_ids.flatten(), neg]), c.vocab,
+              "bert4rec targets and negatives")
+    h = torch.gather(x, 1, mp[..., None].expand(-1, -1, x.shape[2]))
+    emb = params.item_emb
+    gold_e = F.embedding(gold_ids, emb).to(c.dtype)         # [B, M, D]
+    neg_e = F.embedding(neg, emb).to(c.dtype)               # [K, D]
+    gold = torch.sum(h * gold_e, dim=-1).float()
+    neg_logits = (h @ neg_e.T).float()                      # [B, M, K]
+    # the gold item is class 0 of the K + 1
+    return masked_xent(torch.cat([gold[..., None], neg_logits], -1),
+                       torch.where(t >= 0, 0, -1))
+
+
+def make_train_step(c: Bert4RecConfig, optimizer: torch.optim.Optimizer,
+                    sampled: bool = False) -> Callable:
+    """``train_step(model, batch) -> {"loss"}`` on
+    :func:`sampled_cloze_loss` (``sampled``) or :func:`cloze_loss`."""
+    fn = sampled_cloze_loss if sampled else cloze_loss
+    return train_step_of(lambda m, b: fn(m, b, c), optimizer)
+
+
+@torch.no_grad()
 def serve_step(params: Bert4Rec, batch: Dict[str, torch.Tensor],
                c: Bert4RecConfig, top_n: int = 20, vocab_chunk: int = 65536,
                batch_chunk: int = 16384) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -184,6 +255,7 @@ def serve_step(params: Bert4Rec, batch: Dict[str, torch.Tensor],
     return vals, idx
 
 
+@torch.no_grad()
 def retrieval_step(params: Bert4Rec, batch: Dict[str, torch.Tensor],
                    c: Bert4RecConfig, top_n: int = 100
                    ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -5,6 +5,11 @@ The port of ``repro/models/common.py``: an MLP whose layers hold
 logits, batch chunking for bulk scoring, and layer norm with the
 population variance (``jnp.var``; ``torch.var`` defaults to the
 unbiased one).
+
+Every model's parameters are trainable (``requires_grad``).  Their
+initialisers write them IN PLACE under ``torch.no_grad()``, and every
+serving entry point runs under ``torch.no_grad()``, so serving records
+no autograd graph.
 """
 from __future__ import annotations
 
@@ -15,38 +20,41 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-
-def frozen(t: torch.Tensor) -> nn.Parameter:
-    """An inference-only parameter holding ``t``."""
-    return nn.Parameter(t, requires_grad=False)
+from repro_torch.core.types import resolve_device
 
 
 class MLP(nn.Module):
     """The weights of layers ``x @ w[i] + b[i]`` (``w[i]`` is [in, out]
-    as in JAX); :func:`apply_mlp` runs them."""
+    as in JAX); :func:`apply_mlp` runs them.  On ``device``: CUDA unless
+    the caller names another."""
 
     def __init__(self, dims: Sequence[int], bias: bool = True,
                  dtype: torch.dtype = torch.float32, device: Any = None):
         super().__init__()
+        device = resolve_device(device)
         self.w = nn.ParameterList(
-            frozen(torch.zeros((a, b), dtype=dtype, device=device))
+            nn.Parameter(torch.zeros((a, b), dtype=dtype, device=device))
             for a, b in zip(dims[:-1], dims[1:]))
         self.b = nn.ParameterList(
-            frozen(torch.zeros((b,), dtype=dtype, device=device))
+            nn.Parameter(torch.zeros((b,), dtype=dtype, device=device))
             for b in dims[1:]) if bias else None
 
 
+@torch.no_grad()
 def normal_(p: torch.Tensor, generator: torch.Generator,
             std: float) -> torch.Tensor:
     """Fill ``p`` IN PLACE with N(0, std²) drawn in f32 from
     ``generator`` (on ``p``'s device); an f32 ``p`` takes no temporary."""
     if p.dtype == torch.float32:
-        torch.randn(p.shape, generator=generator, device=p.device, out=p)
+        # out= takes no tensor that requires grad: write through a view
+        torch.randn(p.shape, generator=generator, device=p.device,
+                    out=p.detach())
         return p.mul_(std)
     return p.copy_(torch.randn(p.shape, generator=generator,
                                device=p.device) * std)
 
 
+@torch.no_grad()
 def he_init_(mlp: MLP, generator: torch.Generator) -> MLP:
     """Weights N(0, 2/in) from ``generator`` (He init), biases zero, IN
     PLACE."""
@@ -61,7 +69,8 @@ def init_mlp(generator: torch.Generator, dims: Sequence[int],
              dtype: torch.dtype = torch.float32, bias: bool = True,
              device: Any = None) -> MLP:
     """dims = [in, h1, ..., out]: weights N(0, 2/in) drawn in f32 from
-    ``generator`` (He init), biases zero."""
+    ``generator`` (He init), biases zero, on ``device`` (CUDA unless the
+    caller names another; ``generator`` must live there)."""
     return he_init_(MLP(dims, bias, dtype, device), generator)
 
 
@@ -131,3 +140,33 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
+
+
+def masked_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy over the positions whose label is
+    >= 0 (−1 marks padding), in f32: ``Σ (lse − gold)·mask / max(Σ mask,
+    1)`` as the reference writes it."""
+    logits = logits.float()
+    mask = (labels >= 0).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    return torch.sum((lse - gold) * mask) / torch.clamp(torch.sum(mask),
+                                                        min=1.0)
+
+
+def train_step_of(loss: Callable, optimizer: torch.optim.Optimizer
+                  ) -> Callable:
+    """The port's form of the reference's ``train_step(params, opt_state,
+    batch) -> (params, opt_state, {"loss"})``: ``train_step(model,
+    batch) -> {"loss": tensor}`` zeroes the gradients, runs ``loss(model,
+    batch)`` backward and calls ``optimizer.step()``, which updates the
+    model's parameters and the optimizer's state IN PLACE."""
+    def train_step(model: nn.Module, batch: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        optimizer.zero_grad(set_to_none=True)
+        value = loss(model, batch)
+        value.backward()
+        optimizer.step()
+        return {"loss": value.detach()}
+    return train_step

@@ -6,20 +6,25 @@ sum-square / square-sum identity, its first-order term from a per-row
 linear weight, and a deep MLP 400-400-400 over the concatenated field
 embeddings; the logits summed.
 
-Not ported here: the loss, the train step and the mesh constraints.
+``serve_step`` runs under ``torch.no_grad()``.  ``loss_fn`` is the
+binary cross-entropy of :func:`forward`'s logits against
+``batch["labels"]``; ``make_train_step(c, optimizer)`` gives
+``train_step(model, batch) -> {"loss"}`` (``common.train_step_of``).
+Not ported here: the mesh constraints.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.types import resolve_device
-from repro_torch.models.common import (MLP, apply_mlp, frozen, he_init_,
-                                       normal_)
+from repro_torch.models.common import (MLP, apply_mlp, bce_with_logits,
+                                       he_init_, normal_, train_step_of)
 from repro_torch.models.embedding import (TableSpec, embedding_lookup,
                                           flat_ids)
 
@@ -60,19 +65,18 @@ class DeepFMConfig:
 
 class DeepFM(nn.Module):
     """The field table, the first-order weights, the deep MLP and the
-    global bias (inference only)."""
+    global bias."""
 
     def __init__(self, c: DeepFMConfig, device: Any = None):
         super().__init__()
         device = resolve_device(device)
         self.config = c
         rows = c.table.padded_rows()
-        self.table = frozen(torch.empty((rows, c.embed_dim), dtype=c.dtype,
-                                        device=device))
-        self.linear = frozen(torch.empty((rows,), dtype=c.dtype,
-                                         device=device))
+        like = dict(dtype=c.dtype, device=device)
+        self.table = nn.Parameter(torch.empty((rows, c.embed_dim), **like))
+        self.linear = nn.Parameter(torch.empty((rows,), **like))
         self.deep = MLP(c.deep_dims(), dtype=c.dtype, device=device)
-        self.bias = frozen(torch.zeros((), dtype=c.dtype, device=device))
+        self.bias = nn.Parameter(torch.zeros((), **like))
 
 
 def init_params(c: DeepFMConfig, generator: torch.Generator,
@@ -98,11 +102,26 @@ def forward(params: DeepFM, batch: Dict[str, torch.Tensor],
     fm2 = 0.5 * torch.sum(torch.square(s)
                           - torch.sum(torch.square(emb), dim=1), dim=-1)
     # FM 1st order (embedding_lookup has checked the ids)
-    fm1 = torch.sum(params.linear[flat_ids(ids, c.table)], dim=1)
+    fm1 = torch.sum(F.embedding(flat_ids(ids, c.table),
+                                params.linear[:, None])[..., 0], dim=1)
     deep = apply_mlp(params.deep, emb.reshape(ids.shape[0], -1))[..., 0]
     return fm1 + fm2 + deep + params.bias
 
 
+def loss_fn(params: DeepFM, batch: Dict[str, torch.Tensor],
+            c: DeepFMConfig) -> torch.Tensor:
+    """Binary cross-entropy of the logits against ``batch["labels"]``
+    [B] (0/1)."""
+    return bce_with_logits(forward(params, batch, c), batch["labels"])
+
+
+def make_train_step(c: DeepFMConfig, optimizer: torch.optim.Optimizer
+                    ) -> Callable:
+    """``train_step(model, batch) -> {"loss"}`` on :func:`loss_fn`."""
+    return train_step_of(lambda m, b: loss_fn(m, b, c), optimizer)
+
+
+@torch.no_grad()
 def serve_step(params: DeepFM, batch: Dict[str, torch.Tensor],
                c: DeepFMConfig) -> torch.Tensor:
     """Click probabilities [B]: sigmoid of :func:`forward`."""

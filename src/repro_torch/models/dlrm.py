@@ -7,21 +7,27 @@ The port of ``repro/models/dlrm.py``, serving half:
     dot interaction over the 27 vectors → lower triangle (351) ++ dense
     → top MLP → CTR logit.
 
-Not ported here: the loss, the train step and the mesh constraints.
+``serve_step`` runs under ``torch.no_grad()``.  ``loss_fn`` is the
+binary cross-entropy of :func:`forward`'s logits against
+``batch["labels"]``; ``make_train_step(c, optimizer)`` gives
+``train_step(model, batch) -> {"loss"}`` (``common.train_step_of``: the
+reference's ``(params, opt_state, batch) -> (params, opt_state,
+{"loss"})`` with the model and the optimizer's state updated IN PLACE).
+Not ported here: the mesh constraints.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.core.types import resolve_device
-from repro_torch.models.common import (MLP, apply_mlp, frozen, he_init_,
-                                       normal_)
+from repro_torch.models.common import (MLP, apply_mlp, bce_with_logits,
+                                       he_init_, normal_, train_step_of)
 from repro_torch.models.embedding import TableSpec, embedding_lookup
 
 # Public Criteo-Terabyte per-feature cardinalities (facebookresearch/dlrm).
@@ -70,14 +76,13 @@ class DLRMConfig:
 
 
 class DLRM(nn.Module):
-    """The concatenated table and the bottom and top MLPs (inference
-    only)."""
+    """The concatenated table and the bottom and top MLPs."""
 
     def __init__(self, c: DLRMConfig, device: Any = None):
         super().__init__()
         device = resolve_device(device)
         self.config = c
-        self.table = frozen(torch.empty(
+        self.table = nn.Parameter(torch.empty(
             (c.table.padded_rows(), c.embed_dim), dtype=c.dtype,
             device=device))
         self.bot = MLP(c.bot_dims(), dtype=c.dtype, device=device)
@@ -116,6 +121,20 @@ def forward(params: DLRM, batch: Dict[str, torch.Tensor],
     return apply_mlp(params.top, top_in)[..., 0]
 
 
+def loss_fn(params: DLRM, batch: Dict[str, torch.Tensor],
+            c: DLRMConfig) -> torch.Tensor:
+    """Binary cross-entropy of the logits against ``batch["labels"]``
+    [B] (0/1)."""
+    return bce_with_logits(forward(params, batch, c), batch["labels"])
+
+
+def make_train_step(c: DLRMConfig, optimizer: torch.optim.Optimizer
+                    ) -> Callable:
+    """``train_step(model, batch) -> {"loss"}`` on :func:`loss_fn`."""
+    return train_step_of(lambda m, b: loss_fn(m, b, c), optimizer)
+
+
+@torch.no_grad()
 def serve_step(params: DLRM, batch: Dict[str, torch.Tensor],
                c: DLRMConfig) -> torch.Tensor:
     """Click probabilities [B]: sigmoid of :func:`forward`."""

@@ -12,6 +12,12 @@ Where ``jnp.take`` reads an out-of-range id without faulting, a CUDA
 gather would fault: ``embedding_lookup`` and ``embedding_bag`` raise
 :class:`InvalidIdError` on a global row outside ``[0, total_rows)``.
 The check reads the ids' extremes back to the host once a call.
+
+The gathers run through ``F.embedding``: its backward sums each row's
+gradient by segments of the sorted ids, where the backward of indexing
+(``index_put_`` with accumulation) walks a run of equal ids serially,
+and a bag's padding (clamped to row 0) makes runs as long as half the
+batch.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import decay
 from repro_torch.models.common import normal_
@@ -95,11 +102,11 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
     check_ids(gids, spec.total_rows, "embedding_lookup")
     b = ids.shape[0]
     if not chunk or b <= chunk:
-        return table[gids]
+        return F.embedding(gids, table)
     out = torch.empty((b, *ids.shape[1:], table.shape[1]), dtype=table.dtype,
                       device=table.device)
     for s in range(0, b, chunk):
-        out[s:s + chunk] = table[gids[s:s + chunk]]
+        out[s:s + chunk] = F.embedding(gids[s:s + chunk], table)
     return out
 
 
@@ -115,7 +122,7 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, spec: TableSpec,
     gids = flat_ids(torch.clamp(ids, min=0), spec)
     check_ids(torch.where(ids >= 0, gids, ids.long()), spec.total_rows,
               "embedding_bag", lo=PAD)
-    emb = table[gids]                                     # [B, F, H, dim]
+    emb = F.embedding(gids, table)                        # [B, F, H, dim]
     mask = (ids >= 0).to(emb.dtype)[..., None]
     if weights is not None:
         mask = mask * weights[..., None]

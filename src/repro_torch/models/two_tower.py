@@ -6,23 +6,30 @@ user's history (a TIFU-style user vector over item embeddings, kept up
 to date with Eq. 3/4) → MLP → L2-normalised e_u.  Item tower: id and
 category embeddings → MLP → e_i.  ``serve_step`` scores user × item
 pairs; ``retrieval_step`` takes one query's top n of a candidate matrix
-through ``ops.knn_topk`` with the dot metric (B3 on the card).
+through ``ops.knn_topk`` with the dot metric (B3 on the card).  Both
+run under ``torch.no_grad()``; an index build calls ``item_tower``
+inside ``torch.no_grad()``.
 
-Not ported here: the sampled-softmax loss and the train step.
+Training: ``sampled_softmax_loss`` is the in-batch softmax at
+temperature 0.05 with the logQ correction, and ``make_train_step(c,
+optimizer)`` gives ``train_step(model, batch) -> {"loss"}``, the port's
+form of the reference's ``train_step(params, opt_state, batch) ->
+(params, opt_state, {"loss"})``: the model and the optimizer's state
+are updated IN PLACE.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.core.types import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models.common import (MLP, apply_mlp, frozen, he_init_,
-                                       normal_)
+from repro_torch.models.common import (MLP, apply_mlp, he_init_, normal_,
+                                       train_step_of)
 from repro_torch.models.embedding import (TableSpec, embedding_bag,
                                           embedding_lookup)
 
@@ -64,7 +71,7 @@ class TwoTowerConfig:
 
 
 class TwoTower(nn.Module):
-    """The three tables and two tower MLPs (inference only)."""
+    """The three tables and two tower MLPs."""
 
     def __init__(self, c: TwoTowerConfig, device: Any = None):
         super().__init__()
@@ -73,7 +80,7 @@ class TwoTower(nn.Module):
         for name, spec in (("user_emb", c.user_table),
                            ("item_emb", c.item_table),
                            ("cat_emb", c.cat_table)):
-            self.register_parameter(name, frozen(torch.empty(
+            self.register_parameter(name, nn.Parameter(torch.empty(
                 (spec.padded_rows(), c.embed_dim), dtype=c.dtype,
                 device=device)))
         self.user_mlp = MLP(c.tower_dims(), dtype=c.dtype, device=device)
@@ -121,6 +128,31 @@ def item_tower(params: TwoTower, batch: Dict[str, torch.Tensor],
                                 torch.cat([iid, cat], dim=-1)))
 
 
+def sampled_softmax_loss(params: TwoTower, batch: Dict[str, torch.Tensor],
+                         c: TwoTowerConfig,
+                         temperature: float = 0.05) -> torch.Tensor:
+    """In-batch softmax: user b's positive is item b, every other item of
+    the batch a negative, logits ``e_u·e_i / temperature`` minus
+    ``batch["logq"]`` [B] (the sampler's log-probability of each item)
+    where given.  The mean over the batch of ``lse − gold``, f32."""
+    eu = user_tower(params, batch, c)
+    ei = item_tower(params, batch, c)
+    logits = (eu @ ei.T).float() / temperature                 # [B, B]
+    if "logq" in batch:
+        logits = logits - batch["logq"][None, :]
+    lse = torch.logsumexp(logits, dim=-1)
+    return torch.mean(lse - torch.diagonal(logits))
+
+
+def make_train_step(c: TwoTowerConfig, optimizer: torch.optim.Optimizer
+                    ) -> Callable:
+    """``train_step(model, batch) -> {"loss"}`` on
+    :func:`sampled_softmax_loss` (see ``common.train_step_of``)."""
+    return train_step_of(lambda m, b: sampled_softmax_loss(m, b, c),
+                         optimizer)
+
+
+@torch.no_grad()
 def serve_step(params: TwoTower, batch: Dict[str, torch.Tensor],
                c: TwoTowerConfig) -> torch.Tensor:
     """Online scoring: user × item pairs → dot scores [B]."""
@@ -128,6 +160,7 @@ def serve_step(params: TwoTower, batch: Dict[str, torch.Tensor],
                      * item_tower(params, batch, c), dim=-1)
 
 
+@torch.no_grad()
 def retrieval_step(params: TwoTower, batch: Dict[str, torch.Tensor],
                    c: TwoTowerConfig, top_n: int = 100
                    ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -53,7 +53,7 @@ def test_init_table_and_mlp_shapes():
     assert abs(float(t.std()) - 0.25) < 0.01            # N(0, 1/dim)
     again = embedding.init_table(torch.Generator().manual_seed(0), spec)
     assert torch.equal(t, again)
-    mlp = common.init_mlp(gen, [12, 8, 3])
+    mlp = common.init_mlp(gen, [12, 8, 3], device="cpu")
     assert [tuple(w.shape) for w in mlp.w] == [(12, 8), (8, 3)]
     assert all(not b.any() for b in mlp.b)
     assert common.mlp_shapes([12, 8, 3]) == jcommon.mlp_shapes([12, 8, 3])
@@ -135,17 +135,18 @@ def test_bag_maintenance_matches_jax(rng):
 def test_mlp_matches_jax(rng, final):
     layers = jcommon.init_mlp(jax.random.PRNGKey(3), [12, 32, 16, 3])
     mlp = common.MLP([12, 32, 16, 3], device="cpu")
-    for i, layer in enumerate(layers):
-        mlp.w[i].copy_(_t(layer["w"]))
-        mlp.b[i].copy_(_t(layer["b"]) + 0.1 * i)
-        layer["b"] = layer["b"] + 0.1 * i
+    with torch.no_grad():                 # the weights are trainable
+        for i, layer in enumerate(layers):
+            mlp.w[i].copy_(_t(layer["w"]))
+            mlp.b[i].copy_(_t(layer["b"]) + 0.1 * i)
+            layer["b"] = layer["b"] + 0.1 * i
     x = rng.normal(size=(9, 12)).astype(np.float32)
     exp = jcommon.apply_mlp(layers, jnp.asarray(x),
                             final_act=None if final is None
                             else jax.nn.sigmoid)
     got = common.apply_mlp(mlp, _t(x), final_act=None if final is None
                            else torch.sigmoid)
-    np.testing.assert_allclose(got.numpy(), np.asarray(exp), **TOL)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(exp), **TOL)
 
 
 def test_layer_norm_uses_the_population_variance(rng):

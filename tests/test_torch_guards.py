@@ -319,3 +319,20 @@ def test_multihot_scatter_guards_raise():
     with pytest.raises(ValueError, match=r"\[N, B\]"):
         decayed_scatter._check_shapes(ids[0, 0], w[0], 16)
     assert decayed_scatter._check_shapes(ids, w, 16) == (2, 2, 2)
+
+
+def test_mlp_defaults_to_cuda():
+    """The recommender MLPs are built where every other constructor of
+    the port builds: on the card unless the caller names the CPU, and
+    never quietly on the CPU when there is no card."""
+    from repro_torch.models import common
+    gen = torch.Generator().manual_seed(0)
+    if torch.cuda.is_available():
+        assert common.MLP([3, 2]).w[0].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        common.MLP([3, 2])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        common.init_mlp(gen, [3, 2])
+    mlp = common.init_mlp(gen, [3, 2], device="cpu")
+    assert mlp.w[0].device.type == "cpu" and mlp.w[0].requires_grad

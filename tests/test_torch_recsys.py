@@ -97,7 +97,8 @@ def test_configs_and_init_match_jax(arch, jmod, jcfg, n_params):
     b = mod.init_params(c, _gen(1), device="cpu")
     assert all(torch.equal(x, y) for x, y in zip(a.parameters(),
                                                  b.parameters()))
-    assert all(not p.requires_grad for p in a.parameters())
+    # trainable: the serving entry points run under torch.no_grad()
+    assert all(p.requires_grad for p in a.parameters())
     full = {"two_tower": two_tower_retrieval, "dlrm": dlrm_mlperf,
             "deepfm": deepfm_cfg, "bert4rec": bert4rec_cfg}[arch]
     assert full.make_config().n_params() == jcfg.make_config().n_params()
@@ -122,7 +123,7 @@ def test_two_tower_towers_and_serve_step_match_jax():
     for ours, theirs in ((two_tower.user_tower, jtt.user_tower),
                          (two_tower.item_tower, jtt.item_tower),
                          (two_tower.serve_step, jtt.serve_step)):
-        np.testing.assert_allclose(ours(model, batch, c).numpy(),
+        np.testing.assert_allclose(ours(model, batch, c).detach().numpy(),
                                    np.asarray(theirs(jp, jb, jc)), **TOL)
 
 
@@ -148,7 +149,7 @@ def test_dlrm_serve_step_and_interaction_match_jax(rng):
         dlrm.serve_step(model, batch, c).numpy(),
         np.asarray(jdlrm.serve_step(jp, _jax(batch), jc)), **TOL)
     np.testing.assert_allclose(
-        dlrm.forward(model, batch, c).numpy(),
+        dlrm.forward(model, batch, c).detach().numpy(),
         np.asarray(jdlrm.forward(jp, _jax(batch), jc)), **TOL)
     # the pair order is np.tril_indices(F, k=-1)'s, row-major: (1,0),
     # (2,0), (2,1), (3,0), ...
@@ -165,12 +166,13 @@ def test_dlrm_serve_step_and_interaction_match_jax(rng):
 def test_deepfm_serve_step_matches_jax():
     jp, model, c = _port("deepfm", jdeepfm, jdeepfm_cfg)
     # a nonzero bias and first-order weights, so every term counts
-    model.bias.fill_(0.25)
+    with torch.no_grad():
+        model.bias.fill_(0.25)
     jp = {**jp, "bias": jnp.asarray(0.25, jnp.float32)}
     batch = recsys_shapes.deepfm_batch(c, 40, _gen(4))
     jc = jdeepfm_cfg.smoke_config()
     np.testing.assert_allclose(
-        deepfm.forward(model, batch, c).numpy(),
+        deepfm.forward(model, batch, c).detach().numpy(),
         np.asarray(jdeepfm.forward(jp, _jax(batch), jc)), **TOL)
     np.testing.assert_allclose(
         deepfm.serve_step(model, batch, c).numpy(),
@@ -193,9 +195,9 @@ def test_bert4rec_encoder_and_logits_match_jax():
     got = bert4rec.encoder(model, batch["ids"], c)
     exp = jbert.encoder(jp, _jax(batch)["ids"], jc)
     assert bool(torch.isfinite(got).all())
-    np.testing.assert_allclose(got.numpy(), np.asarray(exp), **TOL)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(exp), **TOL)
     np.testing.assert_allclose(
-        bert4rec.forward_logits(model, batch["ids"], c).numpy(),
+        bert4rec.forward_logits(model, batch["ids"], c).detach().numpy(),
         np.asarray(jbert.forward_logits(jp, _jax(batch)["ids"], jc)),
         rtol=1e-5, atol=1e-5)
     bad = batch["ids"].clone()
