@@ -130,7 +130,8 @@ Phases, each fatal on failure (nothing is caught):
    prefill attention kernel against plain and timed, then 4 prompts of
    4,096 tokens prefilled and 16 greedy decode steps, once with the
    kernels (counts reset before, read after) and once with the plain
-   versions; last-position logits compared, greedy tokens reported;
+   versions; last-position logits held by the gate against an f32 run
+   of the same weights, greedy tokens reported;
 13. recommender serving -- two-tower, BERT4Rec, DeepFM and DLRM at their
    published widths (weights from a seeded generator): first the four
    ``smoke_config()`` models on the card against the CPU, and B3 (dot)
@@ -171,7 +172,24 @@ Phases, each fatal on failure (nothing is caught):
    §C item 8), the median of steps 2-5 on the host clock, the peak memory and
    one more step under the profiler, beside the card's name and power
    limit;
-15. summary -- every kernel's launches, then one JSON line of kernel
+15. LM zoo serving (run right after phase 12: after phase 14's
+   traces ``torch.profiler`` records no kernel) -- qwen2-moe-a2.7b (24 layers, 60 routed experts
+   stored as 64, top-4, 4 shared), deepseek-v3-671b (MLA and routed
+   experts; depth cut to 1 dense + 1 MoE layer), gemma3-27b (cut to 5
+   local + 1 global layer) and command-r-plus-104b (cut to 2 layers), at
+   their published widths, bf16, weights from a seeded generator, one
+   model on the card at a time, each through phase 12's steps (the
+   helper ``lm_path`` both phases share): layer 0's prefill attention
+   kernel against plain and timed (qwen2-moe at D = 128 on
+   ``tma_wgmma``, DeepSeek's MLA at D = 192 on ``cuda_cores``, V padded
+   from 128 for the kernel and unpadded for the plain version), 4
+   prompts of 4,096 tokens and 16 greedy steps with the kernels (counts
+   reset before, read after: B9 once per layer, nothing else) and with
+   the plain versions (no launch), the last MoE layer's prefill expert
+   choices compared between the two runs, the logit gate against an f32
+   run of the same weights rebuilt from the seed after the bf16 model is
+   freed, a profile of one prefill and one decode step;
+16. summary -- every kernel's launches, then one JSON line of kernel
    records, and last the ``{"ok": true, ...}`` line.
 
 It needs a CUDA card and the rest of the repository; anywhere else it
@@ -179,6 +197,7 @@ exits non-zero without printing a result.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import importlib.util
@@ -198,8 +217,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.compliance import certify, retained_histories  # noqa: E402
-from repro_torch.configs import (bert4rec_cfg, deepfm_cfg,  # noqa: E402
-                                 dimenet_cfg, dlrm_mlperf, granite_3_2b,
+from repro_torch.configs import (bert4rec_cfg,  # noqa: E402
+                                 command_r_plus_104b, deepfm_cfg,
+                                 deepseek_v3_671b, dimenet_cfg, dlrm_mlperf,
+                                 gemma3_27b, granite_3_2b, qwen2_moe_a2_7b,
                                  recsys_shapes, two_tower_retrieval)
 from repro_torch.core import knn  # noqa: E402
 from repro_torch.core.tifu import closed_form_basket_weights  # noqa: E402
@@ -2604,6 +2625,7 @@ FLASH_EDGES = (
     (2, 190, 8, 2, 32, 0, BF16, True, MMA),      # D = 32 in bf16
     (1, 96, 4, 2, 256, 0, BF16, True, CORES),    # D = 256
     (1, 72, 4, 4, 96, 0, BF16, True, CORES),     # D = 96
+    (1, 100, 4, 4, 192, 0, BF16, True, CORES),   # D = 192 (MLA's Q/K)
     (2, 1, 2, 1, 64, 0, F32, True, CORES),       # one token
     (2, 1, 2, 1, 64, 0, BF16, True, WGMMA),
     (1, 100, 2, 2, 64, 0, F32, False, CORES),    # no causal mask
@@ -2633,18 +2655,32 @@ FLASH_RMS_RATIO = 2.0 ** -7
 FLASH_ROW_RATIO = 2.0 ** -6
 
 
-def flash_check(q, k, v, what, design, causal=True, window=0):
+def flash_check(q, k, v, what, design, causal=True, window=0,
+                ulp_floor=False):
     """The attention kernel against its plain version, on the design
-    ``flash_attention.plan_flash`` picks, which must be ``design``;
-    returns (kernel, plain)."""
-    plan = flash_attention.plan_flash(q, k, v, window, causal)
+    ``flash_attention.plan_flash`` picks, which must be ``design``; a V
+    narrower than Q (MLA's) goes to the kernel zero-padded to Q's width,
+    as ``transformer.attend_padded_v`` sends it, and to the plain version
+    unpadded, so the padding itself is checked.  Max |err| is held to
+    the JAX package's bound for the dtype, set for N(0, 1) inputs whose
+    outputs stay below 4; with ``ulp_floor`` (a model's activations,
+    which reach further) to one bf16 rounding step of the largest output
+    where that is more.  Returns (kernel, plain)."""
+    dv = v.shape[-1]
+    vk = transformer.pad_v(q, v)
+    plan = flash_attention.plan_flash(q, k, vk, window, causal)
     assert plan.design == design, (what, plan)
     exp = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    got = flash_attention.launch(q, k, v, causal=causal, window=window)
+    got = flash_attention.launch(q, k, vk, causal=causal,
+                                 window=window)[..., :dv]
     torch.cuda.synchronize()
     err = float((got.float() - exp.float()).abs().max())
-    assert got.shape == q.shape and got.dtype == q.dtype, what
-    assert err <= FLASH_ATOL[q.dtype], (what, err)
+    assert got.shape == q.shape[:3] + (dv,) and got.dtype == q.dtype, what
+    atol = FLASH_ATOL[q.dtype]
+    if ulp_floor:
+        top = float(exp.float().abs().max())
+        atol = max(atol, 2.0 ** (np.floor(np.log2(top)) - 7))
+    assert err <= atol, (what, err, atol)
     return got, exp
 
 
@@ -2684,42 +2720,44 @@ def check_flash_edges(dev):
         "128, 129, 191, 193, 257, 385 and off the 64-row tile, windows "
         "inside a tile, "
         "across an edge and wider than S, KV == H and KV < H, D 32/64/96/"
-        "128/256, no causal mask, strided heads, unaligned rows), max |err|"
+        "128/192/256, no causal mask, strided heads, unaligned rows), max |err|"
         " by design: " + ", ".join(f"{k} {e}" for k, e in worst.items()))
 
 
-def attention_flops(b, s, h, d):
-    """2·2·D flops (QKᵀ and P·V) per unmasked (query, key) pair of
-    causal attention: S(S+1)/2 pairs per (batch, head)."""
-    return 4.0 * d * b * h * s * (s + 1) / 2
+def attention_flops(b, s, h, d, dv=None, window=0):
+    """2·D flops for QKᵀ and 2·Dv for P·V per unmasked (query, key) pair
+    of causal attention: S(S+1)/2 pairs per (batch, head), or with a
+    window w < S, w(w+1)/2 + (S - w)·w."""
+    w = window if 0 < window < s else s
+    pairs = w * (w + 1) / 2 + (s - w) * w
+    return 2.0 * (d + (d if dv is None else dv)) * b * h * pairs
 
 
-def granite_path(dev, records):
-    """Phase 12: granite-3-2b at full width and depth serving 4 prompts of
-    4,096 tokens and 16 greedy decode steps, once with the kernels
-    (counts reset before, read after) and once with the plain versions;
-    layer 0's prefill attention checked kernel against plain and timed."""
-    c = granite_3_2b.make_config()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(5)
-    t0 = time.perf_counter()
-    model = transformer.init_params(c, gen, dev)
-    torch.cuda.synchronize()
-    n_bytes = sum(t.numel() * t.element_size() for t in model.parameters())
-    log(f"granite-3-2b: {c.n_params()} parameters ({n_bytes / 1e9:.2f} GB "
-        f"bf16) made from a seeded generator in "
-        f"{time.perf_counter() - t0:.1f} s")
-    tokens = torch.randint(0, c.vocab_size, (LM_BATCH, LM_PROMPT),
-                           generator=gen, device=dev)
-    max_len = LM_PROMPT + LM_DECODE
+# the profiler's name of each design's kernel
+FLASH_KERNEL_NAMES = {WGMMA: "flash_wgmma_kernel", MMA: "flash_mma_kernel",
+                      CORES: "flash_kernel"}
 
-    # layer 0's attention inputs, as the prefill computes them
+
+def lm_attention_check(c, model, tokens, design, what) -> dict:
+    """Layer 0's prefill attention of ``model`` on ``tokens``, as the
+    prefill computes it (MLA: V zero-padded for the kernel, the plain
+    version and SDPA on the unpadded V): the kernel against its plain
+    version by max |err| and by error over the output's size, timed by
+    events, the profiler, a burst of 10 and the host clock beside the
+    plain version and SDPA.  Returns the kernel's record."""
     layer0 = model.layers[0]
     x = model.embed[tokens].to(c.dtype) * (c.d_model ** 0.5)
-    pos = torch.arange(LM_PROMPT, device=dev).expand(tokens.shape)
-    q, k, v = transformer.project_qkv(
-        transformer.rms_norm(x, layer0.ln1, c.norm_eps), layer0, c, pos)
-    got, exp = flash_check(q, k, v, "granite layer 0", WGMMA)
+    pos = torch.arange(tokens.shape[1], device=tokens.device
+                       ).expand(tokens.shape)
+    qkv = transformer.mla_qkv if c.mla else transformer.project_qkv
+    q, k, v = qkv(transformer.rms_norm(x, layer0.ln1, c.norm_eps), layer0,
+                  c, pos)
+    del x
+    vk = transformer.pad_v(q, v)
+    # layer 0's window, as the prefill passes it (gemma3's 1,024)
+    win = transformer.kernel_window(model.groups()[0][2][0])
+    got, exp = flash_check(q, k, v, f"{what} layer 0", design, window=win,
+                           ulp_floor=True)
     # the error against the output's own size: most rows average
     # thousands of keys and are far smaller than the atol
     diff, size = (got.float() - exp.float()).abs(), exp.float().abs()
@@ -2727,48 +2765,61 @@ def granite_path(dev, records):
     rms_ratio = float(diff.square().mean().sqrt() / size.square().mean()
                       .sqrt())
     row_ratio = float((diff.amax(-1) / size.amax(-1)).max())
-    out_rms = float(size.square().mean().sqrt())
+    out_rms, out_max = float(size.square().mean().sqrt()), float(size.max())
     assert rms_ratio <= FLASH_RMS_RATIO and row_ratio <= FLASH_ROW_RATIO, \
-        ("granite layer 0 relative error", rms_ratio, row_ratio)
+        (f"{what} layer 0 relative error", rms_ratio, row_ratio)
     del got, exp, diff, size
     # the yardstick reads K/V repeated over each group of query heads
-    group = c.n_heads // c.n_kv_heads
+    b, s, h, d = q.shape
+    group = h // k.shape[2]
     qt, kt, vt = (t.transpose(1, 2) for t in (
         q, k.repeat_interleave(group, 2), v.repeat_interleave(group, 2)))
     lib = torch.nn.functional.scaled_dot_product_attention
+    mask = None
+    if win:
+        i = torch.arange(s, device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - win)
     t = dict(
-        ms=time_ms(lambda: flash_attention.launch(q, k, v)),
-        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v)),
-        library_ms=time_ms(lambda: lib(qt, kt, vt, is_causal=True)))
-    # q, k and v read once, an output of q's size written once
-    io_bytes = sum(a.numel() * a.element_size() for a in (q, k, v, q))
-    flops = attention_flops(LM_BATCH, LM_PROMPT, c.n_heads, c.d_head)
+        ms=time_ms(lambda: flash_attention.launch(q, k, vk, window=win)),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                         window=win)),
+        library_ms=time_ms(lambda: lib(qt, kt, vt, attn_mask=mask,
+                                       is_causal=mask is None)))
+    # q, k and v read once, an output of q's rows and v's width written
+    # once
+    io_bytes = sum(a.numel() * a.element_size() for a in (q, k, v)) \
+        + b * s * h * v.shape[-1] * v.element_size()
+    flops = attention_flops(b, s, h, d, v.shape[-1], win)
     # the event time of one call holds the wrapper's host time and the
     # launch's latency; beside it: the profiler's time of the kernel
     # alone (over the records the trace holds), the time a call of 10
     # back to back between two events, and the host time of a call,
     # enqueued behind a busy card
     reps = 5
-    own, every, n_rec = device_ms(lambda: flash_attention.launch(q, k, v),
-                                  ("flash_wgmma_kernel",), reps)
+    own, every, n_rec = device_ms(
+        lambda: flash_attention.launch(q, k, vk, window=win),
+        (FLASH_KERNEL_NAMES[design],), reps)
     own *= reps / n_rec                  # per launch the trace recorded
     torch.cuda.synchronize()
     h0 = time.perf_counter()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(10):
-        flash_attention.launch(q, k, v)
+        flash_attention.launch(q, k, vk, window=win)
     host_ms = (time.perf_counter() - h0) * 1e2
     end.record()
     end.synchronize()
     burst_ms = start.elapsed_time(end) / 10
-    records["flash_attention"] = dict(
-        t, max_abs_err=err,
-        shape=f"B={LM_BATCH} S={LM_PROMPT} H={c.n_heads} KV={c.n_kv_heads}"
-              f" D={c.d_head} bf16 causal",
+    pad = f" (V {v.shape[-1]} padded to {d})" if v.shape[-1] < d else ""
+    rec = dict(
+        t, max_abs_err=err, device_ms=own, burst_ms=burst_ms,
+        host_ms=host_ms,
+        shape=f"B={b} S={s} H={h} KV={k.shape[2]} D={d}{pad} bf16 causal"
+              + (f" window {win}" if win else ""),
         bound=bound(io_bytes, flops, PEAK_BF16))
-    log(f"  layer 0 prefill attention {records['flash_attention']['shape']}:"
-        f" kernel vs plain max |err| {err} (bound 3e-2); output rms "
+    log(f"  layer 0 prefill attention {rec['shape']}:"
+        f" kernel vs plain max |err| {err} (bound 3e-2, or one bf16 step "
+        f"of the largest output, {out_max}, where more); output rms "
         f"{out_rms}, error rms / output rms {rms_ratio} (bound "
         f"{FLASH_RMS_RATIO}), worst row's max |err| / its max |out| "
         f"{row_ratio} (bound {FLASH_ROW_RATIO}); {t['ms']:.4f} ms, "
@@ -2776,64 +2827,138 @@ def granite_path(dev, records):
         f"10 back to back; profiler device time {own:.4f} ms a launch "
         f"({flops / own / 1e9:.1f} TFLOP/s; {n_rec} of {reps} launches "
         f"in the trace, {every:.4f} ms a call in all kernels over {reps} "
-        f"calls); host time {host_ms:.4f} ms a call; plan "
-        f"{flash_attention.plan_flash(q, k, v)}")
-    del x, q, k, v, qt, kt, vt
+        f"calls); host time {host_ms:.4f} ms a call; plain "
+        f"{t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, bound "
+        f"{rec['bound'][0]:.4f} ms ({rec['bound'][1]}); plan "
+        f"{flash_attention.plan_flash(q, k, vk, win)}")
+    return rec
 
-    def serve():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, caches = model.prefill(tokens, max_len)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        first = logits
+
+def lm_serve(model, tokens, max_len):
+    """The prompts ``tokens`` prefilled, then ``LM_DECODE`` greedy steps:
+    (the prefill's last-position logits, the greedy tokens [B, 1 +
+    steps], prefill seconds, seconds per decode step), host clock ended
+    by ``torch.cuda.synchronize``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(tokens, max_len)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    first = logits
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    out = [tok]
+    for i in range(LM_DECODE):
+        logits, caches = model.decode_step(caches, tok, tokens.shape[1] + i)
         tok = torch.argmax(logits, dim=-1)[:, None]
-        out = [tok]
-        for i in range(LM_DECODE):
-            logits, caches = model.decode_step(caches, tok, LM_PROMPT + i)
-            tok = torch.argmax(logits, dim=-1)[:, None]
-            out.append(tok)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        del caches
-        return first, torch.cat(out, dim=1), t1 - t0, (t2 - t1) / LM_DECODE
+        out.append(tok)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del caches
+    return first, torch.cat(out, dim=1), t1 - t0, (t2 - t1) / LM_DECODE
 
+
+@contextlib.contextmanager
+def last_moe_routing(model, out: dict):
+    """While open, ``out["experts"]`` holds the top-k experts [T, k] that
+    ``model``'s last MoE layer chose for the last prefill's tokens
+    (``transformer.route`` wrapped; the model itself unchanged)."""
+    router = model.layers[-1].router
+    route = transformer.route
+
+    def recorded(xf, r, c):
+        gates, experts = route(xf, r, c)
+        if r is router and xf.shape[0] > LM_BATCH:
+            out["experts"] = experts
+        return gates, experts
+    transformer.route = recorded
+    try:
+        yield out
+    finally:
+        transformer.route = route
+
+
+def lm_path(name, c, seed, design, dev, card) -> tuple:
+    """One LM at ``c``'s widths serving 4 prompts of 4,096 tokens and 16
+    greedy decode steps, once with the kernels (counts reset before, read
+    after: B9 once per layer and nothing else) and once with the plain
+    versions (no launch), held by the logit gate against an f32 run of
+    the same (bf16-valued) weights, rebuilt from the seed after the bf16
+    model is freed; layer 0's prefill attention checked and timed first,
+    and for an MoE model the last MoE layer's prefill routing compared
+    between the two runs.  Returns (launches, layer 0's attention
+    record)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = transformer.init_params(c, gen, dev)
+    torch.cuda.synchronize()
+    n_stored = sum(t.numel() for t in model.parameters())
+    n_bytes = sum(t.numel() * t.element_size() for t in model.parameters())
+    log(f"{name}: {n_stored} parameters stored, {c.n_params()} by the JAX "
+        f"package's count ({c.n_active_params()} active a token; "
+        f"{n_bytes / 1e9:.2f} GB bf16), {c.n_layers} layers, made from a "
+        f"seeded generator in {time.perf_counter() - t0:.1f} s")
+    tokens = torch.randint(0, c.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device=dev)
+    max_len = LM_PROMPT + LM_DECODE
+    rec = lm_attention_check(c, model, tokens, design, name)
+
+    routing = ({}, {})
     build.reset_launch_counts()
-    k_logits, k_toks, k_pre, k_dec = serve()
+    with (last_moe_routing(model, routing[0]) if c.moe
+          else contextlib.nullcontext()):
+        k_logits, k_toks, k_pre, k_dec = lm_serve(model, tokens, max_len)
     launches = dict(build.launch_counts)
     assert launches["flash_attention"] == c.n_layers, launches
     assert sum(launches.values()) == c.n_layers, launches
     build.reset_launch_counts()
-    with ops.default_impl("ref"):
-        p_logits, p_toks, p_pre, p_dec = serve()
+    with ops.default_impl("ref"), (last_moe_routing(model, routing[1])
+                                   if c.moe else contextlib.nullcontext()):
+        p_logits, p_toks, p_pre, p_dec = lm_serve(model, tokens, max_len)
     assert not any(build.launch_counts.values()), build.launch_counts
     for lg in (k_logits, p_logits):
         assert lg.shape == (LM_BATCH, c.vocab_size) and \
-            bool(torch.isfinite(lg).all()), "granite logits"
+            bool(torch.isfinite(lg).all()), f"{name} logits"
     same = (k_toks == p_toks).cpu().numpy()
     agree = [int(np.argmin(r)) if not r.all() else len(r) for r in same]
-    log(f"  granite-3-2b serving, {LM_BATCH} x {LM_PROMPT} prompt tokens + "
+    log(f"  {name} serving, {LM_BATCH} x {LM_PROMPT} prompt tokens + "
         f"{LM_DECODE} greedy steps: prefill {LM_BATCH * LM_PROMPT / k_pre:.0f}"
         f" tokens/s with the kernels ({k_pre * 1e3:.1f} ms), "
         f"{LM_BATCH * LM_PROMPT / p_pre:.0f} with the plain versions "
         f"({p_pre * 1e3:.1f} ms); decode {k_dec * 1e3:.3f} ms per step "
-        f"(plain {p_dec * 1e3:.3f}); launches {launches}")
+        f"(plain {p_dec * 1e3:.3f}); launches {launches}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB in bf16 "
+        f"[{card}]")
+    if c.moe:
+        ke, pe = routing[0]["experts"], routing[1]["experts"]
+        assert ke.shape == pe.shape == (LM_BATCH * LM_PROMPT, c.top_k)
+        slots = int((ke != pe).sum())
+        sets = int((ke.sort(-1).values != pe.sort(-1).values).any(-1).sum())
+        log(f"  routing of the last MoE layer's prefill, kernels vs plain: "
+            f"{slots} of {ke.numel()} (token, k) choices differ, {sets} of "
+            f"{ke.shape[0]} tokens with another expert set")
     profile_serving(model, tokens, max_len)
 
     # the precision yardstick: the same (bf16-valued) weights in f32,
     # prefilled with the plain versions only, against which both bf16
-    # runs err
-    c32 = dataclasses.replace(c, dtype=torch.float32)
-    model32 = transformer.Transformer(c32, dev)
-    for p32, p16 in zip(model32.parameters(), model.parameters()):
-        p32.copy_(p16)
+    # runs err; built from the seed after the bf16 model is freed (an
+    # f32 copy beside it does not fit for the MoE models)
     del model
+    torch.cuda.empty_cache()
+    gen.manual_seed(seed)
+    model32 = transformer.init_params(dataclasses.replace(
+        c, dtype=torch.float32), gen, dev)
+    for p in model32.parameters():
+        for slab in (p if p.dim() == 3 else [p]):
+            slab.copy_(slab.to(torch.bfloat16))
     build.reset_launch_counts()
     with ops.default_impl("ref"):
         f_logits, _ = model32.prefill(tokens, max_len)
     assert not any(build.launch_counts.values()), build.launch_counts
     del model32
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
     def rel(a, b):
         return float((a - b).abs().max() / b.abs().max())
@@ -2845,10 +2970,57 @@ def granite_path(dev, records):
         f"{rel_k32:.3e}, plain {rel_p32:.3e} (bound on kernels vs plain: "
         f"{LM_LOGIT_BOUND} x the plain run's, {LM_LOGIT_BOUND * rel_p32:.3e});"
         f" greedy tokens equal in {int(same.sum())} of {same.size}, each "
-        f"prompt's first {agree} of {LM_DECODE + 1} the same")
-    assert rel_kp <= LM_LOGIT_BOUND * rel_p32, ("granite logits", rel_kp,
+        f"prompt's first {agree} of {LM_DECODE + 1} the same; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB with the f32 "
+        f"run")
+    assert rel_kp <= LM_LOGIT_BOUND * rel_p32, (f"{name} logits", rel_kp,
                                                  rel_p32)
+    return launches, rec
+
+
+def granite_path(dev, records, card):
+    """Phase 12: granite-3-2b at full width and depth through
+    ``lm_path``; its layer 0's attention is B9's record in the JSON
+    line."""
+    launches, records["flash_attention"] = lm_path(
+        "granite-3-2b", granite_3_2b.make_config(), 5, WGMMA, dev, card)
     return launches
+
+
+def lm_zoo():
+    """Phase 15's models: (name, config, seed, B9's design at layer 0),
+    each at its published widths; deepseek, gemma3 and Command R+ cut in
+    depth so that the bf16 weights, and after them the f32 yardstick's,
+    fit one 80 GB card."""
+    return (
+        ("qwen2-moe-a2.7b", qwen2_moe_a2_7b.make_config(), 6, WGMMA),
+        # 1 dense + 1 MoE layer: MLA and both layer groups
+        ("deepseek-v3-671b", dataclasses.replace(
+            deepseek_v3_671b.make_config(), n_layers=2,
+            first_dense_layers=1), 7, CORES),
+        # 5 local layers and 1 global: the 5:1 window pattern
+        ("gemma3-27b", dataclasses.replace(gemma3_27b.make_config(),
+                                           n_layers=6), 8, WGMMA),
+        ("command-r-plus-104b", dataclasses.replace(
+            command_r_plus_104b.make_config(), n_layers=2), 9, WGMMA),
+    )
+
+
+def lm_zoo_path(dev, card) -> tuple:
+    """Phase 15: qwen2-moe-a2.7b, deepseek-v3-671b, gemma3-27b and
+    command-r-plus-104b serving through ``lm_path``, one model on the
+    card at a time.  Returns (launches summed over the four kernel runs,
+    {model: layer 0's attention record})."""
+    total = dict.fromkeys(build.launch_counts, 0)
+    recs = {}
+    for name, c, seed, design in lm_zoo():
+        t0 = time.perf_counter()
+        launches, recs[name] = lm_path(name, c, seed, design, dev, card)
+        for k, n in launches.items():
+            total[k] += n
+        torch.cuda.empty_cache()
+        log(f"  {name}: {time.perf_counter() - t0:.1f} s")
+    return total, recs
 
 
 def profiled(fn) -> tuple:
@@ -3485,8 +3657,15 @@ def main() -> int:
     log(f"million-item point: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    paths.append(granite_path(dev, records))
+    paths.append(granite_path(dev, records, card))
     log(f"granite-3-2b serving: {time.perf_counter() - t0:.1f} s")
+    # phase 15 next: after phase 14's traces the profiler records no
+    # kernel at all
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    zoo, records["flash_attention"]["zoo"] = lm_zoo_path(dev, card)
+    paths.append(zoo)
+    log(f"LM zoo serving: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     paths.append(recsys_path(dev, card))

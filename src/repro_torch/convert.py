@@ -59,9 +59,11 @@ def transformer_params_from_numpy(params: Dict[str, Any],
                                   c: TransformerConfig,
                                   device: Any = None) -> Transformer:
     """The port's model holding the JAX parameter tree ``params``
-    (numpy leaves: ``embed``, ``final_ln``, ``unembed`` when untied, and
-    ``dense_layers`` stacked ``[L, ...]``), cast to ``c.dtype``, on
-    ``device`` (CUDA unless the caller names another)."""
+    (numpy leaves: ``embed``, ``final_ln``, ``unembed`` when untied,
+    ``mtp_proj`` / ``mtp_ln`` with the MTP head, and the ``dense_layers``
+    and ``moe_layers`` groups stacked ``[L, ...]``, GQA or MLA), cast to
+    ``c.dtype``, on ``device`` (CUDA unless the caller names another).
+    A leaf of the wrong shape raises, naming it."""
     shapes = param_shapes(c)
     model = Transformer(c, device)
 
@@ -71,14 +73,20 @@ def transformer_params_from_numpy(params: Dict[str, Any],
             raise ValueError(f"{name}: shape {src.shape}, expected {shape}")
         dst.copy_(torch.from_numpy(np.array(src, dtype=np.float32)))
 
-    for name in ("embed", "final_ln", "unembed"):
-        if name in shapes:
-            put(getattr(model, name), params[name], shapes[name], name)
-    stacked = params["dense_layers"]
-    for name, shape in shapes["dense_layers"].items():
-        for i, layer in enumerate(model.layers):
-            put(getattr(layer, name), np.asarray(stacked[name])[i],
-                shape[1:], f"dense_layers.{name}[{i}]")
+    groups = {name: layers for name, layers, _ in model.groups()}
+    for name, shape in shapes.items():
+        if not isinstance(shape, dict):
+            put(getattr(model, name), params[name], shape, name)
+            continue
+        layers = groups[name.split("_")[0]]
+        for leaf, stacked in shape.items():
+            src = np.asarray(params[name][leaf])
+            if src.shape[:1] != stacked[:1]:
+                raise ValueError(f"{name}.{leaf}: shape {src.shape}, "
+                                 f"expected {stacked}")
+            for i, layer in enumerate(layers):
+                put(getattr(layer, leaf), src[i], stacked[1:],
+                    f"{name}.{leaf}[{i}]")
     return model
 
 

@@ -364,8 +364,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Causal (``window`` > 0 adds the sliding window), scale 1/√D, H % KV
     == 0.  O(S²·D) compute with O(S·D) memory on the kernel path
     (``flash_attention``: the [S, S] scores are never written); the
-    plain path is ``ref.flash_attention_ref``.
+    plain path is ``ref.flash_attention_ref``.  V as wide as Q on both
+    paths (``models.transformer.attend_padded_v`` pads a narrower one).
     """
+    if v.shape[-1] != q.shape[-1]:
+        raise ValueError(f"V width {v.shape[-1]} != Q width {q.shape[-1]}")
     if uses_kernel(q, impl):
         return _flash.launch(q, k, v, causal=causal, window=window)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window)

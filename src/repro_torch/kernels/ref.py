@@ -25,6 +25,10 @@ def topk_lowest_index(x: torch.Tensor, k: int) -> Tuple[torch.Tensor,
 # int64 positions and scratch stay a few GB
 MERGE_CELLS = 1 << 27
 
+# the most f32 scores :func:`flash_attention_ref` holds at once (1 GiB):
+# deepseek's 128 heads over a 4,096-token prompt take 512 query rows
+SCORES_BUDGET = 1 << 28
+
 
 def merge_topk(vals: torch.Tensor, idx: torch.Tensor, scores: torch.Tensor,
                cols: torch.Tensor, k: int) -> Tuple[torch.Tensor,
@@ -441,18 +445,20 @@ def decayed_scatter_ref(ids: torch.Tensor, weights: torch.Tensor,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int = 0,
                         scale: Optional[float] = None) -> torch.Tensor:
-    """Plain masked softmax attention, [B, S, H, D] → [B, S, H, D].
+    """Plain masked softmax attention, [B, S, H, D] → [B, S, H, Dv].
 
-    ``k``/``v`` carry KV heads with H % KV == 0 (query head h reads KV
-    head h // (H/KV)).  Scores in f32 times ``scale`` (default 1/√D),
-    the causal mask ``kpos <= qpos`` and with ``window`` > 0 also
-    ``kpos > qpos − window``, masked scores −1e30; the softmax is cast
-    to the V dtype before P·V, as the JAX oracle does.  One batch row at
-    a time, so the [H, S, S] scores of one row are the largest
-    intermediate.
+    ``k`` [B, S, KV, D] and ``v`` [B, S, KV, Dv] carry KV heads with
+    H % KV == 0 (query head h reads KV head h // (H/KV)); V's width may
+    differ from D, as in the JAX oracle.  Scores in f32 times ``scale``
+    (default 1/√D), the causal mask ``kpos <= qpos`` and with ``window``
+    > 0 also ``kpos > qpos − window``, masked scores −1e30; the softmax
+    is cast to the V dtype before P·V, as the JAX oracle does.  One batch
+    row and at most ``SCORES_BUDGET`` scores at a time (a long prompt of
+    many heads is taken in chunks of query rows), so the scores stay a
+    bounded intermediate.
     """
     b, s, h, d = q.shape
-    sk, kv = k.shape[1], k.shape[2]
+    sk, kv, dv = k.shape[1], k.shape[2], v.shape[3]
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     qpos = torch.arange(s, device=q.device)[:, None]
@@ -462,12 +468,17 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask &= kpos <= qpos
     if window:
         mask &= kpos > qpos - window
-    out = []
+    rows = max(1, SCORES_BUDGET // (h * sk))
+    out = torch.empty((b, s, h, dv), dtype=v.dtype, device=q.device)
     for i in range(b):
-        qg = q[i].float().reshape(s, kv, h // kv, d)
-        scores = torch.einsum("qkgd,skd->kgqs", qg, k[i].float()) * scale
-        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
-        p = torch.softmax(scores, dim=-1).to(v.dtype)
-        o = torch.einsum("kgqs,skd->qkgd", p.float(), v[i].float())
-        out.append(o.reshape(s, h, d).to(v.dtype))
-    return torch.stack(out)
+        ki, vi = k[i].float(), v[i].float()
+        for r0 in range(0, s, rows):
+            r1 = min(s, r0 + rows)
+            qg = q[i, r0:r1].float().reshape(r1 - r0, kv, h // kv, d)
+            scores = torch.einsum("qkgd,skd->kgqs", qg, ki).mul_(scale)
+            scores.masked_fill_(~mask[r0:r1], -1e30)
+            p = torch.softmax(scores, dim=-1).to(v.dtype)
+            del scores
+            o = torch.einsum("kgqs,skd->qkgd", p.float(), vi)
+            out[i, r0:r1] = o.reshape(r1 - r0, h, dv)
+    return out

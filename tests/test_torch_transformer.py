@@ -14,6 +14,7 @@ order.  Both packages keep bf16 KV caches, so decode steps read the same
 rounded keys and values.
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -166,10 +167,14 @@ def test_granite_config_is_the_jax_one():
                 assert getattr(mine, f.name) == getattr(theirs, f.name), f
         assert str(mine.dtype).split(".")[-1] == jnp.dtype(theirs.dtype).name
     full = granite_3_2b.make_config()
-    # JAX's count leaves out the norm weights (two per layer, one final)
+    # JAX's count, which leaves out the norm weights (two per layer, one
+    # final): the model stores that many more
     norms = full.d_model * (2 * full.n_layers + 1)
-    assert full.n_params() == jgranite.make_config().n_params() + norms
+    assert full.n_params() == jgranite.make_config().n_params()
     assert 2.4e9 < full.n_params() < 2.6e9
+    stored = sum(math.prod(s) for s in tf.param_shapes(full)["dense_layers"]
+                 .values()) + full.vocab_size * full.d_model + full.d_model
+    assert stored == full.n_params() + norms
 
 
 def test_init_params_and_cache_shapes():
