@@ -189,7 +189,24 @@ Phases, each fatal on failure (nothing is caught):
    choices compared between the two runs, the logit gate against an f32
    run of the same weights rebuilt from the seed after the bf16 model is
    freed, a profile of one prefill and one decode step;
-16. summary -- every kernel's launches, then one JSON line of kernel
+16. LM training (run after phase 15, before phase 13) -- 9b, the
+   gradient of B9, alone at granite-3-2b's layer 0 (B 4, S 4,096, H 32,
+   KV 8, D 64, bf16, causal), qwen2-moe's (D 128), a gemma3 local layer
+   (window 1,024), f32, an odd S, MLA's D 192 without the causal mask,
+   D 32 and one token: dq, dk and dv held to ``ref.flash_attention_bwd_ref``
+   by the LM logits row's layer-0 bounds, bitwise from run to run, timed
+   by events, the profiler, a burst and the host clock beside the plain
+   version and SDPA's backward; then (counts reset before, read after: B9
+   and 9b only) the gradient gate (granite at full width cut to 4
+   layers, B 4 x S 4,096: step-1 gradients with the kernels against the
+   plain versions per leaf within 2x the plain run's own error against
+   an f32 run, every layer's attention weights given a gradient),
+   granite-3-2b at full width and depth taking 5 AdamW steps (step ms,
+   tokens/s, peak memory, one more step under the profiler), the
+   training driver on ``lm100m`` (20 steps with a checkpoint, a resume to
+   30), and the granite, qwen2-moe, deepseek and gemma3 smoke models'
+   3 steps card against CPU;
+17. summary -- every kernel's launches, then one JSON line of kernel
    records, and last the ``{"ok": true, ...}`` line.
 
 It needs a CUDA card and the rest of the repository; anywhere else it
@@ -234,6 +251,7 @@ from repro_torch.kernels import (build, decayed_scatter,  # noqa: E402
 from repro_torch.models import (bert4rec, deepfm, dimenet,  # noqa: E402
                                 dlrm, transformer, two_tower)
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as train_lm  # noqa: E402
 from repro_torch.launch.mesh import make_user_shard_devices  # noqa: E402
 from repro_torch.optim import optimizers  # noqa: E402
 from repro_torch.optim.compression import (  # noqa: E402
@@ -334,6 +352,11 @@ KERNELS = {
     "flash_attention": dict(
         source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         replaces="src/repro/kernels/flash_attention.py:73"),
+    # 9b: the gradient the JAX package takes by autodiff of its
+    # model-level blocked attention
+    "flash_attention_bwd": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/transformer.py:378"),
 }
 
 
@@ -949,13 +972,16 @@ def same(a, b) -> bool:
         torch.int32), b.contiguous().view(torch.int32))
 
 
-def device_ms(fn, names, reps: int = 5) -> tuple:
+def device_ms(fn, names, reps: int = 5, required: bool = True):
     """Device time per call of ``fn`` under ``torch.profiler`` after a
     warm-up: (the kernels whose names contain one of ``names``, every
     kernel the call launched, how many records of the named kernels the
     trace holds -- a trace can miss one, and then these times read
     short; one that holds none of them is logged with the kernels it did
-    hold and taken again, up to 6 times)."""
+    hold and taken again, up to 6 times).  After 6 traces with no record
+    it raises, or returns ``None`` where not ``required`` (a reading
+    beside CUDA-event times: the profiler in this sandbox has recorded no
+    kernel at all for whole stretches of a run, PERF.md §7)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -984,6 +1010,10 @@ def device_ms(fn, names, reps: int = 5) -> tuple:
             break
         log(f"  profiler: no record of {names} in a trace of {len(seen)} "
             f"kernels {seen[:4]}; taken again")
+    if own == 0 and not required:
+        log(f"  profiler: no record of {names} in 6 traces; the CUDA-event "
+            f"readings stand alone")
+        return None
     assert own > 0, f"no device time for {names}"
     return own / reps / 1e3, every / reps / 1e3, records
 
@@ -2796,10 +2826,10 @@ def lm_attention_check(c, model, tokens, design, what) -> dict:
     # back to back between two events, and the host time of a call,
     # enqueued behind a busy card
     reps = 5
-    own, every, n_rec = device_ms(
-        lambda: flash_attention.launch(q, k, vk, window=win),
-        (FLASH_KERNEL_NAMES[design],), reps)
-    own *= reps / n_rec                  # per launch the trace recorded
+    prof = device_ms(lambda: flash_attention.launch(q, k, vk, window=win),
+                     (FLASH_KERNEL_NAMES[design],), reps, required=False)
+    own, every, n_rec = prof or (float("nan"), float("nan"), 0)
+    own *= reps / max(n_rec, 1)          # per launch the trace recorded
     torch.cuda.synchronize()
     h0 = time.perf_counter()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -2892,6 +2922,8 @@ def lm_path(name, c, seed, design, dev, card) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = transformer.init_params(c, gen, dev)
+    # serving: the trainable weights frozen, so no call records a graph
+    model.requires_grad_(False)
     torch.cuda.synchronize()
     n_stored = sum(t.numel() for t in model.parameters())
     n_bytes = sum(t.numel() * t.element_size() for t in model.parameters())
@@ -2949,6 +2981,7 @@ def lm_path(name, c, seed, design, dev, card) -> tuple:
     gen.manual_seed(seed)
     model32 = transformer.init_params(dataclasses.replace(
         c, dtype=torch.float32), gen, dev)
+    model32.requires_grad_(False)
     for p in model32.parameters():
         for slab in (p if p.dim() == 3 else [p]):
             slab.copy_(slab.to(torch.bfloat16))
@@ -3532,6 +3565,421 @@ def train_path(dev, card) -> dict:
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# LM training: 9b (attention's gradient), the gradient gate, granite-3-2b
+# at full width and depth, the training driver, the smoke models
+# ---------------------------------------------------------------------------
+
+FLASH_BWD_CASES = (
+    # what, B, S, H, KV, D, window, dtype, causal, the design planned
+    ("granite-3-2b layer 0", 4, 4096, 32, 8, 64, 0, BF16, True, MMA),
+    # the same on the CUDA cores: rows 2 bytes off a 16-byte boundary
+    ("granite-3-2b layer 0, unaligned rows", 4, 4096, 32, 8, 64, 0, BF16,
+     True, CORES),
+    ("qwen2-moe-a2.7b layer 0", 4, 4096, 16, 16, 128, 0, BF16, True, MMA),
+    ("gemma3-27b local layer", 2, 4096, 32, 16, 128, 1024, BF16, True, MMA),
+    ("f32", 2, 1000, 8, 2, 64, 0, F32, True, CORES),
+    ("odd S, GQA 4", 1, 333, 8, 2, 128, 0, BF16, True, MMA),
+    ("odd S, D 96", 1, 333, 4, 2, 96, 0, BF16, True, CORES),
+    ("window inside a tile", 2, 200, 4, 4, 64, 17, BF16, True, MMA),
+    ("no causal mask, window", 1, 257, 4, 2, 64, 70, BF16, False, MMA),
+    ("MLA's D 192, window, no causal mask", 1, 257, 4, 4, 192, 70, F32,
+     False, CORES),
+    ("D 32, window inside a tile", 1, 130, 2, 2, 32, 17, BF16, True, CORES),
+    ("one token", 2, 1, 2, 1, 64, 0, BF16, True, MMA),
+)
+# 9b's kernels: the CUDA-core design's and the tensor-core design's
+FLASH_BWD_KERNELS = ("bwd_stats_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")
+FLASH_BWD_MMA_KERNELS = ("bwd_mma_stats_kernel", "bwd_mma_dkdv_kernel",
+                         "bwd_mma_dq_kernel")
+# the backward's operations: its 5 products (2.5x the forward's), and the
+# 2 of the pass that recomputes each row's log-sum-exp and Δ (1x more)
+FLASH_BWD_FLOP_RATIO = 3.5
+# granite at full width, depth cut for the gradient gate; the training
+# batch; the gate's bound (as the logit gate's: this many times the plain
+# bf16 run's own error against an f32 run of the same weights)
+LM_GATE_LAYERS = 4
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 4, 4096, 5
+LM_GRAD_BOUND = 2.0
+TRAIN_CKPT_DIR = ROOT / "build" / "chip_smoke_train_ckpt"
+
+
+def grad_errors(got, want, what) -> dict:
+    """Max |err|, error rms / size rms and the worst last-dim row's max
+    |err| / its max |value| of a gradient against its plain version,
+    held to the LM logits row's bounds for layer 0's attention (§2 of
+    PERF.md: 3e-2, or one bf16 step of the largest value where more;
+    2^-7; 2^-6)."""
+    diff, size = (got.float() - want.float()).abs(), want.float().abs()
+    top = float(size.max())
+    err = float(diff.max())
+    atol = FLASH_ATOL[want.dtype]
+    if top > 0:
+        atol = max(atol, 2.0 ** (np.floor(np.log2(top)) - 7))
+    rms = float(diff.square().mean().sqrt() / size.square().mean().sqrt()) \
+        if top > 0 else 0.0
+    row = float((diff.amax(-1) / size.amax(-1).clamp(min=1e-30)).max())
+    assert got.shape == want.shape and got.dtype == want.dtype, what
+    assert bool(torch.isfinite(got).all()), what
+    assert err <= atol and rms <= FLASH_RMS_RATIO and \
+        row <= FLASH_ROW_RATIO, (what, err, atol, rms, row)
+    return dict(err=err, rms=rms, row=row, top=top)
+
+
+def flash_bwd_library(q, k, v, do, window, causal):
+    """SDPA's backward through autograd on the same values (contiguous
+    copies: cuDNN's kernels fault on rows off a 16-byte boundary; K/V
+    repeated over each group of query heads, the window as a boolean
+    mask): a function that runs it once."""
+    b, s, h, d = q.shape
+    group = h // k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (
+        q, k.repeat_interleave(group, 2), v.repeat_interleave(group, 2)))
+    mask = None
+    if window or not causal:
+        i = torch.arange(s, device=q.device)
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= i[None, :] <= i[:, None]
+        if window:
+            mask &= i[None, :] > i[:, None] - window
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None)
+    dot = do.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+
+def visible_pairs(s, causal, window) -> int:
+    """The (query, key) pairs the mask leaves visible, per (batch,
+    head)."""
+    qp = np.arange(s)
+    hi = qp if causal else np.full(s, s - 1)
+    lo = np.maximum(qp - window + 1, 0) if window else np.zeros(s, int)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def check_flash_bwd(dev) -> dict:
+    """9b alone at each of ``FLASH_BWD_CASES``: held against
+    ``ref.flash_attention_bwd_ref`` by ``grad_errors`` (dq, dk, dv), the
+    plain bf16 version's own error against an f32 one logged beside it,
+    the three kernels bitwise from run to run; timed by events, by the
+    profiler (the three kernels), a burst of 10 and the host clock,
+    beside the plain version and SDPA's backward.  Returns granite's
+    layer-0 record."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    recs = {}
+    designs = set()
+    for what, b, s, h, kv, d, win, dt, causal, design in FLASH_BWD_CASES:
+        pad = int("unaligned" in what)
+        q, k, v, do = (torch.randn((b, s, n, d + pad), generator=gen,
+                                   device=dev).to(dt)[..., pad:]
+                       for n in (h, kv, kv, h))
+        plan = flash_attention.plan_flash_bwd(q, k, v, do, win, causal)
+        assert plan.design == design, (what, plan)
+        got = flash_attention.launch_bwd(q, k, v, do, causal, win)
+        again = flash_attention.launch_bwd(q, k, v, do, causal, win)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, again)), what
+        want = ref.flash_attention_bwd_ref(q, k, v, do, causal, win)
+        errs = [grad_errors(x, y, (what, n)) for x, y, n in
+                zip(got, want, ("dq", "dk", "dv"))]
+        f32 = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                          do.float(), causal, win)
+        own = [float((y.float() - z).abs().max()) for y, z in zip(want, f32)]
+        del got, again, f32
+        run = lambda: flash_attention.launch_bwd(q, k, v, do, causal, win)  # noqa: E731
+        t = dict(ms=time_ms(run),
+                 plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(
+                     q, k, v, do, causal, win)),
+                 library_ms=time_ms(flash_bwd_library(q, k, v, do, win,
+                                                      causal)))
+        reps = 5
+        traced = device_ms(run, FLASH_BWD_KERNELS + FLASH_BWD_MMA_KERNELS,
+                           reps, required=False)
+        prof, every, n_rec = traced or (float("nan"), float("nan"), 0)
+        prof *= 3 * reps / max(n_rec, 1)     # per call, over the records
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(10):
+            run()
+        host_ms = (time.perf_counter() - h0) * 1e2
+        end.record()
+        end.synchronize()
+        burst_ms = start.elapsed_time(end) / 10
+        # q, k, v and dO read once, dq, dk and dv written once
+        io = sum(x.numel() * x.element_size() for x in (q, k, v, do)) * 2 \
+            - do.numel() * do.element_size()
+        flops = FLASH_BWD_FLOP_RATIO * 4.0 * d * b * h \
+            * visible_pairs(s, causal, win)
+        recs[what] = dict(
+            t, max_abs_err=max(e["err"] for e in errs), device_ms=prof,
+            burst_ms=burst_ms, host_ms=host_ms,
+            shape=f"B={b} S={s} H={h} KV={kv} D={d} "
+                  f"{str(dt).split('.')[-1]} "
+                  + ("causal" if causal else "no causal mask")
+                  + (f" window {win}" if win else "")
+                  + (" unaligned rows" if pad else ""),
+            bound=bound(io, flops, PEAK_BF16))
+        r = recs[what]
+        log(f"  9b {what} ({r['shape']}): kernel vs plain "
+            + ", ".join(f"{n} max |err| {e['err']} (of {e['top']:.4g}), rms "
+                        f"ratio {e['rms']:.3e}, worst row {e['row']:.3e}"
+                        for n, e in zip(("dq", "dk", "dv"), errs))
+            + f"; plain vs f32 max |err| {own}; bitwise from run to run; "
+            f"{r['ms']:.4f} ms ({flops / r['ms'] / 1e9:.1f} TFLOP/s), "
+            f"profiler {prof:.4f} ms a call ({n_rec} of {3 * reps} kernel "
+            f"records, {every:.4f} ms in all kernels), {burst_ms:.4f} ms a "
+            f"call of 10, host {host_ms:.4f} ms a call; plain "
+            f"{r['plain_ms']:.4f} ms, SDPA backward {r['library_ms']:.4f} "
+            f"ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}); "
+            f"{plan.design}, tiles {plan.bt}, shared bytes "
+            f"{plan.smem_bytes}")
+        designs.add(design)
+        del q, k, v, do, want
+        torch.cuda.empty_cache()
+    assert designs == {MMA, CORES}, designs
+    return recs
+
+
+def bf16_valued(model) -> None:
+    """Round an f32 model's weights to their bf16 values, in place."""
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(p.to(torch.bfloat16))
+
+
+def lm_step1_grads(c, seed, batch, dev, plain, f32=False) -> tuple:
+    """(loss, {name: gradient}) of ``lm_loss`` at the model made from
+    ``seed`` (``f32``: the same bf16-valued weights in f32), through the
+    kernels or the plain versions."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    model = transformer.init_params(
+        dataclasses.replace(c, dtype=torch.float32) if f32 else c, gen, dev)
+    if f32:
+        bf16_valued(model)
+    with ops.default_impl("ref") if plain else contextlib.nullcontext():
+        loss = transformer.lm_loss(model, batch, model.config)
+        loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    del model
+    return float(loss.detach()), grads
+
+
+def lm_gradient_gate(dev, card) -> None:
+    """granite-3-2b at full width cut to ``LM_GATE_LAYERS`` layers, B 4 x
+    S 4,096, one set of bf16-valued weights: step-1 gradients through the
+    kernels (B9 and 9b) against the plain versions, per leaf max |Δ| /
+    max |g| at most ``LM_GRAD_BOUND`` times the plain run's own against
+    an f32 plain run; every layer's wq, wk, wv and wo gradient finite and
+    not all 0 in the kernel run."""
+    c = dataclasses.replace(granite_3_2b.make_config(),
+                            n_layers=LM_GATE_LAYERS)
+    batch = train_lm.synthetic_lm_batch(np.random.default_rng(16),
+                                        LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                        c.vocab_size, dev)
+    t0 = time.perf_counter()
+    k_loss, kern = lm_step1_grads(c, 17, batch, dev, plain=False)
+    k_s = time.perf_counter() - t0
+    for i in range(c.n_layers):
+        for w in ("wq", "wk", "wv", "wo"):
+            g = kern[f"layers.{i}.{w}"]
+            assert bool(torch.isfinite(g).all()) and bool(g.any()), (i, w)
+    t0 = time.perf_counter()
+    p_loss, plain = lm_step1_grads(c, 17, batch, dev, plain=True)
+    p_s = time.perf_counter() - t0
+    f_loss, full = lm_step1_grads(c, 17, batch, dev, plain=True, f32=True)
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+    worst, rows = 0.0, []
+    for name in kern:
+        kp, p32 = rel(kern[name], plain[name]), rel(plain[name], full[name])
+        assert kp <= LM_GRAD_BOUND * p32, (name, kp, p32)
+        worst = max(worst, kp / p32)
+        rows.append((kp / p32, name, kp, p32))
+    rows.sort(reverse=True)
+    log(f"  gradient gate, granite-3-2b at full width cut to {c.n_layers} "
+        f"layers, B={LM_TRAIN_BATCH} S={LM_TRAIN_SEQ}: losses kernels "
+        f"{k_loss:.6f}, plain {p_loss:.6f}, f32 {f_loss:.6f}; per leaf max "
+        f"|Δ| / max |g|, kernels vs plain at most {worst:.3f}x the plain "
+        f"run's against f32 (bound {LM_GRAD_BOUND}x); the closest leaves "
+        + "; ".join(f"{n} {kp:.3e} vs {p32:.3e}"
+                    for _, n, kp, p32 in rows[:4])
+        + f"; every layer's wq/wk/wv/wo gradient finite and not all 0; "
+        f"step-1 gradients {k_s:.1f} s with the kernels, {p_s:.1f} s plain"
+        f" [{card}]")
+    del kern, plain, full
+    torch.cuda.empty_cache()
+
+
+def lm_full_depth(dev, card) -> dict:
+    """granite-3-2b at its published widths and depth (40 layers, bf16,
+    seeded weights) takes ``LM_TRAIN_STEPS`` AdamW steps (lr 3e-4, warmup
+    20, as the JAX driver) on B 4 x S 4,096 batches of the driver's
+    maker: every loss finite, the step-1 gradient norm finite and above
+    0; B9 twice and 9b once a layer a step (the forward, and each
+    layer's recompute in the backward).  Logs the median of steps 2-5,
+    tokens/s, peak memory and one more step under the profiler."""
+    c = granite_3_2b.make_config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = transformer.init_params(c, gen, dev)
+    opt = optimizers.adamw(model.parameters(), lr=3e-4, warmup_steps=20,
+                           total_steps=LM_TRAIN_STEPS)
+    step = transformer.make_train_step(c, opt)
+    rng = np.random.default_rng(18)
+    batches = [train_lm.synthetic_lm_batch(rng, LM_TRAIN_BATCH,
+                                           LM_TRAIN_SEQ, c.vocab_size, dev)
+               for _ in range(LM_TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    before = dict(build.launch_counts)
+    losses, times = [], []
+    for i in range(LM_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = step(model, batches[i])["loss"]
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            gnorm = float(opt.last_gnorm)
+    launched = {n: build.launch_counts[n] - before[n]
+                for n in ("flash_attention", "flash_attention_bwd")}
+    assert all(np.isfinite(losses)), losses
+    assert np.isfinite(gnorm) and gnorm > 0, gnorm
+    assert launched == {"flash_attention": 2 * c.n_layers * LM_TRAIN_STEPS,
+                        "flash_attention_bwd": c.n_layers
+                        * LM_TRAIN_STEPS}, launched
+    peak = torch.cuda.max_memory_allocated()
+    med = float(np.median(times[1:]))
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  granite-3-2b training, {c.n_layers} layers, B={LM_TRAIN_BATCH}"
+        f" S={LM_TRAIN_SEQ}, {n_params:,} parameters (bf16; AdamW moments "
+        f"f32), made in {made:.1f} s: losses " + ", ".join(
+            f"{x:.6f}" for x in losses)
+        + f"; step-1 gradient norm {gnorm:.6g}; step {med * 1e3:.1f} ms "
+        f"(median of steps 2-{LM_TRAIN_STEPS}; step 1 {times[0] * 1e3:.1f} "
+        f"ms), {tokens / med:,.0f} tokens/s; peak {peak / 1e9:.2f} GB; "
+        f"launches {launched} [{card}]")
+    wall, total, prof = profiled(lambda: step(model, batches[-1]))
+    log(f"    one more step under the profiler: {wall:.1f} ms on the host "
+        f"clock, {total:.1f} ms of device time "
+        f"({100 * total / wall:.0f}% busy); by kernel: " + "; ".join(
+            f"{ms:.1f} ms x{n} {kn[:50]}" for ms, n, kn in prof[:8]))
+    del model, opt, step, batches
+    torch.cuda.empty_cache()
+    return dict(step_ms=med * 1e3, tokens_s=tokens / med, peak=peak)
+
+
+def lm_driver(dev, card) -> None:
+    """``launch.train`` (``run``, the body of ``main``) on the JAX
+    driver's ``lm100m`` at B 2 x S 256: 20 steps with ``--ckpt`` under
+    ``build/``, then a resume to 30."""
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    flags = ["--arch", "lm100m", "--batch", "2", "--seq", "256", "--ckpt",
+             str(TRAIN_CKPT_DIR), "--log-every", "10"]
+    t0 = time.perf_counter()
+    first = train_lm.run(flags + ["--steps", "20"])
+    t1 = time.perf_counter()
+    resumed = train_lm.run(flags + ["--steps", "30"])
+    t2 = time.perf_counter()
+    assert first.step0 == 0 and sorted(first.losses) == list(range(20))
+    assert resumed.step0 == 20 and sorted(resumed.losses) == \
+        list(range(20, 30))
+    losses = list(first.losses.values()) + list(resumed.losses.values())
+    assert all(np.isfinite(losses)), losses
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    log(f"  driver, lm100m ({first.config.n_params():,} parameters, f32) at "
+        f"B=2 S=256: 20 steps in {t1 - t0:.1f} s (losses "
+        f"{first.losses[0]:.4f} -> {first.losses[19]:.4f}, median step "
+        f"{np.median(first.step_seconds[1:]) * 1e3:.1f} ms), checkpoint "
+        f"at 20, resumed to 30 in {t2 - t1:.1f} s (losses "
+        f"{resumed.losses[20]:.4f} -> {resumed.losses[29]:.4f}) [{card}]")
+
+
+def lm_smoke_parity(dev) -> None:
+    """The granite, qwen2-moe, deepseek (MLA and MTP) and gemma3 smoke
+    models take 3 AdamW steps (warmup 1, ``TRAIN_LR``) on the card
+    (B9 and 9b in f32) and on the CPU from the same seeded weights and
+    batch: losses and parameters within ``TRAIN_RTOL`` /
+    ``TRAIN_ATOL``."""
+    worst = {}
+    for mod in (granite_3_2b, qwen2_moe_a2_7b, deepseek_v3_671b,
+                gemma3_27b):
+        c = mod.smoke_config()
+        cpu = transformer.init_params(c, torch.Generator().manual_seed(16),
+                                      "cpu")
+        card = copy.deepcopy(cpu).to(dev)
+        batch = train_lm.synthetic_lm_batch(np.random.default_rng(16), 4,
+                                            32, c.vocab_size, "cpu")
+        runs = []
+        for model, b in ((cpu, batch),
+                         (card, {k: v.to(dev) for k, v in batch.items()})):
+            opt = optimizers.adamw(model.parameters(), lr=TRAIN_LR,
+                                   warmup_steps=1)
+            step = transformer.make_train_step(c, opt)
+            runs.append([float(step(model, b)["loss"]) for _ in range(3)])
+        assert np.allclose(runs[1], runs[0], rtol=TRAIN_RTOL,
+                           atol=TRAIN_ATOL), (c.name, runs)
+        err = 0.0
+        for (pn, p), q in zip(cpu.named_parameters(), card.parameters()):
+            q = q.detach().cpu()
+            assert torch.allclose(q, p.detach(), rtol=TRAIN_RTOL,
+                                  atol=TRAIN_ATOL), \
+                (c.name, pn, float((q - p.detach()).abs().max()))
+            err = max(err, float((q - p.detach()).abs().max()))
+        worst[c.name] = (err, runs[1])
+    log("  LM smoke configs on the card against the CPU, 3 AdamW steps each "
+        f"(lr {TRAIN_LR}, rtol={TRAIN_RTOL}, atol={TRAIN_ATOL}): losses and "
+        "parameters allclose; max |param difference|, card losses: "
+        + "; ".join(f"{n} {e:.2e} {[round(x, 6) for x in r]}"
+                    for n, (e, r) in worst.items()))
+
+
+def lm_train_path(dev, card) -> tuple:
+    """Phase 16: 9b alone at the LMs' shapes (its record), then with the
+    launch counts set to 0: the gradient gate, granite-3-2b's full-depth
+    training, the driver with a checkpoint and a resume, and the smoke
+    models card against CPU (counts read after: B9 and 9b only).
+    Returns (launches, 9b's granite layer-0 record, the other 9b
+    records, the training readings)."""
+    t0 = time.perf_counter()
+    recs = check_flash_bwd(dev)
+    log(f"  9b checks: {time.perf_counter() - t0:.1f} s")
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    lm_gradient_gate(dev, card)
+    log(f"  gradient gate: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    full = lm_full_depth(dev, card)
+    log(f"  full depth: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lm_driver(dev, card)
+    log(f"  driver: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lm_smoke_parity(dev)
+    log(f"  smoke parity: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    launches = dict(build.launch_counts)
+    assert launches["flash_attention"] > 0 and \
+        launches["flash_attention_bwd"] > 0, launches
+    assert all(n in ("flash_attention", "flash_attention_bwd") or not x
+               for n, x in launches.items()), launches
+    log(f"  LM training launches: {launches} [{card}]")
+    first = recs.pop("granite-3-2b layer 0")
+    return launches, first, recs, full
+
+
 def kernel_checks(ds, dev) -> dict:
     """Phase 3: every kernel against its plain version at the shapes the
     main path gives it (the store shapes ``serve.run_trickle`` builds
@@ -3589,7 +4037,9 @@ def main() -> int:
     spills = {"knn_tile_kernel": [], "flash_wgmma_kernel": [],
               "rows_ring_kernel": [], "sparse_row_gather_kernel": [],
               "sparse_row_scatter_kernel": [], "blend_group_kernel": [],
-              "blend_plan_kernel": [], "dtiled_ring_kernel": []}
+              "blend_plan_kernel": [], "dtiled_ring_kernel": [],
+              **{n: [] for n in FLASH_BWD_KERNELS
+                 + FLASH_BWD_MMA_KERNELS}}
     for line in build.last_build_log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]          # the mangled kernel name
@@ -3611,6 +4061,10 @@ def main() -> int:
     assert len(spills["sparse_row_scatter_kernel"]) == 4
     assert len(spills["blend_group_kernel"]) == 2
     assert len(spills["blend_plan_kernel"]) == 2
+    # 9b's three kernels: on the CUDA cores at f32 and bf16, D padded to
+    # 32, 64, 128, 256; on the tensor cores at D 64 and 128
+    assert all(len(spills[n]) == 8 for n in FLASH_BWD_KERNELS), spills
+    assert all(len(spills[n]) == 2 for n in FLASH_BWD_MMA_KERNELS), spills
     assert all("0 bytes spill stores, 0 bytes spill loads" in x
                for found in spills.values() for x in found), spills
 
@@ -3666,6 +4120,12 @@ def main() -> int:
     zoo, records["flash_attention"]["zoo"] = lm_zoo_path(dev, card)
     paths.append(zoo)
     log(f"LM zoo serving: {time.perf_counter() - t0:.1f} s")
+    # phase 16 before phase 14 too
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    trained, records["flash_attention_bwd"], _, _ = lm_train_path(dev, card)
+    paths.append(trained)
+    log(f"LM training: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     paths.append(recsys_path(dev, card))

@@ -25,6 +25,19 @@ K/V may carry fewer heads than Q (H % KV == 0), so grouped-query
 attention reads each KV head in place.  The plain version is
 ``ref.flash_attention_ref``; ``ops.flash_attention`` picks between the
 two.
+
+The gradient (9b, :func:`launch_bwd`, ``csrc/flash_attention_bwd.cu``)
+takes every input the forward takes: a launch that recomputes each query
+row's log-sum-exp and Δ = Σ P·dP, one that accumulates dK and dV per key
+tile, one that accumulates dQ per query tile, on ``mma.sync`` for bf16
+with D in {64, 128} and aligned rows, on the CUDA cores for the rest
+(:func:`plan_flash_bwd`).
+Its plain version is ``ref.flash_attention_bwd_ref``, and
+``ops.FlashAttention`` pairs the two directions.  :func:`launch` refuses
+to run where autograd would record it (grad mode on and an input that
+requires grad): its output has no ``grad_fn``, so attention's gradient
+would be lost without a word; only the Function's forward calls it
+then.
 """
 from __future__ import annotations
 
@@ -160,6 +173,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return b, s, h, kv, d
 
 
+def _cuda_inputs(**tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a CUDA tensor, all on one device."""
+    for name, t in tensors.items():
+        if not isinstance(t, torch.Tensor) or not t.is_cuda:
+            raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, "
+                             f"got {getattr(t, 'device', type(t))}")
+    if len({t.device for t in tensors.values()}) != 1:
+        raise ValueError(f"{', '.join(tensors)} must be on one device")
+
+
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            causal: bool = True, window: int = 0) -> torch.Tensor:
     """Attention of ``q`` [B, S, H, D] over ``k``/``v`` [B, S, KV, D].
@@ -168,14 +191,18 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     any strides with a contiguous last dim; ``window`` 0 means none.
     Returns a contiguous [B, S, H, D] in q's dtype, on the design
     :func:`plan_flash` picks.  Launches a CUDA kernel; raises on tensors
-    it does not take (CPU tensors among them).
+    it does not take (CPU tensors among them), and where autograd would
+    record the call (``ops.flash_attention`` sends such inputs through
+    ``ops.FlashAttention``, whose backward is :func:`launch_bwd`).
     """
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not isinstance(t, torch.Tensor) or not t.is_cuda:
-            raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, "
-                             f"got {getattr(t, 'device', type(t))}")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k and v must be on one device")
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention.launch has no backward: with grad mode on and "
+            "an input that requires grad, call ops.flash_attention (the "
+            "autograd Function), or run under torch.no_grad()")
+    _cuda_inputs(q=q, k=k, v=v)
     b, s, h, kv, d = _check(q, k, v, window)
     plan = plan_flash(q, k, v, window, causal)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
@@ -193,3 +220,133 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check(code, f"flash_attention ({plan.design})")
     build.count_launch("flash_attention")
     return out
+
+
+# ---------------------------------------------------------------------------
+# 9b: the gradient (csrc/flash_attention_bwd.cu)
+# ---------------------------------------------------------------------------
+
+def _bwd_geometry(d: int) -> Tuple[int, int]:
+    """(DC, BT) of the CUDA-core backward for head dim ``d``: D padded
+    to 16·DC, tiles of BT rows (32 at D > 128, where four staged f32
+    tiles of 64 rows would not fit in shared memory)."""
+    dc = next(c for c in (2, 4, 8, 16) if d <= 16 * c)
+    return dc, (32 if dc == 16 else 64)
+
+
+def bwd_smem_bytes(d: int) -> Tuple[int, int, int]:
+    """Shared bytes of the CUDA-core stats, dK/dV and dQ kernels at head
+    dim ``d``: four staged f32 tiles of BT rows at a pitch of 16·DC + 1
+    floats; the dQ kernel adds a [BT, BT + 1] dS tile, the dK/dV kernel a
+    P and a dS tile and BT log-sum-exps and Δs.  The C entry refuses
+    other bytes."""
+    dc, bt = _bwd_geometry(d)
+    tile = bt * (16 * dc + 1)
+    score = bt * (bt + 1)
+    return (4 * 4 * tile, 4 * (4 * tile + 2 * score + 2 * bt),
+            4 * (4 * tile + score))
+
+
+def mma_bwd_smem_bytes(d: int) -> Tuple[int, int, int]:
+    """Shared bytes of the ``mma_sync`` stats, dK/dV and dQ kernels (D 64
+    or 128): four bf16 tiles of 64 rows at a pitch of D + 8; the dK/dV
+    kernel adds 64 log-sum-exps and Δs."""
+    tiles = 4 * 64 * (d + 8) * 2
+    return tiles, tiles + 2 * 64 * 4, tiles
+
+
+_BWD_DESIGN_CODES = {"cuda_cores": 0, "mma_sync": 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashBwdPlan:
+    """One :func:`launch_bwd` call's design and tiles: ``bt`` rows a tile
+    (queries and keys alike), the three kernels' shared bytes (stats,
+    dK/dV, dQ)."""
+    design: str
+    bt: int
+    smem_bytes: Tuple[int, int, int]
+    s: int
+    causal: bool
+    window: int
+
+    @property
+    def n_tiles(self) -> int:
+        return -(-self.s // self.bt)
+
+    def key_tiles(self, q0: int) -> range:
+        """The key tiles that the stats and dQ kernels walk for the query
+        tile from row ``q0``: from the first its window reaches to the
+        last its causal mask reaches."""
+        last = min(q0 + self.bt, self.s) - 1
+        hi = last // self.bt if self.causal else self.n_tiles - 1
+        lo = 0
+        if self.window > 0 and q0 - self.window + 1 > 0:
+            lo = (q0 - self.window + 1) // self.bt
+        return range(lo, hi + 1)
+
+    def query_tiles(self, k0: int) -> range:
+        """The query tiles that the dK/dV kernel walks (for each query
+        head of the group) for the key tile from row ``k0``: from the one
+        holding ``k0`` under the causal mask to the last the window lets
+        see its last key."""
+        lo = k0 // self.bt if self.causal else 0
+        hi = self.n_tiles - 1
+        if self.window > 0:
+            last = min(k0 + self.bt, self.s) - 1
+            hi = min(hi, (last + self.window - 1) // self.bt)
+        return range(lo, hi + 1)
+
+
+def plan_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   dout: torch.Tensor, window: int = 0,
+                   causal: bool = True) -> FlashBwdPlan:
+    """The backward's design and tiles, from the input alone (any
+    device): ``mma_sync`` for bf16 with D in {64, 128} and 16-byte
+    aligned rows (q, k, v and dout), else ``cuda_cores``."""
+    d, s = q.shape[3], q.shape[1]
+    if q.dtype == torch.bfloat16 and d in (64, 128) and \
+            _aligned(q, k, v) and _aligned(dout, dout, dout):
+        return FlashBwdPlan("mma_sync", 64, mma_bwd_smem_bytes(d), s,
+                            causal, window)
+    return FlashBwdPlan("cuda_cores", _bwd_geometry(d)[1],
+                        bwd_smem_bytes(d), s, causal, window)
+
+
+def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               dout: torch.Tensor, causal: bool = True, window: int = 0
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`launch` at ``q``, ``k``, ``v`` given the
+    output's gradient ``dout`` [B, S, H, D]: (dq [B, S, H, D], dk, dv
+    [B, S, KV, D]), contiguous, in the inputs' dtype.  Takes every input
+    :func:`launch` takes (``dout`` alike: any strides with a contiguous
+    last dim), on the design :func:`plan_flash_bwd` picks.  Three kernel
+    launches (stats, dK/dV, dQ) and two f32 scratch vectors of B·H·S;
+    raises on tensors it does not take."""
+    _cuda_inputs(q=q, k=k, v=v, dout=dout)
+    b, s, h, kv, d = _check(q, k, v, window)
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(f"dout: {tuple(dout.shape)} {dout.dtype}, expected "
+                         f"{tuple(q.shape)} {q.dtype}")
+    if d > 1 and dout.stride(3) != 1:
+        raise ValueError("dout: the head dim must be contiguous")
+    plan = plan_flash_bwd(q, k, v, dout, window, causal)
+    if plan.n_tiles > 65535:
+        raise ValueError(f"grid too large for S={s}")
+    dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, s, kv, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    stats = torch.empty((2, b * h * s), dtype=torch.float32,
+                        device=q.device)
+    lib = build.library()
+    code = lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(),
+        stats[1].data_ptr(), b, s, h, kv, d,
+        *[x for t in (q, k, v, dout) for x in t.stride()[:3]],
+        1.0 / d ** 0.5, int(bool(causal)), int(window),
+        int(q.dtype == torch.bfloat16), _BWD_DESIGN_CODES[plan.design],
+        *plan.smem_bytes, build.stream_of(dq))
+    build.check(code, f"flash_attention_bwd ({plan.design})")
+    build.count_launch("flash_attention_bwd")
+    return dq, dk, dv

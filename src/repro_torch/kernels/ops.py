@@ -356,6 +356,33 @@ def multihot_scatter(ids: torch.Tensor, weights: torch.Tensor, n_items: int,
     return ref.decayed_scatter_ref(ids, weights, n_items)
 
 
+class FlashAttention(torch.autograd.Function):
+    """Attention with its gradient: the kernel route runs B9 forward and
+    9b (``flash_attention.launch_bwd``) backward; the plain route
+    ``ref.flash_attention_ref`` and ``ref.flash_attention_bwd_ref``.  The
+    route is fixed at the forward (``impl`` and the device, as
+    :func:`uses_kernel` decides), so a backward run later, outside an
+    ``impl`` override, takes the forward's.  Saves q, k and v; the
+    backward recomputes what else it needs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, kernel):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window, ctx.kernel = causal, window, kernel
+        if kernel:
+            return _flash.launch(q, k, v, causal=causal, window=window)
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       window=window)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        bwd = _flash.launch_bwd if ctx.kernel else ref.flash_attention_bwd_ref
+        dq, dk, dv = bwd(q, k, v, dout.contiguous(), causal=ctx.causal,
+                         window=ctx.window)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0,
                     impl: Optional[str] = None) -> torch.Tensor:
@@ -366,9 +393,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``flash_attention``: the [S, S] scores are never written); the
     plain path is ``ref.flash_attention_ref``.  V as wide as Q on both
     paths (``models.transformer.attend_padded_v`` pads a narrower one).
+    With grad mode on and an input that requires grad, the call goes
+    through :class:`FlashAttention` (backward: 9b on the kernel path);
+    otherwise straight to the forward, as serving runs it.
     """
     if v.shape[-1] != q.shape[-1]:
         raise ValueError(f"V width {v.shape[-1]} != Q width {q.shape[-1]}")
-    if uses_kernel(q, impl):
+    kernel = uses_kernel(q, impl)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, kernel)
+    if kernel:
         return _flash.launch(q, k, v, causal=causal, window=window)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window)

@@ -482,3 +482,64 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             o = torch.einsum("kgqs,skd->qkgd", p.float(), vi)
             out[i, r0:r1] = o.reshape(r1 - r0, h, dv)
     return out
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, dout: torch.Tensor,
+                            causal: bool = True, window: int = 0,
+                            scale: Optional[float] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The gradient of :func:`flash_attention_ref`: (dq, dk, dv) in the
+    inputs' dtypes, given the output's gradient ``dout`` [B, S, H, Dv].
+
+    Scores in f32 times ``scale`` with the forward's mask, P their
+    softmax; dV = round(P)ᵀ·dO (P rounded to the V dtype, as the forward
+    rounds it before P·V), dP = dO·Vᵀ, Δ = Σ P·dP per query row (the
+    softmax's own vjp term), dS = P ∘ (dP − Δ), dQ = dS·K·scale and dK =
+    dSᵀ·Q·scale, all in f32.  GQA's query heads are summed into their
+    KV head in head order, query-row chunks in row order.  One batch row
+    and at most ``SCORES_BUDGET`` scores at a time, as the forward."""
+    b, s, h, d = q.shape
+    sk, kv, dv_w = k.shape[1], k.shape[2], v.shape[3]
+    g = h // kv
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((s, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    rows = max(1, SCORES_BUDGET // (h * sk))
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    for i in range(b):
+        ki, vi = k[i].float(), v[i].float()
+        dk_i = torch.zeros((sk, kv, d), dtype=torch.float32,
+                           device=q.device)
+        dv_i = torch.zeros((sk, kv, dv_w), dtype=torch.float32,
+                           device=q.device)
+        for r0 in range(0, s, rows):
+            r1 = min(s, r0 + rows)
+            qg = q[i, r0:r1].float().reshape(r1 - r0, kv, g, d)
+            og = dout[i, r0:r1].float().reshape(r1 - r0, kv, g, dv_w)
+            scores = torch.einsum("qkgd,skd->kgqs", qg, ki).mul_(scale)
+            scores.masked_fill_(~mask[r0:r1], -1e30)
+            p = torch.softmax(scores, dim=-1)
+            del scores
+            dp = torch.einsum("qkgd,skd->kgqs", og, vi)
+            ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+            del dp
+            pv = torch.einsum("kgqs,qkgd->kgsd", p.to(v.dtype).float(), og)
+            sq = torch.einsum("kgqs,qkgd->kgsd", ds, qg)
+            for j in range(g):
+                dv_i += pv[:, j].transpose(0, 1)
+                dk_i += sq[:, j].transpose(0, 1) * scale
+            del pv, sq, p
+            dq[i, r0:r1] = (torch.einsum("kgqs,skd->qkgd", ds, ki) * scale
+                            ).reshape(r1 - r0, h, d).to(q.dtype)
+        dk[i], dv[i] = dk_i.to(k.dtype), dv_i.to(v.dtype)
+    return dq, dk, dv

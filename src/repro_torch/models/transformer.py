@@ -1,26 +1,34 @@
 """Decoder-only LM transformer (the PyTorch port).
 
-The port of ``repro/models/transformer.py`` for serving every LM arch
-the JAX package registers: dense GQA (granite-3-2b, command-r-plus-104b;
-gemma3-27b's 5:1 sliding-window pattern through ``sliding_window`` /
-``global_every``), routed top-k experts with shared experts
-(qwen2-moe-a2.7b) and DeepSeek's multi-head latent attention (MLA) with
-its leading dense layers (deepseek-v3-671b).  Parameters are in the JAX
-package's layout (``x @ w``, layers stacked ``[L, ...]`` per group when
-converted), with RMS norm, rotary embedding, bf16 KV caches, SwiGLU
-FFNs, a tied or separate unembedding, prefill and greedy-decode steps.
-Prefill and the full forward attend through ``ops.flash_attention`` (the
-hand-written kernel on the card); MLA reaches it with V zero-padded to
-the query width.  A decode step attends one query row against the cache
-with plain torch ops (MLA's absorbed path scores in latent space), as
-the JAX package does outside any kernel.  The caches are updated IN
-PLACE.  The MoE runs JAX's single-device route (``mesh is None``): every
-expert local, capacity-dropped dispatch, batched expert matmuls.
+The port of ``repro/models/transformer.py`` for serving and training
+every LM arch the JAX package registers: dense GQA (granite-3-2b,
+command-r-plus-104b; gemma3-27b's 5:1 sliding-window pattern through
+``sliding_window`` / ``global_every``), routed top-k experts with shared
+experts (qwen2-moe-a2.7b) and DeepSeek's multi-head latent attention
+(MLA) with its leading dense layers and its next-next-token (MTP) head
+(deepseek-v3-671b).  Parameters are in the JAX package's layout (``x @
+w``, layers stacked ``[L, ...]`` per group when converted), with RMS
+norm, rotary embedding, bf16 KV caches, SwiGLU FFNs, a tied or separate
+unembedding, prefill and greedy-decode steps.  Prefill and the full
+forward attend through ``ops.flash_attention`` (the hand-written kernel
+on the card); MLA reaches it with V zero-padded to the query width.  A
+decode step attends one query row against the cache with plain torch ops
+(MLA's absorbed path scores in latent space), as the JAX package does
+outside any kernel.  The caches are updated IN PLACE.  The MoE runs
+JAX's single-device route (``mesh is None``): every expert local,
+capacity-dropped dispatch, batched expert matmuls.
+
+Training: the parameters are trainable; :func:`lm_loss` (the forward,
+:func:`chunked_softmax_xent` and, with ``mtp``, the MTP head's loss at
+weight 0.3) and :func:`make_train_step` mirror the reference's.  With
+``remat`` each layer of the forward runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
+scanned layer, policy "full"), as does each cross-entropy chunk.
+Attention's gradient is 9b on the card (``ops.FlashAttention``).
+``prefill`` and ``decode_step`` run under ``torch.no_grad()``.
 
 Not ported here: the expert-parallel ``shard_map`` MoE and the other
-sharding constraints, the chunked cross-entropy, ``lm_loss`` with the
-MTP head (whose ``mtp_proj`` / ``mtp_ln`` are carried but not read) and
-the train step.
+sharding constraints, and the "dots" remat policy (raises).
 """
 from __future__ import annotations
 
@@ -31,9 +39,11 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.types import resolve_device
 from repro_torch.kernels import ops, ref
+from repro_torch.models.common import train_step_of
 
 # the JAX package's "no window" sentinel (``_layer_windows``)
 FULL = 2 ** 30
@@ -43,7 +53,8 @@ Caches = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """The fields of the JAX ``TransformerConfig`` that serving reads."""
+    """The fields of the JAX ``TransformerConfig`` that serving and
+    training read."""
 
     name: str = "lm"
     n_layers: int = 4
@@ -78,6 +89,10 @@ class TransformerConfig:
     norm_eps: float = 1e-6
     mtp: bool = False         # next-next-token head (deepseek; training)
     dtype: torch.dtype = torch.bfloat16
+    # training: per-layer rematerialization, policy "full" (recompute the
+    # whole layer in backward); "dots" is not ported
+    remat: bool = True
+    remat_policy: str = "full"
 
     @property
     def e_pad(self) -> int:
@@ -200,8 +215,7 @@ def _is_norm(name: str) -> bool:
 
 def _param(shape: Tuple[int, ...], c: TransformerConfig,
            device: torch.device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=c.dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.empty(shape, dtype=c.dtype, device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -565,8 +579,9 @@ class Layer(nn.Module):
 
 class Transformer(nn.Module):
     """The decoder-only LM: embedding, ``layer_groups(c)`` dense then MoE
-    layers (in ``layers``, in that order), final norm, unembedding.
-    Inference only: the parameters do not require grad."""
+    layers (in ``layers``, in that order), final norm, unembedding.  The
+    parameters are trainable; in-place writes to them go under
+    ``torch.no_grad()``."""
 
     def __init__(self, c: TransformerConfig, device: Any = None):
         super().__init__()
@@ -611,17 +626,30 @@ class Transformer(nn.Module):
         """Token ids [B, S] → final hidden states [B, S, D] (and the
         caches, updated in place, when given)."""
         c = self.config
-        x = self.embed[tokens].to(c.dtype) * math.sqrt(c.d_model)
+        # F.embedding: the same rows as indexing, and a backward that
+        # does not serialize on runs of one row
+        x = F.embedding(tokens, self.embed).to(c.dtype) * math.sqrt(c.d_model)
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device
                                      ).expand(tokens.shape)
+        remat = c.remat and caches is None and torch.is_grad_enabled()
+        if remat and c.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy={c.remat_policy!r}: only \"full\" is ported")
         for name, layers, windows in self.groups():
             for i, layer in enumerate(layers):
+                if remat:
+                    # the reference's jax.checkpoint of the scanned layer:
+                    # only the layer's input is kept for the backward
+                    x = checkpoint(_layer_output, layer, x, c, positions,
+                                   windows[i], use_reentrant=False)
+                    continue
                 cache = None if caches is None else (caches[name][0][i],
                                                      caches[name][1][i])
                 x, _ = layer(x, c, positions, windows[i], cache, cache_pos)
         return rms_norm(x, self.final_ln, c.norm_eps), caches
 
+    @torch.no_grad()
     def prefill(self, tokens: torch.Tensor,
                 max_len: int) -> Tuple[torch.Tensor, Caches]:
         """Run the prompt ``tokens`` [B, S] through; returns the last
@@ -631,6 +659,7 @@ class Transformer(nn.Module):
         x, _ = self(tokens, caches=caches, cache_pos=0)
         return (x[:, -1, :] @ self.unembedding()).float(), caches
 
+    @torch.no_grad()
     def decode_step(self, caches: Caches, token: torch.Tensor,
                     pos: int) -> Tuple[torch.Tensor, Caches]:
         """One decode step: ``token`` [B, 1] at position ``pos`` → f32
@@ -642,6 +671,13 @@ class Transformer(nn.Module):
         return (x[:, -1, :] @ self.unembedding()).float(), caches
 
 
+def _layer_output(layer: Layer, h: torch.Tensor, c: TransformerConfig,
+                  positions: torch.Tensor, window: int) -> torch.Tensor:
+    """One layer's output without a cache (the checkpointed function)."""
+    return layer(h, c, positions, window)[0]
+
+
+@torch.no_grad()
 def init_params(c: TransformerConfig, generator: torch.Generator,
                 device: Any = None) -> Transformer:
     """A model with norms at one and every other weight 0.02·N(0, 1)
@@ -686,3 +722,79 @@ def init_caches(c: TransformerConfig, batch: int, max_len: int,
     return {name: tuple(torch.zeros(s, dtype=torch.bfloat16, device=device)
                         for s in shapes)
             for name, shapes in cache_shapes(c, batch, max_len).items()}
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+def _xent_chunk(xc: torch.Tensor, yc: torch.Tensor, unembed: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk's (summed loss, label count): logits [B, chunk, V] in
+    f32 from the model dtype's product, log-sum-exp minus the gold logit
+    where the label is >= 0."""
+    logits = (xc @ unembed).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, torch.clamp(yc, min=0)[..., None]
+                        )[..., 0]
+    mask = (yc >= 0).float()
+    return torch.sum((lse - gold) * mask), torch.sum(mask)
+
+
+def chunked_softmax_xent(x: torch.Tensor, labels: torch.Tensor,
+                         unembed: torch.Tensor, c: TransformerConfig,
+                         chunk: int = 512) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``x`` [B, S, D] against
+    ``labels`` [B, S] (< 0: masked) without the whole [B, S, V] logits:
+    chunks of ``min(chunk, S)`` positions, each under
+    ``torch.utils.checkpoint`` (its logits recomputed in backward), the
+    f32 sum and count accumulated chunk by chunk in the reference's
+    order.  Raises where ``S`` is not a multiple of the chunk (the
+    reference's reshape fails there)."""
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the "
+                         f"cross-entropy chunk {chunk}")
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, chunk):
+        xc, yc = x[:, i:i + chunk], labels[:, i:i + chunk]
+        if torch.is_grad_enabled():
+            loss, n = checkpoint(_xent_chunk, xc, yc, unembed,
+                                 use_reentrant=False)
+        else:
+            loss, n = _xent_chunk(xc, yc, unembed)
+        tot, cnt = tot + loss, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def lm_loss(model: Transformer, batch: Dict[str, torch.Tensor],
+            c: TransformerConfig) -> torch.Tensor:
+    """The reference's ``lm_loss``: the chunked cross-entropy of the
+    final hidden states against ``batch["labels"]``; with ``c.mtp`` plus
+    0.3 times the MTP head's (``[rms_norm(x, mtp_ln), emb(t+1)] @
+    mtp_proj`` against the labels shifted one further, the last -1)."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    x, _ = model(tokens)
+    unembed = model.unembedding()
+    loss = chunked_softmax_xent(x, labels, unembed, c)
+    if c.mtp:
+        # next-next-token prediction: h_t with emb(t + 1), one projection
+        emb_next = torch.roll(F.embedding(tokens, model.embed).to(c.dtype),
+                              -1, dims=1)
+        h2 = torch.cat([rms_norm(x, model.mtp_ln, c.norm_eps), emb_next],
+                       dim=-1) @ model.mtp_proj
+        labels2 = torch.roll(labels, -1, dims=1)
+        labels2[:, -1] = -1
+        loss = loss + 0.3 * chunked_softmax_xent(h2, labels2, unembed, c)
+    return loss
+
+
+def make_train_step(c: TransformerConfig, optimizer: torch.optim.Optimizer
+                    ) -> Any:
+    """``train_step(model, batch) -> {"loss"}`` on :func:`lm_loss`: the
+    gradients zeroed, the loss run backward, ``optimizer.step()`` (the
+    model and the optimizer's state updated IN PLACE; see
+    ``common.train_step_of``)."""
+    return train_step_of(lambda m, b: lm_loss(m, b, c), optimizer)

@@ -49,3 +49,17 @@ def test_serve_retrieval_torch_top_k_agree():
     assert out[0].startswith("indexed 20,000 candidates in ")
     assert "knn_topk agreement with streaming top-k: 100.0%" in out
     assert out[-1].startswith("query 0 top-5 candidates:")
+
+
+def test_train_lm_torch_quick_trains_the_granite_smoke_model():
+    """``examples/train_lm_torch.py --quick --device cpu``: the JAX
+    example's quick run (granite's smoke config, 30 steps of 8 x 64
+    tokens, a line every 5) through the port's driver, its loss
+    falling."""
+    out = run("train_lm_torch.py", "--quick", "--device", "cpu")
+    assert out[0].startswith("arch=granite-smoke ")
+    steps = [ln for ln in out if ln.startswith("step ")]
+    assert [int(ln.split()[1]) for ln in steps] == [0, 5, 10, 15, 20, 25,
+                                                    29]
+    assert out[-1].startswith("final loss:")
+    assert float(out[-1].split()[-1]) < float(steps[0].split()[3])

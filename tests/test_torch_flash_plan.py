@@ -220,3 +220,122 @@ def test_ref_matches_jax_gqa_attention(rng, s, h, kv, d, window):
                               0, jnp.asarray(window or 2 ** 30),
                               1.0 / d ** 0.5, 64)
     np.testing.assert_allclose(got.numpy(), np.asarray(exp), atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# 9b, the gradient (csrc/flash_attention_bwd.cu): its tiles and shared bytes
+# ---------------------------------------------------------------------------
+
+BWD_SRC = (flash_attention.build.CSRC / "flash_attention_bwd.cu").read_text()
+
+
+@pytest.mark.parametrize("d", range(1, flash_attention.MAX_D + 1, 5))
+def test_bwd_shared_memory_fits_one_block(d):
+    """Each kernel's bytes fit one block, the dK/dV kernel's the largest:
+    four staged f32 tiles at a pitch of 16·DC + 1 floats, score tiles of
+    BT + 1, BT rows (32 past D = 128, as the source's ``Tiles`` says)."""
+    stats, dkdv, dq = flash_attention.bwd_smem_bytes(d)
+    dc = next(c for c in (2, 4, 8, 16) if d <= 16 * c)
+    bt = 32 if dc == 16 else 64
+    assert "BT = DC == 16 ? 32 : 64" in BWD_SRC
+    tile = bt * (16 * dc + 1)
+    assert stats == 16 * tile
+    assert dq == 4 * (4 * tile + bt * (bt + 1))
+    assert dkdv == 4 * (4 * tile + 2 * bt * (bt + 1) + 2 * bt)
+    assert stats < dq < dkdv <= SMEM_MAX
+    q = torch.zeros((1, 9, 2, d))
+    plan = flash_attention.plan_flash_bwd(q, q, q, q, 3, True)
+    assert plan.design == "cuda_cores"
+    assert plan.bt == bt and plan.smem_bytes == (stats, dkdv, dq)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_bwd_mma_shared_memory_is_its_layout(d):
+    """The ``mma_sync`` kernels' bytes as the source lays them out: four
+    bf16 tiles of 64 rows at a pitch of D + 8, and 64 log-sum-exps and Δs
+    in the dK/dV kernel."""
+    assert "4 * mma_tile<D>() * 2 + (kernel == 1 ? 2 * MT * 4 : 0)" in \
+        BWD_SRC and "MT * (D + MMA_PAD)" in BWD_SRC
+    tiles = 4 * 64 * (d + 8) * 2
+    assert flash_attention.mma_bwd_smem_bytes(d) == (tiles, tiles + 512,
+                                                     tiles)
+    q = torch.zeros((2, 70, 4, d), dtype=BF)
+    plan = flash_attention.plan_flash_bwd(q, q, q, q, 0, True)
+    assert plan.design == "mma_sync" and plan.bt == 64
+    assert max(plan.smem_bytes) <= SMEM_MAX
+
+
+@pytest.mark.parametrize("case,design", [
+    ("bf16 D 64", "mma_sync"), ("bf16 D 128", "mma_sync"),
+    ("bf16 D 32", "cuda_cores"), ("bf16 D 96", "cuda_cores"),
+    ("f32 D 64", "cuda_cores"), ("strided dout", "mma_sync"),
+    ("unaligned dout", "cuda_cores"), ("unaligned q", "cuda_cores")])
+def test_bwd_plan_routes_as_the_c_entry(case, design):
+    """bf16 with D in {64, 128} and 16-byte aligned rows of q, k, v and
+    dout take the tensor-core design, as ``mma_ok`` in the source does;
+    the rest the CUDA cores."""
+    assert "if (!bf16 || (D != 64 && D != 128)) return false;" in BWD_SRC
+    d = {"bf16 D 32": 32, "bf16 D 96": 96, "bf16 D 128": 128}.get(case, 64)
+    dt = F32 if case.startswith("f32") else BF
+    q = torch.zeros((2, 50, 4, d), dtype=dt)
+    k = v = torch.zeros((2, 50, 2, d), dtype=dt)
+    do = q
+    if case == "strided dout":
+        do = torch.zeros((2, 50, 8, d), dtype=dt)[:, :, ::2]
+    elif case == "unaligned dout":
+        do = torch.zeros((2, 50, 4, d + 1), dtype=dt)[..., 1:]
+    elif case == "unaligned q":
+        q = torch.zeros((2, 50, 4, d + 1), dtype=dt)[..., 1:]
+    assert flash_attention.plan_flash_bwd(q, k, v, do).design == design
+
+
+def _bwd_plans(s, causal, window):
+    return [flash_attention.plan_flash_bwd(q, q, q, q, window, causal)
+            for q in (torch.zeros((1, s, 1, 64)), torch.zeros((1, s, 1, 192)),
+                      torch.zeros((1, s, 1, 128), dtype=BF))]
+
+
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 63, 64, 65, 129, 200, 400])
+@pytest.mark.parametrize("causal,window", [
+    (True, 0), (False, 0), (True, 1), (True, 17), (True, 64), (True, 65),
+    (True, 1000), (False, 33), (False, 200)])
+def test_bwd_tiles_are_exactly_the_visible_ones(s, causal, window):
+    """The key tiles the stats and dQ kernels walk for a query tile, and
+    the query tiles the dK/dV kernel walks for a key tile, are exactly
+    those holding a (query, key) pair that the mask leaves visible (the
+    mask in numpy): none skipped that a row needs, none walked that every
+    row would mask."""
+    keep = _mask(s, causal, window)
+    for plan in _bwd_plans(s, causal, window):
+        bt, n = plan.bt, plan.n_tiles
+        assert n * bt >= s > (n - 1) * bt
+        for t in range(n):
+            rows = keep[t * bt:(t + 1) * bt]
+            want = {kt for kt in range(n)
+                    if rows[:, kt * bt:(kt + 1) * bt].any()}
+            assert set(plan.key_tiles(t * bt)) == want, (t, "keys")
+            cols = keep[:, t * bt:(t + 1) * bt]
+            want = {qt for qt in range(n)
+                    if cols[qt * bt:(qt + 1) * bt].any()}
+            assert set(plan.query_tiles(t * bt)) == want, (t, "queries")
+
+
+def _grads_np(q, k, v, do, causal, window):
+    got = ref.flash_attention_bwd_ref(_t(q), _t(k), _t(v), _t(do),
+                                      causal=causal, window=window)
+    return [g.numpy() for g in got]
+
+
+@pytest.mark.parametrize("s,d,window", [(128, 64, 0), (256, 64, 129)])
+def test_bwd_ref_matches_pallas_kernel_vjp_on_128_blocks(rng, s, d, window):
+    """The plain backward against ``jax.vjp`` of the Pallas kernel's own
+    oracle at its 128-row blocks (the kernel has no backward)."""
+    import jax
+    q, k, v = _np_qkv(rng, 1, s, 2, 2, d)
+    do = rng.normal(size=q.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: jref.flash_attention_ref(
+        a, b, c, causal=True, window=window), jnp.asarray(q),
+        jnp.asarray(k), jnp.asarray(v))
+    for got, exp in zip(_grads_np(q, k, v, do, True, window),
+                        vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(got, np.asarray(exp), atol=ATOL)

@@ -251,7 +251,8 @@ def test_plain_versions_on_cpu_count_no_launch():
                                         "blend_topn_rows_quant",
                                         "blend_topn_rows",
                                         "decayed_scatter",
-                                        "flash_attention"}
+                                        "flash_attention",
+                                        "flash_attention_bwd"}
     assert all(v == 0 for v in build.launch_counts.values())
 
 
@@ -336,3 +337,44 @@ def test_mlp_defaults_to_cuda():
         common.init_mlp(gen, [3, 2])
     mlp = common.init_mlp(gen, [3, 2], device="cpu")
     assert mlp.w[0].device.type == "cpu" and mlp.w[0].requires_grad
+
+
+def test_attention_kernel_refuses_a_call_autograd_would_record():
+    """``flash_attention.launch`` has no backward: with grad mode on and
+    an input that requires grad it raises before anything else, so no
+    caller loses attention's gradient without a word; without grad it
+    goes on to its usual checks.  ``ops.flash_attention`` sends such
+    inputs through the autograd Function instead, and 9b's wrapper takes
+    CUDA tensors only."""
+    q, k, v = _attention_inputs()
+    q.requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention.launch(q, k, v)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_attention.launch(q, k, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.launch_bwd(q.detach(), k, v, q.detach())
+    before = dict(build.launch_counts)
+    out = ops.flash_attention(q, k, v)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    out.sum().backward()
+    assert q.grad is not None and build.launch_counts == before
+
+
+def test_lm_training_defaults_to_cuda():
+    """The LM and its training driver run on the card unless the caller
+    names the CPU, and never quietly on the CPU when there is no
+    card."""
+    from repro_torch.configs import granite_3_2b
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    if torch.cuda.is_available():
+        return
+    c = granite_3_2b.smoke_config()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init_params(c, torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.run(["--arch", "granite-3-2b", "--smoke", "--steps", "1"])
+    model = transformer.init_params(c, torch.Generator(), device="cpu")
+    assert all(p.requires_grad for p in model.parameters())

@@ -357,6 +357,9 @@ def _models(name, seed=1):
     tree = jax.tree.map(np.asarray, params)
     model = convert.transformer_params_from_numpy(tree, _port_config(jc),
                                                   device="cpu")
+    # serving checks: the trainable weights are frozen, so the full
+    # forward builds no autograd graph
+    model.requires_grad_(False)
     return jc, params, model
 
 
@@ -500,7 +503,7 @@ def test_init_params_norms_experts_and_caches():
     names = dict(model.named_parameters())
     for name, p in names.items():
         leaf = name.split(".")[-1]
-        assert p.dtype == c.dtype and not p.requires_grad
+        assert p.dtype == c.dtype and p.requires_grad
         if leaf in ("ln1", "ln2", "q_ln", "kv_ln", "final_ln", "mtp_ln"):
             assert torch.all(p == 1), name
         else:

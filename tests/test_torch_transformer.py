@@ -112,6 +112,9 @@ def _models(name, seed=1):
     tree = jax.tree.map(np.asarray, params)
     model = convert.transformer_params_from_numpy(tree, _port_config(jc),
                                                   device="cpu")
+    # serving checks: the trainable weights are frozen, so the full
+    # forward builds no autograd graph
+    model.requires_grad_(False)
     return jc, params, model
 
 
@@ -190,7 +193,7 @@ def test_init_params_and_cache_shapes():
                 assert torch.all(w == 1)
             else:
                 assert 0.01 < float(w.std()) < 0.03
-    assert not any(p.requires_grad for p in model.parameters())
+    assert all(p.requires_grad for p in model.parameters())
     caches = tf.init_caches(c, 3, 20, device="cpu")
     want = jtf.cache_shapes(jgranite.smoke_config(), 3, 20)["dense"]
     for got, exp in zip(caches["dense"], want):
