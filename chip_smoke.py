@@ -193,11 +193,15 @@ Phases, each fatal on failure (nothing is caught):
    gradient of B9, alone at granite-3-2b's layer 0 (B 4, S 4,096, H 32,
    KV 8, D 64, bf16, causal), qwen2-moe's (D 128), a gemma3 local layer
    (window 1,024), f32, an odd S, MLA's D 192 without the causal mask,
-   D 32 and one token: dq, dk and dv held to ``ref.flash_attention_bwd_ref``
-   by the LM logits row's layer-0 bounds, bitwise from run to run, timed
-   by events, the profiler, a burst and the host clock beside the plain
-   version and SDPA's backward; then (counts reset before, read after: B9
-   and 9b only) the gradient gate (granite at full width cut to 4
+   D 32 and one token, on the Hopper design (``tma_wgmma``: from the
+   log-sum-exp B9 saves, B9's output checked bitwise with and without the
+   lse write and its lse against the plain one) where the input takes
+   it, else on the CUDA cores: dq, dk and dv held to
+   ``ref.flash_attention_bwd_ref`` by the LM logits row's layer-0 bounds,
+   bitwise from run to run, timed by events, the profiler, a burst and
+   the host clock beside the plain version, SDPA's backward and the
+   bound; then (counts reset before, read after: B9 and 9b only, 9b's
+   also by kernel name) the gradient gate (granite at full width cut to 4
    layers, B 4 x S 4,096: step-1 gradients with the kernels against the
    plain versions per leaf within 2x the plain run's own error against
    an f32 run, every layer's attention weights given a gradient),
@@ -355,7 +359,7 @@ KERNELS = {
     # 9b: the gradient the JAX package takes by autodiff of its
     # model-level blocked attention
     "flash_attention_bwd": dict(
-        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
         replaces="src/repro/models/transformer.py:378"),
 }
 
@@ -3573,29 +3577,38 @@ def train_path(dev, card) -> dict:
 
 FLASH_BWD_CASES = (
     # what, B, S, H, KV, D, window, dtype, causal, the design planned
-    ("granite-3-2b layer 0", 4, 4096, 32, 8, 64, 0, BF16, True, MMA),
+    ("granite-3-2b layer 0", 4, 4096, 32, 8, 64, 0, BF16, True, WGMMA),
     # the same on the CUDA cores: rows 2 bytes off a 16-byte boundary
     ("granite-3-2b layer 0, unaligned rows", 4, 4096, 32, 8, 64, 0, BF16,
      True, CORES),
-    ("qwen2-moe-a2.7b layer 0", 4, 4096, 16, 16, 128, 0, BF16, True, MMA),
-    ("gemma3-27b local layer", 2, 4096, 32, 16, 128, 1024, BF16, True, MMA),
+    ("qwen2-moe-a2.7b layer 0", 4, 4096, 16, 16, 128, 0, BF16, True, WGMMA),
+    ("gemma3-27b local layer", 2, 4096, 32, 16, 128, 1024, BF16, True,
+     WGMMA),
     ("f32", 2, 1000, 8, 2, 64, 0, F32, True, CORES),
-    ("odd S, GQA 4", 1, 333, 8, 2, 128, 0, BF16, True, MMA),
+    ("odd S, GQA 4", 1, 333, 8, 2, 128, 0, BF16, True, WGMMA),
     ("odd S, D 96", 1, 333, 4, 2, 96, 0, BF16, True, CORES),
-    ("window inside a tile", 2, 200, 4, 4, 64, 17, BF16, True, MMA),
-    ("no causal mask, window", 1, 257, 4, 2, 64, 70, BF16, False, MMA),
+    ("window inside a tile", 2, 200, 4, 4, 64, 17, BF16, True, WGMMA),
+    ("no causal mask, window", 1, 257, 4, 2, 64, 70, BF16, False, WGMMA),
     ("MLA's D 192, window, no causal mask", 1, 257, 4, 4, 192, 70, F32,
      False, CORES),
     ("D 32, window inside a tile", 1, 130, 2, 2, 32, 17, BF16, True, CORES),
-    ("one token", 2, 1, 2, 1, 64, 0, BF16, True, MMA),
+    ("one token", 2, 1, 2, 1, 64, 0, BF16, True, WGMMA),
 )
-# 9b's kernels: the CUDA-core design's and the tensor-core design's
-FLASH_BWD_KERNELS = ("bwd_stats_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")
-FLASH_BWD_MMA_KERNELS = ("bwd_mma_stats_kernel", "bwd_mma_dkdv_kernel",
-                         "bwd_mma_dq_kernel")
-# the backward's operations: its 5 products (2.5x the forward's), and the
-# 2 of the pass that recomputes each row's log-sum-exp and Δ (1x more)
+# 9b's kernels: the CUDA-core design's and the Hopper design's
+FLASH_BWD_KERNELS = flash_attention.BWD_KERNELS[CORES]
+FLASH_BWD_WGMMA_KERNELS = flash_attention.BWD_KERNELS[WGMMA]
+# the backward's operations over the forward's: the gradient's own 5
+# products (2.5x), the least work given the log-sum-exp that B9 saves
+# (the Hopper design's bound); with the 2 products that recompute each
+# row's log-sum-exp (3.5x, the CUDA-core design's bound, which gets no
+# lse); and the 9 products either design runs (each row's scores and dP
+# taken in each of its three launches, 4.5x), logged beside
+FLASH_BWD_OWN_RATIO = 2.5
 FLASH_BWD_FLOP_RATIO = 3.5
+FLASH_BWD_RUN_RATIO = 4.5
+# B9's saved log-sum-exp against the plain one: ex2.approx and another
+# summation order, a few f32 ulps of values below ~20
+FLASH_LSE_ATOL = 1e-4
 # granite at full width, depth cut for the gradient gate; the training
 # batch; the gate's bound (as the logit gate's: this many times the plain
 # bf16 run's own error against an f32 run of the same weights)
@@ -3660,14 +3673,33 @@ def visible_pairs(s, causal, window) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+def check_saved_lse(q, k, v, causal, win, what):
+    """B9's ``tma_wgmma`` forward with and without the log-sum-exp write:
+    the output bitwise the same, the lse within ``FLASH_LSE_ATOL`` of
+    ``ref.flash_attention_lse_ref``.  Returns (out, lse, lse's max
+    |err|)."""
+    with torch.no_grad():
+        plain_out = flash_attention.launch(q, k, v, causal, win)
+        out, lse = flash_attention.launch_with_lse(q, k, v, causal, win)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain_out), (what, "B9's output moved")
+    want = ref.flash_attention_lse_ref(q, k, causal, win)
+    err = float((lse - want).abs().max())
+    assert lse.shape == want.shape and err <= FLASH_LSE_ATOL, (what, err)
+    return out, lse, err
+
+
 def check_flash_bwd(dev) -> dict:
-    """9b alone at each of ``FLASH_BWD_CASES``: held against
-    ``ref.flash_attention_bwd_ref`` by ``grad_errors`` (dq, dk, dv), the
-    plain bf16 version's own error against an f32 one logged beside it,
-    the three kernels bitwise from run to run; timed by events, by the
+    """9b alone at each of ``FLASH_BWD_CASES``: on the ``tma_wgmma``
+    design from the log-sum-exp that B9 saves (``check_saved_lse``), held
+    against ``ref.flash_attention_bwd_ref`` by ``grad_errors`` (dq, dk,
+    dv; the error against the design's own counterpart
+    ``ref.flash_attention_bwd_lse_ref`` logged beside), the
+    plain bf16 version's own error against an f32 one logged too, the
+    three kernels bitwise from run to run; timed by events, by the
     profiler (the three kernels), a burst of 10 and the host clock,
-    beside the plain version and SDPA's backward.  Returns granite's
-    layer-0 record."""
+    beside the plain version, SDPA's backward and the bound.  Returns
+    granite's layer-0 record."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(16)
     recs = {}
@@ -3677,27 +3709,42 @@ def check_flash_bwd(dev) -> dict:
         q, k, v, do = (torch.randn((b, s, n, d + pad), generator=gen,
                                    device=dev).to(dt)[..., pad:]
                        for n in (h, kv, kv, h))
-        plan = flash_attention.plan_flash_bwd(q, k, v, do, win, causal)
+        saved, lse_note = {}, ""
+        if design == WGMMA:
+            _, lse, lse_err = check_saved_lse(q, k, v, causal, win, what)
+            saved = dict(lse=lse)
+            lse_note = (f"; B9's output bitwise with and without the lse "
+                        f"write, its lse vs plain max |err| {lse_err:.3e}")
+        plan = flash_attention.plan_flash_bwd(q, k, v, do, win, causal,
+                                              **saved)
         assert plan.design == design, (what, plan)
-        got = flash_attention.launch_bwd(q, k, v, do, causal, win)
-        again = flash_attention.launch_bwd(q, k, v, do, causal, win)
+        got = flash_attention.launch_bwd(q, k, v, do, causal, win, **saved)
+        again = flash_attention.launch_bwd(q, k, v, do, causal, win, **saved)
         torch.cuda.synchronize()
         assert all(torch.equal(x, y) for x, y in zip(got, again)), what
         want = ref.flash_attention_bwd_ref(q, k, v, do, causal, win)
         errs = [grad_errors(x, y, (what, n)) for x, y, n in
                 zip(got, want, ("dq", "dk", "dv"))]
+        if design == WGMMA:
+            own = ref.flash_attention_bwd_lse_ref(q, k, v, lse, do, causal,
+                                                  win)
+            lse_note += ", vs its counterpart from that lse " + \
+                str([float((x.float() - y.float()).abs().max())
+                     for x, y in zip(got, own)])
+            del own
         f32 = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
                                           do.float(), causal, win)
         own = [float((y.float() - z).abs().max()) for y, z in zip(want, f32)]
         del got, again, f32
-        run = lambda: flash_attention.launch_bwd(q, k, v, do, causal, win)  # noqa: E731
+        run = lambda: flash_attention.launch_bwd(  # noqa: E731
+            q, k, v, do, causal, win, **saved)
         t = dict(ms=time_ms(run),
                  plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(
                      q, k, v, do, causal, win)),
                  library_ms=time_ms(flash_bwd_library(q, k, v, do, win,
                                                       causal)))
         reps = 5
-        traced = device_ms(run, FLASH_BWD_KERNELS + FLASH_BWD_MMA_KERNELS,
+        traced = device_ms(run, FLASH_BWD_KERNELS + FLASH_BWD_WGMMA_KERNELS,
                            reps, required=False)
         prof, every, n_rec = traced or (float("nan"), float("nan"), 0)
         prof *= 3 * reps / max(n_rec, 1)     # per call, over the records
@@ -3711,11 +3758,15 @@ def check_flash_bwd(dev) -> dict:
         end.record()
         end.synchronize()
         burst_ms = start.elapsed_time(end) / 10
-        # q, k, v and dO read once, dq, dk and dv written once
+        # q, k, v and dO read once (with B9's lse where the design reads
+        # it), dq, dk and dv written once
         io = sum(x.numel() * x.element_size() for x in (q, k, v, do)) * 2 \
-            - do.numel() * do.element_size()
-        flops = FLASH_BWD_FLOP_RATIO * 4.0 * d * b * h \
-            * visible_pairs(s, causal, win)
+            - do.numel() * do.element_size() + sum(
+                x.numel() * x.element_size() for x in saved.values())
+        pairs = 4.0 * d * b * h * visible_pairs(s, causal, win)
+        ratio = FLASH_BWD_OWN_RATIO if design == WGMMA \
+            else FLASH_BWD_FLOP_RATIO
+        flops = ratio * pairs
         recs[what] = dict(
             t, max_abs_err=max(e["err"] for e in errs), device_ms=prof,
             burst_ms=burst_ms, host_ms=host_ms,
@@ -3724,25 +3775,28 @@ def check_flash_bwd(dev) -> dict:
                   + ("causal" if causal else "no causal mask")
                   + (f" window {win}" if win else "")
                   + (" unaligned rows" if pad else ""),
-            bound=bound(io, flops, PEAK_BF16))
+            bound=bound(io, flops, PEAK_BF16),
+            bound_run=bound(io, FLASH_BWD_RUN_RATIO * pairs, PEAK_BF16))
         r = recs[what]
         log(f"  9b {what} ({r['shape']}): kernel vs plain "
             + ", ".join(f"{n} max |err| {e['err']} (of {e['top']:.4g}), rms "
                         f"ratio {e['rms']:.3e}, worst row {e['row']:.3e}"
                         for n, e in zip(("dq", "dk", "dv"), errs))
-            + f"; plain vs f32 max |err| {own}; bitwise from run to run; "
-            f"{r['ms']:.4f} ms ({flops / r['ms'] / 1e9:.1f} TFLOP/s), "
-            f"profiler {prof:.4f} ms a call ({n_rec} of {3 * reps} kernel "
-            f"records, {every:.4f} ms in all kernels), {burst_ms:.4f} ms a "
-            f"call of 10, host {host_ms:.4f} ms a call; plain "
-            f"{r['plain_ms']:.4f} ms, SDPA backward {r['library_ms']:.4f} "
-            f"ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}); "
-            f"{plan.design}, tiles {plan.bt}, shared bytes "
-            f"{plan.smem_bytes}")
+            + f"{lse_note}; plain vs f32 max |err| {own}; bitwise from run "
+            f"to run; {r['ms']:.4f} ms ({flops / r['ms'] / 1e9:.1f} TFLOP/s "
+            f"of the {ratio}x work), profiler {prof:.4f} ms a call ({n_rec} "
+            f"of {3 * reps} kernel records, {every:.4f} ms in all kernels), "
+            f"{burst_ms:.4f} ms a call of 10, host {host_ms:.4f} ms a call; "
+            f"plain {r['plain_ms']:.4f} ms, SDPA backward "
+            f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]}, {ratio}x the forward's operations; the "
+            f"{FLASH_BWD_RUN_RATIO}x it runs {r['bound_run'][0]:.4f} ms); "
+            f"{plan.design}, items {plan.item}, tiles {plan.step}, shared "
+            f"bytes {plan.smem_bytes}")
         designs.add(design)
-        del q, k, v, do, want
+        del q, k, v, do, want, saved
         torch.cuda.empty_cache()
-    assert designs == {MMA, CORES}, designs
+    assert designs == {WGMMA, CORES}, designs
     return recs
 
 
@@ -3844,6 +3898,7 @@ def lm_full_depth(dev, card) -> dict:
     torch.cuda.synchronize()
     made = time.perf_counter() - t0
     before = dict(build.launch_counts)
+    bwd_before = dict(flash_attention.bwd_launches)
     losses, times = [], []
     for i in range(LM_TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -3859,6 +3914,13 @@ def lm_full_depth(dev, card) -> dict:
     assert launched == {"flash_attention": 2 * c.n_layers * LM_TRAIN_STEPS,
                         "flash_attention_bwd": c.n_layers
                         * LM_TRAIN_STEPS}, launched
+    # 9b on its Hopper design in every layer of every step: each of its
+    # kernels once a layer, the CUDA-core design's never
+    by_kernel = {n: x - bwd_before[n]
+                 for n, x in flash_attention.bwd_launches.items()}
+    assert by_kernel == {n: c.n_layers * LM_TRAIN_STEPS
+                         if n in FLASH_BWD_WGMMA_KERNELS else 0
+                         for n in by_kernel}, by_kernel
     peak = torch.cuda.max_memory_allocated()
     med = float(np.median(times[1:]))
     tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
@@ -3870,12 +3932,17 @@ def lm_full_depth(dev, card) -> dict:
         + f"; step-1 gradient norm {gnorm:.6g}; step {med * 1e3:.1f} ms "
         f"(median of steps 2-{LM_TRAIN_STEPS}; step 1 {times[0] * 1e3:.1f} "
         f"ms), {tokens / med:,.0f} tokens/s; peak {peak / 1e9:.2f} GB; "
-        f"launches {launched} [{card}]")
+        f"launches {launched}, 9b's by kernel {by_kernel} [{card}]")
     wall, total, prof = profiled(lambda: step(model, batches[-1]))
+    by_name = {n: [(ms, k) for ms, k, kn in prof if n in kn]
+               for n in ("flash_wgmma_kernel",) + FLASH_BWD_WGMMA_KERNELS}
     log(f"    one more step under the profiler: {wall:.1f} ms on the host "
         f"clock, {total:.1f} ms of device time "
         f"({100 * total / wall:.0f}% busy); by kernel: " + "; ".join(
-            f"{ms:.1f} ms x{n} {kn[:50]}" for ms, n, kn in prof[:8]))
+            f"{ms:.1f} ms x{n} {kn[:50]}" for ms, n, kn in prof[:8])
+        + "; B9 and 9b by kernel: " + "; ".join(
+            f"{n} {sum(m for m, _ in r):.1f} ms x{sum(k for _, k in r)}"
+            for n, r in by_name.items()))
     del model, opt, step, batches
     torch.cuda.empty_cache()
     return dict(step_ms=med * 1e3, tokens_s=tokens / med, peak=peak)
@@ -3957,6 +4024,7 @@ def lm_train_path(dev, card) -> tuple:
     recs = check_flash_bwd(dev)
     log(f"  9b checks: {time.perf_counter() - t0:.1f} s")
     build.reset_launch_counts()
+    flash_attention.reset_bwd_launches()
     t0 = time.perf_counter()
     lm_gradient_gate(dev, card)
     log(f"  gradient gate: {time.perf_counter() - t0:.1f} s")
@@ -3975,7 +4043,9 @@ def lm_train_path(dev, card) -> tuple:
         launches["flash_attention_bwd"] > 0, launches
     assert all(n in ("flash_attention", "flash_attention_bwd") or not x
                for n, x in launches.items()), launches
-    log(f"  LM training launches: {launches} [{card}]")
+    log(f"  LM training launches: {launches}; 9b's by kernel "
+        f"{flash_attention.bwd_launches} (the f32 driver and smoke models "
+        f"on the CUDA cores) [{card}]")
     first = recs.pop("granite-3-2b layer 0")
     return launches, first, recs, full
 
@@ -4039,7 +4109,7 @@ def main() -> int:
               "sparse_row_scatter_kernel": [], "blend_group_kernel": [],
               "blend_plan_kernel": [], "dtiled_ring_kernel": [],
               **{n: [] for n in FLASH_BWD_KERNELS
-                 + FLASH_BWD_MMA_KERNELS}}
+                 + FLASH_BWD_WGMMA_KERNELS}}
     for line in build.last_build_log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]          # the mangled kernel name
@@ -4062,9 +4132,9 @@ def main() -> int:
     assert len(spills["blend_group_kernel"]) == 2
     assert len(spills["blend_plan_kernel"]) == 2
     # 9b's three kernels: on the CUDA cores at f32 and bf16, D padded to
-    # 32, 64, 128, 256; on the tensor cores at D 64 and 128
+    # 32, 64, 128, 256; the Hopper design's at D 64 and 128
     assert all(len(spills[n]) == 8 for n in FLASH_BWD_KERNELS), spills
-    assert all(len(spills[n]) == 2 for n in FLASH_BWD_MMA_KERNELS), spills
+    assert all(len(spills[n]) == 2 for n in FLASH_BWD_WGMMA_KERNELS), spills
     assert all("0 bytes spill stores, 0 bytes spill loads" in x
                for found in spills.values() for x in found), spills
 

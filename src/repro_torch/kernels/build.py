@@ -29,8 +29,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 SOURCES = ("sparse_row_gather.cu", "sparse_row_scatter.cu", "knn_topk.cu",
            "serving_topn.cu", "knn_topk_dtiled.cu", "serving_rows.cu",
            "decayed_scatter.cu", "flash_attention.cu",
-           "flash_attention_wgmma.cu", "flash_attention_bwd.cu")
-HEADERS = ("topk_common.cuh", "knn_ring.cuh", "mma_bf16.cuh")
+           "flash_attention_wgmma.cu", "flash_attention_bwd.cu",
+           "flash_attention_bwd_wgmma.cu")
+HEADERS = ("topk_common.cuh", "knn_ring.cuh", "mma_bf16.cuh",
+           "flash_hopper.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
@@ -58,11 +60,16 @@ SIGNATURES: Dict[str, List] = {
                                _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I,
                                _I, _I, _I, _P],
     "flash_wgmma_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,
-                           _L, _L, _L, _L, _L, _L, _F, _I, _I, _I, _I, _P],
+                           _L, _L, _L, _L, _L, _L, _F, _I, _I, _P, _I, _I,
+                           _I, _P],
     "flash_attention_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                    _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
                                    _L, _L, _L, _L, _L, _L, _F, _I, _I, _I,
-                                   _I, _I, _I, _I, _P],
+                                   _I, _I, _I, _P],
+    "flash_bwd_wgmma_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L,
+                               _L, _L, _L, _L, _I, _F, _I, _I, _I, _I, _I,
+                               _P],
 }
 
 # launches per kernel wrapper since the last reset_launch_counts()

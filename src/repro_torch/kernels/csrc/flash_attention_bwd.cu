@@ -35,42 +35,27 @@
 // from the whole tile, as the forward does (flash_attention.FlashBwdPlan
 // mirrors the ranges).
 //
-// Two designs of flash_attention.plan_flash_bwd; the wrapper passes the
-// planned one and this entry refuses inputs it does not take.
-//
-// Tensor-core design (bwd_mma_*_kernel), bf16 with D in {64, 128} and
-// 16-byte aligned rows (bases and strides multiples of 8 elements): 4 warps
-// a block over 64-row tiles staged as bf16 by 16-byte vectors, every
-// product on mma.sync m16n8k16 with f32 accumulators (the fragment code of
-// flash_attention.cu's mma_sync design, mma_bf16.cuh).  A warp owns 16
-// rows of the block's tile: 16 queries in the stats and dQ kernels, 16
-// keys in the dK/dV kernel, which computes S^T = K.Q^T and dP^T = V.dO^T
-// so that P^T and dS^T come out as its rows' fragments and feed dV += P^T
-// . dO and dK += dS^T . Q straight from registers (P and dS rounded to
-// bf16 there; at D = 128 it takes the query tile in halves of 32, which
-// keeps its two [16, 128] accumulators and the scores in registers).  A
-// warp skips a tile whose pairs the mask hides from all its rows.
-//
-// CUDA-core design (bwd_*_kernel) for every other input: tiles of BT = 64
-// rows (32 at D > 128, where four f32 tiles of 64 would not fit in shared
-// memory) staged as f32 with a row pitch of DP + 1 floats; 256 threads,
-// thread (ty, tx) owns rows R*ty .. R*ty + R - 1 (R = BT / 16) and columns
-// tx + 16j of each score tile and the output dims tx + 16j; dS stays f32.
+// The CUDA-core design of flash_attention.plan_flash_bwd, for every input
+// that flash_attention_bwd_wgmma.cu (the Hopper design, which reads the
+// forward's saved log-sum-exp and output) does not take: f32, D other
+// than 64 and 128, rows off a 16-byte boundary, and a forward that saved
+// no log-sum-exp.  Tiles of BT = 64 rows (32 at D > 128, where four f32
+// tiles of 64 would not fit in shared memory) staged as f32 with a row
+// pitch of DP + 1 floats; 256 threads, thread (ty, tx) owns rows R*ty ..
+// R*ty + R - 1 (R = BT / 16) and columns tx + 16j of each score tile and
+// the output dims tx + 16j; dS stays f32.  The entry refuses inputs and
+// shared bytes other than the plan's.
 //
 // Bound: operations.  5 products of 2*D flops per unmasked (query, key)
-// pair are the gradient's own work (2.5x the forward's); both designs also
-// recompute Q.K^T and dO.V^T in launch 1 and again in launches 2 and 3 (9
-// products in all).  The CUDA-core design runs on the f32 cores, 1/15th
-// of the bf16 tensor-core peak; the tensor-core design on mma.sync (not
-// wgmma), loading each tile between barriers with no overlap.
+// pair are the gradient's own work (2.5x the forward's); this design also
+// recomputes Q.K^T and dO.V^T in launch 1 and again in launches 2 and 3
+// (9 products in all), on the f32 cores, 1/15th of the bf16 tensor-core
+// peak.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
-#include <initializer_list>
-
-#include "mma_bf16.cuh"
 
 namespace {
 
@@ -460,358 +445,6 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv_kernel(
   }
 }
 
-// ---------------------------------------------------------------------------
-// bf16 tensor-core design (mma.sync m16n8k16, f32 accumulate), D 64 or 128
-// ---------------------------------------------------------------------------
-
-constexpr int MMA_THREADS = 128;           // 4 warps, 16 rows each
-constexpr int MT = 64;                     // rows of a tile
-constexpr int MMA_PAD = 8;                 // bf16 per smem row: 16-byte pad
-
-template <int D>
-__host__ __device__ constexpr int mma_tile() {   // bf16 of a staged tile
-  return MT * (D + MMA_PAD);
-}
-template <int D>
-constexpr int mma_bytes(int kernel) {      // 0 stats, 1 dK/dV, 2 dQ
-  return 4 * mma_tile<D>() * 2 + (kernel == 1 ? 2 * MT * 4 : 0);
-}
-
-// rows [r0, r0 + 64) of one head (row stride rs, D contiguous) into smem
-// rows of D + 8 bf16, zero past S; 16-byte vectors
-template <int D>
-__device__ __forceinline__ void mma_stage(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long rs, int r0, int S) {
-  constexpr int LD = D + MMA_PAD, VPR = D / 8;
-  for (int i = threadIdx.x; i < MT * VPR; i += MMA_THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S)
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * rs + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-// a[j] = A[rows ra..ra+15] . B[rows cb + 8j..]^T and c[j] = C[..] . E[..]^T
-// over D: a warp's 16 rows against 8*NB rows of another tile, as mma
-// accumulator fragments (row quad (+8), columns 8j + 2tq (+1))
-template <int D, int NB>
-__device__ __forceinline__ void mma_two_products(
-    float (&a)[NB][4], float (&c)[NB][4], const __nv_bfloat16* A,
-    const __nv_bfloat16* B, const __nv_bfloat16* C, const __nv_bfloat16* E,
-    int ra, int cb, int lane) {
-  constexpr int LD = D + MMA_PAD;
-#pragma unroll
-  for (int j = 0; j < NB; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) a[j][e] = c[j][e] = 0.f;
-  const int r = ra + (lane & 15), co = (lane >> 4) * 8;
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    unsigned fa[4], fc[4];
-    ldsm_x4(fa[0], fa[1], fa[2], fa[3], A + r * LD + ks * 16 + co);
-    ldsm_x4(fc[0], fc[1], fc[2], fc[3], C + r * LD + ks * 16 + co);
-#pragma unroll
-    for (int jj = 0; jj < NB / 2; ++jj) {
-      const int row = cb + jj * 16 + (lane >> 4) * 8 + (lane & 7);
-      const int d = ks * 16 + ((lane >> 3) & 1) * 8;
-      unsigned b0, b1, b2, b3;
-      ldsm_x4(b0, b1, b2, b3, B + row * LD + d);
-      mma_bf16(a[2 * jj], fa, b0, b1);
-      mma_bf16(a[2 * jj + 1], fa, b2, b3);
-      ldsm_x4(b0, b1, b2, b3, E + row * LD + d);
-      mma_bf16(c[2 * jj], fc, b0, b1);
-      mma_bf16(c[2 * jj + 1], fc, b2, b3);
-    }
-  }
-}
-
-// acc[n] += X . M[rows mb .. mb + 16NK): X the warp's 16 rows x 16NK
-// columns given as accumulator fragments x (rounded to bf16 here), M's
-// rows the product's depth and its D columns the output's
-template <int D, int NK>
-__device__ __forceinline__ void mma_accumulate(float (&acc)[D / 8][4],
-                                               const float (&x)[2 * NK][4],
-                                               const __nv_bfloat16* M,
-                                               int mb, int lane) {
-  constexpr int LD = D + MMA_PAD;
-#pragma unroll
-  for (int kk = 0; kk < NK; ++kk) {
-    const unsigned pa[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                            pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                            pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                            pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-    const int row = mb + kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
-#pragma unroll
-    for (int nn = 0; nn < D / 16; ++nn) {
-      unsigned b0, b1, b2, b3;
-      ldsm_x4_t(b0, b1, b2, b3, M + row * LD + nn * 16 + (lane >> 4) * 8);
-      mma_bf16(acc[2 * nn], pa, b0, b1);
-      mma_bf16(acc[2 * nn + 1], pa, b2, b3);
-    }
-  }
-}
-
-// a warp's 16 query rows [qf, qf + 15] see no key of [k0, k0 + 63]
-__device__ __forceinline__ bool keys_hidden(int qf, int k0, int causal,
-                                            int window) {
-  return (causal && k0 > qf + 15) || (window > 0 && k0 + 63 <= qf - window);
-}
-
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS) bwd_mma_stats_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v,
-    const __nv_bfloat16* __restrict__ dout, float* __restrict__ lse,
-    float* __restrict__ delta, int S, int H, int KV, Strides st,
-    float scale, int causal, int window) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Os = Qs + mma_tile<D>();
-  __nv_bfloat16* Ks = Os + mma_tile<D>();
-  __nv_bfloat16* Vs = Ks + mma_tile<D>();
-
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H, kvh = h / (H / KV);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * MT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int quad = lane >> 2, tq = lane & 3;
-  const __nv_bfloat16* kb = k + b * st.kb + kvh * st.kh;
-  const __nv_bfloat16* vb = v + b * st.vb + kvh * st.vh;
-  mma_stage<D>(Qs, q + b * st.qb + h * st.qh, st.qs, q0, S);
-  mma_stage<D>(Os, dout + b * st.ob + h * st.oh, st.os, q0, S);
-
-  const int qf = q0 + warp * 16, row0 = qf + quad;
-  float m_i[2] = {-1e30f, -1e30f}, l_i[2] = {0.f, 0.f}, t_i[2] = {0.f, 0.f};
-  int kt_lo, kt_hi;
-  key_range(q0, MT, S, causal, window, kt_lo, kt_hi);
-  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int k0 = kt * MT;
-    __syncthreads();   // the previous tile's readers are done
-    mma_stage<D>(Ks, kb, st.ks, k0, S);
-    mma_stage<D>(Vs, vb, st.vs, k0, S);
-    __syncthreads();
-    if (keys_hidden(qf, k0, causal, window)) continue;
-    float s[8][4], dp[8][4];
-    mma_two_products<D, 8>(s, dp, Qs, Ks, Os, Vs, warp * 16, 0, lane);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qp = row0 + (e >> 1) * 8, kp = k0 + j * 8 + tq * 2 + (e & 1);
-        const float x = s[j][e] * scale;
-        s[j][e] = kp >= S ? -INFINITY
-                          : (visible(qp, kp, S, causal, window) ? x : -1e30f);
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
-    float alpha[2], sum[2] = {0.f, 0.f}, tsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_i[r], mx[r]);
-      alpha[r] = expf(m_i[r] - m_new);
-      m_i[r] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[j][e] - m_i[e >> 1]);
-        sum[e >> 1] += p;
-        tsum[e >> 1] = fmaf(p, dp[j][e], tsum[e >> 1]);
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      for (int off = 1; off <= 2; off <<= 1) {
-        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], off);
-        tsum[r] += __shfl_xor_sync(0xffffffffu, tsum[r], off);
-      }
-      l_i[r] = l_i[r] * alpha[r] + sum[r];
-      t_i[r] = t_i[r] * alpha[r] + tsum[r];
-    }
-  }
-  if (tq == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int qp = row0 + r * 8;
-      if (qp >= S) continue;
-      lse[(long long)bh * S + qp] = m_i[r] + logf(l_i[r]);
-      delta[(long long)bh * S + qp] = t_i[r] / l_i[r];
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS) bwd_mma_dq_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v,
-    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int S,
-    int H, int KV, Strides st, float scale, int causal, int window) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Os = Qs + mma_tile<D>();
-  __nv_bfloat16* Ks = Os + mma_tile<D>();
-  __nv_bfloat16* Vs = Ks + mma_tile<D>();
-
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H, kvh = h / (H / KV);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * MT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int quad = lane >> 2, tq = lane & 3;
-  const __nv_bfloat16* kb = k + b * st.kb + kvh * st.kh;
-  const __nv_bfloat16* vb = v + b * st.vb + kvh * st.vh;
-  mma_stage<D>(Qs, q + b * st.qb + h * st.qh, st.qs, q0, S);
-  mma_stage<D>(Os, dout + b * st.ob + h * st.oh, st.os, q0, S);
-
-  const int qf = q0 + warp * 16, row0 = qf + quad;
-  float lse_r[2], del_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qp = row0 + r * 8;
-    lse_r[r] = qp < S ? lse[(long long)bh * S + qp] : 0.f;
-    del_r[r] = qp < S ? delta[(long long)bh * S + qp] : 0.f;
-  }
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  int kt_lo, kt_hi;
-  key_range(q0, MT, S, causal, window, kt_lo, kt_hi);
-  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int k0 = kt * MT;
-    __syncthreads();   // the previous tile's readers are done
-    mma_stage<D>(Ks, kb, st.ks, k0, S);
-    mma_stage<D>(Vs, vb, st.vs, k0, S);
-    __syncthreads();
-    if (keys_hidden(qf, k0, causal, window)) continue;
-    float s[8][4], dp[8][4];
-    mma_two_products<D, 8>(s, dp, Qs, Ks, Os, Vs, warp * 16, 0, lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, qp = row0 + r * 8;
-        const int kp = k0 + j * 8 + tq * 2 + (e & 1);
-        const float p = visible(qp, kp, S, causal, window)
-                            ? expf(s[j][e] * scale - lse_r[r]) : 0.f;
-        s[j][e] = p * (dp[j][e] - del_r[r]);           // dS
-      }
-    mma_accumulate<D, 4>(acc, s, Ks, 0, lane);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qp = row0 + r * 8;
-    if (qp >= S) continue;
-    __nv_bfloat16* row = dq + (((long long)b * S + qp) * H + h) * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(row + n * 8 + tq * 2) =
-          __floats2bfloat162_rn(acc[n][2 * r] * scale,
-                                acc[n][2 * r + 1] * scale);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS) bwd_mma_dkdv_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v,
-    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-    __nv_bfloat16* __restrict__ dv, int S, int H, int KV, Strides st,
-    float scale, int causal, int window) {
-  constexpr int QS = D == 128 ? 32 : 64;   // queries a pass
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + mma_tile<D>();
-  __nv_bfloat16* Qs = Vs + mma_tile<D>();
-  __nv_bfloat16* Os = Qs + mma_tile<D>();
-  float* Ls = reinterpret_cast<float*>(Os + mma_tile<D>());
-  float* Dl = Ls + MT;
-
-  const int bkv = blockIdx.x;
-  const int b = bkv / KV, kvh = bkv % KV, group = H / KV;
-  const int k0 = blockIdx.y * MT;
-  const int k_last = min(k0 + MT, S) - 1;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int quad = lane >> 2, tq = lane & 3;
-  mma_stage<D>(Ks, k + b * st.kb + kvh * st.kh, st.ks, k0, S);
-  mma_stage<D>(Vs, v + b * st.vb + kvh * st.vh, st.vs, k0, S);
-  const int kf = k0 + warp * 16, krow0 = kf + quad;
-  float acc_k[D / 8][4], acc_v[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
-
-  const int nq = (S + MT - 1) / MT;
-  const int qt_lo = causal ? k0 / MT : 0;
-  const int qt_hi = window > 0 ? min(nq - 1, (k_last + window - 1) / MT)
-                               : nq - 1;
-  for (int g = 0; g < group; ++g) {
-    const int h = kvh * group + g;
-    const long long bh = (long long)b * H + h;
-    const __nv_bfloat16* qb = q + b * st.qb + h * st.qh;
-    const __nv_bfloat16* ob = dout + b * st.ob + h * st.oh;
-    for (int qt = qt_lo; qt <= qt_hi; ++qt) {
-      const int q0 = qt * MT;
-      __syncthreads();   // the previous tile's readers are done
-      mma_stage<D>(Qs, qb, st.qs, q0, S);
-      mma_stage<D>(Os, ob, st.os, q0, S);
-      if (threadIdx.x < MT) {
-        const int qp = q0 + threadIdx.x;
-        Ls[threadIdx.x] = qp < S ? lse[bh * S + qp] : 0.f;
-        Dl[threadIdx.x] = qp < S ? delta[bh * S + qp] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int half = 0; half < MT / QS; ++half) {
-        const int qs0 = q0 + half * QS;
-        // every query of the pass before every key of the warp, or every
-        // key too old for every query
-        if ((causal && qs0 + QS - 1 < kf) ||
-            (window > 0 && kf + 15 <= qs0 - window))
-          continue;
-        // rows: the warp's 16 keys; columns: the pass's queries
-        float s[QS / 8][4], dp[QS / 8][4];
-        mma_two_products<D, QS / 8>(s, dp, Ks, Qs, Vs, Os, warp * 16,
-                                    half * QS, lane);
-#pragma unroll
-        for (int j = 0; j < QS / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int kp = krow0 + (e >> 1) * 8;
-            const int c = half * QS + j * 8 + tq * 2 + (e & 1);
-            const float p = visible(q0 + c, kp, S, causal, window)
-                                ? expf(s[j][e] * scale - Ls[c]) : 0.f;
-            s[j][e] = p;                                 // P^T
-            dp[j][e] = p * (dp[j][e] - Dl[c]);          // dS^T
-          }
-        mma_accumulate<D, QS / 16>(acc_v, s, Os, half * QS, lane);
-        mma_accumulate<D, QS / 16>(acc_k, dp, Qs, half * QS, lane);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int kp = krow0 + r * 8;
-    if (kp >= S) continue;
-    const long long off = (((long long)b * S + kp) * KV + kvh) * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8 + tq * 2) =
-          __floats2bfloat162_rn(acc_k[n][2 * r] * scale,
-                                acc_k[n][2 * r + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8 + tq * 2) =
-          __floats2bfloat162_rn(acc_v[n][2 * r], acc_v[n][2 * r + 1]);
-    }
-  }
-}
-
 template <typename K>
 cudaError_t set_smem(K kern, int bytes) {
   return cudaFuncSetAttribute(kern,
@@ -856,56 +489,6 @@ int launch_bwd(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_mma(const void* q, const void* k, const void* v, const void* dout,
-               void* dq, void* dk, void* dv, float* lse, float* delta,
-               int B, int S, int H, int KV, const Strides& st, float scale,
-               int causal, int window, const int* smem,
-               cudaStream_t stream) {
-  if (smem[0] != mma_bytes<D>(0) || smem[1] != mma_bytes<D>(1) ||
-      smem[2] != mma_bytes<D>(2))
-    return (int)cudaErrorInvalidValue;
-  auto stats = bwd_mma_stats_kernel<D>;
-  auto dkdv = bwd_mma_dkdv_kernel<D>;
-  auto dqk = bwd_mma_dq_kernel<D>;
-  cudaError_t err = set_smem(stats, smem[0]);
-  if (err == cudaSuccess) err = set_smem(dkdv, smem[1]);
-  if (err == cudaSuccess) err = set_smem(dqk, smem[2]);
-  if (err != cudaSuccess) return (int)err;
-  using bf = __nv_bfloat16;
-  const unsigned tiles = (unsigned)((S + MT - 1) / MT);
-  const bf* tq = (const bf*)q;
-  const bf* tk = (const bf*)k;
-  const bf* tv = (const bf*)v;
-  const bf* to = (const bf*)dout;
-  stats<<<dim3((unsigned)(B * H), tiles), MMA_THREADS, smem[0], stream>>>(
-      tq, tk, tv, to, lse, delta, S, H, KV, st, scale, causal, window);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dkdv<<<dim3((unsigned)(B * KV), tiles), MMA_THREADS, smem[1], stream>>>(
-      tq, tk, tv, to, lse, delta, (bf*)dk, (bf*)dv, S, H, KV, st, scale,
-      causal, window);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dqk<<<dim3((unsigned)(B * H), tiles), MMA_THREADS, smem[2], stream>>>(
-      tq, tk, tv, to, lse, delta, (bf*)dq, S, H, KV, st, scale, causal,
-      window);
-  return (int)cudaGetLastError();
-}
-
-// the tensor-core design reads and writes 16-byte vectors and bf16 pairs:
-// bf16 with D 64 or 128, every base 16-byte aligned, every stride a
-// positive multiple of 8 elements
-bool mma_ok(const void* const* ptrs, int D, int bf16, const Strides& st) {
-  if (!bf16 || (D != 64 && D != 128)) return false;
-  for (int i = 0; i < 7; ++i)
-    if ((uintptr_t)ptrs[i] % 16 != 0) return false;
-  for (long long x : {st.qb, st.qs, st.qh, st.kb, st.ks, st.kh, st.vb, st.vs,
-                      st.vh, st.ob, st.os, st.oh})
-    if (x <= 0 || x % 8 != 0) return false;
-  return true;
-}
-
 template <typename T>
 int launch_dtype(const void* q, const void* k, const void* v,
                  const void* dout, void* dq, void* dk, void* dv, float* lse,
@@ -927,14 +510,14 @@ int launch_dtype(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// strides (batch, seq, head) in elements of q, k, v and dO, each with a
+// The CUDA-core design of flash_attention.plan_flash_bwd ("cuda_cores").
+// Strides (batch, seq, head) in elements of q, k, v and dO, each with a
 // contiguous last dim; dq [B, S, H, D] and dk, dv [B, S, KV, D] are
 // contiguous outputs in the inputs' dtype; lse and delta are f32 scratch of
-// B*H*S each.  design 0 is the CUDA-core kernels (any input), 1 the
-// mma.sync kernels; smem: the shared bytes of the stats, dK/dV and dQ
-// kernels, which must be flash_attention.plan_flash_bwd's.  An input the
-// design does not take, or other bytes, returns cudaErrorInvalidValue with
-// nothing launched.
+// B*H*S each.  smem: the shared bytes of the stats, dK/dV and dQ kernels,
+// which must be flash_attention.plan_flash_bwd's.  An input the kernels do
+// not take, or other bytes, returns cudaErrorInvalidValue with nothing
+// launched.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* dout, void* dq,
     void* dk, void* dv, float* lse, float* delta, int B, int S, int H,
@@ -942,7 +525,7 @@ extern "C" int flash_attention_bwd_launch(
     long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, long long osb, long long oss,
     long long osh, float scale, int causal, int window, int bf16,
-    int design, int smem_stats, int smem_dkdv, int smem_dq, void* stream) {
+    int smem_stats, int smem_dkdv, int smem_dq, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (D < 1 || D > 256 || KV < 1 || H % KV != 0 || window < 0)
     return (int)cudaErrorInvalidValue;
@@ -950,16 +533,6 @@ extern "C" int flash_attention_bwd_launch(
                    osb, oss, osh};
   const int smem[3] = {smem_stats, smem_dkdv, smem_dq};
   cudaStream_t s = (cudaStream_t)stream;
-  if (design == 1) {
-    const void* ptrs[7] = {q, k, v, dout, dq, dk, dv};
-    if (!mma_ok(ptrs, D, bf16, st)) return (int)cudaErrorInvalidValue;
-    if (D == 64)
-      return launch_mma<64>(q, k, v, dout, dq, dk, dv, lse, delta, B, S, H,
-                            KV, st, scale, causal, window, smem, s);
-    return launch_mma<128>(q, k, v, dout, dq, dk, dv, lse, delta, B, S, H,
-                           KV, st, scale, causal, window, smem, s);
-  }
-  if (design != 0) return (int)cudaErrorInvalidValue;
   if (bf16)
     return launch_dtype<__nv_bfloat16>(q, k, v, dout, dq, dk, dv, lse,
                                        delta, B, S, H, KV, D, st, scale,

@@ -9,7 +9,10 @@
 // kpos <= qpos - window) -1e30 (here -2^100 before the scale); running
 // max m, denominator l and accumulator acc in f32; p rounded to bf16
 // before P . V while l sums the unrounded p; out = acc / max(l, 1e-30).
-// Key positions past S score -inf.  The exponent is taken as
+// Key positions past S score -inf.  For training (a non-null lse) each
+// row's log-sum-exp m * scale + log(l) is written too, for the
+// gradient's Hopper design (flash_attention_bwd_wgmma.cu); out does not
+// change.  The exponent is taken as
 // exp2(s * scale * log2e - m * scale * log2e) (one fmaf and one
 // ex2.approx), a few f32 ulps from exp(s * scale - m * scale), far below
 // the bf16 rounding of p.
@@ -57,7 +60,11 @@
 #include <cstdint>
 #include <initializer_list>
 
+#include "flash_hopper.cuh"
+
 namespace {
+
+using namespace flash_hopper;   // mbarriers, TMA, wgmma, the tensor maps
 
 constexpr int BK = 128;                 // keys a tile
 constexpr int BOX_BYTES = 128 * 128;    // one K/V box: 128 rows x 64 bf16
@@ -66,7 +73,6 @@ constexpr int BOX_BYTES = 128 * 128;    // one K/V box: 128 rows x 64 bf16
 // exp2(0) = 1 per masked key, as the TPU kernel's exp(-1e30 + 1e30) does,
 // until its first unmasked key rescales that by alpha = 0
 constexpr float NEG = -0x1p100f;
-constexpr float LOG2E = 1.4426950408889634f;
 
 // shared memory of one block, from a 1024-byte aligned base: two Q
 // tiles of BQ rows (a work item's and the next one's), the K ring, the V
@@ -82,155 +88,6 @@ struct Layout {
   static constexpr int kBar = kV + STAGES * kTile;
   static constexpr int kBytes = 1024 + kBar + 8 * (4 + 4 * STAGES);
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// until the phase of parity `parity` of the barrier has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// one box of a 4-D map (d, seq, head, batch) into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int d0, int s0,
-                                         int head, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(s0),
-      "r"(head), "r"(b)
-      : "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: 8-row
-// groups 1024 bytes apart (SBO); LBO is the next 64-wide chunk of an
-// MN-major operand (unused for K-major)
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keep the compiler from moving register reads or writes across the
-// asynchronous products that own these registers
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-#define F8(a, i)                                                      \
-  "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3]),         \
-      "+f"(a[i + 4]), "+f"(a[i + 5]), "+f"(a[i + 6]), "+f"(a[i + 7])
-#define F32(a) F8(a, 0), F8(a, 8), F8(a, 16), F8(a, 24)
-#define F64(a) F32(a), F8(a, 32), F8(a, 40), F8(a, 48), F8(a, 56)
-#define R32                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31}"
-#define R64                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
-  "%58, %59, %60, %61, %62, %63}"
-
-// d (+)= A B: m64n128k16, A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " R64
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : F64(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d += A B: m64nDk16, A (bf16 pairs) from registers, B MN-major in
-// shared memory
-__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t* a,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " R32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : F32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-__device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t* a,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " R64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : F64(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
 
 // S = Q K^T for this warpgroup's 64 rows over one K tile (not waited)
 template <int D, int BQ>
@@ -346,20 +203,6 @@ __device__ __forceinline__ Item item_of(int w, int BH, int H, int KV, int S,
   return it;
 }
 
-// the r-th work item of block i of G: rounds of G items in order, every
-// other round taken in reverse so that the blocks' shares even out
-__device__ __forceinline__ int item_index(int r, int i, int G) {
-  return r * G + ((r & 1) ? G - 1 - i : i);
-}
-
-template <int STAGES>
-__device__ __forceinline__ void advance(int& st, int& ph) {
-  if (++st == STAGES) {
-    st = 0;
-    ph ^= 1;
-  }
-}
-
 // NWG consumer warpgroups of 64 query rows (BQ = 64 NWG) and one producer
 // warpgroup.  A persistent grid: block i takes work items item_index(r,
 // i, G), r = 0, 1, ... while they are < n_items; the producer runs ahead
@@ -370,8 +213,8 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) flash_wgmma_kernel(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
-    int S, int H, int KV, int BH, int n_items, float c, int causal,
-    int window) {
+    float* __restrict__ lse, int lse_pitch, float scale, int S, int H,
+    int KV, int BH, int n_items, float c, int causal, int window) {
   constexpr int BQ = 64 * NWG;
   using L = Layout<D, BQ, STAGES>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -529,6 +372,17 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) flash_wgmma_kernel(
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
         den[i] = fmaxf(l[i], 1e-30f);
       }
+      // the rows' log-sum-exp for the gradient (training only): m in
+      // score units times the scale, plus log l
+      if (lse != nullptr && t == 0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = i ? qb : qa;
+          if (row >= 0)
+            lse[((long long)it.b * H + it.h) * lse_pitch + row] =
+                m[i] * scale + logf(l[i]);
+        }
+      }
 #pragma unroll
       for (int i = 0; i < D / 2; i += 2) {
         const int row = ((i >> 1) & 1) ? qb : qa;
@@ -544,56 +398,6 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) flash_wgmma_kernel(
   }
 }
 
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-// the driver's cuTensorMapEncodeTiled, fetched through the runtime so the
-// library needs no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// a 4-D map over the strided [B, S, heads, D] view: dims (D, S, heads,
-// B), boxes of 64 x rows x 1 x 1, 128-byte swizzle, zero fill past S
-bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int heads,
-              int B, long long s_seq, long long s_head, long long s_batch,
-              int rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads,
-                        (cuuint64_t)B};
-  cuuint64_t strides[3] = {(cuuint64_t)s_seq * 2, (cuuint64_t)s_head * 2,
-                           (cuuint64_t)s_batch * 2};
-  cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-int sm_count() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return 0;
-  return n;
-}
 
 // NWG consumer warpgroups for D: three (192-query items) at D = 64, two
 // at D = 128 (whose accumulator needs the registers)
@@ -607,9 +411,10 @@ constexpr int smem_bytes() {
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int KV, const long long* st, float c, int causal,
-           int window, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o,
+           float* lse, int lse_pitch, float scale, int B, int S, int H,
+           int KV, const long long* st, float c, int causal, int window,
+           cudaStream_t stream) {
   constexpr int NWG = NWG_OF<D>, BQ = 64 * NWG, bytes = smem_bytes<D>();
   CUtensorMap qm, km, vm;
   if (!make_map(&qm, q, D, S, H, B, st[1], st[2], st[0], BQ) ||
@@ -624,8 +429,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const int sms = sm_count();
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
   kern<<<min(n_items, sms), 128 * (NWG + 1), bytes, stream>>>(
-      qm, km, vm, (__nv_bfloat16*)o, S, H, KV, B * H, n_items, c, causal,
-      window);
+      qm, km, vm, (__nv_bfloat16*)o, lse, lse_pitch, scale, S, H, KV, B * H,
+      n_items, c, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -633,29 +438,34 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 // The Hopper design of flash_attention.plan_flash ("tma_wgmma").  Strides
 // q (batch, seq, head), k (...), v (...) in elements, the last dim
-// contiguous; o a contiguous [B, S, H, D].  Returns cudaErrorInvalidValue
-// (nothing launched) for inputs the design does not take -- D not 64 or
-// 128, a base not 16-byte aligned, a stride not a positive multiple of 8
-// elements -- or when `stages` or `smem` differ from the design's ring
-// depth and shared bytes; otherwise cudaGetLastError().
+// contiguous; o a contiguous [B, S, H, D].  With `lse` not null (training)
+// each row's log-sum-exp, m * scale + log(l) in f32, goes to
+// lse[(b * H + h) * lse_pitch + row] (lse_pitch >= S); O is the same
+// with or without it.  Returns cudaErrorInvalidValue (nothing launched)
+// for inputs the design does not take -- D not 64 or 128, a base not
+// 16-byte aligned, a stride not a positive multiple of 8 elements, an
+// lse pitch below S -- or when `stages` or `smem` differ from the
+// design's ring depth and shared bytes; otherwise cudaGetLastError().
 extern "C" int flash_wgmma_launch(
     const void* q, const void* k, const void* v, void* o, int B, int S,
     int H, int KV, int D, long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, float scale, int causal, int window,
-    int stages, int smem, void* stream) {
+    void* lse, int lse_pitch, int stages, int smem, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   bool ok = (D == 64 || D == 128) && H % KV == 0 && stages == RING_STAGES &&
-            smem == (D == 64 ? smem_bytes<64>() : smem_bytes<128>());
+            smem == (D == 64 ? smem_bytes<64>() : smem_bytes<128>()) &&
+            (lse == nullptr || ((uintptr_t)lse % 4 == 0 && lse_pitch >= S));
   for (const void* p : {q, k, v, (const void*)o})
     ok = ok && (uintptr_t)p % 16 == 0;
   for (long long x : st) ok = ok && x > 0 && x % 8 == 0;
   if (!ok) return (int)cudaErrorInvalidValue;
   const float c = scale * LOG2E;
   cudaStream_t s = (cudaStream_t)stream;
-  return D == 64 ? launch<64>(q, k, v, o, B, S, H, KV, st, c, causal, window,
-                              s)
-                 : launch<128>(q, k, v, o, B, S, H, KV, st, c, causal,
-                               window, s);
+  float* l = (float*)lse;
+  return D == 64 ? launch<64>(q, k, v, o, l, lse_pitch, scale, B, S, H, KV,
+                              st, c, causal, window, s)
+                 : launch<128>(q, k, v, o, l, lse_pitch, scale, B, S, H, KV,
+                               st, c, causal, window, s);
 }

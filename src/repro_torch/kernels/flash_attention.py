@@ -26,14 +26,22 @@ attention reads each KV head in place.  The plain version is
 ``ref.flash_attention_ref``; ``ops.flash_attention`` picks between the
 two.
 
-The gradient (9b, :func:`launch_bwd`, ``csrc/flash_attention_bwd.cu``)
-takes every input the forward takes: a launch that recomputes each query
-row's log-sum-exp and Δ = Σ P·dP, one that accumulates dK and dV per key
-tile, one that accumulates dQ per query tile, on ``mma.sync`` for bf16
-with D in {64, 128} and aligned rows, on the CUDA cores for the rest
-(:func:`plan_flash_bwd`).
-Its plain version is ``ref.flash_attention_bwd_ref``, and
-``ops.FlashAttention`` pairs the two directions.  :func:`launch` refuses
+The gradient (9b, :func:`launch_bwd`) takes every input the forward
+takes, in three launches and no atomics (:func:`plan_flash_bwd`):
+
+* ``tma_wgmma`` (``csrc/flash_attention_bwd_wgmma.cu``), where the
+  forward ran ``tma_wgmma`` and saved each row's log-sum-exp
+  (:func:`launch_with_lse`): each row's Δ = Σ P·dP per 128-query tile,
+  then dK/dV per 128-key tile and dQ per 128-query tile, each on a
+  persistent grid streaming 64-row tiles through a TMA-fed ring into
+  ``wgmma`` products;
+* ``cuda_cores`` (``csrc/flash_attention_bwd.cu``) for the rest: a launch
+  that recomputes each row's log-sum-exp and Δ = Σ P·dP, then dK/dV and
+  dQ per 64-row tile (32 past D = 128).
+
+Their plain versions are ``ref.flash_attention_bwd_lse_ref`` and
+``ref.flash_attention_bwd_ref``, and ``ops.FlashAttention`` pairs the two
+directions.  :func:`launch` refuses
 to run where autograd would record it (grad mode on and an input that
 requires grad): its output has no ``grad_fn``, so attention's gradient
 would be lost without a word; only the Function's forward calls it
@@ -42,7 +50,7 @@ then.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -57,6 +65,30 @@ SMEM_MAX = 232448   # shared memory one block may use on an H100
 WGMMA_BQ = {64: 192, 128: 128}
 WGMMA_BK, WGMMA_STAGES = 128, 2
 _DESIGN_CODES = {"cuda_cores": 0, "mma_sync": 1}
+# 9b's Hopper design (csrc/flash_attention_bwd_wgmma.cu): work items of
+# 128 rows (64 per consumer warpgroup, two), streamed tiles of 64, rings
+# of 2 stages; the log-sum-exp rows at a pitch of S rounded up to 64
+WGMMA_BWD_ITEM, WGMMA_BWD_STEP, WGMMA_BWD_STAGES = 128, 64, 2
+# the CUDA kernels each 9b design launches, in order
+BWD_KERNELS = {"tma_wgmma": ("bwd_wgmma_stats_kernel",
+                             "bwd_wgmma_dkdv_kernel", "bwd_wgmma_dq_kernel"),
+               "cuda_cores": ("bwd_stats_kernel", "bwd_dkdv_kernel",
+                              "bwd_dq_kernel")}
+# launches of each of those kernels since the last reset_bwd_launches()
+bwd_launches: Dict[str, int] = {n: 0 for ks in BWD_KERNELS.values()
+                                for n in ks}
+
+
+def reset_bwd_launches() -> None:
+    """Set every 9b kernel's launch count to 0."""
+    for name in bwd_launches:
+        bwd_launches[name] = 0
+
+
+def lse_pitch(s: int) -> int:
+    """Row pitch of the saved log-sum-exp and of Δ: S rounded up to the
+    64-row tiles that the backward copies whole."""
+    return -(-s // WGMMA_BWD_STEP) * WGMMA_BWD_STEP
 
 
 def wgmma_smem_bytes(d: int, stages: int) -> int:
@@ -183,6 +215,46 @@ def _cuda_inputs(**tensors: torch.Tensor) -> None:
         raise ValueError(f"{', '.join(tensors)} must be on one device")
 
 
+def _refuse_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention.launch has no backward: with grad mode on and "
+            "an input that requires grad, call ops.flash_attention (the "
+            "autograd Function), or run under torch.no_grad()")
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, window: int, with_lse: bool
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    _refuse_grad(q, k, v)
+    _cuda_inputs(q=q, k=k, v=v)
+    b, s, h, kv, d = _check(q, k, v, window)
+    plan = plan_flash(q, k, v, window, causal)
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
+            h, kv, d, *[x for t in (q, k, v) for x in t.stride()[:3]],
+            1.0 / d ** 0.5, int(bool(causal)), int(window))
+    lib = build.library()
+    lse = None
+    if plan.design == "tma_wgmma":
+        if with_lse:
+            lse = torch.empty((b * h, lse_pitch(s)), dtype=torch.float32,
+                              device=q.device)
+        code = lib.flash_wgmma_launch(
+            *args, None if lse is None else lse.data_ptr(),
+            0 if lse is None else lse.stride(0), plan.stages,
+            plan.smem_bytes, build.stream_of(out))
+    else:
+        code = lib.flash_attention_launch(
+            *args, int(q.dtype == torch.bfloat16),
+            _DESIGN_CODES[plan.design], build.stream_of(out))
+    build.check(code, f"flash_attention ({plan.design})")
+    build.count_launch("flash_attention")
+    return out, None if lse is None else lse[:, :s]
+
+
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            causal: bool = True, window: int = 0) -> torch.Tensor:
     """Attention of ``q`` [B, S, H, D] over ``k``/``v`` [B, S, KV, D].
@@ -195,31 +267,19 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     record the call (``ops.flash_attention`` sends such inputs through
     ``ops.FlashAttention``, whose backward is :func:`launch_bwd`).
     """
-    if torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad
-            for t in (q, k, v)):
-        raise RuntimeError(
-            "flash_attention.launch has no backward: with grad mode on and "
-            "an input that requires grad, call ops.flash_attention (the "
-            "autograd Function), or run under torch.no_grad()")
-    _cuda_inputs(q=q, k=k, v=v)
-    b, s, h, kv, d = _check(q, k, v, window)
-    plan = plan_flash(q, k, v, window, causal)
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
-            h, kv, d, *[x for t in (q, k, v) for x in t.stride()[:3]],
-            1.0 / d ** 0.5, int(bool(causal)), int(window))
-    lib = build.library()
-    if plan.design == "tma_wgmma":
-        code = lib.flash_wgmma_launch(*args, plan.stages, plan.smem_bytes,
-                                      build.stream_of(out))
-    else:
-        code = lib.flash_attention_launch(
-            *args, int(q.dtype == torch.bfloat16),
-            _DESIGN_CODES[plan.design], build.stream_of(out))
-    build.check(code, f"flash_attention ({plan.design})")
-    build.count_launch("flash_attention")
-    return out
+    return _forward(q, k, v, causal, window, False)[0]
+
+
+def launch_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """:func:`launch` for training: (out, lse).  On the ``tma_wgmma``
+    design the kernel also writes each query row's log-sum-exp, lse f32
+    [B·H, S] (row b·H + h; a view of a [B·H, :func:`lse_pitch`] buffer),
+    which the backward's ``tma_wgmma`` design reads; out is the same
+    as without it.  The other designs give None (their backward
+    recomputes it).  Raises as :func:`launch`."""
+    return _forward(q, k, v, causal, window, True)
 
 
 # ---------------------------------------------------------------------------
@@ -247,82 +307,116 @@ def bwd_smem_bytes(d: int) -> Tuple[int, int, int]:
             4 * (4 * tile + score))
 
 
-def mma_bwd_smem_bytes(d: int) -> Tuple[int, int, int]:
-    """Shared bytes of the ``mma_sync`` stats, dK/dV and dQ kernels (D 64
-    or 128): four bf16 tiles of 64 rows at a pitch of D + 8; the dK/dV
-    kernel adds 64 log-sum-exps and Δs."""
-    tiles = 4 * 64 * (d + 8) * 2
-    return tiles, tiles + 2 * 64 * 4, tiles
-
-
-_BWD_DESIGN_CODES = {"cuda_cores": 0, "mma_sync": 1}
+def wgmma_bwd_smem_bytes(d: int) -> Tuple[int, int, int]:
+    """Shared bytes of the ``tma_wgmma`` statistics, dK/dV and dQ kernels
+    at D 64 or 128, each from a 1024-byte alignment slack: the statistics
+    and dQ kernels (one query pass) two 128-row Q and dO tiles (an item's
+    and the next one's), ``WGMMA_BWD_STAGES`` stages of 64-row K and V
+    tiles, and 8 bytes per mbarrier (two per Q/dO buffer, four per
+    stage); dK/dV the K and V tiles of its 128 keys, the stages of a
+    64-row Q and dO tile with their 64 log-sum-exps and Δs, and its
+    mbarriers (two for K/V, two per stage).  The C entry refuses other
+    bytes."""
+    item = WGMMA_BWD_ITEM * d * 2
+    step = WGMMA_BWD_STEP * d * 2
+    n = WGMMA_BWD_STAGES
+    dkdv = 1024 + 2 * item + n * (2 * step + 2 * WGMMA_BWD_STEP * 4) \
+        + 8 * (2 + 2 * n)
+    dq = 1024 + 4 * item + 2 * n * step + 8 * (4 + 4 * n)
+    return dq, dkdv, dq
 
 
 @dataclasses.dataclass(frozen=True)
 class FlashBwdPlan:
-    """One :func:`launch_bwd` call's design and tiles: ``bt`` rows a tile
-    (queries and keys alike), the three kernels' shared bytes (stats,
-    dK/dV, dQ)."""
+    """One :func:`launch_bwd` call's design and tiles: work items of
+    ``item`` rows (the dK/dV kernel's keys, the statistics and dQ
+    kernels' queries) that walk tiles of ``step`` rows of the other side
+    (``cuda_cores``: one size, ``item == step``), the three kernels'
+    shared bytes (statistics, dK/dV, dQ)."""
     design: str
-    bt: int
+    item: int
+    step: int
     smem_bytes: Tuple[int, int, int]
     s: int
     causal: bool
     window: int
 
     @property
-    def n_tiles(self) -> int:
-        return -(-self.s // self.bt)
+    def n_items(self) -> int:
+        return -(-self.s // self.item)
+
+    @property
+    def n_steps(self) -> int:
+        return -(-self.s // self.step)
 
     def key_tiles(self, q0: int) -> range:
-        """The key tiles that the stats and dQ kernels walk for the query
-        tile from row ``q0``: from the first its window reaches to the
-        last its causal mask reaches."""
-        last = min(q0 + self.bt, self.s) - 1
-        hi = last // self.bt if self.causal else self.n_tiles - 1
+        """The ``step``-row key tiles that the statistics and dQ kernels
+        walk for the query item from row ``q0``: from the first its window
+        reaches to the last its causal mask reaches."""
+        last = min(q0 + self.item, self.s) - 1
+        hi = last // self.step if self.causal else self.n_steps - 1
         lo = 0
         if self.window > 0 and q0 - self.window + 1 > 0:
-            lo = (q0 - self.window + 1) // self.bt
+            lo = (q0 - self.window + 1) // self.step
         return range(lo, hi + 1)
 
     def query_tiles(self, k0: int) -> range:
-        """The query tiles that the dK/dV kernel walks (for each query
-        head of the group) for the key tile from row ``k0``: from the one
-        holding ``k0`` under the causal mask to the last the window lets
-        see its last key."""
-        lo = k0 // self.bt if self.causal else 0
-        hi = self.n_tiles - 1
+        """The ``step``-row query tiles that the dK/dV kernel walks (for
+        each query head of the group) for the key item from row ``k0``:
+        from the one holding ``k0`` under the causal mask to the last the
+        window lets see its last key."""
+        lo = k0 // self.step if self.causal else 0
+        hi = self.n_steps - 1
         if self.window > 0:
-            last = min(k0 + self.bt, self.s) - 1
-            hi = min(hi, (last + self.window - 1) // self.bt)
+            last = min(k0 + self.item, self.s) - 1
+            hi = min(hi, (last + self.window - 1) // self.step)
         return range(lo, hi + 1)
 
 
 def plan_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   dout: torch.Tensor, window: int = 0,
-                   causal: bool = True) -> FlashBwdPlan:
+                   dout: torch.Tensor, window: int = 0, causal: bool = True,
+                   lse: Optional[torch.Tensor] = None) -> FlashBwdPlan:
     """The backward's design and tiles, from the input alone (any
-    device): ``mma_sync`` for bf16 with D in {64, 128} and 16-byte
-    aligned rows (q, k, v and dout), else ``cuda_cores``."""
+    device): ``tma_wgmma`` for bf16 with D in {64, 128}, 16-byte aligned
+    rows (q, k, v and dout) and the forward's ``lse`` given
+    (:func:`launch_with_lse`), else ``cuda_cores``."""
     d, s = q.shape[3], q.shape[1]
-    if q.dtype == torch.bfloat16 and d in (64, 128) and \
-            _aligned(q, k, v) and _aligned(dout, dout, dout):
-        return FlashBwdPlan("mma_sync", 64, mma_bwd_smem_bytes(d), s,
-                            causal, window)
-    return FlashBwdPlan("cuda_cores", _bwd_geometry(d)[1],
-                        bwd_smem_bytes(d), s, causal, window)
+    if lse is not None and q.dtype == torch.bfloat16 and d in (64, 128) \
+            and _aligned(q, k, v) and _aligned(dout, dout, dout):
+        return FlashBwdPlan("tma_wgmma", WGMMA_BWD_ITEM, WGMMA_BWD_STEP,
+                            wgmma_bwd_smem_bytes(d), s, causal, window)
+    bt = _bwd_geometry(d)[1]
+    return FlashBwdPlan("cuda_cores", bt, bt, bwd_smem_bytes(d), s, causal,
+                        window)
+
+
+def _check_saved(q: torch.Tensor, lse: Optional[torch.Tensor]) -> None:
+    """Raise unless ``lse`` is None or what :func:`launch_with_lse` gives
+    for ``q``."""
+    if lse is None:
+        return
+    b, s, h, _ = q.shape
+    if lse.dtype != torch.float32 or lse.shape != (b * h, s) or \
+            lse.stride() != (lse_pitch(s), 1) or lse.data_ptr() % 16:
+        raise ValueError(f"lse: {tuple(lse.shape)} {lse.dtype} strides "
+                         f"{lse.stride()}, expected launch_with_lse's "
+                         f"[{b * h}, {s}] f32 at a pitch of {lse_pitch(s)}")
+    _cuda_inputs(q=q, lse=lse)
 
 
 def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               dout: torch.Tensor, causal: bool = True, window: int = 0
+               dout: torch.Tensor, causal: bool = True, window: int = 0,
+               lse: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient of :func:`launch` at ``q``, ``k``, ``v`` given the
     output's gradient ``dout`` [B, S, H, D]: (dq [B, S, H, D], dk, dv
     [B, S, KV, D]), contiguous, in the inputs' dtype.  Takes every input
     :func:`launch` takes (``dout`` alike: any strides with a contiguous
-    last dim), on the design :func:`plan_flash_bwd` picks.  Three kernel
-    launches (stats, dK/dV, dQ) and two f32 scratch vectors of B·H·S;
-    raises on tensors it does not take."""
+    last dim), and the forward's ``lse`` from :func:`launch_with_lse`
+    where it gave one, on the design :func:`plan_flash_bwd` picks.  Three
+    kernel launches and f32 scratch of the rows' statistics (B·H·pitch
+    each on ``tma_wgmma``, B·H·S each on ``cuda_cores``); raises on
+    tensors it does not take."""
     _cuda_inputs(q=q, k=k, v=v, dout=dout)
     b, s, h, kv, d = _check(q, k, v, window)
     if dout.shape != q.shape or dout.dtype != q.dtype:
@@ -330,23 +424,36 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(q.shape)} {q.dtype}")
     if d > 1 and dout.stride(3) != 1:
         raise ValueError("dout: the head dim must be contiguous")
-    plan = plan_flash_bwd(q, k, v, dout, window, causal)
-    if plan.n_tiles > 65535:
+    _check_saved(q, lse)
+    plan = plan_flash_bwd(q, k, v, dout, window, causal, lse)
+    if plan.n_items > 65535:
         raise ValueError(f"grid too large for S={s}")
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, s, kv, d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    stats = torch.empty((2, b * h * s), dtype=torch.float32,
-                        device=q.device)
     lib = build.library()
-    code = lib.flash_attention_bwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(),
-        stats[1].data_ptr(), b, s, h, kv, d,
-        *[x for t in (q, k, v, dout) for x in t.stride()[:3]],
-        1.0 / d ** 0.5, int(bool(causal)), int(window),
-        int(q.dtype == torch.bfloat16), _BWD_DESIGN_CODES[plan.design],
-        *plan.smem_bytes, build.stream_of(dq))
+    strides = [x for t in (q, k, v, dout) for x in t.stride()[:3]]
+    if plan.design == "tma_wgmma":
+        stats = torch.empty((b * h, 2, lse.stride(0)), dtype=torch.float32,
+                            device=q.device)
+        code = lib.flash_bwd_wgmma_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, s, h, kv, d, *strides, lse.stride(0),
+            1.0 / d ** 0.5, int(bool(causal)), int(window),
+            *plan.smem_bytes, build.stream_of(dq))
+    else:
+        stats = torch.empty((2, b * h * s), dtype=torch.float32,
+                            device=q.device)
+        code = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(),
+            stats[1].data_ptr(), b, s, h, kv, d, *strides,
+            1.0 / d ** 0.5, int(bool(causal)), int(window),
+            int(q.dtype == torch.bfloat16), *plan.smem_bytes,
+            build.stream_of(dq))
     build.check(code, f"flash_attention_bwd ({plan.design})")
     build.count_launch("flash_attention_bwd")
+    for name in BWD_KERNELS[plan.design]:
+        bwd_launches[name] += 1
     return dq, dk, dv

@@ -362,24 +362,34 @@ class FlashAttention(torch.autograd.Function):
     ``ref.flash_attention_ref`` and ``ref.flash_attention_bwd_ref``.  The
     route is fixed at the forward (``impl`` and the device, as
     :func:`uses_kernel` decides), so a backward run later, outside an
-    ``impl`` override, takes the forward's.  Saves q, k and v; the
-    backward recomputes what else it needs."""
+    ``impl`` override, takes the forward's.  Saves q, k and v; on the
+    kernel route, where B9 ran its ``tma_wgmma`` design, also each row's
+    log-sum-exp (``flash_attention.launch_with_lse``), which 9b's
+    ``tma_wgmma`` design reads."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, kernel):
-        ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window, ctx.kernel = causal, window, kernel
-        if kernel:
-            return _flash.launch(q, k, v, causal=causal, window=window)
-        return ref.flash_attention_ref(q, k, v, causal=causal,
-                                       window=window)
+        if not kernel:
+            ctx.save_for_backward(q, k, v)
+            return ref.flash_attention_ref(q, k, v, causal=causal,
+                                           window=window)
+        out, lse = _flash.launch_with_lse(q, k, v, causal=causal,
+                                          window=window)
+        ctx.save_for_backward(q, k, v, *(() if lse is None else (lse,)))
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
-        bwd = _flash.launch_bwd if ctx.kernel else ref.flash_attention_bwd_ref
-        dq, dk, dv = bwd(q, k, v, dout.contiguous(), causal=ctx.causal,
-                         window=ctx.window)
+        q, k, v, *saved = ctx.saved_tensors
+        dout = dout.contiguous()
+        if ctx.kernel:
+            dq, dk, dv = _flash.launch_bwd(q, k, v, dout, causal=ctx.causal,
+                                           window=ctx.window,
+                                           lse=saved[0] if saved else None)
+        else:
+            dq, dk, dv = ref.flash_attention_bwd_ref(
+                q, k, v, dout, causal=ctx.causal, window=ctx.window)
         return dq, dk, dv, None, None, None
 
 

@@ -543,3 +543,106 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             ).reshape(r1 - r0, h, d).to(q.dtype)
         dk[i], dv[i] = dk_i.to(k.dtype), dv_i.to(v.dtype)
     return dq, dk, dv
+
+
+def _attention_mask(s: int, sk: int, causal: bool, window: int,
+                    device) -> torch.Tensor:
+    qpos = torch.arange(s, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((s, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            causal: bool = True, window: int = 0,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """Each query row's log-sum-exp of its masked scaled scores, f32
+    [B·H, S] (row b·H + h), as ``flash_attention.launch_with_lse`` saves
+    it: scores q·k in f32 times ``scale`` (default 1/√D), masked −1e30 as
+    :func:`flash_attention_ref` masks them.  Chunked as that function."""
+    b, s, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    mask = _attention_mask(s, sk, causal, window, q.device)
+    rows = max(1, SCORES_BUDGET // (h * sk))
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    for i in range(b):
+        ki = k[i].float()
+        for r0 in range(0, s, rows):
+            r1 = min(s, r0 + rows)
+            qg = q[i, r0:r1].float().reshape(r1 - r0, kv, h // kv, d)
+            scores = torch.einsum("qkgd,skd->kgqs", qg, ki).mul_(scale)
+            scores.masked_fill_(~mask[r0:r1], -1e30)
+            lse[i, :, r0:r1] = torch.logsumexp(scores, -1).reshape(
+                h, r1 - r0)
+    return lse.reshape(b * h, s)
+
+
+def flash_attention_bwd_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, lse: torch.Tensor,
+                                dout: torch.Tensor, causal: bool = True,
+                                window: int = 0,
+                                scale: Optional[float] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """The gradient as 9b's ``tma_wgmma`` design takes it, from the
+    forward's log-sum-exp ``lse`` [B·H, S]: (dq, dk, dv) in the inputs'
+    dtypes.
+
+    P = exp(scores·scale − lse) (0 where masked), dP = dO·Vᵀ, Δ = Σ P·dP
+    per query row, dS = P ∘ (dP − Δ) (0 in a row that sees one key, where
+    the softmax is exactly 1); dV = round(P)ᵀ·dO, dK = round(dS)ᵀ·Q·scale,
+    dQ = round(dS)·K·scale, P and dS rounded to the inputs' dtype before
+    their products (as JAX's autodiff of the bf16 model rounds them), sums
+    in f32.  GQA's query heads summed into their KV head in head order;
+    chunked as :func:`flash_attention_ref`."""
+    b, s, h, d = q.shape
+    sk, kv, dv_w = k.shape[1], k.shape[2], v.shape[3]
+    g = h // kv
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    mask = _attention_mask(s, sk, causal, window, q.device)
+    one_key = mask.sum(-1) == 1
+    rows = max(1, SCORES_BUDGET // (h * sk))
+    lse = lse.reshape(b, kv, g, s)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+
+    def rounded(x):
+        return x.to(q.dtype).float()
+
+    for i in range(b):
+        ki, vi = k[i].float(), v[i].float()
+        dk_i = torch.zeros((sk, kv, d), dtype=torch.float32,
+                           device=q.device)
+        dv_i = torch.zeros((sk, kv, dv_w), dtype=torch.float32,
+                           device=q.device)
+        for r0 in range(0, s, rows):
+            r1 = min(s, r0 + rows)
+            qg = q[i, r0:r1].float().reshape(r1 - r0, kv, g, d)
+            og = dout[i, r0:r1].float().reshape(r1 - r0, kv, g, dv_w)
+            scores = torch.einsum("qkgd,skd->kgqs", qg, ki).mul_(scale)
+            scores.masked_fill_(~mask[r0:r1], -1e30)
+            p = torch.exp(scores - lse[i, :, :, r0:r1, None])
+            del scores
+            dp = torch.einsum("qkgd,skd->kgqs", og, vi)
+            ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+            ds[:, :, one_key[r0:r1]] = 0.0
+            ds = rounded(ds)
+            del dp
+            pv = torch.einsum("kgqs,qkgd->kgsd", rounded(p), og)
+            sq = torch.einsum("kgqs,qkgd->kgsd", ds, qg)
+            for j in range(g):
+                dv_i += pv[:, j].transpose(0, 1)
+                dk_i += sq[:, j].transpose(0, 1) * scale
+            del pv, sq, p
+            dq[i, r0:r1] = (torch.einsum("kgqs,skd->qkgd", ds, ki) * scale
+                            ).reshape(r1 - r0, h, d).to(q.dtype)
+        dk[i], dv[i] = dk_i.to(k.dtype), dv_i.to(v.dtype)
+    return dq, dk, dv

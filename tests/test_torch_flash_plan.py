@@ -223,10 +223,20 @@ def test_ref_matches_jax_gqa_attention(rng, s, h, kv, d, window):
 
 
 # ---------------------------------------------------------------------------
-# 9b, the gradient (csrc/flash_attention_bwd.cu): its tiles and shared bytes
+# 9b, the gradient (csrc/flash_attention_bwd.cu, csrc/flash_attention_bwd_
+# wgmma.cu): its tiles and shared bytes
 # ---------------------------------------------------------------------------
 
 BWD_SRC = (flash_attention.build.CSRC / "flash_attention_bwd.cu").read_text()
+WGMMA_BWD_SRC = (flash_attention.build.CSRC
+                 / "flash_attention_bwd_wgmma.cu").read_text()
+
+
+def _lse(q):
+    """A stand-in for the forward's log-sum-exp (as ``launch_with_lse``
+    lays it out) for planning."""
+    b, s, h, _ = q.shape
+    return torch.zeros((b * h, flash_attention.lse_pitch(s)))[:, :s]
 
 
 @pytest.mark.parametrize("d", range(1, flash_attention.MAX_D + 1, 5))
@@ -246,35 +256,48 @@ def test_bwd_shared_memory_fits_one_block(d):
     q = torch.zeros((1, 9, 2, d))
     plan = flash_attention.plan_flash_bwd(q, q, q, q, 3, True)
     assert plan.design == "cuda_cores"
-    assert plan.bt == bt and plan.smem_bytes == (stats, dkdv, dq)
+    assert plan.item == plan.step == bt
+    assert plan.smem_bytes == (stats, dkdv, dq)
 
 
 @pytest.mark.parametrize("d", [64, 128])
-def test_bwd_mma_shared_memory_is_its_layout(d):
-    """The ``mma_sync`` kernels' bytes as the source lays them out: four
-    bf16 tiles of 64 rows at a pitch of D + 8, and 64 log-sum-exps and Δs
-    in the dK/dV kernel."""
-    assert "4 * mma_tile<D>() * 2 + (kernel == 1 ? 2 * MT * 4 : 0)" in \
-        BWD_SRC and "MT * (D + MMA_PAD)" in BWD_SRC
-    tiles = 4 * 64 * (d + 8) * 2
-    assert flash_attention.mma_bwd_smem_bytes(d) == (tiles, tiles + 512,
-                                                     tiles)
+def test_bwd_wgmma_shared_memory_is_its_layout(d):
+    """The ``tma_wgmma`` kernels' bytes as the source lays them out, from
+    a 1024-byte alignment slack: the statistics and dQ kernels (one query
+    pass) two 128-row Q and dO tiles, 2 stages of 64-row K and V tiles,
+    and 4 + 4·2 mbarriers; dK/dV the 128-row K and V tiles, 2 stages of a
+    64-row Q and dO tile with 64 log-sum-exps and Δs, and 2 + 2·2
+    mbarriers; each fits one block."""
+    for line in ("kBytes = 1024 + kBar + 8 * (2 + 2 * STAGES)",
+                 "kBytes = 1024 + kBar + 8 * (4 + 4 * STAGES)",
+                 "kStat + STAGES * STAT", "STAT = 2 * BS * 4",
+                 "kK = 4 * kItem", "BI = 128", "BS = 64", "STAGES = 2"):
+        assert line in WGMMA_BWD_SRC, line
+    item, step = 128 * d * 2, 64 * d * 2
+    query_pass = 1024 + 4 * item + 4 * step + 8 * 12
+    want = (query_pass, 1024 + 2 * item + 2 * (2 * step + 512) + 8 * 6,
+            query_pass)
+    assert flash_attention.wgmma_bwd_smem_bytes(d) == want
     q = torch.zeros((2, 70, 4, d), dtype=BF)
-    plan = flash_attention.plan_flash_bwd(q, q, q, q, 0, True)
-    assert plan.design == "mma_sync" and plan.bt == 64
-    assert max(plan.smem_bytes) <= SMEM_MAX
+    plan = flash_attention.plan_flash_bwd(q, q, q, q, 0, True, _lse(q))
+    assert plan.design == "tma_wgmma"
+    assert (plan.item, plan.step) == (128, 64)
+    assert plan.smem_bytes == want and max(want) <= SMEM_MAX
 
 
 @pytest.mark.parametrize("case,design", [
-    ("bf16 D 64", "mma_sync"), ("bf16 D 128", "mma_sync"),
+    ("bf16 D 64", "tma_wgmma"), ("bf16 D 128", "tma_wgmma"),
     ("bf16 D 32", "cuda_cores"), ("bf16 D 96", "cuda_cores"),
-    ("f32 D 64", "cuda_cores"), ("strided dout", "mma_sync"),
-    ("unaligned dout", "cuda_cores"), ("unaligned q", "cuda_cores")])
+    ("f32 D 64", "cuda_cores"), ("strided dout", "tma_wgmma"),
+    ("unaligned dout", "cuda_cores"), ("unaligned q", "cuda_cores"),
+    ("no saved lse", "cuda_cores"), ("unaligned k", "cuda_cores")])
 def test_bwd_plan_routes_as_the_c_entry(case, design):
-    """bf16 with D in {64, 128} and 16-byte aligned rows of q, k, v and
-    dout take the tensor-core design, as ``mma_ok`` in the source does;
-    the rest the CUDA cores."""
-    assert "if (!bf16 || (D != 64 && D != 128)) return false;" in BWD_SRC
+    """bf16 with D in {64, 128}, 16-byte aligned rows of q, k, v and
+    dout, and the saved log-sum-exp take the ``wgmma`` design, as
+    ``flash_bwd_wgmma_launch`` in the source admits; the rest the CUDA
+    cores, which recompute each row's log-sum-exp."""
+    assert "(D == 64 || D == 128)" in WGMMA_BWD_SRC
+    assert "x > 0 && x % 8 == 0" in WGMMA_BWD_SRC
     d = {"bf16 D 32": 32, "bf16 D 96": 96, "bf16 D 128": 128}.get(case, 64)
     dt = F32 if case.startswith("f32") else BF
     q = torch.zeros((2, 50, 4, d), dtype=dt)
@@ -286,38 +309,50 @@ def test_bwd_plan_routes_as_the_c_entry(case, design):
         do = torch.zeros((2, 50, 4, d + 1), dtype=dt)[..., 1:]
     elif case == "unaligned q":
         q = torch.zeros((2, 50, 4, d + 1), dtype=dt)[..., 1:]
-    assert flash_attention.plan_flash_bwd(q, k, v, do).design == design
+    lse = None if case == "no saved lse" else _lse(q)
+    if case == "unaligned k":
+        k = torch.zeros((2, 50, 2, d + 1), dtype=dt)[..., 1:]
+    plan = flash_attention.plan_flash_bwd(q, k, v, do, 0, True, lse)
+    assert plan.design == design
 
 
 def _bwd_plans(s, causal, window):
-    return [flash_attention.plan_flash_bwd(q, q, q, q, window, causal)
-            for q in (torch.zeros((1, s, 1, 64)), torch.zeros((1, s, 1, 192)),
-                      torch.zeros((1, s, 1, 128), dtype=BF))]
+    wg = torch.zeros((1, s, 1, 128), dtype=BF)
+    return [flash_attention.plan_flash_bwd(q, q, q, q, window, causal, lse)
+            for q, lse in ((torch.zeros((1, s, 1, 64)), None),
+                           (torch.zeros((1, s, 1, 192)), None),
+                           (wg, _lse(wg)))]
 
 
-@pytest.mark.parametrize("s", [1, 31, 32, 33, 63, 64, 65, 129, 200, 400])
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 63, 64, 65, 127, 128, 129,
+                               200, 400])
 @pytest.mark.parametrize("causal,window", [
     (True, 0), (False, 0), (True, 1), (True, 17), (True, 64), (True, 65),
     (True, 1000), (False, 33), (False, 200)])
 def test_bwd_tiles_are_exactly_the_visible_ones(s, causal, window):
-    """The key tiles the stats and dQ kernels walk for a query tile, and
-    the query tiles the dK/dV kernel walks for a key tile, are exactly
+    """The key tiles the statistics and dQ kernels walk for a query item, and
+    the query tiles the dK/dV kernel walks for a key item, are exactly
     those holding a (query, key) pair that the mask leaves visible (the
     mask in numpy): none skipped that a row needs, none walked that every
-    row would mask."""
+    row would mask.  ``cuda_cores`` items and tiles are one size (64, or
+    32 past D = 128); ``tma_wgmma`` walks 64-row tiles for 128-row
+    items."""
     keep = _mask(s, causal, window)
+    designs = set()
     for plan in _bwd_plans(s, causal, window):
-        bt, n = plan.bt, plan.n_tiles
-        assert n * bt >= s > (n - 1) * bt
-        for t in range(n):
-            rows = keep[t * bt:(t + 1) * bt]
-            want = {kt for kt in range(n)
-                    if rows[:, kt * bt:(kt + 1) * bt].any()}
-            assert set(plan.key_tiles(t * bt)) == want, (t, "keys")
-            cols = keep[:, t * bt:(t + 1) * bt]
-            want = {qt for qt in range(n)
-                    if cols[qt * bt:(qt + 1) * bt].any()}
-            assert set(plan.query_tiles(t * bt)) == want, (t, "queries")
+        designs.add(plan.design)
+        it, st = plan.item, plan.step
+        assert plan.n_items * it >= s > (plan.n_items - 1) * it
+        for i in range(plan.n_items):
+            rows = keep[i * it:(i + 1) * it]
+            want = {kt for kt in range(plan.n_steps)
+                    if rows[:, kt * st:(kt + 1) * st].any()}
+            assert set(plan.key_tiles(i * it)) == want, (i, "keys")
+            cols = keep[:, i * it:(i + 1) * it]
+            want = {qt for qt in range(plan.n_steps)
+                    if cols[qt * st:(qt + 1) * st].any()}
+            assert set(plan.query_tiles(i * it)) == want, (i, "queries")
+    assert designs == {"cuda_cores", "tma_wgmma"}
 
 
 def _grads_np(q, k, v, do, causal, window):
