@@ -27,8 +27,10 @@ Phases, each fatal on failure (nothing is caught):
    and unsplit), of the neighbour blend (a
    group over one pass, n = 33 and 1,024, k = 1, PAD rows, users out of
    range, M = 1, I = 31), of the sparse scatter (one row's long run,
-   U=1, W=1, I=1, M*I > 2^31), of the multi-hot scatter and of
-   attention;
+   U=1, W=1, I=1, M*I > 2^31), of the multi-hot scatter, of B1, B3 and
+   B8 past 2^31 elements (a 1,100,000 x 2,048 table: B1 gathering its
+   top rows bitwise, B3 with 8 of its rows as queries, exact; B8
+   writing 2 x 1,100,000,000 cells) and of attention;
 4. main path -- the port's serving trickle (``launch/serve.py``,
    ``run_trickle(quantized=True)``) at full width: 13,949 users x 11,997
    items, m=7, k=300, alpha=0.7, a bulk load of one mixed stream in
@@ -210,7 +212,36 @@ Phases, each fatal on failure (nothing is caught):
    training driver on ``lm100m`` (20 steps with a checkpoint, a resume to
    30), and the granite, qwen2-moe, deepseek and gemma3 smoke models'
    3 steps card against CPU;
-17. summary -- every kernel's launches, then one JSON line of kernel
+17. tifu-knn at production width (run right after phase 3, on a card
+   with nothing else resident: asserted) -- the paper's own system,
+   its three cells (``configs/tifu_knn.py``, histories drawn at
+   ValuedShopper's Table-1 statistics) built from a seed on the card
+   and run once through ``launch/dryrun.py`` (counts reset before each
+   build and read after it: B8; reset again before each run and read
+   after it: B1 and B2 in ``stream_update``, B3 in the serve cells; the
+   peak memory counter reset before each run, the build's peak logged
+   apart).  B8's first 16,384 users of each build (the state's user and
+   last-group vectors, the corpus's user vectors, its histories drawn
+   again from the seed) against the plain version on the same inputs
+   (rtol=1e-5, atol=1e-6).  ``stream_update``: 16,384 adds, 1,024
+   basket and 1,024 item deletes on 524,288 users x 16,384 items (cut
+   from 1,048,576: 136 GiB of state), held to the plain route applied
+   to a state of the 18,432 touched users' rows alone (integer leaves
+   exact, float leaves and the materialized vectors rtol=1e-4,
+   atol=1e-5) and 1,024 seeded untouched users bitwise unchanged; then
+   the retrain baseline (both tables of every user from scratch through
+   B8) timed.  ``serve_topk``: 4,096 queries at k = 300 against
+   1,048,576 users through B3 (timed by events), 64 of them (32
+   leading, 32 seeded) through the plain route (``knn.streaming_topk``
+   and the chunked mean) against the whole corpus: neighbour ids by the
+   repo's parity rule in float64 (``hold_topk``: 0 mismatches),
+   predictions rtol=1e-5, atol=1e-6 where the rows are the same.
+   ``serve_topk_opt``: the same data in 4 row blocks (views of one
+   corpus) through ``knn.distributed_predict``: ids identical to
+   ``serve_topk``'s, predictions rtol=1e-5, atol=1e-6.  Logs each
+   cell's peak bytes, seconds, B3's ms and achieved FLOP/s against
+   fp32's 67 TFLOP/s beside the card's name and power limit;
+18. summary -- every kernel's launches, then one JSON line of kernel
    records, and last the ``{"ok": true, ...}`` line.
 
 It needs a CUDA card and the rest of the repository; anywhere else it
@@ -221,6 +252,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import importlib.util
 import json
 import shutil
@@ -242,11 +274,14 @@ from repro_torch.configs import (bert4rec_cfg,  # noqa: E402
                                  command_r_plus_104b, deepfm_cfg,
                                  deepseek_v3_671b, dimenet_cfg, dlrm_mlperf,
                                  gemma3_27b, granite_3_2b, qwen2_moe_a2_7b,
-                                 recsys_shapes, two_tower_retrieval)
+                                 recsys_shapes, tifu_knn,
+                                 two_tower_retrieval)
 from repro_torch.core import knn  # noqa: E402
 from repro_torch.core.tifu import closed_form_basket_weights  # noqa: E402
 from repro_torch.core.types import (KIND_ADD_BASKET,  # noqa: E402
-                                    KIND_DEL_BASKET)
+                                    KIND_DEL_BASKET, AddBatch,
+                                    DelBasketBatch, DelItemBatch,
+                                    StreamState)
 from repro_torch.data import stream, synthetic  # noqa: E402
 from repro_torch.kernels import (build, decayed_scatter,  # noqa: E402
                                  flash_attention, knn_topk, ops, ref,
@@ -254,7 +289,7 @@ from repro_torch.kernels import (build, decayed_scatter,  # noqa: E402
                                  sparse_row_scatter)
 from repro_torch.models import (bert4rec, deepfm, dimenet,  # noqa: E402
                                 dlrm, transformer, two_tower)
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import dryrun, serve  # noqa: E402
 from repro_torch.launch import train as train_lm  # noqa: E402
 from repro_torch.launch.mesh import make_user_shard_devices  # noqa: E402
 from repro_torch.optim import optimizers  # noqa: E402
@@ -290,6 +325,10 @@ KNN_PLAN_EDGES = (456,)
 # B2's table past 2^31 cells (9.0 GB of f32): its top 4,096 rows start
 # at cell 2,244,411,392
 SCATTER_BIG = (1_100_000, 2_048)
+# B1 and B3 on a table past 2^31 cells (SCATTER_BIG's shape) and B8 on
+# an output past it: 2 rows of 1,100,000,000 items (8.8 GB), the last
+# row's ids in its top 4,096 items (cells past 2,199,995,904)
+MULTIHOT_BIG = (2, 1_100_000_000)
 # the durability and sharded-engine phases' commits (build/ is not in
 # git)
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
@@ -319,6 +358,11 @@ assert 3 * TRAIN_LR <= TRAIN_ATOL
 # the reference's 6-block DimeNet overflows on random molecules at init:
 # the step-1 gradient norm is inf and the clip zeroes every gradient
 NO_UPDATE_AT_INIT = {"DimeNet molecule"}
+# tifu-knn (phase 17): the seed of every cell (the two serve cells build
+# the same data from it), the serve cells' queries through the plain
+# route (the first 32 and 32 seeded), a phase to start on an empty card
+TIFU_SEED, TIFU_PLAIN_QUERIES, TIFU_UNTOUCHED = 0, 64, 1024
+TIFU_RESIDENT_MAX = 1 << 28
 # (rows, ids) dtypes the sparse pair reads as given
 INDEX_PAIRS = ((torch.int32, torch.int32), (torch.int64, torch.int32),
                (torch.int32, torch.int64), (torch.int64, torch.int64))
@@ -368,9 +412,19 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int = REPS) -> float:
+def time_ms(fn, reps: int = REPS):
     """Median device time of ``fn`` over ``reps`` runs after a warm-up
-    (CUDA events around each run)."""
+    (CUDA events around each run).  ``reps=0`` times one call with no
+    warm-up and returns (its result, ms)."""
+    if reps == 0:
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
     fn()
     torch.cuda.synchronize()
     times = []
@@ -1820,6 +1874,51 @@ def check_multihot_edges(dev):
         f"in {sum(b for _, b in results)} of {len(results)}; reruns bitwise")
 
 
+def check_past_2_31(gen, dev):
+    """B1, B3 and B8 where they address more than 2^31 elements, against
+    their plain versions (B2's case is in :func:`check_scatter_edges`):
+    a table of SCATTER_BIG's 1,100,000 x 2,048 small integers (9.0 GB;
+    exact fp32 scores with true ties), B1 gathering from its top 4,096
+    rows (bitwise), B3 with its last 8 rows as queries (ids and values
+    exact, the lists reaching rows past 2^31 cells); B8 writing 2 rows of
+    1,100,000,000 items (8.8 GB), the last row's ids among its top
+    items."""
+    m, items = SCATTER_BIG
+    big = torch.randint(0, 3, (m, items), generator=gen, device=dev,
+                        dtype=torch.float32)
+    first_past = (1 << 31) // items + 1         # the first row past 2^31
+    rows, ids, _ = sparse_inputs(gen, 4096, items, 512, 168, dev)
+    rows = rows.long() + (m - 4096)
+    got = sparse_row_gather.launch(big, rows, ids)
+    assert same(got, ref.sparse_row_gather_ref(big, rows, ids)), \
+        "gather past 2^31 cells differs"
+    q = big[m - 8:]
+    vk, ik = knn_topk.launch(q, big, 16)
+    vp, ip = ref.knn_topk_ref(q, big, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(ik, ip) and torch.equal(vk, vp), \
+        "stage A past 2^31 cells differs"
+    assert bool((ik >= first_past).any()), "stage A lists miss the top rows"
+    del big, q
+    torch.cuda.empty_cache()
+    u, n_items = MULTIHOT_BIG
+    mids = torch.randint(-1, n_items, (u, 12, 9), generator=gen, device=dev,
+                         dtype=torch.int32)
+    mids[-1] = torch.randint(n_items - 4096, n_items + 8, (12, 9),
+                             generator=gen, device=dev, dtype=torch.int32)
+    mids[-1, :, 0] = n_items - 1                 # the table's last cell
+    err, bitwise = multihot_pair(mids, torch.rand((u, 12), generator=gen,
+                                                  device=dev), n_items,
+                                 "past 2^31 cells")
+    torch.cuda.empty_cache()
+    log(f"  past 2^31 elements: B1 gathering rows {m - 4096:,}.. of a "
+        f"{m:,} x {items:,} table, bitwise; B3 with 8 queries against it "
+        f"(k=16, rows from {first_past:,} on are past 2^31 cells), ids and "
+        f"values exact; B8 writing {u} x {n_items:,} "
+        f"({u * n_items:,} cells), max |err| {err} (bitwise {bitwise}); "
+        f"each against its plain version")
+
+
 def rebuild_path(kern, p, dev, records):
     """Phase 7: the from-scratch rebuild of every user of the main path's
     final state (TaFeng at its published size) in one batched
@@ -3109,29 +3208,66 @@ def profile_serving(model, tokens, max_len):
 # published widths, retrieval through B3 (dot)
 # ---------------------------------------------------------------------------
 
-def hold_topk(q, c, got, want, what) -> None:
-    """B3's (values, ids) against its plain version's on the same card:
-    values within ``RS_RTOL``/``RS_ATOL``, and each query's ids by the
-    parity rule -- identical, or score-equivalent (the float64 scores of
-    both lists agree rank by rank within ``RS_RTOL`` and the ids are
-    distinct); 0 mismatches and >= 90% identical.  Logs the counts and
-    the largest value difference."""
+def hold_topk(q, c, got, want, what, metric="dot", min_identical=0.9,
+              chunk=16_384):
+    """B3's (values, ids) against its plain version's on the same card,
+    by the repo's parity rule (``knn.compare_recommendations``): values
+    within ``RS_RTOL``/``RS_ATOL`` where both are given (B3's euclidean
+    values are the surrogate without |q|², the plain route's are not:
+    pass None for those); the float64 scores of every corpus
+    row (in chunks of ``chunk`` rows) give each query's k-th and
+    (k+1)-th; a query whose two differ by more than ``RS_RTOL`` relative
+    is in the exact class and must list the same rows, any other the
+    same rows or score-equivalent ones (the sorted float64 scores of
+    both lists within ``RS_RTOL``, ids distinct).  0 mismatches, and at
+    least ``min_identical`` of the queries with the same ids in the same
+    order.  Logs the counts and the largest value difference; returns
+    the queries whose rows are the same."""
     (vk, ik), (vp, ip) = got, want
-    err = float((vk - vp).abs().max())
-    assert torch.allclose(vk, vp, rtol=RS_RTOL, atol=RS_ATOL), (what, err)
-    s = q.double() @ c.double().T
-    sk, sp = s.gather(1, ik.long()), s.gather(1, ip.long())
-    close = (sk - sp).abs() <= RS_RTOL * torch.maximum(sk.abs(), sp.abs())
-    distinct = torch.tensor([len(set(r)) == ik.shape[1]
-                             for r in ik.tolist()], device=q.device)
-    same = torch.all(ik == ip, dim=1)
-    equiv = ~same & torch.all(close, dim=1) & distinct
-    out = dict(identical=int(same.sum()), equivalent=int(equiv.sum()),
-               mismatch=int((~(same | equiv)).sum()), max_abs_err=err)
-    assert out["mismatch"] == 0 and out["identical"] >= 0.9 * q.shape[0], \
-        (what, out)
+    ik, ip = ik.long(), ip.long()
+    err = None
+    if vk is not None and vp is not None:
+        err = float((vk - vp).abs().max())
+        assert torch.allclose(vk, vp, rtol=RS_RTOL, atol=RS_ATOL), \
+            (what, err)
     assert int(ik.min()) >= 0 and int(ik.max()) < c.shape[0], what
+    q64, (q_n, k) = q.double(), ik.shape
+    best = torch.full((q_n, k + 1), float("-inf"), dtype=torch.float64,
+                      device=q.device)
+    for lo in range(0, c.shape[0], chunk):
+        sc = ref.pairwise_scores(q64, c[lo:lo + chunk].double(), metric)
+        best = torch.topk(torch.cat([best, sc], dim=1), k + 1, dim=1).values
+        del sc
+
+    def scores(ids):
+        out = torch.empty(ids.shape, dtype=torch.float64, device=q.device)
+        for r in range(0, q_n, 8):
+            rows = c[ids[r:r + 8]].double()
+            qr = q64[r:r + 8, None]
+            out[r:r + 8] = ((rows * qr).sum(-1) if metric == "dot"
+                            else -((rows - qr) ** 2).sum(-1))
+        return torch.sort(out, dim=1).values
+
+    def close(a, b):
+        return (a - b).abs() <= RS_RTOL * torch.maximum(a.abs(), b.abs())
+
+    sep = (~close(best[:, k - 1], best[:, k]) if k < c.shape[0]
+           else torch.ones(q_n, dtype=torch.bool, device=q.device))
+    same_rows = torch.all(torch.sort(ik, dim=1).values
+                          == torch.sort(ip, dim=1).values, dim=1)
+    distinct = torch.tensor([len(set(r)) == k for r in ik.tolist()],
+                            device=q.device)
+    equiv = torch.all(close(scores(ik), scores(ip)), dim=1) & distinct
+    identical = torch.all(ik == ip, dim=1)
+    ok = torch.where(sep, same_rows, same_rows | equiv)
+    out = dict(identical=int(identical.sum()),
+               exact=int((sep & same_rows).sum()),
+               equivalent=int((~sep & ok).sum()), mismatch=int((~ok).sum()),
+               close_neighbours=int((~sep).sum()), max_abs_err=err)
+    assert out["mismatch"] == 0, (what, out)
+    assert out["identical"] >= min_identical * q_n, (what, out)
     log(f"  {what}: {out}")
+    return same_rows
 
 
 def counted(fn, tally):
@@ -4050,6 +4186,269 @@ def lm_train_path(dev, card) -> tuple:
     return launches, first, recs, full
 
 
+# ---------------------------------------------------------------------------
+# tifu-knn at production width: the paper's system on the card
+# ---------------------------------------------------------------------------
+
+TIFU_INT_LEAVES = ("history", "group_sizes", "n_baskets", "n_groups")
+
+
+def tifu_cell(shape, dev):
+    """Build one tifu-knn cell through the dry run's entry point, the
+    launch counts set to 0 just before and read just after (the builds
+    launch B8).  Returns (program, build seconds, the build's counts
+    and peak bytes under "peak")."""
+    build.reset_launch_counts()
+    prog, build_s = dryrun.build_cell("tifu-knn", shape, dev, TIFU_SEED)
+    built = dict(build.launch_counts, peak=torch.cuda.max_memory_allocated())
+    assert built["decayed_scatter"] > 0, f"{shape}'s build launched no B8"
+    return prog, build_s, built
+
+
+def tifu_run(prog, dev, shape, build_s, built, card):
+    """Run a built cell once through the dry run, the launch counts and
+    the peak memory counter reset just before (so the peak is the run's,
+    with the cell's inputs resident) and read just after; logs the dry
+    run's readings.  Returns (readings, output, the run's counts, build
+    and run counts)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    res, out = dryrun.run_program(prog, dev)
+    ran = dict(build.launch_counts)
+    both = {n: built.get(n, 0) + ran.get(n, 0) for n in KERNELS}
+    log(f"  {shape}: {res['description']}; build {build_s:.3f} s (peak "
+        f"{built['peak']:,} bytes), run {res['run_s']:.6f} s (host clock, "
+        f"synchronized), peak of the run {res['peak_bytes']:,} bytes "
+        f"({res['peak_bytes'] / 2 ** 30:.2f} GiB of "
+        f"{res['device_bytes'] / 2 ** 30:.2f}, fits {res['fits']}), "
+        f"model {res['model_flops']:.4g} FLOP at "
+        f"{res['model_flops_per_s']:.4g} FLOP/s "
+        f"({res['model_flops_per_s'] / PEAK_FP32:.2%} of fp32's 67 "
+        f"TFLOP/s); cuts {res['reduced'] or 'none'}; launches in the build "
+        f"{ {n: built[n] for n in KERNELS if built.get(n)} }, in the run "
+        f"{ {n: c for n, c in ran.items() if c} } [{card}]")
+    return res, out, ran, both
+
+
+def tifu_b8_parity(hist, gs, ng, params, tables, what):
+    """B8's rows of a cell's build against its plain version on the same
+    inputs (``tables`` maps "user" and, for a state, "last group" to the
+    rows the build wrote for these users), at multihot_pair's tolerance
+    (rtol=1e-5, atol=1e-6).  The plain version launches nothing."""
+    errs = {}
+    for name, got in tables.items():
+        fn = (tifu_knn.user_vectors if name == "user"
+              else tifu_knn.last_group_vectors)
+        with ops.default_impl("ref"):
+            want = fn(hist, gs, ng, params)
+        torch.cuda.synchronize()
+        errs[name] = (float((got - want).abs().max()),
+                      torch.equal(got, want))
+        assert got.shape == want.shape, (what, name)
+        assert torch.allclose(got, want, rtol=1e-5, atol=1e-6), \
+            (what, name, errs[name])
+        del want
+    log(f"  {what}: B8's rows of the build for {hist.shape[0]:,} users x "
+        f"{hist.shape[1]} baskets x {hist.shape[2]} items into I="
+        f"{params.n_items:,} against the plain version on the same inputs "
+        f"(max |err|, bitwise): {errs}")
+    return errs
+
+
+def tifu_stream_update(dev, card):
+    """``stream_update``: B8's first chunk of the built state against its
+    plain version; the cell on the kernel route, then the plain route on
+    a state made of the touched users' rows only (the appliers are
+    row-local): integer leaves exact, float leaves and the materialized
+    vectors rtol=1e-4, atol=1e-5; 1,024 seeded untouched users bitwise
+    unchanged; then the retrain baseline (both tables of every user from
+    scratch through B8) timed."""
+    prog, build_s, built = tifu_cell("stream_update", dev)
+    state, adds, delb, deli = prog.args
+    params = tifu_knn.make_params(state.n_items)
+    c = slice(0, tifu_knn.BUILD_CHUNK)
+    b8 = tifu_b8_parity(state.history[c], state.group_sizes[c],
+                        state.n_groups[c], params,
+                        {"user": state.user_vecs[c],
+                         "last group": state.last_group_vecs[c]},
+                        "stream_update's state")
+    touched = torch.sort(torch.cat([adds.user, delb.user,
+                                    deli.user]).long()).values
+    assert torch.unique(touched).numel() == touched.numel()
+    before = {n: getattr(state, n)[touched].cpu() for n in convert.LEAVES}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TIFU_SEED + 1)
+    hit = torch.zeros(state.n_users, dtype=torch.bool, device=dev)
+    hit[touched] = True
+    cand = torch.randperm(state.n_users, generator=gen, device=dev)[:4096]
+    others = cand[~hit[cand]][:TIFU_UNTOUCHED]
+    assert others.numel() == TIFU_UNTOUCHED
+    kept = {n: getattr(state, n)[others].cpu() for n in convert.LEAVES}
+    res, out, ran, launches = tifu_run(prog, dev, "stream_update", build_s,
+                                       built, card)
+    assert out is state
+    for name in ("sparse_row_gather", "sparse_row_scatter"):
+        assert ran[name] > 0, f"{name} not launched by stream_update's run"
+
+    small = StreamState(**{n: t.to(dev, copy=True)
+                           for n, t in before.items()})
+
+    def local(u):
+        return torch.searchsorted(touched, u.long()).to(torch.int32)
+
+    batches = (AddBatch(local(adds.user), adds.items, adds.valid),
+               DelBasketBatch(local(delb.user), delb.pos, delb.valid),
+               DelItemBatch(local(deli.user), deli.pos, deli.item,
+                            deli.valid))
+    with ops.default_impl("ref"):
+        prog.fn(small, *batches)
+    torch.cuda.synchronize()
+    worst = {}
+    for n in convert.LEAVES:
+        got, want = getattr(state, n)[touched], getattr(small, n)
+        if n in TIFU_INT_LEAVES:
+            assert torch.equal(got, want), f"stream_update leaf {n}"
+        else:
+            worst[n] = float((got - want).abs().max())
+            assert torch.allclose(got, want, rtol=1e-4, atol=1e-5), \
+                (n, worst[n])
+    for fn in ("materialized_user_vecs", "materialized_last_group_vecs"):
+        got = (state.user_vecs[touched] * state.uv_scale[touched, None]
+               if fn == "materialized_user_vecs" else
+               state.last_group_vecs[touched]
+               * state.lgv_scale[touched, None])
+        want = getattr(small, fn)()
+        worst[fn] = float((got - want).abs().max())
+        assert torch.allclose(got, want, rtol=1e-4, atol=1e-5), \
+            (fn, worst[fn])
+        del got, want
+    for n in convert.LEAVES:
+        assert torch.equal(getattr(state, n)[others].cpu(), kept[n]), \
+            f"untouched users' {n} changed"
+    changed = int((state.n_baskets[touched].cpu()
+                   != before["n_baskets"]).sum())
+    del small, before, kept
+    log(f"  stream_update: {touched.numel():,} touched users (n_baskets "
+        f"changed for {changed:,}) held to the plain route on their rows "
+        f"alone: integer leaves exact, max |diff| {worst} (bar rtol=1e-4, "
+        f"atol=1e-5); {TIFU_UNTOUCHED:,} untouched users bitwise "
+        f"unchanged")
+    n_b8 = build.launch_counts["decayed_scatter"]
+    rebuild_s = timed(lambda: tifu_knn.rebuild_tables(state, params))
+    log(f"  retrain baseline: both tables of all {state.n_users:,} users "
+        f"from scratch in {rebuild_s:.3f} s "
+        f"({build.launch_counts['decayed_scatter'] - n_b8} B8 launches; "
+        f"the micro-batch's run {res['run_s']:.6f} s, "
+        f"{rebuild_s / res['run_s']:.1f}x less) [{card}]")
+    return launches, dict(res, rebuild_s=rebuild_s, b8=b8)
+
+
+def tifu_serve(dev, card):
+    """``serve_topk`` (all queries through B3), B8's first chunk of the
+    corpus against its plain version, 64 queries through the plain route
+    against the whole corpus, then ``serve_topk_opt`` on 4 row blocks
+    against ``serve_topk``: ids identical, predictions rtol=1e-5,
+    atol=1e-6."""
+    sz = tifu_knn.Sizes()
+    params = tifu_knn.make_params(sz.n_items)
+    k, alpha = sz.topk, params.alpha
+    b3_flops = 2.0 * sz.n_queries * sz.n_users * sz.n_items
+    b3_bound_ms, _ = bound(4.0 * (sz.n_users + sz.n_queries) * sz.n_items
+                           + 8.0 * sz.n_queries * k, b3_flops)
+
+    prog, build_s, built = tifu_cell("serve_topk", dev)
+    res, pred, ran, launches = tifu_run(prog, dev, "serve_topk", build_s,
+                                        built, card)
+    assert ran["knn_topk"] > 0, ran
+    queries, corpus = prog.args
+    # B8's first chunk of the corpus: its histories drawn again from the
+    # seed (the build's first draws), then the plain version
+    c = min(tifu_knn.BUILD_CHUNK, sz.n_users)
+    hist, gs, _, ng, _ = tifu_knn.draw_users(
+        tifu_knn.generator(dev, TIFU_SEED), c, sz, params.group_size, dev)
+    b8 = tifu_b8_parity(hist, gs, ng, params, {"user": corpus[:c]},
+                        "serve_topk's corpus")
+    del hist, gs, ng
+    (_, idx), b3_ms = time_ms(lambda: ops.knn_topk(queries, corpus, k), 0)
+    # the ids B3 gives again are the ones the cell blended
+    for q0 in range(0, sz.n_queries, knn.MEAN_QUERY_CHUNK):
+        sl = slice(q0, q0 + knn.MEAN_QUERY_CHUNK)
+        again = alpha * queries[sl] + (1.0 - alpha) * \
+            knn.chunked_neighbor_mean(corpus, idx[sl])
+        assert torch.equal(again, pred[sl]), "serve_topk's ids"
+    del again
+    assert bool(torch.isfinite(pred).all())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TIFU_SEED + 2)
+    half = TIFU_PLAIN_QUERIES // 2
+    sel = torch.cat([torch.arange(half, device=dev), half + torch.randperm(
+        sz.n_queries - half, generator=gen, device=dev)[:half]])
+    qs = queries[sel]
+    (_, pidx), plain_ms = time_ms(lambda: knn.streaming_topk(qs, corpus, k),
+                                  0)
+    ppred = alpha * qs + (1.0 - alpha) * knn.chunked_neighbor_mean(corpus,
+                                                                   pidx)
+    same_rows = hold_topk(qs, corpus, (None, idx[sel]), (None, pidx),
+                          f"serve_topk: {TIFU_PLAIN_QUERIES} queries through "
+                          f"B3 and the plain route (knn.streaming_topk, "
+                          f"{plain_ms:.3f} ms) against the whole corpus",
+                          metric="euclidean", min_identical=0.0)
+    err = float((pred[sel][same_rows] - ppred[same_rows]).abs().max())
+    assert torch.allclose(pred[sel][same_rows], ppred[same_rows],
+                          rtol=1e-5, atol=1e-6), err
+    log(f"  serve_topk: B3 over all {sz.n_queries:,} queries {b3_ms:.3f} ms "
+        f"(events), {b3_flops / (b3_ms / 1e3):.4g} FLOP/s, "
+        f"{b3_bound_ms / b3_ms:.1%} of its fp32 bound {b3_bound_ms:.1f} ms; "
+        f"predictions of the {int(same_rows.sum())} plain-route queries "
+        f"whose rows are the same max |diff| {err} (bar rtol=1e-5, "
+        f"atol=1e-6) [{card}]")
+    keep_q, keep_pred, keep_idx = queries.clone(), pred, idx
+    del prog, queries, corpus, qs, pidx, ppred
+    torch.cuda.empty_cache()
+
+    prog, build_s, built = tifu_cell("serve_topk_opt", dev)
+    res_o, pred_o, ran_o, launches_o = tifu_run(prog, dev, "serve_topk_opt",
+                                                build_s, built, card)
+    assert ran_o["knn_topk"] == sz.n_shards, ran_o
+    queries, blocks = prog.args
+    assert torch.equal(queries, keep_q), "the serve cells' data differ"
+    assert all(b.data_ptr() == blocks[0].data_ptr() + s * b.shape[0]
+               * b.stride(0) * 4 for s, b in enumerate(blocks)), \
+        "the row blocks are not views of one corpus"
+    (_, gids), opt_ms = time_ms(lambda: knn.distributed_topk(queries,
+                                                             blocks, k), 0)
+    assert torch.equal(gids, keep_idx.long()), "serve_topk_opt's ids"
+    err_o = float((pred_o - keep_pred).abs().max())
+    assert torch.allclose(pred_o, keep_pred, rtol=1e-5, atol=1e-6), err_o
+    log(f"  serve_topk_opt: {sz.n_shards} row blocks' top-k and merge "
+        f"{opt_ms:.3f} ms (events), ids identical to serve_topk's, "
+        f"predictions max |diff| {err_o} (bar rtol=1e-5, atol=1e-6) "
+        f"[{card}]")
+    del prog, queries, blocks, keep_pred, pred_o
+    torch.cuda.empty_cache()
+    total = {n: launches[n] + launches_o[n] for n in launches}
+    return total, dict(serve_topk=dict(res, b3_ms=b3_ms, b8=b8),
+                       serve_topk_opt=dict(res_o, topk_ms=opt_ms))
+
+
+def tifu_path(dev, card):
+    """Phase 17: tifu-knn's three cells at production width through the
+    dry run, on an otherwise empty card.  Returns the launch counts of
+    the cells' builds and runs and the readings."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    log(f"tifu-knn at production width ({resident:,} bytes resident "
+        f"before) [{card}]")
+    assert resident < TIFU_RESIDENT_MAX, resident
+    counts, readings = tifu_stream_update(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    served, readings["serve"] = tifu_serve(dev, card)
+    return {n: counts[n] + served[n] for n in counts}, readings
+
+
 def kernel_checks(ds, dev) -> dict:
     """Phase 3: every kernel against its plain version at the shapes the
     main path gives it (the store shapes ``serve.run_trickle`` builds
@@ -4083,6 +4482,7 @@ def kernel_checks(ds, dev) -> dict:
     cq, cs, nbr = check_dtiled(corpus, c_int, uid, records)
     check_rows(corpus, c_int, cq, cs, uid, nbr, records)
     check_multihot_edges(dev)
+    check_past_2_31(gen, dev)
     check_flash_edges(dev)
     return records
 
@@ -4148,12 +4548,17 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     records = kernel_checks(ds, dev)
+    # phase 17 next, while nothing else is resident on the card
+    t0 = time.perf_counter()
+    paths = [tifu_path(dev, card)[0]]
+    log(f"tifu-knn at production width: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     kern, launches = main_path(ds, dev)
     log(f"main path: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    paths = [launches, dtiled_path(kern, p, dev), sharded_path(kern, p, dev)]
+    paths += [launches, dtiled_path(kern, p, dev),
+              sharded_path(kern, p, dev)]
     log(f"D-tiled and cross-shard paths: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     paths.append(rebuild_path(kern, p, dev, records))

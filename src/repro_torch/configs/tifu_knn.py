@@ -1,0 +1,452 @@
+"""tifu-knn: the paper's own system at production width, as three cells.
+
+The port's counterpart of the JAX package's ``configs/tifu_knn.py``:
+
+  stream_update  : one micro-batch of 16,384 basket adds, 1,024 basket
+                   deletes and 1,024 item deletes (Algorithm 1 at
+                   scale), applied in place to the scaled state;
+  serve_topk     : TIFU-kNN prediction of 4,096 queries against the
+                   1,048,576-user corpus (``knn.predict_streaming``:
+                   stage A through B3, then the chunked neighbour mean);
+  serve_topk_opt : the same through ``knn.distributed_predict`` over
+                   ``n_shards`` contiguous row blocks of the corpus,
+                   one per device (on one card every block is a view of
+                   the same corpus on ``cuda:0``).
+
+Every input is a concrete tensor built on the cell's device from
+``seed``.  The histories follow the repo's synthetic generator
+(``data/synthetic.py``) at the statistics of ValuedShopper, the one
+dataset of the paper's Table 1 whose ~57 baskets a user fit N = 64
+(avg 56.9 baskets of 9.1 items): Zipf item popularity with exponent
+``synthetic.ZIPF_EXPONENT``, a preference pool of
+``synthetic.pool_size(9.1)`` items a user drawn by popularity without
+replacement, basket sizes Poisson around 9.1 clipped to 1..B, of which
+``floor(REPEAT_BIAS · size)`` items come from the pool without
+replacement and the rest by popularity (with replacement, duplicates
+dropped, so a basket may hold fewer), ``n_baskets`` Poisson around 56.9
+clipped to [N/8, N − N/8] (so adds find room and deletes find a basket;
+at N = 64, 56% of users sit at the upper clip, 56), ``group_sizes`` as
+``tifu.default_group_sizes(n, m)``, and both vector tables built from
+scratch through ``tifu.closed_form_basket_weights`` (the last group's
+through ``tifu.last_group_basket_weights``) and ``ops.multihot_scatter``
+(B8) in chunks of users; scales and ``err_mult`` start at 1.  The serve
+cells' queries are further users, built the same way and kept out of
+the corpus.  A micro-batch holds at most one event per user, so the
+batch's events go to distinct users; an added basket is drawn from its
+user's pool as the history's were, and an item delete names an item its
+basket holds.
+
+The sizes come from one frozen :class:`Sizes`, whose defaults are the
+published constants; ``stream_update`` holds ``stream_users`` of them
+(the state of all 1,048,576 is 136 GiB), and says so in ``reduced``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchDef, CellProgram
+from repro_torch.core import knn
+from repro_torch.core.tifu import (closed_form_basket_weights,
+                                   last_group_basket_weights)
+from repro_torch.core.types import (PAD_ID, AddBatch, DelBasketBatch,
+                                    DelItemBatch, StreamState, TifuParams,
+                                    make_user_shard_devices, resolve_device)
+from repro_torch.core.updates import (apply_add_batch,
+                                      apply_del_basket_batch,
+                                      apply_del_item_batch)
+from repro_torch.data import synthetic
+from repro_torch.kernels import ops
+
+M_USERS = 1_048_576
+N_ITEMS = 16_384
+MAX_BASKETS = 64
+MAX_BSIZE = 32
+UPDATE_BATCH = 16_384
+DEL_BATCH = 1_024     # deletion traffic is ~1/16 of add traffic (§6.1)
+N_QUERIES = 4_096
+TOPK = 300
+# stream_update's users on one 80 GB card: 2 x 32 GiB of vector tables,
+# 4 GiB of history and 128 MiB of group sizes (68.1 GiB)
+STREAM_USERS = 524_288
+N_SHARDS = 4
+# the histories' statistics: Table 1's ValuedShopper (56.9 baskets of
+# 9.1 items a user), drawn as data/synthetic.py draws them
+DATASET = "valuedshopper"
+STATS = synthetic.DATASET_STATS[DATASET]
+POOL = synthetic.pool_size(STATS["avg_basket_size"])
+# users whose histories are drawn and whose vectors B8 scatters at once
+# (1 GiB of [users, I] vectors at I = 16,384)
+BUILD_CHUNK = 16_384
+
+
+@dataclasses.dataclass(frozen=True)
+class Sizes:
+    """The cells' sizes: the published ones by default."""
+    n_users: int = M_USERS
+    n_items: int = N_ITEMS
+    max_baskets: int = MAX_BASKETS
+    max_basket_size: int = MAX_BSIZE
+    update_batch: int = UPDATE_BATCH
+    del_batch: int = DEL_BATCH
+    n_queries: int = N_QUERIES
+    topk: int = TOPK
+    stream_users: int = STREAM_USERS     # stream_update's cut of n_users
+    n_shards: int = N_SHARDS             # serve_topk_opt's row blocks
+
+
+# the CPU tests' size
+SMOKE_SIZES = Sizes(n_users=256, n_items=64, max_baskets=64,
+                    max_basket_size=4, update_batch=64, del_batch=16,
+                    n_queries=16, topk=5, stream_users=128)
+
+
+def make_params(n_items: int = N_ITEMS) -> TifuParams:
+    return TifuParams(n_items=n_items, group_size=7, r_b=0.9, r_g=0.7,
+                      k_neighbors=TOPK, alpha=0.7)
+
+
+def state_bytes(n_users: int, sz: Sizes) -> int:
+    """Bytes of a ``StreamState`` of ``n_users`` at these sizes: two f32
+    vector tables, i32 history and group sizes (K = N), five per-user
+    scalars."""
+    return n_users * (2 * 4 * sz.n_items
+                      + 4 * sz.max_baskets * sz.max_basket_size
+                      + 4 * sz.max_baskets + 5 * 4)
+
+
+# ---------------------------------------------------------------------------
+# seeded data on the device
+# ---------------------------------------------------------------------------
+
+def generator(dev: torch.device, seed: int) -> torch.Generator:
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return gen
+
+
+def _popularity(n_items: int, dev: torch.device):
+    """(log-probabilities f32[I], CDF f32[I]) of the Zipf popularity."""
+    pop = torch.as_tensor(synthetic.zipf_popularity(n_items), device=dev)
+    return pop.log().float(), pop.cumsum(0).float()
+
+
+def _pools(gen: torch.Generator, n: int, sz: Sizes, dev: torch.device,
+           chunk: int = 2048) -> torch.Tensor:
+    """i32[n, POOL]: each user's preference pool, drawn by popularity
+    without replacement (the Gumbel top-k of the log-probabilities, the
+    law of numpy's ``choice(replace=False, p=...)``)."""
+    log_p, _ = _popularity(sz.n_items, dev)
+    out = torch.empty((n, min(POOL, sz.n_items)), dtype=torch.int32,
+                      device=dev)
+    for lo in range(0, n, chunk):
+        g = torch.rand((min(chunk, n - lo), sz.n_items), generator=gen,
+                       device=dev)
+        g = g.log_().neg_().log_().neg_().add_(log_p)     # Gumbel keys
+        out[lo:lo + g.shape[0]] = g.topk(out.shape[1], dim=1).indices
+    return out
+
+
+def _baskets(gen: torch.Generator, pools: torch.Tensor,
+             lead: Tuple[int, ...], sz: Sizes,
+             dev: torch.device) -> torch.Tensor:
+    """i32[*lead, B] item sets of the users whose pools are ``pools``
+    (i32[lead[0], P]): a size Poisson around the dataset's mean clipped
+    to 1..B, ``floor(REPEAT_BIAS · size)`` items from the pool without
+    replacement and the rest by popularity, duplicates dropped (so a
+    basket may hold fewer), the ids ascending at the front and PAD
+    after."""
+    b, n_items, p = sz.max_basket_size, sz.n_items, pools.shape[1]
+    _, cdf = _popularity(n_items, dev)
+    mean = torch.full(lead, STATS["avg_basket_size"], device=dev)
+    size = torch.poisson(mean, generator=gen).clamp_(1, b)[..., None]
+    n_rep = (size * synthetic.REPEAT_BIAS).floor_().clamp_(max=p)
+    # a random order of each basket's pool, its first n_rep taken
+    order = torch.rand((*lead, p), generator=gen, device=dev).argsort(-1)
+    pool = pools.view(lead[0], *(1,) * (len(lead) - 1), p)
+    rep = pool.expand(*lead, p).gather(-1, order[..., :b])
+    if rep.shape[-1] < b:
+        rep = torch.cat([rep, rep.new_full((*lead, b - rep.shape[-1]),
+                                           n_items)], dim=-1)
+    u = torch.rand((*lead, b), generator=gen, device=dev)
+    fresh = torch.searchsorted(cdf, u).clamp_(max=n_items - 1)
+    j = torch.arange(b, device=dev)
+    ids = torch.where(j < n_rep, rep,
+                      torch.where(j < size, fresh.to(torch.int32), n_items))
+    ids = ids.sort(dim=-1).values             # n_items (empty) sorts last
+    dup = torch.zeros_like(ids, dtype=torch.bool)
+    dup[..., 1:] = ids[..., 1:] == ids[..., :-1]
+    ids = torch.where(dup, n_items, ids).sort(dim=-1).values
+    return torch.where(ids < n_items, ids, PAD_ID)
+
+
+def draw_users(gen: torch.Generator, n: int, sz: Sizes, group_size: int,
+           dev: torch.device):
+    """``n`` users' (history i32[n, N, B], group_sizes i32[n, N],
+    n_baskets i32[n], n_groups i32[n], pools i32[n, P])."""
+    n_b = sz.max_baskets
+    lo = max(1, n_b // 8)
+    mean = torch.full((n,), STATS["avg_baskets"], device=dev)
+    nb = torch.poisson(mean, generator=gen).clamp_(lo, n_b - lo).long()
+    t = torch.arange(n_b, device=dev)
+    pools = _pools(gen, n, sz, dev)
+    hist = _baskets(gen, pools, (n, n_b), sz, dev)
+    hist = torch.where((t < nb[:, None])[..., None], hist, PAD_ID)
+    # tifu.default_group_sizes: groups of m, the last holding the rest
+    ng = (nb + group_size - 1) // group_size
+    last = nb - group_size * (ng - 1)
+    gs = torch.where(t < (ng - 1)[:, None], group_size,
+                     torch.where(t == (ng - 1)[:, None], last[:, None], 0))
+    return (hist, gs.to(torch.int32), nb.to(torch.int32),
+            ng.to(torch.int32), pools)
+
+
+def user_vectors(hist, gs, ng, params: TifuParams) -> torch.Tensor:
+    """From-scratch user vectors (Eq. 1 + 2) through B8, f32[n, I]."""
+    w = closed_form_basket_weights(gs, ng, params.r_b, params.r_g,
+                                   hist.shape[1])
+    return ops.multihot_scatter(hist, w, params.n_items)
+
+
+def last_group_vectors(hist, gs, ng, params: TifuParams) -> torch.Tensor:
+    """From-scratch last-group vectors (Eq. 1) through B8, f32[n, I]."""
+    w = last_group_basket_weights(gs, ng, params.r_b, hist.shape[1])
+    return ops.multihot_scatter(hist, w, params.n_items)
+
+
+def rebuild_tables(state: StreamState, params: TifuParams) -> StreamState:
+    """Both vector tables of every user from scratch, in place, in
+    chunks of :data:`BUILD_CHUNK` users: the paper's retrain baseline.
+
+    Two B8 launches a chunk (the user vector, Eq. 1 + 2, and the last
+    group's, Eq. 1); the scales and ``err_mult`` become 1.
+    """
+    for lo in range(0, state.n_users, BUILD_CHUNK):
+        sl = slice(lo, lo + BUILD_CHUNK)
+        hist, gs, ng = (state.history[sl], state.group_sizes[sl],
+                        state.n_groups[sl])
+        state.user_vecs[sl] = user_vectors(hist, gs, ng, params)
+        state.last_group_vecs[sl] = last_group_vectors(hist, gs, ng, params)
+    state.err_mult.fill_(1.0)
+    state.uv_scale.fill_(1.0)
+    state.lgv_scale.fill_(1.0)
+    return state
+
+
+def build_state(gen: torch.Generator, n_users: int, sz: Sizes,
+                params: TifuParams, dev: torch.device
+                ) -> Tuple[StreamState, torch.Tensor]:
+    """A seeded state of ``n_users`` users on ``dev``, its tables from
+    scratch, and the users' preference pools i32[n_users, P]."""
+    n_b, b, n_items = sz.max_baskets, sz.max_basket_size, sz.n_items
+    i32 = dict(dtype=torch.int32, device=dev)
+    state = StreamState(
+        user_vecs=torch.empty((n_users, n_items), device=dev),
+        last_group_vecs=torch.empty((n_users, n_items), device=dev),
+        history=torch.empty((n_users, n_b, b), **i32),
+        group_sizes=torch.empty((n_users, n_b), **i32),
+        n_baskets=torch.empty((n_users,), **i32),
+        n_groups=torch.empty((n_users,), **i32),
+        err_mult=torch.empty((n_users,), device=dev),
+        uv_scale=torch.empty((n_users,), device=dev),
+        lgv_scale=torch.empty((n_users,), device=dev))
+    pools = torch.empty((n_users, min(POOL, n_items)), **i32)
+    for lo in range(0, n_users, BUILD_CHUNK):
+        sl = slice(lo, min(n_users, lo + BUILD_CHUNK))
+        (state.history[sl], state.group_sizes[sl], state.n_baskets[sl],
+         state.n_groups[sl], pools[sl]) = draw_users(
+             gen, sl.stop - lo, sz, params.group_size, dev)
+    return rebuild_tables(state, params), pools
+
+
+def build_batches(gen: torch.Generator, state: StreamState,
+                  pools: torch.Tensor, sz: Sizes
+                  ) -> Tuple[AddBatch, DelBasketBatch, DelItemBatch]:
+    """One micro-batch on ``state``'s device: ``update_batch`` adds and
+    ``del_batch`` deletes of each kind, every event to its own user, no
+    padding rows; an added basket is drawn from its user's pool
+    (``pools``, as :func:`build_state` returns them), a basket delete
+    names one of its user's baskets, an item delete an item of one of
+    them."""
+    dev = state.device
+    n_add, n_del = sz.update_batch, sz.del_batch
+    n_ev = n_add + 2 * n_del
+    if n_ev > state.n_users:
+        raise ValueError(f"{n_ev} events need as many users, the state "
+                         f"holds {state.n_users}")
+    users = torch.randperm(state.n_users, generator=gen, device=dev)[:n_ev]
+    ua, ub, ui = users[:n_add], users[n_add:n_add + n_del], \
+        users[n_add + n_del:]
+
+    def position(u):
+        nb = state.n_baskets[u].long()
+        pos = (torch.rand(u.shape, generator=gen, device=dev) * nb).long()
+        return torch.minimum(pos, nb - 1)
+
+    def valid(n):
+        return torch.ones((n,), dtype=torch.bool, device=dev)
+
+    adds = AddBatch(user=ua.to(torch.int32),
+                    items=_baskets(gen, pools[ua], (n_add,), sz, dev),
+                    valid=valid(n_add))
+    delb = DelBasketBatch(user=ub.to(torch.int32),
+                          pos=position(ub).to(torch.int32), valid=valid(n_del))
+    pos = position(ui)
+    row = state.history[ui, pos]
+    blen = (row >= 0).sum(dim=1)
+    slot = (torch.rand((n_del,), generator=gen, device=dev) * blen).long()
+    slot = torch.minimum(slot, blen - 1)
+    deli = DelItemBatch(user=ui.to(torch.int32), pos=pos.to(torch.int32),
+                        item=row.gather(1, slot[:, None])[:, 0],
+                        valid=valid(n_del))
+    return adds, delb, deli
+
+
+def build_corpus(gen: torch.Generator, sz: Sizes, params: TifuParams,
+                 dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(queries f32[Q, I], corpus f32[M, I]): the user vectors of M
+    seeded users, then of Q further users, built in chunks through B8;
+    the histories are dropped."""
+    corpus = torch.empty((sz.n_users, sz.n_items), device=dev)
+    queries = torch.empty((sz.n_queries, sz.n_items), device=dev)
+    for table in (corpus, queries):
+        for lo in range(0, table.shape[0], BUILD_CHUNK):
+            n = min(BUILD_CHUNK, table.shape[0] - lo)
+            hist, gs, _, ng, _ = draw_users(gen, n, sz,
+                                            params.group_size, dev)
+            table[lo:lo + n] = user_vectors(hist, gs, ng, params)
+    return queries, corpus
+
+
+# ---------------------------------------------------------------------------
+# the cells
+# ---------------------------------------------------------------------------
+
+def _gib(n_bytes: float) -> str:
+    if n_bytes >= 2 ** 30:
+        return f"{n_bytes / 2 ** 30:.1f} GiB"
+    return f"{n_bytes / 2 ** 20:.1f} MiB"
+
+
+def stream_update_cell(device: Any = None, seed: int = 0,
+                       sizes: Optional[Sizes] = None) -> CellProgram:
+    """Kind-partitioned micro-batch: adds, basket deletes, item deletes,
+    each sub-batch through its sparse applier (B1 gathers, B2 scatters),
+    the state updated in place."""
+    sz = sizes or Sizes()
+    dev = resolve_device(device)
+    params = make_params(sz.n_items)
+    gen = generator(dev, seed)
+    state, pools = build_state(gen, sz.stream_users, sz, params, dev)
+    adds, delb, deli = build_batches(gen, state, pools, sz)
+    del pools
+
+    def fn(state, adds, delb, deli):
+        state = apply_add_batch(state, adds, params)
+        state = apply_del_basket_batch(state, delb, params)
+        return apply_del_item_batch(state, deli, params)
+
+    # the JAX cell's count: adds a W·log2(W) dedup sort and O(W) work on
+    # W = (m+1)·B slots a row, deletes the same on W_d = N·B
+    w = (params.group_size + 1) * sz.max_basket_size
+    w_d = sz.max_baskets * sz.max_basket_size
+    flops = sz.update_batch * (w * (w - 1).bit_length() + 4 * w) \
+        + 2 * sz.del_batch * (w_d * (w_d - 1).bit_length() + 8 * w_d)
+    return CellProgram(
+        fn=fn, args=(state, adds, delb, deli),
+        description=(f"kind-partitioned micro-batch adds={sz.update_batch} "
+                     f"dels=2x{sz.del_batch} M={sz.stream_users} "
+                     f"I={sz.n_items}"),
+        model_flops_per_step=float(flops), reduced=stream_cut(sz))
+
+
+def stream_cut(sz: Sizes) -> dict:
+    """``stream_update``'s ``reduced``: its cut of the users, with the
+    bytes that force it (empty when it holds all of them)."""
+    if sz.stream_users == sz.n_users:
+        return {}
+    return {"n_users": (
+        f"{sz.n_users:,} → {sz.stream_users:,} (the state of "
+        f"{sz.n_users:,} users is {_gib(state_bytes(sz.n_users, sz))}: 2 x "
+        f"{_gib(4 * sz.n_users * sz.n_items)} of vector tables and "
+        f"{_gib(4 * sz.n_users * sz.max_baskets * sz.max_basket_size)} of "
+        f"history; {_gib(state_bytes(sz.stream_users, sz))} at "
+        f"{sz.stream_users:,} fits one 80 GB card)")}
+
+
+def serve_topk_cell(device: Any = None, seed: int = 0,
+                    sizes: Optional[Sizes] = None) -> CellProgram:
+    """``knn.predict_streaming`` of the queries against the corpus (no
+    self-exclusion: the queries are other users)."""
+    sz = sizes or Sizes()
+    dev = resolve_device(device)
+    params = make_params(sz.n_items)
+    queries, corpus = build_corpus(generator(dev, seed), sz, params, dev)
+
+    def fn(queries, corpus):
+        return knn.predict_streaming(queries, corpus, k=sz.topk,
+                                     alpha=params.alpha, exclude_self=False)
+
+    flops = 2.0 * sz.n_queries * sz.n_users * sz.n_items \
+        + 2.0 * sz.n_queries * sz.topk * sz.n_items
+    return CellProgram(
+        fn=fn, args=(queries, corpus),
+        description=f"kNN predict Q={sz.n_queries} M={sz.n_users} "
+                    f"I={sz.n_items} k={sz.topk}",
+        model_flops_per_step=flops)
+
+
+def serve_topk_opt_cell(device: Any = None, seed: int = 0,
+                        sizes: Optional[Sizes] = None) -> CellProgram:
+    """``knn.distributed_predict`` over ``n_shards`` contiguous row
+    blocks of the same corpus as ``serve_topk`` (the same seed gives the
+    same data), dealt to the devices by ``make_user_shard_devices``:
+    every visible card by default, else the one named; blocks on the
+    corpus's device are views, not copies."""
+    sz = sizes or Sizes()
+    dev = resolve_device(device)
+    if sz.n_users % sz.n_shards:
+        raise ValueError(f"{sz.n_users} users do not split into "
+                         f"{sz.n_shards} equal row blocks")
+    params = make_params(sz.n_items)
+    devices = make_user_shard_devices(sz.n_shards,
+                                      None if device is None else [dev])
+    queries, corpus = build_corpus(generator(devices[0], seed), sz, params,
+                                   devices[0])
+    m_loc = sz.n_users // sz.n_shards
+    blocks = [corpus[s * m_loc:(s + 1) * m_loc].to(d)
+              for s, d in enumerate(devices)]
+    del corpus
+
+    def fn(queries, blocks):
+        return knn.distributed_predict(queries, blocks, k=sz.topk,
+                                       alpha=params.alpha)
+
+    # the JAX cell's definition: the scores, and the neighbour mean as a
+    # one-hot [Q, M] x [M, I] matmul
+    flops = 2.0 * sz.n_queries * sz.n_users * sz.n_items \
+        + 2.0 * sz.n_queries * sz.n_users * sz.n_items
+    return CellProgram(
+        fn=fn, args=(queries, blocks),
+        description=f"kNN predict (opt, {sz.n_shards} row blocks) "
+                    f"Q={sz.n_queries} M={sz.n_users} I={sz.n_items} "
+                    f"k={sz.topk}",
+        model_flops_per_step=flops)
+
+
+def smoke_config() -> TifuParams:
+    return TifuParams(n_items=64, group_size=3)
+
+
+ARCH = ArchDef(
+    name="tifu-knn", family="tifu",
+    cells={"stream_update": stream_update_cell,
+           "serve_topk": serve_topk_cell,
+           "serve_topk_opt": serve_topk_opt_cell},
+    make_smoke=smoke_config,
+    notes="the paper's system at production width on one card: "
+          "stream_update at 524,288 users, the serve cells over all "
+          "1,048,576; serve_topk_opt is the user-sharded variant over "
+          "contiguous row blocks.")

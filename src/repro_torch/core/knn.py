@@ -4,7 +4,11 @@ Prediction (paper §2.2): p = alpha · u_target + (1 − alpha) · mean of the
 top-k neighbours.  ``nearest_neighbors`` / ``predict`` are the plain
 formulation (full [Q, M] scores), ``streaming_topk`` and
 ``chunked_neighbor_mean`` the same answers in corpus and neighbour
-chunks.  ``recommend_for_users`` serves through
+chunks.  ``predict_streaming`` is the reference's ``predict`` on a mesh
+(stage A through ``ops.knn_topk``, then the chunked mean), and
+``distributed_predict`` its user-sharded form over contiguous row blocks
+(one per device: local top-k, one merge, partial neighbour sums added in
+block order).  ``recommend_for_users`` serves through
 ``kernels.ops.fused_recommend`` (the two CUDA serving kernels on the
 card, the plain unfused pipeline on CPU), ``recommend_for_users_quant``
 through ``ops.fused_recommend_quant`` (the int8 corpus), and the two
@@ -123,6 +127,13 @@ def chunked_neighbor_mean(corpus: torch.Tensor, idx: torch.Tensor,
     divided by k.  The neighbour list is padded with −1 to a multiple of
     ``chunk_k``, never cut to smaller chunks.  O(Q·k·I).
     """
+    return _neighbor_sum(corpus, idx, chunk_k) / idx.shape[1]
+
+
+def _neighbor_sum(corpus: torch.Tensor, idx: torch.Tensor,
+                  chunk_k: int = 8) -> torch.Tensor:
+    """sum(corpus[idx], axis=1) over neighbour chunks, rows of −1
+    adding nothing: the sum :func:`chunked_neighbor_mean` divides."""
     q_n, k = idx.shape
     chunk_k = max(1, min(chunk_k, k))
     pad = (-k) % chunk_k
@@ -136,7 +147,107 @@ def chunked_neighbor_mean(corpus: torch.Tensor, idx: torch.Tensor,
         valid = (ib >= 0)[..., None].to(corpus.dtype)
         rows = torch.where(ib >= 0, ib, torch.zeros_like(ib)).long()
         acc = acc + torch.sum(corpus[rows] * valid, dim=1)
-    return acc / k
+    return acc
+
+
+# queries a neighbour sum takes at once in the serving predictions: its
+# [Q, 8, I] gathers are 512 MiB at I = 16,384 (2 GiB at the 4,096
+# queries of a tifu-knn serve cell)
+MEAN_QUERY_CHUNK = 1024
+
+
+def predict_streaming(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                      alpha: float, metric: str = "euclidean",
+                      exclude_self: bool = True,
+                      query_ids: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """TIFU-kNN prediction per query without a [Q, M] score matrix or a
+    [Q, k, I] gather, f32[Q, I].
+
+    The JAX reference's ``predict`` on a mesh: the top-k through
+    ``ops.knn_topk`` (stage A, B3 on the card: the scores never leave
+    the chip; the plain version on the CPU), then the neighbour mean in
+    chunks of 8 neighbours and :data:`MEAN_QUERY_CHUNK` queries, then
+    the α-blend.  ``exclude_self`` scores row ``query_ids[q]`` (default
+    q) −inf.  Euclidean or dot.  O(Q·M·I) compute, O(Q·k·I) reads.
+    """
+    gids = None
+    if exclude_self:
+        gids = (torch.arange(queries.shape[0], dtype=torch.int32,
+                             device=corpus.device)
+                if query_ids is None else query_ids)
+    _, idx = ops.knn_topk(queries, corpus, k, metric=metric,
+                          query_gids=gids)
+    out = torch.empty_like(queries)
+    for q0 in range(0, queries.shape[0], MEAN_QUERY_CHUNK):
+        sl = slice(q0, q0 + MEAN_QUERY_CHUNK)
+        out[sl] = alpha * queries[sl] + (1.0 - alpha) * \
+            chunked_neighbor_mean(corpus, idx[sl])
+    return out
+
+
+def distributed_topk(queries: torch.Tensor,
+                     blocks: Sequence[torch.Tensor], k: int,
+                     metric: str = "euclidean"
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The global top-k over a corpus held as ``n`` contiguous row
+    blocks: (f32[Q, k] scores, i64[Q, k] global rows), on the queries'
+    device.
+
+    Block ``s`` holds global rows ``[s·m_loc, (s+1)·m_loc)`` on its own
+    device; the blocks must be of one size (the JAX reference needs
+    ``M % n == 0``).  Each block gives its local top-k through
+    ``ops.knn_topk`` (B3 on the card), ids offset by its first row;
+    the ``n`` lists merge once by (score desc, id asc): the list of one
+    corpus, as the blocks rise in id and each list is ordered.
+    O(Q·M·I) compute, O(n·Q·k) moved between devices.
+    """
+    m_loc = blocks[0].shape[0]
+    if any(b.shape[0] != m_loc for b in blocks):
+        raise ValueError(f"row blocks differ in size: "
+                         f"{[b.shape[0] for b in blocks]}")
+    if k > m_loc:
+        raise ValueError(f"k={k} > the {m_loc} rows of a block")
+    vals, gids = [], []
+    for s, block in enumerate(blocks):
+        v, i = ops.knn_topk(queries.to(block.device), block, k,
+                            metric=metric)
+        vals.append(v.to(queries.device))
+        gids.append(i.to(queries.device).long() + s * m_loc)
+    return _merge_scored(vals, gids, k)
+
+
+def distributed_predict(queries: torch.Tensor,
+                        blocks: Sequence[torch.Tensor], k: int,
+                        alpha: float,
+                        metric: str = "euclidean") -> torch.Tensor:
+    """TIFU-kNN prediction over a corpus held as contiguous row blocks,
+    one per device, f32[Q, I] on the queries' device.
+
+    The JAX reference's ``distributed_predict`` (users over every mesh
+    axis, queries replicated): the merged top-k of
+    :func:`distributed_topk`; then each block sums the selected rows it
+    holds, in chunks of neighbours and queries (a gather: no [Q, m_loc]
+    one-hot); the partial sums are added in block order on the queries'
+    device (the reference's psum), divided by k and α-blended.  No
+    self-exclusion, as in the reference.  O(Q·M·I) compute, O(n·Q·k·I)
+    reads, n [Q, I] partials moved.
+    """
+    _, sel = distributed_topk(queries, blocks, k, metric)
+    m_loc = blocks[0].shape[0]
+    total = None
+    for s, block in enumerate(blocks):
+        local = sel.to(block.device) - s * m_loc
+        local = torch.where((local >= 0) & (local < m_loc), local,
+                            torch.full_like(local, -1))
+        part = torch.empty((sel.shape[0], block.shape[1]),
+                           dtype=block.dtype, device=block.device)
+        for q0 in range(0, sel.shape[0], MEAN_QUERY_CHUNK):
+            sl = slice(q0, q0 + MEAN_QUERY_CHUNK)
+            part[sl] = _neighbor_sum(block, local[sl])
+        part = part.to(queries.device)
+        total = part if total is None else total + part
+    return alpha * queries + (1.0 - alpha) * total / k
 
 
 def recommend_topn(pred: torch.Tensor, n: int) -> torch.Tensor:
@@ -233,11 +344,18 @@ def _merge_candidates(vals: List[torch.Tensor], gids: List[torch.Tensor],
     tie-break: a stable sort by gid, then a stable descending sort by
     score (``np.lexsort((gids, -vals))``), keep the first k.
     """
+    return _merge_scored(vals, gids, k)[1]
+
+
+def _merge_scored(vals: List[torch.Tensor], gids: List[torch.Tensor],
+                  k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_merge_candidates` with the kept scores: ([Q, ≤k] scores,
+    [Q, ≤k] i64 gids)."""
     v, g = torch.cat(vals, dim=1), torch.cat(gids, dim=1).long()
     g, order = torch.sort(g, dim=1, stable=True)
     v = v.gather(1, order)
-    _, order = torch.sort(v, dim=1, descending=True, stable=True)
-    return g.gather(1, order)[:, :k]
+    v, order = torch.sort(v, dim=1, descending=True, stable=True)
+    return v[:, :k], g.gather(1, order)[:, :k]
 
 
 def sharded_recommend_for_users(corpora: Sequence[torch.Tensor], user_ids,

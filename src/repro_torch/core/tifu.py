@@ -162,22 +162,34 @@ def user_vector_padded(history: torch.Tensor, group_sizes: torch.Tensor,
     return weighted_multihot_scatter(history, w, params.n_items)
 
 
-def last_group_vector_padded(history: torch.Tensor,
-                             group_sizes: torch.Tensor,
-                             n_groups: torch.Tensor,
-                             params: TifuParams) -> torch.Tensor:
-    """Recompute each user's last-group vector from padded history."""
-    dev = history.device
+def last_group_basket_weights(group_sizes: torch.Tensor,
+                              n_groups: torch.Tensor, r_b: float,
+                              max_baskets: int) -> torch.Tensor:
+    """Per-basket weight of every history row in its user's last-group
+    vector (Eq. 1 over the last group alone), f32[U, max_baskets].
+
+    ``r_b^(tau - p) / tau`` on the last group's rows, 0 elsewhere.
+    """
+    dev = group_sizes.device
     sizes = group_sizes.long()
     ends = torch.cumsum(sizes, dim=1)
     k = n_groups.long().clamp(min=1)[:, None]
     tau = sizes.gather(1, k - 1)
     start = ends.gather(1, k - 1) - tau
-    t = torch.arange(history.shape[1], device=dev)[None, :]
+    t = torch.arange(max_baskets, device=dev)[None, :]
     p = t - start + 1
     valid = (p >= 1) & (p <= tau)
-    w = fpow(f32(params.r_b, dev), tau - p) / tau.clamp(min=1)
-    w = torch.where(valid, w, torch.zeros_like(w))
+    w = fpow(f32(r_b, dev), tau - p) / tau.clamp(min=1)
+    return torch.where(valid, w, torch.zeros_like(w))
+
+
+def last_group_vector_padded(history: torch.Tensor,
+                             group_sizes: torch.Tensor,
+                             n_groups: torch.Tensor,
+                             params: TifuParams) -> torch.Tensor:
+    """Recompute each user's last-group vector from padded history."""
+    w = last_group_basket_weights(group_sizes, n_groups, params.r_b,
+                                  history.shape[1])
     out = weighted_multihot_scatter(history, w, params.n_items)
     return torch.where((n_groups > 0)[:, None], out, torch.zeros_like(out))
 

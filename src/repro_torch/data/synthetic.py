@@ -29,6 +29,19 @@ DATASET_STATS = {
     "valuedshopper": dict(n_users=10000, n_items=7874, avg_baskets=56.9,
                           avg_basket_size=9.1),
 }
+ZIPF_EXPONENT = 1.1     # item popularity ∝ rank^-1.1
+REPEAT_BIAS = 0.6       # the share of a basket drawn from its user's pool
+
+
+def zipf_popularity(n_items: int) -> np.ndarray:
+    """f64[n_items] draw probabilities, item 0 the most popular."""
+    pop = 1.0 / np.arange(1, n_items + 1) ** ZIPF_EXPONENT
+    return pop / pop.sum()
+
+
+def pool_size(avg_basket_size: float) -> int:
+    """The items of a user's preference pool: three mean baskets."""
+    return max(8, int(avg_basket_size * 3))
 
 
 @dataclasses.dataclass
@@ -42,26 +55,25 @@ class BasketDataset:
 
 
 def generate(name: str, seed: int = 0, scale: float = 1.0,
-             repeat_bias: float = 0.6) -> BasketDataset:
+             repeat_bias: float = REPEAT_BIAS) -> BasketDataset:
     """Generate a dataset with the named dataset's statistics."""
     stats = DATASET_STATS[name]
     rng = np.random.default_rng(seed)
     n_users = max(int(stats["n_users"] * scale), 16)
     n_items = max(int(stats["n_items"] * scale), 64)
-    pop = 1.0 / np.arange(1, n_items + 1) ** 1.1      # Zipf popularity
-    pop /= pop.sum()
+    pop = zipf_popularity(n_items)
 
     histories: Dict[int, List[np.ndarray]] = {}
     for u in range(n_users):
         n_b = max(2, rng.poisson(stats["avg_baskets"]))
-        pool_size = max(8, int(stats["avg_basket_size"] * 3))
-        pool = rng.choice(n_items, size=pool_size, replace=False, p=pop)
+        n_pool = pool_size(stats["avg_basket_size"])
+        pool = rng.choice(n_items, size=n_pool, replace=False, p=pop)
         baskets = []
         for _ in range(n_b):
             size = max(1, rng.poisson(stats["avg_basket_size"]))
             size = min(size, n_items)
             n_rep = int(size * repeat_bias)
-            rep = rng.choice(pool, size=min(n_rep, pool_size), replace=False)
+            rep = rng.choice(pool, size=min(n_rep, n_pool), replace=False)
             n_new = size - len(rep)
             fresh = rng.choice(n_items, size=max(n_new, 0), replace=False,
                                p=pop)

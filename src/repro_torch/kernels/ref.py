@@ -427,7 +427,11 @@ def decayed_scatter_ref(ids: torch.Tensor, weights: torch.Tensor,
     ``ids`` int[N, B] with ``weights`` f32[N] → f32[n_items], or batched
     ``ids`` int[U, N, B] with ``weights`` f32[U, N] → f32[U, n_items].
     Ids outside [0, n_items) (PAD = −1) add nothing.  The Eq. 1+2
-    from-scratch user vector, and the EmbeddingBag transpose.
+    from-scratch user vector, and the EmbeddingBag transpose.  Each cell
+    is summed in (n, b) order, as the kernel sums it, the same bits every
+    run: on CUDA through ``index_put_``'s accumulate (sorted by cell,
+    stable), on the CPU through ``index_add_`` (serial), where
+    ``index_put_``'s accumulate adds in no fixed order.
     """
     single = ids.dim() == 2
     if single:
@@ -436,9 +440,13 @@ def decayed_scatter_ref(ids: torch.Tensor, weights: torch.Tensor,
     flat = ids.reshape(u, n * b).long()
     w = weights.to(torch.float32).repeat_interleave(b, dim=1)
     valid = (flat >= 0) & (flat < n_items)
-    rows = torch.arange(u, device=ids.device)[:, None].expand_as(flat)
+    rows = torch.arange(u, device=ids.device)[:, None]
     out = torch.zeros((u, n_items), dtype=torch.float32, device=ids.device)
-    out.index_put_((rows[valid], flat[valid]), w[valid], accumulate=True)
+    if ids.is_cuda:
+        out.index_put_((rows.expand_as(flat)[valid], flat[valid]), w[valid],
+                       accumulate=True)
+    else:
+        out.view(-1).index_add_(0, (rows * n_items + flat)[valid], w[valid])
     return out[0] if single else out
 
 

@@ -378,3 +378,26 @@ def test_lm_training_defaults_to_cuda():
         train.run(["--arch", "granite-3-2b", "--smoke", "--steps", "1"])
     model = transformer.init_params(c, torch.Generator(), device="cpu")
     assert all(p.requires_grad for p in model.parameters())
+
+
+@pytest.mark.parametrize("shape", ["stream_update", "serve_topk",
+                                   "serve_topk_opt"])
+def test_tifu_cells_default_to_cuda(shape, capsys):
+    """tifu-knn's builders and the dry run build on the card unless the
+    caller names the CPU; without a card they raise, and the dry run's
+    command line reports the cell failed."""
+    from repro_torch.configs import get_arch, tifu_knn
+    from repro_torch.launch import dryrun
+    builder = get_arch("tifu-knn").cells[shape]
+    sizes = tifu_knn.SMOKE_SIZES
+    if torch.cuda.is_available():
+        assert builder(sizes=sizes).args[0].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        builder(sizes=sizes)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.run_cell("tifu-knn", shape, sizes=sizes)
+    assert dryrun.main(["--arch", "tifu-knn", "--shape", shape]) == 1
+    assert f"[FAIL] tifu-knn x {shape}: RuntimeError: no CUDA device" in \
+        capsys.readouterr().out
+    assert builder("cpu", 0, sizes).args[0].device.type == "cpu"

@@ -88,6 +88,23 @@ def test_out_of_range_ids_add_nothing(rng):
     np.testing.assert_allclose(got.numpy(), np.asarray(plain), atol=1e-5)
 
 
+def test_plain_scatter_sums_in_basket_order_every_run(rng):
+    """The plain version sums each cell in (n, b) order, as the kernel
+    does, and gives the same bits on every run, with many repeated ids
+    a row."""
+    ids = rng.integers(-1, 24, (64, 48, 6)).astype(np.int32)
+    w = rng.random((64, 48)).astype(np.float32)
+    runs = [ref.decayed_scatter_ref(_t(ids), _t(w), 20) for _ in range(8)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    want = np.zeros((64, 20), np.float32)
+    for u in range(64):
+        for n in range(48):
+            for i in ids[u, n]:
+                if 0 <= i < 20:
+                    want[u, i] = np.float32(want[u, i] + w[u, n])
+    np.testing.assert_array_equal(runs[0].numpy(), want)
+
+
 def _histories(rng, m, n, b, items, k):
     """Padded histories with their group sizes, as a store holds them."""
     hist = np.full((m, n, b), -1, np.int32)
