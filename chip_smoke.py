@@ -144,7 +144,8 @@ Phases, each fatal on failure (nothing is caught):
    ``serve_step`` at 512 and 262,144 users (top 20) and
    ``retrieval_step`` against 1,000,000 candidates (B3); DeepFM's and
    DLRM's ``serve_step`` at 512 and 262,144 (DLRM's vocabularies capped
-   at 2^24 rows: 45 GB of the 89.5 GiB of tables); the retrieval
+   as the registry's serve cells cap them, at 2^24 rows: 45 GB of the
+   89.5 GiB of tables); the retrieval
    example's 64 queries against 200,000 candidates (B3).  Every serving
    call counted (only the three retrievals launch, B3 once each), timed
    on the host clock with its peak memory; B3 held to its plain version
@@ -161,11 +162,13 @@ Phases, each fatal on failure (nothing is caught):
    parameter whose gradient is ~0 by up to lr_t a step, whichever sign
    the card's unordered segment sums give that gradient).  Then each at its published widths, weights
    from a seeded generator, fp32 with TF32 off, 5 steps of the cells'
-   ``adamw(total_steps=10000)``: two-tower at 32,768 pairs (the cell's
-   65,536 would need ~51 GB of [B, B] logits and their gradients),
-   DLRM at 65,536 with each vocabulary capped at 2^22 rows (table,
-   gradient, m and v 4 x 12.8 GB), DeepFM at 65,536, BERT4Rec's sampled
-   cloze at 8,192 sequences (20 masked, 8,192 negatives), DimeNet's
+   ``adamw(total_steps=10000)``, at the configs and batches the
+   registry's ``train_batch`` cells take on the card (the cut rule of
+   ``configs/base.py``): two-tower at 32,768 pairs (the cell's 65,536
+   would need ~51 GB of [B, B] logits and their gradients), DLRM at
+   65,536 with each vocabulary capped at 2^22 rows (table, gradient, m
+   and v 4 x 12.8 GB), DeepFM at 65,536, BERT4Rec's sampled cloze at
+   8,192 sequences (20 masked, 8,192 negatives), DimeNet's
    ``molecule`` and ``full_graph_sm`` cells at their own sizes; each
    loss finite, the parameters moved, the global gradient norm of step
    1 finite and above 0 with every parameter the loss reads given a
@@ -178,7 +181,8 @@ Phases, each fatal on failure (nothing is caught):
    traces ``torch.profiler`` records no kernel) -- qwen2-moe-a2.7b (24 layers, 60 routed experts
    stored as 64, top-4, 4 shared), deepseek-v3-671b (MLA and routed
    experts; depth cut to 1 dense + 1 MoE layer), gemma3-27b (cut to 5
-   local + 1 global layer) and command-r-plus-104b (cut to 2 layers), at
+   local + 1 global layer) and command-r-plus-104b (cut to 2 layers):
+   the depths the registry's prefill_32k cells take on the card, at
    their published widths, bf16, weights from a seeded generator, one
    model on the card at a time, each through phase 12's steps (the
    helper ``lm_path`` both phases share): layer 0's prefill attention
@@ -194,8 +198,10 @@ Phases, each fatal on failure (nothing is caught):
 16. LM training (run after phase 15, before phase 13) -- 9b, the
    gradient of B9, alone at granite-3-2b's layer 0 (B 4, S 4,096, H 32,
    KV 8, D 64, bf16, causal), qwen2-moe's (D 128), a gemma3 local layer
-   (window 1,024), f32, an odd S, MLA's D 192 without the causal mask,
-   D 32 and one token, on the Hopper design (``tma_wgmma``: from the
+   (window 1,024), deepseek-v3's MLA layer 0 (B 1, H 128, D 192, bf16,
+   on the CUDA cores) and command-r-plus's (B 1, H 96, KV 8, D 128), f32,
+   an odd S, MLA's D 192 without the causal mask, D 32 and one token,
+   on the Hopper design (``tma_wgmma``: from the
    log-sum-exp B9 saves, B9's output checked bitwise with and without the
    lse write and its lse against the plain one) where the input takes
    it, else on the CUDA cores: dq, dk and dv held to
@@ -241,7 +247,27 @@ Phases, each fatal on failure (nothing is caught):
    ``serve_topk``'s, predictions rtol=1e-5, atol=1e-6.  Logs each
    cell's peak bytes, seconds, B3's ms and achieved FLOP/s against
    fp32's 67 TFLOP/s beside the card's name and power limit;
-18. summary -- every kernel's launches, then one JSON line of kernel
+   ``serve_topk``'s library reading: matmul + ``topk`` over the same
+   corpus in chunks of 256 queries (f32, TF32 off, |c|² computed once
+   and counted), beside B3's time and bound;
+18. the registry's 43 cells (run after phase 14: it uses no profiler)
+   -- every (arch, shape) pair of ``configs.all_cells()`` built from a
+   seed through ``dryrun.build_cell`` at the sizes ``configs/base.py``'s
+   cut rule chooses for the card (named in ``reduced`` with their
+   bytes) and run once through ``dryrun.run_program``, nothing caught:
+   build and run seconds, peak bytes beside the rule's estimate, model
+   FLOP/s and the cuts logged; ``fits`` asserted, every floating output
+   finite, and each family's launches (counts reset before each run,
+   read after): B9 once a layer in prefill_32k, twice a layer and 9b
+   once in train_4k, B3 once in two-tower's and BERT4Rec's
+   retrieval_cand, nothing else in the LM, recommender and GNN cells;
+   tifu-knn's B1/B2 in ``stream_update``, B3 once and 4 times in the
+   serve cells.  In each prefill_32k cell (S = 32,768) layer 0's
+   attention output on the first and last 512 query rows of each
+   sequence against f32 attention computed for those rows alone, by
+   layer 0's bounds, and in granite's B9 timed at that shape beside
+   SDPA and its bound.  The phase keeps within 300 s;
+19. summary -- every kernel's launches, then one JSON line of kernel
    records, and last the ``{"ok": true, ...}`` line.
 
 It needs a CUDA card and the rest of the repository; anywhere else it
@@ -270,12 +296,13 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.compliance import certify, retained_histories  # noqa: E402
+from repro_torch.configs import all_cells, get_arch  # noqa: E402
 from repro_torch.configs import (bert4rec_cfg,  # noqa: E402
-                                 command_r_plus_104b, deepfm_cfg,
-                                 deepseek_v3_671b, dimenet_cfg, dlrm_mlperf,
-                                 gemma3_27b, granite_3_2b, qwen2_moe_a2_7b,
-                                 recsys_shapes, tifu_knn,
+                                 deepfm_cfg, deepseek_v3_671b, dimenet_cfg,
+                                 dlrm_mlperf, gemma3_27b, granite_3_2b,
+                                 qwen2_moe_a2_7b, recsys_shapes, tifu_knn,
                                  two_tower_retrieval)
+from repro_torch.configs.base import card_bytes  # noqa: E402
 from repro_torch.core import knn  # noqa: E402
 from repro_torch.core.tifu import closed_form_basket_weights  # noqa: E402
 from repro_torch.core.types import (KIND_ADD_BASKET,  # noqa: E402
@@ -337,19 +364,11 @@ COMPLIANCE_DIR = ROOT / "build" / "chip_smoke_compliance_ckpt"
 # the compliance phase: users forgotten, and the query chunk of the
 # plain route (its [Q, k, I] neighbour gather is 3.7 GB at 256)
 N_FORGET, PLAIN_CHUNK = 64, 256
-# recommender serving: the Criteo-1TB tables are 89.5 GiB of fp32, so
-# each vocabulary is capped at 2^24 rows (5 of the 26 tables; 45 GB
-# left); the retrieval_cand top n and BERT4Rec's serving top n
-DLRM_VOCAB_CAP = 1 << 24
+# the retrieval_cand top n and BERT4Rec's serving top n
 RETRIEVAL_TOP_N, BERT_TOP_N = 100, 20
 # B3 at the recommender shapes: values within this of the plain version
 RS_RTOL, RS_ATOL = 1e-5, 1e-6
-# training: DLRM's vocabularies capped at 2^22 rows (table, gradient, m
-# and v: 4 x 12.8 GB), two-tower's and BERT4Rec's batches cut from
-# 65,536 (the [B, B] logits; the saved attention probabilities); the
-# smoke models' 3 steps, card against CPU, within these
-TRAIN_DLRM_CAP = 1 << 22
-TRAIN_TWO_TOWER, TRAIN_BERT4REC = 32_768, 8_192
+# training: the smoke models' 3 steps, card against CPU, within these
 TRAIN_RTOL, TRAIN_ATOL = 1e-5, 1e-5
 # ... at this lr: Adam moves a parameter whose gradient is ~0 by up to
 # lr_t a step, whichever sign that gradient takes, so 3 lr_t <= atol
@@ -363,6 +382,17 @@ NO_UPDATE_AT_INIT = {"DimeNet molecule"}
 # route (the first 32 and 32 seeded), a phase to start on an empty card
 TIFU_SEED, TIFU_PLAIN_QUERIES, TIFU_UNTOUCHED = 0, 64, 1024
 TIFU_RESIDENT_MAX = 1 << 28
+# serve_topk's library reading: matmul + topk in chunks of this many
+# queries (a chunk's [256, 1,048,576] f32 distances are 1 GiB)
+LIBRARY_CHUNK = 256
+# phase 18: the cells' seed, the phase's budget in seconds, the query
+# rows of each sequence (first and last) held to f32 attention at
+# S = 32,768, and what may be resident when it starts
+CELL_SEED, CELL_PHASE_S, LONG_ROWS = 18, 300.0, 512
+# ... and the query heads the f32 attention takes at a time (DeepSeek's
+# 128 at D 192: 1 GiB of scores a chunk of 16)
+LONG_HEADS = 16
+CELL_RESIDENT_MAX = 1 << 31
 # (rows, ids) dtypes the sparse pair reads as given
 INDEX_PAIRS = ((torch.int32, torch.int32), (torch.int64, torch.int32),
                (torch.int32, torch.int64), (torch.int64, torch.int64))
@@ -3125,21 +3155,16 @@ def granite_path(dev, records, card):
 
 def lm_zoo():
     """Phase 15's models: (name, config, seed, B9's design at layer 0),
-    each at its published widths; deepseek, gemma3 and Command R+ cut in
-    depth so that the bf16 weights, and after them the f32 yardstick's,
-    fit one 80 GB card."""
-    return (
-        ("qwen2-moe-a2.7b", qwen2_moe_a2_7b.make_config(), 6, WGMMA),
-        # 1 dense + 1 MoE layer: MLA and both layer groups
-        ("deepseek-v3-671b", dataclasses.replace(
-            deepseek_v3_671b.make_config(), n_layers=2,
-            first_dense_layers=1), 7, CORES),
-        # 5 local layers and 1 global: the 5:1 window pattern
-        ("gemma3-27b", dataclasses.replace(gemma3_27b.make_config(),
-                                           n_layers=6), 8, WGMMA),
-        ("command-r-plus-104b", dataclasses.replace(
-            command_r_plus_104b.make_config(), n_layers=2), 9, WGMMA),
-    )
+    each at its published widths and at the depth its prefill_32k cell
+    takes on the card (``registry_cut``): qwen2-moe whole, DeepSeek 1
+    dense + 1 MoE layer (MLA and both layer groups), gemma3 5 local + 1
+    global (the 5:1 window pattern), Command R+ 2."""
+    return tuple(
+        (name, registry_cut(name, "prefill_32k")[0], seed, design)
+        for name, seed, design in (("qwen2-moe-a2.7b", 6, WGMMA),
+                                   ("deepseek-v3-671b", 7, CORES),
+                                   ("gemma3-27b", 8, WGMMA),
+                                   ("command-r-plus-104b", 9, WGMMA)))
 
 
 def lm_zoo_path(dev, card) -> tuple:
@@ -3369,7 +3394,8 @@ def recsys_path(dev, card):
     100, B3).  BERT4Rec (vocab 1,000,448): ``serve_step`` at 512 and
     262,144 users, top 20, and ``retrieval_step`` against 1,000,000
     candidates (B3).  DeepFM: ``serve_step`` at 512 and 262,144.  DLRM
-    with each vocabulary capped at 2^24 rows: ``serve_step`` at 512 and
+    with each vocabulary capped as the registry's serve cells cap it
+    (2^24 rows): ``serve_step`` at 512 and
     262,144.  Then the retrieval example's shape (64 queries against
     200,000 candidates, D = 64, B3).  Every serving call is counted
     (counts set to 0 just before, read just after; only the retrievals
@@ -3463,14 +3489,11 @@ def recsys_path(dev, card):
     del model, rbatch, q, cand, got
     torch.cuda.empty_cache()
 
-    # DeepFM and DLRM (vocabularies capped at 2^24 rows)
+    # DeepFM and DLRM (vocabularies capped as the serve cells cap them)
     for name, mod, c, make in (
             ("DeepFM", deepfm, deepfm_cfg.make_config(),
              rs.deepfm_batch),
-            ("DLRM", dlrm, dataclasses.replace(
-                dlrm_mlperf.make_config(),
-                vocab_sizes=tuple(min(v, DLRM_VOCAB_CAP) for v in
-                                  dlrm.CRITEO_1TB_VOCABS)),
+            ("DLRM", dlrm, registry_cut("dlrm-mlperf", "serve_p99")[0],
              rs.dlrm_batch)):
         t0 = time.perf_counter()
         model = mod.init_params(c, gen, dev)
@@ -3547,32 +3570,31 @@ def train_batch(name, c, n, gen, smoke):
     return make(c, n, gen, train=True)
 
 
+def registry_cut(name, shape):
+    """(config, batch, cuts) of cell (``name``, ``shape``) as the
+    registry's cut rule chooses them for the card (``Cell.choose``),
+    the cuts as one line ("none" where nothing is cut)."""
+    sz, reduced, _ = get_arch(name).cells[shape].choose(
+        card_bytes(torch.device("cuda")))
+    return sz.config, sz.batch, "; ".join(
+        f"{k} {v}" for k, v in reduced.items()) or "none"
+
+
 def train_models():
     """(name, module, smoke config, published config, batch at full
-    width, the cut, make_train_step's kwargs) of phase 14."""
-    dl = dataclasses.replace(
-        dlrm_mlperf.make_config(),
-        vocab_sizes=tuple(min(v, TRAIN_DLRM_CAP) for v in
-                          dlrm.CRITEO_1TB_VOCABS))
+    width, the cut, make_train_step's kwargs) of phase 14: the
+    recommenders at their ``train_batch`` cells' configs and batches."""
     return [
         ("two-tower", two_tower, two_tower_retrieval.smoke_config(),
-         two_tower_retrieval.make_config(), TRAIN_TWO_TOWER,
-         "batch 32,768 (the cell's 65,536 needs ~51 GB of [B, B] logits, "
-         "their gradient and softmax temporaries)", {}),
-        ("DLRM", dlrm, dlrm_mlperf.smoke_config(), dl,
-         recsys_shapes.TRAIN_BATCH,
-         f"vocabularies capped at 2^22 rows ({dl.table.total_rows:,} rows;"
-         f" table, gradient, m and v 4 x "
-         f"{dl.table.padded_rows() * 128 * 4 / 1e9:.1f} GB)", {}),
+         *registry_cut("two-tower-retrieval", "train_batch"), {}),
+        ("DLRM", dlrm, dlrm_mlperf.smoke_config(),
+         *registry_cut("dlrm-mlperf", "train_batch"), {}),
         ("DeepFM", deepfm, deepfm_cfg.smoke_config(),
-         deepfm_cfg.make_config(), recsys_shapes.TRAIN_BATCH, "none", {}),
+         *registry_cut("deepfm", "train_batch"), {}),
         ("BERT4Rec cloze", bert4rec, bert4rec_cfg.smoke_config(), None, 0,
          "", {"sampled": False}),
         ("BERT4Rec sampled", bert4rec, bert4rec_cfg.smoke_config(),
-         bert4rec_cfg.make_config(), TRAIN_BERT4REC,
-         "batch 8,192 (the cell's 65,536 saves 21 GB of [B, 2, 200, 200] "
-         "probabilities a block); 20 masked, 8,192 negatives",
-         {"sampled": True}),
+         *registry_cut("bert4rec", "train_batch"), {"sampled": True}),
         ("DimeNet molecule", dimenet, dimenet_cfg.make_config(
             "molecule", smoke=True), dimenet_cfg.make_config("molecule"),
          0, "none (128 molecules, 8,192 edges, 32,768 triplets)", {}),
@@ -3719,6 +3741,12 @@ FLASH_BWD_CASES = (
      True, CORES),
     ("qwen2-moe-a2.7b layer 0", 4, 4096, 16, 16, 128, 0, BF16, True, WGMMA),
     ("gemma3-27b local layer", 2, 4096, 32, 16, 128, 1024, BF16, True,
+     WGMMA),
+    # the train_4k cells' other layer 0s: MLA at D 192 (V padded to the
+    # query width) on the CUDA cores, and Command R+'s GQA 12
+    ("deepseek-v3-671b layer 0", 1, 4096, 128, 128, 192, 0, BF16, True,
+     CORES),
+    ("command-r-plus-104b layer 0", 1, 4096, 96, 8, 128, 0, BF16, True,
      WGMMA),
     ("f32", 2, 1000, 8, 2, 64, 0, F32, True, CORES),
     ("odd S, GQA 4", 1, 333, 8, 2, 128, 0, BF16, True, WGMMA),
@@ -4371,6 +4399,15 @@ def tifu_serve(dev, card):
                         "serve_topk's corpus")
     del hist, gs, ng
     (_, idx), b3_ms = time_ms(lambda: ops.knn_topk(queries, corpus, k), 0)
+    lib_ids, library_ms = time_ms(lambda: library_topk(queries, corpus, k),
+                                  0)
+    lib_same = float((lib_ids == idx.long()).all(dim=1).float().mean())
+    del lib_ids
+    log(f"  serve_topk's library reading: matmul + topk over the corpus in "
+        f"chunks of {LIBRARY_CHUNK} queries (f32, TF32 off, |c|² once, "
+        f"counted) {library_ms:.3f} ms against B3's {b3_ms:.3f} ms and its "
+        f"fp32 bound {b3_bound_ms:.1f} ms; {lib_same:.2%} of the queries' "
+        f"ids identical to B3's [{card}]")
     # the ids B3 gives again are the ones the cell blended
     for q0 in range(0, sz.n_queries, knn.MEAN_QUERY_CHUNK):
         sl = slice(q0, q0 + knn.MEAN_QUERY_CHUNK)
@@ -4428,8 +4465,24 @@ def tifu_serve(dev, card):
     del prog, queries, blocks, keep_pred, pred_o
     torch.cuda.empty_cache()
     total = {n: launches[n] + launches_o[n] for n in launches}
-    return total, dict(serve_topk=dict(res, b3_ms=b3_ms, b8=b8),
+    return total, dict(serve_topk=dict(res, b3_ms=b3_ms, b8=b8,
+                                       library_ms=library_ms),
                        serve_topk_opt=dict(res_o, topk_ms=opt_ms))
+
+
+def library_topk(queries, corpus, k):
+    """The library's top-k nearest rows: |c|² once, then for each chunk
+    of ``LIBRARY_CHUNK`` queries |q|² − 2·q·cᵀ + |c|² by one ``addmm``
+    and ``torch.topk`` of the k smallest.  Returns the ids [Q, k]."""
+    cn = torch.linalg.vector_norm(corpus, dim=1).square_()
+    ids = []
+    for q0 in range(0, queries.shape[0], LIBRARY_CHUNK):
+        qs = queries[q0:q0 + LIBRARY_CHUNK]
+        dist = torch.addmm(cn[None, :], qs, corpus.T, alpha=-2.0)
+        dist.add_(torch.linalg.vector_norm(qs, dim=1).square_()[:, None])
+        ids.append(torch.topk(dist, k, dim=1, largest=False).indices)
+        del dist
+    return torch.cat(ids)
 
 
 def tifu_path(dev, card):
@@ -4447,6 +4500,242 @@ def tifu_path(dev, card):
     torch.cuda.empty_cache()
     served, readings["serve"] = tifu_serve(dev, card)
     return {n: counts[n] + served[n] for n in counts}, readings
+
+
+# ---------------------------------------------------------------------------
+# phase 18: every cell of the registry through the dry run
+# ---------------------------------------------------------------------------
+
+def expected_launches(name, shape, prog):
+    """The launches of a cell's run, kernel by kernel, that its family
+    should show; ``None`` for tifu-knn's (checked by
+    :func:`tifu_launches_ok`)."""
+    family = get_arch(name).family
+    want = dict.fromkeys(KERNELS, 0)
+    if family == "tifu":
+        return None
+    if family == "lm":
+        n = prog.args[0].config.n_layers
+        if shape == "train_4k":
+            # remat runs each layer's forward again in backward
+            want.update(flash_attention=2 * n, flash_attention_bwd=n)
+        elif shape == "prefill_32k":
+            want["flash_attention"] = n
+    elif shape == "retrieval_cand" and name in ("two-tower-retrieval",
+                                                "bert4rec"):
+        want["knn_topk"] = 1
+    return want
+
+
+def tifu_launches_ok(shape, ran) -> bool:
+    if shape == "stream_update":
+        return ran["sparse_row_gather"] > 0 and ran["sparse_row_scatter"] > 0
+    return ran["knn_topk"] == (4 if shape == "serve_topk_opt" else 1)
+
+
+def floating_outputs(out):
+    """Every floating tensor of a cell's output (tensors, tuples,
+    lists, dicts)."""
+    if isinstance(out, torch.Tensor):
+        return [out] if out.is_floating_point() else []
+    if isinstance(out, dict):
+        out = list(out.values())
+    if isinstance(out, (tuple, list)):
+        return [t for x in out for t in floating_outputs(x)]
+    return []
+
+
+def all_finite(t) -> bool:
+    """Whether every value of ``t`` is finite, in chunks of 2^28 values
+    (a cache's whole mask would be tens of GB)."""
+    flat = t.reshape(-1)
+    step = 1 << 28
+    return all(bool(torch.isfinite(flat[i:i + step]).all())
+               for i in range(0, flat.numel(), step))
+
+
+class FirstAttention:
+    """Within ``with``, ``ops.flash_attention`` keeps what the first call
+    (a model's layer 0) gives the check of :func:`long_attention_check`:
+    (q, k, v, window, output), of q and the output the first and last
+    ``LONG_ROWS`` query rows of each sequence only, unless ``whole``
+    (B9 is then timed on the whole q).  K and V stay whole: the last
+    rows see every key."""
+
+    def __init__(self, whole: bool = False):
+        self.whole = whole
+
+    def __enter__(self):
+        self.first, self.orig = None, ops.flash_attention
+
+        def rows(t):
+            if self.whole:
+                return t
+            return torch.cat((t[:, :LONG_ROWS], t[:, -LONG_ROWS:]), 1)
+
+        def call(q, k, v, causal=True, window=0, impl=None):
+            out = self.orig(q, k, v, causal=causal, window=window,
+                            impl=impl)
+            if self.first is None:
+                self.first = (rows(q), k, v, window, rows(out))
+            return out
+        ops.flash_attention = call
+        return self
+
+    def __exit__(self, *exc):
+        ops.flash_attention = self.orig
+        return False
+
+
+def long_attention_check(first, what, card, timed) -> dict:
+    """B9 at layer 0 of a prefill of S = 32,768: its output on the first
+    and last ``LONG_ROWS`` query rows of each sequence against f32
+    attention computed for those rows alone (causal, layer 0's window,
+    scale 1/√D, softmax in f32; ``LONG_HEADS`` query heads at a time),
+    by layer 0's bounds (max |err| <= 3e-2 or one bf16 step of the
+    largest output, error rms / output rms <= 2^-7, worst row <= 2^-6);
+    with ``timed``, B9 timed at that shape beside SDPA and its bound.
+    Returns the record."""
+    q, k, v, win, got = first
+    b, s, h, d = k.shape[0], k.shape[1], q.shape[2], q.shape[3]
+    group = h // k.shape[2]
+    errs, sq_err, sq_out, row_ratio, top = 0.0, 0.0, 0.0, 0.0, 0.0
+    n = 0
+    for i in range(b):
+        for j, r0 in enumerate((0, s - LONG_ROWS)):
+            r1 = r0 + LONG_ROWS
+            # the rows' place in ``q`` and ``got``: whole, or the kept rows
+            at = r0 if q.shape[1] == s else j * LONG_ROWS
+            rs_ = slice(at, at + LONG_ROWS)
+            qpos = torch.arange(r0, r1, device=q.device)[:, None]
+            kpos = torch.arange(r1, device=q.device)[None, :]
+            mask = kpos <= qpos
+            if win:
+                mask &= kpos > qpos - win
+            for h0 in range(0, h, LONG_HEADS):
+                heads = torch.arange(h0, min(h, h0 + LONG_HEADS),
+                                     device=q.device)
+                kb = k[i, :r1, heads // group].float()
+                vb = v[i, :r1, heads // group].float()
+                sc = torch.einsum("qhd,khd->hqk", q[i, rs_, heads].float(),
+                                  kb) / d ** 0.5
+                sc.masked_fill_(~mask, float("-inf"))
+                exp = torch.einsum("hqk,khd->qhd", torch.softmax(sc, dim=-1),
+                                   vb)
+                del sc, kb, vb
+                diff = (got[i, rs_, heads].float() - exp).abs()
+                size = exp.abs()
+                errs = max(errs, float(diff.max()))
+                top = max(top, float(size.max()))
+                sq_err += float(diff.square().sum())
+                sq_out += float(size.square().sum())
+                n += diff.numel()
+                row_ratio = max(row_ratio,
+                                float((diff.amax(-1) / size.amax(-1)).max()))
+                del diff, size, exp
+    atol = max(FLASH_ATOL[q.dtype], 2.0 ** (np.floor(np.log2(top)) - 7))
+    rms_ratio = (sq_err / n) ** 0.5 / (sq_out / n) ** 0.5
+    shape = (f"B={b} S={s} H={h} KV={k.shape[2]} D={d} bf16 causal"
+             + (f" window {win}" if win else ""))
+    assert errs <= atol, (what, "B9 at S = 32,768", errs, atol)
+    assert rms_ratio <= FLASH_RMS_RATIO and row_ratio <= FLASH_ROW_RATIO, \
+        (what, "B9 at S = 32,768 relative error", rms_ratio, row_ratio)
+    rec = dict(shape=shape, max_abs_err=errs, rms_ratio=rms_ratio,
+               row_ratio=row_ratio)
+    timing = ""
+    if timed:
+        qt, kt, vt = (t.transpose(1, 2) for t in (
+            q, k.repeat_interleave(group, 2), v.repeat_interleave(group, 2)))
+        lib = torch.nn.functional.scaled_dot_product_attention
+        ms = time_ms(lambda: flash_attention.launch(q, k, v, window=win))
+        lib_ms = time_ms(lambda: lib(qt, kt, vt, is_causal=True))
+        del qt, kt, vt
+        io_bytes = sum(a.numel() * a.element_size() for a in (q, k, v, got))
+        flops = attention_flops(b, s, h, d, window=win)
+        bound_ms, bound_by = bound(io_bytes, flops, PEAK_BF16)
+        rec.update(ms=ms, library_ms=lib_ms, bound=(bound_ms, bound_by),
+                   plan=str(flash_attention.plan_flash(q, k, v, win)))
+        timing = (f"; {ms:.4f} ms (events, median of {REPS}), "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s; SDPA {lib_ms:.4f} ms; "
+                  f"bound {bound_ms:.4f} ms ({bound_by}); plan "
+                  f"{rec['plan']}")
+    log(f"  B9 at layer 0 of {what}'s prefill, {shape}: the first and last "
+        f"{LONG_ROWS} query rows of each sequence against f32 attention "
+        f"for those rows alone: max |err| {errs} (bound {atol}), error rms "
+        f"/ output rms {rms_ratio} (bound {FLASH_RMS_RATIO}), worst row "
+        f"{row_ratio} (bound {FLASH_ROW_RATIO}){timing} [{card}]")
+    return rec
+
+
+def cells_path(dev, card) -> tuple:
+    """Phase 18: each of the 43 cells of ``configs.all_cells()`` built
+    and run once through the dry run on an otherwise empty card, nothing
+    caught.  Returns (the runs' launch counts, {(arch, shape): readings},
+    B9's records at S = 32,768 by arch: layer 0 of each prefill_32k
+    cell, granite's timed)."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    log(f"the registry's cells ({resident:,} bytes resident before) "
+        f"[{card}]")
+    assert resident < CELL_RESIDENT_MAX, resident
+    total = dict.fromkeys(KERNELS, 0)
+    readings, long_recs = {}, {}
+    for name, shape in all_cells():
+        build.reset_launch_counts()
+        prog, build_s = dryrun.build_cell(name, shape, dev, CELL_SEED)
+        built = {n: c for n, c in build.launch_counts.items() if c}
+        build.reset_launch_counts()
+        watch = shape == "prefill_32k"
+        timed = name == "granite-3-2b"
+        with (FirstAttention(whole=timed) if watch
+              else contextlib.nullcontext()) as fa:
+            res, out = dryrun.run_program(prog, dev)
+        ran = dict(build.launch_counts)
+        for n in KERNELS:
+            total[n] += ran.get(n, 0)
+        want = expected_launches(name, shape, prog)
+        if want is None:
+            assert tifu_launches_ok(shape, ran), (name, shape, ran)
+        else:
+            assert {n: ran.get(n, 0) for n in KERNELS} == want, \
+                (name, shape, ran, want)
+        outs = floating_outputs(out)
+        assert outs and all(all_finite(t) for t in outs) \
+            or get_arch(name).family == "tifu" and shape == "stream_update", \
+            (name, shape, "an output not finite")
+        assert res["fits"], (name, shape, res)
+        est = res["estimate_bytes"]
+        log(f"  {name} x {shape}: {res['description']}; build {build_s:.3f}"
+            f" s (launches {built or 'none'}), run {res['run_s']:.6f} s; "
+            f"peak {res['peak_bytes']:,} bytes "
+            f"({res['peak_bytes'] / 2 ** 30:.2f} GiB of "
+            f"{res['device_bytes'] / 2 ** 30:.2f}, fits {res['fits']}), "
+            f"estimate {est:,.0f} ({res['peak_bytes'] / est:.2f} of it); "
+            f"{res['model_flops']:.4g} model FLOP, "
+            f"{res['model_flops_per_s']:.4g} FLOP/s; launches "
+            f"{ {n: c for n, c in ran.items() if c} or 'none'}; cuts "
+            f"{res['reduced'] or 'none'}"
+            + ("; the peak holds layer 0's K and V for B9's check"
+               if watch else "") + f" [{card}]")
+        readings[(name, shape)] = dict(res, build_s=build_s, launches=ran)
+        del prog, out, outs
+        gc.collect()
+        torch.cuda.empty_cache()
+        if watch:
+            first, fa.first = fa.first, None
+            long_recs[name] = long_attention_check(first, name, card, timed)
+            del first
+            torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"  the registry's {len(readings)} cells: launches "
+        f"{ {n: c for n, c in total.items() if c} }; phase {phase_s:.1f} s "
+        f"(budget {CELL_PHASE_S:.0f} s) [{card}]")
+    assert len(readings) == 43, len(readings)
+    assert len(long_recs) == 5, sorted(long_recs)
+    assert phase_s <= CELL_PHASE_S, phase_s
+    return total, readings, long_recs
 
 
 def kernel_checks(ds, dev) -> dict:
@@ -4609,6 +4898,13 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.append(train_path(dev, card))
     log(f"recommender and GNN training: {time.perf_counter() - t0:.1f} s")
+    # phase 18 after phase 14: it uses no profiler
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cells, _, long_recs = cells_path(dev, card)
+    records["flash_attention"]["s32k"] = long_recs["granite-3-2b"]
+    paths.append(cells)
+    log(f"the registry's cells: {time.perf_counter() - t0:.1f} s")
     for name in KERNELS:
         # launches on the paths that drive the kernel (each path's counts
         # were set to 0 just before it and read just after)

@@ -4,12 +4,13 @@
 vocab=129280, MTP head.  MLA: q_lora=1536, kv_lora=512, nope=128,
 rope=64, v=128.
 
-The port's copy of ``repro/configs/deepseek_v3_671b.py``:
-``make_config`` and ``smoke_config`` only (the arch registry and mesh
-cells stay with the JAX package).
+The port's copy of ``repro/configs/deepseek_v3_671b.py``: ``make_config``,
+``smoke_config`` and ``ARCH``, the four LM cells of ``lm_shapes``.
 """
 import torch
 
+from repro_torch.configs.base import ArchDef
+from repro_torch.configs.lm_shapes import standard_lm_cells
 from repro_torch.models.transformer import TransformerConfig
 
 
@@ -36,3 +37,14 @@ def smoke_config() -> TransformerConfig:
         first_dense_layers=1, mla=True, q_lora_rank=32, kv_lora_rank=16,
         qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16, mtp=True,
         capacity_factor=2.0, tie_embeddings=False, dtype=torch.float32)
+
+
+ARCH = ArchDef(
+    name="deepseek-v3-671b", family="lm",
+    cells=standard_lm_cells(make_config, optimizer="adafactor",
+                            serve_depth=2),
+    make_smoke=smoke_config,
+    notes=(
+        "MLA latent KV cache (decode on the absorbed path); MTP head; "
+        "Adafactor, as the JAX arch (Adam's m and v would not fit); 1 dense "
+        "+ 1 MoE layer on one card, B9 and 9b at D 192 on the CUDA cores."))

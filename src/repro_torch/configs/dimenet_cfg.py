@@ -2,8 +2,8 @@
 n_spherical=7 n_radial=6.
 
 The port's copy of ``repro/configs/dimenet_cfg.py``: ``CELLS``,
-``make_config`` and ``smoke_config`` (the arch registry and its mesh
-cells stay with the JAX package).  All four cells are training regimes.
+``make_config``, ``smoke_config`` and ``ARCH``.  All four cells are
+training regimes (``dimenet`` train steps with AdamW).
 Non-geometric graphs take ``dist`` / ``angle`` as inputs.  Edge and
 triplet counts are padded to multiples of 512 with ghost entries
 (node 0 → node 0 at the cutoff distance, where the radial basis is 0).
@@ -13,6 +13,12 @@ molecules from ``graph_sampler.molecule_batch`` with their geometry, or
 a random graph with bag-of-words node features, synthetic distances and
 angles, and a class per node.  ``SMOKE_CELLS`` are the same two kinds
 of graph at test sizes, for ``make_config(cell, smoke=True)``.
+
+A cell's :class:`GraphBatch` runs its graph divided by a power of two
+(nodes, edges and triplets together; molecules stay whole): the cut
+rule takes the least that fits the card (``peak_bytes``).
+``full_graph_sm``, ``minibatch_lg`` and ``molecule`` run uncut; the
+uncut ``ogb_products`` waits for the sharded path.
 """
 import dataclasses
 from typing import Any, Dict
@@ -20,9 +26,10 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchDef, CellBatch, Leaves, recsys_cell
 from repro_torch.core.types import resolve_device
-from repro_torch.data.graph_sampler import (build_triplets, molecule_batch,
-                                            pad_to)
+from repro_torch.data.graph_sampler import (molecule_batch, pad_to,
+                                            sample_triplets)
 from repro_torch.models import dimenet
 
 
@@ -87,9 +94,10 @@ def cell_batch(g: Dict[str, Any], seed: int = 0,
     ``DimeNetConfig``'s, which no cell changes.
 
     The first edges are ghosts (node 0 → node 0 at the cutoff: one for
-    molecules, 2% of the others), and the triplets of ``build_triplets``
-    (at most 8 per edge) are padded to ``n_tri`` with triplets of edge 0,
-    so the padding adds nothing: the radial gate of a ghost edge is 0."""
+    molecules, 2% of the others), and the triplets of ``sample_triplets``
+    (at most 8 per edge, in edge order) are cut or padded to ``n_tri``,
+    the padding with triplets of edge 0, so it adds nothing: the radial
+    gate of a ghost edge is 0."""
     dev = resolve_device(device)
     cutoff = dimenet.DimeNetConfig.cutoff
     rng = np.random.default_rng(seed)
@@ -103,8 +111,8 @@ def cell_batch(g: Dict[str, Any], seed: int = 0,
         dst = rng.integers(0, n, e).astype(np.int32)
         ghost = e // 50
     src[:ghost] = dst[:ghost] = 0
-    tkj, tji = build_triplets(src, dst, seed=seed)
     t = g["n_tri"]
+    tkj, tji = sample_triplets(src, dst, seed=seed, limit=t)
     batch = {"edge_src": src, "edge_dst": dst,
              "tri_kj": pad_to(tkj, t), "tri_ji": pad_to(tji, t)}
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
@@ -128,3 +136,109 @@ def cell_batch(g: Dict[str, Any], seed: int = 0,
             "labels": rng.integers(0, g["n_targets"], n).astype(np.int64)}
     batch.update({k: torch.from_numpy(v).to(dev) for k, v in host.items()})
     return batch
+
+
+# ---------------------------------------------------------------------------
+# the cells
+# ---------------------------------------------------------------------------
+
+def scaled(g: Dict[str, Any], f: int, c: dimenet.DimeNetConfig
+           ) -> Dict[str, Any]:
+    """Graph ``g`` divided by ``f`` (nodes, edges and triplets; whole
+    molecules), with ``c``'s input width and targets."""
+    out = dict(g, n_nodes=max(1, g["n_nodes"] // f),
+               n_edges=max(1, g["n_edges"] // f),
+               n_tri=max(1, g["n_tri"] // f), d_feat=c.d_node_feat,
+               n_targets=c.n_targets)
+    if g["geometric"]:
+        k = max(1, g["n_graphs"] // f)
+        out.update(n_graphs=k, n_nodes=k * (g["n_nodes"] // g["n_graphs"]),
+                   n_edges=k * (g["n_edges"] // g["n_graphs"]))
+    return out
+
+
+def peak_bytes(c: dimenet.DimeNetConfig, g: Dict[str, Any]) -> float:
+    """The estimated peak of a train step: the f32 parameters with their
+    gradient, m and v; per edge ~22 [E, D] f32 tensors (the six blocks'
+    saved messages, a block's recomputed activations and their
+    gradients), per triplet ~12 [T, D] (the gathered messages, the
+    bilinear product and their gradients) and two copies of the
+    spherical basis; per node the features and 4 [N, D]; the int64
+    copies of every index."""
+    e, t, n = g["n_edges"], g["n_tri"], g["n_nodes"]
+    d = c.d_hidden
+    return (16 * c.n_params() + 4 * d * (22 * e + 12 * t)
+            + 8 * c.n_spherical * c.n_radial * t
+            + 4 * n * (g["d_feat"] + 4 * d) + 16 * (e + t) + 8 * n)
+
+
+class GraphBatch(CellBatch):
+    """A cell's graph divided by ``f`` (the batch the cut rule moves: 1,
+    2, 4, ... up to a graph of one edge), built by :func:`cell_batch`."""
+
+    n = 1
+    cut_note = "the uncut graph waits for the sharded path"
+
+    def __init__(self, cell: str):
+        self.cell = cell
+
+    def graph(self, c, f: int) -> Dict[str, Any]:
+        return scaled(CELLS[self.cell], f, c)
+
+    def candidates(self):
+        e = CELLS[self.cell]["n_edges"]
+        return [1 << k for k in range(e.bit_length())]
+
+    def words(self, f: int) -> str:
+        g = CELLS[self.cell]
+        return (f"1/{f:,} of the graph ({max(1, g['n_nodes'] // f):,} "
+                f"nodes, {max(1, g['n_edges'] // f):,} edges)"
+                if f > 1 else f"the whole graph ({g['n_nodes']:,} nodes, "
+                f"{g['n_edges']:,} edges)")
+
+    def leaves(self, c, f: int) -> Leaves:
+        g = self.graph(c, f)
+        e, t, n = g["n_edges"], g["n_tri"], g["n_nodes"]
+        i32, f32 = torch.int32, torch.float32
+        out = {"edge_src": ((e,), i32), "edge_dst": ((e,), i32),
+               "dist": ((e,), f32), "angle": ((t,), f32),
+               "tri_kj": ((t,), i32), "tri_ji": ((t,), i32)}
+        if g["geometric"]:
+            out.update(z=((n,), i32), graph_id=((n,), i32),
+                       labels=((g["n_graphs"],), f32))
+        else:
+            out.update(node_feat=((n, g["d_feat"]), f32),
+                       labels=((n,), torch.int64))
+        return out
+
+    def make(self, c, f: int, gen: torch.Generator, seed: int):
+        return cell_batch(self.graph(c, f), seed, gen.device)
+
+
+def _flops(cell: str):
+    def f(c, div: int = 1) -> float:
+        g = scaled(CELLS[cell], div, c)
+        d, b = c.d_hidden, c.n_bilinear
+        per_block = (2 * g["n_edges"] * d * d * 2       # msg MLPs
+                     + g["n_tri"] * (d * b + b * b * d)  # bilinear path
+                     + 2 * g["n_edges"] * d * d)         # output blocks
+        return 6.0 * c.n_blocks * per_block              # fwd+bwd
+    return f
+
+
+def _cell(cell: str):
+    batch = GraphBatch(cell)
+    return recsys_cell(
+        dimenet, lambda: make_config(cell), batch, f"dimenet {cell} train",
+        train=True, flops_fn=_flops(cell),
+        peak_fn=lambda c, div: peak_bytes(c, batch.graph(c, div)))
+
+
+ARCH = ArchDef(
+    name="dimenet", family="gnn",
+    cells={cell: _cell(cell) for cell in CELLS},
+    make_smoke=smoke_config,
+    notes="triplet-gather regime; segment sums by index_add; dist/angle "
+          "are inputs for non-geometric graphs; ogb_products on a graph "
+          "divided by a power of two (the uncut graph waits for the "
+          "sharded path).")

@@ -2,12 +2,13 @@
 62L d_model=5376 32H (GQA kv=16) d_ff=21504 vocab=262144,
 5:1 local:global sliding-window attention (window 1024), 128k context.
 
-The port's copy of ``repro/configs/gemma3_27b.py``: ``make_config`` and
-``smoke_config`` only (the arch registry and mesh cells stay with the
-JAX package).
+The port's copy of ``repro/configs/gemma3_27b.py``: ``make_config``,
+``smoke_config`` and ``ARCH``, the four LM cells of ``lm_shapes``.
 """
 import torch
 
+from repro_torch.configs.base import ArchDef
+from repro_torch.configs.lm_shapes import standard_lm_cells
 from repro_torch.models.transformer import TransformerConfig
 
 
@@ -27,3 +28,13 @@ def smoke_config() -> TransformerConfig:
         name="gemma3-smoke", n_layers=6, d_model=64, n_heads=4,
         n_kv_heads=2, d_head=16, d_ff=128, vocab_size=256,
         sliding_window=4, global_every=6, dtype=torch.float32)
+
+
+ARCH = ArchDef(
+    name="gemma3-27b", family="lm",
+    cells=standard_lm_cells(make_config, serve_depth=6),
+    make_smoke=smoke_config,
+    notes=(
+        "5:1 local:global sliding-window attention (window 1024); 5 local + "
+        "1 global layers on one card (train_4k 4 + 1); long_500k is one "
+        "decode step for every LM arch."))

@@ -16,11 +16,21 @@ uniform sampler's −log n_items) for two-tower, and for BERT4Rec
 ``mask_pos`` (distinct positions), ``targets`` (the item there, −1
 where the position is padding), ``negatives`` (in [2, n_items + 2)),
 with ``ids`` holding the mask token 1 at each masked item.
+
+The JAX package's batch builders are here as the cells' batch builders
+(``dlrm_cell_batch`` for ``dlrm_batch``, and so on, with the same
+defaults): each gives its leaves' shapes at a config and a row count
+without allocating (``leaves``) and makes them through the maker above
+(``make``).  Dtypes against the JAX ``ShapeDtypeStruct``s
+(``base.JAX_DTYPES``): the JAX ids are int32, the port's makers give
+int64; floats are f32 in both.
 """
 import math
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
+
+from repro_torch.configs.base import CellBatch, Leaves
 
 TRAIN_BATCH = 65536
 N_MASKED, N_NEGATIVES = 20, 8192      # BERT4Rec's sampled cloze
@@ -148,3 +158,105 @@ def two_tower_retrieval_batch(c, gen: torch.Generator,
     pair = two_tower_batch(c, 1, gen)
     return {"user_id": pair["user_id"], "history": pair["history"],
             "candidates": unit_rows(gen, n_cand, c.tower_mlp[-1])}
+
+
+# ---------------------------------------------------------------------------
+# the cells' batch builders
+# ---------------------------------------------------------------------------
+
+I64, F32 = torch.int64, torch.float32
+
+
+class RowsBatch(CellBatch):
+    """``n`` rows of ``maker(c, n, gen, train=train)``, shaped by
+    ``shapes(c, n, train)``; ``n`` is the published count."""
+
+    def __init__(self, maker: Callable, shapes: Callable, n: int,
+                 train: bool):
+        self.maker, self.shapes, self.n, self.train = maker, shapes, n, train
+
+    def leaves(self, c, n: int) -> Leaves:
+        return self.shapes(c, n, self.train)
+
+    def make(self, c, n: int, gen: torch.Generator, seed: int) -> Batch:
+        return self.maker(c, n, gen, train=self.train)
+
+
+def _dlrm_leaves(c, n: int, train: bool) -> Leaves:
+    out = {"dense": ((n, c.n_dense), F32), "sparse": ((n, c.n_sparse), I64)}
+    if train:
+        out["labels"] = ((n,), F32)
+    return out
+
+
+def _deepfm_leaves(c, n: int, train: bool) -> Leaves:
+    out = {"sparse": ((n, c.n_fields), I64)}
+    if train:
+        out["labels"] = ((n,), F32)
+    return out
+
+
+def _bert4rec_leaves(c, n: int, train: bool) -> Leaves:
+    out = {"ids": ((n, c.seq_len), I64)}
+    if train:
+        m = min(N_MASKED, c.seq_len)      # a short sequence masks fewer
+        out.update({"mask_pos": ((n, m), I64), "targets": ((n, m), I64),
+                    "negatives": ((N_NEGATIVES,), I64)})
+    return out
+
+
+def _two_tower_leaves(c, n: int, train: bool) -> Leaves:
+    out = {"user_id": ((n,), I64), "history": ((n, c.hist_len), I64),
+           "item_id": ((n,), I64), "item_cat": ((n,), I64)}
+    if train:
+        out["logq"] = ((n,), F32)
+    return out
+
+
+def dlrm_cell_batch(n: int, train: bool = True) -> RowsBatch:
+    return RowsBatch(dlrm_batch, _dlrm_leaves, n, train)
+
+
+def deepfm_cell_batch(n: int, train: bool = True) -> RowsBatch:
+    return RowsBatch(deepfm_batch, _deepfm_leaves, n, train)
+
+
+def bert4rec_cell_batch(n: int, train: bool = True) -> RowsBatch:
+    """With ``train``, the sampled cloze's keys: 20 masked positions a
+    row and 8,192 shared negatives (the reference's defaults)."""
+    return RowsBatch(bert4rec_batch, _bert4rec_leaves, n, train)
+
+
+def two_tower_cell_batch(n: int, train: bool = True) -> RowsBatch:
+    return RowsBatch(two_tower_batch, _two_tower_leaves, n, train)
+
+
+class RetrievalBatch(CellBatch):
+    """One query and ``n`` unit-norm candidate rows of width
+    ``width(c)``: ``maker(c, gen, n)``; ``query(c)`` the query's
+    leaves."""
+
+    def __init__(self, maker: Callable, query: Callable, width: Callable,
+                 n: int):
+        self.maker, self.query, self.width, self.n = maker, query, width, n
+
+    def leaves(self, c, n: int) -> Leaves:
+        return {**self.query(c), "candidates": ((n, self.width(c)), F32)}
+
+    def make(self, c, n: int, gen: torch.Generator, seed: int) -> Batch:
+        return self.maker(c, gen, n)
+
+
+def bert4rec_retrieval_cell_batch(n_cand: int = N_CANDIDATES
+                                  ) -> RetrievalBatch:
+    return RetrievalBatch(bert4rec_retrieval_batch,
+                          lambda c: _bert4rec_leaves(c, 1, False),
+                          lambda c: c.embed_dim, n_cand)
+
+
+def two_tower_retrieval_cell_batch(n_cand: int = N_CANDIDATES
+                                   ) -> RetrievalBatch:
+    def query(c):
+        return {"user_id": ((1,), I64), "history": ((1, c.hist_len), I64)}
+    return RetrievalBatch(two_tower_retrieval_batch, query,
+                          lambda c: c.tower_mlp[-1], n_cand)

@@ -47,7 +47,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchDef, CellProgram
+from repro_torch.configs.base import ArchDef, CellProgram, generator
 from repro_torch.core import knn
 from repro_torch.core.tifu import (closed_form_basket_weights,
                                    last_group_basket_weights)
@@ -120,12 +120,6 @@ def state_bytes(n_users: int, sz: Sizes) -> int:
 # ---------------------------------------------------------------------------
 # seeded data on the device
 # ---------------------------------------------------------------------------
-
-def generator(dev: torch.device, seed: int) -> torch.Generator:
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    return gen
-
 
 def _popularity(n_items: int, dev: torch.device):
     """(log-probabilities f32[I], CDF f32[I]) of the Zipf popularity."""
@@ -320,6 +314,20 @@ def build_corpus(gen: torch.Generator, sz: Sizes, params: TifuParams,
     return queries, corpus
 
 
+def build_bytes(sz: Sizes) -> float:
+    """A build chunk's transient: two f32 [users, I] tables of
+    ``BUILD_CHUNK`` users (B8's output and its copy into the table)."""
+    return 8.0 * min(BUILD_CHUNK, sz.n_users) * sz.n_items
+
+
+def serve_bytes(sz: Sizes) -> float:
+    """The serve cells' estimate: the f32 corpus and queries, a build
+    chunk, and the prediction of the mean's chunks (one chunk's [chunk,
+    8, I] gather and the [Q, I] output)."""
+    return 4.0 * sz.n_items * (sz.n_users + 2 * sz.n_queries
+                               + 8 * knn.MEAN_QUERY_CHUNK) + build_bytes(sz)
+
+
 # ---------------------------------------------------------------------------
 # the cells
 # ---------------------------------------------------------------------------
@@ -359,7 +367,9 @@ def stream_update_cell(device: Any = None, seed: int = 0,
         description=(f"kind-partitioned micro-batch adds={sz.update_batch} "
                      f"dels=2x{sz.del_batch} M={sz.stream_users} "
                      f"I={sz.n_items}"),
-        model_flops_per_step=float(flops), reduced=stream_cut(sz))
+        model_flops_per_step=float(flops), reduced=stream_cut(sz),
+        estimate_bytes=float(state_bytes(sz.stream_users, sz)
+                             + build_bytes(sz)))
 
 
 def stream_cut(sz: Sizes) -> dict:
@@ -395,7 +405,7 @@ def serve_topk_cell(device: Any = None, seed: int = 0,
         fn=fn, args=(queries, corpus),
         description=f"kNN predict Q={sz.n_queries} M={sz.n_users} "
                     f"I={sz.n_items} k={sz.topk}",
-        model_flops_per_step=flops)
+        model_flops_per_step=flops, estimate_bytes=serve_bytes(sz))
 
 
 def serve_topk_opt_cell(device: Any = None, seed: int = 0,
@@ -433,7 +443,7 @@ def serve_topk_opt_cell(device: Any = None, seed: int = 0,
         description=f"kNN predict (opt, {sz.n_shards} row blocks) "
                     f"Q={sz.n_queries} M={sz.n_users} I={sz.n_items} "
                     f"k={sz.topk}",
-        model_flops_per_step=flops)
+        model_flops_per_step=flops, estimate_bytes=serve_bytes(sz))
 
 
 def smoke_config() -> TifuParams:

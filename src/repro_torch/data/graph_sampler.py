@@ -9,6 +9,11 @@ and fans out per layer from a CSR adjacency.  ``build_triplets`` emits
 triplet fall in the same edge-range partition; cross-partition angles
 are dropped, the approximation that keeps distributed message passing
 local).  ``molecule_batch`` batches small random molecules.
+
+``sample_triplets`` is the port's own: the same kind of triplets drawn
+by array operations, with no loop over edges, for the DimeNet cells'
+seeded graphs (``configs/dimenet_cfg.cell_batch``), whose large graphs
+``build_triplets`` walks edge by edge on the host.
 """
 from __future__ import annotations
 
@@ -105,6 +110,45 @@ def build_triplets(src: np.ndarray, dst: np.ndarray, n_partitions: int = 1,
                 tri_kj.append(f - lo)   # local index within partition
                 tri_ji.append(e - lo)
     return (np.asarray(tri_kj, np.int32), np.asarray(tri_ji, np.int32))
+
+
+def sample_triplets(src: np.ndarray, dst: np.ndarray, max_per_edge: int = 8,
+                    seed: int = 0, limit: int = -1
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """DimeNet triplets of one partition, drawn by array operations: for
+    each edge e=(j→i), up to ``max_per_edge`` distinct feeder edges
+    f=(k→j), f ≠ e, a run of consecutive feeders (in edge order) from a
+    seeded start.  (tri_kj, tri_ji) in edge order, as ``build_triplets``
+    gives them; ``limit`` >= 0 stops after the edges that give the first
+    ``limit`` triplets (the rest would be cut away)."""
+    rng = np.random.default_rng(seed)
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    n_edges = len(src)
+    order = np.argsort(dst, kind="stable")
+    into = np.bincount(dst, minlength=int(max(src.max(initial=0),
+                                              dst.max(initial=0))) + 1)
+    lo = (np.cumsum(into) - into)[src]
+    cnt = into[src]
+    start = (rng.random(n_edges) * np.maximum(cnt, 1)).astype(np.int64)
+    i = np.arange(max_per_edge + 1)
+    kj, ji, have, step = [], [], 0, 1 << 20
+    for a in range(0, n_edges, step):
+        if 0 <= limit <= have:
+            break
+        e = np.arange(a, min(a + step, n_edges))
+        c = np.maximum(cnt[e], 1)[:, None]
+        f = order[np.minimum(lo[e, None] + (start[e, None] + i) % c,
+                             n_edges - 1)]
+        ok = (i < cnt[e, None]) & (f != e[:, None])
+        ok &= np.cumsum(ok, 1) <= max_per_edge
+        kj.append(f[ok])
+        ji.append(np.broadcast_to(e[:, None], f.shape)[ok])
+        have += len(kj[-1])
+    if not kj:
+        return np.zeros(0, np.int32), np.zeros(0, np.int32)
+    return (np.concatenate(kj).astype(np.int32),
+            np.concatenate(ji).astype(np.int32))
 
 
 def pad_to(x: np.ndarray, n: int, fill=0):

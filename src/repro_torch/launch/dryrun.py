@@ -12,9 +12,11 @@ one run (host clock, ended by a device synchronize), the achieved
 model FLOP/s, and on a CUDA card the peak bytes
 (``torch.cuda.max_memory_allocated`` after ``reset_peak_memory_stats``,
 inputs included) and whether they fit the card's memory
-(``torch.cuda.mem_get_info``).  On the CPU (``device="cpu"``, the tests)
-the memory fields are ``None``: a CPU run measures no device memory.
-Cells run on the card unless the caller names another device.
+(``torch.cuda.mem_get_info``), beside the peak the cut rule estimated
+for the sizes it chose (``estimate_bytes``, ``configs/base.py``; a run
+on the card checks it).  On the CPU (``device="cpu"``, the tests)
+the measured memory fields are ``None``: a CPU run measures no device
+memory.  Cells run on the card unless the caller names another device.
 """
 from __future__ import annotations
 
@@ -29,6 +31,10 @@ import torch
 from repro_torch.configs import all_cells, get_arch
 from repro_torch.configs.base import CellProgram
 from repro_torch.core.types import resolve_device
+
+
+def _gib(n_bytes: Optional[float]) -> str:
+    return "none" if n_bytes is None else f"{n_bytes / 2 ** 30:.2f} GiB"
 
 
 def _sync(dev: torch.device) -> None:
@@ -75,6 +81,7 @@ def run_program(prog: CellProgram, device: Any = None
         "model_flops_per_s": prog.model_flops_per_step / seconds
         if seconds > 0 else None,
         "peak_bytes": peak,
+        "estimate_bytes": prog.estimate_bytes,
         "device_bytes": total,
         "fits": None if peak is None else bool(peak <= total),
     }, out
@@ -114,7 +121,8 @@ def main(argv: Optional[list] = None) -> int:
             print(f"[OK] {tag}: {r['description']}; build {r['build_s']:.2f}"
                   f" s, run {r['run_s']:.4f} s, "
                   f"{r['model_flops_per_s']:.4g} model FLOP/s, peak "
-                  f"{r['peak_bytes'] / 2 ** 30:.2f} GiB of "
+                  f"{r['peak_bytes'] / 2 ** 30:.2f} GiB (estimate "
+                  f"{_gib(r['estimate_bytes'])}) of "
                   f"{r['device_bytes'] / 2 ** 30:.2f} (fits {r['fits']}) "
                   f"on {r['device']}; cuts {r['reduced'] or 'none'}",
                   flush=True)

@@ -21,6 +21,9 @@ while the whole leaf agrees to ~1e-6); parameters after 3 steps
 ``rtol=1e-5, atol=1e-5`` elementwise at ``lr=3e-6`` (3·lr_t below that
 atol: Adam moves a parameter whose gradient is ~0 by up to lr_t a step,
 whichever sign the gradient takes); the sampler's arrays exact.
+``graph_sampler.sample_triplets`` (the port's own, with no counterpart
+there) gives each edge as many feeders as the reference's
+``build_triplets``, each a real feeder, in edge order.
 """
 import dataclasses
 
@@ -123,6 +126,37 @@ def test_graph_sampler_arrays_equal_jax(seed):
     for n in (3, 8):
         np.testing.assert_array_equal(graph_sampler.pad_to(x, n, fill=-1),
                                       jgs.pad_to(x, n, fill=-1))
+
+
+@pytest.mark.parametrize("seed,n_nodes,n_edges,cap",
+                         [(0, 40, 120, 8), (1, 300, 1800, 8),
+                          (2, 50, 600, 3)])
+def test_sample_triplets_are_the_reference_counts_of_feeders(
+        seed, n_nodes, n_edges, cap):
+    """Every triplet (f, e) has f feeding e (f = (k→j), e = (j→i)) and
+    f ≠ e, no pair twice, triplets in edge order, and each edge as many
+    as the reference's ``build_triplets`` takes (its feeders, at most
+    ``cap``); seeded; ``limit`` keeps the first triplets whole edges at
+    a time."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+    dst = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+    src[:3] = dst[:3] = 0                        # self-loops, as the ghosts
+    kj, ji = graph_sampler.sample_triplets(src, dst, cap, seed)
+    assert kj.dtype == ji.dtype == np.int32
+    assert (dst[kj] == src[ji]).all() and (kj != ji).all()
+    assert len(set(zip(kj.tolist(), ji.tolist()))) == len(kj)
+    assert (np.diff(ji) >= 0).all()
+    _, want = jgs.build_triplets(src, dst, 1, cap, seed)
+    np.testing.assert_array_equal(np.bincount(ji, minlength=n_edges),
+                                  np.bincount(want, minlength=n_edges))
+    for a, b in zip((kj, ji), graph_sampler.sample_triplets(src, dst, cap,
+                                                             seed)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip((kj, ji), graph_sampler.sample_triplets(
+            src, dst, cap, seed, limit=len(kj) // 2)):
+        np.testing.assert_array_equal(a[:len(b)], b)
+        assert len(b) >= len(kj) // 2
 
 
 def test_bases_and_geometry_match_jax(rng):

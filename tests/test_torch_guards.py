@@ -401,3 +401,33 @@ def test_tifu_cells_default_to_cuda(shape, capsys):
     assert f"[FAIL] tifu-knn x {shape}: RuntimeError: no CUDA device" in \
         capsys.readouterr().out
     assert builder("cpu", 0, sizes).args[0].device.type == "cpu"
+
+
+@pytest.mark.parametrize("name,shape", [("granite-3-2b", "prefill_32k"),
+                                        ("dlrm-mlperf", "serve_p99"),
+                                        ("dimenet", "molecule")])
+def test_registry_cells_default_to_cuda(name, shape, capsys):
+    """One cell of each family of the registry (LM, recommender, GNN;
+    tifu-knn's above): the builder and the dry run build on the card
+    unless the caller names the CPU, and without a card they raise
+    before building anything; the dry run's command line reports the
+    cell failed."""
+    from repro_torch.configs import get_arch, smoke_sizes
+    from repro_torch.launch import dryrun
+    builder = get_arch(name).cells[shape]
+    sizes = smoke_sizes(name, shape)
+    def device(prog):
+        return next(prog.args[0].parameters()).device.type
+    if torch.cuda.is_available():
+        assert device(builder(sizes=sizes)) == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        builder(sizes=sizes)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        builder()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.run_cell(name, shape, sizes=sizes)
+    assert dryrun.main(["--arch", name, "--shape", shape]) == 1
+    assert f"[FAIL] {name} x {shape}: RuntimeError: no CUDA device" in \
+        capsys.readouterr().out
+    assert device(builder("cpu", 0, sizes)) == "cpu"

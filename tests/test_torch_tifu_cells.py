@@ -67,9 +67,10 @@ def test_published_constants_equal_the_reference():
     assert isinstance(arch, base.ArchDef)
     assert (arch.name, arch.family) == (jcfg.ARCH.name, jcfg.ARCH.family)
     assert set(arch.cells) == set(jcfg.ARCH.cells)
-    assert list(all_cells()) == [("tifu-knn", s) for s in arch.cells]
+    assert [c for c in all_cells() if c[0] == "tifu-knn"] == \
+        [("tifu-knn", s) for s in arch.cells]
     with pytest.raises(KeyError, match="tifu-knn"):
-        get_arch("granite-3-2b")
+        get_arch("no-such-arch")
 
 
 def test_reduced_names_the_cut_of_stream_update():
@@ -276,11 +277,13 @@ def test_run_cell_on_the_cpu_returns_every_field(shape):
     r = dryrun.run_cell("tifu-knn", shape, device="cpu", seed=0, sizes=SZ)
     assert set(r) == {"arch", "shape", "build_s", "description", "reduced",
                       "device", "run_s", "model_flops", "model_flops_per_s",
-                      "peak_bytes", "device_bytes", "fits"}
+                      "peak_bytes", "estimate_bytes", "device_bytes",
+                      "fits"}
     assert (r["arch"], r["shape"], r["device"]) == ("tifu-knn", shape, "cpu")
     assert r["build_s"] > 0 and r["run_s"] > 0 and r["model_flops"] > 0
     assert r["model_flops_per_s"] == pytest.approx(
         r["model_flops"] / r["run_s"])
-    # a CPU run measures no device memory
+    # a CPU run measures no device memory; the estimate is arithmetic
     assert r["peak_bytes"] is None and r["fits"] is None
+    assert r["estimate_bytes"] > 0
     assert bool(r["reduced"]) == (shape == "stream_update")
