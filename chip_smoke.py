@@ -186,9 +186,8 @@ Phases, each fatal on failure (nothing is caught):
    their published widths, bf16, weights from a seeded generator, one
    model on the card at a time, each through phase 12's steps (the
    helper ``lm_path`` both phases share): layer 0's prefill attention
-   kernel against plain and timed (qwen2-moe at D = 128 on
-   ``tma_wgmma``, DeepSeek's MLA at D = 192 on ``cuda_cores``, V padded
-   from 128 for the kernel and unpadded for the plain version), 4
+   kernel against plain and timed (qwen2-moe at D = 128 and DeepSeek's
+   MLA at Q/K 192 with V 128 unpadded on ``tma_wgmma``), 4
    prompts of 4,096 tokens and 16 greedy steps with the kernels (counts
    reset before, read after: B9 once per layer, nothing else) and with
    the plain versions (no launch), the last MoE layer's prefill expert
@@ -198,9 +197,11 @@ Phases, each fatal on failure (nothing is caught):
 16. LM training (run after phase 15, before phase 13) -- 9b, the
    gradient of B9, alone at granite-3-2b's layer 0 (B 4, S 4,096, H 32,
    KV 8, D 64, bf16, causal), qwen2-moe's (D 128), a gemma3 local layer
-   (window 1,024), deepseek-v3's MLA layer 0 (B 1, H 128, D 192, bf16,
-   on the CUDA cores) and command-r-plus's (B 1, H 96, KV 8, D 128), f32,
-   an odd S, MLA's D 192 without the causal mask, D 32 and one token,
+   (window 1,024), deepseek-v3's MLA layer 0 (B 1, H 128, Q/K 192, V
+   128, bf16) and command-r-plus's (B 1, H 96, KV 8, D 128), f32, an odd
+   S, MLA's D 192 in f32 without the causal mask (the CUDA cores), MLA's
+   (192, 128) at an odd S with a window, without the causal mask and at
+   one token, D 32 and one token,
    on the Hopper design (``tma_wgmma``: from the
    log-sum-exp B9 saves, B9's output checked bitwise with and without the
    lse write and its lse against the plain one) where the input takes
@@ -2779,8 +2780,11 @@ def compliance_path(ds, dev, card):
 BF16, F32 = torch.bfloat16, torch.float32
 # flash_attention.plan_flash's designs
 WGMMA, MMA, CORES = "tma_wgmma", "mma_sync", "cuda_cores"
+# MLA's widths: Q/K 192, V 128 (a D written as (D, Dv) below)
+MLA = (192, 128)
 FLASH_EDGES = (
-    # B, S, H, KV, D, window, dtype, causal, the design plan_flash picks
+    # B, S, H, KV, D (or (D, Dv)), window, dtype, causal, the design
+    # plan_flash picks for V as transformer.kernel_v sends it
     (2, 200, 4, 4, 64, 0, F32, True, CORES),     # S % 64 != 0, KV == H
     (1, 333, 8, 2, 128, 0, BF16, True, WGMMA),   # KV < H, D = 128
     (2, 256, 4, 1, 64, 48, BF16, True, WGMMA),   # window
@@ -2788,7 +2792,8 @@ FLASH_EDGES = (
     (2, 190, 8, 2, 32, 0, BF16, True, MMA),      # D = 32 in bf16
     (1, 96, 4, 2, 256, 0, BF16, True, CORES),    # D = 256
     (1, 72, 4, 4, 96, 0, BF16, True, CORES),     # D = 96
-    (1, 100, 4, 4, 192, 0, BF16, True, CORES),   # D = 192 (MLA's Q/K)
+    (1, 100, 4, 4, 192, 0, BF16, True, CORES),   # D = 192, V as wide
+    (1, 130, 4, 2, MLA, 17, F32, True, CORES),   # MLA in f32: V padded
     (2, 1, 2, 1, 64, 0, F32, True, CORES),       # one token
     (2, 1, 2, 1, 64, 0, BF16, True, WGMMA),
     (1, 100, 2, 2, 64, 0, F32, False, CORES),    # no causal mask
@@ -2807,6 +2812,15 @@ FLASH_EDGES = (
     (1, 191, 4, 2, 64, 0, BF16, True, WGMMA),    # one 192-row item, partial
     (2, 193, 4, 4, 64, 150, BF16, True, WGMMA),  # an item of one row
     (1, 385, 2, 1, 64, 0, BF16, False, WGMMA),   # 192-row items, no causal
+    # the Hopper design at MLA's (192, 128): V in tiles of its own
+    (2, 1, 4, 2, MLA, 0, BF16, True, WGMMA),     # S = 1, KV < H
+    (1, 127, 4, 4, MLA, 0, BF16, True, WGMMA),   # S = 127
+    (1, 129, 8, 2, MLA, 0, BF16, True, WGMMA),   # S = 129, KV < H
+    (1, 257, 4, 4, MLA, 129, BF16, True, WGMMA),  # window across an edge
+    (1, 257, 4, 2, MLA, 0, BF16, False, WGMMA),  # no causal mask, KV < H
+    (2, 300, 2, 1, MLA, 70, BF16, False, WGMMA),  # no causal, window
+    # 288 items on at most 132 blocks: the one Q buffer taken 3 times
+    (2, 1030, 16, 2, MLA, 0, BF16, True, WGMMA),
 )
 # the JAX package's own kernel-vs-oracle bounds (tests/test_kernels.py:206,
 # :219)
@@ -2818,19 +2832,26 @@ FLASH_RMS_RATIO = 2.0 ** -7
 FLASH_ROW_RATIO = 2.0 ** -6
 
 
+def widths(d) -> tuple:
+    """(D, Dv) of a case's D: an int (V as wide as Q) or a pair."""
+    return d if isinstance(d, tuple) else (d, d)
+
+
 def flash_check(q, k, v, what, design, causal=True, window=0,
                 ulp_floor=False):
     """The attention kernel against its plain version, on the design
     ``flash_attention.plan_flash`` picks, which must be ``design``; a V
-    narrower than Q (MLA's) goes to the kernel zero-padded to Q's width,
-    as ``transformer.attend_padded_v`` sends it, and to the plain version
-    unpadded, so the padding itself is checked.  Max |err| is held to
+    narrower than Q (MLA's) goes to the kernel as
+    ``transformer.attend_padded_v`` sends it (``transformer.kernel_v``:
+    unpadded to ``tma_wgmma``, zero-padded to Q's width for the designs
+    that take V as wide as Q) and to the plain version unpadded, so the
+    padding itself is checked where there is one.  Max |err| is held to
     the JAX package's bound for the dtype, set for N(0, 1) inputs whose
     outputs stay below 4; with ``ulp_floor`` (a model's activations,
     which reach further) to one bf16 rounding step of the largest output
     where that is more.  Returns (kernel, plain)."""
     dv = v.shape[-1]
-    vk = transformer.pad_v(q, v)
+    vk = transformer.kernel_v(q, k, v, window, causal)
     plan = flash_attention.plan_flash(q, k, vk, window, causal)
     assert plan.design == design, (what, plan)
     exp = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -2857,9 +2878,11 @@ def check_flash_edges(dev):
         worst[design] = max(worst.get(design, 0.0), err)
 
     for b, s, h, kv, d, win, dt, causal, design in FLASH_EDGES:
-        q, k, v = (torch.randn((b, s, n, d), generator=gen, device=dev
-                               ).to(dt) for n in (h, kv, kv))
-        note(design, *flash_check(q, k, v, (b, s, h, kv, d, win, dt),
+        d, dv = widths(d)
+        q, k, v = (torch.randn((b, s, n, w), generator=gen, device=dev
+                               ).to(dt) for n, w in ((h, d), (kv, d),
+                                                     (kv, dv)))
+        note(design, *flash_check(q, k, v, (b, s, h, kv, d, dv, win, dt),
                                   design, causal, win))
     for dt, design in ((F32, CORES), (BF16, WGMMA)):
         # strided heads: every other head of a wider buffer
@@ -2878,13 +2901,20 @@ def check_flash_edges(dev):
     note(WGMMA, *flash_check(wide[:, :, :4], wide[:, :, 4:5], wide[:, :, 5:],
                              ("strided heads, D = 128", BF16), WGMMA, True,
                              40))
+    # MLA's widths on rows 2 bytes off a 16-byte boundary: the CUDA cores,
+    # V padded to Q's width
+    mla = torch.randn((1, 100, 6, 193), generator=gen, device=dev).to(BF16)
+    note(CORES, *flash_check(mla[:, :, :4, 1:], mla[:, :, 4:5, 1:],
+                             mla[:, :, 5:, 1:129],
+                             ("MLA widths, unaligned rows", BF16), CORES))
     assert set(worst) == {WGMMA, MMA, CORES}, worst
-    log(f"  flash_attention edge cases ({len(FLASH_EDGES) + 5}: S 1, 127, "
-        "128, 129, 191, 193, 257, 385 and off the 64-row tile, windows "
-        "inside a tile, "
-        "across an edge and wider than S, KV == H and KV < H, D 32/64/96/"
-        "128/192/256, no causal mask, strided heads, unaligned rows), max |err|"
-        " by design: " + ", ".join(f"{k} {e}" for k, e in worst.items()))
+    log(f"  flash_attention edge cases ({len(FLASH_EDGES) + 6}: S 1, 127, "
+        "128, 129, 191, 193, 257, 385, 1,030 and off the 64-row tile, "
+        "windows inside a tile, across an edge and wider than S, KV == H "
+        "and KV < H, D 32/64/96/128/192/256, (D, Dv) (192, 128) on "
+        "tma_wgmma and, in f32 or on unaligned rows, on the CUDA cores, no "
+        "causal mask, strided heads, unaligned rows), max |err| by design: "
+        + ", ".join(f"{k} {e}" for k, e in worst.items()))
 
 
 def attention_flops(b, s, h, d, dv=None, window=0):
@@ -2903,8 +2933,9 @@ FLASH_KERNEL_NAMES = {WGMMA: "flash_wgmma_kernel", MMA: "flash_mma_kernel",
 
 def lm_attention_check(c, model, tokens, design, what) -> dict:
     """Layer 0's prefill attention of ``model`` on ``tokens``, as the
-    prefill computes it (MLA: V zero-padded for the kernel, the plain
-    version and SDPA on the unpadded V): the kernel against its plain
+    prefill computes it (MLA: V as ``transformer.kernel_v`` sends it to
+    the kernel, the plain version and SDPA on the unpadded V): the
+    kernel against its plain
     version by max |err| and by error over the output's size, timed by
     events, the profiler, a burst of 10 and the host clock beside the
     plain version and SDPA.  Returns the kernel's record."""
@@ -2916,9 +2947,9 @@ def lm_attention_check(c, model, tokens, design, what) -> dict:
     q, k, v = qkv(transformer.rms_norm(x, layer0.ln1, c.norm_eps), layer0,
                   c, pos)
     del x
-    vk = transformer.pad_v(q, v)
     # layer 0's window, as the prefill passes it (gemma3's 1,024)
     win = transformer.kernel_window(model.groups()[0][2][0])
+    vk = transformer.kernel_v(q, k, v, win)
     got, exp = flash_check(q, k, v, f"{what} layer 0", design, window=win,
                            ulp_floor=True)
     # the error against the output's own size: most rows average
@@ -2973,7 +3004,10 @@ def lm_attention_check(c, model, tokens, design, what) -> dict:
     end.record()
     end.synchronize()
     burst_ms = start.elapsed_time(end) / 10
-    pad = f" (V {v.shape[-1]} padded to {d})" if v.shape[-1] < d else ""
+    pad = ""
+    if v.shape[-1] < d:
+        pad = f" Dv={v.shape[-1]}" + (
+            f" (padded to {d})" if vk.shape[-1] > v.shape[-1] else "")
     rec = dict(
         t, max_abs_err=err, device_ms=own, burst_ms=burst_ms,
         host_ms=host_ms,
@@ -3162,7 +3196,7 @@ def lm_zoo():
     return tuple(
         (name, registry_cut(name, "prefill_32k")[0], seed, design)
         for name, seed, design in (("qwen2-moe-a2.7b", 6, WGMMA),
-                                   ("deepseek-v3-671b", 7, CORES),
+                                   ("deepseek-v3-671b", 7, WGMMA),
                                    ("gemma3-27b", 8, WGMMA),
                                    ("command-r-plus-104b", 9, WGMMA)))
 
@@ -3734,7 +3768,8 @@ def train_path(dev, card) -> dict:
 # ---------------------------------------------------------------------------
 
 FLASH_BWD_CASES = (
-    # what, B, S, H, KV, D, window, dtype, causal, the design planned
+    # what, B, S, H, KV, D (or (D, Dv)), window, dtype, causal, the
+    # design planned
     ("granite-3-2b layer 0", 4, 4096, 32, 8, 64, 0, BF16, True, WGMMA),
     # the same on the CUDA cores: rows 2 bytes off a 16-byte boundary
     ("granite-3-2b layer 0, unaligned rows", 4, 4096, 32, 8, 64, 0, BF16,
@@ -3742,10 +3777,10 @@ FLASH_BWD_CASES = (
     ("qwen2-moe-a2.7b layer 0", 4, 4096, 16, 16, 128, 0, BF16, True, WGMMA),
     ("gemma3-27b local layer", 2, 4096, 32, 16, 128, 1024, BF16, True,
      WGMMA),
-    # the train_4k cells' other layer 0s: MLA at D 192 (V padded to the
-    # query width) on the CUDA cores, and Command R+'s GQA 12
-    ("deepseek-v3-671b layer 0", 1, 4096, 128, 128, 192, 0, BF16, True,
-     CORES),
+    # the train_4k cells' other layer 0s: MLA at (192, 128) on the
+    # Hopper design, and Command R+'s GQA 12
+    ("deepseek-v3-671b layer 0", 1, 4096, 128, 128, MLA, 0, BF16, True,
+     WGMMA),
     ("command-r-plus-104b layer 0", 1, 4096, 96, 8, 128, 0, BF16, True,
      WGMMA),
     ("f32", 2, 1000, 8, 2, 64, 0, F32, True, CORES),
@@ -3755,21 +3790,33 @@ FLASH_BWD_CASES = (
     ("no causal mask, window", 1, 257, 4, 2, 64, 70, BF16, False, WGMMA),
     ("MLA's D 192, window, no causal mask", 1, 257, 4, 4, 192, 70, F32,
      False, CORES),
+    # MLA's (192, 128) at the Hopper design's tile edges
+    ("MLA, odd S, GQA 4, window", 1, 333, 8, 2, MLA, 70, BF16, True, WGMMA),
+    ("MLA, no causal mask", 1, 257, 4, 4, MLA, 0, BF16, False, WGMMA),
+    ("MLA, one token", 2, 1, 2, 1, MLA, 0, BF16, True, WGMMA),
     ("D 32, window inside a tile", 1, 130, 2, 2, 32, 17, BF16, True, CORES),
     ("one token", 2, 1, 2, 1, 64, 0, BF16, True, WGMMA),
 )
 # 9b's kernels: the CUDA-core design's and the Hopper design's
 FLASH_BWD_KERNELS = flash_attention.BWD_KERNELS[CORES]
 FLASH_BWD_WGMMA_KERNELS = flash_attention.BWD_KERNELS[WGMMA]
-# the backward's operations over the forward's: the gradient's own 5
-# products (2.5x), the least work given the log-sum-exp that B9 saves
-# (the Hopper design's bound); with the 2 products that recompute each
-# row's log-sum-exp (3.5x, the CUDA-core design's bound, which gets no
-# lse); and the 9 products either design runs (each row's scores and dP
-# taken in each of its three launches, 4.5x), logged beside
-FLASH_BWD_OWN_RATIO = 2.5
-FLASH_BWD_FLOP_RATIO = 3.5
-FLASH_BWD_RUN_RATIO = 4.5
+# the backward's products, as (products of width D, of width Dv), each
+# 2·width flops per visible (query, key) pair: the gradient's own 5 (S,
+# dK, dQ at D; dP, dV at Dv; 2.5x the forward's at Dv = D), the least
+# work given the log-sum-exp that B9 saves (the Hopper design's bound);
+# with the 2 that recompute each row's log-sum-exp (S and dP again:
+# 3.5x, the CUDA-core design's bound, which gets no lse); and the 9
+# either design runs (each row's S and dP in each of its three launches:
+# 4.5x), logged beside
+FLASH_BWD_OWN = (3, 2)
+FLASH_BWD_CORES = (4, 3)
+FLASH_BWD_RUN = (5, 4)
+
+
+def bwd_flops(products, d, dv, pairs) -> float:
+    """The flops of ``products`` (one of the three above) over ``pairs``
+    visible (query, key) pairs at Q/K width ``d`` and V width ``dv``."""
+    return 2.0 * (products[0] * d + products[1] * dv) * pairs
 # B9's saved log-sum-exp against the plain one: ex2.approx and another
 # summation order, a few f32 ulps of values below ~20
 FLASH_LSE_ATOL = 1e-4
@@ -3870,9 +3917,10 @@ def check_flash_bwd(dev) -> dict:
     designs = set()
     for what, b, s, h, kv, d, win, dt, causal, design in FLASH_BWD_CASES:
         pad = int("unaligned" in what)
-        q, k, v, do = (torch.randn((b, s, n, d + pad), generator=gen,
+        d, dv = widths(d)
+        q, k, v, do = (torch.randn((b, s, n, w + pad), generator=gen,
                                    device=dev).to(dt)[..., pad:]
-                       for n in (h, kv, kv, h))
+                       for n, w in ((h, d), (kv, d), (kv, dv), (h, dv)))
         saved, lse_note = {}, ""
         if design == WGMMA:
             _, lse, lse_err = check_saved_lse(q, k, v, causal, win, what)
@@ -3927,20 +3975,23 @@ def check_flash_bwd(dev) -> dict:
         io = sum(x.numel() * x.element_size() for x in (q, k, v, do)) * 2 \
             - do.numel() * do.element_size() + sum(
                 x.numel() * x.element_size() for x in saved.values())
-        pairs = 4.0 * d * b * h * visible_pairs(s, causal, win)
-        ratio = FLASH_BWD_OWN_RATIO if design == WGMMA \
-            else FLASH_BWD_FLOP_RATIO
-        flops = ratio * pairs
+        pairs = b * h * visible_pairs(s, causal, win)
+        work = FLASH_BWD_OWN if design == WGMMA else FLASH_BWD_CORES
+        flops = bwd_flops(work, d, dv, pairs)
+        run_flops = bwd_flops(FLASH_BWD_RUN, d, dv, pairs)
+        # the work over the forward's 2·(D + Dv) flops a pair
+        ratio = flops / (2.0 * (d + dv) * pairs)
         recs[what] = dict(
             t, max_abs_err=max(e["err"] for e in errs), device_ms=prof,
             burst_ms=burst_ms, host_ms=host_ms,
             shape=f"B={b} S={s} H={h} KV={kv} D={d} "
+                  + (f"Dv={dv} " if dv != d else "") +
                   f"{str(dt).split('.')[-1]} "
                   + ("causal" if causal else "no causal mask")
                   + (f" window {win}" if win else "")
                   + (" unaligned rows" if pad else ""),
             bound=bound(io, flops, PEAK_BF16),
-            bound_run=bound(io, FLASH_BWD_RUN_RATIO * pairs, PEAK_BF16))
+            bound_run=bound(io, run_flops, PEAK_BF16))
         r = recs[what]
         log(f"  9b {what} ({r['shape']}): kernel vs plain "
             + ", ".join(f"{n} max |err| {e['err']} (of {e['top']:.4g}), rms "
@@ -3948,13 +3999,15 @@ def check_flash_bwd(dev) -> dict:
                         for n, e in zip(("dq", "dk", "dv"), errs))
             + f"{lse_note}; plain vs f32 max |err| {own}; bitwise from run "
             f"to run; {r['ms']:.4f} ms ({flops / r['ms'] / 1e9:.1f} TFLOP/s "
-            f"of the {ratio}x work), profiler {prof:.4f} ms a call ({n_rec} "
-            f"of {3 * reps} kernel records, {every:.4f} ms in all kernels), "
+            f"of the {ratio:.3f}x work), profiler {prof:.4f} ms a call "
+            f"({n_rec} of {3 * reps} kernel records, {every:.4f} ms in all "
+            "kernels), "
             f"{burst_ms:.4f} ms a call of 10, host {host_ms:.4f} ms a call; "
             f"plain {r['plain_ms']:.4f} ms, SDPA backward "
             f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
-            f"({r['bound'][1]}, {ratio}x the forward's operations; the "
-            f"{FLASH_BWD_RUN_RATIO}x it runs {r['bound_run'][0]:.4f} ms); "
+            f"({r['bound'][1]}, {ratio:.3f}x the forward's operations; the "
+            f"{run_flops / flops * ratio:.3f}x it runs "
+            f"{r['bound_run'][0]:.4f} ms); "
             f"{plan.design}, items {plan.item}, tiles {plan.step}, shared "
             f"bytes {plan.smem_bytes}")
         designs.add(design)
@@ -4635,8 +4688,9 @@ def long_attention_check(first, what, card, timed) -> dict:
                 del diff, size, exp
     atol = max(FLASH_ATOL[q.dtype], 2.0 ** (np.floor(np.log2(top)) - 7))
     rms_ratio = (sq_err / n) ** 0.5 / (sq_out / n) ** 0.5
-    shape = (f"B={b} S={s} H={h} KV={k.shape[2]} D={d} bf16 causal"
-             + (f" window {win}" if win else ""))
+    shape = (f"B={b} S={s} H={h} KV={k.shape[2]} D={d}"
+             + (f" Dv={v.shape[3]}" if v.shape[3] != d else "")
+             + " bf16 causal" + (f" window {win}" if win else ""))
     assert errs <= atol, (what, "B9 at S = 32,768", errs, atol)
     assert rms_ratio <= FLASH_RMS_RATIO and row_ratio <= FLASH_ROW_RATIO, \
         (what, "B9 at S = 32,768 relative error", rms_ratio, row_ratio)
@@ -4651,7 +4705,7 @@ def long_attention_check(first, what, card, timed) -> dict:
         lib_ms = time_ms(lambda: lib(qt, kt, vt, is_causal=True))
         del qt, kt, vt
         io_bytes = sum(a.numel() * a.element_size() for a in (q, k, v, got))
-        flops = attention_flops(b, s, h, d, window=win)
+        flops = attention_flops(b, s, h, d, v.shape[3], win)
         bound_ms, bound_by = bound(io_bytes, flops, PEAK_BF16)
         rec.update(ms=ms, library_ms=lib_ms, bound=(bound_ms, bound_by),
                    plan=str(flash_attention.plan_flash(q, k, v, win)))
@@ -4807,7 +4861,8 @@ def main() -> int:
             for name, found in spills.items():
                 if name in entry and "spill" in line:
                     found.append(line.strip())
-    # every instantiation of B3's tile kernel, of B9's Hopper design, of
+    # every instantiation of B3's tile kernel, of B9's Hopper design (D 64,
+    # 128 and MLA's (192, 128)), of
     # B6/B7's ring (f32 and int8, selection and sort), of B1 and B2
     # (int32 or int64 rows and ids), of B4 (lists in registers or in
     # shared memory; int32 or int64 neighbours) and of B5's fp32 design
@@ -4821,9 +4876,10 @@ def main() -> int:
     assert len(spills["blend_group_kernel"]) == 2
     assert len(spills["blend_plan_kernel"]) == 2
     # 9b's three kernels: on the CUDA cores at f32 and bf16, D padded to
-    # 32, 64, 128, 256; the Hopper design's at D 64 and 128
+    # 32, 64, 128, 256; the Hopper design's at D 64, 128 and (192, 128)
     assert all(len(spills[n]) == 8 for n in FLASH_BWD_KERNELS), spills
-    assert all(len(spills[n]) == 2 for n in FLASH_BWD_WGMMA_KERNELS), spills
+    assert all(len(spills[n]) == len(flash_attention.WGMMA_DV)
+               for n in FLASH_BWD_WGMMA_KERNELS), spills
     assert all("0 bytes spill stores, 0 bytes spill loads" in x
                for found in spills.values() for x in found), spills
 

@@ -47,4 +47,5 @@ ARCH = ArchDef(
     notes=(
         "MLA latent KV cache (decode on the absorbed path); MTP head; "
         "Adafactor, as the JAX arch (Adam's m and v would not fit); 1 dense "
-        "+ 1 MoE layer on one card, B9 and 9b at D 192 on the CUDA cores."))
+        "+ 1 MoE layer on one card, B9 and 9b at Q/K 192 and V 128 on "
+        "the Hopper designs."))

@@ -56,20 +56,20 @@ SIGNATURES: Dict[str, List] = {
                           _I, _F, _F, _I, _I, _I, _P, _I, _I, _P, _P, _P,
                           _P, _P],
     "decayed_scatter_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I,
                                _I, _I, _I, _P],
-    "flash_wgmma_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,
-                           _L, _L, _L, _L, _L, _L, _F, _I, _I, _P, _I, _I,
-                           _I, _P],
+    "flash_wgmma_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L,
+                           _L, _L, _L, _L, _L, _L, _L, _F, _I, _I, _P, _I,
+                           _I, _I, _P],
     "flash_attention_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                   _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
-                                   _L, _L, _L, _L, _L, _L, _F, _I, _I, _I,
-                                   _I, _I, _I, _P],
+                                   _I, _I, _I, _I, _I, _L, _L, _L, _L, _L,
+                                   _L, _L, _L, _L, _L, _L, _L, _F, _I, _I,
+                                   _I, _I, _I, _I, _P],
     "flash_bwd_wgmma_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L,
-                               _L, _L, _L, _L, _I, _F, _I, _I, _I, _I, _I,
-                               _P],
+                               _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L,
+                               _L, _L, _L, _L, _L, _I, _F, _I, _I, _I, _I,
+                               _I, _P],
 }
 
 # launches per kernel wrapper since the last reset_launch_counts()

@@ -14,9 +14,10 @@
 //
 // Two of the three designs of flash_attention.plan_flash; the wrapper
 // passes the planned one and this entry refuses inputs it does not take.
-// bf16 with D in {64, 128} (aligned) runs the Hopper design of
-// flash_attention_wgmma.cu; bf16 with D = 32 and 16-byte aligned rows the
-// tensor-core design here; everything else the CUDA-core design.
+// bf16 with (D, Dv) in {(64, 64), (128, 128), (192, 128)} (aligned) runs
+// the Hopper design of flash_attention_wgmma.cu; bf16 with D = 32 and
+// 16-byte aligned rows the tensor-core design here; everything else with
+// V as wide as Q the CUDA-core design.
 //
 // CUDA-core design (flash_kernel): one block of 256 threads per
 // (batch*head, 64-query tile), staging Q, K and V in shared memory as
@@ -466,16 +467,17 @@ bool mma_ok(const void* q, const void* k, const void* v, int D, int bf16,
 
 // strides: q (batch, seq, head), k (...), v (...), in elements; the last
 // dim of each is contiguous and o is a contiguous [B, S, H, D].  design
-// 0 is the CUDA-core kernel (any input), 1 the mma.sync kernel; an input
-// the design does not take returns cudaErrorInvalidValue, nothing
-// launched.
+// 0 is the CUDA-core kernel (any input), 1 the mma.sync kernel; both take
+// V as wide as Q (Dv == D) only.  An input the design does not take
+// returns cudaErrorInvalidValue, nothing launched.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int S,
-    int H, int KV, int D, long long qsb, long long qss, long long qsh,
-    long long ksb, long long kss, long long ksh, long long vsb,
-    long long vss, long long vsh, float scale, int causal, int window,
-    int bf16, int design, void* stream) {
+    int H, int KV, int D, int Dv, long long qsb, long long qss,
+    long long qsh, long long ksb, long long kss, long long ksh,
+    long long vsb, long long vss, long long vsh, float scale, int causal,
+    int window, int bf16, int design, void* stream) {
   if (B <= 0 || S <= 0) return 0;
+  if (Dv != D) return (int)cudaErrorInvalidValue;
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = (cudaStream_t)stream;
   if (design == 1) {

@@ -516,18 +516,18 @@ int launch_dtype(const void* q, const void* k, const void* v,
 // contiguous outputs in the inputs' dtype; lse and delta are f32 scratch of
 // B*H*S each.  smem: the shared bytes of the stats, dK/dV and dQ kernels,
 // which must be flash_attention.plan_flash_bwd's.  An input the kernels do
-// not take, or other bytes, returns cudaErrorInvalidValue with nothing
-// launched.
+// not take (V's width Dv other than D among them), or other bytes,
+// returns cudaErrorInvalidValue with nothing launched.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* dout, void* dq,
     void* dk, void* dv, float* lse, float* delta, int B, int S, int H,
-    int KV, int D, long long qsb, long long qss, long long qsh,
+    int KV, int D, int Dv, long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, long long osb, long long oss,
     long long osh, float scale, int causal, int window, int bf16,
     int smem_stats, int smem_dkdv, int smem_dq, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (D < 1 || D > 256 || KV < 1 || H % KV != 0 || window < 0)
+  if (D < 1 || D > 256 || Dv != D || KV < 1 || H % KV != 0 || window < 0)
     return (int)cudaErrorInvalidValue;
   const Strides st{qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
                    osb, oss, osh};

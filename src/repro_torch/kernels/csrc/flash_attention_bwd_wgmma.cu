@@ -6,10 +6,13 @@
 // package takes by autodiff of repro/models/transformer.py ::
 // _attend_block; flash_attention_bwd.cu says why the port keeps a kernel)
 // for what B9's Hopper forward (flash_attention_wgmma.cu) takes: bf16
-// with D in {64, 128}, strides positive multiples of 8 elements, 16-byte
-// aligned bases.  It reads the log-sum-exp lse that the forward saved for
-// each query row, so no launch keeps an online max or a running sum.
-// With s = q.k * scale (f32, scale = 1/sqrt(D)) and the forward's mask:
+// with (D, Dv) in {(64, 64), (128, 128), (192, 128)} (Q/K width D, V
+// width Dv: MLA's is 192 and 128), strides positive multiples of 8
+// elements, 16-byte aligned bases.  It reads the log-sum-exp lse that the
+// forward saved for each query row, so no launch keeps an online max or a
+// running sum.  dP = dO V^T and dV = P^T dO run at width Dv; S = Q K^T,
+// dK = dS^T Q and dQ = dS K at D.  With s = q.k * scale (f32, scale =
+// 1/sqrt(D)) and the forward's mask:
 //   P = exp(s - lse)                (0 where masked)
 //   dP = dO . V^T,  Delta = sum_j P_j dP_j  (per query row, f32)
 //   dS = P o (dP - Delta)           (0 in a row that sees one key)
@@ -25,7 +28,8 @@
 //   1. bwd_wgmma_stats_kernel, one work item per (batch, head, query tile
 //      of 128 rows) on a persistent grid, the last query tile first: Q and
 //      dO loaded once (two buffers, so the next item's load runs under
-//      this one), 64-key K and V tiles through a 2-stage ring; S = Q K^T
+//      this one; one at D = 192, where two do not fit beside the rings),
+//      64-key K and V tiles through a 2-stage ring; S = Q K^T
 //      and dP = dO V^T (wgmma, both operands K-major in shared memory),
 //      P, and each row's Delta summed in key order, written with lse *
 //      log2(e) (the exponent's units) to an f32 scratch [B*H, 2, pitch].
@@ -40,8 +44,10 @@
 //      accumulator fragments (the mask only on tiles it cuts, in a loop of
 //      its own), then dV += P^T dO and dK += dS^T Q (A from registers, B
 //      MN-major, as the forward's P V).  dK and dV stay in registers and
-//      are written once; at D = 128 a stage is taken in two passes of 32
-//      queries, so that the scores leave them the registers.
+//      are written once; past D = 64 a stage is taken in passes of
+//      fewer queries, so that the scores leave them the registers: two of
+//      32 at D = 128, four of 16 at D = 192 (dK's 96 and dV's 64
+//      accumulators a lane; 32 spilled a register there).
 //   3. bwd_wgmma_dq_kernel, launch 1's pass again with dS and dQ += dS K
 //      in place of the sums; dQ written once, times the scale.
 // 9 products in all: the gradient's own 5, and S and dP taken once more
@@ -57,9 +63,10 @@
 // and dK issued a step later with or without the forward's turns
 // between warpgroups, did not.
 //
-// Bound: operations.  5 products of 2*D flops per unmasked (query, key)
-// pair given the saved lse (2.5x the forward's; 9 run here, 4.5x), at
-// the bf16 tensor-core peak (989 TFLOP/s).
+// Bound: operations.  5 products per unmasked (query, key) pair given
+// the saved lse, 2 * (3 D + 2 Dv) flops (2.5x the forward's at Dv = D;
+// the 9 run here 2 * (5 D + 4 Dv)), at the bf16 tensor-core peak (989
+// TFLOP/s).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,34 +99,44 @@ constexpr int REGS_PRODUCER = 40, REGS_CONSUMER = 232;
 // K and V tiles of the item, the Q ring, the dO ring, the lse/Delta
 // slices of each stage, then the mbarriers (full and empty K/V; full and
 // empty per stage); the C entry and flash_attention.wgmma_bwd_smem_bytes
-// agree
-template <int D>
+// agree.  Q and K rows are DQK wide, V and dO rows DV.
+template <int DQK, int DV>
 struct DkdvLayout {
-  static constexpr int kItem = (D / 64) * IBOX;     // 128 rows x D
-  static constexpr int kStep = (D / 64) * SBOX;     // 64 rows x D
+  static constexpr int kItemK = (DQK / 64) * IBOX;  // 128 rows x DQK
+  static constexpr int kItemV = (DV / 64) * IBOX;   // 128 rows x DV
+  static constexpr int kStepQ = (DQK / 64) * SBOX;  // 64 rows x DQK
+  static constexpr int kStepO = (DV / 64) * SBOX;   // 64 rows x DV
   static constexpr int kK = 0;
-  static constexpr int kV = kItem;
-  static constexpr int kQ = 2 * kItem;
-  static constexpr int kO = kQ + STAGES * kStep;
-  static constexpr int kStat = kO + STAGES * kStep;
+  static constexpr int kV = kItemK;
+  static constexpr int kQ = kV + kItemV;
+  static constexpr int kO = kQ + STAGES * kStepQ;
+  static constexpr int kStat = kO + STAGES * kStepO;
   static constexpr int kBar = kStat + STAGES * STAT;
   static constexpr int kBytes = 1024 + kBar + 8 * (2 + 2 * STAGES);
 };
 
-// shared memory of the dQ kernel: two Q and two dO tiles of 128 rows (an
-// item's and the next one's), the K ring, the V ring, then the mbarriers
-// (full and empty per Q/dO buffer; full K, empty K, full V, empty V per
-// stage)
-template <int D>
+// Q/dO buffers of the query passes: two (an item's and the next one's),
+// but one at DQK = 192, where two (2 x 80 KB) and the rings would pass a
+// block's 227 KB
+template <int DQK>
+constexpr int NQ_OF = DQK == 192 ? 1 : 2;
+
+// shared memory of the statistics and dQ kernels: NQ Q tiles and NQ dO
+// tiles of 128 rows, the K ring, the V ring, then the mbarriers (full and
+// empty per Q/dO buffer; full K, empty K, full V, empty V per stage)
+template <int DQK, int DV>
 struct DqLayout {
-  static constexpr int kItem = (D / 64) * IBOX;
-  static constexpr int kStep = (D / 64) * SBOX;
+  static constexpr int NQ = NQ_OF<DQK>;
+  static constexpr int kItemQ = (DQK / 64) * IBOX;  // 128 rows x DQK
+  static constexpr int kItemO = (DV / 64) * IBOX;   // 128 rows x DV
+  static constexpr int kStepK = (DQK / 64) * SBOX;  // 64 rows x DQK
+  static constexpr int kStepV = (DV / 64) * SBOX;   // 64 rows x DV
   static constexpr int kQ = 0;
-  static constexpr int kO = 2 * kItem;
-  static constexpr int kK = 4 * kItem;
-  static constexpr int kV = kK + STAGES * kStep;
-  static constexpr int kBar = kV + STAGES * kStep;
-  static constexpr int kBytes = 1024 + kBar + 8 * (4 + 4 * STAGES);
+  static constexpr int kO = NQ * kItemQ;
+  static constexpr int kK = kO + NQ * kItemO;
+  static constexpr int kV = kK + STAGES * kStepK;
+  static constexpr int kBar = kV + STAGES * kStepV;
+  static constexpr int kBytes = 1024 + kBar + 8 * (2 * NQ + 4 * STAGES);
 };
 
 // mbar_wait, but a wait that outlasts any real one by far (2^33 clocks,
@@ -291,7 +308,7 @@ __device__ __forceinline__ QueryItem query_item(int w, int BH, int H, int KV,
   return it;
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS, 1) bwd_wgmma_dkdv_kernel(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap kmap,
@@ -300,7 +317,7 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_wgmma_dkdv_kernel(
     const __grid_constant__ CUtensorMap smap, __nv_bfloat16* __restrict__ dk,
     __nv_bfloat16* __restrict__ dv, int S, int H, int KV, int BKV,
     int n_items, float c, float scale, int causal, int window) {
-  using L = DkdvLayout<D>;
+  using L = DkdvLayout<DQK, DV>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -309,8 +326,8 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_wgmma_dkdv_kernel(
   const uint32_t kv_full = bar0, kv_empty = bar0 + 8;
   auto full = [&](int st) { return bar0 + 16u + 8u * st; };
   auto empty = [&](int st) { return bar0 + 16u + 8u * (STAGES + st); };
-  auto q_smem = [&](int st) { return base + L::kQ + st * L::kStep; };
-  auto o_smem = [&](int st) { return base + L::kO + st * L::kStep; };
+  auto q_smem = [&](int st) { return base + L::kQ + st * L::kStepQ; };
+  auto o_smem = [&](int st) { return base + L::kO + st * L::kStepO; };
   auto stat = [&](int st) { return L::kStat + st * STAT; };
   const int wg = threadIdx.x / 128, group = H / KV;
 
@@ -336,25 +353,25 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_wgmma_dkdv_kernel(
         if (w >= n_items) break;
         const KeyItem it = key_item(w, BKV, KV, S, causal, window);
         wait_or_trap(kv_empty, (r & 1) ^ 1);
-        mbar_expect_tx(kv_full, 2 * L::kItem);
-        for (int d = 0; d < D / 64; ++d) {
+        mbar_expect_tx(kv_full, L::kItemK + L::kItemV);
+        for (int d = 0; d < DQK / 64; ++d)
           tma_load(base + L::kK + d * IBOX, &kmap, kv_full, 64 * d, it.k0,
                    it.kvh, it.b);
+        for (int d = 0; d < DV / 64; ++d)
           tma_load(base + L::kV + d * IBOX, &vmap, kv_full, 64 * d, it.k0,
                    it.kvh, it.b);
-        }
         for (int g = 0; g < group; ++g) {
           const int h = it.kvh * group + g;
           for (int qt = it.qlo; qt <= it.qhi; ++qt) {
             const int q0 = qt * BS;
             wait_or_trap(empty(st), ph ^ 1);
-            mbar_expect_tx(full(st), 2 * L::kStep + STAT);
-            for (int d = 0; d < D / 64; ++d) {
+            mbar_expect_tx(full(st), L::kStepQ + L::kStepO + STAT);
+            for (int d = 0; d < DQK / 64; ++d)
               tma_load(q_smem(st) + d * SBOX, &qmap, full(st), 64 * d, q0, h,
                        it.b);
+            for (int d = 0; d < DV / 64; ++d)
               tma_load(o_smem(st) + d * SBOX, &omap, full(st), 64 * d, q0, h,
                        it.b);
-            }
             tma_load_2d(base + stat(st), &smap, full(st), q0,
                         2 * (it.b * H + h));
             advance<STAGES>(st, ph);
@@ -373,10 +390,11 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_wgmma_dkdv_kernel(
       if (lane == 0) mbar_arrive(b_);
     };
     // QH queries a pass: the stage's 64 at D = 64, at D = 128 two passes
-    // of 32, whose scores, dP^T and packed P^T and dS^T leave the
-    // registers that dK and dV take
-    constexpr int QH = D == 64 ? 64 : 32;
-    float acc_k[D / 2], acc_v[D / 2], s[QH / 2], dp[QH / 2];
+    // of 32, at D = 192 four of 16, whose scores, dP^T and packed P^T and
+    // dS^T leave the registers that dK and dV take (passes of 32 spilled
+    // a register at D = 192)
+    constexpr int QH = DQK == 64 ? 64 : DQK == 192 ? 16 : 32;
+    float acc_k[DQK / 2], acc_v[DV / 2], s[QH / 2], dp[QH / 2];
     uint32_t pa[QH / 4], pb[QH / 4];
     int st = 0, ph = 0;
     for (int r = 0;; ++r) {
@@ -388,7 +406,9 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_wgmma_dkdv_kernel(
       const uint32_t k_a = base + L::kK + wg * 64 * 128;
       const uint32_t v_a = base + L::kV + wg * 64 * 128;
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+      for (int i = 0; i < DQK / 2; ++i) acc_k[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < DV / 2; ++i) acc_v[i] = 0.f;
       wait_or_trap(kv_full, r & 1);
       for (int g = 0; g < group; ++g) {
         for (int qt = it.qlo; qt <= it.qhi; ++qt) {
@@ -405,8 +425,8 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_wgmma_dkdv_kernel(
             const float* ls = reinterpret_cast<const float*>(
                                   gbase + stat(st)) + hq * QH + 2 * t;
             const float* dl = ls + BS;
-            issue_scores<D, QH>(s, k_a, IBOX, q_h);        // S^T = K Q^T
-            issue_scores<D, QH>(dp, v_a, IBOX, o_h);       // dP^T = V dO^T
+            issue_scores<DQK, QH>(s, k_a, IBOX, q_h);      // S^T = K Q^T
+            issue_scores<DV, QH>(dp, v_a, IBOX, o_h);      // dP^T = V dO^T
             wgmma_wait<1>();
             fence_regs(s);
             // element e of the fragment: key row ka (+8 when e & 2),
@@ -443,8 +463,8 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_wgmma_dkdv_kernel(
 #pragma unroll
             for (int i = 0; i < QH / 4; ++i)
               pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
-            issue_acc<D, QH>(acc_v, pa, o_h);              // dV += P^T dO
-            issue_acc<D, QH>(acc_k, pb, q_h);              // dK += dS^T Q
+            issue_acc<DV, QH>(acc_v, pa, o_h);             // dV += P^T dO
+            issue_acc<DQK, QH>(acc_k, pb, q_h);            // dK += dS^T Q
             wgmma_wait<0>();
             fence_regs(acc_v);
             fence_regs(acc_k);
@@ -457,18 +477,22 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_wgmma_dkdv_kernel(
       }
       release(kv_empty);
       // epilogue: rows ka and ka + 8 below S, dK times the scale
+      const long long rows = (long long)it.b * S * KV + it.kvh;
 #pragma unroll
-      for (int i = 0; i < D / 2; i += 2) {
+      for (int i = 0; i < DQK / 2; i += 2) {
         const int row = ((i >> 1) & 1) ? ka + 8 : ka;
-        if (row < S) {
-          const long long off =
-              (((long long)it.b * S + row) * KV + it.kvh) * D + (i >> 2) * 8 +
-              2 * t;
-          *reinterpret_cast<__nv_bfloat162*>(dk + off) =
+        if (row < S)
+          *reinterpret_cast<__nv_bfloat162*>(
+              dk + (rows + (long long)row * KV) * DQK + (i >> 2) * 8 + 2 * t) =
               __floats2bfloat162_rn(acc_k[i] * scale, acc_k[i + 1] * scale);
-          *reinterpret_cast<__nv_bfloat162*>(dv + off) =
+      }
+#pragma unroll
+      for (int i = 0; i < DV / 2; i += 2) {
+        const int row = ((i >> 1) & 1) ? ka + 8 : ka;
+        if (row < S)
+          *reinterpret_cast<__nv_bfloat162*>(
+              dv + (rows + (long long)row * KV) * DV + (i >> 2) * 8 + 2 * t) =
               __floats2bfloat162_rn(acc_v[i], acc_v[i + 1]);
-        }
       }
     }
   }
@@ -480,29 +504,32 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_wgmma_dkdv_kernel(
 // f32 in key order and written, with lse * log2(e), to stats[b * H + h]
 // (rows S .. pitch - 1 get 0).  Otherwise (the last launch): dS = P o (dP
 // - Delta) from those statistics, and dQ += dS K, written once.
-template <int D, bool STATS>
+template <int DQK, int DV, bool STATS>
 __device__ __forceinline__ void query_pass(
     const CUtensorMap* qmap, const CUtensorMap* kmap,
     const CUtensorMap* vmap, const CUtensorMap* omap,
     const float* __restrict__ lse, float* __restrict__ stats, int pitch,
     __nv_bfloat16* __restrict__ dq, int S, int H, int KV, int BH,
     int n_items, float c, float scale, int causal, int window) {
-  using L = DqLayout<D>;
+  using L = DqLayout<DQK, DV>;
+  constexpr int NQ = L::NQ;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar0 = base + L::kBar;
   // full / empty Q and dO of buffer x; full K, empty K, full V, empty V
   // of stage st
-  auto bar_q = [&](int empty, int x) { return bar0 + 8u * (2 * empty + x); };
-  auto bar = [&](int kind, int st) {
-    return bar0 + 8u * (4 + kind * STAGES + st);
+  auto bar_q = [&](int empty, int x) {
+    return bar0 + 8u * (NQ * empty + x);
   };
-  auto k_smem = [&](int st) { return base + L::kK + st * L::kStep; };
-  auto v_smem = [&](int st) { return base + L::kV + st * L::kStep; };
+  auto bar = [&](int kind, int st) {
+    return bar0 + 8u * (2 * NQ + kind * STAGES + st);
+  };
+  auto k_smem = [&](int st) { return base + L::kK + st * L::kStepK; };
+  auto v_smem = [&](int st) { return base + L::kV + st * L::kStepV; };
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
-    for (int x = 0; x < 2; ++x) {
+    for (int x = 0; x < NQ; ++x) {
       mbar_init(bar_q(0, x), 1);
       mbar_init(bar_q(1, x), 4 * NWG);
     }
@@ -526,25 +553,25 @@ __device__ __forceinline__ void query_pass(
         const int w = item_index(r, blockIdx.x, gridDim.x);
         if (w >= n_items) break;
         const QueryItem it = query_item(w, BH, H, KV, S, causal, window);
-        const int x = r & 1;
-        wait_or_trap(bar_q(1, x), ((r >> 1) & 1) ^ 1);
-        mbar_expect_tx(bar_q(0, x), 2 * L::kItem);
-        for (int d = 0; d < D / 64; ++d) {
-          tma_load(base + L::kQ + x * L::kItem + d * IBOX, qmap,
+        const int x = r % NQ;             // buffer x's (r / NQ)-th use
+        wait_or_trap(bar_q(1, x), ((r / NQ) & 1) ^ 1);
+        mbar_expect_tx(bar_q(0, x), L::kItemQ + L::kItemO);
+        for (int d = 0; d < DQK / 64; ++d)
+          tma_load(base + L::kQ + x * L::kItemQ + d * IBOX, qmap,
                    bar_q(0, x), 64 * d, it.q0, it.h, it.b);
-          tma_load(base + L::kO + x * L::kItem + d * IBOX, omap,
+        for (int d = 0; d < DV / 64; ++d)
+          tma_load(base + L::kO + x * L::kItemO + d * IBOX, omap,
                    bar_q(0, x), 64 * d, it.q0, it.h, it.b);
-        }
         for (int j = it.klo; j <= it.khi; ++j) {
           const int k0 = j * BS;
           wait_or_trap(bar(1, st), ph ^ 1);
-          mbar_expect_tx(bar(0, st), L::kStep);
-          for (int d = 0; d < D / 64; ++d)
+          mbar_expect_tx(bar(0, st), L::kStepK);
+          for (int d = 0; d < DQK / 64; ++d)
             tma_load(k_smem(st) + d * SBOX, kmap, bar(0, st), 64 * d, k0,
                      it.kvh, it.b);
           wait_or_trap(bar(3, st), ph ^ 1);
-          mbar_expect_tx(bar(2, st), L::kStep);
-          for (int d = 0; d < D / 64; ++d)
+          mbar_expect_tx(bar(2, st), L::kStepV);
+          for (int d = 0; d < DV / 64; ++d)
             tma_load(v_smem(st) + d * SBOX, vmap, bar(2, st), 64 * d, k0,
                      it.kvh, it.b);
           advance<STAGES>(st, ph);
@@ -561,14 +588,14 @@ __device__ __forceinline__ void query_pass(
       __syncwarp();
       if (lane == 0) mbar_arrive(b_);
     };
-    float acc[D / 2], s[32], dp[32];
+    float acc[DQK / 2], s[32], dp[32];
     uint32_t pb[16];
     int st = 0, ph = 0;
     for (int r = 0;; ++r) {
       const int w = item_index(r, blockIdx.x, gridDim.x);
       if (w >= n_items) break;
       const QueryItem it = query_item(w, BH, H, KV, S, causal, window);
-      const int x = r & 1;
+      const int x = r % NQ;
       const int wq0 = it.q0 + 64 * wg;               // the warpgroup's rows
       const int qa = wq0 + warp * 16 + (lane >> 2);  // rows qa and qa + 8
       const long long bh = (long long)it.b * H + it.h;
@@ -587,20 +614,20 @@ __device__ __forceinline__ void query_pass(
       }
       if constexpr (!STATS) {
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+        for (int i = 0; i < DQK / 2; ++i) acc[i] = 0.f;
       }
-      const uint32_t q_a = base + L::kQ + x * L::kItem + wg * 64 * 128;
-      const uint32_t o_a = base + L::kO + x * L::kItem + wg * 64 * 128;
-      wait_or_trap(bar_q(0, x), (r >> 1) & 1);
+      const uint32_t q_a = base + L::kQ + x * L::kItemQ + wg * 64 * 128;
+      const uint32_t o_a = base + L::kO + x * L::kItemO + wg * 64 * 128;
+      wait_or_trap(bar_q(0, x), (r / NQ) & 1);
       for (int j = it.klo; j <= it.khi; ++j) {
         const int k0 = j * BS;
         const bool hidden =
             none_visible(wq0, wq0 + 63, k0, k0 + 63, S, causal, window);
         wait_or_trap(bar(0, st), ph);
-        if (!hidden) issue_scores<D, BS>(s, q_a, IBOX, k_smem(st));  // Q K^T
+        if (!hidden) issue_scores<DQK, BS>(s, q_a, IBOX, k_smem(st));  // QK^T
         wait_or_trap(bar(2, st), ph);
         if (!hidden) {
-          issue_scores<D, BS>(dp, o_a, IBOX, v_smem(st));         // dO V^T
+          issue_scores<DV, BS>(dp, o_a, IBOX, v_smem(st));        // dO V^T
           wgmma_wait<1>();
           fence_regs(s);
           // element e: query row qa (+8 when e & 2), key column
@@ -636,7 +663,7 @@ __device__ __forceinline__ void query_pass(
             for (int i = 0; i < 16; ++i)
               pb[i] = pack_bf16(s[2 * i] * (dp[2 * i] - dl[i & 1]),
                                 s[2 * i + 1] * (dp[2 * i + 1] - dl[i & 1]));
-            issue_acc<D, BS>(acc, pb, k_smem(st));                // dS K
+            issue_acc<DQK, BS>(acc, pb, k_smem(st));              // dS K
             wgmma_wait<0>();
             fence_regs(acc);
             fence_regs(pb);
@@ -664,11 +691,11 @@ __device__ __forceinline__ void query_pass(
       }
       // epilogue: rows qa and qa + 8 below S, dQ times the scale
 #pragma unroll
-      for (int i = 0; i < D / 2; i += 2) {
+      for (int i = 0; i < DQK / 2; i += 2) {
         const int row = ((i >> 1) & 1) ? qa + 8 : qa;
         if (row < S) {
           __nv_bfloat16* out =
-              dq + (((long long)it.b * S + row) * H + it.h) * D;
+              dq + (((long long)it.b * S + row) * H + it.h) * DQK;
           *reinterpret_cast<__nv_bfloat162*>(out + (i >> 2) * 8 + 2 * t) =
               __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
         }
@@ -677,7 +704,7 @@ __device__ __forceinline__ void query_pass(
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS, 1) bwd_wgmma_stats_kernel(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap kmap,
@@ -686,12 +713,12 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_wgmma_stats_kernel(
     const float* __restrict__ lse, float* __restrict__ stats, int pitch,
     int S, int H, int KV, int BH, int n_items, float c, int causal,
     int window) {
-  query_pass<D, true>(&qmap, &kmap, &vmap, &omap, lse, stats, pitch,
+  query_pass<DQK, DV, true>(&qmap, &kmap, &vmap, &omap, lse, stats, pitch,
                       nullptr, S, H, KV, BH, n_items, c, 0.f, causal,
                       window);
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS, 1) bwd_wgmma_dq_kernel(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap kmap,
@@ -700,17 +727,17 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_wgmma_dq_kernel(
     float* __restrict__ stats, int pitch, __nv_bfloat16* __restrict__ dq,
     int S, int H, int KV, int BH, int n_items, float c, float scale,
     int causal, int window) {
-  query_pass<D, false>(&qmap, &kmap, &vmap, &omap, nullptr, stats, pitch,
+  query_pass<DQK, DV, false>(&qmap, &kmap, &vmap, &omap, nullptr, stats, pitch,
                        dq, S, H, KV, BH, n_items, c, scale, causal, window);
 }
 
-template <int D>
+template <int DQK, int DV>
 constexpr int dkdv_bytes() {
-  return DkdvLayout<D>::kBytes;
+  return DkdvLayout<DQK, DV>::kBytes;
 }
-template <int D>
+template <int DQK, int DV>
 constexpr int dq_bytes() {
-  return DqLayout<D>::kBytes;
+  return DqLayout<DQK, DV>::kBytes;
 }
 
 template <typename K>
@@ -740,7 +767,7 @@ bool make_stat_map(CUtensorMap* map, const float* stats, int pitch,
 // strides: q, k, v, dO as (batch, seq, head) in elements; stats: f32
 // scratch of B * H x 2 x pitch (each row's lse in log2 units, then its
 // Delta)
-template <int D>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, float* stats, void* dq, void* dk, void* dv,
            int B, int S, int H, int KV, const long long* st, int pitch,
@@ -751,22 +778,24 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   // the dK/dV kernel's maps: Q and dO in 64-row boxes, K and V in 128;
   // the query passes' the other way round
   CUtensorMap q64, o64, k128, v128, q128, o128, k64, v64, sm;
-  if (!make_map(&q64, q, D, S, H, B, st[1], st[2], st[0], BS) ||
-      !make_map(&o64, dout, D, S, H, B, st[10], st[11], st[9], BS) ||
-      !make_map(&k128, k, D, S, KV, B, st[4], st[5], st[3], BI) ||
-      !make_map(&v128, v, D, S, KV, B, st[7], st[8], st[6], BI) ||
-      !make_map(&q128, q, D, S, H, B, st[1], st[2], st[0], BI) ||
-      !make_map(&o128, dout, D, S, H, B, st[10], st[11], st[9], BI) ||
-      !make_map(&k64, k, D, S, KV, B, st[4], st[5], st[3], BS) ||
-      !make_map(&v64, v, D, S, KV, B, st[7], st[8], st[6], BS) ||
+  if (!make_map(&q64, q, DQK, S, H, B, st[1], st[2], st[0], BS) ||
+      !make_map(&o64, dout, DV, S, H, B, st[10], st[11], st[9], BS) ||
+      !make_map(&k128, k, DQK, S, KV, B, st[4], st[5], st[3], BI) ||
+      !make_map(&v128, v, DV, S, KV, B, st[7], st[8], st[6], BI) ||
+      !make_map(&q128, q, DQK, S, H, B, st[1], st[2], st[0], BI) ||
+      !make_map(&o128, dout, DV, S, H, B, st[10], st[11], st[9], BI) ||
+      !make_map(&k64, k, DQK, S, KV, B, st[4], st[5], st[3], BS) ||
+      !make_map(&v64, v, DV, S, KV, B, st[7], st[8], st[6], BS) ||
       !make_stat_map(&sm, stats, pitch, 2 * B * H))
     return (int)cudaErrorInvalidValue;
-  auto stk = bwd_wgmma_stats_kernel<D>;
-  auto dkdv = bwd_wgmma_dkdv_kernel<D>;
-  auto dqk = bwd_wgmma_dq_kernel<D>;
-  cudaError_t err = set_smem(stk, dq_bytes<D>());
-  if (err == cudaSuccess) err = set_smem(dkdv, dkdv_bytes<D>());
-  if (err == cudaSuccess) err = set_smem(dqk, dq_bytes<D>());
+  constexpr int dqb = dq_bytes<DQK, DV>(), dkdvb = dkdv_bytes<DQK, DV>();
+  static_assert(dqb <= 232448 && dkdvb <= 232448, "one block's shared memory");
+  auto stk = bwd_wgmma_stats_kernel<DQK, DV>;
+  auto dkdv = bwd_wgmma_dkdv_kernel<DQK, DV>;
+  auto dqk = bwd_wgmma_dq_kernel<DQK, DV>;
+  cudaError_t err = set_smem(stk, dqb);
+  if (err == cudaSuccess) err = set_smem(dkdv, dkdvb);
+  if (err == cudaSuccess) err = set_smem(dqk, dqb);
   if (err != cudaSuccess) return (int)err;
   // setmaxnreg moves registers within the block's own allocation: a
   // kernel compiled to fewer than its producer and consumers take would
@@ -782,17 +811,17 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const float c = scale * LOG2E;
   const int tiles = (S + BI - 1) / BI;
   const int q_items = B * H * tiles, k_items = B * KV * tiles;
-  stk<<<min(q_items, sms), THREADS, dq_bytes<D>(), stream>>>(
+  stk<<<min(q_items, sms), THREADS, dqb, stream>>>(
       q128, k64, v64, o128, lse, stats, pitch, S, H, KV, B * H, q_items, c,
       causal, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dkdv<<<min(k_items, sms), THREADS, dkdv_bytes<D>(), stream>>>(
+  dkdv<<<min(k_items, sms), THREADS, dkdvb, stream>>>(
       q64, k128, v128, o64, sm, (bf*)dk, (bf*)dv, S, H, KV, B * KV, k_items,
       c, scale, causal, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dqk<<<min(q_items, sms), THREADS, dq_bytes<D>(), stream>>>(
+  dqk<<<min(q_items, sms), THREADS, dqb, stream>>>(
       q128, k64, v64, o128, stats, pitch, (bf*)dq, S, H, KV, B * H, q_items,
       c, scale, causal, window);
   return (int)cudaGetLastError();
@@ -802,20 +831,22 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 // 9b's Hopper design (flash_attention.plan_flash_bwd "tma_wgmma").  q, k,
 // v as the forward took them and dout its output's gradient, all bf16
-// [B, S, heads, D] with strides (batch, seq, head) in elements and a
-// contiguous last dim; lse the forward's f32 log-sum-exp at
-// lse[(b * H + h) * lse_pitch + row]; stats f32 scratch of B * H x 2 x
-// lse_pitch; dq [B, S, H, D] and dk, dv [B, S, KV, D] contiguous bf16
-// outputs.  smem: the shared bytes of the statistics, dK/dV and dQ
-// kernels, which must be flash_attention.plan_flash_bwd's.  Returns
-// cudaErrorInvalidValue with nothing launched for what the design does
-// not take -- D not 64 or 128, a base not 16-byte aligned, a stride not a
-// positive multiple of 8 elements, a pitch below S or not a multiple of
-// 64 -- or for other bytes; otherwise cudaGetLastError().
+// [B, S, heads, width] (q and k D wide, v and dout Dv) with strides
+// (batch, seq, head) in elements and a contiguous last dim; lse the
+// forward's f32 log-sum-exp at lse[(b * H + h) * lse_pitch + row]; stats
+// f32 scratch of B * H x 2 x lse_pitch; dq [B, S, H, D], dk [B, S, KV, D]
+// and dv [B, S, KV, Dv] contiguous bf16 outputs.  smem: the shared bytes
+// of the statistics, dK/dV and dQ kernels, which must be
+// flash_attention.plan_flash_bwd's.  Returns cudaErrorInvalidValue with
+// nothing launched for what the design does not take -- (D, Dv) not
+// (64, 64), (128, 128) or (192, 128), a base not 16-byte aligned, a
+// stride not a positive multiple of 8 elements, a pitch below S or not a
+// multiple of 64 -- or for other bytes; otherwise cudaGetLastError().
 extern "C" int flash_bwd_wgmma_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, void* stats, void* dq, void* dk, void* dv, int B, int S,
-    int H, int KV, int D, long long qsb, long long qss, long long qsh,
+    int H, int KV, int D, int Dv, long long qsb, long long qss,
+    long long qsh,
     long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, long long dsb, long long dss,
     long long dsh, int lse_pitch, float scale, int causal, int window,
@@ -823,11 +854,17 @@ extern "C" int flash_bwd_wgmma_launch(
   if (B <= 0 || S <= 0) return 0;
   const long long st[12] = {qsb, qss, qsh, ksb, kss, ksh,
                             vsb, vss, vsh, dsb, dss, dsh};
-  const int dkdv = D == 64 ? dkdv_bytes<64>() : dkdv_bytes<128>();
-  const int dqb = D == 64 ? dq_bytes<64>() : dq_bytes<128>();
-  bool ok = (D == 64 || D == 128) && KV >= 1 && H % KV == 0 &&
-            window >= 0 && lse_pitch >= S && lse_pitch % BS == 0 &&
-            smem_stats == dqb && smem_dkdv == dkdv && smem_dq == dqb;
+  const bool shape = ((D == 64 || D == 128) && Dv == D) ||
+                     (D == 192 && Dv == 128);
+  const int dkdv = D == 64    ? dkdv_bytes<64, 64>()
+                   : D == 128 ? dkdv_bytes<128, 128>()
+                              : dkdv_bytes<192, 128>();
+  const int dqb = D == 64    ? dq_bytes<64, 64>()
+                  : D == 128 ? dq_bytes<128, 128>()
+                             : dq_bytes<192, 128>();
+  bool ok = shape && KV >= 1 && H % KV == 0 && window >= 0 &&
+            lse_pitch >= S && lse_pitch % BS == 0 && smem_stats == dqb &&
+            smem_dkdv == dkdv && smem_dq == dqb;
   for (const void* p : {q, k, v, dout, lse, (const void*)stats,
                         (const void*)dq, (const void*)dk, (const void*)dv})
     ok = ok && (uintptr_t)p % 16 == 0;
@@ -836,8 +873,12 @@ extern "C" int flash_bwd_wgmma_launch(
   cudaStream_t s = (cudaStream_t)stream;
   const float* l = (const float*)lse;
   float* sc = (float*)stats;
-  return D == 64 ? launch<64>(q, k, v, dout, l, sc, dq, dk, dv, B, S, H, KV,
-                              st, lse_pitch, scale, causal, window, s)
-                 : launch<128>(q, k, v, dout, l, sc, dq, dk, dv, B, S, H,
-                               KV, st, lse_pitch, scale, causal, window, s);
+  if (D == 64)
+    return launch<64, 64>(q, k, v, dout, l, sc, dq, dk, dv, B, S, H, KV, st,
+                          lse_pitch, scale, causal, window, s);
+  if (D == 128)
+    return launch<128, 128>(q, k, v, dout, l, sc, dq, dk, dv, B, S, H, KV,
+                            st, lse_pitch, scale, causal, window, s);
+  return launch<192, 128>(q, k, v, dout, l, sc, dq, dk, dv, B, S, H, KV, st,
+                          lse_pitch, scale, causal, window, s);
 }

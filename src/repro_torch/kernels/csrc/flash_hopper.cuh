@@ -125,6 +125,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
       "+f"(a[i + 4]), "+f"(a[i + 5]), "+f"(a[i + 6]), "+f"(a[i + 7])
 #define F32(a) F8(a, 0), F8(a, 8), F8(a, 16), F8(a, 24)
 #define F64(a) F32(a), F8(a, 32), F8(a, 40), F8(a, 48), F8(a, 56)
+#define F96(a) F64(a), F8(a, 64), F8(a, 72), F8(a, 80), F8(a, 88)
 #define R32                                                              \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
@@ -135,6 +136,15 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
   "%58, %59, %60, %61, %62, %63}"
+#define R8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define R96                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, " \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, " \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95}"
 
 #define FO8(a, i)                                                     \
   "=f"(a[i]), "=f"(a[i + 1]), "=f"(a[i + 2]), "=f"(a[i + 3]),         \
@@ -145,8 +155,17 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 #define R16                                                              \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 
-// d = A B: m64n32k16 and m64n64k16, A and B K-major in shared memory;
-// d's old values are neither read nor kept alive
+// d = A B: m64n16k16, m64n32k16 and m64n64k16, A and B K-major in shared
+// memory; d's old values are neither read nor kept alive
+__device__ __forceinline__ void wgmma_qk_first(float (&d)[8], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " R8
+      ", %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : FO8(d, 0)
+      : "l"(da), "l"(db), "r"(0));
+}
 __device__ __forceinline__ void wgmma_qk_first(float (&d)[16], uint64_t da,
                                                uint64_t db) {
   asm volatile(
@@ -166,8 +185,17 @@ __device__ __forceinline__ void wgmma_qk_first(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(0));
 }
 
-// d (+)= A B: m64n32k16, m64n64k16 and m64n128k16, A and B K-major in
-// shared memory
+// d (+)= A B: m64n16k16, m64n32k16, m64n64k16 and m64n128k16, A and B
+// K-major in shared memory
+__device__ __forceinline__ void wgmma_qk(float (&d)[8], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " R8
+      ", %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : F8(d, 0)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 __device__ __forceinline__ void wgmma_qk(float (&d)[16], uint64_t da,
                                          uint64_t db, int accumulate) {
   asm volatile(
@@ -196,8 +224,8 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d += A B: m64nDk16, A (bf16 pairs) from registers, B MN-major in
-// shared memory
+// d += A B: m64nNk16 (N = 64, 128, 192), A (bf16 pairs) from registers,
+// B MN-major in shared memory (its 64-wide chunks LBO bytes apart)
 __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t* a,
                                          uint64_t db) {
   asm volatile(
@@ -214,6 +242,15 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t* a,
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " R64
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : F64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_pv(float (&d)[96], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " R96
+      ", {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : F96(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 

@@ -1,9 +1,11 @@
 """Blocked online-softmax attention (CUDA kernels + wrapper).
 
-    out = softmax(mask(q·kᵀ/√D)) · v          [B, S, H, D], causal (+ window)
+    out = softmax(mask(q·kᵀ/√D)) · v          [B, S, H, Dv], causal (+ window)
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention``, the
-prefill attention of the dense LM stack.  Every design takes one query
+prefill attention of the LM stack.  Q and K are D wide, V is Dv <= D
+wide (MLA's 128 beside Q/K's 192; the scale stays Q's 1/√D).  Every
+design takes one query
 tile at a time through the key tiles with f32 running max, denominator
 and accumulator (the [S, S] scores are never written), rounds ``p`` to
 the V dtype before P·V as the TPU kernel does, and skips the key tiles
@@ -11,15 +13,20 @@ that the causal mask or the window hide from the whole query tile.  The input
 picks the design (:func:`plan_flash`), and the C entry refuses an input
 its design does not take:
 
-* ``tma_wgmma`` (``csrc/flash_attention_wgmma.cu``): bf16 with D in
-  {64, 128}, 16-byte aligned bases and strides that are positive
-  multiples of 8 elements -- 192-query work items at D = 64 (128 at
-  D = 128) on a persistent grid, K/V fed by TMA through a ring of
-  128-key stages, both products on ``wgmma``;
-* ``mma_sync`` (``csrc/flash_attention.cu``): bf16 with D = 32 and
+* ``tma_wgmma`` (``csrc/flash_attention_wgmma.cu``): bf16 with (D, Dv)
+  in :data:`WGMMA_DV` ((64, 64), (128, 128), (192, 128)), 16-byte
+  aligned bases and strides that are positive multiples of 8 elements
+  -- 192-query work items at D = 64 (128 at D = 128 and 192) on a
+  persistent grid, K/V fed by TMA through a ring of 128-key stages,
+  both products on ``wgmma``, V in tiles of its own width;
+* ``mma_sync`` (``csrc/flash_attention.cu``): bf16 with D = Dv = 32 and
   16-byte aligned rows -- 64-query tiles on ``mma.sync``;
-* ``cuda_cores`` (``csrc/flash_attention.cu``): everything else (f32,
-  other D, unaligned rows).
+* ``cuda_cores`` (``csrc/flash_attention.cu``): everything else with V
+  as wide as Q (f32, other D, unaligned rows, D 192 with Dv 192).
+
+``mma_sync`` and ``cuda_cores`` take Dv == D only: :func:`launch` raises
+on a narrower V that its planned design does not take, and
+``models.transformer.attend_padded_v`` pads V to Q's width for them.
 
 K/V may carry fewer heads than Q (H % KV == 0), so grouped-query
 attention reads each KV head in place.  The plain version is
@@ -35,9 +42,9 @@ takes, in three launches and no atomics (:func:`plan_flash_bwd`):
   then dK/dV per 128-key tile and dQ per 128-query tile, each on a
   persistent grid streaming 64-row tiles through a TMA-fed ring into
   ``wgmma`` products;
-* ``cuda_cores`` (``csrc/flash_attention_bwd.cu``) for the rest: a launch
-  that recomputes each row's log-sum-exp and Δ = Σ P·dP, then dK/dV and
-  dQ per 64-row tile (32 past D = 128).
+* ``cuda_cores`` (``csrc/flash_attention_bwd.cu``) for the rest (V as
+  wide as Q): a launch that recomputes each row's log-sum-exp and
+  Δ = Σ P·dP, then dK/dV and dQ per 64-row tile (32 past D = 128).
 
 Their plain versions are ``ref.flash_attention_bwd_lse_ref`` and
 ``ref.flash_attention_bwd_ref``, and ``ops.FlashAttention`` pairs the two
@@ -59,15 +66,20 @@ from repro_torch.kernels import build
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_D = 256
 SMEM_MAX = 232448   # shared memory one block may use on an H100
-# the Hopper design (csrc/flash_attention_wgmma.cu): query rows a work
-# item by D (64 per consumer warpgroup: three at D = 64, two at 128),
-# 128-key tiles, a ring of 2 stages; one kernel is built for each D
-WGMMA_BQ = {64: 192, 128: 128}
+# the Hopper design (csrc/flash_attention_wgmma.cu), one kernel built for
+# each Q/K width D: the V width Dv it takes, query rows a work item (64
+# per consumer warpgroup: three at D = 64, two at 128 and 192), Q buffers
+# (the item's and the next one's, but one at D = 192, where a second does
+# not fit beside the ring), 128-key tiles, a ring of 2 stages
+WGMMA_DV = {64: 64, 128: 128, 192: 128}
+WGMMA_BQ = {64: 192, 128: 128, 192: 128}
+WGMMA_Q_BUFS = {64: 2, 128: 2, 192: 1}
 WGMMA_BK, WGMMA_STAGES = 128, 2
 _DESIGN_CODES = {"cuda_cores": 0, "mma_sync": 1}
-# 9b's Hopper design (csrc/flash_attention_bwd_wgmma.cu): work items of
-# 128 rows (64 per consumer warpgroup, two), streamed tiles of 64, rings
-# of 2 stages; the log-sum-exp rows at a pitch of S rounded up to 64
+# 9b's Hopper design (csrc/flash_attention_bwd_wgmma.cu), for the (D, Dv)
+# of WGMMA_DV: work items of 128 rows (64 per consumer warpgroup, two),
+# streamed tiles of 64, rings of 2 stages; the log-sum-exp rows at a
+# pitch of S rounded up to 64
 WGMMA_BWD_ITEM, WGMMA_BWD_STEP, WGMMA_BWD_STAGES = 128, 64, 2
 # the CUDA kernels each 9b design launches, in order
 BWD_KERNELS = {"tma_wgmma": ("bwd_wgmma_stats_kernel",
@@ -91,14 +103,17 @@ def lse_pitch(s: int) -> int:
     return -(-s // WGMMA_BWD_STEP) * WGMMA_BWD_STEP
 
 
-def wgmma_smem_bytes(d: int, stages: int) -> int:
-    """Shared memory of one ``tma_wgmma`` block: a 1024-byte alignment
-    slack, two Q tiles of ``WGMMA_BQ[d]`` rows (a work item's and the
-    next one's) and ``stages`` K and V tiles of 128 rows, each row ``d``
-    bf16, and 8 bytes per mbarrier (two per Q tile, four per stage).  The
-    C entry refuses a launch whose bytes differ."""
-    return (1024 + (2 * WGMMA_BQ[d] + 2 * stages * WGMMA_BK) * d * 2
-            + 8 * (4 + 4 * stages))
+def wgmma_smem_bytes(d: int, stages: int, dv: Optional[int] = None) -> int:
+    """Shared memory of one ``tma_wgmma`` block at Q/K width ``d`` and V
+    width ``dv`` (default ``d``): a 1024-byte alignment slack,
+    ``WGMMA_Q_BUFS[d]`` Q tiles of ``WGMMA_BQ[d]`` rows x ``d``,
+    ``stages`` K tiles of 128 rows x ``d`` and V tiles of 128 rows x
+    ``dv``, all bf16, and 8 bytes per mbarrier (two per Q tile, four per
+    stage).  The C entry refuses a launch whose bytes differ."""
+    dv = d if dv is None else dv
+    nq = WGMMA_Q_BUFS[d]
+    return (1024 + nq * WGMMA_BQ[d] * d * 2
+            + stages * WGMMA_BK * (d + dv) * 2 + 8 * (2 * nq + 4 * stages))
 
 
 def _cuda_core_smem_bytes(d: int) -> int:
@@ -145,39 +160,58 @@ class FlashPlan:
         return range(lo, hi + 1)
 
 
-def _aligned(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
-    """16-byte aligned bases, and (batch, seq, head) strides that are
+def _narrower_v(d: int, dv: int) -> None:
+    if dv > d:
+        raise ValueError(f"V width {dv} exceeds the query width {d}")
+
+
+def aligned_rows(t: torch.Tensor) -> bool:
+    """A 16-byte aligned base, and (batch, seq, head) strides that are
     positive multiples of 8 elements: 16-byte rows for vector loads and
     TMA."""
-    return all(t.data_ptr() % 16 == 0 and all(
-        x > 0 and x % 8 == 0 for x in t.stride()[:3]) for t in (q, k, v))
+    return t.data_ptr() % 16 == 0 and all(
+        x > 0 and x % 8 == 0 for x in t.stride()[:3])
+
+
+def _aligned(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    return all(aligned_rows(t) for t in (q, k, v))
 
 
 def plan_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                window: int = 0, causal: bool = True) -> FlashPlan:
     """The design and tiles the input alone picks (any device).
 
-    ``tma_wgmma`` for bf16 with D in {64, 128} and aligned rows,
-    ``mma_sync`` for bf16 with D = 32 and aligned rows, else
-    ``cuda_cores``.
+    ``tma_wgmma`` for bf16 with (D, Dv) in :data:`WGMMA_DV` and aligned
+    rows, ``mma_sync`` for bf16 with D = Dv = 32 and aligned rows, else
+    ``cuda_cores`` (which, like ``mma_sync``, takes Dv == D only:
+    :func:`takes_v_width`).
     """
-    d, s = q.shape[3], q.shape[1]
+    d, dv, s = q.shape[3], v.shape[3], q.shape[1]
+    _narrower_v(d, dv)
     bf16 = q.dtype == torch.bfloat16
     aligned = _aligned(q, k, v)
-    if bf16 and d in (64, 128) and aligned:
+    if bf16 and WGMMA_DV.get(d) == dv and aligned:
         return FlashPlan("tma_wgmma", WGMMA_BQ[d], WGMMA_BK, WGMMA_STAGES,
-                         wgmma_smem_bytes(d, WGMMA_STAGES), s, causal,
+                         wgmma_smem_bytes(d, WGMMA_STAGES, dv), s, causal,
                          window)
-    if bf16 and d == 32 and aligned:
+    if bf16 and d == dv == 32 and aligned:
         return FlashPlan("mma_sync", 64, 64, 1, 3 * 64 * (d + 8) * 2, s,
                          causal, window)
     return FlashPlan("cuda_cores", 64, 64, 1, _cuda_core_smem_bytes(d), s,
                      causal, window)
 
 
+def takes_v_width(design: str, d: int, dv: int) -> bool:
+    """Whether ``design`` takes V of width ``dv`` beside Q/K of width
+    ``d``: ``tma_wgmma`` the pairs of :data:`WGMMA_DV`, the others V as
+    wide as Q only."""
+    return dv == d or (design == "tma_wgmma" and WGMMA_DV.get(d) == dv)
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            window: int) -> Tuple[int, int, int, int, int]:
-    """Raise on what the kernel does not take; returns (B, S, H, KV, D)."""
+    """Raise on what the kernels do not take (V may be narrower than Q);
+    returns (B, S, H, KV, D)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in DTYPES:
             raise TypeError(f"{name}: dtype {t.dtype} not in {list(DTYPES)}")
@@ -189,11 +223,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
     b, s, h, d = q.shape
-    kv = k.shape[2]
-    if k.shape != v.shape or k.shape[0] != b or k.shape[1] != s or \
-            k.shape[3] != d:
+    kv, dv = k.shape[2], v.shape[3]
+    _narrower_v(d, dv)
+    if k.shape != (b, s, kv, d) or v.shape[:3] != k.shape[:3] or dv < 1:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}: K/V must be [B, S, KV, D]")
+                         f"v {tuple(v.shape)}: K/V must be [B, S, KV, D] "
+                         f"and [B, S, KV, Dv] with Dv <= D")
     if kv < 1 or h % kv != 0:
         raise ValueError(f"H={h} is not a multiple of KV={kv}")
     if not 1 <= d <= MAX_D:
@@ -231,10 +266,15 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _refuse_grad(q, k, v)
     _cuda_inputs(q=q, k=k, v=v)
     b, s, h, kv, d = _check(q, k, v, window)
+    dv = v.shape[3]
     plan = plan_flash(q, k, v, window, causal)
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    if not takes_v_width(plan.design, d, dv):
+        raise ValueError(f"V width {dv} != Q width {d}: the {plan.design} "
+                         "design takes V as wide as Q "
+                         "(models.transformer.attend_padded_v pads it)")
+    out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
-            h, kv, d, *[x for t in (q, k, v) for x in t.stride()[:3]],
+            h, kv, d, dv, *[x for t in (q, k, v) for x in t.stride()[:3]],
             1.0 / d ** 0.5, int(bool(causal)), int(window))
     lib = build.library()
     lse = None
@@ -257,11 +297,13 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Attention of ``q`` [B, S, H, D] over ``k``/``v`` [B, S, KV, D].
+    """Attention of ``q`` [B, S, H, D] over ``k`` [B, S, KV, D] and ``v``
+    [B, S, KV, Dv].
 
-    f32 or bf16 (all three alike), 1 <= D <= 256, H % KV == 0, any S,
-    any strides with a contiguous last dim; ``window`` 0 means none.
-    Returns a contiguous [B, S, H, D] in q's dtype, on the design
+    f32 or bf16 (all three alike), 1 <= D <= 256, Dv <= D as the planned
+    design takes it (:func:`takes_v_width`), H % KV == 0, any S, any
+    strides with a contiguous last dim; ``window`` 0 means none.  Returns
+    a contiguous [B, S, H, Dv] in q's dtype, on the design
     :func:`plan_flash` picks.  Launches a CUDA kernel; raises on tensors
     it does not take (CPU tensors among them), and where autograd would
     record the call (``ops.flash_attention`` sends such inputs through
@@ -307,22 +349,26 @@ def bwd_smem_bytes(d: int) -> Tuple[int, int, int]:
             4 * (4 * tile + score))
 
 
-def wgmma_bwd_smem_bytes(d: int) -> Tuple[int, int, int]:
+def wgmma_bwd_smem_bytes(d: int, dv: Optional[int] = None
+                         ) -> Tuple[int, int, int]:
     """Shared bytes of the ``tma_wgmma`` statistics, dK/dV and dQ kernels
-    at D 64 or 128, each from a 1024-byte alignment slack: the statistics
-    and dQ kernels (one query pass) two 128-row Q and dO tiles (an item's
-    and the next one's), ``WGMMA_BWD_STAGES`` stages of 64-row K and V
-    tiles, and 8 bytes per mbarrier (two per Q/dO buffer, four per
-    stage); dK/dV the K and V tiles of its 128 keys, the stages of a
-    64-row Q and dO tile with their 64 log-sum-exps and Δs, and its
-    mbarriers (two for K/V, two per stage).  The C entry refuses other
-    bytes."""
-    item = WGMMA_BWD_ITEM * d * 2
-    step = WGMMA_BWD_STEP * d * 2
-    n = WGMMA_BWD_STAGES
-    dkdv = 1024 + 2 * item + n * (2 * step + 2 * WGMMA_BWD_STEP * 4) \
-        + 8 * (2 + 2 * n)
-    dq = 1024 + 4 * item + 2 * n * step + 8 * (4 + 4 * n)
+    at Q/K width ``d`` and V width ``dv`` (default ``d``; the pairs of
+    :data:`WGMMA_DV`), each from a 1024-byte alignment slack, rows of Q
+    and K ``d`` bf16 wide and of V and dO ``dv``: the statistics and dQ
+    kernels (one query pass) ``WGMMA_Q_BUFS[d]`` 128-row Q and dO tiles
+    (an item's and, with two, the next one's), ``WGMMA_BWD_STAGES``
+    stages of 64-row K and V tiles, and 8 bytes per mbarrier (two per
+    Q/dO buffer, four per stage); dK/dV the K and V tiles of its 128
+    keys, the stages of a 64-row Q and dO tile with their 64 log-sum-exps
+    and Δs, and its mbarriers (two for K/V, two per stage).  The C entry
+    refuses other bytes."""
+    dv = d if dv is None else dv
+    item, step = WGMMA_BWD_ITEM * 2, WGMMA_BWD_STEP * 2   # bytes a column
+    n, nq = WGMMA_BWD_STAGES, WGMMA_Q_BUFS[d]
+    dkdv = 1024 + item * (d + dv) \
+        + n * (step * (d + dv) + 2 * WGMMA_BWD_STEP * 4) + 8 * (2 + 2 * n)
+    dq = 1024 + nq * item * (d + dv) + n * step * (d + dv) \
+        + 8 * (2 * nq + 4 * n)
     return dq, dkdv, dq
 
 
@@ -377,14 +423,17 @@ def plan_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    dout: torch.Tensor, window: int = 0, causal: bool = True,
                    lse: Optional[torch.Tensor] = None) -> FlashBwdPlan:
     """The backward's design and tiles, from the input alone (any
-    device): ``tma_wgmma`` for bf16 with D in {64, 128}, 16-byte aligned
-    rows (q, k, v and dout) and the forward's ``lse`` given
-    (:func:`launch_with_lse`), else ``cuda_cores``."""
-    d, s = q.shape[3], q.shape[1]
-    if lse is not None and q.dtype == torch.bfloat16 and d in (64, 128) \
-            and _aligned(q, k, v) and _aligned(dout, dout, dout):
+    device): ``tma_wgmma`` for bf16 with (D, Dv) in :data:`WGMMA_DV`,
+    16-byte aligned rows (q, k, v and dout) and the forward's ``lse``
+    given (:func:`launch_with_lse`), else ``cuda_cores`` (V as wide as Q
+    only)."""
+    d, dv, s = q.shape[3], v.shape[3], q.shape[1]
+    _narrower_v(d, dv)
+    if lse is not None and q.dtype == torch.bfloat16 and \
+            WGMMA_DV.get(d) == dv and _aligned(q, k, v) and \
+            _aligned(dout, dout, dout):
         return FlashBwdPlan("tma_wgmma", WGMMA_BWD_ITEM, WGMMA_BWD_STEP,
-                            wgmma_bwd_smem_bytes(d), s, causal, window)
+                            wgmma_bwd_smem_bytes(d, dv), s, causal, window)
     bt = _bwd_geometry(d)[1]
     return FlashBwdPlan("cuda_cores", bt, bt, bwd_smem_bytes(d), s, causal,
                         window)
@@ -409,8 +458,9 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                lse: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient of :func:`launch` at ``q``, ``k``, ``v`` given the
-    output's gradient ``dout`` [B, S, H, D]: (dq [B, S, H, D], dk, dv
-    [B, S, KV, D]), contiguous, in the inputs' dtype.  Takes every input
+    output's gradient ``dout`` [B, S, H, Dv]: (dq [B, S, H, D], dk [B, S,
+    KV, D], dv [B, S, KV, Dv]), contiguous, in the inputs' dtype.  Takes
+    every input
     :func:`launch` takes (``dout`` alike: any strides with a contiguous
     last dim), and the forward's ``lse`` from :func:`launch_with_lse`
     where it gave one, on the design :func:`plan_flash_bwd` picks.  Three
@@ -419,18 +469,22 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors it does not take."""
     _cuda_inputs(q=q, k=k, v=v, dout=dout)
     b, s, h, kv, d = _check(q, k, v, window)
-    if dout.shape != q.shape or dout.dtype != q.dtype:
+    dvw = v.shape[3]
+    if dout.shape != (b, s, h, dvw) or dout.dtype != q.dtype:
         raise ValueError(f"dout: {tuple(dout.shape)} {dout.dtype}, expected "
-                         f"{tuple(q.shape)} {q.dtype}")
-    if d > 1 and dout.stride(3) != 1:
+                         f"{(b, s, h, dvw)} {q.dtype}")
+    if dvw > 1 and dout.stride(3) != 1:
         raise ValueError("dout: the head dim must be contiguous")
     _check_saved(q, lse)
     plan = plan_flash_bwd(q, k, v, dout, window, causal, lse)
+    if not takes_v_width(plan.design, d, dvw):
+        raise ValueError(f"V width {dvw} != Q width {d}: the {plan.design} "
+                         "backward takes V as wide as Q")
     if plan.n_items > 65535:
         raise ValueError(f"grid too large for S={s}")
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, s, kv, d), dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
+    dv = torch.empty((b, s, kv, dvw), dtype=q.dtype, device=q.device)
     lib = build.library()
     strides = [x for t in (q, k, v, dout) for x in t.stride()[:3]]
     if plan.design == "tma_wgmma":
@@ -439,7 +493,7 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         code = lib.flash_bwd_wgmma_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, s, h, kv, d, *strides, lse.stride(0),
+            dv.data_ptr(), b, s, h, kv, d, dvw, *strides, lse.stride(0),
             1.0 / d ** 0.5, int(bool(causal)), int(window),
             *plan.smem_bytes, build.stream_of(dq))
     else:
@@ -448,7 +502,7 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         code = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(),
-            stats[1].data_ptr(), b, s, h, kv, d, *strides,
+            stats[1].data_ptr(), b, s, h, kv, d, dvw, *strides,
             1.0 / d ** 0.5, int(bool(causal)), int(window),
             int(q.dtype == torch.bfloat16), *plan.smem_bytes,
             build.stream_of(dq))

@@ -396,19 +396,25 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0,
                     impl: Optional[str] = None) -> torch.Tensor:
-    """Blocked attention: q [B, S, H, D], k/v [B, S, KV, D] → [B, S, H, D].
+    """Blocked attention: q [B, S, H, D], k [B, S, KV, D] and v [B, S,
+    KV, Dv] → [B, S, H, Dv].
 
-    Causal (``window`` > 0 adds the sliding window), scale 1/√D, H % KV
-    == 0.  O(S²·D) compute with O(S·D) memory on the kernel path
-    (``flash_attention``: the [S, S] scores are never written); the
-    plain path is ``ref.flash_attention_ref``.  V as wide as Q on both
-    paths (``models.transformer.attend_padded_v`` pads a narrower one).
-    With grad mode on and an input that requires grad, the call goes
-    through :class:`FlashAttention` (backward: 9b on the kernel path);
-    otherwise straight to the forward, as serving runs it.
+    Causal (``window`` > 0 adds the sliding window), scale 1/√D (Q's
+    width, as MLA's), H % KV == 0, Dv <= D.  O(S²·D) compute with
+    O(S·D) memory on the kernel path (``flash_attention``: the [S, S]
+    scores are never written); the plain path is
+    ``ref.flash_attention_ref``, which takes any Dv <= D.  The kernel
+    path takes a narrower V where its planned design does
+    (``flash_attention.takes_v_width``: ``tma_wgmma`` at MLA's (192,
+    128)) and raises otherwise; ``models.transformer.attend_padded_v``
+    pads V for the designs that need it as wide as Q.  With grad mode on
+    and an input that requires grad, the call goes through
+    :class:`FlashAttention` (backward: 9b on the kernel path); otherwise
+    straight to the forward, as serving runs it.
     """
-    if v.shape[-1] != q.shape[-1]:
-        raise ValueError(f"V width {v.shape[-1]} != Q width {q.shape[-1]}")
+    if v.shape[-1] > q.shape[-1]:
+        raise ValueError(f"V width {v.shape[-1]} exceeds the query width "
+                         f"{q.shape[-1]}")
     kernel = uses_kernel(q, impl)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

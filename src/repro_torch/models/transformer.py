@@ -11,7 +11,8 @@ w``, layers stacked ``[L, ...]`` per group when converted), with RMS
 norm, rotary embedding, bf16 KV caches, SwiGLU FFNs, a tied or separate
 unembedding, prefill and greedy-decode steps.  Prefill and the full
 forward attend through ``ops.flash_attention`` (the hand-written kernel
-on the card); MLA reaches it with V zero-padded to the query width.  A
+on the card); MLA reaches it with V at its own width where the planned
+design takes that (bf16 on the Hopper design), else zero-padded.  A
 decode step attends one query row against the cache with plain torch ops
 (MLA's absorbed path scores in latent space), as the JAX package does
 outside any kernel.  The caches are updated IN PLACE.  The MoE runs
@@ -42,7 +43,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.types import resolve_device
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import flash_attention, ops, ref
 from repro_torch.models.common import train_step_of
 
 # the JAX package's "no window" sentinel (``_layer_windows``)
@@ -368,26 +369,40 @@ def _mla_expand(q_nope: torch.Tensor, q_rope: torch.Tensor,
     w_k, w_v = _mla_wkv(layer, c)
     k_nope = torch.einsum("bsr,rhd->bshd", c_kv, w_k)
     v = torch.einsum("bsr,rhd->bshd", c_kv, w_v)
+    if not flash_attention.aligned_rows(v):
+        # the Hopper design reads V by TMA at 16-byte rows: one copy of V,
+        # less than the zero padding to Q's width it replaces
+        v = v.contiguous()
     k = torch.cat([k_nope, k_rope.expand(b, s, h, c.qk_rope_dim)], dim=-1)
     return torch.cat([q_nope, q_rope], dim=-1), k, v
 
 
-def pad_v(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``v`` [..., Dv] zero-padded to Q's width D >= Dv (``v`` itself when
-    as wide): the attention kernel takes V as wide as Q."""
-    dv, d = v.shape[-1], q.shape[-1]
-    if dv > d:
-        raise ValueError(f"V width {dv} exceeds the query width {d}")
-    return F.pad(v, (0, d - dv)) if dv < d else v
+def kernel_v(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             window: int = 0, causal: bool = True) -> torch.Tensor:
+    """The V that :func:`attend_padded_v` hands ``ops.flash_attention``:
+    ``v`` [..., Dv] itself where the design ``flash_attention.plan_flash``
+    picks for it takes V of its own width (``tma_wgmma`` at MLA's bf16
+    (192, 128)), else ``v`` zero-padded to Q's width D (f32, unaligned
+    rows and other widths run designs that take V as wide as Q).  Raises
+    on Dv > D."""
+    plan = flash_attention.plan_flash(q, k, v, window, causal)
+    d, dv = q.shape[-1], v.shape[-1]
+    if flash_attention.takes_v_width(plan.design, d, dv):
+        return v
+    return F.pad(v, (0, d - dv))
 
 
 def attend_padded_v(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     window: int = 0) -> torch.Tensor:
     """Causal attention of ``q``, ``k`` [B, S, H, D] over ``v`` [B, S, H,
-    Dv] with Dv <= D through ``ops.flash_attention``: V zero-padded to D
-    (:func:`pad_v`), the first Dv columns of the output kept.  Exact: the
-    padded columns of P·V are 0, and the scale 1/√D is Q's."""
-    out = ops.flash_attention(q, k, pad_v(q, v), causal=True, window=window)
+    Dv] with Dv <= D through ``ops.flash_attention``, V as
+    :func:`kernel_v` sends it: unpadded where the planned design takes V
+    of its own width (MLA's bf16 prefill and training step), else
+    zero-padded to D with the first Dv columns of the output kept.  Exact
+    either way: the padded columns of P·V are 0, and the scale 1/√D is
+    Q's."""
+    out = ops.flash_attention(q, k, kernel_v(q, k, v, window), causal=True,
+                              window=window)
     return out[..., :v.shape[-1]]
 
 

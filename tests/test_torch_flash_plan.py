@@ -123,7 +123,8 @@ def test_wgmma_shared_memory_is_its_layout(d, stages, bq):
     assert flash_attention.wgmma_smem_bytes(d, stages) <= SMEM_MAX
     assert flash_attention.wgmma_smem_bytes(128, 3) > SMEM_MAX
     assert flash_attention.WGMMA_STAGES == 2
-    assert flash_attention.WGMMA_BQ == {64: 192, 128: 128}
+    assert flash_attention.WGMMA_BQ == {64: 192, 128: 128, 192: 128}
+    assert flash_attention.WGMMA_Q_BUFS[d] == 2
 
 
 def _plans(s, causal, window):
@@ -269,9 +270,10 @@ def test_bwd_wgmma_shared_memory_is_its_layout(d):
     64-row Q and dO tile with 64 log-sum-exps and Δs, and 2 + 2·2
     mbarriers; each fits one block."""
     for line in ("kBytes = 1024 + kBar + 8 * (2 + 2 * STAGES)",
-                 "kBytes = 1024 + kBar + 8 * (4 + 4 * STAGES)",
+                 "kBytes = 1024 + kBar + 8 * (2 * NQ + 4 * STAGES)",
                  "kStat + STAGES * STAT", "STAT = 2 * BS * 4",
-                 "kK = 4 * kItem", "BI = 128", "BS = 64", "STAGES = 2"):
+                 "kK = kO + NQ * kItemO", "NQ_OF = DQK == 192 ? 1 : 2",
+                 "BI = 128", "BS = 64", "STAGES = 2"):
         assert line in WGMMA_BWD_SRC, line
     item, step = 128 * d * 2, 64 * d * 2
     query_pass = 1024 + 4 * item + 4 * step + 8 * 12

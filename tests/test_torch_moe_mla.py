@@ -304,9 +304,10 @@ def test_mla_expansion_is_jax_prefill_attention():
 @pytest.mark.parametrize("dq,dv,kv", [(24, 16, 4), (192, 128, 2),
                                       (32, 32, 1)])
 def test_padded_v_route_is_the_unpadded_attention(rng, dq, dv, kv, win):
-    """V zero-padded to Q's width through ``ops.flash_attention``, the
-    first Dv columns kept: the same as attention over the unpadded V,
-    scale 1/√Dq (JAX's lowering, and the plain version at V's width)."""
+    """V as ``attend_padded_v`` sends it through ``ops.flash_attention``
+    (zero-padded to Q's width for the designs that need it, the first Dv
+    columns kept): the same as attention over the unpadded V, scale
+    1/√Dq (JAX's lowering, and the plain version at V's width)."""
     b, s, h = 2, 40, 4
     q, k = (rng.normal(size=(b, s, n, dq)).astype(np.float32)
             for n in (h, kv))
@@ -321,10 +322,12 @@ def test_padded_v_route_is_the_unpadded_attention(rng, dq, dv, kv, win):
     np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=ATOL)
     with pytest.raises(ValueError, match="exceeds"):
         tf.attend_padded_v(_t(q)[..., :8], _t(k)[..., :8], _t(v))
-    if dv < dq:
-        # the dispatcher itself takes V as wide as Q only, on every path
-        with pytest.raises(ValueError, match="V width"):
-            ops.flash_attention(_t(q), _t(k), _t(v))
+    # the dispatcher itself takes a narrower V (its kernel route where the
+    # planned design does), and still refuses one wider than Q
+    direct = ops.flash_attention(_t(q), _t(k), _t(v), window=win)
+    np.testing.assert_allclose(direct.numpy(), np.asarray(exp), atol=ATOL)
+    with pytest.raises(ValueError, match="exceeds"):
+        ops.flash_attention(_t(q)[..., :8], _t(k)[..., :8], _t(v))
 
 
 def test_plain_attention_scores_in_query_chunks(rng, monkeypatch):

@@ -297,12 +297,13 @@ def main() -> int:
         def phase(plib, q, k, v, causal=True):
             plan = flash_attention.plan_flash(q, k, v, 0, causal)
             bb, ss, hh, dd = q.shape
-            o = torch.empty_like(q)
+            o = torch.empty(q.shape[:3] + v.shape[3:], dtype=q.dtype,
+                            device=q.device)
             build.check(plib.flash_wgmma_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bb,
-                ss, hh, k.shape[2], dd,
+                ss, hh, k.shape[2], dd, v.shape[3],
                 *[x for t in (q, k, v) for x in t.stride()[:3]],
-                1.0 / dd ** 0.5, int(causal), 0, plan.stages,
+                1.0 / dd ** 0.5, int(causal), 0, None, 0, plan.stages,
                 plan.smem_bytes, stream), "flash_wgmma phase")
             return o
 
