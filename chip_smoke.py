@@ -268,7 +268,28 @@ Phases, each fatal on failure (nothing is caught):
    sequence against f32 attention computed for those rows alone, by
    layer 0's bounds, and in granite's B9 timed at that shape beside
    SDPA and its bound.  The phase keeps within 300 s;
-19. summary -- every kernel's launches, then one JSON line of kernel
+19. the paper's update rules (run right after phase 10: it uses no
+   profiler) -- the mixed stream of phases 8-10 at TaFeng's full size,
+   in order, as ``UpdateBatch``es of 512 rows (a batch closed early
+   where a user would repeat, filled with noop rows; no add meets a
+   full history, asserted), through four routes, each on a state of
+   its own (~1.3 GB): (a) ``apply_update_batch`` on the kernels (B1,
+   B2), (b) the same under ``ops.default_impl("ref")``, (c)
+   ``apply_update_batch_dense`` (every rule on every row, one picked),
+   (d) ``apply_add_batch`` then ``apply_del_*_batch_dense`` as
+   ``benchmarks/bench_update_batch.py::_dense_kind_apply`` routes a
+   batch (counts reset before each route, read after it: B1 and B2 in
+   (a) and (d), none in (b) and (c)).  (b), (c) and (d) held to (a),
+   and every route to a from-scratch ``user_vector_padded`` /
+   ``last_group_vector_padded`` of its own final history: integer
+   leaves exact, vectors rtol=1e-4, atol=1e-5, each max error logged.
+   Each route's seconds, events/s and median ms a batch (host clock
+   ended by ``torch.cuda.synchronize``); then the one-event latency of
+   an add, an item delete and a basket delete through (a) and (c), each
+   the median of 50 cycles after a warm-up on the users with the
+   shortest and the longest history (the user's rows restored between
+   cycles), beside the card's name and power limit;
+20. summary -- every kernel's launches, then one JSON line of kernel
    records, and last the ``{"ok": true, ...}`` line.
 
 It needs a CUDA card and the rest of the repository; anywhere else it
@@ -304,12 +325,12 @@ from repro_torch.configs import (bert4rec_cfg,  # noqa: E402
                                  qwen2_moe_a2_7b, recsys_shapes, tifu_knn,
                                  two_tower_retrieval)
 from repro_torch.configs.base import card_bytes  # noqa: E402
-from repro_torch.core import knn  # noqa: E402
+from repro_torch.core import knn, tifu, updates  # noqa: E402
 from repro_torch.core.tifu import closed_form_basket_weights  # noqa: E402
 from repro_torch.core.types import (KIND_ADD_BASKET,  # noqa: E402
-                                    KIND_DEL_BASKET, AddBatch,
-                                    DelBasketBatch, DelItemBatch,
-                                    StreamState)
+                                    KIND_DEL_BASKET, KIND_DEL_ITEM, PAD_ID,
+                                    AddBatch, DelBasketBatch, DelItemBatch,
+                                    StreamState, UpdateBatch)
 from repro_torch.data import stream, synthetic  # noqa: E402
 from repro_torch.kernels import (build, decayed_scatter,  # noqa: E402
                                  flash_attention, knn_topk, ops, ref,
@@ -2011,8 +2032,13 @@ def assert_launched(before, names, what):
 
 
 def state_parity(got, want, what):
-    """Integer leaves exact, materialized vectors rtol=1e-4, atol=1e-5."""
-    a, b = got.store.state, want.store.state
+    """Two engines' states: :func:`leaf_parity`."""
+    return leaf_parity(got.store.state, want.store.state, what)
+
+
+def leaf_parity(a, b, what):
+    """Integer leaves exact, materialized vectors rtol=1e-4, atol=1e-5;
+    returns the vectors' max |difference|."""
     for name in ("history", "group_sizes", "n_baskets", "n_groups"):
         assert torch.equal(getattr(a, name), getattr(b, name)), (what, name)
     err = 0.0
@@ -2774,6 +2800,256 @@ def compliance_path(ds, dev, card):
     log(f"  certify: single engine {r['certify_s']:.3f} s, 2 shards "
         f"{r['shard_certify_s']:.3f} s (each with a commit and its read); "
         f"the 2-shard load {r['shard_load_s']:.3f} s [{card}]")
+    return launches, r
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the paper's update rules in every form at TaFeng's full size
+# ---------------------------------------------------------------------------
+
+# the rows of one UpdateBatch, and the one-event latency's repetitions
+RULE_ROWS, RULE_REPS = 512, 50
+
+
+def stream_batches(events, rows, b_max, dev):
+    """The stream, in order, as UpdateBatches of ``rows`` rows on ``dev``:
+    a batch closes early where a user would repeat, and noop rows (user
+    0) fill it.  Returns the batches and their event counts."""
+    batches, counts, cur, seen = [], [], [], set()
+
+    def close():
+        kind, user, pos = (np.zeros(rows, np.int32) for _ in range(3))
+        items = np.full((rows, b_max), PAD_ID, np.int32)
+        item = np.full(rows, PAD_ID, np.int32)
+        for r, ev in enumerate(cur):
+            kind[r], user[r], pos[r], item[r] = (ev.kind, ev.user, ev.pos,
+                                                 ev.item)
+            if ev.items is not None:
+                items[r, :len(ev.items)] = ev.items
+        batches.append(UpdateBatch(*(torch.from_numpy(x).to(dev) for x in
+                                     (kind, user, items, pos, item))))
+        counts.append(len(cur))
+
+    for ev in events:
+        if len(cur) == rows or ev.user in seen:
+            close()
+            cur, seen = [], set()
+        cur.append(ev)
+        seen.add(ev.user)
+    close()
+    return batches, counts
+
+
+def assert_adds_fit(events, n_users, max_baskets):
+    """No add of the stream meets a full history (so the dense add, which
+    has no capacity check, and the sparse one, which drops such an add,
+    stay comparable), and every basket is sorted and unique (so the dense
+    add, which stores it as given, and the sparse one, which stores
+    ``AddBatch.build``'s ``np.unique``, write the same row).  Deletions
+    are counted as basket deletions: an upper bound of the history."""
+    nb = np.zeros(n_users, np.int64)
+    for ev in events:
+        if ev.kind == KIND_ADD_BASKET:
+            assert nb[ev.user] < max_baskets, (ev, nb[ev.user])
+            assert np.array_equal(np.unique(ev.items), ev.items), ev
+            nb[ev.user] += 1
+        elif ev.kind == KIND_DEL_BASKET:
+            nb[ev.user] = max(nb[ev.user] - 1, 0)
+    return int(nb.max())
+
+
+def dense_kind_apply(state, batch, p):
+    """``benchmarks/bench_update_batch.py::_dense_kind_apply``'s route:
+    the sparse add, then the dense basket and item deletions."""
+    kind = batch.kind.cpu().numpy()
+    user = batch.user.cpu().numpy()
+    cap, dev = int(kind.shape[0]), state.device
+    adds = np.nonzero(kind == KIND_ADD_BASKET)[0]
+    delb = np.nonzero(kind == KIND_DEL_BASKET)[0]
+    deli = np.nonzero(kind == KIND_DEL_ITEM)[0]
+    if adds.size:
+        items = batch.basket_items.cpu().numpy()
+        updates.apply_add_batch(state, AddBatch.build(
+            user[adds], items[adds], items.shape[1], pad_cap=cap,
+            device=dev), p)
+    if delb.size or deli.size:
+        pos = batch.basket_pos.cpu().numpy()
+    if delb.size:
+        updates.apply_del_basket_batch_dense(state, DelBasketBatch.build(
+            user[delb], pos[delb], pad_cap=cap, device=dev), p)
+    if deli.size:
+        item = batch.item.cpu().numpy()
+        updates.apply_del_item_batch_dense(state, DelItemBatch.build(
+            user[deli], pos[deli], item[deli], pad_cap=cap, device=dev), p)
+    return state
+
+
+def plain_update_batch(state, batch, p):
+    """Route (b): the shim with every kernel replaced by its plain
+    version."""
+    with ops.default_impl("ref"):
+        return updates.apply_update_batch(state, batch, p)
+
+
+# route: (the function, whether it launches B1 and B2)
+KERNEL_ROUTE = "(a) apply_update_batch, kernels"
+DENSE_ROUTE = "(c) apply_update_batch_dense"
+RULE_ROUTES = {
+    KERNEL_ROUTE: (updates.apply_update_batch, True),
+    "(b) apply_update_batch, plain": (plain_update_batch, False),
+    DENSE_ROUTE: (updates.apply_update_batch_dense, False),
+    "(d) apply_add_batch + apply_del_*_batch_dense": (dense_kind_apply,
+                                                       True),
+}
+
+
+def scratch_parity(state, p, what):
+    """A state's materialized vectors against a from-scratch rebuild of
+    its own final history (plain scatter): rtol=1e-4, atol=1e-5."""
+    err = 0.0
+    for fresh, fn in (
+            (tifu.user_vector_padded, "materialized_user_vecs"),
+            (tifu.last_group_vector_padded, "materialized_last_group_vecs")):
+        x = getattr(state, fn)()
+        y = fresh(state.history, state.group_sizes, state.n_groups, p)
+        err = max(err, float((x - y).abs().max()))
+        assert torch.allclose(x, y, rtol=1e-4, atol=1e-5), (what, fn, err)
+        del x, y
+    return err
+
+
+def one_event_ms(route, state, u, p, n_items, rng):
+    """Median host ms (ended by a synchronize) of each of three events
+    on user ``u`` through ``route``, over RULE_REPS cycles after a
+    warm-up cycle: an add of a seeded 3-item basket at the end of the
+    history, the deletion of one of its items (in place), the deletion
+    of that basket.  The user's rows are restored between cycles, so
+    every cycle starts from the same state."""
+    rows = {n: getattr(state, n)[u].clone() for n in convert.LEAVES}
+    times = {"add": [], "item delete": [], "basket delete": []}
+    b_max = state.max_basket_size
+    for rep in range(RULE_REPS + 1):
+        for n, row in rows.items():
+            getattr(state, n)[u] = row
+        nb = int(rows["n_baskets"])
+        basket = np.sort(rng.choice(n_items, size=3, replace=False))
+        items = np.full((1, b_max), PAD_ID, np.int32)
+        items[0, :3] = basket
+
+        def one(kind, pos=0, item=PAD_ID):
+            return UpdateBatch(*(torch.from_numpy(np.asarray(x, np.int32))
+                                 .to(state.device) for x in
+                                 ([kind], [u], items, [pos], [item])))
+
+        for name, batch in (("add", one(KIND_ADD_BASKET)),
+                            ("item delete",
+                             one(KIND_DEL_ITEM, nb, int(basket[1]))),
+                            ("basket delete", one(KIND_DEL_BASKET, nb))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            route(state, batch, p)
+            torch.cuda.synchronize()
+            if rep:
+                times[name].append((time.perf_counter() - t0) * 1e3)
+        assert int(state.n_baskets[u]) == nb, (u, nb)
+    for n, row in rows.items():
+        getattr(state, n)[u] = row
+    return {n: float(np.median(t)) for n, t in times.items()}
+
+
+def update_rules_path(ds, dev, card):
+    """Phase 19: the paper's update rules at TaFeng's full size.
+
+    The mixed stream of phases 8-10, in order, as UpdateBatches of
+    RULE_ROWS rows, through four routes, each on a state of its own:
+    (a) the shim on the kernels, (b) the same with the plain versions,
+    (c) the dense compute-all baseline, (d) the per-kind dense route.
+    (b), (c) and (d) held to (a), and every route to a from-scratch
+    rebuild of its own final history (integer leaves exact, vectors
+    rtol=1e-4, atol=1e-5).  Then the one-event latency of an add, an
+    item delete and a basket delete through (a) and (c) on the users
+    with the shortest and the longest history.  Launch counts are reset
+    before each route and before each latency run and read after it:
+    B1 and B2 in (a), (d)'s adds and the latency through (a), none in
+    (b) and (c).  Returns the phase's launch counts and readings."""
+    p = ds.params
+    cfg, events = mixed_stream(ds)
+    n_max = assert_adds_fit(events, cfg.n_users, cfg.max_baskets)
+    batches, counts = stream_batches(events, RULE_ROWS, cfg.max_basket_size,
+                                     dev)
+    assert sum(counts) == len(events)
+    launches = {name: 0 for name in build.launch_counts}
+
+    def counted(fn):
+        build.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(build.launch_counts)
+        for name, n in got.items():
+            launches[name] += n
+        return out, {n: c for n, c in got.items() if c}
+
+    log(f"update rules at TaFeng's full size ({cfg.n_users} users x "
+        f"{p.n_items} items, N={cfg.max_baskets}, B={cfg.max_basket_size}; "
+        f"{len(events)} events in {len(batches)} UpdateBatches of "
+        f"{RULE_ROWS} rows, {np.mean(counts):.1f} events a batch; at most "
+        f"{n_max} baskets a user, so no add meets a full history):")
+
+    def run(fn):
+        state = StreamState.zeros(cfg.n_users, p.n_items, cfg.max_baskets,
+                                  cfg.max_basket_size, cfg.max_groups,
+                                  device=dev)
+        ms = []
+        torch.cuda.synchronize()
+        t_all = time.perf_counter()
+        for batch in batches:
+            t0 = time.perf_counter()
+            fn(state, batch, p)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return state, time.perf_counter() - t_all, ms
+
+    states, r = {}, {"routes": {}}
+    for name, (fn, kernels) in RULE_ROUTES.items():
+        (state, secs, ms), got = counted(lambda: run(fn))
+        if kernels:
+            assert got.get("sparse_row_gather", 0) > 0 and \
+                got.get("sparse_row_scatter", 0) > 0, (name, got)
+            assert set(got) == {"sparse_row_gather",
+                                "sparse_row_scatter"}, (name, got)
+        else:
+            assert not got, (name, got)
+        states[name] = state
+        err = scratch_parity(state, p, name)
+        held = "" if name == KERNEL_ROUTE else \
+            f"; vs (a) {leaf_parity(state, states[KERNEL_ROUTE], name):.3e}"
+        r["routes"][name] = dict(s=secs, rate=len(events) / secs,
+                                 batch_ms=float(np.median(ms)))
+        log(f"  {name}: {secs:.3f} s, {len(events) / secs:.0f} events/s, "
+            f"median {np.median(ms):.3f} ms a batch (max "
+            f"{np.max(ms):.3f}); launches {got}; max |err| vs a "
+            f"from-scratch rebuild {err:.3e}{held} [{card}]")
+    states = {n: states[n] for n in (KERNEL_ROUTE, DENSE_ROUTE)}
+    torch.cuda.empty_cache()
+
+    nb = states[KERNEL_ROUTE].n_baskets.cpu().numpy()
+    has = np.nonzero(nb > 0)[0]
+    short, long_ = int(has[np.argmin(nb[has])]), int(np.argmax(nb))
+    rng = np.random.default_rng(19)
+    r["latency"] = {}
+    for name, state in states.items():
+        route = RULE_ROUTES[name][0]
+        for u in (short, long_):
+            res, got = counted(
+                lambda: one_event_ms(route, state, u, p, p.n_items, rng))
+            r["latency"][(name, u)] = res
+            assert bool(got) == (name == KERNEL_ROUTE), (name, got)
+            log(f"  one event through {name}, user {u} ({int(nb[u])} "
+                f"baskets): median of {RULE_REPS} host ms " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in res.items())
+                + f"; launches {got} [{card}]")
+    del states
+    torch.cuda.empty_cache()
     return launches, r
 
 
@@ -4924,6 +5200,10 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.append(compliance_path(ds, dev, card)[0])
     log(f"compliance: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths.append(update_rules_path(ds, dev, card)[0])
+    log(f"update rules: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     records["knn_topk_dtiled"]["million"], million = million_path(dev)

@@ -129,7 +129,10 @@ def closed_form_basket_weights(group_sizes: torch.Tensor,
     k = n_groups.long()
     g, p, tau, ends = row_group_geometry(group_sizes, max_baskets)
     t = torch.arange(max_baskets, device=dev)[None, :]
-    n_total = ends.gather(1, (k - 1).clamp(min=0)[:, None])[:, 0] * (k > 0)
+    # a group count past K (a dense add that overran its group table)
+    # reads K's last entry, as the JAX package's indexing does
+    last = (k - 1).clamp(0, group_sizes.shape[1] - 1)
+    n_total = ends.gather(1, last[:, None])[:, 0] * (k > 0)
     valid = (t < n_total[:, None]) & (tau > 0)
     w_b = fpow(f32(r_b, dev), tau - p) / tau.clamp(min=1)
     w_g = fpow(f32(r_g, dev), k[:, None] - 1 - g) / k.clamp(min=1)[:, None]
@@ -173,9 +176,9 @@ def last_group_basket_weights(group_sizes: torch.Tensor,
     dev = group_sizes.device
     sizes = group_sizes.long()
     ends = torch.cumsum(sizes, dim=1)
-    k = n_groups.long().clamp(min=1)[:, None]
-    tau = sizes.gather(1, k - 1)
-    start = ends.gather(1, k - 1) - tau
+    last = (n_groups.long()[:, None] - 1).clamp(0, sizes.shape[1] - 1)
+    tau = sizes.gather(1, last)
+    start = ends.gather(1, last) - tau
     t = torch.arange(max_baskets, device=dev)[None, :]
     p = t - start + 1
     valid = (p >= 1) & (p <= tau)

@@ -1,14 +1,17 @@
 """Core datatypes for the TIFU-kNN maintenance system (PyTorch port).
 
-``StreamState`` is the padded struct-of-tensors state for ``M`` users;
-its two vector tables are stored *scaled* (true = raw × per-user scale)
-so basket additions apply sparse deltas.  ``AddBatch`` /
+``RaggedUserState`` is the paper-faithful per-user state (ragged numpy,
+float64), the state of the paper's §4.3 algorithms.  ``StreamState`` is
+the padded struct-of-tensors state for ``M`` users; its two vector
+tables are stored *scaled* (true = raw × per-user scale) so basket
+additions apply sparse deltas.  ``UpdateBatch`` carries a mixed
+micro-batch (adds and deletes in one fixed shape); ``AddBatch`` /
 ``DelBasketBatch`` / ``DelItemBatch`` carry one homogeneous micro-batch
-each; their ``build`` methods pad on the host exactly as the JAX
+each, and their ``build`` methods pad on the host exactly as the JAX
 package does and place the result on ``device``.  Like every entry
-point of the port, ``StreamState.zeros`` and the ``build`` methods run
-on the CUDA device unless the caller passes another, and raise when
-there is no card.
+point of the port, ``StreamState.zeros``, ``UpdateBatch.noop`` and the
+``build`` methods run on the CUDA device unless the caller passes
+another, and raise when there is no card.
 """
 from __future__ import annotations
 
@@ -96,6 +99,42 @@ PAPER_HYPERPARAMS = {
     "valuedshopper": TifuParams(n_items=7874, group_size=7, r_b=1.0, r_g=0.6,
                                 k_neighbors=300, alpha=0.7),
 }
+
+
+@dataclasses.dataclass
+class RaggedUserState:
+    """Paper-faithful per-user state (ragged, numpy, float64).
+
+    ``history`` is a list of baskets, each a 1-D int array of item ids;
+    ``group_sizes[j]`` is the number of baskets in group ``j`` under the
+    varying group size relaxation (paper §4.3); ``user_vec`` and
+    ``last_group_vec`` are dense ``|I|`` vectors; ``err_mult`` is the
+    worst-case multiplicative error factor of the decremental updates
+    applied so far (``core.stability``).
+    """
+
+    history: List[np.ndarray]
+    group_sizes: List[int]
+    user_vec: np.ndarray
+    last_group_vec: np.ndarray
+    err_mult: float = 1.0
+
+    @property
+    def n_baskets(self) -> int:
+        return len(self.history)
+
+    @property
+    def n_groups(self) -> int:
+        return len(self.group_sizes)
+
+    @staticmethod
+    def empty(n_items: int) -> "RaggedUserState":
+        return RaggedUserState(
+            history=[],
+            group_sizes=[],
+            user_vec=np.zeros(n_items, dtype=np.float64),
+            last_group_vec=np.zeros(n_items, dtype=np.float64),
+        )
 
 
 @dataclasses.dataclass
@@ -195,6 +234,42 @@ KIND_NOOP = 0
 KIND_ADD_BASKET = 1
 KIND_DEL_BASKET = 2
 KIND_DEL_ITEM = 3
+
+
+@dataclasses.dataclass
+class UpdateBatch:
+    """A fixed-shape micro-batch of updates (adds and deletes mixed).
+
+    kind:         i32[U]    one of KIND_*
+    user:         i32[U]    target user row
+    basket_items: i32[U, B] item ids for adds (PAD_ID padded)
+    basket_pos:   i32[U]    global basket index for deletions
+    item:         i32[U]    item id for item deletions
+    """
+
+    kind: torch.Tensor
+    user: torch.Tensor
+    basket_items: torch.Tensor
+    basket_pos: torch.Tensor
+    item: torch.Tensor
+
+    @property
+    def size(self) -> int:
+        return self.kind.shape[0]
+
+    @staticmethod
+    def noop(batch: int, max_basket_size: int,
+             device: Any = None) -> "UpdateBatch":
+        """``batch`` rows of KIND_NOOP on ``device`` (CUDA unless the
+        caller names another; raises without a card)."""
+        i32 = dict(dtype=torch.int32, device=resolve_device(device))
+        return UpdateBatch(
+            kind=torch.zeros((batch,), **i32),
+            user=torch.zeros((batch,), **i32),
+            basket_items=torch.full((batch, max_basket_size), PAD_ID, **i32),
+            basket_pos=torch.zeros((batch,), **i32),
+            item=torch.full((batch,), PAD_ID, **i32),
+        )
 
 
 # ---------------------------------------------------------------------------

@@ -53,6 +53,19 @@ class BasketDataset:
     histories: Dict[int, List[np.ndarray]]   # user → chronological baskets
     params: TifuParams
 
+    def train_test_split(self):
+        """Paper §6.1: hold out each user's last basket for evaluation.
+
+        Returns ``(train, test)``: user → all baskets but the last, and
+        user → the last basket; users with fewer than two baskets are in
+        neither.
+        """
+        train, test = {}, {}
+        for u, h in self.histories.items():
+            if len(h) >= 2:
+                train[u], test[u] = h[:-1], h[-1]
+        return train, test
+
 
 def generate(name: str, seed: int = 0, scale: float = 1.0,
              repeat_bias: float = REPEAT_BIAS) -> BasketDataset:
