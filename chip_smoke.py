@@ -267,7 +267,21 @@ Phases, each fatal on failure (nothing is caught):
    attention output on the first and last 512 query rows of each
    sequence against f32 attention computed for those rows alone, by
    layer 0's bounds, and in granite's B9 timed at that shape beside
-   SDPA and its bound.  The phase keeps within 300 s;
+   SDPA and its bound.  Each program whose first call took under 3 s
+   is then called a second time, warm (``warm_s``: the first call's
+   one-time costs gone).  Then each
+   cell built again from its seed and run once more under
+   ``launch/cost.py``'s counter
+   (``dryrun.count_program``), the counts reset before it: every launch
+   matched by a work record of ``kernels/work.py``, FLOPs above 0, the
+   three roofline terms (``launch/roofline.py``, the H100's published
+   peaks), the bottleneck, ``useful_flops_ratio`` and t_bound over the
+   cold and the warm call's seconds logged; no call of a cell may run
+   faster than 1.05 times its bound.  First,
+   three cells (tifu-knn ``serve_topk``, granite ``train_4k``, two-tower
+   ``retrieval_cand``) at smoke sizes count the same ``Costs`` under
+   ``ops.default_impl("cuda")`` and ``("ref")``.  The phase keeps
+   within 300 s;
 19. the paper's update rules (run right after phase 10: it uses no
    profiler) -- the mixed stream of phases 8-10 at TaFeng's full size,
    in order, as ``UpdateBatch``es of 512 rows (a batch closed early
@@ -318,7 +332,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.compliance import certify, retained_histories  # noqa: E402
-from repro_torch.configs import all_cells, get_arch  # noqa: E402
+from repro_torch.configs import all_cells, get_arch, smoke_sizes  # noqa: E402
 from repro_torch.configs import (bert4rec_cfg,  # noqa: E402
                                  deepfm_cfg, deepseek_v3_671b, dimenet_cfg,
                                  dlrm_mlperf, gemma3_27b, granite_3_2b,
@@ -335,10 +349,10 @@ from repro_torch.data import stream, synthetic  # noqa: E402
 from repro_torch.kernels import (build, decayed_scatter,  # noqa: E402
                                  flash_attention, knn_topk, ops, ref,
                                  serving_topn, sparse_row_gather,
-                                 sparse_row_scatter)
+                                 sparse_row_scatter, work)
 from repro_torch.models import (bert4rec, deepfm, dimenet,  # noqa: E402
                                 dlrm, transformer, two_tower)
-from repro_torch.launch import dryrun, serve  # noqa: E402
+from repro_torch.launch import dryrun, roofline, serve  # noqa: E402
 from repro_torch.launch import train as train_lm  # noqa: E402
 from repro_torch.launch.mesh import make_user_shard_devices  # noqa: E402
 from repro_torch.optim import optimizers  # noqa: E402
@@ -350,12 +364,6 @@ from repro_torch.streaming import (AsyncCheckpointer, Event,  # noqa: E402
                                    StoreConfig, StreamingEngine, faults,
                                    load_checkpoint_arrays)
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, int8
-# in the tensor cores, HBM3
-PEAK_FP32 = 67e12
-PEAK_INT8 = 1979e12
-PEAK_BF16 = 989e12
-PEAK_BYTES = 3.35e12
 Q, TOPN, ALPHA = 256, 10, 0.7
 BD = 512                         # the int8 serving path's D tile
 REPS = 5
@@ -414,6 +422,15 @@ CELL_SEED, CELL_PHASE_S, LONG_ROWS = 18, 300.0, 512
 # ... and the query heads the f32 attention takes at a time (DeepSeek's
 # 128 at D 192: 1 GiB of scores a chunk of 16)
 LONG_HEADS = 16
+# ... no cell may run faster than this many times its roofline bound
+BOUND_SLACK = 1.05
+# ... and a first call this long (s) is not called again warm: its
+# one-time costs are a small share of it (each such cell read within 1%
+# warm on the H100, where a first call's costs came to at most 0.5 s)
+WARM_MAX_S = 3.0
+# ... the cells counted on the kernel and the plain route at smoke sizes
+ROUTE_CELLS = (("tifu-knn", "serve_topk"), ("granite-3-2b", "train_4k"),
+               ("two-tower-retrieval", "retrieval_cand"))
 CELL_RESIDENT_MAX = 1 << 31
 # (rows, ids) dtypes the sparse pair reads as given
 INDEX_PAIRS = ((torch.int32, torch.int32), (torch.int64, torch.int32),
@@ -491,10 +508,11 @@ def time_ms(fn, reps: int = REPS):
     return float(np.median(times))
 
 
-def bound(n_bytes: float, n_ops: float, peak: float = PEAK_FP32) -> tuple:
-    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / peak
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+def bound(name: str, **inputs) -> tuple:
+    """(ms, "bytes" | "operations"): ``roofline.kernel_bound`` of
+    ``kernels/work.py``'s ``name`` on ``inputs``."""
+    seconds, by = roofline.kernel_bound(name, **inputs)
+    return seconds * 1e3, by
 
 
 def card_line() -> str:
@@ -648,14 +666,15 @@ def check_sparse(gen, table, u, w_add, w_del, records):
                 plain_ms=timings["gather_plain"],
                 library_ms=indexing["ms"],
                 shape=f"U={u} W={w} int64 rows, int32 ids",
-                bound=bound(u * 8 + u * w * 4 + n_valid * 4 + u * w * 4,
-                            0))
+                bound=bound("sparse_row_gather", table=table, rows=rows64,
+                            ids=ids))
             records["sparse_row_scatter"] = dict(
                 max_abs_err=s_err, ms=scatter["ms"],
                 plain_ms=timings["scatter_plain"],
                 library_ms=put["ms"],
                 shape=f"U={u} W={w} int64 rows, int32 ids",
-                bound=bound(u * 8 + 2 * u * w * 4 + n_cells * 8, n_valid))
+                bound=bound("sparse_row_scatter", table=table, rows=rows64,
+                            ids=ids, vals=vals))
     # the appliers' shape (distinct users, then the padding rows of a
     # pow2 bucket: user 0, PAD ids, zero deltas), and a sub-batch 8x the
     # engine's (every block scans all U rows)
@@ -908,22 +927,16 @@ def b3_timed(q, c, k, what, metric="euclidean", query_gids=None) -> dict:
     if metric == "dot":
         def library():
             return torch.topk(q @ c.T, k)
-        n_ops = 2.0 * q_n * m * d                 # the q.c products
     else:
         cn = ref.corpus_sqnorm(c)
 
         def library():
             return torch.topk(2.0 * (q @ c.T) - cn[None, :], k)
-        n_ops = 2.0 * q_n * m * d + 2.0 * m * d   # and the |c|^2 sums
-    n_gids = 0 if query_gids is None else q_n
     r = dict(ms=time_ms(call),
              plain_ms=time_ms(lambda: ref.knn_topk_ref(q, c, k, **kw)),
              library_ms=time_ms(library),
              shape=f"Q={q_n} M={m} D={d} k={k} {metric}",
-             # q, c and the query gids read once, [Q, k] values and ids
-             # written
-             bound=bound((q_n * d + m * d + n_gids) * 4 + q_n * k * 8,
-                         n_ops))
+             bound=bound("knn_topk", queries=q, corpus=c, k=k, **kw))
     reps = 5
     own, every, n_rec = device_ms(call, ("knn_tile_kernel",
                                          "merge_lists_kernel"), reps)
@@ -1049,11 +1062,7 @@ def check_stage_b(corpus, c_int, uid, records):
     check_blend_edges(torch.Generator(device=corpus.device).manual_seed(4),
                       corpus, uid, nbr)
     used = torch.unique(torch.cat([nbr.reshape(-1), uid]).long())
-    # the distinct rows read once and ids in, [Q, n] out; Q·(k+1)·I fp32
-    # adds (an add takes an FMA's slot, which the peak counts as two
-    # operations)
-    n_bytes = used.numel() * n_items * 4 + Q * (k + 1) * 4 + Q * TOPN * 8
-    n_ops = 2.0 * Q * (k + 1) * n_items
+    b4_work = dict(corpus=corpus, user_ids=uid, nbr_idx=nbr, topn=TOPN)
     u, nb = uid.long(), nbr.long()
     b4 = three_readings(lambda: serving_topn.launch(corpus, uid, nbr, ALPHA,
                                                     TOPN),
@@ -1067,11 +1076,11 @@ def check_stage_b(corpus, c_int, uid, records):
                                                     ALPHA, TOPN)),
         library_ms=lib["ms"],
         shape=f"Q={Q} M={m} I={n_items} k={k} n={TOPN}",
-        bound=bound(n_bytes, n_ops))
+        bound=bound("blend_topn_onehot", **b4_work))
     rec = records["blend_topn_onehot"]
+    t_bytes, t_ops = roofline.kernel_terms("blend_topn_onehot", **b4_work)
     log(f"  stage B bound: {used.numel()} distinct rows used, bytes "
-        f"{n_bytes / PEAK_BYTES * 1e3:.4f} ms, operations "
-        f"{n_ops / PEAK_FP32 * 1e3:.4f} ms")
+        f"{t_bytes * 1e3:.4f} ms, operations {t_ops * 1e3:.4f} ms")
     log(f"  stage B timed: {readings_str(b4)} (plain {rec['plain_ms']:.4f};"
         f" gather + mean + topk {readings_str(lib)})")
 
@@ -1295,16 +1304,12 @@ def check_dtiled(corpus, c_int, uid, records):
             2.0 * (qf @ corpus.T) - fp_cn[None, :], 300)))
     records["knn_topk_dtiled_f32"] = dict(
         max_abs_err=err, shape=f"fp32 Q={Q} M={m} D={d} k=300 bd={BD}",
-        # queries, rows and ids read once, top-k out; the q.c products
-        # and the |c|^2 sums, 2*Q*M*D + 2*M*D fp32 operations
-        bound=bound((Q * d + m * d + Q) * 4 + Q * 300 * 8,
-                    2.0 * Q * m * d + 2.0 * m * d), **f32)
+        bound=bound("knn_topk_dtiled", queries=qf, corpus=corpus, k=300,
+                    query_gids=uid), **f32)
     records["knn_topk_dtiled"] = dict(
         max_abs_err=0.0, shape=f"int8 Q={Q} M={m} D={d} k=300 bd={BD}",
-        # int8 rows and queries read once, scales, norms, ids in, top-k
-        # out; 2*Q*M*D int8 operations
-        bound=bound(Q * d + m * d + (m + Q) * 12 + Q * 300 * 8,
-                    2.0 * Q * m * d, PEAK_INT8), **timings)
+        bound=bound("knn_topk_dtiled", queries=cq[u], corpus=cq, k=300,
+                    **kq), **timings)
     log(f"  D-tiled stage A plans: int8 {plan_str(cq[u], cq, 300, BD)}; "
         f"fp32 {plan_str(qf, corpus, 300, BD)}")
     log(f"  D-tiled stage A timed: int8 {timings['ms']:.4f} ms on the "
@@ -1389,22 +1394,19 @@ def million_path(dev):
     out = {}
     q8, c8_t = pad8(cq[u]), pad8(cq).t()
     cn_q, cn = ref.tiled_sqnorm_ref(cq, BIG_BD), ref.corpus_sqnorm(c)
-    for mode, args, kw, lib, peak, size in (
+    for mode, args, kw, lib in (
             ("int8", (cq[u], cq), kq,
-             lambda: int_mm_topk(q8, c8_t, cs[u], cs, cn_q, BIG_K),
-             PEAK_INT8, 1),
+             lambda: int_mm_topk(q8, c8_t, cs[u], cs, cn_q, BIG_K)),
             ("fp32", (c[u], c), dict(query_gids=uid),
-             lambda: torch.topk(2.0 * (c[u] @ c.T) - cn[None, :], BIG_K),
-             PEAK_FP32, 4)):
+             lambda: torch.topk(2.0 * (c[u] @ c.T) - cn[None, :], BIG_K))):
         t = dict(
             ms=time_ms(lambda: knn_topk.launch_dtiled(
                 *args, BIG_K, bd=BIG_BD, **kw), 3),
             plain_ms=time_ms(lambda: ref.dtiled_topk_ref(
                 *args, BIG_K, bd=BIG_BD, **kw), 3),
             library_ms=time_ms(lib, 3))
-        t["bound"] = bound((BIG_Q + BIG_M) * BIG_I * size
-                           + (BIG_M + BIG_Q) * 12 + BIG_Q * BIG_K * 8,
-                           2.0 * BIG_Q * BIG_M * BIG_I, peak)
+        t["bound"] = bound("knn_topk_dtiled", queries=args[0],
+                           corpus=args[1], k=BIG_K, **kw)
         out[mode] = t
         pl = knn_topk.plan_for(*args, BIG_K, BIG_BD)
         assert pl.blocks >= 100, (mode, pl)
@@ -1506,10 +1508,7 @@ def check_rows(corpus, c_int, cq, cs, uid, nbr, records):
         f"exact")
     del ci8, ci_s
     n_items = corpus.shape[1]
-    used = torch.unique(torch.cat([nb.reshape(-1), u]))
     qf, qq, qs = corpus[u], cq[u], cs[u]
-    # Q*(k+1)*I adds (int8: multiply-adds) in FMA slots, two operations
-    ops_b = 2.0 * Q * (k + 1) * n_items
     # one call by events, as in the table; beside it a burst of 10 by
     # events and the profiler's time per recorded launch of both kernels
     def b7():
@@ -1538,7 +1537,8 @@ def check_rows(corpus, c_int, cq, cs, uid, nbr, records):
                                                          TOPN)),
         library_ms=time_ms(lambda: torch.topk(
             ALPHA * qf + (1.0 - ALPHA) * rows.mean(1), TOPN)),
-        bound=bound(Q * (k + 1) * n_items * 4 + Q * TOPN * 8, ops_b))
+        bound=bound("blend_topn_rows", queries=qf, neighbor_rows=rows,
+                    topn=TOPN))
     del rows
     own, _, n_rec = device_ms(b6, ("rows_ring_kernel", "merge_lists_kernel"))
     records["blend_topn_rows_quant"] = dict(
@@ -1552,9 +1552,8 @@ def check_rows(corpus, c_int, cq, cs, uid, nbr, records):
         library_ms=time_ms(lambda: torch.topk(
             ALPHA * (qq.float() * qs[:, None]) + (1.0 - ALPHA)
             * (cq[nb].float() * cs[nb][..., None]).mean(1), TOPN)),
-        # the distinct rows read once, int8, with ids and scales
-        bound=bound(used.numel() * n_items + Q * k * 8 + Q * TOPN * 8,
-                    ops_b))
+        bound=bound("blend_topn_rows_indexed", queries_q=qq, q_scale=qs,
+                    corpus_q=cq, c_scale=cs, nbr_idx=nbr, topn=TOPN))
     for name in ("blend_topn_rows", "blend_topn_rows_quant"):
         r = records[name]
         log(f"  {name} timed: {r['ms']:.4f} ms one call, profiler "
@@ -2015,7 +2014,8 @@ def rebuild_path(kern, p, dev, records):
                                                  accumulate=True)))
     records["decayed_scatter"] = dict(
         t, max_abs_err=err, shape=f"U={u} N={n} B={b} I={n_items}",
-        bound=bound(hist.numel() * 4 + w.numel() * 4 + u * n_items * 4, 0))
+        bound=bound("decayed_scatter", ids=hist, weights=w,
+                    n_items=n_items))
     return launches
 
 
@@ -3193,15 +3193,6 @@ def check_flash_edges(dev):
         + ", ".join(f"{k} {e}" for k, e in worst.items()))
 
 
-def attention_flops(b, s, h, d, dv=None, window=0):
-    """2·D flops for QKᵀ and 2·Dv for P·V per unmasked (query, key) pair
-    of causal attention: S(S+1)/2 pairs per (batch, head), or with a
-    window w < S, w(w+1)/2 + (S - w)·w."""
-    w = window if 0 < window < s else s
-    pairs = w * (w + 1) / 2 + (s - w) * w
-    return 2.0 * (d + (d if dv is None else dv)) * b * h * pairs
-
-
 # the profiler's name of each design's kernel
 FLASH_KERNEL_NAMES = {WGMMA: "flash_wgmma_kernel", MMA: "flash_mma_kernel",
                       CORES: "flash_kernel"}
@@ -3255,11 +3246,7 @@ def lm_attention_check(c, model, tokens, design, what) -> dict:
                                                          window=win)),
         library_ms=time_ms(lambda: lib(qt, kt, vt, attn_mask=mask,
                                        is_causal=mask is None)))
-    # q, k and v read once, an output of q's rows and v's width written
-    # once
-    io_bytes = sum(a.numel() * a.element_size() for a in (q, k, v)) \
-        + b * s * h * v.shape[-1] * v.element_size()
-    flops = attention_flops(b, s, h, d, v.shape[-1], win)
+    flops = work.flash_attention(q, k, v, window=win).ops
     # the event time of one call holds the wrapper's host time and the
     # launch's latency; beside it: the profiler's time of the kernel
     # alone (over the records the trace holds), the time a call of 10
@@ -3289,7 +3276,7 @@ def lm_attention_check(c, model, tokens, design, what) -> dict:
         host_ms=host_ms,
         shape=f"B={b} S={s} H={h} KV={k.shape[2]} D={d}{pad} bf16 causal"
               + (f" window {win}" if win else ""),
-        bound=bound(io_bytes, flops, PEAK_BF16))
+        bound=bound("flash_attention", q=q, k=k, v=v, window=win))
     log(f"  layer 0 prefill attention {rec['shape']}:"
         f" kernel vs plain max |err| {err} (bound 3e-2, or one bf16 step "
         f"of the largest output, {out_max}, where more); output rms "
@@ -4076,23 +4063,11 @@ FLASH_BWD_CASES = (
 # 9b's kernels: the CUDA-core design's and the Hopper design's
 FLASH_BWD_KERNELS = flash_attention.BWD_KERNELS[CORES]
 FLASH_BWD_WGMMA_KERNELS = flash_attention.BWD_KERNELS[WGMMA]
-# the backward's products, as (products of width D, of width Dv), each
-# 2·width flops per visible (query, key) pair: the gradient's own 5 (S,
-# dK, dQ at D; dP, dV at Dv; 2.5x the forward's at Dv = D), the least
-# work given the log-sum-exp that B9 saves (the Hopper design's bound);
-# with the 2 that recompute each row's log-sum-exp (S and dP again:
-# 3.5x, the CUDA-core design's bound, which gets no lse); and the 9
-# either design runs (each row's S and dP in each of its three launches:
-# 4.5x), logged beside
-FLASH_BWD_OWN = (3, 2)
-FLASH_BWD_CORES = (4, 3)
+# the backward's products beside the gradient's own 5 that its bound
+# counts (``work.GRAD_PRODUCTS``), as (products of width D, of width
+# Dv): the 9 either design runs (each row's S and dP in each of its
+# three launches: 4.5x the forward's), logged beside
 FLASH_BWD_RUN = (5, 4)
-
-
-def bwd_flops(products, d, dv, pairs) -> float:
-    """The flops of ``products`` (one of the three above) over ``pairs``
-    visible (query, key) pairs at Q/K width ``d`` and V width ``dv``."""
-    return 2.0 * (products[0] * d + products[1] * dv) * pairs
 # B9's saved log-sum-exp against the plain one: ex2.approx and another
 # summation order, a few f32 ulps of values below ~20
 FLASH_LSE_ATOL = 1e-4
@@ -4149,15 +4124,6 @@ def flash_bwd_library(q, k, v, do, window, causal):
     dot = do.transpose(1, 2).contiguous()
     return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                        retain_graph=True)
-
-
-def visible_pairs(s, causal, window) -> int:
-    """The (query, key) pairs the mask leaves visible, per (batch,
-    head)."""
-    qp = np.arange(s)
-    hi = qp if causal else np.full(s, s - 1)
-    lo = np.maximum(qp - window + 1, 0) if window else np.zeros(s, int)
-    return int(np.maximum(hi - lo + 1, 0).sum())
 
 
 def check_saved_lse(q, k, v, causal, win, what):
@@ -4246,17 +4212,12 @@ def check_flash_bwd(dev) -> dict:
         end.record()
         end.synchronize()
         burst_ms = start.elapsed_time(end) / 10
-        # q, k, v and dO read once (with B9's lse where the design reads
-        # it), dq, dk and dv written once
-        io = sum(x.numel() * x.element_size() for x in (q, k, v, do)) * 2 \
-            - do.numel() * do.element_size() + sum(
-                x.numel() * x.element_size() for x in saved.values())
-        pairs = b * h * visible_pairs(s, causal, win)
-        work = FLASH_BWD_OWN if design == WGMMA else FLASH_BWD_CORES
-        flops = bwd_flops(work, d, dv, pairs)
-        run_flops = bwd_flops(FLASH_BWD_RUN, d, dv, pairs)
+        grad = dict(q=q, k=k, v=v, dout=do, causal=causal, window=win)
+        flops = work.flash_attention_bwd(**grad).ops
+        run_flops = work.flash_attention_bwd(**grad,
+                                             products=FLASH_BWD_RUN).ops
         # the work over the forward's 2·(D + Dv) flops a pair
-        ratio = flops / (2.0 * (d + dv) * pairs)
+        ratio = flops / work.flash_attention(q, k, v, causal, win).ops
         recs[what] = dict(
             t, max_abs_err=max(e["err"] for e in errs), device_ms=prof,
             burst_ms=burst_ms, host_ms=host_ms,
@@ -4266,8 +4227,9 @@ def check_flash_bwd(dev) -> dict:
                   + ("causal" if causal else "no causal mask")
                   + (f" window {win}" if win else "")
                   + (" unaligned rows" if pad else ""),
-            bound=bound(io, flops, PEAK_BF16),
-            bound_run=bound(io, run_flops, PEAK_BF16))
+            bound=bound("flash_attention_bwd", **grad),
+            bound_run=bound("flash_attention_bwd", **grad,
+                            products=FLASH_BWD_RUN))
         r = recs[what]
         log(f"  9b {what} ({r['shape']}): kernel vs plain "
             + ", ".join(f"{n} max |err| {e['err']} (of {e['top']:.4g}), rms "
@@ -4581,8 +4543,9 @@ def tifu_run(prog, dev, shape, build_s, built, card):
         f"{res['device_bytes'] / 2 ** 30:.2f}, fits {res['fits']}), "
         f"model {res['model_flops']:.4g} FLOP at "
         f"{res['model_flops_per_s']:.4g} FLOP/s "
-        f"({res['model_flops_per_s'] / PEAK_FP32:.2%} of fp32's 67 "
-        f"TFLOP/s); cuts {res['reduced'] or 'none'}; launches in the build "
+        f"({res['model_flops_per_s'] / roofline.PEAKS['f32']:.2%} of "
+        f"fp32's 67 TFLOP/s); cuts {res['reduced'] or 'none'}; launches in "
+        f"the build "
         f"{ {n: built[n] for n in KERNELS if built.get(n)} }, in the run "
         f"{ {n: c for n, c in ran.items() if c} } [{card}]")
     return res, out, ran, both
@@ -4711,14 +4674,13 @@ def tifu_serve(dev, card):
     params = tifu_knn.make_params(sz.n_items)
     k, alpha = sz.topk, params.alpha
     b3_flops = 2.0 * sz.n_queries * sz.n_users * sz.n_items
-    b3_bound_ms, _ = bound(4.0 * (sz.n_users + sz.n_queries) * sz.n_items
-                           + 8.0 * sz.n_queries * k, b3_flops)
 
     prog, build_s, built = tifu_cell("serve_topk", dev)
     res, pred, ran, launches = tifu_run(prog, dev, "serve_topk", build_s,
                                         built, card)
     assert ran["knn_topk"] > 0, ran
     queries, corpus = prog.args
+    b3_bound_ms, _ = bound("knn_topk", queries=queries, corpus=corpus, k=k)
     # B8's first chunk of the corpus: its histories drawn again from the
     # seed (the build's first draws), then the plain version
     c = min(tifu_knn.BUILD_CHUNK, sz.n_users)
@@ -4980,9 +4942,9 @@ def long_attention_check(first, what, card, timed) -> dict:
         ms = time_ms(lambda: flash_attention.launch(q, k, v, window=win))
         lib_ms = time_ms(lambda: lib(qt, kt, vt, is_causal=True))
         del qt, kt, vt
-        io_bytes = sum(a.numel() * a.element_size() for a in (q, k, v, got))
-        flops = attention_flops(b, s, h, d, v.shape[3], win)
-        bound_ms, bound_by = bound(io_bytes, flops, PEAK_BF16)
+        flops = work.flash_attention(q, k, v, window=win).ops
+        bound_ms, bound_by = bound("flash_attention", q=q, k=k, v=v,
+                                   window=win)
         rec.update(ms=ms, library_ms=lib_ms, bound=(bound_ms, bound_by),
                    plan=str(flash_attention.plan_flash(q, k, v, win)))
         timing = (f"; {ms:.4f} ms (events, median of {REPS}), "
@@ -4997,12 +4959,70 @@ def long_attention_check(first, what, card, timed) -> dict:
     return rec
 
 
+def route_parity(dev, card) -> None:
+    """``ROUTE_CELLS`` at smoke sizes counted under
+    ``ops.default_impl("cuda")`` and ``("ref")``: the same ``Costs``, the
+    hand-written kernels' work and calls included."""
+    for name, shape in ROUTE_CELLS:
+        costs = {}
+        for impl in ("cuda", "ref"):
+            prog, _ = dryrun.build_cell(name, shape, dev, CELL_SEED,
+                                        smoke_sizes(name, shape))
+            with ops.default_impl(impl):
+                costs[impl] = dryrun.count_program(prog, dev)
+            del prog
+        assert costs["cuda"] == costs["ref"], (name, shape, costs)
+        c = costs["cuda"]
+        log(f"  {name} x {shape} at smoke sizes: the same Costs on the kernel "
+            f"and the plain route ({c.flops:.6g} FLOP, {c.bytes:.6g} bytes, "
+            f"kernel calls {c.kernel_calls}) [{card}]")
+
+
+def count_cell(name, shape, dev, run_s, warm_s, model_flops) -> dict:
+    """The cell built again from ``CELL_SEED`` and run once under the cost
+    counter, the launch counts set to 0 just before and read just after:
+    every launch matched by a work record.  Returns the dry run's
+    roofline fields, with ``t_bound`` (s) and the launches; ``run_s`` and
+    ``warm_s`` are the cell's cold and warm call (``None``: not made)."""
+    t0 = time.perf_counter()
+    prog, _ = dryrun.build_cell(name, shape, dev, CELL_SEED)
+    t1 = time.perf_counter()
+    build.reset_launch_counts()
+    costs = dryrun.count_program(prog, dev)
+    t2 = time.perf_counter()
+    launched = {n: c for n, c in build.launch_counts.items() if c}
+    del prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert launched == costs.kernel_calls, (name, shape, launched,
+                                            costs.kernel_calls)
+    fields = dryrun.roofline_fields(costs, model_flops)
+    rt = fields["roofline"]
+    t_b = dryrun.t_bound(fields)
+    assert rt["flops"] > 0, (name, shape, rt)
+    log(f"    roofline: compute {rt['t_compute_s']:.6g} s, memory "
+        f"{rt['t_memory_s']:.6g} s, collective {rt['t_collective_s']:.6g} "
+        f"s ({rt['flops']:.6g} FLOP {rt['flops_by_dtype']}, "
+        f"{rt['hbm_bytes']:.6g} bytes), bottleneck {rt['bottleneck']}; "
+        f"useful_flops_ratio {fields['useful_flops_ratio']}; t_bound / run_s "
+        f"{t_b / run_s:.4f}"
+        + ("" if warm_s is None else f", / warm_s {t_b / warm_s:.4f} "
+           f"(warm call {warm_s:.6f} s)")
+        + f"; kernels {costs.kernels or 'none'}; built again in "
+        f"{t1 - t0:.3f} s, counted run {t2 - t1:.3f} s")
+    return dict(fields, t_bound=t_b, count_launches=launched)
+
+
 def cells_path(dev, card) -> tuple:
     """Phase 18: each of the 43 cells of ``configs.all_cells()`` built
     and run once through the dry run on an otherwise empty card, nothing
-    caught.  Returns (the runs' launch counts, {(arch, shape): readings},
-    B9's records at S = 32,768 by arch: layer 0 of each prefill_32k
-    cell, granite's timed)."""
+    caught, then built again and counted (``count_cell``): no cell runs
+    faster than ``BOUND_SLACK`` times its roofline bound, cold or warm
+    (a second call of the first program, timed where the first took
+    under ``WARM_MAX_S``); first
+    ``route_parity``.  Returns (the runs' launch counts, {(arch, shape):
+    readings}, B9's records at S = 32,768 by arch: layer 0 of each
+    prefill_32k cell, granite's timed)."""
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -5010,6 +5030,7 @@ def cells_path(dev, card) -> tuple:
     log(f"the registry's cells ({resident:,} bytes resident before) "
         f"[{card}]")
     assert resident < CELL_RESIDENT_MAX, resident
+    route_parity(dev, card)
     total = dict.fromkeys(KERNELS, 0)
     readings, long_recs = {}, {}
     for name, shape in all_cells():
@@ -5050,7 +5071,15 @@ def cells_path(dev, card) -> tuple:
             + ("; the peak holds layer 0's K and V for B9's check"
                if watch else "") + f" [{card}]")
         readings[(name, shape)] = dict(res, build_s=build_s, launches=ran)
-        del prog, out, outs
+        del out, outs
+        gc.collect()
+        torch.cuda.empty_cache()
+        # a second call, warm, where the first call's one-time costs
+        # may be a large share of it: its output dropped at once
+        warm_s = (dryrun.run_program(prog, dev)[0]["run_s"]
+                  if res["run_s"] < WARM_MAX_S else None)
+        readings[(name, shape)]["warm_s"] = warm_s
+        del prog
         gc.collect()
         torch.cuda.empty_cache()
         if watch:
@@ -5058,12 +5087,20 @@ def cells_path(dev, card) -> tuple:
             long_recs[name] = long_attention_check(first, name, card, timed)
             del first
             torch.cuda.empty_cache()
+        readings[(name, shape)].update(count_cell(
+            name, shape, dev, res["run_s"], warm_s, res["model_flops"]))
     phase_s = time.perf_counter() - t_phase
+    # t_bound over the faster of the two calls
+    share = {c: r["t_bound"] / min(r["run_s"], r["warm_s"] or r["run_s"])
+             for c, r in readings.items()}
+    faster = {c: x for c, x in share.items() if x > BOUND_SLACK}
     log(f"  the registry's {len(readings)} cells: launches "
-        f"{ {n: c for n, c in total.items() if c} }; phase {phase_s:.1f} s "
-        f"(budget {CELL_PHASE_S:.0f} s) [{card}]")
+        f"{ {n: c for n, c in total.items() if c} }; t_bound / the faster "
+        f"call {min(share.values()):.4f}-{max(share.values()):.4f}"
+        f"; phase {phase_s:.1f} s (budget {CELL_PHASE_S:.0f} s) [{card}]")
     assert len(readings) == 43, len(readings)
     assert len(long_recs) == 5, sorted(long_recs)
+    assert not faster, ("cells faster than their roofline", faster)
     assert phase_s <= CELL_PHASE_S, phase_s
     return total, readings, long_recs
 

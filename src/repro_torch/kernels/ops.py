@@ -12,6 +12,13 @@ This is the one place that maps ``impl`` and the device to an
 implementation: the kernel modules hold only their ``launch`` wrappers,
 ``ref`` only the plain versions.  There is no silent fallback: a kernel
 that fails to build or launch, or input it does not take, raises.
+
+Every route runs inside ``work.kernel``: with a cost counter active
+(``launch/cost.py``) the kernel's work on these inputs
+(``kernels/work.py``) is recorded once, on either route, before the
+route runs, and the counter counts none of the route's own operations
+(the plain version's sorts and temporaries, a wrapper's allocations).
+A composite dispatcher records each kernel it runs.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import serving_topn as _blend
 from repro_torch.kernels import sparse_row_gather as _gather
 from repro_torch.kernels import sparse_row_scatter as _scatter
+from repro_torch.kernels import work
 
 IMPLS = ("auto", "cuda", "ref")
 _DEFAULT_IMPL = "auto"
@@ -69,11 +77,13 @@ def knn_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     """
     if metric not in ("euclidean", "dot"):
         raise ValueError(f"knn_topk scores euclidean or dot, not {metric}")
-    if uses_kernel(corpus, impl):
-        return _knn.launch(queries, corpus, k, metric=metric,
-                           query_gids=query_gids)
-    return ref.knn_topk_ref(queries, corpus, k, metric=metric,
-                            query_gids=query_gids)
+    with work.kernel(work.knn_topk, queries, corpus, k, metric=metric,
+                     query_gids=query_gids):
+        if uses_kernel(corpus, impl):
+            return _knn.launch(queries, corpus, k, metric=metric,
+                               query_gids=query_gids)
+        return ref.knn_topk_ref(queries, corpus, k, metric=metric,
+                                query_gids=query_gids)
 
 
 def sparse_row_gather(table: torch.Tensor, rows: torch.Tensor,
@@ -83,9 +93,10 @@ def sparse_row_gather(table: torch.Tensor, rows: torch.Tensor,
 
     O(U·W) elements addressed (the update-path supports, W ≪ I).
     """
-    if uses_kernel(table, impl):
-        return _gather.launch(table, rows, ids)
-    return ref.sparse_row_gather_ref(table, rows, ids)
+    with work.kernel(work.sparse_row_gather, table, rows, ids):
+        if uses_kernel(table, impl):
+            return _gather.launch(table, rows, ids)
+        return ref.sparse_row_gather_ref(table, rows, ids)
 
 
 def sparse_row_scatter(table: torch.Tensor, rows: torch.Tensor,
@@ -96,9 +107,10 @@ def sparse_row_scatter(table: torch.Tensor, rows: torch.Tensor,
     ``table[rows[r], ids[r, w]] += vals[r, w]`` for valid ids; O(U·W)
     elements addressed (the Eq. 7-13 deltas).
     """
-    if uses_kernel(table, impl):
-        return _scatter.launch(table, rows, ids, vals)
-    return ref.sparse_row_scatter_ref(table, rows, ids, vals)
+    with work.kernel(work.sparse_row_scatter, table, rows, ids, vals):
+        if uses_kernel(table, impl):
+            return _scatter.launch(table, rows, ids, vals)
+        return ref.sparse_row_scatter_ref(table, rows, ids, vals)
 
 
 def knn_topk_dtiled(queries: torch.Tensor, corpus: torch.Tensor, k: int,
@@ -119,9 +131,12 @@ def knn_topk_dtiled(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     kw = dict(query_gids=query_gids, col_offset=col_offset,
               col_stride=col_stride, sub_qnorm=sub_qnorm, q_scale=q_scale,
               c_scale=c_scale)
-    if uses_kernel(corpus, impl):
-        return _knn.launch_dtiled(queries, corpus, k, bd=bd, **kw)
-    return ref.dtiled_topk_ref(queries, corpus, k, bd=bd, **kw)
+    with work.kernel(work.knn_topk_dtiled, queries, corpus, k,
+                     query_gids=query_gids, sub_qnorm=sub_qnorm,
+                     q_scale=q_scale, c_scale=c_scale):
+        if uses_kernel(corpus, impl):
+            return _knn.launch_dtiled(queries, corpus, k, bd=bd, **kw)
+        return ref.dtiled_topk_ref(queries, corpus, k, bd=bd, **kw)
 
 
 def _serving_k(k: int, topn: int, n_items: int, m: int) -> int:
@@ -147,9 +162,10 @@ def fused_recommend(corpus: torch.Tensor, user_ids: torch.Tensor, k: int,
     The kernel path is stage A (``knn_topk``: O(Q·M·I) compute, [Q, k]
     out; with ``bd`` the D-tiled ``knn_topk_dtiled``, euclidean) then
     stage B (``blend_topn_onehot``: each group's distinct neighbour rows
-    read once per item tile, O(Q·k·I) adds, [Q, n] out).  The
-    plain path is ``ref.fused_recommend_ref``, the JAX reference's
-    unfused pipeline (``ref.fused_recommend_dtiled_ref`` with ``bd``).
+    read once per item tile, O(Q·k·I) adds, [Q, n] out).  The plain
+    path runs the two stages of the JAX reference's unfused pipeline
+    (``ref.fused_recommend_ref``'s, or ``ref.fused_recommend_dtiled_ref``'s
+    with ``bd``).
     ``k`` is clamped to M−1 (``_serving_k``).  The kernels score
     euclidean and dot only, and no TPU kernel scores cosine either:
     ``metric="cosine"`` takes the plain path on every impl and device,
@@ -162,21 +178,30 @@ def fused_recommend(corpus: torch.Tensor, user_ids: torch.Tensor, k: int,
     if q_n == 0 or m == 0:
         return torch.zeros((q_n, topn), dtype=torch.int32,
                            device=corpus.device)
-    if not kernel or metric == "cosine":
-        if bd is not None and metric != "cosine":
-            return ref.fused_recommend_dtiled_ref(corpus, user_ids, k,
-                                                  alpha, topn, bd)
+    if metric == "cosine":
         return ref.fused_recommend_ref(corpus, user_ids, k, alpha, topn,
                                        metric)
     queries = corpus[user_ids.long()]
-    if bd is None:
-        _, idx = _knn.launch(queries, corpus, k, metric=metric,
-                             query_gids=user_ids)
-    else:
-        _, idx = _knn.launch_dtiled(queries, corpus, k, bd=bd,
-                                    query_gids=user_ids)
-    _, ids = _blend.launch(corpus, user_ids, idx, alpha, topn)
-    return ids
+    with (work.kernel(work.knn_topk, queries, corpus, k, metric=metric,
+                      query_gids=user_ids) if bd is None else
+          work.kernel(work.knn_topk_dtiled, queries, corpus, k,
+                      query_gids=user_ids)):
+        if not kernel:
+            idx = (ref.fused_topk_ref(queries, corpus, user_ids, k, metric)
+                   if bd is None else
+                   ref.dtiled_topk_ref(queries, corpus, k, bd=bd,
+                                       query_gids=user_ids)[1])
+        elif bd is None:
+            _, idx = _knn.launch(queries, corpus, k, metric=metric,
+                                 query_gids=user_ids)
+        else:
+            _, idx = _knn.launch_dtiled(queries, corpus, k, bd=bd,
+                                        query_gids=user_ids)
+    with work.kernel(work.blend_topn_onehot, corpus, user_ids, idx, topn):
+        if not kernel:
+            return ref.blend_topn_rows_ref(queries, corpus[idx.long()],
+                                           alpha, topn)[1]
+        return _blend.launch(corpus, user_ids, idx, alpha, topn)[1]
 
 
 def fused_recommend_quant(corpus_q: torch.Tensor, c_scale: torch.Tensor,
@@ -190,8 +215,8 @@ def fused_recommend_quant(corpus_q: torch.Tensor, c_scale: torch.Tensor,
     D-tiled int8 stage A (exact int32 tile partials, bitwise its plain
     version) then ``blend_topn_rows_quant`` reading the k selected int8
     rows straight from the corpus: O(Q·M·I) compute on int8, O(Q·k·I)
-    int8 reads.  The plain path is ``ref.fused_recommend_quant_ref``.
-    ``k`` is clamped to M−1.  Euclidean only.
+    int8 reads.  The plain path runs ``ref.fused_recommend_quant_ref``'s
+    two stages.  ``k`` is clamped to M−1.  Euclidean only.
     """
     kernel = uses_kernel(corpus_q, impl)
     q_n, m = user_ids.shape[0], corpus_q.shape[0]
@@ -199,17 +224,22 @@ def fused_recommend_quant(corpus_q: torch.Tensor, c_scale: torch.Tensor,
     if q_n == 0 or m == 0:
         return torch.zeros((q_n, topn), dtype=torch.int32,
                            device=corpus_q.device)
-    if not kernel:
-        return ref.fused_recommend_quant_ref(corpus_q, c_scale, user_ids, k,
-                                             alpha, topn, bd)
     uid = user_ids.long()
     queries_q, q_scale = corpus_q[uid], c_scale[uid]
-    _, idx = _knn.launch_dtiled(queries_q, corpus_q, k, bd=bd,
-                                query_gids=user_ids, q_scale=q_scale,
-                                c_scale=c_scale)
-    _, ids = _blend.launch_rows_indexed(queries_q, q_scale, corpus_q,
-                                        c_scale, idx, alpha, topn)
-    return ids
+    with work.kernel(work.knn_topk_dtiled, queries_q, corpus_q, k,
+                     query_gids=user_ids, q_scale=q_scale, c_scale=c_scale):
+        _, idx = (_knn.launch_dtiled if kernel else ref.dtiled_topk_ref)(
+            queries_q, corpus_q, k, bd=bd, query_gids=user_ids,
+            q_scale=q_scale, c_scale=c_scale)
+    with work.kernel(work.blend_topn_rows_indexed, queries_q, q_scale,
+                     corpus_q, c_scale, idx, topn):
+        if not kernel:
+            rows = idx.long()
+            return ref.blend_topn_rows_quant_ref(
+                queries_q, q_scale, corpus_q[rows], c_scale[rows], alpha,
+                topn)[1]
+        return _blend.launch_rows_indexed(queries_q, q_scale, corpus_q,
+                                          c_scale, idx, alpha, topn)[1]
 
 
 def _pin_self(vals: torch.Tensor, idx: torch.Tensor, shard: int,
@@ -253,16 +283,22 @@ def shard_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     m_s, q_n = corpus.shape[0], queries.shape[0]
     if m_s == 0 or q_n == 0:
         return _empty_candidates(q_n, k, m_s, corpus.device)
-    if not uses_kernel(corpus, impl) or metric == "cosine":
+    if metric == "cosine":
         return ref.shard_topk_ref(queries, corpus, k, shard, n_shards,
                                   query_gids, metric)
-    if query_gids is None:
-        query_gids = torch.full((q_n,), -1, dtype=torch.int32,
-                                device=corpus.device)
-    vals, idx = _knn.launch(queries, corpus, min(k, m_s), metric=metric,
-                            query_gids=query_gids, col_offset=shard,
-                            col_stride=n_shards, sub_qnorm=True)
-    return _pin_self(vals, idx, shard, n_shards, query_gids)
+    with work.kernel(work.knn_topk, queries, corpus, min(k, m_s),
+                     metric=metric, query_gids=query_gids,
+                     sub_qnorm=metric == "euclidean"):
+        if not uses_kernel(corpus, impl):
+            return ref.shard_topk_ref(queries, corpus, k, shard, n_shards,
+                                      query_gids, metric)
+        if query_gids is None:
+            query_gids = torch.full((q_n,), -1, dtype=torch.int32,
+                                    device=corpus.device)
+        vals, idx = _knn.launch(queries, corpus, min(k, m_s), metric=metric,
+                                query_gids=query_gids, col_offset=shard,
+                                col_stride=n_shards, sub_qnorm=True)
+        return _pin_self(vals, idx, shard, n_shards, query_gids)
 
 
 def shard_topk_quant(queries_q: torch.Tensor, q_scale: torch.Tensor,
@@ -301,9 +337,12 @@ def blend_topn_rows(queries: torch.Tensor, neighbor_rows: torch.Tensor,
     [Q, I] intermediate on the kernel path (``blend_topn_rows``); the
     plain path is ``ref.blend_topn_rows_ref``.
     """
-    if uses_kernel(neighbor_rows, impl):
-        return _blend.launch_rows(queries, neighbor_rows, alpha, topn)[1]
-    return ref.blend_topn_rows_ref(queries, neighbor_rows, alpha, topn)[1]
+    with work.kernel(work.blend_topn_rows, queries, neighbor_rows, topn):
+        if uses_kernel(neighbor_rows, impl):
+            return _blend.launch_rows(queries, neighbor_rows, alpha,
+                                      topn)[1]
+        return ref.blend_topn_rows_ref(queries, neighbor_rows, alpha,
+                                       topn)[1]
 
 
 def blend_topn_rows_quant(queries_q: torch.Tensor, q_scale: torch.Tensor,
@@ -316,11 +355,15 @@ def blend_topn_rows_quant(queries_q: torch.Tensor, q_scale: torch.Tensor,
     dequantized on chip (``blend_topn_rows_quant``); the plain path is
     ``ref.blend_topn_rows_quant_ref``.
     """
-    if uses_kernel(neighbor_rows_q, impl):
-        return _blend.launch_rows(queries_q, neighbor_rows_q, alpha, topn,
-                                  q_scale=q_scale, n_scale=n_scale)[1]
-    return ref.blend_topn_rows_quant_ref(queries_q, q_scale, neighbor_rows_q,
-                                         n_scale, alpha, topn)[1]
+    with work.kernel(work.blend_topn_rows, queries_q, neighbor_rows_q, topn,
+                     q_scale=q_scale, n_scale=n_scale):
+        if uses_kernel(neighbor_rows_q, impl):
+            return _blend.launch_rows(queries_q, neighbor_rows_q, alpha,
+                                      topn, q_scale=q_scale,
+                                      n_scale=n_scale)[1]
+        return ref.blend_topn_rows_quant_ref(queries_q, q_scale,
+                                             neighbor_rows_q, n_scale, alpha,
+                                             topn)[1]
 
 
 def blend_topn_rows_at(queries: torch.Tensor, nbr_rows: torch.Tensor,
@@ -337,8 +380,10 @@ def blend_topn_rows_at(queries: torch.Tensor, nbr_rows: torch.Tensor,
     gather.  Addresses have no plain version; a caller on the plain
     path (``uses_kernel`` False) fetches the rows instead.
     """
-    return _blend.launch_rows_at(queries, nbr_rows, tables, alpha, topn,
-                                 q_scale=q_scale, n_scale=n_scale)[1]
+    with work.kernel(work.blend_topn_rows_at, queries, nbr_rows, tables,
+                     topn, q_scale=q_scale, n_scale=n_scale):
+        return _blend.launch_rows_at(queries, nbr_rows, tables, alpha, topn,
+                                     q_scale=q_scale, n_scale=n_scale)[1]
 
 
 def multihot_scatter(ids: torch.Tensor, weights: torch.Tensor, n_items: int,
@@ -351,9 +396,10 @@ def multihot_scatter(ids: torch.Tensor, weights: torch.Tensor, n_items: int,
     per row; the kernel path (``decayed_scatter``) sums repeated ids in
     (n, b) order, the plain path is ``ref.decayed_scatter_ref``.
     """
-    if uses_kernel(ids, impl):
-        return _multihot.launch(ids, weights, n_items)
-    return ref.decayed_scatter_ref(ids, weights, n_items)
+    with work.kernel(work.decayed_scatter, ids, weights, n_items):
+        if uses_kernel(ids, impl):
+            return _multihot.launch(ids, weights, n_items)
+        return ref.decayed_scatter_ref(ids, weights, n_items)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -370,12 +416,13 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, kernel):
         ctx.causal, ctx.window, ctx.kernel = causal, window, kernel
-        if not kernel:
-            ctx.save_for_backward(q, k, v)
-            return ref.flash_attention_ref(q, k, v, causal=causal,
-                                           window=window)
-        out, lse = _flash.launch_with_lse(q, k, v, causal=causal,
-                                          window=window)
+        with work.kernel(work.flash_attention, q, k, v, causal, window):
+            if not kernel:
+                ctx.save_for_backward(q, k, v)
+                return ref.flash_attention_ref(q, k, v, causal=causal,
+                                               window=window)
+            out, lse = _flash.launch_with_lse(q, k, v, causal=causal,
+                                              window=window)
         ctx.save_for_backward(q, k, v, *(() if lse is None else (lse,)))
         return out
 
@@ -383,13 +430,15 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, *saved = ctx.saved_tensors
         dout = dout.contiguous()
-        if ctx.kernel:
-            dq, dk, dv = _flash.launch_bwd(q, k, v, dout, causal=ctx.causal,
-                                           window=ctx.window,
-                                           lse=saved[0] if saved else None)
-        else:
-            dq, dk, dv = ref.flash_attention_bwd_ref(
-                q, k, v, dout, causal=ctx.causal, window=ctx.window)
+        with work.kernel(work.flash_attention_bwd, q, k, v, dout, ctx.causal,
+                         ctx.window):
+            if ctx.kernel:
+                dq, dk, dv = _flash.launch_bwd(
+                    q, k, v, dout, causal=ctx.causal, window=ctx.window,
+                    lse=saved[0] if saved else None)
+            else:
+                dq, dk, dv = ref.flash_attention_bwd_ref(
+                    q, k, v, dout, causal=ctx.causal, window=ctx.window)
         return dq, dk, dv, None, None, None
 
 
@@ -419,6 +468,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window, kernel)
-    if kernel:
-        return _flash.launch(q, k, v, causal=causal, window=window)
-    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    with work.kernel(work.flash_attention, q, k, v, causal, window):
+        if kernel:
+            return _flash.launch(q, k, v, causal=causal, window=window)
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       window=window)

@@ -250,15 +250,21 @@ def fused_recommend_ref(corpus: torch.Tensor, user_ids: torch.Tensor,
     """The unfused serving pipeline, in the JAX reference's operation
     order: row gather, full scores with self exclusion, [Q, k, I]
     neighbour gather + mean, α blend, top-n.  Returns i32[Q, topn]."""
-    uid = user_ids.long()
-    queries = corpus[uid]
+    queries = corpus[user_ids.long()]
+    idx = fused_topk_ref(queries, corpus, user_ids, k, metric)
+    return blend_topn_rows_ref(queries, corpus[idx.long()], alpha, topn)[1]
+
+
+def fused_topk_ref(queries: torch.Tensor, corpus: torch.Tensor,
+                   user_ids: torch.Tensor, k: int,
+                   metric: str = "euclidean") -> torch.Tensor:
+    """Stage A of :func:`fused_recommend_ref`: the user rows ``queries``
+    scored against the whole corpus, each user's own row at −inf, the
+    top-k rows i32[Q, k]."""
     scores = pairwise_scores(queries, corpus, metric)
-    scores[torch.arange(queries.shape[0], device=corpus.device), uid] = \
-        float("-inf")
-    _, idx = topk_lowest_index(scores, k)
-    neighbors = torch.mean(corpus[idx], dim=1)
-    pred = alpha * queries + (1.0 - alpha) * neighbors
-    return topk_lowest_index(pred, topn)[1].to(torch.int32)
+    scores[torch.arange(queries.shape[0], device=corpus.device),
+           user_ids.long()] = float("-inf")
+    return topk_lowest_index(scores, k)[1].to(torch.int32)
 
 
 def shard_topk_ref(queries: torch.Tensor, corpus: torch.Tensor, k: int,

@@ -17,10 +17,22 @@ for the sizes it chose (``estimate_bytes``, ``configs/base.py``; a run
 on the card checks it).  On the CPU (``device="cpu"``, the tests)
 the measured memory fields are ``None``: a CPU run measures no device
 memory.  Cells run on the card unless the caller names another device.
+
+The cell is then freed, built again from the same seed and run once
+more under ``launch/cost.py``'s ``CostCounter`` (the counterpart of the
+JAX dry run's ``extract_hlo=True``), so
+the counted run sees the same call also where a cell changes its state
+(``stream_update``, the train steps).  That adds the JAX dry run's
+roofline fields: ``roofline`` (``launch/roofline.py``'s terms on the
+H100's peaks: compute, memory and collective seconds, the bottleneck,
+FLOPs by dtype), ``chips`` (1), ``model_flops_per_device`` and
+``useful_flops_ratio`` (model FLOPs over counted FLOPs).  On the CPU the
+counts are the same; the terms are the card's, not the CPU's.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import time
 import traceback
@@ -31,6 +43,8 @@ import torch
 from repro_torch.configs import all_cells, get_arch
 from repro_torch.configs.base import CellProgram
 from repro_torch.core.types import resolve_device
+from repro_torch.launch import roofline
+from repro_torch.launch.cost import CostCounter, Costs
 
 
 def _gib(n_bytes: Optional[float]) -> str:
@@ -87,14 +101,49 @@ def run_program(prog: CellProgram, device: Any = None
     }, out
 
 
+def count_program(prog: CellProgram, device: Any = None) -> Costs:
+    """Run ``prog`` once under a ``CostCounter`` on ``device``; returns
+    the work it dispatched."""
+    dev = resolve_device(device)
+    _sync(dev)
+    with CostCounter(dev) as counter:
+        prog.fn(*prog.args)
+    _sync(dev)
+    return counter.costs
+
+
+def roofline_fields(costs: Costs, model_flops: float) -> Dict[str, Any]:
+    """The JAX dry run's roofline fields of a counted run
+    (``useful_flops_ratio`` ``None`` where nothing was counted)."""
+    terms = roofline.analyze(costs, chips=1)
+    return {"roofline": terms.as_dict(), "chips": 1,
+            "model_flops_per_device": model_flops,
+            "useful_flops_ratio": model_flops / terms.flops
+            if terms.flops else None}
+
+
+def t_bound(fields: Dict[str, Any]) -> float:
+    """The largest roofline term of ``roofline_fields``' output, s."""
+    rt = fields["roofline"]
+    return max(rt["t_compute_s"], rt["t_memory_s"], rt["t_collective_s"])
+
+
 def run_cell(arch_name: str, shape: str, device: Any = None, seed: int = 0,
              sizes: Any = None) -> Dict[str, Any]:
     """Build the cell on ``device`` (the card by default) and run it
-    once; returns its readings (see the module docstring)."""
-    prog, build_s = build_cell(arch_name, shape, device, seed, sizes)
-    result, _ = run_program(prog, device)
+    once, then build it again and count a second run; returns its
+    readings (see the module docstring)."""
+    dev = resolve_device(device)
+    prog, build_s = build_cell(arch_name, shape, dev, seed, sizes)
+    result, out = run_program(prog, dev)
+    del prog, out
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    prog, _ = build_cell(arch_name, shape, dev, seed, sizes)
+    costs = count_program(prog, dev)
     return {"arch": arch_name, "shape": shape, "build_s": build_s,
-            **result}
+            **result, **roofline_fields(costs, result["model_flops"])}
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -118,14 +167,19 @@ def main(argv: Optional[list] = None) -> int:
         tag = f"{name} x {shape}"
         try:
             r = run_cell(name, shape)
+            rt = r["roofline"]
             print(f"[OK] {tag}: {r['description']}; build {r['build_s']:.2f}"
                   f" s, run {r['run_s']:.4f} s, "
                   f"{r['model_flops_per_s']:.4g} model FLOP/s, peak "
                   f"{r['peak_bytes'] / 2 ** 30:.2f} GiB (estimate "
                   f"{_gib(r['estimate_bytes'])}) of "
                   f"{r['device_bytes'] / 2 ** 30:.2f} (fits {r['fits']}) "
-                  f"on {r['device']}; cuts {r['reduced'] or 'none'}",
-                  flush=True)
+                  f"on {r['device']}; cuts {r['reduced'] or 'none'}; "
+                  f"t_comp={rt['t_compute_s']:.2e}s "
+                  f"t_mem={rt['t_memory_s']:.2e}s "
+                  f"t_coll={rt['t_collective_s']:.2e}s "
+                  f"bound={rt['bottleneck']} "
+                  f"t_bound/run={t_bound(r) / r['run_s']:.3f}", flush=True)
         except Exception as e:  # noqa: BLE001 -- reported, the next cell runs
             r = {"arch": name, "shape": shape,
                  "error": f"{type(e).__name__}: {e}",

@@ -58,7 +58,8 @@ from repro_torch.launch import dryrun
 NEW = [(n, s) for n, s in all_cells() if n != "tifu-knn"]
 FIELDS = {"arch", "shape", "build_s", "description", "reduced", "device",
           "run_s", "model_flops", "model_flops_per_s", "peak_bytes",
-          "estimate_bytes", "device_bytes", "fits"}
+          "estimate_bytes", "device_bytes", "fits", "roofline", "chips",
+          "model_flops_per_device", "useful_flops_ratio"}
 LOGITS_ATOL = 1e-4
 OUT = dict(rtol=1e-5, atol=1e-6)
 LOSS = dict(rtol=1e-5, atol=1e-6)

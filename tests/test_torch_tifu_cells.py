@@ -278,7 +278,8 @@ def test_run_cell_on_the_cpu_returns_every_field(shape):
     assert set(r) == {"arch", "shape", "build_s", "description", "reduced",
                       "device", "run_s", "model_flops", "model_flops_per_s",
                       "peak_bytes", "estimate_bytes", "device_bytes",
-                      "fits"}
+                      "fits", "roofline", "chips", "model_flops_per_device",
+                      "useful_flops_ratio"}
     assert (r["arch"], r["shape"], r["device"]) == ("tifu-knn", shape, "cpu")
     assert r["build_s"] > 0 and r["run_s"] > 0 and r["model_flops"] > 0
     assert r["model_flops_per_s"] == pytest.approx(
