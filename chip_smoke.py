@@ -303,7 +303,18 @@ Phases, each fatal on failure (nothing is caught):
    the median of 50 cycles after a warm-up on the users with the
    shortest and the longest history (the user's rows restored between
    cycles), beside the card's name and power limit;
-20. summary -- every kernel's launches, then one JSON line of kernel
+20. static analysis on the card (run right after the build: it reads
+   the verbose build's ptxas log) -- every compiled instance's
+   registers, static shared memory, stack and spills logged;
+   ``repro_torch.analysis.linter.lint_repo`` on this checkout clean (its
+   contracts and kernels counted); the device's per-block shared-memory
+   opt-in and per-SM size equal to ``launch/mesh.py``'s constants, which
+   the plans and rule KC03 read; and ``resources.check_compiled`` with
+   no finding: each kernel's compiled instances as its contract counts
+   them, no spill but those a contract allows (``flash_kernel``'s 8
+   bytes), static plus modelled dynamic shared memory within the opt-in.
+   The phase's seconds beside the card's name and power limit;
+21. summary -- every kernel's launches, then one JSON line of kernel
    records, and last the ``{"ok": true, ...}`` line.
 
 It needs a CUDA card and the rest of the repository; anywhere else it
@@ -355,6 +366,8 @@ from repro_torch.models import (bert4rec, deepfm, dimenet,  # noqa: E402
 from repro_torch.launch import dryrun, roofline, serve  # noqa: E402
 from repro_torch.launch import train as train_lm  # noqa: E402
 from repro_torch.launch.mesh import make_user_shard_devices  # noqa: E402
+from repro_torch.launch import mesh  # noqa: E402
+from repro_torch.analysis import linter, resources  # noqa: E402
 from repro_torch.optim import optimizers  # noqa: E402
 from repro_torch.optim.compression import (  # noqa: E402
     dequantize_int8_rows, quantize_int8_rows, quantize_int8_rows_pitched)
@@ -5143,6 +5156,46 @@ def kernel_checks(ds, dev) -> dict:
     return records
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the static analysis on the card
+# ---------------------------------------------------------------------------
+
+def static_analysis_path(card: str) -> None:
+    """Phase 20: the port's lint on this checkout, and ptxas's report of
+    the verbose build (``build.last_build_log``) held to the contracts at
+    the device's own shared-memory sizes.  Nothing is caught."""
+    t0 = time.perf_counter()
+    records = resources.parse_ptxas(build.last_build_log)
+    for r in records:
+        log(f"  ptxas {r.mangled[:100]}: {r.registers} registers, "
+            f"{r.smem} bytes smem, {r.stack} bytes stack frame, "
+            f"{r.spill_stores} bytes spill stores, {r.spill_loads} bytes "
+            "spill loads")
+    report = linter.lint_repo(ROOT)
+    assert report.ok, "\n".join(str(f) for f in report.findings)
+    kernels = {k for c in linter.REGISTRY.values() for k in c.kernels}
+    props = torch.cuda.get_device_properties(0)
+    optin = props.shared_memory_per_block_optin
+    per_sm = props.shared_memory_per_multiprocessor
+    log(f"static analysis: lint clean, {len(linter.REGISTRY)} contracts "
+        f"naming {len(kernels)} kernels; shared memory a block may opt in "
+        f"to {optin} (launch/mesh.py {mesh.SMEM_PER_BLOCK_OPTIN}), an SM's "
+        f"{per_sm} ({mesh.SMEM_PER_SM})")
+    assert optin == mesh.SMEM_PER_BLOCK_OPTIN, optin
+    assert per_sm == mesh.SMEM_PER_SM, per_sm
+    compiled = linter.check_build_log(build.last_build_log, optin)
+    assert compiled.ok, "\n".join(str(f) for f in compiled.findings)
+    counts = {}
+    for r in records:
+        counts[r.kernel] = counts.get(r.kernel, 0) + 1
+    spills = {r.mangled: r.spill for r in records if r.spill}
+    log(f"static analysis: {len(records)} compiled instances, as the "
+        f"contracts count them: {dict(sorted(counts.items()))}; spills "
+        f"{spills}")
+    log(f"phase 20 (static analysis on the card): "
+        f"{time.perf_counter() - t0:.3f} s; card: {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
@@ -5159,42 +5212,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build.library(verbose=True)
     log(f"build: {time.perf_counter() - t0:.1f} s")
-    entry = ""
-    spills = {"knn_tile_kernel": [], "flash_wgmma_kernel": [],
-              "rows_ring_kernel": [], "sparse_row_gather_kernel": [],
-              "sparse_row_scatter_kernel": [], "blend_group_kernel": [],
-              "blend_plan_kernel": [], "dtiled_ring_kernel": [],
-              **{n: [] for n in FLASH_BWD_KERNELS
-                 + FLASH_BWD_WGMMA_KERNELS}}
-    for line in build.last_build_log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1]          # the mangled kernel name
-        elif "registers" in line or "spill" in line:
-            log(f"  ptxas {entry[:100]}: " + line.strip())
-            for name, found in spills.items():
-                if name in entry and "spill" in line:
-                    found.append(line.strip())
-    # every instantiation of B3's tile kernel, of B9's Hopper design (D 64,
-    # 128 and MLA's (192, 128)), of
-    # B6/B7's ring (f32 and int8, selection and sort), of B1 and B2
-    # (int32 or int64 rows and ids), of B4 (lists in registers or in
-    # shared memory; int32 or int64 neighbours) and of B5's fp32 design
-    # (32 or 16 queries, split or not), none with a spill
-    assert len(spills["knn_tile_kernel"]) == len(knn_topk.KNN_SHAPES)
-    assert len(spills["dtiled_ring_kernel"]) == 4
-    assert len(spills["flash_wgmma_kernel"]) == len(flash_attention.WGMMA_BQ)
-    assert len(spills["rows_ring_kernel"]) == 4
-    assert len(spills["sparse_row_gather_kernel"]) == 4
-    assert len(spills["sparse_row_scatter_kernel"]) == 4
-    assert len(spills["blend_group_kernel"]) == 2
-    assert len(spills["blend_plan_kernel"]) == 2
-    # 9b's three kernels: on the CUDA cores at f32 and bf16, D padded to
-    # 32, 64, 128, 256; the Hopper design's at D 64, 128 and (192, 128)
-    assert all(len(spills[n]) == 8 for n in FLASH_BWD_KERNELS), spills
-    assert all(len(spills[n]) == len(flash_attention.WGMMA_DV)
-               for n in FLASH_BWD_WGMMA_KERNELS), spills
-    assert all("0 bytes spill stores, 0 bytes spill loads" in x
-               for found in spills.values() for x in found), spills
+    static_analysis_path(card)
 
     t0 = time.perf_counter()
     ds = synthetic.generate("tafeng", seed=0, scale=1.0)

@@ -382,7 +382,7 @@ def sharded_recommend_for_users(corpora: Sequence[torch.Tensor], user_ids,
                                              query_ids=qids, metric=metric)
                        for s, c in enumerate(corpora)))
     sel = _merge_candidates(list(vals), list(gids), k)
-    if ops.uses_kernel(corpora[0]):
+    if ops.uses_kernel(corpora[0], None):
         return ops.blend_topn_rows_at(
             queries, _owner_row_addresses(corpora, sel, n_shards), corpora,
             alpha, topn)
@@ -417,7 +417,7 @@ def sharded_recommend_for_users_quant(
         query_gids=qids, bd=bd) for s, (cq, cs) in enumerate(quant_corpora)))
     sel = _merge_candidates(list(vals), list(gids), k)
     n_scale = _owner_rows(scales, sel, n_shards)
-    if ops.uses_kernel(corpora[0]):
+    if ops.uses_kernel(corpora[0], None):
         return ops.blend_topn_rows_at(
             queries_q, _owner_row_addresses(corpora, sel, n_shards), corpora,
             alpha, topn, q_scale=q_scale, n_scale=n_scale)

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.contracts import Accumulators, KernelContract, \
+    register
 from repro_torch.kernels import build
 
 
@@ -53,3 +55,20 @@ def launch(ids: torch.Tensor, weights: torch.Tensor,
         n_items, build.stream_of(out)), "decayed_scatter")
     build.count_launch("decayed_scatter")
     return out[0] if ids.dim() == 2 else out
+
+
+# csrc/decayed_scatter.cu's CHUNK: the entries a block sorts at a time
+SORT_CHUNK = 4096
+
+# The C entry's contract (static analysis: repro_torch.analysis): a
+# zeroing pass on a grid capped at 16 blocks an SM (its loop walks to the
+# end), then one block per row with its chunk's 8-byte keys and a count
+# in static shared memory, each run summed in a float.
+register(KernelContract(
+    module=__name__, entry="decayed_scatter_launch",
+    source="decayed_scatter.cu", kernels=("zero_rows", "scatter_rows"),
+    smem_model=lambda: {}, max_shapes={},
+    static_smem={"scatter_rows": 8 * SORT_CHUNK + 4},
+    tail={"zero_rows": "p < n4"},
+    accumulators=Accumulators(running={"scatter_rows": (("acc", "float"),)}),
+    instantiations={"zero_rows": 1, "scatter_rows": 1}))

@@ -61,11 +61,14 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.analysis.contracts import Accumulators, KernelContract, \
+    register
 from repro_torch.kernels import build
+from repro_torch.launch.mesh import SMEM_PER_BLOCK_OPTIN
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_D = 256
-SMEM_MAX = 232448   # shared memory one block may use on an H100
+SMEM_MAX = SMEM_PER_BLOCK_OPTIN   # shared memory one block may use
 # the Hopper design (csrc/flash_attention_wgmma.cu), one kernel built for
 # each Q/K width D: the V width Dv it takes, query rows a work item (64
 # per consumer warpgroup: three at D = 64, two at 128 and 192), Q buffers
@@ -114,6 +117,12 @@ def wgmma_smem_bytes(d: int, stages: int, dv: Optional[int] = None) -> int:
     nq = WGMMA_Q_BUFS[d]
     return (1024 + nq * WGMMA_BQ[d] * d * 2
             + stages * WGMMA_BK * (d + dv) * 2 + 8 * (2 * nq + 4 * stages))
+
+
+def _mma_smem_bytes(d: int) -> int:
+    """Shared memory of one ``mma_sync`` block: 64-row Q, K and V tiles
+    of bf16 at a pitch of D + 8."""
+    return 3 * 64 * (d + 8) * 2
 
 
 def _cuda_core_smem_bytes(d: int) -> int:
@@ -195,7 +204,7 @@ def plan_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          wgmma_smem_bytes(d, WGMMA_STAGES, dv), s, causal,
                          window)
     if bf16 and d == dv == 32 and aligned:
-        return FlashPlan("mma_sync", 64, 64, 1, 3 * 64 * (d + 8) * 2, s,
+        return FlashPlan("mma_sync", 64, 64, 1, _mma_smem_bytes(d), s,
                          causal, window)
     return FlashPlan("cuda_cores", 64, 64, 1, _cuda_core_smem_bytes(d), s,
                      causal, window)
@@ -511,3 +520,75 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name in BWD_KERNELS[plan.design]:
         bwd_launches[name] += 1
     return dq, dk, dv
+
+
+def _wgmma_smem(d: int, dv: int) -> dict:
+    return {"flash_wgmma_kernel": wgmma_smem_bytes(d, WGMMA_STAGES, dv)}
+
+
+def _cuda_core_smem(d: int) -> dict:
+    return {"flash_kernel": _cuda_core_smem_bytes(d),
+            "flash_mma_kernel": _mma_smem_bytes(32)}
+
+
+def _wgmma_bwd_smem(d: int, dv: int) -> dict:
+    return dict(zip(BWD_KERNELS["tma_wgmma"], wgmma_bwd_smem_bytes(d, dv)))
+
+
+def _cuda_core_bwd_smem(d: int) -> dict:
+    return dict(zip(BWD_KERNELS["cuda_cores"], bwd_smem_bytes(d)))
+
+
+# The C entries' contracts (static analysis: repro_torch.analysis).  The
+# oracle is allclose, so none is exact-parity (the softmax may take
+# ex2.approx); every product accumulates in f32, and the running max,
+# denominator and output in float.  The Hopper designs at MLA's (192,
+# 128), the largest shared memory of WGMMA_DV; the CUDA-core ones at
+# MAX_D.  Persistent grids stop at n_items; per-tile grids skip the
+# rows past S.  One Hopper instance per (D, Dv) of WGMMA_DV; the CUDA
+# cores' per dtype (f32, bf16) and D padded to 32, 64, 128 and 256.
+_F32 = (("m_i", "float"), ("l_i", "float"))
+register(KernelContract(
+    module=__name__, entry="flash_wgmma_launch",
+    source="flash_attention_wgmma.cu", kernels=("flash_wgmma_kernel",),
+    smem_model=_wgmma_smem, max_shapes={"d": 192, "dv": 128},
+    tail={"flash_wgmma_kernel": "if (w >= n_items) break"},
+    exact_parity=False,
+    accumulators=Accumulators(mma=("f32",), running={
+        "flash_wgmma_kernel": (("m", "float"), ("l", "float"))}),
+    instantiations={"flash_wgmma_kernel": len(WGMMA_BQ)}))
+register(KernelContract(
+    module=__name__, entry="flash_attention_launch",
+    source="flash_attention.cu", kernels=("flash_kernel", "flash_mma_kernel"),
+    smem_model=_cuda_core_smem, max_shapes={"d": MAX_D},
+    tail={"flash_kernel": "if (qp >= S) continue",
+          "flash_mma_kernel": "if (qp >= S) continue"},
+    exact_parity=False,
+    accumulators=Accumulators(mma=("f32",), running={
+        "flash_kernel": _F32 + (("acc", "float"),),
+        "flash_mma_kernel": _F32 + (("acc", "float"),)}),
+    instantiations={"flash_kernel": 8, "flash_mma_kernel": 1},
+    spill_bytes={"flash_kernel": 8}))
+register(KernelContract(
+    module=__name__, entry="flash_bwd_wgmma_launch",
+    source="flash_attention_bwd_wgmma.cu", kernels=BWD_KERNELS["tma_wgmma"],
+    smem_model=_wgmma_bwd_smem, max_shapes={"d": 192, "dv": 128},
+    tail={k: "if (w >= n_items) break" for k in BWD_KERNELS["tma_wgmma"]},
+    exact_parity=False,
+    accumulators=Accumulators(mma=("f32",), running={
+        "bwd_wgmma_dkdv_kernel": (("acc_k", "float"), ("acc_v", "float")),
+        "bwd_wgmma_dq_kernel": (("acc", "float"),)}),
+    instantiations={k: len(WGMMA_DV) for k in BWD_KERNELS["tma_wgmma"]}))
+register(KernelContract(
+    module=__name__, entry="flash_attention_bwd_launch",
+    source="flash_attention_bwd.cu", kernels=BWD_KERNELS["cuda_cores"],
+    smem_model=_cuda_core_bwd_smem, max_shapes={"d": MAX_D},
+    tail={"bwd_stats_kernel": "if (qp >= S) continue",
+          "bwd_dq_kernel": "if (qp >= S) continue",
+          "bwd_dkdv_kernel": "if (kp >= S) continue"},
+    exact_parity=False,
+    accumulators=Accumulators(running={
+        "bwd_stats_kernel": _F32,
+        "bwd_dq_kernel": (("acc", "float"),),
+        "bwd_dkdv_kernel": (("acc_k", "float"), ("acc_v", "float"))}),
+    instantiations={k: 8 for k in BWD_KERNELS["cuda_cores"]}))

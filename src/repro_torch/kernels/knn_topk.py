@@ -29,10 +29,13 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.analysis.contracts import Accumulators, KernelContract, \
+    register
 from repro_torch.kernels import build, ref
+from repro_torch.launch.mesh import SMEM_PER_BLOCK_OPTIN
 
 MAX_K = 1024   # largest list the kernel keeps per query
-SMEM_MAX = 232448   # shared memory one block may use on an H100
+SMEM_MAX = SMEM_PER_BLOCK_OPTIN   # shared memory one block may use
 _ROWS = 128    # slices are whole multiples of one warp's 128 rows
 # csrc/knn_topk.cu: rows per score tile, ring row pitch (floats); and its
 # (queries per block, ring stages) in order of preference.  Two stages: on
@@ -185,6 +188,54 @@ def plan_dtiled(q_n: int, m: int, d: int, bd: int, k: int, n_sms: int,
         scratch = _split_bytes(n_tiles, q_n, m)
     return DtiledPlan(design, bq, q_tiles, rows, n_slices, n_tiles, n_splits,
                       fin_rows, fin_slices, scratch)
+
+
+# csrc/knn_topk_dtiled.cu's int8 designs and the split's second pass:
+# the CUDA cores' two stages of 16 words x (512 rows + 4) and x (16
+# queries + 4), the ranked merge's 64 candidates a warp, the tensor
+# cores' 256-row tiles at a 144-byte pitch in 16 warps, and the second
+# pass's 128-row score tiles
+_CC_BM, _CC_STAGE_WORDS = 512, 2 * 16 * ((512 + 4) + (16 + 4))
+_MERGE_CAND = 64
+_TC_BM, _TC_PITCH, _TC_WARPS = 256, 144, 16
+_FIN_BM = 128
+
+
+def tile_smem_bytes(n2: int) -> int:
+    """Dynamic shared memory of the int8 CUDA-core design's block (16
+    queries): the staging words, the lists of ``n2`` entries (0 in a
+    split's first pass) and 8 warps' merge candidates, and |c|² of a
+    512-row score tile.  The C entry sizes the block by the same
+    formula."""
+    return (4 * _CC_STAGE_WORDS + 8 * (16 * n2 + 8 * _MERGE_CAND)
+            + 4 * _CC_BM)
+
+
+def tc_smem_bytes(bq: int, stages: int, ls: int) -> int:
+    """Dynamic shared memory of the int8 tensor-core design's block:
+    ``stages`` chunks of (256 rows + ``bq`` queries) x 144 bytes, the
+    ``bq`` lists of ``ls`` entries and 16 warps' merge candidates, and
+    |c|² of a row tile.  The C entry sizes the block by the same
+    formula."""
+    return (stages * (_TC_BM + bq) * _TC_PITCH
+            + 8 * (bq * ls + _TC_WARPS * _MERGE_CAND) + 4 * _TC_BM)
+
+
+def tc_stages(bq: int, k: int, split: bool) -> int:
+    """The tensor-core design's ring depth, as the C entry picks it: 5
+    in a split's first pass (no lists), else 3 where the lists of k
+    entries leave room, else 2."""
+    if split:
+        return 5
+    return 3 if tc_smem_bytes(bq, 3, k) <= SMEM_MAX else 2
+
+
+def finish_smem_bytes(n2: int) -> int:
+    """Dynamic shared memory of the split's second pass (16 queries a
+    block): a [16, 128] score tile and |c|² of its rows, the lists of
+    ``n2`` entries and 8 warps' merge candidates."""
+    return (4 * (_FIN_BQ * _FIN_BM + _FIN_BM)
+            + 8 * (_FIN_BQ * n2 + 8 * _MERGE_CAND))
 
 
 def dtiled_design(int8: bool, bd: int) -> str:
@@ -381,3 +432,63 @@ def launch_dtiled(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     build.count_launch("knn_topk_dtiled_f32" if plan.design == "ring_f32"
                        else "knn_topk_dtiled")
     return out_v, out_i
+
+
+def _merge_n2(k: int) -> int:
+    """merge_lists_kernel's power-of-two list for k entries."""
+    return max(64, _pow2_at_least(k))
+
+
+def _knn_smem(k: int) -> dict:
+    plan = plan_knn(1, k, k, 1)
+    return {"knn_tile_kernel": knn_smem_bytes(plan.bq, plan.stages, k),
+            "merge_lists_kernel": 8 * _merge_n2(k)}
+
+
+def _dtiled_smem(k: int) -> dict:
+    n2 = _merge_n2(k)
+    ring = plan_dtiled(1, k, 1, 1, k, 1, "ring_f32").bq
+    tc = plan_dtiled(1, k, 1, 1, k, 1, "mma_s8").bq
+    return {"dtiled_ring_kernel": ring_smem_bytes(ring, k),
+            "dtiled_tile_kernel": tile_smem_bytes(n2),
+            "dtiled_mma_kernel": max(
+                tc_smem_bytes(tc, tc_stages(tc, k, False), k),
+                tc_smem_bytes(tc, tc_stages(tc, k, True), 0)),
+            "dtiled_finish_kernel": finish_smem_bytes(n2),
+            "merge_lists_kernel": 8 * n2}
+
+
+# The C entries' contracts (static analysis: repro_torch.analysis), at
+# the largest k the plans take.  Stage A: one block per (query tile,
+# slice), the query tile's tail guarded; fp32 fmaf sums; one instance a
+# plan shape, and topk_common.cuh's merge compiled once in this source.
+register(KernelContract(
+    module=__name__, entry="knn_topk_launch", source="knn_topk.cu",
+    kernels=("knn_tile_kernel", "merge_lists_kernel"),
+    smem_model=_knn_smem, max_shapes={"k": MAX_K},
+    tail={"knn_tile_kernel": "q0 + qi < Q"},
+    accumulators=Accumulators(running={
+        "knn_tile_kernel": (("acc", "float"),)}),
+    instantiations={"knn_tile_kernel": len(KNN_SHAPES),
+                    "merge_lists_kernel": 1}))
+# D-tiled stage A: each design's first pass (split or not: 32 or 16
+# queries on the ring, 3 ring depths x 2 query tiles on the tensor
+# cores), the split's second pass and the merge; int8 products summed
+# in s32 (each D tile's partial), then in float across tiles.
+register(KernelContract(
+    module=__name__, entry="knn_topk_dtiled_launch",
+    source="knn_topk_dtiled.cu",
+    kernels=("dtiled_ring_kernel", "dtiled_tile_kernel",
+             "dtiled_mma_kernel", "dtiled_finish_kernel",
+             "merge_lists_kernel"),
+    smem_model=_dtiled_smem, max_shapes={"k": MAX_K},
+    tail={"dtiled_ring_kernel": "gq < Q", "dtiled_tile_kernel": "gq < Q",
+          "dtiled_mma_kernel": "gq < Q", "dtiled_finish_kernel": "gq < Q"},
+    accumulators=Accumulators(mma=("s32",), running={
+        "dtiled_ring_kernel": (("part", "float"), ("acc", "float")),
+        "dtiled_tile_kernel": (("part", "int"), ("acc", "float")),
+        "dtiled_mma_kernel": (("part", "int"), ("acc", "float")),
+        "dtiled_finish_kernel": (("acc", "float"),)}),
+    instantiations={"dtiled_ring_kernel": 4, "dtiled_tile_kernel": 2,
+                    "dtiled_mma_kernel": 6, "dtiled_finish_kernel": 1,
+                    "merge_lists_kernel": 1}))

@@ -54,8 +54,10 @@ def default_impl(impl: str) -> Iterator[None]:
         _DEFAULT_IMPL = prev
 
 
-def uses_kernel(x: torch.Tensor, impl: Optional[str] = None) -> bool:
-    """True where ``impl`` (or the default) asks for the kernel on ``x``."""
+def uses_kernel(x: torch.Tensor, impl: Optional[str]) -> bool:
+    """True where ``impl`` (or, for None, the default) asks for the
+    kernel on ``x``.  ``impl`` has no default: a public ``impl=None``
+    is the dispatchers' signature (rule OR01)."""
     impl = _DEFAULT_IMPL if impl is None else impl
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")

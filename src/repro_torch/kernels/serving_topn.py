@@ -39,7 +39,10 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.analysis.contracts import Accumulators, KernelContract, \
+    register
 from repro_torch.kernels import build
+from repro_torch.launch.mesh import SMEM_PER_SM
 
 MAX_TOPN = 1024   # largest list the merge keeps per query
 # csrc/serving_topn.cu: items per tile, blend threads, queries a warp
@@ -58,7 +61,7 @@ NO_SLOT = 0xFFFF
 # share of the SM's 228 KB, less 1 KB each that the card reserves), and
 # the fewest rows a staging pass takes
 BLEND_BLOCKS_PER_SM = 2
-SM_SHARED_BYTES = 233_472
+SM_SHARED_BYTES = SMEM_PER_SM
 BLOCK_RESERVED_BYTES = 1024
 MIN_STAGE_ROWS = 64
 # csrc/serving_rows.cu: items per block and ring depth by element size
@@ -447,3 +450,48 @@ def launch_rows_at(queries: torch.Tensor, nbr_rows: torch.Tensor,
     return _blend_rows(queries, q_scale, _Neighbours(
         0, 1, nbr_rows, n_scale, False, tables), k, alpha, topn,
         "blend_topn_rows_quant" if quantized else "blend_topn_rows")
+
+
+def _blend_smem(q_n: int, k: int, topn: int, n_items: int) -> dict:
+    plan = plan_blend(q_n, 1, n_items, k, topn, 1)
+    return {"blend_plan_kernel": plan.plan_smem_bytes,
+            "blend_group_kernel": plan.smem_bytes,
+            "merge_lists_kernel": 8 * plan.n2}
+
+
+def _rows_smem(n_items: int, topn: int) -> dict:
+    plans = [plan_rows(1, n_items, topn, e) for e in ROWS_TILE]
+    return {"rows_ring_kernel": max(p.smem_bytes for p in plans),
+            "merge_lists_kernel": 8 * max(p.n2 for p in plans)}
+
+
+# The C entries' contracts (static analysis: repro_torch.analysis).  B4
+# at a full group of 32 queries and k = 300: the plan and blend kernels
+# one block per group (the last group's tail guarded), the blend's sums
+# in float; int32 or int64 neighbours, and lists in registers or shared
+# memory, make 2 instances each; merge_select_kernel's per-warp lists are
+# static.
+register(KernelContract(
+    module=__name__, entry="blend_topn_launch", source="serving_topn.cu",
+    kernels=("blend_plan_kernel", "blend_group_kernel",
+             "merge_select_kernel", "merge_lists_kernel"),
+    smem_model=_blend_smem,
+    max_shapes={"q_n": BLEND_GROUP, "k": 300, "topn": BLEND_MAX_SELECT,
+                "n_items": 11997},
+    static_smem={"merge_select_kernel": 8 * 32 * (4 + 4)},
+    tail={"blend_plan_kernel": "min(G, Q - q0)",
+          "blend_group_kernel": "min(G, Q - q0)"},
+    accumulators=Accumulators(running={
+        "blend_group_kernel": (("acc", "float"),)}),
+    instantiations={"blend_plan_kernel": 2, "blend_group_kernel": 2,
+                    "merge_select_kernel": 1, "merge_lists_kernel": 1}))
+# B6/B7: one block per (4 KB of a row, query), the row's last tile cut at
+# I; f32 or int8 rows, selection or sort: 4 instances.
+register(KernelContract(
+    module=__name__, entry="blend_rows_launch", source="serving_rows.cu",
+    kernels=("rows_ring_kernel", "merge_lists_kernel"),
+    smem_model=_rows_smem, max_shapes={"n_items": 11997, "topn": MAX_TOPN},
+    tail={"rows_ring_kernel": "min(I, i0 + kTile<T>)"},
+    accumulators=Accumulators(running={
+        "rows_ring_kernel": (("acc", "float"),)}),
+    instantiations={"rows_ring_kernel": 4, "merge_lists_kernel": 1}))

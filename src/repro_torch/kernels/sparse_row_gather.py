@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.contracts import KernelContract, register
 from repro_torch.kernels import build
 
 
@@ -44,3 +45,14 @@ def launch(table: torch.Tensor, rows: torch.Tensor,
         "sparse_row_gather")
     build.count_launch("sparse_row_gather")
     return out
+
+
+# The C entry's contract (static analysis: repro_torch.analysis): one
+# thread per gathered value on a ceil-division grid; int32 or int64 rows
+# and ids make 4 instances.
+register(KernelContract(
+    module=__name__, entry="srg_launch", source="sparse_row_gather.cu",
+    kernels=("sparse_row_gather_kernel",),
+    smem_model=lambda: {}, max_shapes={},
+    tail={"sparse_row_gather_kernel": "if (e >= n) return"},
+    instantiations={"sparse_row_gather_kernel": 4}))

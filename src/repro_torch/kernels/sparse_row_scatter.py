@@ -19,6 +19,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from repro_torch.analysis.contracts import Accumulators, KernelContract, \
+    register
 from repro_torch.kernels import build
 
 # csrc/sparse_row_scatter.cu's kThreads, kPer and kChunk: a run's head
@@ -88,3 +90,19 @@ def launch(table: torch.Tensor, rows: torch.Tensor, ids: torch.Tensor,
         "sparse_row_scatter")
     build.count_launch("sparse_row_scatter")
     return table
+
+
+# The C entry's contract (static analysis: repro_torch.analysis): one
+# block per entry row, no dynamic shared memory; the staged chunk's keys
+# and values, the run scan's and the tile counts' words are static; each
+# cell's deltas summed in a float, in entry order; int32 or int64 rows
+# and ids make 4 instances.
+register(KernelContract(
+    module=__name__, entry="srs_launch", source="sparse_row_scatter.cu",
+    kernels=("sparse_row_scatter_kernel",),
+    smem_model=lambda: {}, max_shapes={},
+    static_smem={"sparse_row_scatter_kernel":
+                 12 * CHUNK + 4 * THREADS + 4 * (1 + PER) * (THREADS // 32)},
+    accumulators=Accumulators(running={
+        "sparse_row_scatter_kernel": (("acc", "float"),)}),
+    instantiations={"sparse_row_scatter_kernel": 4}))

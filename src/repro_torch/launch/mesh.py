@@ -10,15 +10,30 @@ importing the launch layer.
 
 The constants are the counterpart of the JAX package's TPU v5e ones:
 the NVIDIA H100 SXM's published dense peaks at its 700 W limit (NVIDIA
-data sheet).  ``launch/roofline.py`` divides counted work by them.
+data sheet).  ``launch/roofline.py`` divides counted work by them.  The
+shared-memory sizes are the H100's (CUDA C++ Programming Guide, compute
+capability 9.0): the kernels' plans and the static analysis's KC03 read
+them here, and ``chip_smoke.py`` holds them to the device's properties.
 """
-from repro_torch.core.types import make_user_shard_devices
-
 PEAK_FLOPS_BF16 = 989e12   # bf16/f16 on the tensor cores, FLOP/s per card
 PEAK_FLOPS_FP32 = 67e12    # fp32 outside the tensor cores (TF32 is off)
 PEAK_OPS_INT8 = 1979e12    # int8 on the tensor cores, OP/s per card
 HBM_BW = 3.35e12           # HBM3, bytes/s per card
 LINK_BW = 450e9            # NVLink, bytes/s per card and direction
+# shared memory one block may opt in to (cudaDevAttrMaxSharedMemoryPerBlockOptin:
+# 227 KB), and one SM's (228 KB, of which the card reserves 1 KB a block)
+SMEM_PER_BLOCK_OPTIN = 232_448
+SMEM_PER_SM = 233_472
+
+
+def __getattr__(name: str):
+    # resolved at first use: the kernel modules read the constants above,
+    # and core (which imports the kernels) must not load with them
+    if name == "make_user_shard_devices":
+        from repro_torch.core.types import make_user_shard_devices
+        return make_user_shard_devices
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 __all__ = ["make_user_shard_devices", "PEAK_FLOPS_BF16", "PEAK_FLOPS_FP32",
-           "PEAK_OPS_INT8", "HBM_BW", "LINK_BW"]
+           "PEAK_OPS_INT8", "HBM_BW", "LINK_BW", "SMEM_PER_BLOCK_OPTIN",
+           "SMEM_PER_SM"]

@@ -1,0 +1,24 @@
+// Corpus case: an approximate intrinsic in an exact-parity kernel
+// (KC07).
+//
+// __expf is a few ulps from expf, so a bitwise oracle fails on some
+// inputs only.
+#include <cuda_runtime.h>
+
+namespace {
+
+__global__ void thing_kernel(float* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float acc = 0.0f;
+  acc += __expf((float)i);
+  out[i] = acc;
+}
+
+}  // namespace
+
+extern "C" int thing_launch(float* out, int n, void* stream) {
+  const unsigned blocks = (unsigned)((n + 255) / 256);
+  thing_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(out, n);
+  return (int)cudaGetLastError();
+}
