@@ -215,7 +215,12 @@ Phases, each fatal on failure (nothing is caught):
    plain versions per leaf within 2x the plain run's own error against
    an f32 run, every layer's attention weights given a gradient),
    granite-3-2b at full width and depth taking 5 AdamW steps (step ms,
-   tokens/s, peak memory, one more step under the profiler), the
+   tokens/s, peak memory, one more step under the profiler) under remat
+   policy "full", then from the same weights and batches under "dots"
+   (step ms and peak beside "full"'s; losses, the step-1 gradient norm
+   and the parameters after 5 steps against "full"'s, bitwise or the
+   difference logged; the gate's step-1 gradients under "dots" against
+   "full"'s too, bitwise or within the gate's bound), the
    training driver on ``lm100m`` (20 steps with a checkpoint, a resume to
    30), and the granite, qwen2-moe, deepseek and gemma3 smoke models'
    3 steps card against CPU;
@@ -314,7 +319,19 @@ Phases, each fatal on failure (nothing is caught):
    them, no spill but those a contract allows (``flash_kernel``'s 8
    bytes), static plus modelled dynamic shared memory within the opt-in.
    The phase's seconds beside the card's name and power limit;
-21. summary -- every kernel's launches, then one JSON line of kernel
+21. placement and compression (run last, within 60 s) --
+   ``quantize_int8`` and 30 steps of ``compress_with_feedback`` on seeded
+   bf16 leaves of granite's widest shape [2048, 8192] bitwise the same
+   calls on the CPU; then a one-rank NCCL process group on ``cuda:0``
+   (a ``FileStore`` under a temporary directory) and the (1, 1, 1)
+   ``("pod", "data", "model")`` mesh: granite-3-2b's parameters placed by
+   ``param_pspecs`` through ``distribute`` (each local tensor on
+   ``cuda:0`` and equal to its input), ``hierarchical_psum_mean`` with and
+   without ``err`` (equal to the input up to its int8 round trip, or its
+   bf16 rounding), ``save_pytree`` / ``restore_pytree(shardings=)`` of a
+   small DTensor tree.  One card shows no multi-rank result: the CPU
+   tests hold those in 8 gloo ranks;
+22. summary -- every kernel's launches, then one JSON line of kernel
    records, and last the ``{"ok": true, ...}`` line.
 
 It needs a CUDA card and the rest of the repository; anywhere else it
@@ -369,9 +386,14 @@ from repro_torch.launch.mesh import make_user_shard_devices  # noqa: E402
 from repro_torch.launch import mesh  # noqa: E402
 from repro_torch.analysis import linter, resources  # noqa: E402
 from repro_torch.optim import optimizers  # noqa: E402
+from repro_torch.optim import compression  # noqa: E402
 from repro_torch.optim.compression import (  # noqa: E402
-    dequantize_int8_rows, quantize_int8_rows, quantize_int8_rows_pitched)
-from repro_torch.parallel.sharding import UserShardSpec  # noqa: E402
+    dequantize_int8_rows, hierarchical_psum_mean, quantize_int8_rows,
+    quantize_int8_rows_pitched)
+from repro_torch.parallel.sharding import (MeshShape, Sharding,  # noqa: E402
+                                           Spec, UserShardSpec, distribute)
+from repro_torch.checkpoint import pytree  # noqa: E402
+from repro_torch.configs.base import named  # noqa: E402
 from repro_torch.streaming import (AsyncCheckpointer, Event,  # noqa: E402
                                    ShardedStreamingEngine, StateStore,
                                    StoreConfig, StreamingEngine, faults,
@@ -4275,12 +4297,14 @@ def bf16_valued(model) -> None:
             p.copy_(p.to(torch.bfloat16))
 
 
-def lm_step1_grads(c, seed, batch, dev, plain, f32=False) -> tuple:
+def lm_step1_grads(c, seed, batch, dev, plain, f32=False,
+                   policy="full") -> tuple:
     """(loss, {name: gradient}) of ``lm_loss`` at the model made from
     ``seed`` (``f32``: the same bf16-valued weights in f32), through the
-    kernels or the plain versions."""
+    kernels or the plain versions, under remat ``policy``."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    c = dataclasses.replace(c, remat_policy=policy)
     model = transformer.init_params(
         dataclasses.replace(c, dtype=torch.float32) if f32 else c, gen, dev)
     if f32:
@@ -4300,7 +4324,9 @@ def lm_gradient_gate(dev, card) -> None:
     kernels (B9 and 9b) against the plain versions, per leaf max |Δ| /
     max |g| at most ``LM_GRAD_BOUND`` times the plain run's own against
     an f32 plain run; every layer's wq, wk, wv and wo gradient finite and
-    not all 0 in the kernel run."""
+    not all 0 in the kernel run.  Then the kernel run again under remat
+    policy "dots": its loss and gradients bitwise the "full" run's, or
+    each leaf within the same gate (the difference logged)."""
     c = dataclasses.replace(granite_3_2b.make_config(),
                             n_layers=LM_GATE_LAYERS)
     batch = train_lm.synthetic_lm_batch(np.random.default_rng(16),
@@ -4317,16 +4343,26 @@ def lm_gradient_gate(dev, card) -> None:
     p_loss, plain = lm_step1_grads(c, 17, batch, dev, plain=True)
     p_s = time.perf_counter() - t0
     f_loss, full = lm_step1_grads(c, 17, batch, dev, plain=True, f32=True)
+    t0 = time.perf_counter()
+    d_loss, dots = lm_step1_grads(c, 17, batch, dev, plain=False,
+                                  policy="dots")
+    d_s = time.perf_counter() - t0
 
     def rel(a, b):
         return float((a.float() - b.float()).abs().max()
                      / b.float().abs().max())
-    worst, rows = 0.0, []
+    worst, rows, dots_worst, n_same = 0.0, [], 0.0, 0
     for name in kern:
         kp, p32 = rel(kern[name], plain[name]), rel(plain[name], full[name])
         assert kp <= LM_GRAD_BOUND * p32, (name, kp, p32)
         worst = max(worst, kp / p32)
         rows.append((kp / p32, name, kp, p32))
+        if torch.equal(dots[name], kern[name]):
+            n_same += 1
+            continue
+        dk = rel(dots[name], kern[name])
+        assert dk <= LM_GRAD_BOUND * p32, ("dots", name, dk, p32)
+        dots_worst = max(dots_worst, dk / p32)
     rows.sort(reverse=True)
     log(f"  gradient gate, granite-3-2b at full width cut to {c.n_layers} "
         f"layers, B={LM_TRAIN_BATCH} S={LM_TRAIN_SEQ}: losses kernels "
@@ -4338,33 +4374,40 @@ def lm_gradient_gate(dev, card) -> None:
         + f"; every layer's wq/wk/wv/wo gradient finite and not all 0; "
         f"step-1 gradients {k_s:.1f} s with the kernels, {p_s:.1f} s plain"
         f" [{card}]")
-    del kern, plain, full
+    log(f"  \"dots\" against \"full\" in the gate: loss {d_loss:.6f} vs "
+        f"{k_loss:.6f} ({'bitwise' if d_loss == k_loss else 'differs'}); "
+        f"{n_same} of {len(kern)} leaves' gradients bitwise"
+        + ("" if n_same == len(kern) else
+           f", the others within {dots_worst:.3f}x the plain run's error "
+           f"against f32 (bound {LM_GRAD_BOUND}x)")
+        + f"; step-1 gradients {d_s:.1f} s under \"dots\" [{card}]")
+    del kern, plain, full, dots
     torch.cuda.empty_cache()
 
 
-def lm_full_depth(dev, card) -> dict:
-    """granite-3-2b at its published widths and depth (40 layers, bf16,
-    seeded weights) takes ``LM_TRAIN_STEPS`` AdamW steps (lr 3e-4, warmup
-    20, as the JAX driver) on B 4 x S 4,096 batches of the driver's
-    maker: every loss finite, the step-1 gradient norm finite and above
-    0; B9 twice and 9b once a layer a step (the forward, and each
-    layer's recompute in the backward).  Logs the median of steps 2-5,
-    tokens/s, peak memory and one more step under the profiler."""
-    c = granite_3_2b.make_config()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(18)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    model = transformer.init_params(c, gen, dev)
+def dots_saved_bytes(c, tokens: int) -> int:
+    """What remat policy "dots" keeps beyond "full" for a dense GQA model:
+    each layer's un-batched products' outputs (q, k, v, the output
+    projection, the FFN's gate, up and down) in the model's dtype."""
+    width = ((c.n_heads + 2 * c.n_kv_heads) * c.d_head + 2 * c.d_model
+             + 2 * c.d_ff)
+    return c.n_layers * tokens * width * torch.empty(
+        (), dtype=c.dtype).element_size()
+
+
+def lm_train_steps(model, c, batches, policy):
+    """``LM_TRAIN_STEPS`` AdamW steps (lr 3e-4, warmup 20) of ``model``
+    under remat ``policy``, from fresh optimizer state; returns the
+    losses, each step's seconds, the step-1 gradient norm, B9's and 9b's
+    launches (9b's also by kernel) and the peak memory (reset after the
+    optimizer is made)."""
+    c = dataclasses.replace(c, remat_policy=policy)
+    model.config = c
     opt = optimizers.adamw(model.parameters(), lr=3e-4, warmup_steps=20,
                            total_steps=LM_TRAIN_STEPS)
     step = transformer.make_train_step(c, opt)
-    rng = np.random.default_rng(18)
-    batches = [train_lm.synthetic_lm_batch(rng, LM_TRAIN_BATCH,
-                                           LM_TRAIN_SEQ, c.vocab_size, dev)
-               for _ in range(LM_TRAIN_STEPS + 1)]
     torch.cuda.synchronize()
-    made = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
     before = dict(build.launch_counts)
     bwd_before = dict(flash_attention.bwd_launches)
     losses, times = [], []
@@ -4377,30 +4420,78 @@ def lm_full_depth(dev, card) -> dict:
             gnorm = float(opt.last_gnorm)
     launched = {n: build.launch_counts[n] - before[n]
                 for n in ("flash_attention", "flash_attention_bwd")}
-    assert all(np.isfinite(losses)), losses
-    assert np.isfinite(gnorm) and gnorm > 0, gnorm
-    assert launched == {"flash_attention": 2 * c.n_layers * LM_TRAIN_STEPS,
-                        "flash_attention_bwd": c.n_layers
-                        * LM_TRAIN_STEPS}, launched
-    # 9b on its Hopper design in every layer of every step: each of its
-    # kernels once a layer, the CUDA-core design's never
     by_kernel = {n: x - bwd_before[n]
                  for n, x in flash_attention.bwd_launches.items()}
+    peak = torch.cuda.max_memory_allocated()
+    assert all(np.isfinite(losses)), (policy, losses)
+    assert np.isfinite(gnorm) and gnorm > 0, (policy, gnorm)
+    # B9 twice a layer a step (the forward, and each layer's recompute in
+    # the backward: "dots" keeps products, B9 is not one), 9b once, on its
+    # Hopper design in every layer of every step
+    assert launched == {"flash_attention": 2 * c.n_layers * LM_TRAIN_STEPS,
+                        "flash_attention_bwd": c.n_layers
+                        * LM_TRAIN_STEPS}, (policy, launched)
     assert by_kernel == {n: c.n_layers * LM_TRAIN_STEPS
                          if n in FLASH_BWD_WGMMA_KERNELS else 0
-                         for n in by_kernel}, by_kernel
-    peak = torch.cuda.max_memory_allocated()
-    med = float(np.median(times[1:]))
+                         for n in by_kernel}, (policy, by_kernel)
+    return SimpleNamespace(losses=losses, times=times, gnorm=gnorm,
+                           launched=launched, by_kernel=by_kernel, peak=peak,
+                           opt=opt, step=step,
+                           ms=float(np.median(times[1:])) * 1e3)
+
+
+def host_params(model) -> dict:
+    return {n: p.detach().to("cpu", copy=True)
+            for n, p in model.named_parameters()}
+
+
+@torch.no_grad()
+def load_params(model, params) -> None:
+    for n, p in model.named_parameters():
+        p.copy_(params[n])
+
+
+def lm_full_depth(dev, card) -> dict:
+    """granite-3-2b at its published widths and depth (40 layers, bf16,
+    seeded weights) takes ``LM_TRAIN_STEPS`` AdamW steps (lr 3e-4, warmup
+    20, as the JAX driver) on B 4 x S 4,096 batches of the driver's
+    maker under remat policy "full": every loss finite, the step-1
+    gradient norm finite and above 0; B9 twice and 9b once a layer a
+    step (the forward, and each layer's recompute in the backward).
+    Logs the median of steps 2-5, tokens/s, peak memory and one more
+    step under the profiler.  Then the same model from the same weights
+    and the same batches under "dots" (fresh optimizer state): its step
+    ms and peak beside "full"'s, and its losses, step-1 gradient norm
+    and parameters after 5 steps against "full"'s, bitwise or the
+    difference logged (the gradient gate holds "dots" to the kernels'
+    bound).  "dots" keeps ``dots_saved_bytes`` more; where that would
+    not fit beside "full"'s peak, both policies run again at B 2."""
+    c = granite_3_2b.make_config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    t0 = time.perf_counter()
+    model = transformer.init_params(c, gen, dev)
+    rng = np.random.default_rng(18)
+    batches = [train_lm.synthetic_lm_batch(rng, LM_TRAIN_BATCH,
+                                           LM_TRAIN_SEQ, c.vocab_size, dev)
+               for _ in range(LM_TRAIN_STEPS + 1)]
+    initial = host_params(model)
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    full = lm_train_steps(model, c, batches, "full")
     tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
     n_params = sum(p.numel() for p in model.parameters())
     log(f"  granite-3-2b training, {c.n_layers} layers, B={LM_TRAIN_BATCH}"
         f" S={LM_TRAIN_SEQ}, {n_params:,} parameters (bf16; AdamW moments "
         f"f32), made in {made:.1f} s: losses " + ", ".join(
-            f"{x:.6f}" for x in losses)
-        + f"; step-1 gradient norm {gnorm:.6g}; step {med * 1e3:.1f} ms "
-        f"(median of steps 2-{LM_TRAIN_STEPS}; step 1 {times[0] * 1e3:.1f} "
-        f"ms), {tokens / med:,.0f} tokens/s; peak {peak / 1e9:.2f} GB; "
-        f"launches {launched}, 9b's by kernel {by_kernel} [{card}]")
+            f"{x:.6f}" for x in full.losses)
+        + f"; step-1 gradient norm {full.gnorm:.6g}; step {full.ms:.1f} ms "
+        f"(median of steps 2-{LM_TRAIN_STEPS}; step 1 "
+        f"{full.times[0] * 1e3:.1f} ms), {tokens * 1e3 / full.ms:,.0f} "
+        f"tokens/s; peak {full.peak / 1e9:.2f} GB; launches "
+        f"{full.launched}, 9b's by kernel {full.by_kernel} [{card}]")
+    trained = host_params(model)
+    step = full.step
     wall, total, prof = profiled(lambda: step(model, batches[-1]))
     by_name = {n: [(ms, k) for ms, k, kn in prof if n in kn]
                for n in ("flash_wgmma_kernel",) + FLASH_BWD_WGMMA_KERNELS}
@@ -4411,9 +4502,57 @@ def lm_full_depth(dev, card) -> dict:
         + "; B9 and 9b by kernel: " + "; ".join(
             f"{n} {sum(m for m, _ in r):.1f} ms x{sum(k for _, k in r)}"
             for n, r in by_name.items()))
-    del model, opt, step, batches
+    del full.opt, full.step, step
+    gc.collect()
     torch.cuda.empty_cache()
-    return dict(step_ms=med * 1e3, tokens_s=tokens / med, peak=peak)
+
+    extra = dots_saved_bytes(c, tokens)
+    total_bytes = torch.cuda.mem_get_info(dev)[1]
+    b = LM_TRAIN_BATCH if full.peak + extra <= 0.9 * total_bytes else 2
+    cut = "" if b == LM_TRAIN_BATCH else (
+        f"; batch cut {LM_TRAIN_BATCH} -> {b}: \"full\"'s peak "
+        f"{full.peak / 1e9:.2f} GB and the {extra / 1e9:.2f} GB \"dots\" "
+        f"keeps exceed 0.9 of the card's {total_bytes / 1e9:.1f} GB")
+    if b != LM_TRAIN_BATCH:
+        batches = [{k: v[:b] for k, v in x.items()} for x in batches]
+        load_params(model, initial)
+        full = lm_train_steps(model, c, batches, "full")
+        trained = host_params(model)
+        del full.opt, full.step
+        gc.collect()
+        torch.cuda.empty_cache()
+    load_params(model, initial)
+    dots = lm_train_steps(model, c, batches, "dots")
+    same = {n: torch.equal(p.detach().cpu(), trained[n])
+            for n, p in model.named_parameters()}
+    diff = max((float((p.detach().cpu().float() - trained[n].float()
+                       ).abs().max() / trained[n].float().abs().max())
+                for n, p in model.named_parameters() if not same[n]),
+               default=0.0)
+    log(f"  \"dots\" beside \"full\", granite-3-2b at {c.n_layers} layers, "
+        f"B={b} S={LM_TRAIN_SEQ}{cut}: step {dots.ms:.1f} ms vs "
+        f"{full.ms:.1f} ms (median of steps 2-{LM_TRAIN_STEPS}), peak "
+        f"{dots.peak / 1e9:.2f} GB vs {full.peak / 1e9:.2f} GB (reckoned "
+        f"+{dots_saved_bytes(c, b * LM_TRAIN_SEQ) / 1e9:.2f} GB); losses "
+        + ("bitwise" if dots.losses == full.losses else "differ: " + ", ".join(
+            f"{x:.6f} vs {y:.6f}" for x, y in zip(dots.losses, full.losses)))
+        + f"; step-1 gradient norm {dots.gnorm:.6g} "
+        + ("(bitwise)" if dots.gnorm == full.gnorm
+           else f"vs {full.gnorm:.6g}")
+        + f"; parameters after {LM_TRAIN_STEPS} steps: {sum(same.values())}"
+        f" of {len(same)} leaves bitwise"
+        + ("" if all(same.values())
+           else f", the others within max |Δ| / max |p| {diff:.3e}")
+        + f"; launches {dots.launched} [{card}]")
+    assert all(abs(x - y) <= 1e-2 * abs(y)
+               for x, y in zip(dots.losses, full.losses)), \
+        (dots.losses, full.losses)
+    del model, batches, dots.opt, dots.step, initial, trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(step_ms=full.ms, tokens_s=tokens * 1e3 / full.ms,
+                peak=full.peak, dots_step_ms=dots.ms, dots_peak=dots.peak,
+                dots_batch=b)
 
 
 def lm_driver(dev, card) -> None:
@@ -5196,6 +5335,136 @@ def static_analysis_path(card: str) -> None:
         f"{time.perf_counter() - t0:.3f} s; card: {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the placement layer and gradient compression
+# ---------------------------------------------------------------------------
+
+# granite-3-2b's widest leaf (an FFN matrix's [d_model, d_ff]) and the
+# steps of error feedback held to the CPU
+COMPRESS_SHAPE, COMPRESS_STEPS, PLACEMENT_PHASE_S = (2048, 8192), 30, 60.0
+PLACEMENT_CKPT_DIR = ROOT / "build" / "chip_smoke_placement_ckpt"
+
+
+def compression_parity(dev) -> str:
+    """``quantize_int8`` and ``COMPRESS_STEPS`` steps of
+    ``compress_with_feedback`` on seeded bf16 leaves of
+    ``COMPRESS_SHAPE``, on the card and on the CPU: int8 values, scales
+    and residuals bitwise."""
+    gen = torch.Generator().manual_seed(21)
+    g = torch.randn(COMPRESS_SHAPE, generator=gen).to(torch.bfloat16)
+    q, scale = compression.quantize_int8(g.to(dev))
+    cq, cscale = compression.quantize_int8(g)
+    assert torch.equal(q.cpu(), cq) and torch.equal(scale.cpu(), cscale)
+    err = compression.init_error_feedback(g.to(dev))
+    cerr = compression.init_error_feedback(g)
+    for t in range(COMPRESS_STEPS):
+        g = (torch.randn(COMPRESS_SHAPE, generator=gen) * 1e-2
+             ).to(torch.bfloat16)
+        q, scale, err = compression.compress_with_feedback(g.to(dev), err)
+        cq, cscale, cerr = compression.compress_with_feedback(g, cerr)
+        assert torch.equal(q.cpu(), cq), t
+        assert torch.equal(scale.cpu(), cscale), t
+        assert torch.equal(err.cpu(), cerr), t
+    return (f"quantize_int8 and {COMPRESS_STEPS} steps of "
+            f"compress_with_feedback on bf16 {list(COMPRESS_SHAPE)}: int8 "
+            f"values, scales and residuals bitwise the CPU's")
+
+
+def one_rank_placement(dev, c, shape) -> dict:
+    """The one-rank half of phase 21 on ``dev`` (NCCL on the card, gloo
+    on the CPU for a rehearsal) with the config ``c`` of granite-3-2b and
+    ``shape`` of compression: see :func:`placement_path`."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    mesh_shape = MeshShape(("pod", "data", "model"), (1, 1, 1))
+    rules = mesh.make_rules()
+    with tempfile.TemporaryDirectory() as tmp:
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev.index or 0)
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            store=dist.FileStore(str(Path(tmp) / "store"), 1), rank=0,
+            world_size=1)
+        try:
+            dm = mesh_shape.device_mesh(dev.type)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(21)
+            model = transformer.init_params(c, gen, dev)
+            params = dict(model.named_parameters())
+            specs = transformer.param_pspecs(c, mesh_shape, rules)
+            placed = distribute(params, named(mesh_shape, specs), dm)
+            for n, x in placed.items():
+                assert isinstance(x, DTensor), n
+                local = x.to_local()
+                assert local.device.type == dev.type, n
+                assert torch.equal(local, params[n]), n
+            del placed, params, model
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            x = torch.randn(shape, device=dev, generator=gen)
+            mean, _ = hierarchical_psum_mean(x, dm, ("data", "model"),
+                                             "pod")
+            assert torch.equal(mean, x.to(torch.bfloat16).float())
+            err = torch.zeros(x.numel(), device=dev)
+            mean, err = hierarchical_psum_mean(x, dm, ("data", "model"),
+                                               "pod", err=err)
+            decoded = compression.dequantize_int8(*compression.quantize_int8(x))
+            assert torch.equal(mean, decoded)
+            assert torch.equal(err.view(x.shape), x - decoded)
+            shutil.rmtree(PLACEMENT_CKPT_DIR, ignore_errors=True)
+            tree = {"w": torch.randn(64, 32, device=dev, generator=gen),
+                    "b": torch.randn(32, device=dev,
+                                     generator=gen).to(torch.bfloat16)}
+            tiny = {"w": Sharding(dm, Spec(("pod", "data"), "model")),
+                    "b": Sharding(dm, Spec("model"))}
+            pytree.save_pytree(distribute(tree, tiny, dm),
+                               str(PLACEMENT_CKPT_DIR), 1)
+            back = pytree.restore_pytree(
+                {k: torch.zeros_like(v) for k, v in tree.items()},
+                str(PLACEMENT_CKPT_DIR), shardings=tiny)
+            for k, v in back.items():
+                assert isinstance(v, DTensor) and torch.equal(
+                    v.to_local(), tree[k]), k
+            shutil.rmtree(PLACEMENT_CKPT_DIR, ignore_errors=True)
+        finally:
+            dist.destroy_process_group()
+    return dict(mesh=mesh_shape, n_params=len(specs),
+                n_sharded=sum(any(e is not None for e in s)
+                              for s in specs.values()))
+
+
+def placement_path(dev, card) -> None:
+    """Phase 21: the compression's parity with the CPU, then a one-rank
+    NCCL process group on ``cuda:0`` (a ``FileStore`` under a temporary
+    directory) with the (1, 1, 1) ``("pod", "data", "model")`` mesh:
+    granite-3-2b's parameters placed by ``param_pspecs`` (each local
+    tensor on the card and equal to its input),
+    ``hierarchical_psum_mean`` over ("data", "model") inside the pod and
+    across "pod" (equal to the input's bf16 rounding without ``err``, to
+    its int8 round trip with it), and a small tree saved from DTensors
+    and restored by ``shardings=``.  One card shows no multi-rank
+    result: the CPU tests hold those in 8 gloo ranks."""
+    assert dev.type == "cuda" and torch.cuda.is_available(), dev
+    t_start = time.perf_counter()
+    parity = compression_parity(dev)
+    t_parity = time.perf_counter() - t_start
+    r = one_rank_placement(dev, granite_3_2b.make_config(), COMPRESS_SHAPE)
+    seconds = time.perf_counter() - t_start
+    assert seconds <= PLACEMENT_PHASE_S, seconds
+    log(f"  {parity} ({t_parity:.1f} s); a one-rank NCCL group, mesh "
+        f"{r['mesh'].shape} {r['mesh'].axis_names}: granite-3-2b's "
+        f"{r['n_params']} parameters placed by param_pspecs "
+        f"({r['n_sharded']} with a sharded dim), each local tensor on "
+        f"cuda:0 equal to its input; hierarchical_psum_mean over ('data', "
+        f"'model') and 'pod' equal to the input's bf16 rounding without "
+        f"err and its int8 round trip with it; a DTensor tree saved and "
+        f"restored by shardings= bitwise.  One card shows no multi-rank "
+        f"result (the CPU tests hold those in 8 gloo ranks).  "
+        f"{seconds:.1f} s of {PLACEMENT_PHASE_S:.0f} [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
@@ -5296,6 +5565,10 @@ def main() -> int:
     records["flash_attention"]["s32k"] = long_recs["granite-3-2b"]
     paths.append(cells)
     log(f"the registry's cells: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    placement_path(dev, card)
+    log(f"placement and compression: {time.perf_counter() - t0:.1f} s")
     for name in KERNELS:
         # launches on the paths that drive the kernel (each path's counts
         # were set to 0 just before it and read just after)

@@ -16,8 +16,15 @@ that either package restores the other's:
 
 Leaves are torch tensors (any device), numpy arrays or Python scalars;
 :func:`restore_pytree` gives torch tensors, each on its ``like`` leaf's
-device.  The reference's elastic restore (``shardings=``) waits for the
-port's sharding and raises.
+device.
+
+Sharded trees: every rank calls :func:`save_pytree` on a tree with
+DTensor leaves; each is gathered whole (``full_tensor``, as the
+reference's ``np.asarray`` gathers a sharded array), global rank 0
+writes the same files an unsharded tree of those values gives, and the
+ranks meet at a barrier.  :func:`restore_pytree` with ``shardings=``
+places every restored leaf as a DTensor by its ``Sharding`` over a
+``DeviceMesh`` of any size: an elastic restart onto another mesh.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 # numpy has no bf16 / fp8: stored as a same-width unsigned view, the true
 # dtype in LATEST (the reference's names); torch reads the bits through
@@ -94,17 +102,37 @@ def _decode(x: np.ndarray, name: str) -> torch.Tensor:
     return torch.from_numpy(x.astype(np.dtype(name), copy=False))
 
 
+def _is_dtensor(x: Any) -> bool:
+    if not isinstance(x, torch.Tensor) or not dist.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def save_pytree(tree: Any, directory: str, step: int) -> str:
     """Write ``tree`` as checkpoint ``step`` of ``directory`` and point
-    ``LATEST`` at it (both atomically); returns the npz path."""
-    os.makedirs(directory, exist_ok=True)
+    ``LATEST`` at it (both atomically); returns the npz path.  A tree
+    with DTensor leaves is saved by every rank together: the leaves are
+    gathered whole, rank 0 writes, and all return after a barrier."""
     leaves = flatten(tree)
+    sharded = any(_is_dtensor(x) for x in leaves)
+    if sharded:
+        leaves = [x.full_tensor() if _is_dtensor(x) else x for x in leaves]
+    path = os.path.join(directory, f"ckpt_{step:010d}.npz")
+    if not sharded or dist.get_rank() == 0:
+        _write(leaves, directory, step, path)
+    if sharded:
+        dist.barrier()
+    return path
+
+
+def _write(leaves: List[Any], directory: str, step: int, path: str) -> None:
+    os.makedirs(directory, exist_ok=True)
     arrays, dtypes = {}, []
     for i, x in enumerate(leaves):
         enc, name = _encode(x)
         arrays[f"leaf_{i}"] = enc
         dtypes.append(name)
-    path = os.path.join(directory, f"ckpt_{step:010d}.npz")
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         np.savez(f, **arrays)
@@ -114,7 +142,6 @@ def save_pytree(tree: Any, directory: str, step: int) -> str:
     with open(mtmp, "w") as f:
         json.dump(meta, f)
     os.replace(mtmp, os.path.join(directory, "LATEST"))
-    return path
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -132,10 +159,23 @@ def restore_pytree(like: Any, directory: str, step: Optional[int] = None,
     structure of ``like``: torch tensors of the stored dtypes, each on
     its ``like`` leaf's device (the CPU for a leaf that is not a
     tensor).  Raises where the leaf count or a shape differs from
-    ``like``'s."""
+    ``like``'s.
+
+    ``shardings``: a tree of ``parallel.sharding.Sharding`` matching
+    ``like``, each over a ``DeviceMesh``; every leaf is then returned as
+    a DTensor placed by its sharding on that mesh's devices, whatever
+    mesh wrote the checkpoint (every rank of the mesh calls it)."""
+    places = None
     if shardings is not None:
-        raise NotImplementedError("elastic restore (shardings=) waits for "
-                                  "the port's sharding")
+        from repro_torch.parallel.sharding import Sharding, distribute
+        places = flatten(shardings)
+        if not all(isinstance(s, Sharding)
+                   and hasattr(s.mesh, "device_type") for s in places):
+            raise TypeError("shardings= takes a tree of Sharding over a "
+                            "DeviceMesh, one for each leaf")
+        if len(places) != len(flatten(like)):
+            raise ValueError(f"{len(places)} shardings for a tree of "
+                             f"{len(flatten(like))} leaves")
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -155,12 +195,19 @@ def restore_pytree(like: Any, directory: str, step: Optional[int] = None,
                 if tuple(t.shape) != tuple(ref.shape):
                     raise ValueError(f"leaf {i}: shape {tuple(t.shape)}, "
                                      f"the tree's {tuple(ref.shape)}")
-                t = t.to(ref.device)
+                if places is None:
+                    t = t.to(ref.device)
             out.append(t)
+    if places is not None:
+        out = [distribute(t.to(s.mesh.device_type), s, s.mesh)
+               for t, s in zip(out, places)]
     return _unflatten(like, out)
 
 
 def _host_copy(x: Any) -> Any:
+    if _is_dtensor(x):
+        raise TypeError("AsyncCheckpointer snapshots local tensors: save "
+                        "a DTensor tree with save_pytree")
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu", copy=True)
     return np.array(x, copy=True)

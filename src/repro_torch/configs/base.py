@@ -6,8 +6,13 @@ name to a builder ``(device=None, seed=0, sizes=None) -> CellProgram``:
 the builder makes the cell's inputs as concrete tensors on ``device``
 (CUDA unless the caller names another) from ``seed``, and
 ``prog.fn(*prog.args)`` runs the cell once (``launch/dryrun.py``).
-There is no sharding spec and no donation: the port places each tensor
-on its device, and its appliers and train steps update in place.
+There is no donation: the port's appliers and train steps update in
+place.  ``CellProgram.in_shardings`` records how the cell shards over
+the production mesh (``launch.mesh.make_production_mesh()`` and
+``make_rules``), as the JAX cell records it for lowering: the
+:class:`~repro_torch.parallel.sharding.Sharding` of the parameters, the
+optimizer state, the caches and the batch, computed from shapes only
+(:meth:`Cell.shardings`).  On one card nothing is distributed.
 
 The LM, recommender and GNN builders (:class:`LMCell`,
 :class:`RecsysCell`) keep the JAX cell's ``description`` at the
@@ -28,6 +33,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core.types import resolve_device
+from repro_torch.parallel.sharding import (MeshShape, Sharding,
+                                           ShardingRules, Spec, batch_axes,
+                                           tree_map)
 
 # a leaf's (shape, dtype), by name
 Leaves = Dict[str, Tuple[Tuple[int, ...], torch.dtype]]
@@ -56,9 +64,13 @@ class CellProgram:
     (an FMA as two), as the JAX cell defines them, at the sizes used.
     ``estimate_bytes`` is the peak device memory the cut rule estimated
     for these sizes (``None`` where the cell has no estimate).
+    ``in_shardings``: the :class:`Sharding` of each of the JAX cell's
+    arguments (parameters, optimizer state, caches, batch) at these
+    sizes over the production mesh; ``None`` for a cell without one.
     """
     fn: Callable
     args: tuple
+    in_shardings: Any = None
     description: str = ""
     model_flops_per_step: float = 0.0
     reduced: Dict[str, str] = dataclasses.field(default_factory=dict)
@@ -83,6 +95,25 @@ class Sizes:
     config: Any
     batch: int
     seq: Optional[int] = None
+
+
+def named(mesh: MeshShape, tree_of_pspecs: Any) -> Any:
+    """A tree of :class:`Spec` as :class:`Sharding` over ``mesh``."""
+    return tree_map(lambda _, s: Sharding(mesh, s), tree_of_pspecs)
+
+
+def _shardable(n: int, mesh: MeshShape, axes: Sequence[str]) -> bool:
+    """Whether ``axes`` (more than one device) divide ``n``."""
+    sizes = mesh.sizes()
+    total = math.prod(sizes[a] for a in axes)
+    return total > 1 and n % total == 0
+
+
+def batch_spec(mesh: MeshShape, rules: ShardingRules, n: int) -> Any:
+    """The entry of a batch dim of ``n`` rows: the batch axes where they
+    divide it, else ``None``."""
+    b_ax = batch_axes(mesh, rules)
+    return b_ax if _shardable(n, mesh, b_ax) else None
 
 
 def generator(dev: torch.device, seed: int) -> torch.Generator:
@@ -295,6 +326,23 @@ class Cell:
         """(fn, args) with the inputs built on ``dev`` from ``seed``."""
         raise NotImplementedError
 
+    def shardings(self, sz: Optional[Sizes] = None,
+                  mesh: Optional[MeshShape] = None,
+                  rules: Optional[ShardingRules] = None) -> tuple:
+        """The JAX cell's ``in_shardings`` at ``sz`` (default: the
+        published sizes) over ``mesh`` and ``rules`` (default: the
+        production mesh), from shapes only."""
+        if mesh is None:
+            from repro_torch.launch.mesh import (make_production_mesh,
+                                                 make_rules)
+            mesh, rules = make_production_mesh(), make_rules()
+        return self._shardings(self.published if sz is None else sz,
+                               mesh, rules)
+
+    def _shardings(self, sz: Sizes, mesh: MeshShape,
+                   rules: ShardingRules) -> tuple:
+        raise NotImplementedError
+
     def config_words(self, c: Any) -> str:
         return getattr(c, "name", str(c))
 
@@ -307,7 +355,9 @@ class Cell:
             sz, est = sizes, self.peak(sizes)
             reduced = caller_cut(self.published, sizes, self.config_words)
         fn, args = self.make(sz, dev, seed)
-        return CellProgram(fn=fn, args=args, description=self.description,
+        return CellProgram(fn=fn, args=args,
+                           in_shardings=self.shardings(sz),
+                           description=self.description,
                            model_flops_per_step=self.flops(sz),
                            reduced=reduced, estimate_bytes=est)
 
@@ -332,15 +382,7 @@ def lm_leaf_shapes(c) -> List[Tuple[int, ...]]:
     """The shape of every parameter of the port's ``Transformer`` (one
     per layer, unstacked)."""
     from repro_torch.models import transformer as T
-    shapes = [(c.vocab_size, c.d_model), (c.d_model,)]
-    if not c.tie_embeddings:
-        shapes.append((c.d_model, c.vocab_size))
-    if c.mtp:
-        shapes += [(2 * c.d_model, c.d_model), (c.d_model,)]
-    n_dense, n_moe = T.layer_groups(c)
-    for n, dense in ((n_dense, True), (n_moe, False)):
-        shapes += list(T._dense_layer_shapes(c, dense).values()) * n
-    return shapes
+    return list(T.named_param_shapes(c).values())
 
 
 def lm_param_bytes(c) -> int:
@@ -561,6 +603,26 @@ class LMCell(Cell):
             else None,
             depth_words=lm_depth_words)
 
+    def _shardings(self, sz, mesh, rules):
+        from repro_torch.models import transformer as T
+        from repro_torch.optim import optimizers
+        c, b = sz.config, sz.batch
+        pspecs = T.param_pspecs(c, mesh, rules)
+        params = named(mesh, pspecs)
+        bspec = Sharding(mesh, Spec(batch_spec(mesh, rules, b), None))
+        if self.kind == "train":
+            opt = (optimizers.adamw_state_pspecs(pspecs)
+                   if self.optimizer == "adamw"
+                   else optimizers.adafactor_state_pspecs(
+                       T.named_param_shapes(c), pspecs))
+            return (params, named(mesh, opt),
+                    {"tokens": bspec, "labels": bspec})
+        if self.kind == "prefill":
+            return params, bspec
+        return (params, named(mesh, _cache_pspecs(c, b, self._seq(sz), mesh,
+                                                  rules)),
+                bspec, Sharding(mesh, Spec()))
+
     def make(self, sz: Sizes, dev: torch.device, seed: int):
         from repro_torch.models import transformer as T
         from repro_torch.optim import optimizers
@@ -597,6 +659,23 @@ class LMCell(Cell):
         def decode(model, caches, token, pos):
             return model.decode_step(caches, token, pos)
         return decode, (model, caches, token, s - 1)
+
+
+def _cache_pspecs(c, batch: int, length: int, mesh: MeshShape,
+                  rules: ShardingRules) -> Dict[str, Tuple[Spec, Spec]]:
+    """The caches' specs: B over the batch axes where they divide it and
+    S over the context axis, else S over ("data", "model") and B
+    replicated; the layer dim of each stack replicated."""
+    from repro_torch.models import transformer as T
+    if _shardable(batch, mesh, batch_axes(mesh, rules)):
+        bs = batch_axes(mesh, rules)
+        s_ax = rules.context if rules.context in mesh.axis_names else None
+    else:
+        bs = None
+        s_ax = tuple(a for a in ("data", "model") if a in mesh.axis_names)
+    return {group: tuple(Spec(None, bs, s_ax, *([None] * (len(s) - 3)))
+                         for s in shapes)
+            for group, shapes in T.cache_shapes(c, batch, length).items()}
 
 
 def lm_train_cell(make_config, global_batch: int, seq: int,
@@ -636,6 +715,11 @@ class CellBatch:
              ) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
 
+    def shardings(self, c, n: int, mesh: MeshShape,
+                  rules: ShardingRules) -> Dict[str, Sharding]:
+        """The JAX batch builder's sharding of each leaf."""
+        raise NotImplementedError
+
     def candidates(self) -> List[int]:
         return halvings(self.n)
 
@@ -664,6 +748,16 @@ class RecsysCell(Cell):
 
     def leaves(self, sz: Sizes) -> Leaves:
         return self.batch.leaves(sz.config, sz.batch)
+
+    def _shardings(self, sz, mesh, rules):
+        from repro_torch.optim import optimizers
+        pspecs = self.module.param_pspecs(sz.config, mesh, rules)
+        batch = self.batch.shardings(sz.config, sz.batch, mesh, rules)
+        if self.train:
+            return (named(mesh, pspecs),
+                    named(mesh, optimizers.adamw_state_pspecs(pspecs)),
+                    batch)
+        return named(mesh, pspecs), batch
 
     def flops(self, sz: Sizes) -> float:
         return self.flops_fn(sz.config, sz.batch) if self.flops_fn else 0.0

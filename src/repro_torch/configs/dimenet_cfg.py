@@ -31,6 +31,7 @@ from repro_torch.core.types import resolve_device
 from repro_torch.data.graph_sampler import (molecule_batch, pad_to,
                                             sample_triplets)
 from repro_torch.models import dimenet
+from repro_torch.parallel.sharding import Sharding, Spec
 
 
 def _pad(n, m=512):
@@ -172,6 +173,10 @@ def peak_bytes(c: dimenet.DimeNetConfig, g: Dict[str, Any]) -> float:
             + 4 * n * (g["d_feat"] + 4 * d) + 16 * (e + t) + 8 * n)
 
 
+# the leaves with one row per edge or triplet
+EDGE_LEAVES = ("edge_src", "edge_dst", "dist", "angle", "tri_kj", "tri_ji")
+
+
 class GraphBatch(CellBatch):
     """A cell's graph divided by ``f`` (the batch the cut rule moves: 1,
     2, 4, ... up to a graph of one edge), built by :func:`cell_batch`."""
@@ -213,6 +218,16 @@ class GraphBatch(CellBatch):
 
     def make(self, c, f: int, gen: torch.Generator, seed: int):
         return cell_batch(self.graph(c, f), seed, gen.device)
+
+    def shardings(self, c, f, mesh, rules):
+        """The edge and triplet leaves over ("data", "model"), the node
+        and graph leaves replicated (a one-entry spec, as the
+        reference's)."""
+        graph = Spec(tuple(a for a in ("data", "model")
+                           if a in mesh.axis_names))
+        return {k: Sharding(mesh, graph if k in EDGE_LEAVES
+                            else Spec(None))
+                for k in self.leaves(c, f)}
 
 
 def _flops(cell: str):

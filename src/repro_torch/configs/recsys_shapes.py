@@ -26,11 +26,13 @@ without allocating (``leaves``) and makes them through the maker above
 int64; floats are f32 in both.
 """
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import CellBatch, Leaves
+from repro_torch.configs.base import CellBatch, Leaves, batch_spec
+from repro_torch.models.common import replicated
+from repro_torch.parallel.sharding import Sharding, Spec
 
 TRAIN_BATCH = 65536
 N_MASKED, N_NEGATIVES = 20, 8192      # BERT4Rec's sampled cloze
@@ -169,17 +171,26 @@ I64, F32 = torch.int64, torch.float32
 
 class RowsBatch(CellBatch):
     """``n`` rows of ``maker(c, n, gen, train=train)``, shaped by
-    ``shapes(c, n, train)``; ``n`` is the published count."""
+    ``shapes(c, n, train)``; ``n`` is the published count.  Every leaf
+    is sharded by its rows over the batch axes (where they divide ``n``)
+    but those named in ``shared``, which every row reads (replicated)."""
 
     def __init__(self, maker: Callable, shapes: Callable, n: int,
-                 train: bool):
+                 train: bool, shared: Tuple[str, ...] = ()):
         self.maker, self.shapes, self.n, self.train = maker, shapes, n, train
+        self.shared = shared
 
     def leaves(self, c, n: int) -> Leaves:
         return self.shapes(c, n, self.train)
 
     def make(self, c, n: int, gen: torch.Generator, seed: int) -> Batch:
         return self.maker(c, n, gen, train=self.train)
+
+    def shardings(self, c, n, mesh, rules):
+        ax = batch_spec(mesh, rules, n)
+        return {k: Sharding(mesh, replicated(shape) if k in self.shared
+                            else Spec(ax, *([None] * (len(shape) - 1))))
+                for k, (shape, _) in self.leaves(c, n).items()}
 
 
 def _dlrm_leaves(c, n: int, train: bool) -> Leaves:
@@ -224,7 +235,8 @@ def deepfm_cell_batch(n: int, train: bool = True) -> RowsBatch:
 def bert4rec_cell_batch(n: int, train: bool = True) -> RowsBatch:
     """With ``train``, the sampled cloze's keys: 20 masked positions a
     row and 8,192 shared negatives (the reference's defaults)."""
-    return RowsBatch(bert4rec_batch, _bert4rec_leaves, n, train)
+    return RowsBatch(bert4rec_batch, _bert4rec_leaves, n, train,
+                     shared=("negatives",))
 
 
 def two_tower_cell_batch(n: int, train: bool = True) -> RowsBatch:
@@ -245,6 +257,15 @@ class RetrievalBatch(CellBatch):
 
     def make(self, c, n: int, gen: torch.Generator, seed: int) -> Batch:
         return self.maker(c, gen, n)
+
+    def shardings(self, c, n, mesh, rules):
+        """The query replicated, the candidates' rows over the tensor
+        axis."""
+        tp = rules.tensor if rules.tensor in mesh.axis_names else None
+        out = {k: Sharding(mesh, replicated(shape))
+               for k, (shape, _) in self.query(c).items()}
+        out["candidates"] = Sharding(mesh, Spec(tp, None))
+        return out
 
 
 def bert4rec_retrieval_cell_batch(n_cand: int = N_CANDIDATES

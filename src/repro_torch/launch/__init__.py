@@ -1,6 +1,11 @@
-"""Drivers of the PyTorch port (the serving trickle demo) and the
-per-shard device assignment of the sharded engine."""
-__all__ = ["make_user_shard_devices"]
+"""Launch: production meshes, the dry run, training and serving drivers,
+roofline analysis, and the per-shard device assignment of the sharded
+engine."""
+from repro_torch.launch.mesh import (make_production_mesh, make_rules,
+                                     make_test_mesh, make_user_shard_meshes)
+
+__all__ = ["make_production_mesh", "make_rules", "make_test_mesh",
+           "make_user_shard_meshes", "make_user_shard_devices"]
 
 
 def __getattr__(name: str):

@@ -36,8 +36,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.types import resolve_device
 from repro_torch.kernels import ops, ref
 from repro_torch.models.common import (layer_norm, map_batch_chunks,
-                                       masked_xent, normal_, train_step_of)
+                                       masked_xent, normal_, replicated,
+                                       row_axes, train_step_of)
 from repro_torch.models.embedding import check_ids
+from repro_torch.parallel.sharding import MeshShape, ShardingRules, Spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +108,22 @@ class Bert4Rec(nn.Module):
             self.register_parameter(name, empty(shapes[name]))
         self.blocks = nn.ParameterDict(
             {k: empty(s) for k, s in shapes["blocks"].items()})
+
+
+def param_pspecs(c: Bert4RecConfig, mesh: MeshShape,
+                 rules: ShardingRules) -> Dict[str, Spec]:
+    """The spec of each parameter, by its name in ``named_parameters``:
+    the item table's rows (and the output bias) over every mesh axis
+    where the devices divide the vocabulary, else over the tensor axis;
+    the rest replicated (the blocks stay stacked ``[L, ...]``)."""
+    rows = row_axes(c.vocab, mesh, rules)
+    shapes = param_shapes(c)
+    out = {"item_emb": Spec(rows, None), "pos_emb": Spec(None, None),
+           "out_ln_w": Spec(None), "out_ln_b": Spec(None),
+           "out_bias": Spec(rows)}
+    out.update({f"blocks.{k}": replicated(s)
+                for k, s in shapes["blocks"].items()})
+    return out
 
 
 @torch.no_grad()

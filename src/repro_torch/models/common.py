@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.types import resolve_device
+from repro_torch.parallel.sharding import MeshShape, ShardingRules, Spec
 
 
 class MLP(nn.Module):
@@ -93,6 +94,32 @@ def mlp_shapes(dims: Sequence[int], bias: bool = True) -> List[Dict]:
     """Shapes of each layer's ``{"w", "b"}``."""
     return [{"w": (a, b), "b": (b,)} if bias else {"w": (a, b)}
             for a, b in zip(dims[:-1], dims[1:])]
+
+
+def replicated(shape: Sequence[int]) -> Spec:
+    """The spec of a leaf kept whole on every device."""
+    return Spec(*([None] * len(shape)))
+
+
+def mlp_pspecs(name: str, dims: Sequence[int],
+               bias: bool = True) -> Dict[str, Spec]:
+    """The specs of :class:`MLP` ``name``'s parameters (``name.w.i``,
+    ``name.b.i``), all replicated: the recommender MLPs are small, data
+    parallel."""
+    out = {f"{name}.w.{i}": Spec(None, None) for i in range(len(dims) - 1)}
+    if bias:
+        out.update({f"{name}.b.{i}": Spec(None)
+                    for i in range(len(dims) - 1)})
+    return out
+
+
+def row_axes(n_rows: int, mesh: MeshShape, rules: ShardingRules) -> Any:
+    """An embedding table's row sharding: over EVERY mesh axis where the
+    devices divide the rows (model-parallel embeddings, across pods
+    too), else the tensor axis (where the mesh has it)."""
+    if n_rows % mesh.size == 0:
+        return tuple(mesh.axis_names)
+    return rules.tensor if rules.tensor in mesh.axis_names else None
 
 
 def bce_with_logits(logits: torch.Tensor,

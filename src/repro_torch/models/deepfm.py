@@ -24,9 +24,11 @@ from torch import nn
 
 from repro_torch.core.types import resolve_device
 from repro_torch.models.common import (MLP, apply_mlp, bce_with_logits,
-                                       he_init_, normal_, train_step_of)
+                                       he_init_, mlp_pspecs, normal_,
+                                       row_axes, train_step_of)
 from repro_torch.models.embedding import (TableSpec, embedding_lookup,
                                           flat_ids)
+from repro_torch.parallel.sharding import MeshShape, ShardingRules, Spec
 
 # Criteo-Kaggle style field cardinalities for 39 fields (13 bucketised
 # numeric + 26 categorical, hashed): the public DeepFM setup.
@@ -77,6 +79,16 @@ class DeepFM(nn.Module):
         self.linear = nn.Parameter(torch.empty((rows,), **like))
         self.deep = MLP(c.deep_dims(), dtype=c.dtype, device=device)
         self.bias = nn.Parameter(torch.zeros((), **like))
+
+
+def param_pspecs(c: DeepFMConfig, mesh: MeshShape,
+                 rules: ShardingRules) -> Dict[str, Spec]:
+    """The spec of each parameter, by its name in ``named_parameters``:
+    the table's and the first-order weights' rows as DLRM's, the deep
+    MLP and the bias replicated."""
+    rows = row_axes(c.table.padded_rows(), mesh, rules)
+    return {"table": Spec(rows, None), "linear": Spec(rows),
+            **mlp_pspecs("deep", c.deep_dims()), "bias": Spec()}
 
 
 def init_params(c: DeepFMConfig, generator: torch.Generator,

@@ -44,9 +44,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.types import resolve_device
-from repro_torch.models.common import (masked_xent, normal_,
+from repro_torch.models.common import (masked_xent, normal_, replicated,
                                        train_step_of)
 from repro_torch.models.embedding import InvalidIdError
+from repro_torch.parallel.sharding import MeshShape, ShardingRules, Spec
 
 Batch = Dict[str, torch.Tensor]
 
@@ -178,6 +179,18 @@ class DimeNet(nn.Module):
             self.register_parameter(name, empty(shapes[name]))
         self.blocks = nn.ParameterDict(
             {k: empty(s) for k, s in shapes["blocks"].items()})
+
+
+def param_pspecs(c: DimeNetConfig, mesh: MeshShape,
+                 rules: ShardingRules) -> Dict[str, Spec]:
+    """Every parameter replicated, by its name in ``named_parameters``:
+    the parameters are tiny (~2M); parallelism comes from sharding the
+    edge and triplet axes of the data."""
+    shapes = param_shapes(c)
+    out = {k: replicated(shapes[k]) for k in TOP_LEVEL}
+    out.update({f"blocks.{k}": replicated(s)
+                for k, s in shapes["blocks"].items()})
+    return out
 
 
 def init_params(c: DimeNetConfig, generator: torch.Generator,

@@ -27,8 +27,10 @@ from torch import nn
 
 from repro_torch.core.types import resolve_device
 from repro_torch.models.common import (MLP, apply_mlp, bce_with_logits,
-                                       he_init_, normal_, train_step_of)
+                                       he_init_, mlp_pspecs, normal_,
+                                       row_axes, train_step_of)
 from repro_torch.models.embedding import TableSpec, embedding_lookup
+from repro_torch.parallel.sharding import MeshShape, ShardingRules, Spec
 
 # Public Criteo-Terabyte per-feature cardinalities (facebookresearch/dlrm).
 CRITEO_1TB_VOCABS = (
@@ -87,6 +89,18 @@ class DLRM(nn.Module):
             device=device))
         self.bot = MLP(c.bot_dims(), dtype=c.dtype, device=device)
         self.top = MLP(c.top_dims(), dtype=c.dtype, device=device)
+
+
+def param_pspecs(c: DLRMConfig, mesh: MeshShape,
+                 rules: ShardingRules) -> Dict[str, Spec]:
+    """The spec of each parameter, by its name in ``named_parameters``:
+    the table's rows over EVERY mesh axis (the classic model-parallel
+    embeddings, across pods too) where the devices divide them, else
+    over the tensor axis; the MLPs small, replicated."""
+    return {"table": Spec(row_axes(c.table.padded_rows(), mesh, rules),
+                          None),
+            **mlp_pspecs("bot", c.bot_dims()),
+            **mlp_pspecs("top", c.top_dims())}
 
 
 def init_params(c: DLRMConfig, generator: torch.Generator,

@@ -24,12 +24,15 @@ Training: the parameters are trainable; :func:`lm_loss` (the forward,
 weight 0.3) and :func:`make_train_step` mirror the reference's.  With
 ``remat`` each layer of the forward runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
-scanned layer, policy "full"), as does each cross-entropy chunk.
+scanned layer), as does each cross-entropy chunk: policy "full"
+recomputes the whole layer, "dots" saves the outputs of its un-batched
+products (selective checkpointing, :func:`unbatched_product`).
 Attention's gradient is 9b on the card (``ops.FlashAttention``).
 ``prefill`` and ``decode_step`` run under ``torch.no_grad()``.
 
-Not ported here: the expert-parallel ``shard_map`` MoE and the other
-sharding constraints, and the "dots" remat policy (raises).
+:func:`param_pspecs` gives every parameter's sharding spec as the JAX
+package's does.  Not ported here: the sharded execution (the LM's
+sharding constraints and the expert-parallel ``shard_map`` MoE).
 """
 from __future__ import annotations
 
@@ -40,11 +43,13 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.types import resolve_device
 from repro_torch.kernels import flash_attention, ops, ref
 from repro_torch.models.common import train_step_of
+from repro_torch.parallel.sharding import MeshShape, ShardingRules, Spec
 
 # the JAX package's "no window" sentinel (``_layer_windows``)
 FULL = 2 ** 30
@@ -91,7 +96,7 @@ class TransformerConfig:
     mtp: bool = False         # next-next-token head (deepseek; training)
     dtype: torch.dtype = torch.bfloat16
     # training: per-layer rematerialization, policy "full" (recompute the
-    # whole layer in backward); "dots" is not ported
+    # whole layer in backward) or "dots" (keep its un-batched products)
     remat: bool = True
     remat_policy: str = "full"
 
@@ -210,6 +215,24 @@ def param_shapes(c: TransformerConfig) -> Dict[str, Any]:
     return shapes
 
 
+def named_param_shapes(c: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
+    """The shape of each of the port's parameters, by the name and in
+    the order ``Transformer.named_parameters`` gives them (one entry per
+    layer, unstacked)."""
+    shapes: Dict[str, Tuple[int, ...]] = {"embed": (c.vocab_size, c.d_model),
+                                          "final_ln": (c.d_model,)}
+    if not c.tie_embeddings:
+        shapes["unembed"] = (c.d_model, c.vocab_size)
+    if c.mtp:
+        shapes["mtp_proj"] = (2 * c.d_model, c.d_model)
+        shapes["mtp_ln"] = (c.d_model,)
+    n_dense, n_moe = layer_groups(c)
+    for i in range(n_dense + n_moe):
+        for name, shape in _dense_layer_shapes(c, i < n_dense).items():
+            shapes[f"layers.{i}.{name}"] = shape
+    return shapes
+
+
 def _is_norm(name: str) -> bool:
     return name in ("ln1", "ln2", "final_ln", "q_ln", "kv_ln", "mtp_ln")
 
@@ -217,6 +240,86 @@ def _is_norm(name: str) -> bool:
 def _param(shape: Tuple[int, ...], c: TransformerConfig,
            device: torch.device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=c.dtype, device=device))
+
+
+# ---------------------------------------------------------------------------
+# Sharding specs
+# ---------------------------------------------------------------------------
+
+# the JAX package's tables, by the dim of a layer leaf STACKED [L, ...]:
+# the dim carrying the TP axis, and the one carrying the FSDP axes
+_TP_DIMS = {
+    "wq": 2, "wk": 2, "wv": 2, "wo": 1,
+    "wq_b": 2, "wkv_b": 2,
+    "w_gate": 2, "w_up": 2, "w_down": 1,
+    "ws_gate": 2, "ws_up": 2, "ws_down": 1,
+    "we_gate": 1, "we_up": 1, "we_down": 1,   # experts over model axis
+    "router": None, "wq_a": None, "wkv_a": None,
+    "ln1": None, "ln2": None, "q_ln": None, "kv_ln": None,
+}
+_FSDP_DIMS = {
+    "wq": 1, "wk": 1, "wv": 1, "wo": 2,
+    "wq_a": 1, "wq_b": 1, "wkv_a": 1, "wkv_b": 1,
+    "w_gate": 1, "w_up": 1, "w_down": 2,
+    "ws_gate": 1, "ws_up": 1, "ws_down": 2,
+    "we_gate": 2, "we_up": 2, "we_down": 3,   # D over data (gathered)
+    "router": None,
+    "ln1": None, "ln2": None, "q_ln": None, "kv_ln": None,
+}
+
+
+def param_pspecs(c: TransformerConfig, mesh: MeshShape,
+                 rules: ShardingRules) -> Dict[str, Spec]:
+    """The :class:`Spec` of each of the port's parameters, by the name
+    ``Transformer.named_parameters`` gives it, as the JAX package's
+    ``param_pspecs`` computes it.  A layer's leaf takes the spec of its
+    JAX group's stacked ``[L, ...]`` leaf without the leading ``None``
+    (the port keeps one module per layer).
+
+    TP over attention heads only where the KV heads divide the model
+    axis (else attention is FSDP-only, e.g. command-r-plus's 8 KV heads
+    on a 16-way axis); an axis only where its size divides the dim.
+    """
+    msize = mesh.sizes()
+    tp = rules.tensor if rules.tensor in mesh.axis_names else None
+    fsa = rules.fsdp_axes(mesh)
+    fsn = rules.fsdp_size(mesh)
+    kv_tp_ok = tp is not None and (c.mla or c.n_kv_heads % msize[tp] == 0)
+
+    def spec_for(name: str, shape: Tuple[int, ...]) -> Spec:
+        axes: List[Any] = [None] * len(shape)
+        tpd = _TP_DIMS.get(name)
+        if name in ("wq", "wk", "wv", "wo") and not kv_tp_ok:
+            tpd = None
+        if tp and tpd is not None and tpd < len(shape) \
+                and shape[tpd] % msize[tp] == 0:
+            axes[tpd] = tp
+        else:
+            tpd = None
+        fsd = _FSDP_DIMS.get(name)
+        if fsa and fsd is not None and fsd < len(shape) and fsd != tpd \
+                and shape[fsd] % fsn == 0:
+            axes[fsd] = fsa
+        return Spec(*axes)
+
+    d, v = c.d_model, c.vocab_size
+    vocab_tp = tp if tp and v % msize[tp] == 0 else None
+    d_fs = fsa if fsa and d % fsn == 0 else None
+    out: Dict[str, Spec] = {}
+    for name, shape in named_param_shapes(c).items():
+        leaf = name.split(".")[-1]
+        if name == "embed":
+            out[name] = Spec(vocab_tp, d_fs)
+        elif name == "unembed":
+            out[name] = Spec(d_fs, vocab_tp)
+        elif name in ("final_ln", "mtp_ln"):
+            out[name] = Spec(None)
+        elif name == "mtp_proj":
+            # the reference gives the head wo's stacked dims, unstacked
+            out[name] = spec_for("wo", shape)
+        else:
+            out[name] = Spec(*spec_for(leaf, (1,) + shape)[1:])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -648,16 +751,18 @@ class Transformer(nn.Module):
             positions = torch.arange(tokens.shape[1], device=tokens.device
                                      ).expand(tokens.shape)
         remat = c.remat and caches is None and torch.is_grad_enabled()
-        if remat and c.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy={c.remat_policy!r}: only \"full\" is ported")
+        if remat and c.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy={c.remat_policy!r}: one of "
+                             f"{REMAT_POLICIES}")
         for name, layers, windows in self.groups():
             for i, layer in enumerate(layers):
                 if remat:
                     # the reference's jax.checkpoint of the scanned layer:
-                    # only the layer's input is kept for the backward
+                    # "full" keeps only the layer's input for the
+                    # backward, "dots" also its un-batched products
                     x = checkpoint(_layer_output, layer, x, c, positions,
-                                   windows[i], use_reentrant=False)
+                                   windows[i], use_reentrant=False,
+                                   **REMAT_POLICIES[c.remat_policy])
                     continue
                 cache = None if caches is None else (caches[name][0][i],
                                                      caches[name][1][i])
@@ -684,6 +789,42 @@ class Transformer(nn.Module):
         x, _ = self(token, caches=caches, cache_pos=pos,
                     positions=positions)
         return (x[:, -1, :] @ self.unembedding()).float(), caches
+
+
+def unbatched_product(op: Any, args: tuple) -> bool:
+    """Whether aten ``op`` on ``args`` is a contraction with no batch
+    dims, what ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``
+    saves.  The policy sees aten ops, not contractions: ``x @ w`` reaches
+    it as ``mm`` (``matmul`` folds the leading dims into rows), and
+    ``torch.einsum`` lowers every two-operand contraction to ``bmm``,
+    with a batch of 1 where the einsum has no batch letters (MLA's
+    ``bsr,rhd->bshd``, a dot_general without batch dims in JAX).  So a
+    ``bmm`` of batch 1 counts as un-batched and one of a larger batch
+    (the experts' ``[e, capacity, d]`` products, attention's heads) does
+    not."""
+    if op is torch.ops.aten.mm.default:
+        return True
+    return op is torch.ops.aten.bmm.default and args[0].shape[0] == 1
+
+
+def _dots_policy(ctx: Any, op: Any, *args: Any, **kwargs: Any):
+    """Save the outputs of the un-batched products, recompute the rest."""
+    if unbatched_product(op, args):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+# each remat policy's extra ``checkpoint`` arguments: "full" recomputes
+# the whole layer in the backward; "dots" keeps the outputs of its
+# un-batched products (q, k, v and the output projection, MLA's latent
+# projections and expansions, the router, the dense and shared FFNs'
+# products) and recomputes the rest.  Kernels reached through ctypes
+# (B9's forward) are not aten ops and are recomputed under both.
+REMAT_POLICIES = {"full": {}, "dots": {"context_fn": _dots_context}}
 
 
 def _layer_output(layer: Layer, h: torch.Tensor, c: TransformerConfig,

@@ -28,10 +28,12 @@ from torch import nn
 
 from repro_torch.core.types import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models.common import (MLP, apply_mlp, he_init_, normal_,
+from repro_torch.models.common import (MLP, apply_mlp, he_init_,
+                                       mlp_pspecs, normal_, row_axes,
                                        train_step_of)
 from repro_torch.models.embedding import (TableSpec, embedding_bag,
                                           embedding_lookup)
+from repro_torch.parallel.sharding import MeshShape, ShardingRules, Spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +87,20 @@ class TwoTower(nn.Module):
                 device=device)))
         self.user_mlp = MLP(c.tower_dims(), dtype=c.dtype, device=device)
         self.item_mlp = MLP(c.tower_dims(), dtype=c.dtype, device=device)
+
+
+def param_pspecs(c: TwoTowerConfig, mesh: MeshShape,
+                 rules: ShardingRules) -> Dict[str, Spec]:
+    """The spec of each parameter, by its name in ``named_parameters``:
+    each table's rows as DLRM's, the towers replicated."""
+    return {"user_emb": Spec(row_axes(c.user_table.padded_rows(), mesh,
+                                      rules), None),
+            "item_emb": Spec(row_axes(c.item_table.padded_rows(), mesh,
+                                      rules), None),
+            "cat_emb": Spec(row_axes(c.cat_table.padded_rows(), mesh,
+                                     rules), None),
+            **mlp_pspecs("user_mlp", c.tower_dims()),
+            **mlp_pspecs("item_mlp", c.tower_dims())}
 
 
 def init_params(c: TwoTowerConfig, generator: torch.Generator,

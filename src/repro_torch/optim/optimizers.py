@@ -23,8 +23,9 @@ The state mirrors ``OptState(step, inner)``: per parameter ``m`` and
 ``v`` (AdamW), ``v`` or the factored ``vr`` / ``vc`` (Adafactor) or
 ``m`` (SGD's momentum), all float32 and allocated when the optimizer is
 built.  ``convert.opt_state_{from,to}_numpy`` carry it to and from a
-JAX ``OptState``.  The ``*_state_pspecs`` of the reference wait for the
-port's sharding.
+JAX ``OptState``.  The ``*_state_pspecs`` give the state's specs, as
+the reference's do: each leaf inherits its parameter's (ZeRO through
+the FSDP dims).
 
 Do not swap in ``torch.optim.AdamW`` / ``SGD``: their formulas (decoupled
 decay scaled differently, no global clip, no warmup-cosine) are not
@@ -36,6 +37,8 @@ from typing import Any, Iterable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.parallel.sharding import Spec
 
 CHUNK = 1 << 24          # elements of a leaf updated at a time
 
@@ -260,3 +263,39 @@ def sgd(params, lr: float = 1e-2, momentum: float = 0.9,
     """SGD with momentum over ``params`` with the reference's
     defaults."""
     return SGD(params, dict(lr=lr, momentum=momentum, clip_norm=clip_norm))
+
+
+# ---------------------------------------------------------------------------
+# State specs
+# ---------------------------------------------------------------------------
+
+def adamw_state_pspecs(params_pspecs: Any) -> OptState:
+    """:class:`Spec` s of :func:`adamw`'s state given the parameters'
+    (a tree keyed as the parameters are): ``m`` and ``v`` inherit them,
+    the step is replicated."""
+    return OptState(step=Spec(), inner={"m": params_pspecs,
+                                        "v": params_pspecs})
+
+
+def adafactor_state_pspecs(params_shapes: Any, params_pspecs: Any,
+                           min_dim_factored: int = 128) -> OptState:
+    """Specs of :func:`adafactor`'s state: ``params_shapes`` and
+    ``params_pspecs`` are dicts of the same keys (a shape, or anything
+    with ``.shape``).  A factored leaf's ``vr`` drops the last dim's
+    axis and ``vc`` the next-to-last's; a full ``v`` inherits the
+    parameter's spec."""
+    def one(shape, spec):
+        shape = tuple(getattr(shape, "shape", shape))
+        axes = tuple(spec) + (None,) * (len(shape) - len(spec))
+        if len(shape) >= 2 and shape[-1] >= min_dim_factored \
+                and shape[-2] >= min_dim_factored:
+            return {"vr": Spec(*axes[:-1]), "vc": Spec(*axes[:-2], axes[-1])}
+        return {"v": Spec(*axes)}
+    return OptState(step=Spec(), inner={k: one(params_shapes[k], s)
+                                        for k, s in params_pspecs.items()})
+
+
+def sgd_state_pspecs(params_pspecs: Any) -> OptState:
+    """Specs of :func:`sgd`'s state: the momentum inherits the
+    parameters'."""
+    return OptState(step=Spec(), inner=params_pspecs)

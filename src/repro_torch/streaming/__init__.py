@@ -10,10 +10,12 @@ from repro_torch.streaming.state_store import (CorruptCheckpointError,
                                                StateStore, StoreConfig,
                                                load_checkpoint_arrays,
                                                load_json_checked,
+                                               state_shardings,
                                                with_io_retries)
 
 __all__ = ["faults", "AsyncCheckpointer", "AdmissionResult", "Backpressure",
            "Event", "ForgetReceipt", "InvalidEventError",
            "ShardedStreamingEngine", "StreamingEngine",
            "CorruptCheckpointError", "StateStore", "StoreConfig",
-           "load_checkpoint_arrays", "load_json_checked", "with_io_retries"]
+           "load_checkpoint_arrays", "load_json_checked", "state_shardings",
+           "with_io_retries"]

@@ -38,6 +38,7 @@ from repro_torch.convert import LEAVES
 from repro_torch.core.types import StreamState, resolve_device
 from repro_torch.optim.compression import (quantize_int8_rows,
                                            quantize_int8_rows_pitched)
+from repro_torch.parallel.sharding import MeshShape, Sharding, Spec
 from repro_torch.streaming import faults
 
 if TYPE_CHECKING:  # type-only: the writer runs opaque commit closures
@@ -277,6 +278,36 @@ def load_checkpoint_arrays(
     raise CorruptCheckpointError(
         f"no commit in {directory} passes its integrity checks: "
         + "; ".join(errors))
+
+
+# the mesh axes of the JAX ``StoreConfig``'s default placement: users over
+# "data", items over "model"
+USER_AXES = ("data",)
+ITEM_AXES = ("model",)
+
+
+def state_shardings(cfg: StoreConfig, mesh: MeshShape) -> StreamState:
+    """The :class:`Sharding` of every leaf of the state over ``mesh``.
+
+    The JAX package's ``state_shardings`` at its ``StoreConfig``'s
+    default axes: user rows over ``USER_AXES`` for every leaf, and the
+    item columns of the two vector tables over ``ITEM_AXES``.  Shapes
+    only: nothing is allocated.  ``cfg`` is the store's (its shape does
+    not enter the specs, as in the reference).
+    """
+    u = Spec(USER_AXES)
+    ui = Spec(USER_AXES, ITEM_AXES)
+    return StreamState(
+        user_vecs=Sharding(mesh, ui),
+        last_group_vecs=Sharding(mesh, ui),
+        history=Sharding(mesh, Spec(USER_AXES, None, None)),
+        group_sizes=Sharding(mesh, Spec(USER_AXES, None)),
+        n_baskets=Sharding(mesh, u),
+        n_groups=Sharding(mesh, u),
+        err_mult=Sharding(mesh, u),
+        uv_scale=Sharding(mesh, u),
+        lgv_scale=Sharding(mesh, u),
+    )
 
 
 def _host_copy(t: torch.Tensor) -> np.ndarray:

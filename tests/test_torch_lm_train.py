@@ -337,20 +337,23 @@ def test_loss_decreases_with_training():
 
 @pytest.mark.parametrize("name", ["granite", "deepseek"])
 def test_remat_recomputes_the_same_gradients(name):
-    """Per-layer remat (``torch.utils.checkpoint``, policy "full") gives
-    the gradients of the run that keeps every activation, bitwise; the
-    "dots" policy is not ported and raises."""
+    """Per-layer remat (``torch.utils.checkpoint``) gives the gradients
+    of the run that keeps every activation, bitwise, under policy
+    "full" and under "dots" (``tests/test_torch_remat_dots.py`` holds
+    "dots" to the JAX model's); another policy raises."""
     _, _, model, batch, _ = _setup(name)
     grads = []
-    for remat in (True, False):
-        model.config = dataclasses.replace(model.config, remat=remat)
+    for remat, policy in ((True, "full"), (False, "full"), (True, "dots")):
+        model.config = dataclasses.replace(model.config, remat=remat,
+                                           remat_policy=policy)
         model.zero_grad(set_to_none=True)
         tf.lm_loss(model, batch, model.config).backward()
         grads.append([p.grad.clone() for p in model.parameters()])
-    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    for other in grads[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(grads[0], other))
     model.config = dataclasses.replace(model.config, remat=True,
-                                       remat_policy="dots")
-    with pytest.raises(NotImplementedError, match="dots"):
+                                       remat_policy="offload")
+    with pytest.raises(ValueError, match="offload"):
         tf.lm_loss(model, batch, model.config)
     with torch.no_grad():           # no backward: nothing to rematerialize
         model(batch["tokens"])

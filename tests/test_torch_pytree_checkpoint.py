@@ -145,7 +145,7 @@ def test_restore_refuses_what_does_not_match(rng, tmp_path):
     wrong = dict(port, step=torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="shape"):
         ckpt.restore_pytree(wrong, d)
-    with pytest.raises(NotImplementedError, match="shardings"):
+    with pytest.raises(TypeError, match="shardings"):
         ckpt.restore_pytree(port, d, shardings=port)
     # an explicit older step, and an atomic write leaves no tmp file
     ckpt.save_pytree(dict(port, step=torch.tensor(9, dtype=torch.int32)),
