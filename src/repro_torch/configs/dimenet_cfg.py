@@ -21,7 +21,7 @@ rule takes the least that fits the card (``peak_bytes``).
 uncut ``ogb_products`` waits for the sharded path.
 """
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +29,7 @@ import torch
 from repro_torch.configs.base import ArchDef, CellBatch, Leaves, recsys_cell
 from repro_torch.core.types import resolve_device
 from repro_torch.data.graph_sampler import (molecule_batch, pad_to,
+                                            partition_triplets,
                                             sample_triplets)
 from repro_torch.models import dimenet
 from repro_torch.parallel.sharding import Sharding, Spec
@@ -137,6 +138,61 @@ def cell_batch(g: Dict[str, Any], seed: int = 0,
             "labels": rng.integers(0, g["n_targets"], n).astype(np.int64)}
     batch.update({k: torch.from_numpy(v).to(dev) for k, v in host.items()})
     return batch
+
+
+def partitioned_batch(g: Dict[str, Any], n_partitions: int, seed: int = 0,
+                      device: Any = None
+                      ) -> Tuple[Dict[str, torch.Tensor],
+                                 Dict[str, torch.Tensor]]:
+    """A seeded molecule batch of cell ``g`` cut into ``n_partitions``
+    equal edge partitions for ``dimenet.forward_sharded``: (the batch
+    with each partition's triplet indices LOCAL to it, the same batch
+    with them offset to global edge ids, for the single-device forward).
+
+    The edges are ``molecule_batch``'s, the first of each partition a
+    ghost (node 0 → node 0 at the cutoff, radial gate 0); the triplets
+    are :func:`~repro_torch.data.graph_sampler.partition_triplets`' (at
+    most 8 per edge, within a partition), each partition's padded with
+    triplets of its ghost to ``n_tri / n_partitions`` (or its longest
+    list, whichever is more), so every partition holds as many edges and
+    triplets.  Angles from the positions on the global indices."""
+    if not g["geometric"]:
+        raise ValueError("partitioned batches are made for molecules")
+    dev = resolve_device(device)
+    cutoff = dimenet.DimeNetConfig.cutoff
+    rng = np.random.default_rng(seed)
+    e, n, k = g["n_edges"], g["n_nodes"], g["n_graphs"]
+    if e % n_partitions:
+        raise ValueError(f"{e} edges in {n_partitions} equal partitions")
+    z, pos, src, dst, gid = molecule_batch(k, n // k, e // k, seed=seed)
+    part = e // n_partitions
+    ghosts = np.arange(n_partitions) * part
+    src[ghosts] = dst[ghosts] = 0
+    tkj, tji, counts = partition_triplets(src, dst, n_partitions, seed=seed)
+    per = max(int(counts.max()), -(-g["n_tri"] // n_partitions))
+    kj = np.zeros((n_partitions, per), np.int32)
+    ji = np.zeros((n_partitions, per), np.int32)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    for p, c in enumerate(counts):
+        kj[p, :c] = tkj[starts[p]:starts[p + 1]]
+        ji[p, :c] = tji[starts[p]:starts[p + 1]]
+    offset = ghosts[:, None].astype(np.int32)
+    local = {"tri_kj": kj.reshape(-1), "tri_ji": ji.reshape(-1)}
+    whole = {"tri_kj": (kj + offset).reshape(-1),
+             "tri_ji": (ji + offset).reshape(-1)}
+    common = {k_: torch.from_numpy(v).to(dev) for k_, v in
+              {"edge_src": src, "edge_dst": dst, "z": z, "graph_id": gid,
+               "labels": rng.normal(size=k).astype(np.float32)}.items()}
+    whole = {**common, **{k_: torch.from_numpy(v).to(dev)
+                          for k_, v in whole.items()}}
+    dist, angle = dimenet.geometry_from_positions(
+        torch.from_numpy(pos).to(dev), whole["edge_src"], whole["edge_dst"],
+        whole["tri_kj"], whole["tri_ji"])
+    dist = dist.index_fill(0, torch.from_numpy(ghosts).to(dev), cutoff)
+    whole.update(dist=dist, angle=angle)
+    local = {**common, "dist": dist, "angle": angle,
+             **{k_: torch.from_numpy(v).to(dev) for k_, v in local.items()}}
+    return local, whole
 
 
 # ---------------------------------------------------------------------------

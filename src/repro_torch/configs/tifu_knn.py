@@ -338,6 +338,43 @@ def _gib(n_bytes: float) -> str:
     return f"{n_bytes / 2 ** 20:.1f} MiB"
 
 
+def cell_shardings(shape: str, mesh: Any = None, rules: Any = None) -> tuple:
+    """The JAX cell's ``in_shardings`` over ``mesh`` and ``rules``
+    (default: the production mesh and ``make_rules``), from specs alone:
+    ``stream_update``'s state (users over the batch axes, the vector
+    tables' items over the tensor axis) and its three batches (rows over
+    the batch axes), ``serve_topk``'s queries and corpus (users over the
+    batch axes, items over the tensor axis), ``serve_topk_opt``'s
+    queries replicated and corpus rows over every mesh axis."""
+    from repro_torch.parallel.sharding import Sharding, Spec, batch_axes
+    if mesh is None:
+        from repro_torch.launch.mesh import make_production_mesh, make_rules
+        mesh, rules = make_production_mesh(), make_rules()
+    u = batch_axes(mesh, rules)
+    tp = rules.tensor if rules.tensor in mesh.axis_names else None
+
+    def sh(*entries):
+        return Sharding(mesh, Spec(*entries))
+    if shape == "stream_update":
+        state = StreamState(
+            user_vecs=sh(u, tp), last_group_vecs=sh(u, tp),
+            history=sh(u, None, None), group_sizes=sh(u, None),
+            n_baskets=sh(u), n_groups=sh(u), err_mult=sh(u),
+            uv_scale=sh(u), lgv_scale=sh(u))
+        return (state,
+                AddBatch(user=sh(u), items=sh(u, None), valid=sh(u)),
+                DelBasketBatch(user=sh(u), pos=sh(u), valid=sh(u)),
+                DelItemBatch(user=sh(u), pos=sh(u), item=sh(u),
+                             valid=sh(u)))
+    if shape == "serve_topk":
+        return (sh(u, tp), sh(u, tp))
+    if shape == "serve_topk_opt":
+        axes = tuple(a for a in ("pod", "data", "model")
+                     if a in mesh.axis_names)
+        return (sh(None, None), sh(axes, None))
+    raise KeyError(shape)
+
+
 def stream_update_cell(device: Any = None, seed: int = 0,
                        sizes: Optional[Sizes] = None) -> CellProgram:
     """Kind-partitioned micro-batch: adds, basket deletes, item deletes,
@@ -364,6 +401,7 @@ def stream_update_cell(device: Any = None, seed: int = 0,
         + 2 * sz.del_batch * (w_d * (w_d - 1).bit_length() + 8 * w_d)
     return CellProgram(
         fn=fn, args=(state, adds, delb, deli),
+        in_shardings=cell_shardings("stream_update"),
         description=(f"kind-partitioned micro-batch adds={sz.update_batch} "
                      f"dels=2x{sz.del_batch} M={sz.stream_users} "
                      f"I={sz.n_items}"),
@@ -403,6 +441,7 @@ def serve_topk_cell(device: Any = None, seed: int = 0,
         + 2.0 * sz.n_queries * sz.topk * sz.n_items
     return CellProgram(
         fn=fn, args=(queries, corpus),
+        in_shardings=cell_shardings("serve_topk"),
         description=f"kNN predict Q={sz.n_queries} M={sz.n_users} "
                     f"I={sz.n_items} k={sz.topk}",
         model_flops_per_step=flops, estimate_bytes=serve_bytes(sz))
@@ -440,6 +479,7 @@ def serve_topk_opt_cell(device: Any = None, seed: int = 0,
         + 2.0 * sz.n_queries * sz.n_users * sz.n_items
     return CellProgram(
         fn=fn, args=(queries, blocks),
+        in_shardings=cell_shardings("serve_topk_opt"),
         description=f"kNN predict (opt, {sz.n_shards} row blocks) "
                     f"Q={sz.n_queries} M={sz.n_users} I={sz.n_items} "
                     f"k={sz.topk}",

@@ -8,7 +8,8 @@ and fans out per layer from a CSR adjacency.  ``build_triplets`` emits
 (tri_kj, tri_ji) lists whose edges are partition-local (both edges of a
 triplet fall in the same edge-range partition; cross-partition angles
 are dropped, the approximation that keeps distributed message passing
-local).  ``molecule_batch`` batches small random molecules.
+local); ``partition_triplets`` also says how many each partition
+holds.  ``molecule_batch`` batches small random molecules.
 
 ``sample_triplets`` is the port's own: the same kind of triplets drawn
 by array operations, with no loop over edges, for the DimeNet cells'
@@ -87,14 +88,26 @@ def build_triplets(src: np.ndarray, dst: np.ndarray, n_partitions: int = 1,
     — both ends of each triplet lie in the same edge-id partition
     (partition-aware sampling), so the distributed gather stays local.
     """
+    tri_kj, tri_ji, _ = partition_triplets(src, dst, n_partitions,
+                                           max_per_edge, seed)
+    return tri_kj, tri_ji
+
+
+def partition_triplets(src: np.ndarray, dst: np.ndarray,
+                       n_partitions: int = 1, max_per_edge: int = 8,
+                       seed: int = 0
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """:func:`build_triplets`'s arrays and the number of triplets each
+    partition holds (the concatenation's partition boundaries)."""
     rng = np.random.default_rng(seed)
     n_edges = len(src)
     part = max(n_edges // n_partitions, 1)
-    tri_kj, tri_ji = [], []
+    tri_kj, tri_ji, counts = [], [], []
     for p in range(n_partitions):
         lo, hi = p * part, min((p + 1) * part, n_edges)
         if lo >= hi:
             break
+        n0 = len(tri_kj)
         # edges into each node within this partition
         by_dst = {}
         for e in range(lo, hi):
@@ -109,7 +122,9 @@ def build_triplets(src: np.ndarray, dst: np.ndarray, n_partitions: int = 1,
             for f in take:
                 tri_kj.append(f - lo)   # local index within partition
                 tri_ji.append(e - lo)
-    return (np.asarray(tri_kj, np.int32), np.asarray(tri_ji, np.int32))
+        counts.append(len(tri_kj) - n0)
+    return (np.asarray(tri_kj, np.int32), np.asarray(tri_ji, np.int32),
+            np.asarray(counts, np.int64))
 
 
 def sample_triplets(src: np.ndarray, dst: np.ndarray, max_per_edge: int = 8,

@@ -489,8 +489,11 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         for r0 in range(0, s, rows):
             r1 = min(s, r0 + rows)
             qg = q[i, r0:r1].float().reshape(r1 - r0, kv, h // kv, d)
-            scores = torch.einsum("qkgd,skd->kgqs", qg, ki).mul_(scale)
-            scores.masked_fill_(~mask[r0:r1], -1e30)
+            # out of place: with one KV head this product reaches
+            # selective checkpointing as an un-batched ``bmm``, whose
+            # saved output must not change
+            scores = torch.einsum("qkgd,skd->kgqs", qg, ki) * scale
+            scores = scores.masked_fill(~mask[r0:r1], -1e30)
             p = torch.softmax(scores, dim=-1).to(v.dtype)
             del scores
             o = torch.einsum("kgqs,skd->qkgd", p.float(), vi)
@@ -590,8 +593,11 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
         for r0 in range(0, s, rows):
             r1 = min(s, r0 + rows)
             qg = q[i, r0:r1].float().reshape(r1 - r0, kv, h // kv, d)
-            scores = torch.einsum("qkgd,skd->kgqs", qg, ki).mul_(scale)
-            scores.masked_fill_(~mask[r0:r1], -1e30)
+            # out of place: with one KV head this product reaches
+            # selective checkpointing as an un-batched ``bmm``, whose
+            # saved output must not change
+            scores = torch.einsum("qkgd,skd->kgqs", qg, ki) * scale
+            scores = scores.masked_fill(~mask[r0:r1], -1e30)
             lse[i, :, r0:r1] = torch.logsumexp(scores, -1).reshape(
                 h, r1 - r0)
     return lse.reshape(b * h, s)

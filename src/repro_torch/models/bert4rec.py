@@ -19,8 +19,14 @@ so no [B, S, V] tensor is built.  With autograd on, each block is
 recomputed in backward (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint``) rather than saving its [B, h, S, S] scores.
 ``make_train_step(c, optimizer, sampled=...)`` gives ``train_step(model,
-batch) -> {"loss"}`` (``common.train_step_of``).  Not ported here: the
-shard_map serving path.
+batch) -> {"loss"}`` (``common.train_step_of``).
+
+``serve_step(..., mesh=, rules=)`` is the reference's ``shard_map``
+serving path: the catalogue's rows over "model", each rank's local
+top-n over ALL its rows (ids offset by ``axis_index("model") · V_loc``),
+an all-gather of the [B, TP·n] candidates and the final top-n (ties:
+the lower rank's candidate first, so the lowest global id).  Unlike the
+single-device scan it scores every row.
 """
 from __future__ import annotations
 
@@ -39,7 +45,9 @@ from repro_torch.models.common import (layer_norm, map_batch_chunks,
                                        masked_xent, normal_, replicated,
                                        row_axes, train_step_of)
 from repro_torch.models.embedding import check_ids
-from repro_torch.parallel.sharding import MeshShape, ShardingRules, Spec
+from repro_torch.parallel import spmd
+from repro_torch.parallel.sharding import (MeshShape, ShardingRules, Spec,
+                                           batch_axes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,7 +250,8 @@ def make_train_step(c: Bert4RecConfig, optimizer: torch.optim.Optimizer,
 @torch.no_grad()
 def serve_step(params: Bert4Rec, batch: Dict[str, torch.Tensor],
                c: Bert4RecConfig, top_n: int = 20, vocab_chunk: int = 65536,
-               batch_chunk: int = 16384) -> Tuple[torch.Tensor, torch.Tensor]:
+               batch_chunk: int = 16384, mesh: Any = None,
+               rules: Any = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Next-item recommendation: (f32[B, n] scores, i32[B, n] items).
 
     The [B, V] logits are never materialised: the item table is scanned
@@ -251,7 +260,21 @@ def serve_step(params: Bert4Rec, batch: Dict[str, torch.Tensor],
     scored (the reference's single-device scan): at the published
     config rows 983,040–1,000,447 never are.  Batches of more than
     ``batch_chunk`` rows run in batch chunks.  O(B·V·D).
+
+    With a mesh whose tensor axis divides the vocabulary:
+    :func:`_serve_sharded` (DTensor parameters; DTensor results, the
+    batch over the batch axes); with another mesh the scan below on the
+    gathered parameters.
     """
+    if mesh is not None:
+        if rules is not None and rules.tensor in mesh.mesh_dim_names \
+                and params.item_emb.shape[0] % spmd.axis_size(
+                    mesh, rules.tensor) == 0:
+            return _serve_sharded(params, batch, c, top_n, vocab_chunk,
+                                  batch_chunk, mesh, rules)
+        # the reference's unshardable fallback: the scan below, on the
+        # whole parameters
+        params = _gathered(params)
     if batch["ids"].shape[0] > batch_chunk:
         return map_batch_chunks(
             lambda sub: serve_step(params, sub, c, top_n, vocab_chunk,
@@ -271,6 +294,62 @@ def serve_step(params: Bert4Rec, batch: Dict[str, torch.Tensor],
             vals, idx, scores.float(),
             torch.arange(lo, lo + chunk, device=q.device), top_n)
     return vals, idx
+
+
+def _gathered(params: Bert4Rec) -> Any:
+    """The parameters' global values (DTensors gathered), in the module's
+    attribute layout."""
+    import types
+    out = types.SimpleNamespace(**{k: spmd.gather_full(getattr(params, k))
+                                   for k in TOP_LEVEL})
+    out.blocks = {k: spmd.gather_full(v) for k, v in params.blocks.items()}
+    return out
+
+
+def _serve_sharded(params: Bert4Rec, batch: Dict[str, torch.Tensor],
+                   c: Bert4RecConfig, top_n: int, vocab_chunk: int,
+                   batch_chunk: int, mesh: Any, rules: Any
+                   ) -> Tuple[Any, Any]:
+    """The reference's ``shard_map`` body: each rank's batch rows (over
+    the batch axes where they divide it) encoded, scored against the
+    rank's ``V / TP`` catalogue rows in ``vocab_chunk`` blocks with a
+    running top-n (every row, ids offset by ``axis_index · V_loc``), the
+    [B_loc, TP·n] candidates all-gathered over "model" and their top-n
+    kept.  Returns (f32 scores, i32 items) as DTensors."""
+    tp = rules.tensor
+    bax = batch_axes(mesh, rules)
+    ids = batch["ids"]
+    b_ax = bax if bax and ids.shape[0] % spmd.axis_size(mesh, bax) == 0 \
+        else ()
+    full = _gathered(params)
+    ids = spmd.local_block(ids, mesh, Spec(b_ax, None))
+    e_loc = spmd.redistribute(params.item_emb.to_local(), mesh,
+                              spmd.spec_of(params.item_emb), Spec(tp, None))
+    b_loc = spmd.redistribute(params.out_bias.to_local(), mesh,
+                              spmd.spec_of(params.out_bias), Spec(tp))
+    v_loc = e_loc.shape[0]
+    off = spmd.axis_index(mesh, tp) * v_loc
+    vals, idx = [], []
+    for r in range(0, ids.shape[0], batch_chunk):
+        q = encoder(full, ids[r:r + batch_chunk], c)[:, -1, :].contiguous()
+        lv = torch.full((q.shape[0], top_n), float("-inf"),
+                        dtype=torch.float32, device=q.device)
+        li = torch.zeros((q.shape[0], top_n), dtype=torch.int64,
+                         device=q.device)
+        for lo in range(0, v_loc, vocab_chunk):
+            hi = min(v_loc, lo + vocab_chunk)
+            scores = q @ e_loc[lo:hi].T.to(c.dtype) + b_loc[lo:hi]
+            lv, li = ref.merge_topk(
+                lv, li, scores.float(),
+                torch.arange(off + lo, off + hi, device=q.device), top_n)
+        cv = spmd.all_gather(lv, mesh, tp, 1)
+        ci = spmd.all_gather(li, mesh, tp, 1)
+        tv, pos = ref.topk_lowest_index(cv, top_n)
+        vals.append(tv)
+        idx.append(ci.gather(1, pos).to(torch.int32))
+    out = Spec(b_ax, None)
+    return (spmd.from_local(torch.cat(vals), mesh, out),
+            spmd.from_local(torch.cat(idx), mesh, out))
 
 
 @torch.no_grad()

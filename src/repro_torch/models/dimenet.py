@@ -29,8 +29,17 @@ on.  ``make_train_step(c, optimizer)`` gives ``train_step(model, batch)
 -> {"loss"}`` (``common.train_step_of``); ``serve_step`` runs under
 ``torch.no_grad()``.  Row gathers run through ``F.embedding``, whose
 backward sums runs of equal indices (the padding triplets' edge 0, a
-molecule's few atom types) by segments.  Not ported here:
-``forward_sharded`` and the mesh arguments.
+molecule's few atom types) by segments.
+
+Sharded (``forward_sharded``, and ``loss_fn`` / ``make_train_step`` /
+``serve_step`` with a mesh): the reference's edge-partitioned
+``shard_map``: the edge and triplet arrays split evenly over ("data",
+"model") (a partition per rank, triplet indices LOCAL to it, see
+``data.graph_sampler.build_triplets``), nodes and parameters
+replicated, each block's node aggregate ``psum``-ed over those axes.
+The parameters a rank uses on its own edges enter through ``pvary``
+(their gradients summed over the ranks); the output block's, used
+after the ``psum``, do not: each gradient is the single-device one.
 """
 from __future__ import annotations
 
@@ -47,6 +56,7 @@ from repro_torch.core.types import resolve_device
 from repro_torch.models.common import (masked_xent, normal_, replicated,
                                        train_step_of)
 from repro_torch.models.embedding import InvalidIdError
+from repro_torch.parallel import spmd
 from repro_torch.parallel.sharding import MeshShape, ShardingRules, Spec
 
 Batch = Dict[str, torch.Tensor]
@@ -241,10 +251,13 @@ def _segment_sum(x: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
 
 def _block(m: torch.Tensor, blk: Dict[str, torch.Tensor], rbf: torch.Tensor,
            sbf: torch.Tensor, tri_kj: torch.Tensor, tri_ji: torch.Tensor,
-           dst: torch.Tensor, n_nodes: int
+           dst: torch.Tensor, n_nodes: int, mesh: Any = None,
+           axis_names: Tuple[str, ...] = ()
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One interaction block and its output block: the new edge messages
-    [E, D] and this block's node outputs [N, n_targets] (f32)."""
+    [E, D] and this block's node outputs [N, n_targets] (f32).  With
+    ``axis_names`` (a ``shard_map`` body over edge partitions) the node
+    aggregate is ``psum``-ed over them."""
     # directional message: triplets k→j feeding edge j→i
     m2 = F.silu(m @ blk["w_msg1"])
     x_kj = F.embedding(tri_kj, m2) \
@@ -261,16 +274,28 @@ def _block(m: torch.Tensor, blk: Dict[str, torch.Tensor], rbf: torch.Tensor,
     m_new = F.silu((m2 + agg) @ blk["w_msg2"]) + m              # residual
     # output block: edges → nodes
     e_out = F.silu(m_new @ blk["w_out_edge"])
-    node = F.silu(_segment_sum(e_out, dst, n_nodes) @ blk["w_out_node"])
+    node = _segment_sum(e_out, dst, n_nodes)
+    if axis_names:
+        # cross-partition: the ranks' partial aggregates summed
+        node = spmd.psum(node, mesh, axis_names)
+    node = F.silu(node @ blk["w_out_node"])
     return m_new, (node @ blk["w_out_head"]).float()
 
 
-def forward(params: DimeNet, batch: Batch, c: DimeNetConfig) -> torch.Tensor:
+def forward(params: DimeNet, batch: Batch, c: DimeNetConfig,
+            axis_names: Tuple[str, ...] = (), mesh: Any = None
+            ) -> torch.Tensor:
     """Per-molecule predictions [n_graphs, n_targets] (geometric mode,
     ``n_graphs`` the length of ``labels``) or per-node logits [N,
     n_targets] (feature mode).  Raises :class:`InvalidIdError` on an
-    index out of range (:func:`check_indices`)."""
+    index out of range (:func:`check_indices`).
+
+    ``axis_names`` (with ``mesh``): run as :func:`forward_sharded`'s
+    body on this rank's edge partition, the node aggregates ``psum``-ed
+    over those axes."""
     check_indices(batch, c)
+    if axis_names:
+        params = _varying(params, mesh, axis_names)
     src, dst = batch["edge_src"].long(), batch["edge_dst"].long()
     tri_kj, tri_ji = batch["tri_kj"].long(), batch["tri_ji"].long()
     dist, angle = batch["dist"], batch["angle"]
@@ -291,7 +316,8 @@ def forward(params: DimeNet, batch: Batch, c: DimeNetConfig) -> torch.Tensor:
     outs = []
     for i in range(c.n_blocks):
         blk = {k: v[i] for k, v in params.blocks.items()}
-        args = (m, blk, rbf, sbf, tri_kj, tri_ji, dst, n_nodes)
+        args = (m, blk, rbf, sbf, tri_kj, tri_ji, dst, n_nodes, mesh,
+                axis_names)
         if torch.is_grad_enabled():
             # remat: each block's node aggregates are recomputed in
             # backward, not saved
@@ -307,24 +333,87 @@ def forward(params: DimeNet, batch: Batch, c: DimeNetConfig) -> torch.Tensor:
                         batch["labels"].shape[0])
 
 
-def loss_fn(params: DimeNet, batch: Batch, c: DimeNetConfig) -> torch.Tensor:
+# the weights used only after the node aggregate's psum: the same on
+# every rank, so they enter a sharded body without ``pvary``
+_AFTER_PSUM = ("w_out_node", "w_out_head", "head")
+
+EDGE_KEYS = ("edge_src", "edge_dst", "dist", "angle", "tri_kj", "tri_ji")
+
+
+def _varying(params: Any, mesh: Any, axes: Tuple[str, ...]) -> Any:
+    """The parameters as a sharded body uses them: those that meet the
+    rank's own edges through ``pvary`` over ``axes``."""
+    import types
+    def one(k, v):
+        return v if k in _AFTER_PSUM else spmd.pvary(v, mesh, axes)
+    out = types.SimpleNamespace(**{k: one(k, getattr(params, k))
+                                   for k in TOP_LEVEL})
+    out.blocks = {k: one(k, v) for k, v in params.blocks.items()}
+    return out
+
+
+def forward_sharded(params: DimeNet, batch: Batch, c: DimeNetConfig,
+                    mesh: Any, rules: Any = None) -> Any:
+    """The reference's distributed forward: ``EDGE_KEYS``' arrays split
+    evenly over the graph axes (("data", "model") where the mesh has
+    them; a rank's slice is its partition, triplet indices LOCAL to it),
+    everything else and the parameters (DTensors, replicated) whole on
+    every rank; :func:`forward` as the ``shard_map`` body.  Returns the
+    predictions as a replicated DTensor.  Every partition must hold the
+    same number of edges and of triplets (padded)."""
+    graph_axes = tuple(a for a in ("data", "model")
+                       if a in mesh.mesh_dim_names)
+    in_specs = {k: Spec(graph_axes) if k in EDGE_KEYS
+                else Spec(*([None] * v.dim())) for k, v in batch.items()}
+    pspecs = {k: Spec(*([None] * p.dim()))
+              for k, p in _params_tree(params).items()}
+
+    def body(p, dyn):
+        return forward(_as_model(p), dyn, c, axis_names=graph_axes,
+                       mesh=mesh)
+    return spmd.shard_map(body, mesh, (pspecs, in_specs), Spec(None))(
+        _params_tree(params), dict(batch))
+
+
+def _params_tree(params: DimeNet) -> Dict[str, Any]:
+    out = {k: getattr(params, k) for k in TOP_LEVEL}
+    out.update({f"blocks.{k}": v for k, v in params.blocks.items()})
+    return out
+
+
+def _as_model(tree: Dict[str, Any]) -> Any:
+    import types
+    out = types.SimpleNamespace(**{k: tree[k] for k in TOP_LEVEL})
+    out.blocks = {k[len("blocks."):]: v for k, v in tree.items()
+                  if k.startswith("blocks.")}
+    return out
+
+
+def loss_fn(params: DimeNet, batch: Batch, c: DimeNetConfig,
+            mesh: Any = None, rules: Any = None) -> torch.Tensor:
     """Mean squared error against the per-molecule ``labels`` (one
     target), or the masked softmax cross-entropy against per-node
-    classes (−1 unlabelled)."""
-    pred = forward(params, batch, c)
+    classes (−1 unlabelled); with a mesh on :func:`forward_sharded`'s
+    predictions (the same loss on every rank)."""
+    pred = forward(params, batch, c) if mesh is None \
+        else forward_sharded(params, batch, c, mesh, rules).to_local()
     if c.n_targets == 1:
         return torch.mean(torch.square(pred[..., 0] - batch["labels"]))
     return masked_xent(pred, batch["labels"])
 
 
-def make_train_step(c: DimeNetConfig, optimizer: torch.optim.Optimizer
-                    ) -> Callable:
+def make_train_step(c: DimeNetConfig, optimizer: torch.optim.Optimizer,
+                    mesh: Any = None, rules: Any = None) -> Callable:
     """``train_step(model, batch) -> {"loss"}`` on :func:`loss_fn`."""
-    return train_step_of(lambda m, b: loss_fn(m, b, c), optimizer)
+    return train_step_of(lambda m, b: loss_fn(m, b, c, mesh, rules),
+                         optimizer)
 
 
 @torch.no_grad()
-def serve_step(params: DimeNet, batch: Batch,
-               c: DimeNetConfig) -> torch.Tensor:
-    """:func:`forward` without an autograd graph."""
+def serve_step(params: DimeNet, batch: Batch, c: DimeNetConfig,
+               mesh: Any = None, rules: Any = None) -> Any:
+    """:func:`forward` (with a mesh :func:`forward_sharded`) without an
+    autograd graph."""
+    if mesh is not None:
+        return forward_sharded(params, batch, c, mesh, rules)
     return forward(params, batch, c)

@@ -31,8 +31,19 @@ Attention's gradient is 9b on the card (``ops.FlashAttention``).
 ``prefill`` and ``decode_step`` run under ``torch.no_grad()``.
 
 :func:`param_pspecs` gives every parameter's sharding spec as the JAX
-package's does.  Not ported here: the sharded execution (the LM's
-sharding constraints and the expert-parallel ``shard_map`` MoE).
+package's does.  The sharded execution: the entry points (``forward``,
+``prefill``, ``decode_step``, :func:`lm_loss`, :func:`make_train_step`,
+:func:`moe_block`) take ``mesh`` (a ``DeviceMesh`` with named dims) and
+``rules`` as the JAX functions do; ``mesh=None`` is the single-device
+route above, unchanged.  Under a mesh the parameters are DTensors placed
+by :func:`param_pspecs` (``spmd.shard_module``) and every rank runs the
+JAX package's layouts on its local blocks with explicit collectives
+(``parallel/spmd.py``): the residual stream by ``_hspec`` (batch over
+the batch axes, S over "model"), attention on each rank's heads
+(``_head_spec``; B9 and 9b on the local heads), the expert-parallel MoE
+(``n_local`` experts a rank, one ``psum`` over "model"), the caches by
+``configs/base._cache_pspecs`` (decode combines each rank's cache
+positions through a max and two sums over the context axes).
 """
 from __future__ import annotations
 
@@ -49,7 +60,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.core.types import resolve_device
 from repro_torch.kernels import flash_attention, ops, ref
 from repro_torch.models.common import train_step_of
-from repro_torch.parallel.sharding import MeshShape, ShardingRules, Spec
+from repro_torch.parallel import spmd
+from repro_torch.parallel.sharding import (MeshShape, ShardingRules, Spec,
+                                           batch_axes)
 
 # the JAX package's "no window" sentinel (``_layer_windows``)
 FULL = 2 ** 30
@@ -636,11 +649,17 @@ def _moe_local(xf: torch.Tensor, layer: Any, c: TransformerConfig,
     return out
 
 
-def moe_block(x: torch.Tensor, layer: Any,
-              c: TransformerConfig) -> torch.Tensor:
-    """Routed top-k MoE plus the shared experts, on one device: JAX's
-    ``moe_block`` without a mesh (every expert local, capacity from all
-    B·S tokens)."""
+def moe_block(x: torch.Tensor, layer: Any, c: TransformerConfig,
+              mesh: Any = None, rules: Optional[ShardingRules] = None
+              ) -> torch.Tensor:
+    """Routed top-k MoE plus the shared experts.  Without a mesh, on one
+    device: JAX's ``moe_block`` without a mesh (every expert local,
+    capacity from all B·S tokens).  With one, the expert-parallel route
+    (:func:`_moe_sharded`): ``x`` a DTensor [B, S, D], ``layer``'s
+    weights DTensors (``router``, ``we_*``, ``ws_*``); returns a DTensor
+    laid out by ``_hspec``."""
+    if mesh is not None:
+        return _moe_block_dtensor(x, layer, c, mesh, rules)
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     out = _moe_local(xf, layer, c, n_local=c.e_pad, expert_offset=0,
@@ -684,7 +703,11 @@ class Layer(nn.Module):
     def forward(self, h: torch.Tensor, c: TransformerConfig,
                 positions: torch.Tensor, window: int,
                 kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                cache_pos: Optional[int] = None):
+                cache_pos: Optional[int] = None,
+                sh: Optional["_Sharded"] = None):
+        if sh is not None:
+            return _layer_sharded(self, h, c, positions, window, kv_cache,
+                                  cache_pos, sh)
         attn = attention_mla if c.mla else attention_dense
         a, new_cache = attn(rms_norm(h, self.ln1, c.norm_eps), self, c,
                             positions, window, kv_cache, cache_pos)
@@ -739,10 +762,16 @@ class Transformer(nn.Module):
 
     def forward(self, tokens: torch.Tensor, caches: Optional[Caches] = None,
                 cache_pos: Optional[int] = None,
-                positions: Optional[torch.Tensor] = None
+                positions: Optional[torch.Tensor] = None,
+                mesh: Any = None, rules: Optional[ShardingRules] = None
                 ) -> Tuple[torch.Tensor, Optional[Caches]]:
         """Token ids [B, S] → final hidden states [B, S, D] (and the
-        caches, updated in place, when given)."""
+        caches, updated in place, when given).  With a mesh: the rank's
+        block of the hidden states under ``_hspec`` (:func:`_forward_sharded`;
+        ``tokens`` the global ids every rank holds, the caches DTensors)."""
+        if mesh is not None:
+            return _forward_sharded(self, tokens, caches, cache_pos,
+                                    positions, mesh, rules)
         c = self.config
         # F.embedding: the same rows as indexing, and a backward that
         # does not serialize on runs of one row
@@ -770,22 +799,37 @@ class Transformer(nn.Module):
         return rms_norm(x, self.final_ln, c.norm_eps), caches
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor,
-                max_len: int) -> Tuple[torch.Tensor, Caches]:
+    def prefill(self, tokens: torch.Tensor, max_len: int, mesh: Any = None,
+                rules: Optional[ShardingRules] = None
+                ) -> Tuple[torch.Tensor, Caches]:
         """Run the prompt ``tokens`` [B, S] through; returns the last
-        position's f32 logits [B, V] and the filled caches."""
+        position's f32 logits [B, V] and the filled caches.  With a mesh
+        the logits are a DTensor (batch over the batch axes) and the
+        caches DTensors placed by ``_cache_pspecs``."""
+        if mesh is not None:
+            caches = init_caches(self.config, tokens.shape[0], max_len,
+                                 self.device, mesh, rules)
+            x, _ = self(tokens, caches=caches, cache_pos=0, mesh=mesh,
+                        rules=rules)
+            return _last_logits(self, x, tokens, mesh, rules), caches
         caches = init_caches(self.config, tokens.shape[0], max_len,
                              self.device)
         x, _ = self(tokens, caches=caches, cache_pos=0)
         return (x[:, -1, :] @ self.unembedding()).float(), caches
 
     @torch.no_grad()
-    def decode_step(self, caches: Caches, token: torch.Tensor,
-                    pos: int) -> Tuple[torch.Tensor, Caches]:
+    def decode_step(self, caches: Caches, token: torch.Tensor, pos: int,
+                    mesh: Any = None, rules: Optional[ShardingRules] = None
+                    ) -> Tuple[torch.Tensor, Caches]:
         """One decode step: ``token`` [B, 1] at position ``pos`` → f32
-        logits [B, V]; the caches are updated in place."""
+        logits [B, V]; the caches are updated in place (with a mesh: as
+        :meth:`prefill`)."""
         positions = torch.full(token.shape, pos, dtype=torch.long,
                                device=token.device)
+        if mesh is not None:
+            x, _ = self(token, caches=caches, cache_pos=pos,
+                        positions=positions, mesh=mesh, rules=rules)
+            return _last_logits(self, x, token, mesh, rules), caches
         x, _ = self(token, caches=caches, cache_pos=pos,
                     positions=positions)
         return (x[:, -1, :] @ self.unembedding()).float(), caches
@@ -872,9 +916,14 @@ def cache_shapes(c: TransformerConfig, batch: int,
 
 
 def init_caches(c: TransformerConfig, batch: int, max_len: int,
-                device: Any = None) -> Caches:
-    """Zeroed bf16 caches (the JAX package's cache dtype)."""
+                device: Any = None, mesh: Any = None,
+                rules: Optional[ShardingRules] = None) -> Caches:
+    """Zeroed bf16 caches (the JAX package's cache dtype).  With a mesh,
+    DTensors of ``configs/base._cache_pspecs``'s specs (each rank's block
+    zeroed)."""
     device = resolve_device(device)
+    if mesh is not None:
+        return _init_caches_sharded(c, batch, max_len, device, mesh, rules)
     return {name: tuple(torch.zeros(s, dtype=torch.bfloat16, device=device)
                         for s in shapes)
             for name, shapes in cache_shapes(c, batch, max_len).items()}
@@ -899,14 +948,40 @@ def _xent_chunk(xc: torch.Tensor, yc: torch.Tensor, unembed: torch.Tensor
 
 def chunked_softmax_xent(x: torch.Tensor, labels: torch.Tensor,
                          unembed: torch.Tensor, c: TransformerConfig,
-                         chunk: int = 512) -> torch.Tensor:
+                         chunk: int = 512, mesh: Any = None,
+                         rules: Optional[ShardingRules] = None
+                         ) -> torch.Tensor:
     """Mean next-token cross-entropy of ``x`` [B, S, D] against
     ``labels`` [B, S] (< 0: masked) without the whole [B, S, V] logits:
     chunks of ``min(chunk, S)`` positions, each under
     ``torch.utils.checkpoint`` (its logits recomputed in backward), the
     f32 sum and count accumulated chunk by chunk in the reference's
     order.  Raises where ``S`` is not a multiple of the chunk (the
-    reference's reshape fails there)."""
+    reference's reshape fails there).
+
+    With a mesh, ``x`` [B, S, D] and ``labels`` [B, S] are DTensors of
+    the same spec and ``unembed`` is the whole table on every rank: each
+    rank sums its own tokens' losses and labels, and both sums are
+    ``psum``-ed over the axes the tokens are split over before the
+    division.  (The reference constrains the logits to [batch, -, vocab
+    over "model"]; here each rank scores its own tokens against the whole
+    vocabulary: the same values.)"""
+    if mesh is not None:
+        spec = spmd.spec_of(x)
+        axes = tuple(a for a in mesh.mesh_dim_names
+                     if a in spec.axes(0) + spec.axes(1))
+        tot, cnt = _xent_sums(x.to_local(), spmd.local(labels), unembed,
+                              chunk)
+        return spmd.psum(tot, mesh, axes) / torch.clamp(
+            spmd.psum(cnt, mesh, axes), min=1.0)
+    tot, cnt = _xent_sums(x, labels, unembed, chunk)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _xent_sums(x: torch.Tensor, labels: torch.Tensor, unembed: torch.Tensor,
+               chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 (summed loss, label count) of :func:`chunked_softmax_xent`,
+    chunk by chunk in the reference's order."""
     b, s, _ = x.shape
     chunk = min(chunk, s)
     if s % chunk:
@@ -922,15 +997,20 @@ def chunked_softmax_xent(x: torch.Tensor, labels: torch.Tensor,
         else:
             loss, n = _xent_chunk(xc, yc, unembed)
         tot, cnt = tot + loss, cnt + n
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot, cnt
 
 
 def lm_loss(model: Transformer, batch: Dict[str, torch.Tensor],
-            c: TransformerConfig) -> torch.Tensor:
+            c: TransformerConfig, mesh: Any = None,
+            rules: Optional[ShardingRules] = None) -> torch.Tensor:
     """The reference's ``lm_loss``: the chunked cross-entropy of the
     final hidden states against ``batch["labels"]``; with ``c.mtp`` plus
     0.3 times the MTP head's (``[rms_norm(x, mtp_ln), emb(t+1)] @
-    mtp_proj`` against the labels shifted one further, the last -1)."""
+    mtp_proj`` against the labels shifted one further, the last -1).
+    With a mesh: :func:`_lm_loss_sharded` (the same loss on every
+    rank)."""
+    if mesh is not None:
+        return _lm_loss_sharded(model, batch, c, mesh, rules)
     tokens, labels = batch["tokens"], batch["labels"]
     x, _ = model(tokens)
     unembed = model.unembedding()
@@ -947,10 +1027,574 @@ def lm_loss(model: Transformer, batch: Dict[str, torch.Tensor],
     return loss
 
 
-def make_train_step(c: TransformerConfig, optimizer: torch.optim.Optimizer
+def make_train_step(c: TransformerConfig, optimizer: torch.optim.Optimizer,
+                    mesh: Any = None, rules: Optional[ShardingRules] = None
                     ) -> Any:
     """``train_step(model, batch) -> {"loss"}`` on :func:`lm_loss`: the
     gradients zeroed, the loss run backward, ``optimizer.step()`` (the
     model and the optimizer's state updated IN PLACE; see
-    ``common.train_step_of``)."""
-    return train_step_of(lambda m, b: lm_loss(m, b, c), optimizer)
+    ``common.train_step_of``).  With a mesh the parameters are DTensors
+    (``spmd.shard_module`` by :func:`param_pspecs`), AdamW's state takes
+    their placements, and each gradient is the whole batch's: no
+    compression, the exact mean the reference's GSPMD step takes."""
+    return train_step_of(lambda m, b: lm_loss(m, b, c, mesh, rules),
+                         optimizer)
+
+
+# ---------------------------------------------------------------------------
+# Sharded execution
+# ---------------------------------------------------------------------------
+#
+# Every rank runs the reference's layouts on its local blocks:
+#
+# * the residual stream [B, S, D] by ``_hspec``: batch over the batch axes
+#   (where they divide it), S over "model" (sequence parallelism, where it
+#   divides S > 1); the embedding lookup and the loss on those tokens;
+# * attention by ``_head_spec``: S gathered over "model" (``all_gather``,
+#   whose gradient is ``psum_scatter``), each rank's heads (q/k/v and the
+#   output projection's rows), B9 / 9b on the local heads, the partial
+#   output ``psum_scatter``-ed back to S over "model";
+# * the dense and the shared-expert FFNs the same way over their hidden
+#   dim; the routed experts in ``_moe_sharded`` (the reference's
+#   ``shard_map`` body, ``psum`` over "model");
+# * a weight's FSDP dims gathered where it is used (``all_gather`` over
+#   the FSDP axes, gradient ``psum_scatter``), and every weight entering
+#   through ``pvary`` over the axes its spec does not name (gradient
+#   ``psum``): every use is a per-rank partial, so each gradient is the
+#   whole batch's, as the reference's.
+
+
+def _mesh_sizes(mesh: Any) -> Dict[str, int]:
+    names = getattr(mesh, "axis_names", None) or mesh.mesh_dim_names
+    return dict(zip(names, tuple(mesh.shape)))
+
+
+def _bspec(mesh: Any, rules: ShardingRules, batch: int,
+           extra_dims: int) -> Spec:
+    """The reference's ``_bspec``: the batch dim over the batch axes
+    where they hold more than one device and divide it, then
+    ``extra_dims`` replicated dims."""
+    ax = batch_axes(mesh, rules)
+    sizes = _mesh_sizes(mesh)
+    n = math.prod(sizes[a] for a in ax) if ax else 1
+    first = ax if (n > 1 and batch % n == 0) else None
+    return Spec(first, *([None] * extra_dims))
+
+
+def _hspec(mesh: Any, rules: ShardingRules, batch: int, seq: int) -> Spec:
+    """The residual stream's spec [B, S, D] (the reference's ``_hspec``):
+    batch by :func:`_bspec`, S over the tensor axis where it divides S >
+    1 (sequence parallelism)."""
+    b = _bspec(mesh, rules, batch, 0)[0]
+    sizes = _mesh_sizes(mesh)
+    tp = rules.tensor if rules.tensor in sizes else None
+    s_ax = tp if (tp and seq > 1 and seq % sizes[tp] == 0) else None
+    return Spec(b, s_ax, None)
+
+
+def _head_spec(mesh: Any, rules: ShardingRules, batch: int,
+               n_heads: int) -> Spec:
+    """Attention tensors [B, S, H, D] (the reference's ``_head_spec``):
+    batch by :func:`_bspec`, S gathered, heads over the tensor axis where
+    it divides them."""
+    b = _bspec(mesh, rules, batch, 0)[0]
+    sizes = _mesh_sizes(mesh)
+    tp = rules.tensor if rules.tensor in sizes else None
+    h_ax = tp if (tp and n_heads % sizes[tp] == 0) else None
+    return Spec(b, None, h_ax, None)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Sharded:
+    """One sharded call's layout: the batch axes the batch is split over
+    (none: replicated), and whether the residual's S is split over the
+    tensor axis ``tp``."""
+
+    mesh: Any
+    rules: ShardingRules
+    batch: Tuple[str, ...]
+    seq: bool
+
+    @classmethod
+    def of(cls, mesh: Any, rules: Optional[ShardingRules], b: int,
+           s: int) -> "_Sharded":
+        if rules is None or rules.tensor not in mesh.mesh_dim_names:
+            raise ValueError(f"a sharded LM call needs rules whose tensor "
+                             f"axis is one of {mesh.mesh_dim_names}")
+        h = _hspec(mesh, rules, b, s)
+        return cls(mesh, rules, h.axes(0), h[1] is not None)
+
+    @property
+    def tp(self) -> str:
+        return self.rules.tensor
+
+    @property
+    def n_tp(self) -> int:
+        return spmd.axis_size(self.mesh, self.tp)
+
+    @property
+    def mi(self) -> int:
+        return spmd.axis_index(self.mesh, self.tp)
+
+    @property
+    def hspec(self) -> Spec:
+        return Spec(self.batch, self.tp if self.seq else None, None)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """The residual block → all S of the rank's rows, entering a
+        computation split by head or hidden unit (gradient: the partial
+        cotangents summed, S's block kept)."""
+        if self.seq:
+            return spmd.all_gather(x, self.mesh, self.tp, 1)
+        return spmd.pvary(x, self.mesh, self.tp)
+
+    def leave(self, a: torch.Tensor) -> torch.Tensor:
+        """A per-rank partial [b, S, D] summed over the tensor axis into
+        the residual's block."""
+        if self.seq:
+            return spmd.psum_scatter(a, self.mesh, self.tp, 1)
+        return spmd.psum(a, self.mesh, self.tp)
+
+
+def _body_weight(p: Any, mesh: Any, keep: Optional[str]) -> torch.Tensor:
+    """The tensor a rank computes with for DTensor parameter ``p``: its
+    block with every dim sharded over axes other than ``keep`` gathered,
+    entering through ``pvary`` over the axes its spec does not name."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(p, DTensor):
+        raise TypeError("the sharded route takes DTensor parameters "
+                        "(spmd.shard_module with param_pspecs)")
+    spec = spmd.spec_of(p)
+    w = p.to_local()
+    for d in range(p.dim()):
+        axes = spec.axes(d)
+        gather = tuple(a for a in axes if a != keep)
+        if gather and gather != axes:
+            raise ValueError(f"{spec}: dim {d} mixes {keep!r} with other "
+                             f"axes")
+        if gather:
+            w = spmd.all_gather(w, mesh, gather, d)
+    named = {a for d in range(len(spec)) for a in spec.axes(d)}
+    return spmd.pvary(w, mesh, tuple(a for a in mesh.mesh_dim_names
+                                     if a not in named))
+
+
+def _weights(params: Dict[str, Any], sh: _Sharded) -> Any:
+    """:func:`_body_weight` of each parameter with the tensor axis kept;
+    ``tp_local`` names those whose block is split over it."""
+    import types
+    out = types.SimpleNamespace(**{k: _body_weight(p, sh.mesh, sh.tp)
+                                   for k, p in params.items()})
+    out.tp_local = frozenset(
+        k for k, p in params.items()
+        if any(sh.tp in spmd.spec_of(p).axes(d) for d in range(p.dim())))
+    return out
+
+
+def _tp_slice(w: Any, name: str, dim: int, lo: int, n: int) -> torch.Tensor:
+    """Rows or columns [lo, lo + n) along ``dim`` of weight ``name``: the
+    rank's block itself where the weight is split over the tensor axis
+    (``lo`` is then the block's start), else a slice of the whole."""
+    t = getattr(w, name)
+    if name in w.tp_local:
+        if t.shape[dim] != n:
+            raise ValueError(f"{name}: a block of {t.shape[dim]} along dim "
+                             f"{dim}, {n} wanted")
+        return t
+    if lo + n > t.shape[dim]:
+        raise ValueError(f"{name}: [{lo}, {lo + n}) past {t.shape[dim]}")
+    return t.narrow(dim, lo, n)
+
+
+def _head_split(c: TransformerConfig, sh: _Sharded
+                ) -> Tuple[int, int, int, int]:
+    """(local heads, first local head, local KV heads, first local KV
+    head): each rank takes ``n_heads / n_tp`` consecutive heads and the
+    KV heads of their groups."""
+    n = sh.n_tp
+    if c.n_heads % n:
+        raise ValueError(f"{c.n_heads} heads do not divide the "
+                         f"{sh.tp!r} axis ({n})")
+    hl = c.n_heads // n
+    lo = sh.mi * hl
+    if c.mla:
+        return hl, lo, hl, lo
+    g = c.n_heads // c.n_kv_heads
+    if hl % g and g % hl:
+        raise ValueError(f"{hl} heads a rank split KV groups of {g}")
+    return hl, lo, max(1, hl // g), lo // g
+
+
+def _ffn_sharded(x: torch.Tensor, w: Any, sh: _Sharded,
+                 names: Tuple[str, str, str] = ("w_gate", "w_up", "w_down")
+                 ) -> torch.Tensor:
+    """The SwiGLU FFN on the rank's hidden units: the residual block
+    gathered over S, the gate/up columns and the down rows of the rank,
+    the partial output summed back into the residual's block."""
+    gate, up, down = names
+    f = getattr(w, gate).shape[1] * (sh.n_tp if gate in w.tp_local else 1)
+    if f % sh.n_tp:
+        raise ValueError(f"{gate}: {f} hidden units do not divide the "
+                         f"{sh.tp!r} axis ({sh.n_tp})")
+    fl = f // sh.n_tp
+    lo = sh.mi * fl
+    xf = sh.enter(x)
+    hid = F.silu(xf @ _tp_slice(w, gate, 1, lo, fl)) \
+        * (xf @ _tp_slice(w, up, 1, lo, fl))
+    return sh.leave(hid @ _tp_slice(w, down, 0, lo, fl))
+
+
+def _moe_sharded(x: torch.Tensor, w: Any, c: TransformerConfig,
+                 sh: _Sharded) -> torch.Tensor:
+    """The reference's expert-parallel ``moe_block`` on the residual
+    block ``x`` [b, s, D] (returned in the same layout).
+
+    Each rank holds ``n_local = e_pad / n_tp`` experts (from
+    ``axis_index("model") · n_local``), their FSDP dim gathered; the
+    tokens are the rank's batch rows with S gathered (all tokens where
+    B·S is fewer than the batch shards), the capacity from that LOCAL
+    token count; ``_moe_local`` on them, one ``psum`` over "model", the
+    result cut back to the residual's S block.  The shared experts run
+    outside that body, split over their hidden dim."""
+    b, s, d = x.shape
+    mesh, tp = sh.mesh, sh.tp
+    if c.e_pad % sh.n_tp or "we_gate" not in w.tp_local:
+        raise ValueError(f"{c.e_pad} experts are not split over the "
+                         f"{tp!r} axis ({sh.n_tp})")
+    n_local = c.e_pad // sh.n_tp
+    bax = batch_axes(mesh, sh.rules)
+    n_bsh = spmd.axis_size(mesh, bax)
+    big_b = b * (n_bsh if sh.batch else 1)
+    big_s = s * (sh.n_tp if sh.seq else 1)
+    t = big_b * big_s
+    # decode (tokens < batch shards): the tokens replicated over the data
+    # axes too
+    tok_split = t % n_bsh == 0 and t >= n_bsh
+    cap = _capacity(t // n_bsh if tok_split else t, c)
+    xf = sh.enter(x).reshape(-1, d)
+    split_here = tok_split and n_bsh > 1 and not sh.batch
+    if split_here:
+        # the batch dim does not divide, its B·S tokens do
+        xf = spmd.redistribute(xf, mesh, Spec(), Spec(bax, None))
+    routed = spmd.psum(_moe_local(xf, w, c, n_local=n_local,
+                                  expert_offset=sh.mi * n_local,
+                                  capacity=cap), mesh, tp)
+    if split_here:
+        routed = spmd.redistribute(routed, mesh, Spec(bax, None), Spec())
+    routed = routed.reshape(b, big_s, d)
+    if sh.seq:
+        routed = spmd.redistribute(routed, mesh, Spec(), Spec(None, tp))
+    if c.n_shared_experts:
+        routed = routed + _ffn_sharded(x, w, sh,
+                                       ("ws_gate", "ws_up", "ws_down"))
+    return routed
+
+
+_MOE_WEIGHTS = ("router", "we_gate", "we_up", "we_down", "ws_gate",
+                "ws_up", "ws_down")
+
+
+def _moe_block_dtensor(x: Any, layer: Any, c: TransformerConfig, mesh: Any,
+                       rules: Optional[ShardingRules]) -> Any:
+    """:func:`moe_block` under a mesh: DTensor ``x`` moved to ``_hspec``,
+    :func:`_moe_sharded`, a DTensor back."""
+    b, s, _ = x.shape
+    sh = _Sharded.of(mesh, rules, b, s)
+    params = (dict(layer.named_parameters(recurse=False))
+              if isinstance(layer, nn.Module) else dict(vars(layer)))
+    w = _weights({k: v for k, v in params.items() if k in _MOE_WEIGHTS}, sh)
+    xl = spmd.redistribute(x.to_local(), mesh, spmd.spec_of(x), sh.hspec)
+    return spmd.from_local(_moe_sharded(xl, w, c, sh), mesh, sh.hspec)
+
+
+def _write_cache_sharded(cache: torch.Tensor, new: torch.Tensor,
+                         cache_pos: int, ctx: Tuple[str, ...],
+                         sh: _Sharded) -> None:
+    """``new`` [b, S, ...] (the rank's batch rows, every position) into
+    the rank's block [b, L_loc, ...] of a cache whose L is split over
+    ``ctx``, IN PLACE; the start clamped as :func:`_write_cache`'s."""
+    n = spmd.axis_size(sh.mesh, ctx)
+    l_loc = cache.shape[1]
+    lo = spmd.axis_index(sh.mesh, ctx) * l_loc if n > 1 else 0
+    s = new.shape[1]
+    start = min(max(int(cache_pos), 0), l_loc * n - s)
+    a, z = max(start, lo), min(start + s, lo + l_loc)
+    if a < z:
+        cache[:, a - lo:z - lo] = new[:, a - start:z - start].to(cache.dtype)
+
+
+def _decode_softmax(scores: torch.Tensor, positions: torch.Tensor,
+                    window: int, lo: int, ctx: Tuple[str, ...],
+                    sh: _Sharded) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(exp(scores − max), their sum) over the cache positions the ranks
+    of ``ctx`` hold between them: the rank's [..., 1, L_loc] f32 scores
+    masked as :func:`_decode_mask` at positions ``lo + j``, the max the
+    ranks' ``pmax``, the sum their ``psum``."""
+    kpos = lo + torch.arange(scores.shape[-1], device=scores.device)
+    qpos = positions[0]
+    mask = (kpos[None, :] <= qpos[:, None]) \
+        & (kpos[None, :] > qpos[:, None] - window)
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    m = spmd.pmax(torch.amax(scores, dim=-1, keepdim=True), sh.mesh, ctx)
+    p = torch.exp(scores - m)
+    return p, spmd.psum(p.sum(-1, keepdim=True), sh.mesh, ctx)
+
+
+def _cache_lo(cache: torch.Tensor, ctx: Tuple[str, ...],
+              sh: _Sharded) -> int:
+    return spmd.axis_index(sh.mesh, ctx) * cache.shape[1] if ctx else 0
+
+
+def _all_kv(xf: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: Any,
+            c: TransformerConfig, positions: torch.Tensor, sh: _Sharded
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K and V of every KV head (what the cache holds): the ranks' heads
+    gathered, or recomputed from the whole weights where these are not
+    split over the tensor axis."""
+    if "wk" in w.tp_local:
+        return (spmd.all_gather(k, sh.mesh, sh.tp, 2),
+                spmd.all_gather(v, sh.mesh, sh.tp, 2))
+    b, s = xf.shape[:2]
+    kk = (xf @ w.wk).reshape(b, s, c.n_kv_heads, c.d_head)
+    return (rope(kk, positions, c.rope_theta),
+            (xf @ w.wv).reshape(b, s, c.n_kv_heads, c.d_head))
+
+
+def _attention_dense_sharded(x: torch.Tensor, w: Any, c: TransformerConfig,
+                             positions: torch.Tensor, window: int,
+                             kv_cache: Any, cache_pos: Optional[int],
+                             sh: _Sharded) -> Tuple[torch.Tensor, Any]:
+    """GQA attention on the rank's heads (the reference's
+    ``attention_dense`` under a mesh: q/k/v to ``_head_spec``).  A
+    prefill or training step runs B9 (9b backward) on the local heads; a
+    decode step scores every head's query against the rank's cache
+    positions and combines the ranks' (:func:`_decode_softmax`)."""
+    import types
+    hl, lo, kvl, kv_lo = _head_split(c, sh)
+    dh = c.d_head
+    lw = types.SimpleNamespace(
+        wq=_tp_slice(w, "wq", 1, lo * dh, hl * dh),
+        wk=_tp_slice(w, "wk", 1, kv_lo * dh, kvl * dh),
+        wv=_tp_slice(w, "wv", 1, kv_lo * dh, kvl * dh))
+    wo = _tp_slice(w, "wo", 0, lo * dh, hl * dh)
+    cl = dataclasses.replace(c, n_heads=hl, n_kv_heads=kvl)
+    xf = sh.enter(x)
+    b, s = xf.shape[:2]
+    q, k, v = project_qkv(xf, lw, cl, positions)
+    if kv_cache is None:
+        out = ops.flash_attention(q, k, v, causal=True,
+                                  window=kernel_window(window))
+        return sh.leave(out.reshape(b, s, hl * dh) @ wo), None
+    ck, cv, ctx = kv_cache
+    k_all, v_all = _all_kv(xf, k, v, w, c, positions, sh)
+    _write_cache_sharded(ck, k_all, cache_pos, ctx, sh)
+    _write_cache_sharded(cv, v_all, cache_pos, ctx, sh)
+    if s > 1:
+        out = ops.flash_attention(q, k, v, causal=True,
+                                  window=kernel_window(window))
+    else:
+        q_all = spmd.all_gather(q, sh.mesh, sh.tp, 2)
+        g = c.n_heads // c.n_kv_heads
+        qg = q_all.reshape(b, s, c.n_kv_heads, g, dh)
+        scores = torch.einsum("bqkgd,bskd->bkgqs", qg,
+                              ck.to(q.dtype)).float() / math.sqrt(dh)
+        p, tot = _decode_softmax(scores, positions, window,
+                                 _cache_lo(ck, ctx, sh), ctx, sh)
+        o = spmd.psum(torch.einsum("bkgqs,bskd->bqkgd", p, cv.float()),
+                      sh.mesh, ctx)
+        o = (o / tot.permute(0, 3, 1, 2, 4)).to(x.dtype)
+        out = o.reshape(b, s, c.n_heads, dh).narrow(2, lo, hl)
+    return sh.leave(out.reshape(b, s, hl * dh) @ wo), kv_cache
+
+
+def _attention_mla_sharded(x: torch.Tensor, w: Any, c: TransformerConfig,
+                           positions: torch.Tensor, window: int,
+                           kv_cache: Any, cache_pos: Optional[int],
+                           sh: _Sharded) -> Tuple[torch.Tensor, Any]:
+    """MLA on the rank's heads (the reference's ``attention_mla`` under a
+    mesh: S gathered on the latent, q and the per-head expansion on the
+    local heads).  Decode: the absorbed path, every head's latent query
+    scored against the rank's cache positions, the ranks' combined."""
+    import types
+    hl, lo, _, _ = _head_split(c, sh)
+    qk, nv = c.qk_dim, c.qk_nope_dim + c.v_dim
+    lw = types.SimpleNamespace(
+        wq_a=w.wq_a, q_ln=w.q_ln, wkv_a=w.wkv_a, kv_ln=w.kv_ln,
+        wq_b=_tp_slice(w, "wq_b", 1, lo * qk, hl * qk),
+        wkv_b=_tp_slice(w, "wkv_b", 1, lo * nv, hl * nv))
+    wo = _tp_slice(w, "wo", 0, lo * c.v_dim, hl * c.v_dim)
+    cl = dataclasses.replace(c, n_heads=hl, n_kv_heads=hl)
+    xf = sh.enter(x)
+    b, s = xf.shape[:2]
+    q_nope, q_rope, c_kv, k_rope = mla_project(xf, lw, cl, positions)
+    if kv_cache is not None:
+        lat, rot, ctx = kv_cache
+        _write_cache_sharded(lat, c_kv, cache_pos, ctx, sh)
+        _write_cache_sharded(rot, k_rope[:, :, 0, :], cache_pos, ctx, sh)
+        if s == 1:
+            w_k, w_v = _mla_wkv(lw, cl)
+            q_abs = spmd.all_gather(
+                torch.einsum("bqhd,rhd->bqhr", q_nope, w_k), sh.mesh,
+                sh.tp, 2)
+            q_rot = spmd.all_gather(q_rope, sh.mesh, sh.tp, 2)
+            scores = (torch.einsum("bqhr,bsr->bhqs", q_abs,
+                                   lat.to(q_abs.dtype))
+                      + torch.einsum("bqhd,bsd->bhqs", q_rot,
+                                     rot.to(q_rot.dtype))
+                      ).float() / math.sqrt(c.qk_dim)
+            p, tot = _decode_softmax(scores, positions, window,
+                                     _cache_lo(lat, ctx, sh), ctx, sh)
+            o = spmd.psum(torch.einsum("bhqs,bsr->bqhr", p, lat.float()),
+                          sh.mesh, ctx)
+            o = (o / tot.permute(0, 2, 1, 3)).to(x.dtype).narrow(2, lo, hl)
+            out = torch.einsum("bqhr,rhd->bqhd", o, w_v)
+            return sh.leave(out.reshape(b, s, hl * c.v_dim) @ wo), kv_cache
+    q, k, v = _mla_expand(q_nope, q_rope, c_kv, k_rope, lw, cl)
+    out = attend_padded_v(q, k, v, kernel_window(window))
+    return sh.leave(out.reshape(b, s, hl * c.v_dim) @ wo), kv_cache
+
+
+def _layer_sharded(layer: Layer, h: torch.Tensor, c: TransformerConfig,
+                   positions: torch.Tensor, window: int, kv_cache: Any,
+                   cache_pos: Optional[int], sh: _Sharded):
+    """One layer on the rank's residual block (``Layer.forward`` under a
+    mesh)."""
+    w = _weights(dict(layer.named_parameters(recurse=False)), sh)
+    attn = _attention_mla_sharded if c.mla else _attention_dense_sharded
+    a, new_cache = attn(rms_norm(h, w.ln1, c.norm_eps), w, c, positions,
+                        window, kv_cache, cache_pos, sh)
+    h = h + a
+    x = rms_norm(h, w.ln2, c.norm_eps)
+    h = h + (_ffn_sharded(x, w, sh) if layer.ffn_dense
+             else _moe_sharded(x, w, c, sh))
+    return h, new_cache
+
+
+def _layer_output_sharded(layer: Layer, h: torch.Tensor,
+                          c: TransformerConfig, positions: torch.Tensor,
+                          window: int, sh: _Sharded) -> torch.Tensor:
+    return _layer_sharded(layer, h, c, positions, window, None, None, sh)[0]
+
+
+def _forward_sharded(model: Transformer, tokens: torch.Tensor,
+                     caches: Optional[Caches], cache_pos: Optional[int],
+                     positions: Optional[torch.Tensor], mesh: Any,
+                     rules: Optional[ShardingRules]
+                     ) -> Tuple[torch.Tensor, Optional[Caches]]:
+    """``Transformer.forward`` under a mesh: the rank's block of the final
+    hidden states under ``_hspec`` (``tokens`` and ``positions`` the
+    global values every rank holds; ``caches`` DTensors updated IN
+    PLACE)."""
+    c = model.config
+    b, s = tokens.shape
+    sh = _Sharded.of(mesh, rules, b, s)
+    if positions is None:
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+    pos = spmd.local_block(positions, mesh, Spec(sh.batch, None))
+    tok = spmd.local_block(tokens, mesh, Spec(*sh.hspec[:2]))
+    table = _body_weight(model.embed, mesh, None)
+    x = F.embedding(tok, table).to(c.dtype) * math.sqrt(c.d_model)
+    remat = c.remat and caches is None and torch.is_grad_enabled()
+    if remat and c.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy={c.remat_policy!r}: one of "
+                         f"{REMAT_POLICIES}")
+    for name, layers, windows in model.groups():
+        if caches is not None:
+            ck, cv = caches[name]
+            ctx = spmd.spec_of(ck).axes(2)
+            ck, cv = ck.to_local(), cv.to_local()
+        for i, layer in enumerate(layers):
+            if remat:
+                x = checkpoint(_layer_output_sharded, layer, x, c, pos,
+                               windows[i], sh, use_reentrant=False,
+                               **REMAT_POLICIES[c.remat_policy])
+                continue
+            cache = None if caches is None else (ck[i], cv[i], ctx)
+            x, _ = layer(x, c, pos, windows[i], cache, cache_pos, sh)
+    final_ln = _body_weight(model.final_ln, mesh, None)
+    return rms_norm(x, final_ln, c.norm_eps), caches
+
+
+def _unembedding_sharded(model: Transformer, mesh: Any) -> torch.Tensor:
+    """The whole [D, V] unembedding on every rank (gathered)."""
+    if model.config.tie_embeddings:
+        return _body_weight(model.embed, mesh, None).T
+    return _body_weight(model.unembed, mesh, None)
+
+
+def _last_logits(model: Transformer, x: torch.Tensor, tokens: torch.Tensor,
+                 mesh: Any, rules: Optional[ShardingRules]) -> Any:
+    """The last position's f32 logits [B, V] of the hidden-state block
+    ``x`` as a DTensor (batch over the batch axes): the position lives on
+    the last rank of the tensor axis where S is split."""
+    sh = _Sharded.of(mesh, rules, *tokens.shape)
+    last = x[:, -1]
+    if sh.seq:
+        last = spmd.all_gather(x[:, -1:], mesh, sh.tp, 1)[:, -1]
+    logits = (last @ _unembedding_sharded(model, mesh)).float()
+    return spmd.from_local(logits, mesh, Spec(sh.batch, None))
+
+
+def _init_caches_sharded(c: TransformerConfig, batch: int, max_len: int,
+                         device: torch.device, mesh: Any,
+                         rules: Optional[ShardingRules]) -> Caches:
+    from repro_torch.configs.base import _cache_pspecs
+    shape = MeshShape(tuple(mesh.mesh_dim_names), tuple(mesh.shape))
+    specs = _cache_pspecs(c, batch, max_len, shape, rules)
+    sizes = _mesh_sizes(mesh)
+    out = {}
+    for name, shapes in cache_shapes(c, batch, max_len).items():
+        pair = []
+        for full, spec in zip(shapes, specs[name]):
+            loc = []
+            for d, n in enumerate(full):
+                k = math.prod(sizes[a] for a in spec.axes(d)) \
+                    if d < len(spec) else 1
+                if n % k:
+                    raise ValueError(f"cache dim {d} of {full} does not "
+                                     f"divide over {spec.axes(d)} ({k})")
+                loc.append(n // k)
+            pair.append(spmd.from_local(
+                torch.zeros(loc, dtype=torch.bfloat16, device=device),
+                mesh, spec))
+        out[name] = tuple(pair)
+    return out
+
+
+def _lm_loss_sharded(model: Transformer, batch: Dict[str, torch.Tensor],
+                     c: TransformerConfig, mesh: Any,
+                     rules: Optional[ShardingRules]) -> torch.Tensor:
+    """:func:`lm_loss` under a mesh, on every rank.  The tokens must be
+    split over every mesh axis of more than one device (the batch over
+    the batch axes, S over the tensor axis): each weight's gradient is
+    the sum of the ranks' partial ones, which is the whole batch's only
+    where no two ranks compute on the same tokens."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    b, s = tokens.shape
+    sh = _Sharded.of(mesh, rules, b, s)
+    split = set(sh.batch) | ({sh.tp} if sh.seq else set())
+    idle = [a for a, n in _mesh_sizes(mesh).items()
+            if n > 1 and a not in split]
+    if idle:
+        raise ValueError(f"a sharded LM loss needs its [{b}, {s}] tokens "
+                         f"split over every mesh axis; {idle} are not")
+    tspec = Spec(*sh.hspec[:2])
+    x, _ = model(tokens, mesh=mesh, rules=rules)
+    unembed = _unembedding_sharded(model, mesh)
+    loss = chunked_softmax_xent(spmd.from_local(x, mesh, sh.hspec),
+                                spmd.constrain(labels, mesh, tspec),
+                                unembed, c, mesh=mesh, rules=rules)
+    if c.mtp:
+        table = _body_weight(model.embed, mesh, None)
+        nxt = spmd.local_block(torch.roll(tokens, -1, dims=1), mesh, tspec)
+        h2 = torch.cat([rms_norm(x, _body_weight(model.mtp_ln, mesh, None),
+                                 c.norm_eps),
+                        F.embedding(nxt, table).to(c.dtype)], dim=-1) \
+            @ _body_weight(model.mtp_proj, mesh, None)
+        labels2 = torch.roll(labels, -1, dims=1)
+        labels2[:, -1] = -1
+        loss = loss + 0.3 * chunked_softmax_xent(
+            spmd.from_local(h2, mesh, sh.hspec),
+            spmd.constrain(labels2, mesh, tspec), unembed, c, mesh=mesh,
+            rules=rules)
+    return loss

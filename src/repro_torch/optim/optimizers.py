@@ -38,6 +38,7 @@ from typing import Any, Iterable, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.parallel import spmd
 from repro_torch.parallel.sharding import Spec
 
 CHUNK = 1 << 24          # elements of a leaf updated at a time
@@ -63,18 +64,51 @@ def row_slices(t: torch.Tensor) -> List[Any]:
     return [slice(s, s + rows) for s in range(0, t.shape[0], rows)]
 
 
+def _norm_dtype(g: torch.Tensor) -> torch.dtype:
+    """A gradient's norm in float32, float64 ones' in float64."""
+    return torch.float64 if g.dtype == torch.float64 else torch.float32
+
+
 def clip_by_global_norm(grads: Iterable[torch.Tensor],
                         max_norm: float) -> torch.Tensor:
     """Scale ``grads`` IN PLACE by ``min(1, max_norm / max(‖g‖,
     1e-12))``, ``‖g‖`` the L2 norm over all of them; returns ``‖g‖`` (a
-    device tensor: nothing is read back)."""
+    device tensor: nothing is read back).
+
+    DTensor leaves count the WHOLE gradient, not the rank's block: each
+    leaf's local sum of squares is summed over the ranks of the axes it
+    is sharded on (:func:`repro_torch.parallel.spmd.psum`, so a block
+    replicated on other axes counts once), and the rank's block is
+    scaled.  Every rank gets the same norm."""
+    from torch.distributed.tensor import DTensor
     grads = list(grads)
-    norms = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
-                         for g in grads])
-    gnorm = torch.linalg.vector_norm(norms)
+    plain = [g for g in grads if not isinstance(g, DTensor)]
+    sharded = [g for g in grads if isinstance(g, DTensor)]
+    norms = torch.stack([torch.linalg.vector_norm(g, dtype=_norm_dtype(g))
+                         for g in plain]) if plain else None
+    if not sharded:
+        gnorm = torch.linalg.vector_norm(norms)
+    else:
+        # per (mesh, axes the leaf is sharded on): the local squares summed,
+        # then summed over those axes' ranks
+        by_axes: dict = {}
+        for g in sharded:
+            spec = spmd.spec_of(g)
+            axes = tuple(a for a in g.device_mesh.mesh_dim_names
+                         if any(a in spec.axes(d) for d in range(len(spec))))
+            by_axes.setdefault((id(g.device_mesh), axes),
+                               (g.device_mesh, axes, []))[2].append(
+                torch.square(torch.linalg.vector_norm(
+                    g.to_local(), dtype=_norm_dtype(g))))
+        squares = [] if norms is None else [torch.sum(torch.square(norms))]
+        for mesh, axes, sq in by_axes.values():
+            total = torch.sum(torch.stack(sq))
+            squares.append(spmd.psum(total, mesh, axes) if axes else total)
+        gnorm = torch.sqrt(torch.sum(torch.stack(squares)))
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     for g in grads:
-        g.mul_(scale.to(g.dtype))
+        gl = spmd.local(g)
+        gl.mul_(scale.to(gl.dtype))
     return gnorm
 
 
@@ -132,7 +166,11 @@ class ClippedOptimizer(torch.optim.Optimizer):
         self.last_gnorm = clip_by_global_norm(
             [g for _, _, g in pairs], self.defaults["clip_norm"])
         for p, group, g in pairs:
-            self._update(p, g, self.state[p], group)
+            # a DTensor parameter is updated through its block (its grad
+            # and state share its placements): no collective
+            self._update(spmd.local(p), spmd.local(g),
+                         {k: spmd.local(v) for k, v in self.state[p].items()},
+                         group)
         self.n_steps += 1
         return loss
 
@@ -185,6 +223,11 @@ class Adafactor(ClippedOptimizer):
         return p.dim() >= 2 and p.shape[-1] >= k and p.shape[-2] >= k
 
     def _init_state(self, p, group):
+        from torch.distributed.tensor import DTensor
+        if isinstance(p, DTensor):
+            # the factored moments and the update's RMS reduce over whole
+            # leaves; the sharded train steps use AdamW
+            raise NotImplementedError("adafactor over DTensor parameters")
         f32 = dict(dtype=torch.float32, device=p.device)
         if self._factored(p, group):
             return {"vr": torch.zeros(p.shape[:-1], **f32),

@@ -3,7 +3,9 @@ cell's at the production mesh.
 
 The JAX cells are built in a subprocess with the 256 fake devices the
 single-pod mesh needs (``make_production_mesh()``, ``make_rules``; the
-dry run's ``XLA_FLAGS``); only their specs come back.  The port's come
+dry run's ``XLA_FLAGS``); only their specs come back.  tifu-knn's three
+cells (the paper's own system) against ``configs/tifu_knn.cell_shardings``
+field by field, at the single-pod and the multi-pod production meshes.  The port's come
 from ``Cell.shardings()`` at the published sizes, from shapes alone:
 nothing is allocated on either side.  Parameters are matched through
 the conversion's name maps (an LM layer's spec is its stacked JAX
@@ -161,3 +163,66 @@ def test_a_built_cell_records_its_own_sizes(arch, shape):
     prog = cell(device="cpu", sizes=sz)
     assert prog.in_shardings == cell.shardings(sz)
     assert _specs(prog.in_shardings)
+
+
+TIFU_SCRIPT = r"""
+import dataclasses, pickle, sys
+import jax
+from repro.configs import REGISTRY
+from repro.launch.mesh import make_production_mesh, make_rules
+
+
+def specs(x):
+    if dataclasses.is_dataclass(x):
+        return {f.name: tuple(getattr(x, f.name).spec)
+                for f in dataclasses.fields(x)}
+    return tuple(x.spec)
+
+
+out = {}
+for pods in (1, 2):
+    mesh = make_production_mesh(multi_pod=pods > 1)
+    rules = make_rules(mesh)
+    out[pods] = {"mesh": (tuple(mesh.axis_names), tuple(mesh.devices.shape))}
+    for shape, build in REGISTRY["tifu-knn"].cells.items():
+        out[pods][shape] = [specs(a) for a in build(mesh, rules).in_shardings]
+pickle.dump(out, open(sys.argv[1], "wb"))
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_tifu(tmp_path_factory):
+    return run_jax(TIFU_SCRIPT, tmp_path_factory.mktemp("tifu"), 512)
+
+
+def _tifu_specs(arg):
+    import dataclasses
+    if not isinstance(arg, Sharding):
+        return {f.name: tuple(getattr(arg, f.name).spec)
+                for f in dataclasses.fields(arg)}
+    return tuple(arg.spec)
+
+
+@pytest.mark.parametrize("pods", [1, 2])
+@pytest.mark.parametrize("shape", ["stream_update", "serve_topk",
+                                   "serve_topk_opt"])
+def test_tifu_cells_record_the_jax_cell_s_shardings(jax_tifu, shape, pods):
+    from repro_torch.configs import tifu_knn
+    from repro_torch.launch.mesh import make_rules
+    mesh = make_production_mesh(multi_pod=pods > 1)
+    assert jax_tifu[pods]["mesh"] == (mesh.axis_names, mesh.shape)
+    got = [_tifu_specs(a) for a in tifu_knn.cell_shardings(
+        shape, mesh, make_rules(mesh))]
+    assert got == jax_tifu[pods][shape]
+    if pods == 1:
+        default = [_tifu_specs(a) for a in tifu_knn.cell_shardings(shape)]
+        assert default == got
+
+
+@pytest.mark.parametrize("shape", ["stream_update", "serve_topk"])
+def test_a_built_tifu_cell_records_the_production_shardings(shape):
+    from repro_torch.configs import tifu_knn
+    prog = get_arch("tifu-knn").cells[shape](
+        device="cpu", sizes=smoke_sizes("tifu-knn", shape))
+    assert [_tifu_specs(a) for a in prog.in_shardings] == \
+        [_tifu_specs(a) for a in tifu_knn.cell_shardings(shape)]

@@ -12,7 +12,8 @@ so every rank and the JAX run see the same numbers.
 
 :func:`run_jax` runs a script in a subprocess whose JAX has ``n_devices``
 fake CPU devices (the dry run's ``XLA_FLAGS``) and returns what the
-script pickled to the path in ``sys.argv[1]``.
+script pickled to the path in ``sys.argv[1]``.  :func:`started` runs
+either in a thread, so a test's ranks and its JAX run overlap.
 
 Run as a script, this module is one rank.  It imports neither JAX nor
 the JAX package.
@@ -80,6 +81,29 @@ def run_ranks(job, world, workdir, args=None, timeout=240.0):
         with open(os.path.join(out, f"{r}.pkl"), "rb") as f:
             results.append(pickle.load(f))
     return results
+
+
+def started(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` in a thread (rank jobs and JAX runs wait on
+    subprocesses, so they overlap); the returned function joins it and
+    returns its result or raises its exception."""
+    import threading
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn(*args, **kwargs)
+        except BaseException as e:          # re-raised by the join
+            out["error"] = e
+    thread = threading.Thread(target=run)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "error" in out:
+            raise out["error"]
+        return out["value"]
+    return join
 
 
 def run_jax(script, workdir, n_devices, timeout=400.0):
@@ -203,7 +227,262 @@ def job_elastic_restore(rank, world, args):
             for k, v in got.items()}
 
 
+def _load(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def job_sharded_lm(rank, world, args):
+    """Each case's LM (the JAX parameter tree pickled at ``params``, its
+    port config ``config``), its parameters placed by ``param_pspecs``:
+    the sharded forward's hidden states, prefill and decode logits,
+    step-1 gradients and ``steps`` AdamW steps (losses, pre-clip norms,
+    the parameters after), each gathered whole, and this rank's blocks'
+    own gradient norm."""
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import optimizers
+    from repro_torch.parallel import spmd
+    from repro_torch.parallel.sharding import MeshShape, ShardingRules
+    mesh = _mesh(args["mesh"], args["names"])
+    rules = ShardingRules(batch=("data",), fsdp=("data",))
+    out = {}
+    for case in args["cases"]:
+        c = tf.TransformerConfig(**case["config"], dtype=torch.float32)
+        model = convert.transformer_params_from_numpy(
+            _load(case["params"]), c, device="cpu")
+        spmd.shard_module(model, mesh, tf.param_pspecs(
+            c, MeshShape(tuple(args["names"]), tuple(args["mesh"])), rules))
+        data = np.load(case["inputs"])
+        tokens = torch.from_numpy(data["tokens"]).long()
+        b, s = tokens.shape
+        got = {}
+        with torch.no_grad():
+            x, _ = model(tokens, mesh=mesh, rules=rules)
+            got["hidden"] = spmd.gather_full(spmd.from_local(
+                x, mesh, tf._hspec(mesh, rules, b, s))).numpy()
+            logits, caches = model.prefill(tokens, case["max_len"], mesh,
+                                           rules)
+            got["prefill"] = spmd.gather_full(logits).numpy()
+            got["decode"] = []
+            for i in range(data["next"].shape[1]):
+                tok = torch.from_numpy(data["next"][:, i:i + 1]).long()
+                logits, caches = model.decode_step(caches, tok, s + i, mesh,
+                                                   rules)
+                got["decode"].append(spmd.gather_full(logits).numpy())
+        out[case["name"]] = got
+        if not case["steps"]:
+            continue
+        opt = optimizers.adamw(model.parameters(), **case["opt"])
+        batch = {"tokens": tokens,
+                 "labels": torch.from_numpy(data["labels"]).long()}
+        opt.zero_grad(set_to_none=True)
+        tf.lm_loss(model, batch, c, mesh, rules).backward()
+        got["grads"] = {k: spmd.gather_full(p.grad).numpy()
+                        for k, p in model.named_parameters()}
+        got["local_norm"] = float(torch.sqrt(sum(
+            torch.sum(torch.square(p.grad.to_local()))
+            for p in model.parameters())))
+        step = tf.make_train_step(c, opt, mesh, rules)
+        got["losses"], got["gnorms"] = [], []
+        for _ in range(case["steps"]):
+            got["losses"].append(float(step(model, batch)["loss"]))
+            got["gnorms"].append(float(opt.last_gnorm))
+        got["params"] = {k: spmd.gather_full(p.detach()).numpy()
+                         for k, p in model.named_parameters()}
+    return out
+
+
+def _spec(entries):
+    from repro_torch.parallel.sharding import Spec
+    return Spec(*[tuple(e) if isinstance(e, list) else e for e in entries])
+
+
+def _global_leaf(a):
+    import numpy as np
+    import torch
+    return torch.from_numpy(np.array(a)).requires_grad_()
+
+
+def job_sharded_moe(rank, world, args):
+    """``moe_block`` under the mesh on DTensors placed by the reference
+    test's specs, per capacity factor: the output, the gradients of
+    ``sum(sin(out))`` with respect to x and each weight (whole), and the
+    (token, k) assignments to this rank's experts that were dropped."""
+    import dataclasses
+    import types
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.parallel import spmd
+    from repro_torch.parallel.sharding import ShardingRules
+    mesh = _mesh(args["mesh"], args["names"])
+    rules = ShardingRules(batch=("data",), fsdp=("data",))
+    data = np.load(args["inputs"])
+    c0 = tf.TransformerConfig(**args["config"], dtype=torch.float32)
+    dropped = []
+    real = tf.dispatch_slots
+
+    def counting(experts, n_local, expert_offset, capacity):
+        keep, slot = real(experts, n_local, expert_offset, capacity)
+        flat = experts.reshape(-1)
+        local = (flat >= expert_offset) & (flat < expert_offset + n_local)
+        dropped.append(int((local & ~keep).sum()))
+        return keep, slot
+    tf.dispatch_slots = counting
+    out = {}
+    for cf in args["factors"]:
+        c = dataclasses.replace(c0, capacity_factor=cf)
+        dropped.clear()
+        x = _global_leaf(data["x"])
+        leaves = {k: _global_leaf(data[k]) for k in args["specs"]}
+        layer = types.SimpleNamespace(**{
+            k: spmd.constrain(v, mesh, _spec(args["specs"][k]))
+            for k, v in leaves.items()})
+        xd = spmd.constrain(x, mesh, _spec(args["x_spec"]))
+        y = tf.moe_block(xd, layer, c, mesh, rules)
+        spec = spmd.spec_of(y)
+        axes = tuple(a for a in args["names"]
+                     if any(a in spec.axes(d) for d in range(len(spec))))
+        loss = spmd.psum(torch.sum(torch.sin(y.to_local())), mesh, axes)
+        loss.backward()
+        out[cf] = {"out": spmd.gather_full(y.detach()).numpy(),
+                   "loss": float(loss), "dropped": list(dropped),
+                   "grads": {"x": x.grad.numpy(),
+                             **{k: v.grad.numpy()
+                                for k, v in leaves.items()}}}
+    return out
+
+
+def _placed(arch, c, tree, args, mesh, rules):
+    """The port's ``arch`` model holding the JAX tree, its parameters
+    placed by its ``param_pspecs``."""
+    import importlib
+
+    from repro_torch import convert
+    from repro_torch.parallel import spmd
+    from repro_torch.parallel.sharding import MeshShape
+    model = convert.recsys_params_from_numpy(arch, tree, c, device="cpu")
+    specs = importlib.import_module(f"repro_torch.models.{arch}").param_pspecs(
+        c, MeshShape(tuple(args["names"]), tuple(args["mesh"])), rules)
+    return spmd.shard_module(model, mesh, specs)
+
+
+def job_sharded_models(rank, world, args):
+    """Each BERT4Rec case's sharded ``serve_step`` (scores and items,
+    whole, and the scores' placements) and DimeNet's ``forward_sharded``
+    with its loss's gradients and one AdamW step (whole), each model
+    from the JAX tree pickled at its ``params``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import bert4rec, dimenet
+    from repro_torch.optim import optimizers
+    from repro_torch.parallel import spmd
+    from repro_torch.parallel.sharding import ShardingRules
+    mesh = _mesh(args["mesh"], args["names"])
+    rules = ShardingRules(batch=("data",), fsdp=("data",))
+    data = np.load(args["inputs"])
+    out = {}
+    for a in args.get("bert4rec", ()):
+        c = bert4rec.Bert4RecConfig(**a["config"])
+        model = _placed("bert4rec", c, _load(a["params"]), args, mesh, rules)
+        vals, idx = bert4rec.serve_step(
+            model, {"ids": torch.from_numpy(data["ids"])}, c,
+            top_n=a["top_n"], vocab_chunk=a["vocab_chunk"], mesh=mesh,
+            rules=rules)
+        out[a["name"]] = (spmd.gather_full(vals).numpy(),
+                          spmd.gather_full(idx).numpy(),
+                          [str(p) for p in vals.placements])
+    if "dimenet" in args:
+        a = args["dimenet"]
+        c = dimenet.DimeNetConfig(**a["config"])
+        model = _placed("dimenet", c, _load(a["params"]), args, mesh, rules)
+        batch = {k[len("local_"):]: torch.from_numpy(data[k])
+                 for k in data.files if k.startswith("local_")}
+        with torch.no_grad():
+            pred = dimenet.forward_sharded(model, batch, c, mesh, rules)
+        loss = dimenet.loss_fn(model, batch, c, mesh, rules)
+        loss.backward()
+        # ``head`` is never read: no gradient
+        grads = {k: spmd.gather_full(p.grad).numpy()
+                 for k, p in model.named_parameters() if p.grad is not None}
+        opt = optimizers.adamw(model.parameters(), lr=a["lr"],
+                               warmup_steps=1)
+        step = dimenet.make_train_step(c, opt, mesh, rules)
+        step_loss = float(step(model, batch)["loss"])
+        out["dimenet"] = {
+            "pred": pred.to_local().numpy(), "loss": float(loss),
+            "grads": grads, "step_loss": step_loss,
+            "gnorm": float(opt.last_gnorm),
+            "params": {k: spmd.gather_full(p.detach()).numpy()
+                       for k, p in model.named_parameters()}}
+    return out
+
+
+def job_spmd(rank, world, args):
+    """``parallel.spmd`` on the (2, 4) mesh: axis indices, each collective
+    and its gradient on rank-dependent inputs, ``redistribute`` and
+    ``constrain`` blocks and gradients, ``shard_map``, ``gather_full``."""
+    import torch
+
+    from repro_torch.parallel import spmd
+    from repro_torch.parallel.sharding import Spec
+    mesh = _mesh(args["mesh"], args["names"])
+    out = {"index": {"data": spmd.axis_index(mesh, "data"),
+                     "model": spmd.axis_index(mesh, "model"),
+                     "both": spmd.axis_index(mesh, ("data", "model"))}}
+    x0 = torch.arange(24, dtype=torch.float64).reshape(4, 6) + 100 * rank
+    w = torch.arange(24, dtype=torch.float64).reshape(4, 6) * (rank + 1)
+
+    def run(name, fn, weight):
+        x = x0.clone().requires_grad_()
+        y = fn(x)
+        (y * weight(y)).sum().backward()
+        out[name] = (y.detach().numpy(), x.grad.numpy())
+
+    def same_shape(y):
+        return torch.ones_like(y) * (rank + 1)
+    run("psum", lambda x: spmd.psum(x, mesh, "model"), same_shape)
+    run("pvary", lambda x: spmd.pvary(x, mesh, ("data", "model")),
+        lambda y: w)
+    run("all_gather", lambda x: spmd.all_gather(x, mesh, "model", 1),
+        lambda y: torch.arange(y.numel(), dtype=y.dtype).reshape(y.shape)
+        * (rank + 1))
+    run("psum_scatter", lambda x: spmd.psum_scatter(x, mesh, "data", 0),
+        same_shape)
+    g = torch.arange(64, dtype=torch.float64).reshape(8, 8)
+    have, want = Spec("data", "model"), Spec("model", None)
+    blk = spmd.local_block(g, mesh, have).clone().requires_grad_()
+    moved = spmd.redistribute(blk, mesh, have, want)
+    (moved * (rank + 1)).sum().backward()
+    out["redistribute"] = (moved.detach().numpy(), blk.grad.numpy())
+    d = spmd.constrain(g, mesh, Spec(("data", "model"), None))
+    out["constrain"] = (d.to_local().numpy(), [str(p) for p in d.placements],
+                        spmd.constrain(g, None, Spec("data")) is g)
+    out["spec_of"] = tuple(spmd.spec_of(spmd.constrain(
+        g, mesh, Spec(None, ("data", "model")))))
+    out["gather_full"] = spmd.gather_full(d).numpy()
+    body = spmd.shard_map(
+        lambda a, b: (spmd.psum(a.sum(0, keepdim=True), mesh, "data"),
+                      a * b[None, :]),
+        mesh, (Spec("data", "model"), Spec("model")),
+        (Spec(None, "model"), Spec("data", "model")))
+    r, m = body(g, torch.arange(8, dtype=torch.float64))
+    out["shard_map"] = (spmd.gather_full(r).numpy(),
+                        spmd.gather_full(m).numpy())
+    return out
+
+
 JOBS = {"hierarchical": job_hierarchical, "distribute": job_distribute,
+        "sharded_models": job_sharded_models, "spmd": job_spmd,
+        "sharded_moe": job_sharded_moe,
+        "sharded_lm": job_sharded_lm,
         "elastic_save": job_elastic_save,
         "elastic_restore": job_elastic_restore}
 
