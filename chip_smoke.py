@@ -331,12 +331,12 @@ Phases, each fatal on failure (nothing is caught):
    bf16 rounding), ``save_pytree`` / ``restore_pytree(shardings=)`` of a
    small DTensor tree.  One card shows no multi-rank result: the CPU
    tests hold those in 8 gloo ranks;
-22. sharded execution (run last, within 150 s) -- 4 rank processes of
-   this script (``--shard-rank``) on ``cuda:0`` over gloo (NCCL refuses
-   two ranks on one device; every collective of a CUDA tensor staged
-   through host memory, ``parallel/spmd.py``), the (2, 2) ("data",
-   "model") mesh with batch and FSDP over "data", each model built from
-   its seed on every rank and placed by its ``param_pspecs``
+22. sharded execution (run before phase 23, within 150 s) -- 4 rank
+   processes of this script (``--shard-rank``) on ``cuda:0`` over gloo
+   (NCCL refuses two ranks on one device; every collective of a CUDA
+   tensor staged through host memory, ``parallel/spmd.py``), the (2, 2)
+   ("data", "model") mesh with batch and FSDP over "data", each model
+   built from its seed on every rank and placed by its ``param_pspecs``
    (``spmd.shard_module``), counts reset before each path and read
    after it on every rank: granite-3-2b at full width cut to 2 layers,
    B 4 x S 2,048 prefilled and 8 decode steps of fixed tokens (caches by
@@ -356,7 +356,31 @@ Phases, each fatal on failure (nothing is caught):
    ranks' B9 / 9b launches join the kernels line; each part's seconds
    a rank logged beside the card (4 processes share the card and the
    collectives go through the host: correctness, not speed);
-23. summary -- every kernel's launches, then one JSON line of kernel
+23. the recommender cells under the mesh (run after phase 22, within
+   150 s) -- the 16 cells of DLRM, DeepFM, two-tower and BERT4Rec at
+   their published widths through ``launch/dryrun.py``'s mesh route in 4
+   rank processes (``dryrun --mesh-rank``, started by
+   ``dryrun.run_ranks``) on ``cuda:0`` over gloo, phase 22's (2, 2)
+   ("data", "model") mesh with batch and FSDP over "data": each cell
+   built from its seed on every rank and placed by its own
+   ``in_shardings`` (DLRM's tables built one rank at a time), run once
+   and counted once more; each held by ``dryrun.held`` to a one-device
+   run of the same seed made first in this process (its outputs on the
+   host, the card freed before the ranks start): serving outputs
+   ``rtol=1e-5, atol=1e-6``, top-n ids identical or tied (0 mismatches),
+   a step's loss, its gradient norm and the parameters after it at the
+   training tests' bars and each clipped gradient within 1e-3 of the
+   one-device one in L2 norm (tables of more than 2^24 elements at the
+   rows the step touched and seeded others).  Every DLRM cell at the
+   2^22-row training cap, the bulk and training batches cut for time
+   (``MESH_ROWS``), each cut in the cell's line; the sum of the ranks' estimated peaks within 0.85 of
+   the card, the sum of their measured peaks within the card.  B3 on each
+   rank's candidate block in the two retrieval cells (each rank's first
+   call, ``dryrun.recorded_b3``), held here to its plain version on that
+   block; its launches join the kernels line.  Each cell's per-rank
+   seconds, peak and collective bytes by kind logged beside the card's
+   name and power limit;
+24. summary -- every kernel's launches, then one JSON line of kernel
    records, and last the ``{"ok": true, ...}`` line.
 
 It needs a CUDA card and the rest of the repository; anywhere else it
@@ -392,7 +416,8 @@ from repro_torch.configs import (bert4rec_cfg,  # noqa: E402
                                  dlrm_mlperf, gemma3_27b, granite_3_2b,
                                  qwen2_moe_a2_7b, recsys_shapes, tifu_knn,
                                  two_tower_retrieval)
-from repro_torch.configs.base import card_bytes  # noqa: E402
+from repro_torch.configs.base import (PEAK_SHARE, STATE_SHARE,  # noqa: E402
+                                      card_bytes)
 from repro_torch.core import knn, tifu, updates  # noqa: E402
 from repro_torch.core.tifu import closed_form_basket_weights  # noqa: E402
 from repro_torch.core.types import (KIND_ADD_BASKET,  # noqa: E402
@@ -5807,8 +5832,8 @@ def logit_gate(got, kern, plain, full, what) -> str:
 
 
 def sharded_execution_path(dev, card, smoke: bool = False) -> dict:
-    """Phase 22 (run last): the sharded execution in ``SHARD_MESH`` gloo
-    ranks on the one card against one-process single-device runs of the
+    """Phase 22 (before phase 23): the sharded execution in ``SHARD_MESH``
+    gloo ranks on the one card against one-process single-device runs of the
     same weights: granite-3-2b (prefill, fixed-token decode, step-1
     gradients by the gradient gate, AdamW steps), qwen2-moe-a2.7b's
     prefill with and without drops, BERT4Rec's sharded top-n against
@@ -5994,6 +6019,187 @@ def dimenet_held(sz, inp, res, dev) -> str:
             f", loss {res['dimenet_float32']['loss']:.6g} vs "
             f"{one[torch.float32]['loss']:.6g}")
 
+
+# ---------------------------------------------------------------------------
+# phase 23: the recommender cells under the mesh
+# ---------------------------------------------------------------------------
+
+# the 16 recommender cells through dryrun's mesh route, on phase 22's
+# (2, 2) mesh in 4 gloo ranks on cuda:0
+MESH_ARCHS = ("dlrm-mlperf", "deepfm", "two-tower-retrieval", "bert4rec")
+MESH_CELLS = [(a, s) for a in MESH_ARCHS for s in
+              ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")]
+MESH_RETRIEVERS = ("two-tower-retrieval", "bert4rec")
+MESH_SEED, MESH_PHASE_S, MESH_RANK_S = 23, 150.0, 240.0
+MESH_DIR = ROOT / "build" / "chip_smoke_mesh"
+# the rows a cell runs at where they are fewer than its published ones
+# (time: the 4 ranks' collectives all go through host memory)
+MESH_ROWS = {("dlrm-mlperf", "train_batch"): 8192,
+             ("dlrm-mlperf", "serve_bulk"): 16384,
+             ("dlrm-mlperf", "retrieval_cand"): 16384,
+             ("deepfm", "serve_bulk"): 65536,
+             ("deepfm", "retrieval_cand"): 65536,
+             ("two-tower-retrieval", "train_batch"): 8192,
+             ("two-tower-retrieval", "serve_bulk"): 65536,
+             ("bert4rec", "train_batch"): 4096,
+             ("bert4rec", "serve_bulk"): 8192}
+# a train cell's parameters of more than this many elements are held at
+# the first MESH_PROBE rows its step touched and MESH_PROBE seeded others
+MESH_PROBE_LIMIT, MESH_PROBE = 1 << 24, 256
+
+
+def mesh_cell_sizes(name, shape, smoke):
+    """(sizes, reduced) of phase 23's cell: the published widths; every
+    DLRM cell's vocabularies at the training cap; ``MESH_ROWS``."""
+    from repro_torch.configs.base import Sizes, gb
+    if smoke:
+        return smoke_sizes(name, shape), {}
+    pub = get_arch(name).cells[shape].published
+    c, reduced = pub.config, {}
+    if name == "dlrm-mlperf":
+        cap = dlrm_mlperf.TRAIN_VOCAB_CAP
+        cut = dataclasses.replace(c, vocab_sizes=tuple(
+            min(v, cap) for v in c.vocab_sizes))
+        reduced["vocab_sizes"] = (
+            f"{c.table.total_rows:,} → {cut.table.total_rows:,} rows "
+            f"(memory: each vocabulary capped at 2^22, the training cap, "
+            f"in every DLRM cell: the 4 ranks share the card and a sharded "
+            f"table still sums to its whole "
+            f"{gb(4 * cut.table.padded_rows() * cut.embed_dim)}, which "
+            f"training's gradient and AdamW's m and v triple)")
+        c = cut
+    rows = MESH_ROWS.get((name, shape), pub.batch)
+    if rows != pub.batch:
+        reduced["batch"] = (f"{pub.batch:,} → {rows:,} (time: phase 23's "
+                            f"{MESH_PHASE_S:.0f} s for 4 ranks on one card, "
+                            f"every collective staged through host memory)")
+    return Sizes(c, rows), reduced
+
+
+def mesh_bytes(name, shape, sz):
+    """(whole parameter bytes, replicated parameter bytes) of a cell's
+    model at ``sz`` on ``SHARD_MESH`` (shapes only)."""
+    cell = get_arch(name).cells[shape]
+    arch = cell.module.__name__.rsplit(".", 1)[1]
+    model = convert.RECSYS_MODELS[arch](sz.config, "meta")
+    specs = cell.module.param_pspecs(
+        sz.config, MeshShape(dryrun.MESH_AXES, SHARD_MESH),
+        dryrun.mesh_rules())
+    whole = repl = 0
+    for n, p in model.named_parameters():
+        b = p.numel() * p.element_size()
+        whole += b
+        if not any(specs[n].axes(d) for d in range(p.dim())):
+            repl += b
+    return whole, repl
+
+
+def mesh_estimate(name, shape, sz, world, turns):
+    """The sum of the ranks' estimated peaks: the cell's one-device
+    estimate (its parameters and state and the whole batch's
+    activations, which the ranks split), plus on each other rank the
+    replicated parameters (with their gradient and AdamW's m and v when
+    training), plus the whole model a building rank holds before it keeps
+    its blocks (one at a time in ``turns``, else every rank at once)."""
+    cell = get_arch(name).cells[shape]
+    whole, repl = mesh_bytes(name, shape, sz)
+    return (cell.peak(sz) + (world - 1) * repl * (4 if cell.train else 1)
+            + whole * (1 if turns else world))
+
+
+def b3_on_block(call, dev) -> dict:
+    """B3's output on a rank's candidate block (``dryrun.recorded_b3``'s
+    call, on the host) against its plain version on the same inputs on
+    ``dev``: values within ``RS_RTOL``/``RS_ATOL``, each id the plain
+    one's or tied with it."""
+    q, corpus, k, metric, out = call
+    q, corpus = q.to(dev), corpus.to(dev)
+    vals, idx = (t.to(dev) for t in out)
+    pv, pi = ref.knn_topk_ref(q, corpus, k, metric=metric)
+    torch.testing.assert_close(vals, pv, rtol=RS_RTOL, atol=RS_ATOL)
+    same = idx.long() == pi.long()
+    tie = (vals - pv).abs() <= RS_ATOL + RS_RTOL * pv.abs()
+    assert bool((same | tie).all()), "B3: ids neither the plain ones nor tied"
+    return {"max_abs_err": float((vals - pv).abs().max()),
+            "identical": int(same.sum()), "n": same.numel(),
+            "rows": corpus.shape[0], "dim": corpus.shape[1], "k": k}
+
+
+def mesh_cells_path(dev, card, smoke: bool = False) -> dict:
+    """Phase 23 (after phase 22): the 16 recommender cells through
+    dryrun's mesh route in ``SHARD_MESH`` gloo ranks on the one card,
+    each held to a one-device run of the same seed made first in this
+    process (its outputs on the host, the card freed before the ranks
+    start).  Returns the ranks' B3 launches in the two retrieval cells."""
+    t_start = time.perf_counter()
+    world = math.prod(SHARD_MESH)
+    budget = PEAK_SHARE * card_bytes(dev)
+    sizes, reduced, turns, est = {}, {}, [], {}
+    for name, shape in MESH_CELLS:
+        tag = f"{name} x {shape}"
+        sizes[tag], reduced[tag] = mesh_cell_sizes(name, shape, smoke)
+        whole, _ = mesh_bytes(name, shape, sizes[tag])
+        if world * whole > STATE_SHARE * card_bytes(dev):
+            turns.append(tag)
+        est[tag] = mesh_estimate(name, shape, sizes[tag], world,
+                                 tag in turns)
+        assert smoke or est[tag] <= budget, (tag, est[tag], budget)
+    one, probes = {}, {}
+    for name, shape in MESH_CELLS:
+        tag = f"{name} x {shape}"
+        one[tag], probes[tag] = dryrun.one_device(
+            name, shape, world, dev, MESH_SEED, sizes[tag],
+            probe=(MESH_PROBE_LIMIT, MESH_PROBE))
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_start
+
+    t0 = time.perf_counter()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    ranks = dryrun.run_ranks(
+        MESH_CELLS, SHARD_MESH, str(MESH_DIR), dev.type, smoke, MESH_SEED,
+        probes, MESH_RANK_S, sizes, turns=turns)
+    t_ranks = time.perf_counter() - t0
+    counts = {name: 0 for name in KERNELS}
+    for i, (name, shape) in enumerate(MESH_CELLS):
+        tag = f"{name} x {shape}"
+        per = [rank[i] for rank in ranks]
+        how = dryrun.held(one[tag], per[0]["kept"], tag)
+        line = (f"  {tag}: {per[0]['description']} at "
+                f"{sizes[tag].batch:,} rows; cuts {reduced[tag] or 'none'}; "
+                f"sum of the ranks' estimated peaks {est[tag] / 1e9:.1f} GB"
+                f"{' (built in turns)' if tag in turns else ''}; held to "
+                f"the one-device run: {how}")
+        if shape == "retrieval_cand" and name in MESH_RETRIEVERS:
+            b3 = [b3_on_block(r["b3_call"], dev) for r in per]
+            launches = [r["launches"].get("knn_topk", 0) for r in per]
+            assert all(b3), (tag, b3)
+            assert dev.type != "cuda" or all(launches), (tag, launches)
+            counts["knn_topk"] += sum(launches)
+            line += (f"; B3 on each rank's block of {b3[0]['rows']:,} x "
+                     f"{b3[0]['dim']} candidates, launches by rank "
+                     f"{launches}, against its plain version max |Δ| "
+                     f"{max(b['max_abs_err'] for b in b3):.2e}, "
+                     f"{sum(b['identical'] for b in b3)} of "
+                     f"{sum(b['n'] for b in b3)} ids identical, the rest "
+                     f"tied")
+        if dev.type == "cuda":
+            assert sum(r["peak_bytes"] for r in per) <= \
+                per[0]["device_bytes"], (tag, [r["peak_bytes"] for r in per])
+        log(line)
+        for row in dryrun.rank_rows(per, dev.type == "cuda").split("\n"):
+            log(f"  {row} [{card}]")
+    seconds = time.perf_counter() - t_start
+    log(f"  phase 23: one-device runs {t_ref:.1f} s, ranks {t_ranks:.1f} s, "
+        f"{seconds:.1f} s of {MESH_PHASE_S:.0f}; B3 launches over the "
+        f"ranks {counts['knn_topk']} [{card}]")
+    if not smoke:
+        assert seconds <= MESH_PHASE_S, seconds
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
@@ -6102,6 +6308,10 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.append(sharded_execution_path(dev, card))
     log(f"sharded execution: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths.append(mesh_cells_path(dev, card))
+    log(f"recommender cells under the mesh: {time.perf_counter() - t0:.1f} s")
     for name in KERNELS:
         # launches on the paths that drive the kernel (each path's counts
         # were set to 0 just before it and read just after)

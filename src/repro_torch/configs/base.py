@@ -7,12 +7,29 @@ the builder makes the cell's inputs as concrete tensors on ``device``
 (CUDA unless the caller names another) from ``seed``, and
 ``prog.fn(*prog.args)`` runs the cell once (``launch/dryrun.py``).
 There is no donation: the port's appliers and train steps update in
-place.  ``CellProgram.in_shardings`` records how the cell shards over
-the production mesh (``launch.mesh.make_production_mesh()`` and
-``make_rules``), as the JAX cell records it for lowering: the
+place.  ``CellProgram.in_shardings`` is the
 :class:`~repro_torch.parallel.sharding.Sharding` of the parameters, the
 optimizer state, the caches and the batch, computed from shapes only
-(:meth:`Cell.shardings`).  On one card nothing is distributed.
+(:meth:`Cell.shardings`): over the production mesh
+(``launch.mesh.make_production_mesh()`` and ``make_rules``) on one
+device, where nothing is distributed, and over the live mesh where the
+builder is given one.
+
+The mesh route: ``cell(device, seed, sizes, mesh=, rules=)`` with a
+named ``DeviceMesh`` (every rank of its process group calls it) builds
+the cell as on one device, from the same seed on every rank, then
+places it by its own ``in_shardings``: the parameters by
+``spmd.shard_module`` (each rank keeps its blocks; the optimizer is made
+after, so its state takes their placements, ``adamw_state_pspecs``),
+the batch by ``spmd.constrain`` (each leaf a DTensor of the rank's
+block), the caches likewise.  ``fn`` then calls the model's step with
+``mesh=``, ``rules=``, as every JAX cell of these families does.  The
+LM entry points take the global token ids every rank holds and cut
+their own blocks, so an LM batch stays whole.  A
+DimeNet cell's graph is built as ``dimenet_cfg.partitioned_batch``'s
+equal edge partitions, one a rank; ``partitions=`` builds the same graph
+globalized for one device (the mesh run's one-device twin).  Nothing
+changes without a mesh.
 
 The LM, recommender and GNN builders (:class:`LMCell`,
 :class:`RecsysCell`) keep the JAX cell's ``description`` at the
@@ -66,7 +83,9 @@ class CellProgram:
     for these sizes (``None`` where the cell has no estimate).
     ``in_shardings``: the :class:`Sharding` of each of the JAX cell's
     arguments (parameters, optimizer state, caches, batch) at these
-    sizes over the production mesh; ``None`` for a cell without one.
+    sizes over the production mesh, or over ``mesh`` (the live
+    ``DeviceMesh`` the cell was placed on by them); ``None`` for a cell
+    without one.
     """
     fn: Callable
     args: tuple
@@ -75,6 +94,7 @@ class CellProgram:
     model_flops_per_step: float = 0.0
     reduced: Dict[str, str] = dataclasses.field(default_factory=dict)
     estimate_bytes: Optional[float] = None
+    mesh: Any = None
 
 
 @dataclasses.dataclass
@@ -321,9 +341,12 @@ class Cell:
         """:func:`cut_rule`'s sizes, ``reduced`` and estimate."""
         raise NotImplementedError
 
-    def make(self, sz: Sizes, dev: torch.device,
-             seed: int) -> Tuple[Callable, tuple]:
-        """(fn, args) with the inputs built on ``dev`` from ``seed``."""
+    def make(self, sz: Sizes, dev: torch.device, seed: int, mesh: Any = None,
+             rules: Optional[ShardingRules] = None,
+             partitions: Optional[int] = None) -> Tuple[Callable, tuple]:
+        """(fn, args) with the inputs built on ``dev`` from ``seed``;
+        with ``mesh`` placed by the cell's shardings over it (module
+        docstring)."""
         raise NotImplementedError
 
     def shardings(self, sz: Optional[Sizes] = None,
@@ -347,19 +370,36 @@ class Cell:
         return getattr(c, "name", str(c))
 
     def __call__(self, device: Any = None, seed: int = 0,
-                 sizes: Optional[Sizes] = None) -> CellProgram:
+                 sizes: Optional[Sizes] = None, mesh: Any = None,
+                 rules: Optional[ShardingRules] = None,
+                 partitions: Optional[int] = None) -> CellProgram:
         dev = resolve_device(device)
         if sizes is None:
             sz, reduced, est = self.choose(card_bytes(dev))
         else:
             sz, est = sizes, self.peak(sizes)
             reduced = caller_cut(self.published, sizes, self.config_words)
-        fn, args = self.make(sz, dev, seed)
-        return CellProgram(fn=fn, args=args,
-                           in_shardings=self.shardings(sz),
+        fn, args = self.make(sz, dev, seed, mesh, rules, partitions)
+        shardings = self.shardings(sz) if mesh is None else \
+            self.shardings(sz, mesh_shape(mesh), rules)
+        return CellProgram(fn=fn, args=args, in_shardings=shardings,
                            description=self.description,
                            model_flops_per_step=self.flops(sz),
-                           reduced=reduced, estimate_bytes=est)
+                           reduced=reduced, estimate_bytes=est, mesh=mesh)
+
+
+def mesh_shape(mesh: Any) -> MeshShape:
+    """A ``DeviceMesh``'s axis names and sizes, what the rules read."""
+    return MeshShape(tuple(mesh.mesh_dim_names), tuple(mesh.shape))
+
+
+def place(tree: Any, shardings: Any, mesh: Any) -> Any:
+    """Each tensor of ``tree`` (the global value every rank holds) as the
+    DTensor of its :class:`Sharding`'s spec in ``shardings`` (a tree of
+    the same keys): the rank's block, no collective."""
+    from repro_torch.parallel import spmd
+    return tree_map(lambda _, x, s: spmd.constrain(x, mesh, s.spec), tree,
+                    shardings)
 
 
 # ---------------------------------------------------------------------------
@@ -623,12 +663,17 @@ class LMCell(Cell):
                                                   rules)),
                 bspec, Sharding(mesh, Spec()))
 
-    def make(self, sz: Sizes, dev: torch.device, seed: int):
+    def make(self, sz: Sizes, dev: torch.device, seed: int, mesh=None,
+             rules=None, partitions=None):
         from repro_torch.models import transformer as T
         from repro_torch.optim import optimizers
+        from repro_torch.parallel import spmd
         c, b, s = sz.config, sz.batch, self._seq(sz)
         gen = generator(dev, seed)
         model = T.init_params(c, gen, dev)
+        if mesh is not None:
+            spmd.shard_module(model, mesh, T.param_pspecs(
+                c, mesh_shape(mesh), rules))
         if self.kind == "train":
             opt = (optimizers.adamw(model.parameters(), total_steps=10000)
                    if self.optimizer == "adamw"
@@ -637,13 +682,14 @@ class LMCell(Cell):
                                  device=dev)
             batch = {"tokens": toks[:, :-1].contiguous(),
                      "labels": toks[:, 1:].contiguous()}
-            return T.make_train_step(c, opt), (model, batch)
+            return T.make_train_step(c, opt, mesh, rules), (model, batch)
         if self.kind == "prefill":
             tokens = torch.randint(0, c.vocab_size, (b, s), generator=gen,
                                    device=dev)
 
             def prefill(model, tokens):
-                return model.prefill(tokens, max_len=s)
+                return model.prefill(tokens, max_len=s, mesh=mesh,
+                                     rules=rules)
             return prefill, (model, tokens)
         caches = {}
         for group, shapes in T.cache_shapes(c, b, s).items():
@@ -655,9 +701,12 @@ class LMCell(Cell):
             caches[group] = pair
         token = torch.randint(0, c.vocab_size, (b, 1), generator=gen,
                               device=dev)
+        if mesh is not None:
+            caches = place(caches, named(mesh_shape(mesh), _cache_pspecs(
+                c, b, s, mesh_shape(mesh), rules)), mesh)
 
         def decode(model, caches, token, pos):
-            return model.decode_step(caches, token, pos)
+            return model.decode_step(caches, token, pos, mesh, rules)
         return decode, (model, caches, token, s - 1)
 
 
@@ -715,6 +764,16 @@ class CellBatch:
              ) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
 
+    # whether a sharded run splits the batch into equal partitions of its
+    # own, one a rank (DimeNet's edge partitions)
+    partitioned = False
+
+    def make_partitioned(self, c, n: int, gen: torch.Generator, seed: int,
+                         parts: int, local: bool) -> Dict[str, torch.Tensor]:
+        """The batch as ``parts`` equal partitions: ``local`` the sharded
+        run's form, else globalized for one device."""
+        raise NotImplementedError
+
     def shardings(self, c, n: int, mesh: MeshShape,
                   rules: ShardingRules) -> Dict[str, Sharding]:
         """The JAX batch builder's sharding of each leaf."""
@@ -733,15 +792,20 @@ class RecsysCell(Cell):
     total_steps=10000), **train_kwargs)``, else ``getattr(module,
     serve_fn)(model, batch, c)``.  ``peak_fn(c, n)`` estimates the
     cell's peak bytes, ``flops_fn(c, n)`` the JAX arch's count; ``named`` the
-    arch's fixed cuts (:data:`NamedCut`)."""
+    arch's fixed cuts (:data:`NamedCut`); ``serve_kwargs(c)`` the
+    serving call's keywords beyond these, where a config sets them.  On
+    the mesh route the step takes ``mesh=``, ``rules=`` (the JAX cell's
+    ``mesh_kw``: every recommender and GNN cell passes the mesh)."""
 
     def __init__(self, module: Any, make_config: Callable,
                  batch: CellBatch, kind: str, flops_fn=None,
                  train: bool = False, serve_fn: str = "serve_step",
                  train_kwargs: Optional[dict] = None, peak_fn=None,
-                 named: Sequence[Tuple[str, NamedCut]] = ()):
+                 named: Sequence[Tuple[str, NamedCut]] = (),
+                 serve_kwargs: Optional[Callable] = None):
         self.module, self.batch, self.train = module, batch, train
         self.serve_fn, self.train_kwargs = serve_fn, train_kwargs or {}
+        self.serve_kwargs = serve_kwargs
         self.flops_fn, self.peak_fn, self.named = flops_fn, peak_fn, named
         self.description = kind
         self.published = Sizes(make_config(), batch.n)
@@ -775,29 +839,49 @@ class RecsysCell(Cell):
                                 f"{self.batch.cut_note})")
         return sz, reduced, est
 
-    def make(self, sz: Sizes, dev: torch.device, seed: int):
+    def make(self, sz: Sizes, dev: torch.device, seed: int, mesh=None,
+             rules=None, partitions=None):
         from repro_torch.optim import optimizers
+        from repro_torch.parallel import spmd
         c, module = sz.config, self.module
         gen = generator(dev, seed)
         model = module.init_params(c, gen, dev)
-        batch = self.batch.make(c, sz.batch, gen, seed)
+        if mesh is not None and self.batch.partitioned:
+            partitions = mesh.size()
+        if partitions:
+            batch = self.batch.make_partitioned(c, sz.batch, gen, seed,
+                                                partitions, mesh is not None)
+        else:
+            batch = self.batch.make(c, sz.batch, gen, seed)
+        kw: Dict[str, Any] = {}
+        if mesh is not None:
+            shape = mesh_shape(mesh)
+            spmd.shard_module(model, mesh,
+                              module.param_pspecs(c, shape, rules))
+            batch = place(batch, self.batch.shardings(c, sz.batch, shape,
+                                                      rules), mesh)
+            kw = {"mesh": mesh, "rules": rules}
         if self.train:
             opt = optimizers.adamw(model.parameters(), total_steps=10000)
-            return (module.make_train_step(c, opt, **self.train_kwargs),
-                    (model, batch))
+            return (module.make_train_step(c, opt, **self.train_kwargs,
+                                           **kw), (model, batch))
         serve = getattr(module, self.serve_fn)
+        if self.serve_kwargs is not None:
+            kw.update(self.serve_kwargs(c))
 
         def fn(model, batch):
-            return serve(model, batch, c)
+            return serve(model, batch, c, **kw)
         return fn, (model, batch)
 
 
 def recsys_cell(module, make_config, batch_builder: CellBatch, kind: str,
                 flops_fn=None, train: bool = False, serve_fn="serve_step",
                 train_kwargs: Optional[dict] = None, peak_fn=None,
-                named=()) -> RecsysCell:
+                named=(), serve_kwargs=None) -> RecsysCell:
     """Generic builder for the recommender and GNN models (the JAX
-    ``recsys_cell`` without ``pass_mesh``)."""
+    ``recsys_cell``; the mesh route calls the step with ``mesh=``,
+    ``rules=``, as the JAX cells' ``pass_mesh=True`` does)."""
     return RecsysCell(module, make_config, batch_builder, kind, flops_fn,
-                      train, serve_fn, train_kwargs, peak_fn, named)
+                      train, serve_fn, train_kwargs, peak_fn, named,
+                      serve_kwargs)
 

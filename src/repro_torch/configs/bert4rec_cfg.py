@@ -4,6 +4,9 @@ seq=200; a 1M-item catalogue (vocab padded to 1,000,448).
 The port's copy of ``repro/configs/bert4rec_cfg.py``: ``make_config``,
 ``smoke_config`` and ``ARCH`` (the sampled-cloze train_batch, serve_p99,
 serve_bulk, and retrieval_cand through ``retrieval_step``: B3, dot).
+The serving cells scan the vocabulary in whole chunks
+(:func:`whole_chunks`), where the JAX cells take ``serve_step``'s
+default chunk.
 """
 from repro_torch.configs import recsys_shapes as rs
 from repro_torch.configs.base import ArchDef, recsys_cell
@@ -54,6 +57,18 @@ def peak_bytes(c, n: int, kind: str) -> float:
     return p + m * (_encoder_row(c) + 16 * VOCAB_CHUNK)
 
 
+def whole_chunks(c) -> dict:
+    """The serving cells' scan: the largest vocab chunk up to
+    ``VOCAB_CHUNK`` that divides the vocabulary (62,528 of the published
+    1,000,448 rows), so that every item is scored on one device as on the
+    mesh.  The default chunk leaves the rows past the last whole chunk
+    unscored on one device (17,408 at the published config), while the
+    sharded top-n scores every row."""
+    return {"vocab_chunk": max(d for d in range(1, min(VOCAB_CHUNK,
+                                                       c.vocab) + 1)
+                               if c.vocab % d == 0)}
+
+
 def _cell(batch, kind, what, **kw):
     return recsys_cell(bert4rec, make_config, batch, what,
                        peak_fn=lambda c, n: peak_bytes(c, n, kind), **kw)
@@ -68,10 +83,10 @@ ARCH = ArchDef(
             train_kwargs={"sampled": True}, flops_fn=_flops_train),
         "serve_p99": _cell(
             rs.bert4rec_cell_batch(rs.SERVE_P99, train=False), "serve",
-            "serve B=512"),
+            "serve B=512", serve_kwargs=whole_chunks),
         "serve_bulk": _cell(
             rs.bert4rec_cell_batch(rs.SERVE_BULK, train=False), "serve",
-            "serve B=262144"),
+            "serve B=262144", serve_kwargs=whole_chunks),
         "retrieval_cand": _cell(
             rs.bert4rec_retrieval_cell_batch(), "retrieval",
             "1 query vs 1M candidates", serve_fn="retrieval_step"),

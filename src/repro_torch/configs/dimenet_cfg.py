@@ -18,7 +18,9 @@ A cell's :class:`GraphBatch` runs its graph divided by a power of two
 (nodes, edges and triplets together; molecules stay whole): the cut
 rule takes the least that fits the card (``peak_bytes``).
 ``full_graph_sm``, ``minibatch_lg`` and ``molecule`` run uncut; the
-uncut ``ogb_products`` waits for the sharded path.
+uncut ``ogb_products`` needs more cards than one.  On the mesh route
+the graph is :func:`partitioned_batch`'s, one equal edge partition a
+rank.
 """
 import dataclasses
 from typing import Any, Dict, Tuple
@@ -144,20 +146,23 @@ def partitioned_batch(g: Dict[str, Any], n_partitions: int, seed: int = 0,
                       device: Any = None
                       ) -> Tuple[Dict[str, torch.Tensor],
                                  Dict[str, torch.Tensor]]:
-    """A seeded molecule batch of cell ``g`` cut into ``n_partitions``
-    equal edge partitions for ``dimenet.forward_sharded``: (the batch
-    with each partition's triplet indices LOCAL to it, the same batch
-    with them offset to global edge ids, for the single-device forward).
+    """A seeded batch of cell ``g`` cut into ``n_partitions`` equal edge
+    partitions for ``dimenet.forward_sharded``: (the batch with each
+    partition's triplet indices LOCAL to it, the same batch with them
+    offset to global edge ids, for the single-device forward).
 
-    The edges are ``molecule_batch``'s, the first of each partition a
-    ghost (node 0 → node 0 at the cutoff, radial gate 0); the triplets
-    are :func:`~repro_torch.data.graph_sampler.partition_triplets`' (at
-    most 8 per edge, within a partition), each partition's padded with
-    triplets of its ghost to ``n_tri / n_partitions`` (or its longest
-    list, whichever is more), so every partition holds as many edges and
-    triplets.  Angles from the positions on the global indices."""
+    Molecules: the edges are ``molecule_batch``'s, the first of each
+    partition a ghost (node 0 → node 0 at the cutoff, radial gate 0); the
+    triplets are :func:`~repro_torch.data.graph_sampler.
+    partition_triplets`' (at most 8 per edge, within a partition), each
+    partition's padded with triplets of its ghost to ``n_tri /
+    n_partitions`` (or its longest list, whichever is more), so every
+    partition holds as many edges and triplets.  Angles from the
+    positions on the global indices.  Other graphs: :func:`cell_batch`'s
+    kind of graph with each partition's first edge a ghost and its
+    triplets drawn by ``sample_triplets`` within it."""
     if not g["geometric"]:
-        raise ValueError("partitioned batches are made for molecules")
+        return _partitioned_graph(g, n_partitions, seed, device)
     dev = resolve_device(device)
     cutoff = dimenet.DimeNetConfig.cutoff
     rng = np.random.default_rng(seed)
@@ -192,6 +197,54 @@ def partitioned_batch(g: Dict[str, Any], n_partitions: int, seed: int = 0,
     whole.update(dist=dist, angle=angle)
     local = {**common, "dist": dist, "angle": angle,
              **{k_: torch.from_numpy(v).to(dev) for k_, v in local.items()}}
+    return local, whole
+
+
+def _partitioned_graph(g: Dict[str, Any], n_partitions: int, seed: int,
+                       device: Any) -> Tuple[Dict[str, torch.Tensor],
+                                             Dict[str, torch.Tensor]]:
+    """:func:`partitioned_batch` of a non-geometric graph: uniform random
+    edges, each partition's first edge a ghost, up to ``n_tri /
+    n_partitions`` triplets a partition by ``sample_triplets`` within it
+    (padded with its ghost's), distances, angles, node features and
+    classes as :func:`cell_batch` draws them.  Edge and triplet counts
+    that the partitions do not divide are padded up with ghosts."""
+    dev = resolve_device(device)
+    cutoff = dimenet.DimeNetConfig.cutoff
+    rng = np.random.default_rng(seed)
+    n = g["n_nodes"]
+    part = -(-g["n_edges"] // n_partitions)
+    per = -(-g["n_tri"] // n_partitions)
+    e = part * n_partitions
+    src = np.zeros(e, np.int32)
+    dst = np.zeros(e, np.int32)
+    src[:g["n_edges"]] = rng.integers(0, n, g["n_edges"])
+    dst[:g["n_edges"]] = rng.integers(0, n, g["n_edges"])
+    ghosts = np.arange(n_partitions) * part
+    src[ghosts] = dst[ghosts] = 0
+    kj = np.zeros((n_partitions, per), np.int32)
+    ji = np.zeros((n_partitions, per), np.int32)
+    for p in range(n_partitions):
+        lo = p * part
+        a, b = sample_triplets(src[lo:lo + part], dst[lo:lo + part],
+                               seed=seed + p, limit=per)
+        kj[p, :len(a)], ji[p, :len(b)] = a[:per], b[:per]
+    dist = rng.uniform(0.5, cutoff, e).astype(np.float32)
+    dist[ghosts] = cutoff
+    dist[g["n_edges"]:] = cutoff
+    host = {"edge_src": src, "edge_dst": dst, "dist": dist,
+            "angle": rng.uniform(0.0, np.pi, n_partitions * per).astype(
+                np.float32),
+            "node_feat": (rng.random((n, g["d_feat"])) < 0.02).astype(
+                np.float32),
+            "labels": rng.integers(0, g["n_targets"], n).astype(np.int64)}
+    common = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    offset = ghosts[:, None].astype(np.int32)
+    local = {**common, "tri_kj": torch.from_numpy(kj.reshape(-1)).to(dev),
+             "tri_ji": torch.from_numpy(ji.reshape(-1)).to(dev)}
+    whole = {**common,
+             "tri_kj": torch.from_numpy((kj + offset).reshape(-1)).to(dev),
+             "tri_ji": torch.from_numpy((ji + offset).reshape(-1)).to(dev)}
     return local, whole
 
 
@@ -238,7 +291,7 @@ class GraphBatch(CellBatch):
     2, 4, ... up to a graph of one edge), built by :func:`cell_batch`."""
 
     n = 1
-    cut_note = "the uncut graph waits for the sharded path"
+    cut_note = "the uncut graph needs the sharded path on more cards than one"
 
     def __init__(self, cell: str):
         self.cell = cell
@@ -274,6 +327,12 @@ class GraphBatch(CellBatch):
 
     def make(self, c, f: int, gen: torch.Generator, seed: int):
         return cell_batch(self.graph(c, f), seed, gen.device)
+
+    partitioned = True
+
+    def make_partitioned(self, c, f, gen, seed, parts, local):
+        pair = partitioned_batch(self.graph(c, f), parts, seed, gen.device)
+        return pair[0] if local else pair[1]
 
     def shardings(self, c, f, mesh, rules):
         """The edge and triplet leaves over ("data", "model"), the node
@@ -311,5 +370,5 @@ ARCH = ArchDef(
     make_smoke=smoke_config,
     notes="triplet-gather regime; segment sums by index_add; dist/angle "
           "are inputs for non-geometric graphs; ogb_products on a graph "
-          "divided by a power of two (the uncut graph waits for the "
-          "sharded path).")
+          "divided by a power of two (the uncut graph needs more cards "
+          "than one).")

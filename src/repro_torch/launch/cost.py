@@ -32,8 +32,13 @@ Eager PyTorch has no HLO: every aten operation is a kernel of its own
   the route runs, so a cell counts the same work on the kernel and the
   plain route.
 * Collective bytes, under the JAX model's keys: the result bytes of any
-  ``torch.distributed`` (c10d or functional) collective seen.  0 on the
-  one-card paths, whose shards are devices of one process.
+  ``torch.distributed`` (c10d or functional) collective this rank runs,
+  on whichever device its tensors lie (``parallel/spmd.py`` stages a
+  CUDA tensor's collective over gloo through a host copy; the copies
+  count as HBM bytes, the collective as collective bytes).  Per rank:
+  a run on a mesh counts its own rank's work.  0 on the one-card paths,
+  whose shards are devices of one process.
+* A DTensor operand counts as its local block (this rank's bytes).
 * The backward pass counts too (the mode follows autograd's worker
   threads), and so does the recompute under ``torch.utils.checkpoint``,
   as the remat recompute does in the JAX HLO.
@@ -172,7 +177,10 @@ def _schema_args(func, args, kwargs) -> Iterator[tuple]:
 
 
 def _tensors(x) -> list:
-    return [t for t in tree_flatten(x)[0] if isinstance(t, torch.Tensor)]
+    """The tensors in ``x``, a DTensor as its local block."""
+    from torch.distributed.tensor import DTensor
+    return [t._local_tensor if isinstance(t, DTensor) else t
+            for t in tree_flatten(x)[0] if isinstance(t, torch.Tensor)]
 
 
 def _broadcast_numel(shapes) -> int:
@@ -263,8 +271,8 @@ class CostCounter(TorchDispatchMode):
             kind = next((k for frag, k in _COLLECTIVE_NAMES if frag in name),
                         None)
             if kind is not None:
-                moved = self._bytes(_tensors(out)) or self._bytes(
-                    _tensors((args, kwargs)))
+                moved = sum(work.nbytes(t) for t in _tensors(out)) or sum(
+                    work.nbytes(t) for t in _tensors((args, kwargs)))
                 self.costs.coll[kind] += moved
                 self.costs.coll_counts[kind] = \
                     self.costs.coll_counts.get(kind, 0) + 1

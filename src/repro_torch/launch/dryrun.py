@@ -3,6 +3,8 @@ from a seed, run it once, and report what it took.
 
     python -m repro_torch.launch.dryrun --arch tifu-knn --shape serve_topk
     python -m repro_torch.launch.dryrun --all [--out results.json]
+    python -m repro_torch.launch.dryrun --mesh 2,4 --smoke --device cpu \
+        --arch dlrm-mlperf
 
 The port's counterpart of the JAX package's ``launch/dryrun.py``.  PyTorch
 has no lower-and-compile step, so a cell is measured by running it:
@@ -28,21 +30,51 @@ H100's peaks: compute, memory and collective seconds, the bottleneck,
 FLOPs by dtype), ``chips`` (1), ``model_flops_per_device`` and
 ``useful_flops_ratio`` (model FLOPs over counted FLOPs).  On the CPU the
 counts are the same; the terms are the card's, not the CPU's.
+
+The mesh route (``--mesh D,M``; the JAX dry run's ``in_shardings`` on a
+mesh): the cells of the LM, recommender and GNN families run in ``D·M``
+rank processes on the ("data", "model") mesh with the batch and FSDP
+over "data" (:func:`no_mesh_route` names the cells without one).  The
+parent first runs each cell on one device from the same seed and keeps
+its outputs on the host (:func:`outputs`), then starts the ranks (over
+gloo on the CPU or where the ranks share one card, over NCCL where each
+rank has a card), each of which calls
+:func:`run_cell_sharded` per cell: the cell built with ``mesh=`` and
+placed by its ``in_shardings``, run once (each kernel wrapper's
+launches counted), its outputs gathered (a train step's loss, gradient
+norm, clipped gradients and parameters after it), then counted once
+more under the ``CostCounter`` (the rank's FLOPs, HBM bytes and
+``torch.distributed`` collective bytes by kind).  The parent prints
+one row a rank (seconds, peak, collective bytes by kind; ``fits``: the
+rank's peak within its card, or the sum of the ranks' peaks within the
+card they share) and holds each cell's gathered outputs to the
+one-device run's (:func:`held`).  ``--smoke`` runs every cell at
+``configs.smoke_sizes``.  A failed rank fails the run; a rank never
+moves to the CPU (ranks run on CUDA unless ``--device cpu``).
+tifu-knn's cells have their own sharded deployment
+(``UserShardSpec``, ``knn.distributed_predict``), not this route.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
+import os
+import pickle
+import subprocess
+import sys
 import time
 import traceback
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.configs import all_cells, get_arch
+from repro_torch.configs import all_cells, get_arch, smoke_sizes
 from repro_torch.configs.base import CellProgram
 from repro_torch.core.types import resolve_device
+from repro_torch.kernels import build
 from repro_torch.launch import roofline
 from repro_torch.launch.cost import CostCounter, Costs
 
@@ -112,13 +144,16 @@ def count_program(prog: CellProgram, device: Any = None) -> Costs:
     return counter.costs
 
 
-def roofline_fields(costs: Costs, model_flops: float) -> Dict[str, Any]:
-    """The JAX dry run's roofline fields of a counted run
-    (``useful_flops_ratio`` ``None`` where nothing was counted)."""
-    terms = roofline.analyze(costs, chips=1)
-    return {"roofline": terms.as_dict(), "chips": 1,
-            "model_flops_per_device": model_flops,
-            "useful_flops_ratio": model_flops / terms.flops
+def roofline_fields(costs: Costs, model_flops: float,
+                    chips: int = 1) -> Dict[str, Any]:
+    """The JAX dry run's roofline fields of a counted run (one rank's of
+    ``chips``: the model FLOPs a device is its share of the step's;
+    ``useful_flops_ratio`` ``None`` where nothing was counted)."""
+    terms = roofline.analyze(costs, chips=chips)
+    per_device = model_flops / chips
+    return {"roofline": terms.as_dict(), "chips": chips,
+            "model_flops_per_device": per_device,
+            "useful_flops_ratio": per_device / terms.flops
             if terms.flops else None}
 
 
@@ -146,12 +181,544 @@ def run_cell(arch_name: str, shape: str, device: Any = None, seed: int = 0,
             **result, **roofline_fields(costs, result["model_flops"])}
 
 
+# ---------------------------------------------------------------------------
+# The mesh route
+# ---------------------------------------------------------------------------
+
+MESH_AXES = ("data", "model")
+# families with a mesh route (tifu-knn shards by users instead)
+MESH_FAMILIES = ("lm", "recsys", "gnn")
+# a rank's process group: its setup and each collective's timeout (s)
+GROUP_TIMEOUT_S = 90.0
+
+
+def no_mesh_route(arch_name: str, shape: str, model_axis: int = 1,
+                  sizes: Any = None) -> Optional[str]:
+    """Why cell (``arch_name``, ``shape``) at ``sizes`` (the published
+    ones by default) has no mesh route on a mesh whose "model" axis has
+    ``model_axis`` ranks, or ``None`` where it has one."""
+    arch = get_arch(arch_name)
+    cell = arch.cells[shape]
+    if arch.family not in MESH_FAMILIES:
+        return (f"the {arch.family} family shards by users "
+                f"(UserShardSpec), not by the cells' in_shardings")
+    if getattr(cell, "optimizer", "adamw") != "adamw":
+        return "Adafactor over DTensor parameters is not ported"
+    c = (cell.published if sizes is None else sizes).config
+    if arch.family == "lm" and c.n_heads % model_axis:
+        return (f"its {c.n_heads} heads do not divide the model axis "
+                f"({model_axis}): the sharded LM splits attention by head")
+    return None
+
+
+def mesh_sizes(arch_name: str, shape: str, smoke: bool,
+               device: Any = None) -> Any:
+    """The sizes a cell runs at on the mesh route and in its one-device
+    twin: ``configs.smoke_sizes`` with ``smoke``, else the cut rule's
+    (``None``).  A MoE model runs at the capacity factor that drops no
+    assignment: under a mesh the capacity comes from each data shard's
+    tokens, so only such a factor gives the one-device answer."""
+    import dataclasses
+
+    from repro_torch.configs.base import card_bytes
+    arch = get_arch(arch_name)
+    cell = arch.cells[shape]
+    sizes = smoke_sizes(arch_name, shape) if smoke else None
+    if arch.family != "lm" or not getattr(
+            (cell.published if sizes is None else sizes).config, "moe",
+            False):
+        return sizes
+    if sizes is None:
+        sizes = cell.choose(card_bytes(resolve_device(device)))[0]
+    c = sizes.config
+    return dataclasses.replace(sizes, config=dataclasses.replace(
+        c, capacity_factor=c.e_pad / c.top_k))
+
+
+def mesh_rules() -> Any:
+    """The mesh route's rules: the batch and FSDP over "data", the
+    tensor, expert and context axes "model"."""
+    from repro_torch.parallel.sharding import ShardingRules
+    return ShardingRules(batch=("data",), fsdp=("data",))
+
+
+def _host(x: Any) -> torch.Tensor:
+    """A DTensor's global value (gathered) or a tensor, on the host."""
+    from repro_torch.parallel import spmd
+    return spmd.gather_full(x.detach()).cpu()
+
+
+def outputs(prog: CellProgram, out: Any,
+            probes: Optional[Dict[str, np.ndarray]] = None) -> Any:
+    """What a cell's run is compared by, on the host, whole (DTensors
+    gathered): a train step's ``{"loss", "gnorm", "grads", "params"}``
+    (the gradient's global norm before the clip, each gradient as the
+    step applied it, clipped, and the parameters after the step; those
+    named in ``probes`` as their rows at its global row ids only), an LM
+    prefill's or decode's logits, else the output (a tensor or a tuple
+    of them).  On a mesh every rank must call it (the gathers are
+    collectives)."""
+    if isinstance(out, dict) and "loss" in out:
+        def whole(name, t):
+            if probes and name in probes:
+                return _probed(t, probes[name], prog.mesh)
+            return _host(t)
+        named = list(prog.args[0].named_parameters())
+        return {"loss": float(out["loss"]),
+                "gnorm": float(prog.fn.optimizer.last_gnorm),
+                "grads": {name: whole(name, p.grad) for name, p in named
+                          if p.grad is not None},
+                "params": {name: whole(name, p) for name, p in named}}
+    if isinstance(out, tuple) and len(out) == 2 and isinstance(out[1], dict):
+        out = out[0]                          # (logits, caches)
+    if isinstance(out, (tuple, list)):
+        return tuple(_host(x) for x in out)
+    return _host(out)
+
+
+def _probed(p: Any, ids: np.ndarray, mesh: Any) -> torch.Tensor:
+    """Rows ``ids`` of parameter ``p`` (a DTensor's through the sharded
+    lookup: every rank gets them)."""
+    from repro_torch.models.embedding import gather_rows, row_block
+    rows = torch.as_tensor(ids, dtype=torch.int64, device=p.device)
+    with torch.no_grad():
+        if mesh is None:
+            return p.detach()[rows].cpu()
+        w, axes, off = row_block(p.detach(), mesh)
+        if w.dim() == 1:
+            return gather_rows(w[:, None], axes, off, rows, mesh,
+                               ())[:, 0].cpu()
+        return gather_rows(w, axes, off, rows, mesh, ()).cpu()
+
+
+def probe_ids(prog: CellProgram, limit: int,
+              k: int) -> Dict[str, np.ndarray]:
+    """For a one-device train cell after its step: the global row ids a
+    mesh run reports of each parameter of more than ``limit`` elements
+    (:func:`outputs`' ``probes``): its first ``k`` rows the step's
+    gradient touched and ``k`` seeded others, sorted."""
+    rng = np.random.default_rng(0)
+    out = {}
+    for name, p in prog.args[0].named_parameters():
+        if p.numel() <= limit or p.grad is None:
+            continue
+        g = p.grad.reshape(p.shape[0], -1)
+        touched = torch.nonzero((g != 0).any(1)).flatten()[:k].cpu().numpy()
+        out[name] = np.unique(np.concatenate(
+            [touched, rng.integers(0, p.shape[0], k)]))
+    return out
+
+
+def is_decode(arch_name: str, shape: str) -> bool:
+    """Whether the cell is an LM decode step."""
+    return getattr(get_arch(arch_name).cells[shape], "kind", "") == "decode"
+
+
+# a train step's bars: its gradient norm (the training tests'), each
+# gradient's error in L2 norm relative to its own, the parameters after
+# the step (the training tests')
+GNORM_TOL = dict(rtol=1e-4, atol=1e-6)
+GRAD_NORM_RTOL = 1e-3
+PARAM_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def grad_error(q: torch.Tensor, p: torch.Tensor) -> float:
+    """``‖q − p‖ / ‖p‖`` in float64 (0 where both are 0)."""
+    d = float(torch.linalg.vector_norm(q.double() - p.double()))
+    n = float(torch.linalg.vector_norm(p.double()))
+    if n == 0:
+        return 0.0 if d == 0 else float("inf")
+    return d / n
+
+
+def held(one: Any, got: Any, what: str, decode: bool = False) -> str:
+    """Hold a mesh run's outputs to the one-device run's (both from
+    :func:`outputs`).
+
+    A train step: its loss ``rtol=1e-5, atol=1e-6``; its gradient norm
+    ``rtol=1e-4, atol=1e-6``; each clipped gradient within
+    ``GRAD_NORM_RTOL`` of the one-device one in L2 norm; its parameters
+    ``rtol=1e-5, atol=1e-5``.  At the first step's learning rate, 3e-6,
+    the parameters move by less than their bar, so the gradients are what
+    shows a wrong step (doubled, or from half the batch: an error of the
+    gradient's own size).  The gradients are held in norm, not element by
+    element: a ReLU whose input lies within rounding of 0 takes the other
+    side when the sharded sums round differently, and moves single
+    elements of the layer's gradient by a whole sample's share (on the
+    card, two-tower's user tower at 8,192 rows: 109 of user_mlp.w.0's
+    524,288 elements past ``rtol=1e-4, atol=1e-6``, by up to 3.1e-6, the
+    leaf within 1.8e-4 in norm).
+
+    A top-n's (scores f32, ids int) scores ``rtol=1e-5, atol=1e-6`` and
+    each id identical or scoring the same within that (0 mismatches);
+    any other output ``rtol=1e-5, atol=1e-6``, an LM decode step's logits
+    (``decode``) ``rtol=1e-4, atol=1e-4``: they read bf16 caches, whose
+    roundings move the sharded sums by ~1e-5 in f32 models (the sharded
+    LM tests' bar).  Raises ``AssertionError``; returns the worst
+    differences."""
+    tol = dict(rtol=1e-4, atol=1e-4) if decode else dict(rtol=1e-5,
+                                                          atol=1e-6)
+    if isinstance(one, dict):
+        torch.testing.assert_close(torch.tensor(got["loss"]),
+                                   torch.tensor(one["loss"]), **tol,
+                                   msg=lambda m: f"{what}: loss: {m}")
+        torch.testing.assert_close(
+            torch.tensor(got["gnorm"]), torch.tensor(one["gnorm"]),
+            **GNORM_TOL, msg=lambda m: f"{what}: gradient norm: {m}")
+        assert set(got["grads"]) == set(one["grads"]), \
+            (what, sorted(set(got["grads"]) ^ set(one["grads"])))
+        errs = {name: grad_error(got["grads"][name], p)
+                for name, p in one["grads"].items()}
+        bad = {k: e for k, e in errs.items() if not e <= GRAD_NORM_RTOL}
+        assert not bad, f"{what}: gradients off in norm: {bad}"
+        worst = 0.0
+        for name, p in one["params"].items():
+            q = got["params"][name]
+            torch.testing.assert_close(
+                q, p, **PARAM_TOL, msg=lambda m: f"{what}: {name}: {m}")
+            worst = max(worst, float((q.double() - p.double()).abs().max()))
+        return (f"loss {got['loss']:.7g} vs {one['loss']:.7g}, gradient "
+                f"norm {got['gnorm']:.7g} vs {one['gnorm']:.7g}, "
+                f"{len(errs)} gradients within "
+                f"{max(errs.values(), default=0.0):.2e} in norm, "
+                f"{len(one['params'])} parameters after the step within "
+                f"{worst:.2e}")
+    one = one if isinstance(one, tuple) else (one,)
+    got = got if isinstance(got, tuple) else (got,)
+    if len(one) == 2 and one[1].dtype in (torch.int32, torch.int64):
+        (v1, i1), (v2, i2) = one, got
+        torch.testing.assert_close(v2, v1, **tol,
+                                   msg=lambda m: f"{what}: scores: {m}")
+        same = i2.long() == i1.long()
+        tie = (v2.double() - v1.double()).abs() <= tol["atol"] \
+            + tol["rtol"] * v1.double().abs()
+        bad = int((~same & ~tie).sum())
+        assert bad == 0, f"{what}: {bad} ids neither equal nor tied"
+        return (f"top-{v1.shape[-1]}: {int(same.sum())} of {same.numel()} "
+                f"ids identical, the rest tied, 0 mismatches; scores "
+                f"within {float((v2 - v1).abs().max()):.2e}")
+    worst = 0.0
+    for a, b in zip(got, one):
+        torch.testing.assert_close(a, b, **tol, msg=lambda m: f"{what}: {m}")
+        worst = max(worst, float((a.double() - b.double()).abs().max()))
+    return f"output within {worst:.2e}"
+
+
+def one_device(arch_name: str, shape: str, world: int, device: Any = None,
+               seed: int = 0, sizes: Any = None,
+               probe: Optional[Tuple[int, int]] = None) -> Tuple[Any, dict]:
+    """The one-device twin of a cell's mesh run on ``world`` ranks, by
+    :func:`outputs`: the cell from the same seed (a DimeNet graph in the
+    ``world`` equal partitions the ranks take, globalized), run once.
+    Returns (the outputs, the probe rows): with ``probe`` (``limit``,
+    ``k``) a train cell's parameters and gradients of more than
+    ``limit`` elements are reported at :func:`probe_ids`' rows only."""
+    dev = resolve_device(device)
+    cell = get_arch(arch_name).cells[shape]
+    parts = world if get_arch(arch_name).family == "gnn" else None
+    prog = cell(dev, seed, sizes, partitions=parts)
+    out = prog.fn(*prog.args)
+    probes = probe_ids(prog, *probe) if probe and isinstance(out, dict) \
+        else {}
+    return outputs(prog, out, probes), probes
+
+
+def run_cell_sharded(arch_name: str, shape: str, mesh: Any, rules: Any,
+                     device: Any = None, seed: int = 0, sizes: Any = None,
+                     keep: Optional[Callable] = None,
+                     turns: bool = False) -> Dict[str, Any]:
+    """Cell (``arch_name``, ``shape``) on this rank of the process group
+    that is up, over the named ``DeviceMesh`` ``mesh``: built with
+    ``mesh=``, ``rules=`` (placed by its ``in_shardings``), run once
+    and once more under the ``CostCounter``.  Returns
+    this rank's readings: ``build_s``, ``run_s``, ``peak_bytes`` (the
+    peak from the placed inputs on, inputs included; the build's whole
+    copies freed before), ``launches`` (each kernel wrapper's launches
+    in the first run: ``build.launch_counts`` set to 0 just before it
+    and read just after), the local ``output``, ``kept`` (``keep(prog,
+    out)`` after the first run, before the counted one: what a train
+    step left), ``costs`` and the roofline fields per rank.
+    ``turns``: the ranks build one at a time
+    (each builds the whole model before it keeps its blocks, so ranks
+    that share a card hold one whole copy at a time)."""
+    import torch.distributed as dist
+    why = no_mesh_route(arch_name, shape,
+                        dict(zip(mesh.mesh_dim_names, mesh.shape))["model"],
+                        sizes)
+    if why:
+        raise ValueError(f"{arch_name} x {shape} has no mesh route: {why}")
+    dev = resolve_device(device)
+    world = dist.get_world_size()
+    t0 = time.perf_counter()
+    for turn in range(world if turns else 1):
+        if not turns or turn == dist.get_rank():
+            prog = get_arch(arch_name).cells[shape](dev, seed, sizes,
+                                                    mesh=mesh, rules=rules)
+            _sync(dev)
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        if turns:
+            dist.barrier()
+    build_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    build.reset_launch_counts()
+    result, out = run_program(prog, dev)
+    result.update(launches=dict(build.launch_counts))
+    result.update(arch=arch_name, shape=shape, build_s=build_s,
+                  rank=dist.get_rank(), world=world,
+                  mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                  output=out,
+                  kept=None if keep is None else keep(prog, out))
+    costs = count_program(prog, dev)
+    result.update(costs=costs, coll=dict(costs.coll),
+                  **roofline_fields(costs, result["model_flops"], world))
+    return result
+
+
+def _rank_main(rank: int, world: int, store: str, outdir: str,
+               spec: Dict[str, Any]) -> None:
+    """One rank of ``--mesh``: its process group, the mesh, each cell by
+    :func:`run_cell_sharded`; pickles its readings to ``outdir`` (rank 0
+    with each cell's gathered outputs; every rank with ``b3_call``, the
+    first run's first ``ops.knn_topk`` call on the host, where the cell
+    makes one: :func:`recorded_b3`)."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dev = torch.device(spec["device"])
+    nccl = dev.type == "cuda" and torch.cuda.device_count() >= world
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank if nccl else 0)
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "nccl" if nccl else "gloo", store=dist.FileStore(store, world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    mesh = init_device_mesh(dev.type, tuple(spec["mesh"]),
+                            mesh_dim_names=MESH_AXES)
+    given = None
+    if spec["sizes"]:
+        with open(spec["sizes"], "rb") as f:
+            given = pickle.load(f)
+    rows = []
+    try:
+        for name, shape in spec["cells"]:
+            tag = f"{name} x {shape}"
+            sizes = (mesh_sizes(name, shape, spec["smoke"], dev)
+                     if given is None else given[tag])
+            probes = spec["probes"].get(tag)
+            calls: list = []
+            with recorded_b3(calls):
+                r = run_cell_sharded(
+                    name, shape, mesh, mesh_rules(), dev, spec["seed"],
+                    sizes, keep=lambda prog, out: outputs(prog, out, probes),
+                    turns=tag in spec["turns"])
+            r["b3_call"] = calls[0] if calls else None
+            r.pop("output")
+            r.pop("costs")
+            if rank:
+                r.pop("kept")
+            rows.append(r)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    tmp = os.path.join(outdir, f"rank{rank}.pkl.tmp")
+    with open(tmp, "wb") as f:
+        pickle.dump(rows, f)
+    os.replace(tmp, os.path.join(outdir, f"rank{rank}.pkl"))
+
+
+@contextlib.contextmanager
+def recorded_b3(calls: list):
+    """``ops.knn_topk`` (B3) with its first call kept in ``calls`` on the
+    host: (queries, corpus, k, metric, (scores, ids)), what a caller
+    holds against the plain version on the same block."""
+    from repro_torch.kernels import ops
+    real = ops.knn_topk
+
+    def rec(queries, corpus, k, *args, **kw):
+        out = real(queries, corpus, k, *args, **kw)
+        if not calls:
+            calls.append((queries.detach().cpu(), corpus.detach().cpu(), k,
+                          kw.get("metric", "euclidean"),
+                          tuple(t.cpu() for t in out)))
+        return out
+    ops.knn_topk = rec
+    try:
+        yield calls
+    finally:
+        ops.knn_topk = real
+
+
+def run_ranks(cells: List[Tuple[str, str]], mesh: Tuple[int, int],
+              outdir: str, device: str = "cuda", smoke: bool = False,
+              seed: int = 0, probes: Optional[dict] = None,
+              timeout: float = 1200.0, sizes: Optional[dict] = None,
+              turns: Optional[List[str]] = None
+              ) -> List[List[Dict[str, Any]]]:
+    """Start the ``D·M`` rank processes of ``--mesh`` on ``cells`` (a
+    ``FileStore`` and each rank's log under ``outdir``) and wait; returns
+    each rank's readings by rank.  Raises with the failing ranks' log
+    tails where any rank fails or the run outlasts ``timeout``.
+    ``sizes``: each cell's sizes by ``"arch x shape"`` (default
+    :func:`mesh_sizes`'); ``probes`` likewise, :func:`probe_ids`' rows;
+    ``turns``: the cells built in turns.  Each rank is ``dryrun
+    --mesh-rank`` with five arguments (rank, world, store, ``outdir``,
+    the spec as JSON)."""
+    world = int(np.prod(mesh))
+    os.makedirs(outdir, exist_ok=True)
+    store = os.path.join(outdir, "store")
+    if os.path.exists(store):
+        os.remove(store)
+    path = None
+    if sizes is not None:
+        path = os.path.join(outdir, "sizes.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(sizes, f)
+    spec = json.dumps({"cells": cells, "mesh": list(mesh), "device": device,
+                       "smoke": smoke, "seed": seed, "sizes": path,
+                       "turns": list(turns or []),
+                       "probes": {k: {n: [int(i) for i in ids]
+                                      for n, ids in v.items()}
+                                  for k, v in (probes or {}).items()}})
+    command = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--mesh-rank"]
+    src = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = src + (os.pathsep + env["PYTHONPATH"]
+                               if env.get("PYTHONPATH") else "")
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            logs.append(open(os.path.join(outdir, f"rank{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                command + [str(r), str(world), store, outdir, spec],
+                env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"the {world} ranks did not finish in "
+                             f"{timeout:.0f} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        tails = []
+        for r in bad[:2]:
+            with open(os.path.join(outdir, f"rank{r}.log")) as f:
+                tails.append(f"rank {r}:\n{f.read()[-3000:]}")
+        raise AssertionError(f"ranks {bad} failed\n" + "\n".join(tails))
+    out = []
+    for r in range(world):
+        with open(os.path.join(outdir, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _bytes_str(coll: Dict[str, float]) -> str:
+    return ", ".join(f"{k} {v:,.0f} B" for k, v in
+                     sorted(coll.items())) or "none"
+
+
+def rank_rows(per_rank: List[Dict[str, Any]], shared_card: bool) -> str:
+    """One cell's line a rank: seconds, peak, collective bytes by kind;
+    and ``fits`` (each rank's peak within its card, or with
+    ``shared_card`` the sum of the ranks' peaks within the one card)."""
+    peaks = [r["peak_bytes"] for r in per_rank]
+    total = per_rank[0]["device_bytes"]
+    if peaks[0] is None:
+        fits = None
+    elif shared_card:
+        fits = sum(peaks) <= total
+    else:
+        fits = all(p <= total for p in peaks)
+    lines = [f"    rank {r['rank']}: run {r['run_s']:.4f} s, peak "
+             f"{_gib(r['peak_bytes'])}, collectives "
+             f"{_bytes_str(r.get('coll', {}))}" for r in per_rank]
+    lines.append(f"    fits {fits}" + (" (the ranks' peaks summed on one "
+                                       "card)" if shared_card else ""))
+    return "\n".join(lines)
+
+
+def _mesh_main(args, cells: List[Tuple[str, str]]) -> int:
+    """``--mesh``: the one-device runs, then the ranks, then each cell's
+    rows and its outputs held to the one-device run's."""
+    import tempfile
+    mesh = tuple(int(x) for x in args.mesh.split(","))
+    if len(mesh) != 2:
+        raise SystemExit("--mesh takes D,M: the (\"data\", \"model\") sizes")
+    def why(n, s):
+        return no_mesh_route(n, s, mesh[1],
+                             mesh_sizes(n, s, args.smoke, args.device))
+    for n, s in cells:
+        if why(n, s):
+            print(f"[SKIP] {n} x {s}: {why(n, s)}", flush=True)
+    cells = [(n, s) for n, s in cells if not why(n, s)]
+    dev = resolve_device(args.device)
+    world = int(np.prod(mesh))
+    one = {}
+    for name, shape in cells:
+        one[(name, shape)] = one_device(
+            name, shape, world, dev, 0,
+            mesh_sizes(name, shape, args.smoke, dev))[0]
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    shared = dev.type == "cuda" and torch.cuda.device_count() < world
+    with tempfile.TemporaryDirectory() as d:
+        ranks = run_ranks(cells, mesh, d, dev.type, args.smoke)
+    n_ok = 0
+    results = []
+    for i, (name, shape) in enumerate(cells):
+        per = [rank[i] for rank in ranks]
+        tag = f"{name} x {shape}"
+        try:
+            how = held(one[(name, shape)], per[0]["kept"], tag,
+                       decode=is_decode(name, shape))
+            n_ok += 1
+            print(f"[OK] {tag} on the {mesh} mesh: {per[0]['description']};"
+                  f" against the one-device run: {how}", flush=True)
+        except AssertionError as e:
+            print(f"[FAIL] {tag}: {e}", flush=True)
+        print(rank_rows(per, shared), flush=True)
+        results.append({"arch": name, "shape": shape, "ranks": [
+            {k: v for k, v in r.items() if k not in ("kept", "b3_call")}
+            for r in per]})
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1, default=str)
+    print(f"{n_ok}/{len(cells)} cells passed on the {mesh} mesh")
+    return 0 if n_ok == len(cells) else 1
+
+
 def main(argv: Optional[list] = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--mesh-rank"]:
+        rank, world, store, outdir, spec = argv[1:6]
+        _rank_main(int(rank), int(world), store, outdir, json.loads(spec))
+        return 0
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", type=str, default=None)
     ap.add_argument("--shape", type=str, default=None)
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", type=str, default=None)
+    ap.add_argument("--mesh", type=str, default=None,
+                    help="D,M: run on the (data, model) mesh in D·M ranks")
+    ap.add_argument("--smoke", action="store_true",
+                    help="every cell at configs.smoke_sizes")
+    ap.add_argument("--device", type=str, default=None,
+                    help="cpu for a run without a card (CUDA by default)")
     args = ap.parse_args(argv)
     if args.all:
         cells = list(all_cells())
@@ -161,19 +728,23 @@ def main(argv: Optional[list] = None) -> int:
         shapes = ([args.shape] if args.shape
                   else list(get_arch(args.arch).cells))
         cells = [(args.arch, s) for s in shapes]
+    if args.mesh:
+        return _mesh_main(args, cells)
 
     results = []
     for name, shape in cells:
         tag = f"{name} x {shape}"
         try:
-            r = run_cell(name, shape)
+            r = run_cell(name, shape, args.device,
+                         sizes=smoke_sizes(name, shape) if args.smoke
+                         else None)
             rt = r["roofline"]
             print(f"[OK] {tag}: {r['description']}; build {r['build_s']:.2f}"
                   f" s, run {r['run_s']:.4f} s, "
                   f"{r['model_flops_per_s']:.4g} model FLOP/s, peak "
-                  f"{r['peak_bytes'] / 2 ** 30:.2f} GiB (estimate "
+                  f"{_gib(r['peak_bytes'])} (estimate "
                   f"{_gib(r['estimate_bytes'])}) of "
-                  f"{r['device_bytes'] / 2 ** 30:.2f} (fits {r['fits']}) "
+                  f"{_gib(r['device_bytes'])} (fits {r['fits']}) "
                   f"on {r['device']}; cuts {r['reduced'] or 'none'}; "
                   f"t_comp={rt['t_compute_s']:.2e}s "
                   f"t_mem={rt['t_memory_s']:.2e}s "

@@ -2,7 +2,8 @@
 
 The port's counterpart of the JAX package's ``launch/roofline.py``.
 Three terms per cell, in seconds, from the work ``launch/cost.py``
-counts (per card: the port's cells run on one):
+counts (per card; on the mesh route per rank, the collective bytes
+those of the rank's ``torch.distributed`` collectives):
 
   compute    = Σ_dtype FLOPs / peak(dtype)
   memory     = HBM bytes / HBM bandwidth

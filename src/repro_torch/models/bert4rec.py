@@ -27,6 +27,20 @@ top-n over ALL its rows (ids offset by ``axis_index("model") · V_loc``),
 an all-gather of the [B, TP·n] candidates and the final top-n (ties:
 the lower rank's candidate first, so the lowest global id).  Unlike the
 single-device scan it scores every row.
+
+``encoder``, ``cloze_loss``, ``sampled_cloze_loss``, ``make_train_step``
+and ``retrieval_step`` take ``mesh=``, ``rules=`` too (DTensor
+parameters by :func:`param_pspecs`; the batch DTensors or the global
+values every rank holds).  The encoder looks its items up by
+``embedding.gather_rows`` from the row-sharded ``item_emb`` and runs the
+blocks on each rank's batch block, pinned to the batch axes
+(``common.constrain_batchwise``) after the lookup and after every block,
+as the reference pins them (the second inside the block's
+``torch.utils.checkpoint``, so the recompute pins it again).  The
+sampled cloze looks the gold and the negative rows up from the sharded
+table; the full cloze scores against the whole table
+(``common.whole``).  ``retrieval_step`` runs B3 on each rank's block of
+``candidates`` and merges the lists (``common.sharded_retrieval``).
 """
 from __future__ import annotations
 
@@ -41,13 +55,20 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.types import resolve_device
 from repro_torch.kernels import ops, ref
-from repro_torch.models.common import (layer_norm, map_batch_chunks,
-                                       masked_xent, normal_, replicated,
-                                       row_axes, train_step_of)
-from repro_torch.models.embedding import check_ids
+from repro_torch.models.common import (batch_split, constrain_batchwise,
+                                       layer_norm, map_batch_chunks,
+                                       masked_xent, merge_topk_over,
+                                       normal_, replicated, row_axes,
+                                       sharded_retrieval, train_step_of,
+                                       whole)
+from repro_torch.models.embedding import check_ids, gather_rows, row_block
 from repro_torch.parallel import spmd
 from repro_torch.parallel.sharding import (MeshShape, ShardingRules, Spec,
                                            batch_axes)
+
+
+# serve_step's item rows a step of its running top-n (the reference's)
+VOCAB_CHUNK = 65536
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,12 +173,16 @@ def init_params(c: Bert4RecConfig, generator: torch.Generator,
     return model
 
 
-def encoder(params: Bert4Rec, ids: torch.Tensor,
-            c: Bert4RecConfig) -> torch.Tensor:
-    """ids [B, S] → hidden [B, S, D] (bidirectional, padding masked).
+def encoder(params: Bert4Rec, ids: torch.Tensor, c: Bert4RecConfig,
+            mesh: Any = None, rules: Any = None) -> Any:
+    """ids [B, S] → hidden [B, S, D] (bidirectional, padding masked);
+    with a mesh a DTensor of the batch block (module docstring).
 
     Raises :class:`~repro_torch.models.embedding.InvalidIdError` on an
     id outside ``[0, vocab)``."""
+    if mesh is not None:
+        x, vary = _encoder_sharded(params, ids, c, mesh, rules)
+        return spmd.from_local(x, mesh, Spec(vary, None, None))
     b, s = ids.shape
     check_ids(ids, c.vocab, "bert4rec ids")
     x = F.embedding(ids.long(), params.item_emb).to(c.dtype) \
@@ -173,10 +198,45 @@ def encoder(params: Bert4Rec, ids: torch.Tensor,
     return layer_norm(x, params.out_ln_w, params.out_ln_b)
 
 
+def _encoder_sharded(params: Bert4Rec, ids: Any, c: Bert4RecConfig,
+                     mesh: Any, rules: Any) -> Tuple[torch.Tensor, tuple]:
+    """:func:`encoder` under a mesh: this rank's block of the hidden
+    states, and the axes the batch is split over."""
+    b, s = ids.shape
+    vary = batch_split(mesh, rules, b)
+    ids = spmd.enter(ids, mesh, Spec(vary, None))
+    check_ids(ids, c.vocab, "bert4rec ids", mesh=mesh)
+    x = gather_rows(*row_block(params.item_emb, mesh), ids.long(), mesh,
+                    vary).to(c.dtype) \
+        + whole(params.pos_emb, mesh, vary)[None, :s, :].to(c.dtype)
+    pin = (mesh, rules, b, vary)
+    x = _pinned(x, pin)
+    bias = torch.where((ids == 0)[:, None, None, :], -1e30, 0.0)
+    blocks = {k: whole(v, mesh, vary) for k, v in params.blocks.items()}
+    for i in range(c.n_blocks):
+        blk = {k: v[i] for k, v in blocks.items()}
+        if torch.is_grad_enabled():
+            x = checkpoint(_block, x, blk, bias, c, pin, use_reentrant=False)
+        else:
+            x = _block(x, blk, bias, c, pin)
+    return layer_norm(x, whole(params.out_ln_w, mesh, vary),
+                      whole(params.out_ln_b, mesh, vary)), vary
+
+
+def _pinned(x: torch.Tensor, pin: tuple) -> torch.Tensor:
+    """The reference's ``_constrain_batchwise`` on the hidden states'
+    block ``x`` (``pin``: mesh, rules, global batch, the batch's axes)."""
+    mesh, rules, b, vary = pin
+    return spmd.local(constrain_batchwise(
+        spmd.from_local(x, mesh, Spec(vary, None, None)), mesh, rules, b))
+
+
 def _block(x: torch.Tensor, blk: Dict[str, torch.Tensor],
-           bias: torch.Tensor, c: Bert4RecConfig) -> torch.Tensor:
+           bias: torch.Tensor, c: Bert4RecConfig,
+           pin: Any = None) -> torch.Tensor:
     """One encoder block: attention over the unmasked keys, then the
-    GELU feed-forward, each with a residual and a layer norm."""
+    GELU feed-forward, each with a residual and a layer norm (then, with
+    ``pin``, pinned to the batch axes)."""
     b, s, _ = x.shape
     h, d = c.n_heads, c.embed_dim // c.n_heads
     q = (x @ blk["wq"]).reshape(b, s, h, d)
@@ -189,7 +249,8 @@ def _block(x: torch.Tensor, blk: Dict[str, torch.Tensor],
     x = layer_norm(x + att @ blk["wo"], blk["ln1_w"], blk["ln1_b"])
     f = F.gelu(x @ blk["w1"] + blk["b1"], approximate="tanh") \
         @ blk["w2"] + blk["b2"]
-    return layer_norm(x + f, blk["ln2_w"], blk["ln2_b"])
+    x = layer_norm(x + f, blk["ln2_w"], blk["ln2_b"])
+    return x if pin is None else _pinned(x, pin)
 
 
 def forward_logits(params: Bert4Rec, ids: torch.Tensor,
@@ -201,10 +262,21 @@ def forward_logits(params: Bert4Rec, ids: torch.Tensor,
 
 
 def cloze_loss(params: Bert4Rec, batch: Dict[str, torch.Tensor],
-               c: Bert4RecConfig) -> torch.Tensor:
+               c: Bert4RecConfig, mesh: Any = None,
+               rules: Any = None) -> torch.Tensor:
     """batch: {"ids": [B, S] (the mask token 1 at masked positions),
     "targets": [B, S] (the true item where masked, −1 elsewhere)}.  The
-    full-vocabulary softmax cross-entropy over the masked positions."""
+    full-vocabulary softmax cross-entropy over the masked positions
+    (with a mesh the whole batch's, on every rank)."""
+    if mesh is not None:
+        vary = batch_split(mesh, rules, batch["ids"].shape[0])
+        t = spmd.enter(batch["targets"], mesh, Spec(vary, None))
+        check_ids(torch.clamp(t, min=0), c.vocab, "bert4rec targets",
+                  mesh=mesh)
+        x, vary = _encoder_sharded(params, batch["ids"], c, mesh, rules)
+        logits = x @ whole(params.item_emb, mesh, vary).T.to(c.dtype) \
+            + whole(params.out_bias, mesh, vary)
+        return masked_xent(logits, t, mesh, vary)
     t = batch["targets"]
     check_ids(torch.clamp(t, min=0), c.vocab, "bert4rec targets")
     logits = forward_logits(params, batch["ids"], c)         # [B, S, V]
@@ -212,7 +284,8 @@ def cloze_loss(params: Bert4Rec, batch: Dict[str, torch.Tensor],
 
 
 def sampled_cloze_loss(params: Bert4Rec, batch: Dict[str, torch.Tensor],
-                       c: Bert4RecConfig) -> torch.Tensor:
+                       c: Bert4RecConfig, mesh: Any = None,
+                       rules: Any = None) -> torch.Tensor:
     """The cloze loss against sampled negatives, the big-vocabulary path:
     no [B, S, V] logits.
 
@@ -220,7 +293,12 @@ def sampled_cloze_loss(params: Bert4Rec, batch: Dict[str, torch.Tensor],
     pads), "negatives": [K]}: each target's hidden state is scored
     against the gold item and the K shared negatives (a softmax over
     K + 1).  Raises :class:`~repro_torch.models.embedding.InvalidIdError`
-    on a position outside ``[0, S)`` or an item outside ``[0, vocab)``."""
+    on a position outside ``[0, S)`` or an item outside ``[0, vocab)``.
+    With a mesh: the gold rows of each rank's batch block and the shared
+    negatives' rows from the row-sharded table, the whole batch's loss
+    on every rank."""
+    if mesh is not None:
+        return _sampled_sharded(params, batch, c, mesh, rules)
     x = encoder(params, batch["ids"], c)                    # [B, S, D]
     mp = torch.clamp(batch["mask_pos"], min=0).long()
     check_ids(mp, x.shape[1], "bert4rec mask_pos")
@@ -239,17 +317,45 @@ def sampled_cloze_loss(params: Bert4Rec, batch: Dict[str, torch.Tensor],
                        torch.where(t >= 0, 0, -1))
 
 
+def _sampled_sharded(params: Bert4Rec, batch: Dict[str, Any],
+                     c: Bert4RecConfig, mesh: Any, rules: Any
+                     ) -> torch.Tensor:
+    x, vary = _encoder_sharded(params, batch["ids"], c, mesh, rules)
+    bspec = Spec(vary, None)
+    mp = torch.clamp(spmd.enter(batch["mask_pos"], mesh, bspec),
+                     min=0).long()
+    check_ids(mp, x.shape[1], "bert4rec mask_pos", mesh=mesh)
+    t = spmd.enter(batch["targets"], mesh, bspec)
+    neg = spmd.enter(batch["negatives"], mesh, Spec(None)).long()
+    gold_ids = torch.clamp(t, min=0).long()
+    check_ids(torch.cat([gold_ids.flatten(), neg]), c.vocab,
+              "bert4rec targets and negatives", mesh=mesh)
+    h = torch.gather(x, 1, mp[..., None].expand(-1, -1, x.shape[2]))
+    w, rows, off = row_block(params.item_emb, mesh)
+    gold_e = gather_rows(w, rows, off, gold_ids, mesh, vary).to(c.dtype)
+    # the negatives are the same on every rank: their rows enter the
+    # batch-varying scores through pvary
+    neg_e = spmd.pvary(gather_rows(w, rows, off, neg, mesh, ()), mesh,
+                       vary).to(c.dtype)
+    gold = torch.sum(h * gold_e, dim=-1).float()
+    neg_logits = (h @ neg_e.T).float()
+    return masked_xent(torch.cat([gold[..., None], neg_logits], -1),
+                       torch.where(t >= 0, 0, -1), mesh, vary)
+
+
 def make_train_step(c: Bert4RecConfig, optimizer: torch.optim.Optimizer,
-                    sampled: bool = False) -> Callable:
+                    sampled: bool = False, mesh: Any = None,
+                    rules: Any = None) -> Callable:
     """``train_step(model, batch) -> {"loss"}`` on
     :func:`sampled_cloze_loss` (``sampled``) or :func:`cloze_loss`."""
     fn = sampled_cloze_loss if sampled else cloze_loss
-    return train_step_of(lambda m, b: fn(m, b, c), optimizer)
+    return train_step_of(lambda m, b: fn(m, b, c, mesh, rules), optimizer)
 
 
 @torch.no_grad()
 def serve_step(params: Bert4Rec, batch: Dict[str, torch.Tensor],
-               c: Bert4RecConfig, top_n: int = 20, vocab_chunk: int = 65536,
+               c: Bert4RecConfig, top_n: int = 20,
+               vocab_chunk: int = VOCAB_CHUNK,
                batch_chunk: int = 16384, mesh: Any = None,
                rules: Any = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Next-item recommendation: (f32[B, n] scores, i32[B, n] items).
@@ -321,8 +427,7 @@ def _serve_sharded(params: Bert4Rec, batch: Dict[str, torch.Tensor],
     ids = batch["ids"]
     b_ax = bax if bax and ids.shape[0] % spmd.axis_size(mesh, bax) == 0 \
         else ()
-    full = _gathered(params)
-    ids = spmd.local_block(ids, mesh, Spec(b_ax, None))
+    ids = spmd.enter(ids, mesh, Spec(b_ax, None))
     e_loc = spmd.redistribute(params.item_emb.to_local(), mesh,
                               spmd.spec_of(params.item_emb), Spec(tp, None))
     b_loc = spmd.redistribute(params.out_bias.to_local(), mesh,
@@ -331,7 +436,11 @@ def _serve_sharded(params: Bert4Rec, batch: Dict[str, torch.Tensor],
     off = spmd.axis_index(mesh, tp) * v_loc
     vals, idx = [], []
     for r in range(0, ids.shape[0], batch_chunk):
-        q = encoder(full, ids[r:r + batch_chunk], c)[:, -1, :].contiguous()
+        x = encoder(params, spmd.from_local(ids[r:r + batch_chunk], mesh,
+                                            Spec(b_ax, None)), c, mesh,
+                    rules)
+        q = spmd.enter(x, mesh, Spec(b_ax, None, None))[:, -1, :]
+        q = q.contiguous()
         lv = torch.full((q.shape[0], top_n), float("-inf"),
                         dtype=torch.float32, device=q.device)
         li = torch.zeros((q.shape[0], top_n), dtype=torch.int64,
@@ -342,11 +451,9 @@ def _serve_sharded(params: Bert4Rec, batch: Dict[str, torch.Tensor],
             lv, li = ref.merge_topk(
                 lv, li, scores.float(),
                 torch.arange(off + lo, off + hi, device=q.device), top_n)
-        cv = spmd.all_gather(lv, mesh, tp, 1)
-        ci = spmd.all_gather(li, mesh, tp, 1)
-        tv, pos = ref.topk_lowest_index(cv, top_n)
+        tv, ti = merge_topk_over(lv, li, mesh, tp, top_n)
         vals.append(tv)
-        idx.append(ci.gather(1, pos).to(torch.int32))
+        idx.append(ti)
     out = Spec(b_ax, None)
     return (spmd.from_local(torch.cat(vals), mesh, out),
             spmd.from_local(torch.cat(idx), mesh, out))
@@ -354,12 +461,19 @@ def _serve_sharded(params: Bert4Rec, batch: Dict[str, torch.Tensor],
 
 @torch.no_grad()
 def retrieval_step(params: Bert4Rec, batch: Dict[str, torch.Tensor],
-                   c: Bert4RecConfig, top_n: int = 100
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   c: Bert4RecConfig, top_n: int = 100, mesh: Any = None,
+                   rules: Any = None) -> Tuple[Any, Any]:
     """retrieval_cand: the last hidden state of one sequence scored
     against every row of ``candidates`` [N, D], its top ``top_n``
     (f32[1, n], i32[1, n]) through ``ops.knn_topk`` with the dot metric
-    (B3 on the card: O(N·D), the [1, N] scores never written)."""
+    (B3 on the card: O(N·D), the [1, N] scores never written).  With a
+    mesh: B3 on each rank's block of the candidates' rows, the lists
+    merged (``common.sharded_retrieval``); DTensors."""
+    if mesh is not None:
+        x, vary = _encoder_sharded(params, batch["ids"], c, mesh, rules)
+        return sharded_retrieval(x[:, -1, :].contiguous(),
+                                 batch["candidates"], top_n, mesh, rules,
+                                 vary)
     q = encoder(params, batch["ids"], c)[:, -1, :].contiguous()  # [1, D]
     return ops.knn_topk(q, batch["candidates"].to(c.dtype), top_n,
                         metric="dot")

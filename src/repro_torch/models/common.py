@@ -10,18 +10,33 @@ Every model's parameters are trainable (``requires_grad``).  Their
 initialisers write them IN PLACE under ``torch.no_grad()``, and every
 serving entry point runs under ``torch.no_grad()``, so serving records
 no autograd graph.
+
+Under a mesh (a named ``DeviceMesh`` and ``ShardingRules``), a
+recommender's sharded route runs each rank on its block of the batch:
+the rows over the batch axes where they divide the batch
+(:func:`batch_split`), else the whole batch on every rank.  The values
+then vary over those axes only and are the same on every rank of the
+others, so a cotangent is per-rank partial over the batch axes and whole
+over the rest: a replicated parameter enters through ``spmd.pvary`` over
+the batch axes (:func:`whole`: its gradient summed over them), and a
+loss is the ``psum`` over them of the ranks' partial sums
+(:func:`batch_sum`).  :func:`constrain_batchwise` is the reference's
+``_constrain_batchwise``, :func:`merge_topk_over` the merge of each
+rank's top-k over a mesh axis.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.types import resolve_device
-from repro_torch.parallel.sharding import MeshShape, ShardingRules, Spec
+from repro_torch.parallel import spmd
+from repro_torch.parallel.sharding import (MeshShape, ShardingRules, Spec,
+                                           batch_axes)
 
 
 class MLP(nn.Module):
@@ -122,12 +137,91 @@ def row_axes(n_rows: int, mesh: MeshShape, rules: ShardingRules) -> Any:
     return rules.tensor if rules.tensor in mesh.axis_names else None
 
 
+def bce_terms(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each row's binary cross-entropy on its logit, in f32."""
+    z, y = logits.float(), labels.float()
+    return torch.clamp(z, min=0) - z * y + torch.log1p(torch.exp(-z.abs()))
+
+
 def bce_with_logits(logits: torch.Tensor,
                     labels: torch.Tensor) -> torch.Tensor:
     """Binary cross-entropy on logits (f32 accumulation)."""
-    z, y = logits.float(), labels.float()
-    return torch.mean(torch.clamp(z, min=0) - z * y
-                      + torch.log1p(torch.exp(-z.abs())))
+    return torch.mean(bce_terms(logits, labels))
+
+
+# ---------------------------------------------------------------------------
+# The sharded route's layout
+# ---------------------------------------------------------------------------
+
+def batch_split(mesh: Any, rules: Optional[ShardingRules],
+                n: int) -> tuple:
+    """The axes a batch of ``n`` rows is split over: the batch axes where
+    they hold more than one device and divide ``n``, else none."""
+    if rules is None:
+        raise ValueError("a sharded call needs its ShardingRules")
+    ax = batch_axes(mesh, rules)
+    k = spmd.axis_size(mesh, ax) if ax else 1
+    return ax if k > 1 and n % k == 0 else ()
+
+
+def constrain_batchwise(x: Any, mesh: Any, rules: Optional[ShardingRules],
+                        batch_size: int) -> Any:
+    """The reference's ``_constrain_batchwise``: ``x``'s leading dim laid
+    over the batch axes (``spmd.constrain``) where their product is above
+    1 and divides ``batch_size``; else ``x`` unchanged (also without a
+    mesh)."""
+    if mesh is None:
+        return x
+    ax = batch_split(mesh, rules, batch_size)
+    if not ax:
+        return x
+    return spmd.constrain(x, mesh, Spec(ax, *([None] * (x.dim() - 1))))
+
+
+def whole(p: Any, mesh: Any, vary: tuple) -> torch.Tensor:
+    """The whole value of DTensor parameter ``p`` on this rank, for a
+    computation that varies over the axes ``vary`` only: its sharded dims
+    gathered (``spmd.redistribute``), then ``spmd.pvary`` over ``vary``.
+    The gradient sums the ranks' partial cotangents over ``vary`` and
+    keeps this rank's block."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(p, DTensor):
+        raise TypeError("the sharded route takes DTensor parameters "
+                        "(spmd.shard_module with param_pspecs)")
+    w = spmd.redistribute(p.to_local(), mesh, spmd.spec_of(p), Spec())
+    return spmd.pvary(w, mesh, vary)
+
+
+def mlp_on(mlp: MLP, mesh: Any, vary: tuple) -> Any:
+    """``mlp``'s weights as :func:`whole` gives them, in the layout
+    :func:`apply_mlp` reads."""
+    import types
+    return types.SimpleNamespace(
+        w=[whole(w, mesh, vary) for w in mlp.w],
+        b=None if mlp.b is None else [whole(b, mesh, vary) for b in mlp.b])
+
+
+def batch_sum(x: torch.Tensor, mesh: Any, vary: tuple) -> torch.Tensor:
+    """The sum of ``x`` over the whole batch: this rank's block's sum,
+    ``psum``-ed over the axes the batch is split over (the same value on
+    every rank)."""
+    total = torch.sum(x)
+    return spmd.psum(total, mesh, vary) if vary else total
+
+
+def merge_topk_over(vals: torch.Tensor, gids: torch.Tensor, mesh: Any,
+                    axis: str, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top ``k`` of each rank's candidates over the ranks of
+    ``axis``: ``vals`` f32[Q, n] (each row sorted, ties by the lowest id)
+    and their global ids ``gids`` [Q, n], a rank's ids above the lower
+    ranks'.  The lists are all-gathered in rank order and the first
+    ``k`` kept by a stable sort, so ties go to the lowest global id, as
+    ``lax.top_k`` over the whole row.  Returns (f32[Q, k], i32[Q, k])."""
+    from repro_torch.kernels import ref
+    cv = spmd.all_gather(vals, mesh, axis, 1)
+    ci = spmd.all_gather(gids.long(), mesh, axis, 1)
+    tv, pos = ref.topk_lowest_index(cv, k)
+    return tv, ci.gather(1, pos).to(torch.int32)
 
 
 def _tree_map(fn: Callable, *trees: Any) -> Any:
@@ -169,15 +263,20 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
 
 
-def masked_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def masked_xent(logits: torch.Tensor, labels: torch.Tensor,
+                mesh: Any = None, vary: tuple = ()) -> torch.Tensor:
     """Mean softmax cross-entropy over the positions whose label is
     >= 0 (−1 marks padding), in f32: ``Σ (lse − gold)·mask / max(Σ mask,
-    1)`` as the reference writes it."""
+    1)`` as the reference writes it.  With a mesh both sums run over the
+    whole batch (:func:`batch_sum` over ``vary``)."""
     logits = logits.float()
     mask = (labels >= 0).float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,
                         torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    if mesh is not None:
+        return batch_sum((lse - gold) * mask, mesh, vary) / torch.clamp(
+            batch_sum(mask, mesh, vary), min=1.0)
     return torch.sum((lse - gold) * mask) / torch.clamp(torch.sum(mask),
                                                         min=1.0)
 
@@ -188,7 +287,9 @@ def train_step_of(loss: Callable, optimizer: torch.optim.Optimizer
     batch) -> (params, opt_state, {"loss"})``: ``train_step(model,
     batch) -> {"loss": tensor}`` zeroes the gradients, runs ``loss(model,
     batch)`` backward and calls ``optimizer.step()``, which updates the
-    model's parameters and the optimizer's state IN PLACE."""
+    model's parameters and the optimizer's state IN PLACE.  The step's
+    ``optimizer`` attribute is ``optimizer`` (its ``last_gnorm`` and the
+    parameters' clipped ``.grad`` are what the last step applied)."""
     def train_step(model: nn.Module, batch: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad(set_to_none=True)
@@ -196,4 +297,25 @@ def train_step_of(loss: Callable, optimizer: torch.optim.Optimizer
         value.backward()
         optimizer.step()
         return {"loss": value.detach()}
+    train_step.optimizer = optimizer
     return train_step
+
+
+def sharded_retrieval(q: torch.Tensor, candidates: Any, top_n: int,
+                      mesh: Any, rules: Any, vary: tuple
+                      ) -> Tuple[Any, Any]:
+    """The top ``top_n`` by dot score of queries ``q`` (this rank's
+    block over ``vary``) against ``candidates`` [N, D] whose rows lie
+    over the tensor axis: ``ops.knn_topk`` on the rank's rows (at most
+    ``top_n`` of them), ids offset by ``axis_index · N_local``, the lists
+    merged by :func:`merge_topk_over`.  (f32[Q, n], i32[Q, n])
+    DTensors."""
+    from repro_torch.kernels import ops
+    tp = rules.tensor
+    cand = spmd.enter(candidates, mesh, Spec(tp, None)).to(q.dtype)
+    vals, idx = ops.knn_topk(q, cand, min(top_n, cand.shape[0]),
+                             metric="dot")
+    gids = idx.long() + spmd.axis_index(mesh, tp) * cand.shape[0]
+    vals, ids = merge_topk_over(vals, gids, mesh, tp, top_n)
+    return (spmd.from_local(vals, mesh, Spec(vary, None)),
+            spmd.from_local(ids, mesh, Spec(vary, None)))

@@ -10,24 +10,33 @@ embeddings; the logits summed.
 binary cross-entropy of :func:`forward`'s logits against
 ``batch["labels"]``; ``make_train_step(c, optimizer)`` gives
 ``train_step(model, batch) -> {"loss"}`` (``common.train_step_of``).
-Not ported here: the mesh constraints.
+
+With ``mesh=``, ``rules=`` (DTensor parameters by :func:`param_pspecs`):
+the field table's and the first-order weights' lookups run
+``embedding``'s row-sharded route, the embeddings are pinned to the
+batch axes (``common.constrain_batchwise``), as the reference pins
+them, and the rest runs on each rank's batch block; as DLRM's.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.types import resolve_device
-from repro_torch.models.common import (MLP, apply_mlp, bce_with_logits,
-                                       he_init_, mlp_pspecs, normal_,
-                                       row_axes, train_step_of)
+from repro_torch.models.common import (MLP, apply_mlp, batch_split,
+                                       batch_sum, bce_terms,
+                                       bce_with_logits, constrain_batchwise,
+                                       he_init_, mlp_on, mlp_pspecs,
+                                       normal_, row_axes, train_step_of,
+                                       whole)
 from repro_torch.models.embedding import (TableSpec, embedding_lookup,
-                                          flat_ids)
+                                          flat_ids, gather_rows, row_block)
+from repro_torch.parallel import spmd
 from repro_torch.parallel.sharding import MeshShape, ShardingRules, Spec
 
 # Criteo-Kaggle style field cardinalities for 39 fields (13 bucketised
@@ -105,36 +114,75 @@ def init_params(c: DeepFMConfig, generator: torch.Generator,
 
 
 def forward(params: DeepFM, batch: Dict[str, torch.Tensor],
-            c: DeepFMConfig) -> torch.Tensor:
-    """batch: {"sparse": int[B, 39]} → logits [B]."""
+            c: DeepFMConfig, mesh: Any = None, rules: Any = None) -> Any:
+    """batch: {"sparse": int[B, 39]} → logits [B] (with a mesh a
+    DTensor)."""
+    if mesh is not None:
+        logits, vary = _forward_sharded(params, batch, c, mesh, rules)
+        return spmd.from_local(logits, mesh, Spec(vary))
     ids = batch["sparse"]
     emb = embedding_lookup(params.table, ids, c.table)         # [B, F, K]
+    # FM 1st order (embedding_lookup has checked the ids)
+    fm1 = torch.sum(F.embedding(flat_ids(ids, c.table),
+                                params.linear[:, None])[..., 0], dim=1)
+    return _logits(emb, fm1, params.deep, params.bias)
+
+
+def _logits(emb: torch.Tensor, fm1: torch.Tensor, deep: Any,
+            bias: torch.Tensor) -> torch.Tensor:
     # FM 2nd order: 0.5 * ((Σ v)² − Σ v²) summed over K
     s = torch.sum(emb, dim=1)
     fm2 = 0.5 * torch.sum(torch.square(s)
                           - torch.sum(torch.square(emb), dim=1), dim=-1)
-    # FM 1st order (embedding_lookup has checked the ids)
-    fm1 = torch.sum(F.embedding(flat_ids(ids, c.table),
-                                params.linear[:, None])[..., 0], dim=1)
-    deep = apply_mlp(params.deep, emb.reshape(ids.shape[0], -1))[..., 0]
-    return fm1 + fm2 + deep + params.bias
+    out = apply_mlp(deep, emb.reshape(emb.shape[0], -1))[..., 0]
+    return fm1 + fm2 + out + bias
+
+
+def _forward_sharded(params: DeepFM, batch: Dict[str, Any],
+                     c: DeepFMConfig, mesh: Any, rules: Any
+                     ) -> Tuple[torch.Tensor, tuple]:
+    """This rank's block of the logits, and the axes the batch is split
+    over."""
+    b = batch["sparse"].shape[0]
+    vary = batch_split(mesh, rules, b)
+    emb = embedding_lookup(params.table, batch["sparse"], c.table,
+                           mesh=mesh, rules=rules)
+    emb = constrain_batchwise(emb, mesh, rules, b).to_local()
+    gids = flat_ids(spmd.enter(batch["sparse"], mesh, Spec(vary, None)),
+                    c.table)
+    w, rows, off = row_block(params.linear, mesh)
+    fm1 = torch.sum(gather_rows(w[:, None], rows, off, gids, mesh, vary
+                                )[..., 0], dim=1)
+    return _logits(emb, fm1, mlp_on(params.deep, mesh, vary),
+                   whole(params.bias, mesh, vary)), vary
 
 
 def loss_fn(params: DeepFM, batch: Dict[str, torch.Tensor],
-            c: DeepFMConfig) -> torch.Tensor:
+            c: DeepFMConfig, mesh: Any = None, rules: Any = None
+            ) -> torch.Tensor:
     """Binary cross-entropy of the logits against ``batch["labels"]``
-    [B] (0/1)."""
+    [B] (0/1); with a mesh the whole batch's mean on every rank."""
+    if mesh is not None:
+        logits, vary = _forward_sharded(params, batch, c, mesh, rules)
+        labels = spmd.enter(batch["labels"], mesh, Spec(vary))
+        return batch_sum(bce_terms(logits, labels), mesh, vary) \
+            / batch["labels"].shape[0]
     return bce_with_logits(forward(params, batch, c), batch["labels"])
 
 
-def make_train_step(c: DeepFMConfig, optimizer: torch.optim.Optimizer
-                    ) -> Callable:
+def make_train_step(c: DeepFMConfig, optimizer: torch.optim.Optimizer,
+                    mesh: Any = None, rules: Any = None) -> Callable:
     """``train_step(model, batch) -> {"loss"}`` on :func:`loss_fn`."""
-    return train_step_of(lambda m, b: loss_fn(m, b, c), optimizer)
+    return train_step_of(lambda m, b: loss_fn(m, b, c, mesh, rules),
+                         optimizer)
 
 
 @torch.no_grad()
 def serve_step(params: DeepFM, batch: Dict[str, torch.Tensor],
-               c: DeepFMConfig) -> torch.Tensor:
-    """Click probabilities [B]: sigmoid of :func:`forward`."""
+               c: DeepFMConfig, mesh: Any = None, rules: Any = None) -> Any:
+    """Click probabilities [B]: sigmoid of :func:`forward` (with a mesh a
+    DTensor)."""
+    if mesh is not None:
+        logits, vary = _forward_sharded(params, batch, c, mesh, rules)
+        return spmd.from_local(torch.sigmoid(logits), mesh, Spec(vary))
     return torch.sigmoid(forward(params, batch, c))

@@ -394,12 +394,15 @@ def loss_fn(params: DimeNet, batch: Batch, c: DimeNetConfig,
     """Mean squared error against the per-molecule ``labels`` (one
     target), or the masked softmax cross-entropy against per-node
     classes (−1 unlabelled); with a mesh on :func:`forward_sharded`'s
-    predictions (the same loss on every rank)."""
+    predictions (the same loss on every rank; the labels a DTensor or
+    the global value every rank holds)."""
     pred = forward(params, batch, c) if mesh is None \
         else forward_sharded(params, batch, c, mesh, rules).to_local()
+    labels = batch["labels"] if mesh is None \
+        else spmd.enter(batch["labels"], mesh, Spec(None))
     if c.n_targets == 1:
-        return torch.mean(torch.square(pred[..., 0] - batch["labels"]))
-    return masked_xent(pred, batch["labels"])
+        return torch.mean(torch.square(pred[..., 0] - labels))
+    return masked_xent(pred, labels)
 
 
 def make_train_step(c: DimeNetConfig, optimizer: torch.optim.Optimizer,

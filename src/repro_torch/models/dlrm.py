@@ -13,23 +13,35 @@ binary cross-entropy of :func:`forward`'s logits against
 ``train_step(model, batch) -> {"loss"}`` (``common.train_step_of``: the
 reference's ``(params, opt_state, batch) -> (params, opt_state,
 {"loss"})`` with the model and the optimizer's state updated IN PLACE).
-Not ported here: the mesh constraints.
+
+Each entry point takes ``mesh=``, ``rules=``: the parameters are then
+DTensors placed by :func:`param_pspecs` (``spmd.shard_module``) and the
+batch DTensors or the global values every rank holds.  The lookup is
+``embedding.embedding_lookup``'s row-sharded route and its output is
+pinned to the batch axes (``common.constrain_batchwise``), as the
+reference's ``forward`` does; the MLPs run data-parallel on each rank's
+batch block.  :func:`forward` and :func:`serve_step` return DTensors
+(the batch over ``common.batch_split``'s axes), the loss the whole
+batch's mean on every rank.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.core.types import resolve_device
-from repro_torch.models.common import (MLP, apply_mlp, bce_with_logits,
-                                       he_init_, mlp_pspecs, normal_,
-                                       row_axes, train_step_of)
+from repro_torch.models.common import (MLP, apply_mlp, batch_split,
+                                       batch_sum, bce_terms,
+                                       bce_with_logits, constrain_batchwise,
+                                       he_init_, mlp_on, mlp_pspecs,
+                                       normal_, row_axes, train_step_of)
 from repro_torch.models.embedding import TableSpec, embedding_lookup
+from repro_torch.parallel import spmd
 from repro_torch.parallel.sharding import MeshShape, ShardingRules, Spec
 
 # Public Criteo-Terabyte per-feature cardinalities (facebookresearch/dlrm).
@@ -126,30 +138,64 @@ def dot_interaction(vectors: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: DLRM, batch: Dict[str, torch.Tensor],
-            c: DLRMConfig) -> torch.Tensor:
-    """batch: {"dense": f32[B, 13], "sparse": int[B, 26]} → logits [B]."""
+            c: DLRMConfig, mesh: Any = None, rules: Any = None) -> Any:
+    """batch: {"dense": f32[B, 13], "sparse": int[B, 26]} → logits [B]
+    (with a mesh a DTensor)."""
+    if mesh is not None:
+        logits, vary = _forward_sharded(params, batch, c, mesh, rules)
+        return spmd.from_local(logits, mesh, Spec(vary))
     dense = apply_mlp(params.bot, batch["dense"].to(c.dtype))
     sparse = embedding_lookup(params.table, batch["sparse"], c.table)
+    return _top(params.top, dense, sparse)
+
+
+def _top(top: Any, dense: torch.Tensor, sparse: torch.Tensor
+         ) -> torch.Tensor:
     feats = torch.cat([dense[:, None, :], sparse], dim=1)      # [B, 27, D]
     top_in = torch.cat([dense, dot_interaction(feats)], dim=-1)
-    return apply_mlp(params.top, top_in)[..., 0]
+    return apply_mlp(top, top_in)[..., 0]
+
+
+def _forward_sharded(params: DLRM, batch: Dict[str, Any], c: DLRMConfig,
+                     mesh: Any, rules: Any) -> Tuple[torch.Tensor, tuple]:
+    """This rank's block of the logits, and the axes the batch is split
+    over."""
+    b = batch["dense"].shape[0]
+    vary = batch_split(mesh, rules, b)
+    dense = spmd.enter(batch["dense"], mesh, Spec(vary, None)).to(c.dtype)
+    dense = apply_mlp(mlp_on(params.bot, mesh, vary), dense)
+    sparse = embedding_lookup(params.table, batch["sparse"], c.table,
+                              mesh=mesh, rules=rules)
+    sparse = constrain_batchwise(sparse, mesh, rules, b).to_local()
+    return _top(mlp_on(params.top, mesh, vary), dense, sparse), vary
 
 
 def loss_fn(params: DLRM, batch: Dict[str, torch.Tensor],
-            c: DLRMConfig) -> torch.Tensor:
+            c: DLRMConfig, mesh: Any = None, rules: Any = None
+            ) -> torch.Tensor:
     """Binary cross-entropy of the logits against ``batch["labels"]``
-    [B] (0/1)."""
+    [B] (0/1); with a mesh the whole batch's mean on every rank."""
+    if mesh is not None:
+        logits, vary = _forward_sharded(params, batch, c, mesh, rules)
+        labels = spmd.enter(batch["labels"], mesh, Spec(vary))
+        return batch_sum(bce_terms(logits, labels), mesh, vary) \
+            / batch["labels"].shape[0]
     return bce_with_logits(forward(params, batch, c), batch["labels"])
 
 
-def make_train_step(c: DLRMConfig, optimizer: torch.optim.Optimizer
-                    ) -> Callable:
+def make_train_step(c: DLRMConfig, optimizer: torch.optim.Optimizer,
+                    mesh: Any = None, rules: Any = None) -> Callable:
     """``train_step(model, batch) -> {"loss"}`` on :func:`loss_fn`."""
-    return train_step_of(lambda m, b: loss_fn(m, b, c), optimizer)
+    return train_step_of(lambda m, b: loss_fn(m, b, c, mesh, rules),
+                         optimizer)
 
 
 @torch.no_grad()
 def serve_step(params: DLRM, batch: Dict[str, torch.Tensor],
-               c: DLRMConfig) -> torch.Tensor:
-    """Click probabilities [B]: sigmoid of :func:`forward`."""
+               c: DLRMConfig, mesh: Any = None, rules: Any = None) -> Any:
+    """Click probabilities [B]: sigmoid of :func:`forward` (with a mesh a
+    DTensor)."""
+    if mesh is not None:
+        logits, vary = _forward_sharded(params, batch, c, mesh, rules)
+        return spmd.from_local(torch.sigmoid(logits), mesh, Spec(vary))
     return torch.sigmoid(forward(params, batch, c))

@@ -9,8 +9,8 @@ from repro_torch.parallel.sharding import (MeshShape, Sharding,
                                            placements, shard_params_pytree,
                                            zero_like_sharded)
 from repro_torch.parallel.spmd import (all_gather, axis_index, axis_size,
-                                       constrain, gather_full, pmax,
-                                       psum, psum_scatter, pvary,
+                                       constrain, enter, gather_full,
+                                       pmax, psum, psum_scatter, pvary,
                                        redistribute, shard_map,
                                        shard_module)
 
@@ -19,4 +19,4 @@ __all__ = ["ShardingRules", "logical_to_physical", "shard_params_pytree",
            "Spec", "MeshShape", "Sharding", "placements", "distribute",
            "UserShardSpec", "shard_map", "constrain", "redistribute",
            "axis_index", "axis_size", "psum", "pmax", "pvary", "all_gather",
-           "psum_scatter", "gather_full", "shard_module"]
+           "psum_scatter", "gather_full", "shard_module", "enter"]

@@ -377,6 +377,18 @@ def gather_full(x: Any) -> torch.Tensor:
     return out.clone() if out is local else out
 
 
+def enter(x: Any, mesh: Any, spec: Spec) -> Any:
+    """This rank's block of ``x`` under ``spec``: a DTensor moved there
+    by :func:`redistribute`, a plain tensor taken as the global value
+    every rank holds (:func:`local_block`); anything else as it is."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        return redistribute(x.to_local(), mesh, spec_of(x), spec)
+    if isinstance(x, torch.Tensor):
+        return local_block(x, mesh, spec)
+    return x
+
+
 def shard_map(fn: Callable, mesh: Any, in_specs: Any,
               out_specs: Any) -> Callable:
     """``compat.shard_map(fn, mesh=mesh, in_specs=..., out_specs=...)``:
@@ -385,18 +397,10 @@ def shard_map(fn: Callable, mesh: Any, in_specs: Any,
     arguments; a DTensor is moved there by :func:`redistribute`, a plain
     tensor is the global value every rank holds) and returns each of
     ``fn``'s outputs as a DTensor of its spec in ``out_specs`` (one rank's
-    block, no check).  Non-tensor arguments pass through."""
-    from torch.distributed.tensor import DTensor
-
-    def enter(_, x, spec):
-        if isinstance(x, DTensor):
-            return redistribute(x.to_local(), mesh, spec_of(x), spec)
-        if isinstance(x, torch.Tensor):
-            return local_block(x, mesh, spec)
-        return x
-
+    block, no check).  Non-tensor arguments pass through (:func:`enter`)."""
     def wrapped(*args):
-        local = tree_map(enter, list(args), list(in_specs))
+        local = tree_map(lambda _, x, spec: enter(x, mesh, spec),
+                         list(args), list(in_specs))
         out = fn(*local)
         return tree_map(lambda _, y, s: from_local(y, mesh, s), out,
                         out_specs)

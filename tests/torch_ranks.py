@@ -359,9 +359,10 @@ def job_sharded_moe(rank, world, args):
     return out
 
 
-def _placed(arch, c, tree, args, mesh, rules):
+def _placed(arch, c, tree, args, mesh, rules, override=None):
     """The port's ``arch`` model holding the JAX tree, its parameters
-    placed by its ``param_pspecs``."""
+    placed by its ``param_pspecs`` (``override``: specs by name that
+    replace them)."""
     import importlib
 
     from repro_torch import convert
@@ -370,6 +371,7 @@ def _placed(arch, c, tree, args, mesh, rules):
     model = convert.recsys_params_from_numpy(arch, tree, c, device="cpu")
     specs = importlib.import_module(f"repro_torch.models.{arch}").param_pspecs(
         c, MeshShape(tuple(args["names"]), tuple(args["mesh"])), rules)
+    specs.update({k: _spec(v) for k, v in (override or {}).items()})
     return spmd.shard_module(model, mesh, specs)
 
 
@@ -422,6 +424,100 @@ def job_sharded_models(rank, world, args):
             "gnorm": float(opt.last_gnorm),
             "params": {k: spmd.gather_full(p.detach()).numpy()
                        for k, p in model.named_parameters()}}
+    return out
+
+
+CONFIGS = {"dlrm": "DLRMConfig", "deepfm": "DeepFMConfig",
+           "two_tower": "TwoTowerConfig", "bert4rec": "Bert4RecConfig"}
+
+
+def _recsys_fns(arch, sampled):
+    """The arch's module, loss and train-step keywords."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.models.{arch}")
+    loss = {"dlrm": "loss_fn", "deepfm": "loss_fn",
+            "two_tower": "sampled_softmax_loss",
+            "bert4rec": "sampled_cloze_loss" if sampled else "cloze_loss"}
+    kw = {"sampled": sampled} if arch == "bert4rec" else {}
+    return mod, getattr(mod, loss[arch]), kw
+
+
+def job_sharded_recsys(rank, world, args):
+    """Each recommender case on the mesh, from the JAX tree pickled at
+    its ``params`` placed by ``param_pspecs``, on the batch in its
+    ``inputs`` (the global values every rank holds): the parameters'
+    placements, ``serve_step`` (whole, with its placements),
+    ``retrieval_step`` on the ``q_*`` query (whole), the loss
+    and its gradients (whole), ``steps`` AdamW steps (losses, norms,
+    the last step's clipped gradients and the parameters after, whole);
+    a case with ``raises`` records the ``InvalidIdError`` its loss raised
+    on this rank; ``specs`` replace ``param_pspecs``' by name."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.embedding import InvalidIdError
+    from repro_torch.optim import optimizers
+    from repro_torch.parallel import spmd
+    from repro_torch.parallel.sharding import ShardingRules
+    mesh = _mesh(args["mesh"], args["names"])
+    rules = ShardingRules(batch=("data",), fsdp=("data",))
+    out = {}
+    for case in args["cases"]:
+        mod, loss_fn, kw = _recsys_fns(case["arch"], case.get("sampled",
+                                                              False))
+        c = getattr(mod, CONFIGS[case["arch"]])(**{
+            k: tuple(v) if isinstance(v, list) else v
+            for k, v in case["config"].items()})
+        model = _placed(case["arch"], c, _load(case["params"]), args, mesh,
+                        rules, case.get("specs"))
+        data = np.load(case["inputs"])
+        batch = {k: torch.from_numpy(np.array(data[k])) for k in data.files}
+        got = {}
+        if case.get("raises"):
+            try:
+                loss_fn(model, batch, c, mesh=mesh, rules=rules)
+            except InvalidIdError as e:
+                got["raised"] = str(e)
+            out[case["name"]] = got
+            continue
+        serve = {k: v for k, v in batch.items() if k in case["serve_keys"]}
+        if serve:
+            y = mod.serve_step(model, serve, c, mesh=mesh, rules=rules)
+            y = y if isinstance(y, tuple) else (y,)
+            got["serve"] = [spmd.gather_full(t).numpy() for t in y]
+            got["serve_placements"] = [str(p) for p in y[0].placements]
+        got["placements"] = {k: [str(pl) for pl in p.placements]
+                             for k, p in model.named_parameters()}
+        if case.get("retrieval"):
+            q = {k: batch["q_" + k] for k in case["query_keys"]}
+            q["candidates"] = batch["candidates"]
+            v, i = mod.retrieval_step(model, q, c, top_n=case["top_n"],
+                                      mesh=mesh, rules=rules)
+            got["retrieval"] = (spmd.gather_full(v).numpy(),
+                                spmd.gather_full(i).numpy())
+        if not case.get("train_keys"):
+            out[case["name"]] = got
+            continue
+        tb = {k: batch[k] for k in case["train_keys"]}
+        loss = loss_fn(model, tb, c, mesh=mesh, rules=rules)
+        loss.backward()
+        got["loss"] = float(loss)
+        got["grads"] = {k: spmd.gather_full(p.grad).numpy()
+                        for k, p in model.named_parameters()
+                        if p.grad is not None}
+        opt = optimizers.adamw(model.parameters(), lr=case["lr"],
+                               warmup_steps=1)
+        step = mod.make_train_step(c, opt, mesh=mesh, rules=rules, **kw)
+        got["steps"] = []
+        for _ in range(case["steps"]):
+            got["steps"].append((float(step(model, tb)["loss"]),
+                                 float(opt.last_gnorm)))
+        got["step_grads"] = {k: spmd.gather_full(p.grad).numpy()
+                             for k, p in model.named_parameters()
+                             if p.grad is not None}
+        got["params"] = {k: spmd.gather_full(p.detach()).numpy()
+                         for k, p in model.named_parameters()}
+        out[case["name"]] = got
     return out
 
 
@@ -481,6 +577,7 @@ def job_spmd(rank, world, args):
 
 JOBS = {"hierarchical": job_hierarchical, "distribute": job_distribute,
         "sharded_models": job_sharded_models, "spmd": job_spmd,
+        "sharded_recsys": job_sharded_recsys,
         "sharded_moe": job_sharded_moe,
         "sharded_lm": job_sharded_lm,
         "elastic_save": job_elastic_save,
