@@ -377,10 +377,35 @@ Phases, each fatal on failure (nothing is caught):
    the card, the sum of their measured peaks within the card.  B3 on each
    rank's candidate block in the two retrieval cells (each rank's first
    call, ``dryrun.recorded_b3``), held here to its plain version on that
-   block; its launches join the kernels line.  Each cell's per-rank
+   block (run in the rank on the same inputs, ``dryrun.b3_plain``); its
+   launches join the kernels line.  Each cell's per-rank
    seconds, peak and collective bytes by kind logged beside the card's
    name and power limit;
-24. summary -- every kernel's launches, then one JSON line of kernel
+24. tifu-knn's cells and Adafactor under the mesh (run after phase 23,
+   within 150 s) -- the three tifu-knn cells at their published widths
+   with the users cut to 131,072 (each cut in the cell's line, with the
+   bytes that force it) through ``launch/dryrun.py``'s mesh route in 4
+   rank processes on ``cuda:0`` over gloo, phase 22's (2, 2) ("data",
+   "model") mesh: ``stream_update``'s state with users over "data" and
+   the vector tables' items over "model" (each rank builds its own block
+   of the tables from the seed), the micro-batch gathered and each
+   rank's users applied on its own columns (B1 and B2 on every rank);
+   ``serve_topk`` and ``serve_topk_opt`` through B3 on each rank's rows
+   (one launch a rank), the candidates merged over "model" then "data".
+   Each held by ``dryrun.held`` to a one-device run of the same seed made
+   first here (the stream state at the rows of 1,024 users its batch
+   names and 1,024 seeded others: integer leaves exact, floats
+   rtol=1e-4, atol=1e-5; predictions rtol=1e-5, atol=1e-6); B3's first
+   call on each rank's block held to its plain version there; the sum of
+   the ranks' measured peaks within the card.  Then Adafactor over
+   DTensor parameters in 4 ranks of this script (``--adafactor-rank``):
+   DeepSeek-V3's MLA down-projection [7168, 1536] over ("data",
+   "model"), a stack of experts [8, 7168, 2048] split on its last two
+   dims and a replicated [7168] norm, two steps, held on rank 0 to the
+   one-device Adafactor on the same card (rtol=1e-5, atol=1e-7).  Each
+   cell's per-rank seconds, peak and collective bytes by kind logged
+   beside the card's name and power limit;
+25. summary -- every kernel's launches, then one JSON line of kernel
    records, and last the ``{"ok": true, ...}`` line.
 
 It needs a CUDA card and the rest of the repository; anywhere else it
@@ -5756,24 +5781,32 @@ def sharded_rank(rank: int, world: int, store: str, outdir: str,
 
 
 def run_shard_ranks(smoke: bool) -> list:
-    """Phase 22's ranks as processes of this script, each logging to
-    ``SHARD_DIR/rank<r>.log``; returns what each pickled (raises with the
+    """Phase 22's ranks (:func:`run_script_ranks`)."""
+    return run_script_ranks("--shard-rank", SHARD_DIR, smoke, SHARD_RANK_S,
+                            "phase 22")
+
+
+def run_script_ranks(flag: str, directory: Path, smoke: bool,
+                     timeout: float, what: str) -> list:
+    """``SHARD_MESH``'s ranks as processes of this script (``flag`` rank
+    world store directory mode), each logging to
+    ``directory/rank<r>.log``; returns what each pickled (raises with the
     failing ranks' log tails)."""
     import pickle
     world = math.prod(SHARD_MESH)
-    shutil.rmtree(SHARD_DIR, ignore_errors=True)
-    SHARD_DIR.mkdir(parents=True)
-    store = SHARD_DIR / "store"
+    shutil.rmtree(directory, ignore_errors=True)
+    directory.mkdir(parents=True)
+    store = directory / "store"
     procs, logs = [], []
     try:
         for r in range(world):
-            logs.append(open(SHARD_DIR / f"rank{r}.log", "w"))
+            logs.append(open(directory / f"rank{r}.log", "w"))
             procs.append(subprocess.Popen(
-                [sys.executable, str(ROOT / "chip_smoke.py"), "--shard-rank",
-                 str(r), str(world), str(store), str(SHARD_DIR),
+                [sys.executable, str(ROOT / "chip_smoke.py"), flag,
+                 str(r), str(world), str(store), str(directory),
                  "smoke" if smoke else "card"],
                 stdout=logs[-1], stderr=subprocess.STDOUT, cwd=str(ROOT)))
-        deadline = time.monotonic() + SHARD_RANK_S
+        deadline = time.monotonic() + timeout
         for p in procs:
             p.wait(timeout=max(1.0, deadline - time.monotonic()))
     finally:
@@ -5785,12 +5818,12 @@ def run_shard_ranks(smoke: bool) -> list:
             f.close()
     bad = [r for r, p in enumerate(procs) if p.returncode != 0]
     if bad:
-        tails = "\n".join(f"rank {r}:\n" + (SHARD_DIR / f"rank{r}.log")
+        tails = "\n".join(f"rank {r}:\n" + (directory / f"rank{r}.log")
                           .read_text()[-3000:] for r in bad[:2])
-        raise AssertionError(f"phase 22: ranks {bad} failed\n{tails}")
+        raise AssertionError(f"{what}: ranks {bad} failed\n{tails}")
     out = []
     for r in range(world):
-        with open(SHARD_DIR / f"rank{r}.pkl", "rb") as f:
+        with open(directory / f"rank{r}.pkl", "rb") as f:
             out.append(pickle.load(f))
     return out
 
@@ -6107,22 +6140,19 @@ def mesh_estimate(name, shape, sz, world, turns):
             + whole * (1 if turns else world))
 
 
-def b3_on_block(call, dev) -> dict:
-    """B3's output on a rank's candidate block (``dryrun.recorded_b3``'s
-    call, on the host) against its plain version on the same inputs on
-    ``dev``: values within ``RS_RTOL``/``RS_ATOL``, each id the plain
+def b3_on_block(call) -> dict:
+    """B3's output on a rank's block against its plain version on the
+    same inputs on the same card (``dryrun.b3_plain``'s record, made in
+    the rank): values within ``RS_RTOL``/``RS_ATOL``, each id the plain
     one's or tied with it."""
-    q, corpus, k, metric, out = call
-    q, corpus = q.to(dev), corpus.to(dev)
-    vals, idx = (t.to(dev) for t in out)
-    pv, pi = ref.knn_topk_ref(q, corpus, k, metric=metric)
+    (vals, idx), (pv, pi) = call["out"], call["plain"]
     torch.testing.assert_close(vals, pv, rtol=RS_RTOL, atol=RS_ATOL)
     same = idx.long() == pi.long()
     tie = (vals - pv).abs() <= RS_ATOL + RS_RTOL * pv.abs()
     assert bool((same | tie).all()), "B3: ids neither the plain ones nor tied"
     return {"max_abs_err": float((vals - pv).abs().max()),
             "identical": int(same.sum()), "n": same.numel(),
-            "rows": corpus.shape[0], "dim": corpus.shape[1], "k": k}
+            "rows": call["rows"], "dim": call["dim"], "k": call["k"]}
 
 
 def mesh_cells_path(dev, card, smoke: bool = False) -> dict:
@@ -6172,7 +6202,7 @@ def mesh_cells_path(dev, card, smoke: bool = False) -> dict:
                 f"{' (built in turns)' if tag in turns else ''}; held to "
                 f"the one-device run: {how}")
         if shape == "retrieval_cand" and name in MESH_RETRIEVERS:
-            b3 = [b3_on_block(r["b3_call"], dev) for r in per]
+            b3 = [b3_on_block(r["b3_call"]) for r in per]
             launches = [r["launches"].get("knn_topk", 0) for r in per]
             assert all(b3), (tag, b3)
             assert dev.type != "cuda" or all(launches), (tag, launches)
@@ -6197,6 +6227,229 @@ def mesh_cells_path(dev, card, smoke: bool = False) -> dict:
     if not smoke:
         assert seconds <= MESH_PHASE_S, seconds
     shutil.rmtree(MESH_DIR, ignore_errors=True)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 24: tifu-knn's cells under the mesh, and Adafactor over DTensor
+# ---------------------------------------------------------------------------
+
+TIFU_MESH_CELLS = [("tifu-knn", s) for s in ("stream_update", "serve_topk",
+                                             "serve_topk_opt")]
+# the users phase 24's cells hold (of 1,048,576): 17.0 GiB of stream
+# state, an 8 GiB corpus
+TIFU_MESH_USERS = 131_072
+TIFU_MESH_SEED, TIFU_MESH_PHASE_S, TIFU_MESH_RANK_S = 24, 150.0, 240.0
+TIFU_MESH_DIR = ROOT / "build" / "chip_smoke_tifu_mesh"
+# the stream state held at the rows of the first this many users its
+# batch names and as many seeded others (dryrun.probe_ids)
+TIFU_MESH_PROBE = 1024
+# Adafactor on DeepSeek-V3's published leaf shapes: (shape, spec) of an
+# MLA down-projection (d_model x q_lora_rank), a stack of 8 experts'
+# [d_model, moe_d_ff] and a norm; two steps, held to one device
+ADAFACTOR_LEAVES = {"mla_down": ((7168, 1536), ("data", "model")),
+                    "experts": ((8, 7168, 2048), (None, "data", "model")),
+                    "norm": ((7168,), ())}
+ADAFACTOR_SMOKE = {"mla_down": ((256, 128), ("data", "model")),
+                   "experts": ((2, 256, 128), (None, "data", "model")),
+                   "norm": ((256,), ())}
+ADAFACTOR_STEPS, ADAFACTOR_SEED = 2, 25
+ADAFACTOR_TOL = dict(rtol=1e-5, atol=1e-7)
+ADAFACTOR_DIR = ROOT / "build" / "chip_smoke_adafactor"
+
+
+def adafactor_leaves(smoke: bool, dev) -> tuple:
+    """The seeded leaves and each step's gradients on ``dev``: (names,
+    {name: (param, [grad per step], spec)})."""
+    leaves = ADAFACTOR_SMOKE if smoke else ADAFACTOR_LEAVES
+    gen = seeded(dev, ADAFACTOR_SEED)
+    out = {}
+    for name, (shape, spec) in leaves.items():
+        p = torch.randn(shape, generator=gen, device=dev) * 0.02
+        grads = [torch.randn(shape, generator=gen, device=dev) * 1e-3
+                 for _ in range(ADAFACTOR_STEPS)]
+        out[name] = (p, grads, Spec(*spec))
+    return sorted(leaves), out
+
+
+def adafactor_rank(rank: int, world: int, store: str, outdir: str,
+                   smoke: bool) -> None:
+    """One rank of phase 24's Adafactor check: a gloo process group on
+    ``cuda:0`` (the CPU with ``smoke``), the ``SHARD_MESH`` DeviceMesh,
+    the seeded leaves as DTensor parameters of their specs, two
+    ``optimizers.adafactor`` steps, every parameter and state leaf
+    gathered whole; rank 0 runs the one-device Adafactor on the same
+    values on the same card and pickles the worst difference of each
+    leaf, every rank its seconds."""
+    import datetime
+    import pickle
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.parallel import spmd
+    dev = torch.device("cpu" if smoke else "cuda")
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=90))
+    mesh_ = init_device_mesh(dev.type, SHARD_MESH, mesh_dim_names=SHARD_AXES)
+    names, leaves = adafactor_leaves(smoke, dev)
+    t0 = time.perf_counter()
+    params = [torch.nn.Parameter(spmd.from_local(
+        spmd.local_block(leaves[n][0], mesh_, leaves[n][2]).clone(), mesh_,
+        leaves[n][2])) for n in names]
+    opt = optimizers.adafactor(params)
+    for step in range(ADAFACTOR_STEPS):
+        for n, p in zip(names, params):
+            g, spec = leaves[n][1][step], leaves[n][2]
+            p.grad = spmd.from_local(
+                spmd.local_block(g, mesh_, spec).clone(), mesh_, spec)
+        opt.step()
+    sync(dev)
+    step_s = time.perf_counter() - t0
+    got = {n: {"param": spmd.gather_full(p.detach()),
+               **{k: spmd.gather_full(v) for k, v in opt.state[p].items()}}
+           for n, p in zip(names, params)}
+    dist.destroy_process_group()
+    mine = {"seconds": step_s}
+    if rank == 0:
+        one = [torch.nn.Parameter(leaves[n][0].clone()) for n in names]
+        ref_opt = optimizers.adafactor(one)
+        for step in range(ADAFACTOR_STEPS):
+            for n, p in zip(names, one):
+                p.grad = leaves[n][1][step].clone()
+            ref_opt.step()
+        errs = {}
+        for n, p in zip(names, one):
+            want = {"param": p.detach(), **ref_opt.state[p]}
+            assert set(want) == set(got[n]), (n, set(want), set(got[n]))
+            for k, w in want.items():
+                torch.testing.assert_close(got[n][k], w, **ADAFACTOR_TOL,
+                                           msg=lambda m: f"{n}.{k}: {m}")
+                errs[f"{n}.{k}"] = (float((got[n][k] - w).abs().max()),
+                                    tuple(w.shape))
+            moved = float((p.detach() - leaves[n][0]).abs().max())
+            assert moved > 0, f"{n} did not move"
+        mine["errors"] = errs
+    tmp = Path(outdir) / f"rank{rank}.pkl.tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(mine, f)
+    tmp.replace(Path(outdir) / f"rank{rank}.pkl")
+
+
+def tifu_mesh_sizes(smoke: bool) -> tuple:
+    """(sizes, reduced) of phase 24's cells: the published widths with
+    ``TIFU_MESH_USERS`` users (``SMOKE_SIZES`` with ``smoke``)."""
+    if smoke:
+        return tifu_knn.SMOKE_SIZES, {}
+    sz = tifu_knn.Sizes(n_users=TIFU_MESH_USERS,
+                        stream_users=TIFU_MESH_USERS)
+    pub = tifu_knn.Sizes()
+    gib = 2 ** 30
+    return sz, {"n_users": (
+        f"{pub.n_users:,} → {sz.n_users:,} (time and memory: phase 24's "
+        f"{TIFU_MESH_PHASE_S:.0f} s for 4 ranks on one card, every rank "
+        f"drawing every user's history from the seed; the stream state "
+        f"{tifu_knn.state_bytes(pub.n_users, pub) / gib:.1f} GiB at "
+        f"{pub.n_users:,}, {tifu_knn.state_bytes(sz.n_users, sz) / gib:.1f}"
+        f" GiB here, whose one-device twin runs on the same card first; "
+        f"the corpus {4 * pub.n_users * pub.n_items / gib:.0f} GiB, "
+        f"{4 * sz.n_users * sz.n_items / gib:.0f} GiB here)")}
+
+
+def tifu_mesh_path(dev, card, smoke: bool = False) -> dict:
+    """Phase 24 (after phase 23): tifu-knn's three cells through dryrun's
+    mesh route in ``SHARD_MESH`` gloo ranks on the one card, each held to
+    a one-device run of the same seed made first here (moved to the
+    host, the card freed); B1 and B2 on every rank in ``stream_update``,
+    B3 once a rank in each serve cell, held to its plain version on the
+    rank's block; then Adafactor on DeepSeek-V3's leaf shapes in the
+    ranks against one device.  Returns the ranks' launches."""
+    t_start = time.perf_counter()
+    world = math.prod(SHARD_MESH)
+    sz, reduced = tifu_mesh_sizes(smoke)
+    sizes = {f"{n} x {s}": sz for n, s in TIFU_MESH_CELLS}
+    one, probes = {}, {}
+    for name, shape in TIFU_MESH_CELLS:
+        tag = f"{name} x {shape}"
+        one[tag], probes[tag] = dryrun.one_device(
+            name, shape, world, dev, TIFU_MESH_SEED, sz,
+            probe=(MESH_PROBE_LIMIT, TIFU_MESH_PROBE))
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_start
+
+    t0 = time.perf_counter()
+    shutil.rmtree(TIFU_MESH_DIR, ignore_errors=True)
+    ranks = dryrun.run_ranks(
+        TIFU_MESH_CELLS, SHARD_MESH, str(TIFU_MESH_DIR), dev.type, smoke,
+        TIFU_MESH_SEED, probes, TIFU_MESH_RANK_S, sizes)
+    t_ranks = time.perf_counter() - t0
+    counts = {name: 0 for name in KERNELS}
+    for i, (name, shape) in enumerate(TIFU_MESH_CELLS):
+        tag = f"{name} x {shape}"
+        per = [rank[i] for rank in ranks]
+        how = dryrun.held(one[tag], per[0]["kept"], tag)
+        launched = {k: [r["launches"].get(k, 0) for r in per]
+                    for k in ("sparse_row_gather", "sparse_row_scatter",
+                              "knn_topk")}
+        at = (f" at {len(probes[tag]['users']):,} users' rows"
+              if probes[tag] else "")
+        line = (f"  {tag}: {per[0]['description']}; cuts "
+                f"{reduced or 'none'}; held to the one-device run{at}: "
+                f"{how}; launches by rank {launched}")
+        if shape == "stream_update":
+            assert dev.type != "cuda" or all(
+                all(launched[k]) for k in ("sparse_row_gather",
+                                           "sparse_row_scatter")), launched
+            for k in ("sparse_row_gather", "sparse_row_scatter"):
+                counts[k] += sum(launched[k])
+        else:
+            assert dev.type != "cuda" or launched["knn_topk"] == \
+                [1] * world, launched
+            counts["knn_topk"] += sum(launched["knn_topk"])
+            b3 = [b3_on_block(r["b3_call"]) for r in per]
+            line += (f"; B3 on each rank's block of {b3[0]['rows']:,} "
+                     f"users x {b3[0]['dim']:,} items, k={b3[0]['k']}, "
+                     f"against its plain version max |Δ| "
+                     f"{max(b['max_abs_err'] for b in b3):.2e}, "
+                     f"{sum(b['identical'] for b in b3)} of "
+                     f"{sum(b['n'] for b in b3)} ids identical, the rest "
+                     f"tied")
+        peaks = [r["peak_bytes"] for r in per]
+        if dev.type == "cuda":
+            assert sum(peaks) <= per[0]["device_bytes"], (tag, peaks)
+            line += (f"; the ranks' peaks summed "
+                     f"{sum(peaks) / 2 ** 30:.2f} GiB")
+        log(line)
+        for row in dryrun.rank_rows(per, dev.type == "cuda").split("\n"):
+            log(f"  {row} [{card}]")
+    shutil.rmtree(TIFU_MESH_DIR, ignore_errors=True)
+
+    t0 = time.perf_counter()
+    ada = run_script_ranks("--adafactor-rank", ADAFACTOR_DIR, smoke,
+                           TIFU_MESH_RANK_S, "phase 24's Adafactor")
+    t_ada = time.perf_counter() - t0
+    shutil.rmtree(ADAFACTOR_DIR, ignore_errors=True)
+    leaves = ADAFACTOR_SMOKE if smoke else ADAFACTOR_LEAVES
+    log(f"  Adafactor over DTensor parameters, {ADAFACTOR_STEPS} steps on "
+        f"DeepSeek-V3's leaf shapes "
+        f"{ {n: (s, tuple(p)) for n, (s, p) in leaves.items()} } in "
+        f"{world} ranks against one device on the same card (bar "
+        f"{ADAFACTOR_TOL}), max |Δ| (shape): {ada[0]['errors']}; the "
+        f"ranks' steps {max(r['seconds'] for r in ada):.2f} s, the part "
+        f"{t_ada:.1f} s [{card}]")
+    seconds = time.perf_counter() - t_start
+    log(f"  phase 24: one-device runs {t_ref:.1f} s, ranks {t_ranks:.1f} s,"
+        f" Adafactor {t_ada:.1f} s, {seconds:.1f} s of "
+        f"{TIFU_MESH_PHASE_S:.0f}; launches over the ranks B1 "
+        f"{counts['sparse_row_gather']}, B2 {counts['sparse_row_scatter']}, "
+        f"B3 {counts['knn_topk']} [{card}]")
+    if not smoke:
+        assert seconds <= TIFU_MESH_PHASE_S, seconds
     return counts
 
 
@@ -6312,6 +6565,11 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.append(mesh_cells_path(dev, card))
     log(f"recommender cells under the mesh: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths.append(tifu_mesh_path(dev, card))
+    log(f"tifu-knn cells and Adafactor under the mesh: "
+        f"{time.perf_counter() - t0:.1f} s")
     for name in KERNELS:
         # launches on the paths that drive the kernel (each path's counts
         # were set to 0 just before it and read just after)
@@ -6347,5 +6605,10 @@ if __name__ == "__main__":
         # one of phase 22's rank processes (started by run_shard_ranks)
         r_, w_, store_, out_, mode_ = sys.argv[2:7]
         sharded_rank(int(r_), int(w_), store_, out_, mode_ == "smoke")
+        raise SystemExit(0)
+    if sys.argv[1:2] == ["--adafactor-rank"]:
+        # one of phase 24's Adafactor ranks (started by run_script_ranks)
+        r_, w_, store_, out_, mode_ = sys.argv[2:7]
+        adafactor_rank(int(r_), int(w_), store_, out_, mode_ == "smoke")
         raise SystemExit(0)
     raise SystemExit(main())

@@ -394,12 +394,23 @@ def mesh_shape(mesh: Any) -> MeshShape:
 
 
 def place(tree: Any, shardings: Any, mesh: Any) -> Any:
-    """Each tensor of ``tree`` (the global value every rank holds) as the
-    DTensor of its :class:`Sharding`'s spec in ``shardings`` (a tree of
-    the same keys): the rank's block, no collective."""
+    """Each tensor of ``tree`` (the global value every rank holds; dicts,
+    lists, tuples and dataclasses such as a ``StreamState`` or a batch)
+    as the DTensor of its :class:`Sharding`'s spec in ``shardings`` (a
+    tree of the same keys or fields): a copy of the rank's block, so the
+    whole can be freed, and no collective."""
     from repro_torch.parallel import spmd
-    return tree_map(lambda _, x, s: spmd.constrain(x, mesh, s.spec), tree,
-                    shardings)
+
+    def one(x, s):
+        if dataclasses.is_dataclass(x):
+            return dataclasses.replace(x, **{
+                f.name: one(getattr(x, f.name), getattr(s, f.name))
+                for f in dataclasses.fields(x)})
+        if isinstance(x, (dict, list, tuple)):
+            return tree_map(lambda _, a, b: one(a, b), x, s)
+        block = spmd.local_block(x, mesh, s.spec).clone()
+        return spmd.from_local(block, mesh, s.spec)
+    return one(tree, shardings)
 
 
 # ---------------------------------------------------------------------------

@@ -39,15 +39,26 @@ basket holds.
 The sizes come from one frozen :class:`Sizes`, whose defaults are the
 published constants; ``stream_update`` holds ``stream_users`` of them
 (the state of all 1,048,576 is 136 GiB), and says so in ``reduced``.
+
+Each cell also takes ``mesh=`` and ``rules=`` (a named ``DeviceMesh``,
+every rank calling it), as the JAX cells take them: the same seeded
+inputs placed by ``cell_shardings`` over the mesh, each rank building
+its own block of the vector tables or of the corpus (every history is
+still drawn, the seed's sequence).  ``stream_update`` gathers the
+micro-batch and applies its users' rows on its own item columns in place
+(:func:`apply_on_block`); the serve cells take ``knn.predict`` and
+``knn.distributed_predict``'s mesh routes.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchDef, CellProgram, generator
+from repro_torch.configs.base import (ArchDef, CellProgram, generator,
+                                      mesh_shape, place)
 from repro_torch.core import knn
 from repro_torch.core.tifu import (closed_form_basket_weights,
                                    last_group_basket_weights)
@@ -210,19 +221,27 @@ def last_group_vectors(hist, gs, ng, params: TifuParams) -> torch.Tensor:
     return ops.multihot_scatter(hist, w, params.n_items)
 
 
-def rebuild_tables(state: StreamState, params: TifuParams) -> StreamState:
+def rebuild_tables(state: StreamState, params: TifuParams,
+                   block: Optional[Tuple[int, int, int, int]] = None
+                   ) -> StreamState:
     """Both vector tables of every user from scratch, in place, in
     chunks of :data:`BUILD_CHUNK` users: the paper's retrain baseline.
 
     Two B8 launches a chunk (the user vector, Eq. 1 + 2, and the last
-    group's, Eq. 1); the scales and ``err_mult`` become 1.
+    group's, Eq. 1); the scales and ``err_mult`` become 1.  ``block``
+    (u0, u1, i0, i1): the tables hold users ``[u0, u1)`` on items
+    ``[i0, i1)`` of the state's whole histories (:func:`build_state`'s
+    block), each user's row built alone, so the same bits.
     """
-    for lo in range(0, state.n_users, BUILD_CHUNK):
-        sl = slice(lo, lo + BUILD_CHUNK)
+    u0, u1, i0, i1 = block or (0, state.n_users, 0, state.n_items)
+    for lo in range(u0, u1, BUILD_CHUNK):
+        sl = slice(lo, min(u1, lo + BUILD_CHUNK))
         hist, gs, ng = (state.history[sl], state.group_sizes[sl],
                         state.n_groups[sl])
-        state.user_vecs[sl] = user_vectors(hist, gs, ng, params)
-        state.last_group_vecs[sl] = last_group_vectors(hist, gs, ng, params)
+        rows = slice(lo - u0, sl.stop - u0)
+        state.user_vecs[rows] = user_vectors(hist, gs, ng, params)[:, i0:i1]
+        state.last_group_vecs[rows] = last_group_vectors(
+            hist, gs, ng, params)[:, i0:i1]
     state.err_mult.fill_(1.0)
     state.uv_scale.fill_(1.0)
     state.lgv_scale.fill_(1.0)
@@ -230,15 +249,24 @@ def rebuild_tables(state: StreamState, params: TifuParams) -> StreamState:
 
 
 def build_state(gen: torch.Generator, n_users: int, sz: Sizes,
-                params: TifuParams, dev: torch.device
+                params: TifuParams, dev: torch.device,
+                block: Optional[Tuple[int, int, int, int]] = None
                 ) -> Tuple[StreamState, torch.Tensor]:
     """A seeded state of ``n_users`` users on ``dev``, its tables from
-    scratch, and the users' preference pools i32[n_users, P]."""
+    scratch, and the users' preference pools i32[n_users, P].
+
+    ``block`` (u0, u1, i0, i1): the vector tables are built for users
+    ``[u0, u1)`` on items ``[i0, i1)`` only, a rank's block under a mesh
+    (every user's history is still drawn: the seed's sequence), and the
+    other leaves stay whole; the same bits as those cells of the whole
+    tables.
+    """
     n_b, b, n_items = sz.max_baskets, sz.max_basket_size, sz.n_items
+    u0, u1, i0, i1 = block or (0, n_users, 0, n_items)
     i32 = dict(dtype=torch.int32, device=dev)
     state = StreamState(
-        user_vecs=torch.empty((n_users, n_items), device=dev),
-        last_group_vecs=torch.empty((n_users, n_items), device=dev),
+        user_vecs=torch.empty((u1 - u0, i1 - i0), device=dev),
+        last_group_vecs=torch.empty((u1 - u0, i1 - i0), device=dev),
         history=torch.empty((n_users, n_b, b), **i32),
         group_sizes=torch.empty((n_users, n_b), **i32),
         n_baskets=torch.empty((n_users,), **i32),
@@ -252,7 +280,7 @@ def build_state(gen: torch.Generator, n_users: int, sz: Sizes,
         (state.history[sl], state.group_sizes[sl], state.n_baskets[sl],
          state.n_groups[sl], pools[sl]) = draw_users(
              gen, sl.stop - lo, sz, params.group_size, dev)
-    return rebuild_tables(state, params), pools
+    return rebuild_tables(state, params, block), pools
 
 
 def build_batches(gen: torch.Generator, state: StreamState,
@@ -263,14 +291,15 @@ def build_batches(gen: torch.Generator, state: StreamState,
     padding rows; an added basket is drawn from its user's pool
     (``pools``, as :func:`build_state` returns them), a basket delete
     names one of its user's baskets, an item delete an item of one of
-    them."""
-    dev = state.device
+    them.  Reads the histories and basket counts only (whole, also where
+    ``build_state`` built a block of the tables)."""
+    dev, n_users = state.history.device, state.history.shape[0]
     n_add, n_del = sz.update_batch, sz.del_batch
     n_ev = n_add + 2 * n_del
-    if n_ev > state.n_users:
+    if n_ev > n_users:
         raise ValueError(f"{n_ev} events need as many users, the state "
-                         f"holds {state.n_users}")
-    users = torch.randperm(state.n_users, generator=gen, device=dev)[:n_ev]
+                         f"holds {n_users}")
+    users = torch.randperm(n_users, generator=gen, device=dev)[:n_ev]
     ua, ub, ui = users[:n_add], users[n_add:n_add + n_del], \
         users[n_add + n_del:]
 
@@ -299,18 +328,31 @@ def build_batches(gen: torch.Generator, state: StreamState,
 
 
 def build_corpus(gen: torch.Generator, sz: Sizes, params: TifuParams,
-                 dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+                 dev: torch.device,
+                 block: Optional[Tuple[int, int, int, int]] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(queries f32[Q, I], corpus f32[M, I]): the user vectors of M
     seeded users, then of Q further users, built in chunks through B8;
-    the histories are dropped."""
-    corpus = torch.empty((sz.n_users, sz.n_items), device=dev)
+    the histories are dropped.  ``block`` (u0, u1, i0, i1): the corpus
+    rows ``[u0, u1)`` on items ``[i0, i1)`` only, a rank's block under a
+    mesh (every history is still drawn; the same bits as those cells of
+    the whole corpus); the queries stay whole."""
+    u0, u1, i0, i1 = block or (0, sz.n_users, 0, sz.n_items)
+    corpus = torch.empty((u1 - u0, i1 - i0), device=dev)
     queries = torch.empty((sz.n_queries, sz.n_items), device=dev)
-    for table in (corpus, queries):
-        for lo in range(0, table.shape[0], BUILD_CHUNK):
-            n = min(BUILD_CHUNK, table.shape[0] - lo)
+    for table, (r0, r1, c0, c1) in ((corpus, (u0, u1, i0, i1)),
+                                    (queries, (0, sz.n_queries, 0,
+                                               sz.n_items))):
+        n_rows = sz.n_users if table is corpus else sz.n_queries
+        for lo in range(0, n_rows, BUILD_CHUNK):
+            n = min(BUILD_CHUNK, n_rows - lo)
             hist, gs, _, ng, _ = draw_users(gen, n, sz,
                                             params.group_size, dev)
-            table[lo:lo + n] = user_vectors(hist, gs, ng, params)
+            a, b = max(lo, r0), min(lo + n, r1)
+            if a < b:
+                table[a - r0:b - r0] = user_vectors(
+                    hist[a - lo:b - lo], gs[a - lo:b - lo],
+                    ng[a - lo:b - lo], params)[:, c0:c1]
     return queries, corpus
 
 
@@ -375,23 +417,116 @@ def cell_shardings(shape: str, mesh: Any = None, rules: Any = None) -> tuple:
     raise KeyError(shape)
 
 
+# ---------------------------------------------------------------------------
+# the mesh route
+# ---------------------------------------------------------------------------
+
+def _span(n: int, mesh: Any, axes: Tuple[str, ...]) -> Tuple[int, int]:
+    """The rank's block [lo, hi) of a dim of ``n`` split over ``axes``."""
+    from repro_torch.parallel import spmd
+    size = n // spmd.axis_size(mesh, axes)
+    lo = spmd.axis_index(mesh, axes) * size
+    return lo, lo + size
+
+
+def table_block(shape: Tuple[int, int], mesh: Any,
+                spec: Any) -> Tuple[int, int, int, int]:
+    """(u0, u1, i0, i1): the rows and columns of a [users, items] table
+    laid out by ``spec`` over ``mesh`` that this rank holds."""
+    return (*_span(shape[0], mesh, spec.axes(0)),
+            *_span(shape[1], mesh, spec.axes(1)))
+
+
+def whole_batch(batch: Any) -> Any:
+    """A batch of DTensors (rows over the batch axes) with every field
+    gathered whole on every rank: the micro-batch's exchange."""
+    from repro_torch.parallel import spmd
+    return dataclasses.replace(batch, **{
+        f.name: spmd.gather_full(getattr(batch, f.name))
+        for f in dataclasses.fields(batch)})
+
+
+def apply_on_block(state: StreamState, adds: AddBatch,
+                   delb: DelBasketBatch, deli: DelItemBatch,
+                   params: TifuParams) -> StreamState:
+    """``stream_update`` on a mesh, on every rank: ``state`` holds
+    DTensors laid out as the cell's ``in_shardings`` lay it out (users
+    over the batch axes, the vector tables' items over the tensor axis)
+    and the batches rows over the batch axes.  The three batches are
+    gathered whole (:func:`whole_batch`); each rank applies the rows of
+    the users it holds, on the item columns it holds
+    (``updates.on_user_block``, the appliers' ``cols``), IN PLACE in its
+    blocks; every other row is a padding row there.  The per-user
+    scalars and the history come out the same on the ranks that share
+    users.  No table moves.  Returns ``state``."""
+    from repro_torch.parallel import spmd
+    from repro_torch.core.updates import on_user_block
+    mesh = state.user_vecs.device_mesh
+    u0, u1, i0, i1 = table_block(tuple(state.user_vecs.shape), mesh,
+                                 spmd.spec_of(state.user_vecs))
+    local = StreamState(**{f.name: spmd.local(getattr(state, f.name))
+                           for f in dataclasses.fields(state)})
+    with torch.no_grad():
+        for apply, batch in ((apply_add_batch, adds),
+                             (apply_del_basket_batch, delb),
+                             (apply_del_item_batch, deli)):
+            apply(local, on_user_block(whole_batch(batch), u0, u1), params,
+                  cols=(i0, i1))
+    return state
+
+
+# ---------------------------------------------------------------------------
+# the cells
+# ---------------------------------------------------------------------------
+
 def stream_update_cell(device: Any = None, seed: int = 0,
-                       sizes: Optional[Sizes] = None) -> CellProgram:
+                       sizes: Optional[Sizes] = None, mesh: Any = None,
+                       rules: Any = None,
+                       partitions: Optional[int] = None) -> CellProgram:
     """Kind-partitioned micro-batch: adds, basket deletes, item deletes,
     each sub-batch through its sparse applier (B1 gathers, B2 scatters),
-    the state updated in place."""
+    the state updated in place.
+
+    With a named ``DeviceMesh`` ``mesh`` and ``rules`` (every rank calls
+    it): the same seeded state and batches, placed by the cell's
+    ``in_shardings`` over the mesh (each rank builds the vector tables
+    of its own block only; the histories of every user are drawn), and
+    ``fn`` is :func:`apply_on_block`.  ``partitions`` is not read."""
     sz = sizes or Sizes()
     dev = resolve_device(device)
     params = make_params(sz.n_items)
     gen = generator(dev, seed)
-    state, pools = build_state(gen, sz.stream_users, sz, params, dev)
-    adds, delb, deli = build_batches(gen, state, pools, sz)
-    del pools
+    if mesh is None:
+        shardings = cell_shardings("stream_update")
+        state, pools = build_state(gen, sz.stream_users, sz, params, dev)
+        adds, delb, deli = build_batches(gen, state, pools, sz)
 
-    def fn(state, adds, delb, deli):
-        state = apply_add_batch(state, adds, params)
-        state = apply_del_basket_batch(state, delb, params)
-        return apply_del_item_batch(state, deli, params)
+        def fn(state, adds, delb, deli):
+            state = apply_add_batch(state, adds, params)
+            state = apply_del_basket_batch(state, delb, params)
+            return apply_del_item_batch(state, deli, params)
+    else:
+        from repro_torch.parallel import spmd
+        shardings = cell_shardings("stream_update", mesh_shape(mesh), rules)
+        st = shardings[0]
+        block = table_block((sz.stream_users, sz.n_items), mesh,
+                            st.user_vecs.spec)
+        state, pools = build_state(gen, sz.stream_users, sz, params, dev,
+                                   block)
+        adds, delb, deli = (place(b, sh, mesh) for b, sh in zip(
+            build_batches(gen, state, pools, sz), shardings[1:]))
+        # the tables are the rank's block already, the rest whole
+        tables = ("user_vecs", "last_group_vecs")
+        state = StreamState(**{
+            f.name: spmd.from_local(getattr(state, f.name), mesh,
+                                    getattr(st, f.name).spec)
+            if f.name in tables else
+            place(getattr(state, f.name), getattr(st, f.name), mesh)
+            for f in dataclasses.fields(state)})
+
+        def fn(state, adds, delb, deli):
+            return apply_on_block(state, adds, delb, deli, params)
+    del pools
 
     # the JAX cell's count: adds a W·log2(W) dedup sort and O(W) work on
     # W = (m+1)·B slots a row, deletes the same on W_d = N·B
@@ -400,14 +535,13 @@ def stream_update_cell(device: Any = None, seed: int = 0,
     flops = sz.update_batch * (w * (w - 1).bit_length() + 4 * w) \
         + 2 * sz.del_batch * (w_d * (w_d - 1).bit_length() + 8 * w_d)
     return CellProgram(
-        fn=fn, args=(state, adds, delb, deli),
-        in_shardings=cell_shardings("stream_update"),
+        fn=fn, args=(state, adds, delb, deli), in_shardings=shardings,
         description=(f"kind-partitioned micro-batch adds={sz.update_batch} "
                      f"dels=2x{sz.del_batch} M={sz.stream_users} "
                      f"I={sz.n_items}"),
         model_flops_per_step=float(flops), reduced=stream_cut(sz),
         estimate_bytes=float(state_bytes(sz.stream_users, sz)
-                             + build_bytes(sz)))
+                             + build_bytes(sz)), mesh=mesh)
 
 
 def stream_cut(sz: Sizes) -> dict:
@@ -424,66 +558,127 @@ def stream_cut(sz: Sizes) -> dict:
         f"{sz.stream_users:,} fits one 80 GB card)")}
 
 
+def _serve_inputs(shape: str, sz: Sizes, params: TifuParams,
+                  dev: torch.device, seed: int, mesh: Any, rules: Any):
+    """A serve cell's (queries, corpus) on a mesh, placed by the cell's
+    ``in_shardings``: each rank builds the corpus rows and items of its
+    own block only (every history is still drawn), the queries whole,
+    and keeps its blocks.  Returns (queries, corpus, the shardings)."""
+    from repro_torch.parallel import spmd
+    shardings = cell_shardings(shape, mesh_shape(mesh), rules)
+    q_sh, c_sh = shardings
+    if sz.n_users % spmd.axis_size(mesh, c_sh.spec.axes(0)):
+        raise ValueError(f"{sz.n_users} users do not split over "
+                         f"{c_sh.spec.axes(0)}")
+    queries, corpus = build_corpus(
+        generator(dev, seed), sz, params, dev,
+        table_block((sz.n_users, sz.n_items), mesh, c_sh.spec))
+    return (place(queries, q_sh, mesh),
+            spmd.from_local(corpus, mesh, c_sh.spec), shardings)
+
+
 def serve_topk_cell(device: Any = None, seed: int = 0,
-                    sizes: Optional[Sizes] = None) -> CellProgram:
+                    sizes: Optional[Sizes] = None, mesh: Any = None,
+                    rules: Any = None,
+                    partitions: Optional[int] = None) -> CellProgram:
     """``knn.predict_streaming`` of the queries against the corpus (no
-    self-exclusion: the queries are other users)."""
+    self-exclusion: the queries are other users).
+
+    With a named ``DeviceMesh`` ``mesh`` and ``rules`` (every rank calls
+    it): the same seeded data placed by the cell's ``in_shardings``
+    (users over the batch axes, items over the tensor axis), and ``fn``
+    is ``knn.predict(..., mesh=, rules=)``: the one-device answer from
+    B3 on each rank's rows.  ``partitions`` is not read."""
     sz = sizes or Sizes()
     dev = resolve_device(device)
     params = make_params(sz.n_items)
-    queries, corpus = build_corpus(generator(dev, seed), sz, params, dev)
+    if mesh is None:
+        shardings = cell_shardings("serve_topk")
+        queries, corpus = build_corpus(generator(dev, seed), sz, params,
+                                       dev)
 
-    def fn(queries, corpus):
-        return knn.predict_streaming(queries, corpus, k=sz.topk,
-                                     alpha=params.alpha, exclude_self=False)
+        def fn(queries, corpus):
+            return knn.predict_streaming(queries, corpus, k=sz.topk,
+                                         alpha=params.alpha,
+                                         exclude_self=False)
+    else:
+        queries, corpus, shardings = _serve_inputs(
+            "serve_topk", sz, params, dev, seed, mesh, rules)
+
+        def fn(queries, corpus):
+            return knn.predict(queries, corpus, k=sz.topk,
+                               alpha=params.alpha, exclude_self=False,
+                               mesh=mesh, rules=rules)
 
     flops = 2.0 * sz.n_queries * sz.n_users * sz.n_items \
         + 2.0 * sz.n_queries * sz.topk * sz.n_items
     return CellProgram(
-        fn=fn, args=(queries, corpus),
-        in_shardings=cell_shardings("serve_topk"),
+        fn=fn, args=(queries, corpus), in_shardings=shardings,
         description=f"kNN predict Q={sz.n_queries} M={sz.n_users} "
                     f"I={sz.n_items} k={sz.topk}",
-        model_flops_per_step=flops, estimate_bytes=serve_bytes(sz))
+        model_flops_per_step=flops, estimate_bytes=serve_bytes(sz),
+        mesh=mesh)
 
 
 def serve_topk_opt_cell(device: Any = None, seed: int = 0,
-                        sizes: Optional[Sizes] = None) -> CellProgram:
+                        sizes: Optional[Sizes] = None, mesh: Any = None,
+                        rules: Any = None,
+                        partitions: Optional[int] = None) -> CellProgram:
     """``knn.distributed_predict`` over ``n_shards`` contiguous row
     blocks of the same corpus as ``serve_topk`` (the same seed gives the
     same data), dealt to the devices by ``make_user_shard_devices``:
     every visible card by default, else the one named; blocks on the
-    corpus's device are views, not copies."""
+    corpus's device are views, not copies.
+
+    With a named ``DeviceMesh`` ``mesh`` and ``rules`` (every rank calls
+    it): the same seeded data placed by the cell's ``in_shardings``
+    (queries replicated, corpus rows over every mesh axis), and ``fn`` is
+    ``knn.distributed_predict``'s mesh route (B3 on each rank's rows, the
+    candidates merged over "model", then "data"); ``n_shards`` is not
+    read there, nor ``partitions`` anywhere."""
     sz = sizes or Sizes()
     dev = resolve_device(device)
-    if sz.n_users % sz.n_shards:
-        raise ValueError(f"{sz.n_users} users do not split into "
-                         f"{sz.n_shards} equal row blocks")
     params = make_params(sz.n_items)
-    devices = make_user_shard_devices(sz.n_shards,
-                                      None if device is None else [dev])
-    queries, corpus = build_corpus(generator(devices[0], seed), sz, params,
-                                   devices[0])
-    m_loc = sz.n_users // sz.n_shards
-    blocks = [corpus[s * m_loc:(s + 1) * m_loc].to(d)
-              for s, d in enumerate(devices)]
-    del corpus
+    if mesh is not None:
+        queries, corpus, shardings = _serve_inputs(
+            "serve_topk_opt", sz, params, dev, seed, mesh, rules)
+        n_blocks = math.prod(mesh.shape)
+        args = (queries, corpus)
 
-    def fn(queries, blocks):
-        return knn.distributed_predict(queries, blocks, k=sz.topk,
-                                       alpha=params.alpha)
+        def fn(queries, corpus):
+            return knn.distributed_predict(queries, corpus, k=sz.topk,
+                                           alpha=params.alpha, mesh=mesh,
+                                           rules=rules)
+    else:
+        if sz.n_users % sz.n_shards:
+            raise ValueError(f"{sz.n_users} users do not split into "
+                             f"{sz.n_shards} equal row blocks")
+        shardings = cell_shardings("serve_topk_opt")
+        n_blocks = sz.n_shards
+        devices = make_user_shard_devices(sz.n_shards,
+                                          None if device is None else [dev])
+        queries, corpus = build_corpus(generator(devices[0], seed), sz,
+                                       params, devices[0])
+        m_loc = sz.n_users // sz.n_shards
+        args = (queries, [corpus[s * m_loc:(s + 1) * m_loc].to(d)
+                          for s, d in enumerate(devices)])
+        del corpus
+
+        def fn(queries, blocks):
+            return knn.distributed_predict(queries, blocks, k=sz.topk,
+                                           alpha=params.alpha)
 
     # the JAX cell's definition: the scores, and the neighbour mean as a
     # one-hot [Q, M] x [M, I] matmul
     flops = 2.0 * sz.n_queries * sz.n_users * sz.n_items \
         + 2.0 * sz.n_queries * sz.n_users * sz.n_items
     return CellProgram(
-        fn=fn, args=(queries, blocks),
-        in_shardings=cell_shardings("serve_topk_opt"),
-        description=f"kNN predict (opt, {sz.n_shards} row blocks) "
+        fn=fn, args=args, in_shardings=shardings,
+        description=f"kNN predict (opt, {n_blocks} row blocks) "
                     f"Q={sz.n_queries} M={sz.n_users} I={sz.n_items} "
                     f"k={sz.topk}",
-        model_flops_per_step=flops, estimate_bytes=serve_bytes(sz))
+        model_flops_per_step=flops, estimate_bytes=serve_bytes(sz),
+        mesh=mesh)
 
 
 def smoke_config() -> TifuParams:
@@ -499,4 +694,6 @@ ARCH = ArchDef(
     notes="the paper's system at production width on one card: "
           "stream_update at 524,288 users, the serve cells over all "
           "1,048,576; serve_topk_opt is the user-sharded variant over "
-          "contiguous row blocks.")
+          "contiguous row blocks. Under a mesh: users over the batch "
+          "axes, the tables' items over the tensor axis; serve_topk_opt's "
+          "rows over every axis.")

@@ -8,7 +8,9 @@ chunks.  ``predict_streaming`` is the reference's ``predict`` on a mesh
 (stage A through ``ops.knn_topk``, then the chunked mean), and
 ``distributed_predict`` its user-sharded form over contiguous row blocks
 (one per device: local top-k, one merge, partial neighbour sums added in
-block order).  ``recommend_for_users`` serves through
+block order).  Under a named ``DeviceMesh`` (``mesh=``) both run in
+ranks: each rank's rows through B3, the candidate lists merged over each
+axis, one all-reduce of the partial neighbour sums.  ``recommend_for_users`` serves through
 ``kernels.ops.fused_recommend`` (the two CUDA serving kernels on the
 card, the plain unfused pipeline on CPU), ``recommend_for_users_quant``
 through ``ops.fused_recommend_quant`` (the int8 corpus), and the two
@@ -20,7 +22,7 @@ reorder near-ties.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -61,12 +63,35 @@ def nearest_neighbors(queries: torch.Tensor, corpus: torch.Tensor, k: int,
 def predict(queries: torch.Tensor, corpus: torch.Tensor, k: int,
             alpha: float, metric: str = "euclidean",
             exclude_self: bool = True,
-            query_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+            query_ids: Optional[torch.Tensor] = None, mesh: Any = None,
+            rules: Any = None) -> torch.Tensor:
     """TIFU-kNN prediction per query, f32[Q, I].
 
     α·q + (1−α)·mean of its k nearest corpus rows.  O(Q·M·I) compute, a
     [Q, k, I] gather.
+
+    With a named ``DeviceMesh`` (every rank calls it): the one-device
+    :func:`predict_streaming` answer, as a DTensor every rank holds
+    whole.  ``queries`` and ``corpus`` are DTensors in any layout (the
+    serve cell's: users over the batch axes, items over the tensor axis)
+    or the global values every rank holds.  The corpus is moved to whole
+    rows of users over every mesh axis, the queries gathered, then
+    :func:`distributed_predict`'s mesh route runs on the rank's rows;
+    ``rules`` is JAX's argument, which the route does not read.
+    Euclidean or dot.
     """
+    if mesh is not None:
+        from repro_torch.parallel import spmd
+        from repro_torch.parallel.sharding import Spec
+        gids = None
+        if exclude_self:
+            gids = (torch.arange(queries.shape[0],
+                                 device=spmd.local(corpus).device)
+                    if query_ids is None else spmd.gather_full(query_ids))
+        out = _predict_on_rows(spmd.enter(queries, mesh, Spec()),
+                               spmd.enter(corpus, mesh, _rows_spec(mesh)),
+                               k, alpha, mesh, metric, gids)
+        return spmd.from_local(out, mesh, Spec())
     _, idx = nearest_neighbors(queries, corpus, k, metric, exclude_self,
                                query_ids)
     neighbors = torch.mean(corpus[idx.long()], dim=1)
@@ -217,10 +242,9 @@ def distributed_topk(queries: torch.Tensor,
     return _merge_scored(vals, gids, k)
 
 
-def distributed_predict(queries: torch.Tensor,
-                        blocks: Sequence[torch.Tensor], k: int,
-                        alpha: float,
-                        metric: str = "euclidean") -> torch.Tensor:
+def distributed_predict(queries: torch.Tensor, blocks: Any, k: int,
+                        alpha: float, metric: str = "euclidean",
+                        mesh: Any = None, rules: Any = None) -> torch.Tensor:
     """TIFU-kNN prediction over a corpus held as contiguous row blocks,
     one per device, f32[Q, I] on the queries' device.
 
@@ -232,7 +256,22 @@ def distributed_predict(queries: torch.Tensor,
     device (the reference's psum), divided by k and α-blended.  No
     self-exclusion, as in the reference.  O(Q·M·I) compute, O(n·Q·k·I)
     reads, n [Q, I] partials moved.
+
+    With a named ``DeviceMesh`` (every rank calls it), ``blocks`` is the
+    corpus: a DTensor, moved to whole rows of users over every mesh axis
+    where it lies otherwise, or the global value every rank holds, of
+    which the rank keeps its rows; ``queries`` likewise, gathered.  Each
+    rank runs B3 on its own rows (:func:`_predict_on_rows`); the answer
+    is a DTensor every rank holds whole.  ``rules`` is JAX's argument,
+    which the route does not read.
     """
+    if mesh is not None:
+        from repro_torch.parallel import spmd
+        from repro_torch.parallel.sharding import Spec
+        out = _predict_on_rows(spmd.enter(queries, mesh, Spec()),
+                               spmd.enter(blocks, mesh, _rows_spec(mesh)),
+                               k, alpha, mesh, metric)
+        return spmd.from_local(out, mesh, Spec())
     _, sel = distributed_topk(queries, blocks, k, metric)
     m_loc = blocks[0].shape[0]
     total = None
@@ -247,6 +286,68 @@ def distributed_predict(queries: torch.Tensor,
             part[sl] = _neighbor_sum(block, local[sl])
         part = part.to(queries.device)
         total = part if total is None else total + part
+    return alpha * queries + (1.0 - alpha) * total / k
+
+
+def _rows_spec(mesh: Any) -> Any:
+    """Whole rows of users over every axis of ``mesh``, in its order."""
+    from repro_torch.parallel.sharding import Spec
+    return Spec(tuple(mesh.mesh_dim_names), None)
+
+
+def _merge_over(vals: torch.Tensor, gids: torch.Tensor, k: int, mesh: Any,
+                axis: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The candidate lists ([Q, k] scores, i64 global ids) of the ranks of
+    ``axis`` merged: both all-gathered along the list, then the first k
+    by (score desc, id asc) (:func:`_merge_scored`).  Every rank of
+    ``axis`` gets the same list."""
+    from repro_torch.parallel import spmd
+    return _merge_scored([spmd.all_gather(vals, mesh, axis, 1)],
+                         [spmd.all_gather(gids, mesh, axis, 1)], k)
+
+
+def _predict_on_rows(queries: torch.Tensor, rows: torch.Tensor, k: int,
+                     alpha: float, mesh: Any, metric: str = "euclidean",
+                     query_ids: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """The mesh route of :func:`distributed_predict` on one rank, f32[Q,
+    I]: ``rows`` is the rank's block of the corpus (whole rows, users
+    over every mesh axis in its order), ``queries`` whole.
+
+    B3 on the block (``ops.knn_topk``; the column of ``query_ids[q]``,
+    given, scores −inf), its ids made global; the lists merged over each
+    axis, the innermost first (JAX's order): an all-gather of the [Q, k]
+    scores and ids, then the first k by (score desc, id asc), the one
+    corpus's order; each rank sums the selected rows it holds, in chunks
+    of neighbours and queries; one all-reduce of the [Q, I] partial sums
+    over every axis; then the α-blend.  No [Q, M] score matrix and no
+    reduction of partial scores: O(Q·M·I / n) compute a rank, O(n·Q·k)
+    candidates and one [Q, I] sum moved.
+    """
+    from repro_torch.parallel import spmd
+    axes = tuple(mesh.mesh_dim_names)
+    # a gathered block is a strided view; B3 reads whole rows
+    queries, rows = queries.contiguous(), rows.contiguous()
+    m_loc = rows.shape[0]
+    if k > m_loc:
+        raise ValueError(f"k={k} > the {m_loc} rows of a rank's block")
+    lo = spmd.axis_index(mesh, axes) * m_loc
+    gids = None if query_ids is None else \
+        (query_ids.to(rows.device).long() - lo).to(torch.int32)
+    vals, idx = ops.knn_topk(queries, rows, k, metric=metric,
+                             query_gids=gids)
+    sel = idx.long() + lo
+    for axis in reversed(axes):
+        vals, sel = _merge_over(vals, sel, k, mesh, axis)
+    local = sel - lo
+    local = torch.where((local >= 0) & (local < m_loc), local,
+                        torch.full_like(local, -1))
+    part = torch.empty((sel.shape[0], rows.shape[1]), dtype=rows.dtype,
+                       device=rows.device)
+    for q0 in range(0, sel.shape[0], MEAN_QUERY_CHUNK):
+        sl = slice(q0, q0 + MEAN_QUERY_CHUNK)
+        part[sl] = _neighbor_sum(rows, local[sl])
+    total = spmd.psum(part, mesh, axes)
     return alpha * queries + (1.0 - alpha) * total / k
 
 

@@ -32,7 +32,8 @@ indexed assignment, whose duplicate writes would race.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -123,6 +124,33 @@ def _first_occurrence(ids: torch.Tensor) -> torch.Tensor:
 
 def _where0(cond: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.where(cond, x, torch.zeros_like(x))
+
+
+def _on_cols(ids: torch.Tensor, cols: Optional[Tuple[int, int]]
+             ) -> torch.Tensor:
+    """Support ids as columns of vector tables that hold the items
+    ``[i0, i1)`` of ``cols`` (a rank's item block under a mesh): ``id −
+    i0`` inside the block, PAD outside it; ``cols=None``, tables of
+    every item: ``ids`` as they are."""
+    if cols is None:
+        return ids
+    i0, i1 = cols
+    return torch.where((ids >= i0) & (ids < i1), ids - i0,
+                       torch.full_like(ids, PAD_ID))
+
+
+def on_user_block(batch, u0: int, u1: int):
+    """``batch`` (an ``AddBatch``, ``DelBasketBatch`` or ``DelItemBatch``
+    of global user ids) as the sub-batch of a state that holds the users
+    ``[u0, u1)`` (a rank's block under a mesh): each row of such a user
+    with its local row ``user − u0``, every other row a padding row
+    (``valid`` False, user 0), which the appliers leave without effect.
+    The rows keep their order and everything else of the batch."""
+    own = (batch.user >= u0) & (batch.user < u1)
+    return dataclasses.replace(
+        batch, user=torch.where(own, batch.user - u0,
+                                torch.zeros_like(batch.user)),
+        valid=batch.valid & own)
 
 
 # ---------------------------------------------------------------------------
@@ -390,7 +418,8 @@ def _single_update(user_vec, last_group_vec, history, group_sizes,
 # ---------------------------------------------------------------------------
 
 def apply_add_batch_counted(state: StreamState, batch: AddBatch,
-                            params: TifuParams
+                            params: TifuParams,
+                            cols: Optional[Tuple[int, int]] = None
                             ) -> Tuple[StreamState, torch.Tensor]:
     """Apply a basket-addition sub-batch with sparse deltas (Eq. 7–9).
 
@@ -401,6 +430,10 @@ def apply_add_batch_counted(state: StreamState, batch: AddBatch,
     user whose history or group table is full are no-ops.  Updates
     ``state`` in place; returns ``(state, dropped)`` with ``dropped`` the
     device count of valid rows the capacity guard masked.
+
+    ``cols``: the vector tables hold the items ``[i0, i1)`` only (a
+    rank's block under a mesh); the dedup and every per-row scalar still
+    run on the global ids, and B1/B2 address the block's columns.
 
     INVARIANT: each user appears at most once among valid rows.
     """
@@ -444,7 +477,8 @@ def apply_add_batch_counted(state: StreamState, batch: AddBatch,
     bfirst = _first_occurrence(items)
     zeros_old = torch.zeros(old_ids.shape, dtype=torch.float32, device=dev)
 
-    lraw = sparse_row_gather(state.last_group_vecs, u, ids_all)
+    lraw = sparse_row_gather(state.last_group_vecs, u,
+                             _on_cols(ids_all, cols))
     ltrue = lraw * sig[:, None]
 
     # --- scale updates (the dense part of Eq. 7/8, now scalar) -------------
@@ -474,8 +508,9 @@ def apply_add_batch_counted(state: StreamState, batch: AddBatch,
         [zeros_old, bfirst / ((tauf + 1.0) * sig_new)[:, None]], dim=1)
     lgv_vals = torch.where(new_group[:, None], lgv_reset, lgv_append)
 
-    sparse_row_scatter(state.user_vecs, u, ids_all, user_vals)
-    sparse_row_scatter(state.last_group_vecs, u, ids_all, lgv_vals)
+    on_cols = _on_cols(ids_all, cols)
+    sparse_row_scatter(state.user_vecs, u, on_cols, user_vals)
+    sparse_row_scatter(state.last_group_vecs, u, on_cols, lgv_vals)
 
     # --- per-row scalar / bookkeeping deltas -------------------------------
     valid_i = valid.to(torch.int32)
@@ -504,13 +539,14 @@ def apply_add_batch_counted(state: StreamState, batch: AddBatch,
 
 
 def apply_add_batch(state: StreamState, batch: AddBatch,
-                    params: TifuParams) -> StreamState:
+                    params: TifuParams,
+                    cols: Optional[Tuple[int, int]] = None) -> StreamState:
     """Apply a basket-addition sub-batch with sparse deltas (Eq. 7–9).
 
     As :func:`apply_add_batch_counted` — O(batch · W) state traffic —
     without the drop count.  Updates ``state`` in place.
     """
-    return apply_add_batch_counted(state, batch, params)[0]
+    return apply_add_batch_counted(state, batch, params, cols)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -524,11 +560,12 @@ def _slots(c_row: torch.Tensor, bh: int) -> torch.Tensor:
 
 
 def _del_basket_sparse_core(state: StreamState, u, hist, gs, nb, k, s, sig,
-                            em, pos, valid, params: TifuParams):
+                            em, pos, valid, params: TifuParams, cols=None):
     """Shared sparse basket-deletion math (Eq. 10-12 on the support).
 
     Rows with ``valid`` False produce all-PAD support ids, zero scatter
-    values and unit ratios.  Returns ``(ids, u_vals, l_vals, s_ratio,
+    values and unit ratios.  The support ids are global; the gathers read
+    the columns ``cols`` holds (:func:`_on_cols`).  Returns ``(ids, u_vals, l_vals, s_ratio,
     em_ratio, new_hist, new_gs, d_nb, d_ng)``.
     """
     dev = state.device
@@ -563,8 +600,9 @@ def _del_basket_sparse_core(state: StreamState, u, hist, gs, nb, k, s, sig,
                       torch.full_like(hist, PAD_ID)).reshape(n_rows,
                                                              n_bask * bh)
     first = _first_occurrence(ids).to(torch.float32)
-    uraw = sparse_row_gather(state.user_vecs, u, ids)
-    lraw = sparse_row_gather(state.last_group_vecs, u, ids)
+    on_cols = _on_cols(ids, cols)
+    uraw = sparse_row_gather(state.user_vecs, u, on_cols)
+    lraw = sparse_row_gather(state.last_group_vecs, u, on_cols)
 
     # --- scenario 1: per-slot expansion of r_g^(k-1-j)·(v'_gj - v_gj)/k ----
     pow_tp = fpow(rb, _where0(in_gj, tau_j[:, None] - p))
@@ -633,13 +671,15 @@ def _gather_rows(state: StreamState, u: torch.Tensor):
 
 
 def apply_del_basket_batch(state: StreamState, batch: DelBasketBatch,
-                           params: TifuParams) -> StreamState:
+                           params: TifuParams,
+                           cols: Optional[Tuple[int, int]] = None
+                           ) -> StreamState:
     """Apply a basket-deletion sub-batch with sparse deltas (Eq. 10–12).
 
     The suffix contractions are expanded to per-history-slot
     coefficients, so state traffic is O(batch · N·B) — the deleted
     user's history window — not O(batch · n_items).  Updates ``state``
-    in place.
+    in place.  ``cols``: as :func:`apply_add_batch_counted`'s.
     """
     u = batch.user.long()
     hist, gs, nb, k, s, sig, em = _gather_rows(state, u)
@@ -648,9 +688,10 @@ def apply_del_basket_batch(state: StreamState, batch: DelBasketBatch,
                         (nb - 1).clamp(min=0))
     (ids, u_vals, l_vals, s_ratio, em_ratio, new_hist, new_gs, d_nb,
      d_ng) = _del_basket_sparse_core(state, u, hist, gs, nb, k, s, sig, em,
-                                     pos, valid, params)
-    sparse_row_scatter(state.user_vecs, u, ids, u_vals)
-    sparse_row_scatter(state.last_group_vecs, u, ids, l_vals)
+                                     pos, valid, params, cols)
+    on_cols = _on_cols(ids, cols)
+    sparse_row_scatter(state.user_vecs, u, on_cols, u_vals)
+    sparse_row_scatter(state.last_group_vecs, u, on_cols, l_vals)
     _add_(state.history, (u,), _where0(valid[:, None, None],
                                        new_hist - hist))
     _add_(state.group_sizes, (u,), _where0(valid[:, None], new_gs - gs))
@@ -663,13 +704,15 @@ def apply_del_basket_batch(state: StreamState, batch: DelBasketBatch,
 
 
 def apply_del_item_batch(state: StreamState, batch: DelItemBatch,
-                         params: TifuParams) -> StreamState:
+                         params: TifuParams,
+                         cols: Optional[Tuple[int, int]] = None
+                         ) -> StreamState:
     """Apply an item-deletion sub-batch with sparse deltas (Eq. 13).
 
     The in-place branch touches one (user, item) cell of each vector
     table, O(1) per event; the basket-vanish fallback reuses the Eq.
     10–12 core on the history window, O(N·B) per event.  Updates
-    ``state`` in place.
+    ``state`` in place.  ``cols``: as :func:`apply_add_batch_counted`'s.
     """
     dev = state.device
     u = batch.user.long()
@@ -688,7 +731,7 @@ def apply_del_item_batch(state: StreamState, batch: DelItemBatch,
 
     (ids_db, u_db, l_db, s_ratio, em_ratio, hist_db, gs_db, d_nb,
      d_ng) = _del_basket_sparse_core(state, u, hist, gs, nb, k, s, sig, em,
-                                     pos, apply_db, params)
+                                     pos, apply_db, params, cols)
 
     # --- Eq. 13 in place: one cell per table -------------------------------
     j, i = _locate(gs, pos)
@@ -717,8 +760,9 @@ def apply_del_item_batch(state: StreamState, batch: DelItemBatch,
     new_gs = torch.where(apply_db[:, None], gs_db, gs)
     touched = apply_db | apply_ip
 
-    sparse_row_scatter(state.user_vecs, u, ids, u_vals)
-    sparse_row_scatter(state.last_group_vecs, u, ids, l_vals)
+    on_cols = _on_cols(ids, cols)
+    sparse_row_scatter(state.user_vecs, u, on_cols, u_vals)
+    sparse_row_scatter(state.last_group_vecs, u, on_cols, l_vals)
     _add_(state.history, (u,), _where0(touched[:, None, None],
                                        new_hist - hist))
     _add_(state.group_sizes, (u,), _where0(apply_db[:, None], new_gs - gs))

@@ -32,8 +32,8 @@ FLOPs by dtype), ``chips`` (1), ``model_flops_per_device`` and
 counts are the same; the terms are the card's, not the CPU's.
 
 The mesh route (``--mesh D,M``; the JAX dry run's ``in_shardings`` on a
-mesh): the cells of the LM, recommender and GNN families run in ``D·M``
-rank processes on the ("data", "model") mesh with the batch and FSDP
+mesh): the cells of the LM, recommender, GNN and tifu families run in
+``D·M`` rank processes on the ("data", "model") mesh with the batch and FSDP
 over "data" (:func:`no_mesh_route` names the cells without one).  The
 parent first runs each cell on one device from the same seed and keeps
 its outputs on the host (:func:`outputs`), then starts the ranks (over
@@ -42,8 +42,8 @@ rank has a card), each of which calls
 :func:`run_cell_sharded` per cell: the cell built with ``mesh=`` and
 placed by its ``in_shardings``, run once (each kernel wrapper's
 launches counted), its outputs gathered (a train step's loss, gradient
-norm, clipped gradients and parameters after it), then counted once
-more under the ``CostCounter`` (the rank's FLOPs, HBM bytes and
+norm, clipped gradients and parameters after it; a ``stream_update``'s
+state), then counted once more under the ``CostCounter`` (the rank's FLOPs, HBM bytes and
 ``torch.distributed`` collective bytes by kind).  The parent prints
 one row a rank (seconds, peak, collective bytes by kind; ``fits``: the
 rank's peak within its card, or the sum of the ranks' peaks within the
@@ -51,13 +51,17 @@ card they share) and holds each cell's gathered outputs to the
 one-device run's (:func:`held`).  ``--smoke`` runs every cell at
 ``configs.smoke_sizes``.  A failed rank fails the run; a rank never
 moves to the CPU (ranks run on CUDA unless ``--device cpu``).
-tifu-knn's cells have their own sharded deployment
-(``UserShardSpec``, ``knn.distributed_predict``), not this route.
+tifu-knn's cells take the route as the JAX cells take their
+``in_shardings``: ``stream_update``'s state with users over "data" and
+the vector tables' items over "model", each rank applying its users'
+rows of the gathered micro-batch on its own columns; the serve cells
+through B3 on each rank's rows and the merge over "model", then "data".
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -73,7 +77,7 @@ import torch
 
 from repro_torch.configs import all_cells, get_arch, smoke_sizes
 from repro_torch.configs.base import CellProgram
-from repro_torch.core.types import resolve_device
+from repro_torch.core.types import StreamState, resolve_device
 from repro_torch.kernels import build
 from repro_torch.launch import roofline
 from repro_torch.launch.cost import CostCounter, Costs
@@ -186,8 +190,8 @@ def run_cell(arch_name: str, shape: str, device: Any = None, seed: int = 0,
 # ---------------------------------------------------------------------------
 
 MESH_AXES = ("data", "model")
-# families with a mesh route (tifu-knn shards by users instead)
-MESH_FAMILIES = ("lm", "recsys", "gnn")
+# families with a mesh route
+MESH_FAMILIES = ("lm", "recsys", "gnn", "tifu")
 # a rank's process group: its setup and each collective's timeout (s)
 GROUP_TIMEOUT_S = 90.0
 
@@ -200,12 +204,11 @@ def no_mesh_route(arch_name: str, shape: str, model_axis: int = 1,
     arch = get_arch(arch_name)
     cell = arch.cells[shape]
     if arch.family not in MESH_FAMILIES:
-        return (f"the {arch.family} family shards by users "
-                f"(UserShardSpec), not by the cells' in_shardings")
-    if getattr(cell, "optimizer", "adamw") != "adamw":
-        return "Adafactor over DTensor parameters is not ported"
+        return f"the {arch.family} family has no mesh route"
+    if arch.family != "lm":
+        return None
     c = (cell.published if sizes is None else sizes).config
-    if arch.family == "lm" and c.n_heads % model_axis:
+    if c.n_heads % model_axis:
         return (f"its {c.n_heads} heads do not divide the model axis "
                 f"({model_axis}): the sharded LM splits attention by head")
     return None
@@ -254,14 +257,15 @@ def outputs(prog: CellProgram, out: Any,
     gathered): a train step's ``{"loss", "gnorm", "grads", "params"}``
     (the gradient's global norm before the clip, each gradient as the
     step applied it, clipped, and the parameters after the step; those
-    named in ``probes`` as their rows at its global row ids only), an LM
-    prefill's or decode's logits, else the output (a tensor or a tuple
-    of them).  On a mesh every rank must call it (the gathers are
-    collectives)."""
+    named in ``probes`` as their rows at its global row ids only), a
+    ``StreamState`` after the micro-batch (with ``probes["users"]``, each
+    leaf at those users' rows only), an LM prefill's or decode's logits,
+    else the output (a tensor or a tuple of them).  On a mesh every rank
+    must call it (the gathers are collectives)."""
     if isinstance(out, dict) and "loss" in out:
         def whole(name, t):
             if probes and name in probes:
-                return _probed(t, probes[name], prog.mesh)
+                return rows_at(t, probes[name], prog.mesh)
             return _host(t)
         named = list(prog.args[0].named_parameters())
         return {"loss": float(out["loss"]),
@@ -269,6 +273,12 @@ def outputs(prog: CellProgram, out: Any,
                 "grads": {name: whole(name, p.grad) for name, p in named
                           if p.grad is not None},
                 "params": {name: whole(name, p) for name, p in named}}
+    if isinstance(out, StreamState):
+        users = (probes or {}).get("users")
+        return StreamState(**{
+            f.name: _host(getattr(out, f.name)) if users is None else
+            rows_at(getattr(out, f.name), users, prog.mesh)
+            for f in dataclasses.fields(out)})
     if isinstance(out, tuple) and len(out) == 2 and isinstance(out[1], dict):
         out = out[0]                          # (logits, caches)
     if isinstance(out, (tuple, list)):
@@ -276,19 +286,34 @@ def outputs(prog: CellProgram, out: Any,
     return _host(out)
 
 
-def _probed(p: Any, ids: np.ndarray, mesh: Any) -> torch.Tensor:
-    """Rows ``ids`` of parameter ``p`` (a DTensor's through the sharded
-    lookup: every rank gets them)."""
-    from repro_torch.models.embedding import gather_rows, row_block
-    rows = torch.as_tensor(ids, dtype=torch.int64, device=p.device)
+def rows_at(x: Any, ids: Any, mesh: Any) -> torch.Tensor:
+    """Rows ``ids`` (global) of ``x``, whole, on the host.  A DTensor's
+    (rows over any axes, its other dims in any layout): each rank takes
+    the rows its block holds and zeros for the rest, summed over the row
+    axes (one rank adds each row, so the sum is exact), then the other
+    dims gathered; every rank must call it."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.parallel import spmd
+    from repro_torch.parallel.sharding import Spec
     with torch.no_grad():
-        if mesh is None:
-            return p.detach()[rows].cpu()
-        w, axes, off = row_block(p.detach(), mesh)
-        if w.dim() == 1:
-            return gather_rows(w[:, None], axes, off, rows, mesh,
-                               ())[:, 0].cpu()
-        return gather_rows(w, axes, off, rows, mesh, ()).cpu()
+        local = spmd.local(x.detach())
+        rows = torch.as_tensor(np.asarray(ids), dtype=torch.int64,
+                               device=local.device)
+        if mesh is None or not isinstance(x, DTensor):
+            return local[rows].cpu()
+        spec = spmd.spec_of(x)
+        axes = spec.axes(0)
+        at = rows - spmd.axis_index(mesh, axes) * local.shape[0]
+        hit = (at >= 0) & (at < local.shape[0])
+        part = local[at.clamp(0, local.shape[0] - 1)]
+        part = torch.where(hit.view(-1, *(1,) * (part.dim() - 1)), part,
+                           torch.zeros_like(part))
+        if axes:
+            part = spmd.psum(part, mesh, axes)
+        rest = Spec(None, *(spec[d] if d < len(spec) else None
+                            for d in range(1, part.dim())))
+        return spmd.redistribute(part, mesh, rest, Spec()).cpu()
 
 
 def probe_ids(prog: CellProgram, limit: int,
@@ -296,8 +321,19 @@ def probe_ids(prog: CellProgram, limit: int,
     """For a one-device train cell after its step: the global row ids a
     mesh run reports of each parameter of more than ``limit`` elements
     (:func:`outputs`' ``probes``): its first ``k`` rows the step's
-    gradient touched and ``k`` seeded others, sorted."""
+    gradient touched and ``k`` seeded others, sorted.  For a
+    ``stream_update`` whose vector tables hold more than ``limit``
+    elements: ``{"users": ...}``, the first ``k`` users its batches
+    name and ``k`` seeded others, sorted."""
     rng = np.random.default_rng(0)
+    if isinstance(prog.args[0], StreamState):
+        state = prog.args[0]
+        if state.user_vecs.numel() <= limit:
+            return {}
+        named = torch.cat([b.user[b.valid] for b in prog.args[1:]])
+        touched = torch.unique(named.long()).cpu().numpy()[:k]
+        return {"users": np.unique(np.concatenate(
+            [touched, rng.integers(0, state.n_users, k)]))}
     out = {}
     for name, p in prog.args[0].named_parameters():
         if p.numel() <= limit or p.grad is None:
@@ -320,6 +356,8 @@ def is_decode(arch_name: str, shape: str) -> bool:
 GNORM_TOL = dict(rtol=1e-4, atol=1e-6)
 GRAD_NORM_RTOL = 1e-3
 PARAM_TOL = dict(rtol=1e-5, atol=1e-5)
+# a stream state's float leaves (the parity bar of the update paths)
+STATE_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 def grad_error(q: torch.Tensor, p: torch.Tensor) -> float:
@@ -348,6 +386,9 @@ def held(one: Any, got: Any, what: str, decode: bool = False) -> str:
     card, two-tower's user tower at 8,192 rows: 109 of user_mlp.w.0's
     524,288 elements past ``rtol=1e-4, atol=1e-6``, by up to 3.1e-6, the
     leaf within 1.8e-4 in norm).
+
+    A ``StreamState``: its integer leaves exact, its float leaves
+    ``rtol=1e-4, atol=1e-5``.
 
     A top-n's (scores f32, ids int) scores ``rtol=1e-5, atol=1e-6`` and
     each id identical or scoring the same within that (0 mismatches);
@@ -383,6 +424,20 @@ def held(one: Any, got: Any, what: str, decode: bool = False) -> str:
                 f"{max(errs.values(), default=0.0):.2e} in norm, "
                 f"{len(one['params'])} parameters after the step within "
                 f"{worst:.2e}")
+    if isinstance(one, StreamState):
+        worst = 0.0
+        for f in dataclasses.fields(one):
+            a, b = getattr(got, f.name), getattr(one, f.name)
+            if b.dtype.is_floating_point:
+                torch.testing.assert_close(
+                    a, b, **STATE_TOL, msg=lambda m: f"{what}: {f.name}: {m}")
+                worst = max(worst, float((a.double() - b.double()).abs()
+                                         .max()) if b.numel() else 0.0)
+            else:
+                assert a.dtype == b.dtype and torch.equal(a, b), \
+                    f"{what}: {f.name} differs"
+        return (f"state of {one.n_users:,} users: integer leaves exact, "
+                f"float leaves within {worst:.2e}")
     one = one if isinstance(one, tuple) else (one,)
     got = got if isinstance(got, tuple) else (got,)
     if len(one) == 2 and one[1].dtype in (torch.int32, torch.int64):
@@ -418,8 +473,8 @@ def one_device(arch_name: str, shape: str, world: int, device: Any = None,
     parts = world if get_arch(arch_name).family == "gnn" else None
     prog = cell(dev, seed, sizes, partitions=parts)
     out = prog.fn(*prog.args)
-    probes = probe_ids(prog, *probe) if probe and isinstance(out, dict) \
-        else {}
+    probes = probe_ids(prog, *probe) if probe and isinstance(
+        out, (dict, StreamState)) else {}
     return outputs(prog, out, probes), probes
 
 
@@ -482,8 +537,8 @@ def _rank_main(rank: int, world: int, store: str, outdir: str,
     """One rank of ``--mesh``: its process group, the mesh, each cell by
     :func:`run_cell_sharded`; pickles its readings to ``outdir`` (rank 0
     with each cell's gathered outputs; every rank with ``b3_call``, the
-    first run's first ``ops.knn_topk`` call on the host, where the cell
-    makes one: :func:`recorded_b3`)."""
+    first run's first ``ops.knn_topk`` call beside its plain version on
+    the same inputs, where the cell makes one: :func:`b3_plain`)."""
     import datetime
 
     import torch.distributed as dist
@@ -516,7 +571,8 @@ def _rank_main(rank: int, world: int, store: str, outdir: str,
                     name, shape, mesh, mesh_rules(), dev, spec["seed"],
                     sizes, keep=lambda prog, out: outputs(prog, out, probes),
                     turns=tag in spec["turns"])
-            r["b3_call"] = calls[0] if calls else None
+            r["b3_call"] = b3_plain(calls[0]) if calls else None
+            del calls
             r.pop("output")
             r.pop("costs")
             if rank:
@@ -534,24 +590,40 @@ def _rank_main(rank: int, world: int, store: str, outdir: str,
 
 @contextlib.contextmanager
 def recorded_b3(calls: list):
-    """``ops.knn_topk`` (B3) with its first call kept in ``calls`` on the
-    host: (queries, corpus, k, metric, (scores, ids)), what a caller
-    holds against the plain version on the same block."""
+    """``ops.knn_topk`` (B3) with its first call kept in ``calls``:
+    (queries, corpus, k, metric, query_gids, (scores, ids)), the inputs
+    where they lie (no copy), what :func:`b3_plain` holds against the
+    plain version on the same block."""
     from repro_torch.kernels import ops
     real = ops.knn_topk
 
     def rec(queries, corpus, k, *args, **kw):
         out = real(queries, corpus, k, *args, **kw)
         if not calls:
-            calls.append((queries.detach().cpu(), corpus.detach().cpu(), k,
+            calls.append((queries.detach(), corpus.detach(), k,
                           kw.get("metric", "euclidean"),
-                          tuple(t.cpu() for t in out)))
+                          kw.get("query_gids"), out))
         return out
     ops.knn_topk = rec
     try:
         yield calls
     finally:
         ops.knn_topk = real
+
+
+def b3_plain(call: tuple) -> dict:
+    """A :func:`recorded_b3` call beside B3's plain version
+    (``ref.knn_topk_ref``) on the same inputs on the same device: ``k``,
+    ``metric``, the block's ``rows`` and ``dim``, and both answers
+    (``out``, ``plain``: (scores, ids)) on the host, what a caller holds
+    one against the other."""
+    from repro_torch.kernels import ref
+    queries, corpus, k, metric, gids, out = call
+    plain = ref.knn_topk_ref(queries, corpus, k, metric=metric,
+                             query_gids=gids)
+    return {"k": k, "metric": metric, "rows": corpus.shape[0],
+            "dim": corpus.shape[1], "out": tuple(t.cpu() for t in out),
+            "plain": tuple(t.cpu() for t in plain)}
 
 
 def run_ranks(cells: List[Tuple[str, str]], mesh: Tuple[int, int],

@@ -33,6 +33,7 @@ these.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Iterable, List, NamedTuple, Optional
 
 import numpy as np
@@ -149,7 +150,10 @@ class ClippedOptimizer(torch.optim.Optimizer):
     def _init_state(self, p: torch.Tensor, group: dict) -> dict:
         raise NotImplementedError
 
-    def _update(self, p, g, state, group) -> None:
+    def _update(self, p, g, state, group, layout=None) -> None:
+        """Update ``p`` (a local block) from ``g`` and ``state`` (its
+        blocks, the same placements).  ``layout`` (mesh, :class:`Spec`,
+        global shape) of a DTensor parameter, else ``None``."""
         raise NotImplementedError
 
     @torch.no_grad()
@@ -167,10 +171,11 @@ class ClippedOptimizer(torch.optim.Optimizer):
             [g for _, _, g in pairs], self.defaults["clip_norm"])
         for p, group, g in pairs:
             # a DTensor parameter is updated through its block (its grad
-            # and state share its placements): no collective
+            # and state share its placements); only Adafactor's whole-leaf
+            # means reduce over ranks
             self._update(spmd.local(p), spmd.local(g),
                          {k: spmd.local(v) for k, v in self.state[p].items()},
-                         group)
+                         group, _layout(p))
         self.n_steps += 1
         return loss
 
@@ -183,7 +188,7 @@ class AdamW(ClippedOptimizer):
         return {"m": torch.zeros_like(p, dtype=torch.float32),
                 "v": torch.zeros_like(p, dtype=torch.float32)}
 
-    def _update(self, p, g, state, group):
+    def _update(self, p, g, state, group, layout=None):
         b1, b2, eps, wd = (group[k] for k in ("b1", "b2", "eps",
                                               "weight_decay"))
         t = _F32(self.n_steps + 1)
@@ -212,32 +217,78 @@ def adamw(params, lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
                               total_steps=total_steps, clip_norm=clip_norm))
 
 
+def _layout(p: Any) -> Optional[tuple]:
+    """(mesh, :class:`Spec`, global shape) of a DTensor, else ``None``."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(p, DTensor):
+        return None
+    return p.device_mesh, spmd.spec_of(p), tuple(p.shape)
+
+
 class Adafactor(ClippedOptimizer):
     """The reference's ``adafactor`` (Shazeer & Stern, 2018): factored
     second moments ``vr`` / ``vc`` for a leaf whose last two dims are
     both at least ``min_dim_factored``, a full ``v`` otherwise, and the
-    update clipped to an RMS of at most 1."""
+    update clipped to an RMS of at most 1.
+
+    A DTensor parameter's state is DTensors of the placements
+    :func:`adafactor_state_pspecs` gives (``vr`` drops the last dim's
+    axes, ``vc`` the next-to-last's), each rank holding its blocks.
+    Every mean the reference takes over a whole leaf is the rank's sum
+    added over exactly the mesh axes that split the dims it runs over,
+    divided by the global size: ``vr``'s over the last dim, ``vc``'s over
+    the next-to-last, ``rfac``'s over ``vr``'s last (the parameter's
+    next-to-last), and the update's RMS over the axes that split any dim
+    (a replicated axis counts the leaf once).  Row chunks stay local.
+    """
 
     def _factored(self, p, group) -> bool:
         k = group["min_dim_factored"]
         return p.dim() >= 2 and p.shape[-1] >= k and p.shape[-2] >= k
 
     def _init_state(self, p, group):
-        from torch.distributed.tensor import DTensor
-        if isinstance(p, DTensor):
-            # the factored moments and the update's RMS reduce over whole
-            # leaves; the sharded train steps use AdamW
-            raise NotImplementedError("adafactor over DTensor parameters")
-        f32 = dict(dtype=torch.float32, device=p.device)
+        layout = _layout(p)
+        local = spmd.local(p)
+        f32 = dict(dtype=torch.float32, device=local.device)
         if self._factored(p, group):
-            return {"vr": torch.zeros(p.shape[:-1], **f32),
-                    "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)}
-        return {"v": torch.zeros_like(p, dtype=torch.float32)}
+            state = {"vr": torch.zeros(local.shape[:-1], **f32),
+                     "vc": torch.zeros(local.shape[:-2] + local.shape[-1:],
+                                       **f32)}
+        else:
+            state = {"v": torch.zeros_like(local, dtype=torch.float32)}
+        if layout is None:
+            return state
+        mesh, spec, shape = layout
+        specs = adafactor_state_pspecs({"p": shape}, {"p": spec},
+                                       group["min_dim_factored"]).inner["p"]
+        return {k: spmd.from_local(v, mesh, specs[k])
+                for k, v in state.items()}
 
-    def _update(self, p, g, state, group):
+    def _update(self, p, g, state, group, layout=None):
         eps = group["eps"]
         beta = float(_F32(1.0) - (_F32(self.n_steps) + _F32(1.0))
                      ** _F32(-group["decay"]))
+        mesh, spec, shape = layout or (None, Spec(), tuple(p.shape))
+
+        def split(*dims):
+            # the mesh axes that split these dims of the parameter
+            names = () if mesh is None else tuple(mesh.mesh_dim_names)
+            used = {a for d in dims for a in spec.axes(d % len(shape))}
+            return tuple(a for a in names if a in used)
+
+        def total(x, dims):
+            # x summed over the ranks of the axes that split dims
+            axes = split(*dims)
+            return spmd.psum(x, mesh, axes) if axes else x
+
+        def mean(x, dim, pdim):
+            # the mean over dim of x, a leaf whose dim is the parameter's
+            # pdim, as one device takes it over the whole leaf
+            if not split(pdim):
+                return torch.mean(x, dim=dim, keepdim=True)
+            return total(torch.sum(x, dim=dim, keepdim=True),
+                         (pdim,)) / shape[pdim]
+
         slices = row_slices(p)
         if "v" in state:
             def precond(sl):
@@ -252,17 +303,17 @@ class Adafactor(ClippedOptimizer):
             col_sum = torch.zeros_like(vc) if p.dim() == 2 else None
             for sl in slices:
                 g2 = torch.square(g[sl].float()).add_(eps)
-                vr[sl].mul_(beta).add_(torch.mean(g2, dim=-1),
+                vr[sl].mul_(beta).add_(mean(g2, -1, -1)[..., 0],
                                        alpha=1 - beta)
                 if col_sum is None:
-                    vc[sl].mul_(beta).add_(torch.mean(g2, dim=-2),
+                    vc[sl].mul_(beta).add_(mean(g2, -2, -2)[..., 0, :],
                                            alpha=1 - beta)
                 else:
                     col_sum.add_(torch.sum(g2, dim=0))
             if col_sum is not None:
-                vc.mul_(beta).add_(col_sum / p.shape[0], alpha=1 - beta)
-            r_norm = torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
-                                 min=eps)
+                vc.mul_(beta).add_(total(col_sum, (-2,)) / shape[-2],
+                                   alpha=1 - beta)
+            r_norm = torch.clamp(mean(vr, -1, -2), min=eps)
             cfac = torch.rsqrt(vc + eps).unsqueeze(-2)
 
             def precond(sl):
@@ -271,8 +322,9 @@ class Adafactor(ClippedOptimizer):
                 cf = cfac if p.dim() == 2 else cfac[sl]
                 return g[sl].float() * rfac * cf
         # update clipping (RMS <= 1) over the whole leaf, then the update
-        sq = sum(torch.sum(torch.square(precond(sl))) for sl in slices)
-        rms = torch.sqrt(sq / max(p.numel(), 1) + 1e-12)
+        sq = total(sum(torch.sum(torch.square(precond(sl))) for sl in slices),
+                   range(len(shape)))
+        rms = torch.sqrt(sq / max(math.prod(shape), 1) + 1e-12)
         denom = torch.clamp(rms, min=1.0)
         for sl in slices:
             _sub(p[sl], (precond(sl) / denom).mul_(group["lr"]))
@@ -293,7 +345,7 @@ class SGD(ClippedOptimizer):
     def _init_state(self, p, group):
         return {"m": torch.zeros_like(p, dtype=torch.float32)}
 
-    def _update(self, p, g, state, group):
+    def _update(self, p, g, state, group, layout=None):
         m = state["m"]
         for sl in row_slices(p):
             ms = m[sl]

@@ -329,17 +329,23 @@ def redistribute(x: torch.Tensor, mesh: Any, have: Spec,
                  want: Spec) -> torch.Tensor:
     """The local block ``x`` of a tensor laid out by ``have`` as its
     block under ``want``: each dim whose axes differ is gathered over
-    ``have``'s, then cut over ``want``'s.  The gradient is the reverse
-    move of the cotangent (a sharding constraint's)."""
+    ``have``'s, then cut over ``want``'s; a dim whose ``have`` axes lead
+    ``want``'s (rows over "data" to rows over ("data", "model")) is only
+    cut further over the rest, with nothing gathered.  The gradient is
+    the reverse move of the cotangent (a sharding constraint's)."""
     ndim = x.dim()
+
+    def refined(h, w):
+        return len(h) < len(w) and w[:len(h)] == h
     for d in range(ndim):
         h, w = _spec_axes(have, d), _spec_axes(want, d)
-        if h and h != w:
+        if h and h != w and not refined(h, w):
             x = _Gather.apply(x, mesh, _axes(mesh, h), d)
     for d in range(ndim):
         h, w = _spec_axes(have, d), _spec_axes(want, d)
         if w and h != w:
-            x = _Chunk.apply(x, mesh, _axes(mesh, w), d)
+            cut = w[len(h):] if refined(h, w) else w
+            x = _Chunk.apply(x, mesh, _axes(mesh, cut), d)
     return x
 
 

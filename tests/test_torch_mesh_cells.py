@@ -3,7 +3,8 @@
 ``launch/dryrun.run_ranks`` (what ``--mesh`` starts) runs one cell of
 each kind per family at ``configs.smoke_sizes`` in 4 rank processes on
 the (2, 2) ("data", "model") mesh: granite-3-2b's train step, prefill
-and decode; DLRM's train step, DeepFM's serving, two-tower's retrieval
+and decode; DeepSeek-V3's train step (MLA, the MoE, Adafactor over
+DTensor parameters); DLRM's train step, DeepFM's serving, two-tower's retrieval
 and BERT4Rec's bulk serving; DimeNet's molecule train step.  Each cell
 is built on every rank from one seed and placed by its own
 ``in_shardings``, and its gathered outputs are held to the one-device
@@ -39,7 +40,8 @@ from torch_ranks import run_jax, started
 
 MESH = (2, 2)
 CELLS = [("granite-3-2b", "train_4k"), ("granite-3-2b", "prefill_32k"),
-         ("granite-3-2b", "decode_32k"), ("dlrm-mlperf", "train_batch"),
+         ("granite-3-2b", "decode_32k"), ("deepseek-v3-671b", "train_4k"),
+         ("dlrm-mlperf", "train_batch"),
          ("deepfm", "serve_p99"), ("two-tower-retrieval", "retrieval_cand"),
          ("bert4rec", "serve_bulk"), ("dimenet", "molecule")]
 
@@ -235,9 +237,14 @@ def test_a_wrong_gradient_fails_the_comparison(runs, wrong):
 
 
 def test_cells_without_a_mesh_route_are_named():
-    assert "UserShardSpec" in dryrun.no_mesh_route("tifu-knn", "serve_topk")
-    assert "Adafactor" in dryrun.no_mesh_route("deepseek-v3-671b",
-                                               "train_4k")
+    for shape in ("stream_update", "serve_topk", "serve_topk_opt"):
+        assert dryrun.no_mesh_route("tifu-knn", shape, 2) is None
+        assert dryrun.no_mesh_route("tifu-knn", shape, 2,
+                                    smoke_sizes("tifu-knn", shape)) is None
+    assert dryrun.no_mesh_route("deepseek-v3-671b", "train_4k", 2) is None
+    assert dryrun.no_mesh_route("deepseek-v3-671b", "train_4k", 2,
+                                smoke_sizes("deepseek-v3-671b",
+                                            "train_4k")) is None
     c = smoke_sizes("command-r-plus-104b", "prefill_32k")
     assert "heads" in dryrun.no_mesh_route("command-r-plus-104b",
                                            "prefill_32k", 4, c)

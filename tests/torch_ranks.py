@@ -575,13 +575,129 @@ def job_spmd(rank, world, args):
     return out
 
 
+def job_sharded_adafactor(rank, world, args):
+    """``optimizers.adafactor`` over DTensor parameters placed by the
+    cases' specs, two steps from the gradients in ``args["inputs"]``:
+    every parameter and state leaf after them, gathered whole."""
+    import numpy as np
+    import torch
+
+    from repro_torch.optim import optimizers
+    from repro_torch.parallel import spmd
+    mesh = _mesh(args["mesh"], args["names"])
+    data = np.load(args["inputs"])
+    names = sorted(args["specs"])
+    params = []
+    for n in names:
+        spec = _spec(args["specs"][n])
+        block = spmd.local_block(torch.from_numpy(data[n]), mesh, spec)
+        params.append(torch.nn.Parameter(
+            spmd.from_local(block.clone(), mesh, spec)))
+    opt = optimizers.adafactor(params, **args["hyper"])
+    for step in range(args["steps"]):
+        for n, p in zip(names, params):
+            spec = _spec(args["specs"][n])
+            g = torch.from_numpy(data[f"{n}.g{step}"])
+            p.grad = spmd.from_local(
+                spmd.local_block(g, mesh, spec).clone(), mesh, spec)
+        opt.step()
+    return {n: {"param": spmd.gather_full(p.detach()).numpy(),
+                **{k: spmd.gather_full(v).numpy()
+                   for k, v in opt.state[p].items()},
+                "state_spec": {k: tuple(spmd.spec_of(v))
+                               for k, v in opt.state[p].items()}}
+            for n, p in zip(names, params)}
+
+
+def job_mesh_tifu(rank, world, args):
+    """tifu-knn under the (2, 2) mesh on the inputs in ``args["inputs"]``:
+    ``stream_update``'s seeded state (``tifu_knn.SMOKE_SIZES``, seed
+    ``args["seed"]``) after the given batches, placed by the cell's
+    ``in_shardings``; ``knn.predict`` (with and without self-exclusion)
+    and ``knn.distributed_predict``'s mesh route on the given queries
+    and corpus placed by the serve cells' ``in_shardings``; and the two
+    negative runs: the micro-batch with no exchange (each rank applies
+    the rows it holds), the merge without its "data" step.  Everything
+    gathered whole."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import tifu_knn
+    from repro_torch.configs.base import mesh_shape, place
+    from repro_torch.core import knn
+    from repro_torch.core.types import AddBatch, DelBasketBatch, DelItemBatch
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel import spmd
+    mesh = _mesh(args["mesh"], args["names"])
+    rules = dryrun.mesh_rules()
+    data = np.load(args["inputs"])
+    sz, k, alpha = tifu_knn.SMOKE_SIZES, args["k"], args["alpha"]
+
+    def t(name):
+        return torch.from_numpy(data[name])
+    batches = (AddBatch(t("add.user"), t("add.items"), t("add.valid")),
+               DelBasketBatch(t("delb.user"), t("delb.pos"), t("delb.valid")),
+               DelItemBatch(t("deli.user"), t("deli.pos"), t("deli.item"),
+                            t("deli.valid")))
+
+    def stream():
+        prog = tifu_knn.stream_update_cell("cpu", args["seed"], sz,
+                                           mesh=mesh, rules=rules)
+        placed = [place(b, sh, mesh)
+                  for b, sh in zip(batches, prog.in_shardings[1:])]
+        out = prog.fn(prog.args[0], *placed)
+        return convert.state_to_numpy(dryrun.outputs(prog, out))
+
+    out = {"stream": stream()}
+    real_whole = tifu_knn.whole_batch
+    tifu_knn.whole_batch = lambda b: dataclasses.replace(b, **{
+        f.name: spmd.local(getattr(b, f.name)) for f in dataclasses.fields(b)})
+    try:
+        out["stream_no_exchange"] = stream()
+    finally:
+        tifu_knn.whole_batch = real_whole
+
+    q, c = t("queries"), t("corpus")
+    ms = mesh_shape(mesh)
+    qs, cs = tifu_knn.cell_shardings("serve_topk", ms, rules)
+    qd, cd = place(q, qs, mesh), place(c, cs, mesh)
+    out["predict"] = spmd.gather_full(knn.predict(
+        qd, cd, k, alpha, exclude_self=False, mesh=mesh,
+        rules=rules)).numpy()
+    ids = t("self_ids")
+    out["predict_self"] = spmd.gather_full(knn.predict(
+        place(c[ids.long()], qs, mesh), cd, k, alpha,
+        exclude_self=True, query_ids=ids, mesh=mesh, rules=rules)).numpy()
+    qs, cs = tifu_knn.cell_shardings("serve_topk_opt", ms, rules)
+    qd, cd = place(q, qs, mesh), place(c, cs, mesh)
+
+    def opt():
+        return spmd.gather_full(knn.distributed_predict(
+            qd, cd, k, alpha, mesh=mesh, rules=rules)).numpy()
+    out["opt"] = opt()
+    real_merge = knn._merge_over
+    knn._merge_over = lambda vals, gids, k_, mesh_, axis: (
+        (vals, gids) if axis == "data" else
+        real_merge(vals, gids, k_, mesh_, axis))
+    try:
+        out["opt_no_data_merge"] = opt()
+    finally:
+        knn._merge_over = real_merge
+    return out
+
+
 JOBS = {"hierarchical": job_hierarchical, "distribute": job_distribute,
         "sharded_models": job_sharded_models, "spmd": job_spmd,
         "sharded_recsys": job_sharded_recsys,
         "sharded_moe": job_sharded_moe,
         "sharded_lm": job_sharded_lm,
         "elastic_save": job_elastic_save,
-        "elastic_restore": job_elastic_restore}
+        "elastic_restore": job_elastic_restore,
+        "sharded_adafactor": job_sharded_adafactor,
+        "mesh_tifu": job_mesh_tifu}
 
 
 def main(argv):
